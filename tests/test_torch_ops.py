@@ -1,0 +1,216 @@
+"""The port's ops layer against the JAX package: initializers, the upsample
+fold, spectral-norm conv/dense on stored u/v, the modulation epilogue (plain
+version vs ``xmc_gan_tpu.ops.fused`` and the Pallas kernels in interpret mode),
+and the CUDA kernel wrapper's guards.  The kernel itself runs only on the card
+(``tests/test_torch_cuda.py``, marker ``cuda``)."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from xmc_gan_tpu.ops import fused as jax_fused
+from xmc_gan_tpu.ops.modules import SNConv as JaxSNConv
+from xmc_gan_tpu.ops.modules import SNDense as JaxSNDense
+from xmc_gan_tpu.ops.modules import upsample_nearest_2x as jax_upsample
+from xmc_gan_tpu.ops.pallas.fused_affine import (
+    double_modulate_lrelu_pallas,
+    modulate_lrelu_pallas,
+)
+from xmc_gan_tpu_torch.models.common import affine_out_inits, inits
+from xmc_gan_tpu_torch.ops import fused
+from xmc_gan_tpu_torch.ops.cuda import build as cuda_build
+from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
+from xmc_gan_tpu_torch.ops.initializers import he_normal_fan_in, torch_default_kernel_init
+from xmc_gan_tpu_torch.ops.modules import (
+    SNConv,
+    SNDense,
+    fold_upsample_kernel,
+    upsample_nearest_2x,
+)
+from xmc_gan_tpu_torch.utils.convert import conv_state_dict, dense_state_dict
+
+BF16_ULP = 2.0 ** -7  # spacing of bf16 values in [1, 2)
+
+
+def _nchw(x_nhwc: np.ndarray) -> torch.Tensor:
+    return torch.tensor(x_nhwc).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.permute(0, 2, 3, 1).float().numpy()
+
+
+def _gen(seed=0):
+    return torch.Generator().manual_seed(seed)
+
+
+def test_initializers_match_reference_statistics():
+    """He fan-in normal: std sqrt(2/fan_in); PyTorch default: U(+-1/sqrt(fan_in))."""
+    w = torch.empty(256, 64, 3, 3)
+    he_normal_fan_in(w, _gen())
+    assert abs(w.std().item() - math.sqrt(2 / (64 * 9))) < 0.01 * math.sqrt(2 / (64 * 9))
+    torch_default_kernel_init(w, _gen())
+    bound = 1 / math.sqrt(64 * 9)
+    assert w.abs().max().item() <= bound and w.abs().max().item() > 0.99 * bound
+    b = torch.empty(1000)
+    inits(False, 10)[1](b, _gen())
+    assert b.abs().max().item() <= 1 / math.sqrt(10)
+    k, gb = affine_out_inits(False, gamma=True, fan_in=256)
+    k(w, _gen()), gb(b, _gen())
+    assert w.abs().max().item() == 0 and bool((b == 1).all())
+    k, gb = affine_out_inits(True, gamma=True, fan_in=256)
+    assert k is he_normal_fan_in
+    gb(b, _gen())
+    assert b.abs().max().item() == 0
+
+
+def test_fold_equals_upsample_then_conv():
+    """conv_transpose2d with the folded (unflipped) taps == upsample -> conv3x3.
+    Tolerance: fp32 summation order only (1e-5)."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 5, 6, 7).astype(np.float32))
+    w = torch.from_numpy(rng.randn(4, 5, 3, 3).astype(np.float32))
+    want = torch.nn.functional.conv2d(upsample_nearest_2x(x), w, padding=1)
+    got = torch.nn.functional.conv_transpose2d(x, fold_upsample_kernel(w), stride=2, padding=1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_upsample_matches_jax():
+    x = np.random.RandomState(1).randn(2, 3, 5, 4).astype(np.float32)
+    want = np.asarray(jax_upsample(jnp.asarray(x)))
+    np.testing.assert_array_equal(_nhwc(upsample_nearest_2x(_nchw(x))), want)
+
+
+@pytest.mark.parametrize("pre_upsample", [True, False])
+def test_snconv_matches_jax(pre_upsample):
+    """3x3/pad-1 SNConv, folded (vs the JAX pre-flipped input-dilated fold) and
+    plain.  Tolerance: fp32 summation order (1e-5)."""
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 6, 5, 8).astype(np.float32)
+    m = JaxSNConv(7, 3, padding=1, pre_upsample=pre_upsample)
+    params = jax.tree.map(np.asarray, m.init(jax.random.PRNGKey(0), x)["params"])
+    params["bias"] = rng.randn(7).astype(np.float32)
+    want = np.asarray(m.apply({"params": params}, x))
+    port = SNConv(8, 7, 3, padding=1, pre_upsample=pre_upsample, gen=_gen())
+    port.load_state_dict(conv_state_dict(params), strict=True)
+    with torch.no_grad():
+        got = _nhwc(port(_nchw(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["dense", "conv3x3", "conv4x4s2"])
+def test_spectral_norm_on_stored_uv_matches_jax(kind):
+    """Spectral norm with the stored u/v (the JAX non-mutable branch); conv v
+    re-ordered from the JAX (kH, kW, I) to the torch (I, kH, kW) flattening.
+    Tolerance: fp32 (1e-5)."""
+    rng = np.random.RandomState(3)
+    if kind == "dense":
+        x = rng.randn(4, 9).astype(np.float32)
+        m = JaxSNDense(5, spec_norm=True)
+        port = SNDense(9, 5, spec_norm=True, gen=_gen())
+        to_sd, to_port, from_port = dense_state_dict, torch.from_numpy, lambda t: t.numpy()
+    else:
+        k, s, p = (3, 1, 1) if kind == "conv3x3" else (4, 2, 1)
+        x = rng.randn(2, 8, 8, 6).astype(np.float32)
+        m = JaxSNConv(5, k, strides=s, padding=p, use_bias=False, spec_norm=True)
+        port = SNConv(6, 5, k, stride=s, padding=p, use_bias=False, spec_norm=True, gen=_gen())
+        to_sd, to_port, from_port = conv_state_dict, _nchw, _nhwc
+    variables = jax.tree.map(np.asarray, m.init(jax.random.PRNGKey(0), x))
+    want = np.asarray(m.apply(variables, x))  # spectral collection not mutable
+    port.load_state_dict(to_sd(variables["params"], variables["spectral"]), strict=True)
+    with torch.no_grad():
+        got = from_port(port(to_port(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _epilogue_inputs(seed, shape=(2, 16, 4, 4), nmod=2):
+    rng = np.random.RandomState(seed)
+    b, c, h, w = shape
+    x = rng.randn(b, h, w, c).astype(np.float32)
+    mods = [rng.randn(b, c).astype(np.float32) for _ in range(2 * nmod)]
+    return x, mods
+
+
+@pytest.mark.parametrize("nmod", [1, 2])
+def test_plain_epilogue_matches_jax_fp32(nmod):
+    """Plain version vs ``ops/fused.py`` and vs the Pallas kernel (interpret
+    mode).  Tolerance: 1e-6, fp32 rounding of the same expression."""
+    x, mods = _epilogue_inputs(4, nmod=nmod)
+    jax_plain = jax_fused.modulate_lrelu if nmod == 1 else jax_fused.double_modulate_lrelu
+    pallas = modulate_lrelu_pallas if nmod == 1 else double_modulate_lrelu_pallas
+    port = fa.modulate_lrelu_ref if nmod == 1 else fa.double_modulate_lrelu_ref
+    got = _nhwc(port(_nchw(x), *map(torch.from_numpy, mods)))
+    np.testing.assert_allclose(got, np.asarray(jax_plain(x, *mods)), rtol=1e-6, atol=1e-6)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pallas(jnp.asarray(x), *map(jnp.asarray, mods)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("nmod", [1, 2])
+def test_plain_epilogue_matches_pallas_bf16(nmod):
+    """bf16: fp32 math and one rounding on store, like the Pallas kernel —
+    within one bf16 ulp of it.  The JAX plain epilogue rounds every bf16
+    product and sum inside the chain, whose terms can be larger than the
+    result, so it is held to a looser bound: 4 ulps relative plus 2^-6
+    absolute (two ulps at the O(1) scale of these operands)."""
+    x, mods = _epilogue_inputs(5, shape=(2, 32, 8, 8), nmod=nmod)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    pallas = modulate_lrelu_pallas if nmod == 1 else double_modulate_lrelu_pallas
+    port = fa.modulate_lrelu_ref if nmod == 1 else fa.double_modulate_lrelu_ref
+    got_t = port(_nchw(np.asarray(xb.astype(jnp.float32))).bfloat16(),
+                 *map(torch.from_numpy, mods))
+    assert got_t.dtype == torch.bfloat16
+    got = _nhwc(got_t)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pallas(xb, *map(jnp.asarray, mods)).astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=BF16_ULP, atol=0)
+    jax_plain = jax_fused.modulate_lrelu if nmod == 1 else jax_fused.double_modulate_lrelu
+    want_plain = jax_plain(xb, *[jnp.asarray(m, jnp.bfloat16) for m in mods])
+    np.testing.assert_allclose(got, np.asarray(want_plain.astype(jnp.float32)),
+                               rtol=4 * BF16_ULP, atol=2.0 ** -6)
+
+
+def test_seam_uses_plain_version_on_cpu_without_counting():
+    x, mods = _epilogue_inputs(6)
+    xt, mt = _nchw(x), list(map(torch.from_numpy, mods))
+    before = fa.KERNEL.launches
+    torch.testing.assert_close(fused.double_modulate_lrelu(xt, *mt),
+                               fa.double_modulate_lrelu_ref(xt, *mt), rtol=0, atol=0)
+    torch.testing.assert_close(fused.modulate_lrelu(xt, *mt[:2]),
+                               fa.modulate_lrelu_ref(xt, *mt[:2]), rtol=0, atol=0)
+    want = mt[0][:, :, None, None] * xt + mt[1][:, :, None, None]
+    torch.testing.assert_close(fused.modulate(xt, *mt[:2]), want, rtol=0, atol=0)
+    assert fa.KERNEL.launches == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    x, mods = _epilogue_inputs(7)
+    xt, mt = _nchw(x), list(map(torch.from_numpy, mods))
+    with pytest.raises(NotImplementedError, match="backward"):
+        fa.double_modulate_lrelu_kernel(xt.clone().requires_grad_(), *mt)
+    with torch.no_grad():  # no grad mode: requires_grad inputs are fine
+        fa.double_modulate_lrelu_kernel(xt.clone().requires_grad_(), *mt)
+    with pytest.raises(ValueError, match="channels_last"):
+        fa.double_modulate_lrelu_kernel(xt.contiguous(), *mt)
+    with pytest.raises(ValueError, match=r"\[B, C\]"):
+        fa.modulate_lrelu_kernel(xt, mt[0][:, :3], mt[1])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.modulate_lrelu_kernel(xt.half(), *mt[:2])
+    with pytest.raises(ValueError, match="NCHW"):
+        fa.modulate_lrelu_kernel(xt[0], *mt[:2])
+
+
+def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build("fused_affine.cu")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.CudaLibrary("fused_affine.cu", fa.KERNEL.signatures).load()

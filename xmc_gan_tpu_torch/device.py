@@ -1,0 +1,27 @@
+"""Device selection for the port's entry points.
+
+The port runs on the card: an entry point given no device uses ``cuda`` and
+raises when there is none.  The CPU is used only when the caller asks for it
+(the tests do); nothing falls back to it silently.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device", "DTYPES"]
+
+# CLI / config spelling -> torch dtype
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device without a usable GPU raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev

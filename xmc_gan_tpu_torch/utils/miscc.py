@@ -1,0 +1,39 @@
+"""Image-grid saving (port of ``to_uint8``/``save_image_grid`` in
+``xmc_gan_tpu/utils/miscc.py``; reference ``model/modules.py:7-11``)."""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+
+__all__ = ["to_uint8", "save_image_grid"]
+
+
+def to_uint8(imgs: np.ndarray) -> np.ndarray:
+    """[-1, 1] float NHWC -> uint8 (reference denorm ``(x+1)*127.5``,
+    ``train_gan.py:369-371``).  uint8 input passes through."""
+    arr = np.asarray(imgs)
+    if arr.dtype == np.uint8:
+        return arr
+    arr = (arr.astype(np.float32) + 1.0) * 127.5
+    return np.clip(arr + 0.5, 0, 255).astype(np.uint8)
+
+
+def save_image_grid(imgs: np.ndarray, path: str, nrow: int = 8, pad: int = 2) -> None:
+    """Tile a [-1,1] NHWC batch into one PNG (reference ``vutils.save_image``
+    grids, ``train_gan.py:297-298,323-326``)."""
+    from PIL import Image
+
+    arr = to_uint8(imgs)
+    n, h, w, c = arr.shape
+    ncol = min(nrow, n)
+    nrows = math.ceil(n / ncol)
+    canvas = np.zeros((nrows * (h + pad) + pad, ncol * (w + pad) + pad, c), np.uint8)
+    for i in range(n):
+        r, col = divmod(i, ncol)
+        y, x = pad + r * (h + pad), pad + col * (w + pad)
+        canvas[y : y + h, x : x + w] = arr[i]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    Image.fromarray(canvas.squeeze()).save(path)
