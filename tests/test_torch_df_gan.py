@@ -125,11 +125,11 @@ def test_epilogue_calls_and_shapes(size, fuse, monkeypatch):
 
     monkeypatch.setattr(df_gan, "double_modulate_lrelu", spy)
     g = port_g(cfg, jax_g_params(jcfg), fuse_upsample=fuse)
-    before = fa.KERNEL.launches
+    before = fa.FORWARD.launches
     _port(g, *_inputs(cfg))
     assert seen == df_gan.epilogue_shapes(cfg, 2, fuse)
     assert len(seen) == {64: 10, 256: 14}[size]
-    assert fa.KERNEL.launches == before
+    assert fa.FORWARD.launches == before
 
 
 def test_epilogue_shapes_at_flagship_width():

@@ -18,8 +18,15 @@ import torch
 import xmc_gan_tpu_torch
 from xmc_gan_tpu_torch.config import cfg_from_dict
 from xmc_gan_tpu_torch.device import resolve_device
+from xmc_gan_tpu_torch import losses
+from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
-from xmc_gan_tpu_torch.train import make_generator, make_sample_fn
+from xmc_gan_tpu_torch.train import (
+    create_train_state,
+    make_generator,
+    make_sample_fn,
+    make_train_step,
+)
 from xmc_gan_tpu_torch.trainer import make_encode_fn
 
 REPO = Path(__file__).resolve().parents[1]
@@ -89,7 +96,7 @@ def _caption_batch():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "make_encode_fn", "make_generator",
-                                   "make_sample_fn"])
+                                   "make_sample_fn", "create_train_state"])
 def test_entry_points_run_on_cuda_unless_cpu_is_asked(entry, no_cuda):
     """No GPU and no explicit CPU request: raise, never fall back."""
     cfg = cfg_from_dict(TINY)
@@ -98,6 +105,7 @@ def test_entry_points_run_on_cuda_unless_cpu_is_asked(entry, no_cuda):
         "make_encode_fn": lambda **kw: make_encode_fn(cfg, **kw),
         "make_generator": lambda **kw: make_generator(cfg, **kw),
         "make_sample_fn": lambda **kw: make_sample_fn(cfg, **kw),
+        "create_train_state": lambda **kw: create_train_state(cfg, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
@@ -111,6 +119,19 @@ def test_cpu_request_runs_the_whole_path(no_cuda):
     words, sent, mask = make_encode_fn(cfg, device="cpu")(_caption_batch())
     img = make_sample_fn(cfg, device="cpu")(np.zeros((2, 8), np.float32), sent, words, mask)
     assert img.shape == (2, 64, 64, 3) and img.device.type == "cpu"
+
+
+def test_train_step_runs_where_the_state_is(no_cuda):
+    """``make_train_step`` takes no device: the step runs on the state's, which
+    ``create_train_state`` put on the card unless the CPU was asked for."""
+    cfg = cfg_from_dict({**TINY, "TRAIN": {**TINY["TRAIN"], "MAGP": True}})
+    state = create_train_state(cfg, device="cpu")
+    rng = np.random.RandomState(0)
+    batch = {"imgs": rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+             "sent_embs": rng.randn(2, 16).astype(np.float32)}
+    metrics = make_train_step(cfg)(state, batch, rng.randn(2, 8).astype(np.float32))
+    assert state.step == 1
+    assert all(v.device.type == "cpu" and bool(torch.isfinite(v.float())) for v in metrics.values())
 
 
 def test_unsupported_device_raises():
@@ -127,11 +148,23 @@ def test_kernel_wrapper_has_no_quiet_route_for_other_devices():
         fa.double_modulate_lrelu_kernel(x, g, g, g, g)
 
 
+def test_damsm_wrapper_has_no_quiet_route_for_other_devices():
+    """The same for the word-score kernels, also when the train step's loss
+    asks for them explicitly."""
+    r = torch.empty(2, 5, 8, device="meta")
+    w = torch.empty(3, 4, 8, device="meta")
+    m = torch.zeros(3, 4, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU tensors"):
+        ds.damsm_scores(r, w, m)
+    with pytest.raises(ValueError, match="CUDA or CPU tensors"):
+        losses.word_region_scores(r, w, m, backend="kernel")
+
+
 def test_modules_list_covers_the_slice():
-    want = {"config", "device", "registry", "trainer", "train", "cli", "ops.initializers",
-            "ops.modules", "ops.fused", "ops.cuda.build", "ops.cuda.fused_affine",
-            "models.common", "models.df_gan", "models.encoder", "utils.convert",
-            "utils.miscc", "data.vocab"}
+    want = {"config", "device", "registry", "trainer", "train", "cli", "losses",
+            "ops.initializers", "ops.modules", "ops.fused", "ops.images", "ops.cuda.build",
+            "ops.cuda.fused_affine", "ops.cuda.damsm_score", "models.common",
+            "models.df_gan", "models.encoder", "utils.convert", "utils.miscc", "data.vocab"}
     assert {f"xmc_gan_tpu_torch.{m}" for m in want} <= set(MODULES)
     for name in MODULES:
         importlib.import_module(name)

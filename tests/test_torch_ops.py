@@ -179,22 +179,69 @@ def test_plain_epilogue_matches_pallas_bf16(nmod):
 def test_seam_uses_plain_version_on_cpu_without_counting():
     x, mods = _epilogue_inputs(6)
     xt, mt = _nchw(x), list(map(torch.from_numpy, mods))
-    before = fa.KERNEL.launches
+    before = fa.FORWARD.launches
     torch.testing.assert_close(fused.double_modulate_lrelu(xt, *mt),
                                fa.double_modulate_lrelu_ref(xt, *mt), rtol=0, atol=0)
     torch.testing.assert_close(fused.modulate_lrelu(xt, *mt[:2]),
                                fa.modulate_lrelu_ref(xt, *mt[:2]), rtol=0, atol=0)
     want = mt[0][:, :, None, None] * xt + mt[1][:, :, None, None]
     torch.testing.assert_close(fused.modulate(xt, *mt[:2]), want, rtol=0, atol=0)
-    assert fa.KERNEL.launches == before
+    assert fa.FORWARD.launches == before
+
+
+@pytest.mark.parametrize("nmod", [1, 2])
+@pytest.mark.parametrize("dy_layout", ["channels_last", "contiguous"])
+def test_backward_matches_jax_vjp_fp32(nmod, dy_layout):
+    """The autograd Function's CPU backward (``fused_affine_bwd_ref``) against
+    ``jax.vjp`` of the JAX plain epilogue (``ops/fused.py``): dx and the
+    modulation vectors' gradients, summed over H*W.  Including the kink: a
+    few inputs sit exactly where g0 * x + b0 = 0, where LeakyReLU's
+    derivative is 1 in both (``jnp.where(y >= 0, ...)``).  Tolerance:
+    fp32 sums in another order (1e-5)."""
+    x, mods = _epilogue_inputs(8, shape=(2, 8, 5, 3), nmod=nmod)
+    x[0, 0, 0, :] = -mods[1][0] / mods[0][0]  # g0 * x + b0 == 0 up to rounding
+    x[0, 0, 0, 0] = 0.0
+    mods[1][0, 0] = 0.0  # ... and exactly 0 at one element
+    dy = np.random.RandomState(9).randn(*x.shape).astype(np.float32)
+    jax_plain = jax_fused.modulate_lrelu if nmod == 1 else jax_fused.double_modulate_lrelu
+    _, vjp = jax.vjp(jax_plain, jnp.asarray(x), *map(jnp.asarray, mods))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    xt = _nchw(x).requires_grad_()
+    mt = [torch.from_numpy(m).requires_grad_() for m in mods]
+    dyt = _nchw(dy)
+    if dy_layout == "contiguous":
+        dyt = dyt.contiguous()
+    fn = fa.modulate_lrelu_kernel if nmod == 1 else fa.double_modulate_lrelu_kernel
+    before = fa.BACKWARD.launches
+    got = torch.autograd.grad(fn(xt, *mt), (xt, *mt), dyt)
+    assert fa.BACKWARD.launches == before  # CPU tensors: the plain version
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(_nhwc(got[0]), want[0], rtol=1e-5, atol=1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_keeps_input_dtypes():
+    """bf16 x gives a bf16 dx; bf16 vectors give bf16 vector gradients (the
+    sums are taken in fp32, then cast); only G's epilogue is differentiated,
+    and only once."""
+    x, mods = _epilogue_inputs(10)
+    xt = _nchw(x).bfloat16().requires_grad_()
+    mt = [torch.from_numpy(m).bfloat16().requires_grad_() for m in mods]
+    y = fa.double_modulate_lrelu_kernel(xt, *mt)
+    dy = torch.ones_like(y, requires_grad=True)
+    grads = torch.autograd.grad(y, (xt, *mt), dy, create_graph=True)
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 5
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        grads[1].float().sum().backward()
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     x, mods = _epilogue_inputs(7)
     xt, mt = _nchw(x), list(map(torch.from_numpy, mods))
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.double_modulate_lrelu_kernel(xt.clone().requires_grad_(), *mt)
-    with torch.no_grad():  # no grad mode: requires_grad inputs are fine
+    # inputs that require grad are taken, in and out of grad mode
+    assert fa.double_modulate_lrelu_kernel(xt.clone().requires_grad_(), *mt).requires_grad
+    with torch.no_grad():
         fa.double_modulate_lrelu_kernel(xt.clone().requires_grad_(), *mt)
     with pytest.raises(ValueError, match="channels_last"):
         fa.double_modulate_lrelu_kernel(xt.contiguous(), *mt)

@@ -13,10 +13,15 @@ import numpy as np
 import torch
 
 from xmc_gan_tpu.config import cfg_from_dict as jax_cfg_from_dict
+from xmc_gan_tpu.models.df_gan import NetD as JaxNetD
+from xmc_gan_tpu.train import refresh_spectral as jax_refresh_spectral
 from xmc_gan_tpu.models.df_gan import NetG as JaxNetG
 from xmc_gan_tpu_torch.config import cfg_from_dict
-from xmc_gan_tpu_torch.models.df_gan import NetG
-from xmc_gan_tpu_torch.utils.convert import df_gan_generator_state_dict
+from xmc_gan_tpu_torch.models.df_gan import NetD, NetG
+from xmc_gan_tpu_torch.utils.convert import (
+    df_gan_discriminator_state_dict,
+    df_gan_generator_state_dict,
+)
 
 
 def small_cfgs(overrides: dict):
@@ -77,3 +82,49 @@ def port_g(cfg, params, dtype=torch.float32, fuse_upsample=True) -> NetG:
     g = NetG(cfg, dtype=dtype, fuse_upsample=fuse_upsample, gen=torch.Generator().manual_seed(0))
     g.load_state_dict(df_gan_generator_state_dict(params), strict=True)
     return g.eval().requires_grad_(False)
+
+
+def d_overrides(size: int, spec_norm: bool = True, word: bool = True, nch: int = 2,
+                emb: int = 16, nef: int = 16) -> dict:
+    """A narrow DF-GAN D (NCH=2 by default) with the sentence projection
+    (``IMG_MATCH``) and, with ``word``, the word-region head."""
+    return {
+        "TRAIN": {"NCH": nch, "NEF": nef, "NOISE_DIM": 8, "HE_INIT": True,
+                  "ENCODER_LOSS": {"SENT": True, "WORD": word}},
+        "IMG": {"SIZE": size},
+        "TEXT": {"EMBEDDING_DIM": emb, "MAX_LENGTH": 6},
+        "DISC": {"SPEC_NORM": spec_norm, "IMG_MATCH": True},
+    }
+
+
+def jax_d_variables(jcfg, seed: int = 0):
+    """Perturbed JAX ``NetD`` params and power-iteration vectors (numpy
+    trees) for ``jcfg``: random unit vectors taken 20 refreshes towards the
+    top singular vectors, so that ``sigma`` is near each kernel's norm and
+    activations stay O(1).  Only the trees' structure and shapes come from the
+    JAX module (``jax.eval_shape``)."""
+    size = jcfg.IMG.SIZE
+    x = jnp.zeros((1, size, size, 3))
+    sent = jnp.zeros((1, jcfg.TEXT.EMBEDDING_DIM))
+    d = JaxNetD(jcfg)
+    shapes = jax.eval_shape(lambda k: d.init(k, x, sent, method="d_all"),
+                            jax.random.PRNGKey(seed))
+    params = perturb(shapes["params"], seed + 1)
+    rng = np.random.RandomState(seed + 2)
+
+    def unit(leaf):
+        v = rng.standard_normal(leaf.shape)
+        return (v / np.linalg.norm(v)).astype(np.float32)
+
+    spectral = jax.tree.map(unit, dict(shapes.get("spectral", {})))
+    if spectral:
+        spectral = jax.tree.map(np.asarray, jax_refresh_spectral(params, spectral, 20))
+    return params, spectral
+
+
+def port_d(cfg, params, spectral, dtype=torch.float32, fuse_downsample=True) -> NetD:
+    """The port's NetD on the CPU carrying the JAX params and vectors."""
+    d = NetD(cfg, dtype=dtype, fuse_downsample=fuse_downsample,
+             gen=torch.Generator().manual_seed(0))
+    d.load_state_dict(df_gan_discriminator_state_dict(params, spectral), strict=True)
+    return d

@@ -18,9 +18,27 @@
 // load per value would be 2-4 load instructions per byte of x).  The kernel allocates nothing and does not
 // synchronise; it launches on the caller's stream.
 //
+// Backward (the Pallas kernels have none; training needs it for G): from x
+// and the upstream dy it recomputes y0 = g0*x + b0 (and, for NMOD = 2,
+// y1 = g1*lrelu(y0) + b1) and writes dx, rounded once to x's type, and the
+// fp32 sums over H*W of dg0 = dy0*x, db0 = dy0 (dg1 = dy1*lrelu(y0),
+// db1 = dy1).  LeakyReLU's derivative at 0 is 1, as jnp.where(y >= 0, ...)
+// gives it.  Bound: bytes (x and dy read once, dx written once: 1.5x the
+// forward's traffic).  A block owns (b, 32 channels, a run of pixels) as 32 x
+// 8 threads: a warp reads 32 consecutive channels of one pixel, the 8 warps
+// walk the pixels.  The four [B, C] sums are reduced over the warps in
+// shared memory and then added with one fp32 atomicAdd per block and value
+// into zeroed [B, C] buffers: the runs per (b, c) are few (about 4 x 132 x 8
+// blocks spread over B x C / 32 channel tiles), so a second pass over a
+// scratch buffer would cost more than the atomics.  The order of those adds
+// varies from run to run (fp32 sums, not bit-reproducible).
+//
 // C interface (bound with ctypes, pointers and stream as void*):
 //   int xmc_fused_affine(x, out, g0, b0, g1, b1, B, HW, C, nmod, dtype, slope, stream)
-//   dtype 0 = fp32, 1 = bf16; g1/b1 are ignored when nmod == 1.
+//   int xmc_fused_affine_bwd(x, dy, dx, g0, b0, g1, b1, dg0, db0, dg1, db1,
+//                            B, HW, C, nmod, dtype, slope, stream)
+//   dtype 0 = fp32, 1 = bf16; g1/b1 (dg1/db1) are ignored when nmod == 1.
+//   dg*/db* are fp32 [B, C] and must hold zeros.
 //   Returns cudaGetLastError() after the launch (0 = success).
 
 #include <cuda_bf16.h>
@@ -36,6 +54,14 @@ constexpr int kBlocksPerSM = 8;
 
 __device__ __forceinline__ float lrelu(float y, float slope) {
   return y >= 0.f ? y : slope * y;
+}
+
+// g * x + b with the product rounded before the add (no FMA contraction), as
+// the plain version computes it: the backward branches on the sign of this
+// value, so it must round the same way or elements within an ulp of 0 take
+// the other slope.
+__device__ __forceinline__ float affine_rn(float g, float x, float b) {
+  return __fadd_rn(__fmul_rn(g, x), b);
 }
 
 template <int NMOD, typename I>
@@ -174,7 +200,112 @@ void launch(const void* x, void* out, const float* g0, const float* b0, const fl
   }
 }
 
+constexpr int kBwdCols = 32;  // channels per block: one warp-wide row
+constexpr int kBwdRows = 8;   // pixels walked in parallel: one per warp
+
+template <typename T, int NMOD>
+__global__ void __launch_bounds__(kBwdCols * kBwdRows)
+fused_affine_bwd(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                 const float* __restrict__ g0, const float* __restrict__ b0,
+                 const float* __restrict__ g1, const float* __restrict__ b1,
+                 float* __restrict__ dg0, float* __restrict__ db0, float* __restrict__ dg1,
+                 float* __restrict__ db1, int64_t HW, int64_t C, int64_t pix_per_block,
+                 float slope) {
+  __shared__ float red[4][kBwdRows][kBwdCols];
+  const int64_t c = int64_t(blockIdx.x) * kBwdCols + threadIdx.x;
+  const int64_t b = blockIdx.z;
+  const int64_t p0 = int64_t(blockIdx.y) * pix_per_block;
+  const int64_t p1 = p0 + pix_per_block < HW ? p0 + pix_per_block : HW;
+  float s_g0 = 0.f, s_b0 = 0.f, s_g1 = 0.f, s_b1 = 0.f;
+  if (c < C) {
+    const int64_t m = b * C + c;
+    const float gg0 = g0[m], bb0 = b0[m];
+    const float gg1 = NMOD == 2 ? g1[m] : 0.f, bb1 = NMOD == 2 ? b1[m] : 0.f;
+    for (int64_t p = p0 + threadIdx.y; p < p1; p += kBwdRows) {
+      const int64_t e = (b * HW + p) * C + c;
+      const float xv = to_f(x[e]);
+      float da0 = to_f(dy[e]);
+      const float y0 = affine_rn(gg0, xv, bb0);
+      if constexpr (NMOD == 2) {
+        const float a0 = lrelu(y0, slope);
+        const float d1 = affine_rn(gg1, a0, bb1) >= 0.f ? da0 : slope * da0;
+        s_g1 = fmaf(d1, a0, s_g1);
+        s_b1 += d1;
+        da0 = d1 * gg1;
+      }
+      const float d0 = y0 >= 0.f ? da0 : slope * da0;
+      s_g0 = fmaf(d0, xv, s_g0);
+      s_b0 += d0;
+      dx[e] = from_f<T>(d0 * gg0);
+    }
+  }
+  red[0][threadIdx.y][threadIdx.x] = s_g0;
+  red[1][threadIdx.y][threadIdx.x] = s_b0;
+  red[2][threadIdx.y][threadIdx.x] = s_g1;
+  red[3][threadIdx.y][threadIdx.x] = s_b1;
+  __syncthreads();
+  if (threadIdx.y < 2 * NMOD && c < C) {
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) acc += red[threadIdx.y][r][threadIdx.x];
+    float* dst[4] = {dg0, db0, dg1, db1};
+    atomicAdd(dst[threadIdx.y] + b * C + c, acc);
+  }
+}
+
+template <typename T, int NMOD>
+void launch_bwd(const void* x, const void* dy, void* dx, const float* g0, const float* b0,
+                const float* g1, const float* b1, float* dg0, float* db0, float* dg1,
+                float* db1, int64_t B, int64_t HW, int64_t C, float slope,
+                cudaStream_t stream) {
+  static int target = 0;  // blocks that fill the card: 8 resident per SM
+  if (target == 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    target = sms * 8;
+  }
+  const int64_t ctiles = (C + kBwdCols - 1) / kBwdCols;
+  int64_t chunks = (target + B * ctiles - 1) / (B * ctiles);
+  int64_t ppb = (HW + chunks - 1) / chunks;
+  ppb = (ppb + kBwdRows - 1) / kBwdRows * kBwdRows;
+  chunks = (HW + ppb - 1) / ppb;
+  dim3 grid(static_cast<unsigned>(ctiles), static_cast<unsigned>(chunks),
+            static_cast<unsigned>(B));
+  dim3 block(kBwdCols, kBwdRows);
+  fused_affine_bwd<T, NMOD><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), g0, b0, g1, b1,
+      dg0, db0, dg1, db1, HW, C, ppb, slope);
+}
+
 }  // namespace
+
+extern "C" int xmc_fused_affine_bwd(const void* x, const void* dy, void* dx, const void* g0,
+                                    const void* b0, const void* g1, const void* b1, void* dg0,
+                                    void* db0, void* dg1, void* db1, int64_t B, int64_t HW,
+                                    int64_t C, int nmod, int dtype, float slope,
+                                    void* stream) {
+  if (B * HW * C == 0) return 0;
+  if (nmod != 1 && nmod != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);  // grid.z
+  const float* f[4] = {static_cast<const float*>(g0), static_cast<const float*>(b0),
+                       static_cast<const float*>(g1), static_cast<const float*>(b1)};
+  float* o[4] = {static_cast<float*>(dg0), static_cast<float*>(db0), static_cast<float*>(dg1),
+                 static_cast<float*>(db1)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define XMC_FA_BWD(T, N)                                                                \
+  launch_bwd<T, N>(x, dy, dx, f[0], f[1], f[2], f[3], o[0], o[1], o[2], o[3], B, HW, C, \
+                   slope, s)
+  if (dtype == 0) {
+    if (nmod == 1) XMC_FA_BWD(float, 1); else XMC_FA_BWD(float, 2);
+  } else if (dtype == 1) {
+    if (nmod == 1) XMC_FA_BWD(__nv_bfloat16, 1); else XMC_FA_BWD(__nv_bfloat16, 2);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef XMC_FA_BWD
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int xmc_fused_affine(const void* x, void* out, const void* g0, const void* b0,
                                 const void* g1, const void* b1, int64_t B, int64_t HW,

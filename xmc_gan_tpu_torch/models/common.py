@@ -1,8 +1,8 @@
 """Shared model plumbing: architecture tables and init-regime selection.
 
-Port of ``xmc_gan_tpu/models/common.py`` (generator half).  The tables match
-the reference generator (``model/df_gan.py:9-34``).  ``disc_arch`` and
-``concept_gen_arch`` come with the slices that use them.
+Port of ``xmc_gan_tpu/models/common.py``.  The tables match the reference
+generator and discriminator (``model/df_gan.py:9-61``).  ``concept_gen_arch``
+comes with the concept-family slice.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from xmc_gan_tpu_torch.ops.initializers import (
     zeros_init,
 )
 
-__all__ = ["gen_arch", "inits", "affine_out_inits", "split_upsample_schedule"]
+__all__ = ["gen_arch", "disc_arch", "inits", "affine_out_inits", "split_upsample_schedule"]
 
 
 def split_upsample_schedule(ups: list, fuse: bool) -> tuple[list, list]:
@@ -49,6 +49,28 @@ def gen_arch(img_size: int, nch: int) -> dict:
         "in_channels": [i * nch for i in in_ch],
         "out_channels": [i * nch for i in out_ch],
         "upsample": [True] * (depth - 1) + [False],
+        "resolution": resolution,
+        "depth": depth,
+    }
+
+
+def disc_arch(img_size: int, nch: int) -> dict:
+    """Discriminator stage table (reference ``df_gan.py:36-61``)."""
+    if img_size not in (64, 128, 256):
+        raise ValueError(f"IMG.SIZE must be 64, 128 or 256, got {img_size}")
+    if img_size == 256:
+        in_ch, out_ch = [1, 2, 4, 8, 16, 16], [1, 2, 4, 8, 16, 16, 16]
+        resolution, depth = [128, 64, 32, 16, 8, 4, 4], 7
+    elif img_size == 128:
+        in_ch, out_ch = [1, 2, 4, 8, 16], [1, 2, 4, 8, 16, 16]
+        resolution, depth = [64, 32, 16, 8, 4, 4], 6
+    else:
+        in_ch, out_ch = [1, 2, 4, 8], [1, 2, 4, 8, 16]
+        resolution, depth = [32, 16, 8, 4, 4], 5
+    return {
+        "in_channels": [3] + [i * nch for i in in_ch],
+        "out_channels": [i * nch for i in out_ch],
+        "downsample": [True] * depth,
         "resolution": resolution,
         "depth": depth,
     }

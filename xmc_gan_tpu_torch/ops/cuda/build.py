@@ -21,7 +21,8 @@ import tempfile
 from pathlib import Path
 from typing import Any
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "CudaLibrary"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "CudaLibrary",
+           "LaunchCount"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -70,20 +71,27 @@ def build(source: str) -> Path:
     return lib
 
 
+class LaunchCount:
+    """The launch count of one kernel: a plain integer that the kernel's
+    wrapper raises by one at each launch and nowhere else, so a run can show
+    which kernels it went through (``chip_smoke.py`` zeroes every count
+    before a main path and reads them after)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 class CudaLibrary:
-    """A ``csrc`` source, compiled and loaded on first use, with a launch count.
+    """A ``csrc`` source, compiled and loaded on first use.
 
     ``signatures`` maps each exported C function to ``(restype, argtypes)``;
-    they are declared once, when the library is loaded.  ``launches`` is a
-    plain integer that the kernel's wrapper raises by one at each launch and
-    nowhere else, so a run can show which kernels it went through
-    (``chip_smoke.py`` zeroes it before the main path and reads it after).
+    they are declared once, when the library is loaded.  Each kernel's launch
+    count is a ``LaunchCount`` beside its wrapper.
     """
 
     def __init__(self, source: str, signatures: dict[str, tuple[Any, list[Any]]]):
         self.source = source
         self.signatures = signatures
-        self.launches = 0
         self._lib: ctypes.CDLL | None = None
 
     def load(self) -> ctypes.CDLL:

@@ -5,7 +5,8 @@ applied twice before each conv (reference ``df_gan.py:212-224,250-263``).  On
 the TPU, XLA fused it into the producing convs, so the JAX package ships plain
 jnp here.  Eager PyTorch fuses nothing, so on the card the hand-written kernel
 (``ops/cuda/fused_affine.py``) is the production epilogue: these functions
-launch it for CUDA tensors and use its plain version for CPU tensors.
+launch it (forward, and its backward under autograd) for CUDA tensors and
+use its plain versions for CPU tensors.
 
 ``x`` is NCHW (``channels_last`` memory for the fused forms), the modulation
 vectors ``[B, C]``.

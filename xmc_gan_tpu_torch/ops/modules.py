@@ -1,4 +1,4 @@
-"""Core neural-net ops: spectral-norm conv/dense and the upsampling helpers.
+"""Core neural-net ops: spectral-norm conv/dense and the pooling/upsampling helpers.
 
 Port of ``xmc_gan_tpu/ops/modules.py`` in PyTorch layouts: activations are
 NCHW tensors kept in ``channels_last`` memory, conv weights ``[O, I, kH, kW]``,
@@ -9,7 +9,8 @@ Spectral norm applies the stored power-iteration vectors ``weight_u`` /
 matricization in PyTorch's order ``(O, I*kH*kW)`` (the JAX package flattens
 HWIO as ``(O, kH*kW*I)``; ``utils/convert.py`` permutes ``v`` between the two).
 This is the JAX package's non-mutable branch (``ops/modules.py:67-103``); the
-per-step refresh comes with the training slice.
+train step refreshes the vectors explicitly, once per step
+(``train.refresh_spectral``).
 
 Parameters are kept fp32 and cast to the activation dtype at each call, as the
 JAX modules do (``kernel.astype(x.dtype)``).
@@ -30,12 +31,24 @@ __all__ = [
     "SNDense",
     "fold_upsample_kernel",
     "upsample_nearest_2x",
+    "avg_pool",
+    "global_avg_pool",
     "leaky_relu",
 ]
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: int | None = None) -> torch.Tensor:
+    """Average pooling of an NCHW tensor, no padding (reference ``F.avg_pool2d``)."""
+    return F.avg_pool2d(x, window, stride or window)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Adaptive average pool to 1x1, returned as ``[B, C]``."""
+    return x.mean(dim=(2, 3))
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""String -> module registries for generators and text encoders, mirroring
+"""String -> module registries for generators, discriminators and text
+encoders, mirroring
 ``xmc_gan_tpu/registry.py`` (reference ``train_gan.py:40-49``).
 
 Names the JAX package knows but this port has not reached yet raise
@@ -8,7 +9,7 @@ raise ``KeyError``.  Imports are lazy, as in the JAX package.
 
 from __future__ import annotations
 
-__all__ = ["get_generator", "get_text_encoder"]
+__all__ = ["get_generator", "get_discriminator", "get_text_encoder"]
 
 _GEN_LATER = {
     "CONCEPT_IN_DF_GEN": "the concept-family slice",
@@ -16,6 +17,7 @@ _GEN_LATER = {
     "CONCEPT_INATTN_GEN": "the concept-family slice",
     "CONCEPT_OUTATTN_GEN": "the concept-family slice",
 }
+_DISC_LATER = {"CONCEPT_NETD": "the concept-family slice"}
 _ENC_LATER = {"SBERT": "the SBERT text-encoder slice"}
 
 
@@ -33,6 +35,12 @@ def _df_gen():
     return NetG
 
 
+def _df_disc():
+    from xmc_gan_tpu_torch.models.df_gan import NetD
+
+    return NetD
+
+
 def _rnn():
     from xmc_gan_tpu_torch.models.encoder import RNNEncoder
 
@@ -41,6 +49,10 @@ def _rnn():
 
 def get_generator(name: str):
     return _lookup("generator", name, {"DF_GEN": _df_gen}, _GEN_LATER)
+
+
+def get_discriminator(name: str):
+    return _lookup("discriminator", name, {"DF_DISC": _df_disc}, _DISC_LATER)
 
 
 def get_text_encoder(name: str):

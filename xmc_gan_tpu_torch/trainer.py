@@ -1,6 +1,7 @@
 """The frozen text-encoder forward (port of ``make_encode_fn``,
-``xmc_gan_tpu/trainer.py:42-72``, RNN branch).  The training loop itself
-comes with the training slice."""
+``xmc_gan_tpu/trainer.py:42-72``, RNN branch).  The train step is
+``train.make_train_step``; the training loop around it (data, checkpoints,
+logging) comes with the trainer slice."""
 
 from __future__ import annotations
 

@@ -28,6 +28,8 @@ __all__ = [
     "conv_state_dict",
     "rnn_encoder_state_dict",
     "df_gan_generator_state_dict",
+    "df_gan_discriminator_state_dict",
+    "train_state_from_jax",
 ]
 
 
@@ -111,3 +113,62 @@ def df_gan_generator_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Te
         else:
             raise KeyError(f"Unexpected NetG param {key}")
     return sd
+
+
+_D_BLOCK_NAMES = {"conv_r1": "conv_r.0", "conv_r2": "conv_r.2", "conv_s": "conv_s"}
+_D_HEAD_NAMES = {"joint_conv1": "joint_conv.0", "joint_conv2": "joint_conv.2"}
+
+
+def df_gan_discriminator_state_dict(params: Mapping[str, Any],
+                                    spectral: Mapping[str, Any] | None = None
+                                    ) -> dict[str, torch.Tensor]:
+    """JAX ``NetD`` params (+ its ``spectral`` tree of ``u``/``v``) -> port
+    ``NetD``.  Name map: ``block{k}`` -> ``downblocks.{k-1}`` with
+    ``conv_r1``/``conv_r2`` -> ``conv_r.0``/``conv_r.2``; ``cond_dnet`` ->
+    ``COND_DNET`` with ``joint_conv1``/``joint_conv2`` -> ``joint_conv.0``/
+    ``joint_conv.2``; ``conv_img``, ``conv_s``, ``gamma``, ``proj_match`` and
+    ``region_proj`` keep their names."""
+    spectral = spectral or {}
+    sd: dict[str, torch.Tensor] = {}
+    for key, node in params.items():
+        spec = spectral.get(key) or {}
+        if key in ("conv_img", "region_proj"):
+            sd.update(conv_state_dict(node, spec, prefix=f"{key}."))
+        elif key.startswith("block"):
+            pre = f"downblocks.{int(key[len('block'):]) - 1}."
+            for sub, snode in node.items():
+                if sub == "gamma":
+                    sd[f"{pre}gamma"] = _t(snode).reshape(1)
+                elif sub in _D_BLOCK_NAMES:
+                    sd.update(conv_state_dict(snode, spec.get(sub),
+                                              prefix=f"{pre}{_D_BLOCK_NAMES[sub]}."))
+                else:
+                    raise KeyError(f"Unexpected NetD param {key}/{sub}")
+        elif key == "cond_dnet":
+            for sub, snode in node.items():
+                if sub == "proj_match":
+                    sd.update(dense_state_dict(snode, spec.get(sub),
+                                               prefix="COND_DNET.proj_match."))
+                elif sub in _D_HEAD_NAMES:
+                    sd.update(conv_state_dict(snode, spec.get(sub),
+                                              prefix=f"COND_DNET.{_D_HEAD_NAMES[sub]}."))
+                else:
+                    raise KeyError(f"Unexpected NetD param {key}/{sub}")
+        else:
+            raise KeyError(f"Unexpected NetD param {key}")
+    return sd
+
+
+def train_state_from_jax(cfg, g_params: Mapping[str, Any], d_params: Mapping[str, Any],
+                         d_spectral: Mapping[str, Any] | None = None, *, step: int = 0,
+                         dtype: torch.dtype = torch.float32,
+                         device: str | torch.device | None = None):
+    """The G, D and spectral trees of a JAX ``TrainState`` (numpy trees) as
+    the port's ``train.TrainState`` on ``device`` (default ``cuda``), with
+    fresh Adam moments on both sides (the JAX optimizer states are not
+    carried over)."""
+    from xmc_gan_tpu_torch.train import create_train_state
+
+    return create_train_state(
+        cfg, dtype, device, step=step, g_state_dict=df_gan_generator_state_dict(g_params),
+        d_state_dict=df_gan_discriminator_state_dict(d_params, d_spectral))
