@@ -6,25 +6,38 @@
 Phases (any failure raises, and the exit code is then non-zero):
 
 1. Card check: CUDA must be available; prints the card's name and power limit.
-2. Build: compiles both CUDA sources (``xmc_gan_tpu_torch/csrc``), one
+2. Build: compiles the three CUDA sources (``xmc_gan_tpu_torch/csrc``), one
    ``nvcc`` each, started together, and prints the build time.
 3. Each kernel against its plain PyTorch version on the card: the
    ``fused_affine`` forward and backward (both forms, fp32 and bf16) at the
    14 epilogue shapes of the 256², NCH=32, batch-128 generator plus a ragged
-   one; the ``damsm_score`` forward, d_regions and d_words at the flagship
+   one, and the single form through its wrapper at the distinct
+   ``modulate_lrelu`` shapes of a 256² concept-DF request at batch 128 (128
+   channels, up to 2^30 elements); the ``damsm_score`` forward, d_regions and d_words at the flagship
    word-loss shape (B = Bc = 128, R = 256, T = 20, D = 256) and at a ragged
    one (R = 50, T = 7, D = 48, one all-padded caption), compute dtype fp32
-   and bf16.
-4. The serving slice (DAMSM encoder + NetG at 256², NCH=32, batch 4) and the
-   train slice (NCH=8, 64², batch 4, WORD + SPEC_NORM + MAGP, two steps) on
-   the card against the CPU, fp32 with TF32 off, on the same seeded,
-   perturbed weights and numpy inputs; the card's word scores go through the
-   damsm kernels (``word_block_elems=0``).
-5. Full-width serving: random caption ids (batch 128, T=20, mixed lengths)
-   -> ``make_encode_fn`` -> ``make_sample_fn``, fp32 and bf16; checks the
-   kernel launch count of that run (14 per G forward), that the images are
-   finite and in [-1, 1], and prints images/s, peak memory, and where one
-   request's device time goes (``torch.profiler``, by kernel category).
+   and bf16; the ``cross_attention`` kernel through the wrapper the concept
+   models call, fp32 and bf16, at the distinct
+   shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
+   of T = 15, D = 4, N from 256 to 65,536, the grouped queries read
+   strided), the ``CONCEPT_OUTATTN_GEN`` shape, the JAX package's kernel
+   shape (N = 300, T = 260, D = 32), a D = 256 one and a ragged one with a
+   fully padded row (0 in both).
+4. On the card against the CPU, fp32 with TF32 off, on the same seeded,
+   perturbed weights and numpy inputs: (a) the serving slice (DAMSM encoder
+   + NetG at 256², NCH=32, batch 4), (b) the train slice (NCH=8, 64², batch
+   4, WORD + SPEC_NORM + MAGP, two steps; the card's word scores go through
+   the damsm kernels), (c) the four concept generators (NCH=8, 64², batch 4,
+   T = 15, one caption of one word).
+5. Full-width serving: random caption ids (batch 128, mixed lengths) ->
+   ``make_encode_fn`` -> ``make_sample_fn``, fp32 and bf16, (a) for DF_GEN
+   (``df_gan_damsm.yml``, T = 20) and (c) for each concept generator
+   (``concept_in_df_gan.yml``, T = 15, NCH=32, 256²); checks each request's
+   kernel launches (DF_GEN: fused_affine 14; CONCEPT_IN/OUT_DF_GEN:
+   fused_affine 28; CONCEPT_INATTN/OUTATTN_GEN: cross_attention 10; nothing
+   else), that the images are finite, in [-1, 1] and of the right shape, and
+   prints images/s (median of 5), peak memory, and where one request's
+   device time goes (``torch.profiler``, by kernel category).
 6. Full-width training: the ``flagship_word`` step (DF-GAN G + D at 256²,
    NCH=32, batch 128, RMIS, MAGP, sentence/image/word-region InfoNCE) from
    ``create_train_state`` + ``make_train_step``, bf16 activations (2 warm-up
@@ -34,7 +47,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    are finite; prints images/s (median), peak memory and one step's device
    time by kernel category.
 7. Kernel times against their bounds (CUDA events over repeated launches),
-   as one ``{"kernels": [...]}`` line.
+   beside the plain version's and, for cross_attention, PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs, as one
+   ``{"kernels": [...]}`` line.
 8. Last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  The weights are random (from
@@ -60,7 +75,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from xmc_gan_tpu_torch.config import cfg_from_dict, cfg_from_file
+from xmc_gan_tpu_torch.models.concept_gan import attention_shapes
+from xmc_gan_tpu_torch.models.df_concept_gan import modulation_shapes
 from xmc_gan_tpu_torch.models.df_gan import epilogue_shapes
+from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
 from xmc_gan_tpu_torch.train import (
@@ -73,6 +91,9 @@ from xmc_gan_tpu_torch.trainer import make_encode_fn
 
 REPO = Path(__file__).resolve().parent
 CFG = REPO / "xmc_gan_tpu" / "cfg" / "df_gan_damsm.yml"  # the YAML schema file only
+CONCEPT_CFG = REPO / "xmc_gan_tpu" / "cfg" / "concept_in_df_gan.yml"
+CONCEPT_GENS = ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN", "CONCEPT_IN_DF_GEN",
+                "CONCEPT_OUT_DF_GEN")
 BATCH = 128  # serving and training batch (docs/SERVING.md; the flagship step)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -80,11 +101,17 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 BF16_ULP = 2.0 ** -7
 COUNTS = {"fused_affine.forward": fa.FORWARD, "fused_affine.backward": fa.BACKWARD,
           "damsm_score.forward": ds.FORWARD, "damsm_score.d_regions": ds.D_REGIONS,
-          "damsm_score.d_words": ds.D_WORDS}
+          "damsm_score.d_words": ds.D_WORDS, "cross_attention.forward": ca.FORWARD}
 # launches of one flagship_word train step
 STEP_LAUNCHES = {"fused_affine.forward": 28, "fused_affine.backward": 14,
                  "damsm_score.forward": 2, "damsm_score.d_regions": 2,
-                 "damsm_score.d_words": 0}
+                 "damsm_score.d_words": 0, "cross_attention.forward": 0}
+# launches of one serving request at 256², NCH=32 (every other count 0)
+REQUEST_LAUNCHES = {"DF_GEN": {"fused_affine.forward": 14},
+                    "CONCEPT_INATTN_GEN": {"cross_attention.forward": 10},
+                    "CONCEPT_OUTATTN_GEN": {"cross_attention.forward": 10},
+                    "CONCEPT_IN_DF_GEN": {"fused_affine.forward": 28},
+                    "CONCEPT_OUT_DF_GEN": {"fused_affine.forward": 28}}
 # fused_affine forward vs plain (rtol, atol).  fp32: the kernel contracts each
 # g*y+b into one FMA, the plain version rounds the product first; with N(0, 1)
 # inputs the chain's terms reach ~1e2, so one fp32 rounding of them is up to
@@ -106,6 +133,19 @@ BWD_TOL = {"dx_rtol": 1e-5, "dx_atol": 2e-5, "sum_rtol": 1e-4, "sum_scale": 1e-4
 # bf16 ulp (2^-7) of their largest magnitude.
 DAMSM_TOL = {None: {"score": 1e-5, "grad_scale": 1e-5},
              torch.bfloat16: {"score": 2.0 ** -12, "grad_scale": BF16_ULP}}
+# cross_attention vs plain.  fp32: the same math in another order (scores kept
+# in log2 units, running sums rescaled once per word tile); with N(0, 1)
+# operands at D = 256 the scores reach ~1e2 and one fp32 rounding of them
+# moves a softmax weight by ~1e-5 relative: (rtol 1e-5, atol 1e-4).  bf16:
+# both compute in fp32 and round once on store, so one bf16 ulp of the value
+# where the two fp32 results straddle a rounding boundary.
+ATTN_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (BF16_ULP, 1e-4)}
+ATTN_SCALE = 0.7  # any scale; the generators use 1
+# (B, G, N, T, D, strided, fully padded row): the Out shape, the JAX
+# package's kernel shape, a D = 256 one, a ragged one; the In shapes come
+# from attention_shapes
+ATTN_EXTRA = [(BATCH, 1, 16, 15, 4, False, False), (2, 1, 300, 260, 32, False, False),
+              (4, 1, 1024, 200, 256, False, False), (3, 2, 77, 33, 48, True, True)]
 # card vs CPU, fp32 with TF32 off: summation order of cuDNN vs CPU kernels
 SLICE_TOL = {"words": 1e-4, "sent": 1e-4, "images": 2e-3}
 # train slice, card vs CPU after two steps (fp32, TF32 off).  Metrics to 1e-4
@@ -166,7 +206,8 @@ def build_kernels() -> float:
             errors.append(e)
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=load, args=(lib,)) for lib in (fa.KERNEL, ds.KERNEL)]
+    libs = (fa.KERNEL, ds.KERNEL, ca.KERNEL)
+    threads = [threading.Thread(target=load, args=(lib,)) for lib in libs]
     for t in threads:
         t.start()
     for t in threads:
@@ -174,7 +215,7 @@ def build_kernels() -> float:
     if errors:
         raise errors[0]
     dt = time.perf_counter() - t0
-    log(f"[2] built {fa.KERNEL.source} and {ds.KERNEL.source} in {dt:.2f} s")
+    log(f"[2] built {', '.join(lib.source for lib in libs)} in {dt:.2f} s")
     return dt
 
 
@@ -183,7 +224,9 @@ def perturbed_state_dict(model: torch.nn.Module, seed: int) -> dict[str, torch.T
     O(1) with non-zero gates (a fresh model's zero gates would hide the
     residual branches): weights ~ N(0, 1/fan_in), biases ~ N(0, 0.1^2),
     affine outputs gamma ~ 1 +- 0.1 and beta ~ 0 +- 0.1, gates ~ U(0.5,
-    1.5).  Spectral-norm vectors (``weight_u``/``weight_v``) are kept."""
+    1.5), normalization scales (GroupNorm ``weight``, BatchNorm
+    ``bn*_scale``) ~ 1 +- 0.1.  Spectral-norm vectors
+    (``weight_u``/``weight_v``) are kept."""
     rng = np.random.RandomState(seed)
     out = {}
     for name, t in model.state_dict().items():
@@ -193,6 +236,8 @@ def perturbed_state_dict(model: torch.nn.Module, seed: int) -> dict[str, torch.T
             continue
         if name.endswith(".gamma"):
             v = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith("_scale") or (name.endswith("weight") and len(shape) == 1):
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
         elif name.endswith("weight"):
             std = 0.1 if ".linear2." in name else 1.0
             v = rng.standard_normal(shape) * std / math.sqrt(math.prod(shape[1:]))
@@ -278,6 +323,8 @@ def device_kernels(fn) -> tuple[list[dict], float, float]:
 
 def kernel_category(name: str) -> str:
     n = name.lower()
+    if "attn_small" in n or "attn_wide" in n:
+        return "cross_attention"
     if "damsm" in n or "sum_splits" in n:
         return "damsm_score"
     if "fused_affine_bwd" in n:
@@ -385,6 +432,30 @@ def check_epilogue(shapes) -> dict:
     return errs
 
 
+def check_modulation(shapes) -> dict:
+    """Phase 3, fused_affine single form through its wrapper at the distinct
+    ``modulate_lrelu`` input shapes of a 256² NCH=32 concept-DF request at
+    batch 128 (up to [128, 128, 256, 256], 2^30 elements), both dtypes."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = KERNEL_TOL[dtype]
+        worst = 0.0
+        for shape in shapes:
+            x, mods = epilogue_inputs(shape, dtype, gen)
+            got = fa.modulate_lrelu_kernel(x, mods[0], mods[1])
+            want = fa.modulate_lrelu_ref(x, mods[0], mods[1])
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            del x, mods, got, want
+            torch.cuda.empty_cache()
+        errs[dtype] = worst
+        log(f"[3] fused_affine modulate_lrelu {DTYPE_NAME[dtype]}: max_abs_err {worst:.3g} at "
+            f"the concept-DF shapes {shapes} (tolerance rtol {rtol:g} atol {atol:g})")
+    return errs
+
+
 def check_damsm() -> dict:
     """Phase 3, damsm_score: forward, d_regions, d_words against the plain
     version and its autograd, at the flagship and a ragged shape."""
@@ -415,6 +486,55 @@ def check_damsm() -> dict:
             f"{k} {v:.3g}" for k, v in worst.items()) + f" at {DAMSM_FLAGSHIP} and ragged "
             f"{DAMSM_RAGGED} with an all-padded caption (tolerance {tol})")
     torch.cuda.empty_cache()
+    return errs
+
+
+def attention_inputs(shape, dtype, gen, allpad: bool):
+    """q, k, v, mask at ``(B, G, N, T, D, strided)``.  Strided: the In
+    sampler's layout, q and k = v lying as [B, N, G, D] and [B, T, G, D] in
+    memory, viewed as [B, G, N, D]; l2-normalized like its operands."""
+    b, g, n, t, d, strided = shape[:6]
+    norm = torch.nn.functional.normalize
+    if strided:
+        q = norm(torch.randn(b, n, g, d, generator=gen, device="cuda"), dim=-1).to(dtype)
+        k = norm(torch.randn(b, t, g, d, generator=gen, device="cuda"), dim=-1).to(dtype)
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
+        v = k
+    else:
+        q, k, v = (torch.randn(b, g, m, d, generator=gen, device="cuda").squeeze(1).to(dtype)
+                   for m in (n, t, t))
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    mask = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+    if allpad:
+        mask[0] = True
+    return q, k, v, mask
+
+
+def check_attention(in_shapes) -> dict:
+    """Phase 3, cross_attention: the wrapper the concept models call vs the
+    plain version at the distinct In shapes of a 256² request (batch 128)
+    and ``ATTN_EXTRA``, fp32 and bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shapes = sorted({(*s, True, False) for s in in_shapes}) + ATTN_EXTRA
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = ATTN_TOL[dtype]
+        worst = 0.0
+        for shape in shapes:
+            q, k, v, mask = attention_inputs(shape, dtype, gen, shape[6])
+            got = ca.masked_cross_attention_kernel(q, k, v, mask, ATTN_SCALE)
+            want = ca.masked_cross_attention_ref(q, k, v, mask, ATTN_SCALE)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+            if shape[6] and not (bool((got[0] == 0).all()) and bool((want[0] == 0).all())):
+                raise AssertionError("cross_attention: a fully padded row did not give 0")
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            del q, k, v, mask, got, want
+            torch.cuda.empty_cache()
+        errs[dtype] = worst
+        log(f"[3] cross_attention {DTYPE_NAME[dtype]}: max_abs_err {worst:.3g} over "
+            f"{len(shapes)} shapes (B, G, N, T, D, strided, padded row): {shapes} "
+            f"(tolerance rtol {rtol:g} atol {atol:g})")
     return errs
 
 
@@ -496,8 +616,50 @@ def check_train_against_cpu() -> None:
         raise AssertionError("train slice: card and CPU parameters differ beyond the tolerance")
 
 
-def serve(cfg, sd, dtype) -> dict:
-    """Phase 5 for one dtype: encode + sample at batch 128, full width."""
+def concept_cfg(name: str, size: int = 256, nch: int = 32):
+    """``concept_in_df_gan.yml`` (read as YAML only) at ``size``/``nch`` with
+    generator ``name``; no DAMSM weights are in the repository."""
+    return cfg_from_dict({"IMG": {"SIZE": size}, "TRAIN": {"NCH": nch},
+                          "TEXT": {"ENCODER_DIR": ""}, "GEN": {"ENCODER_NAME": name}},
+                         base=cfg_from_file(str(CONCEPT_CFG)))
+
+
+def check_concepts_against_cpu() -> None:
+    """Phase 4c: the four concept generators, NCH=8, 64², batch 4, T = 15,
+    fp32 with TF32 off, card vs CPU on the same perturbed weights; the card's
+    word attentions go through the kernel."""
+    rng = np.random.RandomState(9)
+    cfg = concept_cfg(CONCEPT_GENS[0], 64, 8)
+    T, E = cfg.TEXT.MAX_LENGTH, cfg.TEXT.EMBEDDING_DIM
+    noise = rng.randn(4, cfg.TRAIN.NOISE_DIM).astype(np.float32)
+    sent = rng.randn(4, E).astype(np.float32)
+    words = rng.randn(4, T, E).astype(np.float32)
+    mask = np.arange(T)[None, :] >= np.array([1, T, 7, 4])[:, None]
+    for i, name in enumerate(CONCEPT_GENS):
+        cfg = concept_cfg(name, 64, 8)
+        g_cpu = make_generator(cfg, device="cpu", seed=i)
+        g_cpu.load_state_dict(perturbed_state_dict(g_cpu, seed=20 + i), strict=True)
+        want = make_sample_fn(cfg, g_cpu)(noise, sent, words, mask)
+        reset_counts()
+        got = make_sample_fn(cfg, copy.deepcopy(g_cpu).cuda())(noise, sent, words, mask).cpu()
+        counts = {k: v for k, v in read_counts().items() if v}
+        err = (got - want).abs().max().item()
+        sat = (want.abs() > 0.99).float().mean().item()
+        log(f"[4] {name} card vs CPU {tuple(got.shape)}: max_abs_err {err:.3g} (tolerance "
+            f"{SLICE_TOL['images']:g}), std {want.std().item():.3f}, saturated share "
+            f"{sat:.3f}, launches {counts}")
+        if not err <= SLICE_TOL["images"]:
+            raise AssertionError(f"{name}: card and CPU differ by {err}")
+        if sat > 0.5:
+            raise AssertionError(f"{name}: perturbed G saturates tanh")
+        want_attn = 6 if "ATTN" in name else 0  # 2 per attention block, 3 blocks at 64²
+        if counts.get("cross_attention.forward", 0) != want_attn:
+            raise AssertionError(f"{name} on the card: launches {counts}")
+
+
+def serve(cfg, sd, dtype, name: str = "DF_GEN") -> dict:
+    """Phase 5 for one generator and dtype: encode + sample at batch 128,
+    full width; asserts the request's launches (``REQUEST_LAUNCHES``)."""
     rng = np.random.RandomState(2)
     batch = random_captions(rng, BATCH, cfg.TEXT.MAX_LENGTH, cfg.TEXT.VOCA_SIZE)
     noise = torch.from_numpy(rng.randn(BATCH, cfg.TRAIN.NOISE_DIM).astype(np.float32))
@@ -513,14 +675,14 @@ def serve(cfg, sd, dtype) -> dict:
     for _ in range(2):  # warm-up: cuDNN plans, allocator
         request()
     torch.cuda.synchronize()
-    label = DTYPE_NAME[dtype]
+    label = f"{name} {DTYPE_NAME[dtype]}"
     reset_counts()  # the serving path's run: counts from here
     img = request()
     torch.cuda.synchronize()
     launches = read_counts()
-    if launches["fused_affine.forward"] != 14 or sum(launches.values()) != 14:
-        raise AssertionError(f"{label}: launches {launches}, want 14 fused_affine forward "
-                             "(2 per GBlock x 7 at 256²) and nothing else")
+    want = {k: REQUEST_LAUNCHES[name].get(k, 0) for k in COUNTS}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
     if tuple(img.shape) != (BATCH, 256, 256, 3) or img.dtype != torch.float32:
         raise AssertionError(f"{label}: images {tuple(img.shape)} {img.dtype}")
     if not bool(torch.isfinite(img).all()) or img.abs().max().item() > 1.0:
@@ -542,13 +704,14 @@ def serve(cfg, sd, dtype) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     kernels, busy_ms, wall_ms = device_kernels(request)
     device_ms = sum(k["ms"] for k in kernels)
-    res = {"dtype": label, "launches": launches["fused_affine.forward"],
+    res = {"generator": name, "dtype": DTYPE_NAME[dtype],
+           "launches": {k: v for k, v in launches.items() if v},
            "g_ms": g_s * 1e3, "request_ms": req_s * 1e3,
            "img_per_s_g": BATCH / g_s, "img_per_s_request": BATCH / req_s,
            "peak_mem_gib": peak, "request_kernel_ms": device_ms, "request_busy_ms": busy_ms,
            "profiled_request_ms": wall_ms, "device_busy_share": busy_ms / wall_ms,
            "device_ms_by_category": by_category(kernels), "img": img}
-    log(f"[5] serve {label} bs{BATCH} 256²: launches {launches['fused_affine.forward']}, G forward "
+    log(f"[5] serve {label} bs{BATCH} 256²: launches {res['launches']}, G forward "
         f"{res['g_ms']:.2f} ms ({res['img_per_s_g']:.1f} img/s), encode+G "
         f"{res['request_ms']:.2f} ms ({res['img_per_s_request']:.1f} img/s), peak memory "
         f"{peak:.2f} GiB (median of 5)")
@@ -656,7 +819,8 @@ def epilogue_rows(shapes, errs, launches) -> list[dict]:
                 "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:"
                             + ("71" if nmod == 2 else "59")
                             + " (the Pallas kernel has no backward; this is its gradient)"}
-            for spec in (fwd, bwd):
+            # the single form's forward runs on the concept-DF path: modulation_rows
+            for spec in (fwd, bwd) if nmod == 2 else (bwd,):
                 byte_ms = sum(spec["bytes"]) / HBM_BYTES_PER_S * 1e3
                 op_ms = sum(spec["ops"]) / FP32_OPS_PER_S * 1e3
                 ms, plain_ms = cuda_ms(spec["kern"], 10), cuda_ms(spec["ref"], 3)
@@ -674,6 +838,110 @@ def epilogue_rows(shapes, errs, launches) -> list[dict]:
                     f"{100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
         del ins, dys
         torch.cuda.empty_cache()
+    return rows
+
+
+def modulation_rows(shapes, errs, launches) -> list[dict]:
+    """Phase 7, fused_affine single form (``modulate_lrelu``): the 28
+    launches of one 256² concept-DF request at batch 128, per dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = {s: epilogue_inputs(s, dtype, gen) for s in sorted(set(shapes))}
+        calls = [(ins[s][0], tuple(ins[s][1][:2])) for s in shapes]
+        es = torch.empty((), dtype=dtype).element_size()
+        n = [math.prod(s) for s in shapes]
+        # x read, out written, the two fp32 [B, C] vectors read
+        byte_ms = sum(2 * k * es + 2 * s[0] * s[1] * 4 for k, s in zip(n, shapes)) \
+            / HBM_BYTES_PER_S * 1e3
+        op_ms = sum(4 * k for k in n) / FP32_OPS_PER_S * 1e3
+
+        def kern():
+            for x, m in calls:
+                fa._launch(x, m, 0.2)
+
+        def ref():
+            for x, m in calls:
+                fa._ref(x, m, 0.2)
+
+        ms, plain_ms = cuda_ms(kern, 5), cuda_ms(ref, 2)
+        bound = max(byte_ms, op_ms)
+        rows.append({
+            "name": f"fused_affine.modulate_lrelu[{DTYPE_NAME[dtype]}]", "route": "cuda",
+            "source": "xmc_gan_tpu_torch/csrc/fused_affine.cu",
+            "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:59",
+            "launches": launches[dtype], "max_abs_err": errs[dtype], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
+            "roofline_share": bound / ms,
+            "shapes": f"the {len(shapes)} modulate_lrelu inputs of one 256² NCH=32 concept-DF "
+                      f"G pass at batch {BATCH}",
+        })
+        log(f"[7] {rows[-1]['name']}: {len(shapes)} launches {ms:.3f} ms (bound {bound:.3f} ms, "
+            f"{100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+        del ins, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def attention_rows(in_shapes, out_shapes, errs, launches) -> list[dict]:
+    """Phase 7, cross_attention: the 10 launches of one 256² INATTN request
+    and of one OUTATTN request (batch 128), per dtype: kernel vs plain vs
+    ``scaled_dot_product_attention`` (a yardstick on the same inputs: it
+    computes the same function except on fully padded rows, and is used
+    nowhere in the port) vs bound."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.empty((), dtype=dtype).element_size()
+        for which, shapes in (("in", in_shapes), ("out", out_shapes)):
+            strided = which == "in"
+            ins = {s: attention_inputs((*s, strided), dtype, gen, False)
+                   for s in sorted(set(shapes))}
+            calls = [ins[s] for s in shapes]
+            nbytes = ops = 0
+            for (b, g, n, t, d), (q, k, v, mask) in zip(shapes, calls):
+                words = int((~mask).sum()) * g  # real (row, word) pairs of this launch
+                kv = 1 if v is k else 2  # the In path passes the keys as the values
+                nbytes += 2 * b * g * n * d * es + kv * b * g * t * d * es + b * t
+                # per (query, real word): dot (2D), weighted sum (2D), max, exp, sum
+                ops += words * n * (4 * d + 3)
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            op_ms = ops / FP32_OPS_PER_S * 1e3
+
+            def kern():
+                for q, k, v, mask in calls:
+                    ca._launch(q, k, v, mask, 1.0)
+
+            def ref():
+                for q, k, v, mask in calls:
+                    ca.masked_cross_attention_ref(q, k, v, mask, 1.0)
+
+            def sdpa():
+                for q, k, v, mask in calls:
+                    keep = ~mask.reshape(mask.shape[0], *([1] * (q.dim() - 2)), mask.shape[1])
+                    torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                                     scale=1.0)
+
+            ms, plain_ms, library_ms = cuda_ms(kern, 5), cuda_ms(ref, 2), cuda_ms(sdpa, 2)
+            bound = max(byte_ms, op_ms)
+            gen_name = "CONCEPT_INATTN_GEN" if which == "in" else "CONCEPT_OUTATTN_GEN"
+            rows.append({
+                "name": f"cross_attention.{which}[{DTYPE_NAME[dtype]}]", "route": "cuda",
+                "source": "xmc_gan_tpu_torch/csrc/cross_attention.cu",
+                "replaces": "xmc_gan_tpu/ops/pallas/cross_attention.py:95 (pallas_call :131)",
+                "launches": launches[gen_name][dtype], "max_abs_err": errs[dtype], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "library_ms": library_ms, "roofline_share": bound / ms,
+                "shapes": f"the {len(shapes)} launches of one 256² NCH=32 {gen_name} request at "
+                          f"batch {BATCH}: (B, G, N, T, D) {sorted(set(shapes))}",
+            })
+            log(f"[7] {rows[-1]['name']}: {len(shapes)} launches {ms:.3f} ms (bound "
+                f"{bound:.4g} ms by {rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain "
+                f"{plain_ms:.3f} ms, scaled_dot_product_attention {library_ms:.3f} ms")
+            del ins, calls
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -729,8 +997,14 @@ def main() -> int:
     cfg = cfg_from_dict({"IMG": {"SIZE": 256}, "TEXT": {"ENCODER_DIR": ""}},
                         base=cfg_from_file(str(CFG)))
     shapes = epilogue_shapes(cfg, BATCH)
+    in_cfg = concept_cfg("CONCEPT_INATTN_GEN")
+    attn_in, attn_out = attention_shapes(in_cfg, BATCH, "in"), attention_shapes(in_cfg, BATCH,
+                                                                                "out")
+    mod_shapes = modulation_shapes(concept_cfg("CONCEPT_IN_DF_GEN"), BATCH)
     fa_errs = check_epilogue(shapes)
+    mod_errs = check_modulation(sorted(set(mod_shapes)))
     ds_errs = check_damsm()
+    ca_errs = check_attention(attn_in)
 
     g_cpu = make_generator(cfg, device="cpu")
     sd = perturbed_state_dict(g_cpu, seed=0)
@@ -738,6 +1012,7 @@ def main() -> int:
     check_slice_against_cpu(cfg, g_cpu)
     del g_cpu
     check_train_against_cpu()
+    check_concepts_against_cpu()
 
     runs = {dtype: serve(cfg, sd, dtype) for dtype in (torch.float32, torch.bfloat16)}
     diff = (runs[torch.float32].pop("img") - runs[torch.bfloat16].pop("img")).abs()
@@ -745,14 +1020,36 @@ def main() -> int:
         f"mean {diff.mean().item():.5f}")
     del diff
     torch.cuda.empty_cache()
+    concept_runs = {}
+    for i, name in enumerate(CONCEPT_GENS):
+        ccfg = concept_cfg(name)
+        c_sd = perturbed_state_dict(make_generator(ccfg, device="cpu"), seed=30 + i)
+        concept_runs[name] = {dtype: serve(ccfg, c_sd, dtype, name)
+                              for dtype in (torch.float32, torch.bfloat16)}
+        diff = (concept_runs[name][torch.float32].pop("img")
+                - concept_runs[name][torch.bfloat16].pop("img")).abs()
+        log(f"[5] {name} bf16 vs fp32 images: max abs diff {diff.max().item():.4f}, "
+            f"mean {diff.mean().item():.5f}")
+        del diff
+        torch.cuda.empty_cache()
 
     trains = {torch.bfloat16: train(torch.bfloat16, warmup=2, timed=10),
               torch.float32: train(torch.float32, warmup=1, timed=3)}
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
+    req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
+           for name, rs in concept_runs.items()}
     kernels = epilogue_rows(shapes, fa_errs, step_launches)
+    kernels += modulation_rows(
+        mod_shapes, mod_errs,
+        {d: req["CONCEPT_IN_DF_GEN"][d]["fused_affine.forward"] for d in req["CONCEPT_IN_DF_GEN"]})
     kernels += damsm_rows(ds_errs, {None: step_launches[torch.float32],
                                     torch.bfloat16: step_launches[torch.bfloat16]})
+    kernels += attention_rows(
+        [s[:5] for s in attn_in], [s[:5] for s in attn_out], ca_errs,
+        {name: {d: r["cross_attention.forward"] for d, r in req[name].items()}
+         for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")})
     log(json.dumps({"card": card, "serving": list(runs.values()),
+                    "concept_serving": [r for rs in concept_runs.values() for r in rs.values()],
                     "training": list(trains.values())}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

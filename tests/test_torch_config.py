@@ -38,8 +38,9 @@ def test_registry_resolves_ported_and_names_later_slices():
 
     assert get_generator("DF_GEN") is NetG
     assert get_text_encoder("RNN") is RNNEncoder
-    with pytest.raises(NotImplementedError, match="concept-family slice"):
-        get_generator("CONCEPT_IN_DF_GEN")
+    from xmc_gan_tpu_torch.models.df_concept_gan import InNetG
+
+    assert get_generator("CONCEPT_IN_DF_GEN") is InNetG
     with pytest.raises(NotImplementedError, match="SBERT"):
         get_text_encoder("SBERT")
     with pytest.raises(KeyError):

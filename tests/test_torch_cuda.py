@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from xmc_gan_tpu_torch import losses
+from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
 
@@ -207,3 +208,63 @@ def test_word_loss_kernel_backend_matches_plain_on_card(cuda_device, cd):
     torch.testing.assert_close(vals[0], vals[1], rtol=1e-5, atol=10 * score_atol)
     torch.testing.assert_close(grads[0], grads[1], rtol=0,
                                atol=(grad_scale + BF16_ULP) * grads[1].abs().max().item())
+
+
+# cross_attention kernel vs plain.  fp32: the same math in another order (the
+# kernel keeps scores in log2 units and rescales its running sums once per
+# word tile); with N(0, 1) operands at D = 256 the scores reach ~1e2, and one
+# fp32 rounding of them moves a softmax weight by ~1e-5 relative, so 1e-4
+# absolute.  bf16: both compute in fp32 and round once on store, so one bf16
+# ulp of the value where the two fp32 results straddle a rounding boundary.
+ATTN_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (BF16_ULP, 1e-4)}
+# (B, G, N, T, D, strided): the ten In-sampler launches of a 256², NCH=32
+# request at batch 2, the Out launch at batch 128, the JAX package's kernel
+# shapes, a D = 256 shape and a ragged one
+ATTN_SHAPES = [(2, 16, n, 15, 4, True) for n in (256, 1024, 4096, 16384, 65536)] + [
+    (128, 1, 16, 15, 4, False), (2, 1, 64, 20, 32, False), (2, 1, 300, 260, 32, False),
+    (4, 1, 1024, 200, 256, False), (3, 2, 77, 33, 48, True)]
+
+
+def _attn_inputs(device, shape, seed, allpad):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, g, n, t, d, strided = shape
+    if strided:  # the In sampler's layout: [B, N, G, D] in memory, viewed as [B, G, N, D]
+        q = torch.randn(b, n, g, d, generator=gen, device=device).transpose(1, 2)
+        k = torch.randn(b, t, g, d, generator=gen, device=device).transpose(1, 2)
+        v = k
+    else:
+        q = torch.randn(b, g, n, d, generator=gen, device=device).squeeze(1)
+        k, v = (torch.randn(b, g, t, d, generator=gen, device=device).squeeze(1)
+                for _ in range(2))
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=device)
+    mask = torch.arange(t, device=device)[None, :] >= lens[:, None]
+    if allpad:
+        mask[0] = True
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_cross_attention_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    """One launch per call; a fully padded first row gives 0 in both."""
+    q, k, v, mask = _attn_inputs(cuda_device, shape, 7, allpad=True)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = ca.FORWARD.launches
+    got = ca.masked_cross_attention_kernel(q, k, v, mask, 0.7)
+    torch.cuda.synchronize()
+    assert ca.FORWARD.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ca.masked_cross_attention_ref(q, k, v, mask, 0.7)
+    assert bool((got[0] == 0).all()) and bool((want[0] == 0).all())
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cross_attention_refuses_grad_on_card(cuda_device):
+    q, k, v, mask = _attn_inputs(cuda_device, (2, 1, 8, 5, 4, False), 8, allpad=False)
+    with pytest.raises(NotImplementedError, match="concept training slice"):
+        ca.masked_cross_attention_kernel(q.requires_grad_(), k, v, mask)
+    with torch.no_grad():
+        ca.masked_cross_attention_kernel(q, k, v, mask)

@@ -159,7 +159,7 @@ def test_pooling_and_unit_range_match_jax():
 
 def test_registry_discriminators():
     assert registry.get_discriminator("DF_DISC") is NetD
-    with pytest.raises(NotImplementedError, match="concept-family slice"):
+    with pytest.raises(NotImplementedError, match="concept training slice"):
         registry.get_discriminator("CONCEPT_NETD")
     with pytest.raises(KeyError):
         registry.get_discriminator("NO_SUCH_D")

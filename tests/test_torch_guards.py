@@ -19,6 +19,7 @@ import xmc_gan_tpu_torch
 from xmc_gan_tpu_torch.config import cfg_from_dict
 from xmc_gan_tpu_torch.device import resolve_device
 from xmc_gan_tpu_torch import losses
+from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
 from xmc_gan_tpu_torch.train import (
@@ -160,11 +161,53 @@ def test_damsm_wrapper_has_no_quiet_route_for_other_devices():
         losses.word_region_scores(r, w, m, backend="kernel")
 
 
+def test_cross_attention_wrapper_has_no_quiet_route():
+    """A tensor on any device other than the CPU or CUDA raises; a CUDA path
+    never takes the plain version (the launch is reached and, without a
+    card or a built library, raises instead of computing on the CPU); a
+    CPU tensor never launches."""
+    q = torch.empty(2, 3, 4, device="meta")
+    m = torch.zeros(2, 5, dtype=torch.bool, device="meta")
+    k = torch.empty(2, 5, 4, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU tensors"):
+        ca.masked_cross_attention_kernel(q, k, k, m)
+
+    class Reached(Exception):
+        pass
+
+    def launch(*args):
+        raise Reached
+
+    def plain(*args):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    qc, kc = torch.zeros(2, 3, 4), torch.zeros(2, 5, 4)
+    mc = torch.zeros(2, 5, dtype=torch.bool)
+    real_device = torch.Tensor.device
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ca, "_launch", launch)
+        mp.setattr(ca, "masked_cross_attention_ref", plain)
+        mp.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
+        with pytest.raises(Reached):
+            ca.masked_cross_attention_kernel(qc, kc, kc, mc)
+        # an operand that would need a gradient is refused on CUDA, not detached
+        with pytest.raises(NotImplementedError, match="concept training slice"):
+            ca.masked_cross_attention_kernel(qc.clone().requires_grad_(), kc, kc, mc)
+    assert torch.Tensor.device is real_device
+    before = ca.FORWARD.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ca, "_launch", launch)
+        ca.masked_cross_attention_kernel(qc, kc, kc, mc)
+    assert ca.FORWARD.launches == before
+
+
 def test_modules_list_covers_the_slice():
     want = {"config", "device", "registry", "trainer", "train", "cli", "losses",
             "ops.initializers", "ops.modules", "ops.fused", "ops.images", "ops.cuda.build",
-            "ops.cuda.fused_affine", "ops.cuda.damsm_score", "models.common",
-            "models.df_gan", "models.encoder", "utils.convert", "utils.miscc", "data.vocab"}
+            "ops.cuda.fused_affine", "ops.cuda.damsm_score", "ops.cuda.cross_attention",
+            "ops.cross_attention", "ops.grouped", "models.common", "models.df_gan",
+            "models.df_concept_gan", "models.concept_gan", "models.encoder", "utils.convert",
+            "utils.miscc", "data.vocab"}
     assert {f"xmc_gan_tpu_torch.{m}" for m in want} <= set(MODULES)
     for name in MODULES:
         importlib.import_module(name)

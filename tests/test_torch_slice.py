@@ -5,6 +5,7 @@ reference-named ``.pth`` state_dicts, the format both packages load) and the
 same numpy noise; then the port's CLI ``sample`` writing a PNG."""
 
 import pickle
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -139,3 +140,26 @@ def test_cli_sample_rejects_out_of_vocabulary_caption(tiny_dataset):
             "--caption", "zebra giraffe", "--device", "cpu"]
     with pytest.raises(ValueError, match="No in-vocabulary words"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("name", ["CONCEPT_IN_DF_GEN", "CONCEPT_INATTN_GEN"])
+def test_cli_sample_serves_a_concept_yaml(tiny_dataset, name):
+    """``xmc_gan_tpu/cfg/concept_in_df_gan.yml`` cut to the tiny dataset's
+    sizes, with either concept family's generator: the CLI needs no new flag
+    (it hands the words and their mask on)."""
+    with open(Path(__file__).resolve().parents[1] / "xmc_gan_tpu/cfg/concept_in_df_gan.yml") as f:
+        doc = yaml.safe_load(f)
+    over = g_overrides(64)
+    for section, values in over.items():
+        doc[section].update(values)
+    doc["TEXT"]["VOCA_SIZE"] = len(WORDS)
+    doc["GEN"]["ENCODER_NAME"] = name
+    (tiny_dataset / "concept.yml").write_text(yaml.safe_dump(doc))
+    out = tiny_dataset / "concept.png"
+    argv = ["sample", "--cfg", str(tiny_dataset / "concept.yml"), "--data_dir",
+            str(tiny_dataset), "--caption", "a red bird", "--caption", "two dogs in snow",
+            "--n_per_caption", "2", "--device", "cpu", "--out", str(out)]
+    with pytest.warns(UserWarning, match="random"):
+        assert cli.main(argv) == 0
+    img = np.asarray(Image.open(out))
+    assert img.shape == (2 * 66 + 2, 2 * 66 + 2, 3) and img[2:66, 2:66].std() > 0

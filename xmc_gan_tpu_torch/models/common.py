@@ -1,8 +1,9 @@
 """Shared model plumbing: architecture tables and init-regime selection.
 
 Port of ``xmc_gan_tpu/models/common.py``.  The tables match the reference
-generator and discriminator (``model/df_gan.py:9-61``).  ``concept_gen_arch``
-comes with the concept-family slice.
+generator and discriminator (``model/df_gan.py:9-61``; the concept-DF family
+uses the same ones) and the word-attention concept generator
+(``model/concept_gan.py:11-37``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from xmc_gan_tpu_torch.ops.initializers import (
     zeros_init,
 )
 
-__all__ = ["gen_arch", "disc_arch", "inits", "affine_out_inits", "split_upsample_schedule"]
+__all__ = ["gen_arch", "disc_arch", "concept_gen_arch", "inits", "affine_out_inits",
+           "split_upsample_schedule"]
 
 
 def split_upsample_schedule(ups: list, fuse: bool) -> tuple[list, list]:
@@ -72,6 +74,31 @@ def disc_arch(img_size: int, nch: int) -> dict:
         "out_channels": [i * nch for i in out_ch],
         "downsample": [True] * depth,
         "resolution": resolution,
+        "depth": depth,
+    }
+
+
+def concept_gen_arch(img_size: int, nch: int) -> dict:
+    """Word-attention concept-GAN generator table (reference
+    ``concept_gan.py:11-37``, ``xmc_gan_tpu/models/common.py:85-105``): wider
+    early stages, attention from stage 2 on."""
+    if img_size not in (64, 128, 256):
+        raise ValueError(f"IMG.SIZE must be 64, 128 or 256, got {img_size}")
+    if img_size == 256:
+        in_ch, out_ch = [16, 16, 8, 8, 4, 2, 1], [16, 8, 8, 4, 2, 1, 1]
+        resolution, depth = [8, 16, 32, 64, 128, 256, 256], 7
+    elif img_size == 128:
+        in_ch, out_ch = [16, 8, 8, 4, 2, 1], [8, 8, 4, 2, 1, 1]
+        resolution, depth = [8, 16, 32, 64, 128, 128], 6
+    else:
+        in_ch, out_ch = [8, 8, 4, 2, 1], [8, 4, 2, 1, 1]
+        resolution, depth = [8, 16, 32, 64, 64], 5
+    return {
+        "in_channels": [i * nch for i in in_ch],
+        "out_channels": [i * nch for i in out_ch],
+        "upsample": [True] * (depth - 1) + [False],
+        "resolution": resolution,
+        "attention": [False] * 2 + [True] * (depth - 2),
         "depth": depth,
     }
 

@@ -63,18 +63,25 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 _UPFOLD_TAPS = ((0.0, 0.0, 1.0), (0.0, 1.0, 1.0), (1.0, 1.0, 0.0), (1.0, 0.0, 0.0))
 
 
-def fold_upsample_kernel(weight: torch.Tensor) -> torch.Tensor:
+def fold_upsample_kernel(weight: torch.Tensor, groups: int = 1) -> torch.Tensor:
     """Fold ``conv3x3(pad=1) o upsample_nearest_2x`` into one transposed conv.
 
-    ``weight`` is a Conv2d weight ``[O, I, 3, 3]``.  The result is a
-    ``conv_transpose2d`` weight ``[I, O, 4, 4]`` such that
-    ``F.conv_transpose2d(x, result, stride=2, padding=1)`` equals
-    ``F.conv2d(upsample_nearest_2x(x), weight, padding=1)`` exactly.  Unlike
-    the JAX package's fold (pre-flipped for an input-dilated conv), the taps
-    are not flipped: the transposed conv scatters rather than gathers.
+    ``weight`` is a Conv2d weight ``[O, I/groups, 3, 3]``.  The result is a
+    ``conv_transpose2d`` weight ``[I, O/groups, 4, 4]`` such that
+    ``F.conv_transpose2d(x, result, stride=2, padding=1, groups=groups)``
+    equals ``F.conv2d(upsample_nearest_2x(x), weight, padding=1,
+    groups=groups)`` exactly.  Unlike the JAX package's fold (pre-flipped for
+    an input-dilated conv), the taps are not flipped: the transposed conv
+    scatters rather than gathers.  A grouped weight cannot simply swap its
+    first two axes (that gives ``[I/groups, O, 4, 4]``): group ``j``'s output
+    rows ``j*O/g ...`` pair with its input rows ``j*I/g ...``, so the folded
+    taps are regrouped per group.
     """
     taps = torch.tensor(_UPFOLD_TAPS, dtype=weight.dtype, device=weight.device)
-    return torch.einsum("ma,nb,oiab->iomn", taps, taps, weight)
+    w4 = torch.einsum("ma,nb,oiab->oimn", taps, taps, weight)  # [O, I/g, 4, 4]
+    o, ig = w4.shape[:2]
+    return (w4.reshape(groups, o // groups, ig, 4, 4).transpose(1, 2)
+            .reshape(groups * ig, o // groups, 4, 4))
 
 
 def _spectral_normalize(weight: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -120,28 +127,34 @@ class SNConv(_SNBase):
     ``pre_upsample`` folds a nearest-2x upsample of the input into the conv
     (:func:`fold_upsample_kernel`): the parameter stays an ordinary 3x3
     weight, the upsampled input is never materialized, and the conv runs as a
-    stride-2 transposed conv.
+    stride-2 transposed conv.  ``groups`` is the JAX ``feature_group_count``
+    (``xmc_gan_tpu/ops/modules.py:147,156,170,185``): the weight is
+    ``[O, I/groups, kH, kW]``, as in a grouped ``nn.Conv2d``.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int, *,
                  stride: int = 1, padding: int = 0, use_bias: bool = True,
-                 spec_norm: bool = False, pre_upsample: bool = False,
+                 groups: int = 1, spec_norm: bool = False, pre_upsample: bool = False,
                  weight_init: Init = torch_default_kernel_init,
                  bias_init: Init | None = None, gen: torch.Generator):
         if pre_upsample and (kernel_size != 3 or stride != 1 or padding != 1):
             raise ValueError("pre_upsample folds only a 3x3/stride-1/pad-1 conv")
-        super().__init__((features, in_features, kernel_size, kernel_size),
+        if in_features % groups or features % groups:
+            raise ValueError(f"groups={groups} must divide {in_features} and {features}")
+        super().__init__((features, in_features // groups, kernel_size, kernel_size),
                          use_bias, spec_norm, weight_init, bias_init, gen)
         self.stride = stride
         self.padding = padding
+        self.groups = groups
         self.pre_upsample = pre_upsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self._params(x.dtype)
         if self.pre_upsample:
-            return F.conv_transpose2d(x, fold_upsample_kernel(w).to(x.dtype), b,
-                                      stride=2, padding=1)
-        return F.conv2d(x, w.to(x.dtype), b, stride=self.stride, padding=self.padding)
+            return F.conv_transpose2d(x, fold_upsample_kernel(w, self.groups).to(x.dtype), b,
+                                      stride=2, padding=1, groups=self.groups)
+        return F.conv2d(x, w.to(x.dtype), b, stride=self.stride, padding=self.padding,
+                        groups=self.groups)
 
 
 class SNDense(_SNBase):

@@ -9,15 +9,26 @@ raise ``KeyError``.  Imports are lazy, as in the JAX package.
 
 from __future__ import annotations
 
+import importlib
+
 __all__ = ["get_generator", "get_discriminator", "get_text_encoder"]
 
-_GEN_LATER = {
-    "CONCEPT_IN_DF_GEN": "the concept-family slice",
-    "CONCEPT_OUT_DF_GEN": "the concept-family slice",
-    "CONCEPT_INATTN_GEN": "the concept-family slice",
-    "CONCEPT_OUTATTN_GEN": "the concept-family slice",
+
+def _lazy(module: str, cls: str):
+    """A loader of ``xmc_gan_tpu_torch.models.<module>.<cls>``."""
+    return lambda: getattr(importlib.import_module(f"xmc_gan_tpu_torch.models.{module}"), cls)
+
+
+_GENERATORS = {
+    "DF_GEN": _lazy("df_gan", "NetG"),
+    "CONCEPT_IN_DF_GEN": _lazy("df_concept_gan", "InNetG"),
+    "CONCEPT_OUT_DF_GEN": _lazy("df_concept_gan", "OutNetG"),
+    "CONCEPT_INATTN_GEN": _lazy("concept_gan", "InNetG"),
+    "CONCEPT_OUTATTN_GEN": _lazy("concept_gan", "OutNetG"),
 }
-_DISC_LATER = {"CONCEPT_NETD": "the concept-family slice"}
+_DISCRIMINATORS = {"DF_DISC": _lazy("df_gan", "NetD")}
+_DISC_LATER = {"CONCEPT_NETD": "the concept training slice"}
+_ENCODERS = {"RNN": _lazy("encoder", "RNNEncoder")}
 _ENC_LATER = {"SBERT": "the SBERT text-encoder slice"}
 
 
@@ -29,31 +40,13 @@ def _lookup(kind: str, name: str, ported: dict, later: dict):
     raise KeyError(f"Unknown {kind} {name!r}; available: {sorted(ported) + sorted(later)}")
 
 
-def _df_gen():
-    from xmc_gan_tpu_torch.models.df_gan import NetG
-
-    return NetG
-
-
-def _df_disc():
-    from xmc_gan_tpu_torch.models.df_gan import NetD
-
-    return NetD
-
-
-def _rnn():
-    from xmc_gan_tpu_torch.models.encoder import RNNEncoder
-
-    return RNNEncoder
-
-
 def get_generator(name: str):
-    return _lookup("generator", name, {"DF_GEN": _df_gen}, _GEN_LATER)
+    return _lookup("generator", name, _GENERATORS, {})
 
 
 def get_discriminator(name: str):
-    return _lookup("discriminator", name, {"DF_DISC": _df_disc}, _DISC_LATER)
+    return _lookup("discriminator", name, _DISCRIMINATORS, _DISC_LATER)
 
 
 def get_text_encoder(name: str):
-    return _lookup("text encoder", name, {"RNN": _rnn}, _ENC_LATER)
+    return _lookup("text encoder", name, _ENCODERS, _ENC_LATER)

@@ -10,6 +10,9 @@ package's ``utils/convert.py``:
 
 * Dense ``kernel`` ``[in, out]``      -> ``weight`` ``[out, in]`` (transpose)
 * Conv ``kernel`` HWIO ``[kH, kW, I, O]`` -> ``weight`` ``[O, I, kH, kW]``
+* GroupedDense ``kernel`` ``[g, d_in, f]`` -> grouped 1x1 conv ``weight``
+  ``[g*f, d_in, 1, 1]``, ``bias`` ``[g, f]`` -> ``[g*f]``
+* GroupNorm ``scale`` -> ``weight``
 * RNN weights already use the torch layout (rename only)
 * spectral ``u`` -> ``weight_u``; conv ``v`` re-ordered from the JAX
   flattening ``(kH, kW, I)`` to PyTorch's ``(I, kH, kW)`` -> ``weight_v``
@@ -17,6 +20,7 @@ package's ``utils/convert.py``:
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -29,6 +33,8 @@ __all__ = [
     "rnn_encoder_state_dict",
     "df_gan_generator_state_dict",
     "df_gan_discriminator_state_dict",
+    "concept_generator_state_dict",
+    "df_concept_generator_state_dict",
     "train_state_from_jax",
 ]
 
@@ -112,6 +118,70 @@ def df_gan_generator_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Te
                     raise KeyError(f"Unexpected NetG param {key}/{sub}")
         else:
             raise KeyError(f"Unexpected NetG param {key}")
+    return sd
+
+
+def grouped_state_dict(node: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``GroupedDense`` params -> port ``GroupedDense`` (the reference's
+    grouped 1x1 conv layout, output channels group-major)."""
+    kernel = np.asarray(node["kernel"], np.float32)  # [g, d_in, f]
+    g, d_in, f = kernel.shape
+    sd = {f"{prefix}weight": _t(kernel.transpose(0, 2, 1).reshape(g * f, d_in, 1, 1))}
+    if "bias" in node:
+        sd[f"{prefix}bias"] = _t(np.asarray(node["bias"], np.float32).reshape(-1))
+    return sd
+
+
+def _flatten(node: Mapping, prefix: str, sd: dict) -> None:
+    """A JAX module tree under the port's names: the module path joined by
+    dots, each layer's leaves in PyTorch layout (dense, conv and grouped
+    kernels told apart by their rank), other parameters as they are."""
+    if "kernel" in node:
+        kernel = np.asarray(node["kernel"])
+        convert = {2: dense_state_dict, 4: conv_state_dict}.get(kernel.ndim)
+        sd.update(convert(node, prefix=prefix) if convert else grouped_state_dict(node, prefix))
+    elif set(node) == {"scale", "bias"}:  # GroupNorm
+        sd[f"{prefix}weight"], sd[f"{prefix}bias"] = _t(node["scale"]), _t(node["bias"])
+    else:
+        for key, sub in node.items():
+            if isinstance(sub, Mapping):
+                _flatten(sub, f"{prefix}{key}.", sd)
+            else:
+                sd[f"{prefix}{key}"] = _t(sub)
+
+
+def concept_generator_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX word-attention ``InNetG``/``OutNetG`` params (``models/concept_gan.py``)
+    -> port ``concept_gan.InNetG``/``OutNetG``.  The reference module never
+    ran, so the names are the JAX module tree's (``block{i}.concept1.
+    concept_sampler1.key_gconv.weight``)."""
+    sd: dict[str, torch.Tensor] = {}
+    _flatten(params, "", sd)
+    return sd
+
+
+# JAX tree path -> reference name (xmc_gan_tpu/utils/convert.py:244-311 reads these)
+_DF_CONCEPT_RENAMES = (
+    (r"^block(\d+)\.", r"upblocks.\1."),
+    (r"^conv_out\.", "conv_out.1."),
+    (r"^proj_sent_dense\.", "proj_sent."),
+    (r"_gconv\.g1\.", "_gconv.0."),
+    (r"_gconv\.g2\.", "_gconv.2."),
+)
+
+
+def df_concept_generator_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX concept-DF ``InNetG``/``OutNetG`` params (``models/df_concept_gan.py``)
+    -> port ``df_concept_gan.InNetG``/``OutNetG`` under the reference names:
+    ``block{i}`` -> ``upblocks.{i}``, ``conv_out`` -> ``conv_out.1``,
+    ``proj_sent_dense`` -> ``proj_sent``, the gamma/beta MLPs' ``g1``/``g2`` ->
+    their Sequential indices ``0``/``2``; grouped projections as grouped 1x1
+    conv weights, GroupNorm ``scale`` as ``weight``."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, value in concept_generator_state_dict(params).items():
+        for pattern, repl in _DF_CONCEPT_RENAMES:
+            name = re.sub(pattern, repl, name)
+        sd[name] = value
     return sd
 
 
