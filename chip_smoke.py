@@ -14,9 +14,13 @@ Phases (any failure raises, and the exit code is then non-zero):
    one, and the single form through its wrapper at the distinct
    ``modulate_lrelu`` shapes of a 256² concept-DF request at batch 128 (128
    channels, up to 2^30 elements); the ``damsm_score`` forward, d_regions and d_words at the flagship
-   word-loss shape (B = Bc = 128, R = 256, T = 20, D = 256) and at a ragged
-   one (R = 50, T = 7, D = 48, one all-padded caption), compute dtype fp32
-   and bf16; the ``cross_attention`` kernel through the wrapper the concept
+   word-loss shape (B = Bc = 128, R = 256, T = 20, D = 256), at a ragged
+   one (R = 50, T = 7, D = 48, one all-padded caption) and at the edges of
+   the bf16 d_regions kernel (``DAMSM_EDGES``), compute dtype fp32 and bf16;
+   the bf16 d_regions, which runs on the tensor cores (``mma.sync``; the
+   forward, d_words and every fp32 path run on the CUDA cores), also twice
+   bit-equal and unmoved by the all-padded caption's cotangent; the
+   ``cross_attention`` kernel through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
    of T = 15, D = 4, N from 256 to 65,536, the grouped queries read
@@ -43,9 +47,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``create_train_state`` + ``make_train_step``, bf16 activations (2 warm-up
    and 10 timed steps) and fp32 with TF32 off (1 warm-up, 3 timed); checks
    each kernel's launches in one step (fused_affine 28 forward / 14
-   backward, damsm 2 forward / 2 d_regions / 0 d_words) and that the losses
-   are finite; prints images/s (median), peak memory and one step's device
-   time by kernel category.
+   backward, damsm 2 forward / 2 d_regions / 0 d_words), that the trace's
+   d_regions launches are the tensor-core kernel in bf16 and the CUDA-core
+   one in fp32, and that the losses are finite; prints images/s (median),
+   peak memory, one step's device time by kernel category and the damsm
+   kernels by name.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs, as one
@@ -168,6 +174,20 @@ TRAIN_OVERRIDES = {  # the flagship_word step: bf16 activations, fp32 params
 }
 DAMSM_FLAGSHIP = (BATCH, BATCH, 256, 20, 256)  # B, Bc, R, T, D
 DAMSM_RAGGED = (3, 5, 50, 7, 48)
+# (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
+# bf16 d_regions kernel's edges (16-row x 8-region x 16-feature tiles,
+# passes of up to 64 packed word rows).  B = 132 images, no fewer than the
+# H100's multiprocessors, gives one split (``ds.plan_dr``), so each block's
+# passes pack runs of several captions: D = 40 with an all-padded caption
+# inside a pass; R = 50 with T = 20 (passes of word rows no multiple of 16,
+# captions crossing a 16-row tile, Bc = 9); T = 33; T = 64 with captions of
+# at most 2 words (whole 16-row tiles without a word); B != Bc throughout
+DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, None),
+               ((132, 2, 24, 33, 24), True, None), ((132, 3, 50, 64, 40), False, 2)]
+# kernel names in the profiler trace: the bf16 d_regions (tensor cores) and
+# the fp32 one (CUDA cores)
+DR_KERNEL = {torch.bfloat16: "damsm_bwd_dr_tc_kernel",
+             torch.float32: "damsm_bwd_dr_kernel<float"}
 
 
 def log(msg: str) -> None:
@@ -378,11 +398,11 @@ def epilogue_inputs(shape, dtype, gen):
     return x, mods
 
 
-def damsm_inputs(shape, gen, allpad: bool):
+def damsm_inputs(shape, gen, allpad: bool, max_len: int | None = None):
     b, bc, R, T, D = shape
     r = torch.nn.functional.normalize(torch.randn(b, R, D, generator=gen, device="cuda"), dim=-1)
     w = torch.nn.functional.normalize(torch.randn(bc, T, D, generator=gen, device="cuda"), dim=-1)
-    lens = torch.randint(1, T + 1, (bc,), generator=gen, device="cuda")
+    lens = torch.randint(1, (max_len or T) + 1, (bc,), generator=gen, device="cuda")
     mask = torch.arange(T, device="cuda")[None, :] >= lens[:, None]
     if allpad:
         mask[1] = True
@@ -458,14 +478,17 @@ def check_modulation(shapes) -> dict:
 
 def check_damsm() -> dict:
     """Phase 3, damsm_score: forward, d_regions, d_words against the plain
-    version and its autograd, at the flagship and a ragged shape."""
+    version and its autograd, at the flagship, a ragged and the edge
+    shapes; the bf16 d_regions also for determinism and the all-padded
+    caption."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
+    shapes = [(DAMSM_FLAGSHIP, False, None), (DAMSM_RAGGED, True, None), *DAMSM_EDGES]
     for cd in (None, torch.bfloat16):
         tol = DAMSM_TOL[cd]
         worst = {"forward": 0.0, "d_regions": 0.0, "d_words": 0.0}
-        for shape, allpad in ((DAMSM_FLAGSHIP, False), (DAMSM_RAGGED, True)):
-            r, w, mask, up = damsm_inputs(shape, gen, allpad)
+        for shape, allpad, max_len in shapes:
+            r, w, mask, up = damsm_inputs(shape, gen, allpad, max_len)
             got = ds._launch_fwd(r, w, mask, 4.0, 5.0, cd)
             want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd)
             torch.cuda.synchronize()
@@ -483,8 +506,22 @@ def check_damsm() -> dict:
             del r, w, mask, up, got, want, got_g, want_g
         errs[cd] = worst
         log(f"[3] damsm_score compute {CD_NAME[cd]}: max_abs_err " + ", ".join(
-            f"{k} {v:.3g}" for k, v in worst.items()) + f" at {DAMSM_FLAGSHIP} and ragged "
-            f"{DAMSM_RAGGED} with an all-padded caption (tolerance {tol})")
+            f"{k} {v:.3g}" for k, v in worst.items()) + f" at {DAMSM_FLAGSHIP}, ragged "
+            f"{DAMSM_RAGGED} with an all-padded caption and the edges {DAMSM_EDGES} "
+            f"(tolerance {tol})")
+    # the bf16 d_regions (tensor cores): two launches bit-equal; the
+    # all-padded caption's cotangent adds exactly nothing
+    r, w, mask, up = damsm_inputs(DAMSM_FLAGSHIP, gen, True)
+    up2 = up.clone()
+    up2[:, 1] = 100.0
+    runs = [ds._launch_bwd("dr", r, w, mask, u, 4.0, 5.0, torch.bfloat16) for u in (up, up, up2)]
+    torch.cuda.synchronize()
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])):
+        raise AssertionError("bf16 d_regions: launches differ, or the all-padded caption "
+                             "moved the gradient")
+    log("[3] damsm_score bf16 d_regions (tensor cores): two launches bit-equal; the "
+        "all-padded caption's cotangent changes nothing")
+    del r, w, mask, up, up2, runs
     torch.cuda.empty_cache()
     return errs
 
@@ -759,6 +796,15 @@ def train(dtype, warmup: int, timed: int) -> dict:
         raise AssertionError(f"{label} train step: non-finite {bad} after the timed steps")
     kernels, busy_ms, wall_ms = device_kernels(lambda: step(state, batch, noises[-1]))
     device_ms = sum(k["ms"] for k in kernels)
+    damsm = {}
+    for k in kernels:
+        if kernel_category(k["name"]) == "damsm_score":
+            n, ms = damsm.get(k["name"], (0, 0.0))
+            damsm[k["name"]] = (n + 1, ms + k["ms"])
+    dr = {name: v for name, v in damsm.items() if "damsm_bwd_dr" in name}
+    if [v[0] for name, v in dr.items() if DR_KERNEL[dtype] in name] != [2] or len(dr) != 1:
+        raise AssertionError(f"{label} train step: d_regions kernels {dr}, want 2 launches of "
+                             f"{DR_KERNEL[dtype]}")
     res = {"dtype": label, "launches": launches, "step_ms": step_s * 1e3,
            "step_ms_all": [t * 1e3 for t in times], "img_per_s": BATCH / step_s,
            "peak_mem_gib": peak, "step_kernel_ms": device_ms, "step_busy_ms": busy_ms,
@@ -775,6 +821,8 @@ def train(dtype, warmup: int, timed: int) -> dict:
     for g in res["top_kernels"]:
         log(f"[6] train {label} top: {g['ms']:.1f} ms, {g['launches']} launches on streams "
             f"{','.join(g['streams'])}: {g['kernel']} <- {g['op']} {g['dims']}")
+    for name, (n, ms) in sorted(damsm.items(), key=lambda kv: -kv[1][1]):
+        log(f"[6] train {label} damsm: {ms:.3f} ms, {n} launches: {name[:110]}")
     log(f"[6] train {label} last metrics: " + ", ".join(
         f"{k} {v:.4g}" for k, v in res["metrics"].items()))
     del state, batch
@@ -980,10 +1028,12 @@ def damsm_rows(errs, launches) -> list[dict]:
                 "bound_ms": bound, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "library_ms": None, "roofline_share": bound / ms,
                 "shapes": f"B=Bc={b}, R={R}, T={T} ({words} real words), D={D}, compute "
-                          f"{CD_NAME[cd]}",
+                          f"{CD_NAME[cd]}" + (", tensor cores (mma.sync)" if name == "d_regions"
+                                              and cd == torch.bfloat16 else ", CUDA cores"),
             })
             log(f"[7] {rows[-1]['name']}: {ms:.3f} ms (bound {bound:.3f} ms by "
-                f"{rows[-1]['bound_by']}, {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+                f"{rows[-1]['bound_by']}, {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms; "
+                f"{rows[-1]['shapes']}")
     del r, w, mask, up
     torch.cuda.empty_cache()
     return rows

@@ -136,12 +136,12 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, nmod, shape):
 DAMSM_TOL = {None: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -12, BF16_ULP)}
 
 
-def _damsm_inputs(device, shape, seed, allpad):
+def _damsm_inputs(device, shape, seed, allpad, max_len=None):
     gen = torch.Generator(device=device).manual_seed(seed)
     b, bc, r_, t, d = shape
     r = torch.nn.functional.normalize(torch.randn(b, r_, d, generator=gen, device=device), dim=-1)
     w = torch.nn.functional.normalize(torch.randn(bc, t, d, generator=gen, device=device), dim=-1)
-    lens = torch.randint(1, t + 1, (bc,), generator=gen, device=device)
+    lens = torch.randint(1, (max_len or t) + 1, (bc,), generator=gen, device=device)
     mask = torch.arange(t, device=device)[None, :] >= lens[:, None]
     if allpad:
         mask[1] = True
@@ -149,14 +149,31 @@ def _damsm_inputs(device, shape, seed, allpad):
     return r, w, mask, up
 
 
+# (B, Bc, R, T, D), an all-padded caption, longest caption (None: T).  Beyond
+# the ragged and flagship-width ones, the edges of the bf16 d_regions kernel
+# (tensor-core tiles: 16 word rows x 8 regions x 16 features, passes of up to
+# 64 packed word rows).  B = 132 images, no fewer than the card's
+# multiprocessors, gives one split (``plan_dr``), so each block's passes pack
+# runs of several captions: D = 40 (not a multiple of 16) with T = 7 and an
+# all-padded caption inside a pass; R = 50 (not a multiple of 8) with T = 20,
+# passes whose real word rows are no multiple of 16 and captions that cross
+# a 16-row tile, Bc = 9 no multiple of the captions per pass; B != Bc
+# throughout; T = 33 with Bc = 2; T = 64 with captions of at most 2 words,
+# so that whole 16-row tiles of a pass hold no word.
+DAMSM_SHAPES = [((3, 5, 50, 7, 48), True, None), ((2, 3, 5, 3, 12), True, None),
+                ((4, 7, 256, 20, 256), False, None), ((132, 7, 64, 7, 40), True, None),
+                ((132, 9, 50, 20, 40), False, None), ((132, 2, 24, 33, 24), True, None),
+                ((132, 3, 50, 64, 40), False, 2)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cd", [None, torch.bfloat16])
-@pytest.mark.parametrize("shape,allpad", [((3, 5, 50, 7, 48), True), ((2, 3, 5, 3, 12), True),
-                                          ((4, 7, 256, 20, 256), False)])
-def test_damsm_kernels_match_plain_on_card(cuda_device, cd, shape, allpad):
+@pytest.mark.parametrize("shape,allpad,max_len", DAMSM_SHAPES, ids=str)
+def test_damsm_kernels_match_plain_on_card(cuda_device, cd, shape, allpad, max_len):
     """Forward, d_regions and d_words (one launch each) against the plain
-    version and its autograd; ragged R/T/D and an all-padded caption."""
-    r, w, mask, up = _damsm_inputs(cuda_device, shape, 4, allpad)
+    version and its autograd; ragged R/T/D, an all-padded caption and the
+    bf16 d_regions kernel's tile edges."""
+    r, w, mask, up = _damsm_inputs(cuda_device, shape, 4, allpad, max_len)
     before = (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches)
     ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
     out = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
@@ -172,6 +189,42 @@ def test_damsm_kernels_match_plain_on_card(cuda_device, cd, shape, allpad):
     torch.testing.assert_close(out, want.detach(), rtol=1e-5, atol=score_atol)
     torch.testing.assert_close(dr, dr_w, rtol=0, atol=grad_scale * dr_w.abs().max().item())
     torch.testing.assert_close(dw, dw_w, rtol=0, atol=grad_scale * dw_w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_damsm_bf16_d_regions_is_deterministic_and_ignores_padded_captions(cuda_device):
+    """Two launches of the bf16 (tensor-core) d_regions are bit-equal, and the
+    all-padded caption's upstream cotangent changes nothing: it adds 0."""
+    r, w, mask, up = _damsm_inputs(cuda_device, (8, 24, 256, 20, 256), 9, allpad=True)
+    first = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
+    again = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
+    up2 = up.clone()
+    up2[:, 1] = 100.0
+    moved = ds._launch_bwd("dr", r, w, mask, up2, 4.0, 5.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, moved)
+    want = ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
+    torch.testing.assert_close(first, want, rtol=0,
+                               atol=DAMSM_TOL[torch.bfloat16][1] * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
+    """The build with the bf16 d_regions kernel's phase counters
+    (``xmc_gan_tpu_torch/damsm_phases.py``) counts every phase and the passes,
+    and gives the same d_regions bit for bit."""
+    from xmc_gan_tpu_torch import damsm_phases
+
+    r, w, mask, up = _damsm_inputs(cuda_device, (4, 24, 256, 20, 256), 10, allpad=True)
+    want = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
+    lib = damsm_phases.phase_library()
+    assert lib.load().xmc_damsm_phases_reset() == 0
+    got = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16, library=lib)
+    torch.cuda.synchronize()
+    cycles = damsm_phases.read_phases(lib)
+    assert torch.equal(got, want)
+    assert cycles[damsm_phases.PASSES] > 0
+    assert all(cycles[k] > 0 for k, name in enumerate(damsm_phases.PHASES) if name)
 
 
 @pytest.mark.cuda

@@ -156,3 +156,53 @@ def test_kernel_plan_mirrors_the_source():
         ds.plan(16, 65, 8, False, 4)
     with pytest.raises(ValueError, match="D <= 256"):
         ds.plan(16, 8, 260, False, 4)
+
+
+def test_tensor_core_plan_mirrors_the_source():
+    """The bf16 d_regions kernel's plan as ``csrc/damsm_score.cu`` computes
+    its shared memory: at the flagship shape (B = Bc = 128, R = 256, T = 20,
+    D = 256, 132 multiprocessors) passes of 32 word rows (48 do not fit
+    beside the resident regions), one block per image with all 128 captions
+    (one wave: a block takes a multiprocessor's shared memory), within the
+    227 KB a block may use; fewer images get caption splits to fill the
+    card; rows per pass are a multiple of 16 and hold a whole caption;
+    T > 64, R > 256 and D > 256 are refused."""
+    p = ds.plan_dr(256, 20, 256, 128, 128, 132)
+    assert (p.rows, p.nsplit, p.captions) == (32, 1, 128)
+    assert ds.plan_dr(256, 20, 256, 32, 128, 132)[1:3] == (4, 32)
+    # the card tests' edge shapes: 132 images, one split, all captions a block
+    assert ds.plan_dr(50, 20, 40, 132, 9, 132) == (64, 1, 9, ds.plan_dr(50, 20, 40, 1, 1, 1).smem)
+    stage = 8 * 16 * ds.TC_STAGE  # the warps' d_r staging tiles, fp32
+    assert p.smem == 2 * (256 * 264 + 32 * 4 * 264) + 4 * (stage + 15 * 32 + 4)
+    assert p.smem <= ds.SMEM_LIMIT
+    assert 2 * (256 * 264 + 48 * 4 * 264) + 4 * (stage + 15 * 48 + 4) > ds.SMEM_LIMIT
+    for dims in [(50, 7, 48), (256, 20, 256), (24, 33, 24), (50, 64, 40), (5, 3, 12)]:
+        p = ds.plan_dr(*dims, 3, 5, 132)
+        assert p.rows % 16 == 0 and p.rows >= dims[1] and p.smem <= ds.SMEM_LIMIT
+        assert p.nsplit * p.captions >= 5
+    with pytest.raises(ValueError, match="T <= 64"):
+        ds.plan_dr(16, 65, 8, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 256"):
+        ds.plan_dr(16, 8, 260, 2, 4, 132)
+    with pytest.raises(ValueError, match="R <= 256"):
+        ds.plan_dr(300, 8, 16, 2, 4, 132)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_d_regions_ignores_padded_words(seed):
+    """The bf16 d_regions kernel packs only the real words of each caption
+    into its passes.  That is exact: in the plain version (the kernel's
+    reference) a padded word's values do not reach d_regions at all."""
+    regions, words, mask, g = _problem(b=3, bc=5, r=16, t=9, d=24, seed=seed)
+    r = pl.l2_normalize(torch.from_numpy(regions))
+    w = pl.l2_normalize(torch.from_numpy(words))
+    m = torch.from_numpy(mask)
+    other = pl.l2_normalize(torch.from_numpy(
+        np.random.RandomState(seed + 10).randn(*words.shape).astype(np.float32)))
+    w2 = torch.where(m[..., None], other, w)
+    assert not torch.equal(w, w2)
+    gt = torch.from_numpy(g)
+    for cd in (None, torch.bfloat16):
+        want = ds._plain_vjp("dr", r, w, m, gt, 4.0, 5.0, cd)
+        got = ds._plain_vjp("dr", r, w2, m, gt, 4.0, 5.0, cd)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -19,9 +19,11 @@
 // values = the R regions of an image, over all B x Bc pairs.  Bound:
 // operations (2*T*R*D per product: 2 products forward, 5 for d_regions, 4
 // for d_words; 86 / 215 / 172 GFLOP at B = Bc = 128, T = 20, R = D = 256),
-// against 67 TFLOP/s fp32 on the CUDA cores this kernel uses (989 TFLOP/s
-// bf16 would need the tensor cores: a later step).  Design for a first,
-// simple and correct version:
+// against 67 TFLOP/s fp32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
+// cores.  The bf16 d_regions runs on the tensor cores (its own section
+// below); the forward, d_words and every fp32 path run on the CUDA cores
+// (fp32 keeps 1e-5 against its plain version, which TF32 would not).
+// Design of the CUDA-core kernels, a first, simple and correct version:
 //  * A block takes one image and a sub-block of vb captions (vb*T <= 64 word
 //    rows), keeps the words, the [rows, R] similarity/attention (and, in the
 //    backward, its cotangent) and the [rows, D] context in shared memory,
@@ -39,16 +41,63 @@
 //    deterministic, run to run.
 // The kernels allocate nothing and launch on the caller's stream.
 //
+// The bf16 d_regions kernel (damsm_bwd_dr_tc_kernel), on the tensor cores:
+//  * Products: all five (sim = W R^T, c = rnd(a) R, d a = d_c R^T, and
+//    rnd(a)^T d_c + d_sim^T W into d_r) are mma.sync.m16n8k16 bf16 tiles
+//    with fp32 accumulators; operands are bf16 in shared memory, read with
+//    ldmatrix (.trans where the contraction runs along a tile's rows).
+//  * Block = (image i, split of the captions); the image's regions stay
+//    resident in shared memory for all of the block's passes.  A pass packs
+//    the real words of whole captions, in order, into Mp = 16..64 word rows
+//    (padded words and all-padded captions take no row: a padded word's
+//    d rel is 0, so it adds exactly 0 to d_r), recomputes the chain with the
+//    [Mp, R] similarity / attention held in registers (a warp owns 8-wide
+//    column tiles; row sums and maxima go through the quad and a [warps][Mp]
+//    shared array in a fixed order), then adds its part into the block's
+//    exclusive fp32 slice of partial (first pass: store).  A warp takes
+//    16 x 64 of d_r at a time, loads the slice's earlier sums before its
+//    products and moves its accumulators through a shared staging tile, so
+//    the slice's read-modify-write is 16-byte and row-contiguous.
+//  * Shared memory (bf16 strides padded by 8 so ldmatrix is conflict-free;
+//    Rp, Dp = R, D rounded up to 16): regions Rp*(Dp+8)*2, words and d_c
+//    2*Mp*(Dp+8)*2, a and d_sim 2*Mp*(Rp+8)*2, 8 staging tiles 8*16*36*4,
+//    and 15*Mp+4 fp32/int words.  At R = D = 256: 135,168 + Mp*2,112 +
+//    18,432 + 60*Mp + 16, so Mp = 32 (223,120 B; 48 would need 257,872 of
+//    the 232,448 a block may have).  Mp is the largest of 64/48/32/16 that
+//    fits and holds T; R, D <= 256, T <= 64.
+//  * One block per multiprocessor (shared memory), so the splits fill the
+//    card once (wrapper: nsplit = max(1, SMs / B)).  At the flagship shape
+//    128 blocks each run ~48 passes of ~26 real words.
+//  * Bound: the same 215 GFLOP-class count of products (for the real words
+//    only: 2*R*D*5*words*B), over 989 TFLOP/s.  What holds it back
+//    (xmc_gan_tpu_torch/damsm_phases.py): the products themselves, issued
+//    as mma.sync from ldmatrix at a small share of the tensor rate, the d_r
+//    ones most; then the per-pass d_r read-modify-write (R*D*4 bytes read
+//    and written per pass).
+//  * Rounding points: as the plain version (operands r, w, a and c_hat in
+//    bf16; d c_hat and d a rounded to bf16), and, as the Pallas kernel does
+//    (xmc_gan_tpu/ops/pallas/damsm_score.py: d_c.astype(st), d_sim.astype(cd)),
+//    d_c and d_sim rounded to bf16 before their products, where the plain
+//    version keeps them fp32.  On the card this stays within one bf16 ulp
+//    (2^-7) of the largest gradient (chip_smoke.py phase 3 prints the error).
+//  * Deterministic: no atomics, fixed reduction orders, then sum_splits.
+//
 // C interface (ctypes; pointers and the stream as void*):
 //   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, g1, g2, dtype, stream)
-//   int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, nsplit,
-//                        g1, g2, dtype, stream)
+//   int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, rows,
+//                        nsplit, g1, g2, dtype, stream)
 //   int xmc_damsm_bwd_dw(r, w, mask, g, partial, dw, B, Bc, R, T, D, vb, nsplit,
 //                        g1, g2, dtype, stream)
 //   g is the upstream cotangent [B, Bc] fp32.  partial is [B, nsplit, R, D]
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
 //   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
+//   vb is the captions per block of the CUDA-core kernels; rows is the word
+//   rows per pass, Mp, of the tensor-core d_regions (dtype 1).  Each is
+//   ignored where the other applies.
 //   Returns cudaGetLastError() after the launches (0 = success).
+//   Built with -DXMC_DAMSM_PHASES, the tensor-core kernel also counts its
+//   cycles per phase: int xmc_damsm_phases_read(host [12] uint64),
+//   int xmc_damsm_phases_reset() (xmc_gan_tpu_torch/damsm_phases.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -566,6 +615,676 @@ int launch_dw(const void* r, const void* w, const uint8_t* mask, const float* g,
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 d_regions on the tensor cores (header: "The bf16 d_regions kernel").
+// ---------------------------------------------------------------------------
+
+constexpr int TC_MAX_RD = 256;   // R and D limits (the [Mp, R] tiles live in registers)
+constexpr int TC_MAX_ROWS = 64;  // word rows per pass
+constexpr int TC_STAGE = 36;     // row stride (fp32) of a warp's [16][32] d_r staging tile
+
+// Phase clocks of the tensor-core kernel, compiled in only with
+// -DXMC_DAMSM_PHASES (xmc_gan_tpu_torch/damsm_phases.py): thread 0 of each
+// block adds the clock64() cycles between the block's barriers to
+// g_phase_cycles[phase] (TC_PHASE_SYNC adds a barrier of its own first), and
+// [TC_PASSES] counts passes.  Inside tc_accumulate_dr, which has no barrier,
+// thread 0 splits its own warp's time into the products and the
+// read-modify-write of each 16 x 64 tile (TC_PHASE_ARGS / TC_PHASE_PASS hand
+// it the clocks).  Without the flag the macros are empty.
+constexpr int TC_NPHASE = 12, TC_PASSES = 10;
+#ifdef XMC_DAMSM_PHASES
+__device__ unsigned long long g_phase_cycles[TC_NPHASE];
+#define TC_PHASE_ARGS , long long (&phase_acc)[TC_NPHASE], long long& phase_t
+#define TC_PHASE_PASS , phase_acc, phase_t
+#define TC_PHASE_INIT                  \
+  long long phase_t = clock64();       \
+  long long phase_acc[TC_NPHASE] = {};
+#define TC_PHASE(k)                                 \
+  do {                                              \
+    if (threadIdx.x == 0) {                         \
+      const long long now = clock64();              \
+      phase_acc[k] += now - phase_t;                \
+      phase_t = now;                                \
+    }                                               \
+  } while (0)
+#define TC_PHASE_SYNC(k) \
+  do {                   \
+    __syncthreads();     \
+    TC_PHASE(k);         \
+  } while (0)
+#define TC_PHASE_COUNT(k) phase_acc[k] += threadIdx.x == 0
+#define TC_PHASE_FLUSH                                                                   \
+  if (threadIdx.x == 0)                                                                  \
+    for (int k = 0; k < TC_NPHASE; ++k)                                                  \
+      atomicAdd(&g_phase_cycles[k], static_cast<unsigned long long>(phase_acc[k]));
+#else
+#define TC_PHASE_ARGS
+#define TC_PHASE_PASS
+#define TC_PHASE_INIT
+#define TC_PHASE(k)
+#define TC_PHASE_SYNC(k)
+#define TC_PHASE_COUNT(k)
+#define TC_PHASE_FLUSH
+#endif
+
+struct TcDims {
+  int B, Bc, R, T, D;
+  int Mp;      // word rows per pass: a multiple of 16, >= T
+  int Rp, Dp;  // R and D padded to 16
+  int SD, SR;  // row strides (bf16 elements) of the [*, Dp] and [*, Rp] tiles: +8 so
+               // that the 8 rows an ldmatrix reads fall in 8 different 16-byte bank groups
+  int vec;     // 16-byte global loads (D % 8 == 0 and both operands 16-byte aligned)
+  float g1, g2;
+};
+
+TcDims make_tc_dims(int B, int Bc, int R, int T, int D, int Mp, float g1, float g2,
+                    const void* r, const void* w) {
+  TcDims d;
+  d.B = B; d.Bc = Bc; d.R = R; d.T = T; d.D = D; d.Mp = Mp;
+  d.Rp = round_up(R, 16); d.Dp = round_up(D, 16);
+  d.SD = d.Dp + 8; d.SR = d.Rp + 8;
+  d.vec = D % 8 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  d.g1 = g1; d.g2 = g2;
+  return d;
+}
+
+bool tc_dims_ok(const TcDims& d) {
+  return d.B > 0 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.D > 0 && d.R <= TC_MAX_RD &&
+         d.D <= TC_MAX_RD && d.T <= TC_MAX_ROWS && d.Mp % 16 == 0 && d.Mp >= d.T &&
+         d.Mp <= TC_MAX_ROWS;
+}
+
+// Regions [Rp][SD], words W and d_c DC [Mp][SD], a P and d_sim DS [Mp][SR] (bf16);
+// each warp's d_r staging tile stage [kWarps][16][TC_STAGE], rel, drel [Mp] and
+// the warps' row partials red [kWarps][Mp] (fp32); the pass's row map row_t,
+// row_c and caption slots cap_j, cap_base, cap_n [Mp], info [4] (int).
+size_t tc_smem_bytes(const TcDims& d) {
+  return 2 * (size_t(d.Rp) * d.SD + size_t(d.Mp) * (2 * d.SD + 2 * d.SR)) +
+         4 * (size_t(kWarps) * 16 * TC_STAGE + size_t(15) * d.Mp + 4);
+}
+
+struct TcSmem {
+  __nv_bfloat16 *Rs, *W, *DC, *P, *DS;
+  float *stage, *rel, *drel, *red;
+  int *row_t, *row_c, *cap_j, *cap_base, *cap_n, *info;
+};
+
+__device__ TcSmem tc_carve(unsigned char* base, const TcDims& d) {
+  TcSmem s;
+  s.Rs = reinterpret_cast<__nv_bfloat16*>(base);
+  s.W = s.Rs + d.Rp * d.SD;
+  s.DC = s.W + d.Mp * d.SD;
+  s.P = s.DC + d.Mp * d.SD;
+  s.DS = s.P + d.Mp * d.SR;
+  s.stage = reinterpret_cast<float*>(s.DS + d.Mp * d.SR);
+  s.rel = s.stage + kWarps * 16 * TC_STAGE;
+  s.drel = s.rel + d.Mp;
+  s.red = s.drel + d.Mp;
+  s.row_t = reinterpret_cast<int*>(s.red + kWarps * d.Mp);
+  s.row_c = s.row_t + d.Mp;
+  s.cap_j = s.row_c + d.Mp;
+  s.cap_base = s.cap_j + d.Mp;
+  s.cap_n = s.cap_base + d.Mp;
+  s.info = s.cap_n + d.Mp;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&v)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&v)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&v)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(v[0]), "=r"(v[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&v)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(v[0]), "=r"(v[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 operands, fp32 accumulators.  Fragments
+// (g = lane / 4, q = lane % 4): a (rows g, g+8) x (cols 2q, 2q+1, +8), b
+// (k 2q, 2q+1, +8) x (col g), c (rows g, g+8) x (cols 2q, 2q+1).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows x cols of bf16 from src (row pitch D) into dst [rows_p][stride] at
+// 16-byte chunks; rows past `rows` (or row(m) < 0) and columns past D are 0.
+template <typename RowPtr>
+__device__ void tc_load(__nv_bfloat16* dst, int rows_p, int stride, int rows, RowPtr row,
+                        const TcDims& d) {
+  const int kc = d.Dp / 8;
+  for (int e = threadIdx.x; e < rows_p * kc; e += kThreads) {
+    const int m = e / kc, k = (e % kc) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (m < rows && k < d.D) {
+      const __nv_bfloat16* src = row(m);
+      if (d.vec) {
+        v = *reinterpret_cast<const uint4*>(src + k);
+      } else {
+        const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+        uint32_t h[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) h[q] = k + q < d.D ? s16[k + q] : 0u;
+        v = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16), h[4] | (h[5] << 16),
+                       h[6] | (h[7] << 16));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + m * stride + k) = v;
+  }
+}
+
+// Warp 0 packs the next pass: the real words of captions j, j+1, ... (whole
+// captions, in order, while they fit in Mp rows; all-padded captions take no
+// row) become rows 0 .. rows-1.  Writes info = {rows, captions, next j}.
+__device__ void tc_pack_pass(const uint8_t* __restrict__ mask, int j, int c1, const TcDims& d,
+                             const TcSmem& s) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int rows = 0, ncap = 0;
+  for (; j < c1; ++j) {
+    const uint8_t* mj = mask + size_t(j) * d.T;
+    const bool r0 = lane < d.T && mj[lane] == 0;
+    const bool r1 = lane + 32 < d.T && mj[lane + 32] == 0;
+    const unsigned b0 = __ballot_sync(0xffffffffu, r0), b1 = __ballot_sync(0xffffffffu, r1);
+    const int n = __popc(b0) + __popc(b1);
+    if (rows + n > d.Mp) break;
+    if (n == 0) continue;
+    if (r0) {
+      const int m = rows + __popc(b0 & below);
+      s.row_t[m] = lane;
+      s.row_c[m] = ncap;
+    }
+    if (r1) {
+      const int m = rows + __popc(b0) + __popc(b1 & below);
+      s.row_t[m] = lane + 32;
+      s.row_c[m] = ncap;
+    }
+    if (lane == 0) {
+      s.cap_j[ncap] = j;
+      s.cap_base[ncap] = rows;
+      s.cap_n[ncap] = n;
+    }
+    rows += n;
+    ++ncap;
+  }
+  if (lane == 0) {
+    s.info[0] = rows;
+    s.info[1] = ncap;
+    s.info[2] = j;
+  }
+}
+
+// v[mt][h] = the block's sum (or max) over the row mt*16 + g + 8h of every
+// warp's partial: the quad's four lanes, then the warps in a fixed order.
+template <int MT, bool MAX>
+__device__ void tc_rows(float (&v)[MT][2], float* red, int Mp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = v[mt][h];
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float y = __shfl_xor_sync(0xffffffffu, x, o);
+        x = MAX ? fmaxf(x, y) : x + y;
+      }
+      if ((lane & 3) == 0) red[warp * Mp + mt * 16 + (lane >> 2) + 8 * h] = x;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + (lane >> 2) + 8 * h;
+      float x = red[row];
+      for (int w = 1; w < kWarps; ++w) {
+        const float y = red[w * Mp + row];
+        x = MAX ? fmaxf(x, y) : x + y;
+      }
+      v[mt][h] = x;
+    }
+  __syncthreads();
+}
+
+// acc[mt][j] += A[Mp][Dp] Rs^T over the warp's n-tiles nt0 .. nt0+ntw-1 of Rp
+// (products sim = W R^T and d a = d_c R^T).
+template <int MT>
+__device__ void tc_rows_by_regions(float (&acc)[MT][4][4], const __nv_bfloat16* A,
+                                   const __nv_bfloat16* Rs, int nt0, int ntw, const TcDims& d) {
+  const int lane = threadIdx.x & 31;
+  for (int k0 = 0; k0 < d.Dp; k0 += 16) {
+    uint32_t a[MT][4], b[4][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(a[mt], A + (mt * 16 + (lane & 15)) * d.SD + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < ntw)
+        ldsm_x2(b[j], Rs + ((nt0 + j) * 8 + (lane & 7)) * d.SD + k0 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < ntw)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a[mt], b[j][0], b[j][1]);
+  }
+}
+
+// acc[mt][j] += P[Mp][Rp] Rs[Rp][Dp] over the warp's n-tiles of Dp (c = rnd(a) R).
+template <int MT>
+__device__ void tc_attn_by_regions(float (&acc)[MT][4][4], const __nv_bfloat16* P,
+                                   const __nv_bfloat16* Rs, int nt0, int ntw, const TcDims& d) {
+  const int lane = threadIdx.x & 31;
+  for (int k0 = 0; k0 < d.Rp; k0 += 16) {
+    uint32_t a[MT][4], b[4][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(a[mt], P + (mt * 16 + (lane & 15)) * d.SR + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < ntw) ldsm_x2_t(b[j], Rs + (k0 + (lane & 15)) * d.SD + (nt0 + j) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < ntw)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a[mt], b[j][0], b[j][1]);
+  }
+}
+
+// d_r [R, D] (the block's slice) = or += P^T DC + DS^T W, contracted over the
+// pass's Mp rows.  A warp takes 16 regions x 64 features at a time: it loads
+// the slice's earlier sums first (their latency hides behind the products),
+// then moves each 32-feature half of its accumulators through a shared
+// staging tile, so that the read-modify-write of the slice is 16-byte and
+// row-contiguous (the mma fragments hold 8 bytes of each of 8 rows).
+__device__ void tc_accumulate_dr(float* __restrict__ out, bool first, const TcDims& d,
+                                 const TcSmem& s TC_PHASE_ARGS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nD = d.Dp / 8, chunks = (nD + 7) / 8, items = (d.Rp / 16) * chunks;
+  const bool vec4 = (d.D & 3) == 0;
+  float* stage = s.stage + warp * 16 * TC_STAGE;
+  const int lrow = lane >> 3, lcol = (lane & 7) * 4;  // after staging: rows lrow + 4i
+  for (int it = warp; it < items; it += kWarps) {
+    const int r0 = (it / chunks) * 16, n0 = (it % chunks) * 8;
+    float prev[2][4][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + lrow + 4 * i, col = n0 * 8 + hf * 32 + lcol;
+        float* o = out + size_t(row) * d.D + col;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) prev[hf][i][e] = 0.f;
+        if (first || row >= d.R) continue;
+        if (vec4) {
+          if (col < d.D) {
+            const float4 p = *reinterpret_cast<const float4*>(o);
+            prev[hf][i][0] = p.x; prev[hf][i][1] = p.y; prev[hf][i][2] = p.z; prev[hf][i][3] = p.w;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < d.D) prev[hf][i][e] = o[e];
+        }
+      }
+    float acc[8][4];
+#pragma unroll
+    for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jt][e] = 0.f;
+    for (int k0 = 0; k0 < d.Mp; k0 += 16) {
+#pragma unroll
+      for (int op = 0; op < 2; ++op) {
+        const __nv_bfloat16* At = op ? s.DS : s.P;  // [Mp][SR], read transposed
+        const __nv_bfloat16* Bm = op ? s.W : s.DC;  // [Mp][SD]
+        const int i = lane >> 3;
+        uint32_t a[4], b[4][4];
+        ldsm_x4_t(a, At + (k0 + (lane & 7) + (i >> 1) * 8) * d.SR + r0 + (i & 1) * 8);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp)
+          if (n0 + 2 * jp < nD)
+            ldsm_x4_t(b[jp], Bm + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * d.SD +
+                                 (n0 + 2 * jp + (lane >> 4)) * 8);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp)
+          if (n0 + 2 * jp < nD) {
+            mma_bf16(acc[2 * jp], a, b[jp][0], b[jp][1]);
+            mma_bf16(acc[2 * jp + 1], a, b[jp][2], b[jp][3]);
+          }
+      }
+    }
+    TC_PHASE(7);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      __syncwarp();
+#pragma unroll
+      for (int j4 = 0; j4 < 4; ++j4)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(stage + ((lane >> 2) + 8 * h) * TC_STAGE + j4 * 8 +
+                                     2 * (lane & 3)) =
+              make_float2(acc[hf * 4 + j4][2 * h], acc[hf * 4 + j4][2 * h + 1]);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + lrow + 4 * i, col = n0 * 8 + hf * 32 + lcol;
+        if (row >= d.R) continue;
+        const float4 v = *reinterpret_cast<const float4*>(stage + (lrow + 4 * i) * TC_STAGE + lcol);
+        const float x[4] = {v.x + prev[hf][i][0], v.y + prev[hf][i][1], v.z + prev[hf][i][2],
+                            v.w + prev[hf][i][3]};
+        float* o = out + size_t(row) * d.D + col;
+        if (vec4) {
+          if (col < d.D) *reinterpret_cast<float4*>(o) = make_float4(x[0], x[1], x[2], x[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < d.D) o[e] = x[e];
+        }
+      }
+    }
+    TC_PHASE(8);
+  }
+}
+
+// d_regions, bf16 operands: block (image i, split).  The split's captions go
+// in passes of at most Mp real word rows; each pass recomputes the chain and
+// adds rnd(a)^T d_c + d_sim^T W into partial[i][split].
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_bwd_dr_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ w,
+                       const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                       float* __restrict__ partial, TcDims d, int nsplit) {
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  const TcSmem s = tc_carve(tc_smem_raw, d);
+  TC_PHASE_INIT
+  const int i = blockIdx.x, split = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
+  const int per = (d.Bc + nsplit - 1) / nsplit;
+  const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
+  float* out = partial + (size_t(i) * nsplit + split) * d.R * d.D;
+  const __nv_bfloat16* ri = r + size_t(i) * d.R * d.D;
+  tc_load(s.Rs, d.Rp, d.SD, d.R, [&](int q) { return ri + size_t(q) * d.D; }, d);
+  TC_PHASE_SYNC(9);
+  // a warp's columns: adjacent n-tiles (8 wide) of Rp and of Dp
+  const int nR = d.Rp / 8, nD = d.Dp / 8;
+  const int twR = (nR + kWarps - 1) / kWarps, twD = (nD + kWarps - 1) / kWarps;
+  const int ntR0 = warp * twR, ntwR = max(0, min(twR, nR - ntR0));
+  const int ntD0 = warp * twD, ntwD = max(0, min(twD, nD - ntD0));
+  bool first = true;
+  for (int j = c0; j < c1;) {
+    __syncthreads();  // the previous pass is done with the tiles and the row map
+    if (warp == 0) tc_pack_pass(mask, j, c1, d, s);
+    __syncthreads();
+    TC_PHASE(0);
+    const int rows = s.info[0], ncap = s.info[1];
+    j = s.info[2];
+    if (rows == 0) break;  // the remaining captions are all padded
+    tc_load(s.W, d.Mp, d.SD, rows, [&](int m) {
+      return w + (size_t(s.cap_j[s.row_c[m]]) * d.T + s.row_t[m]) * d.D; }, d);
+    __syncthreads();
+    TC_PHASE(1);
+
+    // sim = W R^T; a = softmax_R(g1 sim) (fp32, kept in registers); P = rnd(a)
+    float a[MT][4][4], v[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[mt][jj][e] = 0.f;
+    tc_rows_by_regions<MT>(a, s.W, s.Rs, ntR0, ntwR, d);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        v[mt][h] = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (jj < ntwR && (ntR0 + jj) * 8 + q2 + e < d.R)
+              v[mt][h] = fmaxf(v[mt][h], d.g1 * a[mt][jj][2 * h + e]);
+      }
+    tc_rows<MT, true>(v, s.red, d.Mp);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mx = v[mt][h];
+        v[mt][h] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool real = jj < ntwR && (ntR0 + jj) * 8 + q2 + e < d.R;
+            const float x = real ? expf(d.g1 * a[mt][jj][2 * h + e] - mx) : 0.f;
+            a[mt][jj][2 * h + e] = x;
+            v[mt][h] += x;
+          }
+      }
+    tc_rows<MT, false>(v, s.red, d.Mp);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        const float inv = 1.f / v[mt][h];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (jj >= ntwR) continue;
+          a[mt][jj][2 * h] *= inv;
+          a[mt][jj][2 * h + 1] *= inv;
+          *reinterpret_cast<uint32_t*>(s.P + row * d.SR + (ntR0 + jj) * 8 + q2) =
+              pack_bf16(a[mt][jj][2 * h], a[mt][jj][2 * h + 1]);
+        }
+      }
+    __syncthreads();
+    TC_PHASE(2);
+
+    // c = rnd(a) R; c_hat = c / max(|c|, 1e-12); rel = sum_D rnd(c_hat) w
+    float c[MT][4][4], inrm[MT][2];  // sum of c^2, then 1 / max(|c|, 1e-12)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][jj][e] = 0.f;
+    tc_attn_by_regions<MT>(c, s.P, s.Rs, ntD0, ntwD, d);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        inrm[mt][h] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = c[mt][jj][2 * h + e];
+            if (jj < ntwD) inrm[mt][h] = fmaf(x, x, inrm[mt][h]);
+          }
+      }
+    tc_rows<MT, false>(inrm, s.red, d.Mp);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        inrm[mt][h] = 1.f / fmaxf(sqrtf(inrm[mt][h]), 1e-12f);
+        v[mt][h] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (jj >= ntwD) continue;
+          const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              s.W + row * d.SD + (ntD0 + jj) * 8 + q2));
+          const float c0 = c[mt][jj][2 * h] * inrm[mt][h];
+          const float c1 = c[mt][jj][2 * h + 1] * inrm[mt][h];
+          c[mt][jj][2 * h] = c0;
+          c[mt][jj][2 * h + 1] = c1;
+          v[mt][h] = fmaf(rnd<true>(c0), wv.x, fmaf(rnd<true>(c1), wv.y, v[mt][h]));
+        }
+      }
+    tc_rows<MT, false>(v, s.red, d.Mp);
+    if (warp == 0 && (lane & 3) == 0)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) s.rel[mt * 16 + (lane >> 2) + 8 * h] = v[mt][h];
+    __syncthreads();
+    TC_PHASE(3);
+
+    // d rel = g_ij softmax over the caption's real words (0 on unused rows)
+    for (int cs = warp; cs < ncap; cs += kWarps) {
+      const int base = s.cap_base[cs], n = s.cap_n[cs];
+      float mx = -INFINITY;
+      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, d.g2 * s.rel[base + t]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int t = lane; t < n; t += 32) sum += expf(d.g2 * s.rel[base + t] - mx);
+      sum = warp_sum(sum);
+      const float gij = g[size_t(i) * d.Bc + s.cap_j[cs]];
+      for (int t = lane; t < n; t += 32)
+        s.drel[base + t] = gij * (expf(d.g2 * s.rel[base + t] - mx) / sum);
+    }
+    for (int m = rows + threadIdx.x; m < d.Mp; m += kThreads) s.drel[m] = 0.f;
+    __syncthreads();
+    TC_PHASE(4);
+
+    // d c_hat = rnd(d rel w); d_c = (d c_hat - c_hat <c_hat, d c_hat>) / nrm; DC = rnd(d_c)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        const float dr = s.drel[row];
+        v[mt][h] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (jj >= ntwD) continue;
+          const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              s.W + row * d.SD + (ntD0 + jj) * 8 + q2));
+          v[mt][h] = fmaf(c[mt][jj][2 * h], rnd<true>(dr * wv.x),
+                          fmaf(c[mt][jj][2 * h + 1], rnd<true>(dr * wv.y), v[mt][h]));
+        }
+      }
+    tc_rows<MT, false>(v, s.red, d.Mp);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        const float dr = s.drel[row];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (jj >= ntwD) continue;
+          const int col = (ntD0 + jj) * 8 + q2;
+          const float2 wv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(s.W + row * d.SD + col));
+          *reinterpret_cast<uint32_t*>(s.DC + row * d.SD + col) =
+              pack_bf16((rnd<true>(dr * wv.x) - c[mt][jj][2 * h] * v[mt][h]) * inrm[mt][h],
+                        (rnd<true>(dr * wv.y) - c[mt][jj][2 * h + 1] * v[mt][h]) * inrm[mt][h]);
+        }
+      }
+    __syncthreads();
+    TC_PHASE(5);
+
+    // d a = rnd(d_c R^T); d_sim = g1 a (d a - sum_R a d a); DS = rnd(d_sim)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][jj][e] = 0.f;
+    tc_rows_by_regions<MT>(c, s.DC, s.Rs, ntR0, ntwR, d);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        v[mt][h] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float da = rnd<true>(c[mt][jj][2 * h + e]);
+            c[mt][jj][2 * h + e] = da;
+            if (jj < ntwR) v[mt][h] = fmaf(a[mt][jj][2 * h + e], da, v[mt][h]);
+          }
+      }
+    tc_rows<MT, false>(v, s.red, d.Mp);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (jj >= ntwR) continue;
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            ds[e] = d.g1 * (a[mt][jj][2 * h + e] * (c[mt][jj][2 * h + e] - v[mt][h]));
+          *reinterpret_cast<uint32_t*>(s.DS + row * d.SR + (ntR0 + jj) * 8 + q2) =
+              pack_bf16(ds[0], ds[1]);
+        }
+      }
+    __syncthreads();
+    TC_PHASE(6);
+
+    tc_accumulate_dr(out, first, d, s TC_PHASE_PASS);
+    TC_PHASE_SYNC(11);
+    TC_PHASE_COUNT(TC_PASSES);
+    first = false;
+  }
+  if (first)  // no caption of the split has a real word: the slice is 0
+    for (int e = threadIdx.x; e < d.R * d.D; e += kThreads) out[e] = 0.f;
+  TC_PHASE_FLUSH
+}
+
+template <int MT>
+int launch_dr_tc(const void* r, const void* w, const uint8_t* mask, const float* g,
+                 float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_bwd_dr_tc_kernel<MT>;
+  const size_t bytes = tc_smem_bytes(d);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  dim3 grid(d.B, nsplit);
+  k<<<grid, kThreads, bytes, st>>>(static_cast<const __nv_bfloat16*>(r),
+                                   static_cast<const __nv_bfloat16*>(w), mask, g, partial, d,
+                                   nsplit);
+  if (partial != dr) launch_sum(partial, dr, d.B, nsplit, int64_t(d.R) * d.D, st);
+  return int(cudaGetLastError());
+}
+
 // Dispatch on the operand type and on MB = rows per warp (4 for <= 32 word
 // rows per block, else 8).
 #define XMC_DAMSM_DISPATCH(LAUNCH, ...)                                            \
@@ -595,16 +1314,27 @@ extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, voi
 
 extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, const void* g,
                                 void* partial, void* dr, int B, int Bc, int R, int T, int D,
-                                int vb, int nsplit, float g1, float g2, int dtype,
+                                int vb, int rows, int nsplit, float g1, float g2, int dtype,
                                 void* stream) {
-  const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
-  if (!dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* gg = static_cast<const float*>(g);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(dr);
-  XMC_DAMSM_DISPATCH(launch_dr, r, w, m, gg, p, o, d, nsplit, st);
+  if (dtype == 1) {  // the tensor-core kernel, in passes of `rows` word rows
+    const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
+    if (!tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
+    switch (t.Mp / 16) {
+      case 1: return launch_dr_tc<1>(r, w, m, gg, p, o, t, nsplit, st);
+      case 2: return launch_dr_tc<2>(r, w, m, gg, p, o, t, nsplit, st);
+      case 3: return launch_dr_tc<3>(r, w, m, gg, p, o, t, nsplit, st);
+      default: return launch_dr_tc<4>(r, w, m, gg, p, o, t, nsplit, st);
+    }
+  }
+  const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
+  if (dtype != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
+  return d.M <= 4 * kWarps ? launch_dr<float, 4, false>(r, w, m, gg, p, o, d, nsplit, st)
+                           : launch_dr<float, 8, false>(r, w, m, gg, p, o, d, nsplit, st);
 }
 
 extern "C" int xmc_damsm_bwd_dw(const void* r, const void* w, const void* mask, const void* g,
@@ -620,3 +1350,13 @@ extern "C" int xmc_damsm_bwd_dw(const void* r, const void* w, const void* mask, 
   float* o = static_cast<float*>(dw);
   XMC_DAMSM_DISPATCH(launch_dw, r, w, m, gg, p, o, d, nsplit, st);
 }
+
+#ifdef XMC_DAMSM_PHASES
+extern "C" int xmc_damsm_phases_read(void* host) {
+  return int(cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(g_phase_cycles)));
+}
+extern "C" int xmc_damsm_phases_reset() {
+  const unsigned long long zero[TC_NPHASE] = {};
+  return int(cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero)));
+}
+#endif

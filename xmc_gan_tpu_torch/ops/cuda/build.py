@@ -45,12 +45,14 @@ def find_nvcc() -> str:
     )
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` into ``_build/`` (once per source content) and
-    return the library's path.  Safe to run from several processes at once:
-    each compiles into a temporary file and renames it into place."""
+def build(source: str, flags: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<source>`` with ``NVCC_FLAGS`` and ``flags`` into
+    ``_build/`` (once per source content and flags) and return the library's
+    path.  Safe to run from several processes at once: each compiles into a
+    temporary file and renames it into place."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    all_flags = (*NVCC_FLAGS, *flags)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(all_flags).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{src.stem}-{digest}.so"
     if lib.exists():
         return lib
@@ -59,7 +61,7 @@ def build(source: str) -> Path:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=lib.name + ".", suffix=".tmp")
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([nvcc, *all_flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
@@ -85,18 +87,21 @@ class CudaLibrary:
     """A ``csrc`` source, compiled and loaded on first use.
 
     ``signatures`` maps each exported C function to ``(restype, argtypes)``;
-    they are declared once, when the library is loaded.  Each kernel's launch
-    count is a ``LaunchCount`` beside its wrapper.
+    they are declared once, when the library is loaded.  ``flags`` are added
+    to ``nvcc``'s.  Each kernel's launch count is a ``LaunchCount`` beside
+    its wrapper.
     """
 
-    def __init__(self, source: str, signatures: dict[str, tuple[Any, list[Any]]]):
+    def __init__(self, source: str, signatures: dict[str, tuple[Any, list[Any]]],
+                 flags: tuple[str, ...] = ()):
         self.source = source
         self.signatures = signatures
+        self.flags = flags
         self._lib: ctypes.CDLL | None = None
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = ctypes.CDLL(str(build(self.source)))
+            lib = ctypes.CDLL(str(build(self.source, self.flags)))
             for name, (restype, argtypes) in self.signatures.items():
                 fn = getattr(lib, name)
                 fn.restype, fn.argtypes = restype, argtypes

@@ -17,6 +17,11 @@ all-padded caption scores a finite ~-2e29.  ``compute_dtype`` bf16 rounds
 the operands of the three products to bf16 (``r``, ``w``, ``a`` and
 ``c_hat``), and in the backward the two cotangents that autograd of the
 plain version rounds (``d c_hat`` and ``d a``); everything else is fp32.
+The bf16 d_regions runs on the tensor cores and also rounds ``d_c`` and
+``d_sim`` to bf16 before their products, as the Pallas kernel does (within
+one bf16 ulp of the largest gradient of the plain version); its launch plan
+is ``plan_dr``.  The forward, d_words and the fp32 kernels (``plan``) run on
+the CUDA cores.
 
 Contract of ``damsm_scores`` (a ``torch.autograd.Function``):
 
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -47,19 +53,21 @@ __all__ = [
     "damsm_scores",
     "damsm_scores_ref",
     "plan",
+    "plan_dr",
 ]
 
 NEG = -1e30  # padded-word logit, the JAX package's constant
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, gamma1, gamma2, dtype, stream)
-# int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, nsplit,
-#                      gamma1, gamma2, dtype, stream)   (and xmc_damsm_bwd_dw, the same)
-_BWD = (_I, [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P])
+# int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, rows, nsplit,
+#                      gamma1, gamma2, dtype, stream)
+# int xmc_damsm_bwd_dw(r, w, mask, g, partial, dw, B, Bc, R, T, D, vb, nsplit,
+#                      gamma1, gamma2, dtype, stream)
 KERNEL = CudaLibrary("damsm_score.cu", {
     "xmc_damsm_fwd": (_I, [_P] * 4 + [_I] * 6 + [_F, _F, _I, _P]),
-    "xmc_damsm_bwd_dr": _BWD,
-    "xmc_damsm_bwd_dw": _BWD,
+    "xmc_damsm_bwd_dr": (_I, [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P]),
+    "xmc_damsm_bwd_dw": (_I, [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
 })
 FORWARD = LaunchCount()
 D_REGIONS = LaunchCount()
@@ -74,6 +82,10 @@ MAX_ROWS = 64
 MAX_DP = 256
 RT = 32
 SMEM_LIMIT = 232448
+# the tensor-core (bf16) d_regions kernel: word rows per pass, and R and D
+TC_MAX_ROWS = 64
+TC_MAX_RD = 256
+TC_STAGE = 36  # row stride of a warp's d_r staging tile
 
 
 def _round_up(x: int, m: int) -> int:
@@ -95,6 +107,42 @@ def plan(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
     if vb < 1:
         raise ValueError(f"damsm_score: R={R}, T={T}, D={D} does not fit in shared memory")
     return vb, fixed + per_row * vb * T
+
+
+class DrPlan(NamedTuple):
+    """Launch plan of the bf16 (tensor-core) d_regions kernel."""
+
+    rows: int      # word rows per pass: a multiple of 16, at least T
+    nsplit: int    # caption splits: blocks are (image, split)
+    captions: int  # captions per block (one split)
+    smem: int      # dynamic shared memory bytes
+
+
+def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> DrPlan:
+    """The bf16 d_regions kernel's plan, as ``csrc/damsm_score.cu`` computes
+    its shared memory: the image's regions stay resident (``[Rp, Dp + 8]``
+    bf16) beside four bf16 tiles of the pass's rows (words and d_c
+    ``[rows, Dp + 8]``, a and d_sim ``[rows, Rp + 8]``), each of the 8
+    warps' fp32 d_r staging tile ``[16, TC_STAGE]`` and 15 fp32/int words per
+    row; rows is the largest of 64, 48, 32, 16 that fits and holds
+    one caption.  A block takes a multiprocessor's shared memory, so the
+    splits fill the card's ``sms`` once: ``sms // b`` (at least 1).  Raises
+    for T > 64, R > 256 or D > 256."""
+    if T > TC_MAX_ROWS or R > TC_MAX_RD or D > TC_MAX_RD:
+        raise ValueError(f"damsm_score bf16 d_regions takes T <= {TC_MAX_ROWS}, R <= "
+                         f"{TC_MAX_RD} and D <= {TC_MAX_RD}; got R={R}, T={T}, D={D}")
+    rp, dp = _round_up(R, 16), _round_up(D, 16)
+
+    def smem(rows: int) -> int:
+        return 2 * (rp * (dp + 8) + rows * (2 * (dp + 8) + 2 * (rp + 8))) + 4 * (
+            8 * 16 * TC_STAGE + 15 * rows + 4)
+
+    fits = [m for m in (64, 48, 32, 16) if m >= T and smem(m) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"damsm_score bf16 d_regions: R={R}, T={T}, D={D} does not fit in "
+                         "shared memory")
+    nsplit = max(1, min(bc, sms // b))
+    return DrPlan(fits[0], nsplit, -(-bc // nsplit), smem(fits[0]))
 
 
 def damsm_scores_ref(r: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
@@ -165,11 +213,14 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"damsm_score {what} launch failed: CUDA error {rc}")
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _nsplit(device: torch.device, blocks: int, work_units: int) -> int:
     """Splits of the accumulation axis so that ``blocks * nsplit`` fills the
     card about four times over, at most one split per work unit."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(work_units, math.ceil(4 * sms / blocks)))
+    return max(1, min(work_units, math.ceil(4 * _sms(device) / blocks)))
 
 
 def _launch_fwd(r, w, mask, gamma1, gamma2, cd) -> torch.Tensor:
@@ -187,28 +238,34 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd) -> torch.Tensor:
+def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
+                library: CudaLibrary | None = None) -> torch.Tensor:
+    """One backward launch; ``library`` is the compiled source to launch
+    (``KERNEL`` unless given, as ``damsm_phases`` gives its own build)."""
     rr, ww, mm, code = _operands(r, w, mask, cd)
     b, R, D = r.shape
     bc, T, _ = w.shape
-    vb, _ = plan(R, T, D, True, bc)
-    nsub = -(-bc // vb)
     g = g.float().contiguous()
-    if which == "dr":  # blocks: (image, split); a split owns a run of caption blocks
-        nsplit = _nsplit(r.device, b, nsub)
+    if which == "dr" and code == 1:  # the tensor-core kernel: passes of `rows` word rows
+        vb, (rows, nsplit) = 0, plan_dr(R, T, D, b, bc, _sms(r.device))[:2]
+    else:
+        vb, rows = plan(R, T, D, True, bc)[0], 0
+        nsub = -(-bc // vb)
+        nsplit = _nsplit(r.device, b, nsub) if which == "dr" else _nsplit(r.device, nsub, b)
+    lib = (library or KERNEL).load()
+    if which == "dr":  # blocks: (image, split); a split owns a run of captions
         out = torch.empty(b, R, D, device=r.device, dtype=torch.float32)
         partial = out if nsplit == 1 else torch.empty(
             b, nsplit, R, D, device=r.device, dtype=torch.float32)
-        fn, counter = KERNEL.load().xmc_damsm_bwd_dr, D_REGIONS
+        fn, counter, plans = lib.xmc_damsm_bwd_dr, D_REGIONS, (vb, rows)
     else:  # blocks: (caption block, split); a split owns a run of images
-        nsplit = _nsplit(r.device, nsub, b)
         out = torch.empty(bc, T, D, device=r.device, dtype=torch.float32)
         partial = out if nsplit == 1 else torch.empty(
             nsplit, bc, T, D, device=r.device, dtype=torch.float32)
-        fn, counter = KERNEL.load().xmc_damsm_bwd_dw, D_WORDS
+        fn, counter, plans = lib.xmc_damsm_bwd_dw, D_WORDS, (vb,)
     with torch.cuda.device(r.device):
         rc = fn(rr.data_ptr(), ww.data_ptr(), mm.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), b, bc, R, T, D, vb, nsplit, gamma1, gamma2, code, _stream(r))
+                out.data_ptr(), b, bc, R, T, D, *plans, nsplit, gamma1, gamma2, code, _stream(r))
     _raise_on(rc, "d_regions" if which == "dr" else "d_words")
     counter.launches += 1
     return out
