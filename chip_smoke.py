@@ -16,10 +16,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    channels, up to 2^30 elements); the ``damsm_score`` forward, d_regions and d_words at the flagship
    word-loss shape (B = Bc = 128, R = 256, T = 20, D = 256), at a ragged
    one (R = 50, T = 7, D = 48, one all-padded caption) and at the edges of
-   the bf16 d_regions kernel (``DAMSM_EDGES``), compute dtype fp32 and bf16;
-   the bf16 d_regions, which runs on the tensor cores (``mma.sync``; the
-   forward, d_words and every fp32 path run on the CUDA cores), also twice
-   bit-equal and unmoved by the all-padded caption's cotangent; the
+   the bf16 tensor-core kernels (``DAMSM_EDGES``), compute dtype fp32 and
+   bf16; the bf16 forward and d_regions, which run on the tensor cores
+   (``mma.sync``; d_words and every fp32 path run on the CUDA cores), also
+   twice bit-equal, the forward's all-padded caption scoring exactly the
+   plain value and the d_regions unmoved by its cotangent; the
    ``cross_attention`` kernel through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
@@ -48,8 +49,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    and 10 timed steps) and fp32 with TF32 off (1 warm-up, 3 timed); checks
    each kernel's launches in one step (fused_affine 28 forward / 14
    backward, damsm 2 forward / 2 d_regions / 0 d_words), that the trace's
-   d_regions launches are the tensor-core kernel in bf16 and the CUDA-core
-   one in fp32, and that the losses are finite; prints images/s (median),
+   forward and d_regions launches are the tensor-core kernels in bf16 and
+   the CUDA-core ones in fp32, and that the losses are finite; prints
+   images/s (median),
    peak memory, one step's device time by kernel category and the damsm
    kernels by name.
 7. Kernel times against their bounds (CUDA events over repeated launches),
@@ -175,17 +177,19 @@ TRAIN_OVERRIDES = {  # the flagship_word step: bf16 activations, fp32 params
 DAMSM_FLAGSHIP = (BATCH, BATCH, 256, 20, 256)  # B, Bc, R, T, D
 DAMSM_RAGGED = (3, 5, 50, 7, 48)
 # (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
-# bf16 d_regions kernel's edges (16-row x 8-region x 16-feature tiles,
+# bf16 tensor-core kernels' edges (16-row x 8-region x 16-feature tiles,
 # passes of up to 64 packed word rows).  B = 132 images, no fewer than the
-# H100's multiprocessors, gives one split (``ds.plan_dr``), so each block's
-# passes pack runs of several captions: D = 40 with an all-padded caption
+# H100's multiprocessors, gives one split (``ds.plan_fwd``, ``ds.plan_dr``),
+# so each block's passes pack runs of several captions: D = 40 with an all-padded caption
 # inside a pass; R = 50 with T = 20 (passes of word rows no multiple of 16,
 # captions crossing a 16-row tile, Bc = 9); T = 33; T = 64 with captions of
 # at most 2 words (whole 16-row tiles without a word); B != Bc throughout
 DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, None),
                ((132, 2, 24, 33, 24), True, None), ((132, 3, 50, 64, 40), False, 2)]
-# kernel names in the profiler trace: the bf16 d_regions (tensor cores) and
-# the fp32 one (CUDA cores)
+# kernel names in the profiler trace: the bf16 forward and d_regions (tensor
+# cores) and the fp32 ones (CUDA cores)
+FWD_KERNEL = {torch.bfloat16: "damsm_fwd_tc_kernel",
+              torch.float32: "damsm_fwd_kernel<"}
 DR_KERNEL = {torch.bfloat16: "damsm_bwd_dr_tc_kernel",
              torch.float32: "damsm_bwd_dr_kernel<float"}
 
@@ -479,8 +483,8 @@ def check_modulation(shapes) -> dict:
 def check_damsm() -> dict:
     """Phase 3, damsm_score: forward, d_regions, d_words against the plain
     version and its autograd, at the flagship, a ragged and the edge
-    shapes; the bf16 d_regions also for determinism and the all-padded
-    caption."""
+    shapes; the bf16 forward and d_regions also for determinism and the
+    all-padded caption."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     shapes = [(DAMSM_FLAGSHIP, False, None), (DAMSM_RAGGED, True, None), *DAMSM_EDGES]
@@ -521,7 +525,18 @@ def check_damsm() -> dict:
                              "moved the gradient")
     log("[3] damsm_score bf16 d_regions (tensor cores): two launches bit-equal; the "
         "all-padded caption's cotangent changes nothing")
-    del r, w, mask, up, up2, runs
+    # the bf16 forward (tensor cores): two launches bit-equal, every score
+    # finite, the all-padded caption's (it takes no row) the plain value
+    scores = [ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16) for _ in range(2)]
+    want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not (torch.equal(scores[0], scores[1]) and bool(torch.isfinite(scores[0]).all())
+            and torch.equal(scores[0][:, 1], want[:, 1])):
+        raise AssertionError("bf16 forward: launches differ, a score is not finite, or the "
+                             "all-padded caption's score is not the plain value")
+    log(f"[3] damsm_score bf16 forward (tensor cores): two launches bit-equal, all finite; the "
+        f"all-padded caption scores {scores[0][0, 1].item():.6g}, as the plain version")
+    del r, w, mask, up, up2, runs, scores, want
     torch.cuda.empty_cache()
     return errs
 
@@ -801,10 +816,12 @@ def train(dtype, warmup: int, timed: int) -> dict:
         if kernel_category(k["name"]) == "damsm_score":
             n, ms = damsm.get(k["name"], (0, 0.0))
             damsm[k["name"]] = (n + 1, ms + k["ms"])
-    dr = {name: v for name, v in damsm.items() if "damsm_bwd_dr" in name}
-    if [v[0] for name, v in dr.items() if DR_KERNEL[dtype] in name] != [2] or len(dr) != 1:
-        raise AssertionError(f"{label} train step: d_regions kernels {dr}, want 2 launches of "
-                             f"{DR_KERNEL[dtype]}")
+    for what, prefix, want in (("forward", "damsm_fwd", FWD_KERNEL[dtype]),
+                               ("d_regions", "damsm_bwd_dr", DR_KERNEL[dtype])):
+        got = {name: v for name, v in damsm.items() if prefix in name}
+        if [v[0] for name, v in got.items() if want in name] != [2] or len(got) != 1:
+            raise AssertionError(f"{label} train step: {what} kernels {got}, want 2 launches "
+                                 f"of {want}")
     res = {"dtype": label, "launches": launches, "step_ms": step_s * 1e3,
            "step_ms_all": [t * 1e3 for t in times], "img_per_s": BATCH / step_s,
            "peak_mem_gib": peak, "step_kernel_ms": device_ms, "step_busy_ms": busy_ms,
@@ -1028,7 +1045,7 @@ def damsm_rows(errs, launches) -> list[dict]:
                 "bound_ms": bound, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "library_ms": None, "roofline_share": bound / ms,
                 "shapes": f"B=Bc={b}, R={R}, T={T} ({words} real words), D={D}, compute "
-                          f"{CD_NAME[cd]}" + (", tensor cores (mma.sync)" if name == "d_regions"
+                          f"{CD_NAME[cd]}" + (", tensor cores (mma.sync)" if name != "d_words"
                                               and cd == torch.bfloat16 else ", CUDA cores"),
             })
             log(f"[7] {rows[-1]['name']}: {ms:.3f} ms (bound {bound:.3f} ms by "

@@ -159,11 +159,14 @@ def _damsm_inputs(device, shape, seed, allpad, max_len=None):
 # passes whose real word rows are no multiple of 16 and captions that cross
 # a 16-row tile, Bc = 9 no multiple of the captions per pass; B != Bc
 # throughout; T = 33 with Bc = 2; T = 64 with captions of at most 2 words,
-# so that whole 16-row tiles of a pass hold no word.
+# so that whole 16-row tiles of a pass hold no word.  Last, the flagship's
+# widths at 132 images of 40 captions: the bf16 forward's passes fill up to
+# 64 rows (``plan_fwd``), so each image's captions run in several passes,
+# with an all-padded caption among them.
 DAMSM_SHAPES = [((3, 5, 50, 7, 48), True, None), ((2, 3, 5, 3, 12), True, None),
                 ((4, 7, 256, 20, 256), False, None), ((132, 7, 64, 7, 40), True, None),
                 ((132, 9, 50, 20, 40), False, None), ((132, 2, 24, 33, 24), True, None),
-                ((132, 3, 50, 64, 40), False, 2)]
+                ((132, 3, 50, 64, 40), False, 2), ((132, 40, 256, 20, 256), True, None)]
 
 
 @pytest.mark.cuda
@@ -209,22 +212,47 @@ def test_damsm_bf16_d_regions_is_deterministic_and_ignores_padded_captions(cuda_
 
 
 @pytest.mark.cuda
+def test_damsm_bf16_forward_is_deterministic_and_scores_padded_captions(cuda_device):
+    """Two launches of the bf16 (tensor-core) forward are bit-equal, every
+    score is finite, and the all-padded caption, which takes no row of any
+    pass, scores exactly what the plain version gives it, (-1e30 + log T) /
+    gamma2."""
+    r, w, mask, _ = _damsm_inputs(cuda_device, (8, 24, 256, 20, 256), 11, allpad=True)
+    first = ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16)
+    again = ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16)
+    want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert bool(torch.isfinite(first).all())
+    assert torch.equal(first[:, 1], want[:, 1])
+    torch.testing.assert_close(first, want, rtol=1e-5, atol=DAMSM_TOL[torch.bfloat16][0])
+
+
+@pytest.mark.cuda
 def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
-    """The build with the bf16 d_regions kernel's phase counters
-    (``xmc_gan_tpu_torch/damsm_phases.py``) counts every phase and the passes,
-    and gives the same d_regions bit for bit."""
+    """The build with the bf16 tensor-core kernels' phase counters
+    (``xmc_gan_tpu_torch/damsm_phases.py``) counts every phase of d_regions
+    and of the forward, and the passes, and nothing outside each kernel's
+    phases, and gives the same d_regions and scores bit for bit."""
     from xmc_gan_tpu_torch import damsm_phases
 
     r, w, mask, up = _damsm_inputs(cuda_device, (4, 24, 256, 20, 256), 10, allpad=True)
-    want = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
     lib = damsm_phases.phase_library()
-    assert lib.load().xmc_damsm_phases_reset() == 0
-    got = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16, library=lib)
-    torch.cuda.synchronize()
-    cycles = damsm_phases.read_phases(lib)
-    assert torch.equal(got, want)
-    assert cycles[damsm_phases.PASSES] > 0
-    assert all(cycles[k] > 0 for k, name in enumerate(damsm_phases.PHASES) if name)
+    for kernel, launch in (
+            ("d_regions", lambda **kw: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0,
+                                                      torch.bfloat16, **kw)),
+            ("forward", lambda **kw: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16,
+                                                    **kw))):
+        want = launch()
+        assert lib.load().xmc_damsm_phases_reset() == 0
+        got = launch(library=lib)
+        torch.cuda.synchronize()
+        cycles = damsm_phases.read_phases(lib)
+        assert torch.equal(got, want), kernel
+        assert cycles[damsm_phases.PASSES] > 0, kernel
+        phases = damsm_phases.KERNEL_PHASES[kernel]
+        assert all(cycles[k] > 0 for k in phases), (kernel, cycles)
+        assert all(cycles[k] == 0 for k in damsm_phases.PHASES if k not in phases), (kernel, cycles)
 
 
 @pytest.mark.cuda

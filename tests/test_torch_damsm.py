@@ -188,6 +188,53 @@ def test_tensor_core_plan_mirrors_the_source():
         ds.plan_dr(300, 8, 16, 2, 4, 132)
 
 
+def test_forward_plan_mirrors_the_source():
+    """The bf16 forward kernel's plan as ``csrc/damsm_score.cu`` computes its
+    shared memory: it keeps no d_c, d_sim or staging tiles, so at the
+    flagship shape (B = Bc = 128, R = 256, T = 20, D = 256, 132
+    multiprocessors) passes of 64 word rows fit beside the resident regions
+    (d_regions: 32), in one split of all 128 captions; rows per pass are a
+    multiple of 16 and hold a whole caption at the card tests' shapes;
+    T > 64, R > 256 and D > 256 are refused."""
+    p = ds.plan_fwd(256, 20, 256, 128, 128, 132)
+    assert p == (64, 1, 128, 206_352)
+    assert p.smem == 2 * (256 * 264 + 64 * 2 * 264) + 4 * (14 * 64 + 4) <= ds.SMEM_LIMIT
+    assert ds.plan_fwd(256, 20, 256, 32, 128, 132)[1:3] == (4, 32)
+    for b, bc, R, T, D in [(3, 5, 50, 7, 48), (2, 3, 5, 3, 12), (4, 7, 256, 20, 256),
+                           (132, 7, 64, 7, 40), (132, 9, 50, 20, 40), (132, 2, 24, 33, 24),
+                           (132, 3, 50, 64, 40), (132, 40, 256, 20, 256)]:
+        p = ds.plan_fwd(R, T, D, b, bc, 132)
+        assert p.rows % 16 == 0 and p.rows >= T and p.smem <= ds.SMEM_LIMIT
+        assert p.nsplit * p.captions >= bc
+    with pytest.raises(ValueError, match="T <= 64"):
+        ds.plan_fwd(16, 65, 8, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 256"):
+        ds.plan_fwd(16, 8, 260, 2, 4, 132)
+    with pytest.raises(ValueError, match="R <= 256"):
+        ds.plan_fwd(300, 8, 16, 2, 4, 132)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_forward_ignores_padded_words(seed):
+    """The bf16 forward kernel packs only the real words of each caption into
+    its passes.  That is exact: in the plain version (the kernel's
+    reference) a padded word's vector does not move any score, and an
+    all-padded caption scores (-1e30 + log T) / gamma2 whatever its words."""
+    regions, words, mask, _ = _problem(b=3, bc=5, r=16, t=9, d=24, seed=seed)
+    r = pl.l2_normalize(torch.from_numpy(regions))
+    w = pl.l2_normalize(torch.from_numpy(words))
+    m = torch.from_numpy(mask)
+    other = pl.l2_normalize(torch.from_numpy(
+        np.random.RandomState(seed + 10).randn(*words.shape).astype(np.float32)))
+    w2 = torch.where(m[..., None], other, w)
+    assert not torch.equal(w, w2)
+    for cd in (None, torch.bfloat16):
+        want = ds.damsm_scores_ref(r, w, m, 4.0, 5.0, cd)
+        torch.testing.assert_close(ds.damsm_scores_ref(r, w2, m, 4.0, 5.0, cd), want,
+                                   rtol=0, atol=0)
+        assert torch.equal(want[:, 1], torch.full((3,), (ds.NEG + np.log(np.float32(9))) / 5.0))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_plain_d_regions_ignores_padded_words(seed):
     """The bf16 d_regions kernel packs only the real words of each caption

@@ -186,16 +186,35 @@ def test_word_loss_and_grads_match_jax(b_global):
 def test_word_scores_backend_rule():
     """The kernel exactly where the plain path would block and the operands
     are CUDA tensors; the plain path otherwise (the JAX rule, "TPU backend"
-    read as "CUDA tensor")."""
+    read as "CUDA tensor").  The LN config's shape (B = Bc = 256, R = 256,
+    T = 200, word width 768) routes to the kernels, whose limits refuse it:
+    the kernel route raises there, before any work, naming the tiling that
+    would lift them, in fp32 and bf16; it takes no plain route."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert pl.word_scores_backend(128, 128, 20, 256, pl.WORD_LOSS_BLOCK_ELEMS, cuda) == "kernel"
-    assert pl.word_scores_backend(128, 128, 20, 256, pl.WORD_LOSS_BLOCK_ELEMS, cpu) == "plain"
-    assert pl.word_scores_backend(64, 64, 20, 256, pl.WORD_LOSS_BLOCK_ELEMS, cuda) == "plain"
+    block = pl.WORD_LOSS_BLOCK_ELEMS
+    assert pl.word_scores_backend(128, 128, 20, 256, block, cuda) == "kernel"
+    assert pl.word_scores_backend(128, 128, 20, 256, block, cpu) == "plain"
+    assert pl.word_scores_backend(64, 64, 20, 256, block, cuda) == "plain"
     assert pl.word_scores_backend(2, 2, 3, 4, 0, cuda) == "kernel"
     assert pl.word_scores_backend(2, 2, 3, 4, None, cuda) == "plain"
+    assert pl.word_scores_backend(256, 256, 200, 256, 2**26, cuda) == "kernel"
     jax_name = {"xla": "plain", "pallas": "kernel"}
-    for args in [(128, 128, 20, 256, pl.WORD_LOSS_BLOCK_ELEMS), (2, 2, 3, 4, 0)]:
+    for args in [(128, 128, 20, 256, block), (2, 2, 3, 4, 0)]:
         assert pl.word_scores_backend(*args, cpu) == jax_name[jl.word_scores_backend(*args)]
+    for cd in (None, torch.float32, torch.bfloat16):
+        ds.check_shape(256, 20, 256, cd)  # the flagship shape
+        for r_regions, t, d in [(256, 200, 768), (256, 200, 256), (256, 20, 768)]:
+            with pytest.raises(ValueError, match="B7"):
+                ds.check_shape(r_regions, t, d, cd)
+        # a small LN-like problem (T = 200, D = 768) on the kernel route raises first
+        rng = np.random.RandomState(0)
+        with pytest.raises(ValueError, match="B7"):
+            pl.word_region_scores(_t(rng.randn(2, 4, 768)), _t(rng.randn(2, 200, 768)),
+                                  torch.zeros(2, 200, dtype=torch.bool), compute_dtype=cd,
+                                  backend="kernel")
+    ds.check_shape(300, 20, 256, torch.float32)
+    with pytest.raises(ValueError, match="B7"):
+        ds.check_shape(300, 20, 256, torch.bfloat16)
 
 
 def test_explicit_backend_is_obeyed_without_fallback():

@@ -20,8 +20,8 @@
 // operations (2*T*R*D per product: 2 products forward, 5 for d_regions, 4
 // for d_words; 86 / 215 / 172 GFLOP at B = Bc = 128, T = 20, R = D = 256),
 // against 67 TFLOP/s fp32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
-// cores.  The bf16 d_regions runs on the tensor cores (its own section
-// below); the forward, d_words and every fp32 path run on the CUDA cores
+// cores.  The bf16 forward and d_regions run on the tensor cores (their own
+// section below); the bf16 d_words and every fp32 path run on the CUDA cores
 // (fp32 keeps 1e-5 against its plain version, which TF32 would not).
 // Design of the CUDA-core kernels, a first, simple and correct version:
 //  * A block takes one image and a sub-block of vb captions (vb*T <= 64 word
@@ -41,49 +41,79 @@
 //    deterministic, run to run.
 // The kernels allocate nothing and launch on the caller's stream.
 //
-// The bf16 d_regions kernel (damsm_bwd_dr_tc_kernel), on the tensor cores:
-//  * Products: all five (sim = W R^T, c = rnd(a) R, d a = d_c R^T, and
-//    rnd(a)^T d_c + d_sim^T W into d_r) are mma.sync.m16n8k16 bf16 tiles
-//    with fp32 accumulators; operands are bf16 in shared memory, read with
-//    ldmatrix (.trans where the contraction runs along a tile's rows).
+// The bf16 kernels on the tensor cores: the forward (damsm_fwd_tc_kernel) and
+// d_regions (damsm_bwd_dr_tc_kernel).  What they share:
+//  * Products are mma.sync.m16n8k16 bf16 tiles with fp32 accumulators;
+//    operands are bf16 in shared memory, read with ldmatrix (.trans where
+//    the contraction runs along a tile's rows).
 //  * Block = (image i, split of the captions); the image's regions stay
 //    resident in shared memory for all of the block's passes.  A pass packs
 //    the real words of whole captions, in order, into Mp = 16..64 word rows
-//    (padded words and all-padded captions take no row: a padded word's
-//    d rel is 0, so it adds exactly 0 to d_r), recomputes the chain with the
-//    [Mp, R] similarity / attention held in registers (a warp owns 8-wide
+//    (tc_pack_pass: padded words and all-padded captions take no row) and
+//    runs the chain to rel (tc_attend) with the [Mp, R] similarity /
+//    attention and the [Mp, D] context held in registers (a warp owns 8-wide
 //    column tiles; row sums and maxima go through the quad and a [warps][Mp]
-//    shared array in a fixed order), then adds its part into the block's
-//    exclusive fp32 slice of partial (first pass: store).  A warp takes
-//    16 x 64 of d_r at a time, loads the slice's earlier sums before its
-//    products and moves its accumulators through a shared staging tile, so
-//    the slice's read-modify-write is 16-byte and row-contiguous.
-//  * Shared memory (bf16 strides padded by 8 so ldmatrix is conflict-free;
-//    Rp, Dp = R, D rounded up to 16): regions Rp*(Dp+8)*2, words and d_c
-//    2*Mp*(Dp+8)*2, a and d_sim 2*Mp*(Rp+8)*2, 8 staging tiles 8*16*36*4,
-//    and 15*Mp+4 fp32/int words.  At R = D = 256: 135,168 + Mp*2,112 +
-//    18,432 + 60*Mp + 16, so Mp = 32 (223,120 B; 48 would need 257,872 of
-//    the 232,448 a block may have).  Mp is the largest of 64/48/32/16 that
-//    fits and holds T; R, D <= 256, T <= 64.
-//  * One block per multiprocessor (shared memory), so the splits fill the
-//    card once (wrapper: nsplit = max(1, SMs / B)).  At the flagship shape
-//    128 blocks each run ~48 passes of ~26 real words.
+//    shared array in a fixed order).
+//  * Mp is the largest of 64/48/32/16 that fits in shared memory and holds
+//    T; R, D <= 256, T <= 64.  One block per multiprocessor (shared memory),
+//    so the splits fill the card once (wrapper: nsplit = max(1, SMs / B)).
+//  * Shared memory: bf16 strides padded by 8 so ldmatrix is conflict-free;
+//    Rp, Dp = R, D rounded up to 16; the regions take Rp*(Dp+8)*2.
+//  * Rounding points: as the plain version (operands r, w, a and c_hat in
+//    bf16), not the Pallas forward, which keeps c_hat fp32 for rel.
+//  * Deterministic: no atomics, fixed reduction orders.
+//
+// The forward (damsm_fwd_tc_kernel):
+//  * Per pass: sim = W R^T and c = rnd(a) R (2 products), the softmax, the
+//    norm and rel, then each caption of the pass writes its score, the
+//    logsumexp over its real words of g2 * rel, / g2, to out[i][j] with one
+//    warp.  A padded word adds exp(-1e30 - max) = 0 to the plain version's
+//    sum, so packing only the real words changes nothing.  An all-padded
+//    caption takes no row: the block writes the plain version's
+//    (-1e30 + log T) / g2 for it before its passes.
+//  * Shared memory: regions, words Mp*(Dp+8)*2, a Mp*(Rp+8)*2 and 14*Mp+4
+//    fp32/int words (rel, the warps' row partials, the row map).  At
+//    R = D = 256, Mp = 64: 135,168 + 67,584 + 3,600 = 206,352 of the 232,448
+//    bytes a block may have, so 23 passes per image of whole captions at the
+//    flagship's 1,262 real words of 128 captions (d_regions: 48).
+//  * Bound: 2*R*D*2 operations per real word and image, 43 GFLOP at the
+//    flagship, over 989 TFLOP/s: 0.043 ms; its ~18 MB of inputs and
+//    scores take 0.005 ms at 3.35 TB/s.  What holds it back
+//    (xmc_gan_tpu_torch/damsm_phases.py): the two products' phases, sim +
+//    softmax and c + rel, ~72% of the cycles; then loading the words and
+//    warp 0's pack, ~22%, during which the tensor cores idle.
+//
+// The d_regions (damsm_bwd_dr_tc_kernel):
+//  * Products: all five (sim = W R^T, c = rnd(a) R, d a = d_c R^T, and
+//    rnd(a)^T d_c + d_sim^T W into d_r).  A padded word's d rel is 0, so it
+//    adds exactly 0 to d_r.  After the chain to rel each pass runs the
+//    softmax backward and adds its part into the block's exclusive fp32
+//    slice of partial (first pass: store).  A warp takes 16 x 64 of d_r at a
+//    time, loads the slice's earlier sums before its products and moves its
+//    accumulators through a shared staging tile, so the slice's
+//    read-modify-write is 16-byte and row-contiguous; then sum_splits.
+//  * Shared memory: regions, words and d_c 2*Mp*(Dp+8)*2, a and d_sim
+//    2*Mp*(Rp+8)*2, 8 staging tiles 8*16*36*4, and 15*Mp+4 fp32/int words.
+//    At R = D = 256: 135,168 + Mp*2,112 + 18,432 + 60*Mp + 16, so Mp = 32
+//    (223,120 B; 48 would need 257,872).  At the flagship shape 128 blocks
+//    each run ~48 passes of ~26 real words.
 //  * Bound: the same 215 GFLOP-class count of products (for the real words
 //    only: 2*R*D*5*words*B), over 989 TFLOP/s.  What holds it back
 //    (xmc_gan_tpu_torch/damsm_phases.py): the products themselves, issued
 //    as mma.sync from ldmatrix at a small share of the tensor rate, the d_r
 //    ones most; then the per-pass d_r read-modify-write (R*D*4 bytes read
 //    and written per pass).
-//  * Rounding points: as the plain version (operands r, w, a and c_hat in
-//    bf16; d c_hat and d a rounded to bf16), and, as the Pallas kernel does
-//    (xmc_gan_tpu/ops/pallas/damsm_score.py: d_c.astype(st), d_sim.astype(cd)),
-//    d_c and d_sim rounded to bf16 before their products, where the plain
-//    version keeps them fp32.  On the card this stays within one bf16 ulp
-//    (2^-7) of the largest gradient (chip_smoke.py phase 3 prints the error).
-//  * Deterministic: no atomics, fixed reduction orders, then sum_splits.
+//  * Rounding points: besides the shared ones, d c_hat and d a rounded to
+//    bf16 as autograd of the plain version rounds them, and, as the Pallas
+//    kernel does (xmc_gan_tpu/ops/pallas/damsm_score.py: d_c.astype(st),
+//    d_sim.astype(cd)), d_c and d_sim rounded to bf16 before their products,
+//    where the plain version keeps them fp32.  On the card this stays within
+//    one bf16 ulp (2^-7) of the largest gradient (chip_smoke.py phase 3
+//    prints the error).
 //
 // C interface (ctypes; pointers and the stream as void*):
-//   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, g1, g2, dtype, stream)
+//   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, g1, g2,
+//                     dtype, stream)
 //   int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, rows,
 //                        nsplit, g1, g2, dtype, stream)
 //   int xmc_damsm_bwd_dw(r, w, mask, g, partial, dw, B, Bc, R, T, D, vb, nsplit,
@@ -92,11 +122,12 @@
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
 //   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
 //   vb is the captions per block of the CUDA-core kernels; rows is the word
-//   rows per pass, Mp, of the tensor-core d_regions (dtype 1).  Each is
-//   ignored where the other applies.
+//   rows per pass, Mp, of the tensor-core forward and d_regions (dtype 1),
+//   whose blocks are (image, split) for nsplit splits.  Each is ignored
+//   where the other applies.
 //   Returns cudaGetLastError() after the launches (0 = success).
-//   Built with -DXMC_DAMSM_PHASES, the tensor-core kernel also counts its
-//   cycles per phase: int xmc_damsm_phases_read(host [12] uint64),
+//   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels also count their
+//   cycles per phase: int xmc_damsm_phases_read(host [13] uint64),
 //   int xmc_damsm_phases_reset() (xmc_gan_tpu_torch/damsm_phases.py).
 
 #include <cuda_bf16.h>
@@ -351,15 +382,15 @@ __device__ __forceinline__ bool padded(const uint8_t* mask, int j, int t, const 
   return j >= d.Bc || mask[size_t(j) * d.T + t] != 0;
 }
 
-template <typename T, int MB, bool BF16>
+template <int MB>  // fp32; the bf16 forward is damsm_fwd_tc_kernel
 __global__ void __launch_bounds__(kThreads)
-damsm_fwd_kernel(const T* __restrict__ r, const T* __restrict__ w,
+damsm_fwd_kernel(const float* __restrict__ r, const float* __restrict__ w,
                  const uint8_t* __restrict__ mask, float* __restrict__ out, Dims d) {
   extern __shared__ float4 smem_raw[];
   const Smem s = carve(reinterpret_cast<float*>(smem_raw), d, false);
   const int i = blockIdx.x, j0 = blockIdx.y * d.vb;
   load_words(w, j0, d, s.W);
-  forward_chain<T, MB, BF16>(r, i, d, s);
+  forward_chain<float, MB, false>(r, i, d, s);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int c = warp; c < d.vb; c += kWarps) {  // logsumexp over the words of caption j
     const int j = j0 + c;
@@ -569,15 +600,15 @@ bool dims_ok(const Dims& d) {
          d.M <= MAX_ROWS && d.Dp <= MAX_DP;
 }
 
-template <typename T, int MB, bool BF16>
+template <int MB>
 int launch_fwd(const void* r, const void* w, const uint8_t* mask, float* out, const Dims& d,
                cudaStream_t st) {
-  auto k = damsm_fwd_kernel<T, MB, BF16>;
+  auto k = damsm_fwd_kernel<MB>;
   const size_t bytes = smem_bytes(d, false);
   if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
   dim3 grid(d.B, (d.Bc + d.vb - 1) / d.vb);
-  k<<<grid, kThreads, bytes, st>>>(static_cast<const T*>(r), static_cast<const T*>(w), mask,
-                                   out, d);
+  k<<<grid, kThreads, bytes, st>>>(static_cast<const float*>(r), static_cast<const float*>(w),
+                                   mask, out, d);
   return int(cudaGetLastError());
 }
 
@@ -616,22 +647,25 @@ int launch_dw(const void* r, const void* w, const uint8_t* mask, const float* g,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 d_regions on the tensor cores (header: "The bf16 d_regions kernel").
+// bf16 forward and d_regions on the tensor cores (header: "The bf16 kernels
+// on the tensor cores").
 // ---------------------------------------------------------------------------
 
 constexpr int TC_MAX_RD = 256;   // R and D limits (the [Mp, R] tiles live in registers)
 constexpr int TC_MAX_ROWS = 64;  // word rows per pass
 constexpr int TC_STAGE = 36;     // row stride (fp32) of a warp's [16][32] d_r staging tile
 
-// Phase clocks of the tensor-core kernel, compiled in only with
+// Phase clocks of the tensor-core kernels, compiled in only with
 // -DXMC_DAMSM_PHASES (xmc_gan_tpu_torch/damsm_phases.py): thread 0 of each
 // block adds the clock64() cycles between the block's barriers to
 // g_phase_cycles[phase] (TC_PHASE_SYNC adds a barrier of its own first), and
 // [TC_PASSES] counts passes.  Inside tc_accumulate_dr, which has no barrier,
 // thread 0 splits its own warp's time into the products and the
 // read-modify-write of each 16 x 64 tile (TC_PHASE_ARGS / TC_PHASE_PASS hand
-// it the clocks).  Without the flag the macros are empty.
-constexpr int TC_NPHASE = 12, TC_PASSES = 10;
+// it the clocks).  Slots 0-3 and 9 are both kernels' (pack, words, sim +
+// softmax, c + rel, regions), 4-8 and 11 the d_regions', 12 the forward's
+// scores.  Without the flag the macros are empty.
+constexpr int TC_NPHASE = 13, TC_PASSES = 10;
 #ifdef XMC_DAMSM_PHASES
 __device__ unsigned long long g_phase_cycles[TC_NPHASE];
 #define TC_PHASE_ARGS , long long (&phase_acc)[TC_NPHASE], long long& phase_t
@@ -695,13 +729,16 @@ bool tc_dims_ok(const TcDims& d) {
          d.Mp <= TC_MAX_ROWS;
 }
 
-// Regions [Rp][SD], words W and d_c DC [Mp][SD], a P and d_sim DS [Mp][SR] (bf16);
-// each warp's d_r staging tile stage [kWarps][16][TC_STAGE], rel, drel [Mp] and
-// the warps' row partials red [kWarps][Mp] (fp32); the pass's row map row_t,
-// row_c and caption slots cap_j, cap_base, cap_n [Mp], info [4] (int).
-size_t tc_smem_bytes(const TcDims& d) {
-  return 2 * (size_t(d.Rp) * d.SD + size_t(d.Mp) * (2 * d.SD + 2 * d.SR)) +
-         4 * (size_t(kWarps) * 16 * TC_STAGE + size_t(15) * d.Mp + 4);
+// Regions [Rp][SD], words W [Mp][SD], a P [Mp][SR] (bf16), rel [Mp] and the
+// warps' row partials red [kWarps][Mp] (fp32), the pass's row map row_t, row_c
+// and caption slots cap_j, cap_base, cap_n [Mp], info [4] (int); d_regions
+// (bwd) also d_c DC [Mp][SD], d_sim DS [Mp][SR] (bf16), each warp's d_r
+// staging tile stage [kWarps][16][TC_STAGE] and drel [Mp] (fp32).  The
+// forward leaves those out (0 rows).
+size_t tc_smem_bytes(const TcDims& d, bool bwd) {
+  const size_t mb = bwd ? d.Mp : 0;
+  return 2 * (size_t(d.Rp) * d.SD + (d.Mp + mb) * (d.SD + d.SR)) +
+         4 * ((bwd ? size_t(kWarps) * 16 * TC_STAGE : 0) + size_t(14) * d.Mp + mb + 4);
 }
 
 struct TcSmem {
@@ -710,17 +747,18 @@ struct TcSmem {
   int *row_t, *row_c, *cap_j, *cap_base, *cap_n, *info;
 };
 
-__device__ TcSmem tc_carve(unsigned char* base, const TcDims& d) {
+__device__ TcSmem tc_carve(unsigned char* base, const TcDims& d, bool bwd) {
+  const int mb = bwd ? d.Mp : 0;
   TcSmem s;
   s.Rs = reinterpret_cast<__nv_bfloat16*>(base);
   s.W = s.Rs + d.Rp * d.SD;
   s.DC = s.W + d.Mp * d.SD;
-  s.P = s.DC + d.Mp * d.SD;
+  s.P = s.DC + mb * d.SD;
   s.DS = s.P + d.Mp * d.SR;
-  s.stage = reinterpret_cast<float*>(s.DS + d.Mp * d.SR);
-  s.rel = s.stage + kWarps * 16 * TC_STAGE;
+  s.stage = reinterpret_cast<float*>(s.DS + mb * d.SR);
+  s.rel = s.stage + (bwd ? kWarps * 16 * TC_STAGE : 0);
   s.drel = s.rel + d.Mp;
-  s.red = s.drel + d.Mp;
+  s.red = s.drel + mb;
   s.row_t = reinterpret_cast<int*>(s.red + kWarps * d.Mp);
   s.row_c = s.row_t + d.Mp;
   s.cap_j = s.row_c + d.Mp;
@@ -1018,6 +1056,197 @@ __device__ void tc_accumulate_dr(float* __restrict__ out, bool first, const TcDi
   }
 }
 
+// The next pass of captions j .. c1-1: warp 0 packs it, the block loads its
+// words into W.  Returns its word rows (0: the remaining captions are all
+// padded) and moves j past its captions.
+__device__ __forceinline__ int tc_next_pass(const __nv_bfloat16* __restrict__ w,
+                                            const uint8_t* __restrict__ mask, int& j, int c1,
+                                            const TcDims& d, const TcSmem& s TC_PHASE_ARGS) {
+  __syncthreads();  // the previous pass is done with the tiles and the row map
+  if (threadIdx.x < 32) tc_pack_pass(mask, j, c1, d, s);
+  __syncthreads();
+  TC_PHASE(0);
+  const int rows = s.info[0];
+  j = s.info[2];
+  if (rows == 0) return 0;
+  tc_load(s.W, d.Mp, d.SD, rows, [&](int m) {
+    return w + (size_t(s.cap_j[s.row_c[m]]) * d.T + s.row_t[m]) * d.D; }, d);
+  __syncthreads();
+  TC_PHASE(1);
+  return rows;
+}
+
+// A pass's chain up to rel, on the words in W, as the plain version computes
+// it: sim = W R^T; a = softmax_R(g1 sim) (fp32, in registers) and P = rnd(a)
+// in shared memory; c = P R; c_hat = c / max(|c|, 1e-12) (left in c, with
+// inrm = 1 / max(|c|, 1e-12)); rel = sum_D rnd(c_hat) w into s.rel.  The
+// warp owns the n-tiles ntR0 .. ntR0+ntwR-1 of Rp and ntD0 .. ntD0+ntwD-1 of
+// Dp.  Ends after a barrier.
+template <int MT>
+__device__ __forceinline__ void tc_attend(float (&a)[MT][4][4], float (&c)[MT][4][4],
+                                          float (&inrm)[MT][2], int ntR0, int ntwR, int ntD0,
+                                          int ntwD, const TcDims& d,
+                                          const TcSmem& s TC_PHASE_ARGS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
+  float v[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[mt][jj][e] = 0.f;
+  tc_rows_by_regions<MT>(a, s.W, s.Rs, ntR0, ntwR, d);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[mt][h] = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (jj < ntwR && (ntR0 + jj) * 8 + q2 + e < d.R)
+            v[mt][h] = fmaxf(v[mt][h], d.g1 * a[mt][jj][2 * h + e]);
+    }
+  tc_rows<MT, true>(v, s.red, d.Mp);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mx = v[mt][h];
+      v[mt][h] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool real = jj < ntwR && (ntR0 + jj) * 8 + q2 + e < d.R;
+          const float x = real ? expf(d.g1 * a[mt][jj][2 * h + e] - mx) : 0.f;
+          a[mt][jj][2 * h + e] = x;
+          v[mt][h] += x;
+        }
+    }
+  tc_rows<MT, false>(v, s.red, d.Mp);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + (lane >> 2) + 8 * h;
+      const float inv = 1.f / v[mt][h];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (jj >= ntwR) continue;
+        a[mt][jj][2 * h] *= inv;
+        a[mt][jj][2 * h + 1] *= inv;
+        *reinterpret_cast<uint32_t*>(s.P + row * d.SR + (ntR0 + jj) * 8 + q2) =
+            pack_bf16(a[mt][jj][2 * h], a[mt][jj][2 * h + 1]);
+      }
+    }
+  __syncthreads();
+  TC_PHASE(2);
+
+  // c = rnd(a) R; c_hat = c / max(|c|, 1e-12); rel = sum_D rnd(c_hat) w
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mt][jj][e] = 0.f;
+  tc_attn_by_regions<MT>(c, s.P, s.Rs, ntD0, ntwD, d);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      inrm[mt][h] = 0.f;  // the sum of c^2 first
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = c[mt][jj][2 * h + e];
+          if (jj < ntwD) inrm[mt][h] = fmaf(x, x, inrm[mt][h]);
+        }
+    }
+  tc_rows<MT, false>(inrm, s.red, d.Mp);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + (lane >> 2) + 8 * h;
+      inrm[mt][h] = 1.f / fmaxf(sqrtf(inrm[mt][h]), 1e-12f);
+      v[mt][h] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (jj >= ntwD) continue;
+        const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            s.W + row * d.SD + (ntD0 + jj) * 8 + q2));
+        const float c0 = c[mt][jj][2 * h] * inrm[mt][h];
+        const float c1 = c[mt][jj][2 * h + 1] * inrm[mt][h];
+        c[mt][jj][2 * h] = c0;
+        c[mt][jj][2 * h + 1] = c1;
+        v[mt][h] = fmaf(rnd<true>(c0), wv.x, fmaf(rnd<true>(c1), wv.y, v[mt][h]));
+      }
+    }
+  tc_rows<MT, false>(v, s.red, d.Mp);
+  if (warp == 0 && (lane & 3) == 0)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) s.rel[mt * 16 + (lane >> 2) + 8 * h] = v[mt][h];
+  __syncthreads();
+  TC_PHASE(3);
+}
+
+// The forward, bf16 operands: block (image i, split).  The split's captions
+// go in passes of at most Mp real word rows; each pass runs the chain to rel
+// and writes the score of each of its captions to out[i][j].
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_fwd_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ w,
+                    const uint8_t* __restrict__ mask, float* __restrict__ out, TcDims d,
+                    int nsplit) {
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  const TcSmem s = tc_carve(tc_smem_raw, d, false);
+  TC_PHASE_INIT
+  const int i = blockIdx.x, split = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (d.Bc + nsplit - 1) / nsplit;
+  const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
+  float* out_i = out + size_t(i) * d.Bc;
+  const __nv_bfloat16* ri = r + size_t(i) * d.R * d.D;
+  tc_load(s.Rs, d.Rp, d.SD, d.R, [&](int q) { return ri + size_t(q) * d.D; }, d);
+  // an all-padded caption takes no row; its score is the plain version's
+  // logsumexp of T logits of -1e30, over g2
+  for (int j = c0 + warp; j < c1; j += kWarps) {
+    const uint8_t* mj = mask + size_t(j) * d.T;
+    const bool real = (lane < d.T && mj[lane] == 0) || (lane + 32 < d.T && mj[lane + 32] == 0);
+    if (!__any_sync(0xffffffffu, real) && lane == 0) out_i[j] = (NEG + logf(float(d.T))) / d.g2;
+  }
+  TC_PHASE_SYNC(9);
+  // a warp's columns: adjacent n-tiles (8 wide) of Rp and of Dp
+  const int nR = d.Rp / 8, nD = d.Dp / 8;
+  const int twR = (nR + kWarps - 1) / kWarps, twD = (nD + kWarps - 1) / kWarps;
+  const int ntR0 = warp * twR, ntwR = max(0, min(twR, nR - ntR0));
+  const int ntD0 = warp * twD, ntwD = max(0, min(twD, nD - ntD0));
+  for (int j = c0; j < c1;) {
+    if (tc_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS) == 0) break;
+    float a[MT][4][4], c[MT][4][4], inrm[MT][2];
+    tc_attend<MT>(a, c, inrm, ntR0, ntwR, ntD0, ntwD, d, s TC_PHASE_PASS);
+    // score = logsumexp over the caption's real words of g2 rel, over g2
+    for (int cs = warp; cs < s.info[1]; cs += kWarps) {
+      const int base = s.cap_base[cs], n = s.cap_n[cs];
+      float mx = -INFINITY;
+      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, d.g2 * s.rel[base + t]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int t = lane; t < n; t += 32) sum += expf(d.g2 * s.rel[base + t] - mx);
+      sum = warp_sum(sum);
+      if (lane == 0) out_i[s.cap_j[cs]] = (mx + logf(sum)) / d.g2;
+    }
+    TC_PHASE_SYNC(12);
+    TC_PHASE_COUNT(TC_PASSES);
+  }
+  TC_PHASE_FLUSH
+}
+
 // d_regions, bf16 operands: block (image i, split).  The split's captions go
 // in passes of at most Mp real word rows; each pass recomputes the chain and
 // adds rnd(a)^T d_c + d_sim^T W into partial[i][split].
@@ -1027,7 +1256,7 @@ damsm_bwd_dr_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16*
                        const uint8_t* __restrict__ mask, const float* __restrict__ g,
                        float* __restrict__ partial, TcDims d, int nsplit) {
   extern __shared__ __align__(16) unsigned char tc_smem_raw[];
-  const TcSmem s = tc_carve(tc_smem_raw, d);
+  const TcSmem s = tc_carve(tc_smem_raw, d, true);
   TC_PHASE_INIT
   const int i = blockIdx.x, split = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
@@ -1044,125 +1273,11 @@ damsm_bwd_dr_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16*
   const int ntD0 = warp * twD, ntwD = max(0, min(twD, nD - ntD0));
   bool first = true;
   for (int j = c0; j < c1;) {
-    __syncthreads();  // the previous pass is done with the tiles and the row map
-    if (warp == 0) tc_pack_pass(mask, j, c1, d, s);
-    __syncthreads();
-    TC_PHASE(0);
-    const int rows = s.info[0], ncap = s.info[1];
-    j = s.info[2];
-    if (rows == 0) break;  // the remaining captions are all padded
-    tc_load(s.W, d.Mp, d.SD, rows, [&](int m) {
-      return w + (size_t(s.cap_j[s.row_c[m]]) * d.T + s.row_t[m]) * d.D; }, d);
-    __syncthreads();
-    TC_PHASE(1);
-
-    // sim = W R^T; a = softmax_R(g1 sim) (fp32, kept in registers); P = rnd(a)
-    float a[MT][4][4], v[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[mt][jj][e] = 0.f;
-    tc_rows_by_regions<MT>(a, s.W, s.Rs, ntR0, ntwR, d);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        v[mt][h] = -INFINITY;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (jj < ntwR && (ntR0 + jj) * 8 + q2 + e < d.R)
-              v[mt][h] = fmaxf(v[mt][h], d.g1 * a[mt][jj][2 * h + e]);
-      }
-    tc_rows<MT, true>(v, s.red, d.Mp);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float mx = v[mt][h];
-        v[mt][h] = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool real = jj < ntwR && (ntR0 + jj) * 8 + q2 + e < d.R;
-            const float x = real ? expf(d.g1 * a[mt][jj][2 * h + e] - mx) : 0.f;
-            a[mt][jj][2 * h + e] = x;
-            v[mt][h] += x;
-          }
-      }
-    tc_rows<MT, false>(v, s.red, d.Mp);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = mt * 16 + (lane >> 2) + 8 * h;
-        const float inv = 1.f / v[mt][h];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (jj >= ntwR) continue;
-          a[mt][jj][2 * h] *= inv;
-          a[mt][jj][2 * h + 1] *= inv;
-          *reinterpret_cast<uint32_t*>(s.P + row * d.SR + (ntR0 + jj) * 8 + q2) =
-              pack_bf16(a[mt][jj][2 * h], a[mt][jj][2 * h + 1]);
-        }
-      }
-    __syncthreads();
-    TC_PHASE(2);
-
-    // c = rnd(a) R; c_hat = c / max(|c|, 1e-12); rel = sum_D rnd(c_hat) w
-    float c[MT][4][4], inrm[MT][2];  // sum of c^2, then 1 / max(|c|, 1e-12)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[mt][jj][e] = 0.f;
-    tc_attn_by_regions<MT>(c, s.P, s.Rs, ntD0, ntwD, d);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        inrm[mt][h] = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float x = c[mt][jj][2 * h + e];
-            if (jj < ntwD) inrm[mt][h] = fmaf(x, x, inrm[mt][h]);
-          }
-      }
-    tc_rows<MT, false>(inrm, s.red, d.Mp);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = mt * 16 + (lane >> 2) + 8 * h;
-        inrm[mt][h] = 1.f / fmaxf(sqrtf(inrm[mt][h]), 1e-12f);
-        v[mt][h] = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (jj >= ntwD) continue;
-          const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              s.W + row * d.SD + (ntD0 + jj) * 8 + q2));
-          const float c0 = c[mt][jj][2 * h] * inrm[mt][h];
-          const float c1 = c[mt][jj][2 * h + 1] * inrm[mt][h];
-          c[mt][jj][2 * h] = c0;
-          c[mt][jj][2 * h + 1] = c1;
-          v[mt][h] = fmaf(rnd<true>(c0), wv.x, fmaf(rnd<true>(c1), wv.y, v[mt][h]));
-        }
-      }
-    tc_rows<MT, false>(v, s.red, d.Mp);
-    if (warp == 0 && (lane & 3) == 0)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) s.rel[mt * 16 + (lane >> 2) + 8 * h] = v[mt][h];
-    __syncthreads();
-    TC_PHASE(3);
+    const int rows = tc_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS);
+    if (rows == 0) break;
+    const int ncap = s.info[1];
+    float a[MT][4][4], c[MT][4][4], inrm[MT][2], v[MT][2];
+    tc_attend<MT>(a, c, inrm, ntR0, ntwR, ntD0, ntwD, d, s TC_PHASE_PASS);
 
     // d rel = g_ij softmax over the caption's real words (0 on unused rows)
     for (int cs = warp; cs < ncap; cs += kWarps) {
@@ -1272,10 +1387,22 @@ damsm_bwd_dr_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16*
 }
 
 template <int MT>
+int launch_fwd_tc(const void* r, const void* w, const uint8_t* mask, float* out, const TcDims& d,
+                  int nsplit, cudaStream_t st) {
+  auto k = damsm_fwd_tc_kernel<MT>;
+  const size_t bytes = tc_smem_bytes(d, false);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  dim3 grid(d.B, nsplit);
+  k<<<grid, kThreads, bytes, st>>>(static_cast<const __nv_bfloat16*>(r),
+                                   static_cast<const __nv_bfloat16*>(w), mask, out, d, nsplit);
+  return int(cudaGetLastError());
+}
+
+template <int MT>
 int launch_dr_tc(const void* r, const void* w, const uint8_t* mask, const float* g,
                  float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
   auto k = damsm_bwd_dr_tc_kernel<MT>;
-  const size_t bytes = tc_smem_bytes(d);
+  const size_t bytes = tc_smem_bytes(d, true);
   if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
   dim3 grid(d.B, nsplit);
   k<<<grid, kThreads, bytes, st>>>(static_cast<const __nv_bfloat16*>(r),
@@ -1299,17 +1426,31 @@ int launch_dr_tc(const void* r, const void* w, const uint8_t* mask, const float*
     return int(cudaErrorInvalidValue);                                             \
   } while (0)
 
+// Dispatch the tensor-core kernels on MT = Mp / 16, the 16-row tiles of a pass.
+#define XMC_TC_DISPATCH(LAUNCH, ...)                  \
+  switch (t.Mp / 16) {                                \
+    case 1: return LAUNCH<1>(__VA_ARGS__);            \
+    case 2: return LAUNCH<2>(__VA_ARGS__);            \
+    case 3: return LAUNCH<3>(__VA_ARGS__);            \
+    default: return LAUNCH<4>(__VA_ARGS__);           \
+  }
+
 }  // namespace
 
 extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, void* out,
-                             int B, int Bc, int R, int T, int D, int vb, float g1, float g2,
-                             int dtype, void* stream) {
-  const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
-  if (!dims_ok(d)) return int(cudaErrorInvalidValue);
+                             int B, int Bc, int R, int T, int D, int vb, int rows, int nsplit,
+                             float g1, float g2, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
-  XMC_DAMSM_DISPATCH(launch_fwd, r, w, m, o, d, st);
+  if (dtype == 1) {  // the tensor-core kernel, in passes of `rows` word rows
+    const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
+    if (!tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
+    XMC_TC_DISPATCH(launch_fwd_tc, r, w, m, o, t, nsplit, st);
+  }
+  const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
+  if (dtype != 0 || !dims_ok(d)) return int(cudaErrorInvalidValue);
+  return d.M <= 4 * kWarps ? launch_fwd<4>(r, w, m, o, d, st) : launch_fwd<8>(r, w, m, o, d, st);
 }
 
 extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, const void* g,
@@ -1324,12 +1465,7 @@ extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, 
   if (dtype == 1) {  // the tensor-core kernel, in passes of `rows` word rows
     const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
     if (!tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
-    switch (t.Mp / 16) {
-      case 1: return launch_dr_tc<1>(r, w, m, gg, p, o, t, nsplit, st);
-      case 2: return launch_dr_tc<2>(r, w, m, gg, p, o, t, nsplit, st);
-      case 3: return launch_dr_tc<3>(r, w, m, gg, p, o, t, nsplit, st);
-      default: return launch_dr_tc<4>(r, w, m, gg, p, o, t, nsplit, st);
-    }
+    XMC_TC_DISPATCH(launch_dr_tc, r, w, m, gg, p, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
   if (dtype != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);

@@ -1,23 +1,26 @@
-"""Where the bf16 d_regions kernel spends its cycles, phase by phase, on the card.
+"""Where the bf16 tensor-core damsm kernels spend their cycles, phase by phase, on the card.
 
     python -m xmc_gan_tpu_torch.damsm_phases
 
 Builds ``csrc/damsm_score.cu`` with ``-DXMC_DAMSM_PHASES`` (the tensor-core
-d_regions kernel then adds each block's ``clock64()`` cycles between its
-barriers into per-phase counters), runs one launch of that build through the
-wrapper, at the wrapper's own plan, at the flagship word-loss shape (B = Bc
-= 128, R = 256 regions, T = 20 words, D = 256) and prints the card, the
-launch's time (CUDA events) and the cycles per pass of each phase, summed
-over blocks.  Phases: pack (warp 0 packs the pass's real words), words
-(their load), sim + softmax (products W R^T, softmax, a to shared memory),
-c + rel (a R, norms, rel), d rel, d_c, d a + d_sim (d_c R^T, the softmax
-backward), then the d_r accumulation as thread 0's own warp sees it: d_r
-products (a^T d_c + d_sim^T W, as issued) and d_r read-modify-write (the
-staging, the wait for the slice's earlier sums and for the products'
-results, the stores), and d_r barrier (the wait for the block's other
-warps); regions (the block's one load, per pass).  The counters cost time
-of their own (one extra barrier a pass), so the launch is slower than the
-plain build's.  Needs a GPU and ``nvcc``; imports nothing of JAX.
+d_regions and forward kernels then add each block's ``clock64()`` cycles
+between its barriers into per-phase counters), runs one launch of each
+kernel of that build through its wrapper, at the wrapper's own plan, at the
+flagship word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words, D =
+256) and prints the card, each launch's time (CUDA events) and its cycles
+per pass of each phase, summed over blocks.  Phases both kernels have: pack
+(warp 0 packs the pass's real words), words (their load), sim + softmax
+(products W R^T, softmax, a to shared memory), c + rel (a R, norms, rel),
+regions (the block's one load, per pass; the forward's also writes the
+all-padded captions' scores).  d_regions then: d rel, d_c, d a + d_sim (d_c
+R^T, the softmax backward), then the d_r accumulation as thread 0's own
+warp sees it: d_r products (a^T d_c + d_sim^T W, as issued) and d_r
+read-modify-write (the staging, the wait for the slice's earlier sums and
+for the products' results, the stores), and d_r barrier (the wait for the
+block's other warps).  The forward then: scores (each caption's logsumexp
+and the wait for the block's other warps).  The counters cost time of their
+own (an extra barrier a pass), so a launch is slower than the plain
+build's.  Needs a GPU and ``nvcc``; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,9 +34,13 @@ from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary
 
 # csrc/damsm_score.cu: the TC_PHASE slots (TC_NPHASE of them; [PASSES] counts passes)
-PHASES = ["pack", "words", "sim + softmax", "c + rel", "d rel", "d_c", "d a + d_sim",
-          "d_r products", "d_r read-modify-write", "regions", None, "d_r barrier"]
-NPHASE, PASSES = 12, 10
+NPHASE, PASSES = 13, 10
+PHASES = {0: "pack", 1: "words", 2: "sim + softmax", 3: "c + rel", 4: "d rel", 5: "d_c",
+          6: "d a + d_sim", 7: "d_r products", 8: "d_r read-modify-write", 9: "regions",
+          11: "d_r barrier", 12: "scores"}
+# each kernel's phases, in the order a pass runs them
+KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
+                 "forward": (0, 1, 2, 3, 12, 9)}
 
 
 def phase_library() -> CudaLibrary:
@@ -67,28 +74,29 @@ def main() -> int:
     lens = torch.randint(1, T + 1, (bc,), generator=gen, device="cuda")
     mask = torch.arange(T, device="cuda")[None, :] >= lens[:, None]
     up = torch.randn(b, bc, generator=gen, device="cuda")
-
-    def launch():
-        return ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16, library=lib)
-
-    launch()
-    torch.cuda.synchronize()
-    lib.load().xmc_damsm_phases_reset()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    launch()
-    end.record()
-    torch.cuda.synchronize()
-    cycles = read_phases(lib)
-    passes = max(1, cycles[PASSES])
+    launches = {
+        "d_regions": lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16,
+                                            library=lib),
+        "forward": lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16, library=lib),
+    }
     print(card)
-    print(f"bf16 d_regions, B={b}, Bc={bc}, R={R}, T={T} ({int((~mask).sum())} real words), "
-          f"D={D}: {start.elapsed_time(end):.3f} ms with counters, {cycles[PASSES]} passes "
-          f"({cycles[PASSES] / b:.1f} per image)")
-    total = sum(cycles[k] for k, name in enumerate(PHASES) if name)
-    for k, name in enumerate(PHASES):
-        if name:
-            print(f"  {name:22s} {cycles[k] / passes:9.0f} cycles/pass "
+    for kernel, launch in launches.items():
+        launch()
+        torch.cuda.synchronize()
+        lib.load().xmc_damsm_phases_reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        torch.cuda.synchronize()
+        cycles = read_phases(lib)
+        passes = max(1, cycles[PASSES])
+        print(f"bf16 {kernel}, B={b}, Bc={bc}, R={R}, T={T} ({int((~mask).sum())} real words), "
+              f"D={D}: {start.elapsed_time(end):.3f} ms with counters, {cycles[PASSES]} passes "
+              f"({cycles[PASSES] / b:.1f} per image)")
+        total = sum(cycles[k] for k in KERNEL_PHASES[kernel])
+        for k in KERNEL_PHASES[kernel]:
+            print(f"  {PHASES[k]:22s} {cycles[k] / passes:9.0f} cycles/pass "
                   f"({100 * cycles[k] / total:4.1f}%)")
     return 0
 

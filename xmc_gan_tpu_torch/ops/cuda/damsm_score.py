@@ -17,11 +17,14 @@ all-padded caption scores a finite ~-2e29.  ``compute_dtype`` bf16 rounds
 the operands of the three products to bf16 (``r``, ``w``, ``a`` and
 ``c_hat``), and in the backward the two cotangents that autograd of the
 plain version rounds (``d c_hat`` and ``d a``); everything else is fp32.
-The bf16 d_regions runs on the tensor cores and also rounds ``d_c`` and
+The bf16 forward and d_regions run on the tensor cores (launch plans
+``plan_fwd`` and ``plan_dr``); the d_regions also rounds ``d_c`` and
 ``d_sim`` to bf16 before their products, as the Pallas kernel does (within
-one bf16 ulp of the largest gradient of the plain version); its launch plan
-is ``plan_dr``.  The forward, d_words and the fp32 kernels (``plan``) run on
-the CUDA cores.
+one bf16 ulp of the largest gradient of the plain version).  The bf16
+d_words and the fp32 kernels (``plan``) run on the CUDA cores.
+``check_shape`` states the kernels' limits on the shape (T <= 64 and
+D <= 256; R <= 256 in bf16); ``losses.word_region_scores`` asks it before
+routing a call here, and raises where they refuse it.
 
 Contract of ``damsm_scores`` (a ``torch.autograd.Function``):
 
@@ -36,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -52,20 +55,23 @@ __all__ = [
     "D_WORDS",
     "damsm_scores",
     "damsm_scores_ref",
+    "check_shape",
     "plan",
     "plan_dr",
+    "plan_fwd",
 ]
 
 NEG = -1e30  # padded-word logit, the JAX package's constant
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, gamma1, gamma2, dtype, stream)
+# int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, gamma1, gamma2, dtype,
+#                   stream)
 # int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, rows, nsplit,
 #                      gamma1, gamma2, dtype, stream)
 # int xmc_damsm_bwd_dw(r, w, mask, g, partial, dw, B, Bc, R, T, D, vb, nsplit,
 #                      gamma1, gamma2, dtype, stream)
 KERNEL = CudaLibrary("damsm_score.cu", {
-    "xmc_damsm_fwd": (_I, [_P] * 4 + [_I] * 6 + [_F, _F, _I, _P]),
+    "xmc_damsm_fwd": (_I, [_P] * 4 + [_I] * 8 + [_F, _F, _I, _P]),
     "xmc_damsm_bwd_dr": (_I, [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P]),
     "xmc_damsm_bwd_dw": (_I, [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
 })
@@ -82,7 +88,7 @@ MAX_ROWS = 64
 MAX_DP = 256
 RT = 32
 SMEM_LIMIT = 232448
-# the tensor-core (bf16) d_regions kernel: word rows per pass, and R and D
+# the tensor-core (bf16) forward and d_regions kernels: word rows per pass, and R and D
 TC_MAX_ROWS = 64
 TC_MAX_RD = 256
 TC_STAGE = 36  # row stride of a warp's d_r staging tile
@@ -109,8 +115,8 @@ def plan(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
     return vb, fixed + per_row * vb * T
 
 
-class DrPlan(NamedTuple):
-    """Launch plan of the bf16 (tensor-core) d_regions kernel."""
+class TcPlan(NamedTuple):
+    """Launch plan of a tensor-core (bf16) kernel: the forward or d_regions."""
 
     rows: int      # word rows per pass: a multiple of 16, at least T
     nsplit: int    # caption splits: blocks are (image, split)
@@ -118,31 +124,60 @@ class DrPlan(NamedTuple):
     smem: int      # dynamic shared memory bytes
 
 
-def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> DrPlan:
+def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
+             smem: Callable[[int], int]) -> TcPlan:
+    """Rows per pass: the largest of 64, 48, 32, 16 that holds one caption
+    and whose ``smem(rows)`` fits.  A block takes a multiprocessor's shared
+    memory, so the splits fill the card's ``sms`` once: ``sms // b`` (at
+    least 1).  Raises for T > 64, R > 256 or D > 256."""
+    if T > TC_MAX_ROWS or R > TC_MAX_RD or D > TC_MAX_RD:
+        raise ValueError(f"damsm_score bf16 {what} takes T <= {TC_MAX_ROWS}, R <= "
+                         f"{TC_MAX_RD} and D <= {TC_MAX_RD}; got R={R}, T={T}, D={D}")
+    fits = [m for m in (64, 48, 32, 16) if m >= T and smem(m) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"damsm_score bf16 {what}: R={R}, T={T}, D={D} does not fit in "
+                         "shared memory")
+    nsplit = max(1, min(bc, sms // b))
+    return TcPlan(fits[0], nsplit, -(-bc // nsplit), smem(fits[0]))
+
+
+def plan_fwd(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
+    """The bf16 forward kernel's plan, as ``csrc/damsm_score.cu`` computes
+    its shared memory: the image's regions stay resident (``[Rp, Dp + 8]``
+    bf16) beside two bf16 tiles of the pass's rows (words ``[rows, Dp + 8]``,
+    a ``[rows, Rp + 8]``) and 14 fp32/int words per row (rel, the 8 warps'
+    row partials, the row map)."""
+    rp, dp = _round_up(R, 16), _round_up(D, 16)
+    return _plan_tc("forward", R, T, D, b, bc, sms, lambda rows: 2 * (
+        rp * (dp + 8) + rows * ((dp + 8) + (rp + 8))) + 4 * (14 * rows + 4))
+
+
+def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     """The bf16 d_regions kernel's plan, as ``csrc/damsm_score.cu`` computes
     its shared memory: the image's regions stay resident (``[Rp, Dp + 8]``
     bf16) beside four bf16 tiles of the pass's rows (words and d_c
     ``[rows, Dp + 8]``, a and d_sim ``[rows, Rp + 8]``), each of the 8
     warps' fp32 d_r staging tile ``[16, TC_STAGE]`` and 15 fp32/int words per
-    row; rows is the largest of 64, 48, 32, 16 that fits and holds
-    one caption.  A block takes a multiprocessor's shared memory, so the
-    splits fill the card's ``sms`` once: ``sms // b`` (at least 1).  Raises
-    for T > 64, R > 256 or D > 256."""
-    if T > TC_MAX_ROWS or R > TC_MAX_RD or D > TC_MAX_RD:
-        raise ValueError(f"damsm_score bf16 d_regions takes T <= {TC_MAX_ROWS}, R <= "
-                         f"{TC_MAX_RD} and D <= {TC_MAX_RD}; got R={R}, T={T}, D={D}")
+    row."""
     rp, dp = _round_up(R, 16), _round_up(D, 16)
+    return _plan_tc("d_regions", R, T, D, b, bc, sms, lambda rows: 2 * (
+        rp * (dp + 8) + rows * (2 * (dp + 8) + 2 * (rp + 8))) + 4 * (
+        8 * 16 * TC_STAGE + 15 * rows + 4))
 
-    def smem(rows: int) -> int:
-        return 2 * (rp * (dp + 8) + rows * (2 * (dp + 8) + 2 * (rp + 8))) + 4 * (
-            8 * 16 * TC_STAGE + 15 * rows + 4)
 
-    fits = [m for m in (64, 48, 32, 16) if m >= T and smem(m) <= SMEM_LIMIT]
-    if not fits:
-        raise ValueError(f"damsm_score bf16 d_regions: R={R}, T={T}, D={D} does not fit in "
-                         "shared memory")
-    nsplit = max(1, min(bc, sms // b))
-    return DrPlan(fits[0], nsplit, -(-bc // nsplit), smem(fits[0]))
+def check_shape(R: int, T: int, D: int, compute_dtype: torch.dtype | None) -> None:
+    """Raises where the kernels' limits refuse the shape: T <= 64 and
+    D <= 256 for every kernel, R <= 256 too for the bf16 (tensor-core)
+    ones.  Longer captions and wider features, as the LN config's T = 200
+    and word D = 768, wait for the kernels to tile them (ROADMAP.md queue 2,
+    item B7); a CUDA call takes no plain route meanwhile."""
+    bf16 = compute_dtype == torch.bfloat16
+    if (T > min(MAX_ROWS, TC_MAX_ROWS) or D > min(MAX_DP, TC_MAX_RD)
+            or (bf16 and R > TC_MAX_RD)):
+        raise ValueError(
+            f"damsm_score kernels take T <= {MAX_ROWS}, D <= {MAX_DP} and, in bf16, "
+            f"R <= {TC_MAX_RD}; got R={R}, T={T}, D={D}.  Longer captions and wider "
+            "features need the word-row and feature tiling of ROADMAP.md queue 2, B7")
 
 
 def damsm_scores_ref(r: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
@@ -223,16 +258,22 @@ def _nsplit(device: torch.device, blocks: int, work_units: int) -> int:
     return max(1, min(work_units, math.ceil(4 * _sms(device) / blocks)))
 
 
-def _launch_fwd(r, w, mask, gamma1, gamma2, cd) -> torch.Tensor:
+def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
+                library: CudaLibrary | None = None) -> torch.Tensor:
+    """One forward launch; ``library`` is the compiled source to launch
+    (``KERNEL`` unless given, as ``damsm_phases`` gives its own build)."""
     rr, ww, mm, code = _operands(r, w, mask, cd)
     b, R, D = r.shape
     bc, T, _ = w.shape
-    vb, _ = plan(R, T, D, False, bc)
+    if code == 1:  # the tensor-core kernel: passes of `rows` word rows, blocks (image, split)
+        vb, (rows, nsplit) = 0, plan_fwd(R, T, D, b, bc, _sms(r.device))[:2]
+    else:
+        vb, rows, nsplit = plan(R, T, D, False, bc)[0], 0, 1
     out = torch.empty(b, bc, device=r.device, dtype=torch.float32)
-    fn = KERNEL.load().xmc_damsm_fwd
+    fn = (library or KERNEL).load().xmc_damsm_fwd
     with torch.cuda.device(r.device):
         rc = fn(rr.data_ptr(), ww.data_ptr(), mm.data_ptr(), out.data_ptr(), b, bc, R, T, D,
-                vb, gamma1, gamma2, code, _stream(r))
+                vb, rows, nsplit, gamma1, gamma2, code, _stream(r))
     _raise_on(rc, "forward")
     FORWARD.launches += 1
     return out
