@@ -20,7 +20,14 @@ Phases (any failure raises, and the exit code is then non-zero):
    bf16; the bf16 forward and d_regions, which run on the tensor cores
    (``mma.sync``; d_words and every fp32 path run on the CUDA cores), also
    twice bit-equal, the forward's all-padded caption scoring exactly the
-   plain value and the d_regions unmoved by its cotangent; the
+   plain value and the d_regions unmoved by its cotangent; the three
+   ``damsm_score`` kernels at the LN-COCO word shape (B = Bc = 256, R = 256,
+   T = 200, D = 768: each caption's real words packed into 16-slot
+   sub-captions, as many as the longest caption needs) in fp32 and
+   bf16 through ``damsm_scores`` against the plain version on the whole
+   captions, with an all-padded caption (its score bit-equal to the plain
+   value, no d_words), two runs bit-equal, and the profiler's kernel names
+   showing the route (CUDA cores at D = 768 in both dtypes); the
    ``cross_attention`` kernel through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
@@ -33,7 +40,10 @@ Phases (any failure raises, and the exit code is then non-zero):
    + NetG at 256², NCH=32, batch 4), (b) the train slice (NCH=8, 64², batch
    4, WORD + SPEC_NORM + MAGP, two steps; the card's word scores go through
    the damsm kernels), (c) the four concept generators (NCH=8, 64², batch 4,
-   T = 15, one caption of one word).
+   T = 15, one caption of one word), (d) the LN-COCO step
+   (``ln_coco_256.yml`` at NCH=8, 64², batch 4, word shape kept: T = 200,
+   D = 768; two steps, the card's word scores through the damsm kernels as
+   sub-captions, the CPU's through the plain path on whole captions).
 5. Full-width serving: random caption ids (batch 128, mixed lengths) ->
    ``make_encode_fn`` -> ``make_sample_fn``, fp32 and bf16, (a) for DF_GEN
    (``df_gan_damsm.yml``, T = 20) and (c) for each concept generator
@@ -53,11 +63,18 @@ Phases (any failure raises, and the exit code is then non-zero):
    the CUDA-core ones in fp32, and that the losses are finite; prints
    images/s (median),
    peak memory, one step's device time by kernel category and the damsm
-   kernels by name.
+   kernels by name.  Then the LN-COCO step (``ln_coco_256.yml`` as it
+   stands: NCH=96, NOISE_DIM=128, batch 256, T = 200, word D = 768,
+   synthetic embeddings, about half the word slots real, one all-padded
+   caption) in bf16: 1 counted warm-up step (the launches asserted as
+   above, the damsm forward and d_regions on the CUDA cores), 2 timed, 1
+   profiled; prints the step ms, images/s, peak memory and the ten
+   largest kernels.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs, as one
-   ``{"kernels": [...]}`` line.
+   ``{"kernels": [...]}`` line; the damsm kernels at the flagship and at
+   the LN word shape (2 timed launches there).
 8. Last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  The weights are random (from
@@ -100,6 +117,7 @@ from xmc_gan_tpu_torch.trainer import make_encode_fn
 REPO = Path(__file__).resolve().parent
 CFG = REPO / "xmc_gan_tpu" / "cfg" / "df_gan_damsm.yml"  # the YAML schema file only
 CONCEPT_CFG = REPO / "xmc_gan_tpu" / "cfg" / "concept_in_df_gan.yml"
+LN_CFG = REPO / "xmc_gan_tpu" / "cfg" / "ln_coco_256.yml"
 CONCEPT_GENS = ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN", "CONCEPT_IN_DF_GEN",
                 "CONCEPT_OUT_DF_GEN")
 BATCH = 128  # serving and training batch (docs/SERVING.md; the flagship step)
@@ -186,12 +204,24 @@ DAMSM_RAGGED = (3, 5, 50, 7, 48)
 # at most 2 words (whole 16-row tiles without a word); B != Bc throughout
 DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, None),
                ((132, 2, 24, 33, 24), True, None), ((132, 3, 50, 64, 40), False, 2)]
-# kernel names in the profiler trace: the bf16 forward and d_regions (tensor
-# cores) and the fp32 ones (CUDA cores)
-FWD_KERNEL = {torch.bfloat16: "damsm_fwd_tc_kernel",
-              torch.float32: "damsm_fwd_kernel<"}
-DR_KERNEL = {torch.bfloat16: "damsm_bwd_dr_tc_kernel",
-             torch.float32: "damsm_bwd_dr_kernel<float"}
+# kernel names in the profiler trace, by (compute dtype, ``ds.tensor_cores``):
+# the bf16 forward and d_regions on the tensor cores at R, D <= 256, every
+# other launch on the CUDA cores
+FWD_KERNEL = {(torch.bfloat16, True): "damsm_fwd_tc_kernel",
+              (torch.bfloat16, False): "damsm_fwd_bf16_kernel<",
+              (torch.float32, False): "damsm_fwd_kernel<"}
+DR_KERNEL = {(torch.bfloat16, True): "damsm_bwd_dr_tc_kernel",
+             (torch.bfloat16, False): "damsm_bwd_dr_kernel<__nv_bfloat16",
+             (torch.float32, False): "damsm_bwd_dr_kernel<float"}
+DW_KERNEL = "damsm_bwd_dw_kernel<"
+REGIONS = 256  # DF_DISC's region head, always its 16x16 stage
+# the LN-COCO word shape (ln_coco_256.yml: batch 256, MAX_LENGTH 200,
+# EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256, so every launch runs on the
+# CUDA cores, in both dtypes
+DAMSM_LN = (256, 256, REGIONS, 200, 768)
+# the plain version at the LN shape streams caption blocks of this many fp32
+# elements of the [B, Bc, T, R] similarity (the whole one is 13 GB)
+LN_PLAIN_BLOCK = 2**28
 
 
 def log(msg: str) -> None:
@@ -281,16 +311,37 @@ def random_captions(rng, batch: int, T: int, vocab: int) -> dict:
     return {"caps": caps, "cap_lens": lens}
 
 
-def train_batch(rng, batch: int, size: int, emb: int, T: int) -> dict:
-    """uint8 images, sentence/word embeddings and a word mask (True =
-    padded; every caption keeps at least one word), as numpy arrays."""
+def prefix_mask(rng, batch: int, T: int) -> np.ndarray:
+    """Word mask (True = padded) of captions of 1 to T words, each its first
+    slots."""
     lens = rng.randint(1, T + 1, batch)
+    return np.arange(T)[None, :] >= lens[:, None]
+
+
+def ln_mask(rng, batch: int, T: int) -> np.ndarray:
+    """The LN word mask as ``benchmarks/ln_word_loss.py`` draws it: about
+    half the slots real, the padding scattered; caption 1 all padded."""
+    mask = rng.rand(batch, T) > 0.5
+    mask[1] = True
+    return mask
+
+
+def train_batch(rng, cfg, batch: int, mask_fn) -> dict:
+    """uint8 images, sentence/word embeddings and the word mask ``mask_fn``
+    draws, as numpy arrays at ``cfg``'s image size and word shape."""
+    size, emb, T = cfg.IMG.SIZE, cfg.TEXT.EMBEDDING_DIM, cfg.TEXT.MAX_LENGTH
+    mask = mask_fn(rng, batch, T)
     return {
         "imgs": rng.randint(0, 256, (batch, size, size, 3)).astype(np.uint8),
         "sent_embs": rng.randn(batch, emb).astype(np.float32),
         "words_embs": rng.randn(batch, T, emb).astype(np.float32),
-        "mask": np.arange(T)[None, :] >= lens[:, None],
+        "mask": mask,
     }
+
+
+def ln_cfg(overrides: dict | None = None):
+    """``ln_coco_256.yml`` read as YAML, with ``overrides``."""
+    return cfg_from_dict(overrides or {}, base=cfg_from_file(str(LN_CFG)))
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -307,14 +358,13 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def device_kernels(fn) -> tuple[list[dict], float, float]:
-    """The CUDA kernels that one call of ``fn`` runs, from a ``torch.profiler``
-    (CUPTI) trace of it taken after one warm-up call: ``[{"name", "ms",
-    "stream", "op", "dims"}]`` in launch order (``op`` and ``dims``: the
-    PyTorch op that launched the kernel and its input shapes), the device's
-    busy ms (the union of the kernels' intervals: cuDNN runs some kernels on
-    side streams, so their sum can exceed it), and the call's wall ms under
-    the profiler."""
-    fn()
+    """The CUDA kernels that one call of ``fn``, which has run before,
+    launches, from a ``torch.profiler`` (CUPTI) trace of it: ``[{"name",
+    "ms", "stream", "op", "dims"}]`` in launch order (``op`` and ``dims``:
+    the PyTorch op that launched the kernel and its input shapes), the
+    device's busy ms (the union of the kernels' intervals: cuDNN runs some
+    kernels on side streams, so their sum can exceed it), and the call's
+    wall ms under the profiler."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -541,6 +591,93 @@ def check_damsm() -> dict:
     return errs
 
 
+def ln_damsm_inputs(gen):
+    """The LN word shape on the card: normalized regions and words, about
+    half the word slots real with the padding scattered, caption 1 all
+    padded, caption 2 with 4 real words (one sub-caption of words, the
+    rest of its sub-captions all padded)."""
+    b, bc, R, T, D = DAMSM_LN
+    r = torch.nn.functional.normalize(torch.randn(b, R, D, generator=gen, device="cuda"), dim=-1)
+    w = torch.nn.functional.normalize(torch.randn(bc, T, D, generator=gen, device="cuda"), dim=-1)
+    mask = torch.rand(bc, T, generator=gen, device="cuda") > 0.5
+    mask[1] = True
+    mask[2] = True
+    mask[2, 1:5] = False
+    up = torch.randn(b, bc, generator=gen, device="cuda")
+    return r, w, mask, up
+
+
+def damsm_kernel_names(fn) -> list[str]:
+    """The damsm kernels that one call of ``fn`` launches, by name, from a
+    ``torch.profiler`` trace."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if "damsm" in e.key})
+
+
+def check_damsm_ln() -> dict:
+    """Phase 3, damsm_score at the LN word shape, through ``damsm_scores``
+    (the sub-caption split and combine) against the plain version on the
+    whole captions: scores, d_regions and d_words in fp32 and bf16; the
+    all-padded caption's score bit-equal to the plain value and its d_words
+    0; a second forward + d_regions bit-equal; the launches' kernel names
+    the route's (CUDA cores)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    r, w, mask, up = ln_damsm_inputs(gen)
+    b, bc, R, T, D = DAMSM_LN
+    errs = {}
+    for cd in (None, torch.bfloat16):
+        tol = DAMSM_TOL[cd]
+        width = ds.sub_caption_width(R, T, D, cd)
+        if ds.tensor_cores(R, D, cd) or width != 16:
+            raise AssertionError(f"LN shape {CD_NAME[cd]}: width {width}, want 16 slots on the "
+                                 "CUDA cores")
+        ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
+        got = {}
+
+        def run():
+            got["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
+            got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
+
+        names = damsm_kernel_names(run)
+        route = (cd or torch.float32, False)
+        for want in (FWD_KERNEL[route], DR_KERNEL[route], DW_KERNEL):
+            if not any(want in n for n in names):
+                raise AssertionError(f"LN {CD_NAME[cd]}: no {want} among {names}")
+        if any("tc_kernel" in n for n in names):
+            raise AssertionError(f"LN {CD_NAME[cd]}: a tensor-core kernel at D = {D}: {names}")
+        want_s = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd, LN_PLAIN_BLOCK)
+        torch.testing.assert_close(got["s"].detach(), want_s, rtol=1e-5, atol=tol["score"])
+        if not (torch.equal(got["s"][:, 1].detach(), want_s[:, 1])
+                and got["dw"][1].abs().max().item() == 0.0):
+            raise AssertionError(f"LN {CD_NAME[cd]}: the all-padded caption's score is not the "
+                                 "plain value, or it got a d_words")
+        worst = {"forward": (got["s"].detach() - want_s).abs().max().item()}
+        for which, key in (("dr", "d_regions"), ("dw", "d_words")):
+            want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, cd, LN_PLAIN_BLOCK)
+            torch.testing.assert_close(got[which], want_g, rtol=0,
+                                       atol=tol["grad_scale"] * want_g.abs().max().item())
+            worst[key] = (got[which] - want_g).abs().max().item()
+            del want_g
+        ri2 = r.clone().requires_grad_()
+        s2 = ds.damsm_scores(ri2, w, mask, 4.0, 5.0, cd)
+        (dr2,) = torch.autograd.grad(s2, ri2, up)
+        torch.cuda.synchronize()
+        if not (torch.equal(s2, got["s"]) and torch.equal(dr2, got["dr"])):
+            raise AssertionError(f"LN {CD_NAME[cd]}: two runs of forward + d_regions differ")
+        errs[cd] = worst
+        k = -(-int((~mask).sum(1).max()) // width)
+        log(f"[3] damsm_score LN {DAMSM_LN} compute {CD_NAME[cd]} ({k} sub-captions of {width} "
+            f"slots a caption, {int((~mask).sum())} real words): max_abs_err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in worst.items()) + f" (tolerance {tol}); all-padded "
+            f"caption {got['s'][0, 1].item():.6g} = plain, no d_words; two runs bit-equal; "
+            f"kernels {names}")
+        del ri, wi, got, want_s, ri2, s2, dr2
+        torch.cuda.empty_cache()
+    return errs
+
+
 def attention_inputs(shape, dtype, gen, allpad: bool):
     """q, k, v, mask at ``(B, G, N, T, D, strided)``.  Strided: the In
     sampler's layout, q and k = v lying as [B, N, G, D] and [B, T, G, D] in
@@ -617,16 +754,20 @@ def check_slice_against_cpu(cfg, g_cpu) -> None:
         raise AssertionError("perturbed G saturates tanh: the comparison would have no teeth")
 
 
-def check_train_against_cpu() -> None:
-    """Phase 4b: two fp32 train steps (NCH=8, 64², batch 4, WORD + SPEC_NORM
-    + MAGP) on the card and on the CPU from the same perturbed weights."""
-    cfg = cfg_from_dict({
-        "TRAIN": {"NCH": 8, "NEF": 32, "NOISE_DIM": 16, "HE_INIT": True, "RMIS_LOSS": True,
-                  "MAGP": True, "ENCODER_LOSS": {"SENT": True, "DISC": True, "B_GLOBAL": True,
-                                                 "WORD": True},
-                  "SMOOTH": {"GLOBAL": 0.0}},
-        "IMG": {"SIZE": 64}, "TEXT": {"EMBEDDING_DIM": 32, "MAX_LENGTH": 7},
-        "DISC": {"SPEC_NORM": True, "IMG_MATCH": True}})
+SLICE_CFG = {  # the train slice of phase 4b
+    "TRAIN": {"NCH": 8, "NEF": 32, "NOISE_DIM": 16, "HE_INIT": True, "RMIS_LOSS": True,
+              "MAGP": True, "ENCODER_LOSS": {"SENT": True, "DISC": True, "B_GLOBAL": True,
+                                             "WORD": True},
+              "SMOOTH": {"GLOBAL": 0.0}},
+    "IMG": {"SIZE": 64}, "TEXT": {"EMBEDDING_DIM": 32, "MAX_LENGTH": 7},
+    "DISC": {"SPEC_NORM": True, "IMG_MATCH": True}}
+
+
+def check_train_against_cpu(cfg, label: str, mask_fn) -> dict[str, int]:
+    """Phase 4b and 4d: two fp32 train steps at batch 4 on the card and on
+    the CPU from the same perturbed weights, the word masks from
+    ``mask_fn``; the card's word scores through the damsm kernels.
+    Returns the launches of the two card steps."""
     cpu = create_train_state(cfg, device="cpu", seed=3)
     g_sd, d_sd = perturbed_state_dict(cpu.g, 4), perturbed_state_dict(cpu.d, 5)
     cpu = create_train_state(cfg, device="cpu", g_state_dict=g_sd, d_state_dict=d_sd)
@@ -636,16 +777,16 @@ def check_train_against_cpu() -> None:
     rng = np.random.RandomState(6)
     reset_counts()
     for k in range(2):
-        batch = train_batch(rng, 4, 64, 32, 7)
-        noise = rng.randn(4, 16).astype(np.float32)
+        batch = train_batch(rng, cfg, 4, mask_fn)
+        noise = rng.randn(4, cfg.TRAIN.NOISE_DIM).astype(np.float32)
         m_cpu, m_card = step_cpu(cpu, batch, noise), step_card(card, batch, noise)
         for key, v in m_cpu.items():
             a, b = float(m_card[key]), float(v)
             if not abs(a - b) <= TRAIN_TOL["metric"] * max(1.0, abs(b)):
-                raise AssertionError(f"train slice step {k} {key}: card {a} vs CPU {b}")
+                raise AssertionError(f"{label} step {k} {key}: card {a} vs CPU {b}")
     counts = read_counts()
     if counts["damsm_score.forward"] != 4 or counts["damsm_score.d_regions"] != 4:
-        raise AssertionError(f"train slice on the card did not go through the damsm kernels: "
+        raise AssertionError(f"{label} on the card did not go through the damsm kernels: "
                              f"{counts}")
     lr = max(cfg.TRAIN.OPT.G_LR, cfg.TRAIN.OPT.D_LR)
     n_all = n_close = 0
@@ -661,11 +802,12 @@ def check_train_against_cpu() -> None:
             n_all += err.numel()
             n_close += int((err <= TRAIN_TOL["param_lr_frac"] * lr).sum())
     share = n_close / n_all
-    log(f"[4] train slice card vs CPU, 2 steps: metrics within {TRAIN_TOL['metric']:g}; "
+    log(f"[4] {label} card vs CPU, 2 steps: metrics within {TRAIN_TOL['metric']:g}; "
         f"params: {share:.6f} of {n_all} within {TRAIN_TOL['param_lr_frac'] * lr:.2g}, worst "
         f"{worst:.3g} (bound {4 * lr:.2g}); u/v worst {worst_uv:.3g}; damsm launches {counts}")
     if share < TRAIN_TOL["param_share"] or worst > 4 * lr or worst_uv > TRAIN_TOL["uv"]:
-        raise AssertionError("train slice: card and CPU parameters differ beyond the tolerance")
+        raise AssertionError(f"{label}: card and CPU parameters differ beyond the tolerance")
+    return counts
 
 
 def concept_cfg(name: str, size: int = 256, nch: int = 32):
@@ -773,20 +915,21 @@ def serve(cfg, sd, dtype, name: str = "DF_GEN") -> dict:
     return res
 
 
-def train(dtype, warmup: int, timed: int) -> dict:
-    """Phase 6 for one dtype: the full-width flagship_word train step."""
-    cfg = cfg_from_dict(TRAIN_OVERRIDES)
+def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dict:
+    """Phase 6 for one full-width config and dtype: ``warmup`` steps, one
+    counted step (peak memory from here), ``timed`` steps, one profiled."""
+    bs = cfg.TRAIN.BATCH_SIZE
     state = create_train_state(cfg, dtype, "cuda", seed=0)
     step = make_train_step(cfg)  # turns TF32 off
     rng = np.random.RandomState(7)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
-        rng, BATCH, cfg.IMG.SIZE, cfg.TEXT.EMBEDDING_DIM, cfg.TEXT.MAX_LENGTH).items()}
-    noises = [torch.from_numpy(rng.randn(BATCH, cfg.TRAIN.NOISE_DIM).astype(np.float32)).cuda()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(rng, cfg, bs, mask_fn).items()}
+    noises = [torch.from_numpy(rng.randn(bs, cfg.TRAIN.NOISE_DIM).astype(np.float32)).cuda()
               for _ in range(warmup + timed + 2)]
-    label = DTYPE_NAME[dtype]
+    label = f"{DTYPE_NAME[dtype]} {config_name}"
     for i in range(warmup):
         step(state, batch, noises[i])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the training path's run: one step, counts from here
     metrics = step(state, batch, noises[warmup])
     torch.cuda.synchronize()
@@ -796,7 +939,6 @@ def train(dtype, warmup: int, timed: int) -> dict:
     bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v.float()).all())]
     if bad:
         raise AssertionError(f"{label} train step: non-finite {bad}")
-    torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(timed):
         torch.cuda.synchronize()
@@ -816,20 +958,22 @@ def train(dtype, warmup: int, timed: int) -> dict:
         if kernel_category(k["name"]) == "damsm_score":
             n, ms = damsm.get(k["name"], (0, 0.0))
             damsm[k["name"]] = (n + 1, ms + k["ms"])
-    for what, prefix, want in (("forward", "damsm_fwd", FWD_KERNEL[dtype]),
-                               ("d_regions", "damsm_bwd_dr", DR_KERNEL[dtype])):
+    route = (dtype, ds.tensor_cores(REGIONS, cfg.TEXT.EMBEDDING_DIM, dtype))
+    for what, prefix, want in (("forward", "damsm_fwd", FWD_KERNEL[route]),
+                               ("d_regions", "damsm_bwd_dr", DR_KERNEL[route])):
         got = {name: v for name, v in damsm.items() if prefix in name}
         if [v[0] for name, v in got.items() if want in name] != [2] or len(got) != 1:
             raise AssertionError(f"{label} train step: {what} kernels {got}, want 2 launches "
                                  f"of {want}")
-    res = {"dtype": label, "launches": launches, "step_ms": step_s * 1e3,
-           "step_ms_all": [t * 1e3 for t in times], "img_per_s": BATCH / step_s,
+    res = {"dtype": DTYPE_NAME[dtype], "config": config_name, "batch": bs, "launches": launches,
+           "step_ms": step_s * 1e3,
+           "step_ms_all": [t * 1e3 for t in times], "img_per_s": bs / step_s,
            "peak_mem_gib": peak, "step_kernel_ms": device_ms, "step_busy_ms": busy_ms,
            "profiled_step_ms": wall_ms, "device_busy_share": busy_ms / wall_ms,
            "device_ms_by_category": by_category(kernels),
            "top_kernels": top_kernels(kernels, 10),
            "metrics": {k: float(v) for k, v in metrics.items()}}
-    log(f"[6] train {label} flagship_word bs{BATCH} 256²: step {res['step_ms']:.1f} ms "
+    log(f"[6] train {label} bs{bs} {cfg.IMG.SIZE}²: step {res['step_ms']:.1f} ms "
         f"({res['img_per_s']:.1f} img/s, median of {timed}), peak memory {peak:.2f} GiB, "
         f"launches {launches}")
     log(f"[6] train {label} one step on the device: {device_ms:.1f} ms of kernels, busy "
@@ -1056,6 +1200,65 @@ def damsm_rows(errs, launches) -> list[dict]:
     return rows
 
 
+def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
+    """Phase 7, damsm_score at the LN word shape: each kernel's launch on the
+    16-slot sub-captions of real words that ``damsm_scores`` hands it
+    (``split_captions``), with the cotangent the combine hands the backward
+    (2 timed launches), against the plain version on the whole captions
+    (caption blocks of ``LN_PLAIN_BLOCK``).  Bytes and operations of the
+    function on the whole captions, real words only.  ``launches`` per
+    dtype come from the run that ``launches_in`` names."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    r, w, mask, up = ln_damsm_inputs(gen)
+    b, bc, R, T, D = DAMSM_LN
+    words = int((~mask).sum())
+    rows = []
+    for cd in (None, torch.bfloat16):
+        width = ds.sub_caption_width(R, T, D, cd)
+        w_sub, m_sub = ds.split_captions(w, mask, width)
+        s = ds._launch_fwd(r, w_sub, m_sub, 4.0, 5.0, cd).view(b, bc, -1).requires_grad_()
+        (g_sub,) = torch.autograd.grad(ds.combine_sub_scores(s, 5.0), s, up)
+        g_sub = g_sub.reshape(b, -1).contiguous()
+        es = 2 if cd == torch.bfloat16 else 4
+        rate = BF16_OPS_PER_S if cd == torch.bfloat16 else FP32_OPS_PER_S
+        ins_bytes = (b * R * D + bc * T * D) * es + bc * T + b * bc * 4
+        specs = (
+            ("forward", 2, ins_bytes, lambda: ds._launch_fwd(r, w_sub, m_sub, 4.0, 5.0, cd),
+             lambda: ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd, LN_PLAIN_BLOCK), "314"),
+            ("d_regions", 5, ins_bytes + b * R * D * 4,
+             lambda: ds._launch_bwd("dr", r, w_sub, m_sub, g_sub, 4.0, 5.0, cd),
+             lambda: ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, cd, LN_PLAIN_BLOCK), "343"),
+            ("d_words", 4, ins_bytes + bc * T * D * 4,
+             lambda: ds._launch_bwd("dw", r, w_sub, m_sub, g_sub, 4.0, 5.0, cd),
+             lambda: ds._plain_vjp("dw", r, w, mask, up, 4.0, 5.0, cd, LN_PLAIN_BLOCK), "362"),
+        )
+        for name, dots, nbytes, kern, ref, line in specs:
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            op_ms = 2 * R * D * dots * b * words / rate * 1e3
+            ms, plain_ms = cuda_ms(kern, 2), cuda_ms(ref, 2)
+            bound = max(byte_ms, op_ms)
+            rows.append({
+                "name": f"damsm_score.{name}[{CD_NAME[cd]}, LN]", "route": "cuda",
+                "source": "xmc_gan_tpu_torch/csrc/damsm_score.cu",
+                "replaces": f"xmc_gan_tpu/ops/pallas/damsm_score.py:{line}",
+                "launches": launches[cd][f"damsm_score.{name}"], "launches_in": launches_in[cd],
+                "max_abs_err": errs[cd][name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "library_ms": None, "roofline_share": bound / ms,
+                "shapes": f"B=Bc={b}, R={R}, T={T} as {w_sub.shape[0] // bc} "
+                          f"sub-captions of {w_sub.shape[1]} slots ({words} real words), D={D}, "
+                          f"compute {CD_NAME[cd]}, CUDA cores",
+            })
+            log(f"[7] {rows[-1]['name']}: {ms:.3f} ms (bound {bound:.3f} ms by "
+                f"{rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain {plain_ms:.3f} ms; "
+                f"{rows[-1]['shapes']}")
+        del w_sub, m_sub, s, g_sub
+        torch.cuda.empty_cache()
+    del r, w, mask, up
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_check()
@@ -1071,6 +1274,7 @@ def main() -> int:
     fa_errs = check_epilogue(shapes)
     mod_errs = check_modulation(sorted(set(mod_shapes)))
     ds_errs = check_damsm()
+    ln_errs = check_damsm_ln()
     ca_errs = check_attention(attn_in)
 
     g_cpu = make_generator(cfg, device="cpu")
@@ -1078,8 +1282,11 @@ def main() -> int:
     g_cpu.load_state_dict(sd, strict=True)
     check_slice_against_cpu(cfg, g_cpu)
     del g_cpu
-    check_train_against_cpu()
+    check_train_against_cpu(cfg_from_dict(SLICE_CFG), "train slice", prefix_mask)
     check_concepts_against_cpu()
+    small_ln = "LN-COCO step (fp32, NCH=8, 64², batch 4, T=200, D=768), 2 steps"
+    small_ln_launches = check_train_against_cpu(
+        ln_cfg({"IMG": {"SIZE": 64}, "TRAIN": {"NCH": 8, "BATCH_SIZE": 4}}), small_ln, ln_mask)
 
     runs = {dtype: serve(cfg, sd, dtype) for dtype in (torch.float32, torch.bfloat16)}
     diff = (runs[torch.float32].pop("img") - runs[torch.bfloat16].pop("img")).abs()
@@ -1100,8 +1307,11 @@ def main() -> int:
         del diff
         torch.cuda.empty_cache()
 
-    trains = {torch.bfloat16: train(torch.bfloat16, warmup=2, timed=10),
-              torch.float32: train(torch.float32, warmup=1, timed=3)}
+    flagship = cfg_from_dict(TRAIN_OVERRIDES)
+    trains = {torch.bfloat16: train(flagship, "flagship_word", torch.bfloat16, 2, 10, prefix_mask),
+              torch.float32: train(flagship, "flagship_word", torch.float32, 1, 3, prefix_mask)}
+    # the LN step takes seconds: its counted step is its warm-up
+    ln_train = train(ln_cfg(), "LN-COCO", torch.bfloat16, 0, 2, ln_mask)
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
@@ -1111,13 +1321,18 @@ def main() -> int:
         {d: req["CONCEPT_IN_DF_GEN"][d]["fused_affine.forward"] for d in req["CONCEPT_IN_DF_GEN"]})
     kernels += damsm_rows(ds_errs, {None: step_launches[torch.float32],
                                     torch.bfloat16: step_launches[torch.bfloat16]})
+    # the fp32 LN step runs at a small width only: its launches are phase 4d's
+    kernels += damsm_ln_rows(ln_errs, {None: small_ln_launches,
+                                       torch.bfloat16: ln_train["launches"]},
+                             {None: f"phase 4d: {small_ln}",
+                              torch.bfloat16: "phase 6: one full-width LN-COCO bf16 step"})
     kernels += attention_rows(
         [s[:5] for s in attn_in], [s[:5] for s in attn_out], ca_errs,
         {name: {d: r["cross_attention.forward"] for d, r in req[name].items()}
          for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")})
     log(json.dumps({"card": card, "serving": list(runs.values()),
                     "concept_serving": [r for rs in concept_runs.values() for r in rs.values()],
-                    "training": list(trains.values())}))
+                    "training": [*trains.values(), ln_train]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -194,6 +194,96 @@ def test_damsm_kernels_match_plain_on_card(cuda_device, cd, shape, allpad, max_l
     torch.testing.assert_close(dw, dw_w, rtol=0, atol=grad_scale * dw_w.abs().max().item())
 
 
+def _ln_inputs(device, shape, seed):
+    """LN-like inputs: about half the word slots real, padding scattered (as
+    ``benchmarks/ln_word_loss.py`` draws it); caption 1 all padded, caption 2
+    with its few real words in one sub-caption, the rest all padded."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, bc, r_, t, d = shape
+    r = torch.nn.functional.normalize(torch.randn(b, r_, d, generator=gen, device=device), dim=-1)
+    w = torch.nn.functional.normalize(torch.randn(bc, t, d, generator=gen, device=device), dim=-1)
+    mask = torch.rand(bc, t, generator=gen, device=device) > 0.5
+    mask[1] = True
+    mask[2] = True
+    mask[2, 1:5] = False
+    up = torch.randn(b, bc, generator=gen, device=device)
+    return r, w, mask, up
+
+
+def _damsm_kernel_names(fn) -> set[str]:
+    """The names of the damsm kernels that ``fn`` launches, from a
+    ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if "damsm" in e.key}
+
+
+# (shape, compute dtype, the forward's and d_regions' kernels): the LN
+# config's word shape (T = 200, D = 768) on the CUDA cores in both dtypes,
+# and T = 130 at D = 256, whose bf16 sub-captions stay on the tensor cores
+LN_CASES = [((16, 16, 256, 200, 768), None, ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float")),
+            ((16, 16, 256, 200, 768), torch.bfloat16,
+             ("damsm_fwd_bf16_kernel<", "damsm_bwd_dr_kernel<__nv_bfloat16")),
+            ((16, 16, 256, 130, 256), torch.bfloat16,
+             ("damsm_fwd_tc_kernel<", "damsm_bwd_dr_tc_kernel<"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cd,kernels", LN_CASES, ids=str)
+def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels):
+    """Captions longer than a block's rows, as sub-captions: scores,
+    d_regions and d_words (one launch each) against the plain version on
+    the whole captions, under the same tolerances; the launches take the
+    route the shape rule names (``ds.tensor_cores``); the all-padded
+    caption scores exactly the plain value and gets no d_words."""
+    b, bc, R, T, D = shape
+    assert ds.sub_caption_width(R, T, D, cd) < T
+    assert ds.tensor_cores(R, D, cd) == ("tc_kernel" in kernels[0])
+    r, w, mask, up = _ln_inputs(cuda_device, shape, 12)
+    ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches)
+    out = {}
+
+    def run():
+        out["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
+        out["g"] = torch.autograd.grad(out["s"], (ri, wi), up)
+
+    names = _damsm_kernel_names(run)
+    assert (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches) == tuple(
+        n + 1 for n in before)
+    for want in kernels + ("damsm_bwd_dw_kernel<",):
+        assert any(want in n for n in names), (want, names)
+    assert not any("tc_kernel" in n for n in names) or "tc_kernel" in kernels[0], names
+    rr, wr = r.clone().requires_grad_(), w.clone().requires_grad_()
+    want = ds.damsm_scores_ref(rr, wr, mask, 4.0, 5.0, cd)
+    dr_w, dw_w = torch.autograd.grad(want, (rr, wr), up)
+    score_atol, grad_scale = DAMSM_TOL[cd]
+    s, (dr, dw) = out["s"], out["g"]
+    assert bool(torch.isfinite(s).all())
+    assert torch.equal(s[:, 1], want[:, 1].detach())
+    assert dw[1].abs().max().item() == 0.0
+    torch.testing.assert_close(s, want.detach(), rtol=1e-5, atol=score_atol)
+    torch.testing.assert_close(dr, dr_w, rtol=0, atol=grad_scale * dr_w.abs().max().item())
+    torch.testing.assert_close(dw, dw_w, rtol=0, atol=grad_scale * dw_w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+def test_damsm_cuda_core_d_regions_is_deterministic_at_d768(cuda_device, cd):
+    """Two CUDA-core d_regions launches on D = 768 sub-captions (256-column
+    chunks, split partial sums) are bit-equal."""
+    r, w, mask, up = _ln_inputs(cuda_device, (8, 8, 256, 200, 768), 13)
+    w_sub, m_sub = ds.split_captions(w, mask, ds.sub_caption_width(256, 200, 768, cd))
+    g = up.repeat_interleave(w_sub.shape[0] // 8, dim=1)
+    first = ds._launch_bwd("dr", r, w_sub, m_sub, g, 4.0, 5.0, cd)
+    again = ds._launch_bwd("dr", r, w_sub, m_sub, g, 4.0, 5.0, cd)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
 @pytest.mark.cuda
 def test_damsm_bf16_d_regions_is_deterministic_and_ignores_padded_captions(cuda_device):
     """Two launches of the bf16 (tensor-core) d_regions are bit-equal, and the

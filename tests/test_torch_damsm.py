@@ -107,6 +107,63 @@ def test_all_padded_caption(cd):
     _close(dr, pr0, tol, "d_regions vs Pallas with the padded caption's cotangent zeroed")
 
 
+def _long_problem(b, bc, r, t, d, width, seed):
+    """About half the word slots real, padding scattered (as
+    ``benchmarks/ln_word_loss.py`` draws the LN mask); caption 1 all padded;
+    caption 2's 3 real words in its second run of ``width`` slots, which
+    the split packs into one sub-caption beside all-padded ones."""
+    rng = np.random.RandomState(seed)
+    regions = rng.randn(b, r, d).astype(np.float32)
+    words = rng.randn(bc, t, d).astype(np.float32)
+    mask = rng.rand(bc, t) > 0.5
+    mask[0, 0] = False
+    mask[1] = True
+    mask[2] = True
+    mask[2, width + 1:width + 4] = False
+    g = rng.randn(b, bc).astype(np.float32)
+    return regions, words, mask, g
+
+
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+@pytest.mark.parametrize("dims", [(2, 3, 256, 200, 768), (2, 3, 50, 77, 520),
+                                  (2, 3, 256, 130, 256), (2, 3, 256, 64, 256)], ids=str)
+def test_long_captions_match_jax(cd, dims):
+    """Captions longer than a block's rows go through as sub-captions
+    (``sub_caption_width``: 16 at the LN word shape, T = 200, D = 768; a
+    ragged T = 77, D = 520; T = 130 at D = 256, on the tensor cores in
+    bf16; T = 64 at R = D = 256, which fits the forward but not the
+    backward kernels), and the scores and both VJPs match the JAX XLA path and the
+    Pallas kernel in interpret mode on the whole captions, under ``TOL``.
+    The fully padded caption scores exactly the plain version's
+    (-1e30 + log T) / gamma2 and gets no gradient; the Pallas backward
+    gives it one (``test_all_padded_caption``), so there the port is held
+    to the XLA path, and to Pallas with that caption's cotangent zeroed."""
+    b, bc, R, T, D = dims
+    width = ds.sub_caption_width(R, T, D, cd)
+    assert width < T
+    regions, words, mask, g = _long_problem(*dims, width, seed=3)
+    got, (dr, dw) = _port(regions, words, mask, g, cd)
+    want_x, (xr, xw) = _jax(regions, words, mask, g, cd, pallas=False)
+    g0 = g.copy()
+    g0[:, 1] = 0.0
+    want_p, (pr, pw) = _jax(regions, words, mask, g0, cd, pallas=True)
+    tol = TOL[cd]
+    plain = ds.damsm_scores_ref(pl.l2_normalize(torch.from_numpy(regions)),
+                                pl.l2_normalize(torch.from_numpy(words)),
+                                torch.from_numpy(mask), 4.0, 5.0, cd).numpy()
+    assert np.array_equal(got[:, 1], plain[:, 1])
+    assert np.abs(dw[1]).max() == 0.0
+    for want in (want_x, want_p):
+        real = want[:, [0, 2]]
+        np.testing.assert_allclose(got[:, [0, 2]], real, rtol=1e-5,
+                                   atol=tol * np.abs(real).max())
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-6)
+    _close(dr, xr, tol, "d_regions vs XLA")
+    _close(dw, xw, tol, "d_words vs XLA")
+    _close(dr, pr, tol, "d_regions vs Pallas, the padded caption's cotangent zeroed")
+    _close(dw[[0, 2]], pw[[0, 2]], tol, "d_words vs Pallas, captions with words")
+
+
 def test_cpu_function_routes_to_plain_and_skips_d_words(monkeypatch):
     """On CPU tensors the Function takes the plain version (no launch is
     counted), and its backward computes only the inputs that need a
@@ -143,19 +200,105 @@ def test_function_rejects_what_the_kernels_do_not_take():
 
 
 def test_kernel_plan_mirrors_the_source():
-    """Captions per block and shared memory as ``csrc/damsm_score.cu``
-    computes them: at the flagship shape 3 captions (60 word rows) forward
-    and 2 (40 rows) in the backward, within the 227 KB a block may use;
-    T > 64 or D > 256 is refused."""
+    """Captions per block and shared memory of the CUDA-core kernels as
+    ``csrc/damsm_score.cu`` computes them: at the flagship shape 3 captions
+    (60 word rows) forward and 2 (40 rows) in the backward, within the 227 KB
+    a block may use; at the LN word shape (R = 256, D = 768) 18 rows forward
+    and 16 backward, so one 16-slot sub-caption a block (T = 200 is at most 13 of
+    them); T > 64 and D > 1024 are refused."""
     vb, smem = ds.plan(256, 20, 256, False, 128)
     assert vb == 3 and smem <= ds.SMEM_LIMIT
     vb, smem = ds.plan(256, 20, 256, True, 128)
     assert vb == 2 and smem <= ds.SMEM_LIMIT
     assert ds.plan(50, 7, 48, True, 5)[0] == 5  # capped by the captions there are
+    assert (ds.cuda_core_rows(256, 768, False), ds.cuda_core_rows(256, 768, True)) == (18, 16)
+    fixed, per_row = 4 * 32 * (768 + 4), 4 * (2 * 768 + 2 * 256 + 4)
+    assert (fixed, per_row) == (98_816, 8_208)
+    assert ds.plan(256, 16, 768, True, 256 * 13) == (1, fixed + 16 * per_row)
+    assert fixed + 17 * per_row > ds.SMEM_LIMIT
+    assert ds.plan(256, 16, 768, False, 256 * 13)[0] == 1
+    assert ds.plan(256, 9, 1024, True, 4)[0] == 1  # D = 1024: 9 rows
     with pytest.raises(ValueError, match="T <= 64"):
         ds.plan(16, 65, 8, False, 4)
-    with pytest.raises(ValueError, match="D <= 256"):
-        ds.plan(16, 8, 260, False, 4)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ds.plan(16, 8, 1032, False, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        ds.plan(256, 17, 768, True, 4)
+
+
+def test_route_rule():
+    """One shape rule: the bf16 forward and d_regions on the tensor cores
+    if and only if R <= 256 and D <= 256; fp32 always on the CUDA cores."""
+    for R, D in [(256, 256), (50, 48), (1, 1)]:
+        assert ds.tensor_cores(R, D, torch.bfloat16)
+        assert not ds.tensor_cores(R, D, None) and not ds.tensor_cores(R, D, torch.float32)
+    for R, D in [(256, 768), (257, 256), (300, 16), (16, 264), (256, 1024)]:
+        assert not ds.tensor_cores(R, D, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cd", [None, torch.float32, torch.bfloat16])
+def test_sub_caption_width_mirrors_the_plans(cd):
+    """T where every kernel of the route holds a caption (no split: the
+    flagship's T = 20 and the card tests' edge shapes), else the largest
+    width all of them hold: 16 at the LN word shape (the CUDA-core
+    backward), 32 at R = D = 256 in bf16 (the tensor-core d_regions), 48
+    there in fp32 (the CUDA-core backward).  Each width is a plan the
+    kernels take; D > 1024 and regions too many for one row are refused,
+    naming the limit; nothing depends on the device."""
+    bf16 = cd == torch.bfloat16
+    for R, T, D in [(256, 20, 256), (50, 7, 48), (64, 7, 40), (50, 20, 40), (24, 33, 24),
+                    (50, 64, 40), (5, 3, 12)]:
+        assert ds.sub_caption_width(R, T, D, cd) == T
+    assert ds.sub_caption_width(256, 200, 768, cd) == 16
+    assert ds.sub_caption_width(256, 130, 256, cd) == (32 if bf16 else 48)
+    assert ds.sub_caption_width(256, 64, 256, cd) == (32 if bf16 else 48)
+    assert ds.sub_caption_width(256, 200, 1024, cd) == 9
+    for R, T, D in [(256, 200, 768), (256, 130, 256), (50, 77, 520), (256, 77, 520),
+                    (300, 40, 256), (7, 200, 768), (256, 200, 1024)]:
+        width = ds.sub_caption_width(R, T, D, cd)
+        assert 1 <= width <= 64 and width <= T
+        for backward in (False, True):
+            assert ds.plan(R, width, D, backward, 4)[0] >= 1
+        if ds.tensor_cores(R, D, cd):
+            assert ds.plan_fwd(R, width, D, 4, 4, 132).rows >= width
+            assert ds.plan_dr(R, width, D, 4, 4, 132).rows >= width
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ds.sub_caption_width(256, 20, 1025, cd)
+    with pytest.raises(ValueError, match="shared memory"):
+        ds.sub_caption_width(16384, 20, 768, cd)
+
+
+def test_split_captions_and_combine():
+    """``split_captions`` moves each caption's real words to the front in
+    their order, drops the slots past the longest caption and pads the last
+    sub-caption with masked zero slots; autograd scatters d_words back to
+    the slots kept; ``combine_sub_scores`` is ``logsumexp_k(gamma2 * s) / gamma2`` with the
+    gradient ``g * softmax_k``; an all-padded sub-caption adds exactly 0 and
+    gets exactly 0; a fully padded caption keeps its value bit for bit."""
+    w = torch.arange(2 * 5 * 3, dtype=torch.float32).reshape(2, 5, 3).requires_grad_()
+    mask = torch.tensor([[False, True, False, False, True], [True] * 5])
+    ws, ms = ds.split_captions(w, mask, 2)
+    assert ws.shape == (4, 2, 3) and ms.shape == (4, 2)  # 3 real words at most: 2 + 1 slots
+    ws, ms = ws.reshape(2, 4, 3), ms.reshape(2, 4)
+    assert torch.equal(ws[0, :3], w[0, [0, 2, 3]]) and torch.equal(ws[1, :3], w[1, :3])
+    assert not ws[:, 3].any()
+    assert ms[0].tolist() == [False, False, False, True] and ms[1].all()
+    (dw,) = torch.autograd.grad(ws, w, torch.ones_like(ws))
+    kept = torch.tensor([[1, 0, 1, 1, 0], [1, 1, 1, 0, 0]], dtype=torch.float32)
+    assert torch.equal(dw, kept[..., None].expand(2, 5, 3))  # the n = 3 slots kept
+    ws, ms = ds.split_captions(w, mask, 8)  # one sub-caption of the 3 slots
+    assert ws.shape == (2, 3, 3) and torch.equal(ws[0], w[0, [0, 2, 3]])
+    ws, ms = ds.split_captions(w, torch.ones(2, 5, dtype=torch.bool), 2)  # no word at all
+    assert ws.shape == (2, 1, 3) and ms.all()
+    pad = (ds.NEG + np.log(np.float32(16))) / 5.0
+    s = torch.tensor([[[0.3, -0.2, pad], [pad, pad, pad]]], requires_grad=True)
+    out = ds.combine_sub_scores(s, 5.0)
+    torch.testing.assert_close(out[0, 0], torch.logsumexp(5.0 * s[0, 0, :2], 0) / 5.0)
+    assert out[0, 1].item() == np.float32(pad)
+    (g,) = torch.autograd.grad(out, s, torch.tensor([[2.0, 3.0]]))
+    torch.testing.assert_close(g[0, 0, :2], 2.0 * torch.softmax(5.0 * s[0, 0, :2].detach(), 0))
+    assert g[0, 0, 2].item() == 0.0
+    torch.testing.assert_close(g[0, 1], torch.full((3,), 1.0))
 
 
 def test_tensor_core_plan_mirrors_the_source():

@@ -187,9 +187,10 @@ def test_word_scores_backend_rule():
     """The kernel exactly where the plain path would block and the operands
     are CUDA tensors; the plain path otherwise (the JAX rule, "TPU backend"
     read as "CUDA tensor").  The LN config's shape (B = Bc = 256, R = 256,
-    T = 200, word width 768) routes to the kernels, whose limits refuse it:
-    the kernel route raises there, before any work, naming the tiling that
-    would lift them, in fp32 and bf16; it takes no plain route."""
+    T = 200, word width 768) routes to the kernels, which take it as 16-slot
+    sub-captions in fp32 and bf16: a small LN-like problem on the kernel
+    route computes and matches the plain path.  The one limit left, D <=
+    1024, raises before any work, naming it."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     block = pl.WORD_LOSS_BLOCK_ELEMS
     assert pl.word_scores_backend(128, 128, 20, 256, block, cuda) == "kernel"
@@ -201,20 +202,28 @@ def test_word_scores_backend_rule():
     jax_name = {"xla": "plain", "pallas": "kernel"}
     for args in [(128, 128, 20, 256, block), (2, 2, 3, 4, 0)]:
         assert pl.word_scores_backend(*args, cpu) == jax_name[jl.word_scores_backend(*args)]
+    rng = np.random.RandomState(0)
+    regions, words = rng.randn(2, 256, 768), rng.randn(3, 200, 768)
+    mask = torch.from_numpy(rng.rand(3, 200) > 0.5)
     for cd in (None, torch.float32, torch.bfloat16):
-        ds.check_shape(256, 20, 256, cd)  # the flagship shape
-        for r_regions, t, d in [(256, 200, 768), (256, 200, 256), (256, 20, 768)]:
-            with pytest.raises(ValueError, match="B7"):
-                ds.check_shape(r_regions, t, d, cd)
-        # a small LN-like problem (T = 200, D = 768) on the kernel route raises first
-        rng = np.random.RandomState(0)
-        with pytest.raises(ValueError, match="B7"):
-            pl.word_region_scores(_t(rng.randn(2, 4, 768)), _t(rng.randn(2, 200, 768)),
-                                  torch.zeros(2, 200, dtype=torch.bool), compute_dtype=cd,
+        for r_regions, t, d in [(256, 20, 256), (256, 200, 768), (256, 200, 256),
+                                (256, 20, 768), (300, 20, 256), (256, 200, 1024)]:
+            assert 1 <= ds.sub_caption_width(r_regions, t, d, cd) <= t
+        with pytest.raises(ValueError, match="D <= 1024"):
+            ds.sub_caption_width(256, 200, 1032, cd)
+        with pytest.raises(ValueError, match="D <= 1024"):
+            pl.word_region_scores(_t(rng.randn(2, 4, 1032)), _t(rng.randn(2, 5, 1032)),
+                                  torch.zeros(2, 5, dtype=torch.bool), compute_dtype=cd,
                                   backend="kernel")
-    ds.check_shape(300, 20, 256, torch.float32)
-    with pytest.raises(ValueError, match="B7"):
-        ds.check_shape(300, 20, 256, torch.bfloat16)
+        # a small LN-like problem (T = 200, D = 768, R = 256) on the kernel route
+        assert ds.sub_caption_width(256, 200, 768, cd) == 16
+        got = pl.word_region_scores(_t(regions), _t(words), mask, compute_dtype=cd,
+                                    backend="kernel")
+        want = pl.word_region_scores(_t(regions), _t(words), mask, compute_dtype=cd,
+                                     backend="plain")
+        assert bool(torch.isfinite(got).all())
+        tol = 1e-5 if cd != torch.bfloat16 else 2.0 ** -7
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=tol * want.abs().max().item())
 
 
 def test_explicit_backend_is_obeyed_without_fallback():

@@ -20,9 +20,15 @@
 // operations (2*T*R*D per product: 2 products forward, 5 for d_regions, 4
 // for d_words; 86 / 215 / 172 GFLOP at B = Bc = 128, T = 20, R = D = 256),
 // against 67 TFLOP/s fp32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
-// cores.  The bf16 forward and d_regions run on the tensor cores (their own
-// section below); the bf16 d_words and every fp32 path run on the CUDA cores
-// (fp32 keeps 1e-5 against its plain version, which TF32 would not).
+// cores.  Route (the wrapper's rule, ops/cuda/damsm_score.py tensor_cores):
+// the bf16 forward and d_regions run on the tensor cores (their own section
+// below) where R <= 256 and D <= 256; the bf16 d_words, every fp32 path and
+// the bf16 forward and d_regions at wider R or D run on the CUDA cores (fp32
+// keeps 1e-5 against its plain version, which TF32 would not).  Captions
+// longer than a block's rows reach the kernels as sub-captions: the wrapper
+// splits each caption's T slots into pieces of at most 64 and combines
+// their scores by a logsumexp (exact: words are independent until the
+// logsumexp over T), so every kernel here sees T <= 64.
 // Design of the CUDA-core kernels, a first, simple and correct version:
 //  * A block takes one image and a sub-block of vb captions (vb*T <= 64 word
 //    rows), keeps the words, the [rows, R] similarity/attention (and, in the
@@ -31,6 +37,11 @@
 //    four times per sub-block (the regions of one image, 256 KB in fp32, do
 //    not fit in the 227 KB a block can have).  vb is the largest that fits:
 //    3 captions forward, 2 backward at T = 20, D = R = 256.
+//  * D <= 1024: a lane holds 8 columns of a context product (c = a R,
+//    d_sim R, the d_r sums), so those products run in 256-column chunks,
+//    streaming the chunk's columns of the region tiles again for each.  At
+//    D = 768, R = 256 a block holds 18 word rows forward, 16 backward (one
+//    16-slot sub-caption of the LN config's T = 200).
 //  * Products are register-tiled: a warp owns rows, a lane owns a region or
 //    a feature column; the shared-memory operand that all lanes share is a
 //    16-byte broadcast, so each shared load feeds 4 to 8 FMAs.
@@ -113,18 +124,20 @@
 //
 // C interface (ctypes; pointers and the stream as void*):
 //   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, g1, g2,
-//                     dtype, stream)
+//                     dtype, route, stream)
 //   int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, rows,
-//                        nsplit, g1, g2, dtype, stream)
+//                        nsplit, g1, g2, dtype, route, stream)
 //   int xmc_damsm_bwd_dw(r, w, mask, g, partial, dw, B, Bc, R, T, D, vb, nsplit,
 //                        g1, g2, dtype, stream)
 //   g is the upstream cotangent [B, Bc] fp32.  partial is [B, nsplit, R, D]
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
 //   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
-//   vb is the captions per block of the CUDA-core kernels; rows is the word
-//   rows per pass, Mp, of the tensor-core forward and d_regions (dtype 1),
-//   whose blocks are (image, split) for nsplit splits.  Each is ignored
-//   where the other applies.
+//   route 0 = the CUDA-core kernel (either dtype), 1 = the tensor-core one
+//   (bf16 only); d_words always runs on the CUDA cores.  vb is the captions
+//   per block of the CUDA-core kernels; rows is the word rows per pass, Mp,
+//   of the tensor-core forward and d_regions (route 1), whose blocks are
+//   (image, split) for nsplit splits.  Each is ignored where the other
+//   applies.
 //   Returns cudaGetLastError() after the launches (0 = success).
 //   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels also count their
 //   cycles per phase: int xmc_damsm_phases_read(host [13] uint64),
@@ -142,7 +155,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int RT = 32;         // region rows per staged tile (one per lane)
 constexpr int MAX_ROWS = 64;   // word rows per block: 8 warps x MB rows
-constexpr int MAX_DP = 256;    // padded feature width: 8 columns per lane
+constexpr int MAX_DP = 1024;   // padded feature width
+constexpr int CHUNK = 256;     // columns of the context products per pass: 8 per lane
 constexpr int SMEM_LIMIT = 232448;
 constexpr float NEG = -1e30f;
 
@@ -231,11 +245,14 @@ __device__ void load_words(const T* __restrict__ w, int j0, const Dims& d, float
   }
 }
 
-// Region rows r0 .. r0+RT-1 of image i into Rt (rows past R and columns past D are 0).
+// Columns k0 .. k1-1 of region rows r0 .. r0+RT-1 of image i into Rt (rows
+// past R and columns past D are 0).
 template <typename T>
-__device__ void load_tile(const T* __restrict__ r, int i, int r0, const Dims& d, float* Rt) {
-  for (int e = threadIdx.x; e < RT * d.Dp; e += kThreads) {
-    const int n = e / d.Dp, k = e % d.Dp;
+__device__ void load_tile(const T* __restrict__ r, int i, int r0, const Dims& d, float* Rt,
+                          int k0, int k1) {
+  const int width = k1 - k0;
+  for (int e = threadIdx.x; e < RT * width; e += kThreads) {
+    const int n = e / width, k = k0 + e % width;
     const int rr = r0 + n;
     Rt[n * d.SB + k] = (rr < d.R && k < d.D) ? to_f(r[(size_t(i) * d.R + rr) * d.D + k]) : 0.f;
   }
@@ -269,10 +286,11 @@ __device__ void gemm_nt(const float* A, const float* Rt, float* out, int r0, con
   }
 }
 
-// acc[i][jj] += sum_{n < RT} rnd?(P[m][r0 + n]) * Rt[n][lane + 32 jj]   (m = warp + 8 i)
+// acc[i][jj] += sum_{n < RT} rnd?(P[m][r0 + n]) * Rt[n][c0 + lane + 32 jj]
+// (m = warp + 8 i): one CHUNK of the product's columns, from c0
 template <int MB, bool BF16, bool ROUND_P>
 __device__ void gemm_nn_tile(float (&acc)[MB][8], const float* P, int r0, const float* Rt,
-                             const Dims& d) {
+                             const Dims& d, int c0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int n = 0; n < RT; n += 4) {
     float b[4][8];
@@ -280,7 +298,7 @@ __device__ void gemm_nn_tile(float (&acc)[MB][8], const float* P, int r0, const 
     for (int q = 0; q < 4; ++q)
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
-        const int k = lane + 32 * jj;
+        const int k = c0 + lane + 32 * jj;
         b[q][jj] = k < d.Dp ? Rt[(n + q) * d.SB + k] : 0.f;
       }
 #pragma unroll
@@ -329,33 +347,36 @@ template <typename T, int MB, bool BF16>
 __device__ void forward_chain(const T* __restrict__ r, int i, const Dims& d, const Smem& s) {
   for (int r0 = 0; r0 < d.SR; r0 += RT) {  // sim = W R^T
     __syncthreads();
-    load_tile(r, i, r0, d, s.Rt);
+    load_tile(r, i, r0, d, s.Rt, 0, d.Dp);
     __syncthreads();
     gemm_nt<MB, BF16, false>(s.W, s.Rt, s.S, r0, d);
   }
   __syncthreads();
   softmax_rows(s.S, d);
-  float acc[MB][8];
-#pragma unroll
-  for (int a = 0; a < MB; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-  for (int r0 = 0; r0 < d.SR; r0 += RT) {  // c = rnd(a) R
-    __syncthreads();
-    load_tile(r, i, r0, d, s.Rt);
-    __syncthreads();
-    gemm_nn_tile<MB, BF16, true>(acc, s.S, r0, s.Rt, d);
-  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < d.Dp; c0 += CHUNK) {  // c = rnd(a) R, a CHUNK of columns at a time
+    const int c1 = min(d.Dp, c0 + CHUNK);
+    float acc[MB][8];
 #pragma unroll
-  for (int a = 0; a < MB; ++a) {
-    const int m = warp + kWarps * a;
-    if (m < d.M)
+    for (int a = 0; a < MB; ++a)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int k = lane + 32 * jj;
-        if (k < d.Dp) s.C[m * d.SD + k] = acc[a][jj];
-      }
+      for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+    for (int r0 = 0; r0 < d.SR; r0 += RT) {
+      __syncthreads();
+      load_tile(r, i, r0, d, s.Rt, c0, c1);
+      __syncthreads();
+      gemm_nn_tile<MB, BF16, true>(acc, s.S, r0, s.Rt, d, c0);
+    }
+#pragma unroll
+    for (int a = 0; a < MB; ++a) {
+      const int m = warp + kWarps * a;
+      if (m < d.M)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int k = c0 + lane + 32 * jj;
+          if (k < c1) s.C[m * d.SD + k] = acc[a][jj];
+        }
+    }
   }
   __syncthreads();
   for (int m = warp; m < d.M; m += kWarps) {  // c_hat, rel
@@ -382,15 +403,16 @@ __device__ __forceinline__ bool padded(const uint8_t* mask, int j, int t, const 
   return j >= d.Bc || mask[size_t(j) * d.T + t] != 0;
 }
 
-template <int MB>  // fp32; the bf16 forward is damsm_fwd_tc_kernel
-__global__ void __launch_bounds__(kThreads)
-damsm_fwd_kernel(const float* __restrict__ r, const float* __restrict__ w,
-                 const uint8_t* __restrict__ mask, float* __restrict__ out, Dims d) {
+// The forward of block (image i, caption sub-block): scores out[i][j].
+template <typename T, int MB, bool BF16>
+__device__ void forward_block(const T* __restrict__ r, const T* __restrict__ w,
+                              const uint8_t* __restrict__ mask, float* __restrict__ out,
+                              const Dims& d) {
   extern __shared__ float4 smem_raw[];
   const Smem s = carve(reinterpret_cast<float*>(smem_raw), d, false);
   const int i = blockIdx.x, j0 = blockIdx.y * d.vb;
   load_words(w, j0, d, s.W);
-  forward_chain<float, MB, false>(r, i, d, s);
+  forward_chain<T, MB, BF16>(r, i, d, s);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int c = warp; c < d.vb; c += kWarps) {  // logsumexp over the words of caption j
     const int j = j0 + c;
@@ -405,6 +427,22 @@ damsm_fwd_kernel(const float* __restrict__ r, const float* __restrict__ w,
     sum = warp_sum(sum);
     if (lane == 0) out[size_t(i) * d.Bc + j] = (mx + logf(sum)) / d.g2;
   }
+}
+
+template <int MB>  // fp32 operands
+__global__ void __launch_bounds__(kThreads)
+damsm_fwd_kernel(const float* __restrict__ r, const float* __restrict__ w,
+                 const uint8_t* __restrict__ mask, float* __restrict__ out, Dims d) {
+  forward_block<float, MB, false>(r, w, mask, out, d);
+}
+
+// bf16 operands on the CUDA cores: the route for R > 256 or D > 256, which
+// the tensor-core forward (damsm_fwd_tc_kernel) does not take
+template <int MB>
+__global__ void __launch_bounds__(kThreads)
+damsm_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ w,
+                      const uint8_t* __restrict__ mask, float* __restrict__ out, Dims d) {
+  forward_block<__nv_bfloat16, MB, true>(r, w, mask, out, d);
 }
 
 // Backward through the chain to d_sim, for image i and captions j0.. of the
@@ -450,7 +488,7 @@ __device__ void backward_chain(const T* __restrict__ r, const uint8_t* __restric
   }
   for (int r0 = 0; r0 < d.SR; r0 += RT) {  // d a = rnd(d_c R^T)
     __syncthreads();
-    load_tile(r, i, r0, d, s.Rt);
+    load_tile(r, i, r0, d, s.Rt, 0, d.Dp);
     __syncthreads();
     gemm_nt<MB, BF16, true>(s.C, s.Rt, s.DA, r0, d);
   }
@@ -490,6 +528,7 @@ damsm_bwd_dr_kernel(const T* __restrict__ r, const T* __restrict__ w,
     __syncthreads();
     load_words(w, j0, d, s.W);
     backward_chain<T, MB, BF16, false>(r, mask, g, i, j0, d, s, nullptr, 0);
+    for (int c0 = 0; c0 < d.Dp; c0 += CHUNK)  // columns c0 + lane + 32 jj
     for (int q0 = 0; q0 < d.R; q0 += 4 * kWarps) {  // rows q0 + warp + 8 ii of d_r
       float acc[4][8];
 #pragma unroll
@@ -500,7 +539,7 @@ damsm_bwd_dr_kernel(const T* __restrict__ r, const T* __restrict__ w,
         float cv[8], wv[8];
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
-          const int k = lane + 32 * jj;
+          const int k = c0 + lane + 32 * jj;
           cv[jj] = k < d.Dp ? s.C[m * d.SD + k] : 0.f;
           wv[jj] = k < d.Dp ? s.W[m * d.SD + k] : 0.f;
         }
@@ -519,7 +558,7 @@ damsm_bwd_dr_kernel(const T* __restrict__ r, const T* __restrict__ w,
         if (q >= d.R) continue;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
-          const int k = lane + 32 * jj;
+          const int k = c0 + lane + 32 * jj;
           if (k >= d.D) continue;
           float* o = acc_out + size_t(q) * d.D + k;
           *o = (sb == sb0) ? acc[a][jj] : *o + acc[a][jj];
@@ -549,25 +588,28 @@ damsm_bwd_dw_kernel(const T* __restrict__ r, const T* __restrict__ w,
   for (int i = i0; i < i1; ++i) {
     __syncthreads();
     backward_chain<T, MB, BF16, true>(r, mask, g, i, j0, d, s, acc_out, rows);
-    float acc[MB][8];
+    for (int c0 = 0; c0 < d.Dp; c0 += CHUNK) {  // d_sim R, a CHUNK of columns at a time
+      const int c1 = min(d.Dp, c0 + CHUNK);
+      float acc[MB][8];
 #pragma unroll
-    for (int a = 0; a < MB; ++a)
+      for (int a = 0; a < MB; ++a)
 #pragma unroll
-      for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-    for (int r0 = 0; r0 < d.SR; r0 += RT) {  // d_sim R
-      __syncthreads();
-      load_tile(r, i, r0, d, s.Rt);
-      __syncthreads();
-      gemm_nn_tile<MB, BF16, false>(acc, s.DA, r0, s.Rt, d);
-    }
+        for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+      for (int r0 = 0; r0 < d.SR; r0 += RT) {
+        __syncthreads();
+        load_tile(r, i, r0, d, s.Rt, c0, c1);
+        __syncthreads();
+        gemm_nn_tile<MB, BF16, false>(acc, s.DA, r0, s.Rt, d, c0);
+      }
 #pragma unroll
-    for (int a = 0; a < MB; ++a) {
-      const int m = warp + kWarps * a;
-      if (m >= rows) continue;
+      for (int a = 0; a < MB; ++a) {
+        const int m = warp + kWarps * a;
+        if (m >= rows) continue;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int k = lane + 32 * jj;
-        if (k < d.D) acc_out[size_t(m) * d.D + k] += acc[a][jj];
+        for (int jj = 0; jj < 8; ++jj) {
+          const int k = c0 + lane + 32 * jj;
+          if (k < d.D) acc_out[size_t(m) * d.D + k] += acc[a][jj];
+        }
       }
     }
   }
@@ -600,15 +642,17 @@ bool dims_ok(const Dims& d) {
          d.M <= MAX_ROWS && d.Dp <= MAX_DP;
 }
 
-template <int MB>
+template <typename T, int MB, bool BF16>
 int launch_fwd(const void* r, const void* w, const uint8_t* mask, float* out, const Dims& d,
                cudaStream_t st) {
-  auto k = damsm_fwd_kernel<MB>;
+  void (*k)(const T*, const T*, const uint8_t*, float*, Dims);
+  if constexpr (BF16) k = damsm_fwd_bf16_kernel<MB>;
+  else k = damsm_fwd_kernel<MB>;
   const size_t bytes = smem_bytes(d, false);
   if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
   dim3 grid(d.B, (d.Bc + d.vb - 1) / d.vb);
-  k<<<grid, kThreads, bytes, st>>>(static_cast<const float*>(r), static_cast<const float*>(w),
-                                   mask, out, d);
+  k<<<grid, kThreads, bytes, st>>>(static_cast<const T*>(r), static_cast<const T*>(w), mask,
+                                   out, d);
   return int(cudaGetLastError());
 }
 
@@ -1439,38 +1483,37 @@ int launch_dr_tc(const void* r, const void* w, const uint8_t* mask, const float*
 
 extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, void* out,
                              int B, int Bc, int R, int T, int D, int vb, int rows, int nsplit,
-                             float g1, float g2, int dtype, void* stream) {
+                             float g1, float g2, int dtype, int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
-  if (dtype == 1) {  // the tensor-core kernel, in passes of `rows` word rows
+  if (route == 1) {  // the tensor-core kernel (bf16), in passes of `rows` word rows
     const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
-    if (!tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
+    if (dtype != 1 || !tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
     XMC_TC_DISPATCH(launch_fwd_tc, r, w, m, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
-  if (dtype != 0 || !dims_ok(d)) return int(cudaErrorInvalidValue);
-  return d.M <= 4 * kWarps ? launch_fwd<4>(r, w, m, o, d, st) : launch_fwd<8>(r, w, m, o, d, st);
+  if (route != 0 || !dims_ok(d)) return int(cudaErrorInvalidValue);
+  XMC_DAMSM_DISPATCH(launch_fwd, r, w, m, o, d, st);
 }
 
 extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, const void* g,
                                 void* partial, void* dr, int B, int Bc, int R, int T, int D,
                                 int vb, int rows, int nsplit, float g1, float g2, int dtype,
-                                void* stream) {
+                                int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* gg = static_cast<const float*>(g);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(dr);
-  if (dtype == 1) {  // the tensor-core kernel, in passes of `rows` word rows
+  if (route == 1) {  // the tensor-core kernel (bf16), in passes of `rows` word rows
     const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
-    if (!tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
+    if (dtype != 1 || !tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
     XMC_TC_DISPATCH(launch_dr_tc, r, w, m, gg, p, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
-  if (dtype != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
-  return d.M <= 4 * kWarps ? launch_dr<float, 4, false>(r, w, m, gg, p, o, d, nsplit, st)
-                           : launch_dr<float, 8, false>(r, w, m, gg, p, o, d, nsplit, st);
+  if (route != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
+  XMC_DAMSM_DISPATCH(launch_dr, r, w, m, gg, p, o, d, nsplit, st);
 }
 
 extern "C" int xmc_damsm_bwd_dw(const void* r, const void* w, const void* mask, const void* g,

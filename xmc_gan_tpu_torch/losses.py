@@ -20,7 +20,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from xmc_gan_tpu_torch.ops.cuda.damsm_score import check_shape, damsm_scores, damsm_scores_ref
+from xmc_gan_tpu_torch.ops.cuda.damsm_score import (damsm_scores, damsm_scores_ref,
+                                                 sub_caption_width)
 
 __all__ = [
     "WORD_LOSS_BLOCK_ELEMS",
@@ -151,9 +152,10 @@ def word_region_scores(region_feats: torch.Tensor, words_embs: torch.Tensor,
     (default: ``word_scores_backend``) picks the plain path
     (``damsm_score.damsm_scores_ref``: one einsum chain, or checkpointed
     caption blocks above ``block_elems``) or the fused kernels
-    (``damsm_score.damsm_scores``), whose limits on the shape
-    (``damsm_score.check_shape``) raise here, before any work.  An explicit
-    ``backend`` is obeyed; there is no fallback between the two.
+    (``damsm_score.damsm_scores``: any T, as sub-captions; D <= 1024), whose
+    limits on the shape (``damsm_score.sub_caption_width``) raise here,
+    before any work.  An explicit ``backend`` is obeyed; there is no
+    fallback between the two.
     ``compute_dtype`` (None, fp32 or bf16) is the operand type of the three
     pairwise products; accumulation and the reductions stay fp32.
     """
@@ -165,7 +167,7 @@ def word_region_scores(region_feats: torch.Tensor, words_embs: torch.Tensor,
     if backend is None:
         backend = word_scores_backend(b, bc, t, r_regions, block_elems, region_feats.device)
     if backend == "kernel":
-        check_shape(r_regions, t, region_feats.shape[2], compute_dtype)
+        sub_caption_width(r_regions, t, region_feats.shape[2], compute_dtype)
     r = l2_normalize(region_feats.float())
     w = l2_normalize(words_embs.float())
     if backend == "kernel":

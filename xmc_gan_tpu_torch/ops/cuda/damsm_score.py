@@ -17,19 +17,34 @@ all-padded caption scores a finite ~-2e29.  ``compute_dtype`` bf16 rounds
 the operands of the three products to bf16 (``r``, ``w``, ``a`` and
 ``c_hat``), and in the backward the two cotangents that autograd of the
 plain version rounds (``d c_hat`` and ``d a``); everything else is fp32.
-The bf16 forward and d_regions run on the tensor cores (launch plans
-``plan_fwd`` and ``plan_dr``); the d_regions also rounds ``d_c`` and
+
+Routes, one shape rule (``tensor_cores``): the bf16 forward and d_regions
+run on the tensor cores (launch plans ``plan_fwd`` and ``plan_dr``) if and
+only if R <= 256 and D <= 256; that d_regions also rounds ``d_c`` and
 ``d_sim`` to bf16 before their products, as the Pallas kernel does (within
-one bf16 ulp of the largest gradient of the plain version).  The bf16
-d_words and the fp32 kernels (``plan``) run on the CUDA cores.
-``check_shape`` states the kernels' limits on the shape (T <= 64 and
-D <= 256; R <= 256 in bf16); ``losses.word_region_scores`` asks it before
-routing a call here, and raises where they refuse it.
+one bf16 ulp of the largest gradient of the plain version).  Everything else
+(the d_words, every fp32 kernel, bf16 at wider R or D) runs on the CUDA
+cores (``plan``), for D <= 1024.
+
+Any T: a block holds at most 64 word rows, so where T does not fit
+``damsm_scores`` moves each caption's real words to the front, drops the
+slots past the batch's longest caption and cuts the rest into k
+sub-captions of at most ``sub_caption_width`` slots (``split_captions``:
+the last zero-padded, its padding masked), runs the kernels on the
+``[Bc * k]`` sub-captions and combines their scores by
+``combine_sub_scores``: ``score = logsumexp_k(gamma2 * s_sub) / gamma2``,
+exact up to summation order (words are independent until the logsumexp
+over T).  The split is a function of the shape and the mask, never of the
+device, so the CPU runs the split the card runs; where T fits there is no
+split.  ``sub_caption_width`` also states the one limit left (D <= 1024,
+and a word row in shared memory); ``losses.word_region_scores`` asks it
+before routing a call here.
 
 Contract of ``damsm_scores`` (a ``torch.autograd.Function``):
 
 * A CPU tensor goes to the plain version (``damsm_scores_ref``, forward and
-  VJP); a CUDA tensor launches the kernels or raises.  No fallback.
+  VJP) of each sub-caption; a CUDA tensor launches the kernels or raises.
+  No fallback: the route is decided from the shape before any launch.
 * The backward computes only what ``ctx.needs_input_grad`` asks for: in the
   train step the words carry no gradient, so the d_words kernel never runs.
 * It is not twice differentiable (``once_differentiable``).
@@ -55,24 +70,28 @@ __all__ = [
     "D_WORDS",
     "damsm_scores",
     "damsm_scores_ref",
-    "check_shape",
+    "combine_sub_scores",
+    "cuda_core_rows",
     "plan",
     "plan_dr",
     "plan_fwd",
+    "split_captions",
+    "sub_caption_width",
+    "tensor_cores",
 ]
 
 NEG = -1e30  # padded-word logit, the JAX package's constant
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, gamma1, gamma2, dtype,
-#                   stream)
+#                   route, stream)
 # int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, rows, nsplit,
-#                      gamma1, gamma2, dtype, stream)
+#                      gamma1, gamma2, dtype, route, stream)
 # int xmc_damsm_bwd_dw(r, w, mask, g, partial, dw, B, Bc, R, T, D, vb, nsplit,
 #                      gamma1, gamma2, dtype, stream)
 KERNEL = CudaLibrary("damsm_score.cu", {
-    "xmc_damsm_fwd": (_I, [_P] * 4 + [_I] * 8 + [_F, _F, _I, _P]),
-    "xmc_damsm_bwd_dr": (_I, [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P]),
+    "xmc_damsm_fwd": (_I, [_P] * 4 + [_I] * 8 + [_F, _F, _I, _I, _P]),
+    "xmc_damsm_bwd_dr": (_I, [_P] * 6 + [_I] * 8 + [_F, _F, _I, _I, _P]),
     "xmc_damsm_bwd_dw": (_I, [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
 })
 FORWARD = LaunchCount()
@@ -80,17 +99,19 @@ D_REGIONS = LaunchCount()
 D_WORDS = LaunchCount()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_CUDA_CORES, _TENSOR_CORES = 0, 1  # the C entry points' route codes
 
 # Kernel limits, mirrored from csrc/damsm_score.cu: word rows per block (a
 # sub-block of vb captions has vb*T rows), padded feature width, region rows
 # per staged tile, shared memory a block may use.
 MAX_ROWS = 64
-MAX_DP = 256
+MAX_DP = 1024
 RT = 32
 SMEM_LIMIT = 232448
 # the tensor-core (bf16) forward and d_regions kernels: word rows per pass, and R and D
 TC_MAX_ROWS = 64
 TC_MAX_RD = 256
+TC_ROWS = (64, 48, 32, 16)  # word rows per pass they can take, largest first
 TC_STAGE = 36  # row stride of a warp's d_r staging tile
 
 
@@ -98,17 +119,40 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def tensor_cores(R: int, D: int, compute_dtype: torch.dtype | None) -> bool:
+    """The route rule: the bf16 forward and d_regions run on the tensor
+    cores if and only if R <= 256 and D <= 256; every other launch (fp32,
+    d_words, bf16 at wider R or D) runs on the CUDA cores.  T plays no part:
+    the kernels see sub-captions of at most 64 slots."""
+    return compute_dtype == torch.bfloat16 and R <= TC_MAX_RD and D <= TC_MAX_RD
+
+
+def _cuda_core_smem(R: int, D: int, backward: bool) -> tuple[int, int]:
+    """(bytes per word row, fixed bytes) of a CUDA-core block's shared
+    memory: words and context ``[rows, Dp]``, the ``[rows, SR]`` attention
+    (and its cotangent in the backward) and 4 row scalars, beside the staged
+    ``[32, Dp + 4]`` region tile (fp32)."""
+    dp, sr = _round_up(D, 8), _round_up(R, RT)
+    return 4 * (2 * dp + (2 if backward else 1) * sr + 4), 4 * RT * (dp + 4)
+
+
+def cuda_core_rows(R: int, D: int, backward: bool) -> int:
+    """Word rows a CUDA-core block holds: at most 64, as many as shared
+    memory takes (0 where not one fits)."""
+    per_row, fixed = _cuda_core_smem(R, D, backward)
+    return max(0, min(MAX_ROWS, (SMEM_LIMIT - fixed) // per_row))
+
+
 def plan(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
     """(captions per block ``vb``, dynamic shared memory bytes) for one
-    kernel: as many captions as shared memory holds, at most ``bc``.  Raises
-    where even one caption does not fit (T > 64 or D > 256)."""
+    CUDA-core kernel: as many captions as shared memory holds, at most
+    ``bc``.  Raises where even one caption does not fit (T > 64, D > 1024,
+    or more rows than ``cuda_core_rows``)."""
     dp = _round_up(D, 8)
     if T > MAX_ROWS or dp > MAX_DP:
         raise ValueError(f"damsm_score kernels take T <= {MAX_ROWS} and D <= {MAX_DP}; "
                          f"got T={T}, D={D}")
-    sr = _round_up(R, RT)
-    per_row = 4 * (2 * dp + (2 if backward else 1) * sr + 4)
-    fixed = 4 * RT * (dp + 4)
+    per_row, fixed = _cuda_core_smem(R, D, backward)
     vb = min(MAX_ROWS // T, (SMEM_LIMIT - fixed) // (per_row * T), bc)
     if vb < 1:
         raise ValueError(f"damsm_score: R={R}, T={T}, D={D} does not fit in shared memory")
@@ -124,6 +168,32 @@ class TcPlan(NamedTuple):
     smem: int      # dynamic shared memory bytes
 
 
+def _tc_fwd_smem(R: int, D: int, rows: int) -> int:
+    """The bf16 forward kernel's shared memory, as ``csrc/damsm_score.cu``
+    computes it: the image's regions stay resident (``[Rp, Dp + 8]`` bf16)
+    beside two bf16 tiles of the pass's rows (words ``[rows, Dp + 8]``, a
+    ``[rows, Rp + 8]``) and 14 fp32/int words per row (rel, the 8 warps' row
+    partials, the row map)."""
+    rp, dp = _round_up(R, 16), _round_up(D, 16)
+    return 2 * (rp * (dp + 8) + rows * ((dp + 8) + (rp + 8))) + 4 * (14 * rows + 4)
+
+
+def _tc_dr_smem(R: int, D: int, rows: int) -> int:
+    """The bf16 d_regions kernel's shared memory, as ``csrc/damsm_score.cu``
+    computes it: the image's regions stay resident (``[Rp, Dp + 8]`` bf16)
+    beside four bf16 tiles of the pass's rows (words and d_c
+    ``[rows, Dp + 8]``, a and d_sim ``[rows, Rp + 8]``), each of the 8 warps'
+    fp32 d_r staging tile ``[16, TC_STAGE]`` and 15 fp32/int words per row."""
+    rp, dp = _round_up(R, 16), _round_up(D, 16)
+    return 2 * (rp * (dp + 8) + rows * (2 * (dp + 8) + 2 * (rp + 8))) + 4 * (
+        8 * 16 * TC_STAGE + 15 * rows + 4)
+
+
+def _tc_rows(smem: Callable[[int], int]) -> int:
+    """The largest of ``TC_ROWS`` whose ``smem(rows)`` fits (0 if none)."""
+    return next((m for m in TC_ROWS if smem(m) <= SMEM_LIMIT), 0)
+
+
 def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
              smem: Callable[[int], int]) -> TcPlan:
     """Rows per pass: the largest of 64, 48, 32, 16 that holds one caption
@@ -133,7 +203,7 @@ def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
     if T > TC_MAX_ROWS or R > TC_MAX_RD or D > TC_MAX_RD:
         raise ValueError(f"damsm_score bf16 {what} takes T <= {TC_MAX_ROWS}, R <= "
                          f"{TC_MAX_RD} and D <= {TC_MAX_RD}; got R={R}, T={T}, D={D}")
-    fits = [m for m in (64, 48, 32, 16) if m >= T and smem(m) <= SMEM_LIMIT]
+    fits = [m for m in TC_ROWS if m >= T and smem(m) <= SMEM_LIMIT]
     if not fits:
         raise ValueError(f"damsm_score bf16 {what}: R={R}, T={T}, D={D} does not fit in "
                          "shared memory")
@@ -142,42 +212,74 @@ def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
 
 
 def plan_fwd(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
-    """The bf16 forward kernel's plan, as ``csrc/damsm_score.cu`` computes
-    its shared memory: the image's regions stay resident (``[Rp, Dp + 8]``
-    bf16) beside two bf16 tiles of the pass's rows (words ``[rows, Dp + 8]``,
-    a ``[rows, Rp + 8]``) and 14 fp32/int words per row (rel, the 8 warps'
-    row partials, the row map)."""
-    rp, dp = _round_up(R, 16), _round_up(D, 16)
-    return _plan_tc("forward", R, T, D, b, bc, sms, lambda rows: 2 * (
-        rp * (dp + 8) + rows * ((dp + 8) + (rp + 8))) + 4 * (14 * rows + 4))
+    """The bf16 tensor-core forward kernel's plan (shared memory:
+    ``_tc_fwd_smem``)."""
+    return _plan_tc("forward", R, T, D, b, bc, sms, lambda rows: _tc_fwd_smem(R, D, rows))
 
 
 def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
-    """The bf16 d_regions kernel's plan, as ``csrc/damsm_score.cu`` computes
-    its shared memory: the image's regions stay resident (``[Rp, Dp + 8]``
-    bf16) beside four bf16 tiles of the pass's rows (words and d_c
-    ``[rows, Dp + 8]``, a and d_sim ``[rows, Rp + 8]``), each of the 8
-    warps' fp32 d_r staging tile ``[16, TC_STAGE]`` and 15 fp32/int words per
-    row."""
-    rp, dp = _round_up(R, 16), _round_up(D, 16)
-    return _plan_tc("d_regions", R, T, D, b, bc, sms, lambda rows: 2 * (
-        rp * (dp + 8) + rows * (2 * (dp + 8) + 2 * (rp + 8))) + 4 * (
-        8 * 16 * TC_STAGE + 15 * rows + 4))
+    """The bf16 tensor-core d_regions kernel's plan (shared memory:
+    ``_tc_dr_smem``)."""
+    return _plan_tc("d_regions", R, T, D, b, bc, sms, lambda rows: _tc_dr_smem(R, D, rows))
 
 
-def check_shape(R: int, T: int, D: int, compute_dtype: torch.dtype | None) -> None:
-    """Raises where the kernels' limits refuse the shape: T <= 64 and
-    D <= 256 for every kernel, R <= 256 too for the bf16 (tensor-core)
-    ones.  Longer captions and wider features, as the LN config's T = 200
-    and word D = 768, wait for the kernels to tile them (ROADMAP.md queue 2,
-    item B7); a CUDA call takes no plain route meanwhile."""
-    bf16 = compute_dtype == torch.bfloat16
-    if (T > min(MAX_ROWS, TC_MAX_ROWS) or D > min(MAX_DP, TC_MAX_RD)
-            or (bf16 and R > TC_MAX_RD)):
-        raise ValueError(
-            f"damsm_score kernels take T <= {MAX_ROWS}, D <= {MAX_DP} and, in bf16, "
-            f"R <= {TC_MAX_RD}; got R={R}, T={T}, D={D}.  Longer captions and wider "
-            "features need the word-row and feature tiling of ROADMAP.md queue 2, B7")
+def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None) -> int:
+    """Word slots per sub-caption: T where every kernel of the route holds
+    one caption of T slots, else the largest width they all hold (at most
+    64).  The d_words, on the CUDA cores on every route, and the CUDA-core
+    backward hold fewer rows than the CUDA-core forward; on the tensor-core
+    route the bf16 forward and d_regions must hold it too.  A pure function
+    of the shape: the CPU splits as the card does.  Raises for D > 1024 or
+    where not one word row fits in shared memory."""
+    if D > MAX_DP:
+        raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
+    width = cuda_core_rows(R, D, backward=True)
+    if tensor_cores(R, D, compute_dtype):
+        width = min(width, _tc_rows(lambda m: _tc_fwd_smem(R, D, m)),
+                    _tc_rows(lambda m: _tc_dr_smem(R, D, m)))
+    if width < 1:
+        per_row, fixed = _cuda_core_smem(R, D, backward=True)
+        raise ValueError(f"damsm_score: R={R}, D={D} does not fit in shared memory (a word "
+                         f"row of the backward needs {per_row} bytes beside {fixed}, of "
+                         f"{SMEM_LIMIT})")
+    return min(T, width)
+
+
+def split_captions(w: torch.Tensor, mask: torch.Tensor,
+                   width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Words ``[Bc, T, D]`` and mask ``[Bc, T]`` as sub-captions ``[Bc * k,
+    t, D]`` and ``[Bc * k, t]``.  Each caption's real words move to the
+    front in their order (a gather, through which autograd scatters d_words
+    back) and the slots past the batch's longest caption, n real words
+    (at least 1), go; the n slots left become k = ceil(n / t) sub-captions
+    of t = min(width, n) slots, the last one zero-padded, its padded slots
+    masked (True).  Reading n takes one device-to-host copy."""
+    bc, _, d = w.shape
+    mask = mask.bool()
+    n = max(1, int((~mask).sum(1).max()))
+    order = torch.argsort(mask.to(torch.uint8), dim=1, stable=True)[:, :n]
+    w = torch.gather(w, 1, order[..., None].expand(bc, n, d))
+    mask = torch.gather(mask, 1, order)
+    width = min(width, n)
+    k = -(-n // width)
+    pad = k * width - n
+    w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    mask = torch.cat([mask, mask.new_ones(bc, pad)], dim=1)
+    return w.reshape(bc * k, width, d), mask.reshape(bc * k, width)
+
+
+def combine_sub_scores(s: torch.Tensor, gamma2: float) -> torch.Tensor:
+    """Sub-caption scores ``[B, Bc, k]`` into caption scores ``[B, Bc]``:
+    ``logsumexp_k(gamma2 * s) / gamma2``, taken as ``m + logsumexp_k(gamma2
+    * (s - m)) / gamma2`` around the detached ``m = max_k s``.  Its gradient
+    is ``g * softmax_k(gamma2 * s)``.  An all-padded sub-caption, at
+    ``(-1e30 + log width) / gamma2``, adds exactly 0 beside a real one; a
+    fully padded caption keeps its sub-captions' value ``m`` bit for bit
+    (``log k / gamma2`` is far below an ulp of 2e29), the plain version's
+    ``(-1e30 + log T) / gamma2``, and hands each sub-caption ``g / k``, to
+    which the kernels add exactly 0."""
+    m = s.detach().amax(-1, keepdim=True)
+    return (m + torch.logsumexp(gamma2 * (s - m), -1, keepdim=True) / gamma2).squeeze(-1)
 
 
 def damsm_scores_ref(r: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
@@ -265,7 +367,8 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
     rr, ww, mm, code = _operands(r, w, mask, cd)
     b, R, D = r.shape
     bc, T, _ = w.shape
-    if code == 1:  # the tensor-core kernel: passes of `rows` word rows, blocks (image, split)
+    route = _TENSOR_CORES if tensor_cores(R, D, cd) else _CUDA_CORES
+    if route == _TENSOR_CORES:  # passes of `rows` word rows, blocks (image, split)
         vb, (rows, nsplit) = 0, plan_fwd(R, T, D, b, bc, _sms(r.device))[:2]
     else:
         vb, rows, nsplit = plan(R, T, D, False, bc)[0], 0, 1
@@ -273,7 +376,7 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
     fn = (library or KERNEL).load().xmc_damsm_fwd
     with torch.cuda.device(r.device):
         rc = fn(rr.data_ptr(), ww.data_ptr(), mm.data_ptr(), out.data_ptr(), b, bc, R, T, D,
-                vb, rows, nsplit, gamma1, gamma2, code, _stream(r))
+                vb, rows, nsplit, gamma1, gamma2, code, route, _stream(r))
     _raise_on(rc, "forward")
     FORWARD.launches += 1
     return out
@@ -287,7 +390,8 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
     b, R, D = r.shape
     bc, T, _ = w.shape
     g = g.float().contiguous()
-    if which == "dr" and code == 1:  # the tensor-core kernel: passes of `rows` word rows
+    route = _TENSOR_CORES if which == "dr" and tensor_cores(R, D, cd) else _CUDA_CORES
+    if route == _TENSOR_CORES:  # passes of `rows` word rows
         vb, (rows, nsplit) = 0, plan_dr(R, T, D, b, bc, _sms(r.device))[:2]
     else:
         vb, rows = plan(R, T, D, True, bc)[0], 0
@@ -299,25 +403,30 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
         partial = out if nsplit == 1 else torch.empty(
             b, nsplit, R, D, device=r.device, dtype=torch.float32)
         fn, counter, plans = lib.xmc_damsm_bwd_dr, D_REGIONS, (vb, rows)
+        route_arg = (route,)
     else:  # blocks: (caption block, split); a split owns a run of images
         out = torch.empty(bc, T, D, device=r.device, dtype=torch.float32)
         partial = out if nsplit == 1 else torch.empty(
             nsplit, bc, T, D, device=r.device, dtype=torch.float32)
         fn, counter, plans = lib.xmc_damsm_bwd_dw, D_WORDS, (vb,)
+        route_arg = ()
     with torch.cuda.device(r.device):
         rc = fn(rr.data_ptr(), ww.data_ptr(), mm.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), b, bc, R, T, D, *plans, nsplit, gamma1, gamma2, code, _stream(r))
+                out.data_ptr(), b, bc, R, T, D, *plans, nsplit, gamma1, gamma2, code,
+                *route_arg, _stream(r))
     _raise_on(rc, "d_regions" if which == "dr" else "d_words")
     counter.launches += 1
     return out
 
 
-def _plain_vjp(which: str, r, w, mask, g, gamma1, gamma2, cd) -> torch.Tensor:
-    """One input's cotangent from autograd of the plain version."""
+def _plain_vjp(which: str, r, w, mask, g, gamma1, gamma2, cd,
+               block_elems: int | None = None) -> torch.Tensor:
+    """One input's cotangent from autograd of the plain version (streaming
+    caption blocks above ``block_elems``, as ``damsm_scores_ref``)."""
     with torch.enable_grad():
         ri = r.detach().requires_grad_(which == "dr")
         wi = w.detach().requires_grad_(which == "dw")
-        out = damsm_scores_ref(ri, wi, mask, gamma1, gamma2, cd)
+        out = damsm_scores_ref(ri, wi, mask, gamma1, gamma2, cd, block_elems)
         (grad,) = torch.autograd.grad(out, ri if which == "dr" else wi, g)
     return grad
 
@@ -359,6 +468,16 @@ def damsm_scores(r: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
     """Scores ``[B, Bc]`` fp32 of normalized fp32 ``r`` ``[B, R, D]`` and
     ``w`` ``[Bc, T, D]``, ``mask`` ``[Bc, T]`` (True = padded word),
     differentiable in ``r`` and ``w``: the CUDA kernels on CUDA tensors, the
-    plain version on CPU tensors."""
+    plain version on CPU tensors.  Captions longer than
+    ``sub_caption_width`` go through as sub-captions of their real words
+    (``split_captions``), combined by ``combine_sub_scores``."""
     _check(r, w, mask, compute_dtype)
-    return _DamsmScores.apply(r, w, mask, float(gamma1), float(gamma2), compute_dtype)
+    b, R, D = r.shape
+    bc, T, _ = w.shape
+    width = sub_caption_width(R, T, D, compute_dtype)
+    args = (float(gamma1), float(gamma2), compute_dtype)
+    if width == T:
+        return _DamsmScores.apply(r, w, mask, *args)
+    w_sub, m_sub = split_captions(w, mask, width)
+    s = _DamsmScores.apply(r, w_sub, m_sub, *args)
+    return combine_sub_scores(s.view(b, bc, -1), float(gamma2))
