@@ -27,7 +27,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    bf16 through ``damsm_scores`` against the plain version on the whole
    captions, with an all-padded caption (its score bit-equal to the plain
    value, no d_words), two runs bit-equal, and the profiler's kernel names
-   showing the route (CUDA cores at D = 768 in both dtypes); the
+   showing each kernel's route (at D = 768 the bf16 d_regions on the
+   tensor cores with its regions streamed, everything else on the CUDA
+   cores); the streamed bf16 d_regions also at its edges
+   (``DAMSM_STREAMED``: D = 520, 770 and 1024, through ``damsm_scores``)
+   against the plain version, twice bit-equal; the
    ``cross_attention`` kernel through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
@@ -67,7 +71,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    stands: NCH=96, NOISE_DIM=128, batch 256, T = 200, word D = 768,
    synthetic embeddings, about half the word slots real, one all-padded
    caption) in bf16: 1 counted warm-up step (the launches asserted as
-   above, the damsm forward and d_regions on the CUDA cores), 2 timed, 1
+   above, the damsm forward on the CUDA cores, the d_regions on the tensor
+   cores with its regions streamed), 2 timed, 1
    profiled; prints the step ms, images/s, peak memory and the ten
    largest kernels.
 7. Kernel times against their bounds (CUDA events over repeated launches),
@@ -204,24 +209,46 @@ DAMSM_RAGGED = (3, 5, 50, 7, 48)
 # at most 2 words (whole 16-row tiles without a word); B != Bc throughout
 DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, None),
                ((132, 2, 24, 33, 24), True, None), ((132, 3, 50, 64, 40), False, 2)]
-# kernel names in the profiler trace, by (compute dtype, ``ds.tensor_cores``):
-# the bf16 forward and d_regions on the tensor cores at R, D <= 256, every
-# other launch on the CUDA cores
+# kernel names in the profiler trace: the forward's by (compute dtype,
+# ``ds.tensor_cores("fwd", ...)``), the d_regions' by (compute dtype, route):
+# on the tensor cores with the regions resident (D <= 256) or streamed
+# (256 < D <= 1024), or on the CUDA cores (``route_kernels``)
 FWD_KERNEL = {(torch.bfloat16, True): "damsm_fwd_tc_kernel",
               (torch.bfloat16, False): "damsm_fwd_bf16_kernel<",
               (torch.float32, False): "damsm_fwd_kernel<"}
-DR_KERNEL = {(torch.bfloat16, True): "damsm_bwd_dr_tc_kernel",
-             (torch.bfloat16, False): "damsm_bwd_dr_kernel<__nv_bfloat16",
-             (torch.float32, False): "damsm_bwd_dr_kernel<float"}
+DR_KERNEL = {(torch.bfloat16, "resident"): "damsm_bwd_dr_tc_kernel",
+             (torch.bfloat16, "streamed"): "damsm_bwd_dr_tcs_kernel",
+             (torch.bfloat16, "cuda cores"): "damsm_bwd_dr_kernel<__nv_bfloat16",
+             (torch.float32, "cuda cores"): "damsm_bwd_dr_kernel<float"}
 DW_KERNEL = "damsm_bwd_dw_kernel<"
 REGIONS = 256  # DF_DISC's region head, always its 16x16 stage
 # the LN-COCO word shape (ln_coco_256.yml: batch 256, MAX_LENGTH 200,
-# EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256, so every launch runs on the
-# CUDA cores, in both dtypes
+# EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256: the bf16 d_regions runs on
+# the tensor cores with its regions streamed, every other launch on the CUDA
+# cores
 DAMSM_LN = (256, 256, REGIONS, 200, 768)
+LN_KERNELS = {None: ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float"),
+              torch.bfloat16: ("damsm_fwd_bf16_kernel<", "damsm_bwd_dr_tcs_kernel")}
+# (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
+# streamed bf16 d_regions' edges (64-column region chunks, 16 or 32 word
+# rows a pass), through ``damsm_scores``: D = 520 (a partial last chunk, no
+# multiple of 16) with R = 50; D = 770 (rows not 16-byte aligned: plain loads
+# instead of cp.async) with an all-padded caption inside a pass; D = 1024
+# (16-row passes) with captions of at most 2 words
+DAMSM_STREAMED = [((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), True, None),
+                  ((132, 3, 256, 64, 1024), False, 2)]
 # the plain version at the LN shape streams caption blocks of this many fp32
 # elements of the [B, Bc, T, R] similarity (the whole one is 13 GB)
 LN_PLAIN_BLOCK = 2**28
+
+
+def route_kernels(R: int, D: int, cd) -> tuple[str, str]:
+    """The names of the forward and d_regions kernels that the route rule
+    (``ds.tensor_cores``) picks at R, D and compute dtype ``cd``."""
+    dt = cd or torch.float32
+    dr = ("cuda cores" if not ds.tensor_cores("dr", R, D, cd)
+          else "resident" if D <= ds.TC_MAX_RD else "streamed")
+    return FWD_KERNEL[(dt, ds.tensor_cores("fwd", R, D, cd))], DR_KERNEL[(dt, dr)]
 
 
 def log(msg: str) -> None:
@@ -622,7 +649,8 @@ def check_damsm_ln() -> dict:
     whole captions: scores, d_regions and d_words in fp32 and bf16; the
     all-padded caption's score bit-equal to the plain value and its d_words
     0; a second forward + d_regions bit-equal; the launches' kernel names
-    the route's (CUDA cores)."""
+    each kernel's route (the bf16 d_regions on the tensor cores with its
+    regions streamed, everything else on the CUDA cores)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     r, w, mask, up = ln_damsm_inputs(gen)
     b, bc, R, T, D = DAMSM_LN
@@ -630,9 +658,9 @@ def check_damsm_ln() -> dict:
     for cd in (None, torch.bfloat16):
         tol = DAMSM_TOL[cd]
         width = ds.sub_caption_width(R, T, D, cd)
-        if ds.tensor_cores(R, D, cd) or width != 16:
-            raise AssertionError(f"LN shape {CD_NAME[cd]}: width {width}, want 16 slots on the "
-                                 "CUDA cores")
+        if route_kernels(R, D, cd) != LN_KERNELS[cd] or width != 16:
+            raise AssertionError(f"LN shape {CD_NAME[cd]}: width {width}, kernels "
+                                 f"{route_kernels(R, D, cd)}; want 16 slots on {LN_KERNELS[cd]}")
         ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
         got = {}
 
@@ -641,12 +669,11 @@ def check_damsm_ln() -> dict:
             got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
 
         names = damsm_kernel_names(run)
-        route = (cd or torch.float32, False)
-        for want in (FWD_KERNEL[route], DR_KERNEL[route], DW_KERNEL):
+        for want in (*LN_KERNELS[cd], DW_KERNEL):
             if not any(want in n for n in names):
                 raise AssertionError(f"LN {CD_NAME[cd]}: no {want} among {names}")
-        if any("tc_kernel" in n for n in names):
-            raise AssertionError(f"LN {CD_NAME[cd]}: a tensor-core kernel at D = {D}: {names}")
+        if any("_tc_kernel" in n for n in names):
+            raise AssertionError(f"LN {CD_NAME[cd]}: a resident-region kernel at D = {D}: {names}")
         want_s = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd, LN_PLAIN_BLOCK)
         torch.testing.assert_close(got["s"].detach(), want_s, rtol=1e-5, atol=tol["score"])
         if not (torch.equal(got["s"][:, 1].detach(), want_s[:, 1])
@@ -676,6 +703,49 @@ def check_damsm_ln() -> dict:
         del ri, wi, got, want_s, ri2, s2, dr2
         torch.cuda.empty_cache()
     return errs
+
+
+def check_damsm_streamed() -> dict:
+    """Phase 3, the streamed bf16 d_regions at its edges (``DAMSM_STREAMED``),
+    through ``damsm_scores`` as the word loss calls it: scores, d_regions and
+    d_words against the plain version on the whole captions under
+    ``DAMSM_TOL``; the d_regions launch is the streamed kernel, and a second
+    run's d_regions is bit-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    tol = DAMSM_TOL[torch.bfloat16]
+    worst = {"forward": 0.0, "d_regions": 0.0, "d_words": 0.0}
+    for shape, allpad, max_len in DAMSM_STREAMED:
+        r, w, mask, up = damsm_inputs(shape, gen, allpad, max_len)
+        ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
+        got = {}
+
+        def run():
+            got["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, torch.bfloat16)
+            got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
+
+        names = damsm_kernel_names(run)
+        if not any(DR_KERNEL[(torch.bfloat16, "streamed")] in n for n in names):
+            raise AssertionError(f"streamed edge {shape}: no streamed d_regions among {names}")
+        want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, torch.bfloat16)
+        torch.testing.assert_close(got["s"].detach(), want, rtol=1e-5, atol=tol["score"])
+        worst["forward"] = max(worst["forward"], (got["s"].detach() - want).abs().max().item())
+        for which, key in (("dr", "d_regions"), ("dw", "d_words")):
+            want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, torch.bfloat16)
+            torch.testing.assert_close(got[which], want_g, rtol=0,
+                                       atol=tol["grad_scale"] * want_g.abs().max().item())
+            worst[key] = max(worst[key], (got[which] - want_g).abs().max().item())
+        ri2 = r.clone().requires_grad_()
+        (dr2,) = torch.autograd.grad(ds.damsm_scores(ri2, w, mask, 4.0, 5.0, torch.bfloat16),
+                                     ri2, up)
+        torch.cuda.synchronize()
+        if not torch.equal(dr2, got["dr"]):
+            raise AssertionError(f"streamed edge {shape}: two runs of d_regions differ")
+        del r, w, mask, up, ri, wi, got, want, want_g, ri2, dr2
+    torch.cuda.empty_cache()
+    log(f"[3] damsm_score bf16, streamed d_regions at the edges {DAMSM_STREAMED}: max_abs_err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tolerance {tol}); two runs of d_regions bit-equal")
+    return worst
 
 
 def attention_inputs(shape, dtype, gen, allpad: bool):
@@ -958,9 +1028,9 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
         if kernel_category(k["name"]) == "damsm_score":
             n, ms = damsm.get(k["name"], (0, 0.0))
             damsm[k["name"]] = (n + 1, ms + k["ms"])
-    route = (dtype, ds.tensor_cores(REGIONS, cfg.TEXT.EMBEDDING_DIM, dtype))
-    for what, prefix, want in (("forward", "damsm_fwd", FWD_KERNEL[route]),
-                               ("d_regions", "damsm_bwd_dr", DR_KERNEL[route])):
+    fwd_kernel, dr_kernel = route_kernels(REGIONS, cfg.TEXT.EMBEDDING_DIM, dtype)
+    for what, prefix, want in (("forward", "damsm_fwd", fwd_kernel),
+                               ("d_regions", "damsm_bwd_dr", dr_kernel)):
         got = {name: v for name, v in damsm.items() if prefix in name}
         if [v[0] for name, v in got.items() if want in name] != [2] or len(got) != 1:
             raise AssertionError(f"{label} train step: {what} kernels {got}, want 2 launches "
@@ -1247,7 +1317,10 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
                 "library_ms": None, "roofline_share": bound / ms,
                 "shapes": f"B=Bc={b}, R={R}, T={T} as {w_sub.shape[0] // bc} "
                           f"sub-captions of {w_sub.shape[1]} slots ({words} real words), D={D}, "
-                          f"compute {CD_NAME[cd]}, CUDA cores",
+                          f"compute {CD_NAME[cd]}, " + (
+                              "tensor cores (mma.sync), regions streamed"
+                              if name == "d_regions" and ds.tensor_cores("dr", R, D, cd)
+                              else "CUDA cores"),
             })
             log(f"[7] {rows[-1]['name']}: {ms:.3f} ms (bound {bound:.3f} ms by "
                 f"{rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain {plain_ms:.3f} ms; "
@@ -1275,6 +1348,7 @@ def main() -> int:
     mod_errs = check_modulation(sorted(set(mod_shapes)))
     ds_errs = check_damsm()
     ln_errs = check_damsm_ln()
+    check_damsm_streamed()
     ca_errs = check_attention(attn_in)
 
     g_cpu = make_generator(cfg, device="cpu")

@@ -162,11 +162,18 @@ def _damsm_inputs(device, shape, seed, allpad, max_len=None):
 # so that whole 16-row tiles of a pass hold no word.  Last, the flagship's
 # widths at 132 images of 40 captions: the bf16 forward's passes fill up to
 # 64 rows (``plan_fwd``), so each image's captions run in several passes,
-# with an all-padded caption among them.
+# with an all-padded caption among them.  Then the edges of the streamed bf16
+# d_regions (D > 256: regions in 64-column chunks): D = 520 (a partial last
+# chunk, no multiple of 16) with R = 50 and T = 20; D = 770 (rows not 16-byte
+# aligned: plain loads, not cp.async) with an all-padded caption inside a
+# pass; D = 1024 (16-row passes) with captions of at most 2 words, through
+# the sub-caption split.
 DAMSM_SHAPES = [((3, 5, 50, 7, 48), True, None), ((2, 3, 5, 3, 12), True, None),
                 ((4, 7, 256, 20, 256), False, None), ((132, 7, 64, 7, 40), True, None),
                 ((132, 9, 50, 20, 40), False, None), ((132, 2, 24, 33, 24), True, None),
-                ((132, 3, 50, 64, 40), False, 2), ((132, 40, 256, 20, 256), True, None)]
+                ((132, 3, 50, 64, 40), False, 2), ((132, 40, 256, 20, 256), True, None),
+                ((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), True, None),
+                ((132, 3, 256, 64, 1024), False, 2)]
 
 
 @pytest.mark.cuda
@@ -222,11 +229,13 @@ def _damsm_kernel_names(fn) -> set[str]:
 
 
 # (shape, compute dtype, the forward's and d_regions' kernels): the LN
-# config's word shape (T = 200, D = 768) on the CUDA cores in both dtypes,
-# and T = 130 at D = 256, whose bf16 sub-captions stay on the tensor cores
+# config's word shape (T = 200, D = 768) on the CUDA cores in fp32, and in
+# bf16 the forward on the CUDA cores, the d_regions on the tensor cores with
+# its regions streamed; T = 130 at D = 256, whose bf16 sub-captions stay on
+# the tensor cores with resident regions
 LN_CASES = [((16, 16, 256, 200, 768), None, ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float")),
             ((16, 16, 256, 200, 768), torch.bfloat16,
-             ("damsm_fwd_bf16_kernel<", "damsm_bwd_dr_kernel<__nv_bfloat16")),
+             ("damsm_fwd_bf16_kernel<", "damsm_bwd_dr_tcs_kernel<")),
             ((16, 16, 256, 130, 256), torch.bfloat16,
              ("damsm_fwd_tc_kernel<", "damsm_bwd_dr_tc_kernel<"))]
 
@@ -237,11 +246,12 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
     """Captions longer than a block's rows, as sub-captions: scores,
     d_regions and d_words (one launch each) against the plain version on
     the whole captions, under the same tolerances; the launches take the
-    route the shape rule names (``ds.tensor_cores``); the all-padded
-    caption scores exactly the plain value and gets no d_words."""
+    route the rule names for each kernel (``ds.tensor_cores``); the
+    all-padded caption scores exactly the plain value and gets no d_words."""
     b, bc, R, T, D = shape
     assert ds.sub_caption_width(R, T, D, cd) < T
-    assert ds.tensor_cores(R, D, cd) == ("tc_kernel" in kernels[0])
+    assert ds.tensor_cores("fwd", R, D, cd) == ("_tc_kernel" in kernels[0])
+    assert ds.tensor_cores("dr", R, D, cd) == ("_tc" in kernels[1])
     r, w, mask, up = _ln_inputs(cuda_device, shape, 12)
     ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
     before = (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches)
@@ -256,7 +266,7 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
         n + 1 for n in before)
     for want in kernels + ("damsm_bwd_dw_kernel<",):
         assert any(want in n for n in names), (want, names)
-    assert not any("tc_kernel" in n for n in names) or "tc_kernel" in kernels[0], names
+    assert not [n for n in names if "_tc" in n and not any(k in n for k in kernels)], names
     rr, wr = r.clone().requires_grad_(), w.clone().requires_grad_()
     want = ds.damsm_scores_ref(rr, wr, mask, 4.0, 5.0, cd)
     dr_w, dw_w = torch.autograd.grad(want, (rr, wr), up)
@@ -302,6 +312,28 @@ def test_damsm_bf16_d_regions_is_deterministic_and_ignores_padded_captions(cuda_
 
 
 @pytest.mark.cuda
+def test_damsm_streamed_d_regions_is_deterministic_and_ignores_padded_captions(cuda_device):
+    """The same for the bf16 d_regions with streamed regions (D = 768, the
+    LN width, 16-slot captions as the LN sub-captions): two launches
+    bit-equal, the all-padded caption's cotangent adds 0, and the result
+    within one bf16 ulp of the largest gradient of the plain version."""
+    r, w, mask, up = _damsm_inputs(cuda_device, (8, 24, 256, 16, 768), 14, allpad=True)
+    names = _damsm_kernel_names(
+        lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16))
+    assert any("damsm_bwd_dr_tcs_kernel<" in n for n in names), names
+    first = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
+    again = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
+    up2 = up.clone()
+    up2[:, 1] = 100.0
+    moved = ds._launch_bwd("dr", r, w, mask, up2, 4.0, 5.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, moved)
+    want = ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
+    torch.testing.assert_close(first, want, rtol=0,
+                               atol=DAMSM_TOL[torch.bfloat16][1] * want.abs().max().item())
+
+
+@pytest.mark.cuda
 def test_damsm_bf16_forward_is_deterministic_and_scores_padded_captions(cuda_device):
     """Two launches of the bf16 (tensor-core) forward are bit-equal, every
     score is finite, and the all-padded caption, which takes no row of any
@@ -322,15 +354,19 @@ def test_damsm_bf16_forward_is_deterministic_and_scores_padded_captions(cuda_dev
 def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
     """The build with the bf16 tensor-core kernels' phase counters
     (``xmc_gan_tpu_torch/damsm_phases.py``) counts every phase of d_regions
-    and of the forward, and the passes, and nothing outside each kernel's
-    phases, and gives the same d_regions and scores bit for bit."""
+    (regions resident, and streamed at D = 768) and of the forward, and the
+    passes, and nothing outside each kernel's phases, and gives the same
+    d_regions and scores bit for bit."""
     from xmc_gan_tpu_torch import damsm_phases
 
     r, w, mask, up = _damsm_inputs(cuda_device, (4, 24, 256, 20, 256), 10, allpad=True)
+    rs, ws, ms, us = _damsm_inputs(cuda_device, (4, 24, 256, 16, 768), 10, allpad=True)
     lib = damsm_phases.phase_library()
     for kernel, launch in (
             ("d_regions", lambda **kw: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0,
                                                       torch.bfloat16, **kw)),
+            ("d_regions, streamed", lambda **kw: ds._launch_bwd("dr", rs, ws, ms, us, 4.0, 5.0,
+                                                                torch.bfloat16, **kw)),
             ("forward", lambda **kw: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16,
                                                     **kw))):
         want = launch()

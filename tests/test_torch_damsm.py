@@ -4,6 +4,9 @@ the JAX package's Pallas ``damsm_scores`` in interpret mode, as
 CPU tensors.  The CUDA kernels themselves run in ``tests/test_torch_cuda.py``
 (marker ``cuda``)."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,14 +229,23 @@ def test_kernel_plan_mirrors_the_source():
         ds.plan(256, 17, 768, True, 4)
 
 
-def test_route_rule():
-    """One shape rule: the bf16 forward and d_regions on the tensor cores
-    if and only if R <= 256 and D <= 256; fp32 always on the CUDA cores."""
-    for R, D in [(256, 256), (50, 48), (1, 1)]:
-        assert ds.tensor_cores(R, D, torch.bfloat16)
-        assert not ds.tensor_cores(R, D, None) and not ds.tensor_cores(R, D, torch.float32)
-    for R, D in [(256, 768), (257, 256), (300, 16), (16, 264), (256, 1024)]:
-        assert not ds.tensor_cores(R, D, torch.bfloat16)
+@pytest.mark.parametrize("which", ["fwd", "dr", "dw"])
+def test_route_rule(which):
+    """One rule per kernel: the bf16 d_regions on the tensor cores if and
+    only if R <= 256 and D <= 1024 (regions resident at D <= 256, streamed
+    above), the bf16 forward if and only if R <= 256 and D <= 256; the
+    d_words and every fp32 launch on the CUDA cores."""
+    flagship = [(256, 256), (50, 48), (1, 1)]
+    wide = [(256, 768), (16, 264), (256, 1024), (64, 770), (50, 520)]
+    never = [(257, 256), (300, 16), (257, 768), (256, 1025)]
+    for R, D in flagship + wide + never:
+        assert not ds.tensor_cores(which, R, D, None)
+        assert not ds.tensor_cores(which, R, D, torch.float32)
+    tc = {"fwd": flagship, "dr": flagship + wide, "dw": []}[which]
+    for R, D in flagship + wide + never:
+        assert ds.tensor_cores(which, R, D, torch.bfloat16) == ((R, D) in tc), (R, D)
+    with pytest.raises(ValueError, match="which"):
+        ds.tensor_cores("d_regions", 256, 256, torch.bfloat16)
 
 
 @pytest.mark.parametrize("cd", [None, torch.float32, torch.bfloat16])
@@ -250,6 +262,7 @@ def test_sub_caption_width_mirrors_the_plans(cd):
                     (50, 64, 40), (5, 3, 12)]:
         assert ds.sub_caption_width(R, T, D, cd) == T
     assert ds.sub_caption_width(256, 200, 768, cd) == 16
+    assert ds.sub_caption_width(50, 77, 520, cd) == (32 if bf16 else 35)  # streamed: 32 rows
     assert ds.sub_caption_width(256, 130, 256, cd) == (32 if bf16 else 48)
     assert ds.sub_caption_width(256, 64, 256, cd) == (32 if bf16 else 48)
     assert ds.sub_caption_width(256, 200, 1024, cd) == 9
@@ -259,9 +272,14 @@ def test_sub_caption_width_mirrors_the_plans(cd):
         assert 1 <= width <= 64 and width <= T
         for backward in (False, True):
             assert ds.plan(R, width, D, backward, 4)[0] >= 1
-        if ds.tensor_cores(R, D, cd):
+        if ds.tensor_cores("fwd", R, D, cd):
             assert ds.plan_fwd(R, width, D, 4, 4, 132).rows >= width
+        if ds.tensor_cores("dr", R, D, cd):
             assert ds.plan_dr(R, width, D, 4, 4, 132).rows >= width
+    # the LN word shape keeps 16 slots: the bf16 d_regions there (streamed
+    # regions) holds 32 rows a pass, the CUDA-core backward 16
+    assert ds.plan_dr(256, 16, 768, 256, 2048, 132).rows == 32
+    assert ds.cuda_core_rows(256, 768, backward=True) == 16
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.sub_caption_width(256, 20, 1025, cd)
     with pytest.raises(ValueError, match="shared memory"):
@@ -301,34 +319,66 @@ def test_split_captions_and_combine():
     torch.testing.assert_close(g[0, 1], torch.full((3,), 1.0))
 
 
-def test_tensor_core_plan_mirrors_the_source():
+def _source_constant(name: str) -> int:
+    """``constexpr int <name> = <value>`` from ``csrc/damsm_score.cu``."""
+    src = (Path(ds.__file__).resolve().parents[2] / "csrc" / "damsm_score.cu").read_text()
+    found = re.findall(rf"constexpr int (?:\w+ = \w+, )?{name} = (\d+)", src)
+    assert len(found) == 1, (name, found)
+    return int(found[0])
+
+
+@pytest.mark.parametrize("D", [256, 264, 520, 768, 1024])
+def test_tensor_core_plan_mirrors_the_source(D):
     """The bf16 d_regions kernel's plan as ``csrc/damsm_score.cu`` computes
-    its shared memory: at the flagship shape (B = Bc = 128, R = 256, T = 20,
-    D = 256, 132 multiprocessors) passes of 32 word rows (48 do not fit
-    beside the resident regions), one block per image with all 128 captions
-    (one wave: a block takes a multiprocessor's shared memory), within the
-    227 KB a block may use; fewer images get caption splits to fill the
-    card; rows per pass are a multiple of 16 and hold a whole caption;
-    T > 64, R > 256 and D > 256 are refused."""
-    p = ds.plan_dr(256, 20, 256, 128, 128, 132)
-    assert (p.rows, p.nsplit, p.captions) == (32, 1, 128)
-    assert ds.plan_dr(256, 20, 256, 32, 128, 132)[1:3] == (4, 32)
-    # the card tests' edge shapes: 132 images, one split, all captions a block
-    assert ds.plan_dr(50, 20, 40, 132, 9, 132) == (64, 1, 9, ds.plan_dr(50, 20, 40, 1, 1, 1).smem)
+    its shared memory, with the constants read from the source.  D = 256,
+    regions resident: at the flagship shape (B = Bc = 128, R = 256, T = 20,
+    132 multiprocessors) passes of 32 word rows (48 do not fit beside the
+    resident regions), one block per image with all 128 captions (one wave:
+    a block takes a multiprocessor's shared memory), within the 227 KB a
+    block may use; fewer images get caption splits to fill the card; rows
+    per pass are a multiple of 16 and hold a whole caption; T > 64 and
+    R > 256 are refused.  D > 256, regions streamed in 64-column chunks:
+    words and d_c ``[rows, Dp + 8]``, a and d_sim ``[rows, Rp + 8]`` (bf16),
+    a union of the two region chunk buffers and the warps' d_r staging
+    tiles, 15 words a row; 32 rows a pass where they fit (to D = 768 at
+    R = 256; 16 at D = 1024); T > 32 and D > 1024 are refused."""
+    assert (_source_constant("SMEM_LIMIT"), _source_constant("TC_STAGE"),
+            _source_constant("TC_MAX_RD")) == (ds.SMEM_LIMIT, ds.TC_STAGE, ds.TC_MAX_RD)
+    assert (_source_constant("TCS_KC"), _source_constant("TCS_MAX_D"),
+            _source_constant("TCS_MAX_ROWS")) == (ds.TCS_KC, ds.TCS_MAX_D, ds.TCS_ROWS[0])
     stage = 8 * 16 * ds.TC_STAGE  # the warps' d_r staging tiles, fp32
-    assert p.smem == 2 * (256 * 264 + 32 * 4 * 264) + 4 * (stage + 15 * 32 + 4)
-    assert p.smem <= ds.SMEM_LIMIT
-    assert 2 * (256 * 264 + 48 * 4 * 264) + 4 * (stage + 15 * 48 + 4) > ds.SMEM_LIMIT
-    for dims in [(50, 7, 48), (256, 20, 256), (24, 33, 24), (50, 64, 40), (5, 3, 12)]:
-        p = ds.plan_dr(*dims, 3, 5, 132)
-        assert p.rows % 16 == 0 and p.rows >= dims[1] and p.smem <= ds.SMEM_LIMIT
-        assert p.nsplit * p.captions >= 5
-    with pytest.raises(ValueError, match="T <= 64"):
-        ds.plan_dr(16, 65, 8, 2, 4, 132)
-    with pytest.raises(ValueError, match="D <= 256"):
-        ds.plan_dr(16, 8, 260, 2, 4, 132)
     with pytest.raises(ValueError, match="R <= 256"):
-        ds.plan_dr(300, 8, 16, 2, 4, 132)
+        ds.plan_dr(300, 8, D, 2, 4, 132)
+    if D == 256:
+        p = ds.plan_dr(256, 20, 256, 128, 128, 132)
+        assert (p.rows, p.nsplit, p.captions) == (32, 1, 128)
+        assert ds.plan_dr(256, 20, 256, 32, 128, 132)[1:3] == (4, 32)
+        # the card tests' edge shapes: 132 images, one split, all captions a block
+        assert ds.plan_dr(50, 20, 40, 132, 9, 132) == (64, 1, 9, ds.plan_dr(50, 20, 40, 1, 1, 1).smem)
+        assert p.smem == 2 * (256 * 264 + 32 * 4 * 264) + 4 * (stage + 15 * 32 + 4)
+        assert p.smem <= ds.SMEM_LIMIT
+        assert 2 * (256 * 264 + 48 * 4 * 264) + 4 * (stage + 15 * 48 + 4) > ds.SMEM_LIMIT
+        for dims in [(50, 7, 48), (256, 20, 256), (24, 33, 24), (50, 64, 40), (5, 3, 12)]:
+            p = ds.plan_dr(*dims, 3, 5, 132)
+            assert p.rows % 16 == 0 and p.rows >= dims[1] and p.smem <= ds.SMEM_LIMIT
+            assert p.nsplit * p.captions >= 5
+        with pytest.raises(ValueError, match="T <= 64"):
+            ds.plan_dr(16, 65, 8, 2, 4, 132)
+    else:
+        dp = -(-D // 16) * 16
+        p = ds.plan_dr(256, 16, D, 256, 2048, 132)  # the LN sub-captions at this D
+        union = max(2 * 2 * 256 * (ds.TCS_KC + 8), 4 * stage)
+        smem = {m: 2 * m * (2 * (dp + 8) + 2 * 264) + union + 4 * (15 * m + 4) for m in (16, 32)}
+        assert p == ((32 if smem[32] <= ds.SMEM_LIMIT else 16), 1, 2048, smem[p.rows])
+        assert (p.rows == 32) == (D <= 768) and p.smem <= ds.SMEM_LIMIT
+        assert ds.plan_dr(256, 16, D, 32, 128, 132)[1:3] == (4, 32)
+        # ragged R: the union is the staging tiles where the region buffers are smaller
+        q = ds.plan_dr(16, 7, D, 132, 7, 132)
+        assert q == (32, 1, 7, 2 * 32 * (2 * (dp + 8) + 2 * 24) + 4 * stage + 4 * (15 * 32 + 4))
+        with pytest.raises(ValueError, match="T <= 32"):
+            ds.plan_dr(256, 33, D, 2, 4, 132)
+        with pytest.raises(ValueError, match="D <= 1024"):
+            ds.plan_dr(16, 8, 1032, 2, 4, 132)
 
 
 def test_forward_plan_mirrors_the_source():
@@ -396,3 +446,33 @@ def test_plain_d_regions_ignores_padded_words(seed):
         want = ds._plain_vjp("dr", r, w, m, gt, 4.0, 5.0, cd)
         got = ds._plain_vjp("dr", r, w2, m, gt, 4.0, 5.0, cd)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_d_regions_padded_columns_and_words_add_nothing(seed):
+    """The streamed bf16 d_regions (D > 256) fills the feature columns past
+    D with zeros (D = 520 is a multiple neither of its 16-column tiles nor
+    of its 64-column region chunks) and packs only the real words.  Both
+    are exact in the plain version, the kernel's reference: zero columns
+    appended to regions and words get exactly 0 of d_regions and leave the
+    real columns within the summation order (1e-6 of the largest fp32,
+    ``TOL`` bf16), and a padded word's values do not reach d_regions."""
+    regions, words, mask, g = _problem(b=2, bc=3, r=50, t=7, d=520, seed=seed)
+    r = pl.l2_normalize(torch.from_numpy(regions))
+    w = pl.l2_normalize(torch.from_numpy(words))
+    m = torch.from_numpy(mask)
+    gt = torch.from_numpy(g)
+    other = pl.l2_normalize(torch.from_numpy(
+        np.random.RandomState(seed + 10).randn(*words.shape).astype(np.float32)))
+    w2 = torch.where(m[..., None], other, w)
+    assert not torch.equal(w, w2)
+    pad = 576 - 520  # to the ninth region chunk's end
+    rp, wp = torch.nn.functional.pad(r, (0, pad)), torch.nn.functional.pad(w, (0, pad))
+    for cd in (None, torch.bfloat16):
+        want = ds._plain_vjp("dr", r, w, m, gt, 4.0, 5.0, cd)
+        got = ds._plain_vjp("dr", rp, wp, m, gt, 4.0, 5.0, cd)
+        assert got.shape == (2, 50, 576) and not got[..., 520:].any()
+        scale = 1e-6 if cd is None else TOL[cd]
+        _close(got[..., :520].numpy(), want.numpy(), scale, "padded columns")
+        torch.testing.assert_close(ds._plain_vjp("dr", r, w2, m, gt, 4.0, 5.0, cd), want,
+                                   rtol=0, atol=0)

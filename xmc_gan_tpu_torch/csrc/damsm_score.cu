@@ -20,11 +20,14 @@
 // operations (2*T*R*D per product: 2 products forward, 5 for d_regions, 4
 // for d_words; 86 / 215 / 172 GFLOP at B = Bc = 128, T = 20, R = D = 256),
 // against 67 TFLOP/s fp32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
-// cores.  Route (the wrapper's rule, ops/cuda/damsm_score.py tensor_cores):
-// the bf16 forward and d_regions run on the tensor cores (their own section
-// below) where R <= 256 and D <= 256; the bf16 d_words, every fp32 path and
-// the bf16 forward and d_regions at wider R or D run on the CUDA cores (fp32
-// keeps 1e-5 against its plain version, which TF32 would not).  Captions
+// cores.  Route (the wrapper's rule per kernel, ops/cuda/damsm_score.py
+// tensor_cores): the bf16 d_regions runs on the tensor cores where R <= 256
+// and D <= 1024 (regions resident in shared memory at D <= 256, streamed
+// through it above: their own sections below), the bf16 forward where
+// R <= 256 and D <= 256; the bf16 d_words, every fp32 path, the bf16
+// forward at wider R or D and the bf16 d_regions at wider R run on the CUDA
+// cores (fp32 keeps 1e-5 against its plain version, which TF32 would not).
+// Captions
 // longer than a block's rows reach the kernels as sub-captions: the wrapper
 // splits each caption's T slots into pieces of at most 64 and combines
 // their scores by a logsumexp (exact: words are independent until the
@@ -53,7 +56,9 @@
 // The kernels allocate nothing and launch on the caller's stream.
 //
 // The bf16 kernels on the tensor cores: the forward (damsm_fwd_tc_kernel) and
-// d_regions (damsm_bwd_dr_tc_kernel).  What they share:
+// d_regions (damsm_bwd_dr_tc_kernel) at R, D <= 256, and the streamed
+// d_regions (damsm_bwd_dr_tcs_kernel) at 256 < D <= 1024.  What the first two
+// share (the streamed one keeps all of it but the resident regions):
 //  * Products are mma.sync.m16n8k16 bf16 tiles with fp32 accumulators;
 //    operands are bf16 in shared memory, read with ldmatrix (.trans where
 //    the contraction runs along a tile's rows).
@@ -122,6 +127,36 @@
 //    one bf16 ulp (2^-7) of the largest gradient (chip_smoke.py phase 3
 //    prints the error).
 //
+// The streamed d_regions (damsm_bwd_dr_tcs_kernel), 256 < D <= 1024, R <= 256:
+//  * The same blocks, passes, products, rounding points and d_r
+//    accumulation as damsm_bwd_dr_tc_kernel, but the image's bf16 regions
+//    (397 KB at R = 256, D = 768) do not fit in a block's shared memory: they
+//    stream through it in TCS_KC = 64-column chunks, double-buffered with
+//    cp.async (16-byte, zero-filled past R and D; plain loads where rows are
+//    not 16-byte aligned), once for each product that reads them: sim = W R^T
+//    and d a = d_c R^T add each chunk's contraction into the [Mp, R] tiles in
+//    registers; c = rnd(a) R takes a chunk of columns at a time, and the
+//    pass's [Mp, D] fp32 context stays in registers (a warp owns n-tile
+//    q * 8 + warp of chunk q: 12 n-tiles, 96 fp32 a thread at Mp = 32,
+//    D = 768), so the norm, rel, c_hat . d c_hat and d_c, each a reduction
+//    over all of D, need no second product.  The d_r products read W, DC, P
+//    and DS, already in shared memory; their staging tiles reuse the region
+//    buffers.  Padded columns (D to Dp, Dp to the chunk's end) are 0 in the
+//    regions and the words, so they add exactly 0 to sim, |c|, rel and d_r.
+//  * Shared memory: words and d_c 2*Mp*(Dp+8)*2, a and d_sim 2*Mp*(Rp+8)*2,
+//    then max(two region buffers 2*Rp*(TCS_KC+8)*2, 8 staging tiles
+//    8*16*36*4), and 15*Mp+4 fp32/int words.  At R = 256, D = 768, Mp = 32:
+//    99,328 + 33,792 + 73,728 + 1,936 = 208,784 bytes; at D = 1024, 32 rows
+//    need 241,552, so Mp = 16 (157,648).  Mp <= 32: the context registers.
+//  * Bound: the same count of products (5 per real word and image), 12.9 ms
+//    at the LN word shape (B = Bc = 256, 25,300 real words) over 989 TFLOP/s.
+//    What holds it back (xmc_gan_tpu_torch/damsm_phases.py, at that shape,
+//    ~860 passes an image): the products, ~43% of the cycles, c = rnd(a) R
+//    and the d_r pair the most; streaming the regions, ~20%, nearly all of
+//    it in issuing the chunks' cp.async (the product phases include it);
+//    the per-pass read-modify-write of the block's [R, D] fp32 d_r slice
+//    (1.57 MB), ~18%; the two sweeps over D, ~11%.
+//
 // C interface (ctypes; pointers and the stream as void*):
 //   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, g1, g2,
 //                     dtype, route, stream)
@@ -133,14 +168,15 @@
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
 //   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
 //   route 0 = the CUDA-core kernel (either dtype), 1 = the tensor-core one
-//   (bf16 only); d_words always runs on the CUDA cores.  vb is the captions
+//   (bf16 only; xmc_damsm_bwd_dr takes the streamed kernel for D > 256);
+//   d_words always runs on the CUDA cores.  vb is the captions
 //   per block of the CUDA-core kernels; rows is the word rows per pass, Mp,
 //   of the tensor-core forward and d_regions (route 1), whose blocks are
 //   (image, split) for nsplit splits.  Each is ignored where the other
 //   applies.
 //   Returns cudaGetLastError() after the launches (0 = success).
 //   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels also count their
-//   cycles per phase: int xmc_damsm_phases_read(host [13] uint64),
+//   cycles per phase: int xmc_damsm_phases_read(host [21] uint64),
 //   int xmc_damsm_phases_reset() (xmc_gan_tpu_torch/damsm_phases.py).
 
 #include <cuda_bf16.h>
@@ -708,8 +744,12 @@ constexpr int TC_STAGE = 36;     // row stride (fp32) of a warp's [16][32] d_r s
 // read-modify-write of each 16 x 64 tile (TC_PHASE_ARGS / TC_PHASE_PASS hand
 // it the clocks).  Slots 0-3 and 9 are both kernels' (pack, words, sim +
 // softmax, c + rel, regions), 4-8 and 11 the d_regions', 12 the forward's
-// scores.  Without the flag the macros are empty.
-constexpr int TC_NPHASE = 13, TC_PASSES = 10;
+// scores.  The streamed d_regions (damsm_bwd_dr_tcs_kernel) shares 0, 1, 4,
+// 7, 8 and 11 and has its own 13-20: the waits for its region chunks
+// (cp.async and the barrier after it), the sim, c and d a products, the
+// softmax, the two sweeps over all of D (norm + rel, d_c) and d_sim.
+// Without the flag the macros are empty.
+constexpr int TC_NPHASE = 21, TC_PASSES = 10;
 #ifdef XMC_DAMSM_PHASES
 __device__ unsigned long long g_phase_cycles[TC_NPHASE];
 #define TC_PHASE_ARGS , long long (&phase_acc)[TC_NPHASE], long long& phase_t
@@ -1120,26 +1160,13 @@ __device__ __forceinline__ int tc_next_pass(const __nv_bfloat16* __restrict__ w,
   return rows;
 }
 
-// A pass's chain up to rel, on the words in W, as the plain version computes
-// it: sim = W R^T; a = softmax_R(g1 sim) (fp32, in registers) and P = rnd(a)
-// in shared memory; c = P R; c_hat = c / max(|c|, 1e-12) (left in c, with
-// inrm = 1 / max(|c|, 1e-12)); rel = sum_D rnd(c_hat) w into s.rel.  The
-// warp owns the n-tiles ntR0 .. ntR0+ntwR-1 of Rp and ntD0 .. ntD0+ntwD-1 of
-// Dp.  Ends after a barrier.
+// a = softmax_R(g1 sim) in place of the sim tiles a (the warp's n-tiles
+// ntR0 .. ntR0+ntwR-1 of Rp; padded regions get 0), and P = rnd(a) in shared
+// memory; v is scratch.
 template <int MT>
-__device__ __forceinline__ void tc_attend(float (&a)[MT][4][4], float (&c)[MT][4][4],
-                                          float (&inrm)[MT][2], int ntR0, int ntwR, int ntD0,
-                                          int ntwD, const TcDims& d,
-                                          const TcSmem& s TC_PHASE_ARGS) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
-  float v[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[mt][jj][e] = 0.f;
-  tc_rows_by_regions<MT>(a, s.W, s.Rs, ntR0, ntwR, d);
+__device__ __forceinline__ void tc_softmax(float (&a)[MT][4][4], float (&v)[MT][2], int ntR0,
+                                           int ntwR, const TcDims& d, const TcSmem& s) {
+  const int lane = threadIdx.x & 31, q2 = 2 * (lane & 3);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -1185,6 +1212,29 @@ __device__ __forceinline__ void tc_attend(float (&a)[MT][4][4], float (&c)[MT][4
             pack_bf16(a[mt][jj][2 * h], a[mt][jj][2 * h + 1]);
       }
     }
+}
+
+// A pass's chain up to rel, on the words in W, as the plain version computes
+// it: sim = W R^T; a = softmax_R(g1 sim) (fp32, in registers) and P = rnd(a)
+// in shared memory; c = P R; c_hat = c / max(|c|, 1e-12) (left in c, with
+// inrm = 1 / max(|c|, 1e-12)); rel = sum_D rnd(c_hat) w into s.rel.  The
+// warp owns the n-tiles ntR0 .. ntR0+ntwR-1 of Rp and ntD0 .. ntD0+ntwD-1 of
+// Dp.  Ends after a barrier.
+template <int MT>
+__device__ __forceinline__ void tc_attend(float (&a)[MT][4][4], float (&c)[MT][4][4],
+                                          float (&inrm)[MT][2], int ntR0, int ntwR, int ntD0,
+                                          int ntwD, const TcDims& d,
+                                          const TcSmem& s TC_PHASE_ARGS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
+  float v[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[mt][jj][e] = 0.f;
+  tc_rows_by_regions<MT>(a, s.W, s.Rs, ntR0, ntwR, d);
+  tc_softmax<MT>(a, v, ntR0, ntwR, d, s);
   __syncthreads();
   TC_PHASE(2);
 
@@ -1237,6 +1287,67 @@ __device__ __forceinline__ void tc_attend(float (&a)[MT][4][4], float (&c)[MT][4
       for (int h = 0; h < 2; ++h) s.rel[mt * 16 + (lane >> 2) + 8 * h] = v[mt][h];
   __syncthreads();
   TC_PHASE(3);
+}
+
+// d rel = g_ij softmax over the real words of each of the pass's ncap
+// captions (image i) into s.drel; 0 on the unused rows.
+__device__ __forceinline__ void tc_drel(const float* __restrict__ g, int i, int rows, int ncap,
+                                        const TcDims& d, const TcSmem& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int cs = warp; cs < ncap; cs += kWarps) {
+    const int base = s.cap_base[cs], n = s.cap_n[cs];
+    float mx = -INFINITY;
+    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, d.g2 * s.rel[base + t]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int t = lane; t < n; t += 32) sum += expf(d.g2 * s.rel[base + t] - mx);
+    sum = warp_sum(sum);
+    const float gij = g[size_t(i) * d.Bc + s.cap_j[cs]];
+    for (int t = lane; t < n; t += 32)
+      s.drel[base + t] = gij * (expf(d.g2 * s.rel[base + t] - mx) / sum);
+  }
+  for (int m = rows + threadIdx.x; m < d.Mp; m += kThreads) s.drel[m] = 0.f;
+}
+
+// From the fp32 d_c R^T tiles da: d a = rnd(da), in place; d_sim = g1 a (d a
+// - sum_R a d a) and DS = rnd(d_sim) in shared memory (the warp's n-tiles
+// ntR0 .. ntR0+ntwR-1 of Rp); v is scratch.
+template <int MT>
+__device__ __forceinline__ void tc_dsim(const float (&a)[MT][4][4], float (&da)[MT][4][4],
+                                        float (&v)[MT][2], int ntR0, int ntwR, const TcDims& d,
+                                        const TcSmem& s) {
+  const int lane = threadIdx.x & 31, q2 = 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[mt][h] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = rnd<true>(da[mt][jj][2 * h + e]);
+          da[mt][jj][2 * h + e] = x;
+          if (jj < ntwR) v[mt][h] = fmaf(a[mt][jj][2 * h + e], x, v[mt][h]);
+        }
+    }
+  tc_rows<MT, false>(v, s.red, d.Mp);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (jj >= ntwR) continue;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          ds[e] = d.g1 * (a[mt][jj][2 * h + e] * (da[mt][jj][2 * h + e] - v[mt][h]));
+        *reinterpret_cast<uint32_t*>(s.DS + row * d.SR + (ntR0 + jj) * 8 + q2) =
+            pack_bf16(ds[0], ds[1]);
+      }
+    }
 }
 
 // The forward, bf16 operands: block (image i, split).  The split's captions
@@ -1323,20 +1434,7 @@ damsm_bwd_dr_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16*
     float a[MT][4][4], c[MT][4][4], inrm[MT][2], v[MT][2];
     tc_attend<MT>(a, c, inrm, ntR0, ntwR, ntD0, ntwD, d, s TC_PHASE_PASS);
 
-    // d rel = g_ij softmax over the caption's real words (0 on unused rows)
-    for (int cs = warp; cs < ncap; cs += kWarps) {
-      const int base = s.cap_base[cs], n = s.cap_n[cs];
-      float mx = -INFINITY;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, d.g2 * s.rel[base + t]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int t = lane; t < n; t += 32) sum += expf(d.g2 * s.rel[base + t] - mx);
-      sum = warp_sum(sum);
-      const float gij = g[size_t(i) * d.Bc + s.cap_j[cs]];
-      for (int t = lane; t < n; t += 32)
-        s.drel[base + t] = gij * (expf(d.g2 * s.rel[base + t] - mx) / sum);
-    }
-    for (int m = rows + threadIdx.x; m < d.Mp; m += kThreads) s.drel[m] = 0.f;
+    tc_drel(g, i, rows, ncap, d, s);
     __syncthreads();
     TC_PHASE(4);
 
@@ -1386,37 +1484,7 @@ damsm_bwd_dr_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16*
 #pragma unroll
         for (int e = 0; e < 4; ++e) c[mt][jj][e] = 0.f;
     tc_rows_by_regions<MT>(c, s.DC, s.Rs, ntR0, ntwR, d);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        v[mt][h] = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float da = rnd<true>(c[mt][jj][2 * h + e]);
-            c[mt][jj][2 * h + e] = da;
-            if (jj < ntwR) v[mt][h] = fmaf(a[mt][jj][2 * h + e], da, v[mt][h]);
-          }
-      }
-    tc_rows<MT, false>(v, s.red, d.Mp);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = mt * 16 + (lane >> 2) + 8 * h;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (jj >= ntwR) continue;
-          float ds[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            ds[e] = d.g1 * (a[mt][jj][2 * h + e] * (c[mt][jj][2 * h + e] - v[mt][h]));
-          *reinterpret_cast<uint32_t*>(s.DS + row * d.SR + (ntR0 + jj) * 8 + q2) =
-              pack_bf16(ds[0], ds[1]);
-        }
-      }
+    tc_dsim<MT>(a, c, v, ntR0, ntwR, d, s);
     __syncthreads();
     TC_PHASE(6);
 
@@ -1428,6 +1496,356 @@ damsm_bwd_dr_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16*
   if (first)  // no caption of the split has a real word: the slice is 0
     for (int e = threadIdx.x; e < d.R * d.D; e += kThreads) out[e] = 0.f;
   TC_PHASE_FLUSH
+}
+
+// ---------------------------------------------------------------------------
+// bf16 d_regions on the tensor cores at 256 < D <= 1024, the regions streamed
+// (header: "The streamed d_regions").
+// ---------------------------------------------------------------------------
+
+constexpr int TCS_MAX_D = 1024;     // D limit (the [Mp, D] context lives in registers)
+constexpr int TCS_MAX_ROWS = 32;    // word rows per pass: 16 or 32
+constexpr int TCS_KC = 64;          // region columns per streamed chunk: one n-tile per warp
+constexpr int TCS_SK = TCS_KC + 8;  // row stride (bf16) of a chunk buffer, +8 as SD
+
+bool tcs_dims_ok(const TcDims& d) {
+  return d.B > 0 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.R <= TC_MAX_RD && d.D > TC_MAX_RD &&
+         d.D <= TCS_MAX_D && (d.Mp == 16 || d.Mp == TCS_MAX_ROWS) && d.T <= d.Mp;
+}
+
+// Words W and d_c DC [Mp][SD], a P and d_sim DS [Mp][SR] (bf16), then one
+// union: two region chunk buffers Rs [2][Rp][TCS_SK] (bf16) during the
+// products, each warp's d_r staging tile [kWarps][16][TC_STAGE] (fp32) during
+// the d_r accumulation; then rel, drel, red and the row map as above.
+__host__ __device__ inline size_t tcs_union_bytes(const TcDims& d) {
+  const size_t regions = 2 * 2 * size_t(d.Rp) * TCS_SK, stage = 4 * size_t(kWarps) * 16 * TC_STAGE;
+  return regions > stage ? regions : stage;
+}
+
+size_t tcs_smem_bytes(const TcDims& d) {
+  return 2 * 2 * size_t(d.Mp) * (d.SD + d.SR) + tcs_union_bytes(d) + 4 * (size_t(15) * d.Mp + 4);
+}
+
+__device__ TcSmem tcs_carve(unsigned char* base, const TcDims& d) {
+  TcSmem s;
+  s.W = reinterpret_cast<__nv_bfloat16*>(base);
+  s.DC = s.W + d.Mp * d.SD;
+  s.P = s.DC + d.Mp * d.SD;
+  s.DS = s.P + d.Mp * d.SR;
+  s.Rs = s.DS + d.Mp * d.SR;
+  s.stage = reinterpret_cast<float*>(s.Rs);
+  s.rel = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.Rs) + tcs_union_bytes(d));
+  s.drel = s.rel + d.Mp;
+  s.red = s.drel + d.Mp;
+  s.row_t = reinterpret_cast<int*>(s.red + kWarps * d.Mp);
+  s.row_c = s.row_t + d.Mp;
+  s.cap_j = s.row_c + d.Mp;
+  s.cap_base = s.cap_j + d.Mp;
+  s.cap_n = s.cap_base + d.Mp;
+  s.info = s.cap_n + d.Mp;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Columns k0 .. k0+TCS_KC-1 of the image's regions ri [R][D] into the chunk
+// buffer dst [Rp][TCS_SK]; rows past R and columns past D are 0.  16-byte
+// cp.async (zero-filled where out of range) where the rows are 16-byte
+// aligned (d.vec), else plain loads and stores.
+__device__ void tcs_load_chunk(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ ri, int k0,
+                               const TcDims& d) {
+  constexpr int kc = TCS_KC / 8;
+  for (int e = threadIdx.x; e < d.Rp * kc; e += kThreads) {
+    const int q = e / kc, kk = (e % kc) * 8, k = k0 + kk;
+    __nv_bfloat16* to = dst + q * TCS_SK + kk;
+    const bool in = q < d.R && k < d.D;
+    if (d.vec) {
+      const __nv_bfloat16* from = in ? ri + size_t(q) * d.D + k : ri;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :
+                   : "r"(smem_u32(to)), "l"(from), "r"(in ? 16 : 0)
+                   : "memory");
+    } else {
+      uint32_t h[8] = {};
+      if (in) {
+        const uint16_t* s16 = reinterpret_cast<const uint16_t*>(ri + size_t(q) * d.D);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) h[x] = k + x < d.D ? s16[k + x] : 0u;
+      }
+      *reinterpret_cast<uint4*>(to) = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                                                 h[4] | (h[5] << 16), h[6] | (h[7] << 16));
+    }
+  }
+}
+
+// Chunk q of the sweep: start loading chunk q + 1 into the other buffer,
+// wait for chunk q (issued one step earlier), and return its buffer.  Phase
+// SLOT takes the time up to the wait, slot 13 the wait.  The caller ends each
+// step with a barrier, before the buffer it read is loaded again.
+template <int SLOT>
+__device__ __forceinline__ const __nv_bfloat16* tcs_next_chunk(const __nv_bfloat16* __restrict__ ri,
+                                                              int q, int nq, const TcDims& d,
+                                                              const TcSmem& s TC_PHASE_ARGS) {
+  if (q + 1 < nq) tcs_load_chunk(s.Rs + ((q + 1) & 1) * d.Rp * TCS_SK, ri, (q + 1) * TCS_KC, d);
+  cp_async_commit();
+  TC_PHASE(SLOT);
+  cp_async_wait_all_but_last();
+  __syncthreads();
+  TC_PHASE(13);
+  return s.Rs + (q & 1) * d.Rp * TCS_SK;
+}
+
+// acc[mt][j] += A[Mp][Dp] R^T over the region chunks, for the warp's n-tiles
+// nt0 .. nt0+ntw-1 of Rp (products sim = W R^T and d a = d_c R^T, phase SLOT).
+// Ends after a barrier.
+template <int MT, int SLOT>
+__device__ void tcs_rows_by_regions(float (&acc)[MT][4][4], const __nv_bfloat16* A,
+                                    const __nv_bfloat16* __restrict__ ri, int nt0, int ntw,
+                                    const TcDims& d, const TcSmem& s TC_PHASE_ARGS) {
+  const int lane = threadIdx.x & 31;
+  const int nq = (d.Dp + TCS_KC - 1) / TCS_KC;
+  tcs_load_chunk(s.Rs, ri, 0, d);
+  cp_async_commit();
+  for (int q = 0; q < nq; ++q) {
+    const __nv_bfloat16* Rc = tcs_next_chunk<SLOT>(ri, q, nq, d, s TC_PHASE_PASS);
+    const int k0 = q * TCS_KC, kn = min(TCS_KC, d.Dp - k0);
+    for (int kk = 0; kk < kn; kk += 16) {
+      uint32_t a[MT][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(a[mt], A + (mt * 16 + (lane & 15)) * d.SD + k0 + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < ntw)
+          ldsm_x2(b[j], Rc + ((nt0 + j) * 8 + (lane & 7)) * TCS_SK + kk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < ntw)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a[mt], b[j][0], b[j][1]);
+    }
+    __syncthreads();
+  }
+  TC_PHASE(SLOT);
+}
+
+// c[mt][q] += P[Mp][Rp] R[:, chunk q] over the region chunks (c = rnd(a) R):
+// in chunk q the warp owns the n-tile q * 8 + warp of Dp, whose fp32 sums
+// stay in registers for the pass.  Ends after a barrier.
+template <int MT, int NQ>
+__device__ void tcs_attn_by_regions(float (&c)[MT][NQ][4], const __nv_bfloat16* __restrict__ ri,
+                                    const TcDims& d, const TcSmem& s TC_PHASE_ARGS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nq = (d.Dp + TCS_KC - 1) / TCS_KC, nD = d.Dp / 8;
+  tcs_load_chunk(s.Rs, ri, 0, d);
+  cp_async_commit();
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    if (q >= nq) break;
+    const __nv_bfloat16* Rc = tcs_next_chunk<16>(ri, q, nq, d, s TC_PHASE_PASS);
+    if (q * 8 + warp < nD)
+      for (int k0 = 0; k0 < d.Rp; k0 += 16) {
+        uint32_t a[MT][4], b[2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_x4(a[mt], s.P + (mt * 16 + (lane & 15)) * d.SR + k0 + (lane >> 4) * 8);
+        ldsm_x2_t(b, Rc + (k0 + (lane & 15)) * TCS_SK + warp * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(c[mt][q], a[mt], b[0], b[1]);
+      }
+    __syncthreads();
+  }
+  TC_PHASE(16);
+}
+
+// d_regions, bf16 operands, 256 < D <= 1024: block (image i, split), as
+// damsm_bwd_dr_tc_kernel, with the image's regions streamed through shared
+// memory in TCS_KC-column chunks, once for each product that reads them, and
+// the pass's [Mp, D] context in registers (a warp owns one n-tile of each
+// chunk).
+template <int MT, int NQ>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_bwd_dr_tcs_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ w,
+                        const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                        float* __restrict__ partial, TcDims d, int nsplit) {
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  const TcSmem s = tcs_carve(tc_smem_raw, d);
+  TC_PHASE_INIT
+  const int i = blockIdx.x, split = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
+  const int per = (d.Bc + nsplit - 1) / nsplit;
+  const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
+  float* out = partial + (size_t(i) * nsplit + split) * d.R * d.D;
+  const __nv_bfloat16* ri = r + size_t(i) * d.R * d.D;
+  // a warp's columns: adjacent n-tiles (8 wide) of Rp; n-tile q * 8 + warp of
+  // Dp in chunk q (valid while below nD)
+  const int nR = d.Rp / 8, nD = d.Dp / 8, nq = (d.Dp + TCS_KC - 1) / TCS_KC;
+  const int twR = (nR + kWarps - 1) / kWarps;
+  const int ntR0 = warp * twR, ntwR = max(0, min(twR, nR - ntR0));
+  bool first = true;
+  for (int j = c0; j < c1;) {
+    const int rows = tc_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS);
+    if (rows == 0) break;
+    const int ncap = s.info[1];
+    float a[MT][4][4], c[MT][NQ][4], inrm[MT][2], v[MT][2];
+
+    // sim = W R^T; a = softmax_R(g1 sim) (fp32, in registers), P = rnd(a)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[mt][jj][e] = 0.f;
+    tcs_rows_by_regions<MT, 14>(a, s.W, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
+    tc_softmax<MT>(a, v, ntR0, ntwR, d, s);
+    __syncthreads();
+    TC_PHASE(15);
+
+    // c = P R; c_hat = c / max(|c|, 1e-12) (left in c); rel = sum_D rnd(c_hat) w
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][q][e] = 0.f;
+    tcs_attn_by_regions<MT, NQ>(c, ri, d, s TC_PHASE_PASS);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        inrm[mt][h] = 0.f;  // the sum of c^2 first
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = c[mt][q][2 * h + e];
+            if (q < nq && q * 8 + warp < nD) inrm[mt][h] = fmaf(x, x, inrm[mt][h]);
+          }
+      }
+    tc_rows<MT, false>(inrm, s.red, d.Mp);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        inrm[mt][h] = 1.f / fmaxf(sqrtf(inrm[mt][h]), 1e-12f);
+        v[mt][h] = 0.f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (q >= nq || q * 8 + warp >= nD) continue;
+          const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              s.W + row * d.SD + (q * 8 + warp) * 8 + q2));
+          const float x0 = c[mt][q][2 * h] * inrm[mt][h];
+          const float x1 = c[mt][q][2 * h + 1] * inrm[mt][h];
+          c[mt][q][2 * h] = x0;
+          c[mt][q][2 * h + 1] = x1;
+          v[mt][h] = fmaf(rnd<true>(x0), wv.x, fmaf(rnd<true>(x1), wv.y, v[mt][h]));
+        }
+      }
+    tc_rows<MT, false>(v, s.red, d.Mp);
+    if (warp == 0 && (lane & 3) == 0)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) s.rel[mt * 16 + (lane >> 2) + 8 * h] = v[mt][h];
+    __syncthreads();
+    TC_PHASE(17);
+
+    tc_drel(g, i, rows, ncap, d, s);
+    __syncthreads();
+    TC_PHASE(4);
+
+    // d c_hat = rnd(d rel w); d_c = (d c_hat - c_hat <c_hat, d c_hat>) / nrm; DC = rnd(d_c)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        const float dr = s.drel[row];
+        v[mt][h] = 0.f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (q >= nq || q * 8 + warp >= nD) continue;
+          const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              s.W + row * d.SD + (q * 8 + warp) * 8 + q2));
+          v[mt][h] = fmaf(c[mt][q][2 * h], rnd<true>(dr * wv.x),
+                          fmaf(c[mt][q][2 * h + 1], rnd<true>(dr * wv.y), v[mt][h]));
+        }
+      }
+    tc_rows<MT, false>(v, s.red, d.Mp);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        const float dr = s.drel[row];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (q >= nq || q * 8 + warp >= nD) continue;
+          const int col = (q * 8 + warp) * 8 + q2;
+          const float2 wv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(s.W + row * d.SD + col));
+          *reinterpret_cast<uint32_t*>(s.DC + row * d.SD + col) =
+              pack_bf16((rnd<true>(dr * wv.x) - c[mt][q][2 * h] * v[mt][h]) * inrm[mt][h],
+                        (rnd<true>(dr * wv.y) - c[mt][q][2 * h + 1] * v[mt][h]) * inrm[mt][h]);
+        }
+      }
+    __syncthreads();
+    TC_PHASE(18);
+
+    // d a = rnd(d_c R^T); d_sim = g1 a (d a - sum_R a d a); DS = rnd(d_sim)
+    float da[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) da[mt][jj][e] = 0.f;
+    tcs_rows_by_regions<MT, 19>(da, s.DC, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
+    tc_dsim<MT>(a, da, v, ntR0, ntwR, d, s);
+    __syncthreads();
+    TC_PHASE(20);
+
+    tc_accumulate_dr(out, first, d, s TC_PHASE_PASS);  // its staging tiles reuse Rs
+    TC_PHASE_SYNC(11);
+    TC_PHASE_COUNT(TC_PASSES);
+    first = false;
+  }
+  if (first)  // no caption of the split has a real word: the slice is 0
+    for (int e = threadIdx.x; e < d.R * d.D; e += kThreads) out[e] = 0.f;
+  TC_PHASE_FLUSH
+}
+
+template <int MT, int NQ>
+int launch_dr_tcs(const void* r, const void* w, const uint8_t* mask, const float* g,
+                  float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_bwd_dr_tcs_kernel<MT, NQ>;
+  const size_t bytes = tcs_smem_bytes(d);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  dim3 grid(d.B, nsplit);
+  k<<<grid, kThreads, bytes, st>>>(static_cast<const __nv_bfloat16*>(r),
+                                   static_cast<const __nv_bfloat16*>(w), mask, g, partial, d,
+                                   nsplit);
+  if (partial != dr) launch_sum(partial, dr, d.B, nsplit, int64_t(d.R) * d.D, st);
+  return int(cudaGetLastError());
+}
+
+// Dispatch the streamed d_regions on MT = Mp / 16 (1 or 2) and NQ, the
+// region chunks a pass holds context registers for: 8, 12 or 16 (D <= 512,
+// 768, 1024).
+template <int MT>
+int dispatch_dr_tcs(const void* r, const void* w, const uint8_t* mask, const float* g,
+                    float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
+  const int nq = (d.Dp + TCS_KC - 1) / TCS_KC;
+  if (nq <= 8) return launch_dr_tcs<MT, 8>(r, w, mask, g, partial, dr, d, nsplit, st);
+  if (nq <= 12) return launch_dr_tcs<MT, 12>(r, w, mask, g, partial, dr, d, nsplit, st);
+  return launch_dr_tcs<MT, 16>(r, w, mask, g, partial, dr, d, nsplit, st);
 }
 
 template <int MT>
@@ -1506,9 +1924,15 @@ extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, 
   const float* gg = static_cast<const float*>(g);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(dr);
-  if (route == 1) {  // the tensor-core kernel (bf16), in passes of `rows` word rows
+  if (route == 1) {  // a tensor-core kernel (bf16), in passes of `rows` word rows
     const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
-    if (dtype != 1 || !tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
+    if (dtype != 1 || nsplit < 1) return int(cudaErrorInvalidValue);
+    if (D > TC_MAX_RD) {  // the regions streamed
+      if (!tcs_dims_ok(t)) return int(cudaErrorInvalidValue);
+      return t.Mp == 16 ? dispatch_dr_tcs<1>(r, w, m, gg, p, o, t, nsplit, st)
+                        : dispatch_dr_tcs<2>(r, w, m, gg, p, o, t, nsplit, st);
+    }
+    if (!tc_dims_ok(t)) return int(cudaErrorInvalidValue);  // the regions resident
     XMC_TC_DISPATCH(launch_dr_tc, r, w, m, gg, p, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);

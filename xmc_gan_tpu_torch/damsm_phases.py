@@ -7,8 +7,11 @@ d_regions and forward kernels then add each block's ``clock64()`` cycles
 between its barriers into per-phase counters), runs one launch of each
 kernel of that build through its wrapper, at the wrapper's own plan, at the
 flagship word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words, D =
-256) and prints the card, each launch's time (CUDA events) and its cycles
-per pass of each phase, summed over blocks.  Phases both kernels have: pack
+256), and of the streamed d_regions at the LN-COCO word shape (B = Bc =
+256, R = 256, T = 200 as the 16-slot sub-captions of the packed real words
+that ``damsm_scores`` hands it, D = 768), and prints the card, each
+launch's time (CUDA events) and its cycles per pass of each phase, summed
+over blocks.  Phases both flagship kernels have: pack
 (warp 0 packs the pass's real words), words (their load), sim + softmax
 (products W R^T, softmax, a to shared memory), c + rel (a R, norms, rel),
 regions (the block's one load, per pass; the forward's also writes the
@@ -18,9 +21,15 @@ warp sees it: d_r products (a^T d_c + d_sim^T W, as issued) and d_r
 read-modify-write (the staging, the wait for the slice's earlier sums and
 for the products' results, the stores), and d_r barrier (the wait for the
 block's other warps).  The forward then: scores (each caption's logsumexp
-and the wait for the block's other warps).  The counters cost time of their
-own (an extra barrier a pass), so a launch is slower than the plain
-build's.  Needs a GPU and ``nvcc``; imports nothing of JAX.
+and the wait for the block's other warps).  The streamed d_regions
+(D > 256) has pack, words, d rel and the three d_r phases, and instead of
+the others: region waits (the waits for its streamed region chunks,
+``cp.async`` and the barrier after it, over its three sweeps), the sim, c
+and d a products (each with the issue of the next chunk's loads), softmax,
+norm + rel and d_c (the two reductions over all of D) and d_sim.  The
+counters cost time of their own (an extra barrier a pass), so a launch is
+slower than the plain build's.  Needs a GPU and ``nvcc``; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -34,12 +43,15 @@ from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary
 
 # csrc/damsm_score.cu: the TC_PHASE slots (TC_NPHASE of them; [PASSES] counts passes)
-NPHASE, PASSES = 13, 10
+NPHASE, PASSES = 21, 10
 PHASES = {0: "pack", 1: "words", 2: "sim + softmax", 3: "c + rel", 4: "d rel", 5: "d_c",
           6: "d a + d_sim", 7: "d_r products", 8: "d_r read-modify-write", 9: "regions",
-          11: "d_r barrier", 12: "scores"}
+          11: "d_r barrier", 12: "scores", 13: "region waits", 14: "sim products",
+          15: "softmax", 16: "c products", 17: "norm + rel", 18: "d_c (norm)",
+          19: "d a products", 20: "d_sim"}
 # each kernel's phases, in the order a pass runs them
 KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
+                 "d_regions, streamed": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
                  "forward": (0, 1, 2, 3, 12, 9)}
 
 
@@ -67,20 +79,35 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     lib = phase_library()
     gen = torch.Generator(device="cuda").manual_seed(4)
-    b, bc, R, T, D = 128, 128, 256, 20, 256
     norm = torch.nn.functional.normalize
+    b, bc, R, T, D = 128, 128, 256, 20, 256
     r = norm(torch.randn(b, R, D, generator=gen, device="cuda"), dim=-1)
     w = norm(torch.randn(bc, T, D, generator=gen, device="cuda"), dim=-1)
     lens = torch.randint(1, T + 1, (bc,), generator=gen, device="cuda")
     mask = torch.arange(T, device="cuda")[None, :] >= lens[:, None]
     up = torch.randn(b, bc, generator=gen, device="cuda")
+    # the LN-COCO word shape: about half the 200 slots real, scattered; the
+    # sub-captions of the packed real words, each with its caption's cotangent
+    ln_b, ln_t, ln_d = 256, 200, 768
+    ln_r = norm(torch.randn(ln_b, R, ln_d, generator=gen, device="cuda"), dim=-1)
+    ln_w = norm(torch.randn(ln_b, ln_t, ln_d, generator=gen, device="cuda"), dim=-1)
+    ln_mask = torch.rand(ln_b, ln_t, generator=gen, device="cuda") > 0.5
+    ln_up = torch.randn(ln_b, ln_b, generator=gen, device="cuda")
+    w_sub, m_sub = ds.split_captions(ln_w, ln_mask,
+                                     ds.sub_caption_width(R, ln_t, ln_d, torch.bfloat16))
+    g_sub = ln_up.repeat_interleave(w_sub.shape[0] // ln_b, dim=1)
     launches = {
-        "d_regions": lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16,
-                                            library=lib),
-        "forward": lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16, library=lib),
+        "d_regions": (lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16,
+                                             library=lib), b, mask, f"T={T}", D),
+        "d_regions, streamed": (lambda: ds._launch_bwd("dr", ln_r, w_sub, m_sub, g_sub, 4.0, 5.0,
+                                                       torch.bfloat16, library=lib), ln_b,
+                                ln_mask, f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions",
+                                ln_d),
+        "forward": (lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16, library=lib), b,
+                    mask, f"T={T}", D),
     }
     print(card)
-    for kernel, launch in launches.items():
+    for kernel, (launch, nb, words, t_desc, d) in launches.items():
         launch()
         torch.cuda.synchronize()
         lib.load().xmc_damsm_phases_reset()
@@ -91,9 +118,9 @@ def main() -> int:
         torch.cuda.synchronize()
         cycles = read_phases(lib)
         passes = max(1, cycles[PASSES])
-        print(f"bf16 {kernel}, B={b}, Bc={bc}, R={R}, T={T} ({int((~mask).sum())} real words), "
-              f"D={D}: {start.elapsed_time(end):.3f} ms with counters, {cycles[PASSES]} passes "
-              f"({cycles[PASSES] / b:.1f} per image)")
+        print(f"bf16 {kernel}, B=Bc={nb}, R={R}, {t_desc} ({int((~words).sum())} real words), "
+              f"D={d}: {start.elapsed_time(end):.3f} ms with counters, {cycles[PASSES]} passes "
+              f"({cycles[PASSES] / nb:.1f} per image)")
         total = sum(cycles[k] for k in KERNEL_PHASES[kernel])
         for k in KERNEL_PHASES[kernel]:
             print(f"  {PHASES[k]:22s} {cycles[k] / passes:9.0f} cycles/pass "

@@ -18,13 +18,16 @@ the operands of the three products to bf16 (``r``, ``w``, ``a`` and
 ``c_hat``), and in the backward the two cotangents that autograd of the
 plain version rounds (``d c_hat`` and ``d a``); everything else is fp32.
 
-Routes, one shape rule (``tensor_cores``): the bf16 forward and d_regions
-run on the tensor cores (launch plans ``plan_fwd`` and ``plan_dr``) if and
-only if R <= 256 and D <= 256; that d_regions also rounds ``d_c`` and
-``d_sim`` to bf16 before their products, as the Pallas kernel does (within
-one bf16 ulp of the largest gradient of the plain version).  Everything else
-(the d_words, every fp32 kernel, bf16 at wider R or D) runs on the CUDA
-cores (``plan``), for D <= 1024.
+Routes, one rule per kernel (``tensor_cores(which, R, D, compute_dtype)``):
+the bf16 d_regions runs on the tensor cores (launch plan ``plan_dr``) if and
+only if R <= 256 and D <= 1024, with the image's regions resident in shared
+memory at D <= 256 and streamed through it in column chunks above; the bf16
+forward (``plan_fwd``) if and only if R <= 256 and D <= 256.  The tensor-core
+d_regions also rounds ``d_c`` and ``d_sim`` to bf16 before their products,
+as the Pallas kernel does (within one bf16 ulp of the largest gradient of
+the plain version).  Everything else (the d_words, every fp32 kernel, the
+bf16 forward at wider R or D, the bf16 d_regions at wider R) runs on the
+CUDA cores (``plan``), for D <= 1024.
 
 Any T: a block holds at most 64 word rows, so where T does not fit
 ``damsm_scores`` moves each caption's real words to the front, drops the
@@ -108,23 +111,33 @@ MAX_ROWS = 64
 MAX_DP = 1024
 RT = 32
 SMEM_LIMIT = 232448
-# the tensor-core (bf16) forward and d_regions kernels: word rows per pass, and R and D
-TC_MAX_ROWS = 64
+# the tensor-core (bf16) forward and d_regions kernels with resident regions: R and D
 TC_MAX_RD = 256
 TC_ROWS = (64, 48, 32, 16)  # word rows per pass they can take, largest first
 TC_STAGE = 36  # row stride of a warp's d_r staging tile
+# the tensor-core (bf16) d_regions with streamed regions (256 < D <= 1024): word rows
+# per pass it can take, largest first; region columns per streamed chunk
+TCS_MAX_D = 1024
+TCS_ROWS = (32, 16)
+TCS_KC = 64
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def tensor_cores(R: int, D: int, compute_dtype: torch.dtype | None) -> bool:
-    """The route rule: the bf16 forward and d_regions run on the tensor
-    cores if and only if R <= 256 and D <= 256; every other launch (fp32,
-    d_words, bf16 at wider R or D) runs on the CUDA cores.  T plays no part:
-    the kernels see sub-captions of at most 64 slots."""
-    return compute_dtype == torch.bfloat16 and R <= TC_MAX_RD and D <= TC_MAX_RD
+def tensor_cores(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> bool:
+    """The route rule, per kernel (``which``: "fwd", "dr" or "dw"): the bf16
+    d_regions runs on the tensor cores if and only if R <= 256 and D <= 1024
+    (regions resident at D <= 256, streamed above), the bf16 forward if and
+    only if R <= 256 and D <= 256; every other launch (fp32, d_words, bf16
+    at wider R or D) runs on the CUDA cores.  T plays no part: the kernels
+    see sub-captions of at most 64 slots."""
+    if which not in ("fwd", "dr", "dw"):
+        raise ValueError(f"which must be 'fwd', 'dr' or 'dw', got {which!r}")
+    if compute_dtype != torch.bfloat16 or R > TC_MAX_RD or which == "dw":
+        return False
+    return D <= (TCS_MAX_D if which == "dr" else TC_MAX_RD)
 
 
 def _cuda_core_smem(R: int, D: int, backward: bool) -> tuple[int, int]:
@@ -189,21 +202,34 @@ def _tc_dr_smem(R: int, D: int, rows: int) -> int:
         8 * 16 * TC_STAGE + 15 * rows + 4)
 
 
-def _tc_rows(smem: Callable[[int], int]) -> int:
-    """The largest of ``TC_ROWS`` whose ``smem(rows)`` fits (0 if none)."""
-    return next((m for m in TC_ROWS if smem(m) <= SMEM_LIMIT), 0)
+def _tcs_dr_smem(R: int, D: int, rows: int) -> int:
+    """The streamed bf16 d_regions kernel's shared memory (256 < D <= 1024),
+    as ``csrc/damsm_score.cu`` computes it: four bf16 tiles of the pass's
+    rows as ``_tc_dr_smem``, then one union of the two region chunk buffers
+    ``[2, Rp, TCS_KC + 8]`` bf16 (the products) and the 8 warps' fp32 d_r
+    staging tiles ``[16, TC_STAGE]`` (the d_r accumulation), and 15 fp32/int
+    words per row."""
+    rp, dp = _round_up(R, 16), _round_up(D, 16)
+    union = max(2 * 2 * rp * (TCS_KC + 8), 4 * 8 * 16 * TC_STAGE)
+    return 2 * rows * (2 * (dp + 8) + 2 * (rp + 8)) + union + 4 * (15 * rows + 4)
+
+
+def _tc_rows(smem: Callable[[int], int], rows: tuple[int, ...] = TC_ROWS) -> int:
+    """The largest of ``rows`` whose ``smem(rows)`` fits (0 if none)."""
+    return next((m for m in rows if smem(m) <= SMEM_LIMIT), 0)
 
 
 def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
-             smem: Callable[[int], int]) -> TcPlan:
-    """Rows per pass: the largest of 64, 48, 32, 16 that holds one caption
-    and whose ``smem(rows)`` fits.  A block takes a multiprocessor's shared
+             smem: Callable[[int], int], rows: tuple[int, ...] = TC_ROWS,
+             max_d: int = TC_MAX_RD) -> TcPlan:
+    """Rows per pass: the largest of ``rows`` that holds one caption and
+    whose ``smem(rows)`` fits.  A block takes a multiprocessor's shared
     memory, so the splits fill the card's ``sms`` once: ``sms // b`` (at
-    least 1).  Raises for T > 64, R > 256 or D > 256."""
-    if T > TC_MAX_ROWS or R > TC_MAX_RD or D > TC_MAX_RD:
-        raise ValueError(f"damsm_score bf16 {what} takes T <= {TC_MAX_ROWS}, R <= "
-                         f"{TC_MAX_RD} and D <= {TC_MAX_RD}; got R={R}, T={T}, D={D}")
-    fits = [m for m in TC_ROWS if m >= T and smem(m) <= SMEM_LIMIT]
+    least 1).  Raises for T > max(rows), R > 256 or D > ``max_d``."""
+    if T > rows[0] or R > TC_MAX_RD or D > max_d:
+        raise ValueError(f"damsm_score bf16 {what} takes T <= {rows[0]}, R <= "
+                         f"{TC_MAX_RD} and D <= {max_d}; got R={R}, T={T}, D={D}")
+    fits = [m for m in rows if m >= T and smem(m) <= SMEM_LIMIT]
     if not fits:
         raise ValueError(f"damsm_score bf16 {what}: R={R}, T={T}, D={D} does not fit in "
                          "shared memory")
@@ -217,26 +243,37 @@ def plan_fwd(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     return _plan_tc("forward", R, T, D, b, bc, sms, lambda rows: _tc_fwd_smem(R, D, rows))
 
 
+def _dr_kernel(R: int, D: int) -> tuple[Callable[[int], int], tuple[int, ...], int]:
+    """The bf16 tensor-core d_regions kernel that takes R, D: its shared
+    memory for a number of rows, the rows per pass it can take and its D
+    limit.  The resident-region kernel at D <= 256 (``_tc_dr_smem``), the
+    streamed one above (``_tcs_dr_smem``: 32 or 16 rows, D <= 1024)."""
+    if D <= TC_MAX_RD:
+        return (lambda rows: _tc_dr_smem(R, D, rows)), TC_ROWS, TC_MAX_RD
+    return (lambda rows: _tcs_dr_smem(R, D, rows)), TCS_ROWS, TCS_MAX_D
+
+
 def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
-    """The bf16 tensor-core d_regions kernel's plan (shared memory:
-    ``_tc_dr_smem``)."""
-    return _plan_tc("d_regions", R, T, D, b, bc, sms, lambda rows: _tc_dr_smem(R, D, rows))
+    """The bf16 tensor-core d_regions kernel's plan (``_dr_kernel``)."""
+    return _plan_tc("d_regions", R, T, D, b, bc, sms, *_dr_kernel(R, D))
 
 
 def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None) -> int:
     """Word slots per sub-caption: T where every kernel of the route holds
     one caption of T slots, else the largest width they all hold (at most
     64).  The d_words, on the CUDA cores on every route, and the CUDA-core
-    backward hold fewer rows than the CUDA-core forward; on the tensor-core
-    route the bf16 forward and d_regions must hold it too.  A pure function
-    of the shape: the CPU splits as the card does.  Raises for D > 1024 or
-    where not one word row fits in shared memory."""
+    backward hold fewer rows than the CUDA-core forward; the bf16 forward
+    and d_regions must hold it too where ``tensor_cores`` puts them on the
+    tensor cores.  A pure function of the shape: the CPU splits as the card
+    does.  Raises for D > 1024 or where not one word row fits in shared
+    memory."""
     if D > MAX_DP:
         raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
     width = cuda_core_rows(R, D, backward=True)
-    if tensor_cores(R, D, compute_dtype):
-        width = min(width, _tc_rows(lambda m: _tc_fwd_smem(R, D, m)),
-                    _tc_rows(lambda m: _tc_dr_smem(R, D, m)))
+    if tensor_cores("fwd", R, D, compute_dtype):
+        width = min(width, _tc_rows(lambda m: _tc_fwd_smem(R, D, m)))
+    if tensor_cores("dr", R, D, compute_dtype):
+        width = min(width, _tc_rows(*_dr_kernel(R, D)[:2]))
     if width < 1:
         per_row, fixed = _cuda_core_smem(R, D, backward=True)
         raise ValueError(f"damsm_score: R={R}, D={D} does not fit in shared memory (a word "
@@ -367,7 +404,7 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
     rr, ww, mm, code = _operands(r, w, mask, cd)
     b, R, D = r.shape
     bc, T, _ = w.shape
-    route = _TENSOR_CORES if tensor_cores(R, D, cd) else _CUDA_CORES
+    route = _TENSOR_CORES if tensor_cores("fwd", R, D, cd) else _CUDA_CORES
     if route == _TENSOR_CORES:  # passes of `rows` word rows, blocks (image, split)
         vb, (rows, nsplit) = 0, plan_fwd(R, T, D, b, bc, _sms(r.device))[:2]
     else:
@@ -390,8 +427,8 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
     b, R, D = r.shape
     bc, T, _ = w.shape
     g = g.float().contiguous()
-    route = _TENSOR_CORES if which == "dr" and tensor_cores(R, D, cd) else _CUDA_CORES
-    if route == _TENSOR_CORES:  # passes of `rows` word rows
+    route = _TENSOR_CORES if tensor_cores(which, R, D, cd) else _CUDA_CORES
+    if route == _TENSOR_CORES:  # d_regions in passes of `rows` word rows
         vb, (rows, nsplit) = 0, plan_dr(R, T, D, b, bc, _sms(r.device))[:2]
     else:
         vb, rows = plan(R, T, D, True, bc)[0], 0
