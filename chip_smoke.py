@@ -16,9 +16,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    channels, up to 2^30 elements); the ``damsm_score`` forward, d_regions and d_words at the flagship
    word-loss shape (B = Bc = 128, R = 256, T = 20, D = 256), at a ragged
    one (R = 50, T = 7, D = 48, one all-padded caption) and at the edges of
-   the bf16 tensor-core kernels (``DAMSM_EDGES``), compute dtype fp32 and
-   bf16; the bf16 forward and d_regions, which run on the tensor cores
-   (``mma.sync``; d_words and every fp32 path run on the CUDA cores), also
+   the bf16 tensor-core kernels and the bf16 CUDA-core ones at R = 300
+   (``DAMSM_EDGES``), compute dtype fp32 and bf16, each launch's kernel the
+   one the route rule names; the bf16 forward and d_regions, which run on
+   the tensor cores (``mma.sync``; d_words and every fp32 path run on the
+   CUDA cores), also
    twice bit-equal, the forward's all-padded caption scoring exactly the
    plain value and the d_regions unmoved by its cotangent; the three
    ``damsm_score`` kernels at the LN-COCO word shape (B = Bc = 256, R = 256,
@@ -27,11 +29,12 @@ Phases (any failure raises, and the exit code is then non-zero):
    bf16 through ``damsm_scores`` against the plain version on the whole
    captions, with an all-padded caption (its score bit-equal to the plain
    value, no d_words), two runs bit-equal, and the profiler's kernel names
-   showing each kernel's route (at D = 768 the bf16 d_regions on the
-   tensor cores with its regions streamed, everything else on the CUDA
-   cores); the streamed bf16 d_regions also at its edges
+   showing each kernel's route (at D = 768 the bf16 forward and d_regions
+   on the tensor cores with the regions streamed, everything else on the
+   CUDA cores); the streamed bf16 forward and d_regions also at their edges
    (``DAMSM_STREAMED``: D = 520, 770 and 1024, through ``damsm_scores``)
-   against the plain version, twice bit-equal; the
+   against the plain version, the all-padded caption's score the plain
+   value, twice bit-equal; the
    ``cross_attention`` kernel through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
@@ -71,8 +74,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    stands: NCH=96, NOISE_DIM=128, batch 256, T = 200, word D = 768,
    synthetic embeddings, about half the word slots real, one all-padded
    caption) in bf16: 1 counted warm-up step (the launches asserted as
-   above, the damsm forward on the CUDA cores, the d_regions on the tensor
-   cores with its regions streamed), 2 timed, 1
+   above, the damsm forward and d_regions on the tensor cores with the
+   regions streamed), 2 timed, 1
    profiled; prints the step ms, images/s, peak memory and the ten
    largest kernels.
 7. Kernel times against their bounds (CUDA events over repeated launches),
@@ -155,13 +158,15 @@ KERNEL_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (BF16_ULP, 2e-5)}
 # and atomics against PyTorch's tree), so they are held to 1e-4 of their
 # largest magnitude, with a 1e-4 relative part.
 BWD_TOL = {"dx_rtol": 1e-5, "dx_atol": 2e-5, "sum_rtol": 1e-4, "sum_scale": 1e-4}
-# damsm kernels vs plain.  fp32: the same math in another summation order:
-# scores to 1e-5 (the all-padded caption's -2e29 by the relative part), the
-# gradients to 1e-5 of their largest magnitude.  bf16: both round the
-# products' operands to bf16, but the attention weights a and the cotangents
-# come from fp32 values computed in another order, so an operand can round
-# to the neighbouring bf16 value: scores to 2^-12 absolute, gradients to one
-# bf16 ulp (2^-7) of their largest magnitude.
+# damsm kernels vs plain, the scores against the plain version summed in
+# fp64 around the same rounding points (``exact_scores``).  fp32: the same
+# math in another summation order: scores to 1e-5 (the all-padded
+# caption's -2e29 by the relative part), the gradients to 1e-5 of their
+# largest magnitude.  bf16: both round the products' operands to bf16,
+# but the attention weights a and the cotangents come from sums in another
+# order, so an operand can round to the neighbouring bf16 value: scores to
+# 2^-12 absolute, gradients to one bf16 ulp (2^-7) of their largest
+# magnitude.
 DAMSM_TOL = {None: {"score": 1e-5, "grad_scale": 1e-5},
              torch.bfloat16: {"score": 2.0 ** -12, "grad_scale": BF16_ULP}}
 # cross_attention vs plain.  fp32: the same math in another order (scores kept
@@ -206,35 +211,28 @@ DAMSM_RAGGED = (3, 5, 50, 7, 48)
 # so each block's passes pack runs of several captions: D = 40 with an all-padded caption
 # inside a pass; R = 50 with T = 20 (passes of word rows no multiple of 16,
 # captions crossing a 16-row tile, Bc = 9); T = 33; T = 64 with captions of
-# at most 2 words (whole 16-row tiles without a word); B != Bc throughout
+# at most 2 words (whole 16-row tiles without a word); B != Bc throughout.
+# Last, R = 300, more regions than the tensor-core kernels take: the bf16
+# forward and d_regions there run on the CUDA cores
 DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, None),
-               ((132, 2, 24, 33, 24), True, None), ((132, 3, 50, 64, 40), False, 2)]
-# kernel names in the profiler trace: the forward's by (compute dtype,
-# ``ds.tensor_cores("fwd", ...)``), the d_regions' by (compute dtype, route):
-# on the tensor cores with the regions resident (D <= 256) or streamed
-# (256 < D <= 1024), or on the CUDA cores (``route_kernels``)
-FWD_KERNEL = {(torch.bfloat16, True): "damsm_fwd_tc_kernel",
-              (torch.bfloat16, False): "damsm_fwd_bf16_kernel<",
-              (torch.float32, False): "damsm_fwd_kernel<"}
-DR_KERNEL = {(torch.bfloat16, "resident"): "damsm_bwd_dr_tc_kernel",
-             (torch.bfloat16, "streamed"): "damsm_bwd_dr_tcs_kernel",
-             (torch.bfloat16, "cuda cores"): "damsm_bwd_dr_kernel<__nv_bfloat16",
-             (torch.float32, "cuda cores"): "damsm_bwd_dr_kernel<float"}
-DW_KERNEL = "damsm_bwd_dw_kernel<"
+               ((132, 2, 24, 33, 24), True, None), ((132, 3, 50, 64, 40), False, 2),
+               ((4, 5, 300, 20, 48), True, None)]
 REGIONS = 256  # DF_DISC's region head, always its 16x16 stage
 # the LN-COCO word shape (ln_coco_256.yml: batch 256, MAX_LENGTH 200,
-# EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256: the bf16 d_regions runs on
-# the tensor cores with its regions streamed, every other launch on the CUDA
-# cores
+# EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256: the bf16 forward and
+# d_regions run on the tensor cores with the regions streamed, every other
+# launch on the CUDA cores
 DAMSM_LN = (256, 256, REGIONS, 200, 768)
+# the streamed bf16 forward and d_regions, as the profiler names them
+STREAMED_KERNELS = ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<")
 LN_KERNELS = {None: ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float"),
-              torch.bfloat16: ("damsm_fwd_bf16_kernel<", "damsm_bwd_dr_tcs_kernel")}
+              torch.bfloat16: STREAMED_KERNELS}
 # (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
-# streamed bf16 d_regions' edges (64-column region chunks, 16 or 32 word
-# rows a pass), through ``damsm_scores``: D = 520 (a partial last chunk, no
-# multiple of 16) with R = 50; D = 770 (rows not 16-byte aligned: plain loads
-# instead of cp.async) with an all-padded caption inside a pass; D = 1024
-# (16-row passes) with captions of at most 2 words
+# streamed bf16 forward's and d_regions' edges (64-column region chunks, 16
+# or 32 word rows a pass), through ``damsm_scores``: D = 520 (a partial last
+# chunk, no multiple of 16) with R = 50; D = 770 (rows not 16-byte aligned:
+# plain loads instead of cp.async) with an all-padded caption inside a pass;
+# D = 1024 (d_regions: 16-row passes) with captions of at most 2 words
 DAMSM_STREAMED = [((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), True, None),
                   ((132, 3, 256, 64, 1024), False, 2)]
 # the plain version at the LN shape streams caption blocks of this many fp32
@@ -242,13 +240,12 @@ DAMSM_STREAMED = [((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), T
 LN_PLAIN_BLOCK = 2**28
 
 
-def route_kernels(R: int, D: int, cd) -> tuple[str, str]:
-    """The names of the forward and d_regions kernels that the route rule
-    (``ds.tensor_cores``) picks at R, D and compute dtype ``cd``."""
-    dt = cd or torch.float32
-    dr = ("cuda cores" if not ds.tensor_cores("dr", R, D, cd)
-          else "resident" if D <= ds.TC_MAX_RD else "streamed")
-    return FWD_KERNEL[(dt, ds.tensor_cores("fwd", R, D, cd))], DR_KERNEL[(dt, dr)]
+def route_label(which: str, R: int, D: int, cd) -> str:
+    """The route of one kernel (``which``: "fwd", "dr" or "dw") as a row of
+    the ``kernels`` line names it."""
+    if not ds.tensor_cores(which, R, D, cd):
+        return "CUDA cores"
+    return "tensor cores (mma.sync)" + (", regions streamed" if D > ds.TC_MAX_RD else "")
 
 
 def log(msg: str) -> None:
@@ -560,7 +557,8 @@ def check_modulation(shapes) -> dict:
 def check_damsm() -> dict:
     """Phase 3, damsm_score: forward, d_regions, d_words against the plain
     version and its autograd, at the flagship, a ragged and the edge
-    shapes; the bf16 forward and d_regions also for determinism and the
+    shapes, each launch's kernel the one the route rule names (profiler
+    trace); the bf16 forward and d_regions also for determinism and the
     all-padded caption."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
@@ -570,26 +568,34 @@ def check_damsm() -> dict:
         worst = {"forward": 0.0, "d_regions": 0.0, "d_words": 0.0}
         for shape, allpad, max_len in shapes:
             r, w, mask, up = damsm_inputs(shape, gen, allpad, max_len)
-            got = ds._launch_fwd(r, w, mask, 4.0, 5.0, cd)
-            want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=tol["score"])
-            if allpad and not bool(torch.isfinite(got).all()):
+            got = {}
+
+            def run():
+                got["forward"] = ds._launch_fwd(r, w, mask, 4.0, 5.0, cd)
+                for which, key in (("dr", "d_regions"), ("dw", "d_words")):
+                    got[key] = ds._launch_bwd(which, r, w, mask, up, 4.0, 5.0, cd)
+
+            names = damsm_kernel_names(run)
+            for which in ("fwd", "dr", "dw"):
+                kernel = ds.kernel_name(which, shape[2], shape[4], cd)
+                if not any(kernel in n for n in names):
+                    raise AssertionError(f"damsm {shape} {CD_NAME[cd]}: no {kernel} among {names}")
+            want = exact_scores(r, w, mask, cd)
+            torch.testing.assert_close(got["forward"], want, rtol=1e-5, atol=tol["score"])
+            if allpad and not bool(torch.isfinite(got["forward"]).all()):
                 raise AssertionError("all-padded caption gave a non-finite score")
-            worst["forward"] = max(worst["forward"], (got - want).abs().max().item())
+            worst["forward"] = max(worst["forward"], (got["forward"] - want).abs().max().item())
             for which, key in (("dr", "d_regions"), ("dw", "d_words")):
-                got_g = ds._launch_bwd(which, r, w, mask, up, 4.0, 5.0, cd)
                 want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, cd)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got_g, want_g, rtol=0,
+                torch.testing.assert_close(got[key], want_g, rtol=0,
                                            atol=tol["grad_scale"] * want_g.abs().max().item())
-                worst[key] = max(worst[key], (got_g - want_g).abs().max().item())
-            del r, w, mask, up, got, want, got_g, want_g
+                worst[key] = max(worst[key], (got[key] - want_g).abs().max().item())
+            del r, w, mask, up, got, want, want_g
         errs[cd] = worst
         log(f"[3] damsm_score compute {CD_NAME[cd]}: max_abs_err " + ", ".join(
             f"{k} {v:.3g}" for k, v in worst.items()) + f" at {DAMSM_FLAGSHIP}, ragged "
-            f"{DAMSM_RAGGED} with an all-padded caption and the edges {DAMSM_EDGES} "
-            f"(tolerance {tol})")
+            f"{DAMSM_RAGGED} with an all-padded caption and the edges {DAMSM_EDGES}, each on "
+            f"its route's kernels (tolerance {tol})")
     # the bf16 d_regions (tensor cores): two launches bit-equal; the
     # all-padded caption's cotangent adds exactly nothing
     r, w, mask, up = damsm_inputs(DAMSM_FLAGSHIP, gen, True)
@@ -634,9 +640,19 @@ def ln_damsm_inputs(gen):
     return r, w, mask, up
 
 
+def exact_scores(r, w, mask, cd, block_elems: int | None = None) -> torch.Tensor:
+    """The scores that the kernels' fp32 scores are held against: the plain
+    version summed in fp64 around the same bf16 rounding points
+    (``ds.damsm_scores_ref`` on fp64 operands), as fp32."""
+    return ds.damsm_scores_ref(r.double(), w.double(), mask, 4.0, 5.0, cd, block_elems).float()
+
+
 def damsm_kernel_names(fn) -> list[str]:
-    """The damsm kernels that one call of ``fn`` launches, by name, from a
-    ``torch.profiler`` trace."""
+    """The damsm kernels that a call of ``fn`` launches, by name, from a
+    ``torch.profiler`` trace of its second call: the first, before the
+    trace, loads and sets up every kernel it launches."""
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -649,8 +665,9 @@ def check_damsm_ln() -> dict:
     whole captions: scores, d_regions and d_words in fp32 and bf16; the
     all-padded caption's score bit-equal to the plain value and its d_words
     0; a second forward + d_regions bit-equal; the launches' kernel names
-    each kernel's route (the bf16 d_regions on the tensor cores with its
-    regions streamed, everything else on the CUDA cores)."""
+    each kernel's route (the bf16 forward and d_regions on the tensor cores
+    with the regions streamed, no bf16 CUDA-core forward; everything else on
+    the CUDA cores)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     r, w, mask, up = ln_damsm_inputs(gen)
     b, bc, R, T, D = DAMSM_LN
@@ -658,9 +675,10 @@ def check_damsm_ln() -> dict:
     for cd in (None, torch.bfloat16):
         tol = DAMSM_TOL[cd]
         width = ds.sub_caption_width(R, T, D, cd)
-        if route_kernels(R, D, cd) != LN_KERNELS[cd] or width != 16:
-            raise AssertionError(f"LN shape {CD_NAME[cd]}: width {width}, kernels "
-                                 f"{route_kernels(R, D, cd)}; want 16 slots on {LN_KERNELS[cd]}")
+        kernels = (ds.kernel_name("fwd", R, D, cd), ds.kernel_name("dr", R, D, cd))
+        if kernels != LN_KERNELS[cd] or width != 16:
+            raise AssertionError(f"LN shape {CD_NAME[cd]}: width {width}, kernels {kernels}; "
+                                 f"want 16 slots on {LN_KERNELS[cd]}")
         ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
         got = {}
 
@@ -669,14 +687,16 @@ def check_damsm_ln() -> dict:
             got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
 
         names = damsm_kernel_names(run)
-        for want in (*LN_KERNELS[cd], DW_KERNEL):
+        for want in (*LN_KERNELS[cd], ds.kernel_name("dw", R, D, cd)):
             if not any(want in n for n in names):
                 raise AssertionError(f"LN {CD_NAME[cd]}: no {want} among {names}")
-        if any("_tc_kernel" in n for n in names):
-            raise AssertionError(f"LN {CD_NAME[cd]}: a resident-region kernel at D = {D}: {names}")
-        want_s = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd, LN_PLAIN_BLOCK)
+        if any("_tc_kernel" in n or "damsm_fwd_bf16_kernel" in n for n in names):
+            raise AssertionError(f"LN {CD_NAME[cd]}: a resident-region or bf16 CUDA-core kernel "
+                                 f"at D = {D}: {names}")
+        want_s = exact_scores(r, w, mask, cd, LN_PLAIN_BLOCK)
         torch.testing.assert_close(got["s"].detach(), want_s, rtol=1e-5, atol=tol["score"])
-        if not (torch.equal(got["s"][:, 1].detach(), want_s[:, 1])
+        plain_pad = ds.damsm_scores_ref(r, w[1:2], mask[1:2], 4.0, 5.0, cd)
+        if not (torch.equal(got["s"][:, 1:2].detach(), plain_pad)
                 and got["dw"][1].abs().max().item() == 0.0):
             raise AssertionError(f"LN {CD_NAME[cd]}: the all-padded caption's score is not the "
                                  "plain value, or it got a d_words")
@@ -706,11 +726,12 @@ def check_damsm_ln() -> dict:
 
 
 def check_damsm_streamed() -> dict:
-    """Phase 3, the streamed bf16 d_regions at its edges (``DAMSM_STREAMED``),
-    through ``damsm_scores`` as the word loss calls it: scores, d_regions and
-    d_words against the plain version on the whole captions under
-    ``DAMSM_TOL``; the d_regions launch is the streamed kernel, and a second
-    run's d_regions is bit-equal."""
+    """Phase 3, the streamed bf16 forward and d_regions at their edges
+    (``DAMSM_STREAMED``), through ``damsm_scores`` as the word loss calls
+    it: scores, d_regions and d_words against the plain version on the
+    whole captions under ``DAMSM_TOL``; the forward and d_regions launches
+    are the streamed kernels, an all-padded caption scores the plain value
+    bit for bit, and a second run's scores and d_regions are bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     tol = DAMSM_TOL[torch.bfloat16]
     worst = {"forward": 0.0, "d_regions": 0.0, "d_words": 0.0}
@@ -724,10 +745,15 @@ def check_damsm_streamed() -> dict:
             got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
 
         names = damsm_kernel_names(run)
-        if not any(DR_KERNEL[(torch.bfloat16, "streamed")] in n for n in names):
-            raise AssertionError(f"streamed edge {shape}: no streamed d_regions among {names}")
-        want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, torch.bfloat16)
+        for kernel in STREAMED_KERNELS:
+            if not any(kernel in n for n in names):
+                raise AssertionError(f"streamed edge {shape}: no {kernel} among {names}")
+        want = exact_scores(r, w, mask, torch.bfloat16)
         torch.testing.assert_close(got["s"].detach(), want, rtol=1e-5, atol=tol["score"])
+        plain_pad = ds.damsm_scores_ref(r, w[1:2], mask[1:2], 4.0, 5.0, torch.bfloat16)
+        if allpad and not torch.equal(got["s"][:, 1:2].detach(), plain_pad):
+            raise AssertionError(f"streamed edge {shape}: the all-padded caption's score is "
+                                 "not the plain value")
         worst["forward"] = max(worst["forward"], (got["s"].detach() - want).abs().max().item())
         for which, key in (("dr", "d_regions"), ("dw", "d_words")):
             want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, torch.bfloat16)
@@ -735,16 +761,17 @@ def check_damsm_streamed() -> dict:
                                        atol=tol["grad_scale"] * want_g.abs().max().item())
             worst[key] = max(worst[key], (got[which] - want_g).abs().max().item())
         ri2 = r.clone().requires_grad_()
-        (dr2,) = torch.autograd.grad(ds.damsm_scores(ri2, w, mask, 4.0, 5.0, torch.bfloat16),
-                                     ri2, up)
+        s2 = ds.damsm_scores(ri2, w, mask, 4.0, 5.0, torch.bfloat16)
+        (dr2,) = torch.autograd.grad(s2, ri2, up)
         torch.cuda.synchronize()
-        if not torch.equal(dr2, got["dr"]):
-            raise AssertionError(f"streamed edge {shape}: two runs of d_regions differ")
-        del r, w, mask, up, ri, wi, got, want, want_g, ri2, dr2
+        if not (torch.equal(s2, got["s"]) and torch.equal(dr2, got["dr"])):
+            raise AssertionError(f"streamed edge {shape}: two runs of forward + d_regions differ")
+        del r, w, mask, up, ri, wi, got, want, want_g, ri2, s2, dr2
     torch.cuda.empty_cache()
-    log(f"[3] damsm_score bf16, streamed d_regions at the edges {DAMSM_STREAMED}: max_abs_err "
-        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-        + f" (tolerance {tol}); two runs of d_regions bit-equal")
+    log(f"[3] damsm_score bf16, streamed forward and d_regions at the edges {DAMSM_STREAMED}: "
+        "max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tolerance {tol}); all-padded caption = plain; two runs of forward + d_regions "
+        "bit-equal")
     return worst
 
 
@@ -1028,9 +1055,9 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
         if kernel_category(k["name"]) == "damsm_score":
             n, ms = damsm.get(k["name"], (0, 0.0))
             damsm[k["name"]] = (n + 1, ms + k["ms"])
-    fwd_kernel, dr_kernel = route_kernels(REGIONS, cfg.TEXT.EMBEDDING_DIM, dtype)
-    for what, prefix, want in (("forward", "damsm_fwd", fwd_kernel),
-                               ("d_regions", "damsm_bwd_dr", dr_kernel)):
+    for what, prefix, which in (("forward", "damsm_fwd", "fwd"),
+                                ("d_regions", "damsm_bwd_dr", "dr")):
+        want = ds.kernel_name(which, REGIONS, cfg.TEXT.EMBEDDING_DIM, dtype)
         got = {name: v for name, v in damsm.items() if prefix in name}
         if [v[0] for name, v in got.items() if want in name] != [2] or len(got) != 1:
             raise AssertionError(f"{label} train step: {what} kernels {got}, want 2 launches "
@@ -1246,6 +1273,7 @@ def damsm_rows(errs, launches) -> list[dict]:
              lambda: ds._plain_vjp("dw", r, w, mask, up, 4.0, 5.0, cd), "362"),
         )
         for name, dots, nbytes, kern, ref, line in specs:
+            which = {"forward": "fwd", "d_regions": "dr", "d_words": "dw"}[name]
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
             op_ms = 2 * R * D * dots * b * words / rate * 1e3
             ms, plain_ms = cuda_ms(kern, 5), cuda_ms(ref, 2)
@@ -1259,8 +1287,7 @@ def damsm_rows(errs, launches) -> list[dict]:
                 "bound_ms": bound, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "library_ms": None, "roofline_share": bound / ms,
                 "shapes": f"B=Bc={b}, R={R}, T={T} ({words} real words), D={D}, compute "
-                          f"{CD_NAME[cd]}" + (", tensor cores (mma.sync)" if name != "d_words"
-                                              and cd == torch.bfloat16 else ", CUDA cores"),
+                          f"{CD_NAME[cd]}, {route_label(which, R, D, cd)}",
             })
             log(f"[7] {rows[-1]['name']}: {ms:.3f} ms (bound {bound:.3f} ms by "
                 f"{rows[-1]['bound_by']}, {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms; "
@@ -1303,6 +1330,7 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
              lambda: ds._plain_vjp("dw", r, w, mask, up, 4.0, 5.0, cd, LN_PLAIN_BLOCK), "362"),
         )
         for name, dots, nbytes, kern, ref, line in specs:
+            which = {"forward": "fwd", "d_regions": "dr", "d_words": "dw"}[name]
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
             op_ms = 2 * R * D * dots * b * words / rate * 1e3
             ms, plain_ms = cuda_ms(kern, 2), cuda_ms(ref, 2)
@@ -1317,10 +1345,7 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
                 "library_ms": None, "roofline_share": bound / ms,
                 "shapes": f"B=Bc={b}, R={R}, T={T} as {w_sub.shape[0] // bc} "
                           f"sub-captions of {w_sub.shape[1]} slots ({words} real words), D={D}, "
-                          f"compute {CD_NAME[cd]}, " + (
-                              "tensor cores (mma.sync), regions streamed"
-                              if name == "d_regions" and ds.tensor_cores("dr", R, D, cd)
-                              else "CUDA cores"),
+                          f"compute {CD_NAME[cd]}, {route_label(which, R, D, cd)}",
             })
             log(f"[7] {rows[-1]['name']}: {ms:.3f} ms (bound {bound:.3f} ms by "
                 f"{rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain {plain_ms:.3f} ms; "

@@ -128,12 +128,19 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, nmod, shape):
         torch.testing.assert_close(g, w, rtol=SUM_TOL, atol=SUM_TOL * w.abs().max().item())
 
 
-# damsm kernels vs plain.  fp32: the same math in another summation order.
-# bf16: both round the products' operands to bf16, but a and the cotangents
-# come from fp32 values computed in another order and can round to the
-# neighbouring bf16 value; gradients are held to that (one ulp) of their
-# largest magnitude.
+# damsm kernels vs plain, the scores against the plain version summed in
+# fp64 around the same rounding points (``_exact_scores``).  fp32: the same
+# math in another summation order.  bf16: both round the products' operands
+# to bf16, but a and the cotangents come from sums in another order and can
+# round to the neighbouring bf16 value; gradients are held to that (one ulp)
+# of their largest magnitude.
 DAMSM_TOL = {None: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -12, BF16_ULP)}
+
+
+def _exact_scores(r, w, mask, cd):
+    """The plain version's scores summed in fp64 (``ds.damsm_scores_ref``
+    on fp64 operands), as fp32."""
+    return ds.damsm_scores_ref(r.double(), w.double(), mask, 4.0, 5.0, cd).float()
 
 
 def _damsm_inputs(device, shape, seed, allpad, max_len=None):
@@ -159,21 +166,22 @@ def _damsm_inputs(device, shape, seed, allpad, max_len=None):
 # passes whose real word rows are no multiple of 16 and captions that cross
 # a 16-row tile, Bc = 9 no multiple of the captions per pass; B != Bc
 # throughout; T = 33 with Bc = 2; T = 64 with captions of at most 2 words,
-# so that whole 16-row tiles of a pass hold no word.  Last, the flagship's
+# so that whole 16-row tiles of a pass hold no word.  Then the flagship's
 # widths at 132 images of 40 captions: the bf16 forward's passes fill up to
 # 64 rows (``plan_fwd``), so each image's captions run in several passes,
-# with an all-padded caption among them.  Then the edges of the streamed bf16
-# d_regions (D > 256: regions in 64-column chunks): D = 520 (a partial last
-# chunk, no multiple of 16) with R = 50 and T = 20; D = 770 (rows not 16-byte
-# aligned: plain loads, not cp.async) with an all-padded caption inside a
-# pass; D = 1024 (16-row passes) with captions of at most 2 words, through
-# the sub-caption split.
+# with an all-padded caption.  Then the edges of the streamed bf16 forward
+# and d_regions (D > 256: regions in 64-column chunks): D = 520 (a partial
+# last chunk, no multiple of 16) with R = 50 and T = 20; D = 770 (rows not
+# 16-byte aligned: plain loads, not cp.async) with an all-padded caption
+# inside a pass; D = 1024 with captions of at most 2 words, through the
+# sub-caption split.  Last, R = 300 (more regions than the tensor-core
+# kernels take), where the bf16 forward and d_regions run on the CUDA cores.
 DAMSM_SHAPES = [((3, 5, 50, 7, 48), True, None), ((2, 3, 5, 3, 12), True, None),
                 ((4, 7, 256, 20, 256), False, None), ((132, 7, 64, 7, 40), True, None),
                 ((132, 9, 50, 20, 40), False, None), ((132, 2, 24, 33, 24), True, None),
                 ((132, 3, 50, 64, 40), False, 2), ((132, 40, 256, 20, 256), True, None),
                 ((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), True, None),
-                ((132, 3, 256, 64, 1024), False, 2)]
+                ((132, 3, 256, 64, 1024), False, 2), ((4, 5, 300, 20, 48), True, None)]
 
 
 @pytest.mark.cuda
@@ -181,22 +189,31 @@ DAMSM_SHAPES = [((3, 5, 50, 7, 48), True, None), ((2, 3, 5, 3, 12), True, None),
 @pytest.mark.parametrize("shape,allpad,max_len", DAMSM_SHAPES, ids=str)
 def test_damsm_kernels_match_plain_on_card(cuda_device, cd, shape, allpad, max_len):
     """Forward, d_regions and d_words (one launch each) against the plain
-    version and its autograd; ragged R/T/D, an all-padded caption and the
-    bf16 d_regions kernel's tile edges."""
+    version and its autograd; ragged R/T/D, an all-padded caption, the bf16
+    tensor-core kernels' tile edges and the bf16 CUDA-core kernels at
+    R > 256; the profiler's kernel names show the route the rule picks."""
     r, w, mask, up = _damsm_inputs(cuda_device, shape, 4, allpad, max_len)
     before = (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches)
     ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
-    out = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
-    dr, dw = torch.autograd.grad(out, (ri, wi), up)
-    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        got["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
+        got["g"] = torch.autograd.grad(got["s"], (ri, wi), up)
+
+    names = _damsm_kernel_names(run)  # runs it twice: one launch of each kernel a run
+    out, (dr, dw) = got["s"], got["g"]
     assert (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches) == tuple(
-        n + 1 for n in before)
+        n + 2 for n in before)
+    for which in ("fwd", "dr", "dw"):
+        want = ds.kernel_name(which, shape[2], shape[4], cd)
+        assert any(want in n for n in names), (want, names)
     rr, wr = r.clone().requires_grad_(), w.clone().requires_grad_()
     want = ds.damsm_scores_ref(rr, wr, mask, 4.0, 5.0, cd)
     dr_w, dw_w = torch.autograd.grad(want, (rr, wr), up)
     score_atol, grad_scale = DAMSM_TOL[cd]
     assert bool(torch.isfinite(out).all())
-    torch.testing.assert_close(out, want.detach(), rtol=1e-5, atol=score_atol)
+    torch.testing.assert_close(out, _exact_scores(r, w, mask, cd), rtol=1e-5, atol=score_atol)
     torch.testing.assert_close(dr, dr_w, rtol=0, atol=grad_scale * dr_w.abs().max().item())
     torch.testing.assert_close(dw, dw_w, rtol=0, atol=grad_scale * dw_w.abs().max().item())
 
@@ -219,9 +236,12 @@ def _ln_inputs(device, shape, seed):
 
 def _damsm_kernel_names(fn) -> set[str]:
     """The names of the damsm kernels that ``fn`` launches, from a
-    ``torch.profiler`` trace."""
+    ``torch.profiler`` trace of its second call: the first, before the
+    trace, builds, loads and sets up every kernel it launches."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -230,12 +250,12 @@ def _damsm_kernel_names(fn) -> set[str]:
 
 # (shape, compute dtype, the forward's and d_regions' kernels): the LN
 # config's word shape (T = 200, D = 768) on the CUDA cores in fp32, and in
-# bf16 the forward on the CUDA cores, the d_regions on the tensor cores with
-# its regions streamed; T = 130 at D = 256, whose bf16 sub-captions stay on
-# the tensor cores with resident regions
+# bf16 the forward and d_regions on the tensor cores with the regions
+# streamed; T = 130 at D = 256, whose bf16 sub-captions stay on the tensor
+# cores with resident regions
 LN_CASES = [((16, 16, 256, 200, 768), None, ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float")),
             ((16, 16, 256, 200, 768), torch.bfloat16,
-             ("damsm_fwd_bf16_kernel<", "damsm_bwd_dr_tcs_kernel<")),
+             ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<")),
             ((16, 16, 256, 130, 256), torch.bfloat16,
              ("damsm_fwd_tc_kernel<", "damsm_bwd_dr_tc_kernel<"))]
 
@@ -250,7 +270,7 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
     all-padded caption scores exactly the plain value and gets no d_words."""
     b, bc, R, T, D = shape
     assert ds.sub_caption_width(R, T, D, cd) < T
-    assert ds.tensor_cores("fwd", R, D, cd) == ("_tc_kernel" in kernels[0])
+    assert ds.tensor_cores("fwd", R, D, cd) == ("_tc" in kernels[0])
     assert ds.tensor_cores("dr", R, D, cd) == ("_tc" in kernels[1])
     r, w, mask, up = _ln_inputs(cuda_device, shape, 12)
     ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
@@ -261,12 +281,14 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
         out["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
         out["g"] = torch.autograd.grad(out["s"], (ri, wi), up)
 
-    names = _damsm_kernel_names(run)
+    names = _damsm_kernel_names(run)  # runs it twice: one launch of each kernel a run
     assert (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches) == tuple(
-        n + 1 for n in before)
+        n + 2 for n in before)
     for want in kernels + ("damsm_bwd_dw_kernel<",):
         assert any(want in n for n in names), (want, names)
     assert not [n for n in names if "_tc" in n and not any(k in n for k in kernels)], names
+    if cd is not None:
+        assert not [n for n in names if "damsm_fwd_bf16_kernel<" in n], names
     rr, wr = r.clone().requires_grad_(), w.clone().requires_grad_()
     want = ds.damsm_scores_ref(rr, wr, mask, 4.0, 5.0, cd)
     dr_w, dw_w = torch.autograd.grad(want, (rr, wr), up)
@@ -275,7 +297,7 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
     assert bool(torch.isfinite(s).all())
     assert torch.equal(s[:, 1], want[:, 1].detach())
     assert dw[1].abs().max().item() == 0.0
-    torch.testing.assert_close(s, want.detach(), rtol=1e-5, atol=score_atol)
+    torch.testing.assert_close(s, _exact_scores(r, w, mask, cd), rtol=1e-5, atol=score_atol)
     torch.testing.assert_close(dr, dr_w, rtol=0, atol=grad_scale * dr_w.abs().max().item())
     torch.testing.assert_close(dw, dw_w, rtol=0, atol=grad_scale * dw_w.abs().max().item())
 
@@ -347,14 +369,36 @@ def test_damsm_bf16_forward_is_deterministic_and_scores_padded_captions(cuda_dev
     assert torch.equal(first, again)
     assert bool(torch.isfinite(first).all())
     assert torch.equal(first[:, 1], want[:, 1])
-    torch.testing.assert_close(first, want, rtol=1e-5, atol=DAMSM_TOL[torch.bfloat16][0])
+    torch.testing.assert_close(first, _exact_scores(r, w, mask, torch.bfloat16), rtol=1e-5,
+                               atol=DAMSM_TOL[torch.bfloat16][0])
+
+
+@pytest.mark.cuda
+def test_damsm_streamed_forward_is_deterministic_and_scores_padded_captions(cuda_device):
+    """The bf16 forward with streamed regions (D = 768, the LN width, 16-slot
+    captions as the LN sub-captions): the launch is the streamed kernel,
+    two launches are bit-equal, the all-padded caption scores exactly the
+    plain version's (-1e30 + log T) / gamma2, and the scores are within
+    ``DAMSM_TOL`` of the plain version."""
+    r, w, mask, _ = _damsm_inputs(cuda_device, (8, 24, 256, 16, 768), 16, allpad=True)
+    names = _damsm_kernel_names(lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16))
+    assert any("damsm_fwd_tcs_kernel<" in n for n in names), names
+    first = ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16)
+    again = ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16)
+    want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert bool(torch.isfinite(first).all())
+    assert torch.equal(first[:, 1], want[:, 1])
+    torch.testing.assert_close(first, _exact_scores(r, w, mask, torch.bfloat16), rtol=1e-5,
+                               atol=DAMSM_TOL[torch.bfloat16][0])
 
 
 @pytest.mark.cuda
 def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
     """The build with the bf16 tensor-core kernels' phase counters
     (``xmc_gan_tpu_torch/damsm_phases.py``) counts every phase of d_regions
-    (regions resident, and streamed at D = 768) and of the forward, and the
+    and of the forward (regions resident, and streamed at D = 768), and the
     passes, and nothing outside each kernel's phases, and gives the same
     d_regions and scores bit for bit."""
     from xmc_gan_tpu_torch import damsm_phases
@@ -368,7 +412,9 @@ def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
             ("d_regions, streamed", lambda **kw: ds._launch_bwd("dr", rs, ws, ms, us, 4.0, 5.0,
                                                                 torch.bfloat16, **kw)),
             ("forward", lambda **kw: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16,
-                                                    **kw))):
+                                                    **kw)),
+            ("forward, streamed", lambda **kw: ds._launch_fwd(rs, ws, ms, 4.0, 5.0,
+                                                              torch.bfloat16, **kw))):
         want = launch()
         assert lib.load().xmc_damsm_phases_reset() == 0
         got = launch(library=lib)

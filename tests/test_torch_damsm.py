@@ -231,19 +231,26 @@ def test_kernel_plan_mirrors_the_source():
 
 @pytest.mark.parametrize("which", ["fwd", "dr", "dw"])
 def test_route_rule(which):
-    """One rule per kernel: the bf16 d_regions on the tensor cores if and
-    only if R <= 256 and D <= 1024 (regions resident at D <= 256, streamed
-    above), the bf16 forward if and only if R <= 256 and D <= 256; the
-    d_words and every fp32 launch on the CUDA cores."""
+    """One rule per kernel: the bf16 forward and d_regions on the tensor
+    cores if and only if R <= 256 and D <= 1024 (regions resident at
+    D <= 256, streamed above); the d_words and every fp32 launch on the
+    CUDA cores."""
     flagship = [(256, 256), (50, 48), (1, 1)]
     wide = [(256, 768), (16, 264), (256, 1024), (64, 770), (50, 520)]
     never = [(257, 256), (300, 16), (257, 768), (256, 1025)]
     for R, D in flagship + wide + never:
         assert not ds.tensor_cores(which, R, D, None)
         assert not ds.tensor_cores(which, R, D, torch.float32)
-    tc = {"fwd": flagship, "dr": flagship + wide, "dw": []}[which]
+    tc = {"fwd": flagship + wide, "dr": flagship + wide, "dw": []}[which]
     for R, D in flagship + wide + never:
         assert ds.tensor_cores(which, R, D, torch.bfloat16) == ((R, D) in tc), (R, D)
+        # the name of the kernel launched: regions resident or streamed on the tensor cores
+        for cd in (None, torch.float32, torch.bfloat16):
+            name = ds.kernel_name(which, R, D, cd)
+            if not ds.tensor_cores(which, R, D, cd):
+                assert "_tc" not in name, (which, R, D, cd, name)
+            else:
+                assert ("_tcs_" if D > ds.TC_MAX_RD else "_tc_") in name, (which, R, D, name)
     with pytest.raises(ValueError, match="which"):
         ds.tensor_cores("d_regions", 256, 256, torch.bfloat16)
 
@@ -276,8 +283,9 @@ def test_sub_caption_width_mirrors_the_plans(cd):
             assert ds.plan_fwd(R, width, D, 4, 4, 132).rows >= width
         if ds.tensor_cores("dr", R, D, cd):
             assert ds.plan_dr(R, width, D, 4, 4, 132).rows >= width
-    # the LN word shape keeps 16 slots: the bf16 d_regions there (streamed
-    # regions) holds 32 rows a pass, the CUDA-core backward 16
+    # the LN word shape keeps 16 slots: the bf16 forward and d_regions there
+    # (streamed regions) hold 32 rows a pass, the CUDA-core backward 16
+    assert ds.plan_fwd(256, 16, 768, 256, 2048, 132).rows == 32
     assert ds.plan_dr(256, 16, 768, 256, 2048, 132).rows == 32
     assert ds.cuda_core_rows(256, 768, backward=True) == 16
     with pytest.raises(ValueError, match="D <= 1024"):
@@ -381,30 +389,56 @@ def test_tensor_core_plan_mirrors_the_source(D):
             ds.plan_dr(16, 8, 1032, 2, 4, 132)
 
 
-def test_forward_plan_mirrors_the_source():
+@pytest.mark.parametrize("D", [256, 264, 520, 768, 1024])
+def test_forward_plan_mirrors_the_source(D):
     """The bf16 forward kernel's plan as ``csrc/damsm_score.cu`` computes its
-    shared memory: it keeps no d_c, d_sim or staging tiles, so at the
-    flagship shape (B = Bc = 128, R = 256, T = 20, D = 256, 132
-    multiprocessors) passes of 64 word rows fit beside the resident regions
-    (d_regions: 32), in one split of all 128 captions; rows per pass are a
-    multiple of 16 and hold a whole caption at the card tests' shapes;
-    T > 64, R > 256 and D > 256 are refused."""
-    p = ds.plan_fwd(256, 20, 256, 128, 128, 132)
-    assert p == (64, 1, 128, 206_352)
-    assert p.smem == 2 * (256 * 264 + 64 * 2 * 264) + 4 * (14 * 64 + 4) <= ds.SMEM_LIMIT
-    assert ds.plan_fwd(256, 20, 256, 32, 128, 132)[1:3] == (4, 32)
-    for b, bc, R, T, D in [(3, 5, 50, 7, 48), (2, 3, 5, 3, 12), (4, 7, 256, 20, 256),
-                           (132, 7, 64, 7, 40), (132, 9, 50, 20, 40), (132, 2, 24, 33, 24),
-                           (132, 3, 50, 64, 40), (132, 40, 256, 20, 256)]:
-        p = ds.plan_fwd(R, T, D, b, bc, 132)
-        assert p.rows % 16 == 0 and p.rows >= T and p.smem <= ds.SMEM_LIMIT
-        assert p.nsplit * p.captions >= bc
-    with pytest.raises(ValueError, match="T <= 64"):
-        ds.plan_fwd(16, 65, 8, 2, 4, 132)
-    with pytest.raises(ValueError, match="D <= 256"):
-        ds.plan_fwd(16, 8, 260, 2, 4, 132)
+    shared memory: it keeps no d_c, d_sim or staging tiles.  D = 256,
+    regions resident: at the flagship shape (B = Bc = 128, R = 256, T = 20,
+    132 multiprocessors) passes of 64 word rows fit beside the resident
+    regions (d_regions: 32), in one split of all 128 captions; rows per pass
+    are a multiple of 16 and hold a whole caption at the card tests' shapes;
+    T > 64 is refused.  D > 256, regions streamed in 64-column chunks: words
+    ``[rows, Dp + 8]`` and a ``[rows, Rp + 8]`` (bf16), the two region chunk
+    buffers and 14 words a row; always 32 rows a pass (the kernel takes no
+    other), so at the LN sub-captions (R = 256, T = 16, D = 768, B = 256,
+    Bc = 2,048) 142,096 bytes; T > 32 is refused.  R > 256 and D > 1024 are
+    refused at every D."""
+    assert (_source_constant("TCS_KC"), _source_constant("TCS_MAX_D"),
+            _source_constant("TCS_FWD_ROWS")) == (ds.TCS_KC, ds.TCS_MAX_D, 32)
+    assert ds.TCS_FWD_ROWS == (32,)
     with pytest.raises(ValueError, match="R <= 256"):
-        ds.plan_fwd(300, 8, 16, 2, 4, 132)
+        ds.plan_fwd(300, 8, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ds.plan_fwd(16, 8, 1032, 2, 4, 132)
+    if D == 256:
+        p = ds.plan_fwd(256, 20, 256, 128, 128, 132)
+        assert p == (64, 1, 128, 206_352)
+        assert p.smem == 2 * (256 * 264 + 64 * 2 * 264) + 4 * (14 * 64 + 4) <= ds.SMEM_LIMIT
+        assert ds.plan_fwd(256, 20, 256, 32, 128, 132)[1:3] == (4, 32)
+        for b, bc, R, T, d in [(3, 5, 50, 7, 48), (2, 3, 5, 3, 12), (4, 7, 256, 20, 256),
+                               (132, 7, 64, 7, 40), (132, 9, 50, 20, 40), (132, 2, 24, 33, 24),
+                               (132, 3, 50, 64, 40), (132, 40, 256, 20, 256)]:
+            p = ds.plan_fwd(R, T, d, b, bc, 132)
+            assert p.rows % 16 == 0 and p.rows >= T and p.smem <= ds.SMEM_LIMIT
+            assert p.nsplit * p.captions >= bc
+        with pytest.raises(ValueError, match="T <= 64"):
+            ds.plan_fwd(16, 65, 8, 2, 4, 132)
+    else:
+        dp = -(-D // 16) * 16
+        regions = 2 * 2 * 256 * (ds.TCS_KC + 8)
+        p = ds.plan_fwd(256, 16, D, 256, 2048, 132)  # the LN sub-captions at this D
+        assert p == (32, 1, 2048, 2 * 32 * ((dp + 8) + 264) + regions + 4 * (14 * 32 + 4))
+        assert p.smem <= ds.SMEM_LIMIT
+        if D == 768:
+            assert p == (32, 1, 2048, 142_096)
+            assert (49_664, 16_896, 73_728, 1_808) == (2 * 32 * 776, 2 * 32 * 264, regions,
+                                                       4 * (14 * 32 + 4))
+        assert ds.plan_fwd(256, 16, D, 32, 128, 132)[1:3] == (4, 32)
+        # ragged R: smaller region buffers
+        assert ds.plan_fwd(50, 7, D, 132, 9, 132) == (
+            32, 1, 9, 2 * 32 * ((dp + 8) + 72) + 2 * 2 * 64 * (ds.TCS_KC + 8) + 4 * (14 * 32 + 4))
+        with pytest.raises(ValueError, match="T <= 32"):
+            ds.plan_fwd(256, 33, D, 2, 4, 132)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

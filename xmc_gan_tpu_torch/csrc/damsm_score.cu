@@ -21,12 +21,12 @@
 // for d_words; 86 / 215 / 172 GFLOP at B = Bc = 128, T = 20, R = D = 256),
 // against 67 TFLOP/s fp32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
 // cores.  Route (the wrapper's rule per kernel, ops/cuda/damsm_score.py
-// tensor_cores): the bf16 d_regions runs on the tensor cores where R <= 256
-// and D <= 1024 (regions resident in shared memory at D <= 256, streamed
-// through it above: their own sections below), the bf16 forward where
-// R <= 256 and D <= 256; the bf16 d_words, every fp32 path, the bf16
-// forward at wider R or D and the bf16 d_regions at wider R run on the CUDA
-// cores (fp32 keeps 1e-5 against its plain version, which TF32 would not).
+// tensor_cores): the bf16 forward and d_regions run on the tensor cores where
+// R <= 256 and D <= 1024 (regions resident in shared memory at D <= 256,
+// streamed through it above: their own sections below); the bf16 d_words,
+// every fp32 path and the bf16 forward and d_regions at wider R run on the
+// CUDA cores (fp32 keeps 1e-5 against its plain version, which TF32 would
+// not).
 // Captions
 // longer than a block's rows reach the kernels as sub-captions: the wrapper
 // splits each caption's T slots into pieces of at most 64 and combines
@@ -56,9 +56,10 @@
 // The kernels allocate nothing and launch on the caller's stream.
 //
 // The bf16 kernels on the tensor cores: the forward (damsm_fwd_tc_kernel) and
-// d_regions (damsm_bwd_dr_tc_kernel) at R, D <= 256, and the streamed
-// d_regions (damsm_bwd_dr_tcs_kernel) at 256 < D <= 1024.  What the first two
-// share (the streamed one keeps all of it but the resident regions):
+// d_regions (damsm_bwd_dr_tc_kernel) at R, D <= 256, and the streamed forward
+// (damsm_fwd_tcs_kernel) and d_regions (damsm_bwd_dr_tcs_kernel) at
+// 256 < D <= 1024.  What the first two share (the streamed ones keep all of
+// it but the resident regions):
 //  * Products are mma.sync.m16n8k16 bf16 tiles with fp32 accumulators;
 //    operands are bf16 in shared memory, read with ldmatrix (.trans where
 //    the contraction runs along a tile's rows).
@@ -157,6 +158,22 @@
 //    the per-pass read-modify-write of the block's [R, D] fp32 d_r slice
 //    (1.57 MB), ~18%; the two sweeps over D, ~11%.
 //
+// The streamed forward (damsm_fwd_tcs_kernel), 256 < D <= 1024, R <= 256:
+//  * The same blocks, passes, rounding points, all-padded captions and
+//    scores as damsm_fwd_tc_kernel, and the streamed d_regions' chain to rel
+//    (tcs_attend, shared with it): the regions stream through the two chunk
+//    buffers twice a pass (sim = W R^T, then c = rnd(a) R into the [Mp, D]
+//    fp32 context in registers), then the norm and rel sweep over D.  No
+//    d_c, d_sim, staging tiles or d_r slice.
+//  * Shared memory: words Mp*(Dp+8)*2, a Mp*(Rp+8)*2, two region buffers
+//    2*Rp*(TCS_KC+8)*2 and 14*Mp+4 fp32/int words.  At R = 256, D = 768,
+//    Mp = 32: 49,664 + 16,896 + 73,728 + 1,808 = 142,096 bytes (D = 1024:
+//    158,480).  Passes are always Mp = 32 (TCS_FWD_ROWS): 16-row passes
+//    (107,792 bytes, two blocks a multiprocessor) timed no faster at the LN
+//    shape (PERF.md), so tcs_dims_ok refuses them for the forward.
+//  * Bound: 2 products per real word and image, 5.2 ms at the LN word shape
+//    (B = Bc = 256, R = 256, D = 768, 25,300 real words) over 989 TFLOP/s.
+//
 // C interface (ctypes; pointers and the stream as void*):
 //   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, g1, g2,
 //                     dtype, route, stream)
@@ -168,7 +185,7 @@
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
 //   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
 //   route 0 = the CUDA-core kernel (either dtype), 1 = the tensor-core one
-//   (bf16 only; xmc_damsm_bwd_dr takes the streamed kernel for D > 256);
+//   (bf16 only; the streamed kernel for D > 256);
 //   d_words always runs on the CUDA cores.  vb is the captions
 //   per block of the CUDA-core kernels; rows is the word rows per pass, Mp,
 //   of the tensor-core forward and d_regions (route 1), whose blocks are
@@ -747,7 +764,9 @@ constexpr int TC_STAGE = 36;     // row stride (fp32) of a warp's [16][32] d_r s
 // scores.  The streamed d_regions (damsm_bwd_dr_tcs_kernel) shares 0, 1, 4,
 // 7, 8 and 11 and has its own 13-20: the waits for its region chunks
 // (cp.async and the barrier after it), the sim, c and d a products, the
-// softmax, the two sweeps over all of D (norm + rel, d_c) and d_sim.
+// softmax, the two sweeps over all of D (norm + rel, d_c) and d_sim.  The
+// streamed forward (damsm_fwd_tcs_kernel) has 0, 1, 12 and of those 13-17
+// (its all-padded captions fall in pack).
 // Without the flag the macros are empty.
 constexpr int TC_NPHASE = 21, TC_PASSES = 10;
 #ifdef XMC_DAMSM_PHASES
@@ -1499,44 +1518,52 @@ damsm_bwd_dr_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16*
 }
 
 // ---------------------------------------------------------------------------
-// bf16 d_regions on the tensor cores at 256 < D <= 1024, the regions streamed
-// (header: "The streamed d_regions").
+// bf16 d_regions and forward on the tensor cores at 256 < D <= 1024, the
+// regions streamed (header: "The streamed d_regions", "The streamed forward").
 // ---------------------------------------------------------------------------
 
 constexpr int TCS_MAX_D = 1024;     // D limit (the [Mp, D] context lives in registers)
-constexpr int TCS_MAX_ROWS = 32;    // word rows per pass: 16 or 32
+constexpr int TCS_MAX_ROWS = 32;    // word rows per pass: 16 or 32 (d_regions)
+constexpr int TCS_FWD_ROWS = 32;    // word rows per pass of the forward: always 32
 constexpr int TCS_KC = 64;          // region columns per streamed chunk: one n-tile per warp
 constexpr int TCS_SK = TCS_KC + 8;  // row stride (bf16) of a chunk buffer, +8 as SD
 
-bool tcs_dims_ok(const TcDims& d) {
+bool tcs_dims_ok(const TcDims& d, bool bwd) {
+  const bool rows_ok = bwd ? (d.Mp == 16 || d.Mp == TCS_MAX_ROWS) : d.Mp == TCS_FWD_ROWS;
   return d.B > 0 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.R <= TC_MAX_RD && d.D > TC_MAX_RD &&
-         d.D <= TCS_MAX_D && (d.Mp == 16 || d.Mp == TCS_MAX_ROWS) && d.T <= d.Mp;
+         d.D <= TCS_MAX_D && rows_ok && d.T <= d.Mp;
 }
 
 // Words W and d_c DC [Mp][SD], a P and d_sim DS [Mp][SR] (bf16), then one
 // union: two region chunk buffers Rs [2][Rp][TCS_SK] (bf16) during the
 // products, each warp's d_r staging tile [kWarps][16][TC_STAGE] (fp32) during
-// the d_r accumulation; then rel, drel, red and the row map as above.
-__host__ __device__ inline size_t tcs_union_bytes(const TcDims& d) {
-  const size_t regions = 2 * 2 * size_t(d.Rp) * TCS_SK, stage = 4 * size_t(kWarps) * 16 * TC_STAGE;
+// the d_r accumulation; then rel, drel, red and the row map as above.  The
+// forward (bwd false) leaves out DC, DS, the staging tiles and drel.
+__host__ __device__ inline size_t tcs_union_bytes(const TcDims& d, bool bwd) {
+  const size_t regions = 2 * 2 * size_t(d.Rp) * TCS_SK;
+  const size_t stage = bwd ? 4 * size_t(kWarps) * 16 * TC_STAGE : 0;
   return regions > stage ? regions : stage;
 }
 
-size_t tcs_smem_bytes(const TcDims& d) {
-  return 2 * 2 * size_t(d.Mp) * (d.SD + d.SR) + tcs_union_bytes(d) + 4 * (size_t(15) * d.Mp + 4);
+size_t tcs_smem_bytes(const TcDims& d, bool bwd) {
+  const size_t tiles = bwd ? 2 : 1;
+  return 2 * tiles * size_t(d.Mp) * (d.SD + d.SR) + tcs_union_bytes(d, bwd) +
+         4 * (size_t(bwd ? 15 : 14) * d.Mp + 4);
 }
 
-__device__ TcSmem tcs_carve(unsigned char* base, const TcDims& d) {
+__device__ TcSmem tcs_carve(unsigned char* base, const TcDims& d, bool bwd) {
+  const int mb = bwd ? d.Mp : 0;
   TcSmem s;
   s.W = reinterpret_cast<__nv_bfloat16*>(base);
   s.DC = s.W + d.Mp * d.SD;
-  s.P = s.DC + d.Mp * d.SD;
+  s.P = s.DC + mb * d.SD;
   s.DS = s.P + d.Mp * d.SR;
-  s.Rs = s.DS + d.Mp * d.SR;
+  s.Rs = s.DS + mb * d.SR;
   s.stage = reinterpret_cast<float*>(s.Rs);
-  s.rel = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.Rs) + tcs_union_bytes(d));
+  s.rel = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.Rs) +
+                                   tcs_union_bytes(d, bwd));
   s.drel = s.rel + d.Mp;
-  s.red = s.drel + d.Mp;
+  s.red = s.drel + mb;
   s.row_t = reinterpret_cast<int*>(s.red + kWarps * d.Mp);
   s.row_c = s.row_t + d.Mp;
   s.cap_j = s.row_c + d.Mp;
@@ -1664,6 +1691,85 @@ __device__ void tcs_attn_by_regions(float (&c)[MT][NQ][4], const __nv_bfloat16* 
   TC_PHASE(16);
 }
 
+// A pass's chain up to rel with the regions streamed, as tc_attend computes
+// it: sim = W R^T over the region chunks; a = softmax_R(g1 sim) (fp32, in
+// registers) and P = rnd(a) in shared memory; c = P R, a chunk of columns at
+// a time, into the [Mp, D] fp32 context c in registers (n-tile q * 8 + warp
+// of chunk q); c_hat = c / max(|c|, 1e-12) (left in c, with inrm = 1 /
+// max(|c|, 1e-12)); rel = sum_D rnd(c_hat) w into s.rel.  The warp owns the
+// n-tiles ntR0 .. ntR0+ntwR-1 of Rp.  Ends after a barrier.
+template <int MT, int NQ>
+__device__ __forceinline__ void tcs_attend(float (&a)[MT][4][4], float (&c)[MT][NQ][4],
+                                           float (&inrm)[MT][2],
+                                           const __nv_bfloat16* __restrict__ ri, int ntR0,
+                                           int ntwR, const TcDims& d,
+                                           const TcSmem& s TC_PHASE_ARGS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
+  const int nD = d.Dp / 8, nq = (d.Dp + TCS_KC - 1) / TCS_KC;
+  float v[MT][2];
+  // sim = W R^T; a = softmax_R(g1 sim) (fp32, in registers), P = rnd(a)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[mt][jj][e] = 0.f;
+  tcs_rows_by_regions<MT, 14>(a, s.W, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
+  tc_softmax<MT>(a, v, ntR0, ntwR, d, s);
+  __syncthreads();
+  TC_PHASE(15);
+
+  // c = P R; c_hat = c / max(|c|, 1e-12) (left in c); rel = sum_D rnd(c_hat) w
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mt][q][e] = 0.f;
+  tcs_attn_by_regions<MT, NQ>(c, ri, d, s TC_PHASE_PASS);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      inrm[mt][h] = 0.f;  // the sum of c^2 first
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = c[mt][q][2 * h + e];
+          if (q < nq && q * 8 + warp < nD) inrm[mt][h] = fmaf(x, x, inrm[mt][h]);
+        }
+    }
+  tc_rows<MT, false>(inrm, s.red, d.Mp);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + (lane >> 2) + 8 * h;
+      inrm[mt][h] = 1.f / fmaxf(sqrtf(inrm[mt][h]), 1e-12f);
+      v[mt][h] = 0.f;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        if (q >= nq || q * 8 + warp >= nD) continue;
+        const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            s.W + row * d.SD + (q * 8 + warp) * 8 + q2));
+        const float x0 = c[mt][q][2 * h] * inrm[mt][h];
+        const float x1 = c[mt][q][2 * h + 1] * inrm[mt][h];
+        c[mt][q][2 * h] = x0;
+        c[mt][q][2 * h + 1] = x1;
+        v[mt][h] = fmaf(rnd<true>(x0), wv.x, fmaf(rnd<true>(x1), wv.y, v[mt][h]));
+      }
+    }
+  tc_rows<MT, false>(v, s.red, d.Mp);
+  if (warp == 0 && (lane & 3) == 0)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) s.rel[mt * 16 + (lane >> 2) + 8 * h] = v[mt][h];
+  __syncthreads();
+  TC_PHASE(17);
+}
+
 // d_regions, bf16 operands, 256 < D <= 1024: block (image i, split), as
 // damsm_bwd_dr_tc_kernel, with the image's regions streamed through shared
 // memory in TCS_KC-column chunks, once for each product that reads them, and
@@ -1675,7 +1781,7 @@ damsm_bwd_dr_tcs_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16
                         const uint8_t* __restrict__ mask, const float* __restrict__ g,
                         float* __restrict__ partial, TcDims d, int nsplit) {
   extern __shared__ __align__(16) unsigned char tc_smem_raw[];
-  const TcSmem s = tcs_carve(tc_smem_raw, d);
+  const TcSmem s = tcs_carve(tc_smem_raw, d, true);
   TC_PHASE_INIT
   const int i = blockIdx.x, split = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
@@ -1695,67 +1801,7 @@ damsm_bwd_dr_tcs_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16
     const int ncap = s.info[1];
     float a[MT][4][4], c[MT][NQ][4], inrm[MT][2], v[MT][2];
 
-    // sim = W R^T; a = softmax_R(g1 sim) (fp32, in registers), P = rnd(a)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[mt][jj][e] = 0.f;
-    tcs_rows_by_regions<MT, 14>(a, s.W, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
-    tc_softmax<MT>(a, v, ntR0, ntwR, d, s);
-    __syncthreads();
-    TC_PHASE(15);
-
-    // c = P R; c_hat = c / max(|c|, 1e-12) (left in c); rel = sum_D rnd(c_hat) w
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[mt][q][e] = 0.f;
-    tcs_attn_by_regions<MT, NQ>(c, ri, d, s TC_PHASE_PASS);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        inrm[mt][h] = 0.f;  // the sum of c^2 first
-#pragma unroll
-        for (int q = 0; q < NQ; ++q)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float x = c[mt][q][2 * h + e];
-            if (q < nq && q * 8 + warp < nD) inrm[mt][h] = fmaf(x, x, inrm[mt][h]);
-          }
-      }
-    tc_rows<MT, false>(inrm, s.red, d.Mp);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = mt * 16 + (lane >> 2) + 8 * h;
-        inrm[mt][h] = 1.f / fmaxf(sqrtf(inrm[mt][h]), 1e-12f);
-        v[mt][h] = 0.f;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          if (q >= nq || q * 8 + warp >= nD) continue;
-          const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              s.W + row * d.SD + (q * 8 + warp) * 8 + q2));
-          const float x0 = c[mt][q][2 * h] * inrm[mt][h];
-          const float x1 = c[mt][q][2 * h + 1] * inrm[mt][h];
-          c[mt][q][2 * h] = x0;
-          c[mt][q][2 * h + 1] = x1;
-          v[mt][h] = fmaf(rnd<true>(x0), wv.x, fmaf(rnd<true>(x1), wv.y, v[mt][h]));
-        }
-      }
-    tc_rows<MT, false>(v, s.red, d.Mp);
-    if (warp == 0 && (lane & 3) == 0)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) s.rel[mt * 16 + (lane >> 2) + 8 * h] = v[mt][h];
-    __syncthreads();
-    TC_PHASE(17);
+    tcs_attend<MT, NQ>(a, c, inrm, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
 
     tc_drel(g, i, rows, ncap, d, s);
     __syncthreads();
@@ -1822,11 +1868,61 @@ damsm_bwd_dr_tcs_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16
   TC_PHASE_FLUSH
 }
 
+// The forward, bf16 operands, 256 < D <= 1024: block (image i, split), as
+// damsm_fwd_tc_kernel, with the image's regions streamed through shared
+// memory in TCS_KC-column chunks twice a pass (sim = W R^T, then c = P R)
+// and the pass's [Mp, D] context in registers (tcs_attend); Mp = 32.
+template <int MT, int NQ>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_fwd_tcs_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ w,
+                     const uint8_t* __restrict__ mask, float* __restrict__ out, TcDims d,
+                     int nsplit) {
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  const TcSmem s = tcs_carve(tc_smem_raw, d, false);
+  TC_PHASE_INIT
+  const int i = blockIdx.x, split = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (d.Bc + nsplit - 1) / nsplit;
+  const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
+  float* out_i = out + size_t(i) * d.Bc;
+  const __nv_bfloat16* ri = r + size_t(i) * d.R * d.D;
+  // an all-padded caption takes no row; its score is the plain version's
+  // logsumexp of T logits of -1e30, over g2
+  for (int j = c0 + warp; j < c1; j += kWarps) {
+    const uint8_t* mj = mask + size_t(j) * d.T;
+    const bool real = (lane < d.T && mj[lane] == 0) || (lane + 32 < d.T && mj[lane + 32] == 0);
+    if (!__any_sync(0xffffffffu, real) && lane == 0) out_i[j] = (NEG + logf(float(d.T))) / d.g2;
+  }
+  // a warp's columns: adjacent n-tiles (8 wide) of Rp; n-tile q * 8 + warp of
+  // Dp in chunk q
+  const int nR = d.Rp / 8, twR = (nR + kWarps - 1) / kWarps;
+  const int ntR0 = warp * twR, ntwR = max(0, min(twR, nR - ntR0));
+  for (int j = c0; j < c1;) {
+    if (tc_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS) == 0) break;
+    float a[MT][4][4], c[MT][NQ][4], inrm[MT][2];
+    tcs_attend<MT, NQ>(a, c, inrm, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
+    // score = logsumexp over the caption's real words of g2 rel, over g2
+    for (int cs = warp; cs < s.info[1]; cs += kWarps) {
+      const int base = s.cap_base[cs], n = s.cap_n[cs];
+      float mx = -INFINITY;
+      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, d.g2 * s.rel[base + t]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int t = lane; t < n; t += 32) sum += expf(d.g2 * s.rel[base + t] - mx);
+      sum = warp_sum(sum);
+      if (lane == 0) out_i[s.cap_j[cs]] = (mx + logf(sum)) / d.g2;
+    }
+    TC_PHASE_SYNC(12);
+    TC_PHASE_COUNT(TC_PASSES);
+  }
+  TC_PHASE_FLUSH
+}
+
 template <int MT, int NQ>
 int launch_dr_tcs(const void* r, const void* w, const uint8_t* mask, const float* g,
                   float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
   auto k = damsm_bwd_dr_tcs_kernel<MT, NQ>;
-  const size_t bytes = tcs_smem_bytes(d);
+  const size_t bytes = tcs_smem_bytes(d, true);
   if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
   dim3 grid(d.B, nsplit);
   k<<<grid, kThreads, bytes, st>>>(static_cast<const __nv_bfloat16*>(r),
@@ -1836,16 +1932,32 @@ int launch_dr_tcs(const void* r, const void* w, const uint8_t* mask, const float
   return int(cudaGetLastError());
 }
 
-// Dispatch the streamed d_regions on MT = Mp / 16 (1 or 2) and NQ, the
-// region chunks a pass holds context registers for: 8, 12 or 16 (D <= 512,
-// 768, 1024).
-template <int MT>
-int dispatch_dr_tcs(const void* r, const void* w, const uint8_t* mask, const float* g,
-                    float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
+template <int MT, int NQ>
+int launch_fwd_tcs(const void* r, const void* w, const uint8_t* mask, float* out,
+                   const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_fwd_tcs_kernel<MT, NQ>;
+  const size_t bytes = tcs_smem_bytes(d, false);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  dim3 grid(d.B, nsplit);
+  k<<<grid, kThreads, bytes, st>>>(static_cast<const __nv_bfloat16*>(r),
+                                   static_cast<const __nv_bfloat16*>(w), mask, out, d, nsplit);
+  return int(cudaGetLastError());
+}
+
+// Dispatch a streamed kernel on NQ, the region chunks a pass holds context
+// registers for: f(Nq<8>{}), f(Nq<12>{}) or f(Nq<16>{}) for D <= 512, 768,
+// 1024.
+template <int N>
+struct Nq {
+  static constexpr int value = N;
+};
+
+template <class F>
+int dispatch_nq(const TcDims& d, F f) {
   const int nq = (d.Dp + TCS_KC - 1) / TCS_KC;
-  if (nq <= 8) return launch_dr_tcs<MT, 8>(r, w, mask, g, partial, dr, d, nsplit, st);
-  if (nq <= 12) return launch_dr_tcs<MT, 12>(r, w, mask, g, partial, dr, d, nsplit, st);
-  return launch_dr_tcs<MT, 16>(r, w, mask, g, partial, dr, d, nsplit, st);
+  if (nq <= 8) return f(Nq<8>{});
+  if (nq <= 12) return f(Nq<12>{});
+  return f(Nq<16>{});
 }
 
 template <int MT>
@@ -1905,9 +2017,16 @@ extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(out);
-  if (route == 1) {  // the tensor-core kernel (bf16), in passes of `rows` word rows
+  if (route == 1) {  // a tensor-core kernel (bf16), in passes of `rows` word rows
     const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
-    if (dtype != 1 || !tc_dims_ok(t) || nsplit < 1) return int(cudaErrorInvalidValue);
+    if (dtype != 1 || nsplit < 1) return int(cudaErrorInvalidValue);
+    if (D > TC_MAX_RD) {  // the regions streamed
+      if (!tcs_dims_ok(t, false)) return int(cudaErrorInvalidValue);
+      return dispatch_nq(t, [&](auto nq) {  // Mp = 32: MT = 2
+        return launch_fwd_tcs<2, decltype(nq)::value>(r, w, m, o, t, nsplit, st);
+      });
+    }
+    if (!tc_dims_ok(t)) return int(cudaErrorInvalidValue);  // the regions resident
     XMC_TC_DISPATCH(launch_fwd_tc, r, w, m, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
@@ -1928,9 +2047,12 @@ extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, 
     const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
     if (dtype != 1 || nsplit < 1) return int(cudaErrorInvalidValue);
     if (D > TC_MAX_RD) {  // the regions streamed
-      if (!tcs_dims_ok(t)) return int(cudaErrorInvalidValue);
-      return t.Mp == 16 ? dispatch_dr_tcs<1>(r, w, m, gg, p, o, t, nsplit, st)
-                        : dispatch_dr_tcs<2>(r, w, m, gg, p, o, t, nsplit, st);
+      if (!tcs_dims_ok(t, true)) return int(cudaErrorInvalidValue);
+      return dispatch_nq(t, [&](auto nq) {  // MT = Mp / 16: 1 or 2
+        constexpr int NQ = decltype(nq)::value;
+        return t.Mp == 16 ? launch_dr_tcs<1, NQ>(r, w, m, gg, p, o, t, nsplit, st)
+                          : launch_dr_tcs<2, NQ>(r, w, m, gg, p, o, t, nsplit, st);
+      });
     }
     if (!tc_dims_ok(t)) return int(cudaErrorInvalidValue);  // the regions resident
     XMC_TC_DISPATCH(launch_dr_tc, r, w, m, gg, p, o, t, nsplit, st);

@@ -7,9 +7,9 @@ d_regions and forward kernels then add each block's ``clock64()`` cycles
 between its barriers into per-phase counters), runs one launch of each
 kernel of that build through its wrapper, at the wrapper's own plan, at the
 flagship word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words, D =
-256), and of the streamed d_regions at the LN-COCO word shape (B = Bc =
-256, R = 256, T = 200 as the 16-slot sub-captions of the packed real words
-that ``damsm_scores`` hands it, D = 768), and prints the card, each
+256), and of the streamed d_regions and forward at the LN-COCO word shape
+(B = Bc = 256, R = 256, T = 200 as the 16-slot sub-captions of the packed
+real words that ``damsm_scores`` hands them, D = 768), and prints the card, each
 launch's time (CUDA events) and its cycles per pass of each phase, summed
 over blocks.  Phases both flagship kernels have: pack
 (warp 0 packs the pass's real words), words (their load), sim + softmax
@@ -27,9 +27,10 @@ the others: region waits (the waits for its streamed region chunks,
 ``cp.async`` and the barrier after it, over its three sweeps), the sim, c
 and d a products (each with the issue of the next chunk's loads), softmax,
 norm + rel and d_c (the two reductions over all of D) and d_sim.  The
-counters cost time of their own (an extra barrier a pass), so a launch is
-slower than the plain build's.  Needs a GPU and ``nvcc``; imports nothing
-of JAX.
+streamed forward has pack, words, the region waits, the sim and c products,
+softmax, norm + rel and scores.  The counters cost time of their own (an
+extra barrier a pass), so a launch is slower than the plain build's.  Needs
+a GPU and ``nvcc``; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ PHASES = {0: "pack", 1: "words", 2: "sim + softmax", 3: "c + rel", 4: "d rel", 5
 # each kernel's phases, in the order a pass runs them
 KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
                  "d_regions, streamed": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
-                 "forward": (0, 1, 2, 3, 12, 9)}
+                 "forward": (0, 1, 2, 3, 12, 9),
+                 "forward, streamed": (0, 1, 14, 15, 16, 17, 12, 13)}
 
 
 def phase_library() -> CudaLibrary:
@@ -105,6 +107,9 @@ def main() -> int:
                                 ln_d),
         "forward": (lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16, library=lib), b,
                     mask, f"T={T}", D),
+        "forward, streamed": (lambda: ds._launch_fwd(ln_r, w_sub, m_sub, 4.0, 5.0, torch.bfloat16,
+                                                     library=lib), ln_b, ln_mask,
+                              f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions", ln_d),
     }
     print(card)
     for kernel, (launch, nb, words, t_desc, d) in launches.items():

@@ -19,15 +19,14 @@ the operands of the three products to bf16 (``r``, ``w``, ``a`` and
 plain version rounds (``d c_hat`` and ``d a``); everything else is fp32.
 
 Routes, one rule per kernel (``tensor_cores(which, R, D, compute_dtype)``):
-the bf16 d_regions runs on the tensor cores (launch plan ``plan_dr``) if and
-only if R <= 256 and D <= 1024, with the image's regions resident in shared
-memory at D <= 256 and streamed through it in column chunks above; the bf16
-forward (``plan_fwd``) if and only if R <= 256 and D <= 256.  The tensor-core
-d_regions also rounds ``d_c`` and ``d_sim`` to bf16 before their products,
-as the Pallas kernel does (within one bf16 ulp of the largest gradient of
-the plain version).  Everything else (the d_words, every fp32 kernel, the
-bf16 forward at wider R or D, the bf16 d_regions at wider R) runs on the
-CUDA cores (``plan``), for D <= 1024.
+the bf16 forward and d_regions run on the tensor cores (launch plans
+``plan_fwd`` and ``plan_dr``) if and only if R <= 256 and D <= 1024, with
+the image's regions resident in shared memory at D <= 256 and streamed
+through it in column chunks above.  The tensor-core d_regions also rounds
+``d_c`` and ``d_sim`` to bf16 before their products, as the Pallas kernel
+does (within one bf16 ulp of the largest gradient of the plain version).
+Everything else (the d_words, every fp32 kernel, the bf16 forward and
+d_regions at wider R) runs on the CUDA cores (``plan``), for D <= 1024.
 
 Any T: a block holds at most 64 word rows, so where T does not fit
 ``damsm_scores`` moves each caption's real words to the front, drops the
@@ -75,6 +74,7 @@ __all__ = [
     "damsm_scores_ref",
     "combine_sub_scores",
     "cuda_core_rows",
+    "kernel_name",
     "plan",
     "plan_dr",
     "plan_fwd",
@@ -115,10 +115,12 @@ SMEM_LIMIT = 232448
 TC_MAX_RD = 256
 TC_ROWS = (64, 48, 32, 16)  # word rows per pass they can take, largest first
 TC_STAGE = 36  # row stride of a warp's d_r staging tile
-# the tensor-core (bf16) d_regions with streamed regions (256 < D <= 1024): word rows
-# per pass it can take, largest first; region columns per streamed chunk
+# the tensor-core (bf16) forward and d_regions with streamed regions (256 < D <= 1024):
+# word rows per pass the d_regions and the forward can take, largest first; region
+# columns per streamed chunk
 TCS_MAX_D = 1024
 TCS_ROWS = (32, 16)
+TCS_FWD_ROWS = (32,)
 TCS_KC = 64
 
 
@@ -128,16 +130,14 @@ def _round_up(x: int, m: int) -> int:
 
 def tensor_cores(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> bool:
     """The route rule, per kernel (``which``: "fwd", "dr" or "dw"): the bf16
-    d_regions runs on the tensor cores if and only if R <= 256 and D <= 1024
-    (regions resident at D <= 256, streamed above), the bf16 forward if and
-    only if R <= 256 and D <= 256; every other launch (fp32, d_words, bf16
-    at wider R or D) runs on the CUDA cores.  T plays no part: the kernels
-    see sub-captions of at most 64 slots."""
+    forward and d_regions run on the tensor cores if and only if R <= 256
+    and D <= 1024 (regions resident at D <= 256, streamed above); every
+    other launch (fp32, d_words, bf16 at wider R) runs on the CUDA cores.
+    T plays no part: the kernels see sub-captions of at most 64 slots."""
     if which not in ("fwd", "dr", "dw"):
         raise ValueError(f"which must be 'fwd', 'dr' or 'dw', got {which!r}")
-    if compute_dtype != torch.bfloat16 or R > TC_MAX_RD or which == "dw":
-        return False
-    return D <= (TCS_MAX_D if which == "dr" else TC_MAX_RD)
+    return (compute_dtype == torch.bfloat16 and which != "dw" and R <= TC_MAX_RD
+            and D <= TCS_MAX_D)
 
 
 def _cuda_core_smem(R: int, D: int, backward: bool) -> tuple[int, int]:
@@ -191,6 +191,16 @@ def _tc_fwd_smem(R: int, D: int, rows: int) -> int:
     return 2 * (rp * (dp + 8) + rows * ((dp + 8) + (rp + 8))) + 4 * (14 * rows + 4)
 
 
+def _tcs_fwd_smem(R: int, D: int, rows: int) -> int:
+    """The streamed bf16 forward kernel's shared memory (256 < D <= 1024),
+    as ``csrc/damsm_score.cu`` computes it: two bf16 tiles of the pass's
+    rows as ``_tc_fwd_smem`` (words ``[rows, Dp + 8]``, a ``[rows, Rp +
+    8]``), the two region chunk buffers ``[2, Rp, TCS_KC + 8]`` bf16 and 14
+    fp32/int words per row."""
+    rp, dp = _round_up(R, 16), _round_up(D, 16)
+    return 2 * rows * ((dp + 8) + (rp + 8)) + 2 * 2 * rp * (TCS_KC + 8) + 4 * (14 * rows + 4)
+
+
 def _tc_dr_smem(R: int, D: int, rows: int) -> int:
     """The bf16 d_regions kernel's shared memory, as ``csrc/damsm_score.cu``
     computes it: the image's regions stay resident (``[Rp, Dp + 8]`` bf16)
@@ -237,25 +247,48 @@ def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
     return TcPlan(fits[0], nsplit, -(-bc // nsplit), smem(fits[0]))
 
 
+# the bf16 tensor-core kernels by (which, regions streamed): shared memory for
+# (R, D, rows), the rows per pass each can take and its D limit; the kernels
+# keep their regions resident at D <= 256 and stream them above
+_TC_KERNELS = {
+    ("fwd", False): (_tc_fwd_smem, TC_ROWS, TC_MAX_RD),
+    ("fwd", True): (_tcs_fwd_smem, TCS_FWD_ROWS, TCS_MAX_D),
+    ("dr", False): (_tc_dr_smem, TC_ROWS, TC_MAX_RD),
+    ("dr", True): (_tcs_dr_smem, TCS_ROWS, TCS_MAX_D),
+}
+
+
+def _tc_kernel(which: str, R: int, D: int) -> tuple[Callable[[int], int], tuple[int, ...], int]:
+    """The bf16 tensor-core kernel (``which``: "fwd" or "dr") that takes R,
+    D: its shared memory for a number of rows, the rows per pass it can take
+    and its D limit (``_TC_KERNELS``)."""
+    smem, rows, max_d = _TC_KERNELS[(which, D > TC_MAX_RD)]
+    return (lambda m: smem(R, D, m)), rows, max_d
+
+
 def plan_fwd(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
-    """The bf16 tensor-core forward kernel's plan (shared memory:
-    ``_tc_fwd_smem``)."""
-    return _plan_tc("forward", R, T, D, b, bc, sms, lambda rows: _tc_fwd_smem(R, D, rows))
-
-
-def _dr_kernel(R: int, D: int) -> tuple[Callable[[int], int], tuple[int, ...], int]:
-    """The bf16 tensor-core d_regions kernel that takes R, D: its shared
-    memory for a number of rows, the rows per pass it can take and its D
-    limit.  The resident-region kernel at D <= 256 (``_tc_dr_smem``), the
-    streamed one above (``_tcs_dr_smem``: 32 or 16 rows, D <= 1024)."""
-    if D <= TC_MAX_RD:
-        return (lambda rows: _tc_dr_smem(R, D, rows)), TC_ROWS, TC_MAX_RD
-    return (lambda rows: _tcs_dr_smem(R, D, rows)), TCS_ROWS, TCS_MAX_D
+    """The bf16 tensor-core forward kernel's plan (``_tc_kernel``)."""
+    return _plan_tc("forward", R, T, D, b, bc, sms, *_tc_kernel("fwd", R, D))
 
 
 def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
-    """The bf16 tensor-core d_regions kernel's plan (``_dr_kernel``)."""
-    return _plan_tc("d_regions", R, T, D, b, bc, sms, *_dr_kernel(R, D))
+    """The bf16 tensor-core d_regions kernel's plan (``_tc_kernel``)."""
+    return _plan_tc("d_regions", R, T, D, b, bc, sms, *_tc_kernel("dr", R, D))
+
+
+def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
+    """The start of the name under which a profiler trace shows the kernel
+    that ``which`` ("fwd", "dr" or "dw") launches at R, D and compute dtype
+    (``tensor_cores``): on the tensor cores with the regions resident
+    (``_tc_kernel<``) or streamed (``_tcs_kernel<``), else on the CUDA cores
+    (templated on the operand type, except the forward's kernels)."""
+    if tensor_cores(which, R, D, compute_dtype):
+        tc = "tc" if D <= TC_MAX_RD else "tcs"
+        return {"fwd": f"damsm_fwd_{tc}_kernel<", "dr": f"damsm_bwd_dr_{tc}_kernel<"}[which]
+    bf16 = compute_dtype == torch.bfloat16
+    return {"fwd": "damsm_fwd_bf16_kernel<" if bf16 else "damsm_fwd_kernel<",
+            "dr": "damsm_bwd_dr_kernel<" + ("__nv_bfloat16" if bf16 else "float"),
+            "dw": "damsm_bwd_dw_kernel<"}[which]
 
 
 def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None) -> int:
@@ -271,9 +304,9 @@ def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None)
         raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
     width = cuda_core_rows(R, D, backward=True)
     if tensor_cores("fwd", R, D, compute_dtype):
-        width = min(width, _tc_rows(lambda m: _tc_fwd_smem(R, D, m)))
+        width = min(width, _tc_rows(*_tc_kernel("fwd", R, D)[:2]))
     if tensor_cores("dr", R, D, compute_dtype):
-        width = min(width, _tc_rows(*_dr_kernel(R, D)[:2]))
+        width = min(width, _tc_rows(*_tc_kernel("dr", R, D)[:2]))
     if width < 1:
         per_row, fixed = _cuda_core_smem(R, D, backward=True)
         raise ValueError(f"damsm_score: R={R}, D={D} does not fit in shared memory (a word "
@@ -327,24 +360,29 @@ def damsm_scores_ref(r: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
     one plain implementation: ``losses.word_region_scores`` uses it too).
 
     Products take operands rounded to ``compute_dtype`` and accumulate in
-    fp32 (``x.to(cd).float()``, the JAX ``preferred_element_type`` pattern).
-    Above ``block_elems`` fp32 elements of the ``[B, Bc, T, R]``
+    fp32 (``x.to(cd).float()``, the JAX ``preferred_element_type`` pattern),
+    or in fp64 around the same rounding points where ``r`` and ``w`` are
+    fp64 (fp64 scores).  The kernels' checks hold them against the fp64
+    sums: where fp32 sums in another order than the kernel's round a bf16
+    operand the other way, that operand's ulp would add to the error.
+    Above ``block_elems`` elements of the ``[B, Bc, T, R]``
     similarity, the captions stream in blocks under
     ``torch.utils.checkpoint``; the math is the same (no softmax crosses the
     caption axis).
     """
     cd = compute_dtype or torch.float32
+    acc = torch.float64 if r.dtype == torch.float64 else torch.float32
     b, r_regions, _ = r.shape
     bc, t, _ = w.shape
-    rc = r.to(cd).float()
+    rc = r.to(cd).to(acc)
 
     def block(wb: torch.Tensor, mb: torch.Tensor) -> torch.Tensor:
-        wc = wb.to(cd).float()
+        wc = wb.to(cd).to(acc)
         sim = torch.einsum("ctd,ird->ictr", wc, rc)
         attn = torch.softmax(gamma1 * sim, dim=-1)
-        ctx = torch.einsum("ictr,ird->ictd", attn.to(cd).float(), rc)
+        ctx = torch.einsum("ictr,ird->ictd", attn.to(cd).to(acc), rc)
         ctx = ctx / ctx.square().sum(-1, keepdim=True).sqrt().clamp_min(1e-12)
-        rel = torch.einsum("ictd,ctd->ict", ctx.to(cd).float(), wc)
+        rel = torch.einsum("ictd,ctd->ict", ctx.to(cd).to(acc), wc)
         rel = torch.where(mb[None], NEG, gamma2 * rel)
         return torch.logsumexp(rel, dim=-1) / gamma2
 
