@@ -17,10 +17,14 @@ Phases (any failure raises, and the exit code is then non-zero):
    word-loss shape (B = Bc = 128, R = 256, T = 20, D = 256), at a ragged
    one (R = 50, T = 7, D = 48, one all-padded caption) and at the edges of
    the bf16 tensor-core kernels and the bf16 CUDA-core ones at R = 300
-   (``DAMSM_EDGES``), compute dtype fp32 and bf16, each launch's kernel the
-   one the route rule names; the bf16 forward and d_regions, which run on
-   the tensor cores (``mma.sync``; d_words and every fp32 path run on the
-   CUDA cores), also
+   (``DAMSM_EDGES``), compute dtype fp32 and bf16, through ``damsm_scores``
+   (captions longer than a kernel of the route takes as sub-captions), each
+   launch's kernel the one the route rule names; fp32 also at its own edges
+   (``DAMSM_F32_EDGES``: D = 42; T = 64 as two 48-slot sub-captions, the
+   packed d_regions' rows; T = 64 unsplit at R = 300); the bf16
+   forward and d_regions, which run on the tensor cores (``mma.sync``;
+   d_words and the fp32 forward run on the CUDA cores), and the fp32
+   d_regions (CUDA cores, packed real words, regions streamed), also
    twice bit-equal, the forward's all-padded caption scoring exactly the
    plain value and the d_regions unmoved by its cotangent; the three
    ``damsm_score`` kernels at the LN-COCO word shape (B = Bc = 256, R = 256,
@@ -66,8 +70,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    and 10 timed steps) and fp32 with TF32 off (1 warm-up, 3 timed); checks
    each kernel's launches in one step (fused_affine 28 forward / 14
    backward, damsm 2 forward / 2 d_regions / 0 d_words), that the trace's
-   forward and d_regions launches are the tensor-core kernels in bf16 and
-   the CUDA-core ones in fp32, and that the losses are finite; prints
+   forward and d_regions launches are the kernels the route rule names (the
+   tensor-core ones in bf16; in fp32 the CUDA-core forward and the
+   d_regions with packed words), and that the losses are finite; prints
    images/s (median),
    peak memory, one step's device time by kernel category and the damsm
    kernels by name.  Then the LN-COCO step (``ln_coco_256.yml`` as it
@@ -82,7 +87,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs, as one
    ``{"kernels": [...]}`` line; the damsm kernels at the flagship and at
-   the LN word shape (2 timed launches there).
+   the LN word shape (2 timed launches there); the fp32 d_regions with
+   packed words also at 32 word rows a pass beside the plan's 48, in turns.
 8. Last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  The weights are random (from
@@ -211,12 +217,23 @@ DAMSM_RAGGED = (3, 5, 50, 7, 48)
 # so each block's passes pack runs of several captions: D = 40 with an all-padded caption
 # inside a pass; R = 50 with T = 20 (passes of word rows no multiple of 16,
 # captions crossing a 16-row tile, Bc = 9); T = 33; T = 64 with captions of
-# at most 2 words (whole 16-row tiles without a word); B != Bc throughout.
+# at most 2 words (whole 16-row tiles without a word; in fp32 the slots past
+# the longest caption are cut, see DAMSM_F32_EDGES); B != Bc throughout.
 # Last, R = 300, more regions than the tensor-core kernels take: the bf16
 # forward and d_regions there run on the CUDA cores
 DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, None),
                ((132, 2, 24, 33, 24), True, None), ((132, 3, 50, 64, 40), False, 2),
                ((4, 5, 300, 20, 48), True, None)]
+# (B, Bc, R, T, D), an all-padded caption, longest caption (None: T), caption 0
+# all real words: the fp32 edges.  D = 42, no multiple of 4 (the packed
+# d_regions' plain loads, not cp.async; scalar d_r stores); T = 64 with
+# caption 0 whole, so every caption goes as two 48-slot sub-captions
+# (the packed d_regions' rows) combined by logsumexp; T = 64 at R = 300 with
+# captions of at most 2 words, unsplit: every fp32 kernel on the CUDA cores
+# at 64 rows, whole 16-row tiles without a word
+DAMSM_F32_EDGES = [((132, 6, 40, 11, 42), True, None, False),
+                   ((132, 5, 50, 64, 40), True, None, True),
+                   ((132, 3, 300, 64, 40), False, 2, False)]
 REGIONS = 256  # DF_DISC's region head, always its 16x16 stage
 # the LN-COCO word shape (ln_coco_256.yml: batch 256, MAX_LENGTH 200,
 # EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256: the bf16 forward and
@@ -242,8 +259,11 @@ LN_PLAIN_BLOCK = 2**28
 
 def route_label(which: str, R: int, D: int, cd) -> str:
     """The route of one kernel (``which``: "fwd", "dr" or "dw") as a row of
-    the ``kernels`` line names it."""
-    if not ds.tensor_cores(which, R, D, cd):
+    the ``kernels`` line names it (``ds.route``)."""
+    rt = ds.route(which, R, D, cd)
+    if rt == ds.PACKED_FP32:
+        return "CUDA cores, packed real words, regions streamed"
+    if rt == ds.CUDA_CORES:
         return "CUDA cores"
     return "tensor cores (mma.sync)" + (", regions streamed" if D > ds.TC_MAX_RD else "")
 
@@ -476,7 +496,7 @@ def epilogue_inputs(shape, dtype, gen):
     return x, mods
 
 
-def damsm_inputs(shape, gen, allpad: bool, max_len: int | None = None):
+def damsm_inputs(shape, gen, allpad: bool, max_len: int | None = None, full: bool = False):
     b, bc, R, T, D = shape
     r = torch.nn.functional.normalize(torch.randn(b, R, D, generator=gen, device="cuda"), dim=-1)
     w = torch.nn.functional.normalize(torch.randn(bc, T, D, generator=gen, device="cuda"), dim=-1)
@@ -484,6 +504,8 @@ def damsm_inputs(shape, gen, allpad: bool, max_len: int | None = None):
     mask = torch.arange(T, device="cuda")[None, :] >= lens[:, None]
     if allpad:
         mask[1] = True
+    if full:
+        mask[0] = False
     up = torch.randn(b, bc, generator=gen, device="cuda")
     return r, w, mask, up
 
@@ -554,48 +576,72 @@ def check_modulation(shapes) -> dict:
     return errs
 
 
+def check_damsm_shape(shape, allpad, max_len, cd, gen, worst, full: bool = False) -> None:
+    """One phase-3 damsm shape: forward, d_regions and d_words through
+    ``damsm_scores`` (one launch each; captions longer than a kernel of the
+    route holds as sub-captions) against the plain version and its autograd
+    on the whole captions, each launch's kernel the one the route rule names
+    (profiler trace); the largest errors go into ``worst``."""
+    tol = DAMSM_TOL[cd]
+    r, w, mask, up = damsm_inputs(shape, gen, allpad, max_len, full)
+    ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
+    got = {}
+
+    def run():
+        got["forward"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
+        got["d_regions"], got["d_words"] = torch.autograd.grad(got["forward"], (ri, wi), up)
+
+    names = damsm_kernel_names(run)
+    for which in ("fwd", "dr", "dw"):
+        kernel = ds.kernel_name(which, shape[2], shape[4], cd)
+        if not any(kernel in n for n in names):
+            raise AssertionError(f"damsm {shape} {CD_NAME[cd]}: no {kernel} among {names}")
+    want = exact_scores(r, w, mask, cd)
+    out = got["forward"].detach()
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=tol["score"])
+    if allpad and not bool(torch.isfinite(out).all()):
+        raise AssertionError("all-padded caption gave a non-finite score")
+    worst["forward"] = max(worst["forward"], (out - want).abs().max().item())
+    for which, key in (("dr", "d_regions"), ("dw", "d_words")):
+        want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, cd)
+        torch.testing.assert_close(got[key], want_g, rtol=0,
+                                   atol=tol["grad_scale"] * want_g.abs().max().item())
+        worst[key] = max(worst[key], (got[key] - want_g).abs().max().item())
+
+
 def check_damsm() -> dict:
     """Phase 3, damsm_score: forward, d_regions, d_words against the plain
     version and its autograd, at the flagship, a ragged and the edge
-    shapes, each launch's kernel the one the route rule names (profiler
-    trace); the bf16 forward and d_regions also for determinism and the
-    all-padded caption."""
+    shapes (``check_damsm_shape``), and the fp32 d_regions' own edges; the
+    bf16 forward and d_regions and the fp32 d_regions also for determinism
+    and the all-padded caption."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     shapes = [(DAMSM_FLAGSHIP, False, None), (DAMSM_RAGGED, True, None), *DAMSM_EDGES]
     for cd in (None, torch.bfloat16):
-        tol = DAMSM_TOL[cd]
         worst = {"forward": 0.0, "d_regions": 0.0, "d_words": 0.0}
         for shape, allpad, max_len in shapes:
-            r, w, mask, up = damsm_inputs(shape, gen, allpad, max_len)
-            got = {}
-
-            def run():
-                got["forward"] = ds._launch_fwd(r, w, mask, 4.0, 5.0, cd)
-                for which, key in (("dr", "d_regions"), ("dw", "d_words")):
-                    got[key] = ds._launch_bwd(which, r, w, mask, up, 4.0, 5.0, cd)
-
-            names = damsm_kernel_names(run)
-            for which in ("fwd", "dr", "dw"):
-                kernel = ds.kernel_name(which, shape[2], shape[4], cd)
-                if not any(kernel in n for n in names):
-                    raise AssertionError(f"damsm {shape} {CD_NAME[cd]}: no {kernel} among {names}")
-            want = exact_scores(r, w, mask, cd)
-            torch.testing.assert_close(got["forward"], want, rtol=1e-5, atol=tol["score"])
-            if allpad and not bool(torch.isfinite(got["forward"]).all()):
-                raise AssertionError("all-padded caption gave a non-finite score")
-            worst["forward"] = max(worst["forward"], (got["forward"] - want).abs().max().item())
-            for which, key in (("dr", "d_regions"), ("dw", "d_words")):
-                want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, cd)
-                torch.testing.assert_close(got[key], want_g, rtol=0,
-                                           atol=tol["grad_scale"] * want_g.abs().max().item())
-                worst[key] = max(worst[key], (got[key] - want_g).abs().max().item())
-            del r, w, mask, up, got, want, want_g
+            check_damsm_shape(shape, allpad, max_len, cd, gen, worst)
+            torch.cuda.empty_cache()
         errs[cd] = worst
         log(f"[3] damsm_score compute {CD_NAME[cd]}: max_abs_err " + ", ".join(
             f"{k} {v:.3g}" for k, v in worst.items()) + f" at {DAMSM_FLAGSHIP}, ragged "
             f"{DAMSM_RAGGED} with an all-padded caption and the edges {DAMSM_EDGES}, each on "
-            f"its route's kernels (tolerance {tol})")
+            f"its route's kernels (tolerance {DAMSM_TOL[cd]})")
+    f32_gen = torch.Generator(device="cuda").manual_seed(16)
+    for shape, allpad, max_len, full in DAMSM_F32_EDGES:
+        _, _, R, T, D = shape
+        width = ds.sub_caption_width(R, T, D, None)
+        if full and not width < T:
+            raise AssertionError(f"fp32 damsm edge {shape}: caption 0 ({T} words) is not split "
+                                 f"(sub-captions of {width} slots)")
+        check_damsm_shape(shape, allpad, max_len, None, f32_gen, errs[None], full)
+        torch.cuda.empty_cache()
+        log(f"[3] damsm_score fp32 at {shape} (longest caption {T if full else max_len or T}, "
+            f"sub-captions of {width} slots): fwd, d_regions, d_words on " + ", ".join(
+                ds.kernel_name(which, R, D, None) for which in ("fwd", "dr", "dw")))
+    log(f"[3] damsm_score fp32 at its own edges {DAMSM_F32_EDGES}: max_abs_err, all fp32 "
+        f"shapes: " + ", ".join(f"{k} {v:.3g}" for k, v in errs[None].items()))
     # the bf16 d_regions (tensor cores): two launches bit-equal; the
     # all-padded caption's cotangent adds exactly nothing
     r, w, mask, up = damsm_inputs(DAMSM_FLAGSHIP, gen, True)
@@ -608,6 +654,19 @@ def check_damsm() -> dict:
                              "moved the gradient")
     log("[3] damsm_score bf16 d_regions (tensor cores): two launches bit-equal; the "
         "all-padded caption's cotangent changes nothing")
+    # the fp32 d_regions (packed words): the same, the launches its kernel
+    runs = []
+    kernel = ds.kernel_name("dr", DAMSM_FLAGSHIP[2], DAMSM_FLAGSHIP[4], None)
+    names = damsm_kernel_names(lambda: runs.extend(
+        ds._launch_bwd("dr", r, w, mask, u, 4.0, 5.0, None) for u in (up, up, up2)))
+    torch.cuda.synchronize()
+    if not any(kernel in n for n in names):
+        raise AssertionError(f"fp32 d_regions at {DAMSM_FLAGSHIP}: no {kernel} among {names}")
+    if not all(torch.equal(runs[0], x) for x in runs[1:]):
+        raise AssertionError("fp32 d_regions: launches differ, or the all-padded caption "
+                             "moved the gradient")
+    log(f"[3] damsm_score fp32 d_regions ({kernel}): three launches bit-equal, the third "
+        "with the all-padded caption's cotangent at 100")
     # the bf16 forward (tensor cores): two launches bit-equal, every score
     # finite, the all-padded caption's (it takes no row) the plain value
     scores = [ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16) for _ in range(2)]

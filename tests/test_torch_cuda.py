@@ -252,12 +252,14 @@ def _damsm_kernel_names(fn) -> set[str]:
 # config's word shape (T = 200, D = 768) on the CUDA cores in fp32, and in
 # bf16 the forward and d_regions on the tensor cores with the regions
 # streamed; T = 130 at D = 256, whose bf16 sub-captions stay on the tensor
-# cores with resident regions
+# cores with resident regions and whose fp32 d_regions packs the words of
+# its 48-slot sub-captions
 LN_CASES = [((16, 16, 256, 200, 768), None, ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float")),
             ((16, 16, 256, 200, 768), torch.bfloat16,
              ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<")),
             ((16, 16, 256, 130, 256), torch.bfloat16,
-             ("damsm_fwd_tc_kernel<", "damsm_bwd_dr_tc_kernel<"))]
+             ("damsm_fwd_tc_kernel<", "damsm_bwd_dr_tc_kernel<")),
+            ((16, 16, 256, 130, 256), None, ("damsm_fwd_kernel<", "damsm_bwd_dr_f32_kernel<"))]
 
 
 @pytest.mark.cuda
@@ -266,12 +268,12 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
     """Captions longer than a block's rows, as sub-captions: scores,
     d_regions and d_words (one launch each) against the plain version on
     the whole captions, under the same tolerances; the launches take the
-    route the rule names for each kernel (``ds.tensor_cores``); the
+    route the rule names for each kernel (``ds.route``); the
     all-padded caption scores exactly the plain value and gets no d_words."""
     b, bc, R, T, D = shape
     assert ds.sub_caption_width(R, T, D, cd) < T
-    assert ds.tensor_cores("fwd", R, D, cd) == ("_tc" in kernels[0])
-    assert ds.tensor_cores("dr", R, D, cd) == ("_tc" in kernels[1])
+    assert (ds.route("fwd", R, D, cd) == ds.TENSOR_CORES) == ("_tc" in kernels[0])
+    assert (ds.route("dr", R, D, cd) == ds.TENSOR_CORES) == ("_tc" in kernels[1])
     r, w, mask, up = _ln_inputs(cuda_device, shape, 12)
     ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
     before = (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches)
@@ -355,6 +357,40 @@ def test_damsm_streamed_d_regions_is_deterministic_and_ignores_padded_captions(c
                                atol=DAMSM_TOL[torch.bfloat16][1] * want.abs().max().item())
 
 
+# the fp32 d_regions with packed words: D = 42 (no multiple of 4: plain
+# loads, scalar d_r stores) and 40, R = 50, T = 33 (some passes of one
+# caption), T = 48 (a pass of one caption), B != Bc, an all-padded
+# caption
+F32_DR_SHAPES = [((132, 6, 40, 11, 42), True), ((132, 9, 50, 33, 40), True),
+                 ((8, 24, 256, 20, 256), True), ((5, 3, 256, 48, 256), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,allpad", F32_DR_SHAPES, ids=str)
+def test_damsm_fp32_d_regions_is_deterministic_and_ignores_padded_captions(cuda_device, shape,
+                                                                          allpad):
+    """The fp32 d_regions with packed real words and streamed regions
+    (``route`` PACKED_FP32): the launch is its kernel, two launches are
+    bit-equal, the all-padded caption's cotangent adds 0, and the result is
+    within ``DAMSM_TOL`` of the plain version."""
+    r, w, mask, up = _damsm_inputs(cuda_device, shape, 17, allpad)
+    b, bc, R, T, D = shape
+    assert ds.route("dr", R, D, None) == ds.PACKED_FP32
+    names = _damsm_kernel_names(lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, None))
+    assert any("damsm_bwd_dr_f32_kernel<" in n for n in names), names
+    want = ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, None)
+    up2 = up.clone()
+    up2[:, 1] = 100.0
+    first = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, None)
+    again = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, None)
+    moved = ds._launch_bwd("dr", r, w, mask, up2, 4.0, 5.0, None)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first, moved) == allpad
+    torch.testing.assert_close(first, want, rtol=0,
+                               atol=DAMSM_TOL[None][1] * want.abs().max().item())
+
+
 @pytest.mark.cuda
 def test_damsm_bf16_forward_is_deterministic_and_scores_padded_captions(cuda_device):
     """Two launches of the bf16 (tensor-core) forward are bit-equal, every
@@ -396,11 +432,11 @@ def test_damsm_streamed_forward_is_deterministic_and_scores_padded_captions(cuda
 
 @pytest.mark.cuda
 def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
-    """The build with the bf16 tensor-core kernels' phase counters
-    (``xmc_gan_tpu_torch/damsm_phases.py``) counts every phase of d_regions
-    and of the forward (regions resident, and streamed at D = 768), and the
-    passes, and nothing outside each kernel's phases, and gives the same
-    d_regions and scores bit for bit."""
+    """The build with the phase counters (``xmc_gan_tpu_torch/damsm_phases.py``)
+    counts every phase of the bf16 tensor-core d_regions and forward
+    (regions resident, and streamed at D = 768) and of the fp32 d_regions
+    with packed words, and the passes, and nothing outside each kernel's
+    phases, and gives the same d_regions and scores bit for bit."""
     from xmc_gan_tpu_torch import damsm_phases
 
     r, w, mask, up = _damsm_inputs(cuda_device, (4, 24, 256, 20, 256), 10, allpad=True)
@@ -414,7 +450,9 @@ def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
             ("forward", lambda **kw: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16,
                                                     **kw)),
             ("forward, streamed", lambda **kw: ds._launch_fwd(rs, ws, ms, 4.0, 5.0,
-                                                              torch.bfloat16, **kw))):
+                                                              torch.bfloat16, **kw)),
+            ("d_regions, fp32", lambda **kw: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0,
+                                                            None, **kw))):
         want = launch()
         assert lib.load().xmc_damsm_phases_reset() == 0
         got = launch(library=lib)

@@ -231,58 +231,74 @@ def test_kernel_plan_mirrors_the_source():
 
 @pytest.mark.parametrize("which", ["fwd", "dr", "dw"])
 def test_route_rule(which):
-    """One rule per kernel: the bf16 forward and d_regions on the tensor
-    cores if and only if R <= 256 and D <= 1024 (regions resident at
-    D <= 256, streamed above); the d_words and every fp32 launch on the
-    CUDA cores."""
-    flagship = [(256, 256), (50, 48), (1, 1)]
-    wide = [(256, 768), (16, 264), (256, 1024), (64, 770), (50, 520)]
-    never = [(257, 256), (300, 16), (257, 768), (256, 1025)]
+    """One rule per kernel (``route``): the bf16 forward and d_regions on
+    the tensor cores if and only if R <= 256 and D <= 1024 (regions
+    resident at D <= 256, streamed above); the fp32 d_regions packed if and
+    only if R, D <= 256 (the flagship's (256, 256), (50, 40); not (300, 48)
+    or (256, 264)); the d_words and every other fp32 launch on the CUDA
+    cores."""
+    flagship = [(256, 256), (50, 48), (50, 40), (1, 1)]
+    wide = [(256, 768), (16, 264), (256, 264), (256, 1024), (64, 770), (50, 520)]
+    never = [(257, 256), (300, 16), (300, 48), (257, 768), (256, 1025)]
     for R, D in flagship + wide + never:
-        assert not ds.tensor_cores(which, R, D, None)
-        assert not ds.tensor_cores(which, R, D, torch.float32)
+        assert ds.route(which, R, D, None) != ds.TENSOR_CORES
+        assert ds.route(which, R, D, torch.float32) != ds.TENSOR_CORES
     tc = {"fwd": flagship + wide, "dr": flagship + wide, "dw": []}[which]
+    packed = {"fwd": [], "dr": flagship, "dw": []}[which]
     for R, D in flagship + wide + never:
-        assert ds.tensor_cores(which, R, D, torch.bfloat16) == ((R, D) in tc), (R, D)
-        # the name of the kernel launched: regions resident or streamed on the tensor cores
+        assert (ds.route(which, R, D, torch.bfloat16) == ds.TENSOR_CORES) == ((R, D) in tc), (R, D)
         for cd in (None, torch.float32, torch.bfloat16):
+            want = (ds.TENSOR_CORES if (R, D) in tc else ds.CUDA_CORES) if cd == torch.bfloat16 \
+                else (ds.PACKED_FP32 if (R, D) in packed else ds.CUDA_CORES)
+            assert ds.route(which, R, D, cd) == want, (which, R, D, cd)
+            # the name of the kernel launched: regions resident or streamed on
+            # the tensor cores, the fp32 d_regions with packed words, else the
+            # CUDA-core kernels
             name = ds.kernel_name(which, R, D, cd)
-            if not ds.tensor_cores(which, R, D, cd):
-                assert "_tc" not in name, (which, R, D, cd, name)
-            else:
+            if want == ds.TENSOR_CORES:
                 assert ("_tcs_" if D > ds.TC_MAX_RD else "_tc_") in name, (which, R, D, name)
+            elif want == ds.PACKED_FP32:
+                assert name == "damsm_bwd_dr_f32_kernel<", (R, D, cd, name)
+            else:
+                assert "_tc" not in name and "_f32_" not in name, (which, R, D, cd, name)
+    assert ds.kernel_name("dr", 300, 48, None) == "damsm_bwd_dr_kernel<float"
     with pytest.raises(ValueError, match="which"):
-        ds.tensor_cores("d_regions", 256, 256, torch.bfloat16)
+        ds.route("d_regions", 256, 256, torch.bfloat16)
 
 
 @pytest.mark.parametrize("cd", [None, torch.float32, torch.bfloat16])
 def test_sub_caption_width_mirrors_the_plans(cd):
     """T where every kernel of the route holds a caption (no split: the
-    flagship's T = 20 and the card tests' edge shapes), else the largest
-    width all of them hold: 16 at the LN word shape (the CUDA-core
-    backward), 32 at R = D = 256 in bf16 (the tensor-core d_regions), 48
-    there in fp32 (the CUDA-core backward).  Each width is a plan the
-    kernels take; D > 1024 and regions too many for one row are refused,
-    naming the limit; nothing depends on the device."""
+    flagship's T = 20 and the card tests' edge shapes but T = 64 in fp32),
+    else the largest width all of them hold: 16 at the LN word shape (the
+    CUDA-core backward), 32 at R = D = 256 in bf16 (the tensor-core
+    d_regions), 48 in fp32 at R, D <= 256 (the CUDA-core backward there, and
+    the fp32 d_regions' passes of packed words, which take T = 64 only as
+    sub-captions).  Each width is a plan the kernels take; D > 1024 and
+    regions too many for one row are refused, naming the limit; nothing
+    depends on the device."""
     bf16 = cd == torch.bfloat16
     for R, T, D in [(256, 20, 256), (50, 7, 48), (64, 7, 40), (50, 20, 40), (24, 33, 24),
-                    (50, 64, 40), (5, 3, 12)]:
+                    (5, 3, 12)]:
         assert ds.sub_caption_width(R, T, D, cd) == T
+    assert ds.sub_caption_width(50, 64, 40, cd) == (64 if bf16 else 48)
     assert ds.sub_caption_width(256, 200, 768, cd) == 16
     assert ds.sub_caption_width(50, 77, 520, cd) == (32 if bf16 else 35)  # streamed: 32 rows
     assert ds.sub_caption_width(256, 130, 256, cd) == (32 if bf16 else 48)
     assert ds.sub_caption_width(256, 64, 256, cd) == (32 if bf16 else 48)
     assert ds.sub_caption_width(256, 200, 1024, cd) == 9
     for R, T, D in [(256, 200, 768), (256, 130, 256), (50, 77, 520), (256, 77, 520),
-                    (300, 40, 256), (7, 200, 768), (256, 200, 1024)]:
+                    (300, 40, 256), (7, 200, 768), (256, 200, 1024), (50, 64, 40)]:
         width = ds.sub_caption_width(R, T, D, cd)
         assert 1 <= width <= 64 and width <= T
         for backward in (False, True):
             assert ds.plan(R, width, D, backward, 4)[0] >= 1
-        if ds.tensor_cores("fwd", R, D, cd):
+        if ds.route("fwd", R, D, cd) == ds.TENSOR_CORES:
             assert ds.plan_fwd(R, width, D, 4, 4, 132).rows >= width
-        if ds.tensor_cores("dr", R, D, cd):
+        if ds.route("dr", R, D, cd) == ds.TENSOR_CORES:
             assert ds.plan_dr(R, width, D, 4, 4, 132).rows >= width
+        if ds.route("dr", R, D, cd) == ds.PACKED_FP32:
+            assert ds.plan_dr_f32(R, width, D, 4, 4, 132).rows >= width
     # the LN word shape keeps 16 slots: the bf16 forward and d_regions there
     # (streamed regions) hold 32 rows a pass, the CUDA-core backward 16
     assert ds.plan_fwd(256, 16, 768, 256, 2048, 132).rows == 32
@@ -387,6 +403,44 @@ def test_tensor_core_plan_mirrors_the_source(D):
             ds.plan_dr(256, 33, D, 2, 4, 132)
         with pytest.raises(ValueError, match="D <= 1024"):
             ds.plan_dr(16, 8, 1032, 2, 4, 132)
+
+
+@pytest.mark.parametrize("R,D", [(256, 256), (50, 40), (24, 24)])
+def test_fp32_d_regions_plan_mirrors_the_source(R, D):
+    """The fp32 d_regions kernel's plan (``PACKED_FP32``) as
+    ``csrc/damsm_score.cu`` computes its shared memory, with the constants
+    read from the source: words, d_c and a ``[rows, 260]`` fp32, two chunk
+    buffers of a column chunk ``[256, 36]`` (a row chunk ``[32, 260]``
+    fits one; d_sim ``[rows, 260]`` takes their place) and 11 words a row,
+    the same at every R and D (the tiles are 256 wide).  At the flagship
+    shape (B = Bc = 128, T = 20, 132 multiprocessors) 48 rows a pass in one
+    split of all 128 captions (225,616 bytes: no partial buffer); fewer
+    images get caption splits to fill the card; 56 rows would not fit;
+    T > 48, R > 256 and D > 256 are refused."""
+    assert (_source_constant("F32_MAX_RD"), _source_constant("F32_S"), _source_constant("F32_SC"),
+            _source_constant("F32_KC"), _source_constant("F32_ROWS")) == (
+        ds.F32_MAX_RD, ds.F32_S, ds.F32_SC, ds.F32_KC, ds.F32_ROWS[0])
+    assert (ds.F32_MAX_RD, ds.F32_S, ds.F32_SC, ds.F32_KC, ds.F32_ROWS) == (256, 260, 36, 32, (48,))
+
+    def smem(rows):
+        return 4 * (3 * rows * 260 + 2 * 256 * 36 + 11 * rows + 4)
+
+    assert 2 * 256 * 36 >= max(32 * 260, 48 * 260)  # a row chunk; d_sim at 48 rows
+    p = ds.plan_dr_f32(R, 20, D, 128, 128, 132)
+    assert p == (48, 1, 128, smem(48)) and p.smem <= ds.SMEM_LIMIT
+    if (R, D) == (256, 256):
+        assert p.smem == 225_616
+    assert smem(48) <= ds.SMEM_LIMIT < smem(56)
+    assert ds.plan_dr_f32(R, 20, D, 32, 128, 132)[1:3] == (4, 32)
+    for b, bc, T in [(132, 7, 7), (132, 2, 33), (5, 3, 48), (3, 5, 1)]:
+        q = ds.plan_dr_f32(R, T, D, b, bc, 132)
+        assert q.rows >= T and q.nsplit * q.captions >= bc
+    with pytest.raises(ValueError, match="T <= 48"):
+        ds.plan_dr_f32(R, 49, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="R <= 256"):
+        ds.plan_dr_f32(257, 8, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 256"):
+        ds.plan_dr_f32(R, 8, 264, 2, 4, 132)
 
 
 @pytest.mark.parametrize("D", [256, 264, 520, 768, 1024])

@@ -21,12 +21,15 @@
 // for d_words; 86 / 215 / 172 GFLOP at B = Bc = 128, T = 20, R = D = 256),
 // against 67 TFLOP/s fp32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
 // cores.  Route (the wrapper's rule per kernel, ops/cuda/damsm_score.py
-// tensor_cores): the bf16 forward and d_regions run on the tensor cores where
+// route): the bf16 forward and d_regions run on the tensor cores where
 // R <= 256 and D <= 1024 (regions resident in shared memory at D <= 256,
-// streamed through it above: their own sections below); the bf16 d_words,
-// every fp32 path and the bf16 forward and d_regions at wider R run on the
-// CUDA cores (fp32 keeps 1e-5 against its plain version, which TF32 would
-// not).
+// streamed through it above: their own sections below); the fp32 d_regions
+// at R, D <= 256 on the CUDA cores in passes of packed real words with the
+// regions streamed ("The fp32 d_regions" below); the d_words, the fp32
+// forward, the fp32 d_regions at wider R or D and the bf16 forward and
+// d_regions at wider R on the CUDA-core kernels that take a caption
+// sub-block per block (fp32 keeps 1e-5 against its plain version, which
+// TF32 would not).
 // Captions
 // longer than a block's rows reach the kernels as sub-captions: the wrapper
 // splits each caption's T slots into pieces of at most 64 and combines
@@ -158,6 +161,37 @@
 //    the per-pass read-modify-write of the block's [R, D] fp32 d_r slice
 //    (1.57 MB), ~18%; the two sweeps over D, ~11%.
 //
+// The fp32 d_regions (damsm_bwd_dr_f32_kernel), R, D <= 256, on the CUDA cores:
+//  * The tensor-core kernels' blocks (image, split), passes of packed real
+//    words (tc_pack_pass, Mp = 48 rows) and d_r slices, so a
+//    padded word takes no row and at the flagship one split of all 128
+//    captions per image: no partial buffer, no sum_splits.
+//  * fp32 operands and sums throughout, the math of damsm_bwd_dr_kernel<float>
+//    but for one reciprocal a row in place of divisions (a, c_hat, d_c).
+//  * The image's fp32 regions (256 KB) do not fit beside the pass's tiles:
+//    they stream through two 36 KB buffers with 16-byte cp.async, one
+//    barrier a chunk, the next chunk loading under the current one's
+//    products, once for each product that reads them: sim = W R^T and
+//    d a = d_c R^T over 32-column chunks, c = a R over 32-row chunks, so
+//    each product keeps its [Mp, 256] sums in registers across the chunks.
+//  * Register tiles: a thread owns 6 rows x 8 columns of each [Mp, 256]
+//    product (f32_rg, f32_cg) and 8 x 8 of each 128 x 128 tile of d_r, and
+//    reads both operands as 16-byte rows (MT + 8 loads for 32 MT FMAs; 8 for
+//    128 in d_r); strides of 260 and 36 floats keep a warp's 16-byte loads
+//    in distinct bank groups.  The k loops of a chunk are not unrolled: at
+//    ~130 KB the kernel's code does not stay in the instruction cache, and
+//    less code ran faster (PERF.md).
+//  * d_r: each pass adds A^T DC + DS^T W into the block's exclusive slice
+//    (read-modify-write, no atomics, fixed order), a 128 x 128 tile at a
+//    time, its earlier sums loaded before the products.
+//  * Shared memory: words, d_c and a 3*Mp*260*4, the chunk buffers
+//    2*256*36*4 (d_sim takes their place for the d_r accumulation) and 11*Mp+4
+//    fp32/int words: 225,616 bytes at Mp = 48, the same at every R and D.
+//  * Bound: 5 products per real word and image, 1.58 ms at the flagship
+//    (106 GFLOP) over 67 TFLOP/s.  What holds it back
+//    (xmc_gan_tpu_torch/damsm_phases.py): the products, ~50% of the FMA rate
+//    each, ~83% of the cycles; the packing leaves ~15% of a pass's rows empty.
+//
 // The streamed forward (damsm_fwd_tcs_kernel), 256 < D <= 1024, R <= 256:
 //  * The same blocks, passes, rounding points, all-padded captions and
 //    scores as damsm_fwd_tc_kernel, and the streamed d_regions' chain to rel
@@ -185,15 +219,17 @@
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
 //   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
 //   route 0 = the CUDA-core kernel (either dtype), 1 = the tensor-core one
-//   (bf16 only; the streamed kernel for D > 256);
+//   (bf16 only; the streamed kernel for D > 256), 2 = the fp32 d_regions
+//   with packed words (fp32 only, R, D <= 256; d_regions only);
 //   d_words always runs on the CUDA cores.  vb is the captions
 //   per block of the CUDA-core kernels; rows is the word rows per pass, Mp,
-//   of the tensor-core forward and d_regions (route 1), whose blocks are
-//   (image, split) for nsplit splits.  Each is ignored where the other
-//   applies.
+//   of the tensor-core forward and d_regions (route 1) and of the fp32
+//   d_regions (route 2), whose blocks are (image, split) for nsplit splits.
+//   Each is ignored where the other applies.
 //   Returns cudaGetLastError() after the launches (0 = success).
-//   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels also count their
-//   cycles per phase: int xmc_damsm_phases_read(host [21] uint64),
+//   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels and the fp32
+//   d_regions also count their cycles per phase: int
+//   xmc_damsm_phases_read(host [21] uint64),
 //   int xmc_damsm_phases_reset() (xmc_gan_tpu_torch/damsm_phases.py).
 
 #include <cuda_bf16.h>
@@ -766,7 +802,8 @@ constexpr int TC_STAGE = 36;     // row stride (fp32) of a warp's [16][32] d_r s
 // (cp.async and the barrier after it), the sim, c and d a products, the
 // softmax, the two sweeps over all of D (norm + rel, d_c) and d_sim.  The
 // streamed forward (damsm_fwd_tcs_kernel) has 0, 1, 12 and of those 13-17
-// (its all-padded captions fall in pack).
+// (its all-padded captions fall in pack).  The fp32 d_regions
+// (damsm_bwd_dr_f32_kernel) has the streamed d_regions' slots.
 // Without the flag the macros are empty.
 constexpr int TC_NPHASE = 21, TC_PASSES = 10;
 #ifdef XMC_DAMSM_PHASES
@@ -1581,6 +1618,10 @@ __device__ __forceinline__ void cp_async_wait_all_but_last() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Columns k0 .. k0+TCS_KC-1 of the image's regions ri [R][D] into the chunk
 // buffer dst [Rp][TCS_SK]; rows past R and columns past D are 0.  16-byte
 // cp.async (zero-filled where out of range) where the rows are 16-byte
@@ -1986,6 +2027,554 @@ int launch_dr_tc(const void* r, const void* w, const uint8_t* mask, const float*
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// fp32 d_regions on the CUDA cores at R, D <= 256, the real words packed and
+// the regions streamed (header: "The fp32 d_regions").
+// ---------------------------------------------------------------------------
+
+constexpr int F32_MAX_RD = 256;   // R and D limit: every [rows, *] tile is 256 wide
+constexpr int F32_S = 260;        // row stride (fp32) of those tiles: rows 4 banks apart
+constexpr int F32_KC = 32;        // regions' columns (sim, d a) or rows (c) per chunk
+constexpr int F32_SC = 36;        // row stride of a column chunk [256][F32_SC]
+constexpr int F32_ROWS = 48;      // word rows per pass
+constexpr int F32_CHUNK = F32_MAX_RD * F32_SC;  // fp32 per chunk buffer
+static_assert(F32_S == F32_MAX_RD + 4 && F32_SC == F32_KC + 4, "16-byte rows, 4 banks apart");
+static_assert(F32_KC * F32_S <= F32_CHUNK, "a row chunk fits a chunk buffer");
+static_assert(F32_KC * F32_MAX_RD / 4 == 8 * kThreads, "a chunk is 8 16-byte pieces a thread");
+
+// Words W, d_c DC and a A [Mp][F32_S] (fp32); the two chunk buffers Rb
+// [2][F32_CHUNK], in whose place d_sim DS [Mp][F32_S] stands during the d_r
+// accumulation; then rel, drel, the 4 column warps' row partials red [4][Mp],
+// the row map and caption slots [Mp] each and info [4] as the tensor-core
+// kernels lay them out (tc: their bf16 tiles unused).
+struct F32Smem {
+  float *W, *DC, *A, *Rb, *DS;
+  TcSmem tc;
+};
+
+size_t f32_smem_bytes(int Mp) {
+  return 4 * (size_t(3) * Mp * F32_S + 2 * size_t(F32_CHUNK) + size_t(11) * Mp + 4);
+}
+
+__device__ F32Smem f32_carve(float* base, int Mp) {
+  F32Smem s;
+  s.W = base;
+  s.DC = s.W + Mp * F32_S;
+  s.A = s.DC + Mp * F32_S;
+  s.Rb = s.A + Mp * F32_S;
+  s.DS = s.Rb;
+  s.tc = TcSmem{};
+  s.tc.rel = s.Rb + 2 * F32_CHUNK;
+  s.tc.drel = s.tc.rel + Mp;
+  s.tc.red = s.tc.drel + Mp;
+  s.tc.row_t = reinterpret_cast<int*>(s.tc.red + 4 * Mp);
+  s.tc.row_c = s.tc.row_t + Mp;
+  s.tc.cap_j = s.tc.row_c + Mp;
+  s.tc.cap_base = s.tc.cap_j + Mp;
+  s.tc.cap_n = s.tc.cap_base + Mp;
+  s.tc.info = s.tc.cap_n + Mp;
+  return s;
+}
+
+// A thread's rows and columns of the [Mp, 256] products: row group rg (0..7)
+// owns the rows rg + 8 i; column group cg (0..31) owns the regions cg + 32 j
+// (sim, d a) or the features 4 cg + 128 h + e (c).  A warp is 4 row groups
+// by 8 column groups, so each 16-byte shared load of a product reads 4 rows
+// of one operand and 8 of the other, each row in its own bank group.
+__device__ __forceinline__ int f32_rg() { return ((threadIdx.x >> 7) << 2) + ((threadIdx.x & 31) >> 3); }
+__device__ __forceinline__ int f32_cg() { return ((threadIdx.x >> 5) & 3) * 8 + (threadIdx.x & 7); }
+
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// v[i] = the block's sum (or max) over row rg + 8 i of every thread's partial:
+// the row group's 8 lanes by shuffles, then its 4 column warps in a fixed order.
+template <int MT, bool MAX>
+__device__ __forceinline__ void f32_rows(float (&v)[MT], float* red) {
+  constexpr int Mp = 8 * MT;
+  const int rg = f32_rg(), wc = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float x = v[i];
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      const float y = __shfl_xor_sync(0xffffffffu, x, o);
+      x = MAX ? fmaxf(x, y) : x + y;
+    }
+    if ((threadIdx.x & 7) == 0) red[wc * Mp + rg + 8 * i] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int row = rg + 8 * i;
+    float x = red[row];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) x = MAX ? fmaxf(x, red[w * Mp + row]) : x + red[w * Mp + row];
+    v[i] = x;
+  }
+  __syncthreads();
+}
+
+// Chunk q of the image's regions ri [R][D] into the buffer dst: the rows
+// 32q .. 32q+31 with all 256 columns ([32][F32_S], ROWS) or the columns
+// 32q .. 32q+31 of all 256 rows ([256][F32_SC]); zero past R and D.  16-byte
+// cp.async (zero-filled out of range) where the rows are 16-byte aligned
+// (d.vec), else plain loads and stores.
+template <bool ROWS>
+__device__ __forceinline__ void f32_load_chunk(float* dst, const float* __restrict__ ri, int q,
+                                               const TcDims& d) {
+  // piece e of the chunk's 2,048 16-byte pieces: its shared offset, region row and column
+  auto piece = [&](int e, int& to, int& r, int& k) {
+    if (ROWS) {
+      to = (e >> 6) * F32_S + (e & 63) * 4;
+      r = q * F32_KC + (e >> 6);
+      k = (e & 63) * 4;
+    } else {
+      to = (e >> 3) * F32_SC + (e & 7) * 4;
+      r = e >> 3;
+      k = q * F32_KC + (e & 7) * 4;
+    }
+  };
+  if (d.vec) {
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      int to, r, k;
+      piece(threadIdx.x + it * kThreads, to, r, k);
+      const bool in = r < d.R && k < d.D;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :
+                   : "r"(smem_u32(dst + to)), "l"(in ? ri + size_t(r) * d.D + k : ri),
+                     "r"(in ? 16 : 0)
+                   : "memory");
+    }
+  } else {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < 8 * kThreads; e += kThreads) {
+      int to, r, k;
+      piece(e, to, r, k);
+      float x[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        x[c] = r < d.R && k + c < d.D ? ri[size_t(r) * d.D + k + c] : 0.f;
+      *reinterpret_cast<float4*>(dst + to) = make_float4(x[0], x[1], x[2], x[3]);
+    }
+  }
+}
+
+// One product's sweep over the nq chunks of the regions (ROWS: row chunks,
+// else column chunks), double-buffered: after the barrier that makes chunk q
+// visible (and ends every warp's products on chunk q - 1, whose buffer is
+// next), chunk q + 1 loads with cp.async while compute(buffer, q) runs on
+// chunk q.  Phase SLOT takes the products and the issue of the loads, slot
+// 13 the waits.  Ends after a barrier.
+template <bool ROWS, int SLOT, class F>
+__device__ __forceinline__ void f32_stream(const float* __restrict__ ri, int nq, const TcDims& d,
+                                           const F32Smem& s, F&& compute TC_PHASE_ARGS) {
+  f32_load_chunk<ROWS>(s.Rb, ri, 0, d);
+  cp_async_commit();
+  for (int q = 0; q < nq; ++q) {
+    TC_PHASE(SLOT);
+    cp_async_wait_all();
+    __syncthreads();
+    TC_PHASE(13);
+    if (q + 1 < nq) f32_load_chunk<ROWS>(s.Rb + ((q + 1) & 1) * F32_CHUNK, ri, q + 1, d);
+    cp_async_commit();
+    compute(s.Rb + (q & 1) * F32_CHUNK, q);
+  }
+  __syncthreads();
+  TC_PHASE(SLOT);
+}
+
+// acc[i][j] += sum_k A[rg + 8i][k0 + k] C[cg + 32j][k] over a column chunk C
+// of the regions (sim = W R^T, d a = d_c R^T): both operands read along k,
+// 16 bytes at a time, MT + 8 loads for 32 MT FMAs.
+template <int MT>
+__device__ __forceinline__ void f32_by_cols(float (&acc)[MT][8], const float* A, const float* C,
+                                            int k0) {
+  const float* a0 = A + f32_rg() * F32_S + k0;
+  const float* c0 = C + f32_cg() * F32_SC;
+#pragma unroll 1  // the code of a chunk's products stays small (instruction cache)
+  for (int k = 0; k < F32_KC; k += 4) {
+    float4 a[MT], b[8];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) a[i] = *reinterpret_cast<const float4*>(a0 + 8 * i * F32_S + k);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(c0 + 32 * j * F32_SC + k);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = acc[i][j];
+        x = fmaf(a[i].x, b[j].x, x);
+        x = fmaf(a[i].y, b[j].y, x);
+        x = fmaf(a[i].z, b[j].z, x);
+        x = fmaf(a[i].w, b[j].w, x);
+        acc[i][j] = x;
+      }
+  }
+}
+
+// acc[i][4h + e] += sum_k A[rg + 8i][k0 + k] Rr[k][4cg + 128h + e] over a row
+// chunk Rr of the regions (c = a R): A read along k, the regions along their
+// features, 16 bytes at a time, MT + 8 loads for 32 MT FMAs.
+template <int MT>
+__device__ __forceinline__ void f32_by_rows(float (&acc)[MT][8], const float* A, const float* Rr,
+                                            int k0) {
+  const float* a0 = A + f32_rg() * F32_S + k0;
+  const float* r0 = Rr + 4 * f32_cg();
+#pragma unroll 1  // as f32_by_cols
+  for (int k = 0; k < F32_KC; k += 4) {
+    float4 a[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) a[i] = *reinterpret_cast<const float4*>(a0 + 8 * i * F32_S + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 b0 = *reinterpret_cast<const float4*>(r0 + (k + u) * F32_S);
+      const float4 b1 = *reinterpret_cast<const float4*>(r0 + (k + u) * F32_S + 128);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float av = f4_at(a[i], u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][e] = fmaf(av, f4_at(b0, e), acc[i][e]);
+          acc[i][4 + e] = fmaf(av, f4_at(b1, e), acc[i][4 + e]);
+        }
+      }
+    }
+  }
+}
+
+// The next pass of captions j .. c1-1: warp 0 packs it (tc_pack_pass), the
+// block loads its words into W (rows past it and columns past D are 0).
+// Returns its word rows (0: the remaining captions are all padded) and moves
+// j past its captions.
+__device__ __forceinline__ int f32_next_pass(const float* __restrict__ w,
+                                             const uint8_t* __restrict__ mask, int& j, int c1,
+                                             const TcDims& d, const F32Smem& s TC_PHASE_ARGS) {
+  __syncthreads();  // the previous pass is done with the tiles and the row map
+  if (threadIdx.x < 32) tc_pack_pass(mask, j, c1, d, s.tc);
+  __syncthreads();
+  TC_PHASE(0);
+  const int rows = s.tc.info[0];
+  j = s.tc.info[2];
+  if (rows == 0) return 0;
+  for (int e = threadIdx.x; e < d.Mp * (F32_MAX_RD / 4); e += kThreads) {
+    const int m = e / (F32_MAX_RD / 4), k = (e % (F32_MAX_RD / 4)) * 4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (m < rows && k < d.D) {
+      const float* src = w + (size_t(s.tc.cap_j[s.tc.row_c[m]]) * d.T + s.tc.row_t[m]) * d.D + k;
+      if (d.vec) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[q] = k + q < d.D ? src[q] : 0.f;
+      }
+    }
+    *reinterpret_cast<float4*>(s.W + m * F32_S + k) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+  __syncthreads();
+  TC_PHASE(1);
+  return rows;
+}
+
+// A pass's chain up to rel, in fp32, on the words in W: sim = W R^T over the
+// column chunks; a = softmax_R(g1 sim) into A (0 at padded regions; not kept
+// in registers, which the products need); c = a R over the row chunks;
+// c_hat = c inrm with inrm = 1 / max(|c|, 1e-12) (c_hat left in c); rel =
+// sum_D c_hat w into rel.  One reciprocal a row, as the tensor-core kernels
+// take it, in place of a division an element: less code (the instruction
+// cache holds the passes' code only in part).  The fp32 forward can run the
+// same chain.  Ends after a barrier.
+template <int MT>
+__device__ __forceinline__ void f32_attend(float (&c)[MT][8], float (&inrm)[MT],
+                                           const float* __restrict__ ri, const TcDims& d,
+                                           const F32Smem& s TC_PHASE_ARGS) {
+  const int rg = f32_rg(), cg = f32_cg();
+  float a[MT][8], v[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a[i][j] = 0.f;
+  f32_stream<false, 14>(ri, (d.D + F32_KC - 1) / F32_KC, d, s,
+                        [&](const float* C, int q) { f32_by_cols<MT>(a, s.W, C, q * F32_KC); }
+                        TC_PHASE_PASS);
+
+  // a = softmax_R(g1 sim)
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    v[i] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (cg + 32 * j < d.R) v[i] = fmaxf(v[i], d.g1 * a[i][j]);
+  }
+  f32_rows<MT, true>(v, s.tc.red);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float mx = v[i];
+    v[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float x = cg + 32 * j < d.R ? expf(d.g1 * a[i][j] - mx) : 0.f;
+      a[i][j] = x;
+      v[i] += x;
+    }
+  }
+  f32_rows<MT, false>(v, s.tc.red);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float inv = 1.f / v[i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s.A[(rg + 8 * i) * F32_S + cg + 32 * j] = a[i][j] * inv;
+  }
+  __syncthreads();
+  TC_PHASE(15);
+
+  // c = a R; c_hat = c / max(|c|, 1e-12); rel = sum_D c_hat w
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
+  f32_stream<true, 16>(ri, (d.R + F32_KC - 1) / F32_KC, d, s,
+                       [&](const float* Rr, int q) { f32_by_rows<MT>(c, s.A, Rr, q * F32_KC); }
+                       TC_PHASE_PASS);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    v[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[i] = fmaf(c[i][j], c[i][j], v[i]);
+  }
+  f32_rows<MT, false>(v, s.tc.red);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    inrm[i] = 1.f / fmaxf(sqrtf(v[i]), 1e-12f);
+    v[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 wv =
+          *reinterpret_cast<const float4*>(s.W + (rg + 8 * i) * F32_S + 4 * cg + 128 * h);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ch = c[i][4 * h + e] * inrm[i];
+        c[i][4 * h + e] = ch;
+        v[i] = fmaf(ch, f4_at(wv, e), v[i]);
+      }
+    }
+  }
+  f32_rows<MT, false>(v, s.tc.red);
+  if (((threadIdx.x >> 5) & 3) == 0 && (threadIdx.x & 7) == 0)
+#pragma unroll
+    for (int i = 0; i < MT; ++i) s.tc.rel[rg + 8 * i] = v[i];
+  __syncthreads();
+  TC_PHASE(17);
+}
+
+// d_r [R, D] (the block's slice) = or += A^T DC + DS^T W, contracted over the
+// pass's rows (rows past them add exactly 0: their d_c and d_sim are 0).  In
+// 128 x 128 tiles; a thread owns the rows r0 + 4 ty + 64 hr + e and the
+// columns d0 + 4 tx + 64 hd + e (ty, tx = tid / 16, tid % 16), reads all four
+// operands as 16-byte rows (8 loads for 128 FMAs) and loads the slice's
+// earlier sums before its products, so their latency hides behind them.
+__device__ __forceinline__ void f32_accumulate_dr(float* __restrict__ out, bool first, int rows,
+                                                  const TcDims& d, const F32Smem& s TC_PHASE_ARGS) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const bool vec4 = (d.D & 3) == 0;
+  const int rows4 = (rows + 3) & ~3;
+  for (int r0 = 0; r0 < d.R; r0 += 128)
+    for (int d0 = 0; d0 < d.D; d0 += 128) {
+      const int ra = r0 + 4 * ty, ca = d0 + 4 * tx;
+      float prev[8][8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const int row = ra + 64 * (x >> 2) + (x & 3);
+#pragma unroll
+        for (int hd = 0; hd < 2; ++hd) {
+          const int col = ca + 64 * hd;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) prev[x][4 * hd + e] = 0.f;
+          if (first || row >= d.R) continue;
+          const float* o = out + size_t(row) * d.D + col;
+          if (vec4) {
+            if (col < d.D) {
+              const float4 v = *reinterpret_cast<const float4*>(o);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) prev[x][4 * hd + e] = f4_at(v, e);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (col + e < d.D) prev[x][4 * hd + e] = o[e];
+          }
+        }
+      }
+      float acc[8][8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int y = 0; y < 8; ++y) acc[x][y] = 0.f;
+#pragma unroll 2
+      for (int m = 0; m < rows4; ++m) {
+        float4 op[4][2];  // a, d_sim (rows), d_c, w (columns): 2 x 16 bytes each
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          op[0][h] = *reinterpret_cast<const float4*>(s.A + m * F32_S + ra + 64 * h);
+          op[1][h] = *reinterpret_cast<const float4*>(s.DS + m * F32_S + ra + 64 * h);
+          op[2][h] = *reinterpret_cast<const float4*>(s.DC + m * F32_S + ca + 64 * h);
+          op[3][h] = *reinterpret_cast<const float4*>(s.W + m * F32_S + ca + 64 * h);
+        }
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const float av = f4_at(op[0][x >> 2], x & 3), sv = f4_at(op[1][x >> 2], x & 3);
+#pragma unroll
+          for (int y = 0; y < 8; ++y)
+            acc[x][y] = fmaf(sv, f4_at(op[3][y >> 2], y & 3),
+                             fmaf(av, f4_at(op[2][y >> 2], y & 3), acc[x][y]));
+        }
+      }
+      TC_PHASE(7);
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const int row = ra + 64 * (x >> 2) + (x & 3);
+        if (row >= d.R) continue;
+#pragma unroll
+        for (int hd = 0; hd < 2; ++hd) {
+          const int col = ca + 64 * hd;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = acc[x][4 * hd + e] + prev[x][4 * hd + e];
+          float* o = out + size_t(row) * d.D + col;
+          if (vec4) {
+            if (col < d.D) *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (col + e < d.D) o[e] = v[e];
+          }
+        }
+      }
+      TC_PHASE(8);
+    }
+}
+
+// d_regions, fp32 operands, R, D <= 256: block (image i, split).  The split's
+// captions go in passes of at most Mp = 8 MT real word rows (tc_pack_pass);
+// each pass runs the chain to rel (f32_attend), its backward to d_c and
+// d_sim, and adds A^T DC + DS^T W into partial[i][split].
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_bwd_dr_f32_kernel(const float* __restrict__ r, const float* __restrict__ w,
+                        const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                        float* __restrict__ partial, TcDims d, int nsplit) {
+  static_assert(8 * MT * F32_S <= 2 * F32_CHUNK, "d_sim fits in the chunk buffers");
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  const F32Smem s = f32_carve(reinterpret_cast<float*>(tc_smem_raw), 8 * MT);
+  TC_PHASE_INIT
+  const int i = blockIdx.x, split = blockIdx.y;
+  const int rg = f32_rg(), cg = f32_cg();
+  const int per = (d.Bc + nsplit - 1) / nsplit;
+  const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
+  float* out = partial + (size_t(i) * nsplit + split) * d.R * d.D;
+  const float* ri = r + size_t(i) * d.R * d.D;
+  bool first = true;
+  for (int j = c0; j < c1;) {
+    const int rows = f32_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS);
+    if (rows == 0) break;
+    const int ncap = s.tc.info[1];
+    float c[MT][8], inrm[MT], v[MT];
+    f32_attend<MT>(c, inrm, ri, d, s TC_PHASE_PASS);
+
+    tc_drel(g, i, rows, ncap, d, s.tc);
+    __syncthreads();
+    TC_PHASE(4);
+
+    // d c_hat = d rel w; d_c = (d c_hat - c_hat <c_hat, d c_hat>) inrm into DC
+#pragma unroll
+    for (int q = 0; q < MT; ++q) {
+      const int row = rg + 8 * q;
+      const float dr = s.tc.drel[row];
+      v[q] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 wv = *reinterpret_cast<const float4*>(s.W + row * F32_S + 4 * cg + 128 * h);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[q] = fmaf(c[q][4 * h + e], dr * f4_at(wv, e), v[q]);
+      }
+    }
+    f32_rows<MT, false>(v, s.tc.red);
+#pragma unroll
+    for (int q = 0; q < MT; ++q) {
+      const int row = rg + 8 * q;
+      const float dr = s.tc.drel[row];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* dc = s.DC + row * F32_S + 4 * cg + 128 * h;
+        const float4 wv = *reinterpret_cast<const float4*>(s.W + row * F32_S + 4 * cg + 128 * h);
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = (dr * f4_at(wv, e) - c[q][4 * h + e] * v[q]) * inrm[q];
+        *reinterpret_cast<float4*>(dc) = make_float4(x[0], x[1], x[2], x[3]);
+      }
+    }
+    __syncthreads();
+    TC_PHASE(18);
+
+    // d a = d_c R^T; d_sim = g1 a (d a - sum_R a d a) into DS (0 at padded regions)
+    float da[MT][8];
+#pragma unroll
+    for (int q = 0; q < MT; ++q)
+#pragma unroll
+      for (int j2 = 0; j2 < 8; ++j2) da[q][j2] = 0.f;
+    f32_stream<false, 19>(ri, (d.D + F32_KC - 1) / F32_KC, d, s,
+                          [&](const float* C, int q) { f32_by_cols<MT>(da, s.DC, C, q * F32_KC); }
+                          TC_PHASE_PASS);
+#pragma unroll
+    for (int q = 0; q < MT; ++q) {
+      v[q] = 0.f;
+#pragma unroll
+      for (int j2 = 0; j2 < 8; ++j2) {
+        const int col = cg + 32 * j2;
+        if (col < d.R) v[q] = fmaf(s.A[(rg + 8 * q) * F32_S + col], da[q][j2], v[q]);
+      }
+    }
+    f32_rows<MT, false>(v, s.tc.red);
+#pragma unroll
+    for (int q = 0; q < MT; ++q)
+#pragma unroll
+      for (int j2 = 0; j2 < 8; ++j2) {
+        const int col = cg + 32 * j2, at = (rg + 8 * q) * F32_S + col;
+        s.DS[at] = col < d.R ? d.g1 * (s.A[at] * (da[q][j2] - v[q])) : 0.f;
+      }
+    __syncthreads();
+    TC_PHASE(20);
+
+    f32_accumulate_dr(out, first, rows, d, s TC_PHASE_PASS);
+    TC_PHASE_SYNC(11);
+    TC_PHASE_COUNT(TC_PASSES);
+    first = false;
+  }
+  if (first)  // no caption of the split has a real word: the slice is 0
+    for (int e = threadIdx.x; e < d.R * d.D; e += kThreads) out[e] = 0.f;
+  TC_PHASE_FLUSH
+}
+
+bool f32_dims_ok(const TcDims& d) {
+  return d.B > 0 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.D > 0 && d.R <= F32_MAX_RD &&
+         d.D <= F32_MAX_RD && d.Mp == F32_ROWS && d.T <= d.Mp;
+}
+
+template <int MT>
+int launch_dr_f32(const float* r, const float* w, const uint8_t* mask, const float* g,
+                  float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_bwd_dr_f32_kernel<MT>;
+  const size_t bytes = f32_smem_bytes(8 * MT);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  dim3 grid(d.B, nsplit);
+  k<<<grid, kThreads, bytes, st>>>(r, w, mask, g, partial, d, nsplit);
+  if (partial != dr) launch_sum(partial, dr, d.B, nsplit, int64_t(d.R) * d.D, st);
+  return int(cudaGetLastError());
+}
+
 // Dispatch on the operand type and on MB = rows per warp (4 for <= 32 word
 // rows per block, else 8).
 #define XMC_DAMSM_DISPATCH(LAUNCH, ...)                                            \
@@ -2056,6 +2645,14 @@ extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, 
     }
     if (!tc_dims_ok(t)) return int(cudaErrorInvalidValue);  // the regions resident
     XMC_TC_DISPATCH(launch_dr_tc, r, w, m, gg, p, o, t, nsplit, st);
+  }
+  if (route == 2) {  // the fp32 kernel with packed words, in passes of F32_ROWS word rows
+    TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
+    t.vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    if (dtype != 0 || nsplit < 1 || !f32_dims_ok(t)) return int(cudaErrorInvalidValue);
+    const float *rf = static_cast<const float*>(r), *wf = static_cast<const float*>(w);
+    return launch_dr_f32<F32_ROWS / 8>(rf, wf, m, gg, p, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
   if (route != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);

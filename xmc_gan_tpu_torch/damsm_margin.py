@@ -4,7 +4,7 @@
 draws N seeded inputs at the shape (normalized random regions and words,
 caption lengths uniform in 1..T, caption 1 all padded: seed by seed the
 draws of the card tests' ``_damsm_inputs``), launches the bf16 forward (the
-kernel that ``damsm_score.tensor_cores`` picks) and prints, for every draw
+kernel that ``damsm_score.route`` picks) and prints, for every draw
 where a distance exceeds the bf16 score tolerance of the checks (2^-12),
 and then as the worst over all draws, the largest distance over the
 captions with a real word between: the kernel and the plain version summed

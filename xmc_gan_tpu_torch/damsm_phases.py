@@ -1,13 +1,14 @@
-"""Where the bf16 tensor-core damsm kernels spend their cycles, phase by phase, on the card.
+"""Where the damsm d_regions and forward kernels spend their cycles, phase by phase, on the card.
 
     python -m xmc_gan_tpu_torch.damsm_phases
 
-Builds ``csrc/damsm_score.cu`` with ``-DXMC_DAMSM_PHASES`` (the tensor-core
-d_regions and forward kernels then add each block's ``clock64()`` cycles
-between its barriers into per-phase counters), runs one launch of each
-kernel of that build through its wrapper, at the wrapper's own plan, at the
-flagship word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words, D =
-256), and of the streamed d_regions and forward at the LN-COCO word shape
+Builds ``csrc/damsm_score.cu`` with ``-DXMC_DAMSM_PHASES`` (the bf16
+tensor-core d_regions and forward kernels and the fp32 d_regions with packed
+words then add each block's ``clock64()`` cycles between its barriers into
+per-phase counters), runs one launch of each kernel of that build through
+its wrapper, at the wrapper's own plan, at the flagship word-loss shape (B =
+Bc = 128, R = 256 regions, T = 20 words, D = 256), and of the streamed bf16
+d_regions and forward at the LN-COCO word shape
 (B = Bc = 256, R = 256, T = 200 as the 16-slot sub-captions of the packed
 real words that ``damsm_scores`` hands them, D = 768), and prints the card, each
 launch's time (CUDA events) and its cycles per pass of each phase, summed
@@ -28,7 +29,9 @@ the others: region waits (the waits for its streamed region chunks,
 and d a products (each with the issue of the next chunk's loads), softmax,
 norm + rel and d_c (the two reductions over all of D) and d_sim.  The
 streamed forward has pack, words, the region waits, the sim and c products,
-softmax, norm + rel and scores.  The counters cost time of their own (an
+softmax, norm + rel and scores.  The fp32 d_regions (packed words, regions
+streamed in 32-row and 32-column chunks) has the streamed bf16 d_regions'
+phases.  The counters cost time of their own (an
 extra barrier a pass), so a launch is slower than the plain build's.  Needs
 a GPU and ``nvcc``; imports nothing of JAX.
 """
@@ -53,6 +56,7 @@ PHASES = {0: "pack", 1: "words", 2: "sim + softmax", 3: "c + rel", 4: "d rel", 5
 # each kernel's phases, in the order a pass runs them
 KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
                  "d_regions, streamed": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
+                 "d_regions, fp32": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
                  "forward": (0, 1, 2, 3, 12, 9),
                  "forward, streamed": (0, 1, 14, 15, 16, 17, 12, 13)}
 
@@ -99,6 +103,8 @@ def main() -> int:
                                      ds.sub_caption_width(R, ln_t, ln_d, torch.bfloat16))
     g_sub = ln_up.repeat_interleave(w_sub.shape[0] // ln_b, dim=1)
     launches = {
+        "d_regions, fp32": (lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, None,
+                                                   library=lib), b, mask, f"T={T}", D),
         "d_regions": (lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16,
                                              library=lib), b, mask, f"T={T}", D),
         "d_regions, streamed": (lambda: ds._launch_bwd("dr", ln_r, w_sub, m_sub, g_sub, 4.0, 5.0,
@@ -123,7 +129,8 @@ def main() -> int:
         torch.cuda.synchronize()
         cycles = read_phases(lib)
         passes = max(1, cycles[PASSES])
-        print(f"bf16 {kernel}, B=Bc={nb}, R={R}, {t_desc} ({int((~words).sum())} real words), "
+        dtype = "" if "fp32" in kernel else "bf16 "
+        print(f"{dtype}{kernel}, B=Bc={nb}, R={R}, {t_desc} ({int((~words).sum())} real words), "
               f"D={d}: {start.elapsed_time(end):.3f} ms with counters, {cycles[PASSES]} passes "
               f"({cycles[PASSES] / nb:.1f} per image)")
         total = sum(cycles[k] for k in KERNEL_PHASES[kernel])

@@ -18,15 +18,19 @@ the operands of the three products to bf16 (``r``, ``w``, ``a`` and
 ``c_hat``), and in the backward the two cotangents that autograd of the
 plain version rounds (``d c_hat`` and ``d a``); everything else is fp32.
 
-Routes, one rule per kernel (``tensor_cores(which, R, D, compute_dtype)``):
-the bf16 forward and d_regions run on the tensor cores (launch plans
-``plan_fwd`` and ``plan_dr``) if and only if R <= 256 and D <= 1024, with
-the image's regions resident in shared memory at D <= 256 and streamed
+Routes, one rule per kernel (``route(which, R, D, compute_dtype)``): the
+bf16 forward and d_regions run on the tensor cores (``TENSOR_CORES``; launch
+plans ``plan_fwd`` and ``plan_dr``) if and only if R <= 256 and D <= 1024,
+with the image's regions resident in shared memory at D <= 256 and streamed
 through it in column chunks above.  The tensor-core d_regions also rounds
 ``d_c`` and ``d_sim`` to bf16 before their products, as the Pallas kernel
 does (within one bf16 ulp of the largest gradient of the plain version).
-Everything else (the d_words, every fp32 kernel, the bf16 forward and
-d_regions at wider R) runs on the CUDA cores (``plan``), for D <= 1024.
+The fp32 d_regions at R, D <= 256 runs on the CUDA cores in passes of packed
+real words with the regions streamed (``PACKED_FP32``, plan
+``plan_dr_f32``).  Everything else (the d_words, the fp32 forward, the fp32
+d_regions at wider R or D, the bf16 forward and d_regions at wider R) runs
+on the CUDA-core kernels that take a caption sub-block per block (``plan``),
+for D <= 1024.
 
 Any T: a block holds at most 64 word rows, so where T does not fit
 ``damsm_scores`` moves each caption's real words to the front, drops the
@@ -66,6 +70,9 @@ from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary, LaunchCount
 
 __all__ = [
     "NEG",
+    "CUDA_CORES",
+    "TENSOR_CORES",
+    "PACKED_FP32",
     "KERNEL",
     "FORWARD",
     "D_REGIONS",
@@ -77,10 +84,11 @@ __all__ = [
     "kernel_name",
     "plan",
     "plan_dr",
+    "plan_dr_f32",
     "plan_fwd",
+    "route",
     "split_captions",
     "sub_caption_width",
-    "tensor_cores",
 ]
 
 NEG = -1e30  # padded-word logit, the JAX package's constant
@@ -102,7 +110,9 @@ D_REGIONS = LaunchCount()
 D_WORDS = LaunchCount()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_CUDA_CORES, _TENSOR_CORES = 0, 1  # the C entry points' route codes
+# the routes (``route``) and their codes in the C entry points
+CUDA_CORES, TENSOR_CORES, PACKED_FP32 = "cuda_cores", "tensor_cores", "packed_fp32"
+_ROUTE_CODE = {CUDA_CORES: 0, TENSOR_CORES: 1, PACKED_FP32: 2}
 
 # Kernel limits, mirrored from csrc/damsm_score.cu: word rows per block (a
 # sub-block of vb captions has vb*T rows), padded feature width, region rows
@@ -122,22 +132,38 @@ TCS_MAX_D = 1024
 TCS_ROWS = (32, 16)
 TCS_FWD_ROWS = (32,)
 TCS_KC = 64
+# the fp32 d_regions with packed words and streamed regions: R and D limit (its
+# tiles are 256 wide), row strides of its [rows, 256] tiles and of a column
+# chunk, regions per chunk; word rows per pass
+F32_MAX_RD = 256
+F32_S = 260
+F32_SC = 36
+F32_KC = 32
+F32_ROWS = (48,)
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def tensor_cores(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> bool:
-    """The route rule, per kernel (``which``: "fwd", "dr" or "dw"): the bf16
-    forward and d_regions run on the tensor cores if and only if R <= 256
-    and D <= 1024 (regions resident at D <= 256, streamed above); every
-    other launch (fp32, d_words, bf16 at wider R) runs on the CUDA cores.
-    T plays no part: the kernels see sub-captions of at most 64 slots."""
+def route(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
+    """The route rule, per kernel (``which``: "fwd", "dr" or "dw"):
+    ``TENSOR_CORES`` for the bf16 forward and d_regions if and only if
+    R <= 256 and D <= 1024 (regions resident at D <= 256, streamed above);
+    ``PACKED_FP32`` for the fp32 d_regions at R, D <= 256 (passes of packed
+    real words, the regions streamed); ``CUDA_CORES`` for every other
+    launch.  T plays no part: the kernels see sub-captions of at most 64
+    slots.  The launches, the plans, ``kernel_name`` and
+    ``sub_caption_width`` all read it."""
     if which not in ("fwd", "dr", "dw"):
         raise ValueError(f"which must be 'fwd', 'dr' or 'dw', got {which!r}")
-    return (compute_dtype == torch.bfloat16 and which != "dw" and R <= TC_MAX_RD
-            and D <= TCS_MAX_D)
+    if (compute_dtype == torch.bfloat16 and which != "dw" and R <= TC_MAX_RD
+            and D <= TCS_MAX_D):
+        return TENSOR_CORES
+    if (which == "dr" and compute_dtype != torch.bfloat16 and R <= F32_MAX_RD
+            and D <= F32_MAX_RD):
+        return PACKED_FP32
+    return CUDA_CORES
 
 
 def _cuda_core_smem(R: int, D: int, backward: bool) -> tuple[int, int]:
@@ -173,7 +199,8 @@ def plan(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
 
 
 class TcPlan(NamedTuple):
-    """Launch plan of a tensor-core (bf16) kernel: the forward or d_regions."""
+    """Launch plan of a kernel whose blocks are (image, split): the bf16
+    tensor-core forward or d_regions, or the fp32 d_regions."""
 
     rows: int      # word rows per pass: a multiple of 16, at least T
     nsplit: int    # caption splits: blocks are (image, split)
@@ -224,6 +251,16 @@ def _tcs_dr_smem(R: int, D: int, rows: int) -> int:
     return 2 * rows * (2 * (dp + 8) + 2 * (rp + 8)) + union + 4 * (15 * rows + 4)
 
 
+def _f32_dr_smem(rows: int) -> int:
+    """The fp32 d_regions kernel's shared memory (R, D <= 256), as
+    ``csrc/damsm_score.cu`` computes it: three fp32 tiles of the pass's rows
+    (words, d_c, a: ``[rows, F32_S]``), two region chunk buffers of a column
+    chunk each (``[256, F32_SC]``; d_sim takes their place for the d_r
+    accumulation) and 11 fp32/int words per row (rel, drel, the 4 column
+    warps' row partials, the row map).  The same at every R and D."""
+    return 4 * (3 * rows * F32_S + 2 * F32_MAX_RD * F32_SC + 11 * rows + 4)
+
+
 def _tc_rows(smem: Callable[[int], int], rows: tuple[int, ...] = TC_ROWS) -> int:
     """The largest of ``rows`` whose ``smem(rows)`` fits (0 if none)."""
     return next((m for m in rows if smem(m) <= SMEM_LIMIT), 0)
@@ -237,11 +274,11 @@ def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
     memory, so the splits fill the card's ``sms`` once: ``sms // b`` (at
     least 1).  Raises for T > max(rows), R > 256 or D > ``max_d``."""
     if T > rows[0] or R > TC_MAX_RD or D > max_d:
-        raise ValueError(f"damsm_score bf16 {what} takes T <= {rows[0]}, R <= "
+        raise ValueError(f"damsm_score {what} takes T <= {rows[0]}, R <= "
                          f"{TC_MAX_RD} and D <= {max_d}; got R={R}, T={T}, D={D}")
     fits = [m for m in rows if m >= T and smem(m) <= SMEM_LIMIT]
     if not fits:
-        raise ValueError(f"damsm_score bf16 {what}: R={R}, T={T}, D={D} does not fit in "
+        raise ValueError(f"damsm_score {what}: R={R}, T={T}, D={D} does not fit in "
                          "shared memory")
     nsplit = max(1, min(bc, sms // b))
     return TcPlan(fits[0], nsplit, -(-bc // nsplit), smem(fits[0]))
@@ -268,23 +305,34 @@ def _tc_kernel(which: str, R: int, D: int) -> tuple[Callable[[int], int], tuple[
 
 def plan_fwd(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     """The bf16 tensor-core forward kernel's plan (``_tc_kernel``)."""
-    return _plan_tc("forward", R, T, D, b, bc, sms, *_tc_kernel("fwd", R, D))
+    return _plan_tc("bf16 forward", R, T, D, b, bc, sms, *_tc_kernel("fwd", R, D))
 
 
 def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     """The bf16 tensor-core d_regions kernel's plan (``_tc_kernel``)."""
-    return _plan_tc("d_regions", R, T, D, b, bc, sms, *_tc_kernel("dr", R, D))
+    return _plan_tc("bf16 d_regions", R, T, D, b, bc, sms, *_tc_kernel("dr", R, D))
+
+
+def plan_dr_f32(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
+    """The fp32 d_regions kernel's plan (``PACKED_FP32``): blocks (image,
+    split) as the tensor-core kernels', ``F32_ROWS`` word rows a pass
+    (``_f32_dr_smem``).  Raises for T > 48, R > 256 or D > 256."""
+    return _plan_tc("fp32 d_regions", R, T, D, b, bc, sms, _f32_dr_smem, F32_ROWS, F32_MAX_RD)
 
 
 def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     """The start of the name under which a profiler trace shows the kernel
     that ``which`` ("fwd", "dr" or "dw") launches at R, D and compute dtype
-    (``tensor_cores``): on the tensor cores with the regions resident
-    (``_tc_kernel<``) or streamed (``_tcs_kernel<``), else on the CUDA cores
+    (``route``): on the tensor cores with the regions resident
+    (``_tc_kernel<``) or streamed (``_tcs_kernel<``), the fp32 d_regions
+    with packed words (``damsm_bwd_dr_f32_kernel<``), else on the CUDA cores
     (templated on the operand type, except the forward's kernels)."""
-    if tensor_cores(which, R, D, compute_dtype):
+    rt = route(which, R, D, compute_dtype)
+    if rt == TENSOR_CORES:
         tc = "tc" if D <= TC_MAX_RD else "tcs"
         return {"fwd": f"damsm_fwd_{tc}_kernel<", "dr": f"damsm_bwd_dr_{tc}_kernel<"}[which]
+    if rt == PACKED_FP32:
+        return "damsm_bwd_dr_f32_kernel<"
     bf16 = compute_dtype == torch.bfloat16
     return {"fwd": "damsm_fwd_bf16_kernel<" if bf16 else "damsm_fwd_kernel<",
             "dr": "damsm_bwd_dr_kernel<" + ("__nv_bfloat16" if bf16 else "float"),
@@ -296,17 +344,20 @@ def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None)
     one caption of T slots, else the largest width they all hold (at most
     64).  The d_words, on the CUDA cores on every route, and the CUDA-core
     backward hold fewer rows than the CUDA-core forward; the bf16 forward
-    and d_regions must hold it too where ``tensor_cores`` puts them on the
-    tensor cores.  A pure function of the shape: the CPU splits as the card
+    and d_regions must hold it too where ``route`` puts them on the tensor
+    cores, and the fp32 d_regions where it packs its words (48 rows a
+    pass).  A pure function of the shape: the CPU splits as the card
     does.  Raises for D > 1024 or where not one word row fits in shared
     memory."""
     if D > MAX_DP:
         raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
     width = cuda_core_rows(R, D, backward=True)
-    if tensor_cores("fwd", R, D, compute_dtype):
+    if route("fwd", R, D, compute_dtype) == TENSOR_CORES:
         width = min(width, _tc_rows(*_tc_kernel("fwd", R, D)[:2]))
-    if tensor_cores("dr", R, D, compute_dtype):
+    if route("dr", R, D, compute_dtype) == TENSOR_CORES:
         width = min(width, _tc_rows(*_tc_kernel("dr", R, D)[:2]))
+    if route("dr", R, D, compute_dtype) == PACKED_FP32:
+        width = min(width, _tc_rows(_f32_dr_smem, F32_ROWS))
     if width < 1:
         per_row, fixed = _cuda_core_smem(R, D, backward=True)
         raise ValueError(f"damsm_score: R={R}, D={D} does not fit in shared memory (a word "
@@ -442,8 +493,8 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
     rr, ww, mm, code = _operands(r, w, mask, cd)
     b, R, D = r.shape
     bc, T, _ = w.shape
-    route = _TENSOR_CORES if tensor_cores("fwd", R, D, cd) else _CUDA_CORES
-    if route == _TENSOR_CORES:  # passes of `rows` word rows, blocks (image, split)
+    rt = route("fwd", R, D, cd)
+    if rt == TENSOR_CORES:  # passes of `rows` word rows, blocks (image, split)
         vb, (rows, nsplit) = 0, plan_fwd(R, T, D, b, bc, _sms(r.device))[:2]
     else:
         vb, rows, nsplit = plan(R, T, D, False, bc)[0], 0, 1
@@ -451,7 +502,7 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
     fn = (library or KERNEL).load().xmc_damsm_fwd
     with torch.cuda.device(r.device):
         rc = fn(rr.data_ptr(), ww.data_ptr(), mm.data_ptr(), out.data_ptr(), b, bc, R, T, D,
-                vb, rows, nsplit, gamma1, gamma2, code, route, _stream(r))
+                vb, rows, nsplit, gamma1, gamma2, code, _ROUTE_CODE[rt], _stream(r))
     _raise_on(rc, "forward")
     FORWARD.launches += 1
     return out
@@ -465,9 +516,11 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
     b, R, D = r.shape
     bc, T, _ = w.shape
     g = g.float().contiguous()
-    route = _TENSOR_CORES if tensor_cores(which, R, D, cd) else _CUDA_CORES
-    if route == _TENSOR_CORES:  # d_regions in passes of `rows` word rows
+    rt = route(which, R, D, cd)
+    if rt == TENSOR_CORES:  # d_regions in passes of `rows` word rows
         vb, (rows, nsplit) = 0, plan_dr(R, T, D, b, bc, _sms(r.device))[:2]
+    elif rt == PACKED_FP32:
+        vb, (rows, nsplit) = 0, plan_dr_f32(R, T, D, b, bc, _sms(r.device))[:2]
     else:
         vb, rows = plan(R, T, D, True, bc)[0], 0
         nsub = -(-bc // vb)
@@ -478,7 +531,7 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
         partial = out if nsplit == 1 else torch.empty(
             b, nsplit, R, D, device=r.device, dtype=torch.float32)
         fn, counter, plans = lib.xmc_damsm_bwd_dr, D_REGIONS, (vb, rows)
-        route_arg = (route,)
+        route_arg = (_ROUTE_CODE[rt],)
     else:  # blocks: (caption block, split); a split owns a run of images
         out = torch.empty(bc, T, D, device=r.device, dtype=torch.float32)
         partial = out if nsplit == 1 else torch.empty(
