@@ -23,9 +23,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    (``DAMSM_F32_EDGES``: D = 42; T = 64 as two 48-slot sub-captions, the
    packed d_regions' rows; T = 64 unsplit at R = 300); the bf16
    forward and d_regions, which run on the tensor cores (``mma.sync``;
-   d_words and the fp32 forward run on the CUDA cores), and the fp32
-   d_regions (CUDA cores, packed real words, regions streamed), also
-   twice bit-equal, the forward's all-padded caption scoring exactly the
+   d_words runs on the CUDA cores), and the fp32 forward and d_regions
+   (CUDA cores, packed real words, regions streamed), also
+   twice bit-equal, the forwards' all-padded caption scoring exactly the
    plain value and the d_regions unmoved by its cotangent; the three
    ``damsm_score`` kernels at the LN-COCO word shape (B = Bc = 256, R = 256,
    T = 200, D = 768: each caption's real words packed into 16-slot
@@ -71,8 +71,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    each kernel's launches in one step (fused_affine 28 forward / 14
    backward, damsm 2 forward / 2 d_regions / 0 d_words), that the trace's
    forward and d_regions launches are the kernels the route rule names (the
-   tensor-core ones in bf16; in fp32 the CUDA-core forward and the
-   d_regions with packed words), and that the losses are finite; prints
+   tensor-core ones in bf16; in fp32 the forward and the d_regions with
+   packed words), and that the losses are finite; prints
    images/s (median),
    peak memory, one step's device time by kernel category and the damsm
    kernels by name.  Then the LN-COCO step (``ln_coco_256.yml`` as it
@@ -87,8 +87,7 @@ Phases (any failure raises, and the exit code is then non-zero):
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs, as one
    ``{"kernels": [...]}`` line; the damsm kernels at the flagship and at
-   the LN word shape (2 timed launches there); the fp32 d_regions with
-   packed words also at 32 word rows a pass beside the plan's 48, in turns.
+   the LN word shape (2 timed launches there).
 8. Last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  The weights are random (from
@@ -105,7 +104,6 @@ import subprocess
 import os
 import sys
 import tempfile
-import threading
 import time
 from pathlib import Path
 
@@ -120,6 +118,7 @@ from xmc_gan_tpu_torch.models.df_gan import epilogue_shapes
 from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
+from xmc_gan_tpu_torch.ops.cuda.build import load_all
 from xmc_gan_tpu_torch.train import (
     create_train_state,
     make_generator,
@@ -226,7 +225,7 @@ DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, 
                ((4, 5, 300, 20, 48), True, None)]
 # (B, Bc, R, T, D), an all-padded caption, longest caption (None: T), caption 0
 # all real words: the fp32 edges.  D = 42, no multiple of 4 (the packed
-# d_regions' plain loads, not cp.async; scalar d_r stores); T = 64 with
+# kernels' plain loads, not cp.async; the d_regions' scalar d_r stores); T = 64 with
 # caption 0 whole, so every caption goes as two 48-slot sub-captions
 # (the packed d_regions' rows) combined by logsumexp; T = 64 at R = 300 with
 # captions of at most 2 words, unsplit: every fp32 kernel on the CUDA cores
@@ -295,23 +294,9 @@ def card_check() -> str:
 
 def build_kernels() -> float:
     """One nvcc per source, all started together."""
-    errors: list[BaseException] = []
-
-    def load(lib):
-        try:
-            lib.load()
-        except BaseException as e:  # re-raised below, after every build has ended
-            errors.append(e)
-
     t0 = time.perf_counter()
     libs = (fa.KERNEL, ds.KERNEL, ca.KERNEL)
-    threads = [threading.Thread(target=load, args=(lib,)) for lib in libs]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
+    load_all(libs)
     dt = time.perf_counter() - t0
     log(f"[2] built {', '.join(lib.source for lib in libs)} in {dt:.2f} s")
     return dt
@@ -612,9 +597,9 @@ def check_damsm_shape(shape, allpad, max_len, cd, gen, worst, full: bool = False
 def check_damsm() -> dict:
     """Phase 3, damsm_score: forward, d_regions, d_words against the plain
     version and its autograd, at the flagship, a ragged and the edge
-    shapes (``check_damsm_shape``), and the fp32 d_regions' own edges; the
-    bf16 forward and d_regions and the fp32 d_regions also for determinism
-    and the all-padded caption."""
+    shapes (``check_damsm_shape``), and the fp32 kernels' own edges; the
+    bf16 and fp32 forward and d_regions also for determinism and the
+    all-padded caption."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     shapes = [(DAMSM_FLAGSHIP, False, None), (DAMSM_RAGGED, True, None), *DAMSM_EDGES]
@@ -678,6 +663,26 @@ def check_damsm() -> dict:
                              "all-padded caption's score is not the plain value")
     log(f"[3] damsm_score bf16 forward (tensor cores): two launches bit-equal, all finite; the "
         f"all-padded caption scores {scores[0][0, 1].item():.6g}, as the plain version")
+    # the fp32 forward (packed words): the same, the launches its kernel,
+    # the scores within the tolerance of the fp64-summed plain version
+    scores = []
+    kernel = ds.kernel_name("fwd", DAMSM_FLAGSHIP[2], DAMSM_FLAGSHIP[4], None)
+    names = damsm_kernel_names(lambda: scores.extend(
+        ds._launch_fwd(r, w, mask, 4.0, 5.0, None) for _ in range(2)))
+    want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, None)
+    torch.cuda.synchronize()
+    if not any(kernel in n for n in names):
+        raise AssertionError(f"fp32 forward at {DAMSM_FLAGSHIP}: no {kernel} among {names}")
+    if not (all(torch.equal(scores[0], x) for x in scores[1:])
+            and bool(torch.isfinite(scores[0]).all())
+            and torch.equal(scores[0][:, 1], want[:, 1])):
+        raise AssertionError("fp32 forward: launches differ, a score is not finite, or the "
+                             "all-padded caption's score is not the plain value")
+    torch.testing.assert_close(scores[0], exact_scores(r, w, mask, None), rtol=1e-5,
+                               atol=DAMSM_TOL[None]["score"])
+    log(f"[3] damsm_score fp32 forward ({kernel}): {len(scores)} launches bit-equal, all finite, "
+        f"within {DAMSM_TOL[None]['score']} of the fp64-summed plain version; the all-padded "
+        f"caption scores {scores[0][0, 1].item():.6g}, as the plain version")
     del r, w, mask, up, up2, runs, scores, want
     torch.cuda.empty_cache()
     return errs

@@ -252,14 +252,15 @@ def _damsm_kernel_names(fn) -> set[str]:
 # config's word shape (T = 200, D = 768) on the CUDA cores in fp32, and in
 # bf16 the forward and d_regions on the tensor cores with the regions
 # streamed; T = 130 at D = 256, whose bf16 sub-captions stay on the tensor
-# cores with resident regions and whose fp32 d_regions packs the words of
-# its 48-slot sub-captions
+# cores with resident regions and whose fp32 forward and d_regions pack the
+# words of its 48-slot sub-captions
 LN_CASES = [((16, 16, 256, 200, 768), None, ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float")),
             ((16, 16, 256, 200, 768), torch.bfloat16,
              ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<")),
             ((16, 16, 256, 130, 256), torch.bfloat16,
              ("damsm_fwd_tc_kernel<", "damsm_bwd_dr_tc_kernel<")),
-            ((16, 16, 256, 130, 256), None, ("damsm_fwd_kernel<", "damsm_bwd_dr_f32_kernel<"))]
+            ((16, 16, 256, 130, 256), None,
+             ("damsm_fwd_f32_kernel<", "damsm_bwd_dr_f32_kernel<"))]
 
 
 @pytest.mark.cuda
@@ -409,6 +410,38 @@ def test_damsm_bf16_forward_is_deterministic_and_scores_padded_captions(cuda_dev
                                atol=DAMSM_TOL[torch.bfloat16][0])
 
 
+# the fp32 forward with packed words: the fp32 d_regions' shapes, and T = 64
+# (captions of up to 64 real words: passes of one caption, up to 64 rows)
+F32_FWD_SHAPES = F32_DR_SHAPES + [((5, 3, 256, 64, 256), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,allpad", F32_FWD_SHAPES, ids=str)
+def test_damsm_fp32_forward_is_deterministic_and_scores_padded_captions(cuda_device, shape,
+                                                                       allpad):
+    """The fp32 forward with packed real words and streamed regions
+    (``route`` PACKED_FP32): the launch is its kernel, two launches are
+    bit-equal, every score is finite, an all-padded caption (it takes no
+    row of any pass) scores exactly the plain version's (-1e30 + log T) /
+    gamma2, and the scores are within ``DAMSM_TOL`` of the plain version
+    summed in fp64."""
+    r, w, mask, _ = _damsm_inputs(cuda_device, shape, 18, allpad)
+    b, bc, R, T, D = shape
+    assert ds.route("fwd", R, D, None) == ds.PACKED_FP32
+    names = _damsm_kernel_names(lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, None))
+    assert any("damsm_fwd_f32_kernel<" in n for n in names), names
+    first = ds._launch_fwd(r, w, mask, 4.0, 5.0, None)
+    again = ds._launch_fwd(r, w, mask, 4.0, 5.0, None)
+    want = ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, None)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert bool(torch.isfinite(first).all())
+    if allpad:
+        assert torch.equal(first[:, 1], want[:, 1])
+    torch.testing.assert_close(first, _exact_scores(r, w, mask, None), rtol=1e-5,
+                               atol=DAMSM_TOL[None][0])
+
+
 @pytest.mark.cuda
 def test_damsm_streamed_forward_is_deterministic_and_scores_padded_captions(cuda_device):
     """The bf16 forward with streamed regions (D = 768, the LN width, 16-slot
@@ -435,8 +468,8 @@ def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
     """The build with the phase counters (``xmc_gan_tpu_torch/damsm_phases.py``)
     counts every phase of the bf16 tensor-core d_regions and forward
     (regions resident, and streamed at D = 768) and of the fp32 d_regions
-    with packed words, and the passes, and nothing outside each kernel's
-    phases, and gives the same d_regions and scores bit for bit."""
+    and forward with packed words, and the passes, and nothing outside each
+    kernel's phases, and gives the same d_regions and scores bit for bit."""
     from xmc_gan_tpu_torch import damsm_phases
 
     r, w, mask, up = _damsm_inputs(cuda_device, (4, 24, 256, 20, 256), 10, allpad=True)
@@ -452,7 +485,8 @@ def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
             ("forward, streamed", lambda **kw: ds._launch_fwd(rs, ws, ms, 4.0, 5.0,
                                                               torch.bfloat16, **kw)),
             ("d_regions, fp32", lambda **kw: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0,
-                                                            None, **kw))):
+                                                            None, **kw)),
+            ("forward, fp32", lambda **kw: ds._launch_fwd(r, w, mask, 4.0, 5.0, None, **kw))):
         want = launch()
         assert lib.load().xmc_damsm_phases_reset() == 0
         got = launch(library=lib)

@@ -233,10 +233,10 @@ def test_kernel_plan_mirrors_the_source():
 def test_route_rule(which):
     """One rule per kernel (``route``): the bf16 forward and d_regions on
     the tensor cores if and only if R <= 256 and D <= 1024 (regions
-    resident at D <= 256, streamed above); the fp32 d_regions packed if and
-    only if R, D <= 256 (the flagship's (256, 256), (50, 40); not (300, 48)
-    or (256, 264)); the d_words and every other fp32 launch on the CUDA
-    cores."""
+    resident at D <= 256, streamed above); the fp32 forward and d_regions
+    packed if and only if R, D <= 256 (the flagship's (256, 256), (50, 40);
+    not (300, 48) or (256, 264)); the d_words and every other fp32 launch
+    on the CUDA cores."""
     flagship = [(256, 256), (50, 48), (50, 40), (1, 1)]
     wide = [(256, 768), (16, 264), (256, 264), (256, 1024), (64, 770), (50, 520)]
     never = [(257, 256), (300, 16), (300, 48), (257, 768), (256, 1025)]
@@ -244,7 +244,7 @@ def test_route_rule(which):
         assert ds.route(which, R, D, None) != ds.TENSOR_CORES
         assert ds.route(which, R, D, torch.float32) != ds.TENSOR_CORES
     tc = {"fwd": flagship + wide, "dr": flagship + wide, "dw": []}[which]
-    packed = {"fwd": [], "dr": flagship, "dw": []}[which]
+    packed = {"fwd": flagship, "dr": flagship, "dw": []}[which]
     for R, D in flagship + wide + never:
         assert (ds.route(which, R, D, torch.bfloat16) == ds.TENSOR_CORES) == ((R, D) in tc), (R, D)
         for cd in (None, torch.float32, torch.bfloat16):
@@ -252,16 +252,19 @@ def test_route_rule(which):
                 else (ds.PACKED_FP32 if (R, D) in packed else ds.CUDA_CORES)
             assert ds.route(which, R, D, cd) == want, (which, R, D, cd)
             # the name of the kernel launched: regions resident or streamed on
-            # the tensor cores, the fp32 d_regions with packed words, else the
-            # CUDA-core kernels
+            # the tensor cores, the fp32 forward or d_regions with packed
+            # words, else the CUDA-core kernels
             name = ds.kernel_name(which, R, D, cd)
             if want == ds.TENSOR_CORES:
                 assert ("_tcs_" if D > ds.TC_MAX_RD else "_tc_") in name, (which, R, D, name)
             elif want == ds.PACKED_FP32:
-                assert name == "damsm_bwd_dr_f32_kernel<", (R, D, cd, name)
+                assert name == {"fwd": "damsm_fwd_f32_kernel<",
+                                "dr": "damsm_bwd_dr_f32_kernel<"}[which], (R, D, cd, name)
             else:
                 assert "_tc" not in name and "_f32_" not in name, (which, R, D, cd, name)
     assert ds.kernel_name("dr", 300, 48, None) == "damsm_bwd_dr_kernel<float"
+    assert ds.kernel_name("fwd", 300, 48, None) == "damsm_fwd_kernel<"
+    assert ds.kernel_name("fwd", 256, 264, torch.float32) == "damsm_fwd_kernel<"
     with pytest.raises(ValueError, match="which"):
         ds.route("d_regions", 256, 256, torch.bfloat16)
 
@@ -274,7 +277,7 @@ def test_sub_caption_width_mirrors_the_plans(cd):
     CUDA-core backward), 32 at R = D = 256 in bf16 (the tensor-core
     d_regions), 48 in fp32 at R, D <= 256 (the CUDA-core backward there, and
     the fp32 d_regions' passes of packed words, which take T = 64 only as
-    sub-captions).  Each width is a plan the kernels take; D > 1024 and
+    sub-captions; the fp32 forward's passes hold 64 rows).  Each width is a plan the kernels take; D > 1024 and
     regions too many for one row are refused, naming the limit; nothing
     depends on the device."""
     bf16 = cd == torch.bfloat16
@@ -297,6 +300,8 @@ def test_sub_caption_width_mirrors_the_plans(cd):
             assert ds.plan_fwd(R, width, D, 4, 4, 132).rows >= width
         if ds.route("dr", R, D, cd) == ds.TENSOR_CORES:
             assert ds.plan_dr(R, width, D, 4, 4, 132).rows >= width
+        if ds.route("fwd", R, D, cd) == ds.PACKED_FP32:
+            assert ds.plan_fwd_f32(R, width, D, 4, 4, 132).rows >= width
         if ds.route("dr", R, D, cd) == ds.PACKED_FP32:
             assert ds.plan_dr_f32(R, width, D, 4, 4, 132).rows >= width
     # the LN word shape keeps 16 slots: the bf16 forward and d_regions there
@@ -308,6 +313,20 @@ def test_sub_caption_width_mirrors_the_plans(cd):
         ds.sub_caption_width(256, 20, 1025, cd)
     with pytest.raises(ValueError, match="shared memory"):
         ds.sub_caption_width(16384, 20, 768, cd)
+
+
+def test_fp32_forward_and_d_regions_pack_under_one_rule():
+    """``sub_caption_width`` asks ``route`` once for the two packed fp32
+    kernels: at every R, D the forward packs iff the d_regions does, and the
+    forward's 64 rows a pass hold more than the d_regions' 48, so the
+    d_regions sets the fp32 width there."""
+    for R in (1, 24, 50, 256, 257, 300):
+        for D in (12, 42, 256, 264, 768):
+            assert ds.route("fwd", R, D, None) == ds.route("dr", R, D, None)
+    fwd = ds._tc_rows(lambda m: ds._f32_smem(m, False), ds.F32_FWD_ROWS)
+    dr = ds._tc_rows(lambda m: ds._f32_smem(m, True), ds.F32_ROWS)
+    assert (fwd, dr) == (64, 48)
+    assert ds.sub_caption_width(256, 130, 256, None) == dr
 
 
 def test_split_captions_and_combine():
@@ -441,6 +460,41 @@ def test_fp32_d_regions_plan_mirrors_the_source(R, D):
         ds.plan_dr_f32(257, 8, D, 2, 4, 132)
     with pytest.raises(ValueError, match="D <= 256"):
         ds.plan_dr_f32(R, 8, 264, 2, 4, 132)
+
+
+@pytest.mark.parametrize("R,D", [(256, 256), (50, 40), (24, 24)])
+def test_fp32_forward_plan_mirrors_the_source(R, D):
+    """The fp32 forward kernel's plan (``PACKED_FP32``) as
+    ``csrc/damsm_score.cu`` computes its shared memory, with the rows a pass
+    read from the source: the fp32 d_regions' carve without its d_c tile,
+    words and a ``[rows, 260]`` fp32, the two chunk buffers ``[256, 36]``
+    and 11 words a row, the same at every R and D.  At the flagship shape
+    (B = Bc = 128, T = 20, 132 multiprocessors) 64 rows a pass in one split
+    of all 128 captions (209,680 bytes);
+    fewer images get caption splits to fill the card; each plan holds its
+    caption; T > 64, R > 256 and D > 256 are refused."""
+    assert (_source_constant("F32_FWD_ROWS"),) == ds.F32_FWD_ROWS == (64,)
+
+    def smem(rows):
+        return 4 * (2 * rows * 260 + 2 * 256 * 36 + 11 * rows + 4)
+
+    assert smem(64) == 209_680
+    assert smem(64) <= ds.SMEM_LIMIT
+    # the kernel's rows of the carve (rel, drel, the 4 column warps' row
+    # partials, 5 of the row map) beside its two tiles
+    assert smem(64) == ds._f32_smem(64, True) - 4 * 64 * 260
+    p = ds.plan_fwd_f32(R, 20, D, 128, 128, 132)
+    assert p == (64, 1, 128, smem(64))
+    assert ds.plan_fwd_f32(R, 20, D, 32, 128, 132)[1:3] == (4, 32)
+    for b, bc, T in [(132, 7, 7), (132, 2, 33), (5, 3, 48), (3, 5, 1), (132, 5, 64)]:
+        q = ds.plan_fwd_f32(R, T, D, b, bc, 132)
+        assert q.rows >= T and q.nsplit * q.captions >= bc
+    with pytest.raises(ValueError, match="T <= 64"):
+        ds.plan_fwd_f32(R, 65, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="R <= 256"):
+        ds.plan_fwd_f32(257, 8, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 256"):
+        ds.plan_fwd_f32(R, 8, 264, 2, 4, 132)
 
 
 @pytest.mark.parametrize("D", [256, 264, 520, 768, 1024])

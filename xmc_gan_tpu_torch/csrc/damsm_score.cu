@@ -23,13 +23,13 @@
 // cores.  Route (the wrapper's rule per kernel, ops/cuda/damsm_score.py
 // route): the bf16 forward and d_regions run on the tensor cores where
 // R <= 256 and D <= 1024 (regions resident in shared memory at D <= 256,
-// streamed through it above: their own sections below); the fp32 d_regions
-// at R, D <= 256 on the CUDA cores in passes of packed real words with the
-// regions streamed ("The fp32 d_regions" below); the d_words, the fp32
-// forward, the fp32 d_regions at wider R or D and the bf16 forward and
-// d_regions at wider R on the CUDA-core kernels that take a caption
-// sub-block per block (fp32 keeps 1e-5 against its plain version, which
-// TF32 would not).
+// streamed through it above: their own sections below); the fp32 forward
+// and d_regions at R, D <= 256 on the CUDA cores in passes of packed real
+// words with the regions streamed ("The fp32 d_regions" and "The fp32
+// forward" below); the d_words, the fp32 forward and d_regions at wider R
+// or D and the bf16 forward and d_regions at wider R on the CUDA-core
+// kernels that take a caption sub-block per block (fp32 keeps 1e-5 against
+// its plain version, which TF32 would not).
 // Captions
 // longer than a block's rows reach the kernels as sub-captions: the wrapper
 // splits each caption's T slots into pieces of at most 64 and combines
@@ -192,6 +192,21 @@
 //    (xmc_gan_tpu_torch/damsm_phases.py): the products, ~50% of the FMA rate
 //    each, ~83% of the cycles; the packing leaves ~15% of a pass's rows empty.
 //
+// The fp32 forward (damsm_fwd_f32_kernel), R, D <= 256, on the CUDA cores:
+//  * The fp32 d_regions' blocks (image, split), passes of packed real words
+//    and chain to rel (f32_attend: sim over 32-column chunks, the softmax, c
+//    over 32-row chunks, the norm and rel), then the tensor-core forward's
+//    scores: each caption of the pass writes the logsumexp over its real
+//    words of g2 * rel, / g2, with one warp; an all-padded caption takes no
+//    row and gets the plain version's (-1e30 + log T) / g2 before the passes.
+//  * Mp = F32_FWD_ROWS = 64 word rows a pass (MT = 8: 8 x 8 accumulators a
+//    thread); 64 beat 48 rows in turns on the H100 (PERF.md).
+//  * Shared memory: the d_regions' carve without its d_c tile (f32_carve):
+//    words and a 2*Mp*260*4, the chunk buffers 2*256*36*4 and 11*Mp+4
+//    fp32/int words, 209,680 bytes at Mp = 64.
+//  * Bound: 2 products per real word and image, 0.63 ms at the flagship
+//    (42 GFLOP) over 67 TFLOP/s.
+//
 // The streamed forward (damsm_fwd_tcs_kernel), 256 < D <= 1024, R <= 256:
 //  * The same blocks, passes, rounding points, all-padded captions and
 //    scores as damsm_fwd_tc_kernel, and the streamed d_regions' chain to rel
@@ -219,16 +234,17 @@
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
 //   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
 //   route 0 = the CUDA-core kernel (either dtype), 1 = the tensor-core one
-//   (bf16 only; the streamed kernel for D > 256), 2 = the fp32 d_regions
-//   with packed words (fp32 only, R, D <= 256; d_regions only);
+//   (bf16 only; the streamed kernel for D > 256), 2 = the fp32 forward or
+//   d_regions with packed words (fp32 only, R, D <= 256);
 //   d_words always runs on the CUDA cores.  vb is the captions
 //   per block of the CUDA-core kernels; rows is the word rows per pass, Mp,
 //   of the tensor-core forward and d_regions (route 1) and of the fp32
-//   d_regions (route 2), whose blocks are (image, split) for nsplit splits.
+//   forward and d_regions (route 2), whose blocks are (image, split) for
+//   nsplit splits.
 //   Each is ignored where the other applies.
 //   Returns cudaGetLastError() after the launches (0 = success).
 //   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels and the fp32
-//   d_regions also count their cycles per phase: int
+//   forward and d_regions also count their cycles per phase: int
 //   xmc_damsm_phases_read(host [21] uint64),
 //   int xmc_damsm_phases_reset() (xmc_gan_tpu_torch/damsm_phases.py).
 
@@ -803,7 +819,8 @@ constexpr int TC_STAGE = 36;     // row stride (fp32) of a warp's [16][32] d_r s
 // softmax, the two sweeps over all of D (norm + rel, d_c) and d_sim.  The
 // streamed forward (damsm_fwd_tcs_kernel) has 0, 1, 12 and of those 13-17
 // (its all-padded captions fall in pack).  The fp32 d_regions
-// (damsm_bwd_dr_f32_kernel) has the streamed d_regions' slots.
+// (damsm_bwd_dr_f32_kernel) has the streamed d_regions' slots, the fp32
+// forward (damsm_fwd_f32_kernel) the streamed forward's.
 // Without the flag the macros are empty.
 constexpr int TC_NPHASE = 21, TC_PASSES = 10;
 #ifdef XMC_DAMSM_PHASES
@@ -1406,6 +1423,36 @@ __device__ __forceinline__ void tc_dsim(const float (&a)[MT][4][4], float (&da)[
     }
 }
 
+// The forwards' scores, with the caller's lane and warp (so the three
+// forwards compile as they did with these loops inline).  An all-padded
+// caption of [c0, c1) takes no row; its score is the plain version's
+// logsumexp of T logits of -1e30, over g2.
+__device__ __forceinline__ void tc_padded_scores(const uint8_t* __restrict__ mask, int c0, int c1,
+                                                 const TcDims& d, int lane, int warp,
+                                                 float* __restrict__ out_i) {
+  for (int j = c0 + warp; j < c1; j += kWarps) {
+    const uint8_t* mj = mask + size_t(j) * d.T;
+    const bool real = (lane < d.T && mj[lane] == 0) || (lane + 32 < d.T && mj[lane + 32] == 0);
+    if (!__any_sync(0xffffffffu, real) && lane == 0) out_i[j] = (NEG + logf(float(d.T))) / d.g2;
+  }
+}
+
+// Each caption of the pass, one warp a caption: score = logsumexp over its
+// real words of g2 rel, over g2.
+__device__ __forceinline__ void tc_write_scores(const TcSmem& s, const TcDims& d, int lane,
+                                                int warp, float* __restrict__ out_i) {
+  for (int cs = warp; cs < s.info[1]; cs += kWarps) {
+    const int base = s.cap_base[cs], n = s.cap_n[cs];
+    float mx = -INFINITY;
+    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, d.g2 * s.rel[base + t]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int t = lane; t < n; t += 32) sum += expf(d.g2 * s.rel[base + t] - mx);
+    sum = warp_sum(sum);
+    if (lane == 0) out_i[s.cap_j[cs]] = (mx + logf(sum)) / d.g2;
+  }
+}
+
 // The forward, bf16 operands: block (image i, split).  The split's captions
 // go in passes of at most Mp real word rows; each pass runs the chain to rel
 // and writes the score of each of its captions to out[i][j].
@@ -1424,13 +1471,7 @@ damsm_fwd_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __
   float* out_i = out + size_t(i) * d.Bc;
   const __nv_bfloat16* ri = r + size_t(i) * d.R * d.D;
   tc_load(s.Rs, d.Rp, d.SD, d.R, [&](int q) { return ri + size_t(q) * d.D; }, d);
-  // an all-padded caption takes no row; its score is the plain version's
-  // logsumexp of T logits of -1e30, over g2
-  for (int j = c0 + warp; j < c1; j += kWarps) {
-    const uint8_t* mj = mask + size_t(j) * d.T;
-    const bool real = (lane < d.T && mj[lane] == 0) || (lane + 32 < d.T && mj[lane + 32] == 0);
-    if (!__any_sync(0xffffffffu, real) && lane == 0) out_i[j] = (NEG + logf(float(d.T))) / d.g2;
-  }
+  tc_padded_scores(mask, c0, c1, d, lane, warp, out_i);
   TC_PHASE_SYNC(9);
   // a warp's columns: adjacent n-tiles (8 wide) of Rp and of Dp
   const int nR = d.Rp / 8, nD = d.Dp / 8;
@@ -1441,17 +1482,7 @@ damsm_fwd_tc_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __
     if (tc_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS) == 0) break;
     float a[MT][4][4], c[MT][4][4], inrm[MT][2];
     tc_attend<MT>(a, c, inrm, ntR0, ntwR, ntD0, ntwD, d, s TC_PHASE_PASS);
-    // score = logsumexp over the caption's real words of g2 rel, over g2
-    for (int cs = warp; cs < s.info[1]; cs += kWarps) {
-      const int base = s.cap_base[cs], n = s.cap_n[cs];
-      float mx = -INFINITY;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, d.g2 * s.rel[base + t]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int t = lane; t < n; t += 32) sum += expf(d.g2 * s.rel[base + t] - mx);
-      sum = warp_sum(sum);
-      if (lane == 0) out_i[s.cap_j[cs]] = (mx + logf(sum)) / d.g2;
-    }
+    tc_write_scores(s, d, lane, warp, out_i);
     TC_PHASE_SYNC(12);
     TC_PHASE_COUNT(TC_PASSES);
   }
@@ -1927,13 +1958,7 @@ damsm_fwd_tcs_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* _
   const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
   float* out_i = out + size_t(i) * d.Bc;
   const __nv_bfloat16* ri = r + size_t(i) * d.R * d.D;
-  // an all-padded caption takes no row; its score is the plain version's
-  // logsumexp of T logits of -1e30, over g2
-  for (int j = c0 + warp; j < c1; j += kWarps) {
-    const uint8_t* mj = mask + size_t(j) * d.T;
-    const bool real = (lane < d.T && mj[lane] == 0) || (lane + 32 < d.T && mj[lane + 32] == 0);
-    if (!__any_sync(0xffffffffu, real) && lane == 0) out_i[j] = (NEG + logf(float(d.T))) / d.g2;
-  }
+  tc_padded_scores(mask, c0, c1, d, lane, warp, out_i);
   // a warp's columns: adjacent n-tiles (8 wide) of Rp; n-tile q * 8 + warp of
   // Dp in chunk q
   const int nR = d.Rp / 8, twR = (nR + kWarps - 1) / kWarps;
@@ -1942,17 +1967,7 @@ damsm_fwd_tcs_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* _
     if (tc_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS) == 0) break;
     float a[MT][4][4], c[MT][NQ][4], inrm[MT][2];
     tcs_attend<MT, NQ>(a, c, inrm, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
-    // score = logsumexp over the caption's real words of g2 rel, over g2
-    for (int cs = warp; cs < s.info[1]; cs += kWarps) {
-      const int base = s.cap_base[cs], n = s.cap_n[cs];
-      float mx = -INFINITY;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, d.g2 * s.rel[base + t]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int t = lane; t < n; t += 32) sum += expf(d.g2 * s.rel[base + t] - mx);
-      sum = warp_sum(sum);
-      if (lane == 0) out_i[s.cap_j[cs]] = (mx + logf(sum)) / d.g2;
-    }
+    tc_write_scores(s, d, lane, warp, out_i);
     TC_PHASE_SYNC(12);
     TC_PHASE_COUNT(TC_PASSES);
   }
@@ -2028,39 +2043,42 @@ int launch_dr_tc(const void* r, const void* w, const uint8_t* mask, const float*
 }
 
 // ---------------------------------------------------------------------------
-// fp32 d_regions on the CUDA cores at R, D <= 256, the real words packed and
-// the regions streamed (header: "The fp32 d_regions").
+// fp32 d_regions and forward on the CUDA cores at R, D <= 256, the real words
+// packed and the regions streamed (header: "The fp32 d_regions", "The fp32
+// forward").
 // ---------------------------------------------------------------------------
 
 constexpr int F32_MAX_RD = 256;   // R and D limit: every [rows, *] tile is 256 wide
 constexpr int F32_S = 260;        // row stride (fp32) of those tiles: rows 4 banks apart
 constexpr int F32_KC = 32;        // regions' columns (sim, d a) or rows (c) per chunk
 constexpr int F32_SC = 36;        // row stride of a column chunk [256][F32_SC]
-constexpr int F32_ROWS = 48;      // word rows per pass
+constexpr int F32_ROWS = 48;      // word rows per pass of the d_regions
+constexpr int F32_FWD_ROWS = 64;  // word rows per pass of the forward
 constexpr int F32_CHUNK = F32_MAX_RD * F32_SC;  // fp32 per chunk buffer
 static_assert(F32_S == F32_MAX_RD + 4 && F32_SC == F32_KC + 4, "16-byte rows, 4 banks apart");
 static_assert(F32_KC * F32_S <= F32_CHUNK, "a row chunk fits a chunk buffer");
 static_assert(F32_KC * F32_MAX_RD / 4 == 8 * kThreads, "a chunk is 8 16-byte pieces a thread");
 
-// Words W, d_c DC and a A [Mp][F32_S] (fp32); the two chunk buffers Rb
-// [2][F32_CHUNK], in whose place d_sim DS [Mp][F32_S] stands during the d_r
-// accumulation; then rel, drel, the 4 column warps' row partials red [4][Mp],
-// the row map and caption slots [Mp] each and info [4] as the tensor-core
-// kernels lay them out (tc: their bf16 tiles unused).
+// Words W, d_c DC (the d_regions' only, bwd: in the forward DC is A, unused)
+// and a A [Mp][F32_S] (fp32); the two chunk buffers Rb [2][F32_CHUNK], in whose place
+// d_sim DS [Mp][F32_S] stands during the d_r accumulation; then rel, drel,
+// the 4 column warps' row partials red [4][Mp], the row map and caption slots
+// [Mp] each and info [4] as the tensor-core kernels lay them out (tc: their
+// bf16 tiles unused).
 struct F32Smem {
   float *W, *DC, *A, *Rb, *DS;
   TcSmem tc;
 };
 
-size_t f32_smem_bytes(int Mp) {
-  return 4 * (size_t(3) * Mp * F32_S + 2 * size_t(F32_CHUNK) + size_t(11) * Mp + 4);
+size_t f32_smem_bytes(int Mp, bool bwd) {
+  return 4 * (size_t(bwd ? 3 : 2) * Mp * F32_S + 2 * size_t(F32_CHUNK) + size_t(11) * Mp + 4);
 }
 
-__device__ F32Smem f32_carve(float* base, int Mp) {
+__device__ F32Smem f32_carve(float* base, int Mp, bool bwd) {
   F32Smem s;
   s.W = base;
   s.DC = s.W + Mp * F32_S;
-  s.A = s.DC + Mp * F32_S;
+  s.A = bwd ? s.DC + Mp * F32_S : s.DC;
   s.Rb = s.A + Mp * F32_S;
   s.DS = s.Rb;
   s.tc = TcSmem{};
@@ -2285,8 +2303,8 @@ __device__ __forceinline__ int f32_next_pass(const float* __restrict__ w,
 // c_hat = c inrm with inrm = 1 / max(|c|, 1e-12) (c_hat left in c); rel =
 // sum_D c_hat w into rel.  One reciprocal a row, as the tensor-core kernels
 // take it, in place of a division an element: less code (the instruction
-// cache holds the passes' code only in part).  The fp32 forward can run the
-// same chain.  Ends after a barrier.
+// cache holds the passes' code only in part).  The fp32 forward and
+// d_regions both run it.  Ends after a barrier.
 template <int MT>
 __device__ __forceinline__ void f32_attend(float (&c)[MT][8], float (&inrm)[MT],
                                            const float* __restrict__ ri, const TcDims& d,
@@ -2468,7 +2486,7 @@ damsm_bwd_dr_f32_kernel(const float* __restrict__ r, const float* __restrict__ w
                         float* __restrict__ partial, TcDims d, int nsplit) {
   static_assert(8 * MT * F32_S <= 2 * F32_CHUNK, "d_sim fits in the chunk buffers");
   extern __shared__ __align__(16) unsigned char tc_smem_raw[];
-  const F32Smem s = f32_carve(reinterpret_cast<float*>(tc_smem_raw), 8 * MT);
+  const F32Smem s = f32_carve(reinterpret_cast<float*>(tc_smem_raw), 8 * MT, true);
   TC_PHASE_INIT
   const int i = blockIdx.x, split = blockIdx.y;
   const int rg = f32_rg(), cg = f32_cg();
@@ -2558,16 +2576,67 @@ damsm_bwd_dr_f32_kernel(const float* __restrict__ r, const float* __restrict__ w
   TC_PHASE_FLUSH
 }
 
-bool f32_dims_ok(const TcDims& d) {
+// The forward, fp32 operands, R, D <= 256: block (image i, split).  The
+// split's captions go in passes of at most Mp = 8 MT real word rows
+// (tc_pack_pass); each pass runs the chain to rel (f32_attend) and writes the
+// score of each of its captions to out[i][j].
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_fwd_f32_kernel(const float* __restrict__ r, const float* __restrict__ w,
+                     const uint8_t* __restrict__ mask, float* __restrict__ out, TcDims d,
+                     int nsplit) {
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  const F32Smem s = f32_carve(reinterpret_cast<float*>(tc_smem_raw), 8 * MT, false);
+  TC_PHASE_INIT
+  const int i = blockIdx.x, split = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (d.Bc + nsplit - 1) / nsplit;
+  const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
+  float* out_i = out + size_t(i) * d.Bc;
+  const float* ri = r + size_t(i) * d.R * d.D;
+  tc_padded_scores(mask, c0, c1, d, lane, warp, out_i);
+  for (int j = c0; j < c1;) {
+    if (f32_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS) == 0) break;
+    float c[MT][8], inrm[MT];
+    f32_attend<MT>(c, inrm, ri, d, s TC_PHASE_PASS);
+    tc_write_scores(s.tc, d, lane, warp, out_i);
+    TC_PHASE_SYNC(12);
+    TC_PHASE_COUNT(TC_PASSES);
+  }
+  TC_PHASE_FLUSH
+}
+
+// TcDims of the fp32 kernels: 16-byte global loads where D % 4 == 0 and both
+// operands are 16-byte aligned
+TcDims make_f32_dims(int B, int Bc, int R, int T, int D, int Mp, float g1, float g2,
+                     const void* r, const void* w) {
+  TcDims t = make_tc_dims(B, Bc, R, T, D, Mp, g1, g2, r, w);
+  t.vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  return t;
+}
+
+bool f32_dims_ok(const TcDims& d, int rows) {
   return d.B > 0 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.D > 0 && d.R <= F32_MAX_RD &&
-         d.D <= F32_MAX_RD && d.Mp == F32_ROWS && d.T <= d.Mp;
+         d.D <= F32_MAX_RD && d.Mp == rows && d.T <= d.Mp;
+}
+
+template <int MT>
+int launch_fwd_f32(const float* r, const float* w, const uint8_t* mask, float* out,
+                   const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_fwd_f32_kernel<MT>;
+  const size_t bytes = f32_smem_bytes(8 * MT, false);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  dim3 grid(d.B, nsplit);
+  k<<<grid, kThreads, bytes, st>>>(r, w, mask, out, d, nsplit);
+  return int(cudaGetLastError());
 }
 
 template <int MT>
 int launch_dr_f32(const float* r, const float* w, const uint8_t* mask, const float* g,
                   float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
   auto k = damsm_bwd_dr_f32_kernel<MT>;
-  const size_t bytes = f32_smem_bytes(8 * MT);
+  const size_t bytes = f32_smem_bytes(8 * MT, true);
   if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
   dim3 grid(d.B, nsplit);
   k<<<grid, kThreads, bytes, st>>>(r, w, mask, g, partial, d, nsplit);
@@ -2618,6 +2687,13 @@ extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, voi
     if (!tc_dims_ok(t)) return int(cudaErrorInvalidValue);  // the regions resident
     XMC_TC_DISPATCH(launch_fwd_tc, r, w, m, o, t, nsplit, st);
   }
+  if (route == 2) {  // the fp32 kernel with packed words, in passes of F32_FWD_ROWS word rows
+    const TcDims t = make_f32_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
+    if (dtype != 0 || nsplit < 1 || !f32_dims_ok(t, F32_FWD_ROWS))
+      return int(cudaErrorInvalidValue);
+    return launch_fwd_f32<F32_FWD_ROWS / 8>(static_cast<const float*>(r),
+                                             static_cast<const float*>(w), m, o, t, nsplit, st);
+  }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
   if (route != 0 || !dims_ok(d)) return int(cudaErrorInvalidValue);
   XMC_DAMSM_DISPATCH(launch_fwd, r, w, m, o, d, st);
@@ -2647,10 +2723,8 @@ extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, 
     XMC_TC_DISPATCH(launch_dr_tc, r, w, m, gg, p, o, t, nsplit, st);
   }
   if (route == 2) {  // the fp32 kernel with packed words, in passes of F32_ROWS word rows
-    TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
-    t.vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0 &&
-            reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    if (dtype != 0 || nsplit < 1 || !f32_dims_ok(t)) return int(cudaErrorInvalidValue);
+    const TcDims t = make_f32_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
+    if (dtype != 0 || nsplit < 1 || !f32_dims_ok(t, F32_ROWS)) return int(cudaErrorInvalidValue);
     const float *rf = static_cast<const float*>(r), *wf = static_cast<const float*>(w);
     return launch_dr_f32<F32_ROWS / 8>(rf, wf, m, gg, p, o, t, nsplit, st);
   }

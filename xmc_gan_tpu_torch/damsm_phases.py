@@ -3,16 +3,17 @@
     python -m xmc_gan_tpu_torch.damsm_phases
 
 Builds ``csrc/damsm_score.cu`` with ``-DXMC_DAMSM_PHASES`` (the bf16
-tensor-core d_regions and forward kernels and the fp32 d_regions with packed
-words then add each block's ``clock64()`` cycles between its barriers into
-per-phase counters), runs one launch of each kernel of that build through
-its wrapper, at the wrapper's own plan, at the flagship word-loss shape (B =
-Bc = 128, R = 256 regions, T = 20 words, D = 256), and of the streamed bf16
+tensor-core d_regions and forward kernels and the fp32 d_regions and forward
+with packed words then add each block's ``clock64()`` cycles between its
+barriers into per-phase counters), runs one launch of each kernel of that
+build through its wrapper, at the wrapper's own plan, at the flagship
+word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words, D = 256), and
+of the streamed bf16
 d_regions and forward at the LN-COCO word shape
 (B = Bc = 256, R = 256, T = 200 as the 16-slot sub-captions of the packed
 real words that ``damsm_scores`` hands them, D = 768), and prints the card, each
 launch's time (CUDA events) and its cycles per pass of each phase, summed
-over blocks.  Phases both flagship kernels have: pack
+over blocks.  Phases both bf16 flagship kernels have: pack
 (warp 0 packs the pass's real words), words (their load), sim + softmax
 (products W R^T, softmax, a to shared memory), c + rel (a R, norms, rel),
 regions (the block's one load, per pass; the forward's also writes the
@@ -31,7 +32,8 @@ norm + rel and d_c (the two reductions over all of D) and d_sim.  The
 streamed forward has pack, words, the region waits, the sim and c products,
 softmax, norm + rel and scores.  The fp32 d_regions (packed words, regions
 streamed in 32-row and 32-column chunks) has the streamed bf16 d_regions'
-phases.  The counters cost time of their own (an
+phases, the fp32 forward (the same passes and chain to rel) the streamed
+bf16 forward's.  The counters cost time of their own (an
 extra barrier a pass), so a launch is slower than the plain build's.  Needs
 a GPU and ``nvcc``; imports nothing of JAX.
 """
@@ -58,7 +60,8 @@ KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
                  "d_regions, streamed": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
                  "d_regions, fp32": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
                  "forward": (0, 1, 2, 3, 12, 9),
-                 "forward, streamed": (0, 1, 14, 15, 16, 17, 12, 13)}
+                 "forward, streamed": (0, 1, 14, 15, 16, 17, 12, 13),
+                 "forward, fp32": (0, 1, 14, 15, 16, 17, 12, 13)}
 
 
 def phase_library() -> CudaLibrary:
@@ -111,6 +114,8 @@ def main() -> int:
                                                        torch.bfloat16, library=lib), ln_b,
                                 ln_mask, f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions",
                                 ln_d),
+        "forward, fp32": (lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, None, library=lib), b,
+                          mask, f"T={T}", D),
         "forward": (lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16, library=lib), b,
                     mask, f"T={T}", D),
         "forward, streamed": (lambda: ds._launch_fwd(ln_r, w_sub, m_sub, 4.0, 5.0, torch.bfloat16,

@@ -18,11 +18,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import Any
+from typing import Any, Iterable
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "CudaLibrary",
-           "LaunchCount"]
+           "LaunchCount", "load_all"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -107,3 +108,24 @@ class CudaLibrary:
                 fn.restype, fn.argtypes = restype, argtypes
             self._lib = lib
         return self._lib
+
+
+def load_all(libs: Iterable[CudaLibrary]) -> None:
+    """Load every library of ``libs``, building where needed: one ``nvcc``
+    each, all started together.  Raises the first failure once every build
+    has ended."""
+    errors: list[BaseException] = []
+
+    def load(lib: CudaLibrary) -> None:
+        try:
+            lib.load()
+        except BaseException as e:  # re-raised below, after every build has ended
+            errors.append(e)
+
+    threads = [threading.Thread(target=load, args=(lib,)) for lib in libs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]

@@ -25,12 +25,12 @@ with the image's regions resident in shared memory at D <= 256 and streamed
 through it in column chunks above.  The tensor-core d_regions also rounds
 ``d_c`` and ``d_sim`` to bf16 before their products, as the Pallas kernel
 does (within one bf16 ulp of the largest gradient of the plain version).
-The fp32 d_regions at R, D <= 256 runs on the CUDA cores in passes of packed
-real words with the regions streamed (``PACKED_FP32``, plan
-``plan_dr_f32``).  Everything else (the d_words, the fp32 forward, the fp32
-d_regions at wider R or D, the bf16 forward and d_regions at wider R) runs
-on the CUDA-core kernels that take a caption sub-block per block (``plan``),
-for D <= 1024.
+The fp32 forward and d_regions at R, D <= 256 run on the CUDA cores in
+passes of packed real words with the regions streamed (``PACKED_FP32``,
+plans ``plan_fwd_f32`` and ``plan_dr_f32``).  Everything else (the d_words,
+the fp32 forward and d_regions at wider R or D, the bf16 forward and
+d_regions at wider R) runs on the CUDA-core kernels that take a caption
+sub-block per block (``plan``), for D <= 1024.
 
 Any T: a block holds at most 64 word rows, so where T does not fit
 ``damsm_scores`` moves each caption's real words to the front, drops the
@@ -86,6 +86,7 @@ __all__ = [
     "plan_dr",
     "plan_dr_f32",
     "plan_fwd",
+    "plan_fwd_f32",
     "route",
     "split_captions",
     "sub_caption_width",
@@ -132,14 +133,16 @@ TCS_MAX_D = 1024
 TCS_ROWS = (32, 16)
 TCS_FWD_ROWS = (32,)
 TCS_KC = 64
-# the fp32 d_regions with packed words and streamed regions: R and D limit (its
-# tiles are 256 wide), row strides of its [rows, 256] tiles and of a column
-# chunk, regions per chunk; word rows per pass
+# the fp32 forward and d_regions with packed words and streamed regions: R
+# and D limit (their tiles are 256 wide), row strides of their [rows, 256]
+# tiles and of a column chunk, regions per chunk; word rows per pass of the
+# d_regions and of the forward
 F32_MAX_RD = 256
 F32_S = 260
 F32_SC = 36
 F32_KC = 32
 F32_ROWS = (48,)
+F32_FWD_ROWS = (64,)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -150,17 +153,17 @@ def route(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     """The route rule, per kernel (``which``: "fwd", "dr" or "dw"):
     ``TENSOR_CORES`` for the bf16 forward and d_regions if and only if
     R <= 256 and D <= 1024 (regions resident at D <= 256, streamed above);
-    ``PACKED_FP32`` for the fp32 d_regions at R, D <= 256 (passes of packed
-    real words, the regions streamed); ``CUDA_CORES`` for every other
-    launch.  T plays no part: the kernels see sub-captions of at most 64
-    slots.  The launches, the plans, ``kernel_name`` and
+    ``PACKED_FP32`` for the fp32 forward and d_regions at R, D <= 256
+    (passes of packed real words, the regions streamed); ``CUDA_CORES`` for
+    every other launch.  T plays no part: the kernels see sub-captions of
+    at most 64 slots.  The launches, the plans, ``kernel_name`` and
     ``sub_caption_width`` all read it."""
     if which not in ("fwd", "dr", "dw"):
         raise ValueError(f"which must be 'fwd', 'dr' or 'dw', got {which!r}")
     if (compute_dtype == torch.bfloat16 and which != "dw" and R <= TC_MAX_RD
             and D <= TCS_MAX_D):
         return TENSOR_CORES
-    if (which == "dr" and compute_dtype != torch.bfloat16 and R <= F32_MAX_RD
+    if (which != "dw" and compute_dtype != torch.bfloat16 and R <= F32_MAX_RD
             and D <= F32_MAX_RD):
         return PACKED_FP32
     return CUDA_CORES
@@ -251,14 +254,15 @@ def _tcs_dr_smem(R: int, D: int, rows: int) -> int:
     return 2 * rows * (2 * (dp + 8) + 2 * (rp + 8)) + union + 4 * (15 * rows + 4)
 
 
-def _f32_dr_smem(rows: int) -> int:
-    """The fp32 d_regions kernel's shared memory (R, D <= 256), as
-    ``csrc/damsm_score.cu`` computes it: three fp32 tiles of the pass's rows
-    (words, d_c, a: ``[rows, F32_S]``), two region chunk buffers of a column
-    chunk each (``[256, F32_SC]``; d_sim takes their place for the d_r
+def _f32_smem(rows: int, bwd: bool) -> int:
+    """The fp32 forward's or d_regions' (``bwd``) shared memory (R, D <=
+    256), as ``csrc/damsm_score.cu`` computes it (``f32_smem_bytes``): fp32
+    tiles of the pass's rows (words and a, and for the d_regions d_c:
+    ``[rows, F32_S]``), two region chunk buffers of a column chunk each
+    (``[256, F32_SC]``; the d_regions' d_sim takes their place for the d_r
     accumulation) and 11 fp32/int words per row (rel, drel, the 4 column
     warps' row partials, the row map).  The same at every R and D."""
-    return 4 * (3 * rows * F32_S + 2 * F32_MAX_RD * F32_SC + 11 * rows + 4)
+    return 4 * ((3 if bwd else 2) * rows * F32_S + 2 * F32_MAX_RD * F32_SC + 11 * rows + 4)
 
 
 def _tc_rows(smem: Callable[[int], int], rows: tuple[int, ...] = TC_ROWS) -> int:
@@ -316,23 +320,32 @@ def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
 def plan_dr_f32(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     """The fp32 d_regions kernel's plan (``PACKED_FP32``): blocks (image,
     split) as the tensor-core kernels', ``F32_ROWS`` word rows a pass
-    (``_f32_dr_smem``).  Raises for T > 48, R > 256 or D > 256."""
-    return _plan_tc("fp32 d_regions", R, T, D, b, bc, sms, _f32_dr_smem, F32_ROWS, F32_MAX_RD)
+    (``_f32_smem``).  Raises for T > 48, R > 256 or D > 256."""
+    return _plan_tc("fp32 d_regions", R, T, D, b, bc, sms, lambda m: _f32_smem(m, True),
+                    F32_ROWS, F32_MAX_RD)
+
+
+def plan_fwd_f32(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
+    """The fp32 forward kernel's plan (``PACKED_FP32``): blocks (image,
+    split) as the fp32 d_regions', ``F32_FWD_ROWS`` word rows a pass
+    (``_f32_smem``).  Raises for T > 64, R > 256 or D > 256."""
+    return _plan_tc("fp32 forward", R, T, D, b, bc, sms, lambda m: _f32_smem(m, False),
+                    F32_FWD_ROWS, F32_MAX_RD)
 
 
 def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     """The start of the name under which a profiler trace shows the kernel
     that ``which`` ("fwd", "dr" or "dw") launches at R, D and compute dtype
     (``route``): on the tensor cores with the regions resident
-    (``_tc_kernel<``) or streamed (``_tcs_kernel<``), the fp32 d_regions
-    with packed words (``damsm_bwd_dr_f32_kernel<``), else on the CUDA cores
+    (``_tc_kernel<``) or streamed (``_tcs_kernel<``), the fp32 forward and
+    d_regions with packed words (``_f32_kernel<``), else on the CUDA cores
     (templated on the operand type, except the forward's kernels)."""
     rt = route(which, R, D, compute_dtype)
     if rt == TENSOR_CORES:
         tc = "tc" if D <= TC_MAX_RD else "tcs"
         return {"fwd": f"damsm_fwd_{tc}_kernel<", "dr": f"damsm_bwd_dr_{tc}_kernel<"}[which]
     if rt == PACKED_FP32:
-        return "damsm_bwd_dr_f32_kernel<"
+        return {"fwd": "damsm_fwd_f32_kernel<", "dr": "damsm_bwd_dr_f32_kernel<"}[which]
     bf16 = compute_dtype == torch.bfloat16
     return {"fwd": "damsm_fwd_bf16_kernel<" if bf16 else "damsm_fwd_kernel<",
             "dr": "damsm_bwd_dr_kernel<" + ("__nv_bfloat16" if bf16 else "float"),
@@ -345,10 +358,10 @@ def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None)
     64).  The d_words, on the CUDA cores on every route, and the CUDA-core
     backward hold fewer rows than the CUDA-core forward; the bf16 forward
     and d_regions must hold it too where ``route`` puts them on the tensor
-    cores, and the fp32 d_regions where it packs its words (48 rows a
-    pass).  A pure function of the shape: the CPU splits as the card
-    does.  Raises for D > 1024 or where not one word row fits in shared
-    memory."""
+    cores, and the fp32 forward and d_regions where they pack their words
+    (64 and 48 rows a pass).  A pure function of the shape: the CPU splits
+    as the card does.  Raises for D > 1024 or where not one word row fits
+    in shared memory."""
     if D > MAX_DP:
         raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
     width = cuda_core_rows(R, D, backward=True)
@@ -356,8 +369,9 @@ def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None)
         width = min(width, _tc_rows(*_tc_kernel("fwd", R, D)[:2]))
     if route("dr", R, D, compute_dtype) == TENSOR_CORES:
         width = min(width, _tc_rows(*_tc_kernel("dr", R, D)[:2]))
-    if route("dr", R, D, compute_dtype) == PACKED_FP32:
-        width = min(width, _tc_rows(_f32_dr_smem, F32_ROWS))
+    if route("dr", R, D, compute_dtype) == PACKED_FP32:  # the forward packs under the same rule
+        width = min(width, _tc_rows(lambda m: _f32_smem(m, False), F32_FWD_ROWS),
+                    _tc_rows(lambda m: _f32_smem(m, True), F32_ROWS))
     if width < 1:
         per_row, fixed = _cuda_core_smem(R, D, backward=True)
         raise ValueError(f"damsm_score: R={R}, D={D} does not fit in shared memory (a word "
@@ -496,6 +510,8 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
     rt = route("fwd", R, D, cd)
     if rt == TENSOR_CORES:  # passes of `rows` word rows, blocks (image, split)
         vb, (rows, nsplit) = 0, plan_fwd(R, T, D, b, bc, _sms(r.device))[:2]
+    elif rt == PACKED_FP32:
+        vb, (rows, nsplit) = 0, plan_fwd_f32(R, T, D, b, bc, _sms(r.device))[:2]
     else:
         vb, rows, nsplit = plan(R, T, D, False, bc)[0], 0, 1
     out = torch.empty(b, bc, device=r.device, dtype=torch.float32)
