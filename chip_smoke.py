@@ -39,13 +39,14 @@ Phases (any failure raises, and the exit code is then non-zero):
    (``DAMSM_STREAMED``: D = 520, 770 and 1024, through ``damsm_scores``)
    against the plain version, the all-padded caption's score the plain
    value, twice bit-equal; the
-   ``cross_attention`` kernel through the wrapper the concept
+   ``cross_attention`` kernels through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
    of T = 15, D = 4, N from 256 to 65,536, the grouped queries read
-   strided), the ``CONCEPT_OUTATTN_GEN`` shape, the JAX package's kernel
-   shape (N = 300, T = 260, D = 32), a D = 256 one and a ragged one with a
-   fully padded row (0 in both).
+   strided: ``attn_grouped``), the ``CONCEPT_OUTATTN_GEN`` shape, the JAX
+   package's kernel shape (N = 300, T = 260, D = 32), a D = 256 one, a
+   ragged one and ``attn_grouped``'s edges (``ATTN_EXTRA``), with a
+   fully padded row (0 in both), each shape's planned kernel logged.
 4. On the card against the CPU, fp32 with TF32 off, on the same seeded,
    perturbed weights and numpy inputs: (a) the serving slice (DAMSM encoder
    + NetG at 256², NCH=32, batch 4), (b) the train slice (NCH=8, 64², batch
@@ -60,9 +61,10 @@ Phases (any failure raises, and the exit code is then non-zero):
    (``df_gan_damsm.yml``, T = 20) and (c) for each concept generator
    (``concept_in_df_gan.yml``, T = 15, NCH=32, 256²); checks each request's
    kernel launches (DF_GEN: fused_affine 14; CONCEPT_IN/OUT_DF_GEN:
-   fused_affine 28; CONCEPT_INATTN/OUTATTN_GEN: cross_attention 10; nothing
-   else), that the images are finite, in [-1, 1] and of the right shape, and
-   prints images/s (median of 5), peak memory, and where one request's
+   fused_affine 28; CONCEPT_INATTN/OUTATTN_GEN: cross_attention 10, by the
+   profiler's names ``attn_grouped`` for In and ``attn_small`` for Out;
+   nothing else), that the images are finite, in [-1, 1] and of the right
+   shape, and prints images/s (median of 5), peak memory, and where one request's
    device time goes (``torch.profiler``, by kernel category).
 6. Full-width training: the ``flagship_word`` step (DF-GAN G + D at 256²,
    NCH=32, batch 128, RMIS, MAGP, sentence/image/word-region InfoNCE) from
@@ -183,10 +185,23 @@ DAMSM_TOL = {None: {"score": 1e-5, "grad_scale": 1e-5},
 ATTN_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (BF16_ULP, 1e-4)}
 ATTN_SCALE = 0.7  # any scale; the generators use 1
 # (B, G, N, T, D, strided, fully padded row): the Out shape, the JAX
-# package's kernel shape, a D = 256 one, a ragged one; the In shapes come
-# from attention_shapes
+# package's kernel shape, a D = 256 one, a ragged one; then attn_grouped's
+# edges (``ca.plan``): N no multiple of a tile, T at the cap, G = 8 and 32,
+# the keys as the In sampler lays them with GEN.NORMALIZE ("sampler": [B,
+# G, D, T] in memory) and with them its queries as they come on the card
+# ("planes": [B, G, D, N], as a CUDA GroupNorm leaves them), and the shapes
+# next to it that attn_small takes (T = 33, G = 12, dense queries, planes
+# off 16 bytes); the In shapes come from attention_shapes, as rows and as
+# planes
 ATTN_EXTRA = [(BATCH, 1, 16, 15, 4, False, False), (2, 1, 300, 260, 32, False, False),
-              (4, 1, 1024, 200, 256, False, False), (3, 2, 77, 33, 48, True, True)]
+              (4, 1, 1024, 200, 256, False, False), (3, 2, 77, 33, 48, True, True),
+              (3, 16, 77, 15, 4, True, True), (3, 16, 80, 15, 4, "planes", True),
+              (2, 16, 300, 32, 4, "sampler", True), (3, 8, 96, 20, 4, "planes", True),
+              (2, 32, 130, 15, 4, True, True), (2, 16, 300, 33, 4, True, True),
+              (2, 12, 50, 15, 4, True, True), (2, 16, 300, 15, 4, False, True),
+              (2, 16, 77, 15, 4, "planes", True)]
+# the kernel each word-attention request launches, as the profiler names it
+REQUEST_ATTN_KERNEL = {"CONCEPT_INATTN_GEN": "attn_grouped<", "CONCEPT_OUTATTN_GEN": "attn_small<"}
 # card vs CPU, fp32 with TF32 off: summation order of cuDNN vs CPU kernels
 SLICE_TOL = {"words": 1e-4, "sent": 1e-4, "images": 2e-3}
 # train slice, card vs CPU after two steps (fp32, TF32 off).  Metrics to 1e-4
@@ -426,7 +441,7 @@ def device_kernels(fn) -> tuple[list[dict], float, float]:
 
 def kernel_category(name: str) -> str:
     n = name.lower()
-    if "attn_small" in n or "attn_wide" in n:
+    if "attn_small" in n or "attn_wide" in n or "attn_grouped" in n:
         return "cross_attention"
     if "damsm" in n or "sum_splits" in n:
         return "damsm_score"
@@ -650,8 +665,8 @@ def check_damsm() -> dict:
     if not all(torch.equal(runs[0], x) for x in runs[1:]):
         raise AssertionError("fp32 d_regions: launches differ, or the all-padded caption "
                              "moved the gradient")
-    log(f"[3] damsm_score fp32 d_regions ({kernel}): three launches bit-equal, the third "
-        "with the all-padded caption's cotangent at 100")
+    log(f"[3] damsm_score fp32 d_regions ({kernel}): {len(runs)} launches bit-equal, every "
+        "third with the all-padded caption's cotangent at 100")
     # the bf16 forward (tensor cores): two launches bit-equal, every score
     # finite, the all-padded caption's (it takes no row) the plain value
     scores = [ds._launch_fwd(r, w, mask, 4.0, 5.0, torch.bfloat16) for _ in range(2)]
@@ -713,11 +728,14 @@ def exact_scores(r, w, mask, cd, block_elems: int | None = None) -> torch.Tensor
 
 def damsm_kernel_names(fn) -> list[str]:
     """The damsm kernels that a call of ``fn`` launches, by name, from a
-    ``torch.profiler`` trace of its second call: the first, before the
-    trace, loads and sets up every kernel it launches."""
+    ``torch.profiler`` trace of its second and third calls: the first,
+    before the trace, loads and sets up every kernel it launches; two calls
+    in the trace, because the profiler can miss the first launch of a trace
+    (a run lost the LN forward so)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         fn()
         torch.cuda.synchronize()
     return sorted({e.key for e in prof.key_averages() if "damsm" in e.key})
@@ -842,13 +860,20 @@ def check_damsm_streamed() -> dict:
 def attention_inputs(shape, dtype, gen, allpad: bool):
     """q, k, v, mask at ``(B, G, N, T, D, strided)``.  Strided: the In
     sampler's layout, q and k = v lying as [B, N, G, D] and [B, T, G, D] in
-    memory, viewed as [B, G, N, D]; l2-normalized like its operands."""
+    memory, viewed as [B, G, N, D]; l2-normalized like its operands.
+    "sampler": k lies as the sampler's keys with GEN.NORMALIZE, [B, G, D, T];
+    "planes": q too, [B, G, D, N], as a CUDA GroupNorm leaves the query map
+    (the In sampler's operands on the card)."""
     b, g, n, t, d, strided = shape[:6]
     norm = torch.nn.functional.normalize
     if strided:
         q = norm(torch.randn(b, n, g, d, generator=gen, device="cuda"), dim=-1).to(dtype)
         k = norm(torch.randn(b, t, g, d, generator=gen, device="cuda"), dim=-1).to(dtype)
         q, k = q.transpose(1, 2), k.transpose(1, 2)
+        if strided in ("sampler", "planes"):
+            k = k.permute(0, 1, 3, 2).contiguous().transpose(2, 3)
+        if strided == "planes":
+            q = q.permute(0, 1, 3, 2).contiguous().transpose(2, 3)
         v = k
     else:
         q, k, v = (torch.randn(b, g, m, d, generator=gen, device="cuda").squeeze(1).to(dtype)
@@ -865,13 +890,16 @@ def check_attention(in_shapes) -> dict:
     plain version at the distinct In shapes of a 256² request (batch 128)
     and ``ATTN_EXTRA``, fp32 and bf16."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    shapes = sorted({(*s, True, False) for s in in_shapes}) + ATTN_EXTRA
+    shapes = [(*s, layout, False) for s in sorted(set(in_shapes)) for layout in (True, "planes")]
+    shapes += ATTN_EXTRA
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = ATTN_TOL[dtype]
         worst = 0.0
+        planned = []
         for shape in shapes:
             q, k, v, mask = attention_inputs(shape, dtype, gen, shape[6])
+            planned.append(ca.kernel_name(ca.plan_for(q, k), dtype, shape[4]))
             got = ca.masked_cross_attention_kernel(q, k, v, mask, ATTN_SCALE)
             want = ca.masked_cross_attention_ref(q, k, v, mask, ATTN_SCALE)
             torch.cuda.synchronize()
@@ -883,8 +911,8 @@ def check_attention(in_shapes) -> dict:
             torch.cuda.empty_cache()
         errs[dtype] = worst
         log(f"[3] cross_attention {DTYPE_NAME[dtype]}: max_abs_err {worst:.3g} over "
-            f"{len(shapes)} shapes (B, G, N, T, D, strided, padded row): {shapes} "
-            f"(tolerance rtol {rtol:g} atol {atol:g})")
+            f"{len(shapes)} shapes (B, G, N, T, D, strided, padded row) and the kernels the "
+            f"plan names: {list(zip(shapes, planned))} (tolerance rtol {rtol:g} atol {atol:g})")
     return errs
 
 
@@ -1059,6 +1087,12 @@ def serve(cfg, sd, dtype, name: str = "DF_GEN") -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     kernels, busy_ms, wall_ms = device_kernels(request)
     device_ms = sum(k["ms"] for k in kernels)
+    if name in REQUEST_ATTN_KERNEL:  # the profiled request's attention launches, by name
+        attn = [k["name"] for k in kernels if kernel_category(k["name"]) == "cross_attention"]
+        want_attn = REQUEST_ATTN_KERNEL[name]
+        if len(attn) != REQUEST_LAUNCHES[name]["cross_attention.forward"] or not all(
+                want_attn in a for a in attn):
+            raise AssertionError(f"{label}: attention kernels {attn}, want {want_attn}")
     res = {"generator": name, "dtype": DTYPE_NAME[dtype],
            "launches": {k: v for k, v in launches.items() if v},
            "g_ms": g_s * 1e3, "request_ms": req_s * 1e3,
@@ -1256,7 +1290,8 @@ def modulation_rows(shapes, errs, launches) -> list[dict]:
 
 def attention_rows(in_shapes, out_shapes, errs, launches) -> list[dict]:
     """Phase 7, cross_attention: the 10 launches of one 256² INATTN request
-    and of one OUTATTN request (batch 128), per dtype: kernel vs plain vs
+    and of one OUTATTN request (batch 128), per dtype, the In queries as
+    planes as the sampler hands them over on the card: kernel vs plain vs
     ``scaled_dot_product_attention`` (a yardstick on the same inputs: it
     computes the same function except on fully padded rows, and is used
     nowhere in the port) vs bound."""
@@ -1265,10 +1300,12 @@ def attention_rows(in_shapes, out_shapes, errs, launches) -> list[dict]:
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.empty((), dtype=dtype).element_size()
         for which, shapes in (("in", in_shapes), ("out", out_shapes)):
-            strided = which == "in"
+            strided = "planes" if which == "in" else False
             ins = {s: attention_inputs((*s, strided), dtype, gen, False)
                    for s in sorted(set(shapes))}
             calls = [ins[s] for s in shapes]
+            planned = sorted({ca.kernel_name(ca.plan_for(q, k), dtype, s[4])
+                              for s, (q, k, _, _) in zip(shapes, calls)})
             nbytes = ops = 0
             for (b, g, n, t, d), (q, k, v, mask) in zip(shapes, calls):
                 words = int((~mask).sum()) * g  # real (row, word) pairs of this launch
@@ -1298,6 +1335,7 @@ def attention_rows(in_shapes, out_shapes, errs, launches) -> list[dict]:
             gen_name = "CONCEPT_INATTN_GEN" if which == "in" else "CONCEPT_OUTATTN_GEN"
             rows.append({
                 "name": f"cross_attention.{which}[{DTYPE_NAME[dtype]}]", "route": "cuda",
+                "kernel": " ".join(planned),
                 "source": "xmc_gan_tpu_torch/csrc/cross_attention.cu",
                 "replaces": "xmc_gan_tpu/ops/pallas/cross_attention.py:95 (pallas_call :131)",
                 "launches": launches[gen_name][dtype], "max_abs_err": errs[dtype], "ms": ms,
@@ -1305,10 +1343,13 @@ def attention_rows(in_shapes, out_shapes, errs, launches) -> list[dict]:
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "library_ms": library_ms, "roofline_share": bound / ms,
                 "shapes": f"the {len(shapes)} launches of one 256² NCH=32 {gen_name} request at "
-                          f"batch {BATCH}: (B, G, N, T, D) {sorted(set(shapes))}",
+                          f"batch {BATCH}: (B, G, N, T, D) {sorted(set(shapes))}"
+                          + (", the queries as planes [B, G, D, N] and the keys [B, G, D, T], "
+                             "as the sampler hands them over on the card" if strided else ""),
             })
-            log(f"[7] {rows[-1]['name']}: {len(shapes)} launches {ms:.3f} ms (bound "
-                f"{bound:.4g} ms by {rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain "
+            log(f"[7] {rows[-1]['name']} ({rows[-1]['kernel']}): {len(shapes)} launches "
+                f"{ms:.3f} ms (bound {bound:.4g} ms by {rows[-1]['bound_by']}, "
+                f"{100 * bound / ms:.2f}%), plain "
                 f"{plain_ms:.3f} ms, scaled_dot_product_attention {library_ms:.3f} ms")
             del ins, calls
             torch.cuda.empty_cache()

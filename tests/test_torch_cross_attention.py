@@ -3,17 +3,24 @@ version on CPU tensors) against the JAX package's ``masked_cross_attention``,
 its XLA branch and its Pallas kernel in interpret mode, on the same numpy
 inputs."""
 
+import contextlib
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from xmc_gan_tpu.ops.pallas.cross_attention import masked_cross_attention as jax_mca
+from xmc_gan_tpu_torch.config import cfg_from_dict, cfg_from_file
+from xmc_gan_tpu_torch.models import concept_gan as pcg
 from xmc_gan_tpu_torch.ops import cross_attention as seam
 from xmc_gan_tpu_torch.ops.cuda import build as cuda_build
 from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
+from xmc_gan_tpu_torch.train import make_generator
 
 BF16_ULP = 2.0 ** -7
+CONCEPT_CFG = Path(__file__).resolve().parents[1] / "xmc_gan_tpu/cfg/concept_in_df_gan.yml"
 
 
 def _inputs(seed, b, n, t, d, lens=None):
@@ -134,3 +141,175 @@ def test_kernel_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.CudaLibrary("cross_attention.cu", ca.KERNEL.signatures).load()
+
+
+# ----------------------------------------------------------------- the plan
+
+IN_NS = (256, 1024, 1024, 4096, 4096, 16384, 16384, 65536, 65536, 65536)
+
+
+def _rows(b, g, n, d):
+    """q's strides as rows: [B, N, G, D] in memory (the channels_last query
+    map) seen as [B, G, N, D]."""
+    return (n * g * d, d, g * d, 1)
+
+
+def _planes(b, g, n, d):
+    """q's strides as planes: [B, G, D, N] in memory (the map after a CUDA
+    GroupNorm, which returns NCHW) seen as [B, G, N, D]."""
+    return (g * d * n, d * n, 1, n)
+
+
+# (B, G, N, T, D, q's strides, q's address mod 16, the kernel, planes)
+PLAN_CASES = [(128, 16, n, 15, 4, _rows(128, 16, n, 4), 0, ca.GROUPED, False) for n in IN_NS] + [
+    (128, 16, n, 15, 4, _planes(128, 16, n, 4), 0, ca.GROUPED, True) for n in IN_NS] + [
+    (2, 16, 77, 15, 4, _rows(2, 16, 77, 4), 0, ca.GROUPED, False),  # N no multiple of a tile
+    (2, 16, 300, 32, 4, _rows(2, 16, 300, 4), 0, ca.GROUPED, False),     # T at the cap
+    (2, 16, 300, 33, 4, _rows(2, 16, 300, 4), 0, ca.SMALL, False),       # past it
+    (2, 16, 300, 0, 4, _rows(2, 16, 300, 4), 0, ca.SMALL, False),        # no words
+    (3, 8, 100, 20, 4, _rows(3, 8, 100, 4), 0, ca.GROUPED, False),       # G != 16
+    (3, 8, 96, 20, 4, _planes(3, 8, 96, 4), 0, ca.GROUPED, True),
+    (2, 32, 130, 15, 4, _rows(2, 32, 130, 4), 0, ca.GROUPED, False),     # the widest G
+    (2, 2, 1500, 5, 4, _rows(2, 2, 1500, 4), 0, ca.GROUPED, False),
+    (2, 64, 50, 15, 4, _rows(2, 64, 50, 4), 0, ca.SMALL, False),         # too wide
+    (2, 12, 50, 15, 4, _rows(2, 12, 50, 4), 0, ca.SMALL, False),         # no power of two
+    (2, 16, 64, 15, 4, (16 * 64 * 4, 64 * 4, 4, 1), 0, ca.SMALL, False),  # dense [B, G, N, D]
+    (2, 16, 77, 15, 4, _planes(2, 16, 77, 4), 0, ca.SMALL, False),       # planes off 16 bytes
+    (2, 16, 64, 15, 4, (16 * 64 * 4, 1, 32, 16), 0, ca.SMALL, False),    # no layout it reads
+    (2, 16, 64, 15, 4, _rows(2, 16, 64, 4), 8, ca.SMALL, False),         # q off 16 bytes
+    (128, 1, 16, 15, 4, (64, 64, 4, 1), 0, ca.SMALL, False),             # the Out sampler's
+    (2, 1, 300, 260, 32, (300 * 32, 300 * 32, 32, 1), 0, ca.SMALL, False),  # the JAX tests'
+    (2, 16, 64, 15, 8, _rows(2, 16, 64, 8), 0, ca.SMALL, False),         # rows of D = 8
+    (3, 2, 77, 33, 48, _rows(3, 2, 77, 48), 0, ca.WIDE, False),
+    (4, 1, 1024, 200, 256, (1024 * 256, 1024 * 256, 256, 1), 0, ca.WIDE, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,g,n,t,d,strides,addr,kernel,planes", PLAN_CASES, ids=str)
+def test_plan_names_the_kernel_its_precondition_says(b, g, n, t, d, strides, addr, kernel,
+                                                     planes, dtype):
+    """The ten In launches of a 256² request at batch 128, as rows and as
+    planes, take ``attn_grouped``; around its limits (T, G, N, the strides,
+    q's address, D) each shape takes the kernel whose precondition holds,
+    and the geometry covers every query once."""
+    p = ca.plan(b, g, n, t, d, strides, dtype, 4096 + addr)
+    assert (p.kernel, p.planes) == (kernel, planes)
+    if kernel == ca.GROUPED:
+        es = torch.empty((), dtype=dtype).element_size()
+        assert p.tile * g * d * es >= 16384 and p.tile % 64 == 0 and p.threads == 256
+        ntiles = -(-n // p.tile)
+        splits = p.blocks // b
+        assert p.blocks == b * splits and 1 <= p.tiles_per_block <= 16
+        assert (splits - 1) * p.tiles_per_block < ntiles <= splits * p.tiles_per_block
+    else:
+        assert p.tiles_per_block == 1 and p.blocks == b * g * -(-n // p.tile)
+
+
+@pytest.mark.parametrize("layout", [_rows, _planes], ids=["rows", "planes"])
+def test_plan_at_the_in_shapes_is_as_designed(layout):
+    """bf16 tiles of 128 queries (16 KB), fp32 of 64; up to 16 tiles a block."""
+    for dtype, tile, blocks in ((torch.bfloat16, 128, [256, 1024, 1024, 1024, 1024, 1024, 1024,
+                                                        4096, 4096, 4096]),
+                                (torch.float32, 64, [512, 1024, 1024, 1024, 1024, 2048, 2048,
+                                                     8192, 8192, 8192])):
+        plans = [ca.plan(128, 16, n, 15, 4, layout(128, 16, n, 4), dtype) for n in IN_NS]
+        planes = layout is _planes
+        assert {(p.kernel, p.planes, p.tile, p.threads) for p in plans} == {
+            (ca.GROUPED, planes, tile, 256)}
+        assert [p.blocks for p in plans] == blocks
+        name = "float" if dtype == torch.float32 else "__nv_bfloat16"
+        assert ca.kernel_name(plans[0], dtype, 4) == f"attn_grouped<{name}, {int(planes)}>"
+
+
+@pytest.mark.parametrize("b,g,n,d,match", [(2, 1, 8, 0, "D <= 256"), (2, 1, 8, 257, "D <= 256"),
+                                            (2**16, 2**10, 2**20, 4, "grid limit")])
+def test_plan_raises_where_no_kernel_takes_the_shape(b, g, n, d, match):
+    with pytest.raises(ValueError, match=match):
+        ca.plan(b, g, n, 5, d, (n * g * d, n * d, d, 1), torch.float32)
+
+
+# ------------------------------------------------- the In sampler's launches
+
+
+@pytest.mark.parametrize("nchw_norm", [False, True], ids=["cpu_norm", "cuda_norm"])
+@pytest.mark.parametrize("normalize", [True, False], ids=["normalize", "plain"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_in_sampler_launches_take_attn_grouped(normalize, nchw_norm, dtype, monkeypatch):
+    """A CPU ``InNetG`` (``concept_in_df_gan.yml``, 64², NCH=8, T = 15,
+    batch 2) hands the seam operands that ``plan`` sends to ``attn_grouped``
+    at every In launch, so a layout change in the model cannot move the path
+    off the kernel unseen.  The queries come as rows, or, with GEN.NORMALIZE
+    where ``F.group_norm`` returns NCHW as it does on CUDA ("cuda_norm",
+    reproduced here), as planes; the keys lie [B, G, D, T] with
+    GEN.NORMALIZE (a d-stride of T), which the kernel reads in place."""
+    if nchw_norm:
+        real_gn = torch.nn.functional.group_norm
+        monkeypatch.setattr(torch.nn.functional, "group_norm",
+                            lambda *a, **kw: real_gn(*a, **kw).contiguous())
+    cfg = cfg_from_dict({"IMG": {"SIZE": 64}, "TRAIN": {"NCH": 8}, "TEXT": {"ENCODER_DIR": ""},
+                         "GEN": {"ENCODER_NAME": "CONCEPT_INATTN_GEN", "NORMALIZE": normalize}},
+                        base=cfg_from_file(str(CONCEPT_CFG)))
+    g = make_generator(cfg, dtype, "cpu", seed=0)
+    seen, real = [], pcg.masked_cross_attention
+
+    def spy(q, k, v, mask, scale=1.0):
+        seen.append((tuple(q.shape), ca.plan_for(q, k), k.stride(-1), v is k))
+        return real(q, k, v, mask, scale)
+
+    monkeypatch.setattr(pcg, "masked_cross_attention", spy)
+    rng = np.random.RandomState(0)
+    T, E = cfg.TEXT.MAX_LENGTH, cfg.TEXT.EMBEDDING_DIM
+    args = (rng.randn(2, cfg.TRAIN.NOISE_DIM), rng.randn(2, E), rng.randn(2, T, E))
+    mask = torch.from_numpy(np.arange(T)[None, :] >= np.array([4, 15])[:, None])
+    with torch.no_grad():
+        g(*(torch.from_numpy(a.astype(np.float32)).to(dtype) for a in args), mask)
+    shapes = pcg.attention_shapes(cfg, 2, "in")
+    assert [s[0] for s in seen] == [(b, gr, n, d) for b, gr, n, _, d in shapes]
+    assert {(p.kernel, p.planes) for _, p, _, _ in seen} == {(ca.GROUPED, normalize and nchw_norm)}
+    assert {(stride, same) for _, _, stride, same in seen} == {(T if normalize else 1, True)}
+
+
+def test_launch_hands_the_entry_the_plan(monkeypatch):
+    """What ``_launch`` passes the C entry, with the library and the stream
+    faked: the In sampler's operands go as they are (queries as rows or
+    planes, the keys' d-stride T) with the plan's kernel, layout and
+    geometry; an ``attn_small`` call gets dense copies of operands whose
+    last stride is not 1."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def xmc_cross_attention(*args):
+            calls.append(args)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(ca.KERNEL, "load", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
+    b, g, n, t, d = 2, 16, 200, 15, 4
+    q = torch.randn(b, n, g, d).transpose(1, 2)
+    k = torch.randn(b, g, d, t).transpose(2, 3)  # [B, G, D, T] in memory
+    mask = torch.zeros(b, t, dtype=torch.bool)
+    ca._launch(q, k, k, mask, 1.0)
+    args = calls[-1]
+    p = ca.plan_for(q, k)
+    assert args[5:10] == (b, g, n, t, d)
+    assert args[10:14] == q.stride() and args[14:18] == k.stride() == args[18:22]
+    assert args[0] == q.data_ptr() and args[1] == args[2] == k.data_ptr()
+    assert args[27:34] == (ca._KERNEL_CODE[ca.GROUPED], 0, p.threads, p.blocks, p.tile,
+                           p.tiles_per_block, 0)
+    qp = torch.randn(b, g, d, n).transpose(2, 3)  # planes: [B, G, D, N] in memory
+    ca._launch(qp, k, k, mask, 1.0)
+    args = calls[-1]
+    assert args[10:14] == qp.stride() and args[0] == qp.data_ptr()
+    assert args[27:29] == (ca._KERNEL_CODE[ca.GROUPED], 1)
+    q1 = torch.randn(b, 3, n, d)  # G = 3: attn_small, the keys copied dense
+    k1 = torch.randn(b, 3, d, t).transpose(2, 3)
+    ca._launch(q1, k1, k1, mask, 1.0)
+    args = calls[-1]
+    assert args[27] == ca._KERNEL_CODE[ca.SMALL] and args[14:18] == (3 * t * d, t * d, d, 1)
+    assert args[1] != k1.data_ptr() and args[2] != k1.data_ptr()

@@ -8,6 +8,11 @@ toolkit (``tests/conftest.py`` imports JAX, hence ``--noconftest``)::
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
 
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -544,10 +549,23 @@ def test_word_loss_kernel_backend_matches_plain_on_card(cuda_device, cd):
 ATTN_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (BF16_ULP, 1e-4)}
 # (B, G, N, T, D, strided): the ten In-sampler launches of a 256², NCH=32
 # request at batch 2, the Out launch at batch 128, the JAX package's kernel
-# shapes, a D = 256 shape and a ragged one
+# shapes, a D = 256 shape and a ragged one; then attn_grouped's edges
+# (``ca.plan``): N no multiple of a tile, T at the cap, G = 8 and 32, the
+# In sampler's operands as they come on the card ("planes": the queries
+# [B, G, D, N] in memory, as a CUDA GroupNorm leaves them, the keys
+# [B, G, D, T]) and its keys alone ("sampler"), blocks that walk more tiles
+# than the slabs they hold (batch 8), and the shapes next to it that
+# attn_small takes: T = 33, G = 12, dense queries, planes off 16 bytes
 ATTN_SHAPES = [(2, 16, n, 15, 4, True) for n in (256, 1024, 4096, 16384, 65536)] + [
     (128, 1, 16, 15, 4, False), (2, 1, 64, 20, 32, False), (2, 1, 300, 260, 32, False),
     (4, 1, 1024, 200, 256, False), (3, 2, 77, 33, 48, True)]
+GROUPED_SHAPES = ATTN_SHAPES[:5] + [
+    (3, 16, 77, 15, 4, True), (3, 16, 80, 15, 4, "planes"), (2, 16, 300, 32, 4, "sampler"),
+    (3, 8, 96, 20, 4, "planes"), (2, 32, 130, 15, 4, True), (2, 16, 4096, 15, 4, "planes"),
+    (8, 16, 65536, 15, 4, "planes")]
+ATTN_SHAPES += GROUPED_SHAPES[5:] + [
+    (2, 16, 300, 33, 4, True), (2, 12, 50, 15, 4, True), (2, 16, 300, 15, 4, False),
+    (2, 16, 77, 15, 4, "planes")]
 
 
 def _attn_inputs(device, shape, seed, allpad):
@@ -556,6 +574,10 @@ def _attn_inputs(device, shape, seed, allpad):
     if strided:  # the In sampler's layout: [B, N, G, D] in memory, viewed as [B, G, N, D]
         q = torch.randn(b, n, g, d, generator=gen, device=device).transpose(1, 2)
         k = torch.randn(b, t, g, d, generator=gen, device=device).transpose(1, 2)
+        if strided in ("sampler", "planes"):  # [B, G, D, T] in memory: a d-stride of T
+            k = k.permute(0, 1, 3, 2).contiguous().transpose(2, 3)
+        if strided == "planes":  # [B, G, D, N] in memory: an n-stride of 1
+            q = q.permute(0, 1, 3, 2).contiguous().transpose(2, 3)
         v = k
     else:
         q = torch.randn(b, g, n, d, generator=gen, device=device).squeeze(1)
@@ -593,3 +615,96 @@ def test_cross_attention_refuses_grad_on_card(cuda_device):
         ca.masked_cross_attention_kernel(q.requires_grad_(), k, v, mask)
     with torch.no_grad():
         ca.masked_cross_attention_kernel(q, k, v, mask)
+
+
+def _padded_rows_mask(device, b, t):
+    """Rows 0, 3, 5, ... fully padded, rows 1, 4, ... one word, the rest half."""
+    lens = torch.tensor([(0, 1, t // 2)[i % 3] for i in range(b)], device=device)
+    return torch.arange(t, device=device)[None, :] >= lens[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES, ids=str)
+def test_attn_grouped_padded_rows_and_equal_bits(cuda_device, dtype, shape):
+    """attn_grouped at its shapes with fully padded rows in several b (0 in
+    both) and one-word rows; two launches give equal bits."""
+    b, g, n, t, d, _ = shape
+    q, k, v, _ = _attn_inputs(cuda_device, shape, 9, allpad=False)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    mask = _padded_rows_mask(cuda_device, b, t)
+    assert ca.plan_for(q, k).kernel == ca.GROUPED
+    got = ca.masked_cross_attention_kernel(q, k, v, mask, 0.7)
+    again = ca.masked_cross_attention_kernel(q, k, v, mask, 0.7)
+    torch.cuda.synchronize()
+    want = ca.masked_cross_attention_ref(q, k, v, mask, 0.7)
+    for i in range(0, b, 3):
+        assert bool((got[i] == 0).all()) and bool((want[i] == 0).all())
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(got, again)
+
+
+def _traced_attention_kernels(dtype_name: str) -> list:
+    """For each of an In shape with its queries as planes and as rows and
+    the Out shape: the kernel ``plan`` names and the attention kernels a
+    ``torch.profiler`` trace of three calls records (the first call, before
+    the trace, loads the library; the profiler can miss the first launch of
+    a trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dtype = getattr(torch, dtype_name)
+    device = torch.device("cuda")
+    ca.KERNEL.load()
+    out = []
+    for shape in ((2, 16, 1024, 15, 4, "planes"), (2, 16, 1024, 15, 4, "sampler"),
+                  (128, 1, 16, 15, 4, False)):
+        q, k, v, mask = (x.to(dtype) if x.is_floating_point() else x
+                         for x in _attn_inputs(device, shape, 10, allpad=False))
+        ca.masked_cross_attention_kernel(q, k, v, mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ca.masked_cross_attention_kernel(q, k, v, mask)
+            torch.cuda.synchronize()
+        out.append((ca.kernel_name(ca.plan_for(q, k), dtype, shape[4]),
+                    sorted({e.key for e in prof.key_averages() if "attn_" in e.key})))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_launches_the_planned_kernel(cuda_device, dtype):
+    """The profiler sees the kernel that ``plan`` names, and no other
+    attention kernel: attn_grouped at an In shape, its queries as planes and
+    as rows, attn_small at the Out shape.  Traced in a fresh process: in
+    this one, a library that first loads after earlier tests' traces and
+    library loads can go unrecorded."""
+    tests = Path(__file__).resolve().parent
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import test_torch_cuda as t; "
+            "print(json.dumps(t._traced_attention_kernels(sys.argv[3])))")
+    proc = subprocess.run([sys.executable, "-c", code, str(tests.parent), str(tests), dtype],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    for want, names in json.loads(proc.stdout.strip().splitlines()[-1]):
+        assert names and all(want in nm for nm in names), (want, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", [True, "planes"])
+def test_attn_grouped_takes_the_exact_max_where_the_bound_is_wide(cuda_device, dtype, layout):
+    """Rows whose score bound |q| max|k| exceeds 32 (log2 units): the warp
+    takes the exact maximum as the shift, beside rows that keep the bound;
+    both within the tolerance, no row underflows to 0."""
+    q, k, v, mask = _attn_inputs(cuda_device, (3, 16, 256, 15, 4, layout), 11, allpad=False)
+    q.mul_(torch.where(torch.arange(256, device=cuda_device) % 64 < 32, 40.0, 1.0)[:, None])
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    assert ca.plan_for(q, k).kernel == ca.GROUPED
+    got = ca.masked_cross_attention_kernel(q, k, v, mask, 0.7)
+    want = ca.masked_cross_attention_ref(q, k, v, mask, 0.7)
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert bool((got.float().abs().sum(-1) > 0).all())

@@ -1,8 +1,8 @@
-"""Masked cross-attention: the CUDA kernel and its plain version.
+"""Masked cross-attention: the CUDA kernels, their plan and their plain version.
 
 Replaces ``xmc_gan_tpu/ops/pallas/cross_attention.py`` (``masked_cross_attention``,
-``pallas_call`` at ``:131``, kernel ``_attn_kernel`` ``:43-83``).  The kernel
-is ``csrc/cross_attention.cu``; its header gives the design and the bound::
+``pallas_call`` at ``:131``, kernel ``_attn_kernel`` ``:43-83``).  The kernels
+are in ``csrc/cross_attention.cu``; its header gives their design and bound::
 
     ctx[..., n, :] = sum_t softmax_t(scale * q[..., n, :] . k[..., t, :], padded t -> -inf) v[..., t, :]
 
@@ -18,38 +18,151 @@ Contract of ``masked_cross_attention_kernel``:
 * A fully padded row gives 0, as the Pallas kernel gives it
   (``acc / max(l, 1e-30)``, ``:83``), not the NaN of the JAX XLA branch's
   dense softmax (``:110-116``).
-* Strided operands, no copy: ``q``, ``k`` and ``v`` may be any strided views
-  whose last dimension is dense (stride 1).  The concept generators hand over
-  their grouped queries, which lie as ``[B, HW, G, D]`` in memory, as the
-  ``[B, G, HW, D]`` view (an n-stride of ``G * D``); the kernel reads them in
-  place.  An operand whose last stride is not 1 is copied first.
+* Strided operands, no copy where the planned kernel reads them in place.
+  The In sampler hands over its queries as a ``[B, G, HW, D]`` view: of the
+  channels_last query map's ``[B, HW, G, D]`` rows (an n-stride of
+  ``G * D``), or, after the GroupNorm of GEN.NORMALIZE on CUDA (which
+  returns NCHW), of its ``[B, G, D, HW]`` planes (an n-stride of 1); its
+  keys as a ``[B, G, D, T]`` view.  ``attn_grouped`` reads all of them
+  where they are.  For ``attn_small`` and ``attn_wide`` an operand whose
+  last stride is not 1 is copied first.
+* One rule, ``plan``, names the kernel a CUDA call launches and its launch
+  geometry from the shapes, q's strides and address, and the type, before
+  any launch; the C entry refuses a launch that its kernel does not take.
 * Forward only (the Pallas kernel has no backward either).  On CUDA, an
   operand that requires grad while autograd is on raises
   ``NotImplementedError``: nothing returns an output silently detached.
 * A CPU tensor goes to the plain version below; a CUDA tensor launches the
-  kernel or raises.  There is no fallback from one to the other.
+  planned kernel or raises.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary, LaunchCount
 
-__all__ = ["KERNEL", "FORWARD", "MAX_D", "masked_cross_attention_kernel",
+__all__ = ["KERNEL", "FORWARD", "MAX_D", "GROUPED", "SMALL", "WIDE", "Plan", "plan",
+           "plan_for", "kernel_name", "masked_cross_attention_kernel",
            "masked_cross_attention_ref"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# int xmc_cross_attention(q, k, v, mask, out, B, G, N, T, D, qsb, qsg, qsn,
-#                         ksb, ksg, kst, vsb, vsg, vst, osb, osg, osn, scale, dtype, stream)
+# int xmc_cross_attention(q, k, v, mask, out, B, G, N, T, D, qsb, qsg, qsn, qsd,
+#                         ksb, ksg, kst, ksd, vsb, vsg, vst, vsd, osb, osg, osn, scale,
+#                         dtype, kernel, layout, threads, blocks, tile, tiles_per_block, stream)
 KERNEL = CudaLibrary("cross_attention.cu", {
-    "xmc_cross_attention": (_I, [_P] * 5 + [_I] * 5 + [_L] * 12
-                            + [ctypes.c_float, _I, _P]),
+    "xmc_cross_attention": (_I, [_P] * 5 + [_I] * 5 + [_L] * 15
+                            + [ctypes.c_float] + [_I] * 7 + [_P]),
 })
 FORWARD = LaunchCount()
 MAX_D = 256  # csrc/cross_attention.cu kMaxD
+
+SMALL, WIDE, GROUPED = "attn_small", "attn_wide", "attn_grouped"
+_KERNEL_CODE = {SMALL: 0, WIDE: 1, GROUPED: 2}
+# csrc/cross_attention.cu: attn_small's and attn_wide's block shapes
+_SMALL_THREADS, _WIDE_WARPS = 128, 8
+# attn_grouped (kGrouped*, Chunk<T>::kQueries): its block, the bytes of q a
+# tile, the queries a thread takes at once by element size, the longest
+# caption and the widest grouping it holds
+_GROUPED_THREADS, _GROUPED_TILE_BYTES, _GROUPED_QUERIES = 256, 16384, {4: 2, 2: 4}
+_GROUPED_MAX_T, _GROUPED_MAX_G = 32, 32
+# attn_grouped's launch: at most this many tiles a block, and fewer where the
+# launch would otherwise have under this many blocks (~8 a multiprocessor)
+_GROUPED_MAX_TILES, _GROUPED_MIN_BLOCKS = 16, 1024
+_MAX_GRID = 2**31 - 1
+
+
+class Plan(NamedTuple):
+    """What one CUDA call launches: the kernel, q's layout for
+    ``attn_grouped`` (``planes``: n contiguous for each (g, d); else each
+    query's G rows contiguous; False for the others) and the geometry
+    (``tile``: the queries of a block, or of a tile that a block of
+    ``attn_grouped`` walks ``tiles_per_block`` of)."""
+    kernel: str
+    planes: bool
+    threads: int
+    blocks: int
+    tile: int
+    tiles_per_block: int
+
+
+def _grouped_layout(B: int, G: int, N: int, T: int, D: int, q_strides, es: int,
+                    q_ptr: int) -> str | None:
+    """``attn_grouped``'s precondition (``csrc/cross_attention.cu`` header):
+    D = 4, 1 <= T <= 32, G a power of two in 2..32, q's address 16-byte
+    aligned, and q laid out as rows (strides ``(., D, G*D, 1)``) or as planes
+    (``(., qsg, 1, qsd)``), its b, g and d strides multiples of 16 bytes.
+    Returns "rows", "planes" or None."""
+    sb, sg, sn, sd = q_strides
+    if not (D == 4 and 1 <= T <= _GROUPED_MAX_T and 2 <= G <= _GROUPED_MAX_G
+            and G & (G - 1) == 0 and q_ptr % 16 == 0 and (sb * es) % 16 == 0
+            and B >= 1 and N >= 1):
+        return None
+    if (sg, sn, sd) == (D, G * D, 1):
+        return "rows"
+    if sn == 1 and (sg * es) % 16 == 0 and (sd * es) % 16 == 0:
+        return "planes"
+    return None
+
+
+def plan(B: int, G: int, N: int, T: int, D: int, q_strides, dtype: torch.dtype,
+         q_ptr: int = 0) -> Plan:
+    """The one rule: which kernel a CUDA call at ``q [B, G, N, D]`` (strides
+    ``q_strides``, address ``q_ptr``) over ``T`` words of type ``dtype``
+    launches, and with which geometry.  ``attn_grouped`` where its
+    precondition holds; else ``attn_small`` for D <= 32 and ``attn_wide``
+    up to 256.  Raises for a shape that no kernel takes."""
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"masked_cross_attention takes 1 <= D <= {MAX_D}, got {D}")
+    es = torch.empty((), dtype=dtype).element_size()
+    layout = _grouped_layout(B, G, N, T, D, q_strides, es, q_ptr)
+    if layout:
+        cpr = G * D * es // 16  # 16-byte chunks a query
+        tile = max(_GROUPED_TILE_BYTES // (16 * cpr), 32 * _GROUPED_QUERIES[es])
+        ntiles = math.ceil(N / tile)
+        per = min(_GROUPED_MAX_TILES, max(1, B * ntiles // _GROUPED_MIN_BLOCKS))
+        p = Plan(GROUPED, layout == "planes", _GROUPED_THREADS, B * math.ceil(ntiles / per),
+                 tile, per)
+    elif D <= 32:
+        per_thread = 4 if D <= 4 else 2 if D <= 8 else 1  # queries a thread
+        need = math.ceil(N / per_thread)
+        threads = _SMALL_THREADS if need >= _SMALL_THREADS else math.ceil(need / 32) * 32
+        tile = threads * per_thread
+        p = Plan(SMALL, False, threads, B * G * math.ceil(N / tile) if tile else 0, tile, 1)
+    else:
+        p = Plan(WIDE, False, _WIDE_WARPS * 32, B * G * math.ceil(N / _WIDE_WARPS),
+                 _WIDE_WARPS, 1)
+    if p.blocks > _MAX_GRID:
+        raise ValueError(f"masked_cross_attention: {p.blocks} blocks exceed the grid limit")
+    return p
+
+
+def _view4(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dim() == 4 else t.unsqueeze(1)
+
+
+def plan_for(q: torch.Tensor, k: torch.Tensor) -> Plan:
+    """``plan`` for the operands of one call (q ``[B, (G,) N, D]``, k
+    ``[B, (G,) T, D]``), as the wrapper applies it."""
+    q4 = _view4(q)
+    b, g, n, d = q4.shape
+    return plan(b, g, n, k.shape[-2], d, q4.stride(), q.dtype, q4.data_ptr())
+
+
+def kernel_name(p: Plan, dtype: torch.dtype, D: int) -> str:
+    """The planned kernel as the profiler names its template instance."""
+    t = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    if p.kernel == GROUPED:
+        return f"{GROUPED}<{t}, {int(p.planes)}>"
+    if p.kernel == SMALL:
+        dmax = next(m for m in (4, 8, 16, 32) if D <= m)
+        return f"{SMALL}<{t}, {dmax}, {4 if D <= 4 else 2 if D <= 8 else 1}>"
+    return f"{WIDE}<{t}>"
+
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -96,14 +209,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
         raise ValueError(f"masked_cross_attention runs on CUDA or CPU tensors, got {q.device}")
 
 
-def _as4(t: torch.Tensor) -> torch.Tensor:
-    t = t if t.dim() == 4 else t.unsqueeze(1)
-    return t if t.stride(-1) == 1 else t.contiguous()
-
-
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
             scale: float) -> torch.Tensor:
-    q4, k4, v4 = _as4(q), _as4(k), _as4(v)
+    p = plan_for(q, k)
+    q4, k4, v4 = _view4(q), _view4(k), _view4(v)
+    if p.kernel != GROUPED:  # attn_small and attn_wide read a dense last dimension
+        q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous() for t in (q4, k4, v4))
     b, g, n, d = q4.shape
     t = k4.shape[2]
     out = torch.empty((b, g, n, d), device=q.device, dtype=q.dtype)
@@ -113,18 +224,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tenso
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), out.data_ptr(),
-                b, g, n, t, d, *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
-                *out.stride()[:3], scale, _DTYPE_CODE[q.dtype], stream)
+                b, g, n, t, d, *q4.stride(), *k4.stride(), *v4.stride(), *out.stride()[:3],
+                scale, _DTYPE_CODE[q.dtype], _KERNEL_CODE[p.kernel], int(p.planes), p.threads,
+                p.blocks, p.tile, p.tiles_per_block, stream)
     if rc != 0:
-        raise RuntimeError(f"cross_attention launch failed: CUDA error {rc}")
+        raise RuntimeError(f"cross_attention launch failed ({p}): CUDA error {rc}")
     FORWARD.launches += 1
     return out.view(q.shape)
 
 
 def masked_cross_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   mask: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    """Masked cross-attention (see the module docstring): the CUDA kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    """Masked cross-attention (see the module docstring): the planned CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors."""
     _check(q, k, v, mask)
     if q.device.type == "cpu":
         return masked_cross_attention_ref(q, k, v, mask, scale)
