@@ -10,8 +10,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``nvcc`` each, started together, and prints the build time.
 3. Each kernel against its plain PyTorch version on the card: the
    ``fused_affine`` forward and backward (both forms, fp32 and bf16) at the
-   14 epilogue shapes of the 256², NCH=32, batch-128 generator plus a ragged
-   one, and the single form through its wrapper at the distinct
+   14 epilogue shapes of the 256², NCH=32, batch-128 generator, at the
+   LN-COCO step's 14 at its own batch of 256 (the plain versions a few
+   images at a time) plus a ragged one, the backward with fp32 and with
+   bf16 vectors, each launch on the kernel and grid ``plan_bwd`` gives the
+   step (``fused_affine_bwd_vec`` at every path width), and the single form through its wrapper at the distinct
    ``modulate_lrelu`` shapes of a 256² concept-DF request at batch 128 (128
    channels, up to 2^30 elements); the ``damsm_score`` forward, d_regions and d_words at the flagship
    word-loss shape (B = Bc = 128, R = 256, T = 20, D = 256), at a ragged
@@ -65,7 +68,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    profiler's names ``attn_grouped`` for In and ``attn_small`` for Out;
    nothing else), that the images are finite, in [-1, 1] and of the right
    shape, and prints images/s (median of 5), peak memory, and where one request's
-   device time goes (``torch.profiler``, by kernel category).
+   device time goes (``torch.profiler``, by kernel category; every trace
+   must be whole: each runtime launch with its kernel and the counted
+   launches of the port's kernels by name, ``profiling.device_kernels``).
 6. Full-width training: the ``flagship_word`` step (DF-GAN G + D at 256²,
    NCH=32, batch 128, RMIS, MAGP, sentence/image/word-region InfoNCE) from
    ``create_train_state`` + ``make_train_step``, bf16 activations (2 warm-up
@@ -74,8 +79,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    backward, damsm 2 forward / 2 d_regions / 0 d_words), that the trace's
    forward and d_regions launches are the kernels the route rule names (the
    tensor-core ones in bf16; in fp32 the forward and the d_regions with
-   packed words), and that the losses are finite; prints
-   images/s (median),
+   packed words), that its 14 ``fused_affine`` backward launches are the
+   kernels and grids ``plan_bwd`` gives, by the profiler's names and grids
+   (the trace whole, as in phase 5), and that the losses
+   are finite; prints the kernels one step launches, the copies of dy that
+   the backward's wrapper made, images/s (median),
    peak memory, one step's device time by kernel category and the damsm
    kernels by name.  Then the LN-COCO step (``ln_coco_256.yml`` as it
    stands: NCH=96, NOISE_DIM=128, batch 256, T = 200, word D = 768,
@@ -87,7 +95,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    largest kernels.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs, as one
+   ``scaled_dot_product_attention`` on the same inputs; for the
+   ``fused_affine`` backward (its vectors in x's dtype, as the step's) and
+   cross_attention also ``kernel_ms``, the profiler's device time of the
+   kernels alone (the events' time holds the host's between launches),
+   traced after phase 3, as one
    ``{"kernels": [...]}`` line; the damsm kernels at the flagship and at
    the LN word shape (2 timed launches there).
 8. Last line: ``{"ok": true, "device": {...}}``.
@@ -104,14 +116,13 @@ import math
 import statistics
 import subprocess
 import os
+import re
 import sys
-import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from xmc_gan_tpu_torch.config import cfg_from_dict, cfg_from_file
 from xmc_gan_tpu_torch.models.concept_gan import attention_shapes
@@ -121,6 +132,7 @@ from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
 from xmc_gan_tpu_torch.ops.cuda.build import load_all
+from xmc_gan_tpu_torch.profiling import cuda_ms, device_kernels
 from xmc_gan_tpu_torch.train import (
     create_train_state,
     make_generator,
@@ -143,6 +155,12 @@ BF16_ULP = 2.0 ** -7
 COUNTS = {"fused_affine.forward": fa.FORWARD, "fused_affine.backward": fa.BACKWARD,
           "damsm_score.forward": ds.FORWARD, "damsm_score.d_regions": ds.D_REGIONS,
           "damsm_score.d_words": ds.D_WORDS, "cross_attention.forward": ca.FORWARD}
+# the kernels each count's wrapper launches, by the profiler's names (re.search)
+KERNEL_PATTERN = {"fused_affine.forward": r"fused_affine_(vec|scalar)<",
+                  "fused_affine.backward": r"fused_affine_bwd_(vec|scalar)<",
+                  "damsm_score.forward": r"damsm_fwd", "damsm_score.d_regions": r"damsm_bwd_dr",
+                  "damsm_score.d_words": r"damsm_bwd_dw",
+                  "cross_attention.forward": r"attn_(small|wide|grouped)<"}
 # launches of one flagship_word train step
 STEP_LAUNCHES = {"fused_affine.forward": 28, "fused_affine.backward": 14,
                  "damsm_score.forward": 2, "damsm_score.d_regions": 2,
@@ -165,6 +183,11 @@ KERNEL_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (BF16_ULP, 2e-5)}
 # and atomics against PyTorch's tree), so they are held to 1e-4 of their
 # largest magnitude, with a 1e-4 relative part.
 BWD_TOL = {"dx_rtol": 1e-5, "dx_atol": 2e-5, "sum_rtol": 1e-4, "sum_scale": 1e-4}
+# phase 3 runs the plain fused_affine on this many elements at a time (a few
+# images: an image's result and [C] sums do not depend on the others), so
+# that it checks the LN-COCO step's own batch of 256 (its C = 96 input alone
+# is 6.4 GB in fp32)
+PLAIN_ELEMS = 2**27
 # damsm kernels vs plain, the scores against the plain version summed in
 # fp64 around the same rounding points (``exact_scores``).  fp32: the same
 # math in another summation order: scores to 1e-5 (the all-padded
@@ -388,57 +411,6 @@ def ln_cfg(overrides: dict | None = None):
     return cfg_from_dict(overrides or {}, base=cfg_from_file(str(LN_CFG)))
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs (CUDA events), after one warm-up."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_kernels(fn) -> tuple[list[dict], float, float]:
-    """The CUDA kernels that one call of ``fn``, which has run before,
-    launches, from a ``torch.profiler`` (CUPTI) trace of it: ``[{"name",
-    "ms", "stream", "op", "dims"}]`` in launch order (``op`` and ``dims``:
-    the PyTorch op that launched the kernel and its input shapes), the
-    device's busy ms (the union of the kernels' intervals: cuDNN runs some
-    kernels on side streams, so their sum can exceed it), and the call's
-    wall ms under the profiler."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    ops = {e["args"].get("External id"): e for e in events if e.get("cat") == "cpu_op"}
-    launch_op = {e["args"].get("correlation"): ops.get(e["args"].get("External id"))
-                 for e in events if e.get("cat") == "cuda_runtime"}
-    kernels, spans = [], []
-    for e in sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"]):
-        op = launch_op.get(e["args"].get("correlation")) or {}
-        kernels.append({"name": e["name"], "ms": e["dur"] / 1e3, "stream": e["args"].get("stream"),
-                        "op": op.get("name"), "dims": op.get("args", {}).get("Input Dims")})
-        spans.append((e["ts"], e["ts"] + e["dur"]))
-    if not kernels:
-        raise RuntimeError("torch.profiler recorded no device time on this machine")
-    busy_us, end = 0.0, -math.inf
-    for start, stop in spans:
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    return kernels, busy_us / 1e3, wall_ms
-
-
 def kernel_category(name: str) -> str:
     n = name.lower()
     if "attn_small" in n or "attn_wide" in n or "attn_grouped" in n:
@@ -510,45 +482,82 @@ def damsm_inputs(shape, gen, allpad: bool, max_len: int | None = None, full: boo
     return r, w, mask, up
 
 
-def check_epilogue(shapes) -> dict:
-    """Phase 3, fused_affine: forward and backward, both forms, both dtypes."""
+def check_epilogue(shapes, ln_shapes) -> dict:
+    """Phase 3, fused_affine: forward and backward, both forms, both dtypes,
+    at every epilogue input of the flagship step and of the LN-COCO step
+    (``ln_shapes``, at its own batch), the plain versions a few images at a
+    time (``PLAIN_ELEMS``); the backward with fp32 and with bf16 vectors
+    (G's bf16 step hands them over in bf16), its fp32 sums held to the plain
+    version's before their one cast, and each launch the one that
+    ``plan_bwd`` gives the step at that shape (the vector kernel at every
+    path width, the scalar one at the ragged shape): phase 6 holds the
+    step's launches to that plan by the profiler's names and grids."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     ragged = (3, 13, 7, 9)  # C not a multiple of the vector width, H*W odd
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = KERNEL_TOL[dtype]
+        dx_rtol = BWD_TOL["dx_rtol"] if dtype == torch.float32 else BF16_ULP
         worst = {"fwd1": 0.0, "fwd2": 0.0, "bwd1": 0.0, "bwd2": 0.0}
-        for shape in [*shapes, ragged]:
+        kernels = set()
+        for shape in [*shapes, *ln_shapes, ragged]:
+            b, c, h, w = shape
             x, mods = epilogue_inputs(shape, dtype, gen)
             dy = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(
                 memory_format=torch.channels_last)
+            images = [slice(i, i + max(1, PLAIN_ELEMS // (c * h * w)))
+                      for i in range(0, b, max(1, PLAIN_ELEMS // (c * h * w)))]
             for nmod, kern, ref in ((1, fa.modulate_lrelu_kernel, fa.modulate_lrelu_ref),
                                     (2, fa.double_modulate_lrelu_kernel,
                                      fa.double_modulate_lrelu_ref)):
                 m = tuple(mods[: 2 * nmod])
-                got = kern(x, *m).float()
-                want = ref(x, *m).float()
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-                worst[f"fwd{nmod}"] = max(worst[f"fwd{nmod}"], (got - want).abs().max().item())
-                got_b = fa._launch_bwd(x, m, dy, 0.2)
-                want_b = fa.fused_affine_bwd_ref(x, m, dy, 0.2)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got_b[0].float(), want_b[0].float(),
-                                           rtol=BWD_TOL["dx_rtol"] if dtype == torch.float32
-                                           else BF16_ULP, atol=BWD_TOL["dx_atol"])
-                for g_, w_ in zip(got_b[1:], want_b[1:]):
-                    torch.testing.assert_close(
-                        g_, w_, rtol=BWD_TOL["sum_rtol"],
-                        atol=BWD_TOL["sum_scale"] * w_.abs().max().item())
-                worst[f"bwd{nmod}"] = max(worst[f"bwd{nmod}"], max(
-                    (g_.float() - w_.float()).abs().max().item() for g_, w_ in zip(got_b, want_b)))
-            del x, mods, dy, got, want, got_b, want_b
+                got = kern(x, *m)
+                for i in images:
+                    got_i = got[i].float()
+                    want = ref(x[i], *(t[i] for t in m)).float()
+                    torch.testing.assert_close(got_i, want, rtol=rtol, atol=atol)
+                    worst[f"fwd{nmod}"] = max(worst[f"fwd{nmod}"],
+                                              (got_i - want).abs().max().item())
+                    del got_i, want
+                del got
+                for vdt in (torch.float32, torch.bfloat16):
+                    mv = tuple(t.to(vdt) for t in m)
+                    got_dx, got_sums = fa._launch_bwd_sums(x, mv, dy, 0.2)
+                    p = fa.plan_bwd(b, h * w, c, dtype, vdt, (x.data_ptr(), dy.data_ptr(),
+                                                              got_dx.data_ptr()), sms)
+                    if p != fa.plan_bwd(b, h * w, c, dtype, vdt, (0, 0, 0), sms) or p.kernel != (
+                            fa.BWD_SCALAR if shape == ragged else fa.BWD_VEC):
+                        raise AssertionError(f"fused_affine backward at {shape}: planned {p}")
+                    kernels.add(fa.bwd_kernel_name(p, dtype, vdt, nmod))
+                    want_sums = []
+                    for i in images:
+                        want_b = fa.fused_affine_bwd_ref(x[i], tuple(t[i].float() for t in mv),
+                                                         dy[i], 0.2)
+                        got_i = got_dx[i].float()
+                        torch.testing.assert_close(got_i, want_b[0].float(), rtol=dx_rtol,
+                                                   atol=BWD_TOL["dx_atol"])
+                        worst[f"bwd{nmod}"] = max(worst[f"bwd{nmod}"],
+                                                  (got_i - want_b[0].float()).abs().max().item())
+                        want_sums.append(torch.stack(want_b[1:]))
+                        del want_b, got_i
+                    want_sums = torch.cat(want_sums, 1)  # [2 * nmod, B, C], fp32
+                    for g_, w_ in zip(got_sums.unbind(0), want_sums.unbind(0)):
+                        torch.testing.assert_close(
+                            g_, w_, rtol=BWD_TOL["sum_rtol"],
+                            atol=BWD_TOL["sum_scale"] * w_.abs().max().item())
+                    worst[f"bwd{nmod}"] = max(worst[f"bwd{nmod}"],
+                                              (got_sums - want_sums).abs().max().item())
+                    del got_dx, got_sums, want_sums
+            del x, mods, dy
+            torch.cuda.empty_cache()
         errs[dtype] = worst
         log(f"[3] fused_affine {DTYPE_NAME[dtype]}: max_abs_err forward 1-mod {worst['fwd1']:.3g}, "
-            f"2-mod {worst['fwd2']:.3g}; backward 1-mod {worst['bwd1']:.3g}, 2-mod "
-            f"{worst['bwd2']:.3g} over {len(shapes)} path shapes + ragged {ragged} (forward "
-            f"tolerance rtol {rtol:g} atol {atol:g}; backward: {BWD_TOL})")
+            f"2-mod {worst['fwd2']:.3g}; backward (fp32 and bf16 vectors) 1-mod "
+            f"{worst['bwd1']:.3g}, 2-mod {worst['bwd2']:.3g} over {len(shapes)} flagship shapes, "
+            f"{len(ln_shapes)} LN-COCO ones (batch {ln_shapes[0][0]}) + ragged {ragged} "
+            f"(forward tolerance rtol {rtol:g} atol {atol:g}; backward: {BWD_TOL}); backward "
+            f"kernels {sorted(kernels)}")
     return errs
 
 
@@ -728,17 +737,11 @@ def exact_scores(r, w, mask, cd, block_elems: int | None = None) -> torch.Tensor
 
 def damsm_kernel_names(fn) -> list[str]:
     """The damsm kernels that a call of ``fn`` launches, by name, from a
-    ``torch.profiler`` trace of its second and third calls: the first,
-    before the trace, loads and sets up every kernel it launches; two calls
-    in the trace, because the profiler can miss the first launch of a trace
-    (a run lost the LN forward so)."""
+    whole trace of it (``device_kernels``); the first call, before the
+    trace, loads and sets up every kernel it launches."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages() if "damsm" in e.key})
+    return sorted({k["name"] for k in device_kernels(fn)[0] if "damsm" in k["name"]})
 
 
 def check_damsm_ln() -> dict:
@@ -1085,7 +1088,7 @@ def serve(cfg, sd, dtype, name: str = "DF_GEN") -> dict:
         times_g.append(t1 - t0)
     g_s, req_s = statistics.median(times_g), statistics.median(times_req)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    kernels, busy_ms, wall_ms = device_kernels(request)
+    kernels, busy_ms, wall_ms = device_kernels(request, expect=launch_patterns(launches))
     device_ms = sum(k["ms"] for k in kernels)
     if name in REQUEST_ATTN_KERNEL:  # the profiled request's attention launches, by name
         attn = [k["name"] for k in kernels if kernel_category(k["name"]) == "cross_attention"]
@@ -1126,9 +1129,11 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the training path's run: one step, counts from here
+    fa.DY_COPIES.launches = 0
     metrics = step(state, batch, noises[warmup])
     torch.cuda.synchronize()
     launches = read_counts()
+    dy_copies = fa.DY_COPIES.launches
     if launches != STEP_LAUNCHES:
         raise AssertionError(f"{label} train step: launches {launches}, want {STEP_LAUNCHES}")
     bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v.float()).all())]
@@ -1146,7 +1151,8 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
     bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v.float()).all())]
     if bad:
         raise AssertionError(f"{label} train step: non-finite {bad} after the timed steps")
-    kernels, busy_ms, wall_ms = device_kernels(lambda: step(state, batch, noises[-1]))
+    kernels, busy_ms, wall_ms = device_kernels(lambda: step(state, batch, noises[-1]),
+                                               expect=launch_patterns(launches))
     device_ms = sum(k["ms"] for k in kernels)
     damsm = {}
     for k in kernels:
@@ -1160,8 +1166,26 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
         if [v[0] for name, v in got.items() if want in name] != [2] or len(got) != 1:
             raise AssertionError(f"{label} train step: {what} kernels {got}, want 2 launches "
                                  f"of {want}")
+    # G's epilogue backward: the kernel and grid plan_bwd gives each of its
+    # 14 inputs (torch allocates them 16-byte aligned), with the vectors in
+    # the activation dtype, as the step's Affine MLPs hand them over
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want_bwd: dict[str, int] = {}
+    want_grids = []
+    for b, c, h, w in epilogue_shapes(cfg, bs):
+        p = fa.plan_bwd(b, h * w, c, dtype, dtype, (0, 0, 0), sms)
+        name = fa.bwd_kernel_name(p, dtype, dtype, 2)
+        want_bwd[name] = want_bwd.get(name, 0) + 1
+        want_grids.append((name, list(p.grid), p.threads))
+    got_bwd = [k for k in kernels if "fused_affine_bwd" in k["name"]]
+    got_grids = [(next((n for n in want_bwd if n in k["name"]), k["name"]), k["grid"],
+                  k["block"] and k["block"][0]) for k in got_bwd]
+    if sorted(map(str, got_grids)) != sorted(map(str, want_grids)):
+        raise AssertionError(f"{label} train step: fused_affine backward kernels (name, grid, "
+                             f"threads) {got_grids}, want {want_grids}")
     res = {"dtype": DTYPE_NAME[dtype], "config": config_name, "batch": bs, "launches": launches,
-           "step_ms": step_s * 1e3,
+           "step_kernel_launches": len(kernels), "fused_affine_bwd_kernels": want_bwd,
+           "fused_affine_dy_copies": dy_copies, "step_ms": step_s * 1e3,
            "step_ms_all": [t * 1e3 for t in times], "img_per_s": bs / step_s,
            "peak_mem_gib": peak, "step_kernel_ms": device_ms, "step_busy_ms": busy_ms,
            "profiled_step_ms": wall_ms, "device_busy_share": busy_ms / wall_ms,
@@ -1170,7 +1194,9 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
            "metrics": {k: float(v) for k, v in metrics.items()}}
     log(f"[6] train {label} bs{bs} {cfg.IMG.SIZE}²: step {res['step_ms']:.1f} ms "
         f"({res['img_per_s']:.1f} img/s, median of {timed}), peak memory {peak:.2f} GiB, "
-        f"launches {launches}")
+        f"launches {launches}; the profiled step launches {len(kernels)} kernels, the "
+        f"fused_affine backward {want_bwd} by the profiler's names and grids, with "
+        f"{dy_copies} copies of dy in the counted step")
     log(f"[6] train {label} one step on the device: {device_ms:.1f} ms of kernels, busy "
         f"{busy_ms:.1f} of {wall_ms:.1f} ms (share {res['device_busy_share']:.3f}); " + ", ".join(
             f"{k} {v:.1f} ms" for k, v in res["device_ms_by_category"].items()))
@@ -1186,7 +1212,60 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
     return res
 
 
-def epilogue_rows(shapes, errs, launches) -> list[dict]:
+def launch_patterns(launches: dict[str, int]) -> dict[str, int]:
+    """A counted run's launches as ``device_kernels``' ``expect``: the
+    kernels by name that a whole trace of the same run holds."""
+    return {KERNEL_PATTERN[k]: n for k, n in launches.items()}
+
+
+def df_cfg():
+    """``df_gan_damsm.yml`` at 256², full width (no DAMSM weights in the repository)."""
+    return cfg_from_dict({"IMG": {"SIZE": 256}, "TEXT": {"ENCODER_DIR": ""}},
+                         base=cfg_from_file(str(CFG)))
+
+
+def own_kernel_times() -> dict[str, float]:
+    """Phase 7's ``kernel_ms``: the profiler's device time of the kernels
+    alone (without the host's time between launches that ``cuda_ms``
+    holds) in one call of a row's launches: the ``fused_affine`` backward's
+    14 (both forms and dtypes, the vectors in x's dtype) and each attention
+    request's 10, on inputs drawn as phase 7 draws them; each trace whole
+    (``device_kernels``)."""
+
+    def own(fn, pattern: str, launches: int) -> float:
+        fn()
+        return sum(k["ms"] for k in device_kernels(fn, expect={pattern: launches})[0]
+                   if re.search(pattern, k["name"]))
+
+    in_cfg = concept_cfg("CONCEPT_INATTN_GEN")
+    attn = {"in": [s[:5] for s in attention_shapes(in_cfg, BATCH, "in")],
+            "out": [s[:5] for s in attention_shapes(in_cfg, BATCH, "out")]}
+    shapes = epilogue_shapes(df_cfg(), BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = [epilogue_inputs(s, dtype, gen) for s in shapes]
+        dys = [torch.randn(s, generator=gen, device="cuda").to(dtype).contiguous(
+            memory_format=torch.channels_last) for s in shapes]
+        for nmod, form in ((2, "double_modulate_lrelu"), (1, "modulate_lrelu")):
+            calls = [(x, tuple(t.to(dtype) for t in m[: 2 * nmod]), dy)
+                     for (x, m), dy in zip(ins, dys)]
+            out[f"fused_affine.{form}.backward[{DTYPE_NAME[dtype]}]"] = own(
+                lambda: [fa._launch_bwd(x, m, dy, 0.2) for x, m, dy in calls],
+                KERNEL_PATTERN["fused_affine.backward"], len(calls))
+        del ins, dys, calls
+        torch.cuda.empty_cache()
+        for which, strided in (("in", "planes"), ("out", False)):
+            calls = [attention_inputs((*sh, strided), dtype, gen, False) for sh in attn[which]]
+            out[f"cross_attention.{which}[{DTYPE_NAME[dtype]}]"] = own(
+                lambda: [ca._launch(q, k, v, mask, 1.0) for q, k, v, mask in calls],
+                KERNEL_PATTERN["cross_attention.forward"], len(calls))
+            del calls
+            torch.cuda.empty_cache()
+    return out
+
+
+def epilogue_rows(shapes, errs, launches, own_ms) -> list[dict]:
     """Phase 7, fused_affine: the 14 launches of one G forward (or backward)
     per form and dtype: kernel vs plain vs bound."""
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1211,13 +1290,17 @@ def epilogue_rows(shapes, errs, launches) -> list[dict]:
                 "launches": launches[dtype]["fused_affine.forward"] if nmod == 2 else 0,
                 "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:"
                             + ("71" if nmod == 2 else "59")}
+            # the backward gets the vectors in x's dtype, as G's Affine MLPs hand
+            # them over in the train step
+            bmods = [tuple(t.to(dtype) for t in m) for m in mods]
             bwd = {  # x and dy read, dx written, the vectors read and their sums written
-                "bytes": [3 * k * es + 2 * v for k, v in zip(n, vec_bytes)],
+                "bytes": [3 * k * es + 2 * v * es // 4 for k, v in zip(n, vec_bytes)],
                 "ops": [10 * nmod * k for k in n],
                 "kern": lambda: [fa._launch_bwd(x, m, dy, 0.2)
-                                 for x, m, dy in zip(xs, mods, dys)],
+                                 for x, m, dy in zip(xs, bmods, dys)],
                 "ref": lambda: [fa.fused_affine_bwd_ref(x, m, dy, 0.2)
-                                for x, m, dy in zip(xs, mods, dys)],
+                                for x, m, dy in zip(xs, bmods, dys)],
+                "vectors": DTYPE_NAME[dtype],
                 "name": f"fused_affine.{form}.backward", "err": errs[dtype][f"bwd{nmod}"],
                 "launches": launches[dtype]["fused_affine.backward"] if nmod == 2 else 0,
                 "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:"
@@ -1238,8 +1321,15 @@ def epilogue_rows(shapes, errs, launches) -> list[dict]:
                     "library_ms": None, "roofline_share": bound / ms,
                     "shapes": f"the 14 epilogue inputs of one 256² NCH=32 G pass at batch {BATCH}",
                 })
+                own = ""
+                if "vectors" in spec:
+                    rows[-1]["kernel_ms"] = own_ms[rows[-1]["name"]]
+                    rows[-1]["vectors"] = spec["vectors"]
+                    own = (f", of it {rows[-1]['kernel_ms']:.3f} ms in the kernel "
+                           f"({100 * bound / rows[-1]['kernel_ms']:.1f}%; {spec['vectors']} "
+                           f"vectors)")
                 log(f"[7] {rows[-1]['name']}: 14 launches {ms:.3f} ms (bound {bound:.3f} ms, "
-                    f"{100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+                    f"{100 * bound / ms:.1f}%){own}, plain {plain_ms:.3f} ms")
         del ins, dys
         torch.cuda.empty_cache()
     return rows
@@ -1288,7 +1378,7 @@ def modulation_rows(shapes, errs, launches) -> list[dict]:
     return rows
 
 
-def attention_rows(in_shapes, out_shapes, errs, launches) -> list[dict]:
+def attention_rows(in_shapes, out_shapes, errs, launches, own_ms) -> list[dict]:
     """Phase 7, cross_attention: the 10 launches of one 256² INATTN request
     and of one OUTATTN request (batch 128), per dtype, the In queries as
     planes as the sampler hands them over on the card: kernel vs plain vs
@@ -1333,13 +1423,14 @@ def attention_rows(in_shapes, out_shapes, errs, launches) -> list[dict]:
             ms, plain_ms, library_ms = cuda_ms(kern, 5), cuda_ms(ref, 2), cuda_ms(sdpa, 2)
             bound = max(byte_ms, op_ms)
             gen_name = "CONCEPT_INATTN_GEN" if which == "in" else "CONCEPT_OUTATTN_GEN"
+            kernel_ms = own_ms[f"cross_attention.{which}[{DTYPE_NAME[dtype]}]"]
             rows.append({
                 "name": f"cross_attention.{which}[{DTYPE_NAME[dtype]}]", "route": "cuda",
                 "kernel": " ".join(planned),
                 "source": "xmc_gan_tpu_torch/csrc/cross_attention.cu",
                 "replaces": "xmc_gan_tpu/ops/pallas/cross_attention.py:95 (pallas_call :131)",
                 "launches": launches[gen_name][dtype], "max_abs_err": errs[dtype], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound,
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "library_ms": library_ms, "roofline_share": bound / ms,
                 "shapes": f"the {len(shapes)} launches of one 256² NCH=32 {gen_name} request at "
@@ -1348,8 +1439,8 @@ def attention_rows(in_shapes, out_shapes, errs, launches) -> list[dict]:
                              "as the sampler hands them over on the card" if strided else ""),
             })
             log(f"[7] {rows[-1]['name']} ({rows[-1]['kernel']}): {len(shapes)} launches "
-                f"{ms:.3f} ms (bound {bound:.4g} ms by {rows[-1]['bound_by']}, "
-                f"{100 * bound / ms:.2f}%), plain "
+                f"{ms:.3f} ms, of it {kernel_ms:.3f} ms in the kernels (bound {bound:.4g} ms by "
+                f"{rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain "
                 f"{plain_ms:.3f} ms, scaled_dot_product_attention {library_ms:.3f} ms")
             del ins, calls
             torch.cuda.empty_cache()
@@ -1466,20 +1557,24 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_check()
     build_kernels()
-    # df_gan_damsm.yml at 256², full width; no DAMSM weights in the repository
-    cfg = cfg_from_dict({"IMG": {"SIZE": 256}, "TEXT": {"ENCODER_DIR": ""}},
-                        base=cfg_from_file(str(CFG)))
+    cfg = df_cfg()
     shapes = epilogue_shapes(cfg, BATCH)
     in_cfg = concept_cfg("CONCEPT_INATTN_GEN")
     attn_in, attn_out = attention_shapes(in_cfg, BATCH, "in"), attention_shapes(in_cfg, BATCH,
                                                                                 "out")
     mod_shapes = modulation_shapes(concept_cfg("CONCEPT_IN_DF_GEN"), BATCH)
-    fa_errs = check_epilogue(shapes)
+    ln = ln_cfg()
+    fa_errs = check_epilogue(shapes, epilogue_shapes(ln, ln.TRAIN.BATCH_SIZE))
     mod_errs = check_modulation(sorted(set(mod_shapes)))
     ds_errs = check_damsm()
     ln_errs = check_damsm_ln()
     check_damsm_streamed()
     ca_errs = check_attention(attn_in)
+    torch.cuda.empty_cache()
+    own_ms = own_kernel_times()
+    log("[7] the kernels' own device ms (profiler, run after phase 3): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in own_ms.items()))
+    torch.cuda.empty_cache()
 
     g_cpu = make_generator(cfg, device="cpu")
     sd = perturbed_state_dict(g_cpu, seed=0)
@@ -1519,7 +1614,7 @@ def main() -> int:
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
-    kernels = epilogue_rows(shapes, fa_errs, step_launches)
+    kernels = epilogue_rows(shapes, fa_errs, step_launches, own_ms)
     kernels += modulation_rows(
         mod_shapes, mod_errs,
         {d: req["CONCEPT_IN_DF_GEN"][d]["fused_affine.forward"] for d in req["CONCEPT_IN_DF_GEN"]})
@@ -1533,7 +1628,7 @@ def main() -> int:
     kernels += attention_rows(
         [s[:5] for s in attn_in], [s[:5] for s in attn_out], ca_errs,
         {name: {d: r["cross_attention.forward"] for d, r in req[name].items()}
-         for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")})
+         for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")}, own_ms)
     log(json.dumps({"card": card, "serving": list(runs.values()),
                     "concept_serving": [r for rs in concept_runs.values() for r in rs.values()],
                     "training": [*trains.values(), ln_train]}))

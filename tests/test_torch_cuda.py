@@ -20,6 +20,7 @@ from xmc_gan_tpu_torch import losses
 from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
+from xmc_gan_tpu_torch.profiling import device_kernels
 
 BF16_ULP = 2.0 ** -7  # spacing of bf16 values in [1, 2)
 # Kernel vs plain version.  fp32: the kernel contracts each g*y+b into one
@@ -97,40 +98,162 @@ def test_kernel_takes_misaligned_modulation_vectors(cuda_device):
 
 # fused_affine backward vs plain: dx is the plain version's arithmetic in the
 # same order (fp32: up to FMA contraction of d1 * g1; bf16: one rounding on
-# store); the [B, C] sums run over H*W in another order (threads, warps,
-# blocks and atomics against PyTorch's tree), so they are held to 1e-4 of
-# their largest magnitude with a 1e-4 relative part.
+# store); the [B, C] sums run over H*W in another order (threads, blocks and
+# atomics against PyTorch's tree), so they are held to 1e-4 of their largest
+# magnitude with a 1e-4 relative part.  bf16 vectors get their gradients as
+# those fp32 sums rounded once to bf16: half a bf16 ulp (2^-8) relative more.
 BWD_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (BF16_ULP, 2e-5)}
 SUM_TOL = 1e-4
+# the epilogue's widths on both train steps: the flagship's C = 256, 32 and
+# 64 (at 64², its largest grid per image), the LN-COCO step's 96 and 768;
+# then C = 13 (the scalar kernel)
+BWD_SHAPES = [(2, 256, 4, 4), (3, 32, 17, 9), (2, 13, 5, 7), (4, 64, 64, 64), (2, 96, 16, 16),
+              (2, 768, 4, 4)]
+
+
+def _bwd_inputs(device, shape, dtype, vec_dtype, nmod, seed=3):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, c = shape[:2]
+    x = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    mods = [torch.randn(b, c, generator=gen, device=device).to(vec_dtype)
+            for _ in range(2 * nmod)]
+    dy = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    return x, mods, dy
+
+
+def _assert_bwd_close(got, want, dtype, vec_dtype):
+    rtol, atol = BWD_TOL[dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=rtol, atol=atol)
+    extra = BF16_ULP / 2 if vec_dtype == torch.bfloat16 else 0.0
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g.float(), w.float(), rtol=SUM_TOL + extra,
+                                   atol=SUM_TOL * w.abs().max().item())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nmod", [1, 2])
-@pytest.mark.parametrize("shape", [(2, 256, 4, 4), (3, 32, 17, 9), (2, 13, 5, 7),
-                                   (4, 64, 64, 64)])
-def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, nmod, shape):
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, nmod, shape, vec_dtype):
     """The autograd Function's backward launches the backward kernel once and
-    agrees with ``fused_affine_bwd_ref`` on dx and the vector gradients."""
-    gen = torch.Generator(device=cuda_device).manual_seed(3)
-    b, c = shape[:2]
-    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype).contiguous(
-        memory_format=torch.channels_last).requires_grad_()
-    mods = [torch.randn(b, c, generator=gen, device=cuda_device).requires_grad_()
-            for _ in range(2 * nmod)]
-    dy = torch.randn(shape, generator=gen, device=cuda_device).to(dtype).contiguous(
-        memory_format=torch.channels_last)
+    agrees with ``fused_affine_bwd_ref`` on dx and the vector gradients,
+    which come back in the vectors' dtype (fp32 or bf16, as G's Affine MLPs
+    hand them over)."""
+    x, mods, dy = _bwd_inputs(cuda_device, shape, dtype, vec_dtype, nmod)
+    x.requires_grad_()
+    for m in mods:
+        m.requires_grad_()
     fn = fa.modulate_lrelu_kernel if nmod == 1 else fa.double_modulate_lrelu_kernel
     before = fa.BACKWARD.launches
     got = torch.autograd.grad(fn(x, *mods), (x, *mods), dy)
     torch.cuda.synchronize()
     assert fa.BACKWARD.launches == before + 1
-    want = fa.fused_affine_bwd_ref(x.detach(), tuple(m.detach() for m in mods), dy)
-    assert got[0].dtype == dtype and all(g.dtype == torch.float32 for g in got[1:])
-    rtol, atol = BWD_TOL[dtype]
-    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=rtol, atol=atol)
-    for g, w in zip(got[1:], want[1:]):
-        torch.testing.assert_close(g, w, rtol=SUM_TOL, atol=SUM_TOL * w.abs().max().item())
+    want = fa.fused_affine_bwd_ref(x.detach(), tuple(m.detach().float() for m in mods), dy)
+    assert got[0].dtype == dtype and all(g.dtype == vec_dtype for g in got[1:])
+    _assert_bwd_close(got, want, dtype, vec_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_takes_a_misaligned_view_on_the_scalar_kernel(cuda_device, dtype):
+    """x a channels_last view 2 (bf16) or 4 (fp32) bytes past a 16-byte
+    boundary: the plan names the scalar kernel, and the result is the plain
+    version's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    base = torch.randn(2 * 6 * 6 * 64 + 1, generator=gen, device=cuda_device).to(dtype)
+    x = base[1:].view(2, 6, 6, 64).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16 != 0
+    _, mods, dy = _bwd_inputs(cuda_device, (2, 64, 6, 6), dtype, dtype, 2)
+    dx = torch.empty_like(x)
+    p = fa.plan_bwd(2, 36, 64, dtype, dtype, (x.data_ptr(), dy.data_ptr(), dx.data_ptr()),
+                    _sms())
+    assert p.kernel == fa.BWD_SCALAR
+    got = fa._launch_bwd(x, tuple(mods), dy, 0.2)
+    want = fa.fused_affine_bwd_ref(x, tuple(m.float() for m in mods), dy)
+    _assert_bwd_close(got, want, dtype, dtype)
+
+
+@pytest.mark.cuda
+def test_backward_entry_refuses_what_the_named_kernel_does_not_take(cuda_device):
+    """The C entry returns cudaErrorInvalidValue (1), and launches nothing,
+    for the vector kernel at C = 13, at a misaligned x, with a block that is
+    no whole number of pixels, and for a grid that misses pixels; the same
+    call as planned succeeds."""
+    b, c, h, w = 2, 64, 32, 32
+    x, mods, dy = _bwd_inputs(cuda_device, (b, c, h, w), torch.float32, torch.float32, 2)
+    dx = torch.empty_like(x)
+    sums = torch.zeros(4, b, c, device=cuda_device)
+    fn = fa.KERNEL.load().xmc_fused_affine_bwd
+    stream = torch.cuda.current_stream().cuda_stream
+    p = fa.plan_bwd(b, h * w, c, torch.float32, torch.float32,
+                    (x.data_ptr(), dy.data_ptr(), dx.data_ptr()), _sms())
+    assert p.kernel == fa.BWD_VEC and p.chunks > 1
+
+    def entry(ptr=x.data_ptr(), chans=c, threads=p.threads, chunks=p.chunks):
+        return fn(ptr, dy.data_ptr(), dx.data_ptr(), *[m.data_ptr() for m in mods],
+                  sums.data_ptr(), b, h * w, chans, 2, 0, 0, 0.2, 0, threads, chunks, p.run,
+                  stream)
+
+    assert entry(chans=13) == 1
+    assert entry(ptr=x.data_ptr() + 4) == 1
+    assert entry(threads=p.threads - 1) == 1
+    assert entry(chunks=p.chunks - 1) == 1
+    torch.cuda.synchronize()
+    assert bool((sums == 0).all())
+    assert entry() == 0
+    torch.cuda.synchronize()
+    assert bool((sums != 0).any())
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _traced_backward_kernels() -> list:
+    """For each of ``BWD_SHAPES`` in both dtypes, with vectors in x's dtype:
+    the kernel and grid ``plan_bwd`` gives, and the ``fused_affine`` kernels
+    and their grids in a whole trace of one call (``device_kernels``; the
+    first call, before the trace, loads the library)."""
+    device = torch.device("cuda")
+    fa.KERNEL.load()
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in BWD_SHAPES:
+            x, mods, dy = _bwd_inputs(device, shape, dtype, dtype, 2)
+            fa._launch_bwd(x, tuple(mods), dy, 0.2)
+            torch.cuda.synchronize()
+            seen = [k for k in device_kernels(lambda: fa._launch_bwd(x, tuple(mods), dy, 0.2),
+                                              expect={r"fused_affine_bwd_": 1})[0]
+                    if "fused_affine" in k["name"]]
+            b, c, h, w = shape
+            p = fa.plan_bwd(b, h * w, c, dtype, dtype, (0, 0, 0), _sms())  # torch aligns
+            out.append((fa.bwd_kernel_name(p, dtype, dtype, 2), list(p.grid),
+                        [k["name"] for k in seen], [k["grid"] for k in seen]))
+    return out
+
+
+@pytest.mark.cuda
+def test_backward_launches_the_planned_kernel(cuda_device):
+    """The profiler sees the backward kernel and grid that ``plan_bwd``
+    gives, and no other ``fused_affine`` kernel: ``fused_affine_bwd_vec`` at the path
+    widths, ``fused_affine_bwd_scalar`` at C = 13.  Traced in a fresh
+    process: in this one, a library that first loads after earlier tests'
+    traces and library loads can go unrecorded."""
+    tests = Path(__file__).resolve().parent
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import test_torch_cuda as t; "
+            "print(json.dumps(t._traced_backward_kernels()))")
+    proc = subprocess.run([sys.executable, "-c", code, str(tests.parent), str(tests)],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {want.split("<")[0] for want, *_ in traced} == {fa.BWD_VEC, fa.BWD_SCALAR}
+    for want, grid, names, grids in traced:
+        assert len(names) == 1 and want in names[0] and grids == [grid], (want, grid, names,
+                                                                         grids)
 
 
 # damsm kernels vs plain, the scores against the plain version summed in
@@ -240,17 +363,12 @@ def _ln_inputs(device, shape, seed):
 
 
 def _damsm_kernel_names(fn) -> set[str]:
-    """The names of the damsm kernels that ``fn`` launches, from a
-    ``torch.profiler`` trace of its second call: the first, before the
+    """The names of the damsm kernels that ``fn`` launches, from a whole
+    trace of its second call (``device_kernels``): the first, before the
     trace, builds, loads and sets up every kernel it launches."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages() if "damsm" in e.key}
+    return {k["name"] for k in device_kernels(fn)[0] if "damsm" in k["name"]}
 
 
 # (shape, compute dtype, the forward's and d_regions' kernels): the LN
@@ -647,12 +765,9 @@ def test_attn_grouped_padded_rows_and_equal_bits(cuda_device, dtype, shape):
 
 def _traced_attention_kernels(dtype_name: str) -> list:
     """For each of an In shape with its queries as planes and as rows and
-    the Out shape: the kernel ``plan`` names and the attention kernels a
-    ``torch.profiler`` trace of three calls records (the first call, before
-    the trace, loads the library; the profiler can miss the first launch of
-    a trace)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    the Out shape: the kernel ``plan`` names and the attention kernels in
+    a whole trace of one call (``device_kernels``; the first call, before
+    the trace, loads the library)."""
     dtype = getattr(torch, dtype_name)
     device = torch.device("cuda")
     ca.KERNEL.load()
@@ -663,12 +778,10 @@ def _traced_attention_kernels(dtype_name: str) -> list:
                          for x in _attn_inputs(device, shape, 10, allpad=False))
         ca.masked_cross_attention_kernel(q, k, v, mask)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                ca.masked_cross_attention_kernel(q, k, v, mask)
-            torch.cuda.synchronize()
+        seen = device_kernels(lambda: ca.masked_cross_attention_kernel(q, k, v, mask),
+                              expect={r"attn_(small|wide|grouped)<": 1})[0]
         out.append((ca.kernel_name(ca.plan_for(q, k), dtype, shape[4]),
-                    sorted({e.key for e in prof.key_averages() if "attn_" in e.key})))
+                    sorted({k["name"] for k in seen if "attn_" in k["name"]})))
     return out
 
 

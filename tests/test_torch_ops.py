@@ -4,7 +4,9 @@ version vs ``xmc_gan_tpu.ops.fused`` and the Pallas kernels in interpret mode),
 and the CUDA kernel wrapper's guards.  The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``, marker ``cuda``)."""
 
+import contextlib
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +23,9 @@ from xmc_gan_tpu.ops.pallas.fused_affine import (
     double_modulate_lrelu_pallas,
     modulate_lrelu_pallas,
 )
+from xmc_gan_tpu_torch.config import cfg_from_dict, cfg_from_file
 from xmc_gan_tpu_torch.models.common import affine_out_inits, inits
+from xmc_gan_tpu_torch.models.df_gan import epilogue_shapes
 from xmc_gan_tpu_torch.ops import fused
 from xmc_gan_tpu_torch.ops.cuda import build as cuda_build
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
@@ -35,6 +39,7 @@ from xmc_gan_tpu_torch.ops.modules import (
 from xmc_gan_tpu_torch.utils.convert import conv_state_dict, dense_state_dict
 
 BF16_ULP = 2.0 ** -7  # spacing of bf16 values in [1, 2)
+CFG_DIR = Path(__file__).resolve().parents[1] / "xmc_gan_tpu" / "cfg"
 
 
 def _nchw(x_nhwc: np.ndarray) -> torch.Tensor:
@@ -234,6 +239,167 @@ def test_backward_keeps_input_dtypes():
     assert [g.dtype for g in grads] == [torch.bfloat16] * 5
     with pytest.raises(RuntimeError, match="differentiate twice"):
         grads[1].float().sum().backward()
+
+
+@pytest.mark.parametrize("nmod", [1, 2])
+def test_backward_matches_jax_vjp_bf16_vectors(nmod):
+    """bf16 x, dy and vectors, as G's bf16 train step hands them over: the
+    autograd Function's CPU backward against ``jax.vjp`` of the JAX plain
+    epilogue computed in fp32 on the same (bf16-representable) values.  Both
+    take the products of bf16 values exactly in fp32, so the port's results
+    are the fp32 ones rounded once to bf16: dx within half a bf16 ulp
+    relative (2^-8) of JAX's, plus 1e-6 absolute for the fp32 terms' own
+    rounding; the vector gradients, fp32 sums over H*W in another order
+    before that rounding, within one bf16 ulp relative (2^-7) plus 1e-5."""
+    x, mods = _epilogue_inputs(11, shape=(2, 24, 6, 5), nmod=nmod)
+    dy = np.random.RandomState(12).randn(*x.shape).astype(np.float32)
+    bf = lambda a: torch.from_numpy(a).bfloat16()
+    xt = _nchw(x).bfloat16()
+    mt = [bf(m) for m in mods]
+    dyt = _nchw(dy).bfloat16()
+    jax_plain = jax_fused.modulate_lrelu if nmod == 1 else jax_fused.double_modulate_lrelu
+    as32 = lambda t: t.float().numpy()
+    _, vjp = jax.vjp(jax_plain, jnp.asarray(_nhwc(xt)), *(jnp.asarray(as32(m)) for m in mt))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(_nhwc(dyt)))]
+    xt.requires_grad_()
+    for m in mt:
+        m.requires_grad_()
+    fn = fa.modulate_lrelu_kernel if nmod == 1 else fa.double_modulate_lrelu_kernel
+    got = torch.autograd.grad(fn(xt, *mt), (xt, *mt), dyt)
+    assert [g.dtype for g in got] == [torch.bfloat16] * (1 + 2 * nmod)
+    np.testing.assert_allclose(_nhwc(got[0]), want[0], rtol=BF16_ULP / 2, atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=BF16_ULP, atol=1e-5)
+
+
+def _path_shapes(config: str) -> list[tuple[int, int, int, int]]:
+    """The 14 epilogue inputs of one train step: the flagship_word step
+    (256², NCH=32, batch 128) or the LN-COCO one (NCH=96, batch 256)."""
+    if config == "flagship":
+        cfg = cfg_from_dict({"IMG": {"SIZE": 256}, "TEXT": {"ENCODER_DIR": ""}},
+                            base=cfg_from_file(str(CFG_DIR / "df_gan_damsm.yml")))
+        return epilogue_shapes(cfg, 128)
+    cfg = cfg_from_file(str(CFG_DIR / "ln_coco_256.yml"))
+    return epilogue_shapes(cfg, cfg.TRAIN.BATCH_SIZE)
+
+
+@pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("config", ["flagship", "ln"])
+def test_plan_bwd_takes_every_path_shape_on_the_vector_kernel(config, dtype, vec_dtype):
+    """Every epilogue input of both train steps (C a multiple of 8 each)
+    plans ``fused_affine_bwd_vec``, in both dtypes and with vectors of
+    either dtype: a block is a whole number of pixels (threads a multiple
+    of C / width, at most 256), the grid covers H*W exactly once per image
+    with runs of whole block steps, and the card holds several blocks a
+    multiprocessor."""
+    shapes = _path_shapes(config)
+    assert len(shapes) == 14
+    width = 16 // torch.empty((), dtype=dtype).element_size()
+    for b, c, h, w in shapes:
+        p = fa.plan_bwd(b, h * w, c, dtype, vec_dtype, (0, 256, 512), sms=132)
+        assert p.kernel == fa.BWD_VEC
+        lanes = c // width
+        assert p.threads % lanes == 0 and p.threads <= 256 and p.threads > 256 - lanes
+        rows = p.threads // lanes
+        assert p.run % rows == 0 and p.chunks * p.run >= h * w > (p.chunks - 1) * p.run
+        assert p.grid == (p.chunks, b, 1)
+        assert b * p.chunks >= min(132, b)
+        assert p.chunks <= max(1, math.ceil(132 * fa._BWD_BLOCKS_PER_SM / b))
+        assert fa.bwd_kernel_name(p, dtype, vec_dtype, 2).startswith("fused_affine_bwd_vec<")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_bwd_takes_the_scalar_kernel_at_its_edges(dtype):
+    """C = 13 (no multiple of the 16-byte width), x 2 bytes off a 16-byte
+    boundary, dy or dx off one, and a pixel wider than 256 chunks take
+    ``fused_affine_bwd_scalar``: 32 x 8 threads, one block column per 32
+    channels, runs of whole 8-pixel steps covering H*W."""
+    width = 16 // torch.empty((), dtype=dtype).element_size()
+    cases = [(4, 35, 13, (0, 0, 0)), (2, 36, 64, (2, 0, 0)), (2, 36, 64, (0, 4, 0)),
+             (2, 36, 64, (0, 0, 8)), (2, 9, 257 * width, (0, 0, 0))]
+    for b, hw, c, ptrs in cases:
+        p = fa.plan_bwd(b, hw, c, dtype, torch.bfloat16, ptrs, sms=132)
+        assert p.kernel == fa.BWD_SCALAR and p.threads == 256
+        assert p.grid[0] == math.ceil(c / 32) and p.grid[2] == b
+        assert p.run % 8 == 0 and p.chunks * p.run >= hw > (p.chunks - 1) * p.run
+        assert fa.bwd_kernel_name(p, dtype, torch.bfloat16, 1) == (
+            f"fused_affine_bwd_scalar<{'float' if dtype == torch.float32 else '__nv_bfloat16'}, "
+            "__nv_bfloat16, 1>")
+    assert fa.plan_bwd(2, 36, 64, dtype, dtype, (16, 32, 48), sms=132).kernel == fa.BWD_VEC
+
+
+def test_plan_bwd_raises_for_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="B <= 65535"):
+        fa.plan_bwd(70000, 16, 32, torch.float32, torch.float32, (0, 0, 0), sms=132)
+    with pytest.raises(ValueError, match="C >= 1"):
+        fa.plan_bwd(2, 16, 0, torch.float32, torch.float32, (0, 0, 0), sms=132)
+    with pytest.raises(ValueError, match="H\\*W"):
+        fa.plan_bwd(2, 2**29, 8, torch.float32, torch.float32, (0, 0, 0), sms=132)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.plan_bwd(2, 16, 32, torch.float16, torch.float32, (0, 0, 0), sms=132)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.plan_bwd(2, 16, 32, torch.float32, torch.float64, (0, 0, 0), sms=132)
+
+
+@pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nmod", [1, 2])
+def test_launch_bwd_hands_the_entry_the_plan(monkeypatch, nmod, vec_dtype):
+    """What ``_launch_bwd`` passes the C entry, with the library and the
+    stream faked: x, a channels_last dy and the vectors as they are (no
+    cast, no copy), one zeroed fp32 ``[2 * nmod, B, C]`` sums buffer, the
+    shape, both dtype codes and the plan's kernel and grid; the vector
+    gradients come back in the vectors' dtype, from that one buffer (one
+    cast for bf16 vectors, none for fp32).  A dy that is not channels_last
+    is copied once, and counted."""
+    calls, zeros = [], []
+
+    class Lib:
+        @staticmethod
+        def xmc_fused_affine_bwd(*args):
+            calls.append(args)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    real_zeros = torch.zeros
+
+    def counting_zeros(*args, **kwargs):
+        zeros.append((args, kwargs))
+        return real_zeros(*args, **kwargs)
+
+    monkeypatch.setattr(fa.KERNEL, "load", lambda: Lib)
+    monkeypatch.setattr(fa, "_multiprocessors", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
+    monkeypatch.setattr(torch, "zeros", counting_zeros)
+    b, c, h, w = 2, 24, 5, 3
+    x = torch.randn(b, h, w, c).permute(0, 3, 1, 2).bfloat16()
+    dy = torch.randn(b, h, w, c).permute(0, 3, 1, 2).bfloat16()
+    mods = tuple(torch.randn(b, c).to(vec_dtype) for _ in range(2 * nmod))
+    before, copies = fa.BACKWARD.launches, fa.DY_COPIES.launches
+    dx, *grads = fa._launch_bwd(x, mods, dy, 0.2)
+    args = calls[-1]
+    assert fa.BACKWARD.launches == before + 1 and fa.DY_COPIES.launches == copies
+    assert len(zeros) == 1 and zeros[0][0][0] == (2 * nmod, b, c)
+    assert zeros[0][1]["dtype"] == torch.float32
+    vecs = [m.data_ptr() for m in mods] * (2 // nmod)
+    assert args[:3] == (x.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    assert list(args[3:7]) == vecs
+    p = fa.plan_bwd(b, h * w, c, torch.bfloat16, vec_dtype,
+                    (x.data_ptr(), dy.data_ptr(), dx.data_ptr()), sms=132)
+    assert args[8:15] == (b, h * w, c, nmod, 1, fa._DTYPE_CODE[vec_dtype], pytest.approx(0.2))
+    assert args[15:19] == (fa._BWD_KERNEL_CODE[p.kernel], p.threads, p.chunks, p.run)
+    assert dx.dtype == torch.bfloat16 and dx.is_contiguous(memory_format=torch.channels_last)
+    assert len(grads) == 2 * nmod and {g.dtype for g in grads} == {vec_dtype}
+    storage = grads[0].untyped_storage().data_ptr()
+    assert all(g.untyped_storage().data_ptr() == storage for g in grads)
+    assert (storage == args[7]) == (vec_dtype == torch.float32)
+    assert all(bool((g == 0).all()) for g in grads)  # the fake adds nothing to the zeros
+    nchw = dy.contiguous()
+    fa._launch_bwd(x, mods, nchw, 0.2)
+    assert calls[-1][1] != nchw.data_ptr() and fa.DY_COPIES.launches == copies + 1
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -4,7 +4,8 @@
 //   modulate_lrelu_pallas         (NMOD = 1)  lrelu(g0 * x + b0)
 //   double_modulate_lrelu_pallas  (NMOD = 2)  lrelu(g1 * lrelu(g0 * x + b0) + b1)
 // over a channels_last activation, memory order [B, H*W, C], with the
-// modulation vectors g*/b* given as fp32 [B, C].  Math is fp32; the result is
+// modulation vectors g*/b* given as [B, C] (fp32 to the forward; fp32 or
+// bf16 to the backward).  Math is fp32; the result is
 // rounded once, on store, to x's type (fp32 or bf16), as the Pallas kernel does.
 //
 // Bound: bytes.  Every element is read once and written once and there is no
@@ -22,24 +23,37 @@
 // and the upstream dy it recomputes y0 = g0*x + b0 (and, for NMOD = 2,
 // y1 = g1*lrelu(y0) + b1) and writes dx, rounded once to x's type, and the
 // fp32 sums over H*W of dg0 = dy0*x, db0 = dy0 (dg1 = dy1*lrelu(y0),
-// db1 = dy1).  LeakyReLU's derivative at 0 is 1, as jnp.where(y >= 0, ...)
-// gives it.  Bound: bytes (x and dy read once, dx written once: 1.5x the
-// forward's traffic).  A block owns (b, 32 channels, a run of pixels) as 32 x
-// 8 threads: a warp reads 32 consecutive channels of one pixel, the 8 warps
-// walk the pixels.  The four [B, C] sums are reduced over the warps in
-// shared memory and then added with one fp32 atomicAdd per block and value
-// into zeroed [B, C] buffers: the runs per (b, c) are few (about 4 x 132 x 8
-// blocks spread over B x C / 32 channel tiles), so a second pass over a
-// scratch buffer would cost more than the atomics.  The order of those adds
-// varies from run to run (fp32 sums, not bit-reproducible).
+// db1 = dy1) into one zeroed fp32 buffer [2 * NMOD, B, C].  LeakyReLU's
+// derivative at 0 is 1, as jnp.where(y >= 0, ...) gives it.  The [B, C]
+// vectors are read in their own type V (fp32 or bf16), so the caller casts
+// nothing before the launch.  Bound: bytes (x and dy read once, dx written
+// once: 1.5x the forward's traffic, 6 bytes an element in bf16).  What
+// held the first design (one element a thread, 32 channels x 8 pixels a
+// block) at half the card's bandwidth in bf16: a warp load carried 64
+// bytes, so 8 resident blocks kept ~8 KB in flight an SM where ~18 KB is
+// needed at ~700 ns of DRAM latency, and each element paid a 64-bit index.
+// fused_affine_bwd_vec answers both: 16 bytes a thread and array, four
+// steps' loads issued before the first use (~64 KB in flight an SM at two
+// blocks of 256 threads), pointer increments in place of index arithmetic,
+// each thread on one fixed channel chunk so its vector values and sums stay
+// in registers.  Each block adds its sums with one fp32 atomicAdd a value
+// and channel; the order of those adds varies from run to run (fp32 sums,
+// not bit-reproducible).  fused_affine_bwd_scalar (one element a thread)
+// takes every other C and alignment.  Which of the two runs, and its grid,
+// is the caller's plan (ops/cuda/fused_affine.py plan_bwd); the C entry
+// refuses a launch that the named kernel does not take.
 //
 // C interface (bound with ctypes, pointers and stream as void*):
 //   int xmc_fused_affine(x, out, g0, b0, g1, b1, B, HW, C, nmod, dtype, slope, stream)
-//   int xmc_fused_affine_bwd(x, dy, dx, g0, b0, g1, b1, dg0, db0, dg1, db1,
-//                            B, HW, C, nmod, dtype, slope, stream)
-//   dtype 0 = fp32, 1 = bf16; g1/b1 (dg1/db1) are ignored when nmod == 1.
-//   dg*/db* are fp32 [B, C] and must hold zeros.
-//   Returns cudaGetLastError() after the launch (0 = success).
+//   int xmc_fused_affine_bwd(x, dy, dx, g0, b0, g1, b1, sums, B, HW, C, nmod, dtype,
+//                            vdtype, slope, kernel, threads, chunks, run, stream)
+//   dtype (x's) and vdtype (the vectors') 0 = fp32, 1 = bf16; g1/b1 are
+//   ignored when nmod == 1.  sums is fp32 [2 * nmod, B, C] (dg0, db0[, dg1,
+//   db1]) and must hold zeros.  kernel 0 = fused_affine_bwd_vec (grid
+//   (chunks, B), threads a block), 1 = fused_affine_bwd_scalar (grid
+//   (ceil(C / 32), chunks, B), 256 threads); each block walks run pixels.
+//   Returns cudaGetLastError() after the launch (0 = success), or
+//   cudaErrorInvalidValue for a launch that the named kernel does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -200,43 +214,170 @@ void launch(const void* x, void* out, const float* g0, const float* b0, const fl
   }
 }
 
-constexpr int kBwdCols = 32;  // channels per block: one warp-wide row
-constexpr int kBwdRows = 8;   // pixels walked in parallel: one per warp
+// ---- backward ----
 
-template <typename T, int NMOD>
+// One element of the backward chain from x and its upstream gradient da0
+// (for NMOD = 2, the gradient of the second modulation's output): adds its
+// terms to the thread's sums and returns dx in fp32.
+template <int NMOD>
+__device__ __forceinline__ float bwd_elem(float xv, float da0, float gg0, float bb0, float gg1,
+                                          float bb1, float slope, float& s_g0, float& s_b0,
+                                          float& s_g1, float& s_b1) {
+  const float y0 = affine_rn(gg0, xv, bb0);
+  if constexpr (NMOD == 2) {
+    const float a0 = lrelu(y0, slope);
+    const float d1 = affine_rn(gg1, a0, bb1) >= 0.f ? da0 : slope * da0;
+    s_g1 = fmaf(d1, a0, s_g1);
+    s_b1 += d1;
+    da0 = d1 * gg1;
+  }
+  const float d0 = y0 >= 0.f ? da0 : slope * da0;
+  s_g0 = fmaf(d0, xv, s_g0);
+  s_b0 += d0;
+  return d0 * gg0;
+}
+
+constexpr int kBwdThreads = 256;  // the vector kernel's widest block
+constexpr int kBwdUnroll = 4;     // pixel steps whose loads issue before the first use
+
+// 16 bytes of T as fp32 values, and back (bf16 packed in pairs: one
+// conversion instruction for two values, the same rounding as one by one).
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&v)[VEC]) {
+  const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) v[k] = to_f(t[k]);
+}
+template <typename T, int VEC>
+__device__ __forceinline__ uint4 pack16(const float (&v)[VEC]) {
+  uint4 raw;
+  if constexpr (sizeof(T) == 4) {
+    raw = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                     __float_as_uint(v[3]));
+  } else {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < VEC / 2; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  }
+  return raw;
+}
+
+// The backward over 16-byte vectors: VEC = 16 / sizeof(T) channels of one
+// pixel a thread and step.  Precondition (checked by the C entry): C % VEC
+// == 0, L = C / VEC chunks a pixel with blockDim.x a multiple of L and at
+// most kBwdThreads, x, dy and dx 16-byte aligned.  A block owns image
+// blockIdx.y and the pixels [blockIdx.x * run, + run) of it; thread t takes
+// chunk t % L of pixels t / L, + P, + 2P, ... (P = blockDim.x / L, so
+// neighbouring threads read neighbouring 16 bytes and a block-wide step
+// reads P whole pixels).  Its channels never change, so its [B, C] vector
+// values (read once, in V) and its 2 * NMOD * VEC fp32 sums stay in
+// registers.  kBwdUnroll steps' loads of x and dy issue before the first
+// use: 4 x 32 bytes in flight a thread.  At the end the block sums each
+// (value, channel) over its P rows in shared memory and adds it to
+// sums[value][b][c] with one fp32 atomicAdd, consecutive threads on
+// consecutive channels.
+template <typename T, typename V, int NMOD>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+fused_affine_bwd_vec(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                     const V* __restrict__ g0, const V* __restrict__ b0,
+                     const V* __restrict__ g1, const V* __restrict__ b1,
+                     float* __restrict__ sums, int B, int HW, int C, int run, float slope) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int KV = 2 * NMOD * VEC;  // the sums a thread keeps
+  constexpr int PAD = KV + 1;         // odd: a warp's shared-memory stores hit 32 banks
+  __shared__ float red[kBwdThreads * PAD];
+  const int L = C / VEC;
+  const int P = blockDim.x / L;
+  const int row = threadIdx.x / L;
+  const int j = threadIdx.x - row * L;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * run;
+  const int p1 = min(p0 + run, HW);
+  float gg0[VEC], bb0[VEC], gg1[VEC], bb1[VEC];
+  float s_g0[VEC], s_b0[VEC], s_g1[VEC], s_b1[VEC];
+  const size_t m = size_t(b) * C + size_t(j) * VEC;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    gg0[k] = to_f(g0[m + k]);
+    bb0[k] = to_f(b0[m + k]);
+    gg1[k] = NMOD == 2 ? to_f(g1[m + k]) : 0.f;
+    bb1[k] = NMOD == 2 ? to_f(b1[m + k]) : 0.f;
+    s_g0[k] = s_b0[k] = s_g1[k] = s_b1[k] = 0.f;
+  }
+  const size_t step = size_t(P) * C;  // elements between a thread's pixels
+  size_t off = (size_t(b) * HW + p0 + row) * C + size_t(j) * VEC;
+  for (int p = p0 + row; p < p1; p += kBwdUnroll * P, off += kBwdUnroll * step) {
+    uint4 xr[kBwdUnroll], dr[kBwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (p + u * P < p1) {
+        xr[u] = __ldg(reinterpret_cast<const uint4*>(x + off + u * step));
+        dr[u] = __ldg(reinterpret_cast<const uint4*>(dy + off + u * step));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      if (p + u * P < p1) {
+        float xv[VEC], dv[VEC];
+        unpack16<T>(xr[u], xv);
+        unpack16<T>(dr[u], dv);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          xv[k] = bwd_elem<NMOD>(xv[k], dv[k], gg0[k], bb0[k], gg1[k], bb1[k], slope, s_g0[k],
+                                 s_b0[k], s_g1[k], s_b1[k]);
+        *reinterpret_cast<uint4*>(dx + off + u * step) = pack16<T>(xv);
+      }
+    }
+  }
+  float* mine = red + threadIdx.x * PAD;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    mine[k] = s_g0[k];
+    mine[VEC + k] = s_b0[k];
+    if constexpr (NMOD == 2) {
+      mine[2 * VEC + k] = s_g1[k];
+      mine[3 * VEC + k] = s_b1[k];
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < 2 * NMOD * C; o += blockDim.x) {
+    const int v = o / C, c = o - v * C;  // value (dg0, db0, dg1, db1) and channel
+    const float* col = red + (c / VEC) * PAD + v * VEC + c % VEC;
+    float acc = 0.f;
+    for (int r = 0; r < P; ++r) acc += col[r * L * PAD];
+    atomicAdd(sums + (size_t(v) * B + b) * C + c, acc);
+  }
+}
+
+// One element a thread and step: any C, any alignment.  A block owns (image
+// b = blockIdx.z, 32 channels, a run of pixels) as 32 x 8 threads: a warp
+// reads 32 consecutive channels of one pixel, the 8 warps walk the pixels;
+// the sums are reduced over the warps in shared memory and added with one
+// atomicAdd a block, value and channel.
+constexpr int kBwdCols = 32;
+constexpr int kBwdRows = 8;
+
+template <typename T, typename V, int NMOD>
 __global__ void __launch_bounds__(kBwdCols * kBwdRows)
-fused_affine_bwd(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                 const float* __restrict__ g0, const float* __restrict__ b0,
-                 const float* __restrict__ g1, const float* __restrict__ b1,
-                 float* __restrict__ dg0, float* __restrict__ db0, float* __restrict__ dg1,
-                 float* __restrict__ db1, int64_t HW, int64_t C, int64_t pix_per_block,
-                 float slope) {
+fused_affine_bwd_scalar(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                        const V* __restrict__ g0, const V* __restrict__ b0,
+                        const V* __restrict__ g1, const V* __restrict__ b1,
+                        float* __restrict__ sums, int64_t B, int64_t HW, int64_t C,
+                        int64_t run, float slope) {
   __shared__ float red[4][kBwdRows][kBwdCols];
   const int64_t c = int64_t(blockIdx.x) * kBwdCols + threadIdx.x;
   const int64_t b = blockIdx.z;
-  const int64_t p0 = int64_t(blockIdx.y) * pix_per_block;
-  const int64_t p1 = p0 + pix_per_block < HW ? p0 + pix_per_block : HW;
+  const int64_t p0 = int64_t(blockIdx.y) * run;
+  const int64_t p1 = p0 + run < HW ? p0 + run : HW;
   float s_g0 = 0.f, s_b0 = 0.f, s_g1 = 0.f, s_b1 = 0.f;
   if (c < C) {
     const int64_t m = b * C + c;
-    const float gg0 = g0[m], bb0 = b0[m];
-    const float gg1 = NMOD == 2 ? g1[m] : 0.f, bb1 = NMOD == 2 ? b1[m] : 0.f;
+    const float gg0 = to_f(g0[m]), bb0 = to_f(b0[m]);
+    const float gg1 = NMOD == 2 ? to_f(g1[m]) : 0.f, bb1 = NMOD == 2 ? to_f(b1[m]) : 0.f;
     for (int64_t p = p0 + threadIdx.y; p < p1; p += kBwdRows) {
       const int64_t e = (b * HW + p) * C + c;
-      const float xv = to_f(x[e]);
-      float da0 = to_f(dy[e]);
-      const float y0 = affine_rn(gg0, xv, bb0);
-      if constexpr (NMOD == 2) {
-        const float a0 = lrelu(y0, slope);
-        const float d1 = affine_rn(gg1, a0, bb1) >= 0.f ? da0 : slope * da0;
-        s_g1 = fmaf(d1, a0, s_g1);
-        s_b1 += d1;
-        da0 = d1 * gg1;
-      }
-      const float d0 = y0 >= 0.f ? da0 : slope * da0;
-      s_g0 = fmaf(d0, xv, s_g0);
-      s_b0 += d0;
-      dx[e] = from_f<T>(d0 * gg0);
+      dx[e] = from_f<T>(bwd_elem<NMOD>(to_f(x[e]), to_f(dy[e]), gg0, bb0, gg1, bb1, slope,
+                                       s_g0, s_b0, s_g1, s_b1));
     }
   }
   red[0][threadIdx.y][threadIdx.x] = s_g0;
@@ -248,63 +389,78 @@ fused_affine_bwd(const T* __restrict__ x, const T* __restrict__ dy, T* __restric
     float acc = 0.f;
 #pragma unroll
     for (int r = 0; r < kBwdRows; ++r) acc += red[threadIdx.y][r][threadIdx.x];
-    float* dst[4] = {dg0, db0, dg1, db1};
-    atomicAdd(dst[threadIdx.y] + b * C + c, acc);
+    atomicAdd(sums + (threadIdx.y * B + b) * C + c, acc);
   }
 }
 
-template <typename T, int NMOD>
-void launch_bwd(const void* x, const void* dy, void* dx, const float* g0, const float* b0,
-                const float* g1, const float* b1, float* dg0, float* db0, float* dg1,
-                float* db1, int64_t B, int64_t HW, int64_t C, float slope,
-                cudaStream_t stream) {
-  static int target = 0;  // blocks that fill the card: 8 resident per SM
-  if (target == 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    target = sms * 8;
+enum BwdKernel { kBwdVec = 0, kBwdScalar = 1 };
+
+// The launch the plan named, or cudaErrorInvalidValue where the named kernel
+// does not take it (nothing runs then).
+template <typename T, typename V, int NMOD>
+int launch_bwd(const void* x, const void* dy, void* dx, const void* const* vecs, float* sums,
+               int64_t B, int64_t HW, int64_t C, float slope, int kernel, int threads,
+               int64_t chunks, int64_t run, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  const V* v[4];
+  for (int i = 0; i < 4; ++i) v[i] = static_cast<const V*>(vecs[i]);
+  if (kernel == kBwdVec) {
+    constexpr int VEC = 16 / sizeof(T);
+    const int64_t L = C / VEC;
+    // pixel indices run up to chunks * run plus a loop turn's steps, in int
+    bool ok = C % VEC == 0 && threads >= L && threads <= kBwdThreads && threads % L == 0 &&
+              chunks * run + int64_t(kBwdUnroll) * threads < INT32_MAX && C <= INT32_MAX;
+    for (const void* p : {x, dy, static_cast<const void*>(dx)})
+      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    fused_affine_bwd_vec<T, V, NMOD><<<dim3(unsigned(chunks), unsigned(B)), threads, 0, stream>>>(
+        xt, dyt, dxt, v[0], v[1], v[2], v[3], sums, int(B), int(HW), int(C), int(run), slope);
+  } else if (kernel == kBwdScalar) {
+    const int64_t ctiles = (C + kBwdCols - 1) / kBwdCols;
+    if (threads != kBwdCols * kBwdRows || chunks > 65535 || ctiles > INT32_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    fused_affine_bwd_scalar<T, V, NMOD>
+        <<<dim3(unsigned(ctiles), unsigned(chunks), unsigned(B)), dim3(kBwdCols, kBwdRows), 0,
+           stream>>>(xt, dyt, dxt, v[0], v[1], v[2], v[3], sums, B, HW, C, run, slope);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t ctiles = (C + kBwdCols - 1) / kBwdCols;
-  int64_t chunks = (target + B * ctiles - 1) / (B * ctiles);
-  int64_t ppb = (HW + chunks - 1) / chunks;
-  ppb = (ppb + kBwdRows - 1) / kBwdRows * kBwdRows;
-  chunks = (HW + ppb - 1) / ppb;
-  dim3 grid(static_cast<unsigned>(ctiles), static_cast<unsigned>(chunks),
-            static_cast<unsigned>(B));
-  dim3 block(kBwdCols, kBwdRows);
-  fused_affine_bwd<T, NMOD><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), g0, b0, g1, b1,
-      dg0, db0, dg1, db1, HW, C, ppb, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename V>
+int launch_bwd_nmod(int nmod, const void* x, const void* dy, void* dx, const void* const* vecs,
+                    float* sums, int64_t B, int64_t HW, int64_t C, float slope, int kernel,
+                    int threads, int64_t chunks, int64_t run, cudaStream_t stream) {
+  if (nmod == 1)
+    return launch_bwd<T, V, 1>(x, dy, dx, vecs, sums, B, HW, C, slope, kernel, threads, chunks,
+                               run, stream);
+  return launch_bwd<T, V, 2>(x, dy, dx, vecs, sums, B, HW, C, slope, kernel, threads, chunks,
+                             run, stream);
 }
 
 }  // namespace
 
 extern "C" int xmc_fused_affine_bwd(const void* x, const void* dy, void* dx, const void* g0,
-                                    const void* b0, const void* g1, const void* b1, void* dg0,
-                                    void* db0, void* dg1, void* db1, int64_t B, int64_t HW,
-                                    int64_t C, int nmod, int dtype, float slope,
-                                    void* stream) {
-  if (B * HW * C == 0) return 0;
-  if (nmod != 1 && nmod != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);  // grid.z
-  const float* f[4] = {static_cast<const float*>(g0), static_cast<const float*>(b0),
-                       static_cast<const float*>(g1), static_cast<const float*>(b1)};
-  float* o[4] = {static_cast<float*>(dg0), static_cast<float*>(db0), static_cast<float*>(dg1),
-                 static_cast<float*>(db1)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define XMC_FA_BWD(T, N)                                                                \
-  launch_bwd<T, N>(x, dy, dx, f[0], f[1], f[2], f[3], o[0], o[1], o[2], o[3], B, HW, C, \
-                   slope, s)
-  if (dtype == 0) {
-    if (nmod == 1) XMC_FA_BWD(float, 1); else XMC_FA_BWD(float, 2);
-  } else if (dtype == 1) {
-    if (nmod == 1) XMC_FA_BWD(__nv_bfloat16, 1); else XMC_FA_BWD(__nv_bfloat16, 2);
-  } else {
+                                    const void* b0, const void* g1, const void* b1, void* sums,
+                                    int64_t B, int64_t HW, int64_t C, int nmod, int dtype,
+                                    int vdtype, float slope, int kernel, int threads,
+                                    int64_t chunks, int64_t run, void* stream) {
+  if (B < 1 || HW < 1 || C < 1 || B > 65535 || chunks < 1 || run < 1 || chunks * run < HW ||
+      (nmod != 1 && nmod != 2) || (dtype != 0 && dtype != 1) || (vdtype != 0 && vdtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const void* vecs[4] = {g0, b0, g1, b1};
+  float* s = static_cast<float*>(sums);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define XMC_FA_BWD(T, V) \
+  launch_bwd_nmod<T, V>(nmod, x, dy, dx, vecs, s, B, HW, C, slope, kernel, threads, chunks, run, st)
+  if (dtype == 0)
+    return vdtype == 0 ? XMC_FA_BWD(float, float) : XMC_FA_BWD(float, __nv_bfloat16);
+  return vdtype == 0 ? XMC_FA_BWD(__nv_bfloat16, float)
+                     : XMC_FA_BWD(__nv_bfloat16, __nv_bfloat16);
 #undef XMC_FA_BWD
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int xmc_fused_affine(const void* x, void* out, const void* g0, const void* b0,

@@ -19,7 +19,15 @@ Contract of both wrappers:
   only G runs the epilogue, and the gradient penalty differentiates D
   alone).  The backward saves ``x`` and the vectors, recomputes the chain's
   intermediate and returns ``dx`` in ``x.dtype`` and each vector's gradient,
-  summed over H*W in fp32, in that vector's dtype.
+  summed over H*W in fp32, in that vector's dtype.  Its kernel reads the
+  vectors in their own dtype (fp32 or bf16) and sums into one zeroed fp32
+  ``[2 * nmod, B, C]`` buffer, cast once to the vectors' dtype; ``dy`` is
+  copied only when it is not channels_last already (``DY_COPIES`` counts
+  those copies).
+* One rule, ``plan_bwd``, names the backward kernel (``fused_affine_bwd_vec``,
+  16 bytes a thread, or ``fused_affine_bwd_scalar``, one element) and its
+  grid from the shape, the dtypes and the pointers, before any launch; the
+  C entry refuses a launch that the named kernel does not take.
 * A CPU tensor goes to the plain versions below; a CUDA tensor launches the
   kernels or raises.  There is no fallback from one to the other.
 """
@@ -27,6 +35,9 @@ Contract of both wrappers:
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -37,6 +48,12 @@ __all__ = [
     "KERNEL",
     "FORWARD",
     "BACKWARD",
+    "DY_COPIES",
+    "BWD_VEC",
+    "BWD_SCALAR",
+    "BwdPlan",
+    "plan_bwd",
+    "bwd_kernel_name",
     "modulate_lrelu_kernel",
     "double_modulate_lrelu_kernel",
     "modulate_lrelu_ref",
@@ -44,18 +61,33 @@ __all__ = [
     "fused_affine_bwd_ref",
 ]
 
-_TAIL = [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # int xmc_fused_affine(x, out, g0, b0, g1, b1, B, HW, C, nmod, dtype, slope, stream)
-# int xmc_fused_affine_bwd(x, dy, dx, g0, b0, g1, b1, dg0, db0, dg1, db1,
-#                          B, HW, C, nmod, dtype, slope, stream)
+# int xmc_fused_affine_bwd(x, dy, dx, g0, b0, g1, b1, sums, B, HW, C, nmod, dtype,
+#                          vdtype, slope, kernel, threads, chunks, run, stream)
 KERNEL = CudaLibrary("fused_affine.cu", {
-    "xmc_fused_affine": (ctypes.c_int, [ctypes.c_void_p] * 6 + _TAIL),
-    "xmc_fused_affine_bwd": (ctypes.c_int, [ctypes.c_void_p] * 11 + _TAIL),
+    "xmc_fused_affine": (_I, [_P] * 6 + [_L] * 3 + [_I, _I, ctypes.c_float, _P]),
+    "xmc_fused_affine_bwd": (_I, [_P] * 8 + [_L] * 3 + [_I] * 3 + [ctypes.c_float, _I, _I]
+                             + [_L] * 2 + [_P]),
 })
 FORWARD = LaunchCount()
 BACKWARD = LaunchCount()
+DY_COPIES = LaunchCount()  # copies of dy that the backward's wrapper makes (one kernel each)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+BWD_VEC, BWD_SCALAR = "fused_affine_bwd_vec", "fused_affine_bwd_scalar"
+_BWD_KERNEL_CODE = {BWD_VEC: 0, BWD_SCALAR: 1}
+# csrc/fused_affine.cu: the vector kernel's widest block (kBwdThreads) and
+# its steps a loop turn (kBwdUnroll); the scalar kernel's 32 x 8 block
+_BWD_THREADS, _BWD_UNROLL = 256, 4
+_SCALAR_COLS, _SCALAR_ROWS = 32, 8
+# a launch aims at this many blocks a multiprocessor; the vector kernel's
+# blocks keep at least this many loop turns a thread where H*W allows, so
+# that a block's flush (one atomicAdd a value and channel) stays small
+# beside its loads
+_BWD_BLOCKS_PER_SM, _BWD_MIN_TURNS = 32, 4
+_MAX_GRID_YZ = 65535
 
 
 def _lrelu(y: torch.Tensor, slope: float) -> torch.Tensor:
@@ -103,6 +135,63 @@ def fused_affine_bwd_ref(x: torch.Tensor, mods: tuple[torch.Tensor, ...], dy: to
     return (dx, *(s.to(m.dtype) for s, m in zip(sums, mods)))
 
 
+class BwdPlan(NamedTuple):
+    """What one backward launch runs: the kernel, its threads a block, its
+    grid (``fused_affine_bwd_vec``: ``(chunks, B, 1)``; ``_scalar``:
+    ``(ceil(C / 32), chunks, B)``) and the pixels of one image a block
+    walks (``run``)."""
+    kernel: str
+    threads: int
+    grid: tuple[int, int, int]
+    run: int
+
+    @property
+    def chunks(self) -> int:
+        return self.grid[0] if self.kernel == BWD_VEC else self.grid[1]
+
+
+def plan_bwd(B: int, HW: int, C: int, dtype: torch.dtype, vec_dtype: torch.dtype,
+             ptrs: tuple[int, ...], sms: int) -> BwdPlan:
+    """The one rule: which backward kernel a CUDA call at ``x [B, C, H, W]``
+    (``HW = H * W``) of ``dtype`` with ``[B, C]`` vectors of ``vec_dtype``
+    launches, and its grid, on a card of ``sms`` multiprocessors (the
+    wrapper passes the card's count).  ``ptrs``
+    are the addresses of x, dy and dx.  ``fused_affine_bwd_vec`` where C is
+    a multiple of the 16-byte width (4 fp32 or 8 bf16 channels), a pixel is
+    at most 256 such chunks and every pointer is 16-byte aligned; else
+    ``fused_affine_bwd_scalar``.  Raises for a shape that no kernel takes."""
+    if dtype not in _DTYPE_CODE or vec_dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_affine backward takes float32 or bfloat16 x and vectors, got "
+                        f"{dtype}, {vec_dtype}")
+    if min(B, HW, C) < 1 or B > _MAX_GRID_YZ or HW >= 2**29:
+        raise ValueError(f"fused_affine backward takes 1 <= B <= {_MAX_GRID_YZ}, 1 <= H*W < "
+                         f"2^29 and C >= 1, got B={B}, H*W={HW}, C={C}")
+    width = 16 // torch.empty((), dtype=dtype).element_size()
+    target = sms * _BWD_BLOCKS_PER_SM
+    if C % width == 0 and C // width <= _BWD_THREADS and all(p % 16 == 0 for p in ptrs):
+        chunk_threads = C // width  # L: threads a pixel
+        rows = _BWD_THREADS // chunk_threads  # P: pixels a block steps at once
+        chunks = max(1, min(math.ceil(target / B), HW // (rows * _BWD_UNROLL * _BWD_MIN_TURNS)))
+        run = math.ceil(math.ceil(HW / chunks) / rows) * rows
+        return BwdPlan(BWD_VEC, rows * chunk_threads, (math.ceil(HW / run), B, 1), run)
+    ctiles = math.ceil(C / _SCALAR_COLS)
+    chunks = math.ceil(target / (B * ctiles))
+    run = math.ceil(math.ceil(HW / chunks) / _SCALAR_ROWS) * _SCALAR_ROWS
+    return BwdPlan(BWD_SCALAR, _SCALAR_COLS * _SCALAR_ROWS, (ctiles, math.ceil(HW / run), B),
+                   run)
+
+
+def bwd_kernel_name(p: BwdPlan, dtype: torch.dtype, vec_dtype: torch.dtype, nmod: int) -> str:
+    """The planned backward kernel as the profiler names its template instance."""
+    t = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+    return f"{p.kernel}<{t[dtype]}, {t[vec_dtype]}, {nmod}>"
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(x: torch.Tensor, mods: tuple[torch.Tensor, ...]) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be NCHW, got shape {tuple(x.shape)}")
@@ -138,26 +227,45 @@ def _launch(x: torch.Tensor, mods: tuple[torch.Tensor, ...], slope: float) -> to
     return out
 
 
-def _launch_bwd(x: torch.Tensor, mods: tuple[torch.Tensor, ...], dy: torch.Tensor,
-                slope: float) -> tuple[torch.Tensor, ...]:
+def _launch_bwd_sums(x: torch.Tensor, mods: tuple[torch.Tensor, ...], dy: torch.Tensor,
+                     slope: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The planned backward kernel: ``(dx, sums)``, ``sums`` the fp32
+    ``[2 * nmod, B, C]`` buffer (dg0, db0[, dg1, db1]) it adds into."""
     fn = KERNEL.load().xmc_fused_affine_bwd
     nmod = len(mods) // 2
-    vecs = [m.float().contiguous() for m in mods]
-    sums = [torch.zeros(m.shape, device=x.device, dtype=torch.float32) for m in mods]
-    if nmod == 1:  # g1/b1 and their sums are not touched when nmod == 1
-        vecs, sums = vecs + vecs, sums + sums
-    dy = dy.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    vdt = mods[0].dtype
+    if vdt not in _DTYPE_CODE or any(m.dtype != vdt for m in mods):
+        mods, vdt = tuple(m.float() for m in mods), torch.float32
+    vecs = [m.contiguous() for m in mods]
+    if nmod == 1:
+        vecs += vecs  # g1/b1 are not read when nmod == 1
+    if dy.dtype != x.dtype or not dy.is_contiguous(memory_format=torch.channels_last):
+        dy = dy.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        DY_COPIES.launches += 1
     dx = torch.empty_like(x)
     b, c, h, w = x.shape
+    p = plan_bwd(b, h * w, c, x.dtype, vdt, (x.data_ptr(), dy.data_ptr(), dx.data_ptr()),
+                 _multiprocessors(x.device.index))
+    sums = torch.zeros((2 * nmod, b, c), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *[v.data_ptr() for v in vecs],
-                *[t.data_ptr() for t in sums], b, h * w, c, nmod, _DTYPE_CODE[x.dtype], slope,
-                stream)
+                sums.data_ptr(), b, h * w, c, nmod, _DTYPE_CODE[x.dtype], _DTYPE_CODE[vdt],
+                slope, _BWD_KERNEL_CODE[p.kernel], p.threads, p.chunks, p.run, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_affine backward launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused_affine backward launch failed ({p}): CUDA error {rc}")
     BACKWARD.launches += 1
-    return (dx, *(t.to(m.dtype) for t, m in zip(sums, mods)))
+    return dx, sums
+
+
+def _launch_bwd(x: torch.Tensor, mods: tuple[torch.Tensor, ...], dy: torch.Tensor,
+                slope: float) -> tuple[torch.Tensor, ...]:
+    """``(dx, dg0, db0[, dg1, db1])``: the planned kernel, then one cast of
+    its sums to the vectors' dtype (none for fp32 vectors)."""
+    dx, sums = _launch_bwd_sums(x, mods, dy, slope)
+    if len({m.dtype for m in mods}) == 1:
+        sums = sums.to(mods[0].dtype)
+    return (dx, *(s.to(m.dtype) for s, m in zip(sums.unbind(0), mods)))
 
 
 class _FusedAffine(torch.autograd.Function):
