@@ -11,9 +11,10 @@ Phases (any failure raises, and the exit code is then non-zero):
 3. Each kernel against its plain PyTorch version on the card: the
    ``fused_affine`` forward and backward (both forms, fp32 and bf16) at the
    14 epilogue shapes of the 256², NCH=32, batch-128 generator, at the
-   LN-COCO step's 14 at its own batch of 256 (the plain versions a few
-   images at a time) plus a ragged one, the backward with fp32 and with
-   bf16 vectors, each launch on the kernel and grid ``plan_bwd`` gives the
+   LN-COCO step's 14 at its own batch of 256 and, in fp32 with fp32
+   vectors, at the fp32 LN-COCO step's 14 at batch 128 (the plain versions
+   a few images at a time) plus a ragged one, the backward with fp32 and
+   with bf16 vectors, each launch on the kernel and grid ``plan_bwd`` gives the
    step (``fused_affine_bwd_vec`` at every path width), and the single form through its wrapper at the distinct
    ``modulate_lrelu`` shapes of a 256² concept-DF request at batch 128 (128
    channels, up to 2^30 elements); the ``damsm_score`` forward, d_regions and d_words at the flagship
@@ -24,7 +25,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    (captions longer than a kernel of the route takes as sub-captions), each
    launch's kernel the one the route rule names; fp32 also at its own edges
    (``DAMSM_F32_EDGES``: D = 42; T = 64 as two 48-slot sub-captions, the
-   packed d_regions' rows; T = 64 unsplit at R = 300); the bf16
+   packed d_regions' rows; T = 64 unsplit at R = 300; R = 300 at D = 768,
+   the CUDA-core kernels' 256-column chunks); the bf16
    forward and d_regions, which run on the tensor cores (``mma.sync``;
    d_words runs on the CUDA cores), and the fp32 forward and d_regions
    (CUDA cores, packed real words, regions streamed), also
@@ -33,15 +35,17 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``damsm_score`` kernels at the LN-COCO word shape (B = Bc = 256, R = 256,
    T = 200, D = 768: each caption's real words packed into 16-slot
    sub-captions, as many as the longest caption needs) in fp32 and
-   bf16 through ``damsm_scores`` against the plain version on the whole
+   bf16, and in fp32 at the fp32 step's B = Bc = 128 (``LN_CHECKS``), through ``damsm_scores`` against the plain version on the whole
    captions, with an all-padded caption (its score bit-equal to the plain
    value, no d_words), two runs bit-equal, and the profiler's kernel names
    showing each kernel's route (at D = 768 the bf16 forward and d_regions
-   on the tensor cores with the regions streamed, everything else on the
-   CUDA cores); the streamed bf16 forward and d_regions also at their edges
-   (``DAMSM_STREAMED``: D = 520, 770 and 1024, through ``damsm_scores``)
+   on the tensor cores with the regions streamed, the fp32 ones on the
+   wide packed kernels, the d_words on the CUDA cores), the all-padded
+   caption's cotangent moving no d_regions; the forward and d_regions above
+   D = 256 also at their edges in both dtypes (``DAMSM_STREAMED``: D = 520,
+   770 and 1024, through ``damsm_scores``; bf16 streamed, fp32 wide)
    against the plain version, the all-padded caption's score the plain
-   value, twice bit-equal; the
+   value, twice bit-equal, its cotangent moving nothing; the
    ``cross_attention`` kernels through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
@@ -88,11 +92,14 @@ Phases (any failure raises, and the exit code is then non-zero):
    kernels by name.  Then the LN-COCO step (``ln_coco_256.yml`` as it
    stands: NCH=96, NOISE_DIM=128, batch 256, T = 200, word D = 768,
    synthetic embeddings, about half the word slots real, one all-padded
-   caption) in bf16: 1 counted warm-up step (the launches asserted as
-   above, the damsm forward and d_regions on the tensor cores with the
-   regions streamed), 2 timed, 1
-   profiled; prints the step ms, images/s, peak memory and the ten
-   largest kernels.
+   caption) in bf16, and in fp32 (TF32 off) at batch 128
+   (``LN_FP32_BATCH``: 256 does not fit the card in fp32): 1 counted
+   warm-up step each (the launches asserted as above, the damsm forward and
+   d_regions in bf16 on the tensor cores with the regions streamed, in fp32
+   on the wide packed kernels, 2 launches each by the profiler's names), 2
+   timed, 1 profiled; prints the step ms, images/s, peak memory, the
+   device ms by category (``damsm_score`` among them) and the ten largest
+   kernels.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs; for the
@@ -100,8 +107,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    cross_attention also ``kernel_ms``, the profiler's device time of the
    kernels alone (the events' time holds the host's between launches),
    traced after phase 3, as one
-   ``{"kernels": [...]}`` line; the damsm kernels at the flagship and at
-   the LN word shape (2 timed launches there).
+   ``{"kernels": [...]}`` line; the ``fused_affine`` backward also at the
+   LN-COCO bf16 step's 14 inputs (each shape alone); the damsm kernels at
+   the flagship and at the word shape of each LN step (``LN_STEP_SHAPES``:
+   fp32 at batch 128, bf16 at 256; 2 timed launches there; their launches
+   those of that step).
 8. Last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  The weights are random (from
@@ -267,26 +277,42 @@ DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, 
 # caption 0 whole, so every caption goes as two 48-slot sub-captions
 # (the packed d_regions' rows) combined by logsumexp; T = 64 at R = 300 with
 # captions of at most 2 words, unsplit: every fp32 kernel on the CUDA cores
-# at 64 rows, whole 16-row tiles without a word
+# at 64 rows, whole 16-row tiles without a word; R = 300 at D = 768, where
+# the packed kernels stop and the CUDA-core ones take 256-column chunks
 DAMSM_F32_EDGES = [((132, 6, 40, 11, 42), True, None, False),
                    ((132, 5, 50, 64, 40), True, None, True),
-                   ((132, 3, 300, 64, 40), False, 2, False)]
+                   ((132, 3, 300, 64, 40), False, 2, False),
+                   ((4, 5, 300, 20, 768), True, None, False)]
 REGIONS = 256  # DF_DISC's region head, always its 16x16 stage
 # the LN-COCO word shape (ln_coco_256.yml: batch 256, MAX_LENGTH 200,
 # EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256: the bf16 forward and
-# d_regions run on the tensor cores with the regions streamed, every other
-# launch on the CUDA cores
+# d_regions run on the tensor cores with the regions streamed, the fp32 ones
+# on the wide packed kernels (the context in 256-feature groups), the
+# d_words on the CUDA cores
 DAMSM_LN = (256, 256, REGIONS, 200, 768)
-# the streamed bf16 forward and d_regions, as the profiler names them
-STREAMED_KERNELS = ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<")
-LN_KERNELS = {None: ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float"),
-              torch.bfloat16: STREAMED_KERNELS}
+# the forward and d_regions at 256 < D <= 1024 by compute dtype, as the
+# profiler names them: bf16 streamed on the tensor cores, fp32 wide packed
+LN_KERNELS = {None: ("damsm_fwd_f32w_kernel<", "damsm_bwd_dr_f32w_kernel<"),
+              torch.bfloat16: ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<")}
+# the LN-COCO fp32 step's batch: ln_coco_256.yml's 256 needs ~130 GiB in
+# fp32; 128 takes 72.42 GiB of an H100's 80 GB
+LN_FP32_BATCH = 128
+# the word shape of phase 6's LN-COCO step in each compute dtype, at which
+# phase 7 times the kernels whose launches it reports
+LN_STEP_SHAPES = {None: (LN_FP32_BATCH, LN_FP32_BATCH, REGIONS, 200, 768),
+                  torch.bfloat16: DAMSM_LN}
+# phase 3's LN checks (shape, compute dtype): the LN word shape in both
+# dtypes, and the fp32 step's own
+LN_CHECKS = [(DAMSM_LN, None), (DAMSM_LN, torch.bfloat16), (LN_STEP_SHAPES[None], None)]
 # (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
-# streamed bf16 forward's and d_regions' edges (64-column region chunks, 16
-# or 32 word rows a pass), through ``damsm_scores``: D = 520 (a partial last
-# chunk, no multiple of 16) with R = 50; D = 770 (rows not 16-byte aligned:
-# plain loads instead of cp.async) with an all-padded caption inside a pass;
-# D = 1024 (d_regions: 16-row passes) with captions of at most 2 words
+# edges at 256 < D <= 1024 of the streamed bf16 forward and d_regions
+# (64-column region chunks, 16 or 32 word rows a pass) and of the wide fp32
+# ones (32-column and 32-row chunks, 256-feature groups, 32 or 24 rows a
+# pass), through ``damsm_scores``: D = 520 (a partial last chunk and group,
+# no multiple of 16) with R = 50; D = 770 (rows not 16-byte aligned: plain
+# loads instead of cp.async) with an all-padded caption inside a pass;
+# D = 1024 (bf16 d_regions: 16-row passes; fp32: 24) with captions of at
+# most 2 words
 DAMSM_STREAMED = [((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), True, None),
                   ((132, 3, 256, 64, 1024), False, 2)]
 # the plain version at the LN shape streams caption blocks of this many fp32
@@ -294,15 +320,21 @@ DAMSM_STREAMED = [((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), T
 LN_PLAIN_BLOCK = 2**28
 
 
+# the packed kernels' routes as a row of the ``kernels`` line names them, by
+# the profiler name's end (``ds.kernel_name``); every other kernel: CUDA cores
+ROUTE_LABELS = {"_tc_kernel<": "tensor cores (mma.sync)",
+                "_tcs_kernel<": "tensor cores (mma.sync), regions streamed",
+                "_f32_kernel<": "CUDA cores, packed real words, regions streamed",
+                "_f32w_kernel<": "CUDA cores, packed real words, regions streamed, context in "
+                                 "256-feature groups"}
+
+
 def route_label(which: str, R: int, D: int, cd) -> str:
     """The route of one kernel (``which``: "fwd", "dr" or "dw") as a row of
-    the ``kernels`` line names it (``ds.route``)."""
-    rt = ds.route(which, R, D, cd)
-    if rt == ds.PACKED_FP32:
-        return "CUDA cores, packed real words, regions streamed"
-    if rt == ds.CUDA_CORES:
-        return "CUDA cores"
-    return "tensor cores (mma.sync)" + (", regions streamed" if D > ds.TC_MAX_RD else "")
+    the ``kernels`` line names it, from the kernel ``ds.kernel_name`` names."""
+    name = ds.kernel_name(which, R, D, cd)
+    return next((label for end, label in ROUTE_LABELS.items() if name.endswith(end)),
+                "CUDA cores")
 
 
 def log(msg: str) -> None:
@@ -482,16 +514,18 @@ def damsm_inputs(shape, gen, allpad: bool, max_len: int | None = None, full: boo
     return r, w, mask, up
 
 
-def check_epilogue(shapes, ln_shapes) -> dict:
+def check_epilogue(shapes, ln_shapes, ln32_shapes) -> dict:
     """Phase 3, fused_affine: forward and backward, both forms, both dtypes,
     at every epilogue input of the flagship step and of the LN-COCO step
-    (``ln_shapes``, at its own batch), the plain versions a few images at a
-    time (``PLAIN_ELEMS``); the backward with fp32 and with bf16 vectors
-    (G's bf16 step hands them over in bf16), its fp32 sums held to the plain
-    version's before their one cast, and each launch the one that
-    ``plan_bwd`` gives the step at that shape (the vector kernel at every
-    path width, the scalar one at the ragged shape): phase 6 holds the
-    step's launches to that plan by the profiler's names and grids."""
+    (``ln_shapes``, at its own batch), and in fp32 with fp32 vectors at those
+    of the fp32 LN-COCO step (``ln32_shapes``, at ``LN_FP32_BATCH``: another
+    grid), the plain versions a few images at a time (``PLAIN_ELEMS``); the
+    backward with fp32 and with bf16 vectors (G's bf16 step hands them over
+    in bf16), its fp32 sums held to the plain version's before their one
+    cast, and each launch the one that ``plan_bwd`` gives the step at that
+    shape (the vector kernel at every path width, the scalar one at the
+    ragged shape): phase 6 holds the step's launches to that plan by the
+    profiler's names and grids."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     ragged = (3, 13, 7, 9)  # C not a multiple of the vector width, H*W odd
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -501,7 +535,11 @@ def check_epilogue(shapes, ln_shapes) -> dict:
         dx_rtol = BWD_TOL["dx_rtol"] if dtype == torch.float32 else BF16_ULP
         worst = {"fwd1": 0.0, "fwd2": 0.0, "bwd1": 0.0, "bwd2": 0.0}
         kernels = set()
-        for shape in [*shapes, *ln_shapes, ragged]:
+        both = (torch.float32, torch.bfloat16)
+        cases = [(s, both) for s in [*shapes, *ln_shapes, ragged]]
+        if dtype == torch.float32:
+            cases += [(s, (torch.float32,)) for s in ln32_shapes]
+        for shape, vdts in cases:
             b, c, h, w = shape
             x, mods = epilogue_inputs(shape, dtype, gen)
             dy = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(
@@ -521,7 +559,7 @@ def check_epilogue(shapes, ln_shapes) -> dict:
                                               (got_i - want).abs().max().item())
                     del got_i, want
                 del got
-                for vdt in (torch.float32, torch.bfloat16):
+                for vdt in vdts:
                     mv = tuple(t.to(vdt) for t in m)
                     got_dx, got_sums = fa._launch_bwd_sums(x, mv, dy, 0.2)
                     p = fa.plan_bwd(b, h * w, c, dtype, vdt, (x.data_ptr(), dy.data_ptr(),
@@ -555,7 +593,9 @@ def check_epilogue(shapes, ln_shapes) -> dict:
         log(f"[3] fused_affine {DTYPE_NAME[dtype]}: max_abs_err forward 1-mod {worst['fwd1']:.3g}, "
             f"2-mod {worst['fwd2']:.3g}; backward (fp32 and bf16 vectors) 1-mod "
             f"{worst['bwd1']:.3g}, 2-mod {worst['bwd2']:.3g} over {len(shapes)} flagship shapes, "
-            f"{len(ln_shapes)} LN-COCO ones (batch {ln_shapes[0][0]}) + ragged {ragged} "
+            f"{len(ln_shapes)} LN-COCO ones (batch {ln_shapes[0][0]}"
+            + (f"; fp32 with fp32 vectors also at batch {ln32_shapes[0][0]}"
+               if dtype == torch.float32 else "") + f") + ragged {ragged} "
             f"(forward tolerance rtol {rtol:g} atol {atol:g}; backward: {BWD_TOL}); backward "
             f"kernels {sorted(kernels)}")
     return errs
@@ -712,12 +752,12 @@ def check_damsm() -> dict:
     return errs
 
 
-def ln_damsm_inputs(gen):
-    """The LN word shape on the card: normalized regions and words, about
+def ln_damsm_inputs(shape, gen):
+    """An LN word shape on the card: normalized regions and words, about
     half the word slots real with the padding scattered, caption 1 all
     padded, caption 2 with 4 real words (one sub-caption of words, the
     rest of its sub-captions all padded)."""
-    b, bc, R, T, D = DAMSM_LN
+    b, bc, R, T, D = shape
     r = torch.nn.functional.normalize(torch.randn(b, R, D, generator=gen, device="cuda"), dim=-1)
     w = torch.nn.functional.normalize(torch.randn(bc, T, D, generator=gen, device="cuda"), dim=-1)
     mask = torch.rand(bc, T, generator=gen, device="cuda") > 0.5
@@ -745,24 +785,25 @@ def damsm_kernel_names(fn) -> list[str]:
 
 
 def check_damsm_ln() -> dict:
-    """Phase 3, damsm_score at the LN word shape, through ``damsm_scores``
-    (the sub-caption split and combine) against the plain version on the
-    whole captions: scores, d_regions and d_words in fp32 and bf16; the
+    """Phase 3, damsm_score at the LN word shapes (``LN_CHECKS``), through
+    ``damsm_scores`` (the sub-caption split and combine) against the plain
+    version on the whole captions: scores, d_regions and d_words; the
     all-padded caption's score bit-equal to the plain value and its d_words
     0; a second forward + d_regions bit-equal; the launches' kernel names
     each kernel's route (the bf16 forward and d_regions on the tensor cores
-    with the regions streamed, no bf16 CUDA-core forward; everything else on
-    the CUDA cores)."""
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    r, w, mask, up = ln_damsm_inputs(gen)
-    b, bc, R, T, D = DAMSM_LN
+    with the regions streamed, no bf16 CUDA-core forward; the fp32 ones on
+    the wide packed kernels; the d_words on the CUDA cores).  The errors by
+    (shape, compute dtype)."""
     errs = {}
-    for cd in (None, torch.bfloat16):
+    for shape, cd in LN_CHECKS:
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        r, w, mask, up = ln_damsm_inputs(shape, gen)
+        b, bc, R, T, D = shape
         tol = DAMSM_TOL[cd]
         width = ds.sub_caption_width(R, T, D, cd)
         kernels = (ds.kernel_name("fwd", R, D, cd), ds.kernel_name("dr", R, D, cd))
         if kernels != LN_KERNELS[cd] or width != 16:
-            raise AssertionError(f"LN shape {CD_NAME[cd]}: width {width}, kernels {kernels}; "
+            raise AssertionError(f"LN {shape} {CD_NAME[cd]}: width {width}, kernels {kernels}; "
                                  f"want 16 slots on {LN_KERNELS[cd]}")
         ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
         got = {}
@@ -774,17 +815,17 @@ def check_damsm_ln() -> dict:
         names = damsm_kernel_names(run)
         for want in (*LN_KERNELS[cd], ds.kernel_name("dw", R, D, cd)):
             if not any(want in n for n in names):
-                raise AssertionError(f"LN {CD_NAME[cd]}: no {want} among {names}")
+                raise AssertionError(f"LN {shape} {CD_NAME[cd]}: no {want} among {names}")
         if any("_tc_kernel" in n or "damsm_fwd_bf16_kernel" in n for n in names):
-            raise AssertionError(f"LN {CD_NAME[cd]}: a resident-region or bf16 CUDA-core kernel "
-                                 f"at D = {D}: {names}")
+            raise AssertionError(f"LN {shape} {CD_NAME[cd]}: a resident-region or bf16 "
+                                 f"CUDA-core kernel at D = {D}: {names}")
         want_s = exact_scores(r, w, mask, cd, LN_PLAIN_BLOCK)
         torch.testing.assert_close(got["s"].detach(), want_s, rtol=1e-5, atol=tol["score"])
         plain_pad = ds.damsm_scores_ref(r, w[1:2], mask[1:2], 4.0, 5.0, cd)
         if not (torch.equal(got["s"][:, 1:2].detach(), plain_pad)
                 and got["dw"][1].abs().max().item() == 0.0):
-            raise AssertionError(f"LN {CD_NAME[cd]}: the all-padded caption's score is not the "
-                                 "plain value, or it got a d_words")
+            raise AssertionError(f"LN {shape} {CD_NAME[cd]}: the all-padded caption's score is "
+                                 "not the plain value, or it got a d_words")
         worst = {"forward": (got["s"].detach() - want_s).abs().max().item()}
         for which, key in (("dr", "d_regions"), ("dw", "d_words")):
             want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, cd, LN_PLAIN_BLOCK)
@@ -794,70 +835,84 @@ def check_damsm_ln() -> dict:
             del want_g
         ri2 = r.clone().requires_grad_()
         s2 = ds.damsm_scores(ri2, w, mask, 4.0, 5.0, cd)
-        (dr2,) = torch.autograd.grad(s2, ri2, up)
+        up2 = up.clone()
+        up2[:, 1] = 100.0
+        (dr2,) = torch.autograd.grad(s2, ri2, up2)
         torch.cuda.synchronize()
         if not (torch.equal(s2, got["s"]) and torch.equal(dr2, got["dr"])):
-            raise AssertionError(f"LN {CD_NAME[cd]}: two runs of forward + d_regions differ")
-        errs[cd] = worst
+            raise AssertionError(f"LN {shape} {CD_NAME[cd]}: two runs of forward + d_regions "
+                                 "differ, or the all-padded caption's cotangent moved d_regions")
+        errs[shape, cd] = worst
         k = -(-int((~mask).sum(1).max()) // width)
-        log(f"[3] damsm_score LN {DAMSM_LN} compute {CD_NAME[cd]} ({k} sub-captions of {width} "
+        log(f"[3] damsm_score LN {shape} compute {CD_NAME[cd]} ({k} sub-captions of {width} "
             f"slots a caption, {int((~mask).sum())} real words): max_abs_err " + ", ".join(
                 f"{k} {v:.3g}" for k, v in worst.items()) + f" (tolerance {tol}); all-padded "
-            f"caption {got['s'][0, 1].item():.6g} = plain, no d_words; two runs bit-equal; "
-            f"kernels {names}")
-        del ri, wi, got, want_s, ri2, s2, dr2
+            f"caption {got['s'][0, 1].item():.6g} = plain, no d_words; two runs bit-equal, the "
+            f"second with the all-padded caption's cotangent at 100; kernels {names}")
+        del r, w, mask, up, ri, wi, got, want_s, ri2, s2, dr2, up2
         torch.cuda.empty_cache()
     return errs
 
 
 def check_damsm_streamed() -> dict:
-    """Phase 3, the streamed bf16 forward and d_regions at their edges
-    (``DAMSM_STREAMED``), through ``damsm_scores`` as the word loss calls
-    it: scores, d_regions and d_words against the plain version on the
-    whole captions under ``DAMSM_TOL``; the forward and d_regions launches
-    are the streamed kernels, an all-padded caption scores the plain value
-    bit for bit, and a second run's scores and d_regions are bit-equal."""
+    """Phase 3, the forward and d_regions at their edges above D = 256
+    (``DAMSM_STREAMED``) in both compute dtypes (bf16: the streamed
+    tensor-core kernels; fp32: the wide packed ones), through
+    ``damsm_scores`` as the word loss calls it: scores, d_regions and
+    d_words against the plain version on the whole captions (the scores
+    summed in fp64) under ``DAMSM_TOL``; the forward and d_regions launches
+    are the route's kernels (``LN_KERNELS``), an all-padded caption scores
+    the plain value bit for bit, and a second run's scores and d_regions,
+    with the all-padded caption's cotangent at 100, are bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(15)
-    tol = DAMSM_TOL[torch.bfloat16]
-    worst = {"forward": 0.0, "d_regions": 0.0, "d_words": 0.0}
-    for shape, allpad, max_len in DAMSM_STREAMED:
-        r, w, mask, up = damsm_inputs(shape, gen, allpad, max_len)
-        ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
-        got = {}
+    errs = {}
+    for cd in (None, torch.bfloat16):
+        tol = DAMSM_TOL[cd]
+        worst = {"forward": 0.0, "d_regions": 0.0, "d_words": 0.0}
+        for shape, allpad, max_len in DAMSM_STREAMED:
+            r, w, mask, up = damsm_inputs(shape, gen, allpad, max_len)
+            ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
+            got = {}
 
-        def run():
-            got["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, torch.bfloat16)
-            got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
+            def run():
+                got["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
+                got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
 
-        names = damsm_kernel_names(run)
-        for kernel in STREAMED_KERNELS:
-            if not any(kernel in n for n in names):
-                raise AssertionError(f"streamed edge {shape}: no {kernel} among {names}")
-        want = exact_scores(r, w, mask, torch.bfloat16)
-        torch.testing.assert_close(got["s"].detach(), want, rtol=1e-5, atol=tol["score"])
-        plain_pad = ds.damsm_scores_ref(r, w[1:2], mask[1:2], 4.0, 5.0, torch.bfloat16)
-        if allpad and not torch.equal(got["s"][:, 1:2].detach(), plain_pad):
-            raise AssertionError(f"streamed edge {shape}: the all-padded caption's score is "
-                                 "not the plain value")
-        worst["forward"] = max(worst["forward"], (got["s"].detach() - want).abs().max().item())
-        for which, key in (("dr", "d_regions"), ("dw", "d_words")):
-            want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, torch.bfloat16)
-            torch.testing.assert_close(got[which], want_g, rtol=0,
-                                       atol=tol["grad_scale"] * want_g.abs().max().item())
-            worst[key] = max(worst[key], (got[which] - want_g).abs().max().item())
-        ri2 = r.clone().requires_grad_()
-        s2 = ds.damsm_scores(ri2, w, mask, 4.0, 5.0, torch.bfloat16)
-        (dr2,) = torch.autograd.grad(s2, ri2, up)
-        torch.cuda.synchronize()
-        if not (torch.equal(s2, got["s"]) and torch.equal(dr2, got["dr"])):
-            raise AssertionError(f"streamed edge {shape}: two runs of forward + d_regions differ")
-        del r, w, mask, up, ri, wi, got, want, want_g, ri2, s2, dr2
-    torch.cuda.empty_cache()
-    log(f"[3] damsm_score bf16, streamed forward and d_regions at the edges {DAMSM_STREAMED}: "
-        "max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-        + f" (tolerance {tol}); all-padded caption = plain; two runs of forward + d_regions "
-        "bit-equal")
-    return worst
+            names = damsm_kernel_names(run)
+            for kernel in LN_KERNELS[cd]:
+                if not any(kernel in n for n in names):
+                    raise AssertionError(f"{CD_NAME[cd]} edge {shape}: no {kernel} among {names}")
+            want = exact_scores(r, w, mask, cd)
+            torch.testing.assert_close(got["s"].detach(), want, rtol=1e-5, atol=tol["score"])
+            plain_pad = ds.damsm_scores_ref(r, w[1:2], mask[1:2], 4.0, 5.0, cd)
+            if allpad and not torch.equal(got["s"][:, 1:2].detach(), plain_pad):
+                raise AssertionError(f"{CD_NAME[cd]} edge {shape}: the all-padded caption's "
+                                     "score is not the plain value")
+            worst["forward"] = max(worst["forward"],
+                                   (got["s"].detach() - want).abs().max().item())
+            for which, key in (("dr", "d_regions"), ("dw", "d_words")):
+                want_g = ds._plain_vjp(which, r, w, mask, up, 4.0, 5.0, cd)
+                torch.testing.assert_close(got[which], want_g, rtol=0,
+                                           atol=tol["grad_scale"] * want_g.abs().max().item())
+                worst[key] = max(worst[key], (got[which] - want_g).abs().max().item())
+            ri2 = r.clone().requires_grad_()
+            s2 = ds.damsm_scores(ri2, w, mask, 4.0, 5.0, cd)
+            up2 = up.clone()
+            up2[:, 1] = 100.0
+            (dr2,) = torch.autograd.grad(s2, ri2, up2 if allpad else up)
+            torch.cuda.synchronize()
+            if not (torch.equal(s2, got["s"]) and torch.equal(dr2, got["dr"])):
+                raise AssertionError(f"{CD_NAME[cd]} edge {shape}: two runs of forward + "
+                                     "d_regions differ, or the all-padded caption moved d_regions")
+            del r, w, mask, up, ri, wi, got, want, want_g, ri2, s2, dr2, up2
+        torch.cuda.empty_cache()
+        errs[cd] = worst
+        log(f"[3] damsm_score {CD_NAME[cd]}, forward and d_regions on {LN_KERNELS[cd]} at the "
+            f"edges {DAMSM_STREAMED}: max_abs_err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in worst.items()) + f" (tolerance {tol}); all-padded "
+            "caption = plain; two runs of forward + d_regions bit-equal, the all-padded "
+            "caption's cotangent moving nothing")
+    return errs
 
 
 def attention_inputs(shape, dtype, gen, allpad: bool):
@@ -955,11 +1010,10 @@ SLICE_CFG = {  # the train slice of phase 4b
     "DISC": {"SPEC_NORM": True, "IMG_MATCH": True}}
 
 
-def check_train_against_cpu(cfg, label: str, mask_fn) -> dict[str, int]:
+def check_train_against_cpu(cfg, label: str, mask_fn) -> None:
     """Phase 4b and 4d: two fp32 train steps at batch 4 on the card and on
     the CPU from the same perturbed weights, the word masks from
-    ``mask_fn``; the card's word scores through the damsm kernels.
-    Returns the launches of the two card steps."""
+    ``mask_fn``; the card's word scores through the damsm kernels."""
     cpu = create_train_state(cfg, device="cpu", seed=3)
     g_sd, d_sd = perturbed_state_dict(cpu.g, 4), perturbed_state_dict(cpu.d, 5)
     cpu = create_train_state(cfg, device="cpu", g_state_dict=g_sd, d_state_dict=d_sd)
@@ -999,7 +1053,6 @@ def check_train_against_cpu(cfg, label: str, mask_fn) -> dict[str, int]:
         f"{worst:.3g} (bound {4 * lr:.2g}); u/v worst {worst_uv:.3g}; damsm launches {counts}")
     if share < TRAIN_TOL["param_share"] or worst > 4 * lr or worst_uv > TRAIN_TOL["uv"]:
         raise AssertionError(f"{label}: card and CPU parameters differ beyond the tolerance")
-    return counts
 
 
 def concept_cfg(name: str, size: int = 256, nch: int = 32):
@@ -1335,6 +1388,45 @@ def epilogue_rows(shapes, errs, launches, own_ms) -> list[dict]:
     return rows
 
 
+def epilogue_ln_row(shapes, errs, launches) -> dict:
+    """Phase 7, fused_affine backward (double form) at the 14 epilogue
+    inputs of the LN-COCO bf16 step (``shapes``, batch 256), the vectors in
+    bf16 as that step hands them over: each distinct shape's launch and its
+    plain version timed alone (a few GiB each) and summed over the step's
+    launches."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dtype, es = torch.bfloat16, 2
+    ms = plain_ms = nbytes = ops = 0.0
+    for shape in sorted(set(shapes)):
+        n, k = shapes.count(shape), math.prod(shape)
+        x, mods = epilogue_inputs(shape, dtype, gen)
+        m = tuple(t.to(dtype) for t in mods)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        ms += n * cuda_ms(lambda: fa._launch_bwd(x, m, dy, 0.2), 10)
+        plain_ms += n * cuda_ms(lambda: fa.fused_affine_bwd_ref(x, m, dy, 0.2), 1)
+        # x and dy read, dx written, the vectors read and their sums written
+        nbytes += n * (3 * k * es + 2 * 4 * shape[0] * shape[1] * es)
+        ops += n * 20 * k
+        del x, mods, m, dy
+        torch.cuda.empty_cache()
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    bound = max(byte_ms, op_ms)
+    row = {"name": "fused_affine.double_modulate_lrelu.backward[bf16, LN]", "route": "cuda",
+           "source": "xmc_gan_tpu_torch/csrc/fused_affine.cu",
+           "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:71 (the Pallas kernel has no "
+                       "backward; this is its gradient)",
+           "launches": launches, "max_abs_err": errs[dtype]["bwd2"], "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
+           "roofline_share": bound / ms, "vectors": "bf16",
+           "shapes": f"the 14 epilogue inputs of one 256² NCH=96 LN-COCO G pass at batch "
+                     f"{shapes[0][0]}, each distinct shape timed alone"}
+    log(f"[7] {row['name']}: 14 launches {ms:.3f} ms (bound {bound:.3f} ms, "
+        f"{100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms")
+    return row
+
+
 def modulation_rows(shapes, errs, launches) -> list[dict]:
     """Phase 7, fused_affine single form (``modulate_lrelu``): the 28
     launches of one 256² concept-DF request at batch 128, per dtype."""
@@ -1494,19 +1586,20 @@ def damsm_rows(errs, launches) -> list[dict]:
 
 
 def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
-    """Phase 7, damsm_score at the LN word shape: each kernel's launch on the
-    16-slot sub-captions of real words that ``damsm_scores`` hands it
-    (``split_captions``), with the cotangent the combine hands the backward
-    (2 timed launches), against the plain version on the whole captions
-    (caption blocks of ``LN_PLAIN_BLOCK``).  Bytes and operations of the
-    function on the whole captions, real words only.  ``launches`` per
-    dtype come from the run that ``launches_in`` names."""
-    gen = torch.Generator(device="cuda").manual_seed(14)
-    r, w, mask, up = ln_damsm_inputs(gen)
-    b, bc, R, T, D = DAMSM_LN
-    words = int((~mask).sum())
+    """Phase 7, damsm_score at the word shape of each dtype's LN-COCO step
+    (``LN_STEP_SHAPES``): each kernel's launch on the 16-slot sub-captions
+    of real words that ``damsm_scores`` hands it (``split_captions``), with
+    the cotangent the combine hands the backward (2 timed launches), against
+    the plain version on the whole captions (caption blocks of
+    ``LN_PLAIN_BLOCK``).  Bytes and operations of the function on the whole
+    captions, real words only.  ``launches`` per dtype come from the run
+    that ``launches_in`` names, that step's."""
     rows = []
-    for cd in (None, torch.bfloat16):
+    for cd, shape in LN_STEP_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        r, w, mask, up = ln_damsm_inputs(shape, gen)
+        b, bc, R, T, D = shape
+        words = int((~mask).sum())
         width = ds.sub_caption_width(R, T, D, cd)
         w_sub, m_sub = ds.split_captions(w, mask, width)
         s = ds._launch_fwd(r, w_sub, m_sub, 4.0, 5.0, cd).view(b, bc, -1).requires_grad_()
@@ -1536,7 +1629,7 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
                 "source": "xmc_gan_tpu_torch/csrc/damsm_score.cu",
                 "replaces": f"xmc_gan_tpu/ops/pallas/damsm_score.py:{line}",
                 "launches": launches[cd][f"damsm_score.{name}"], "launches_in": launches_in[cd],
-                "max_abs_err": errs[cd][name], "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": errs[shape, cd][name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "library_ms": None, "roofline_share": bound / ms,
                 "shapes": f"B=Bc={b}, R={R}, T={T} as {w_sub.shape[0] // bc} "
@@ -1546,10 +1639,8 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
             log(f"[7] {rows[-1]['name']}: {ms:.3f} ms (bound {bound:.3f} ms by "
                 f"{rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain {plain_ms:.3f} ms; "
                 f"{rows[-1]['shapes']}")
-        del w_sub, m_sub, s, g_sub
+        del r, w, mask, up, w_sub, m_sub, s, g_sub
         torch.cuda.empty_cache()
-    del r, w, mask, up
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -1564,7 +1655,8 @@ def main() -> int:
                                                                                 "out")
     mod_shapes = modulation_shapes(concept_cfg("CONCEPT_IN_DF_GEN"), BATCH)
     ln = ln_cfg()
-    fa_errs = check_epilogue(shapes, epilogue_shapes(ln, ln.TRAIN.BATCH_SIZE))
+    fa_errs = check_epilogue(shapes, epilogue_shapes(ln, ln.TRAIN.BATCH_SIZE),
+                             epilogue_shapes(ln, LN_FP32_BATCH))
     mod_errs = check_modulation(sorted(set(mod_shapes)))
     ds_errs = check_damsm()
     ln_errs = check_damsm_ln()
@@ -1583,9 +1675,9 @@ def main() -> int:
     del g_cpu
     check_train_against_cpu(cfg_from_dict(SLICE_CFG), "train slice", prefix_mask)
     check_concepts_against_cpu()
-    small_ln = "LN-COCO step (fp32, NCH=8, 64², batch 4, T=200, D=768), 2 steps"
-    small_ln_launches = check_train_against_cpu(
-        ln_cfg({"IMG": {"SIZE": 64}, "TRAIN": {"NCH": 8, "BATCH_SIZE": 4}}), small_ln, ln_mask)
+    check_train_against_cpu(ln_cfg({"IMG": {"SIZE": 64}, "TRAIN": {"NCH": 8, "BATCH_SIZE": 4}}),
+                            "LN-COCO step (fp32, NCH=8, 64², batch 4, T=200, D=768), 2 steps",
+                            ln_mask)
 
     runs = {dtype: serve(cfg, sd, dtype) for dtype in (torch.float32, torch.bfloat16)}
     diff = (runs[torch.float32].pop("img") - runs[torch.bfloat16].pop("img")).abs()
@@ -1609,8 +1701,10 @@ def main() -> int:
     flagship = cfg_from_dict(TRAIN_OVERRIDES)
     trains = {torch.bfloat16: train(flagship, "flagship_word", torch.bfloat16, 2, 10, prefix_mask),
               torch.float32: train(flagship, "flagship_word", torch.float32, 1, 3, prefix_mask)}
-    # the LN step takes seconds: its counted step is its warm-up
+    # the LN steps take seconds: their counted step is their warm-up
     ln_train = train(ln_cfg(), "LN-COCO", torch.bfloat16, 0, 2, ln_mask)
+    ln_train32 = train(ln_cfg({"TRAIN": {"BATCH_SIZE": LN_FP32_BATCH}}), "LN-COCO",
+                       torch.float32, 0, 2, ln_mask)
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
@@ -1618,12 +1712,14 @@ def main() -> int:
     kernels += modulation_rows(
         mod_shapes, mod_errs,
         {d: req["CONCEPT_IN_DF_GEN"][d]["fused_affine.forward"] for d in req["CONCEPT_IN_DF_GEN"]})
+    kernels.append(epilogue_ln_row(epilogue_shapes(ln, ln.TRAIN.BATCH_SIZE), fa_errs,
+                                   ln_train["launches"]["fused_affine.backward"]))
     kernels += damsm_rows(ds_errs, {None: step_launches[torch.float32],
                                     torch.bfloat16: step_launches[torch.bfloat16]})
-    # the fp32 LN step runs at a small width only: its launches are phase 4d's
-    kernels += damsm_ln_rows(ln_errs, {None: small_ln_launches,
+    kernels += damsm_ln_rows(ln_errs, {None: ln_train32["launches"],
                                        torch.bfloat16: ln_train["launches"]},
-                             {None: f"phase 4d: {small_ln}",
+                             {None: "phase 6: one full-width LN-COCO fp32 step at batch "
+                                    f"{LN_FP32_BATCH}",
                               torch.bfloat16: "phase 6: one full-width LN-COCO bf16 step"})
     kernels += attention_rows(
         [s[:5] for s in attn_in], [s[:5] for s in attn_out], ca_errs,
@@ -1631,7 +1727,7 @@ def main() -> int:
          for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")}, own_ms)
     log(json.dumps({"card": card, "serving": list(runs.values()),
                     "concept_serving": [r for rs in concept_runs.values() for r in rs.values()],
-                    "training": [*trains.values(), ln_train]}))
+                    "training": [*trains.values(), ln_train, ln_train32]}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

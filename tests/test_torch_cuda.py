@@ -302,14 +302,17 @@ def _damsm_inputs(device, shape, seed, allpad, max_len=None):
 # last chunk, no multiple of 16) with R = 50 and T = 20; D = 770 (rows not
 # 16-byte aligned: plain loads, not cp.async) with an all-padded caption
 # inside a pass; D = 1024 with captions of at most 2 words, through the
-# sub-caption split.  Last, R = 300 (more regions than the tensor-core
-# kernels take), where the bf16 forward and d_regions run on the CUDA cores.
+# sub-caption split.  Last, R = 300 (more regions than the tensor-core and
+# packed fp32 kernels take), where the forward and d_regions run on the CUDA
+# cores: at D = 48 and at D = 768 (their 256-column chunks, 15-slot
+# sub-captions).
 DAMSM_SHAPES = [((3, 5, 50, 7, 48), True, None), ((2, 3, 5, 3, 12), True, None),
                 ((4, 7, 256, 20, 256), False, None), ((132, 7, 64, 7, 40), True, None),
                 ((132, 9, 50, 20, 40), False, None), ((132, 2, 24, 33, 24), True, None),
                 ((132, 3, 50, 64, 40), False, 2), ((132, 40, 256, 20, 256), True, None),
                 ((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), True, None),
-                ((132, 3, 256, 64, 1024), False, 2), ((4, 5, 300, 20, 48), True, None)]
+                ((132, 3, 256, 64, 1024), False, 2), ((4, 5, 300, 20, 48), True, None),
+                ((4, 5, 300, 20, 768), True, None)]
 
 
 @pytest.mark.cuda
@@ -372,12 +375,13 @@ def _damsm_kernel_names(fn) -> set[str]:
 
 
 # (shape, compute dtype, the forward's and d_regions' kernels): the LN
-# config's word shape (T = 200, D = 768) on the CUDA cores in fp32, and in
-# bf16 the forward and d_regions on the tensor cores with the regions
+# config's word shape (T = 200, D = 768) on the wide packed kernels in fp32,
+# and in bf16 the forward and d_regions on the tensor cores with the regions
 # streamed; T = 130 at D = 256, whose bf16 sub-captions stay on the tensor
 # cores with resident regions and whose fp32 forward and d_regions pack the
 # words of its 48-slot sub-captions
-LN_CASES = [((16, 16, 256, 200, 768), None, ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float")),
+LN_CASES = [((16, 16, 256, 200, 768), None,
+             ("damsm_fwd_f32w_kernel<", "damsm_bwd_dr_f32w_kernel<")),
             ((16, 16, 256, 200, 768), torch.bfloat16,
              ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<")),
             ((16, 16, 256, 130, 256), torch.bfloat16,
@@ -432,14 +436,20 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
 @pytest.mark.parametrize("cd", [None, torch.bfloat16])
 def test_damsm_cuda_core_d_regions_is_deterministic_at_d768(cuda_device, cd):
     """Two CUDA-core d_regions launches on D = 768 sub-captions (256-column
-    chunks, split partial sums) are bit-equal."""
-    r, w, mask, up = _ln_inputs(cuda_device, (8, 8, 256, 200, 768), 13)
-    w_sub, m_sub = ds.split_captions(w, mask, ds.sub_caption_width(256, 200, 768, cd))
+    chunks, split partial sums) are bit-equal: at R = 300, more regions
+    than the packed and tensor-core kernels take, so ``route`` keeps them
+    on the CUDA cores in both compute dtypes."""
+    assert ds.route("dr", 300, 768, cd) == ds.CUDA_CORES
+    r, w, mask, up = _ln_inputs(cuda_device, (8, 8, 300, 200, 768), 13)
+    w_sub, m_sub = ds.split_captions(w, mask, ds.sub_caption_width(300, 200, 768, cd))
     g = up.repeat_interleave(w_sub.shape[0] // 8, dim=1)
-    first = ds._launch_bwd("dr", r, w_sub, m_sub, g, 4.0, 5.0, cd)
+    out = {}
+    names = _damsm_kernel_names(lambda: out.update(
+        first=ds._launch_bwd("dr", r, w_sub, m_sub, g, 4.0, 5.0, cd)))
+    assert any(ds.kernel_name("dr", 300, 768, cd) in n for n in names), names
     again = ds._launch_bwd("dr", r, w_sub, m_sub, g, 4.0, 5.0, cd)
     torch.cuda.synchronize()
-    assert torch.equal(first, again)
+    assert torch.equal(out["first"], again)
 
 
 @pytest.mark.cuda
@@ -513,6 +523,59 @@ def test_damsm_fp32_d_regions_is_deterministic_and_ignores_padded_captions(cuda_
     assert torch.equal(first, moved) == allpad
     torch.testing.assert_close(first, want, rtol=0,
                                atol=DAMSM_TOL[None][1] * want.abs().max().item())
+
+
+# the wide fp32 forward and d_regions (256 < D <= 1024): (shape, LN-drawn
+# mask, longest caption): the LN word shape at batch 32 (about half the
+# slots real, scattered, caption 2 one sub-caption of 4 words), then the
+# edges: D = 520 (a partial last chunk and group) at R = 50, D = 770 (rows
+# not 16-byte aligned: plain loads; 24 rows a pass), D = 1024 (24 rows a
+# pass, 9-slot sub-captions) with captions of at most 2 words, and 16-slot
+# captions at D = 768 with Bc = 24; caption 1 all padded in each
+F32W_SHAPES = [((32, 32, 256, 200, 768), True, None), ((132, 9, 50, 20, 520), False, None),
+               ((132, 7, 64, 7, 770), False, None), ((132, 3, 256, 64, 1024), False, 2),
+               ((8, 24, 256, 16, 768), False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ln,max_len", F32W_SHAPES, ids=str)
+def test_damsm_wide_fp32_matches_plain_and_is_deterministic(cuda_device, shape, ln, max_len):
+    """The wide fp32 forward and d_regions through ``damsm_scores``: the
+    launches are the wide kernels (``route`` PACKED_FP32), the scores lie
+    within ``DAMSM_TOL`` of the plain version summed in fp64 and d_regions
+    within it of the plain version's autograd, two runs are bit-equal, the
+    all-padded caption scores exactly the plain value, and its cotangent
+    (100 in the second run) moves no d_regions."""
+    b, bc, R, T, D = shape
+    assert ds.route("fwd", R, D, None) == ds.route("dr", R, D, None) == ds.PACKED_FP32
+    if ln:
+        r, w, mask, up = _ln_inputs(cuda_device, shape, 19)
+    else:
+        r, w, mask, up = _damsm_inputs(cuda_device, shape, 19, True, max_len)
+    up2 = up.clone()
+    up2[:, 1] = 100.0
+    out = {}
+
+    def run(u):
+        ri = r.clone().requires_grad_()
+        s = ds.damsm_scores(ri, w, mask, 4.0, 5.0, None)
+        return s, torch.autograd.grad(s, ri, u)[0]
+
+    names = _damsm_kernel_names(lambda: out.update(first=run(up)))
+    assert any("damsm_fwd_f32w_kernel<" in n for n in names), names
+    assert any("damsm_bwd_dr_f32w_kernel<" in n for n in names), names
+    s, dr = out["first"]
+    s2, dr2 = run(up2)
+    want_dr = ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, None)
+    plain_pad = ds.damsm_scores_ref(r, w[1:2], mask[1:2], 4.0, 5.0, None)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s2) and torch.equal(dr, dr2)
+    assert bool(torch.isfinite(s).all())
+    assert torch.equal(s[:, 1:2], plain_pad)
+    torch.testing.assert_close(s, _exact_scores(r, w, mask, None), rtol=1e-5,
+                               atol=DAMSM_TOL[None][0])
+    torch.testing.assert_close(dr, want_dr, rtol=0,
+                               atol=DAMSM_TOL[None][1] * want_dr.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -591,8 +654,9 @@ def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
     """The build with the phase counters (``xmc_gan_tpu_torch/damsm_phases.py``)
     counts every phase of the bf16 tensor-core d_regions and forward
     (regions resident, and streamed at D = 768) and of the fp32 d_regions
-    and forward with packed words, and the passes, and nothing outside each
-    kernel's phases, and gives the same d_regions and scores bit for bit."""
+    and forward with packed words (at D = 256, and the wide ones at
+    D = 768), and the passes, and nothing outside each kernel's phases, and
+    gives the same d_regions and scores bit for bit."""
     from xmc_gan_tpu_torch import damsm_phases
 
     r, w, mask, up = _damsm_inputs(cuda_device, (4, 24, 256, 20, 256), 10, allpad=True)
@@ -609,7 +673,11 @@ def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
                                                               torch.bfloat16, **kw)),
             ("d_regions, fp32", lambda **kw: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0,
                                                             None, **kw)),
-            ("forward, fp32", lambda **kw: ds._launch_fwd(r, w, mask, 4.0, 5.0, None, **kw))):
+            ("forward, fp32", lambda **kw: ds._launch_fwd(r, w, mask, 4.0, 5.0, None, **kw)),
+            ("d_regions, fp32 wide", lambda **kw: ds._launch_bwd("dr", rs, ws, ms, us, 4.0, 5.0,
+                                                                 None, **kw)),
+            ("forward, fp32 wide", lambda **kw: ds._launch_fwd(rs, ws, ms, 4.0, 5.0, None,
+                                                               **kw))):
         want = launch()
         assert lib.load().xmc_damsm_phases_reset() == 0
         got = launch(library=lib)

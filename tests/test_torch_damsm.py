@@ -234,9 +234,10 @@ def test_route_rule(which):
     """One rule per kernel (``route``): the bf16 forward and d_regions on
     the tensor cores if and only if R <= 256 and D <= 1024 (regions
     resident at D <= 256, streamed above); the fp32 forward and d_regions
-    packed if and only if R, D <= 256 (the flagship's (256, 256), (50, 40);
-    not (300, 48) or (256, 264)); the d_words and every other fp32 launch
-    on the CUDA cores."""
+    packed under the same rule (the flagship's (256, 256), (50, 40) on the
+    packed kernels, D > 256 such as (256, 264) on the wide ones; not
+    (300, 48) or (256, 1025)); the d_words and every other fp32 launch on
+    the CUDA cores."""
     flagship = [(256, 256), (50, 48), (50, 40), (1, 1)]
     wide = [(256, 768), (16, 264), (256, 264), (256, 1024), (64, 770), (50, 520)]
     never = [(257, 256), (300, 16), (300, 48), (257, 768), (256, 1025)]
@@ -244,7 +245,7 @@ def test_route_rule(which):
         assert ds.route(which, R, D, None) != ds.TENSOR_CORES
         assert ds.route(which, R, D, torch.float32) != ds.TENSOR_CORES
     tc = {"fwd": flagship + wide, "dr": flagship + wide, "dw": []}[which]
-    packed = {"fwd": flagship, "dr": flagship, "dw": []}[which]
+    packed = {"fwd": flagship + wide, "dr": flagship + wide, "dw": []}[which]
     for R, D in flagship + wide + never:
         assert (ds.route(which, R, D, torch.bfloat16) == ds.TENSOR_CORES) == ((R, D) in tc), (R, D)
         for cd in (None, torch.float32, torch.bfloat16):
@@ -258,13 +259,15 @@ def test_route_rule(which):
             if want == ds.TENSOR_CORES:
                 assert ("_tcs_" if D > ds.TC_MAX_RD else "_tc_") in name, (which, R, D, name)
             elif want == ds.PACKED_FP32:
-                assert name == {"fwd": "damsm_fwd_f32_kernel<",
-                                "dr": "damsm_bwd_dr_f32_kernel<"}[which], (R, D, cd, name)
+                f32 = "f32w" if (R, D) in wide else "f32"
+                assert name == {"fwd": f"damsm_fwd_{f32}_kernel<",
+                                "dr": f"damsm_bwd_dr_{f32}_kernel<"}[which], (R, D, cd, name)
             else:
                 assert "_tc" not in name and "_f32_" not in name, (which, R, D, cd, name)
     assert ds.kernel_name("dr", 300, 48, None) == "damsm_bwd_dr_kernel<float"
     assert ds.kernel_name("fwd", 300, 48, None) == "damsm_fwd_kernel<"
-    assert ds.kernel_name("fwd", 256, 264, torch.float32) == "damsm_fwd_kernel<"
+    assert ds.kernel_name("fwd", 256, 264, torch.float32) == "damsm_fwd_f32w_kernel<"
+    assert ds.kernel_name("fwd", 256, 1025, torch.float32) == "damsm_fwd_kernel<"
     with pytest.raises(ValueError, match="which"):
         ds.route("d_regions", 256, 256, torch.bfloat16)
 
@@ -277,7 +280,9 @@ def test_sub_caption_width_mirrors_the_plans(cd):
     CUDA-core backward), 32 at R = D = 256 in bf16 (the tensor-core
     d_regions), 48 in fp32 at R, D <= 256 (the CUDA-core backward there, and
     the fp32 d_regions' passes of packed words, which take T = 64 only as
-    sub-captions; the fp32 forward's passes hold 64 rows).  Each width is a plan the kernels take; D > 1024 and
+    sub-captions; the fp32 forward's passes hold 64 rows), 32 at D = 520 in
+    both dtypes (bf16: the streamed kernels' passes; fp32: the wide packed
+    kernels').  Each width is a plan the kernels take; D > 1024 and
     regions too many for one row are refused, naming the limit; nothing
     depends on the device."""
     bf16 = cd == torch.bfloat16
@@ -286,7 +291,7 @@ def test_sub_caption_width_mirrors_the_plans(cd):
         assert ds.sub_caption_width(R, T, D, cd) == T
     assert ds.sub_caption_width(50, 64, 40, cd) == (64 if bf16 else 48)
     assert ds.sub_caption_width(256, 200, 768, cd) == 16
-    assert ds.sub_caption_width(50, 77, 520, cd) == (32 if bf16 else 35)  # streamed: 32 rows
+    assert ds.sub_caption_width(50, 77, 520, cd) == 32  # streamed or wide: 32 rows
     assert ds.sub_caption_width(256, 130, 256, cd) == (32 if bf16 else 48)
     assert ds.sub_caption_width(256, 64, 256, cd) == (32 if bf16 else 48)
     assert ds.sub_caption_width(256, 200, 1024, cd) == 9
@@ -435,7 +440,8 @@ def test_fp32_d_regions_plan_mirrors_the_source(R, D):
     shape (B = Bc = 128, T = 20, 132 multiprocessors) 48 rows a pass in one
     split of all 128 captions (225,616 bytes: no partial buffer); fewer
     images get caption splits to fill the card; 56 rows would not fit;
-    T > 48, R > 256 and D > 256 are refused."""
+    T > 48, R > 256 and D > 1024 are refused; above D = 256 the wide
+    kernel's plan takes over."""
     assert (_source_constant("F32_MAX_RD"), _source_constant("F32_S"), _source_constant("F32_SC"),
             _source_constant("F32_KC"), _source_constant("F32_ROWS")) == (
         ds.F32_MAX_RD, ds.F32_S, ds.F32_SC, ds.F32_KC, ds.F32_ROWS[0])
@@ -458,8 +464,9 @@ def test_fp32_d_regions_plan_mirrors_the_source(R, D):
         ds.plan_dr_f32(R, 49, D, 2, 4, 132)
     with pytest.raises(ValueError, match="R <= 256"):
         ds.plan_dr_f32(257, 8, D, 2, 4, 132)
-    with pytest.raises(ValueError, match="D <= 256"):
-        ds.plan_dr_f32(R, 8, 264, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ds.plan_dr_f32(R, 8, 1025, 2, 4, 132)
+    assert ds.plan_dr_f32(R, 8, 264, 2, 4, 132).smem == ds._f32w_smem(264, 32)
 
 
 @pytest.mark.parametrize("R,D", [(256, 256), (50, 40), (24, 24)])
@@ -472,7 +479,8 @@ def test_fp32_forward_plan_mirrors_the_source(R, D):
     (B = Bc = 128, T = 20, 132 multiprocessors) 64 rows a pass in one split
     of all 128 captions (209,680 bytes);
     fewer images get caption splits to fill the card; each plan holds its
-    caption; T > 64, R > 256 and D > 256 are refused."""
+    caption; T > 64, R > 256 and D > 1024 are refused; above D = 256 the
+    wide kernel's plan takes over."""
     assert (_source_constant("F32_FWD_ROWS"),) == ds.F32_FWD_ROWS == (64,)
 
     def smem(rows):
@@ -493,8 +501,96 @@ def test_fp32_forward_plan_mirrors_the_source(R, D):
         ds.plan_fwd_f32(R, 65, D, 2, 4, 132)
     with pytest.raises(ValueError, match="R <= 256"):
         ds.plan_fwd_f32(257, 8, D, 2, 4, 132)
-    with pytest.raises(ValueError, match="D <= 256"):
-        ds.plan_fwd_f32(R, 8, 264, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ds.plan_fwd_f32(R, 8, 1025, 2, 4, 132)
+    assert ds.plan_fwd_f32(R, 8, 264, 2, 4, 132).smem == ds._f32w_smem(264, 32)
+
+
+@pytest.mark.parametrize("R", [16, 50, 256, 257, 300])
+@pytest.mark.parametrize("D", [264, 520, 768, 770, 1024])
+def test_wide_fp32_route_rule(D, R):
+    """Above D = 256 ``route`` alone puts the fp32 forward and d_regions on
+    the wide packed kernels at R <= 256 (``damsm_fwd_f32w_kernel``,
+    ``damsm_bwd_dr_f32w_kernel``) and on the CUDA-core kernels at R > 256;
+    the d_words stays on the CUDA cores; bf16 keeps its tensor-core
+    kernels with the regions streamed."""
+    for cd in (None, torch.float32):
+        for which in ("fwd", "dr"):
+            want = ds.PACKED_FP32 if R <= 256 else ds.CUDA_CORES
+            assert ds.route(which, R, D, cd) == want, (which, cd)
+            name = ds.kernel_name(which, R, D, cd)
+            if want == ds.PACKED_FP32:
+                assert name == {"fwd": "damsm_fwd_f32w_kernel<",
+                                "dr": "damsm_bwd_dr_f32w_kernel<"}[which]
+            else:
+                assert name in ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float")
+        assert ds.route("dw", R, D, cd) == ds.CUDA_CORES
+        assert ds.kernel_name("dw", R, D, cd) == "damsm_bwd_dw_kernel<"
+    bf16 = ds.kernel_name("fwd", R, D, torch.bfloat16)
+    assert bf16 == ("damsm_fwd_tcs_kernel<" if R <= 256 else "damsm_fwd_bf16_kernel<")
+
+
+@pytest.mark.parametrize("D", [264, 520, 768, 770, 1024])
+def test_wide_fp32_plan_mirrors_the_source(D):
+    """The wide fp32 forward's and d_regions' plan (256 < D <= 1024) as
+    ``csrc/damsm_score.cu`` computes their shared memory, with the
+    constants read from the source: the pass's words ``[rows, SW]`` (SW = D
+    rounded up to whole 256-feature groups + 4, so rows lie 4 banks apart),
+    a ``[rows, 260]``, the two chunk buffers ``[256, 36]`` (d_sim and a group
+    of the words, ``[rows, 260]`` each, take their place in the d_regions)
+    and 11 words a row, the same for both kernels.  32 rows a pass where
+    they fit (to D = 768, 207,248 bytes at the LN shape), else 24; the LN
+    word shape's 16-slot sub-captions in one split at 256 images; fewer
+    images get splits; T > 32, R > 256 and D > 1024 are refused."""
+    assert (_source_constant("F32W_MAX_D"), _source_constant("F32W_ROWS"),
+            _source_constant("F32W_ROWS_MIN"), _source_constant("F32W_DG")) == (
+        ds.F32W_MAX_D, *ds.F32W_ROWS, ds.F32W_DG)
+    assert (ds.F32W_MAX_D, ds.F32W_ROWS, ds.F32W_DG) == (1024, (32, 24), 256)
+    sw = -(-D // 256) * 256 + 4
+    assert sw % 32 == 4
+
+    def smem(rows):
+        return 4 * (rows * (sw + 260) + 2 * 256 * 36 + 11 * rows + 4)
+
+    assert 2 * 32 * 260 <= 2 * 256 * 36  # d_sim and a group of the words
+    rows = 32 if smem(32) <= ds.SMEM_LIMIT else 24
+    assert (rows == 32) == (D <= 768) and smem(24) <= ds.SMEM_LIMIT
+    for plan in (ds.plan_fwd_f32, ds.plan_dr_f32):
+        p = plan(256, 16, D, 256, 256 * 13, 132)
+        assert p == (rows, 1, 256 * 13, smem(rows))
+        assert p.smem == ds._f32w_smem(D, rows)
+        if D == 768:
+            assert p.smem == 207_248
+        assert plan(256, 16, D, 32, 128, 132)[1:3] == (4, 32)
+        for b, bc, R, T in [(132, 9, 50, 20), (132, 7, 64, 7), (132, 3, 256, 24), (3, 5, 7, 1)]:
+            q = plan(R, T, D, b, bc, 132)
+            assert q.rows >= T and q.nsplit * q.captions >= bc
+        with pytest.raises(ValueError, match="T <= 32"):
+            plan(256, 33, D, 2, 4, 132)
+        with pytest.raises(ValueError, match="R <= 256"):
+            plan(257, 8, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ds.plan_fwd_f32(256, 8, 1025, 2, 4, 132)
+
+
+@pytest.mark.parametrize("R,T,D", [(256, 200, 768), (256, 200, 1024), (50, 77, 520),
+                                   (7, 200, 770), (256, 20, 264)])
+def test_wide_fp32_sub_caption_width(R, T, D):
+    """In fp32 above D = 256 the sub-caption width is the least of T, the
+    CUDA-core backward's rows (the d_words) and the wide kernels' rows a
+    pass, and both wide plans hold it: 16 at the LN word shape, as before
+    (the d_words' rows set it), 9 at D = 1024."""
+    width = ds.sub_caption_width(R, T, D, None)
+    rows = ds.plan_fwd_f32(R, 1, D, 4, 4, 132).rows
+    assert rows == ds.plan_dr_f32(R, 1, D, 4, 4, 132).rows
+    assert width == min(T, ds.cuda_core_rows(R, D, backward=True), rows)
+    assert ds.plan_fwd_f32(R, width, D, 4, 4, 132).rows >= width
+    assert ds.plan_dr_f32(R, width, D, 4, 4, 132).rows >= width
+    assert ds.plan(R, width, D, True, 4)[0] >= 1
+    if (R, T, D) == (256, 200, 768):
+        assert width == 16 == ds.cuda_core_rows(256, 768, backward=True)
+    if D == 1024:
+        assert width == 9
 
 
 @pytest.mark.parametrize("D", [256, 264, 520, 768, 1024])

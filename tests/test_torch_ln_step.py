@@ -130,3 +130,22 @@ def test_ln_step_metrics_match_jax(run):
 def test_ln_step_params_and_vectors_match_jax(run):
     _check_params(run["cfg"].TRAIN.OPT, run["jax"]["params"], run["port"]["params"], 1,
                   CLOSE_SHARE)
+
+
+def test_ln_all_padded_caption_losses_match_jax(run):
+    """Caption 1 of the batch has no real word, so it scores (-1e30 + log T)
+    / gamma2 against every image, and its own image's word InfoNCE row
+    meets a positive logit of gamma3 times that, ~-2e30: the image-to-caption
+    term averages ~2e30 / B over the batch, and the symmetric loss (half the
+    two directions' sum) and Loss_D / Loss_G, which add it, come to 1e30 /
+    B, in the JAX package as in the port, equal within the metric tolerance.
+    The LN-COCO step's ~3.9e27 at batch 256 is this input's value (1e30 /
+    256), not a fault of either."""
+    j, p = run["jax"]["metrics"], run["port"]["metrics"]
+    assert np.asarray(run["mask"])[1].all()
+    for name in ("ds_word", "gs_word", "Loss_D", "Loss_G"):
+        assert abs(p[name] - j[name]) <= METRIC_RTOL * abs(j[name]) + METRIC_ATOL, name
+        np.testing.assert_allclose(j[name], 1e30 / BS, rtol=1e-6, err_msg=name)
+    for name in ("errD_real", "errD_fake", "ds_loss", "gs_loss"):  # the rest stay O(1)
+        assert abs(j[name]) < 10, name
+        assert abs(p[name] - j[name]) <= METRIC_RTOL * abs(j[name]) + METRIC_ATOL, name

@@ -24,12 +24,12 @@
 // route): the bf16 forward and d_regions run on the tensor cores where
 // R <= 256 and D <= 1024 (regions resident in shared memory at D <= 256,
 // streamed through it above: their own sections below); the fp32 forward
-// and d_regions at R, D <= 256 on the CUDA cores in passes of packed real
-// words with the regions streamed ("The fp32 d_regions" and "The fp32
-// forward" below); the d_words, the fp32 forward and d_regions at wider R
-// or D and the bf16 forward and d_regions at wider R on the CUDA-core
-// kernels that take a caption sub-block per block (fp32 keeps 1e-5 against
-// its plain version, which TF32 would not).
+// and d_regions at R <= 256, D <= 1024 on the CUDA cores in passes of packed
+// real words with the regions streamed ("The fp32 d_regions", "The fp32
+// forward" at D <= 256 and "The wide fp32 forward and d_regions" above it);
+// the d_words, and the fp32 and bf16 forward and d_regions at wider R, on
+// the CUDA-core kernels that take a caption sub-block per block (fp32 keeps
+// 1e-5 against its plain version, which TF32 would not).
 // Captions
 // longer than a block's rows reach the kernels as sub-captions: the wrapper
 // splits each caption's T slots into pieces of at most 64 and combines
@@ -223,6 +223,41 @@
 //  * Bound: 2 products per real word and image, 5.2 ms at the LN word shape
 //    (B = Bc = 256, R = 256, D = 768, 25,300 real words) over 989 TFLOP/s.
 //
+// The wide fp32 forward and d_regions (damsm_fwd_f32w_kernel,
+// damsm_bwd_dr_f32w_kernel), 256 < D <= 1024, R <= 256, on the CUDA cores:
+//  * The fp32 kernels' passes of packed real words (tc_pack_pass), register
+//    tiles (f32_by_cols, f32_by_rows: 4 or 3 rows x 8 columns a thread),
+//    double-buffered cp.async chunk buffers (f32_sweep; plain loads where
+//    rows are not 16-byte aligned), softmax, d_sim and d_r tiles, and the
+//    one reciprocal a row.  Blocks are (image, split), as the other packed
+//    kernels'.
+//  * Shared memory: the pass's words [Mp][SW] (SW = D rounded up to 256,
+//    + 4) beside a [Mp][260], the chunk buffers 2*256*36*4 and 11*Mp+4
+//    fp32/int words.  At D = 768, Mp = 32: 98,816 + 33,280 + 73,728 + 1,424
+//    = 207,248 of the 232,448 bytes a block may have; D > 768 (SW = 1028)
+//    takes Mp = 24: 198,448.  The [Mp, D] context fits neither beside the
+//    words (another 98,816 bytes) nor in registers (96 a thread), so
+//    neither kernel stores it:
+//  * The chain to rel (f32w_attend): sim = W R^T over D / 32 column chunks
+//    (one pass over the regions); a = softmax into A; then c = a R a group
+//    of 256 features at a time over that group's R / 32 row chunks (a
+//    second pass over the regions), each group folded into |c|^2 and c . w
+//    as it completes, so rel = (c . w) / max(|c|, 1e-12).  The forward then
+//    writes the scores as the fp32 forward does (all-padded captions: the
+//    plain value before the passes).
+//  * d_regions: d_c = d rel inrm (w - rel inrm c) needs, per feature, only
+//    c, w and row scalars, so one more sweep takes a group's row chunks (c
+//    again), writes d_c over the group's words in W, and takes the group's
+//    column chunks for d a += d_c R^T (a third and fourth pass over the
+//    regions: 6 products a pass against the 5 the bound counts); d_sim goes
+//    into the chunk buffers, and d_r += A^T DC + DS^T W a group at a time
+//    with the group's words loaded again beside d_sim ([Mp][260]).  The d_r
+//    slice's read-modify-write (R*D*8 bytes a pass) stays once a pass: at
+//    32 rows a pass and ~800 passes an image it moves ~1.57 MB a pass.
+//  * Bound: 2 (forward) and 5 (d_regions) products per real word and image,
+//    76.1 and 190.2 ms at the LN word shape (B = Bc = 256, R = 256, D = 768,
+//    25,317 real words) over 67 TFLOP/s.
+//
 // C interface (ctypes; pointers and the stream as void*):
 //   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, g1, g2,
 //                     dtype, route, stream)
@@ -235,7 +270,8 @@
 //   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
 //   route 0 = the CUDA-core kernel (either dtype), 1 = the tensor-core one
 //   (bf16 only; the streamed kernel for D > 256), 2 = the fp32 forward or
-//   d_regions with packed words (fp32 only, R, D <= 256);
+//   d_regions with packed words (fp32 only, R <= 256, D <= 1024; the wide
+//   kernels for D > 256);
 //   d_words always runs on the CUDA cores.  vb is the captions
 //   per block of the CUDA-core kernels; rows is the word rows per pass, Mp,
 //   of the tensor-core forward and d_regions (route 1) and of the fp32
@@ -245,7 +281,7 @@
 //   Returns cudaGetLastError() after the launches (0 = success).
 //   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels and the fp32
 //   forward and d_regions also count their cycles per phase: int
-//   xmc_damsm_phases_read(host [21] uint64),
+//   xmc_damsm_phases_read(host [22] uint64),
 //   int xmc_damsm_phases_reset() (xmc_gan_tpu_torch/damsm_phases.py).
 
 #include <cuda_bf16.h>
@@ -820,9 +856,12 @@ constexpr int TC_STAGE = 36;     // row stride (fp32) of a warp's [16][32] d_r s
 // streamed forward (damsm_fwd_tcs_kernel) has 0, 1, 12 and of those 13-17
 // (its all-padded captions fall in pack).  The fp32 d_regions
 // (damsm_bwd_dr_f32_kernel) has the streamed d_regions' slots, the fp32
-// forward (damsm_fwd_f32_kernel) the streamed forward's.
+// forward (damsm_fwd_f32_kernel) the streamed forward's, and so has the wide
+// fp32 forward; the wide fp32 d_regions has them too but 18 (its d_c falls
+// in 19, the sweep that also takes c again and d a) and adds 21, its loads
+// of the words again for the d_r products.
 // Without the flag the macros are empty.
-constexpr int TC_NPHASE = 21, TC_PASSES = 10;
+constexpr int TC_NPHASE = 22, TC_PASSES = 10;
 #ifdef XMC_DAMSM_PHASES
 __device__ unsigned long long g_phase_cycles[TC_NPHASE];
 #define TC_PHASE_ARGS , long long (&phase_acc)[TC_NPHASE], long long& phase_t
@@ -2064,9 +2103,11 @@ static_assert(F32_KC * F32_MAX_RD / 4 == 8 * kThreads, "a chunk is 8 16-byte pie
 // d_sim DS [Mp][F32_S] stands during the d_r accumulation; then rel, drel,
 // the 4 column warps' row partials red [4][Mp], the row map and caption slots
 // [Mp] each and info [4] as the tensor-core kernels lay them out (tc: their
-// bf16 tiles unused).
+// bf16 tiles unused).  sw is W's row stride; Wd, the wide d_regions' words
+// tile for its d_r accumulation (f32w_carve), is W here.
 struct F32Smem {
-  float *W, *DC, *A, *Rb, *DS;
+  float *W, *DC, *A, *Rb, *DS, *Wd;
+  int sw;
   TcSmem tc;
 };
 
@@ -2081,6 +2122,8 @@ __device__ F32Smem f32_carve(float* base, int Mp, bool bwd) {
   s.A = bwd ? s.DC + Mp * F32_S : s.DC;
   s.Rb = s.A + Mp * F32_S;
   s.DS = s.Rb;
+  s.Wd = s.W;
+  s.sw = F32_S;
   s.tc = TcSmem{};
   s.tc.rel = s.Rb + 2 * F32_CHUNK;
   s.tc.drel = s.tc.rel + Mp;
@@ -2135,19 +2178,19 @@ __device__ __forceinline__ void f32_rows(float (&v)[MT], float* red) {
 }
 
 // Chunk q of the image's regions ri [R][D] into the buffer dst: the rows
-// 32q .. 32q+31 with all 256 columns ([32][F32_S], ROWS) or the columns
-// 32q .. 32q+31 of all 256 rows ([256][F32_SC]); zero past R and D.  16-byte
-// cp.async (zero-filled out of range) where the rows are 16-byte aligned
-// (d.vec), else plain loads and stores.
+// 32q .. 32q+31 with the 256 columns from d0 ([32][F32_S], ROWS) or the
+// columns 32q .. 32q+31 of all 256 rows ([256][F32_SC]); zero past R and D.
+// 16-byte cp.async (zero-filled out of range) where the rows are 16-byte
+// aligned (d.vec), else plain loads and stores.
 template <bool ROWS>
 __device__ __forceinline__ void f32_load_chunk(float* dst, const float* __restrict__ ri, int q,
-                                               const TcDims& d) {
+                                               const TcDims& d, int d0 = 0) {
   // piece e of the chunk's 2,048 16-byte pieces: its shared offset, region row and column
   auto piece = [&](int e, int& to, int& r, int& k) {
     if (ROWS) {
       to = (e >> 6) * F32_S + (e & 63) * 4;
       r = q * F32_KC + (e >> 6);
-      k = (e & 63) * 4;
+      k = d0 + (e & 63) * 4;
     } else {
       to = (e >> 3) * F32_SC + (e & 7) * 4;
       r = e >> 3;
@@ -2180,43 +2223,52 @@ __device__ __forceinline__ void f32_load_chunk(float* dst, const float* __restri
   }
 }
 
-// One product's sweep over the nq chunks of the regions (ROWS: row chunks,
-// else column chunks), double-buffered: after the barrier that makes chunk q
-// visible (and ends every warp's products on chunk q - 1, whose buffer is
-// next), chunk q + 1 loads with cp.async while compute(buffer, q) runs on
-// chunk q.  Phase SLOT takes the products and the issue of the loads, slot
-// 13 the waits.  Ends after a barrier.
-template <bool ROWS, int SLOT, class F>
-__device__ __forceinline__ void f32_stream(const float* __restrict__ ri, int nq, const TcDims& d,
-                                           const F32Smem& s, F&& compute TC_PHASE_ARGS) {
-  f32_load_chunk<ROWS>(s.Rb, ri, 0, d);
+// A sweep over nq chunks of the regions through the two chunk buffers Rb,
+// double-buffered: load(buffer, q) starts chunk q's copy; after the barrier
+// that makes chunk q visible (and ends every warp's products on chunk q - 1,
+// whose buffer is next), chunk q + 1 loads with cp.async while
+// compute(buffer, q) runs on chunk q.  Phase SLOT takes the products and
+// starting the loads, slot 13 the waits.  Ends after a barrier.
+template <int SLOT, class L, class F>
+__device__ __forceinline__ void f32_sweep(int nq, float* Rb, L&& load, F&& compute TC_PHASE_ARGS) {
+  load(Rb, 0);
   cp_async_commit();
   for (int q = 0; q < nq; ++q) {
     TC_PHASE(SLOT);
     cp_async_wait_all();
     __syncthreads();
     TC_PHASE(13);
-    if (q + 1 < nq) f32_load_chunk<ROWS>(s.Rb + ((q + 1) & 1) * F32_CHUNK, ri, q + 1, d);
+    if (q + 1 < nq) load(Rb + ((q + 1) & 1) * F32_CHUNK, q + 1);
     cp_async_commit();
-    compute(s.Rb + (q & 1) * F32_CHUNK, q);
+    compute(Rb + (q & 1) * F32_CHUNK, q);
   }
   __syncthreads();
   TC_PHASE(SLOT);
 }
 
+// One product's sweep over the nq chunks of the regions (ROWS: row chunks,
+// else column chunks; f32_sweep).
+template <bool ROWS, int SLOT, class F>
+__device__ __forceinline__ void f32_stream(const float* __restrict__ ri, int nq, const TcDims& d,
+                                           const F32Smem& s, F&& compute TC_PHASE_ARGS) {
+  f32_sweep<SLOT>(
+      nq, s.Rb, [&](float* buf, int q) { f32_load_chunk<ROWS>(buf, ri, q, d); }, compute
+      TC_PHASE_PASS);
+}
+
 // acc[i][j] += sum_k A[rg + 8i][k0 + k] C[cg + 32j][k] over a column chunk C
-// of the regions (sim = W R^T, d a = d_c R^T): both operands read along k,
-// 16 bytes at a time, MT + 8 loads for 32 MT FMAs.
+// of the regions (sim = W R^T, d a = d_c R^T; A's rows sa apart): both
+// operands read along k, 16 bytes at a time, MT + 8 loads for 32 MT FMAs.
 template <int MT>
-__device__ __forceinline__ void f32_by_cols(float (&acc)[MT][8], const float* A, const float* C,
-                                            int k0) {
-  const float* a0 = A + f32_rg() * F32_S + k0;
+__device__ __forceinline__ void f32_by_cols(float (&acc)[MT][8], const float* A, int sa,
+                                            const float* C, int k0) {
+  const float* a0 = A + f32_rg() * sa + k0;
   const float* c0 = C + f32_cg() * F32_SC;
 #pragma unroll 1  // the code of a chunk's products stays small (instruction cache)
   for (int k = 0; k < F32_KC; k += 4) {
     float4 a[MT], b[8];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) a[i] = *reinterpret_cast<const float4*>(a0 + 8 * i * F32_S + k);
+    for (int i = 0; i < MT; ++i) a[i] = *reinterpret_cast<const float4*>(a0 + 8 * i * sa + k);
 #pragma unroll
     for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(c0 + 32 * j * F32_SC + k);
 #pragma unroll
@@ -2263,25 +2315,16 @@ __device__ __forceinline__ void f32_by_rows(float (&acc)[MT][8], const float* A,
   }
 }
 
-// The next pass of captions j .. c1-1: warp 0 packs it (tc_pack_pass), the
-// block loads its words into W (rows past it and columns past D are 0).
-// Returns its word rows (0: the remaining captions are all padded) and moves
-// j past its captions.
-__device__ __forceinline__ int f32_next_pass(const float* __restrict__ w,
-                                             const uint8_t* __restrict__ mask, int& j, int c1,
-                                             const TcDims& d, const F32Smem& s TC_PHASE_ARGS) {
-  __syncthreads();  // the previous pass is done with the tiles and the row map
-  if (threadIdx.x < 32) tc_pack_pass(mask, j, c1, d, s.tc);
-  __syncthreads();
-  TC_PHASE(0);
-  const int rows = s.tc.info[0];
-  j = s.tc.info[2];
-  if (rows == 0) return 0;
-  for (int e = threadIdx.x; e < d.Mp * (F32_MAX_RD / 4); e += kThreads) {
-    const int m = e / (F32_MAX_RD / 4), k = (e % (F32_MAX_RD / 4)) * 4;
+// The features d0 .. d0+ncol-1 of the pass's word rows into dst [Mp][sd]
+// (rows past the pass's and features past D are 0).
+__device__ __forceinline__ void f32_load_words(float* dst, int sd, int ncol, int d0,
+                                               const float* __restrict__ w, int rows,
+                                               const TcDims& d, const TcSmem& s) {
+  for (int e = threadIdx.x; e < d.Mp * (ncol / 4); e += kThreads) {
+    const int m = e / (ncol / 4), k = d0 + (e % (ncol / 4)) * 4;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (m < rows && k < d.D) {
-      const float* src = w + (size_t(s.tc.cap_j[s.tc.row_c[m]]) * d.T + s.tc.row_t[m]) * d.D + k;
+      const float* src = w + (size_t(s.cap_j[s.row_c[m]]) * d.T + s.row_t[m]) * d.D + k;
       if (d.vec) {
         const float4 v = *reinterpret_cast<const float4*>(src);
         x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
@@ -2290,36 +2333,38 @@ __device__ __forceinline__ int f32_next_pass(const float* __restrict__ w,
         for (int q = 0; q < 4; ++q) x[q] = k + q < d.D ? src[q] : 0.f;
       }
     }
-    *reinterpret_cast<float4*>(s.W + m * F32_S + k) = make_float4(x[0], x[1], x[2], x[3]);
+    *reinterpret_cast<float4*>(dst + m * sd + k - d0) = make_float4(x[0], x[1], x[2], x[3]);
   }
+}
+
+// The next pass of captions j .. c1-1: warp 0 packs it (tc_pack_pass), the
+// block loads its words into W (ncol features a row: rows past it and
+// columns past D are 0).  Returns its word rows (0: the remaining captions
+// are all padded) and moves j past its captions.
+__device__ __forceinline__ int f32_next_pass(const float* __restrict__ w,
+                                             const uint8_t* __restrict__ mask, int& j, int c1,
+                                             const TcDims& d, const F32Smem& s,
+                                             int ncol TC_PHASE_ARGS) {
+  __syncthreads();  // the previous pass is done with the tiles and the row map
+  if (threadIdx.x < 32) tc_pack_pass(mask, j, c1, d, s.tc);
+  __syncthreads();
+  TC_PHASE(0);
+  const int rows = s.tc.info[0];
+  j = s.tc.info[2];
+  if (rows == 0) return 0;
+  f32_load_words(s.W, s.sw, ncol, 0, w, rows, d, s.tc);
   __syncthreads();
   TC_PHASE(1);
   return rows;
 }
 
-// A pass's chain up to rel, in fp32, on the words in W: sim = W R^T over the
-// column chunks; a = softmax_R(g1 sim) into A (0 at padded regions; not kept
-// in registers, which the products need); c = a R over the row chunks;
-// c_hat = c inrm with inrm = 1 / max(|c|, 1e-12) (c_hat left in c); rel =
-// sum_D c_hat w into rel.  One reciprocal a row, as the tensor-core kernels
-// take it, in place of a division an element: less code (the instruction
-// cache holds the passes' code only in part).  The fp32 forward and
-// d_regions both run it.  Ends after a barrier.
+// a = softmax_R(g1 sim) from the thread's sim sums into A (0 at padded
+// regions; a thread's sums are its rows' regions cg + 32 j).  Ends after a
+// barrier.
 template <int MT>
-__device__ __forceinline__ void f32_attend(float (&c)[MT][8], float (&inrm)[MT],
-                                           const float* __restrict__ ri, const TcDims& d,
-                                           const F32Smem& s TC_PHASE_ARGS) {
+__device__ __forceinline__ void f32_softmax(float (&a)[MT][8], const TcDims& d, const F32Smem& s) {
   const int rg = f32_rg(), cg = f32_cg();
-  float a[MT][8], v[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) a[i][j] = 0.f;
-  f32_stream<false, 14>(ri, (d.D + F32_KC - 1) / F32_KC, d, s,
-                        [&](const float* C, int q) { f32_by_cols<MT>(a, s.W, C, q * F32_KC); }
-                        TC_PHASE_PASS);
-
-  // a = softmax_R(g1 sim)
+  float v[MT];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     v[i] = -INFINITY;
@@ -2347,6 +2392,60 @@ __device__ __forceinline__ void f32_attend(float (&c)[MT][8], float (&inrm)[MT],
     for (int j = 0; j < 8; ++j) s.A[(rg + 8 * i) * F32_S + cg + 32 * j] = a[i][j] * inv;
   }
   __syncthreads();
+}
+
+// d_sim = g1 a (d a - sum_R a d a) into DS (0 at padded regions), from the
+// thread's d a sums (its rows' regions cg + 32 j) and a in A.  Ends after a
+// barrier.
+template <int MT>
+__device__ __forceinline__ void f32_dsim(const float (&da)[MT][8], const TcDims& d,
+                                         const F32Smem& s) {
+  const int rg = f32_rg(), cg = f32_cg();
+  float v[MT];
+#pragma unroll
+  for (int q = 0; q < MT; ++q) {
+    v[q] = 0.f;
+#pragma unroll
+    for (int j2 = 0; j2 < 8; ++j2) {
+      const int col = cg + 32 * j2;
+      if (col < d.R) v[q] = fmaf(s.A[(rg + 8 * q) * F32_S + col], da[q][j2], v[q]);
+    }
+  }
+  f32_rows<MT, false>(v, s.tc.red);
+#pragma unroll
+  for (int q = 0; q < MT; ++q)
+#pragma unroll
+    for (int j2 = 0; j2 < 8; ++j2) {
+      const int col = cg + 32 * j2, at = (rg + 8 * q) * F32_S + col;
+      s.DS[at] = col < d.R ? d.g1 * (s.A[at] * (da[q][j2] - v[q])) : 0.f;
+    }
+  __syncthreads();
+}
+
+// A pass's chain up to rel, in fp32, on the words in W: sim = W R^T over the
+// column chunks; a = softmax_R(g1 sim) into A (0 at padded regions; not kept
+// in registers, which the products need); c = a R over the row chunks;
+// c_hat = c inrm with inrm = 1 / max(|c|, 1e-12) (c_hat left in c); rel =
+// sum_D c_hat w into rel.  One reciprocal a row, as the tensor-core kernels
+// take it, in place of a division an element: less code (the instruction
+// cache holds the passes' code only in part).  The fp32 forward and
+// d_regions both run it.  Ends after a barrier.
+template <int MT>
+__device__ __forceinline__ void f32_attend(float (&c)[MT][8], float (&inrm)[MT],
+                                           const float* __restrict__ ri, const TcDims& d,
+                                           const F32Smem& s TC_PHASE_ARGS) {
+  const int rg = f32_rg(), cg = f32_cg();
+  float a[MT][8], v[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a[i][j] = 0.f;
+  f32_stream<false, 14>(ri, (d.D + F32_KC - 1) / F32_KC, d, s,
+                        [&](const float* C, int q) {
+                          f32_by_cols<MT>(a, s.W, F32_S, C, q * F32_KC);
+                        }
+                        TC_PHASE_PASS);
+  f32_softmax<MT>(a, d, s);
   TC_PHASE(15);
 
   // c = a R; c_hat = c / max(|c|, 1e-12); rel = sum_D c_hat w
@@ -2388,19 +2487,23 @@ __device__ __forceinline__ void f32_attend(float (&c)[MT][8], float (&inrm)[MT],
   TC_PHASE(17);
 }
 
-// d_r [R, D] (the block's slice) = or += A^T DC + DS^T W, contracted over the
-// pass's rows (rows past them add exactly 0: their d_c and d_sim are 0).  In
-// 128 x 128 tiles; a thread owns the rows r0 + 4 ty + 64 hr + e and the
-// columns d0 + 4 tx + 64 hd + e (ty, tx = tid / 16, tid % 16), reads all four
-// operands as 16-byte rows (8 loads for 128 FMAs) and loads the slice's
-// earlier sums before its products, so their latency hides behind them.
+// d_r [R, D] (the block's slice) = or += A^T DC + DS^T W over its features
+// dlo .. dhi-1, contracted over the pass's rows (rows past them add exactly
+// 0: their d_c and d_sim are 0).  DC and W hold those features from their
+// column 0, rows sdc and sw apart (A and DS: F32_S).  In 128 x 128 tiles; a
+// thread owns the rows r0 + 4 ty + 64 hr + e and the columns d0 + 4 tx +
+// 64 hd + e (ty, tx = tid / 16, tid % 16), reads all four operands as
+// 16-byte rows (8 loads for 128 FMAs) and loads the slice's earlier sums
+// before its products, so their latency hides behind them.
 __device__ __forceinline__ void f32_accumulate_dr(float* __restrict__ out, bool first, int rows,
-                                                  const TcDims& d, const F32Smem& s TC_PHASE_ARGS) {
+                                                  const TcDims& d, const F32Smem& s,
+                                                  const float* DC, int sdc, const float* W, int sw,
+                                                  int dlo, int dhi TC_PHASE_ARGS) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const bool vec4 = (d.D & 3) == 0;
   const int rows4 = (rows + 3) & ~3;
   for (int r0 = 0; r0 < d.R; r0 += 128)
-    for (int d0 = 0; d0 < d.D; d0 += 128) {
+    for (int d0 = dlo; d0 < dhi; d0 += 128) {
       const int ra = r0 + 4 * ty, ca = d0 + 4 * tx;
       float prev[8][8];
 #pragma unroll
@@ -2438,8 +2541,8 @@ __device__ __forceinline__ void f32_accumulate_dr(float* __restrict__ out, bool 
         for (int h = 0; h < 2; ++h) {
           op[0][h] = *reinterpret_cast<const float4*>(s.A + m * F32_S + ra + 64 * h);
           op[1][h] = *reinterpret_cast<const float4*>(s.DS + m * F32_S + ra + 64 * h);
-          op[2][h] = *reinterpret_cast<const float4*>(s.DC + m * F32_S + ca + 64 * h);
-          op[3][h] = *reinterpret_cast<const float4*>(s.W + m * F32_S + ca + 64 * h);
+          op[2][h] = *reinterpret_cast<const float4*>(DC + m * sdc + ca - dlo + 64 * h);
+          op[3][h] = *reinterpret_cast<const float4*>(W + m * sw + ca - dlo + 64 * h);
         }
 #pragma unroll
         for (int x = 0; x < 8; ++x) {
@@ -2496,7 +2599,7 @@ damsm_bwd_dr_f32_kernel(const float* __restrict__ r, const float* __restrict__ w
   const float* ri = r + size_t(i) * d.R * d.D;
   bool first = true;
   for (int j = c0; j < c1;) {
-    const int rows = f32_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS);
+    const int rows = f32_next_pass(w, mask, j, c1, d, s, F32_MAX_RD TC_PHASE_PASS);
     if (rows == 0) break;
     const int ncap = s.tc.info[1];
     float c[MT][8], inrm[MT], v[MT];
@@ -2544,29 +2647,14 @@ damsm_bwd_dr_f32_kernel(const float* __restrict__ r, const float* __restrict__ w
 #pragma unroll
       for (int j2 = 0; j2 < 8; ++j2) da[q][j2] = 0.f;
     f32_stream<false, 19>(ri, (d.D + F32_KC - 1) / F32_KC, d, s,
-                          [&](const float* C, int q) { f32_by_cols<MT>(da, s.DC, C, q * F32_KC); }
+                          [&](const float* C, int q) {
+                            f32_by_cols<MT>(da, s.DC, F32_S, C, q * F32_KC);
+                          }
                           TC_PHASE_PASS);
-#pragma unroll
-    for (int q = 0; q < MT; ++q) {
-      v[q] = 0.f;
-#pragma unroll
-      for (int j2 = 0; j2 < 8; ++j2) {
-        const int col = cg + 32 * j2;
-        if (col < d.R) v[q] = fmaf(s.A[(rg + 8 * q) * F32_S + col], da[q][j2], v[q]);
-      }
-    }
-    f32_rows<MT, false>(v, s.tc.red);
-#pragma unroll
-    for (int q = 0; q < MT; ++q)
-#pragma unroll
-      for (int j2 = 0; j2 < 8; ++j2) {
-        const int col = cg + 32 * j2, at = (rg + 8 * q) * F32_S + col;
-        s.DS[at] = col < d.R ? d.g1 * (s.A[at] * (da[q][j2] - v[q])) : 0.f;
-      }
-    __syncthreads();
+    f32_dsim<MT>(da, d, s);
     TC_PHASE(20);
 
-    f32_accumulate_dr(out, first, rows, d, s TC_PHASE_PASS);
+    f32_accumulate_dr(out, first, rows, d, s, s.DC, F32_S, s.W, F32_S, 0, d.D TC_PHASE_PASS);
     TC_PHASE_SYNC(11);
     TC_PHASE_COUNT(TC_PASSES);
     first = false;
@@ -2596,7 +2684,7 @@ damsm_fwd_f32_kernel(const float* __restrict__ r, const float* __restrict__ w,
   const float* ri = r + size_t(i) * d.R * d.D;
   tc_padded_scores(mask, c0, c1, d, lane, warp, out_i);
   for (int j = c0; j < c1;) {
-    if (f32_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS) == 0) break;
+    if (f32_next_pass(w, mask, j, c1, d, s, F32_MAX_RD TC_PHASE_PASS) == 0) break;
     float c[MT][8], inrm[MT];
     f32_attend<MT>(c, inrm, ri, d, s TC_PHASE_PASS);
     tc_write_scores(s.tc, d, lane, warp, out_i);
@@ -2644,6 +2732,295 @@ int launch_dr_f32(const float* r, const float* w, const uint8_t* mask, const flo
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// fp32 forward and d_regions on the CUDA cores at 256 < D <= 1024, R <= 256,
+// the real words packed and the regions streamed (header: "The wide fp32
+// forward and d_regions").
+// ---------------------------------------------------------------------------
+
+constexpr int F32W_MAX_D = 1024;   // D limit
+constexpr int F32W_ROWS = 32;      // word rows per pass where the words tile fits (D <= 768),
+constexpr int F32W_ROWS_MIN = 24;  // else 24
+constexpr int F32W_DG = 256;       // features of a context group: 8 sums a thread
+static_assert(F32W_DG == F32_MAX_RD, "a group of features is a row chunk's 256 columns");
+static_assert(2 * F32W_ROWS * F32_S <= 2 * F32_CHUNK,
+              "d_sim and a group of the words fit in the chunk buffers");
+
+// The words tile's row stride: D rounded up to whole groups of features, + 4
+// so that rows lie 4 banks apart.
+__host__ __device__ inline int f32w_stride(int D) { return round_up(D, F32W_DG) + 4; }
+
+// Words W [Mp][f32w_stride(D)] (the d_regions' d_c takes their place a group
+// at a time), a A [Mp][F32_S], the two chunk buffers Rb [2][F32_CHUNK] (the
+// d_regions' d_sim DS and one group of the words Wd, [Mp][F32_S] each, take
+// their place for the d_r accumulation) and 11 fp32/int words a row, as
+// f32_carve lays them out.
+size_t f32w_smem_bytes(int Mp, int D) {
+  return 4 * (size_t(Mp) * (f32w_stride(D) + F32_S) + 2 * size_t(F32_CHUNK) + size_t(11) * Mp +
+              4);
+}
+
+// Its rows' part (rel .. info) is written out as in f32_carve: a helper
+// shared by the two carves changed the SASS of the bf16 d_regions kernels,
+// which call neither (nvcc 12.9, sm_90a).
+__device__ F32Smem f32w_carve(float* base, int Mp, int D) {
+  F32Smem s;
+  s.sw = f32w_stride(D);
+  s.W = base;
+  s.DC = s.W;
+  s.A = s.W + Mp * s.sw;
+  s.Rb = s.A + Mp * F32_S;
+  s.DS = s.Rb;
+  s.Wd = s.Rb + Mp * F32_S;
+  s.tc = TcSmem{};
+  s.tc.rel = s.Rb + 2 * F32_CHUNK;
+  s.tc.drel = s.tc.rel + Mp;
+  s.tc.red = s.tc.drel + Mp;
+  s.tc.row_t = reinterpret_cast<int*>(s.tc.red + 4 * Mp);
+  s.tc.row_c = s.tc.row_t + Mp;
+  s.tc.cap_j = s.tc.row_c + Mp;
+  s.tc.cap_base = s.tc.cap_j + Mp;
+  s.tc.cap_n = s.tc.cap_base + Mp;
+  s.tc.info = s.tc.cap_n + Mp;
+  return s;
+}
+
+bool f32w_dims_ok(const TcDims& d) {
+  return d.B > 0 && d.B <= 65535 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.R <= F32_MAX_RD &&
+         d.D > F32_MAX_RD && d.D <= F32W_MAX_D &&
+         (d.Mp == F32W_ROWS || d.Mp == F32W_ROWS_MIN) && d.T <= d.Mp &&
+         f32w_smem_bytes(d.Mp, d.D) <= size_t(SMEM_LIMIT);
+}
+
+// |c|^2 and c . w from the thread's context sums c over a group of 256
+// features (its features 4 cg + 128 h + e, the words tile's from Wc) into cc
+// and cw; c is reset to 0 for the next group.
+template <int MT>
+__device__ __forceinline__ void f32w_fold(float (&c)[MT][8], float (&cc)[MT], float (&cw)[MT],
+                                          const float* Wc, int sw) {
+  const int rg = f32_rg(), cg = f32_cg();
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 wv =
+          *reinterpret_cast<const float4*>(Wc + (rg + 8 * i) * sw + 4 * cg + 128 * h);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = c[i][4 * h + e];
+        cc[i] = fmaf(x, x, cc[i]);
+        cw[i] = fmaf(x, f4_at(wv, e), cw[i]);
+        c[i][4 * h + e] = 0.f;
+      }
+    }
+}
+
+// d_c = sc (w - sr c) over a group of 256 features from the thread's context
+// sums c, with sc = d rel inrm and sr = rel inrm a row (d c_hat = d rel w and
+// <c_hat, d c_hat> = d rel rel, so d_c = (d c_hat - c_hat <c_hat, d c_hat>)
+// inrm), written over the group's words at Wc; c is reset to 0.
+template <int MT>
+__device__ __forceinline__ void f32w_dc(float (&c)[MT][8], const float (&sc)[MT],
+                                        const float (&sr)[MT], float* Wc, int sw) {
+  const int rg = f32_rg(), cg = f32_cg();
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* p = Wc + (rg + 8 * i) * sw + 4 * cg + 128 * h;
+      const float4 wv = *reinterpret_cast<const float4*>(p);
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = sc[i] * (f4_at(wv, e) - sr[i] * c[i][4 * h + e]);
+        c[i][4 * h + e] = 0.f;
+      }
+      *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+    }
+}
+
+// A pass's chain up to rel at 256 < D <= 1024, in fp32, on the words in W:
+// sim = W R^T over the column chunks and a = softmax_R(g1 sim) into A, as
+// f32_attend; then c = a R a group of 256 features at a time, the group's
+// R / 32 row chunks in turn within one sweep, each group folded into |c|^2
+// and c . w as it completes (f32w_fold), so that c is never stored; inrm =
+// 1 / max(|c|, 1e-12) (the one reciprocal a row) and rel = (c . w) inrm into
+// rel.  Ends after a barrier.
+template <int MT>
+__device__ __forceinline__ void f32w_attend(float (&inrm)[MT], const float* __restrict__ ri,
+                                            const TcDims& d, const F32Smem& s TC_PHASE_ARGS) {
+  const int rg = f32_rg();
+  const int nr = (d.R + F32_KC - 1) / F32_KC, ng = (d.D + F32W_DG - 1) / F32W_DG;
+  float a[MT][8];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a[i][j] = 0.f;
+  f32_stream<false, 14>(ri, (d.D + F32_KC - 1) / F32_KC, d, s,
+                        [&](const float* C, int q) {
+                          f32_by_cols<MT>(a, s.W, s.sw, C, q * F32_KC);
+                        }
+                        TC_PHASE_PASS);
+  f32_softmax<MT>(a, d, s);
+  TC_PHASE(15);
+
+  float c[MT][8], cc[MT], cw[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    cc[i] = cw[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
+  }
+  f32_sweep<16>(
+      nr * ng, s.Rb,
+      [&](float* buf, int q) { f32_load_chunk<true>(buf, ri, q % nr, d, (q / nr) * F32W_DG); },
+      [&](const float* Rr, int q) {
+        f32_by_rows<MT>(c, s.A, Rr, (q % nr) * F32_KC);
+        if (q % nr == nr - 1) f32w_fold<MT>(c, cc, cw, s.W + (q / nr) * F32W_DG, s.sw);
+      } TC_PHASE_PASS);
+  f32_rows<MT, false>(cc, s.tc.red);
+  f32_rows<MT, false>(cw, s.tc.red);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) inrm[i] = 1.f / fmaxf(sqrtf(cc[i]), 1e-12f);
+  if (((threadIdx.x >> 5) & 3) == 0 && (threadIdx.x & 7) == 0)
+#pragma unroll
+    for (int i = 0; i < MT; ++i) s.tc.rel[rg + 8 * i] = cw[i] * inrm[i];
+  __syncthreads();
+  TC_PHASE(17);
+}
+
+// d_regions, fp32 operands, 256 < D <= 1024, R <= 256: block (image i,
+// split).  Each pass runs the chain to rel (f32w_attend)
+// and d rel; one sweep then takes the context again a group of 256 features
+// at a time (the group's row chunks), turns it into d_c over the group's
+// words in W (f32w_dc) and adds d_c R^T into d a (the group's column chunks,
+// up to D); d_sim goes into DS; then, a group at a time, the group's words
+// come back into Wd and A^T DC + DS^T Wd is added into partial[i][split].
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_bwd_dr_f32w_kernel(const float* __restrict__ r, const float* __restrict__ w,
+                         const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                         float* __restrict__ partial, TcDims d, int nsplit) {
+  static_assert(8 * MT <= F32W_ROWS, "d_sim and a group of the words fit in the chunk buffers");
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  const F32Smem s = f32w_carve(reinterpret_cast<float*>(tc_smem_raw), 8 * MT, d.D);
+  TC_PHASE_INIT
+  const int i = blockIdx.x, split = blockIdx.y;
+  const int rg = f32_rg();
+  const int per = (d.Bc + nsplit - 1) / nsplit;
+  const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
+  float* out = partial + (size_t(i) * nsplit + split) * d.R * d.D;
+  const float* ri = r + size_t(i) * d.R * d.D;
+  // the sweep's chunks: a group is its nr row chunks, then its kg column
+  // chunks (the last group's only up to D)
+  const int nr = (d.R + F32_KC - 1) / F32_KC, nk = (d.D + F32_KC - 1) / F32_KC;
+  const int ng = (d.D + F32W_DG - 1) / F32W_DG, kg = F32W_DG / F32_KC, per_g = nr + kg;
+  bool first = true;
+  for (int j = c0; j < c1;) {
+    const int rows = f32_next_pass(w, mask, j, c1, d, s, round_up(d.D, F32W_DG) TC_PHASE_PASS);
+    if (rows == 0) break;
+    float inrm[MT];
+    f32w_attend<MT>(inrm, ri, d, s TC_PHASE_PASS);
+    tc_drel(g, i, rows, s.tc.info[1], d, s.tc);
+    __syncthreads();
+    TC_PHASE(4);
+
+    // c again, d_c over the words and d a += d_c R^T, a group at a time
+    float sc[MT], sr[MT], c[MT][8], da[MT][8];
+#pragma unroll
+    for (int q = 0; q < MT; ++q) {
+      sc[q] = s.tc.drel[rg + 8 * q] * inrm[q];
+      sr[q] = s.tc.rel[rg + 8 * q] * inrm[q];
+#pragma unroll
+      for (int j2 = 0; j2 < 8; ++j2) c[q][j2] = da[q][j2] = 0.f;
+    }
+    f32_sweep<19>(
+        (ng - 1) * per_g + nr + nk - (ng - 1) * kg, s.Rb,
+        [&](float* buf, int q) {
+          const int gq = min(q / per_g, ng - 1), k = q - gq * per_g;
+          if (k < nr) f32_load_chunk<true>(buf, ri, k, d, gq * F32W_DG);
+          else f32_load_chunk<false>(buf, ri, gq * kg + k - nr, d);
+        },
+        [&](const float* C, int q) {
+          const int gq = min(q / per_g, ng - 1), k = q - gq * per_g;
+          if (k < nr) {
+            f32_by_rows<MT>(c, s.A, C, k * F32_KC);
+            if (k == nr - 1) f32w_dc<MT>(c, sc, sr, s.W + gq * F32W_DG, s.sw);
+          } else {
+            f32_by_cols<MT>(da, s.W, s.sw, C, (gq * kg + k - nr) * F32_KC);
+          }
+        } TC_PHASE_PASS);
+    f32_dsim<MT>(da, d, s);
+    TC_PHASE(20);
+
+    // d_r += A^T DC + DS^T W, a group at a time, its words in Wd again
+    for (int gq = 0; gq < ng; ++gq) {
+      f32_load_words(s.Wd, F32_S, F32W_DG, gq * F32W_DG, w, rows, d, s.tc);
+      __syncthreads();
+      TC_PHASE(21);
+      f32_accumulate_dr(out, first, rows, d, s, s.W + gq * F32W_DG, s.sw, s.Wd, F32_S,
+                        gq * F32W_DG, min(d.D, (gq + 1) * F32W_DG) TC_PHASE_PASS);
+      __syncthreads();  // every warp is done with Wd
+      TC_PHASE(11);
+    }
+    TC_PHASE_COUNT(TC_PASSES);
+    first = false;
+  }
+  if (first)  // no caption of the split has a real word: the slice is 0
+    for (int e = threadIdx.x; e < d.R * d.D; e += kThreads) out[e] = 0.f;
+  TC_PHASE_FLUSH
+}
+
+// The forward, fp32 operands, 256 < D <= 1024, R <= 256: block (image i,
+// split) as the wide d_regions'; each pass runs the chain to rel (f32w_attend)
+// and writes the score of each of its captions to out[i][j].
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_fwd_f32w_kernel(const float* __restrict__ r, const float* __restrict__ w,
+                      const uint8_t* __restrict__ mask, float* __restrict__ out, TcDims d,
+                      int nsplit) {
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  const F32Smem s = f32w_carve(reinterpret_cast<float*>(tc_smem_raw), 8 * MT, d.D);
+  TC_PHASE_INIT
+  const int i = blockIdx.x, split = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (d.Bc + nsplit - 1) / nsplit;
+  const int c0 = min(d.Bc, split * per), c1 = min(d.Bc, c0 + per);
+  float* out_i = out + size_t(i) * d.Bc;
+  const float* ri = r + size_t(i) * d.R * d.D;
+  tc_padded_scores(mask, c0, c1, d, lane, warp, out_i);
+  for (int j = c0; j < c1;) {
+    if (f32_next_pass(w, mask, j, c1, d, s, round_up(d.D, F32W_DG) TC_PHASE_PASS) == 0) break;
+    float inrm[MT];
+    f32w_attend<MT>(inrm, ri, d, s TC_PHASE_PASS);
+    tc_write_scores(s.tc, d, lane, warp, out_i);
+    TC_PHASE_SYNC(12);
+    TC_PHASE_COUNT(TC_PASSES);
+  }
+  TC_PHASE_FLUSH
+}
+
+template <int MT>
+int launch_fwd_f32w(const float* r, const float* w, const uint8_t* mask, float* out,
+                    const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_fwd_f32w_kernel<MT>;
+  const size_t bytes = f32w_smem_bytes(8 * MT, d.D);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  k<<<dim3(d.B, nsplit), kThreads, bytes, st>>>(r, w, mask, out, d, nsplit);
+  return int(cudaGetLastError());
+}
+
+template <int MT>
+int launch_dr_f32w(const float* r, const float* w, const uint8_t* mask, const float* g,
+                   float* partial, float* dr, const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_bwd_dr_f32w_kernel<MT>;
+  const size_t bytes = f32w_smem_bytes(8 * MT, d.D);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  k<<<dim3(d.B, nsplit), kThreads, bytes, st>>>(r, w, mask, g, partial, d, nsplit);
+  if (partial != dr) launch_sum(partial, dr, d.B, nsplit, int64_t(d.R) * d.D, st);
+  return int(cudaGetLastError());
+}
+
 // Dispatch on the operand type and on MB = rows per warp (4 for <= 32 word
 // rows per block, else 8).
 #define XMC_DAMSM_DISPATCH(LAUNCH, ...)                                            \
@@ -2687,12 +3064,17 @@ extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, voi
     if (!tc_dims_ok(t)) return int(cudaErrorInvalidValue);  // the regions resident
     XMC_TC_DISPATCH(launch_fwd_tc, r, w, m, o, t, nsplit, st);
   }
-  if (route == 2) {  // the fp32 kernel with packed words, in passes of F32_FWD_ROWS word rows
+  if (route == 2) {  // an fp32 kernel with packed words, in passes of `rows` word rows
     const TcDims t = make_f32_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
-    if (dtype != 0 || nsplit < 1 || !f32_dims_ok(t, F32_FWD_ROWS))
-      return int(cudaErrorInvalidValue);
-    return launch_fwd_f32<F32_FWD_ROWS / 8>(static_cast<const float*>(r),
-                                             static_cast<const float*>(w), m, o, t, nsplit, st);
+    if (dtype != 0 || nsplit < 1) return int(cudaErrorInvalidValue);
+    const float *rf = static_cast<const float*>(r), *wf = static_cast<const float*>(w);
+    if (D > F32_MAX_RD) {  // the wide kernel: the context a group of features at a time
+      if (!f32w_dims_ok(t)) return int(cudaErrorInvalidValue);
+      return t.Mp == F32W_ROWS ? launch_fwd_f32w<F32W_ROWS / 8>(rf, wf, m, o, t, nsplit, st)
+                               : launch_fwd_f32w<F32W_ROWS_MIN / 8>(rf, wf, m, o, t, nsplit, st);
+    }
+    if (!f32_dims_ok(t, F32_FWD_ROWS)) return int(cudaErrorInvalidValue);
+    return launch_fwd_f32<F32_FWD_ROWS / 8>(rf, wf, m, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
   if (route != 0 || !dims_ok(d)) return int(cudaErrorInvalidValue);
@@ -2722,10 +3104,17 @@ extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, 
     if (!tc_dims_ok(t)) return int(cudaErrorInvalidValue);  // the regions resident
     XMC_TC_DISPATCH(launch_dr_tc, r, w, m, gg, p, o, t, nsplit, st);
   }
-  if (route == 2) {  // the fp32 kernel with packed words, in passes of F32_ROWS word rows
+  if (route == 2) {  // an fp32 kernel with packed words, in passes of `rows` word rows
     const TcDims t = make_f32_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
-    if (dtype != 0 || nsplit < 1 || !f32_dims_ok(t, F32_ROWS)) return int(cudaErrorInvalidValue);
+    if (dtype != 0 || nsplit < 1) return int(cudaErrorInvalidValue);
     const float *rf = static_cast<const float*>(r), *wf = static_cast<const float*>(w);
+    if (D > F32_MAX_RD) {  // the wide kernel: the context a group of features at a time
+      if (!f32w_dims_ok(t)) return int(cudaErrorInvalidValue);
+      return t.Mp == F32W_ROWS
+                 ? launch_dr_f32w<F32W_ROWS / 8>(rf, wf, m, gg, p, o, t, nsplit, st)
+                 : launch_dr_f32w<F32W_ROWS_MIN / 8>(rf, wf, m, gg, p, o, t, nsplit, st);
+    }
+    if (!f32_dims_ok(t, F32_ROWS)) return int(cudaErrorInvalidValue);
     return launch_dr_f32<F32_ROWS / 8>(rf, wf, m, gg, p, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);

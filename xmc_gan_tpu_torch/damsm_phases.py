@@ -9,9 +9,10 @@ barriers into per-phase counters), runs one launch of each kernel of that
 build through its wrapper, at the wrapper's own plan, at the flagship
 word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words, D = 256), and
 of the streamed bf16
-d_regions and forward at the LN-COCO word shape
-(B = Bc = 256, R = 256, T = 200 as the 16-slot sub-captions of the packed
-real words that ``damsm_scores`` hands them, D = 768), and prints the card, each
+d_regions and forward and the wide fp32 d_regions and forward at the LN-COCO
+word shape (B = Bc = 256, R = 256, T = 200 as the 16-slot sub-captions of
+the packed real words that ``damsm_scores`` hands them, D = 768), and prints
+the card, each
 launch's time (CUDA events) and its cycles per pass of each phase, summed
 over blocks.  Phases both bf16 flagship kernels have: pack
 (warp 0 packs the pass's real words), words (their load), sim + softmax
@@ -33,7 +34,14 @@ streamed forward has pack, words, the region waits, the sim and c products,
 softmax, norm + rel and scores.  The fp32 d_regions (packed words, regions
 streamed in 32-row and 32-column chunks) has the streamed bf16 d_regions'
 phases, the fp32 forward (the same passes and chain to rel) the streamed
-bf16 forward's.  The counters cost time of their own (an
+bf16 forward's.  The wide fp32 forward (D > 256) has the fp32 forward's
+phases: its c products are the sweep over the row chunks of each
+256-feature group, and norm + rel the two reductions that end it.  The
+wide fp32 d_regions has the fp32 d_regions' but d_c (norm): its d a
+products are one sweep that takes the context again a group at a time,
+its d_c over the group and its d a (column chunks), and it adds words
+again, the loads of a group's words before that group's d_r products.
+The counters cost time of their own (an
 extra barrier a pass), so a launch is slower than the plain build's.  Needs
 a GPU and ``nvcc``; imports nothing of JAX.
 """
@@ -49,19 +57,21 @@ from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary
 
 # csrc/damsm_score.cu: the TC_PHASE slots (TC_NPHASE of them; [PASSES] counts passes)
-NPHASE, PASSES = 21, 10
+NPHASE, PASSES = 22, 10
 PHASES = {0: "pack", 1: "words", 2: "sim + softmax", 3: "c + rel", 4: "d rel", 5: "d_c",
           6: "d a + d_sim", 7: "d_r products", 8: "d_r read-modify-write", 9: "regions",
           11: "d_r barrier", 12: "scores", 13: "region waits", 14: "sim products",
           15: "softmax", 16: "c products", 17: "norm + rel", 18: "d_c (norm)",
-          19: "d a products", 20: "d_sim"}
+          19: "d a products", 20: "d_sim", 21: "words again"}
 # each kernel's phases, in the order a pass runs them
 KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
                  "d_regions, streamed": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
                  "d_regions, fp32": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
                  "forward": (0, 1, 2, 3, 12, 9),
                  "forward, streamed": (0, 1, 14, 15, 16, 17, 12, 13),
-                 "forward, fp32": (0, 1, 14, 15, 16, 17, 12, 13)}
+                 "forward, fp32": (0, 1, 14, 15, 16, 17, 12, 13),
+                 "d_regions, fp32 wide": (0, 1, 14, 15, 16, 17, 4, 19, 20, 21, 13, 7, 8, 11),
+                 "forward, fp32 wide": (0, 1, 14, 15, 16, 17, 12, 13)}
 
 
 def phase_library() -> CudaLibrary:
@@ -102,8 +112,9 @@ def main() -> int:
     ln_w = norm(torch.randn(ln_b, ln_t, ln_d, generator=gen, device="cuda"), dim=-1)
     ln_mask = torch.rand(ln_b, ln_t, generator=gen, device="cuda") > 0.5
     ln_up = torch.randn(ln_b, ln_b, generator=gen, device="cuda")
-    w_sub, m_sub = ds.split_captions(ln_w, ln_mask,
-                                     ds.sub_caption_width(R, ln_t, ln_d, torch.bfloat16))
+    width = ds.sub_caption_width(R, ln_t, ln_d, torch.bfloat16)
+    assert width == ds.sub_caption_width(R, ln_t, ln_d, None)  # both dtypes split alike
+    w_sub, m_sub = ds.split_captions(ln_w, ln_mask, width)
     g_sub = ln_up.repeat_interleave(w_sub.shape[0] // ln_b, dim=1)
     launches = {
         "d_regions, fp32": (lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, None,
@@ -121,6 +132,12 @@ def main() -> int:
         "forward, streamed": (lambda: ds._launch_fwd(ln_r, w_sub, m_sub, 4.0, 5.0, torch.bfloat16,
                                                      library=lib), ln_b, ln_mask,
                               f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions", ln_d),
+        "d_regions, fp32 wide": (lambda: ds._launch_bwd("dr", ln_r, w_sub, m_sub, g_sub, 4.0, 5.0,
+                                                        None, library=lib), ln_b, ln_mask,
+                                 f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions", ln_d),
+        "forward, fp32 wide": (lambda: ds._launch_fwd(ln_r, w_sub, m_sub, 4.0, 5.0, None,
+                                                      library=lib), ln_b, ln_mask,
+                               f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions", ln_d),
     }
     print(card)
     for kernel, (launch, nb, words, t_desc, d) in launches.items():

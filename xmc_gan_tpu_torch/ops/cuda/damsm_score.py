@@ -25,12 +25,13 @@ with the image's regions resident in shared memory at D <= 256 and streamed
 through it in column chunks above.  The tensor-core d_regions also rounds
 ``d_c`` and ``d_sim`` to bf16 before their products, as the Pallas kernel
 does (within one bf16 ulp of the largest gradient of the plain version).
-The fp32 forward and d_regions at R, D <= 256 run on the CUDA cores in
-passes of packed real words with the regions streamed (``PACKED_FP32``,
-plans ``plan_fwd_f32`` and ``plan_dr_f32``).  Everything else (the d_words,
-the fp32 forward and d_regions at wider R or D, the bf16 forward and
-d_regions at wider R) runs on the CUDA-core kernels that take a caption
-sub-block per block (``plan``), for D <= 1024.
+The fp32 forward and d_regions at R <= 256, D <= 1024 run on the CUDA cores
+in passes of packed real words with the regions streamed (``PACKED_FP32``,
+plans ``plan_fwd_f32`` and ``plan_dr_f32``): at D <= 256 with the context's
+[rows, D] sums in registers, above it (the wide kernels) a group of 256
+features at a time, never stored.  Everything else (the d_words, the fp32
+and bf16 forward and d_regions at wider R) runs on the CUDA-core kernels
+that take a caption sub-block per block (``plan``), for D <= 1024.
 
 Any T: a block holds at most 64 word rows, so where T does not fit
 ``damsm_scores`` moves each caption's real words to the front, drops the
@@ -143,6 +144,11 @@ F32_SC = 36
 F32_KC = 32
 F32_ROWS = (48,)
 F32_FWD_ROWS = (64,)
+# the wide fp32 forward and d_regions (256 < D <= 1024): D limit, word rows
+# per pass they can take (largest first), features of a context group
+F32W_MAX_D = 1024
+F32W_ROWS = (32, 24)
+F32W_DG = 256
 
 
 def _round_up(x: int, m: int) -> int:
@@ -153,9 +159,10 @@ def route(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     """The route rule, per kernel (``which``: "fwd", "dr" or "dw"):
     ``TENSOR_CORES`` for the bf16 forward and d_regions if and only if
     R <= 256 and D <= 1024 (regions resident at D <= 256, streamed above);
-    ``PACKED_FP32`` for the fp32 forward and d_regions at R, D <= 256
-    (passes of packed real words, the regions streamed); ``CUDA_CORES`` for
-    every other launch.  T plays no part: the kernels see sub-captions of
+    ``PACKED_FP32`` for the fp32 forward and d_regions if and only if
+    R <= 256 and D <= 1024 (passes of packed real words, the regions
+    streamed; the wide kernels above D = 256); ``CUDA_CORES`` for every
+    other launch.  T plays no part: the kernels see sub-captions of
     at most 64 slots.  The launches, the plans, ``kernel_name`` and
     ``sub_caption_width`` all read it."""
     if which not in ("fwd", "dr", "dw"):
@@ -164,7 +171,7 @@ def route(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
             and D <= TCS_MAX_D):
         return TENSOR_CORES
     if (which != "dw" and compute_dtype != torch.bfloat16 and R <= F32_MAX_RD
-            and D <= F32_MAX_RD):
+            and D <= F32W_MAX_D):
         return PACKED_FP32
     return CUDA_CORES
 
@@ -203,9 +210,10 @@ def plan(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
 
 class TcPlan(NamedTuple):
     """Launch plan of a kernel whose blocks are (image, split): the bf16
-    tensor-core forward or d_regions, or the fp32 d_regions."""
+    tensor-core forward or d_regions, or the packed fp32 forward or
+    d_regions."""
 
-    rows: int      # word rows per pass: a multiple of 16, at least T
+    rows: int      # word rows per pass, at least T (bf16: a multiple of 16)
     nsplit: int    # caption splits: blocks are (image, split)
     captions: int  # captions per block (one split)
     smem: int      # dynamic shared memory bytes
@@ -265,18 +273,42 @@ def _f32_smem(rows: int, bwd: bool) -> int:
     return 4 * ((3 if bwd else 2) * rows * F32_S + 2 * F32_MAX_RD * F32_SC + 11 * rows + 4)
 
 
+def _f32w_smem(D: int, rows: int) -> int:
+    """The wide fp32 forward's or d_regions' shared memory (256 < D <=
+    1024), the same for both, as ``csrc/damsm_score.cu`` computes it
+    (``f32w_smem_bytes``): the pass's words ``[rows, SW]`` with SW = D
+    rounded up to whole 256-feature groups + 4, a ``[rows, F32_S]``, the two
+    chunk buffers ``[256, F32_SC]`` (the d_regions' d_sim and one group of
+    the words take their place for the d_r accumulation) and 11 fp32/int
+    words per row."""
+    sw = _round_up(D, F32W_DG) + 4
+    return 4 * (rows * (sw + F32_S) + 2 * F32_MAX_RD * F32_SC + 11 * rows + 4)
+
+
+class PackedKernel(NamedTuple):
+    """One kernel of the packed routes (``TENSOR_CORES``, ``PACKED_FP32``):
+    its shared memory for a number of rows per pass, the rows per pass it
+    can take (largest first), its D limit and the profiler's name."""
+
+    smem: Callable[[int], int]
+    rows: tuple[int, ...]
+    max_d: int
+    name: str
+
+
 def _tc_rows(smem: Callable[[int], int], rows: tuple[int, ...] = TC_ROWS) -> int:
     """The largest of ``rows`` whose ``smem(rows)`` fits (0 if none)."""
     return next((m for m in rows if smem(m) <= SMEM_LIMIT), 0)
 
 
 def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
-             smem: Callable[[int], int], rows: tuple[int, ...] = TC_ROWS,
-             max_d: int = TC_MAX_RD) -> TcPlan:
-    """Rows per pass: the largest of ``rows`` that holds one caption and
-    whose ``smem(rows)`` fits.  A block takes a multiprocessor's shared
-    memory, so the splits fill the card's ``sms`` once: ``sms // b`` (at
-    least 1).  Raises for T > max(rows), R > 256 or D > ``max_d``."""
+             kernel: PackedKernel) -> TcPlan:
+    """Rows per pass: the largest of the kernel's rows that holds one
+    caption and whose shared memory fits.  A block takes a multiprocessor's
+    shared memory, so the splits fill the card's ``sms`` once: ``sms // b``
+    (at least 1).  Raises for T > max(rows), R > 256 or D above the
+    kernel's limit."""
+    smem, rows, max_d = kernel.smem, kernel.rows, kernel.max_d
     if T > rows[0] or R > TC_MAX_RD or D > max_d:
         raise ValueError(f"damsm_score {what} takes T <= {rows[0]}, R <= "
                          f"{TC_MAX_RD} and D <= {max_d}; got R={R}, T={T}, D={D}")
@@ -289,48 +321,60 @@ def _plan_tc(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
 
 
 # the bf16 tensor-core kernels by (which, regions streamed): shared memory for
-# (R, D, rows), the rows per pass each can take and its D limit; the kernels
-# keep their regions resident at D <= 256 and stream them above
+# (R, D, rows), the rows per pass each can take, its D limit and name; the
+# kernels keep their regions resident at D <= 256 and stream them above
 _TC_KERNELS = {
-    ("fwd", False): (_tc_fwd_smem, TC_ROWS, TC_MAX_RD),
-    ("fwd", True): (_tcs_fwd_smem, TCS_FWD_ROWS, TCS_MAX_D),
-    ("dr", False): (_tc_dr_smem, TC_ROWS, TC_MAX_RD),
-    ("dr", True): (_tcs_dr_smem, TCS_ROWS, TCS_MAX_D),
+    ("fwd", False): (_tc_fwd_smem, TC_ROWS, TC_MAX_RD, "damsm_fwd_tc_kernel<"),
+    ("fwd", True): (_tcs_fwd_smem, TCS_FWD_ROWS, TCS_MAX_D, "damsm_fwd_tcs_kernel<"),
+    ("dr", False): (_tc_dr_smem, TC_ROWS, TC_MAX_RD, "damsm_bwd_dr_tc_kernel<"),
+    ("dr", True): (_tcs_dr_smem, TCS_ROWS, TCS_MAX_D, "damsm_bwd_dr_tcs_kernel<"),
 }
 
 
-def _tc_kernel(which: str, R: int, D: int) -> tuple[Callable[[int], int], tuple[int, ...], int]:
+def _tc_kernel(which: str, R: int, D: int) -> PackedKernel:
     """The bf16 tensor-core kernel (``which``: "fwd" or "dr") that takes R,
-    D: its shared memory for a number of rows, the rows per pass it can take
-    and its D limit (``_TC_KERNELS``)."""
-    smem, rows, max_d = _TC_KERNELS[(which, D > TC_MAX_RD)]
-    return (lambda m: smem(R, D, m)), rows, max_d
+    D (``_TC_KERNELS``)."""
+    smem, rows, max_d, name = _TC_KERNELS[(which, D > TC_MAX_RD)]
+    return PackedKernel(lambda m: smem(R, D, m), rows, max_d, name)
 
 
 def plan_fwd(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     """The bf16 tensor-core forward kernel's plan (``_tc_kernel``)."""
-    return _plan_tc("bf16 forward", R, T, D, b, bc, sms, *_tc_kernel("fwd", R, D))
+    return _plan_tc("bf16 forward", R, T, D, b, bc, sms, _tc_kernel("fwd", R, D))
 
 
 def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     """The bf16 tensor-core d_regions kernel's plan (``_tc_kernel``)."""
-    return _plan_tc("bf16 d_regions", R, T, D, b, bc, sms, *_tc_kernel("dr", R, D))
+    return _plan_tc("bf16 d_regions", R, T, D, b, bc, sms, _tc_kernel("dr", R, D))
+
+
+def _f32_kernel(which: str, D: int) -> PackedKernel:
+    """The packed fp32 kernel (``which``: "fwd" or "dr") that takes D: at
+    D <= 256 ``F32_FWD_ROWS`` or ``F32_ROWS`` rows (``_f32_smem``), above it
+    the wide kernels' ``F32W_ROWS`` (``_f32w_smem``)."""
+    prefix = {"fwd": "damsm_fwd", "dr": "damsm_bwd_dr"}[which]
+    if D > F32_MAX_RD:
+        return PackedKernel(lambda m: _f32w_smem(D, m), F32W_ROWS, F32W_MAX_D,
+                            f"{prefix}_f32w_kernel<")
+    bwd = which == "dr"
+    return PackedKernel(lambda m: _f32_smem(m, bwd), F32_ROWS if bwd else F32_FWD_ROWS,
+                        F32_MAX_RD, f"{prefix}_f32_kernel<")
 
 
 def plan_dr_f32(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
-    """The fp32 d_regions kernel's plan (``PACKED_FP32``): blocks (image,
-    split) as the tensor-core kernels', ``F32_ROWS`` word rows a pass
-    (``_f32_smem``).  Raises for T > 48, R > 256 or D > 256."""
-    return _plan_tc("fp32 d_regions", R, T, D, b, bc, sms, lambda m: _f32_smem(m, True),
-                    F32_ROWS, F32_MAX_RD)
+    """The fp32 d_regions kernel's plan (``PACKED_FP32``, ``_f32_kernel``):
+    blocks (image, split) as the tensor-core kernels'.  Raises for R > 256,
+    D > 1024, or T above the kernel's rows a pass (48 at D <= 256, else
+    32)."""
+    return _plan_tc("fp32 d_regions", R, T, D, b, bc, sms, _f32_kernel("dr", D))
 
 
 def plan_fwd_f32(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
-    """The fp32 forward kernel's plan (``PACKED_FP32``): blocks (image,
-    split) as the fp32 d_regions', ``F32_FWD_ROWS`` word rows a pass
-    (``_f32_smem``).  Raises for T > 64, R > 256 or D > 256."""
-    return _plan_tc("fp32 forward", R, T, D, b, bc, sms, lambda m: _f32_smem(m, False),
-                    F32_FWD_ROWS, F32_MAX_RD)
+    """The fp32 forward kernel's plan (``PACKED_FP32``, ``_f32_kernel``):
+    blocks (image, split) as the fp32 d_regions'.  Raises for R > 256,
+    D > 1024, or T above the kernel's rows a pass (64 at D <= 256, else
+    32)."""
+    return _plan_tc("fp32 forward", R, T, D, b, bc, sms, _f32_kernel("fwd", D))
 
 
 def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
@@ -338,14 +382,14 @@ def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -
     that ``which`` ("fwd", "dr" or "dw") launches at R, D and compute dtype
     (``route``): on the tensor cores with the regions resident
     (``_tc_kernel<``) or streamed (``_tcs_kernel<``), the fp32 forward and
-    d_regions with packed words (``_f32_kernel<``), else on the CUDA cores
-    (templated on the operand type, except the forward's kernels)."""
+    d_regions with packed words (``_f32_kernel<``; ``_f32w_kernel<`` at
+    D > 256), else on the CUDA cores (templated on the operand type, except
+    the forward's kernels)."""
     rt = route(which, R, D, compute_dtype)
     if rt == TENSOR_CORES:
-        tc = "tc" if D <= TC_MAX_RD else "tcs"
-        return {"fwd": f"damsm_fwd_{tc}_kernel<", "dr": f"damsm_bwd_dr_{tc}_kernel<"}[which]
+        return _tc_kernel(which, R, D).name
     if rt == PACKED_FP32:
-        return {"fwd": "damsm_fwd_f32_kernel<", "dr": "damsm_bwd_dr_f32_kernel<"}[which]
+        return _f32_kernel(which, D).name
     bf16 = compute_dtype == torch.bfloat16
     return {"fwd": "damsm_fwd_bf16_kernel<" if bf16 else "damsm_fwd_kernel<",
             "dr": "damsm_bwd_dr_kernel<" + ("__nv_bfloat16" if bf16 else "float"),
@@ -359,8 +403,8 @@ def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None)
     backward hold fewer rows than the CUDA-core forward; the bf16 forward
     and d_regions must hold it too where ``route`` puts them on the tensor
     cores, and the fp32 forward and d_regions where they pack their words
-    (64 and 48 rows a pass).  A pure function of the shape: the CPU splits
-    as the card does.  Raises for D > 1024 or where not one word row fits
+    (64 and 48 rows a pass at D <= 256, 32 or 24 above).  A pure function of
+    the shape: the CPU splits as the card does.  Raises for D > 1024 or where not one word row fits
     in shared memory."""
     if D > MAX_DP:
         raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
@@ -370,8 +414,8 @@ def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None)
     if route("dr", R, D, compute_dtype) == TENSOR_CORES:
         width = min(width, _tc_rows(*_tc_kernel("dr", R, D)[:2]))
     if route("dr", R, D, compute_dtype) == PACKED_FP32:  # the forward packs under the same rule
-        width = min(width, _tc_rows(lambda m: _f32_smem(m, False), F32_FWD_ROWS),
-                    _tc_rows(lambda m: _f32_smem(m, True), F32_ROWS))
+        width = min(width, _tc_rows(*_f32_kernel("fwd", D)[:2]),
+                    _tc_rows(*_f32_kernel("dr", D)[:2]))
     if width < 1:
         per_row, fixed = _cuda_core_smem(R, D, backward=True)
         raise ValueError(f"damsm_score: R={R}, D={D} does not fit in shared memory (a word "

@@ -1,4 +1,4 @@
-"""One timing script run on several checkouts in turns: the driver of ``attn_turns`` and ``affine_turns``.
+"""Timing scripts run on several checkouts in turns (``attn_turns``, ``affine_turns``, ``damsm_turns``).
 
 A tool supplies the body of a child script and what it times (``payload``).
 For each tree, a checkout of this repository, a child process whose working
@@ -9,8 +9,9 @@ alike.  Each round runs the trees in turns, the order reversed every other
 round (A B, B A, ...), so a drift of the card's clocks falls on all alike;
 the medians over the rounds fold every number the turns report.
 
-``sass`` builds ``csrc/<source>`` of two trees and compares each kernel's
-SASS.  Needs a GPU and ``nvcc``; imports nothing of JAX.
+``prebuild`` builds every tree's kernels at once before the turns; ``sass``
+builds ``csrc/<source>`` of two trees (both at once) and compares each
+kernel's SASS.  Needs a GPU and ``nvcc``; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -52,6 +54,19 @@ def run_child(tree: Path, body: str, payload: dict) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"{tree}: exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def prebuild(trees: list[Path], statement: str) -> None:
+    """``statement`` (a build, e.g. ``KERNEL.load()``) in a child process on
+    every tree, all at once, so that the turns find every tree built."""
+    procs = [subprocess.Popen([sys.executable, "-c", statement], cwd=tree,
+                              env={**os.environ, "PYTHONPATH": str(tree)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for tree in trees]
+    for tree, proc in zip(trees, procs):
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tree}: build exit {proc.returncode}\n{text}")
 
 
 def median(results: list):
@@ -130,11 +145,13 @@ def sass(trees: list[Path], source: str, keep=lambda name: True) -> dict:
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     funcs = []
     with tempfile.TemporaryDirectory() as tmp:
-        for i, tree in enumerate(trees[:2]):
-            lib = os.path.join(tmp, f"lib{i}.so")
-            subprocess.run([nvcc, *NVCC_FLAGS, "-o", lib,
-                            str(tree / "xmc_gan_tpu_torch" / "csrc" / source)],
-                           check=True, capture_output=True)
+        libs = [os.path.join(tmp, f"lib{i}.so") for i in range(2)]
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda i: subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", libs[i],
+                 str(trees[i] / "xmc_gan_tpu_torch" / "csrc" / source)],
+                check=True, capture_output=True), range(2)))
+        for lib in libs:
             text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                                   check=True).stdout
             # the anonymous namespace's name carries a per-file hash
@@ -147,7 +164,19 @@ def sass(trees: list[Path], source: str, keep=lambda name: True) -> dict:
                 parts[name.strip()] = re.sub(r"[ \t]+", " ", body.split("\n\t\t..........")[0])
             funcs.append(parts)
     first, second = funcs
+    differ = sorted(n for n in first if n in second and second[n] != first[n])
     return {"identical": sorted(n for n in first if second.get(n) == first[n]),
-            "differ": sorted(n for n in first if n in second and second[n] != first[n]),
+            "differ": differ,
             "missing": sorted(n for n in first if n not in second),
-            "new": sorted(n for n in second if n not in first)}
+            "new": sorted(n for n in second if n not in first),
+            "differences": {n: _line_diff(first[n], second[n]) for n in differ}}
+
+
+def _line_diff(a: str, b: str, show: int = 4) -> dict:
+    """How two SASS listings of a kernel differ: their lengths in lines, the
+    lines that differ where they have as many, and the first few of those."""
+    la, lb = a.strip().split("\n"), b.strip().split("\n")
+    pairs = [(x.strip(), y.strip()) for x, y in zip(la, lb) if x != y]
+    return {"lines": [len(la), len(lb)],
+            "differing_lines": len(pairs) if len(la) == len(lb) else None,
+            "first": pairs[:show]}
