@@ -100,6 +100,26 @@ Phases (any failure raises, and the exit code is then non-zero):
    timed, 1 profiled; prints the step ms, images/s, peak memory, the
    device ms by category (``damsm_score`` among them) and the ten largest
    kernels.
+6b. Full-width training through ``Trainer.fit`` (the port's training
+   program): the flagship_word config of phase 6 in bf16 on 512 synthetic
+   examples (4 steps an epoch, one in-epoch grid an epoch), 2 epochs with
+   ``save_after=0``, auto-checkpoints every 3 steps and FID after each
+   epoch (the random-init Inception, the 128-example test split), steps 2
+   and 3 traced by the trainer's own ``profile_dir``; then a fresh
+   ``Trainer`` on the same run resumes from the newest auto-checkpoint
+   (step 6, 2 batches of epoch 2 skipped) and trains on to the end of
+   epoch 3.  Checks every launch of both runs (28 / 14 ``fused_affine``,
+   2 / 2 / 0 damsm a step, 14 ``fused_affine`` forwards a grid or FID
+   batch), the traced steps' kernels by name, the files the run wrote
+   (``img/``, ``log/``, ``model/`` epochs 1 and 2, ``model/auto`` steps 3
+   and 6) and finite losses; prints the loop's step wall (median over the
+   steps without a trace, save or epoch edge) beside phase 6's bare step,
+   the loader's ms a batch and the decode route, the device busy share,
+   one checkpoint's save and restore ms and bytes, each FID eval's ms
+   (and the host ``sqrtm``'s part) and peak memory.  Then runs
+   ``python -m xmc_gan_tpu_torch.cli train`` once (``df_gan_damsm.yml``,
+   batch 88, 2 steps) and checks its exit code and console lines.  The
+   runs' directories are deleted.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs; for the
@@ -123,11 +143,13 @@ from __future__ import annotations
 import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import os
 import re
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -142,14 +164,17 @@ from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
 from xmc_gan_tpu_torch.ops.cuda.build import load_all
-from xmc_gan_tpu_torch.profiling import cuda_ms, device_kernels
+from xmc_gan_tpu_torch import eval as fid_eval
+from xmc_gan_tpu_torch.data import native
+from xmc_gan_tpu_torch.profiling import cuda_ms, device_kernels, read_trace
 from xmc_gan_tpu_torch.train import (
     create_train_state,
     make_generator,
     make_sample_fn,
     make_train_step,
 )
-from xmc_gan_tpu_torch.trainer import make_encode_fn
+from xmc_gan_tpu_torch.trainer import Trainer, make_encode_fn
+from xmc_gan_tpu_torch.utils.checkpoint import CheckpointManager
 
 REPO = Path(__file__).resolve().parent
 CFG = REPO / "xmc_gan_tpu" / "cfg" / "df_gan_damsm.yml"  # the YAML schema file only
@@ -1265,6 +1290,228 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
     return res
 
 
+# phase 6b: the flagship_word config through Trainer.fit.  512 synthetic
+# examples are 4 steps an epoch at batch 128 and a test split of 128 (the
+# trainer's synthetic_len // 4: one FID batch); LOG_INTERVAL 4 draws one
+# in-epoch grid an epoch (the YAML's 200 would draw none).
+LOOP_SYNTHETIC_LEN = 512
+LOOP_STEPS_PER_EPOCH = LOOP_SYNTHETIC_LEN // BATCH
+LOOP_SAVE_EVERY = 3
+LOOP_PROFILE = (1, 3)  # the trainer traces steps 2 and 3
+LOOP_TRACE_LOSS = 64  # launches at the trace's start that may lose their kernel
+LOOP_CLI = ["--cfg", str(CFG), "--synthetic", "--synthetic_len", "176", "--imsize", "256",
+            "--max_steps", "2", "--log_type", "none", "--save_after", "0", "--no_eval_fid"]
+
+
+def loop_cfg():
+    over = copy.deepcopy(TRAIN_OVERRIDES)
+    over["CONFIG_NAME"] = "flagship_word"
+    over["TRAIN"]["LOG_INTERVAL"] = LOOP_STEPS_PER_EPOCH
+    return cfg_from_dict(over)
+
+
+def loop_launches(steps: int, sample_batches: int) -> dict[str, int]:
+    """A fit's launches: each step's, and 14 fused_affine forwards for each
+    batch through G outside the steps (sample grids and FID batches)."""
+    return {k: steps * n + sample_batches * REQUEST_LAUNCHES["DF_GEN"].get(k, 0)
+            for k, n in STEP_LAUNCHES.items()}
+
+
+def timed_fit(tr, **kw) -> tuple[dict, list, list]:
+    """``tr.fit(**kw)`` with the host time at which each step was handed to
+    the step function (and the global step it makes) and each FID eval's ms
+    with the part of it in ``fid_from_stats`` (the host's ``sqrtm``)."""
+    calls, evals = [], []
+    step_fn, evaluate, fid_from_stats = tr.step_fn, tr.evaluate, fid_eval.fid_from_stats
+    sqrtm_ms = []
+
+    def timed_fid_from_stats(*stats):
+        t0 = time.perf_counter()
+        value = fid_from_stats(*stats)
+        sqrtm_ms.append((time.perf_counter() - t0) * 1e3)
+        return value
+
+    def step(state, batch, noise):
+        calls.append((time.perf_counter(), state.step + 1))
+        return step_fn(state, batch, noise)
+
+    def timed_evaluate(epoch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = evaluate(epoch)
+        evals.append(((time.perf_counter() - t0) * 1e3, sqrtm_ms.pop()))
+        return value
+
+    tr.step_fn, tr.evaluate = step, timed_evaluate
+    fid_eval.fid_from_stats = timed_fid_from_stats
+    try:
+        metrics = tr.fit(**kw)
+        torch.cuda.synchronize()
+    finally:
+        tr.step_fn, tr.evaluate = step_fn, evaluate
+        fid_eval.fid_from_stats = fid_from_stats
+    return metrics, calls, evals
+
+
+def clean_step_walls(calls: list, profiled: tuple[int, int]) -> list[float]:
+    """ms between consecutive step hand-overs inside an epoch, where the
+    earlier step is not an auto-save step and neither lies in the traced
+    window: the loop's own step wall (loader, encoder, copies, the previous
+    step's metrics read, the step's launches) with the card in steady state."""
+    out = []
+    for (t0, g0), (t1, g1) in zip(calls, calls[1:]):
+        same_epoch = (g0 - 1) // LOOP_STEPS_PER_EPOCH == (g1 - 1) // LOOP_STEPS_PER_EPOCH
+        traced = any(profiled[0] <= g <= profiled[1] + 1 for g in (g0, g1))
+        if g1 == g0 + 1 and same_epoch and g0 % LOOP_SAVE_EVERY and not traced:
+            out.append((t1 - t0) * 1e3)
+    return out
+
+
+def check_counts(label: str, want: dict[str, int]) -> dict[str, int]:
+    got = read_counts()
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return got
+
+
+def train_loop(card: str, bare_step_ms: float) -> dict:
+    """Phase 6b: full-width training through ``Trainer.fit`` on the card."""
+    cfg = loop_cfg()
+    root = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        return _train_loop(card, cfg, root, bare_step_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _train_loop(card: str, cfg, root: str, bare_step_ms: float) -> dict:
+    kw = dict(seed=100, output_root=root, log_type="none", synthetic=True,
+              synthetic_len=LOOP_SYNTHETIC_LEN, save_after=0, save_every_steps=LOOP_SAVE_EVERY,
+              eval_num_samples=LOOP_SYNTHETIC_LEN // 4, dtype=torch.bfloat16, device="cuda")
+    label = f"[6b] loop bf16 flagship_word bs{BATCH} 256² | {card}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trace_dir = os.path.join(root, "trace")
+    tr = Trainer(cfg, profile_dir=trace_dir, profile_steps=LOOP_PROFILE, **kw)
+    if tr.decode_route != "synthetic":
+        raise AssertionError(f"{label}: decode route {tr.decode_route}, want synthetic")
+    steps = 2 * LOOP_STEPS_PER_EPOCH
+    reset_counts()  # the loop's run: two epochs
+    metrics, calls, evals = timed_fit(tr, max_epochs=2)
+    # per epoch: the fixed grid, one in-epoch grid and one FID batch
+    launches = check_counts(f"{label} fit, 2 epochs", loop_launches(steps, 2 * 3))
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    if bad or tr.state.step != steps:
+        raise AssertionError(f"{label}: non-finite {bad} or step {tr.state.step} != {steps}")
+    out = Path(tr.output_dir)
+    files = ["img/sents.txt", "img/imgs.png", "img/fake_samples_epoch_001.png",
+             "img/fake_samples_epoch_002.png", "log/log.txt",
+             f"img/fake_samples_{LOOP_STEPS_PER_EPOCH:03d}.png"]
+    missing = [f for f in files if not (out / f).is_file()]
+    if missing or tr.ckpt.all_epochs() != [1, 2] or tr.auto_ckpt.all_epochs() != [3, 6]:
+        raise AssertionError(f"{label}: missing {missing}; checkpoints {tr.ckpt.all_epochs()}, "
+                             f"auto {tr.auto_ckpt.all_epochs()}")
+    # the traced window: steps 2 and 3, nothing else through G
+    trace = read_trace(os.path.join(trace_dir, "trace.json"))
+    traced_steps = LOOP_PROFILE[1] - LOOP_PROFILE[0]
+    want = {KERNEL_PATTERN[k]: traced_steps * n for k, n in STEP_LAUNCHES.items()}
+    got = {pat: sum(bool(re.search(pat, n)) for n in trace["names"]) for pat in want}
+    # a trace on this machine can lose the kernels of its first launches
+    # (profiling._OPENERS); the trainer's cannot be taken again, so those
+    # are allowed, and only those, with the port's kernels all there
+    if got != want or any(i >= LOOP_TRACE_LOSS for i in trace["lost"]):
+        raise AssertionError(f"{label}: traced steps' kernels by name {got}, want {want}; "
+                             f"launches without their kernel at {trace['lost']} of "
+                             f"{trace['launches']}")
+    busy = trace["busy_ms"] / trace["span_ms"]
+    walls = clean_step_walls(calls, LOOP_PROFILE)
+    step_busy_ms = trace["busy_ms"] / traced_steps
+    del tr
+    torch.cuda.empty_cache()
+
+    # resume: a fresh trainer on the same run, from the newest auto-checkpoint
+    tr = Trainer(cfg, **kw)
+    if tr.resume_latest_auto() != 6 or tr._resume_skip != 2 or tr.state_epoch != 1:
+        raise AssertionError(f"{label}: resumed at step {tr.state.step}, skip "
+                             f"{tr._resume_skip}, epoch {tr.state_epoch}; want 6, 2, 1")
+    reset_counts()  # the resumed run: the rest of epoch 2 and epoch 3
+    metrics2, calls2, evals2 = timed_fit(tr, max_epochs=3)
+    resumed_steps = 3 * LOOP_STEPS_PER_EPOCH - 6
+    launches2 = check_counts(f"{label} resumed fit", loop_launches(resumed_steps, 2 * 3))
+    bad = [k for k, v in metrics2.items() if not math.isfinite(v)]
+    if bad or tr.state.step != 3 * LOOP_STEPS_PER_EPOCH or tr.ckpt.all_epochs() != [1, 2, 3]:
+        raise AssertionError(f"{label}: resumed run non-finite {bad}, step {tr.state.step}, "
+                             f"checkpoints {tr.ckpt.all_epochs()}")
+    walls += clean_step_walls(calls2, (0, -2))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the loader alone: one epoch of batches, threaded as in fit
+    tr.train_loader.set_epoch(99)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in tr.train_loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / n
+    # one checkpoint's save and restore, on a manager of its own
+    mgr = CheckpointManager(os.path.join(root, "timing"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, tr.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    ckpt_bytes = os.path.getsize(mgr.path(1))
+    t0 = time.perf_counter()
+    mgr.restore(tr.state, 1)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    del tr
+    torch.cuda.empty_cache()
+
+    # the CLI's train at its own config (df_gan_damsm.yml: batch 88, SENT +
+    # DISC, so fused_affine only), as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "xmc_gan_tpu_torch.cli", "train", *LOOP_CLI,
+                           "--output_root", os.path.join(root, "cli")], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if "Loss_D:" in ln]
+    if proc.returncode != 0 or len(lines) != 2 or "Save models" not in proc.stdout:
+        raise AssertionError(f"{label}: cli train exit {proc.returncode}, console lines {lines}"
+                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+
+    res = {"card": card, "config": "flagship_word", "dtype": "bf16", "batch": BATCH,
+           "launches_fit": launches, "launches_resumed": launches2,
+           "loop_step_ms": statistics.median(walls), "loop_step_ms_all": walls,
+           "bare_step_ms": bare_step_ms, "loader_ms_per_batch": loader_ms,
+           "decode_route": "synthetic", "native_decoder_available": native.available(),
+           "device_busy_ms": trace["busy_ms"], "trace_span_ms": trace["span_ms"],
+           "device_busy_share": busy, "step_busy_ms": step_busy_ms,
+           "trace_launches": trace["launches"], "trace_lost": trace["lost"],
+           "step_busy_share_unprofiled": step_busy_ms / statistics.median(walls),
+           "ckpt_save_ms": save_ms, "ckpt_restore_ms": restore_ms,
+           "ckpt_bytes": ckpt_bytes, "fid_eval_ms": [e for e, _ in evals + evals2],
+           "fid_sqrtm_ms": [q for _, q in evals + evals2], "peak_mem_gib": peak,
+           "cli_train_s": cli_s, "cli_console": lines,
+           "metrics": metrics, "metrics_resumed": metrics2}
+    log(f"{label}: 2 epochs of {LOOP_STEPS_PER_EPOCH} steps, launches {launches}; resumed at "
+        f"step 6 (2 batches of epoch 2 skipped), {resumed_steps} steps, launches {launches2}; "
+        f"files {files}, checkpoints [1, 2] and auto [3, 6] written")
+    log(f"{label}: loop step {res['loop_step_ms']:.1f} ms (median of {len(walls)} steps "
+        f"{', '.join(f'{w:.1f}' for w in walls)}) beside the bare step's {bare_step_ms:.1f} ms "
+        f"(phase 6); loader {loader_ms:.1f} ms a batch (decode route synthetic; native "
+        f"decoder available: {native.available()})")
+    log(f"{label}: traced steps 2-3 of fit: device busy {trace['busy_ms']:.1f} of "
+        f"{trace['span_ms']:.1f} ms (share {busy:.3f}, the profiler's host cost included), "
+        f"the kernels by name {got}; {step_busy_ms:.1f} ms busy a step against the unprofiled "
+        f"loop step: share {res['step_busy_share_unprofiled']:.3f}; of {trace['launches']} "
+        f"launches, those at {trace['lost']} have no kernel in the trace")
+    log(f"{label}: checkpoint save {save_ms:.1f} ms, restore {restore_ms:.1f} ms, "
+        f"{ckpt_bytes} bytes; FID eval (random-init Inception, {LOOP_SYNTHETIC_LEN // 4} "
+        f"test samples) {', '.join(f'{e:.1f} ({q:.1f} of it fid_from_stats)' for e, q in evals + evals2)}"
+        f" ms (the first of each run builds the extractor); peak memory {peak:.2f} GiB")
+    log(f"{label}: cli train (df_gan_damsm.yml, batch 88, 2 steps) exit 0 in {cli_s:.1f} s: "
+        + " | ".join(ln.split(" INFO: ")[-1] for ln in lines))
+    return res
+
+
 def launch_patterns(launches: dict[str, int]) -> dict[str, int]:
     """A counted run's launches as ``device_kernels``' ``expect``: the
     kernels by name that a whole trace of the same run holds."""
@@ -1705,6 +1952,7 @@ def main() -> int:
     ln_train = train(ln_cfg(), "LN-COCO", torch.bfloat16, 0, 2, ln_mask)
     ln_train32 = train(ln_cfg({"TRAIN": {"BATCH_SIZE": LN_FP32_BATCH}}), "LN-COCO",
                        torch.float32, 0, 2, ln_mask)
+    loop = train_loop(card, trains[torch.bfloat16]["step_ms"])
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
@@ -1727,7 +1975,8 @@ def main() -> int:
          for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")}, own_ms)
     log(json.dumps({"card": card, "serving": list(runs.values()),
                     "concept_serving": [r for rs in concept_runs.values() for r in rs.values()],
-                    "training": [*trains.values(), ln_train, ln_train32]}))
+                    "training": [*trains.values(), ln_train, ln_train32],
+                    "training_loop": loop}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,7 +28,7 @@ from xmc_gan_tpu_torch.train import (
     make_sample_fn,
     make_train_step,
 )
-from xmc_gan_tpu_torch.trainer import make_encode_fn
+from xmc_gan_tpu_torch.trainer import Trainer, make_encode_fn
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "xmc_gan_tpu_torch"
@@ -135,6 +135,51 @@ def test_train_step_runs_where_the_state_is(no_cuda):
     assert all(v.device.type == "cpu" and bool(torch.isfinite(v.float())) for v in metrics.values())
 
 
+def _tiny_yaml(tmp_path) -> str:
+    import yaml
+
+    path = tmp_path / "tiny.yml"
+    path.write_text(yaml.safe_dump({**TINY, "CONFIG_NAME": "TINY",
+                                    "TRAIN": {**TINY["TRAIN"], "BATCH_SIZE": 2}}))
+    return str(path)
+
+
+@pytest.mark.parametrize("entry", ["Trainer", "FidComputer", "cli train"])
+def test_training_entry_points_run_on_cuda_unless_cpu_is_asked(entry, no_cuda, tmp_path):
+    """The trainer, the FID extractor and the CLI's ``train``: no GPU and no
+    explicit CPU request raises; with ``device="cpu"`` each runs whole (one
+    train step with its grid and checkpoint; features of a batch)."""
+    from xmc_gan_tpu_torch import cli
+    from xmc_gan_tpu_torch.eval import FidComputer
+
+    cfg = cfg_from_dict({**TINY, "TRAIN": {**TINY["TRAIN"], "BATCH_SIZE": 2}})
+    out = str(tmp_path / "out")
+
+    def trainer(**kw):
+        tr = Trainer(cfg, output_root=out, log_type="none", synthetic=True, synthetic_len=4,
+                     save_after=0, eval_fid=False, num_threads=1, **kw)
+        metrics = tr.fit(max_epochs=1)
+        assert np.isfinite(metrics["Loss_D"]) and tr.ckpt.all_epochs() == [1]
+
+    def fid(**kw):
+        f = FidComputer(**kw)
+        feats = f.features(np.zeros((2, 32, 32, 3), np.uint8))
+        assert feats.shape == (2, 2048) and bool(torch.isfinite(feats).all())
+
+    def train_cli(**kw):
+        argv = ["train", "--cfg", _tiny_yaml(tmp_path), "--synthetic", "--synthetic_len", "4",
+                "--max_steps", "1", "--log_type", "none", "--no_eval_fid", "--save_after", "0",
+                "--output_root", out]
+        assert cli.main(argv + [f"--device={kw['device']}"] if kw else argv) == 0
+
+    call = {"Trainer": trainer, "FidComputer": fid, "cli train": train_cli}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(device="cuda")
+    call(device="cpu")
+
+
 def test_unsupported_device_raises():
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
@@ -207,7 +252,8 @@ def test_modules_list_covers_the_slice():
             "ops.cuda.fused_affine", "ops.cuda.damsm_score", "ops.cuda.cross_attention",
             "ops.cross_attention", "ops.grouped", "models.common", "models.df_gan",
             "models.df_concept_gan", "models.concept_gan", "models.encoder", "utils.convert",
-            "utils.miscc", "data.vocab"}
+            "utils.miscc", "data.vocab", "data.pipeline", "data.native", "data.toy",
+            "utils.checkpoint", "utils.logger", "models.inception", "eval"}
     assert {f"xmc_gan_tpu_torch.{m}" for m in want} <= set(MODULES)
     for name in MODULES:
         importlib.import_module(name)

@@ -77,3 +77,22 @@ def test_turns_median_folds_nested_results_and_leaves_lists_out():
             {"a": {"ms": 3.0, "by_shape": [2]}, "b": 4.0},
             {"a": {"ms": 2.0, "by_shape": [3]}, "b": 9.0}]
     assert turns.median(runs) == {"a": {"ms": 2.0}, "b": 5.0}
+
+
+@pytest.mark.parametrize("lost", [(), (3,)])
+def test_read_trace_reads_a_programs_own_trace(lost, tmp_path):
+    """``read_trace`` (the trainer's ``profile_dir`` trace): every kernel in
+    start order, the busy ms as the union of overlapping kernels, the span
+    over every timed event and the launches without their kernel."""
+    import json
+
+    overlap = {"cat": "kernel", "name": "side", "ts": 24.0, "dur": 8.0, "args": {"correlation": 9}}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": _trace(lost=lost, extra=[overlap])}))
+    got = profiling.read_trace(str(path))
+    names = ["opener", "k2", "side", "k3", "k4"]
+    assert got["names"] == [n for n in names if n != "k3" or not lost]
+    # opener 2-3, k2 17-21, side 24-32, k3 25-29, k4 35-39
+    assert got["busy_ms"] == pytest.approx((1 + 4 + 8 + 4) / 1e3)
+    assert got["span_ms"] == pytest.approx((110 - 2) / 1e3)
+    assert got["launches"] == 4 and got["lost"] == ([2] if lost else [])

@@ -10,6 +10,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from xmc_gan_tpu.config import cfg_from_dict as jax_cfg_from_dict
@@ -128,3 +129,14 @@ def port_d(cfg, params, spectral, dtype=torch.float32, fuse_downsample=True) -> 
              gen=torch.Generator().manual_seed(0))
     d.load_state_dict(df_gan_discriminator_state_dict(params, spectral), strict=True)
     return d
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for a module's tests, restored after: the
+    tier-1 run puts six xdist workers, each with JAX's thread pool, on the
+    same cores, where more threads per worker only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -7,9 +7,10 @@ raises when there is none.  The CPU is used only when the caller asks for it
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "DTYPES"]
+__all__ = ["resolve_device", "to_device", "DTYPES"]
 
 # CLI / config spelling -> torch dtype
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -25,3 +26,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on ``dev``.  A host array bound for
+    the card crosses from pinned memory with ``non_blocking=True``: a plain
+    copy from pageable memory waits for every kernel already queued on the
+    stream, which would serialize the host's next batch with the card."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)

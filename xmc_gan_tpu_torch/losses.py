@@ -85,7 +85,7 @@ def make_labels(sent_embs: torch.Tensor, b_global: bool, smooth_global: float,
         global_pos = (sim > p) & (sim < 3.0)
         num_pos = global_pos.sum(1).clamp_min(1) + 1
         if smooth_global != 0.0:
-            weight = torch.tensor(smooth_global, dtype=torch.float32, device=labels.device)
+            weight = torch.full((), smooth_global, dtype=torch.float32, device=labels.device)
         else:
             weight = (1.0 / num_pos.float())[None, :]
         labels = (labels + weight * global_pos.float()).clamp_max(1.0)
@@ -96,9 +96,9 @@ def contrastive_num_pos(labels: torch.Tensor, b_global: bool,
                         smooth_global: float) -> torch.Tensor:
     """Per-row positive count used as the InfoNCE normalizer."""
     if not b_global:
-        return torch.tensor(1.0, device=labels.device)
+        return torch.full((), 1.0, device=labels.device)
     if smooth_global == 0.0:
-        return torch.tensor(2.0, device=labels.device)
+        return torch.full((), 2.0, device=labels.device)
     return (labels > 0).sum(1).float()
 
 

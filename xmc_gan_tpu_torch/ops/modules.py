@@ -77,7 +77,8 @@ def fold_upsample_kernel(weight: torch.Tensor, groups: int = 1) -> torch.Tensor:
     rows ``j*O/g ...`` pair with its input rows ``j*I/g ...``, so the folded
     taps are regrouped per group.
     """
-    taps = torch.tensor(_UPFOLD_TAPS, dtype=weight.dtype, device=weight.device)
+    # non_blocking: a blocking copy from host memory would wait for the card's queue
+    taps = torch.tensor(_UPFOLD_TAPS, dtype=weight.dtype).to(weight.device, non_blocking=True)
     w4 = torch.einsum("ma,nb,oiab->oimn", taps, taps, weight)  # [O, I/g, 4, 4]
     o, ig = w4.shape[:2]
     return (w4.reshape(groups, o // groups, ig, 4, 4).transpose(1, 2)

@@ -6,7 +6,8 @@ call launches from a ``torch.profiler`` (CUPTI) trace, and takes the trace
 again where it is not whole: on the H100 machine a trace has come back
 without the kernels of its first launches (``_OPENERS``).  ``chip_smoke.py``,
 the ``*_turns`` timing tools and the card tests read every trace through
-it.  Imports torch only; needs a GPU when called.
+it.  ``read_trace`` reads a trace that a program wrote itself (the
+trainer's ``profile_dir``).  Imports torch only; needs a GPU when called.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-__all__ = ["cuda_ms", "device_kernels"]
+__all__ = ["cuda_ms", "device_kernels", "read_trace"]
 
 _SPAN = "profiling.device_kernels"  # the traced call's annotation
 _LAUNCH = re.compile(r"^cuda(LaunchKernel|LaunchKernelExC)(_v\d+)?$")  # runtime launch calls
@@ -136,3 +137,31 @@ def device_kernels(fn, expect: dict[str, int] | None = None,
         busy_us += max(0.0, stop - max(k["ts"], end))
         end = max(end, stop)
     return kernels, busy_us / 1e3, wall_ms
+
+
+def read_trace(path: str) -> dict:
+    """The CUDA kernels of a Chrome trace that ``torch.profiler`` wrote
+    (e.g. ``Trainer(profile_dir=...)``), with no span of its own: the
+    kernels' names in start order, the device's busy ms (the union of their
+    intervals), the trace's span ms (first event's start to last event's
+    end, host events included), the number of runtime kernel launches, and
+    the places among them (0 = the first) of those that have no kernel in
+    the trace (``lost``: such a trace is not whole; ``_OPENERS`` says where
+    the H100 machine loses them).  It cannot be taken again, as
+    ``device_kernels`` does."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    ran = {e["args"].get("correlation") for e in kernels}
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                       and _LAUNCH.match(e["name"])), key=lambda e: e["ts"])
+    lost = [i for i, e in enumerate(launches) if e["args"].get("correlation") not in ran]
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    span_us = max(e["ts"] + e["dur"] for e in timed) - min(e["ts"] for e in timed)
+    busy_us, end = 0.0, -math.inf
+    for k in kernels:
+        stop = k["ts"] + k["dur"]
+        busy_us += max(0.0, stop - max(k["ts"], end))
+        end = max(end, stop)
+    return {"names": [k["name"] for k in kernels], "busy_ms": busy_us / 1e3,
+            "span_ms": span_us / 1e3, "launches": len(launches), "lost": lost}

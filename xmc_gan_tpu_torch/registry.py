@@ -1,5 +1,5 @@
-"""String -> module registries for generators, discriminators and text
-encoders, mirroring
+"""String -> module registries for generators, discriminators, text
+encoders and datasets, mirroring
 ``xmc_gan_tpu/registry.py`` (reference ``train_gan.py:40-49``).
 
 Names the JAX package knows but this port has not reached yet raise
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["get_generator", "get_discriminator", "get_text_encoder"]
+__all__ = ["get_generator", "get_discriminator", "get_text_encoder", "get_dataset"]
 
 
 def _lazy(module: str, cls: str):
@@ -30,6 +30,9 @@ _DISCRIMINATORS = {"DF_DISC": _lazy("df_gan", "NetD")}
 _DISC_LATER = {"CONCEPT_NETD": "the concept training slice"}
 _ENCODERS = {"RNN": _lazy("encoder", "RNNEncoder")}
 _ENC_LATER = {"SBERT": "the SBERT text-encoder slice"}
+_DATASETS = {"WORD": lambda: importlib.import_module(
+    "xmc_gan_tpu_torch.data.pipeline").WordTextDataset}
+_DATASETS_LATER = {"SENT": "the SBERT text-encoder slice"}
 
 
 def _lookup(kind: str, name: str, ported: dict, later: dict):
@@ -50,3 +53,8 @@ def get_discriminator(name: str):
 
 def get_text_encoder(name: str):
     return _lookup("text encoder", name, _ENCODERS, _ENC_LATER)
+
+
+def get_dataset(name: str):
+    """``TEXT.TYPE`` -> dataset class (``WORD``: ``WordTextDataset``)."""
+    return _lookup("dataset type", name, _DATASETS, _DATASETS_LATER)

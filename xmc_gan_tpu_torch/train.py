@@ -285,7 +285,9 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             "disc_loss": disc_loss,
             # the full penalty added to the D loss, 2*mean(||grad||^6), as in the JAX step
             "d_loss_gp": d_loss_gp,
-            "g_updated": torch.tensor(do_g, device=dev),
+            # a fill, not torch.tensor(..., device=): a copy from pageable
+            # host memory would wait for the whole step on the card
+            "g_updated": torch.full((), do_g, device=dev),
         }
         if el.WORD:
             metrics["ds_word"], metrics["gs_word"] = ds_word, gs_word

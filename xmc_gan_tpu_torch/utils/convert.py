@@ -36,6 +36,7 @@ __all__ = [
     "concept_generator_state_dict",
     "df_concept_generator_state_dict",
     "train_state_from_jax",
+    "inception_state_dict_from_jax",
 ]
 
 
@@ -242,3 +243,38 @@ def train_state_from_jax(cfg, g_params: Mapping[str, Any], d_params: Mapping[str
     return create_train_state(
         cfg, dtype, device, step=step, g_state_dict=df_gan_generator_state_dict(g_params),
         d_state_dict=df_gan_discriminator_state_dict(d_params, d_spectral))
+
+
+def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``InceptionV3`` variables (``{"params", "batch_stats"}``, numpy
+    trees; also what the JAX CLI's ``convert-fid-weights`` writes as ``.npz``)
+    -> the port's ``models.inception.InceptionV3`` names, which are
+    torchvision's: ``conv.kernel`` HWIO -> ``conv.weight`` OIHW, ``bn.scale``
+    / ``bias`` / ``mean`` / ``var`` -> ``bn.weight`` / ``bias`` /
+    ``running_mean`` / ``running_var`` (``num_batches_tracked`` 0), ``fc``
+    as a dense layer."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: tuple[str, ...], stats: bool) -> None:
+        for key, child in node.items():
+            if isinstance(child, Mapping):
+                walk(child, path + (key,), stats)
+                continue
+            arr = np.asarray(child, np.float32)
+            name = ".".join(path)
+            if stats:
+                sd[f"{name}.running_{key}"] = _t(arr)
+                sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+            elif path[-1] == "conv" and key == "kernel":
+                sd[f"{name}.weight"] = _t(arr.transpose(3, 2, 0, 1))
+            elif path[-1] == "bn":
+                sd[f"{name}.{'weight' if key == 'scale' else key}"] = _t(arr)
+            elif path == ("fc",):
+                sd[f"fc.{'weight' if key == 'kernel' else key}"] = _t(arr.T if key == "kernel"
+                                                                      else arr)
+            else:
+                raise KeyError(f"Unexpected Inception tensor {name}/{key}")
+
+    walk(variables["params"], (), False)
+    walk(variables.get("batch_stats", {}), (), True)
+    return sd

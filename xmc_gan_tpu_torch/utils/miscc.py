@@ -1,5 +1,5 @@
-"""Image-grid saving (port of ``to_uint8``/``save_image_grid`` in
-``xmc_gan_tpu/utils/miscc.py``; reference ``model/modules.py:7-11``)."""
+"""Parameter counting and image saving (port of ``xmc_gan_tpu/utils/miscc.py``;
+reference ``utils/miscc.py:4-5`` and ``model/modules.py:7-11``)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,13 @@ import os
 
 import numpy as np
 
-__all__ = ["to_uint8", "save_image_grid"]
+__all__ = ["count_params", "to_uint8", "save_image_grid", "save_images"]
+
+
+def count_params(module) -> int:
+    """Number of parameter scalars of an ``nn.Module`` (reference counts the
+    trainable ones; every parameter of the port's G and D is trainable)."""
+    return sum(p.numel() for p in module.parameters())
 
 
 def to_uint8(imgs: np.ndarray) -> np.ndarray:
@@ -37,3 +43,14 @@ def save_image_grid(imgs: np.ndarray, path: str, nrow: int = 8, pad: int = 2) ->
         canvas[y : y + h, x : x + w] = arr[i]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     Image.fromarray(canvas.squeeze()).save(path)
+
+
+def save_images(imgs: np.ndarray, keys: list[str], out_dir: str) -> None:
+    """Save each image of a [-1, 1] (or uint8) NHWC batch as
+    ``{out_dir}/{key}.png`` (reference eval loop, ``train_gan.py:367-382``)."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    for img, key in zip(to_uint8(imgs), keys):
+        safe = str(key).replace("/", "_")
+        Image.fromarray(img).save(os.path.join(out_dir, f"{safe}.png"))
