@@ -53,7 +53,13 @@ Phases (any failure raises, and the exit code is then non-zero):
    strided: ``attn_grouped``), the ``CONCEPT_OUTATTN_GEN`` shape, the JAX
    package's kernel shape (N = 300, T = 260, D = 32), a D = 256 one, a
    ragged one and ``attn_grouped``'s edges (``ATTN_EXTRA``), with a
-   fully padded row (0 in both), each shape's planned kernel logged.
+   fully padded row (0 in both), each shape's planned kernel logged; the
+   ``fused_affine`` single form's backward at every shape of the published
+   ``concept_out_df_gan.yml`` step (batch 88, 128 channels, D's 32² to 4²,
+   G's 4² to 64²) and its double backward (``fused_affine_bwd2_vec``, what
+   MAGP through ``CONCEPT_NETD`` launches) at D's four, fp32 and bf16, the
+   vectors in x's dtype, and the double backward in fp32 against fp64
+   autograd of the plain epilogue (``BWD2_FP64_SHAPE``).
 4. On the card against the CPU, fp32 with TF32 off, on the same seeded,
    perturbed weights and numpy inputs: (a) the serving slice (DAMSM encoder
    + NetG at 256², NCH=32, batch 4), (b) the train slice (NCH=8, 64², batch
@@ -62,7 +68,10 @@ Phases (any failure raises, and the exit code is then non-zero):
    T = 15, one caption of one word), (d) the LN-COCO step
    (``ln_coco_256.yml`` at NCH=8, 64², batch 4, word shape kept: T = 200,
    D = 768; two steps, the card's word scores through the damsm kernels as
-   sub-captions, the CPU's through the plain path on whole captions).
+   sub-captions, the CPU's through the plain path on whole captions), (e)
+   the ``concept_out_df_gan.yml`` step at NCH=8, batch 4 (two steps, MAGP
+   through ``CONCEPT_NETD``: the card's 60 / 40 / 4 ``fused_affine``
+   forward / backward / double-backward launches a step asserted).
 5. Full-width serving: random caption ids (batch 128, mixed lengths) ->
    ``make_encode_fn`` -> ``make_sample_fn``, fp32 and bf16, (a) for DF_GEN
    (``df_gan_damsm.yml``, T = 20) and (c) for each concept generator
@@ -74,7 +83,12 @@ Phases (any failure raises, and the exit code is then non-zero):
    shape, and prints images/s (median of 5), peak memory, and where one request's
    device time goes (``torch.profiler``, by kernel category; every trace
    must be whole: each runtime launch with its kernel and the counted
-   launches of the port's kernels by name, ``profiling.device_kernels``).
+   launches of the port's kernels by name, ``profiling.device_kernels``);
+   (5c) ``ln_coco_256.yml`` (NCH 96) serving from its SBERT cache: 128
+   captions' rows of a synthetic ``sbert_cache_test.npz`` (T = 200, D = 768,
+   fp16) -> ``make_encode_fn`` -> ``make_sample_fn`` -> 128 images at 256²,
+   fp32 and bf16, 14 ``fused_affine`` forwards asserted, the cache read, the
+   encode and the G forward timed apart.
 6. Full-width training: the ``flagship_word`` step (DF-GAN G + D at 256²,
    NCH=32, batch 128, RMIS, MAGP, sentence/image/word-region InfoNCE) from
    ``create_train_state`` + ``make_train_step``, bf16 activations (2 warm-up
@@ -120,6 +134,19 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``python -m xmc_gan_tpu_torch.cli train`` once (``df_gan_damsm.yml``,
    batch 88, 2 steps) and checks its exit code and console lines.  The
    runs' directories are deleted.
+6c. ``concept_out_df_gan.yml`` as published (CONCEPT_OUT_DF_GEN +
+   CONCEPT_NETD, SBERT synthetic table, 64², NCH 32, batch 88, MAGP, RMIS,
+   SENT + DISC) through ``Trainer.fit``, bf16 and fp32: one epoch of
+   ``CONCEPT_LOOP_STEPS`` steps, a checkpoint, the epoch's grid; the fit's
+   launches and one more step's (``concept_step_launches``: 60 / 40 / 4
+   ``fused_affine`` forward / backward / double backward, from
+   ``gen_arch``/``disc_arch`` and the step's passes) asserted, the double
+   backward's kernels by name; prints the loop step, the bare step (median
+   of 3), one step's device time by category, a checkpoint's save ms.
+6d. ``ln_coco_256.yml`` as it stands (NCH 96, batch 256, bf16) through
+   ``Trainer.fit`` on the SBERT synthetic table, ``LN_LOOP_STEPS`` steps, no
+   FID and no checkpoint: damsm 2 + 2 and ``fused_affine`` 28 / 14 a step
+   asserted; prints the loop step beside phase 6's bare LN step.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs; for the
@@ -131,7 +158,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    LN-COCO bf16 step's 14 inputs (each shape alone); the damsm kernels at
    the flagship and at the word shape of each LN step (``LN_STEP_SHAPES``:
    fp32 at batch 128, bf16 at 256; 2 timed launches there; their launches
-   those of that step).
+   those of that step); the single form's backward at the 40 inputs of one
+   concept step and its double backward at the 4 (``concept_rows``).
 8. Last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  The weights are random (from
@@ -158,7 +186,7 @@ import torch
 
 from xmc_gan_tpu_torch.config import cfg_from_dict, cfg_from_file
 from xmc_gan_tpu_torch.models.concept_gan import attention_shapes
-from xmc_gan_tpu_torch.models.df_concept_gan import modulation_shapes
+from xmc_gan_tpu_torch.models.df_concept_gan import disc_modulation_shapes, modulation_shapes
 from xmc_gan_tpu_torch.models.df_gan import epilogue_shapes
 from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
@@ -180,6 +208,9 @@ REPO = Path(__file__).resolve().parent
 CFG = REPO / "xmc_gan_tpu" / "cfg" / "df_gan_damsm.yml"  # the YAML schema file only
 CONCEPT_CFG = REPO / "xmc_gan_tpu" / "cfg" / "concept_in_df_gan.yml"
 LN_CFG = REPO / "xmc_gan_tpu" / "cfg" / "ln_coco_256.yml"
+# the concept GAN as the JAX package ships it: CONCEPT_OUT_DF_GEN + CONCEPT_NETD,
+# SBERT sentences (768), 64², NCH 32, batch 88, MAGP, RMIS, SENT + DISC
+CONCEPT_TRAIN_CFG = REPO / "xmc_gan_tpu" / "cfg" / "concept_out_df_gan.yml"
 CONCEPT_GENS = ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN", "CONCEPT_IN_DF_GEN",
                 "CONCEPT_OUT_DF_GEN")
 BATCH = 128  # serving and training batch (docs/SERVING.md; the flagship step)
@@ -188,16 +219,19 @@ FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 BF16_ULP = 2.0 ** -7
 COUNTS = {"fused_affine.forward": fa.FORWARD, "fused_affine.backward": fa.BACKWARD,
+          "fused_affine.double_backward": fa.DOUBLE_BACKWARD,
           "damsm_score.forward": ds.FORWARD, "damsm_score.d_regions": ds.D_REGIONS,
           "damsm_score.d_words": ds.D_WORDS, "cross_attention.forward": ca.FORWARD}
 # the kernels each count's wrapper launches, by the profiler's names (re.search)
 KERNEL_PATTERN = {"fused_affine.forward": r"fused_affine_(vec|scalar)<",
                   "fused_affine.backward": r"fused_affine_bwd_(vec|scalar)<",
+                  "fused_affine.double_backward": r"fused_affine_bwd2_vec<",
                   "damsm_score.forward": r"damsm_fwd", "damsm_score.d_regions": r"damsm_bwd_dr",
                   "damsm_score.d_words": r"damsm_bwd_dw",
                   "cross_attention.forward": r"attn_(small|wide|grouped)<"}
 # launches of one flagship_word train step
 STEP_LAUNCHES = {"fused_affine.forward": 28, "fused_affine.backward": 14,
+                 "fused_affine.double_backward": 0,
                  "damsm_score.forward": 2, "damsm_score.d_regions": 2,
                  "damsm_score.d_words": 0, "cross_attention.forward": 0}
 # launches of one serving request at 256², NCH=32 (every other count 0)
@@ -218,6 +252,15 @@ KERNEL_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (BF16_ULP, 2e-5)}
 # and atomics against PyTorch's tree), so they are held to 1e-4 of their
 # largest magnitude, with a 1e-4 relative part.
 BWD_TOL = {"dx_rtol": 1e-5, "dx_atol": 2e-5, "sum_rtol": 1e-4, "sum_scale": 1e-4}
+# fused_affine double backward vs plain: g_x and g_dy are the plain
+# version's products and sums in the same order, each rounded (no FMA), so
+# bit-equal in fp32 up to the rounding of a bf16 store; held as dx is
+# (BWD_TOL; bf16: one ulp).  g_gamma is a sum over H*W in another order:
+# as the backward's sums.  Against autograd of the plain epilogue in fp64
+# (``BWD2_FP64_SHAPE``): the kernel's fp32 rounding, 1e-5 of each result's
+# largest magnitude.
+BWD2_FP64_SHAPE = (4, 128, 8, 8)
+BWD2_FP64_TOL = 1e-5
 # phase 3 runs the plain fused_affine on this many elements at a time (a few
 # images: an image's result and [C] sums do not depend on the others), so
 # that it checks the LN-COCO step's own batch of 256 (its C = 96 input alone
@@ -474,6 +517,8 @@ def kernel_category(name: str) -> str:
         return "cross_attention"
     if "damsm" in n or "sum_splits" in n:
         return "damsm_score"
+    if "fused_affine_bwd2" in n:
+        return "fused_affine double backward"
     if "fused_affine_bwd" in n:
         return "fused_affine backward"
     if "fused_affine" in n:
@@ -647,6 +692,140 @@ def check_modulation(shapes) -> dict:
         errs[dtype] = worst
         log(f"[3] fused_affine modulate_lrelu {DTYPE_NAME[dtype]}: max_abs_err {worst:.3g} at "
             f"the concept-DF shapes {shapes} (tolerance rtol {rtol:g} atol {atol:g})")
+    return errs
+
+
+def concept_train_cfg(overrides: dict | None = None):
+    """``concept_out_df_gan.yml`` as published, with ``overrides``."""
+    return cfg_from_dict(overrides or {}, base=cfg_from_file(str(CONCEPT_TRAIN_CFG)))
+
+
+def concept_step_launches(cfg) -> dict[str, int]:
+    """The kernel launches of one ``concept_out_df_gan.yml`` train step, from
+    the arch tables: G runs twice (the fake for D, again for G's update), D's
+    trunk five times (real and fake for D, MAGP's, G's fake, G's real for the
+    DISC loss); the backward runs through D's two D-loss passes, MAGP's pass
+    twice (its input gradient under ``create_graph``, then that gradient's
+    own gradient, which also launches the double backward once a
+    ``ConceptResD``) and G's fake with G itself."""
+    g = len(modulation_shapes(cfg, 1))
+    d = len(disc_modulation_shapes(cfg, 1))
+    if not (cfg.TRAIN.MAGP and cfg.TRAIN.ENCODER_LOSS.DISC and cfg.TRAIN.N_CRITIC == 1):
+        raise ValueError("the launch count assumes MAGP, the DISC loss and N_CRITIC 1")
+    return {**{k: 0 for k in COUNTS}, "fused_affine.forward": 2 * g + 5 * d,
+            "fused_affine.backward": 2 * d + 2 * d + d + g,
+            "fused_affine.double_backward": d}
+
+
+def concept_step_bwd_shapes(cfg, batch: int) -> list[tuple[int, int, int, int]]:
+    """The single-form backward's inputs in one concept train step (see
+    ``concept_step_launches``): D's four shapes five times, G's twenty."""
+    return 5 * disc_modulation_shapes(cfg, batch) + modulation_shapes(cfg, batch)
+
+
+def bwd2_inputs(shape, dtype, gen):
+    """x, gamma, beta, dy and the gradients (gx, gg, gb) arriving at the
+    backward's (dx, dgamma, dbeta), the vectors in x's dtype as D's grouped
+    MLPs hand them over; about half of gamma*x + beta negative."""
+    b, c = shape[:2]
+    acts = [torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last) for _ in range(3)]
+    vecs = [torch.randn(b, c, generator=gen, device="cuda").to(dtype) for _ in range(4)]
+    vecs[0] = (1 + 0.5 * vecs[0].float()).to(dtype)
+    x, dy, gx = acts
+    g, beta, gg, gb = vecs
+    return x, g, beta, dy, gx, gg, gb
+
+
+def fp64_second(x, g, beta, dy, gx, gg, gb, slope: float = 0.2):
+    """``(g_x, g_dy, g_gamma)`` as fp64 autograd of the plain epilogue gives
+    them (no wrapper, no kernel): the gradient of sum(gx*dx) + sum(gg*dg) +
+    sum(gb*db), where (dx, dg, db) = grad of sum(dy * lrelu(g*x + beta))."""
+    x, g, beta, dy = (t.detach().double().requires_grad_() for t in (x, g, beta, dy))
+    z = g[:, :, None, None] * x + beta[:, :, None, None]
+    y = torch.where(z >= 0, z, slope * z)
+    dx, dg, db = torch.autograd.grad(y, (x, g, beta), dy, create_graph=True)
+    scalar = ((gx.double() * dx).sum() + (gg.double() * dg).sum()
+              + (gb.double() * db).sum())
+    return torch.autograd.grad(scalar, (x, dy, g))
+
+
+def check_double_backward(cfg) -> dict:
+    """Phase 3, the ``fused_affine`` single form's backward and double
+    backward against their plain versions at the inputs of the published
+    ``concept_out_df_gan.yml`` step (``cfg``, batch 88, 128 channels): the
+    backward at every distinct shape of the step's 40 launches (D's 32² to
+    4², G's 4² to 64²), the double backward at D's four, fp32 and bf16, the
+    vectors in x's dtype, each launch on the kernel ``plan_bwd`` gives it
+    (the vector kernels); then the double backward in fp32 at
+    ``BWD2_FP64_SHAPE`` against fp64 autograd of the plain epilogue
+    (``fp64_second``)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bs = cfg.TRAIN.BATCH_SIZE
+    shapes = disc_modulation_shapes(cfg, bs)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol = BWD_TOL["dx_rtol"] if dtype == torch.float32 else BF16_ULP
+        worst1 = 0.0
+        for shape in sorted(set(concept_step_bwd_shapes(cfg, bs))):
+            x, g, beta, dy = bwd2_inputs(shape, dtype, gen)[:4]
+            got_dx, got_sums = fa._launch_bwd_sums(x, (g, beta), dy, 0.2)
+            want = fa.fused_affine_bwd_ref(x, (g.float(), beta.float()), dy, 0.2)
+            torch.testing.assert_close(got_dx.float(), want[0].float(), rtol=rtol,
+                                       atol=BWD_TOL["dx_atol"])
+            for g_, w_ in zip(got_sums.unbind(0), want[1:]):
+                torch.testing.assert_close(g_, w_, rtol=BWD_TOL["sum_rtol"],
+                                           atol=BWD_TOL["sum_scale"] * w_.abs().max().item())
+                worst1 = max(worst1, (g_ - w_).abs().max().item())
+            worst1 = max(worst1, (got_dx.float() - want[0].float()).abs().max().item())
+            del x, g, beta, dy, got_dx, got_sums, want
+        worst, kernels = 0.0, set()
+        for shape in shapes:
+            ins = bwd2_inputs(shape, dtype, gen)
+            b, c, h, w = shape
+            before = fa.DOUBLE_BACKWARD.launches
+            got = fa._launch_bwd2(*ins, 0.2)
+            torch.cuda.synchronize()
+            if fa.DOUBLE_BACKWARD.launches != before + 1:
+                raise AssertionError("fused_affine double backward: launch not counted")
+            p = fa.plan_bwd(b, h * w, c, dtype, dtype, (0,) * 5, sms)
+            if p.kernel != fa.BWD_VEC:
+                raise AssertionError(f"fused_affine double backward at {shape}: planned {p}")
+            kernels.add(fa.bwd2_kernel_name(p, dtype, dtype))
+            want = fa.fused_affine_bwd2_ref(*ins, 0.2)
+            for gt, wt in zip(got[:2], want[:2]):
+                torch.testing.assert_close(gt.float(), wt.float(), rtol=rtol,
+                                           atol=BWD_TOL["dx_atol"])
+                worst = max(worst, (gt.float() - wt.float()).abs().max().item())
+            scale = want[2].float().abs().max().item()
+            torch.testing.assert_close(got[2].float(), want[2].float(),
+                                       rtol=BWD_TOL["sum_rtol"] + (rtol if rtol > 1e-4 else 0),
+                                       atol=BWD_TOL["sum_scale"] * scale)
+            worst = max(worst, (got[2].float() - want[2].float()).abs().max().item())
+            del ins, got, want
+        torch.cuda.empty_cache()
+        errs[dtype] = {"bwd1": worst1, "bwd2": worst}
+        log(f"[3] fused_affine single-form backward {DTYPE_NAME[dtype]} at the concept step's "
+            f"shapes: max_abs_err {worst1:.3g} (as the backward above); double backward: "
+            f"max_abs_err {worst:.3g} at the concept D shapes {shapes} (g_x, g_dy: rtol "
+            f"{rtol:g} atol {BWD_TOL['dx_atol']:g}; g_gamma: {BWD_TOL['sum_rtol']:g} relative, "
+            f"{BWD_TOL['sum_scale']:g} of its largest magnitude); kernels {sorted(kernels)}")
+    ins = bwd2_inputs(BWD2_FP64_SHAPE, torch.float32, gen)
+    got = fa._launch_bwd2(*ins, 0.2)
+    want = fp64_second(*ins)
+    err64 = 0.0
+    for gt, wt in zip(got, want):
+        scale = wt.abs().max().item()
+        err = (gt.double() - wt).abs().max().item()
+        if not err <= BWD2_FP64_TOL * scale:
+            raise AssertionError(f"fused_affine double backward vs fp64 autograd: {err} > "
+                                 f"{BWD2_FP64_TOL} x {scale}")
+        err64 = max(err64, err / scale)
+    log(f"[3] fused_affine double backward fp32 at {BWD2_FP64_SHAPE} against fp64 autograd of "
+        f"the plain epilogue: largest error {err64:.3g} of each result's largest magnitude "
+        f"(tolerance {BWD2_FP64_TOL:g})")
+    errs["fp64"] = err64
     return errs
 
 
@@ -1035,10 +1214,12 @@ SLICE_CFG = {  # the train slice of phase 4b
     "DISC": {"SPEC_NORM": True, "IMG_MATCH": True}}
 
 
-def check_train_against_cpu(cfg, label: str, mask_fn) -> None:
-    """Phase 4b and 4d: two fp32 train steps at batch 4 on the card and on
-    the CPU from the same perturbed weights, the word masks from
-    ``mask_fn``; the card's word scores through the damsm kernels."""
+def check_train_against_cpu(cfg, label: str, mask_fn, want: dict[str, int]) -> None:
+    """Phase 4b, 4d and 4e: two fp32 train steps at batch 4 on the card and
+    on the CPU from the same perturbed weights, the word masks from
+    ``mask_fn``; the card's run launches ``want`` of the kernels it names
+    (4b, 4d: the word scores through the damsm kernels; 4e: every count of
+    the concept step, the epilogues' and the 0 of the others)."""
     cpu = create_train_state(cfg, device="cpu", seed=3)
     g_sd, d_sd = perturbed_state_dict(cpu.g, 4), perturbed_state_dict(cpu.d, 5)
     cpu = create_train_state(cfg, device="cpu", g_state_dict=g_sd, d_state_dict=d_sd)
@@ -1056,9 +1237,8 @@ def check_train_against_cpu(cfg, label: str, mask_fn) -> None:
             if not abs(a - b) <= TRAIN_TOL["metric"] * max(1.0, abs(b)):
                 raise AssertionError(f"{label} step {k} {key}: card {a} vs CPU {b}")
     counts = read_counts()
-    if counts["damsm_score.forward"] != 4 or counts["damsm_score.d_regions"] != 4:
-        raise AssertionError(f"{label} on the card did not go through the damsm kernels: "
-                             f"{counts}")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{label} on the card: launches {counts}, want {want}")
     lr = max(cfg.TRAIN.OPT.G_LR, cfg.TRAIN.OPT.D_LR)
     n_all = n_close = 0
     worst_uv = worst = 0.0
@@ -1075,7 +1255,7 @@ def check_train_against_cpu(cfg, label: str, mask_fn) -> None:
     share = n_close / n_all
     log(f"[4] {label} card vs CPU, 2 steps: metrics within {TRAIN_TOL['metric']:g}; "
         f"params: {share:.6f} of {n_all} within {TRAIN_TOL['param_lr_frac'] * lr:.2g}, worst "
-        f"{worst:.3g} (bound {4 * lr:.2g}); u/v worst {worst_uv:.3g}; damsm launches {counts}")
+        f"{worst:.3g} (bound {4 * lr:.2g}); u/v worst {worst_uv:.3g}; launches {counts}")
     if share < TRAIN_TOL["param_share"] or worst > 4 * lr or worst_uv > TRAIN_TOL["uv"]:
         raise AssertionError(f"{label}: card and CPU parameters differ beyond the tolerance")
 
@@ -1512,6 +1692,253 @@ def _train_loop(card: str, cfg, root: str, bare_step_ms: float) -> dict:
     return res
 
 
+# phase 6c: concept_out_df_gan.yml through Trainer.fit, one epoch of this
+# many steps at its batch of 88, a checkpoint after it
+CONCEPT_LOOP_STEPS = 6
+# phase 6d: ln_coco_256.yml through Trainer.fit in bf16, this many steps
+LN_LOOP_STEPS = 4
+# phase 5c: rows of the synthetic sbert_cache_test.npz (T = 200, D = 768, fp16)
+SENT_CACHE_ROWS = 512
+
+
+def step_walls(calls: list) -> list[float]:
+    """ms between consecutive step hand-overs of one epoch after the first
+    step (the first holds the card's first-run costs): the loop's step wall."""
+    return [(t1 - t0) * 1e3 for (t0, _), (t1, _) in zip(calls[1:], calls[2:])]
+
+
+def concept_loop(card: str, dtype) -> dict:
+    """Phase 6c for one dtype: ``concept_out_df_gan.yml`` as published
+    through ``Trainer.fit`` on the card."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_concept_")
+    try:
+        return _concept_loop(card, dtype, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _concept_loop(card: str, dtype, root: str) -> dict:
+    cfg = concept_train_cfg()
+    bs = cfg.TRAIN.BATCH_SIZE
+    label = (f"[6c] concept loop {DTYPE_NAME[dtype]} {cfg.CONFIG_NAME} bs{bs} "
+             f"{cfg.IMG.SIZE}² | {card}")
+    per_step = concept_step_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, seed=100, output_root=root, log_type="none", synthetic=True,
+                 synthetic_len=CONCEPT_LOOP_STEPS * bs, save_after=0, eval_fid=False,
+                 dtype=dtype, device="cuda")
+    reset_counts()  # the concept training path's run: one epoch and its grid
+    metrics, calls, _ = timed_fit(tr, max_epochs=1)
+    grid = len(modulation_shapes(cfg, 1))  # the epoch's fixed-noise grid: one G forward
+    want = {k: CONCEPT_LOOP_STEPS * n + (grid if k == "fused_affine.forward" else 0)
+            for k, n in per_step.items()}
+    launches = check_counts(f"{label} fit, 1 epoch of {CONCEPT_LOOP_STEPS} steps", want)
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    out = Path(tr.output_dir)
+    if bad or tr.state.step != CONCEPT_LOOP_STEPS or tr.ckpt.all_epochs() != [1] or not (
+            out / "img" / "fake_samples_epoch_001.png").is_file():
+        raise AssertionError(f"{label}: non-finite {bad}, step {tr.state.step}, checkpoints "
+                             f"{tr.ckpt.all_epochs()}")
+    walls = step_walls(calls)
+    # the bare step on one of the loader's batches: counted, timed, profiled
+    batch = tr._prep_batch(tr.train_loader.first_batch())
+    noise = tr.step_noise(tr.global_step + 1)
+    reset_counts()
+    tr.step_fn(tr.state, batch, noise)
+    torch.cuda.synchronize()
+    step_launches = check_counts(f"{label} one step", per_step)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step_fn(tr.state, batch, noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    kernels, busy_ms, wall_ms = device_kernels(lambda: tr.step_fn(tr.state, batch, noise),
+                                               expect=launch_patterns(step_launches))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want_bwd2 = sorted(fa.bwd2_kernel_name(fa.plan_bwd(b, h * w, c, dtype, dtype, (0,) * 5, sms),
+                                           dtype, dtype)
+                       for b, c, h, w in disc_modulation_shapes(cfg, bs))
+    got_bwd2 = sorted(next((n for n in want_bwd2 if n in k["name"]), k["name"])
+                      for k in kernels if "fused_affine_bwd2" in k["name"])
+    if got_bwd2 != want_bwd2:
+        raise AssertionError(f"{label}: double-backward kernels {got_bwd2}, want {want_bwd2}")
+    mgr = CheckpointManager(os.path.join(root, "timing"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, tr.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    res = {"card": card, "config": "concept_out_df_gan", "dtype": DTYPE_NAME[dtype], "batch": bs,
+           "launches_fit": launches, "launches_step": step_launches,
+           "loop_step_ms": statistics.median(walls), "loop_step_ms_all": walls,
+           "step_ms": statistics.median(times), "step_ms_all": times,
+           "img_per_s": bs / statistics.median(times) * 1e3,
+           "step_kernel_ms": sum(k["ms"] for k in kernels), "step_busy_ms": busy_ms,
+           "profiled_step_ms": wall_ms, "device_busy_share": busy_ms / wall_ms,
+           "device_ms_by_category": by_category(kernels), "top_kernels": top_kernels(kernels, 8),
+           "double_backward_kernels": got_bwd2, "ckpt_save_ms": save_ms,
+           "ckpt_bytes": os.path.getsize(mgr.path(1)),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "metrics": metrics}
+    log(f"{label}: launches of the fit {launches}, of one step {step_launches}; loop step "
+        f"{res['loop_step_ms']:.1f} ms (median of {', '.join(f'{w:.1f}' for w in walls)}), bare "
+        f"step {res['step_ms']:.1f} ms ({res['img_per_s']:.1f} img/s, median of 3), peak "
+        f"{res['peak_mem_gib']:.2f} GiB, checkpoint save {save_ms:.1f} ms "
+        f"({res['ckpt_bytes']} bytes); double-backward kernels by name {got_bwd2}")
+    log(f"{label} one step on the device: {res['step_kernel_ms']:.1f} ms of kernels, busy "
+        f"{busy_ms:.1f} of {wall_ms:.1f} ms (share {res['device_busy_share']:.3f}); " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in res["device_ms_by_category"].items()))
+    for g in res["top_kernels"]:
+        log(f"{label} top: {g['ms']:.1f} ms, {g['launches']} launches: {g['kernel']} <- "
+            f"{g['op']} {g['dims']}")
+    log(f"{label} last metrics: " + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
+    del tr, batch
+    return res
+
+
+def ln_loop(card: str, bare_step_ms: float) -> dict:
+    """Phase 6d: ``ln_coco_256.yml`` as it stands (NCH 96, batch 256, bf16)
+    through ``Trainer.fit`` on the SBERT synthetic table, ``LN_LOOP_STEPS``
+    steps, no FID and no checkpoint (phase 6b covers those).  The YAML sets
+    no ``LOG_INTERVAL`` (default 1: a grid after every step); here one
+    in-epoch grid, after the last step, as phase 6b draws one an epoch."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_ln_")
+    try:
+        cfg = ln_cfg({"TRAIN": {"LOG_INTERVAL": LN_LOOP_STEPS}})
+        bs = cfg.TRAIN.BATCH_SIZE
+        label = f"[6d] LN-COCO loop bf16 bs{bs} 256² | {card}"
+        tr = Trainer(cfg, seed=100, output_root=root, log_type="none", synthetic=True,
+                     synthetic_len=LN_LOOP_STEPS * bs, save_after=10**9, eval_fid=False,
+                     dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # the LN training path's run: the epoch and its grid
+        metrics, calls, _ = timed_fit(tr, max_epochs=1)
+        # the steps, the in-epoch grid and the epoch's fixed-noise grid
+        want = {k: LN_LOOP_STEPS * n + 2 * REQUEST_LAUNCHES["DF_GEN"].get(k, 0)
+                for k, n in STEP_LAUNCHES.items()}
+        launches = check_counts(label, want)
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        if bad or tr.state.step != LN_LOOP_STEPS:
+            raise AssertionError(f"{label}: non-finite {bad} or step {tr.state.step}")
+        walls = step_walls(calls)
+        res = {"card": card, "config": "ln_coco_256", "dtype": "bf16", "batch": bs,
+               "launches_fit": launches, "loop_step_ms": statistics.median(walls),
+               "loop_step_ms_all": walls, "bare_step_ms": bare_step_ms,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "metrics": metrics}
+        log(f"{label}: {LN_LOOP_STEPS} steps, launches {launches} (a step: damsm 2 + 2, "
+            f"fused_affine 28 / 14; the two grids 14 forwards each); loop step "
+            f"{res['loop_step_ms']:.1f} ms ({', '.join(f'{w:.1f}' for w in walls)}) beside the "
+            f"bare LN step's {bare_step_ms:.1f} ms (phase 6); peak {res['peak_mem_gib']:.2f} GiB")
+        del tr
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def serve_sent(card: str, dtypes) -> list[dict]:
+    """Phase 5c: ``ln_coco_256.yml`` serving from its SBERT cache: 128
+    captions' rows of a synthetic ``sbert_cache_test.npz`` (T = 200, D = 768,
+    fp16, ``SENT_CACHE_ROWS`` rows) -> ``make_encode_fn`` -> ``make_sample_fn``
+    -> 128 images at 256², per dtype, the perturbed NCH 96 G; the cache read
+    (the host's gather of the fp16 rows, ``SbertCache.rows``), the encode
+    (read, pinned copy, fp32 cast and pooling on the card) and the G forward
+    timed apart."""
+    from xmc_gan_tpu_torch.data.text_encode import SbertCache
+
+    cfg = ln_cfg()
+    rng = np.random.RandomState(12)
+    T, D = cfg.TEXT.MAX_LENGTH, cfg.TEXT.EMBEDDING_DIM
+    root = tempfile.mkdtemp(prefix="chip_smoke_sent_")
+    out = []
+    try:
+        attn = (np.arange(T)[None, :] < rng.randint(1, T + 1, SENT_CACHE_ROWS)[:, None])
+        np.savez(os.path.join(root, "sbert_cache_test.npz"),
+                 token_embs=rng.randn(SENT_CACHE_ROWS, T, D).astype(np.float16),
+                 attn_mask=attn.astype(np.uint8))
+        batch = {"cap_idx": rng.choice(SENT_CACHE_ROWS, BATCH, replace=False),
+                 "mode": ["test"] * BATCH}
+        noise = torch.from_numpy(rng.randn(BATCH, cfg.TRAIN.NOISE_DIM).astype(np.float32))
+        sd = perturbed_state_dict(make_generator(cfg, device="cpu"), seed=40)
+        cache = SbertCache(root, "test")
+        for dtype in dtypes:
+            encode = make_encode_fn(cfg, device="cuda", data_dir=root)
+            g = make_generator(cfg, dtype, "cuda")
+            g.load_state_dict(sd, strict=True)
+            sample = make_sample_fn(cfg, g)
+
+            def request():
+                words, sent, mask = encode(batch)
+                return sample(noise, sent, words, mask)
+
+            label = f"[5c] serve LN-COCO SENT {DTYPE_NAME[dtype]} bs{BATCH} 256² | {card}"
+            for _ in range(2):
+                request()
+            torch.cuda.synchronize()
+            reset_counts()  # the SENT serving path's run
+            img = request()
+            torch.cuda.synchronize()
+            launches = check_counts(label, {k: REQUEST_LAUNCHES["DF_GEN"].get(k, 0)
+                                            for k in COUNTS})
+            if tuple(img.shape) != (BATCH, 256, 256, 3) or not bool(torch.isfinite(img).all()) \
+                    or img.abs().max().item() > 1.0:
+                raise AssertionError(f"{label}: images {tuple(img.shape)} not finite or outside "
+                                     "[-1, 1]")
+            words, sent, mask = encode(batch)
+            if tuple(words.shape) != (BATCH, T, D) or not bool(torch.isfinite(sent).all()):
+                raise AssertionError(f"{label}: words {tuple(words.shape)}")
+            torch.cuda.reset_peak_memory_stats()
+            t_read, t_enc, t_g, t_req = [], [], [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                cache.rows(batch["cap_idx"])
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                encode(batch)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                sample(noise, sent, words, mask)
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
+                request()
+                torch.cuda.synchronize()
+                t5 = time.perf_counter()
+                t_read.append((t1 - t0) * 1e3)
+                t_enc.append((t3 - t2) * 1e3)
+                t_g.append((t4 - t3) * 1e3)
+                t_req.append((t5 - t4) * 1e3)
+            kernels, busy_ms, wall_ms = device_kernels(request, expect=launch_patterns(launches))
+            med = statistics.median
+            res = {"config": "ln_coco_256 (SENT from the cache)", "dtype": DTYPE_NAME[dtype],
+                   "launches": {k: v for k, v in launches.items() if v},
+                   "cache_read_ms": med(t_read), "encode_ms": med(t_enc), "g_ms": med(t_g),
+                   "request_ms": med(t_req), "img_per_s_request": BATCH / med(t_req) * 1e3,
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "request_kernel_ms": sum(k["ms"] for k in kernels),
+                   "request_busy_ms": busy_ms, "profiled_request_ms": wall_ms,
+                   "device_busy_share": busy_ms / wall_ms,
+                   "device_ms_by_category": by_category(kernels)}
+            log(f"{label}: launches {res['launches']}; cache read {res['cache_read_ms']:.2f} ms "
+                f"(host gather of {BATCH} fp16 rows), encode {res['encode_ms']:.2f} ms "
+                f"(read + pinned copy + pooling), G forward {res['g_ms']:.2f} ms, request "
+                f"{res['request_ms']:.2f} ms ({res['img_per_s_request']:.1f} img/s), medians of "
+                f"5; peak {res['peak_mem_gib']:.2f} GiB")
+            log(f"{label} one request on the device: {res['request_kernel_ms']:.2f} ms of "
+                f"kernels, busy {busy_ms:.2f} of {wall_ms:.2f} ms (share "
+                f"{res['device_busy_share']:.3f}); " + ", ".join(
+                    f"{k} {v:.2f} ms" for k, v in res["device_ms_by_category"].items()))
+            out.append(res)
+            del g, sample, encode, img, words, sent, mask
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def launch_patterns(launches: dict[str, int]) -> dict[str, int]:
     """A counted run's launches as ``device_kernels``' ``expect``: the
     kernels by name that a whole trace of the same run holds."""
@@ -1527,10 +1954,11 @@ def df_cfg():
 def own_kernel_times() -> dict[str, float]:
     """Phase 7's ``kernel_ms``: the profiler's device time of the kernels
     alone (without the host's time between launches that ``cuda_ms``
-    holds) in one call of a row's launches: the ``fused_affine`` backward's
-    14 (both forms and dtypes, the vectors in x's dtype) and each attention
-    request's 10, on inputs drawn as phase 7 draws them; each trace whole
-    (``device_kernels``)."""
+    holds) in one call of a row's launches: the ``fused_affine`` double
+    form's backward (14, the vectors in x's dtype), the single form's
+    backward and double backward at the concept train step's inputs (40 and
+    4, ``concept_rows``), and each attention request's 10, on inputs drawn as
+    phase 7 draws them; each trace whole (``device_kernels``)."""
 
     def own(fn, pattern: str, launches: int) -> float:
         fn()
@@ -1547,13 +1975,20 @@ def own_kernel_times() -> dict[str, float]:
         ins = [epilogue_inputs(s, dtype, gen) for s in shapes]
         dys = [torch.randn(s, generator=gen, device="cuda").to(dtype).contiguous(
             memory_format=torch.channels_last) for s in shapes]
-        for nmod, form in ((2, "double_modulate_lrelu"), (1, "modulate_lrelu")):
-            calls = [(x, tuple(t.to(dtype) for t in m[: 2 * nmod]), dy)
-                     for (x, m), dy in zip(ins, dys)]
-            out[f"fused_affine.{form}.backward[{DTYPE_NAME[dtype]}]"] = own(
-                lambda: [fa._launch_bwd(x, m, dy, 0.2) for x, m, dy in calls],
-                KERNEL_PATTERN["fused_affine.backward"], len(calls))
+        calls = [(x, tuple(t.to(dtype) for t in m), dy) for (x, m), dy in zip(ins, dys)]
+        out[f"fused_affine.double_modulate_lrelu.backward[{DTYPE_NAME[dtype]}]"] = own(
+            lambda: [fa._launch_bwd(x, m, dy, 0.2) for x, m, dy in calls],
+            KERNEL_PATTERN["fused_affine.backward"], len(calls))
         del ins, dys, calls
+        torch.cuda.empty_cache()
+        bwd, bwd2 = concept_calls(dtype, gen)
+        out[f"fused_affine.modulate_lrelu.backward[{DTYPE_NAME[dtype]}]"] = own(
+            lambda: [fa._launch_bwd(x, m, dy, 0.2) for x, m, dy in bwd],
+            KERNEL_PATTERN["fused_affine.backward"], len(bwd))
+        out[f"fused_affine.modulate_lrelu.double_backward[{DTYPE_NAME[dtype]}]"] = own(
+            lambda: [fa._launch_bwd2(*ins2, 0.2) for ins2 in bwd2],
+            KERNEL_PATTERN["fused_affine.double_backward"], len(bwd2))
+        del bwd, bwd2
         torch.cuda.empty_cache()
         for which, strided in (("in", "planes"), ("out", False)):
             calls = [attention_inputs((*sh, strided), dtype, gen, False) for sh in attn[which]]
@@ -1566,8 +2001,9 @@ def own_kernel_times() -> dict[str, float]:
 
 
 def epilogue_rows(shapes, errs, launches, own_ms) -> list[dict]:
-    """Phase 7, fused_affine: the 14 launches of one G forward (or backward)
-    per form and dtype: kernel vs plain vs bound."""
+    """Phase 7, fused_affine double form: the 14 launches of one G forward
+    (or backward) per dtype: kernel vs plain vs bound (the single form:
+    ``modulation_rows``, ``concept_rows``)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1575,8 +2011,8 @@ def epilogue_rows(shapes, errs, launches, own_ms) -> list[dict]:
         dys = [torch.randn(s, generator=gen, device="cuda").to(dtype).contiguous(
             memory_format=torch.channels_last) for s in shapes]
         es = torch.empty((), dtype=dtype).element_size()
-        for nmod in (2, 1):
-            form = "double_modulate_lrelu" if nmod == 2 else "modulate_lrelu"
+        for nmod in (2,):
+            form = "double_modulate_lrelu"
             mods = [tuple(m[: 2 * nmod]) for _, m in ins]
             xs = [x for x, _ in ins]
             vec_bytes = [2 * nmod * s[0] * s[1] * 4 for s in shapes]
@@ -1587,9 +2023,8 @@ def epilogue_rows(shapes, errs, launches, own_ms) -> list[dict]:
                 "kern": lambda: [fa._launch(x, m, 0.2) for x, m in zip(xs, mods)],
                 "ref": lambda: [fa._ref(x, m, 0.2) for x, m in zip(xs, mods)],
                 "name": f"fused_affine.{form}", "err": errs[dtype][f"fwd{nmod}"],
-                "launches": launches[dtype]["fused_affine.forward"] if nmod == 2 else 0,
-                "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:"
-                            + ("71" if nmod == 2 else "59")}
+                "launches": launches[dtype]["fused_affine.forward"],
+                "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:71"}
             # the backward gets the vectors in x's dtype, as G's Affine MLPs hand
             # them over in the train step
             bmods = [tuple(t.to(dtype) for t in m) for m in mods]
@@ -1602,12 +2037,10 @@ def epilogue_rows(shapes, errs, launches, own_ms) -> list[dict]:
                                 for x, m, dy in zip(xs, bmods, dys)],
                 "vectors": DTYPE_NAME[dtype],
                 "name": f"fused_affine.{form}.backward", "err": errs[dtype][f"bwd{nmod}"],
-                "launches": launches[dtype]["fused_affine.backward"] if nmod == 2 else 0,
-                "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:"
-                            + ("71" if nmod == 2 else "59")
-                            + " (the Pallas kernel has no backward; this is its gradient)"}
-            # the single form's forward runs on the concept-DF path: modulation_rows
-            for spec in (fwd, bwd) if nmod == 2 else (bwd,):
+                "launches": launches[dtype]["fused_affine.backward"],
+                "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:71 (the Pallas kernel has "
+                            "no backward; this is its gradient)"}
+            for spec in (fwd, bwd):
                 byte_ms = sum(spec["bytes"]) / HBM_BYTES_PER_S * 1e3
                 op_ms = sum(spec["ops"]) / FP32_OPS_PER_S * 1e3
                 ms, plain_ms = cuda_ms(spec["kern"], 10), cuda_ms(spec["ref"], 3)
@@ -1631,6 +2064,80 @@ def epilogue_rows(shapes, errs, launches, own_ms) -> list[dict]:
                 log(f"[7] {rows[-1]['name']}: 14 launches {ms:.3f} ms (bound {bound:.3f} ms, "
                     f"{100 * bound / ms:.1f}%){own}, plain {plain_ms:.3f} ms")
         del ins, dys
+        torch.cuda.empty_cache()
+    return rows
+
+
+def concept_calls(dtype, gen) -> tuple[list, list]:
+    """Inputs of the single form's backward at the 40 launches of one
+    ``concept_out_df_gan.yml`` step (batch 88; one input a distinct shape)
+    and of its double backward at the 4, the vectors in x's dtype as the
+    concept G and D hand them over."""
+    cfg = concept_train_cfg()
+    bs = cfg.TRAIN.BATCH_SIZE
+    shapes = concept_step_bwd_shapes(cfg, bs)
+    ins = {s: epilogue_inputs(s, dtype, gen) for s in sorted(set(shapes))}
+    dys = {s: torch.randn(s, generator=gen, device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last) for s in ins}
+    bwd = [(ins[s][0], tuple(t.to(dtype) for t in ins[s][1][:2]), dys[s]) for s in shapes]
+    bwd2 = [bwd2_inputs(s, dtype, gen) for s in disc_modulation_shapes(cfg, bs)]
+    return bwd, bwd2
+
+
+def concept_rows(errs, launches, own_ms) -> list[dict]:
+    """Phase 7, the single form's backward and its double backward at the
+    launches of one ``concept_out_df_gan.yml`` train step (phase 6c's
+    counted step), per dtype: kernel (and the kernels alone) vs plain vs
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.empty((), dtype=dtype).element_size()
+        bwd, bwd2 = concept_calls(dtype, gen)
+        specs = [
+            {"name": "fused_affine.modulate_lrelu.backward", "calls": bwd,
+             # x and dy read, dx written; gamma, beta read and their sums written
+             "bytes": [3 * x.numel() * es + 4 * m[0].numel() * es for x, m, _ in bwd],
+             "ops": [10 * x.numel() for x, _, _ in bwd],
+             "kern": lambda: [fa._launch_bwd(x, m, dy, 0.2) for x, m, dy in bwd],
+             "ref": lambda: [fa.fused_affine_bwd_ref(x, m, dy, 0.2) for x, m, dy in bwd],
+             "err": errs[dtype]["bwd1"], "launches": launches[dtype]["fused_affine.backward"],
+             "replaces": "xmc_gan_tpu/ops/pallas/fused_affine.py:59 (the Pallas kernel has no "
+                         "backward; this is its gradient)",
+             "shapes": "the 40 single-form backward inputs of one concept_out_df_gan.yml step "
+                       "(batch 88, 64²): D's four 5 times, G's twenty"},
+            {"name": "fused_affine.modulate_lrelu.double_backward", "calls": bwd2,
+             # x, dy and gx read, g_dy and g_x written; four vectors read, g_gamma written
+             "bytes": [5 * c[0].numel() * es + 5 * c[1].numel() * es for c in bwd2],
+             "ops": [12 * c[0].numel() for c in bwd2],
+             "kern": lambda: [fa._launch_bwd2(*c, 0.2) for c in bwd2],
+             "ref": lambda: [fa.fused_affine_bwd2_ref(*c, 0.2) for c in bwd2],
+             "err": errs[dtype]["bwd2"],
+             "launches": launches[dtype]["fused_affine.double_backward"],
+             "replaces": "none: no Pallas kernel (JAX autodiffs its plain epilogue, "
+                         "xmc_gan_tpu/ops/fused.py:25, under MAGP); the second derivative of "
+                         "xmc_gan_tpu/ops/pallas/fused_affine.py:59",
+             "shapes": "the 4 CONCEPT_NETD epilogue inputs of one concept_out_df_gan.yml step "
+                       "(batch 88, 128 channels, 32² to 4²)"},
+        ]
+        for spec in specs:
+            byte_ms = sum(spec["bytes"]) / HBM_BYTES_PER_S * 1e3
+            op_ms = sum(spec["ops"]) / FP32_OPS_PER_S * 1e3
+            ms, plain_ms = cuda_ms(spec["kern"], 10), cuda_ms(spec["ref"], 3)
+            bound = max(byte_ms, op_ms)
+            name = f"{spec['name']}[{DTYPE_NAME[dtype]}]"
+            rows.append({
+                "name": name, "route": "cuda", "source": "xmc_gan_tpu_torch/csrc/fused_affine.cu",
+                "replaces": spec["replaces"], "launches": spec["launches"],
+                "max_abs_err": spec["err"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
+                "roofline_share": bound / ms, "kernel_ms": own_ms[name],
+                "vectors": DTYPE_NAME[dtype], "shapes": spec["shapes"]})
+            log(f"[7] {name}: {len(spec['calls'])} launches {ms:.3f} ms (bound {bound:.3f} ms, "
+                f"{100 * bound / ms:.1f}%), of it {own_ms[name]:.3f} ms in the kernel "
+                f"({100 * bound / own_ms[name]:.1f}%), plain {plain_ms:.3f} ms; "
+                f"{spec['launches']} launches a concept step")
+        del bwd, bwd2
         torch.cuda.empty_cache()
     return rows
 
@@ -1905,6 +2412,7 @@ def main() -> int:
     fa_errs = check_epilogue(shapes, epilogue_shapes(ln, ln.TRAIN.BATCH_SIZE),
                              epilogue_shapes(ln, LN_FP32_BATCH))
     mod_errs = check_modulation(sorted(set(mod_shapes)))
+    bwd2_errs = check_double_backward(concept_train_cfg())
     ds_errs = check_damsm()
     ln_errs = check_damsm_ln()
     check_damsm_streamed()
@@ -1920,11 +2428,17 @@ def main() -> int:
     g_cpu.load_state_dict(sd, strict=True)
     check_slice_against_cpu(cfg, g_cpu)
     del g_cpu
-    check_train_against_cpu(cfg_from_dict(SLICE_CFG), "train slice", prefix_mask)
+    damsm_two_steps = {"damsm_score.forward": 4, "damsm_score.d_regions": 4}
+    check_train_against_cpu(cfg_from_dict(SLICE_CFG), "train slice", prefix_mask,
+                            damsm_two_steps)
     check_concepts_against_cpu()
     check_train_against_cpu(ln_cfg({"IMG": {"SIZE": 64}, "TRAIN": {"NCH": 8, "BATCH_SIZE": 4}}),
                             "LN-COCO step (fp32, NCH=8, 64², batch 4, T=200, D=768), 2 steps",
-                            ln_mask)
+                            ln_mask, damsm_two_steps)
+    small_concept = concept_train_cfg({"TRAIN": {"NCH": 8, "BATCH_SIZE": 4}})
+    check_train_against_cpu(small_concept, "concept_out_df_gan step (fp32, NCH=8, 64², batch 4), "
+                            "2 steps", prefix_mask,
+                            {k: 2 * n for k, n in concept_step_launches(small_concept).items()})
 
     runs = {dtype: serve(cfg, sd, dtype) for dtype in (torch.float32, torch.bfloat16)}
     diff = (runs[torch.float32].pop("img") - runs[torch.bfloat16].pop("img")).abs()
@@ -1945,6 +2459,8 @@ def main() -> int:
         del diff
         torch.cuda.empty_cache()
 
+    sent_runs = serve_sent(card, (torch.float32, torch.bfloat16))
+
     flagship = cfg_from_dict(TRAIN_OVERRIDES)
     trains = {torch.bfloat16: train(flagship, "flagship_word", torch.bfloat16, 2, 10, prefix_mask),
               torch.float32: train(flagship, "flagship_word", torch.float32, 1, 3, prefix_mask)}
@@ -1953,10 +2469,14 @@ def main() -> int:
     ln_train32 = train(ln_cfg({"TRAIN": {"BATCH_SIZE": LN_FP32_BATCH}}), "LN-COCO",
                        torch.float32, 0, 2, ln_mask)
     loop = train_loop(card, trains[torch.bfloat16]["step_ms"])
+    concept_loops = {dtype: concept_loop(card, dtype) for dtype in (torch.bfloat16, torch.float32)}
+    ln_fit = ln_loop(card, ln_train["step_ms"])
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
     kernels = epilogue_rows(shapes, fa_errs, step_launches, own_ms)
+    kernels += concept_rows(bwd2_errs, {d: r["launches_step"] for d, r in concept_loops.items()},
+                            own_ms)
     kernels += modulation_rows(
         mod_shapes, mod_errs,
         {d: req["CONCEPT_IN_DF_GEN"][d]["fused_affine.forward"] for d in req["CONCEPT_IN_DF_GEN"]})
@@ -1975,8 +2495,10 @@ def main() -> int:
          for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")}, own_ms)
     log(json.dumps({"card": card, "serving": list(runs.values()),
                     "concept_serving": [r for rs in concept_runs.values() for r in rs.values()],
+                    "sent_serving": sent_runs,
                     "training": [*trains.values(), ln_train, ln_train32],
-                    "training_loop": loop}))
+                    "training_loop": loop, "concept_training_loop": list(concept_loops.values()),
+                    "ln_training_loop": ln_fit}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

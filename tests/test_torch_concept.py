@@ -445,8 +445,7 @@ def test_registry_resolves_the_four_generators():
     assert registry.get_generator("CONCEPT_OUT_DF_GEN") is pdf.OutNetG
     assert registry.get_generator("CONCEPT_INATTN_GEN") is pcg.InNetG
     assert registry.get_generator("CONCEPT_OUTATTN_GEN") is pcg.OutNetG
-    with pytest.raises(NotImplementedError, match="concept training slice"):
-        registry.get_discriminator("CONCEPT_NETD")
+    assert registry.get_discriminator("CONCEPT_NETD") is pdf.NetD
 
 
 def test_sampler_needs_words_for_word_attention():

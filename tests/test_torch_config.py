@@ -41,7 +41,8 @@ def test_registry_resolves_ported_and_names_later_slices():
     from xmc_gan_tpu_torch.models.df_concept_gan import InNetG
 
     assert get_generator("CONCEPT_IN_DF_GEN") is InNetG
-    with pytest.raises(NotImplementedError, match="SBERT"):
-        get_text_encoder("SBERT")
+    from xmc_gan_tpu_torch.models.encoder import SBERTEncoder
+
+    assert get_text_encoder("SBERT") is SBERTEncoder
     with pytest.raises(KeyError):
         get_generator("NO_SUCH_GEN")

@@ -797,7 +797,7 @@ def test_cross_attention_kernel_matches_plain_on_card(cuda_device, dtype, shape)
 @pytest.mark.cuda
 def test_cross_attention_refuses_grad_on_card(cuda_device):
     q, k, v, mask = _attn_inputs(cuda_device, (2, 1, 8, 5, 4, False), 8, allpad=False)
-    with pytest.raises(NotImplementedError, match="concept training slice"):
+    with pytest.raises(NotImplementedError, match="word-attention training slice"):
         ca.masked_cross_attention_kernel(q.requires_grad_(), k, v, mask)
     with torch.no_grad():
         ca.masked_cross_attention_kernel(q, k, v, mask)
@@ -889,3 +889,109 @@ def test_attn_grouped_takes_the_exact_max_where_the_bound_is_wide(cuda_device, d
     rtol, atol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
     assert bool((got.float().abs().sum(-1) > 0).all())
+
+
+# the concept discriminator's four modulate_lrelu inputs at NCH 32, 64²
+# (batch cut to 8)
+BWD2_SHAPES = [(8, 128, 32, 32), (8, 128, 16, 16), (8, 128, 8, 8), (8, 128, 4, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD2_SHAPES)
+def test_double_backward_kernel_matches_plain_on_card(cuda_device, dtype, vec_dtype, shape):
+    """The single form differentiated twice (``create_graph``, then the
+    gradient of a weighted sum of dx, dgamma and dbeta) launches the
+    double-backward kernel once and agrees with ``fused_affine_bwd2_ref``:
+    g_x and g_dy are the plain version's products in the same order (bf16:
+    rounded once on store), g_gamma a sum over H*W in another order
+    (``SUM_TOL``); beta gets no gradient."""
+    x, mods, dy = _bwd_inputs(cuda_device, shape, dtype, vec_dtype, 1, seed=5)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    b, c = shape[:2]
+    a = torch.randn(shape, generator=gen, device=cuda_device).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    cc, e = (torch.randn(b, c, generator=gen, device=cuda_device).to(vec_dtype) for _ in "ce")
+    x.requires_grad_()
+    dy.requires_grad_()
+    g, beta = (m.requires_grad_() for m in mods)
+    dx, dg, db = torch.autograd.grad(fa.modulate_lrelu_kernel(x, g, beta), (x, g, beta), dy,
+                                     create_graph=True)
+    before = fa.DOUBLE_BACKWARD.launches
+    got = torch.autograd.grad((a * dx).float().sum() + (cc * dg).float().sum()
+                              + (e * db).float().sum(), (x, dy, g, beta), allow_unused=True)
+    torch.cuda.synchronize()
+    assert fa.DOUBLE_BACKWARD.launches == before + 1
+    assert got[3] is None
+    want = fa.fused_affine_bwd2_ref(x.detach(), g.detach(), beta.detach(), dy.detach(), a, cc, e)
+    rtol, atol = BWD_TOL[dtype]
+    for t, w in ((got[0], want[0]), (got[1], want[1])):
+        assert t.dtype == dtype
+        torch.testing.assert_close(t.float(), w.float(), rtol=rtol, atol=atol)
+    extra = BF16_ULP / 2 if vec_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got[2].float(), want[2].float(), rtol=SUM_TOL + extra,
+                               atol=SUM_TOL * want[2].float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_double_backward_refuses_the_scalar_kernels_shapes(cuda_device, dtype):
+    """At C = 13, where ``plan_bwd`` names the scalar backward kernel, the
+    double backward raises before any launch: it has only the vector
+    kernel.  The single backward still runs there."""
+    x, mods, dy = _bwd_inputs(cuda_device, (2, 13, 5, 7), dtype, dtype, 1, seed=5)
+    x.requires_grad_()
+    g, beta = (m.requires_grad_() for m in mods)
+    dx, dg, _ = torch.autograd.grad(fa.modulate_lrelu_kernel(x, g, beta), (x, g, beta), dy,
+                                    create_graph=True)
+    before = fa.DOUBLE_BACKWARD.launches
+    with pytest.raises(ValueError, match="multiple of .* 16-byte aligned"):
+        torch.autograd.grad(dx.float().sum() + dg.float().sum(), x)
+    assert fa.DOUBLE_BACKWARD.launches == before
+
+
+@pytest.mark.cuda
+def test_magp_through_concept_netd_runs_the_double_backward(cuda_device):
+    """MAGP through ``CONCEPT_NETD`` (NCH 4, 64², batch 4, fp32 with TF32
+    off) on the card: one double-backward launch for each of D's four
+    ``ConceptResD`` epilogues, and the penalty and its gradient in D's
+    parameters as on the CPU (1e-4 relative; gradients to 1e-4 of each
+    tensor's largest magnitude: cuDNN's and the CPU's convolutions sum in
+    another order)."""
+    from xmc_gan_tpu_torch.config import cfg_from_dict
+    from xmc_gan_tpu_torch.models.df_concept_gan import NetD
+    from xmc_gan_tpu_torch.train import refresh_spectral
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg_from_dict({"TRAIN": {"NCH": 4, "NEF": 16, "HE_INIT": True}, "IMG": {"SIZE": 64},
+                         "DISC": {"ENCODER_NAME": "CONCEPT_NETD", "SPEC_NORM": True,
+                                  "SENT_MATCH": True}})
+    d_cpu = NetD(cfg, gen=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for blk in d_cpu.downblocks:
+            blk.gamma.fill_(1.0)  # open the gates: the concept branches count
+    refresh_spectral(d_cpu, 20)  # sigma near each weight's norm
+    gen = torch.Generator().manual_seed(1)
+    imgs = torch.rand(4, 3, 64, 64, generator=gen) * 2 - 1
+    sent = torch.randn(4, 16, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        d = d_cpu if dev == "cpu" else NetD(cfg, gen=torch.Generator()).to(dev)
+        if dev == "cuda":
+            d.load_state_dict(d_cpu.state_dict())
+        before = fa.DOUBLE_BACKWARD.launches
+        pen = losses.magp_penalty(lambda i, s: d.d_all(i, s)[0].float().sum(),
+                                  imgs.to(dev).contiguous(memory_format=torch.channels_last),
+                                  sent.to(dev))
+        grads = torch.autograd.grad(pen, list(d.parameters()), allow_unused=True)
+        out[dev] = (pen.item(), [None if g_ is None else g_.cpu() for g_ in grads],
+                    fa.DOUBLE_BACKWARD.launches - before)
+    assert out["cpu"][2] == 0 and out["cuda"][2] == 4
+    assert 0 < out["cpu"][0] < float("inf")
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    for g_card, g_cpu in zip(out["cuda"][1], out["cpu"][1]):
+        if g_cpu is not None:
+            torch.testing.assert_close(g_card, g_cpu, rtol=0,
+                                       atol=1e-4 * g_cpu.abs().max().item() + 1e-12)

@@ -214,8 +214,7 @@ def test_toy_data_matches_jax():
 
 def test_get_dataset():
     assert registry.get_dataset("WORD") is pipeline.WordTextDataset
-    with pytest.raises(NotImplementedError, match="SBERT"):
-        registry.get_dataset("SENT")
+    assert registry.get_dataset("SENT") is pipeline.SentTextDataset
     with pytest.raises(KeyError):
         registry.get_dataset("IMAGES")
 

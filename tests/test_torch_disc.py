@@ -159,8 +159,9 @@ def test_pooling_and_unit_range_match_jax():
 
 def test_registry_discriminators():
     assert registry.get_discriminator("DF_DISC") is NetD
-    with pytest.raises(NotImplementedError, match="concept training slice"):
-        registry.get_discriminator("CONCEPT_NETD")
+    from xmc_gan_tpu_torch.models import df_concept_gan
+
+    assert registry.get_discriminator("CONCEPT_NETD") is df_concept_gan.NetD
     with pytest.raises(KeyError):
         registry.get_discriminator("NO_SUCH_D")
 

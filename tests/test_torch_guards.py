@@ -236,7 +236,7 @@ def test_cross_attention_wrapper_has_no_quiet_route():
         with pytest.raises(Reached):
             ca.masked_cross_attention_kernel(qc, kc, kc, mc)
         # an operand that would need a gradient is refused on CUDA, not detached
-        with pytest.raises(NotImplementedError, match="concept training slice"):
+        with pytest.raises(NotImplementedError, match="word-attention training slice"):
             ca.masked_cross_attention_kernel(qc.clone().requires_grad_(), kc, kc, mc)
     assert torch.Tensor.device is real_device
     before = ca.FORWARD.launches
@@ -253,7 +253,7 @@ def test_modules_list_covers_the_slice():
             "ops.cross_attention", "ops.grouped", "models.common", "models.df_gan",
             "models.df_concept_gan", "models.concept_gan", "models.encoder", "utils.convert",
             "utils.miscc", "data.vocab", "data.pipeline", "data.native", "data.toy",
-            "utils.checkpoint", "utils.logger", "models.inception", "eval"}
+            "utils.checkpoint", "utils.logger", "models.inception", "eval", "data.text_encode"}
     assert {f"xmc_gan_tpu_torch.{m}" for m in want} <= set(MODULES)
     for name in MODULES:
         importlib.import_module(name)

@@ -273,8 +273,19 @@ def test_backward_matches_jax_vjp_bf16_vectors(nmod):
 
 
 def _path_shapes(config: str) -> list[tuple[int, int, int, int]]:
-    """The 14 epilogue inputs of one train step: the flagship_word step
-    (256², NCH=32, batch 128) or the LN-COCO one (NCH=96, batch 256)."""
+    """The epilogue backward's inputs of one train step: the 14 of the
+    flagship_word step (256², NCH=32, batch 128) or of the LN-COCO one
+    (NCH=96, batch 256), or the 40 of the ``concept_out_df_gan.yml`` one
+    (64², NCH=32, batch 88: ``CONCEPT_NETD``'s four 5 times, G's twenty)."""
+    if config == "concept":
+        from xmc_gan_tpu_torch.models.df_concept_gan import (
+            disc_modulation_shapes,
+            modulation_shapes,
+        )
+
+        cfg = cfg_from_file(str(CFG_DIR / "concept_out_df_gan.yml"))
+        bs = cfg.TRAIN.BATCH_SIZE
+        return 5 * disc_modulation_shapes(cfg, bs) + modulation_shapes(cfg, bs)
     if config == "flagship":
         cfg = cfg_from_dict({"IMG": {"SIZE": 256}, "TEXT": {"ENCODER_DIR": ""}},
                             base=cfg_from_file(str(CFG_DIR / "df_gan_damsm.yml")))
@@ -285,16 +296,16 @@ def _path_shapes(config: str) -> list[tuple[int, int, int, int]]:
 
 @pytest.mark.parametrize("vec_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("config", ["flagship", "ln"])
+@pytest.mark.parametrize("config", ["flagship", "ln", "concept"])
 def test_plan_bwd_takes_every_path_shape_on_the_vector_kernel(config, dtype, vec_dtype):
-    """Every epilogue input of both train steps (C a multiple of 8 each)
-    plans ``fused_affine_bwd_vec``, in both dtypes and with vectors of
+    """Every epilogue input of the three train steps (C a multiple of 8
+    each) plans ``fused_affine_bwd_vec``, in both dtypes and with vectors of
     either dtype: a block is a whole number of pixels (threads a multiple
     of C / width, at most 256), the grid covers H*W exactly once per image
     with runs of whole block steps, and the card holds several blocks a
     multiprocessor."""
     shapes = _path_shapes(config)
-    assert len(shapes) == 14
+    assert len(shapes) == (40 if config == "concept" else 14)
     width = 16 // torch.empty((), dtype=dtype).element_size()
     for b, c, h, w in shapes:
         p = fa.plan_bwd(b, h * w, c, dtype, vec_dtype, (0, 256, 512), sms=132)

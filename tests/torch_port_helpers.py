@@ -140,3 +140,41 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def perturb_concept(tree, seed: int):
+    """Every leaf of a concept model's JAX tree drawn anew, so that the
+    residual gates are open and nothing saturates: kernels ~ N(0, 1/fan_in)
+    (grouped ``[g, d_in, f]`` kernels: fan_in d_in), GroupNorm scales ~ 1 +-
+    0.1, biases ~ N(0, 0.1^2), gates ~ U(0.5, 1.5)."""
+    rng = np.random.RandomState(seed)
+
+    def leaf(name, shape):
+        if name == "gamma":
+            return rng.uniform(0.5, 1.5, shape)
+        if name == "kernel":
+            fan_in = shape[1] if len(shape) == 3 else np.prod(shape[:-1])
+            return rng.standard_normal(shape) / np.sqrt(fan_in)
+        if name.endswith("scale"):
+            return 1.0 + 0.1 * rng.standard_normal(shape)
+        return 0.1 * rng.standard_normal(shape)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, np.shape(v)).astype(np.float32)
+                for k, v in node.items()}
+
+    return walk(tree)
+
+
+def unit_spectral(shapes, params, seed: int, refreshes: int = 20):
+    """Random unit power-iteration vectors for a JAX ``spectral`` tree of
+    ``shapes``, taken ``refreshes`` power-iteration steps towards the top
+    singular vectors of ``params``' kernels (sigma near each kernel's norm)."""
+    rng = np.random.RandomState(seed)
+
+    def unit(leaf):
+        v = rng.standard_normal(leaf.shape)
+        return (v / np.linalg.norm(v)).astype(np.float32)
+
+    spectral = jax.tree.map(unit, dict(shapes))
+    return jax.tree.map(np.asarray, jax_refresh_spectral(params, spectral, refreshes))

@@ -13,7 +13,11 @@ when asked).  ``train`` writes the JAX package's layout under
 ``{output_root}/{DATASET_NAME}{SIZE}_{CONFIG_NAME}_{seed}/`` with the port's
 own checkpoints (``utils/checkpoint.py``); ``eval`` and ``sample`` read them.
 ``--dp``, ``--tp`` and ``--distributed`` raise: data parallelism comes with
-its own slice.  SENT (SBERT) configs raise: they come with the SBERT slice.
+its own slice.  SENT (SBERT) configs train and evaluate (their captions
+from the dataset's ``sbert_cache_{mode}.npz``, or a seeded table with
+``--synthetic``); ``sample`` raises for them: a new caption needs the
+RoBERTa transformer and its ``stsb-roberta-base`` weights, which are not in
+the repository.
 The noise is drawn with ``torch.Generator``s, so the images differ from the
 JAX CLI's (``jax.random``) for the same seed.
 """
@@ -211,7 +215,10 @@ def _g_weights(cfg: Config, args: argparse.Namespace) -> dict | None:
 def run_sample(args: argparse.Namespace) -> str:
     cfg = cfg_from_file(args.cfg)
     if cfg.TEXT.TYPE != "WORD":
-        raise NotImplementedError("SENT (SBERT) configs come with the SBERT slice of the port")
+        raise NotImplementedError(
+            "sample for SENT (SBERT) configs encodes new captions with the RoBERTa transformer "
+            "(sentence-transformers/stsb-roberta-base) and its weights, which are not in the "
+            "repository; it waits until they are")
     caps, cap_lens = tokenize(list(args.caption), load_w2i(args.data_dir),
                               cfg.TEXT.MAX_LENGTH)
     encode = make_encode_fn(cfg, device=args.device, weights=args.text_encoder)

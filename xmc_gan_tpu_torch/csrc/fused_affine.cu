@@ -43,6 +43,33 @@
 // is the caller's plan (ops/cuda/fused_affine.py plan_bwd); the C entry
 // refuses a launch that the named kernel does not take.
 //
+// Double backward of the single form (NMOD = 1; the Pallas kernel has none,
+// and JAX autodiffs its plain epilogue: it replaces no Pallas kernel).  The
+// concept discriminator (CONCEPT_NETD) runs the epilogue inside D, and MAGP
+// differentiates D's input gradient, so the first backward's outputs
+// (dx, dg0, db0) are differentiated again.  With s = 1 where
+// g0*x + b0 >= 0 (affine_rn, as the backward branches) and slope elsewhere,
+// and the gradients (gx, gg, gb) arriving at (dx, dg0, db0):
+//   g_dy = s * (g0*gx + gg*x + gb)      written, x's type
+//   g_x  = s * dy * gg                  written, x's type
+//   g_g0 = sum over H*W of s * dy * gx  one fp32 sum a (b, c)
+//   g_b0 = 0                            s is piecewise constant
+// Rounding: fp32 math, each product rounded before its add (__fmul_rn,
+// __fadd_rn: the plain version's order), g_dy and g_x rounded once on store
+// to x's type, the sums in fp32 and cast once by the caller.  Bound: bytes
+// (x, dy, gx read once, g_dy and g_x written once: 5 activation passes
+// against the backward's 3).  fused_affine_bwd2_vec keeps the backward's
+// design: 16 bytes a thread and array, kBwd2Unroll steps' loads issued
+// before the first use (2, not the backward's 4: three arrays a step, 96
+// bytes in flight a thread, keep the registers within the 128 that two
+// blocks of 256 threads leave each), each thread on one fixed channel chunk
+// with its four vector values and VEC sums in registers, one shared-memory
+// reduction a block and one fp32 atomicAdd a (b, c).  It is the only
+// double-backward kernel: the caller plans it with plan_bwd, as the
+// backward, and refuses a shape or alignment that plan names the scalar
+// kernel for (C not a multiple of the 16-byte width, or a pointer not
+// 16-byte aligned); CONCEPT_NETD's C = 128 and fresh tensors never are.
+//
 // C interface (bound with ctypes, pointers and stream as void*):
 //   int xmc_fused_affine(x, out, g0, b0, g1, b1, B, HW, C, nmod, dtype, slope, stream)
 //   int xmc_fused_affine_bwd(x, dy, dx, g0, b0, g1, b1, sums, B, HW, C, nmod, dtype,
@@ -52,6 +79,11 @@
 //   db1]) and must hold zeros.  kernel 0 = fused_affine_bwd_vec (grid
 //   (chunks, B), threads a block), 1 = fused_affine_bwd_scalar (grid
 //   (ceil(C / 32), chunks, B), 256 threads); each block walks run pixels.
+//   int xmc_fused_affine_bwd2(x, dy, gx, g0, b0, gg, gb, g_dy, g_x, sums, B, HW, C,
+//                             dtype, vdtype, slope, kernel, threads, chunks, run, stream)
+//   x, dy, gx, g_dy, g_x in x's type; g0, b0, gg, gb [B, C] in vdtype; sums
+//   fp32 [B, C], zeroed by the caller; kernel, threads, chunks and run as
+//   for the backward; kernel must be 0 (fused_affine_bwd2_vec).
 //   Returns cudaGetLastError() after the launch (0 = success), or
 //   cudaErrorInvalidValue for a launch that the named kernel does not take.
 
@@ -441,7 +473,145 @@ int launch_bwd_nmod(int nmod, const void* x, const void* dy, void* dx, const voi
                              run, stream);
 }
 
+// ---- double backward of the single form ----
+
+// One element: writes g_dy and g_x (fp32) and adds s * dy * gx to the sum.
+__device__ __forceinline__ void bwd2_elem(float xv, float dyv, float gxv, float gg0, float bb0,
+                                          float ag, float ab, float slope, float& g_dy,
+                                          float& g_x, float& s_g) {
+  const bool pos = affine_rn(gg0, xv, bb0) >= 0.f;
+  const float d = pos ? dyv : __fmul_rn(slope, dyv);  // s * dy
+  const float a = __fadd_rn(__fadd_rn(__fmul_rn(gg0, gxv), __fmul_rn(ag, xv)), ab);
+  g_dy = pos ? a : __fmul_rn(slope, a);
+  g_x = __fmul_rn(d, ag);
+  s_g = fmaf(d, gxv, s_g);
+}
+
+constexpr int kBwd2Unroll = 2;  // pixel steps whose loads issue before the first use
+
+// The vector kernel: fused_affine_bwd_vec's layout (see there) with three
+// arrays read and two written.  Precondition (checked by the C entry): C %
+// VEC == 0, blockDim.x a multiple of L = C / VEC and at most kBwdThreads,
+// x, dy, gx, g_dy and g_x 16-byte aligned.
+template <typename T, typename V>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+fused_affine_bwd2_vec(const T* __restrict__ x, const T* __restrict__ dy,
+                      const T* __restrict__ gx, const V* __restrict__ g0,
+                      const V* __restrict__ b0, const V* __restrict__ gg,
+                      const V* __restrict__ gb, T* __restrict__ g_dy, T* __restrict__ g_x,
+                      float* __restrict__ sums, int HW, int C, int run, float slope) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int PAD = VEC + 1;  // odd: a warp's shared-memory stores hit 32 banks
+  __shared__ float red[kBwdThreads * PAD];
+  const int L = C / VEC;
+  const int P = blockDim.x / L;
+  const int row = threadIdx.x / L;
+  const int j = threadIdx.x - row * L;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * run;
+  const int p1 = min(p0 + run, HW);
+  float gg0[VEC], bb0[VEC], ag[VEC], ab[VEC], s_g[VEC];
+  const size_t m = size_t(b) * C + size_t(j) * VEC;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    gg0[k] = to_f(g0[m + k]);
+    bb0[k] = to_f(b0[m + k]);
+    ag[k] = to_f(gg[m + k]);
+    ab[k] = to_f(gb[m + k]);
+    s_g[k] = 0.f;
+  }
+  const size_t step = size_t(P) * C;
+  size_t off = (size_t(b) * HW + p0 + row) * C + size_t(j) * VEC;
+  for (int p = p0 + row; p < p1; p += kBwd2Unroll * P, off += kBwd2Unroll * step) {
+    uint4 xr[kBwd2Unroll], dr[kBwd2Unroll], gr[kBwd2Unroll];
+#pragma unroll
+    for (int u = 0; u < kBwd2Unroll; ++u) {
+      if (p + u * P < p1) {
+        xr[u] = __ldg(reinterpret_cast<const uint4*>(x + off + u * step));
+        dr[u] = __ldg(reinterpret_cast<const uint4*>(dy + off + u * step));
+        gr[u] = __ldg(reinterpret_cast<const uint4*>(gx + off + u * step));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwd2Unroll; ++u) {
+      if (p + u * P < p1) {
+        float xv[VEC], dv[VEC], gv[VEC], o_dy[VEC], o_x[VEC];
+        unpack16<T>(xr[u], xv);
+        unpack16<T>(dr[u], dv);
+        unpack16<T>(gr[u], gv);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          bwd2_elem(xv[k], dv[k], gv[k], gg0[k], bb0[k], ag[k], ab[k], slope, o_dy[k], o_x[k],
+                    s_g[k]);
+        *reinterpret_cast<uint4*>(g_dy + off + u * step) = pack16<T>(o_dy);
+        *reinterpret_cast<uint4*>(g_x + off + u * step) = pack16<T>(o_x);
+      }
+    }
+  }
+  float* mine = red + threadIdx.x * PAD;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) mine[k] = s_g[k];
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const float* col = red + (c / VEC) * PAD + c % VEC;
+    float acc = 0.f;
+    for (int r = 0; r < P; ++r) acc += col[r * L * PAD];
+    atomicAdd(sums + size_t(b) * C + c, acc);
+  }
+}
+
+template <typename T, typename V>
+int launch_bwd2(const void* x, const void* dy, const void* gx, const void* const* vecs,
+                void* g_dy, void* g_x, float* sums, int64_t B, int64_t HW, int64_t C,
+                float slope, int kernel, int threads, int64_t chunks, int64_t run,
+                cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  const T* gxt = static_cast<const T*>(gx);
+  T* gdyt = static_cast<T*>(g_dy);
+  T* gxo = static_cast<T*>(g_x);
+  const V* v[4];
+  for (int i = 0; i < 4; ++i) v[i] = static_cast<const V*>(vecs[i]);
+  if (kernel == kBwdVec) {
+    constexpr int VEC = 16 / sizeof(T);
+    const int64_t L = C / VEC;
+    bool ok = C % VEC == 0 && threads >= L && threads <= kBwdThreads && threads % L == 0 &&
+              chunks * run + int64_t(kBwd2Unroll) * threads < INT32_MAX && C <= INT32_MAX;
+    for (const void* p : {x, dy, gx, static_cast<const void*>(g_dy),
+                          static_cast<const void*>(g_x)})
+      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    fused_affine_bwd2_vec<T, V><<<dim3(unsigned(chunks), unsigned(B)), threads, 0, stream>>>(
+        xt, dyt, gxt, v[0], v[1], v[2], v[3], gdyt, gxo, sums, int(HW), int(C), int(run), slope);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int xmc_fused_affine_bwd2(const void* x, const void* dy, const void* gx,
+                                     const void* g0, const void* b0, const void* gg,
+                                     const void* gb, void* g_dy, void* g_x, void* sums,
+                                     int64_t B, int64_t HW, int64_t C, int dtype, int vdtype,
+                                     float slope, int kernel, int threads, int64_t chunks,
+                                     int64_t run, void* stream) {
+  if (B < 1 || HW < 1 || C < 1 || B > 65535 || chunks < 1 || run < 1 || chunks * run < HW ||
+      (dtype != 0 && dtype != 1) || (vdtype != 0 && vdtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* vecs[4] = {g0, b0, gg, gb};
+  float* s = static_cast<float*>(sums);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define XMC_FA_BWD2(T, V) \
+  launch_bwd2<T, V>(x, dy, gx, vecs, g_dy, g_x, s, B, HW, C, slope, kernel, threads, chunks, \
+                    run, st)
+  if (dtype == 0)
+    return vdtype == 0 ? XMC_FA_BWD2(float, float) : XMC_FA_BWD2(float, __nv_bfloat16);
+  return vdtype == 0 ? XMC_FA_BWD2(__nv_bfloat16, float)
+                     : XMC_FA_BWD2(__nv_bfloat16, __nv_bfloat16);
+#undef XMC_FA_BWD2
+}
 
 extern "C" int xmc_fused_affine_bwd(const void* x, const void* dy, void* dx, const void* g0,
                                     const void* b0, const void* g1, const void* b1, void* sums,

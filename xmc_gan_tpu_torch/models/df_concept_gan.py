@@ -1,4 +1,4 @@
-"""Concept-DF GAN generators as PyTorch modules (port of the generator half of
+"""Concept-DF GAN models as PyTorch modules (port of
 ``xmc_gan_tpu/models/df_concept_gan.py``).
 
 * **InNetG / OutNetG** (``CONCEPT_IN_DF_GEN`` / ``CONCEPT_OUT_DF_GEN``) — the
@@ -6,6 +6,13 @@
   groups, pool each group with attention over the spatial map, reason over
   the 16 concept states and modulate the grouped features with per-group
   gamma/beta MLPs (reference ``df_concept_gan.py:65-531``).
+* **NetD / ConceptResD / ConceptDGetLogits** (``CONCEPT_NETD``) — the
+  concept-attention discriminator: each down-block pools its 16 concept
+  groups, reasons over them and modulates its own features with
+  ``modulate_lrelu`` (reference ``:584-714``, whose ``__init__`` raises; the
+  JAX package made the dead code below the raise work, with an IMG_MATCH
+  head of its own).  MAGP differentiates it twice, so its epilogue runs the
+  kernel's double backward on the card.
 * The shared pieces that ``models/concept_gan.py`` also builds on:
   ``CARDINALITY``/``BOTTLENECK``/``STATE_DIM``, ``ConceptReasoner`` and
   ``ConceptSampler``.
@@ -21,8 +28,11 @@ Module and parameter names are the reference's (``upblocks.{i}.concept1.
 gamma1_gconv.{0,2}.weight``, ``concept_sampler1.query_gconv.weight`` as a
 grouped 1x1 conv ``[C*d_out, d_in, 1, 1]``, ``gn.weight``, ``conv_out.1``),
 the names ``xmc_gan_tpu/utils/convert.py:244-311`` reads, so a reference
-``state_dict`` loads with ``strict=True``.  Parameters are fp32; ``dtype``
-is the activation type.
+``state_dict`` loads with ``strict=True``.  The reference D never ran, so
+its names are the DF-GAN ``NetD``'s around the JAX module tree's
+(``downblocks.{i}.concept_sampler.key_gconv.weight``,
+``COND_DNET.joint_conv.0``; ``utils/convert.concept_discriminator_state_dict``).
+Parameters are fp32; ``dtype`` is the activation type.
 """
 
 from __future__ import annotations
@@ -33,14 +43,22 @@ import torch
 from torch import nn
 
 from xmc_gan_tpu_torch.config import Config
-from xmc_gan_tpu_torch.models.common import gen_arch, inits, split_upsample_schedule
+from xmc_gan_tpu_torch.models.common import disc_arch, gen_arch, inits, split_upsample_schedule
 from xmc_gan_tpu_torch.ops.fused import modulate_lrelu
 from xmc_gan_tpu_torch.ops.grouped import GroupedDense, GroupNorm
-from xmc_gan_tpu_torch.ops.modules import SNConv, SNDense, leaky_relu, upsample_nearest_2x
+from xmc_gan_tpu_torch.ops.modules import (
+    SNConv,
+    SNDense,
+    avg_pool,
+    global_avg_pool,
+    leaky_relu,
+    upsample_nearest_2x,
+)
 
 __all__ = ["CARDINALITY", "BOTTLENECK", "STATE_DIM", "grouped", "ConceptReasoner",
            "ConceptSampler", "CondConceptSampler", "InConceptBlock", "OutConceptBlock",
-           "InNetG", "OutNetG", "modulation_shapes"]
+           "InNetG", "OutNetG", "ConceptResD", "ConceptDGetLogits", "NetD", "modulation_shapes",
+           "disc_modulation_shapes"]
 
 CARDINALITY = 16  # concept groups (reference df_concept_gan.py:110)
 BOTTLENECK = 8  # per-group width p (reference :110)
@@ -74,10 +92,11 @@ class ConceptReasoner(nn.Module):
     propagation step, ReLU (``normalize`` is hardcoded off in the reference)."""
 
     def __init__(self, cardinality: int, state_dim: int, he_init: bool, *,
-                 gen: torch.Generator):
+                 spec_norm: bool = False, gen: torch.Generator):
         super().__init__()
         k, _ = inits(he_init, state_dim)
-        self.proj_edge = SNDense(state_dim, cardinality, use_bias=False, weight_init=k, gen=gen)
+        self.proj_edge = SNDense(state_dim, cardinality, use_bias=False, spec_norm=spec_norm,
+                                 weight_init=k, gen=gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         adj = torch.tanh(self.proj_edge(x))  # [B, C, C]
@@ -98,14 +117,15 @@ class ConceptSampler(_SkipNormBuffer):
     ``[B, C*p, H, W]`` -> ``[B, C, p']``."""
 
     def __init__(self, cardinality: int, state_dim: int, normalize: bool, he_init: bool,
-                 in_per_group: int = BOTTLENECK, *, gen: torch.Generator):
+                 in_per_group: int = BOTTLENECK, *, spec_norm: bool = False,
+                 gen: torch.Generator):
         super().__init__()
         C, p, q = cardinality, in_per_group, state_dim
         self.cardinality, self.scale = C, state_dim ** -0.5
         k, _ = inits(he_init, p)
-        self.query_gconv = GroupedDense(C, p, q, use_bias=False, weight_init=k, gen=gen)
-        self.key_gconv = GroupedDense(C, p, q, use_bias=False, weight_init=k, gen=gen)
-        self.value_gconv = GroupedDense(C, p, q, use_bias=False, weight_init=k, gen=gen)
+        for name in ("query_gconv", "key_gconv", "value_gconv"):
+            self.add_module(name, GroupedDense(C, p, q, use_bias=False, spec_norm=spec_norm,
+                                               weight_init=k, gen=gen))
         self.gn1 = GroupNorm(C, C * q) if normalize else None
         self.gn2 = GroupNorm(C, C * q) if normalize else None
 
@@ -381,4 +401,170 @@ def modulation_shapes(cfg: Config, batch: int, fuse_upsample: bool = True
         res *= 2 if pre[i] else 1
         shapes += [(batch, gw, res, res)] * 4
         res *= 2 if post[i] else 1
+    return shapes
+
+
+class ConceptResD(_ConceptTrunk):
+    """Concept-attention residual down-block (``df_concept_gan.py:430-499``,
+    reference ``ConceptResD`` ``:614-679``): a 4x4 stride-2 split conv and a
+    grouped 3x3 (the trunk), self-attention concept pooling and reasoning,
+    a single-hidden-layer grouped gamma/beta per group, ``modulate_lrelu``,
+    a 1x1 output conv and a zero-initialized gate over the shortcut.  The
+    shortcut pools before its 1x1 conv (the JAX block's ``fuse_downsample``
+    fold): a 1x1 conv commutes with the 2x2 average pool, so this is the
+    same function at 1/4 the elements."""
+
+    def __init__(self, in_dim: int, out_dim: int, downsample: bool, normalize: bool,
+                 spec_norm: bool, he_init: bool, *, gen: torch.Generator):
+        super().__init__()
+        C, q = CARDINALITY, STATE_DIM
+        gw = C * BOTTLENECK
+        self.downsample = downsample
+        k4, _ = inits(he_init, in_dim * 16)
+        k3, _ = inits(he_init, BOTTLENECK * 9)
+        self.split_conv = SNConv(in_dim, gw, 4, stride=2, padding=1, use_bias=False,
+                                 spec_norm=spec_norm, weight_init=k4, gen=gen)
+        self.trans_gconv = SNConv(gw, gw, 3, padding=1, use_bias=False, groups=C,
+                                  spec_norm=spec_norm, weight_init=k3, gen=gen)
+        self.gn = GroupNorm(C, gw) if normalize else None
+        self.concept_sampler = ConceptSampler(C, q, normalize, he_init, spec_norm=spec_norm,
+                                              gen=gen)
+        self.concept_reasoner = ConceptReasoner(C, q, he_init, spec_norm=spec_norm, gen=gen)
+        kg, bg = inits(he_init, q)
+        for name in ("gamma", "beta"):  # reference :634-644
+            self.add_module(f"{name}_g1", GroupedDense(C, q, q, spec_norm=spec_norm,
+                                                       weight_init=kg, bias_init=bg, gen=gen))
+            self.add_module(f"{name}_g2", GroupedDense(C, q, BOTTLENECK, spec_norm=spec_norm,
+                                                       weight_init=kg, bias_init=bg, gen=gen))
+        k1o, b1o = inits(he_init, gw)
+        self.conv_out = SNConv(gw, out_dim, 1, spec_norm=spec_norm, weight_init=k1o,
+                               bias_init=b1o, gen=gen)
+        if in_dim != out_dim:
+            k1, b1 = inits(he_init, in_dim)
+            self.conv_s = SNConv(in_dim, out_dim, 1, spec_norm=spec_norm, weight_init=k1,
+                                 bias_init=b1, gen=gen)
+        else:
+            self.conv_s = None
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        img_embs = self._trunk(x, leaky_relu)
+        ctx = self.concept_reasoner(self.concept_sampler(img_embs))  # [B, C, p']
+        b = x.shape[0]
+        gamma = self.gamma_g2(leaky_relu(self.gamma_g1(ctx))).reshape(b, -1)
+        beta = self.beta_g2(leaky_relu(self.beta_g1(ctx))).reshape(b, -1)
+        out = self.conv_out(modulate_lrelu(img_embs, gamma, beta))
+        sc = avg_pool(x, 2) if self.downsample else x
+        if self.conv_s is not None:
+            sc = self.conv_s(sc)
+        return sc + self.gamma.to(out.dtype) * out
+
+
+class ConceptDGetLogits(nn.Module):
+    """Projection head of the concept discriminator (``df_concept_gan.py:502-554``,
+    reference ``D_GET_LOGITS`` ``:681-714``), returning ``(match_logit [B],
+    img_feat, sent_proj)``.  ``sent_dim`` is the width of the sentence
+    tensor the train step hands D (``TEXT.EMBEDDING_DIM`` with
+    ``DISC.SEPERATE``, else G's ``TRAIN.NEF`` projection): the JAX head sizes
+    its projection from that tensor.  ``IMG_MATCH`` is the JAX package's
+    extension (the reference head has none): the pooled image features are
+    projected into the text space and the sentence conditions as it is."""
+
+    def __init__(self, cfg: Config, sent_dim: int, *, gen: torch.Generator):
+        super().__init__()
+        ndf, nef = cfg.TRAIN.NCH, cfg.TRAIN.NEF
+        spec_norm, he = cfg.DISC.SPEC_NORM, cfg.TRAIN.HE_INIT
+        self.img_match = cfg.DISC.IMG_MATCH
+        if cfg.DISC.IMG_MATCH:
+            k, b = inits(he, ndf * 16)
+            self.proj_match = SNDense(ndf * 16, nef, spec_norm=spec_norm, weight_init=k,
+                                      bias_init=b, gen=gen)
+            cond_dim = sent_dim
+        elif cfg.DISC.SENT_MATCH or sent_dim != nef:
+            out = ndf * 16 if cfg.DISC.SENT_MATCH else nef
+            k, b = inits(he, sent_dim)
+            self.proj_match = SNDense(sent_dim, out, spec_norm=spec_norm, weight_init=k,
+                                      bias_init=b, gen=gen)
+            cond_dim = out
+        else:
+            self.proj_match = None
+            cond_dim = nef
+        kj, _ = inits(he, (ndf * 16 + cond_dim) * 9)
+        kj2, _ = inits(he, ndf * 2 * 16)
+        self.joint_conv = nn.Sequential(
+            SNConv(ndf * 16 + cond_dim, ndf * 2, 3, padding=1, use_bias=False,
+                   spec_norm=spec_norm, weight_init=kj, gen=gen),
+            nn.LeakyReLU(0.2),
+            SNConv(ndf * 2, 1, 4, use_bias=False, spec_norm=spec_norm, weight_init=kj2,
+                   gen=gen),
+        )
+
+    def forward(self, x: torch.Tensor, sent_embs: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        b = x.shape[0]
+        out = global_avg_pool(x)  # [B, ndf*16] (reference adaptive_avg_pool2d)
+        if self.proj_match is not None:
+            if self.img_match:
+                out = self.proj_match(out)
+            else:
+                sent_embs = self.proj_match(sent_embs)
+        c = sent_embs[:, :, None, None].expand(b, sent_embs.shape[1], 4, 4).to(x.dtype)
+        h = torch.cat([x, c], dim=1).contiguous(memory_format=torch.channels_last)
+        return self.joint_conv(h).reshape(b), out, sent_embs
+
+
+class NetD(nn.Module):
+    """Concept discriminator, ``CONCEPT_NETD`` (``df_concept_gan.py:557-600``,
+    reference ``NetD`` ``:584-612``): ``conv_img``, one ``ConceptResD`` per
+    ``disc_arch`` stage after the first, the ``ConceptDGetLogits`` head.
+    ``forward`` returns the 4x4 trunk features, ``logits`` applies the head;
+    it has no word-region head (as in the JAX package, ``ENCODER_LOSS.WORD``
+    needs ``DF_DISC``).  Inputs are NCHW images in [-1, 1], cast to
+    ``dtype``."""
+
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32, *,
+                 gen: torch.Generator):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        ndf, he, spec_norm = cfg.TRAIN.NCH, cfg.TRAIN.HE_INIT, cfg.DISC.SPEC_NORM
+        arch = disc_arch(cfg.IMG.SIZE, ndf)
+        k, b = inits(he, 3 * 9)
+        self.conv_img = SNConv(3, arch["out_channels"][0], 3, padding=1, spec_norm=spec_norm,
+                               weight_init=k, bias_init=b, gen=gen)
+        self.downblocks = nn.ModuleList(
+            ConceptResD(arch["in_channels"][i], arch["out_channels"][i], arch["downsample"][i],
+                        cfg.GEN.NORMALIZE, spec_norm, he, gen=gen)
+            for i in range(1, arch["depth"])
+        )
+        # the step conditions D on the raw sentence with DISC.SEPERATE, else
+        # on G's projection (xmc_gan_tpu/train.py:88)
+        sent_dim = cfg.TEXT.EMBEDDING_DIM if cfg.DISC.SEPERATE else cfg.TRAIN.NEF
+        self.COND_DNET = ConceptDGetLogits(cfg, sent_dim, gen=gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv_img(x.to(self.dtype))
+        for block in self.downblocks:
+            out = block(out)
+        return out
+
+    def logits(self, features: torch.Tensor, sent_embs: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.COND_DNET(features, sent_embs.to(self.dtype))
+
+    def d_all(self, x: torch.Tensor, sent_embs: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Trunk + projection head in one call."""
+        return self.logits(self(x), sent_embs)
+
+
+def disc_modulation_shapes(cfg: Config, batch: int) -> list[tuple[int, int, int, int]]:
+    """NCHW shapes of the ``modulate_lrelu`` inputs of one ``CONCEPT_NETD``
+    trunk pass, in call order (one per ``ConceptResD``: 128 channels at
+    half each block's input resolution), from the arch table alone."""
+    arch = disc_arch(cfg.IMG.SIZE, cfg.TRAIN.NCH)
+    res = cfg.IMG.SIZE
+    shapes = []
+    for i in range(1, arch["depth"]):
+        res //= 2  # conv_img keeps the size; each block's split conv halves it
+        shapes.append((batch, CARDINALITY * BOTTLENECK, res, res))
     return shapes

@@ -1,6 +1,7 @@
-"""Frozen DAMSM text encoder (port of ``RNNEncoder`` in ``xmc_gan_tpu/models/encoder.py``).
+"""Frozen text encoders (port of ``xmc_gan_tpu/models/encoder.py``): the DAMSM
+bi-RNN and the Sentence-BERT pooling head.
 
-Embedding(300) + dropout + one bidirectional LSTM or GRU layer (reference
+``RNNEncoder``: Embedding(300) + dropout + one bidirectional LSTM or GRU layer (reference
 ``RNN_ENCODER``, ``encoder.py:73-153``).  Module names are the reference's
 (``encoder.weight``, ``rnn.weight_ih_l0[_reverse]``, ...), so the pretrained
 ``text_encoder100.pth`` loads directly with ``load_state_dict``.
@@ -15,7 +16,13 @@ final states are zeroed afterwards (the JAX scan never updates their carry).
 
 Outputs, as in the JAX package: ``words_embs`` ``[B, T, D]``, ``sent_embs``
 ``[B, D]``, ``mask`` ``[B, T]`` with True at padding (``caps == 0``).  The
-encoder runs in fp32.  ``SBERTEncoder`` comes with a later slice.
+encoder runs in fp32.
+
+``SBERTEncoder``: masked-mean pooling over RoBERTa token embeddings
+(reference ``SBERT_ENCODER``, ``encoder.py:25-70``) without the tokenizer and
+transformer, which run once, offline, into the token-embedding cache that
+``data/text_encode.SbertCache`` reads (the JAX package's design).  It has no
+parameters and no kernel: a masked sum and a division.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from xmc_gan_tpu_torch.config import Config
 
-__all__ = ["RNNEncoder"]
+__all__ = ["RNNEncoder", "SBERTEncoder", "words_pooling"]
 
 _RNN = {"LSTM": nn.LSTM, "GRU": nn.GRU}
 
@@ -77,3 +84,38 @@ class RNNEncoder(nn.Module):
         sent = torch.cat([h_n[0], h_n[1]], dim=-1)
         valid = (lens > 0).to(caps.device)
         return words * valid[:, None, None], sent * valid[:, None], mask
+
+
+def words_pooling(words_embs: torch.Tensor, mask: torch.Tensor, mode: str = "MEAN"
+                  ) -> torch.Tensor:
+    """Masked mean of ``words_embs`` ``[B, T, D]`` (already zero at padding)
+    over its real tokens (``mask`` ``[B, T]``, True at padding), divided by
+    the token count, at least 1 (reference ``words_pooling``,
+    ``encoder.py:16-23``).  Only ``MEAN`` exists, as in the JAX package."""
+    if mode != "MEAN":
+        raise NotImplementedError(f"POOLING_MODE={mode!r} (reference parity)")
+    counts = (~mask).sum(1, keepdim=True).to(words_embs.dtype)
+    return words_embs.sum(1) / counts.clamp_min(1.0)
+
+
+class SBERTEncoder(nn.Module):
+    """Pooling head over precomputed Sentence-BERT token embeddings
+    (``xmc_gan_tpu/models/encoder.py:164-188``).  ``token_embs`` ``[B, T, D]``
+    (any float type, computed in fp32), ``attn_mask`` ``[B, T]`` with 1 at a
+    real token.  Returns the token embeddings zeroed at padding, their
+    masked mean (L2-normalized with ``TEXT.BERT_NORM``, the norm held at
+    least 1e-12) and ``mask = attn_mask == 0``."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.pooling_mode = cfg.TEXT.POOLING_MODE
+        self.bert_norm = cfg.TEXT.BERT_NORM
+
+    def forward(self, token_embs: torch.Tensor, attn_mask: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        mask = attn_mask == 0
+        words = token_embs.float() * (~mask)[..., None]
+        sent = words_pooling(words, mask, self.pooling_mode)
+        if self.bert_norm:  # reference encoder.py:65-66
+            sent = sent / sent.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        return words, sent, mask

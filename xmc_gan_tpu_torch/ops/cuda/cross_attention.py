@@ -243,5 +243,5 @@ def masked_cross_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError(
             "masked_cross_attention has no backward (the Pallas kernel has none); the "
-            "attention kernel's backward comes with the concept training slice")
+            "attention kernel's backward comes with the word-attention training slice")
     return _launch(q, k, v, mask, float(scale))

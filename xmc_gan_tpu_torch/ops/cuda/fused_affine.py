@@ -15,20 +15,32 @@ Contract of both wrappers:
   output keeps ``x``'s shape and memory format.  (The JAX package's plain
   epilogue, ``ops/fused.py``, rounds the chain's intermediate to bf16 in bf16
   runs; the Pallas kernel and this port do not.)
-* Differentiable once (a ``torch.autograd.Function``, ``once_differentiable``:
-  only G runs the epilogue, and the gradient penalty differentiates D
-  alone).  The backward saves ``x`` and the vectors, recomputes the chain's
+* The backward saves ``x`` and the vectors, recomputes the chain's
   intermediate and returns ``dx`` in ``x.dtype`` and each vector's gradient,
   summed over H*W in fp32, in that vector's dtype.  Its kernel reads the
   vectors in their own dtype (fp32 or bf16) and sums into one zeroed fp32
   ``[2 * nmod, B, C]`` buffer, cast once to the vectors' dtype; ``dy`` is
   copied only when it is not channels_last already (``DY_COPIES`` counts
   those copies).
+* The single form is differentiable twice: ``CONCEPT_NETD`` runs it inside
+  D, and MAGP differentiates D's gradient (``create_graph=True``).  Its
+  backward is itself a ``torch.autograd.Function`` (``_FusedAffineBwd``)
+  whose forward is the backward launch above and whose backward is the
+  double-backward kernel ``fused_affine_bwd2_*`` (``once_differentiable``):
+  from the gradients ``(gx, gg, gb)`` arriving at ``(dx, dgamma, dbeta)``
+  it gives ``g_dy = s*(gamma*gx + gg*x + gb)``, ``g_x = s*dy*gg``,
+  ``g_gamma = sum_hw s*dy*gx`` and no ``beta`` gradient (``s``, the slope
+  at ``gamma*x + beta``, is piecewise constant).  Without ``create_graph``
+  nothing is recorded and the backward launch is the same.  The double form
+  (G only) is differentiable once: its second derivative raises.
 * One rule, ``plan_bwd``, names the backward kernel (``fused_affine_bwd_vec``,
   16 bytes a thread, or ``fused_affine_bwd_scalar``, one element) and its
   grid from the shape, the dtypes and the pointers, before any launch; the
-  C entry refuses a launch that the named kernel does not take.
-* A CPU tensor goes to the plain versions below; a CUDA tensor launches the
+  C entry refuses a launch that the named kernel does not take.  The
+  double backward has only the vector kernel (``fused_affine_bwd2_vec``):
+  it takes the same plan and raises where the plan names the scalar one.
+* A CPU tensor goes to the plain versions below (in fp64 too, for
+  ``gradgradcheck``); a CUDA tensor launches the
   kernels or raises.  There is no fallback from one to the other.
 """
 
@@ -48,31 +60,42 @@ __all__ = [
     "KERNEL",
     "FORWARD",
     "BACKWARD",
+    "DOUBLE_BACKWARD",
     "DY_COPIES",
     "BWD_VEC",
     "BWD_SCALAR",
     "BwdPlan",
     "plan_bwd",
     "bwd_kernel_name",
+    "bwd2_kernel_name",
     "modulate_lrelu_kernel",
     "double_modulate_lrelu_kernel",
     "modulate_lrelu_ref",
     "double_modulate_lrelu_ref",
     "fused_affine_bwd_ref",
+    "fused_affine_bwd2_ref",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # int xmc_fused_affine(x, out, g0, b0, g1, b1, B, HW, C, nmod, dtype, slope, stream)
 # int xmc_fused_affine_bwd(x, dy, dx, g0, b0, g1, b1, sums, B, HW, C, nmod, dtype,
 #                          vdtype, slope, kernel, threads, chunks, run, stream)
+# int xmc_fused_affine_bwd2(x, dy, gx, g0, b0, gg, gb, g_dy, g_x, sums, B, HW, C, dtype,
+#                           vdtype, slope, kernel, threads, chunks, run, stream)
 KERNEL = CudaLibrary("fused_affine.cu", {
     "xmc_fused_affine": (_I, [_P] * 6 + [_L] * 3 + [_I, _I, ctypes.c_float, _P]),
     "xmc_fused_affine_bwd": (_I, [_P] * 8 + [_L] * 3 + [_I] * 3 + [ctypes.c_float, _I, _I]
                              + [_L] * 2 + [_P]),
+    "xmc_fused_affine_bwd2": (_I, [_P] * 10 + [_L] * 3 + [_I] * 2 + [ctypes.c_float, _I, _I]
+                              + [_L] * 2 + [_P]),
 })
 FORWARD = LaunchCount()
 BACKWARD = LaunchCount()
-DY_COPIES = LaunchCount()  # copies of dy that the backward's wrapper makes (one kernel each)
+DOUBLE_BACKWARD = LaunchCount()
+# copies of dy (and of the double backward's incoming dx gradient) that the
+# wrappers make, one kernel each, where a tensor is not x's dtype in
+# channels_last memory
+DY_COPIES = LaunchCount()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -94,10 +117,15 @@ def _lrelu(y: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(y >= 0, y, slope * y)
 
 
+def _math(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' compute type: fp32, or fp64 for fp64."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
 def _ref(x: torch.Tensor, mods: tuple[torch.Tensor, ...], slope: float) -> torch.Tensor:
-    y = x.float()
+    y = _math(x)
     for g, b in zip(mods[::2], mods[1::2]):
-        y = _lrelu(g.float()[:, :, None, None] * y + b.float()[:, :, None, None], slope)
+        y = _lrelu(_math(g)[:, :, None, None] * y + _math(b)[:, :, None, None], slope)
     return y.to(x.dtype)
 
 
@@ -119,8 +147,8 @@ def fused_affine_bwd_ref(x: torch.Tensor, mods: tuple[torch.Tensor, ...], dy: to
     """Plain PyTorch backward of the 1- or 2-modulation epilogue: ``(dx,
     dg0, db0[, dg1, db1])``, fp32 math, the vector gradients summed over H*W,
     each result in its input's dtype."""
-    xf, dyf = x.float(), dy.float()
-    g = [m.float()[:, :, None, None] for m in mods]
+    xf, dyf = _math(x), _math(dy)
+    g = [_math(m)[:, :, None, None] for m in mods]
     y0 = g[0] * xf + g[1]
     da0 = dyf
     tail: tuple[torch.Tensor, ...] = ()
@@ -133,6 +161,30 @@ def fused_affine_bwd_ref(x: torch.Tensor, mods: tuple[torch.Tensor, ...], dy: to
     dx = (d0 * g[0]).to(x.dtype).contiguous(memory_format=torch.channels_last)
     sums = ((d0 * xf).sum((2, 3)), d0.sum((2, 3))) + tail
     return (dx, *(s.to(m.dtype) for s, m in zip(sums, mods)))
+
+
+def fused_affine_bwd2_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                          dy: torch.Tensor, gx: torch.Tensor, gg: torch.Tensor,
+                          gb: torch.Tensor, slope: float = 0.2
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch double backward of the single form: given the gradients
+    ``gx`` ``[B, C, H, W]``, ``gg``, ``gb`` ``[B, C]`` arriving at the
+    backward's ``(dx, dgamma, dbeta)``, returns ``(g_x, g_dy, g_gamma)``:
+    ``g_x = s*dy*gg``, ``g_dy = s*(gamma*gx + gg*x + gb)``, ``g_gamma =
+    sum_hw s*dy*gx`` with ``s`` the slope at ``gamma*x + beta`` (1 where it
+    is >= 0).  fp32 math (fp64 for fp64), ``g_x`` and ``g_dy`` in x's dtype
+    and channels_last memory, ``g_gamma`` summed in the math type and cast
+    to gamma's dtype."""
+    xf, dyf, gxf = _math(x), _math(dy), _math(gx)
+    g, b, ggf, gbf = (_math(m)[:, :, None, None] for m in (gamma, beta, gg, gb))
+    pos = g * xf + b >= 0
+    d = torch.where(pos, dyf, slope * dyf)  # s * dy
+    a = g * gxf + ggf * xf + gbf
+    g_dy = torch.where(pos, a, slope * a)
+    cl = torch.channels_last
+    return ((d * ggf).to(x.dtype).contiguous(memory_format=cl),
+            g_dy.to(x.dtype).contiguous(memory_format=cl),
+            (d * gxf).sum((2, 3)).to(gamma.dtype))
 
 
 class BwdPlan(NamedTuple):
@@ -181,10 +233,25 @@ def plan_bwd(B: int, HW: int, C: int, dtype: torch.dtype, vec_dtype: torch.dtype
                    run)
 
 
+_CTYPE = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+
+
 def bwd_kernel_name(p: BwdPlan, dtype: torch.dtype, vec_dtype: torch.dtype, nmod: int) -> str:
     """The planned backward kernel as the profiler names its template instance."""
-    t = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
-    return f"{p.kernel}<{t[dtype]}, {t[vec_dtype]}, {nmod}>"
+    return f"{p.kernel}<{_CTYPE[dtype]}, {_CTYPE[vec_dtype]}, {nmod}>"
+
+
+def bwd2_kernel_name(p: BwdPlan, dtype: torch.dtype, vec_dtype: torch.dtype) -> str:
+    """The double-backward kernel that plan ``p`` launches, as the profiler
+    names it.  Raises where ``p`` names the scalar backward kernel: the
+    double backward has only ``fused_affine_bwd2_vec``."""
+    if p.kernel != BWD_VEC:
+        width = 16 // torch.empty((), dtype=dtype).element_size()
+        raise ValueError(
+            f"fused_affine double backward takes only C a multiple of {width} ({dtype}), at "
+            f"most {_BWD_THREADS * width} channels, and x, dy, gx, g_dy and g_x 16-byte "
+            f"aligned; this call's plan is {p}")
+    return f"fused_affine_bwd2_vec<{_CTYPE[dtype]}, {_CTYPE[vec_dtype]}>"
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,8 +262,8 @@ def _multiprocessors(index: int) -> int:
 def _check(x: torch.Tensor, mods: tuple[torch.Tensor, ...]) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be NCHW, got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _DTYPE_CODE and not (x.dtype == torch.float64 and x.device.type == "cpu"):
+        raise TypeError(f"x must be float32 or bfloat16 (float64 on the CPU), got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("x must be contiguous in channels_last memory format")
     b, c = x.shape[:2]
@@ -227,21 +294,35 @@ def _launch(x: torch.Tensor, mods: tuple[torch.Tensor, ...], slope: float) -> to
     return out
 
 
+def _like_x(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``t`` in x's dtype and channels_last memory, copied (and counted in
+    ``DY_COPIES``) only where it is not so already."""
+    if t.dtype != x.dtype or not t.is_contiguous(memory_format=torch.channels_last):
+        t = t.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        DY_COPIES.launches += 1
+    return t
+
+
+def _same_dtype(vecs: tuple[torch.Tensor, ...]) -> tuple[tuple[torch.Tensor, ...], torch.dtype]:
+    """The [B, C] vectors as the kernels read them: all in one of their
+    types (fp32 or bf16), else all cast to fp32."""
+    vdt = vecs[0].dtype
+    if vdt not in _DTYPE_CODE or any(v.dtype != vdt for v in vecs):
+        vecs, vdt = tuple(v.float() for v in vecs), torch.float32
+    return tuple(v.contiguous() for v in vecs), vdt
+
+
 def _launch_bwd_sums(x: torch.Tensor, mods: tuple[torch.Tensor, ...], dy: torch.Tensor,
                      slope: float) -> tuple[torch.Tensor, torch.Tensor]:
     """The planned backward kernel: ``(dx, sums)``, ``sums`` the fp32
     ``[2 * nmod, B, C]`` buffer (dg0, db0[, dg1, db1]) it adds into."""
     fn = KERNEL.load().xmc_fused_affine_bwd
     nmod = len(mods) // 2
-    vdt = mods[0].dtype
-    if vdt not in _DTYPE_CODE or any(m.dtype != vdt for m in mods):
-        mods, vdt = tuple(m.float() for m in mods), torch.float32
-    vecs = [m.contiguous() for m in mods]
+    mods, vdt = _same_dtype(mods)
+    vecs = list(mods)
     if nmod == 1:
         vecs += vecs  # g1/b1 are not read when nmod == 1
-    if dy.dtype != x.dtype or not dy.is_contiguous(memory_format=torch.channels_last):
-        dy = dy.to(x.dtype).contiguous(memory_format=torch.channels_last)
-        DY_COPIES.launches += 1
+    dy = _like_x(dy, x)
     dx = torch.empty_like(x)
     b, c, h, w = x.shape
     p = plan_bwd(b, h * w, c, x.dtype, vdt, (x.data_ptr(), dy.data_ptr(), dx.data_ptr()),
@@ -268,6 +349,64 @@ def _launch_bwd(x: torch.Tensor, mods: tuple[torch.Tensor, ...], dy: torch.Tenso
     return (dx, *(s.to(m.dtype) for s, m in zip(sums.unbind(0), mods)))
 
 
+def _launch_bwd2(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, dy: torch.Tensor,
+                 gx: torch.Tensor, gg: torch.Tensor, gb: torch.Tensor, slope: float
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The double-backward kernel of the single form: ``(g_x, g_dy,
+    g_gamma)`` as ``fused_affine_bwd2_ref`` gives them, on the grid
+    ``plan_bwd`` names for x's shape and pointers.  Raises, before any
+    launch, where that plan is not the vector kernel's (``bwd2_kernel_name``)."""
+    fn = KERNEL.load().xmc_fused_affine_bwd2
+    (gamma, beta, gg, gb), vdt = _same_dtype((gamma, beta, gg, gb))
+    dy, gx = _like_x(dy, x), _like_x(gx, x)
+    g_dy, g_x = torch.empty_like(x), torch.empty_like(x)
+    b, c, h, w = x.shape
+    ptrs = tuple(t.data_ptr() for t in (x, dy, gx, g_dy, g_x))
+    p = plan_bwd(b, h * w, c, x.dtype, vdt, ptrs, _multiprocessors(x.device.index))
+    bwd2_kernel_name(p, x.dtype, vdt)
+    sums = torch.zeros((b, c), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*ptrs[:3], gamma.data_ptr(), beta.data_ptr(), gg.data_ptr(), gb.data_ptr(),
+                *ptrs[3:], sums.data_ptr(), b, h * w, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[vdt],
+                slope, _BWD_KERNEL_CODE[p.kernel], p.threads, p.chunks, p.run, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_affine double backward launch failed ({p}): CUDA error {rc}")
+    DOUBLE_BACKWARD.launches += 1
+    return g_x, g_dy, sums.to(vdt)
+
+
+class _FusedAffineBwd(torch.autograd.Function):
+    """The epilogue's backward as a function of ``(x, dy, *mods)``: its
+    forward is the backward launch (or the plain version on the CPU), its
+    backward the double-backward kernel of the single form."""
+
+    @staticmethod
+    def forward(ctx, slope, x, dy, *mods):
+        ctx.save_for_backward(x, dy, *mods)
+        ctx.slope = slope
+        if x.device.type == "cpu":
+            return fused_affine_bwd_ref(x, mods, dy, slope)
+        return _launch_bwd(x, mods, dy, slope)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gx, *gmods):
+        x, dy, *mods = ctx.saved_tensors
+        if len(mods) != 2:
+            raise NotImplementedError(
+                "fused_affine: cannot differentiate twice the double form (two chained "
+                "modulations); only the single form has a double backward (MAGP through "
+                "CONCEPT_NETD)")
+        gamma, beta = mods
+        if x.device.type == "cpu":
+            g_x, g_dy, g_gamma = fused_affine_bwd2_ref(x, gamma, beta, dy, gx, *gmods,
+                                                       ctx.slope)
+        else:
+            g_x, g_dy, g_gamma = _launch_bwd2(x, gamma, beta, dy, gx, *gmods, ctx.slope)
+        return None, g_x, g_dy, g_gamma.to(gamma.dtype), None
+
+
 class _FusedAffine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, slope, *mods):
@@ -278,13 +417,9 @@ class _FusedAffine(torch.autograd.Function):
         return _launch(x, mods, slope)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         x, *mods = ctx.saved_tensors
-        if x.device.type == "cpu":
-            grads = fused_affine_bwd_ref(x, tuple(mods), dy, ctx.slope)
-        else:
-            grads = _launch_bwd(x, tuple(mods), dy, ctx.slope)
+        grads = _FusedAffineBwd.apply(ctx.slope, x, dy, *mods)
         return (grads[0], None, *grads[1:])
 
 

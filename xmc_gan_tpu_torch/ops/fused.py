@@ -6,7 +6,9 @@ the TPU, XLA fused it into the producing convs, so the JAX package ships plain
 jnp here.  Eager PyTorch fuses nothing, so on the card the hand-written kernel
 (``ops/cuda/fused_affine.py``) is the production epilogue: these functions
 launch it (forward, and its backward under autograd) for CUDA tensors and
-use its plain versions for CPU tensors.
+use its plain versions for CPU tensors.  The single form is differentiable
+twice (the concept discriminator's epilogue under MAGP); the double form
+once.
 
 ``x`` is NCHW (``channels_last`` memory for the fused forms), the modulation
 vectors ``[B, C]``.

@@ -18,37 +18,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xmc_gan_tpu_torch.ops.initializers import Init, torch_default_kernel_init, zeros_init
+from xmc_gan_tpu_torch.ops.initializers import Init, torch_default_kernel_init
+from xmc_gan_tpu_torch.ops.modules import _SNBase
 
 __all__ = ["GroupedDense", "GroupNorm"]
 
 
-class GroupedDense(nn.Module):
+class GroupedDense(_SNBase):
     """Per-group dense layer ``[B, groups, d_in] -> [B, groups, d_out]``
     (``xmc_gan_tpu/ops/grouped.py:26-58``): a grouped 1x1 convolution with
     weight ``[groups*d_out, d_in, 1, 1]`` (output channels group-major) and
-    bias ``[groups*d_out]``.  Spectral norm comes with ``CONCEPT_NETD``: no
-    generator uses it."""
+    bias ``[groups*d_out]``.  With ``spec_norm`` (the concept discriminator)
+    the weight is divided by ``sigma`` from its ``weight_u``/``weight_v``
+    buffers on the ``(groups*d_out, d_in)`` matricization, PyTorch's and the
+    JAX package's, which ``train.refresh_spectral`` refreshes like any other
+    spectral-normalized layer."""
 
     def __init__(self, groups: int, d_in: int, features: int, *, use_bias: bool = True,
-                 weight_init: Init = torch_default_kernel_init, bias_init: Init | None = None,
-                 gen: torch.Generator):
-        super().__init__()
+                 spec_norm: bool = False, weight_init: Init = torch_default_kernel_init,
+                 bias_init: Init | None = None, gen: torch.Generator):
+        super().__init__((groups * features, d_in, 1, 1), use_bias, spec_norm, weight_init,
+                         bias_init, gen)
         self.groups, self.features = groups, features
-        self.weight = nn.Parameter(torch.empty(groups * features, d_in, 1, 1))
-        weight_init(self.weight, gen)
-        if use_bias:
-            self.bias = nn.Parameter(torch.empty(groups * features))
-            (bias_init or zeros_init)(self.bias, gen)
-        else:
-            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` ``[B, groups, d_in]`` -> ``[B, groups, d_out]``."""
-        w = self.weight.to(x.dtype).view(self.groups, self.features, -1)
-        y = torch.einsum("bgi,goi->bgo", x, w)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype).view(self.groups, self.features)
+        w, b = self._params(x.dtype)
+        y = torch.einsum("bgi,goi->bgo", x, w.to(x.dtype).view(self.groups, self.features, -1))
+        if b is not None:
+            y = y + b.view(self.groups, self.features)
         return y
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
@@ -56,8 +54,8 @@ class GroupedDense(nn.Module):
         groups*d_in, H, W]`` -> ``[B, groups*d_out, H, W]`` (a channels_last
         map's memory is ``[B, HW, groups, d]``, the JAX package's grouped
         layout)."""
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, groups=self.groups)
+        w, b = self._params(x.dtype)
+        return F.conv2d(x, w.to(x.dtype), b, groups=self.groups)
 
 
 class GroupNorm(nn.Module):

@@ -15,7 +15,8 @@ One call of the step reproduces the JAX package's ``train_step``
    word-region and real-fake image InfoNCE against the twice-updated D.
    Gradients reach ``G.proj_sent`` through D's conditioning.
 
-``psent`` (G's sentence projection) conditions D detached; the fake image is
+``psent`` (G's sentence projection; the raw sentence with ``DISC.SEPERATE``,
+``xmc_gan_tpu/train.py:253-256``) conditions D detached; the fake image is
 generated once without gradient for D and again under autograd for G, from
 the same noise.  The noise is an input of the step, so the tests can feed
 the JAX package's draw.  Unlike the JAX step the state is updated in place.
@@ -188,6 +189,9 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
         return losses.word_loss_from_scores(scores, labels, el.B_GLOBAL, t.SMOOTH.GLOBAL,
                                             t.SMOOTH.GAMMA3)
 
+    def project_sent(g: nn.Module, sent: torch.Tensor) -> torch.Tensor:
+        return sent if cfg.DISC.SEPERATE else g.project_sent(sent)
+
     def train_step(state: TrainState, batch: dict, noise: Any) -> dict:
         g, d = state.g, state.d
         if el.WORD and getattr(d, "region_proj", None) is None:
@@ -210,7 +214,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
 
         refresh_spectral(d, spectral_iters)
         with torch.no_grad():
-            psent = g.project_sent(sent)
+            psent = project_sent(g, sent)
             labels = (losses.make_labels(sent, el.B_GLOBAL, t.SMOOTH.GLOBAL)
                       if use_labels else None)
             fake = g(noise, sent, words, mask)
@@ -254,7 +258,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
         errG, gs_loss, gs_word, disc_loss = zero, zero, zero, zero
         if do_g:
             fake_g = g(noise, sent, words, mask)
-            psent_g = g.project_sent(sent)
+            psent_g = project_sent(g, sent)
             if el.WORD:
                 feats, regions_fake = d.features_and_regions(fake_g)
             else:

@@ -35,6 +35,9 @@ asked).  Where the port differs from the JAX ``Trainer``:
   (``{profile_dir}/trace.json``, a Chrome trace).
 * Data parallelism (``mesh``) raises ``NotImplementedError``: it comes with
   the data-parallel slice.
+* SENT (SBERT) configs pool token embeddings from a seeded table with
+  ``synthetic`` (a ``torch.Generator`` draw, not the JAX package's) and from
+  the dataset's ``sbert_cache_{mode}.npz`` otherwise (``make_encode_fn``).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from xmc_gan_tpu_torch.data.pipeline import (
     decode_route,
     index_to_sent,
 )
+from xmc_gan_tpu_torch.data.text_encode import SbertCache
 from xmc_gan_tpu_torch.device import resolve_device, to_device
 from xmc_gan_tpu_torch.registry import get_dataset, get_text_encoder
 from xmc_gan_tpu_torch.train import create_train_state, make_sample_fn, make_train_step
@@ -63,23 +67,36 @@ from xmc_gan_tpu_torch.utils.convert import load_state_dict
 from xmc_gan_tpu_torch.utils.logger import MetricWriter, Throughput, setup_logger
 from xmc_gan_tpu_torch.utils.miscc import count_params, save_image_grid
 
-__all__ = ["Trainer", "make_encode_fn", "run_dir"]
+__all__ = ["Trainer", "make_encode_fn", "make_sbert_table_encode", "sbert_table", "run_dir"]
 
 
 def make_encode_fn(cfg: Config, *, device: str | torch.device | None = None,
-                   weights: str | None = None) -> Callable:
-    """Frozen text-encoder forward: ``batch -> (words, sent, mask)``.
+                   weights: str | None = None, synthetic: bool = False,
+                   data_dir: str | None = None) -> Callable:
+    """Frozen text-encoder forward: ``batch -> (words, sent, mask)``, on
+    ``device`` (default ``cuda``; see ``device.resolve_device``).
 
-    ``batch`` holds ``caps`` ``[B, T]`` token ids and ``cap_lens`` ``[B]``
-    (numpy arrays or tensors).  The weights come from ``weights``, else from
-    ``TEXT.ENCODER_DIR`` when that file exists (reference ``train_gan.py:461-468``:
-    a reference ``RNN_ENCODER`` ``state_dict`` loads directly); otherwise the
-    encoder is randomly initialized from seed 0 (a ``torch.Generator``, so
-    not the JAX package's random weights).  Runs on ``device`` (default
-    ``cuda``; see ``device.resolve_device``).
+    ``TEXT.ENCODER_NAME: RNN``: ``batch`` holds ``caps`` ``[B, T]`` token ids
+    and ``cap_lens`` ``[B]`` (numpy arrays or tensors).  The weights come from
+    ``weights``, else from ``TEXT.ENCODER_DIR`` when that file exists
+    (reference ``train_gan.py:461-468``: a reference ``RNN_ENCODER``
+    ``state_dict`` loads directly); otherwise the encoder is randomly
+    initialized from seed 0 (a ``torch.Generator``, so not the JAX package's
+    random weights).
+
+    ``SBERT`` (``xmc_gan_tpu/trainer.py:74-105``): ``SBERTEncoder`` pools
+    token embeddings.  With ``synthetic`` they are rows ``caps`` of a seeded
+    ``[VOCA_SIZE, EMBEDDING_DIM]`` table (``sbert_table``) on the device, 0
+    ids padding; otherwise they come from the ``SbertCache`` of
+    ``data_dir`` for ``batch["mode"]`` (one cache a split), rows
+    ``batch["cap_idx"]``, crossing to the card in fp16 from pinned memory.
     """
     dev = resolve_device(device)
     enc_cls = get_text_encoder(cfg.TEXT.ENCODER_NAME)
+    if cfg.TEXT.ENCODER_NAME == "SBERT":
+        if synthetic:
+            return make_sbert_table_encode(cfg, sbert_table(cfg), dev)
+        return _make_sbert_cache_encode(cfg, data_dir, dev)
     enc = enc_cls(cfg, gen=torch.Generator().manual_seed(0))
     path = weights or cfg.TEXT.ENCODER_DIR
     if weights and not os.path.isfile(weights):
@@ -98,6 +115,52 @@ def make_encode_fn(cfg: Config, *, device: str | torch.device | None = None,
         caps = to_device(np.asarray(batch["caps"], np.int64), dev)
         lens = torch.as_tensor(np.asarray(batch["cap_lens"]), dtype=torch.int64)
         return enc(caps, lens)
+
+    return encode
+
+
+SBERT_TABLE_SEED = 42  # the JAX package's PRNGKey(42) table (xmc_gan_tpu/trainer.py:83)
+
+
+def sbert_table(cfg: Config) -> torch.Tensor:
+    """The synthetic captions' token-embedding table ``[VOCA_SIZE,
+    EMBEDDING_DIM]`` of N(0, 1) draws from a CPU ``torch.Generator`` seeded
+    with ``SBERT_TABLE_SEED`` (not the JAX package's ``jax.random`` draw)."""
+    return _seeded_normal(cfg.TEXT.VOCA_SIZE, cfg.TEXT.EMBEDDING_DIM, SBERT_TABLE_SEED)
+
+
+def make_sbert_table_encode(cfg: Config, table, device: torch.device) -> Callable:
+    """SBERT pooling over rows ``batch["caps"]`` of ``table`` (numpy or
+    tensor, ``[VOCA_SIZE, EMBEDDING_DIM]``, moved to ``device`` once); id 0
+    is padding."""
+    enc = get_text_encoder("SBERT")(cfg)
+    table = to_device(table, device).float()
+
+    @torch.no_grad()
+    def encode(batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        caps = to_device(np.asarray(batch["caps"], np.int64), device)
+        return enc(table[caps], caps != 0)
+
+    return encode
+
+
+def _make_sbert_cache_encode(cfg: Config, data_dir: str | None, device: torch.device
+                             ) -> Callable:
+    if data_dir is None:
+        raise ValueError("SENT encoding from disk needs data_dir (or synthetic=True)")
+    enc = get_text_encoder("SBERT")(cfg)
+    caches: dict[str, SbertCache] = {}
+
+    @torch.no_grad()
+    def encode(batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        mode = batch.get("mode", "train")
+        mode = mode[0] if isinstance(mode, (list, tuple)) else mode
+        if mode not in caches:
+            caches[mode] = SbertCache(data_dir, mode)
+        tok, attn = caches[mode].rows(batch["cap_idx"])
+        # fp16 rows (79 MB a batch at the LN shape), pinned and non_blocking
+        # (to_device); SBERTEncoder casts them to fp32 on the device
+        return enc(to_device(tok, device), to_device(attn, device))
 
     return encode
 
@@ -200,7 +263,8 @@ class Trainer:
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.dtype = dtype
-        self.encode = make_encode_fn(cfg, device=self.device)  # SBERT raises, naming its slice
+        self.encode = make_encode_fn(cfg, device=self.device, synthetic=synthetic,
+                                     data_dir=data_dir)
         self.state = create_train_state(cfg, dtype, self.device, seed=seed)
         if cfg.DISC.ENCODER_DIR and os.path.isfile(cfg.DISC.ENCODER_DIR):
             self._warm_start_d(cfg.DISC.ENCODER_DIR)

@@ -35,6 +35,7 @@ __all__ = [
     "df_gan_discriminator_state_dict",
     "concept_generator_state_dict",
     "df_concept_generator_state_dict",
+    "concept_discriminator_state_dict",
     "train_state_from_jax",
     "inception_state_dict_from_jax",
 ]
@@ -122,31 +123,37 @@ def df_gan_generator_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Te
     return sd
 
 
-def grouped_state_dict(node: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
-    """JAX ``GroupedDense`` params -> port ``GroupedDense`` (the reference's
-    grouped 1x1 conv layout, output channels group-major)."""
+def grouped_state_dict(node: Mapping, spec: Mapping | None = None,
+                       prefix: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``GroupedDense`` params (+ optional ``spectral`` u/v) -> port
+    ``GroupedDense`` (the reference's grouped 1x1 conv layout, output
+    channels group-major).  Both packages normalize the ``(groups*f, d_in)``
+    matricization, so u and v carry over as they are."""
     kernel = np.asarray(node["kernel"], np.float32)  # [g, d_in, f]
     g, d_in, f = kernel.shape
     sd = {f"{prefix}weight": _t(kernel.transpose(0, 2, 1).reshape(g * f, d_in, 1, 1))}
     if "bias" in node:
         sd[f"{prefix}bias"] = _t(np.asarray(node["bias"], np.float32).reshape(-1))
+    _spectral(sd, prefix, spec, kernel)
     return sd
 
 
-def _flatten(node: Mapping, prefix: str, sd: dict) -> None:
-    """A JAX module tree under the port's names: the module path joined by
-    dots, each layer's leaves in PyTorch layout (dense, conv and grouped
-    kernels told apart by their rank), other parameters as they are."""
+def _flatten(node: Mapping, prefix: str, sd: dict, spec: Mapping | None = None) -> None:
+    """A JAX module tree (and its ``spectral`` tree of u/v, where it has
+    one) under the port's names: the module path joined by dots, each
+    layer's leaves in PyTorch layout (dense, conv and grouped kernels told
+    apart by their rank), other parameters as they are."""
+    spec = spec or {}
     if "kernel" in node:
         kernel = np.asarray(node["kernel"])
-        convert = {2: dense_state_dict, 4: conv_state_dict}.get(kernel.ndim)
-        sd.update(convert(node, prefix=prefix) if convert else grouped_state_dict(node, prefix))
+        convert = {2: dense_state_dict, 4: conv_state_dict}.get(kernel.ndim, grouped_state_dict)
+        sd.update(convert(node, spec, prefix=prefix))
     elif set(node) == {"scale", "bias"}:  # GroupNorm
         sd[f"{prefix}weight"], sd[f"{prefix}bias"] = _t(node["scale"]), _t(node["bias"])
     else:
         for key, sub in node.items():
             if isinstance(sub, Mapping):
-                _flatten(sub, f"{prefix}{key}.", sd)
+                _flatten(sub, f"{prefix}{key}.", sd, spec.get(key))
             else:
                 sd[f"{prefix}{key}"] = _t(sub)
 
@@ -230,6 +237,35 @@ def df_gan_discriminator_state_dict(params: Mapping[str, Any],
     return sd
 
 
+def concept_discriminator_state_dict(params: Mapping[str, Any],
+                                     spectral: Mapping[str, Any] | None = None
+                                     ) -> dict[str, torch.Tensor]:
+    """JAX concept ``NetD`` params (+ its ``spectral`` tree of ``u``/``v``)
+    (``models/df_concept_gan.py``, ``CONCEPT_NETD``) -> port
+    ``df_concept_gan.NetD``: ``block{k}`` -> ``downblocks.{k-1}`` and
+    ``cond_dnet`` -> ``COND_DNET`` with its head convs renamed as
+    ``NetD``'s; every other name is the JAX module tree's
+    (``downblocks.0.concept_sampler.key_gconv.weight``)."""
+    flat: dict[str, torch.Tensor] = {}
+    _flatten(params, "", flat, spectral)
+    sd = {}
+    for name, value in flat.items():
+        name = re.sub(r"^block(\d+)\.", lambda m: f"downblocks.{int(m.group(1)) - 1}.", name)
+        for jname, pname in _D_HEAD_NAMES.items():
+            name = name.replace(f"cond_dnet.{jname}.", f"cond_dnet.{pname}.")
+        sd[re.sub(r"^cond_dnet\.", "COND_DNET.", name)] = value
+    return sd
+
+
+_G_TREES = {"DF_GEN": df_gan_generator_state_dict,
+            "CONCEPT_IN_DF_GEN": df_concept_generator_state_dict,
+            "CONCEPT_OUT_DF_GEN": df_concept_generator_state_dict,
+            "CONCEPT_INATTN_GEN": concept_generator_state_dict,
+            "CONCEPT_OUTATTN_GEN": concept_generator_state_dict}
+_D_TREES = {"DF_DISC": df_gan_discriminator_state_dict,
+            "CONCEPT_NETD": concept_discriminator_state_dict}
+
+
 def train_state_from_jax(cfg, g_params: Mapping[str, Any], d_params: Mapping[str, Any],
                          d_spectral: Mapping[str, Any] | None = None, *, step: int = 0,
                          dtype: torch.dtype = torch.float32,
@@ -237,12 +273,14 @@ def train_state_from_jax(cfg, g_params: Mapping[str, Any], d_params: Mapping[str
     """The G, D and spectral trees of a JAX ``TrainState`` (numpy trees) as
     the port's ``train.TrainState`` on ``device`` (default ``cuda``), with
     fresh Adam moments on both sides (the JAX optimizer states are not
-    carried over)."""
+    carried over).  The trees convert by ``GEN.ENCODER_NAME`` and
+    ``DISC.ENCODER_NAME``."""
     from xmc_gan_tpu_torch.train import create_train_state
 
-    return create_train_state(
-        cfg, dtype, device, step=step, g_state_dict=df_gan_generator_state_dict(g_params),
-        d_state_dict=df_gan_discriminator_state_dict(d_params, d_spectral))
+    g_tree = _G_TREES[cfg.GEN.ENCODER_NAME or "DF_GEN"]
+    d_tree = _D_TREES[cfg.DISC.ENCODER_NAME or "DF_DISC"]
+    return create_train_state(cfg, dtype, device, step=step, g_state_dict=g_tree(g_params),
+                              d_state_dict=d_tree(d_params, d_spectral))
 
 
 def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
