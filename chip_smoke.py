@@ -59,7 +59,15 @@ Phases (any failure raises, and the exit code is then non-zero):
    G's 4² to 64²) and its double backward (``fused_affine_bwd2_vec``, what
    MAGP through ``CONCEPT_NETD`` launches) at D's four, fp32 and bf16, the
    vectors in x's dtype, and the double backward in fp32 against fp64
-   autograd of the plain epilogue (``BWD2_FP64_SHAPE``).
+   autograd of the plain epilogue (``BWD2_FP64_SHAPE``); the
+   ``cross_attention`` backward (``attn_bwd``, the port's own) against
+   ``masked_cross_attention_bwd_ref``, fp32 and bf16, at every distinct In
+   and Out shape of the 64² word-attention train step (batch 88, the In
+   queries as rows and as planes) and ``ATTN_BWD_EXTRA`` (a ragged T, T =
+   200, the widest plan, fully padded rows: zero gradients), through
+   autograd with dO as the upstream op hands it over (dense from the In
+   sampler's mean, a strided slice from the Out block's concatenation),
+   two runs bit-equal, each launch's kernel the one ``plan_bwd`` names.
 4. On the card against the CPU, fp32 with TF32 off, on the same seeded,
    perturbed weights and numpy inputs: (a) the serving slice (DAMSM encoder
    + NetG at 256², NCH=32, batch 4), (b) the train slice (NCH=8, 64², batch
@@ -71,7 +79,12 @@ Phases (any failure raises, and the exit code is then non-zero):
    sub-captions, the CPU's through the plain path on whole captions), (e)
    the ``concept_out_df_gan.yml`` step at NCH=8, batch 4 (two steps, MAGP
    through ``CONCEPT_NETD``: the card's 60 / 40 / 4 ``fused_affine``
-   forward / backward / double-backward launches a step asserted).
+   forward / backward / double-backward launches a step asserted), (f) a
+   step of each word-attention generator (``concept_in_df_gan.yml`` with
+   ``GEN.ENCODER_NAME`` set, NCH=8, 64², batch 4, two steps: the card's
+   12 / 6 ``cross_attention`` forward / backward launches a step asserted),
+   (g) the train slice of (b) with ``ENCODER_LOSS.VGG`` on (the same random
+   VGG-19 on both).
 5. Full-width serving: random caption ids (batch 128, mixed lengths) ->
    ``make_encode_fn`` -> ``make_sample_fn``, fp32 and bf16, (a) for DF_GEN
    (``df_gan_damsm.yml``, T = 20) and (c) for each concept generator
@@ -147,6 +160,20 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``Trainer.fit`` on the SBERT synthetic table, ``LN_LOOP_STEPS`` steps, no
    FID and no checkpoint: damsm 2 + 2 and ``fused_affine`` 28 / 14 a step
    asserted; prints the loop step beside phase 6's bare LN step.
+6e. The word-attention generators train: ``concept_in_df_gan.yml`` as
+   published (64², NCH 32, batch 88, T = 15, RNN words, GroupNorm, RMIS,
+   MAGP, DF_DISC) with ``GEN.ENCODER_NAME`` = CONCEPT_INATTN_GEN and
+   CONCEPT_OUTATTN_GEN, through ``Trainer.fit`` in bf16 and fp32 (TF32
+   off), ``ATTN_LOOP_STEPS`` steps and the epoch's grid: 12 / 6
+   ``cross_attention`` forward / backward launches a step
+   (``attention_step_launches``) and no other of the port's kernels, by
+   the counts and by the profiler's names; prints the loop step, the bare
+   step (median of 3), images/s, peak memory and one step's device time by
+   category.
+6f. The flagship_word step of phase 6 with ``ENCODER_LOSS.VGG`` on and a
+   random-init VGG-19, bf16, 2 warm-up and 3 timed steps: the launches of
+   phase 6 asserted (``fused_affine`` 28 / 14, damsm 2 + 2); prints the
+   step beside phase 6's and the VGG's share of the step's device time.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs; for the
@@ -159,7 +186,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    the flagship and at the word shape of each LN step (``LN_STEP_SHAPES``:
    fp32 at batch 128, bf16 at 256; 2 timed launches there; their launches
    those of that step); the single form's backward at the 40 inputs of one
-   concept step and its double backward at the 4 (``concept_rows``).
+   concept step and its double backward at the 4 (``concept_rows``); the
+   ``cross_attention`` backward at the 6 In and the 6 Out launches of one
+   64² word-attention step, with SDPA's forward and backward as a
+   yardstick, and an empty kernel's device time beside the Out rows (the
+   launch floor).
 8. Last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  The weights are random (from
@@ -169,6 +200,7 @@ fixed seeds): no trained checkpoint is in the repository.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import shutil
@@ -185,9 +217,10 @@ import numpy as np
 import torch
 
 from xmc_gan_tpu_torch.config import cfg_from_dict, cfg_from_file
-from xmc_gan_tpu_torch.models.concept_gan import attention_shapes
+from xmc_gan_tpu_torch.models.concept_gan import attention_shapes, attention_step_launches
 from xmc_gan_tpu_torch.models.df_concept_gan import disc_modulation_shapes, modulation_shapes
 from xmc_gan_tpu_torch.models.df_gan import epilogue_shapes
+from xmc_gan_tpu_torch.models.vgg import make_vgg
 from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
@@ -221,19 +254,22 @@ BF16_ULP = 2.0 ** -7
 COUNTS = {"fused_affine.forward": fa.FORWARD, "fused_affine.backward": fa.BACKWARD,
           "fused_affine.double_backward": fa.DOUBLE_BACKWARD,
           "damsm_score.forward": ds.FORWARD, "damsm_score.d_regions": ds.D_REGIONS,
-          "damsm_score.d_words": ds.D_WORDS, "cross_attention.forward": ca.FORWARD}
+          "damsm_score.d_words": ds.D_WORDS, "cross_attention.forward": ca.FORWARD,
+          "cross_attention.backward": ca.BACKWARD}
 # the kernels each count's wrapper launches, by the profiler's names (re.search)
 KERNEL_PATTERN = {"fused_affine.forward": r"fused_affine_(vec|scalar)<",
                   "fused_affine.backward": r"fused_affine_bwd_(vec|scalar)<",
                   "fused_affine.double_backward": r"fused_affine_bwd2_vec<",
                   "damsm_score.forward": r"damsm_fwd", "damsm_score.d_regions": r"damsm_bwd_dr",
                   "damsm_score.d_words": r"damsm_bwd_dw",
-                  "cross_attention.forward": r"attn_(small|wide|grouped)<"}
+                  "cross_attention.forward": r"attn_(small|wide|grouped)<",
+                  "cross_attention.backward": r"attn_bwd<"}
 # launches of one flagship_word train step
 STEP_LAUNCHES = {"fused_affine.forward": 28, "fused_affine.backward": 14,
                  "fused_affine.double_backward": 0,
                  "damsm_score.forward": 2, "damsm_score.d_regions": 2,
-                 "damsm_score.d_words": 0, "cross_attention.forward": 0}
+                 "damsm_score.d_words": 0, "cross_attention.forward": 0,
+                 "cross_attention.backward": 0}
 # launches of one serving request at 256², NCH=32 (every other count 0)
 REQUEST_LAUNCHES = {"DF_GEN": {"fused_affine.forward": 14},
                     "CONCEPT_INATTN_GEN": {"cross_attention.forward": 10},
@@ -301,6 +337,29 @@ ATTN_EXTRA = [(BATCH, 1, 16, 15, 4, False, False), (2, 1, 300, 260, 32, False, F
               (2, 32, 130, 15, 4, True, True), (2, 16, 300, 33, 4, True, True),
               (2, 12, 50, 15, 4, True, True), (2, 16, 300, 15, 4, False, True),
               (2, 16, 77, 15, 4, "planes", True)]
+# cross_attention backward vs plain (``ca.masked_cross_attention_bwd_ref``),
+# each gradient to rtol and to atol times its largest magnitude.  fp32: the
+# same math in another order (scores in log2 units through exp2, dk and dv
+# summed over up to 4,096 queries in tile order against PyTorch's einsum):
+# (1e-4, 1e-5).  bf16: both compute in fp32 and round once on store, so one
+# bf16 ulp where the two fp32 results straddle a rounding boundary.
+ATTN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (BF16_ULP, 1e-5)}
+# (B, G, N, T, D, layout, fully padded row, upstream): the backward's shapes
+# past the 64² step's own (``attention_shapes``, whose In launches go as rows
+# and as planes): a ragged T with N no multiple of a tile, the planes at
+# N = 80, T = 200 with the sampler's keys, D = 12 at T = 33, the widest plan
+# (T = 256, D = 32: 209 KB of shared memory) and T = 200 at the Out shape.
+# upstream: how dO reaches the kernel, "mean" through the In sampler's mean
+# over the queries (dense), "cat" through the Out block's concatenation (a
+# strided slice)
+ATTN_BWD_EXTRA = [(3, 16, 77, 7, 4, True, True, "mean"), (3, 16, 80, 15, 4, "planes", True, "mean"),
+                  (2, 16, 300, 200, 4, "sampler", True, "mean"),
+                  (3, 1, 50, 33, 12, False, True, "cat"), (2, 1, 100, 256, 32, False, True, "cat"),
+                  (2, 1, 16, 200, 4, False, True, "cat")]
+# the word-attention generators (phases 4f, 6e) and the sampler each drives
+ATTN_GENS = {"CONCEPT_INATTN_GEN": "in", "CONCEPT_OUTATTN_GEN": "out"}
+# phase 6e: steps of Trainer.fit for each word-attention generator and dtype
+ATTN_LOOP_STEPS = 4
 # the kernel each word-attention request launches, as the profiler names it
 REQUEST_ATTN_KERNEL = {"CONCEPT_INATTN_GEN": "attn_grouped<", "CONCEPT_OUTATTN_GEN": "attn_small<"}
 # card vs CPU, fp32 with TF32 off: summation order of cuDNN vs CPU kernels
@@ -515,6 +574,8 @@ def kernel_category(name: str) -> str:
     n = name.lower()
     if "attn_small" in n or "attn_wide" in n or "attn_grouped" in n:
         return "cross_attention"
+    if "attn_bwd" in n:
+        return "cross_attention backward"
     if "damsm" in n or "sum_splits" in n:
         return "damsm_score"
     if "fused_affine_bwd2" in n:
@@ -715,6 +776,12 @@ def concept_step_launches(cfg) -> dict[str, int]:
     return {**{k: 0 for k in COUNTS}, "fused_affine.forward": 2 * g + 5 * d,
             "fused_affine.backward": 2 * d + 2 * d + d + g,
             "fused_affine.double_backward": d}
+
+
+def attn_step_launches(cfg, name: str) -> dict[str, int]:
+    """Every count of one train step of word-attention generator ``name``:
+    12 / 6 ``cross_attention`` forward / backward at 64², 0 of the others."""
+    return {**{k: 0 for k in COUNTS}, **attention_step_launches(cfg, ATTN_GENS[name])}
 
 
 def concept_step_bwd_shapes(cfg, batch: int) -> list[tuple[int, int, int, int]]:
@@ -1178,6 +1245,95 @@ def check_attention(in_shapes) -> dict:
     return errs
 
 
+def upstream_loss(out: torch.Tensor, upstream: str, gen) -> torch.Tensor:
+    """A scalar of the attention's output that hands its backward dO as a
+    word-attention block does: "mean", the In sampler's mean over the
+    queries; "cat", the Out block's concatenation with the global condition."""
+    if upstream == "mean":
+        x = out.mean(dim=2)
+    else:
+        x = torch.cat([torch.zeros(*out.shape[:-1], 8, device="cuda", dtype=out.dtype), out], -1)
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+    return (x.float() * w).sum()
+
+
+def check_attention_bwd(step_in, step_out) -> dict:
+    """Phase 3, the cross_attention backward (``attn_bwd``): at the distinct
+    In shapes of the 64² train step (queries as rows and as planes), its Out
+    shape and ``ATTN_BWD_EXTRA``, fp32 and bf16, keys passed as the values
+    as both samplers do.  Through autograd (``masked_cross_attention_kernel``
+    under grad: one backward launch, dO as the upstream op hands it over),
+    then the kernel alone on that dO twice (bit-equal) against the plain
+    version; autograd's q and k gradients are the kernel's dq and dk + dv;
+    a fully padded row gets zero gradients; dq has q's strides; the
+    profiler sees the kernel ``plan_bwd`` names at every launch."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shapes = [(*s, layout, False, "mean") for s in sorted(set(step_in)) for layout in (True, "planes")]
+    shapes += [(*s, False, False, "cat") for s in sorted(set(step_out))]
+    shapes += ATTN_BWD_EXTRA
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, frac = ATTN_BWD_TOL[dtype]
+        worst = 0.0
+        calls, planned, douts = [], [], []
+        for shape in shapes:
+            q, k, _, mask = attention_inputs(shape, dtype, gen, shape[6])
+            qg, kg = q.detach().requires_grad_(), k.detach().requires_grad_()
+            seen = {}
+            before = ca.BACKWARD.launches
+            out = ca.masked_cross_attention_kernel(qg, kg, kg, mask, ATTN_SCALE)
+            out.register_hook(lambda g: seen.__setitem__("dout", g))
+            upstream_loss(out, shape[7], gen).backward()
+            if ca.BACKWARD.launches != before + 1:
+                raise AssertionError(f"cross_attention backward {shape}: "
+                                     f"{ca.BACKWARD.launches - before} launches, want 1")
+            dout = seen["dout"]
+            douts.append((shape[7], tuple(dout.stride()), dout.is_contiguous()))
+            got = ca._launch_bwd(q, k, k, mask, dout, ATTN_SCALE)
+            again = ca._launch_bwd(q, k, k, mask, dout, ATTN_SCALE)
+            want = ca.masked_cross_attention_bwd_ref(q, k, k, mask, dout, ATTN_SCALE)
+            torch.cuda.synchronize()
+            for name, a, b_, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(a, b_):
+                    raise AssertionError(f"cross_attention backward {shape} {name}: two runs "
+                                         "differ")
+                scale = w.float().abs().max().item()
+                torch.testing.assert_close(a.float(), w.float(), rtol=rtol, atol=frac * scale,
+                                           msg=lambda m: f"backward {shape} {name}: {m}")
+                worst = max(worst, (a.float() - w.float()).abs().max().item())
+                if shape[6] and not (bool((a[0] == 0).all()) and bool((w[0] == 0).all())):
+                    raise AssertionError(f"cross_attention backward {shape} {name}: a fully "
+                                         "padded row got a gradient")
+            if not (torch.equal(qg.grad, got[0]) and torch.equal(kg.grad, got[1] + got[2])):
+                raise AssertionError(f"cross_attention backward {shape}: autograd's gradients "
+                                     "are not the kernel's")
+            if got[0].stride() != q.stride():
+                raise AssertionError(f"cross_attention backward {shape}: dq strides "
+                                     f"{got[0].stride()}, q's {q.stride()}")
+            q4 = q if q.dim() == 4 else q.unsqueeze(1)
+            p = ca.plan_bwd(*q4.shape[:3], k.shape[-2], q.shape[-1], dtype)
+            planned.append(ca.bwd_kernel_name(p, dtype))
+            calls.append((q, k, mask, dout))
+            del qg, kg, out, got, again, want
+        seen_names = [k["name"] for k in device_kernels(
+            lambda: [ca._launch_bwd(q, k, k, m, g, ATTN_SCALE) for q, k, m, g in calls],
+            expect={KERNEL_PATTERN["cross_attention.backward"]: len(calls)})[0]
+            if re.search(KERNEL_PATTERN["cross_attention.backward"], k["name"])]
+        if sorted(next((w for w in set(planned) if w in n), n) for n in seen_names) != sorted(
+                planned):
+            raise AssertionError(f"cross_attention backward {DTYPE_NAME[dtype]}: kernels "
+                                 f"{seen_names}, planned {planned}")
+        errs[dtype] = worst
+        log(f"[3] cross_attention backward {DTYPE_NAME[dtype]}: max_abs_err {worst:.3g} over "
+            f"{len(shapes)} shapes (B, G, N, T, D, layout, padded row, upstream), two runs "
+            f"bit-equal, the kernels plan_bwd names {sorted(set(planned))} by the profiler; dO "
+            f"as autograd hands it over (upstream, strides, contiguous): {sorted(set(douts))} "
+            f"(tolerance rtol {rtol:g}, atol {frac:g} of each gradient's largest magnitude)")
+        del calls
+        torch.cuda.empty_cache()
+    return errs
+
+
 def check_slice_against_cpu(cfg, g_cpu) -> None:
     """Phase 4a: encoder + NetG at 256², NCH=32, batch 4, fp32, TF32 off."""
     torch.backends.cudnn.allow_tf32 = False
@@ -1215,23 +1371,31 @@ SLICE_CFG = {  # the train slice of phase 4b
 
 
 def check_train_against_cpu(cfg, label: str, mask_fn, want: dict[str, int]) -> None:
-    """Phase 4b, 4d and 4e: two fp32 train steps at batch 4 on the card and
-    on the CPU from the same perturbed weights, the word masks from
-    ``mask_fn``; the card's run launches ``want`` of the kernels it names
-    (4b, 4d: the word scores through the damsm kernels; 4e: every count of
-    the concept step, the epilogues' and the 0 of the others)."""
+    """Phase 4b, 4d-4g: two fp32 train steps at batch 4 on the card and on
+    the CPU from the same perturbed weights (with ``ENCODER_LOSS.VGG``, the
+    same random VGG-19), the word masks from ``mask_fn``; the card's run
+    launches ``want`` of the kernels it names (4b, 4d, 4g: the word scores
+    through the damsm kernels; 4e, 4f: every count of the step, the 0 of
+    the others)."""
     cpu = create_train_state(cfg, device="cpu", seed=3)
     g_sd, d_sd = perturbed_state_dict(cpu.g, 4), perturbed_state_dict(cpu.d, 5)
     cpu = create_train_state(cfg, device="cpu", g_state_dict=g_sd, d_state_dict=d_sd)
     card = create_train_state(cfg, device="cuda", g_state_dict=g_sd, d_state_dict=d_sd)
     step_cpu = make_train_step(cfg)
     step_card = make_train_step(cfg, word_block_elems=0)  # turns TF32 off
+    vgg_cpu = vgg_card = None
+    if cfg.TRAIN.ENCODER_LOSS.VGG:
+        vgg_cpu = make_vgg(path="")
+        vgg_card = copy.deepcopy(vgg_cpu).cuda()
     rng = np.random.RandomState(6)
     reset_counts()
     for k in range(2):
         batch = train_batch(rng, cfg, 4, mask_fn)
         noise = rng.randn(4, cfg.TRAIN.NOISE_DIM).astype(np.float32)
-        m_cpu, m_card = step_cpu(cpu, batch, noise), step_card(card, batch, noise)
+        m_cpu = step_cpu(cpu, batch, noise, vgg_cpu)
+        m_card = step_card(card, batch, noise, vgg_card)
+        if set(m_cpu) != set(m_card) or (vgg_cpu is not None) != ("vgg_loss" in m_card):
+            raise AssertionError(f"{label}: metrics {sorted(m_card)} vs CPU {sorted(m_cpu)}")
         for key, v in m_cpu.items():
             a, b = float(m_card[key]), float(v)
             if not abs(a - b) <= TRAIN_TOL["metric"] * max(1.0, abs(b)):
@@ -1372,11 +1536,15 @@ def serve(cfg, sd, dtype, name: str = "DF_GEN") -> dict:
 
 
 def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dict:
-    """Phase 6 for one full-width config and dtype: ``warmup`` steps, one
-    counted step (peak memory from here), ``timed`` steps, one profiled."""
+    """Phase 6 (and 6f, with ``ENCODER_LOSS.VGG`` and a random-init VGG-19)
+    for one full-width config and dtype: ``warmup`` steps, one counted step
+    (peak memory from here), ``timed`` steps, one profiled."""
     bs = cfg.TRAIN.BATCH_SIZE
     state = create_train_state(cfg, dtype, "cuda", seed=0)
     step = make_train_step(cfg)  # turns TF32 off
+    vgg = make_vgg(dtype, "cuda", path="") if cfg.TRAIN.ENCODER_LOSS.VGG else None
+    if vgg is not None:
+        step = functools.partial(step, vgg=vgg)
     rng = np.random.RandomState(7)
     batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(rng, cfg, bs, mask_fn).items()}
     noises = [torch.from_numpy(rng.randn(bs, cfg.TRAIN.NOISE_DIM).astype(np.float32)).cuda()
@@ -1465,7 +1633,27 @@ def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dic
         log(f"[6] train {label} damsm: {ms:.3f} ms, {n} launches: {name[:110]}")
     log(f"[6] train {label} last metrics: " + ", ".join(
         f"{k} {v:.4g}" for k, v in res["metrics"].items()))
-    del state, batch
+    if vgg is not None:
+        # the VGG's own device time at the step's shapes: the real images'
+        # features without grad, the fake's with their backward to the input
+        fake = torch.rand((bs, 3, cfg.IMG.SIZE, cfg.IMG.SIZE), device="cuda").mul(2).sub(1)
+        fake = fake.contiguous(memory_format=torch.channels_last).requires_grad_()
+        imgs = batch["imgs"].permute(0, 3, 1, 2).to(dtype).div(127.5).sub(1)
+
+        def vgg_pass():
+            with torch.no_grad():
+                vgg(imgs)
+            vgg(fake).sum().backward()
+
+        vgg_pass()
+        vk = device_kernels(vgg_pass)[0]
+        res["vgg_kernel_ms"] = sum(k["ms"] for k in vk)
+        res["vgg_share"] = res["vgg_kernel_ms"] / device_ms
+        log(f"[6f] train {label}: the VGG's forward (real, no grad) and forward + input "
+            f"backward (fake) take {res['vgg_kernel_ms']:.1f} ms of kernels, "
+            f"{100 * res['vgg_share']:.1f}% of the step's {device_ms:.1f} ms")
+        del fake, imgs
+    del state, batch, vgg
     torch.cuda.empty_cache()
     return res
 
@@ -1839,6 +2027,86 @@ def ln_loop(card: str, bare_step_ms: float) -> dict:
         torch.cuda.empty_cache()
 
 
+def attn_loop(card: str, name: str, dtype) -> dict:
+    """Phase 6e for one word-attention generator and dtype:
+    ``concept_in_df_gan.yml`` as published with ``GEN.ENCODER_NAME`` =
+    ``name``, through ``Trainer.fit`` on the card."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_attn_")
+    try:
+        return _attn_loop(card, name, dtype, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _attn_loop(card: str, name: str, dtype, root: str) -> dict:
+    cfg = concept_cfg(name, 64, 32)
+    bs = cfg.TRAIN.BATCH_SIZE
+    label = f"[6e] {name} loop {DTYPE_NAME[dtype]} bs{bs} {cfg.IMG.SIZE}² | {card}"
+    per_step = attn_step_launches(cfg, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, seed=100, output_root=root, log_type="none", synthetic=True,
+                 synthetic_len=ATTN_LOOP_STEPS * bs, save_after=10**9, eval_fid=False,
+                 dtype=dtype, device="cuda")
+    reset_counts()  # the word-attention training path's run: one epoch and its grid
+    metrics, calls, _ = timed_fit(tr, max_epochs=1)
+    grid = len(attention_shapes(cfg, 1, ATTN_GENS[name]))  # the epoch's grid: one G forward
+    want = {k: ATTN_LOOP_STEPS * n + (grid if k == "cross_attention.forward" else 0)
+            for k, n in per_step.items()}
+    launches = check_counts(f"{label} fit, 1 epoch of {ATTN_LOOP_STEPS} steps", want)
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    if bad or tr.state.step != ATTN_LOOP_STEPS:
+        raise AssertionError(f"{label}: non-finite {bad}, step {tr.state.step}")
+    walls = step_walls(calls)
+    batch = tr._prep_batch(tr.train_loader.first_batch())
+    noise = tr.step_noise(tr.global_step + 1)
+    reset_counts()
+    tr.step_fn(tr.state, batch, noise)
+    torch.cuda.synchronize()
+    step_launches = check_counts(f"{label} one step", per_step)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step_fn(tr.state, batch, noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    kernels, busy_ms, wall_ms = device_kernels(lambda: tr.step_fn(tr.state, batch, noise),
+                                               expect=launch_patterns(step_launches))
+    fwd = sorted({k["name"] for k in kernels if kernel_category(k["name"]) == "cross_attention"})
+    bwd = sorted({k["name"] for k in kernels
+                  if kernel_category(k["name"]) == "cross_attention backward"})
+    want_bwd = ca.bwd_kernel_name(ca.plan_bwd(1, 1, 1, cfg.TEXT.MAX_LENGTH, 4, dtype), dtype)
+    if not (fwd and all(REQUEST_ATTN_KERNEL[name] in n for n in fwd) and bwd
+            and all(want_bwd in n for n in bwd)):
+        raise AssertionError(f"{label}: attention kernels {fwd} / {bwd}, want "
+                             f"{REQUEST_ATTN_KERNEL[name]} / {want_bwd}")
+    step_ms = statistics.median(times)
+    res = {"card": card, "config": f"concept_in_df_gan + {name}", "dtype": DTYPE_NAME[dtype],
+           "batch": bs, "launches_fit": launches, "launches_step": step_launches,
+           "loop_step_ms": statistics.median(walls), "loop_step_ms_all": walls,
+           "step_ms": step_ms, "step_ms_all": times, "img_per_s": bs / step_ms * 1e3,
+           "step_kernel_ms": sum(k["ms"] for k in kernels), "step_busy_ms": busy_ms,
+           "profiled_step_ms": wall_ms, "device_busy_share": busy_ms / wall_ms,
+           "device_ms_by_category": by_category(kernels), "top_kernels": top_kernels(kernels, 8),
+           "attention_kernels": fwd + bwd,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "metrics": metrics}
+    log(f"{label}: launches of the fit {launches}, of one step {step_launches}, by the "
+        f"profiler's names {fwd + bwd}; loop step {res['loop_step_ms']:.1f} ms (median of "
+        f"{', '.join(f'{w:.1f}' for w in walls)}), bare step {step_ms:.1f} ms "
+        f"({res['img_per_s']:.1f} img/s, median of 3), peak {res['peak_mem_gib']:.2f} GiB")
+    log(f"{label} one step on the device: {res['step_kernel_ms']:.1f} ms of kernels, busy "
+        f"{busy_ms:.1f} of {wall_ms:.1f} ms (share {res['device_busy_share']:.3f}); " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in res["device_ms_by_category"].items()))
+    for g in res["top_kernels"]:
+        log(f"{label} top: {g['ms']:.1f} ms, {g['launches']} launches: {g['kernel']} <- "
+            f"{g['op']} {g['dims']}")
+    log(f"{label} last metrics: " + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
+    del tr, batch
+    return res
+
+
 def serve_sent(card: str, dtypes) -> list[dict]:
     """Phase 5c: ``ln_coco_256.yml`` serving from its SBERT cache: 128
     captions' rows of a synthetic ``sbert_cache_test.npz`` (T = 200, D = 768,
@@ -1995,9 +2263,47 @@ def own_kernel_times() -> dict[str, float]:
             out[f"cross_attention.{which}[{DTYPE_NAME[dtype]}]"] = own(
                 lambda: [ca._launch(q, k, v, mask, 1.0) for q, k, v, mask in calls],
                 KERNEL_PATTERN["cross_attention.forward"], len(calls))
+            calls = attention_bwd_calls(which, dtype, gen)
+            out[f"cross_attention.backward.{which}[{DTYPE_NAME[dtype]}]"] = own(
+                lambda: [ca._launch_bwd(q, k, k, m, g, 1.0) for q, k, m, g in calls],
+                KERNEL_PATTERN["cross_attention.backward"], len(calls))
             del calls
             torch.cuda.empty_cache()
+    one = torch.zeros(1, device="cuda")
+    out["empty_kernel"] = own(lambda: [one.fill_(1.0) for _ in range(EMPTY_LAUNCHES)],
+                              r"(?i)fill", EMPTY_LAUNCHES) / EMPTY_LAUNCHES
     return out
+
+
+# phase 7: launches of a one-element fill, whose mean device time stands for
+# an empty kernel's (the launch floor beside the latency-bound Out rows)
+EMPTY_LAUNCHES = 100
+
+
+def attn_train_shapes(which: str) -> list[tuple[int, int, int, int, int]]:
+    """(B, G, N, T, D) of the attention launches of one G pass of the 64²
+    word-attention train step (``concept_in_df_gan.yml``, batch 88)."""
+    cfg = concept_cfg("CONCEPT_INATTN_GEN", 64, 32)
+    return [sh[:5] for sh in attention_shapes(cfg, cfg.TRAIN.BATCH_SIZE, which)]
+
+
+def attention_bwd_calls(which: str, dtype, gen) -> list[tuple]:
+    """(q, k, mask, dO) of the 6 backward launches of one 64² step's G
+    update, as the step hands them over on the card: In, the queries as
+    planes, the keys [B, G, D, T], dO dense (the sampler's mean); Out, dO a
+    slice of the [B, 16, gc + 4] condition's gradient (gc = NOISE_DIM + NEF
+    = 356)."""
+    calls = []
+    for sh in attn_train_shapes(which):
+        q, k, _, mask = attention_inputs((*sh, "planes" if which == "in" else False), dtype,
+                                         gen, False)
+        if which == "in":
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        else:
+            g = torch.randn((*q.shape[:-1], 356 + q.shape[-1]), generator=gen,
+                            device="cuda").to(dtype)[..., 356:]
+        calls.append((q, k, mask, g))
+    return calls
 
 
 def epilogue_rows(shapes, errs, launches, own_ms) -> list[dict]:
@@ -2293,6 +2599,82 @@ def attention_rows(in_shapes, out_shapes, errs, launches, own_ms) -> list[dict]:
     return rows
 
 
+def attention_bwd_rows(errs, launches, own_ms) -> list[dict]:
+    """Phase 7, the cross_attention backward (``attn_bwd``): the 6 In and the
+    6 Out launches of one 64² word-attention step's G update (batch 88), per
+    dtype: kernel vs plain vs SDPA's forward and backward (a yardstick on the
+    same inputs, every row with a real word; used nowhere in the port) vs
+    bound.  Bytes: q and dO read, dq written, k (passed as v) read once, dk
+    and dv written, the mask; operations: per (query, real word) the score
+    (2D), dP (2D), dS (3), dq, dk and dv (2D each), the exponential and P."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.empty((), dtype=dtype).element_size()
+        for which in ("in", "out"):
+            shapes = attn_train_shapes(which)
+            calls = attention_bwd_calls(which, dtype, gen)
+            nbytes = ops = 0
+            for (b, g, n, t, d), (_, _, mask, _) in zip(shapes, calls):
+                words = int((~mask).sum()) * g
+                nbytes += 3 * b * g * n * d * es + 3 * b * g * t * d * es + b * t
+                ops += words * n * (10 * d + 5)
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            op_ms = ops / FP32_OPS_PER_S * 1e3
+            planned = sorted({ca.bwd_kernel_name(ca.plan_bwd(*sh, dtype), dtype)
+                              for sh in shapes})
+
+            def kern():
+                for q, k, m, g in calls:
+                    ca._launch_bwd(q, k, k, m, g, 1.0)
+
+            def ref():
+                for q, k, m, g in calls:
+                    ca.masked_cross_attention_bwd_ref(q, k, k, m, g, 1.0)
+
+            leaves = [(q.detach().requires_grad_(), k.detach().requires_grad_(), m, g)
+                      for q, k, m, g in calls]
+
+            def sdpa():
+                for q, k, m, g in leaves:
+                    keep = ~m.reshape(m.shape[0], *([1] * (q.dim() - 2)), m.shape[1])
+                    torch.nn.functional.scaled_dot_product_attention(
+                        q, k, k, attn_mask=keep, scale=1.0).backward(g)
+
+            ms, plain_ms, library_ms = cuda_ms(kern, 5), cuda_ms(ref, 2), cuda_ms(sdpa, 2)
+            bound = max(byte_ms, op_ms)
+            gen_name = "CONCEPT_INATTN_GEN" if which == "in" else "CONCEPT_OUTATTN_GEN"
+            name = f"cross_attention.backward.{which}[{DTYPE_NAME[dtype]}]"
+            kernel_ms = own_ms[name]
+            rows.append({
+                "name": name, "route": "cuda", "kernel": " ".join(planned),
+                "source": "xmc_gan_tpu_torch/csrc/cross_attention.cu",
+                "replaces": "xmc_gan_tpu/ops/pallas/cross_attention.py:95 (pallas_call :131; "
+                            "the Pallas kernel has no backward: JAX differentiates its einsum "
+                            "chain, models/concept_gan.py:167-179, :299-306)",
+                "launches": launches[gen_name][dtype], "max_abs_err": errs[dtype], "ms": ms,
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "library_ms": library_ms, "roofline_share": bound / ms,
+                "shapes": f"the {len(shapes)} backward launches of one 64² NCH=32 {gen_name} "
+                          f"train step at batch 88: (B, G, N, T, D) {sorted(set(shapes))}"
+                          + (", the queries as planes, dO dense" if which == "in"
+                             else ", dO a slice of the condition's gradient"),
+                "library": "scaled_dot_product_attention forward + backward",
+            })
+            if which == "out":
+                rows[-1]["empty_kernel_ms"] = own_ms["empty_kernel"] * len(shapes)
+            log(f"[7] {name} ({rows[-1]['kernel']}): {len(shapes)} launches {ms:.3f} ms, of it "
+                f"{kernel_ms:.3f} ms in the kernels (bound {bound:.4g} ms by "
+                f"{rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain {plain_ms:.3f} ms, "
+                f"SDPA forward + backward {library_ms:.3f} ms"
+                + (f"; {len(shapes)} empty kernels {rows[-1]['empty_kernel_ms']:.4f} ms"
+                   if which == "out" else ""))
+            del calls, leaves
+            torch.cuda.empty_cache()
+    return rows
+
+
 def damsm_rows(errs, launches) -> list[dict]:
     """Phase 7, damsm_score: each kernel once at the flagship shape."""
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -2417,6 +2799,7 @@ def main() -> int:
     ln_errs = check_damsm_ln()
     check_damsm_streamed()
     ca_errs = check_attention(attn_in)
+    ca_bwd_errs = check_attention_bwd(attn_train_shapes("in"), attn_train_shapes("out"))
     torch.cuda.empty_cache()
     own_ms = own_kernel_times()
     log("[7] the kernels' own device ms (profiler, run after phase 3): "
@@ -2439,6 +2822,15 @@ def main() -> int:
     check_train_against_cpu(small_concept, "concept_out_df_gan step (fp32, NCH=8, 64², batch 4), "
                             "2 steps", prefix_mask,
                             {k: 2 * n for k, n in concept_step_launches(small_concept).items()})
+    for name in ATTN_GENS:
+        wcfg = concept_cfg(name, 64, 8)
+        per = attn_step_launches(wcfg, name)
+        check_train_against_cpu(wcfg, f"{name} step (fp32, NCH=8, 64², batch 4), 2 steps",
+                                prefix_mask, {k: 2 * n for k, n in per.items()})
+    check_train_against_cpu(cfg_from_dict({"TRAIN": {"ENCODER_LOSS": {"VGG": True}}},
+                                          base=cfg_from_dict(SLICE_CFG)),
+                            "train slice with ENCODER_LOSS.VGG (random VGG-19)", prefix_mask,
+                            damsm_two_steps)
 
     runs = {dtype: serve(cfg, sd, dtype) for dtype in (torch.float32, torch.bfloat16)}
     diff = (runs[torch.float32].pop("img") - runs[torch.bfloat16].pop("img")).abs()
@@ -2471,6 +2863,13 @@ def main() -> int:
     loop = train_loop(card, trains[torch.bfloat16]["step_ms"])
     concept_loops = {dtype: concept_loop(card, dtype) for dtype in (torch.bfloat16, torch.float32)}
     ln_fit = ln_loop(card, ln_train["step_ms"])
+    attn_loops = {name: {dtype: attn_loop(card, name, dtype)
+                         for dtype in (torch.bfloat16, torch.float32)} for name in ATTN_GENS}
+    vgg_train = train(cfg_from_dict({"TRAIN": {"ENCODER_LOSS": {"VGG": True}}}, base=flagship),
+                      "flagship_word + VGG", torch.bfloat16, 2, 3, prefix_mask)
+    log(f"[6f] flagship_word bf16 step with the VGG loss {vgg_train['step_ms']:.1f} ms beside "
+        f"phase 6's {trains[torch.bfloat16]['step_ms']:.1f} ms without it; the VGG "
+        f"{100 * vgg_train['vgg_share']:.1f}% of the step's device time | {card}")
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
@@ -2489,6 +2888,10 @@ def main() -> int:
                              {None: "phase 6: one full-width LN-COCO fp32 step at batch "
                                     f"{LN_FP32_BATCH}",
                               torch.bfloat16: "phase 6: one full-width LN-COCO bf16 step"})
+    kernels += attention_bwd_rows(
+        ca_bwd_errs, {name: {d: r["launches_step"]["cross_attention.backward"]
+                             for d, r in attn_loops[name].items()} for name in ATTN_GENS},
+        own_ms)
     kernels += attention_rows(
         [s[:5] for s in attn_in], [s[:5] for s in attn_out], ca_errs,
         {name: {d: r["cross_attention.forward"] for d, r in req[name].items()}
@@ -2498,7 +2901,10 @@ def main() -> int:
                     "sent_serving": sent_runs,
                     "training": [*trains.values(), ln_train, ln_train32],
                     "training_loop": loop, "concept_training_loop": list(concept_loops.values()),
-                    "ln_training_loop": ln_fit}))
+                    "ln_training_loop": ln_fit,
+                    "attention_training_loop": [r for rs in attn_loops.values()
+                                                for r in rs.values()],
+                    "vgg_training": vgg_train}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

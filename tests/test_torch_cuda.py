@@ -796,11 +796,116 @@ def test_cross_attention_kernel_matches_plain_on_card(cuda_device, dtype, shape)
 
 @pytest.mark.cuda
 def test_cross_attention_refuses_grad_on_card(cuda_device):
-    q, k, v, mask = _attn_inputs(cuda_device, (2, 1, 8, 5, 4, False), 8, allpad=False)
-    with pytest.raises(NotImplementedError, match="word-attention training slice"):
-        ca.masked_cross_attention_kernel(q.requires_grad_(), k, v, mask)
-    with torch.no_grad():
-        ca.masked_cross_attention_kernel(q, k, v, mask)
+    """Under grad, a shape the backward's plan does not take (D > 32, T >
+    256) raises ValueError before any launch; under no_grad it runs."""
+    for shape in ((2, 1, 8, 5, 48, False), (2, 1, 8, 257, 4, False)):
+        q, k, v, mask = _attn_inputs(cuda_device, shape, 8, allpad=False)
+        before = (ca.FORWARD.launches, ca.BACKWARD.launches)
+        with pytest.raises(ValueError, match="backward takes"):
+            ca.masked_cross_attention_kernel(q.requires_grad_(), k, v, mask)
+        assert (ca.FORWARD.launches, ca.BACKWARD.launches) == before
+        with torch.no_grad():
+            ca.masked_cross_attention_kernel(q, k, v, mask)
+        assert ca.FORWARD.launches == before[0] + 1
+
+
+# kernel's backward vs its plain version: each gradient to rtol and to atol
+# times its largest magnitude.  fp32: the same math in another order (exp2
+# of log2-unit scores; dk and dv summed over the queries in tile order):
+# (1e-4, 1e-5).  bf16: both round once on store from fp32, so one bf16 ulp
+ATTN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (BF16_ULP, 1e-5)}
+# the 64² step's In shapes (batch cut to 4) as rows and as planes, its Out
+# shape, and the plan's edges: a ragged T, D = 12 at T = 33, T = 200 and the
+# widest plan (T = 256, D = 32)
+ATTN_BWD_SHAPES = [(4, 16, n, 15, 4, lay) for n in (256, 1024, 4096) for lay in (True, "planes")] + [
+    (88, 1, 16, 15, 4, False), (3, 16, 77, 7, 4, "sampler"), (3, 1, 50, 33, 12, False),
+    (2, 16, 300, 200, 4, "sampler"), (2, 1, 100, 256, 32, False)]
+
+
+def _bwd_case(device, shape, dtype, seed):
+    q, k, _, _ = _attn_inputs(device, shape, seed, allpad=False)
+    q, k = q.to(dtype), k.to(dtype)
+    mask = _padded_rows_mask(device, shape[0], shape[3])  # rows 0, 3, ... fully padded
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    return q, k, mask, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_BWD_SHAPES, ids=str)
+def test_cross_attention_backward_matches_plain_on_card(cuda_device, dtype, shape):
+    """attn_bwd against ``masked_cross_attention_bwd_ref``, k passed as v;
+    fully padded rows (0, 3, ...) get zero gradients; two launches give
+    equal bits; dq has q's strides."""
+    q, k, mask, dout = _bwd_case(cuda_device, shape, dtype, 13)
+    got = ca._launch_bwd(q, k, k, mask, dout, 0.7)
+    again = ca._launch_bwd(q, k, k, mask, dout, 0.7)
+    want = ca.masked_cross_attention_bwd_ref(q, k, k, mask, dout, 0.7)
+    torch.cuda.synchronize()
+    rtol, frac = ATTN_BWD_TOL[dtype]
+    for a, b_, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape and torch.equal(a, b_)
+        torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
+                                   atol=frac * w.float().abs().max().item())
+        for i in range(0, shape[0], 3):
+            assert bool((a[i] == 0).all()) and bool((w[i] == 0).all())
+    assert got[0].stride() == q.stride()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_trains_through_the_backward_kernel(cuda_device, dtype):
+    """Under grad the wrapper returns a differentiable output: one forward
+    and one backward launch, q's gradient the kernel's dq and k's (passed as
+    v) dk + dv, through the In sampler's mean over the queries."""
+    q, k, mask, _ = _bwd_case(cuda_device, (4, 16, 1024, 15, 4, "planes"), dtype, 14)
+    qg, kg = q.detach().requires_grad_(), k.detach().requires_grad_()
+    before = (ca.FORWARD.launches, ca.BACKWARD.launches)
+    out = ca.masked_cross_attention_kernel(qg, kg, kg, mask)
+    seen = {}
+    out.register_hook(lambda g: seen.__setitem__("dout", g))
+    (out.mean(dim=2).float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (ca.FORWARD.launches, ca.BACKWARD.launches) == (before[0] + 1, before[1] + 1)
+    dq, dk, dv = ca._launch_bwd(q, k, k, mask, seen["dout"], 1.0)
+    assert torch.equal(qg.grad, dq) and torch.equal(kg.grad, dk + dv)
+
+
+def _traced_attention_backward_kernels() -> list:
+    """For each dtype and a shape of each D bound: the kernel ``plan_bwd``
+    names and the backward kernels of a whole trace of one launch."""
+    device = torch.device("cuda")
+    ca.KERNEL.load()
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 16, 1024, 15, 4, "planes"), (2, 1, 64, 20, 8, False),
+                      (2, 1, 64, 20, 32, False)):
+            q, k, mask, dout = _bwd_case(device, shape, dtype, 15)
+            ca._launch_bwd(q, k, k, mask, dout, 1.0)
+            torch.cuda.synchronize()
+            seen = device_kernels(lambda: ca._launch_bwd(q, k, k, mask, dout, 1.0),
+                                  expect={r"attn_bwd<": 1})[0]
+            q4 = q if q.dim() == 4 else q.unsqueeze(1)
+            p = ca.plan_bwd(*q4.shape[:3], shape[3], shape[4], dtype)
+            out.append((ca.bwd_kernel_name(p, dtype),
+                        sorted({x["name"] for x in seen if "attn_bwd" in x["name"]})))
+    return out
+
+
+@pytest.mark.cuda
+def test_cross_attention_backward_launches_the_planned_kernel(cuda_device):
+    """The profiler sees the kernel ``plan_bwd`` names (in a fresh process,
+    as ``test_cross_attention_launches_the_planned_kernel``)."""
+    tests = Path(__file__).resolve().parent
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import test_torch_cuda as t; "
+            "print(json.dumps(t._traced_attention_backward_kernels()))")
+    proc = subprocess.run([sys.executable, "-c", code, str(tests.parent), str(tests)],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    for want, names in json.loads(proc.stdout.strip().splitlines()[-1]):
+        assert names and all(want in nm for nm in names), (want, names)
 
 
 def _padded_rows_mask(device, b, t):

@@ -235,9 +235,14 @@ def test_cross_attention_wrapper_has_no_quiet_route():
         mp.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
         with pytest.raises(Reached):
             ca.masked_cross_attention_kernel(qc, kc, kc, mc)
-        # an operand that would need a gradient is refused on CUDA, not detached
-        with pytest.raises(NotImplementedError, match="word-attention training slice"):
+        # under grad the CUDA path launches through the autograd Function (the
+        # plain version is never taken), and a shape the backward's plan does
+        # not take raises before any launch
+        with pytest.raises(Reached):
             ca.masked_cross_attention_kernel(qc.clone().requires_grad_(), kc, kc, mc)
+        wide_q, wide_k = torch.zeros(2, 3, 40), torch.zeros(2, 5, 40)
+        with pytest.raises(ValueError, match="backward takes"):
+            ca.masked_cross_attention_kernel(wide_q.requires_grad_(), wide_k, wide_k, mc)
     assert torch.Tensor.device is real_device
     before = ca.FORWARD.launches
     with pytest.MonkeyPatch.context() as mp:
@@ -253,7 +258,8 @@ def test_modules_list_covers_the_slice():
             "ops.cross_attention", "ops.grouped", "models.common", "models.df_gan",
             "models.df_concept_gan", "models.concept_gan", "models.encoder", "utils.convert",
             "utils.miscc", "data.vocab", "data.pipeline", "data.native", "data.toy",
-            "utils.checkpoint", "utils.logger", "models.inception", "eval", "data.text_encode"}
+            "utils.checkpoint", "utils.logger", "models.inception", "eval", "data.text_encode",
+            "models.vgg"}
     assert {f"xmc_gan_tpu_torch.{m}" for m in want} <= set(MODULES)
     for name in MODULES:
         importlib.import_module(name)

@@ -4,6 +4,13 @@ port, on the same perturbed weights (carried across by
 draw, at the ``_tiny`` sizes of ``tests/test_integration_cfgs.py`` (NCH=8,
 NEF=32, NOISE_DIM=16, batch 4, 64², EMBEDDING_DIM=48, MAX_LENGTH=6).
 
+``run_step`` takes config overrides (e.g. a word-attention generator as
+``GEN.ENCODER_NAME``, or ``ENCODER_LOSS.VGG``), a batch with ``words_embs``
+and ``mask`` (every caption with a real word: the JAX chain gives NaN for
+one without), and, with VGG on, the same random VGG-19 in both packages
+(the JAX ``VGG19Features`` init, carried across by
+``utils/convert.vgg_state_dict_from_jax``).
+
 With ``N_CRITIC`` = 2 a second step runs, alone, from the JAX state after
 the first (its parameters, power-iteration vectors and Adam moments carried
 across), so that the step which updates G is held to JAX as closely as the
@@ -28,8 +35,10 @@ import torch
 from torch_port_helpers import perturb, perturb_concept
 from xmc_gan_tpu import train as jax_train
 from xmc_gan_tpu.config import cfg_from_file as jax_cfg_from_file
+from xmc_gan_tpu.models.vgg import VGG19Features as JaxVGG
 from xmc_gan_tpu_torch import train
 from xmc_gan_tpu_torch.config import cfg_from_dict, cfg_from_file
+from xmc_gan_tpu_torch.models.vgg import VGG19Features
 from xmc_gan_tpu_torch.utils import convert
 
 CFG_DIR = Path(__file__).resolve().parents[1] / "xmc_gan_tpu" / "cfg"
@@ -41,15 +50,33 @@ CLOSE_SHARE, CLOSE_LR_FRAC = 0.999, 0.05
 UV_ATOL = 1e-5
 
 
-def tiny_cfgs(name: str):
-    """``xmc_gan_tpu/cfg/<name>`` at the ``_tiny`` sizes, as a JAX-package
-    and a port config (every switch of the file kept)."""
+def _merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for key, val in over.items():
+        out[key] = _merge(out.get(key, {}), val) if isinstance(val, dict) else val
+    return out
+
+
+def _jax_replace(node, over: dict):
+    """A JAX-package config (frozen dataclasses) with nested ``over`` applied."""
+    return dataclasses.replace(node, **{
+        key: _jax_replace(getattr(node, key), val) if isinstance(val, dict) else val
+        for key, val in over.items()})
+
+
+def tiny_cfgs(name: str, overrides: dict | None = None):
+    """``xmc_gan_tpu/cfg/<name>`` at the ``_tiny`` sizes with ``overrides``,
+    as a JAX-package and a port config (every other switch of the file
+    kept)."""
     jcfg = jax_cfg_from_file(str(CFG_DIR / name))
     jcfg = jcfg.replace(
         TRAIN=dataclasses.replace(jcfg.TRAIN, **TINY["TRAIN"]),
         IMG=jcfg.IMG.__class__(SIZE=SIZE),
         TEXT=dataclasses.replace(jcfg.TEXT, EMBEDDING_DIM=EMB, MAX_LENGTH=T))
-    return jcfg, cfg_from_dict(TINY, base=cfg_from_file(str(CFG_DIR / name)))
+    if overrides:
+        jcfg = _jax_replace(jcfg, overrides)
+    return jcfg, cfg_from_dict(_merge(TINY, overrides or {}),
+                               base=cfg_from_file(str(CFG_DIR / name)))
 
 
 def _np(tree):
@@ -92,12 +119,17 @@ def _port_from_jax(cfg, state, step: int):
     return port
 
 
-def run_step(name: str) -> dict:
+# caption lengths of the batch's words (every caption with a real word)
+WORD_LENS = [T, 1, 3, 5]
+
+
+def run_step(name: str, overrides: dict | None = None, words: bool = False) -> dict:
     """The first step free-running from the perturbed state and, with
     ``N_CRITIC`` = 2, the second step alone from the JAX state after the
-    first.  Returns the config and, per step, both packages' metrics and
-    parameters."""
-    jcfg, cfg = tiny_cfgs(name)
+    first; ``words``: the batch carries ``words_embs`` and ``mask``
+    (``WORD_LENS``).  Returns the config and, per step, both packages'
+    metrics and parameters."""
+    jcfg, cfg = tiny_cfgs(name, overrides)
     state = jax.jit(functools.partial(jax_train.create_train_state, jcfg))(jax.random.PRNGKey(0))
     g = _perturb(_np(state.g_params), cfg.GEN.ENCODER_NAME, 1)
     d = _perturb(_np(state.d_params), cfg.DISC.ENCODER_NAME, 2)
@@ -110,17 +142,25 @@ def run_step(name: str) -> dict:
     jstep = jax.jit(jax_train.make_train_step(jcfg))
     pstep = train.make_train_step(cfg)
     port = convert.train_state_from_jax(cfg, g, d, spec, device="cpu")
+    jvgg = pvgg = None
+    if cfg.TRAIN.ENCODER_LOSS.VGG:
+        jvgg = _np(JaxVGG().init(jax.random.PRNGKey(19), jnp.zeros((1, SIZE, SIZE, 3))))
+        pvgg = VGG19Features()
+        pvgg.load_state_dict(convert.vgg_state_dict_from_jax(jvgg), strict=True)
     rng = np.random.RandomState(0)
     steps = []
     for k in range(cfg.TRAIN.N_CRITIC):
         batch = {"imgs": rng.randint(0, 256, (BS, SIZE, SIZE, 3)).astype(np.uint8),
                  "sent_embs": rng.randn(BS, EMB).astype(np.float32)}
+        if words:
+            batch["words_embs"] = rng.randn(BS, T, EMB).astype(np.float32)
+            batch["mask"] = np.arange(T)[None, :] >= np.array(WORD_LENS)[:, None]
         key = jax.random.PRNGKey(100 + k)
         noise = np.asarray(jax.random.normal(key, (BS, NOISE), jnp.float32))  # the JAX draw
         if k > 0:
             port = _port_from_jax(cfg, state, k)
-        pm = pstep(port, batch, noise)
-        state, jm = jstep(state, {n: jnp.asarray(v) for n, v in batch.items()}, key)
+        pm = pstep(port, batch, noise, pvgg)
+        state, jm = jstep(state, {n: jnp.asarray(v) for n, v in batch.items()}, key, jvgg)
         steps.append({"jax": {"metrics": {n: float(v) for n, v in jm.items()},
                               "params": _snapshot_jax(cfg, state)},
                       "port": {"metrics": {n: float(v) for n, v in pm.items()},

@@ -13,9 +13,10 @@
 // are kept in log2 units (scale * log2(e) folded into q or k) and padded
 // words are skipped, so their values never enter.
 //
-// Three kernels; the wrapper's plan (ops/cuda/cross_attention.py, plan())
-// names one and its launch geometry before any launch, and the C entry
-// refuses a launch whose kernel or geometry is not one it takes.
+// Three forward kernels and one backward (attn_bwd); the wrapper's plans
+// (ops/cuda/cross_attention.py, plan() and plan_bwd()) name the kernel and
+// its launch geometry before any launch, and the C entries refuse a launch
+// whose kernel or geometry is not one they take.
 //
 // attn_grouped: the In sampler's shapes.  The concept generators' In
 // sampler attends HW queries of each of G = 16 concept groups, D = 4, over
@@ -74,6 +75,36 @@
 //     ends with the same value: fp32 addition commutes).  16-word tiles.
 // Blocks are numbered with g fastest; out is written dense, [B, G, N, D].
 //
+// attn_bwd: the backward (no Pallas kernel has one: the JAX package
+// differentiates its XLA einsum chain; the port's word-attention generators
+// train through this kernel).  With s = scale q.k over the real words,
+//   P = softmax_t(s), dP = dO v^T, Delta = sum_t P dP, dS = P (dP - Delta),
+//   dq = scale dS k, dk = scale dS^T q, dv = P^T dO,
+// recomputed from q and k (the forward saves neither P nor its output:
+// Delta is taken from sum_t P dP, not dO . O).  Math is fp32; dq, dk and dv
+// are rounded once on store to the operands' type.  A fully padded row gets
+// zero dq, dk and dv.  Shapes: D <= 32 (templated on DMAX in {4, 8, 16,
+// 32}), T <= 256, any G and N; q, k, v and dO at any strides, dq at the
+// strides the wrapper gives it (q's), dk and dv dense [B, G, T, D].
+//   * One block per (b, g): dk and dv reduce over the N queries of that
+//     row, and one owner per output keeps the sum's order fixed, so two
+//     runs are bit-equal (no atomics, no second pass).
+//   * The block stages its row's real words (compacted from the mask) as
+//     fp32, then walks the queries a tile of blockDim at a time, a thread a
+//     query: three passes over the words (the exact maximum; the softmax's
+//     sum and sum_t P dP; P, dS and dq), P and dS of the tile into shared
+//     memory as [word][query] with the queries and dO as [feature][query]
+//     (rows padded by one float: no bank conflicts).
+//   * Then each of the 2 x real words x D outputs has one thread, which
+//     adds the tile's queries in order into its accumulator in shared
+//     memory.  The tile shrinks with T (256 queries up to T = 32, 32 at
+//     T = 256) so that the tiles fit.
+// At the 64^2 train step's In shapes (D = 4, T = 15, 2.05e7 query rows a G
+// pass) the bytes are q and dO read and dq written (48 / 24 bytes a row,
+// fp32 / bf16: ~0.29 / 0.15 ms at 3.35 TB/s); the kernel is bound by its
+// instruction issue (three dot products a (query, word), the tile
+// reductions), which a redesign would cut.
+//
 // C interface (bound with ctypes, pointers and stream as void*):
 //   int xmc_cross_attention(q, k, v, mask, out, B, G, N, T, D,
 //                           qsb, qsg, qsn, qsd, ksb, ksg, kst, ksd,
@@ -87,6 +118,15 @@
 //   block, or a tile) and tiles_per_block are the plan's geometry.  Returns
 //   cudaGetLastError() after the launch (0 = success), or
 //   cudaErrorInvalidValue for a launch the named kernel does not take.
+//   int xmc_cross_attention_bwd(q, k, v, mask, dout, dq, dk, dv, B, G, N, T,
+//                               D, qsb, qsg, qsn, qsd, ksb, ksg, kst, ksd,
+//                               vsb, vsg, vst, vsd, gsb, gsg, gsn, gsd, dqsb,
+//                               dqsg, dqsn, dqsd, scale, dtype, dmax, threads,
+//                               blocks, smem, stream)
+//   dout's strides are gs*, dq's dqs*; dk and dv are dense [B, G, T, D].
+//   dmax, threads (the queries of a tile), blocks (B * G) and smem (bytes of
+//   dynamic shared memory) are the plan's (plan_bwd); the entry recomputes
+//   them and refuses a launch where they differ.  Returns as above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -743,6 +783,195 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* mask, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------------------------------ attn_bwd
+
+constexpr int kBwdMaxT = 256;
+constexpr int kBwdMaxD = 32;
+
+struct BwdArgs {
+  int G, N, T, D, tile;
+  int64_t qsb, qsg, qsn, qsd, ksb, ksg, kst, ksd, vsb, vsg, vst, vsd;
+  int64_t gsb, gsg, gsn, gsd, dqsb, dqsg, dqsn, dqsd;
+  float scale;
+};
+
+// The queries a block takes at once (its threads) by caption length: the
+// [T][tile] weight and cotangent tiles stay within shared memory.
+__host__ __device__ constexpr int bwd_tile(int T) {
+  return T <= 32 ? 256 : T <= 64 ? 128 : T <= 128 ? 64 : 32;
+}
+
+__host__ __device__ constexpr size_t bwd_smem(int T, int dmax, int tile) {
+  return sizeof(float) * (4 * static_cast<size_t>(T) * dmax +
+                          2 * static_cast<size_t>(T + dmax) * (tile + 1)) +
+         2 * sizeof(int) * static_cast<size_t>(T);
+}
+
+// The first DMAX values of a row at a d-stride of sd (zeros past D).
+template <typename E, int DMAX>
+__device__ __forceinline__ void load_strided(const E* __restrict__ p, int D, int64_t sd,
+                                             float (&r)[DMAX]) {
+  if (sd == 1) {
+    load_row<E, DMAX>(p, D, r);
+    return;
+  }
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) r[d] = d < D ? to_f(p[d * sd]) : 0.f;
+}
+
+template <typename E, int DMAX>
+__device__ __forceinline__ void store_strided(E* __restrict__ p, int D, int64_t sd,
+                                              const float (&r)[DMAX]) {
+  if (sd == 1) {
+    store_row<E, DMAX>(p, D, r);
+    return;
+  }
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d)
+    if (d < D) p[d * sd] = from_f<E>(r[d]);
+}
+
+// One block per (b, g), walking its N queries a tile of blockDim at a time
+// (see the backward's part of the header).  dk and dv are written dense,
+// [B, G, T, D].
+template <typename E, int DMAX>
+__global__ void __launch_bounds__(256)
+attn_bwd(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+         const uint8_t* __restrict__ mask, const E* __restrict__ dout, E* __restrict__ dq,
+         E* __restrict__ dk, E* __restrict__ dv, BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int nreal_s;
+  const int tile = a.tile, ld = tile + 1, tid = threadIdx.x;
+  const int b = blockIdx.x / a.G, g = blockIdx.x - b * a.G;
+  float* ks = sm;                           // [T][DMAX]: the real words' keys, fp32
+  float* vs = ks + a.T * DMAX;              // [T][DMAX]: their values
+  float* acc = vs + a.T * DMAX;             // [2][T][DMAX]: sum dS q, sum P dO
+  float* ps = acc + 2 * a.T * DMAX;         // [T][ld]: the tile's weights P
+  float* dss = ps + a.T * ld;               // [T][ld]: its dS
+  float* qt = dss + a.T * ld;               // [DMAX][ld]: its queries
+  float* gt = qt + DMAX * ld;               // [DMAX][ld]: its dO
+  int* idx = reinterpret_cast<int*>(gt + DMAX * ld);  // [T]: the real words, in order
+  int* pos = idx + a.T;                     // [T]: each word's real index, -1 if padded
+
+  if (tid == 0) {
+    int nr = 0;
+    for (int t = 0; t < a.T; ++t) {
+      const bool real = mask[static_cast<int64_t>(b) * a.T + t] == 0;
+      pos[t] = real ? nr : -1;
+      if (real) idx[nr++] = t;
+    }
+    nreal_s = nr;
+  }
+  __syncthreads();
+  const int nreal = nreal_s;
+  for (int i = tid; i < nreal * DMAX; i += blockDim.x) {
+    const int j = i / DMAX, d = i - j * DMAX;
+    const bool in = d < a.D;
+    ks[i] = in ? to_f(k[b * a.ksb + g * a.ksg + idx[j] * a.kst + d * a.ksd]) : 0.f;
+    vs[i] = in ? to_f(v[b * a.vsb + g * a.vsg + idx[j] * a.vst + d * a.vsd]) : 0.f;
+    acc[i] = 0.f;
+    acc[a.T * DMAX + i] = 0.f;
+  }
+  __syncthreads();
+
+  const float c2 = a.scale * kLog2e;  // scores in log2 units
+  const int outputs = 2 * nreal * a.D;
+  for (int n0 = 0; n0 < a.N; n0 += tile) {
+    const int n = n0 + tid;
+    const bool active = n < a.N;
+    float qv[DMAX], gv[DMAX], dqv[DMAX];
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) qv[d] = gv[d] = dqv[d] = 0.f;
+    if (active) {
+      load_strided<E, DMAX>(q + b * a.qsb + g * a.qsg + n * a.qsn, a.D, a.qsd, qv);
+      load_strided<E, DMAX>(dout + b * a.gsb + g * a.gsg + n * a.gsn, a.D, a.gsd, gv);
+    }
+    if (nreal > 0) {
+      // P from the exact maximum; Delta = sum_t P dP from a first pass.
+      // Each score is rounded once (__fmul_rn: no FMA into the shift), the
+      // same in every pass, so the largest word's weight is exp2(0) = 1
+      // exactly and a one-word row's dS is exactly 0, as the plain version's
+      float m = -INFINITY;
+      for (int j = 0; j < nreal; ++j) m = fmaxf(m, __fmul_rn(dot<DMAX>(qv, ks + j * DMAX), c2));
+      float l = 0.f, pdp = 0.f;
+      for (int j = 0; j < nreal; ++j) {
+        const float e = exp2f(__fmul_rn(dot<DMAX>(qv, ks + j * DMAX), c2) - m);
+        l += e;
+        pdp = fmaf(e, dot<DMAX>(gv, vs + j * DMAX), pdp);
+      }
+      const float inv = 1.f / l;
+      const float delta = pdp * inv;
+      for (int j = 0; j < nreal; ++j) {
+        const float* kj = ks + j * DMAX;
+        const float p = exp2f(__fmul_rn(dot<DMAX>(qv, kj), c2) - m) * inv;
+        const float ds = p * (dot<DMAX>(gv, vs + j * DMAX) - delta);
+#pragma unroll
+        for (int d = 0; d < DMAX; ++d) dqv[d] = fmaf(ds, kj[d], dqv[d]);
+        ps[j * ld + tid] = active ? p : 0.f;
+        dss[j * ld + tid] = active ? ds : 0.f;
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) {
+      qt[d * ld + tid] = qv[d];
+      gt[d * ld + tid] = gv[d];
+      dqv[d] *= a.scale;
+    }
+    if (active)
+      store_strided<E, DMAX>(dq + b * a.dqsb + g * a.dqsg + n * a.dqsn, a.D, a.dqsd, dqv);
+    __syncthreads();
+    // dk and dv over the tile: output o (dk first, then dv; word j, feature
+    // d) has one owner, which adds the tile's queries in order
+    const int cnt = min(tile, a.N - n0);
+    for (int o = tid; o < outputs; o += blockDim.x) {
+      const int which = o / (nreal * a.D), r = o - which * nreal * a.D;
+      const int j = r / a.D, d = r - j * a.D;
+      const float* w = (which ? ps : dss) + j * ld;
+      const float* x = (which ? gt : qt) + d * ld;
+      float s = 0.f;
+      for (int i = 0; i < cnt; ++i) s = fmaf(w[i], x[i], s);
+      acc[(which * a.T + j) * DMAX + d] += s;
+    }
+    __syncthreads();
+  }
+  const int64_t row = (static_cast<int64_t>(b) * a.G + g) * a.T;
+  for (int i = tid; i < 2 * a.T * a.D; i += blockDim.x) {
+    const int which = i / (a.T * a.D), r = i - which * a.T * a.D;
+    const int t = r / a.D, d = r - t * a.D;
+    const int j = pos[t];
+    const float x = j < 0 ? 0.f : acc[(which * a.T + j) * DMAX + d];
+    (which ? dv : dk)[(row + t) * a.D + d] = from_f<E>(which ? x : x * a.scale);
+  }
+}
+
+template <typename E, int DMAX>
+int launch_bwd(const void* q, const void* k, const void* v, const uint8_t* mask,
+               const void* dout, void* dq, void* dk, void* dv, const BwdArgs& a, int blocks,
+               size_t smem, cudaStream_t stream) {
+  const auto kern = attn_bwd<E, DMAX>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<blocks, a.tile, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), mask,
+      static_cast<const E*>(dout), static_cast<E*>(dq), static_cast<E*>(dk),
+      static_cast<E*>(dv), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int bwd(const void* q, const void* k, const void* v, const uint8_t* mask, const void* dout,
+        void* dq, void* dk, void* dv, const BwdArgs& a, int dmax, int blocks, size_t smem,
+        cudaStream_t s) {
+  switch (dmax) {
+    case 4: return launch_bwd<E, 4>(q, k, v, mask, dout, dq, dk, dv, a, blocks, smem, s);
+    case 8: return launch_bwd<E, 8>(q, k, v, mask, dout, dq, dk, dv, a, blocks, smem, s);
+    case 16: return launch_bwd<E, 16>(q, k, v, mask, dout, dq, dk, dv, a, blocks, smem, s);
+    default: return launch_bwd<E, 32>(q, k, v, mask, dout, dq, dk, dv, a, blocks, smem, s);
+  }
+}
+
 }  // namespace
 
 extern "C" int xmc_cross_attention(const void* q, const void* k, const void* v,
@@ -771,4 +1000,31 @@ extern "C" int xmc_cross_attention(const void* q, const void* k, const void* v,
   Args a{G, N, T, D, 0, qsb, qsg, qsn, ksb, ksg, kst, vsb, vsg, vst, osb, osg, osn, scale};
   if (dtype == 0) return launch<float>(q, k, v, mask, out, B, a, kernel, threads, blocks, tile, s);
   return launch<__nv_bfloat16>(q, k, v, mask, out, B, a, kernel, threads, blocks, tile, s);
+}
+
+extern "C" int xmc_cross_attention_bwd(
+    const void* q, const void* k, const void* v, const uint8_t* mask, const void* dout, void* dq,
+    void* dk, void* dv, int B, int G, int N, int T, int D, int64_t qsb, int64_t qsg, int64_t qsn,
+    int64_t qsd, int64_t ksb, int64_t ksg, int64_t kst, int64_t ksd, int64_t vsb, int64_t vsg,
+    int64_t vst, int64_t vsd, int64_t gsb, int64_t gsg, int64_t gsn, int64_t gsd, int64_t dqsb,
+    int64_t dqsg, int64_t dqsn, int64_t dqsd, float scale, int dtype, int dmax, int threads,
+    int blocks, int smem, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || D > kBwdMaxD || T < 0 || T > kBwdMaxT || G < 1 || N < 0 || B < 0 ||
+      (dtype != 0 && dtype != 1))
+    return bad;
+  const int want_dmax = D <= 4 ? 4 : D <= 8 ? 8 : D <= 16 ? 16 : 32;
+  const int n32 = N > 32 ? (N + 31) / 32 * 32 : 32;
+  const int want_threads = bwd_tile(T) < n32 ? bwd_tile(T) : n32;
+  if (dmax != want_dmax || threads != want_threads ||
+      static_cast<int64_t>(blocks) != static_cast<int64_t>(B) * G ||
+      static_cast<size_t>(smem) != bwd_smem(T, dmax, threads))
+    return bad;
+  if (B == 0) return 0;
+  const BwdArgs a{G,   N,   T,   D,   threads, qsb, qsg,  qsn,  qsd,  ksb,  ksg,  kst, ksd,
+                  vsb, vsg, vst, vsd, gsb,     gsg, gsn,  gsd,  dqsb, dqsg, dqsn, dqsd, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? bwd<float>(q, k, v, mask, dout, dq, dk, dv, a, dmax, blocks, smem, s)
+             : bwd<__nv_bfloat16>(q, k, v, mask, dout, dq, dk, dv, a, dmax, blocks, smem, s);
 }

@@ -51,7 +51,7 @@ from xmc_gan_tpu_torch.ops.grouped import GroupedDense, GroupNorm
 from xmc_gan_tpu_torch.ops.modules import SNConv, SNDense, leaky_relu, upsample_nearest_2x
 
 __all__ = ["ResBlockUp", "WordCondConceptSampler", "InConceptBlock", "OutConceptBlock",
-           "InNetG", "OutNetG", "attention_shapes"]
+           "InNetG", "OutNetG", "attention_shapes", "attention_step_launches"]
 
 
 def _batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -386,3 +386,13 @@ def attention_shapes(cfg: Config, batch: int, inner: str = "in"
                 shapes += [(batch, 1, CARDINALITY, T, STATE_DIM)] * 2
         res = after
     return shapes
+
+
+def attention_step_launches(cfg: Config, inner: str = "in") -> dict[str, int]:
+    """``masked_cross_attention`` launches of one train step that updates G
+    (every step at ``N_CRITIC`` = 1), from the arch table: one forward per
+    attention for D's fake (under ``no_grad``), one more under autograd for
+    G's update, and one backward each (12 / 6 at 64²: attention at blocks
+    2-4)."""
+    n = len(attention_shapes(cfg, 1, inner))
+    return {"cross_attention.forward": 2 * n, "cross_attention.backward": n}

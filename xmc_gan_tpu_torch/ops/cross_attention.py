@@ -13,10 +13,14 @@ tensors and uses its plain version on CPU tensors.
 The one difference from the JAX einsum chain: a caption whose words are all
 padded gets a zero context here (the Pallas kernel's result), NaN there.
 
-The function only forwards to the wrapper today.  It is the seam that
-``ops/fused.py`` is for the epilogue kernel: the attention kernel's backward,
-which concept-family training needs, goes here as an autograd Function, so
-the models keep calling this one name.
+It is the seam that ``ops/fused.py`` is for the epilogue kernel: the
+models call this one name, and on CUDA tensors under autograd the wrapper
+differentiates it through the port's own hand-written backward kernel
+(``attn_bwd``, ``csrc/cross_attention.cu``), which the word-attention
+generators train through.  The backward is the port's: the Pallas kernel
+has none, and the JAX package differentiates its einsum chain instead.  Its
+shapes: D <= 32 and T <= 256 (every word-attention shape: D = 4, T = 15,
+20 or 200); a wider one raises ``ValueError`` under grad before any launch.
 """
 
 from __future__ import annotations

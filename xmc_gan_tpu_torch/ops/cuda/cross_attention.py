@@ -29,9 +29,15 @@ Contract of ``masked_cross_attention_kernel``:
 * One rule, ``plan``, names the kernel a CUDA call launches and its launch
   geometry from the shapes, q's strides and address, and the type, before
   any launch; the C entry refuses a launch that its kernel does not take.
-* Forward only (the Pallas kernel has no backward either).  On CUDA, an
-  operand that requires grad while autograd is on raises
-  ``NotImplementedError``: nothing returns an output silently detached.
+* A backward of the port's own (the Pallas kernel has none; the JAX
+  package differentiates its einsum chain): on CUDA, with autograd on and
+  an operand that requires grad, the call goes through an autograd
+  Function whose forward is the planned forward launch (it saves q, k, v
+  and the mask only) and whose backward launches ``attn_bwd``
+  (``plan_bwd``: D <= 32, T <= 256; any other shape raises ``ValueError``
+  before any launch).  dq has q's strides, dk and dv are dense; each is
+  rounded once to its operand's type; a fully padded row gets zero
+  gradients.  ``masked_cross_attention_bwd_ref`` is its plain version.
 * A CPU tensor goes to the plain version below; a CUDA tensor launches the
   planned kernel or raises.  There is no fallback from one to the other.
 """
@@ -43,23 +49,33 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary, LaunchCount
 
-__all__ = ["KERNEL", "FORWARD", "MAX_D", "GROUPED", "SMALL", "WIDE", "Plan", "plan",
-           "plan_for", "kernel_name", "masked_cross_attention_kernel",
-           "masked_cross_attention_ref"]
+__all__ = ["KERNEL", "FORWARD", "BACKWARD", "MAX_D", "MAX_BWD_D", "MAX_BWD_T", "GROUPED",
+           "SMALL", "WIDE", "BWD", "Plan", "BwdPlan", "plan", "plan_for", "plan_bwd",
+           "kernel_name", "bwd_kernel_name", "masked_cross_attention_kernel",
+           "masked_cross_attention_ref", "masked_cross_attention_bwd_ref"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # int xmc_cross_attention(q, k, v, mask, out, B, G, N, T, D, qsb, qsg, qsn, qsd,
 #                         ksb, ksg, kst, ksd, vsb, vsg, vst, vsd, osb, osg, osn, scale,
 #                         dtype, kernel, layout, threads, blocks, tile, tiles_per_block, stream)
+# int xmc_cross_attention_bwd(q, k, v, mask, dout, dq, dk, dv, B, G, N, T, D, qs*, ks*, vs*,
+#                             gs*, dqs* (4 each), scale, dtype, dmax, threads, blocks, smem,
+#                             stream)
 KERNEL = CudaLibrary("cross_attention.cu", {
     "xmc_cross_attention": (_I, [_P] * 5 + [_I] * 5 + [_L] * 15
                             + [ctypes.c_float] + [_I] * 7 + [_P]),
+    "xmc_cross_attention_bwd": (_I, [_P] * 8 + [_I] * 5 + [_L] * 20
+                                + [ctypes.c_float] + [_I] * 5 + [_P]),
 })
 FORWARD = LaunchCount()
+BACKWARD = LaunchCount()
 MAX_D = 256  # csrc/cross_attention.cu kMaxD
+MAX_BWD_D, MAX_BWD_T = 32, 256  # kBwdMaxD, kBwdMaxT
+BWD = "attn_bwd"
 
 SMALL, WIDE, GROUPED = "attn_small", "attn_wide", "attn_grouped"
 _KERNEL_CODE = {SMALL: 0, WIDE: 1, GROUPED: 2}
@@ -141,6 +157,46 @@ def plan(B: int, G: int, N: int, T: int, D: int, q_strides, dtype: torch.dtype,
     return p
 
 
+class BwdPlan(NamedTuple):
+    """What one backward launch takes: ``dmax`` (the template's D bound),
+    ``threads`` (the queries of a tile), ``blocks`` (one per (b, g)) and
+    ``smem`` (bytes of dynamic shared memory)."""
+    kernel: str
+    dmax: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def plan_bwd(B: int, G: int, N: int, T: int, D: int, dtype: torch.dtype) -> BwdPlan:
+    """The one rule for the backward (``attn_bwd``, ``csrc/cross_attention.cu``):
+    D <= 32 and T <= 256, one block per (b, g), a tile of 256 queries up to
+    T = 32 (halved as T doubles, 32 at T = 256) and no wider than N rounded up
+    to a warp.  Raises ``ValueError`` for a shape it does not take."""
+    if not 1 <= D <= MAX_BWD_D:
+        raise ValueError(f"masked_cross_attention's backward takes 1 <= D <= {MAX_BWD_D}, "
+                         f"got {D}")
+    if not 0 <= T <= MAX_BWD_T:
+        raise ValueError(f"masked_cross_attention's backward takes T <= {MAX_BWD_T} words, "
+                         f"got {T}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"masked_cross_attention's backward takes float32 or bfloat16, got {dtype}")
+    dmax = next(m for m in (4, 8, 16, 32) if D <= m)
+    tile = 256 if T <= 32 else 128 if T <= 64 else 64 if T <= 128 else 32
+    threads = min(tile, max(32, math.ceil(N / 32) * 32))
+    smem = 4 * (4 * T * dmax + 2 * (T + dmax) * (threads + 1)) + 8 * T
+    if B * G > _MAX_GRID:
+        raise ValueError(f"masked_cross_attention's backward: {B * G} blocks exceed the grid "
+                         "limit")
+    return BwdPlan(BWD, dmax, threads, B * G, smem)
+
+
+def bwd_kernel_name(p: BwdPlan, dtype: torch.dtype) -> str:
+    """The backward kernel as the profiler names its template instance."""
+    t = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    return f"{BWD}<{t}, {p.dmax}>"
+
+
 def _view4(t: torch.Tensor) -> torch.Tensor:
     return t if t.dim() == 4 else t.unsqueeze(1)
 
@@ -183,6 +239,27 @@ def masked_cross_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     s = s.masked_fill(pad, float("-inf"))
     p = torch.softmax(s, dim=-1).masked_fill(pad.all(dim=-1, keepdim=True), 0.0)
     return torch.einsum("...nt,...td->...nd", p, v.float()).to(q.dtype)
+
+
+def masked_cross_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   mask: torch.Tensor, dout: torch.Tensor, scale: float = 1.0
+                                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, in fp32, each gradient rounded
+    once to its operand's type: ``P = softmax_t(scale q k^T, padded -> -inf)``
+    (0 on a fully padded row), ``dP = dO v^T``, ``Delta = sum_t P dP``,
+    ``dS = P (dP - Delta)``, ``dq = scale dS k``, ``dk = scale dS^T q``,
+    ``dv = P^T dO``."""
+    pad = _mask_view(mask, q.dim())
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("...nd,...td->...nt", qf, kf) * scale
+    p = torch.softmax(s.masked_fill(pad, float("-inf")), dim=-1)
+    p = p.masked_fill(pad.all(dim=-1, keepdim=True), 0.0)
+    dp = torch.einsum("...nd,...td->...nt", gf, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("...nt,...td->...nd", ds, kf) * scale
+    dk = torch.einsum("...nt,...nd->...td", ds, qf) * scale
+    dv = torch.einsum("...nt,...nd->...td", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> None:
@@ -233,15 +310,60 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tenso
     return out.view(q.shape)
 
 
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                dout: torch.Tensor, scale: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q4, k4, v4, g4 = (_view4(t) for t in (q, k, v, dout))
+    b, g, n, d = q4.shape
+    t = k4.shape[2]
+    p = plan_bwd(b, g, n, t, d, q.dtype)
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"dout must be {tuple(q.shape)} {q.dtype} on {q.device}, got "
+                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    dq = torch.empty_like(q)  # q's strides where q is dense (a view of it otherwise)
+    dq4 = _view4(dq)
+    dk = torch.empty((b, g, t, d), device=q.device, dtype=k.dtype)
+    dv = torch.empty((b, g, t, d), device=q.device, dtype=v.dtype)
+    m = (mask if mask.dtype in (torch.bool, torch.uint8) else mask.to(torch.uint8)).contiguous()
+    fn = KERNEL.load().xmc_cross_attention_bwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), g4.data_ptr(),
+                dq4.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, g, n, t, d, *q4.stride(),
+                *k4.stride(), *v4.stride(), *g4.stride(), *dq4.stride(), scale,
+                _DTYPE_CODE[q.dtype], p.dmax, p.threads, p.blocks, p.smem, stream)
+    if rc != 0:
+        raise RuntimeError(f"cross_attention backward launch failed ({p}): CUDA error {rc}")
+    BACKWARD.launches += 1
+    return dq, dk.view(k.shape), dv.view(v.shape)
+
+
+class _MaskedCrossAttention(torch.autograd.Function):
+    """The forward launch, differentiable once through ``attn_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.scale = scale
+        return _launch(q, k, v, mask, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, mask = ctx.saved_tensors
+        return (*_launch_bwd(q, k, v, mask, dout, ctx.scale), None, None)
+
+
 def masked_cross_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   mask: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """Masked cross-attention (see the module docstring): the planned CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel on CUDA tensors (differentiable through ``attn_bwd`` when autograd
+    is on), the plain version on CPU tensors."""
     _check(q, k, v, mask)
     if q.device.type == "cpu":
         return masked_cross_attention_ref(q, k, v, mask, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "masked_cross_attention has no backward (the Pallas kernel has none); the "
-            "attention kernel's backward comes with the word-attention training slice")
+        q4 = _view4(q)
+        plan_bwd(*q4.shape[:3], k.shape[-2], q.shape[-1], q.dtype)  # refuses before any launch
+        return _MaskedCrossAttention.apply(q, k, v, mask, float(scale))
     return _launch(q, k, v, mask, float(scale))

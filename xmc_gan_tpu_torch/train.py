@@ -12,8 +12,10 @@ One call of the step reproduces the JAX package's ``train_step``
 3. **MAGP update** — the gradient penalty at the post-update D, a second
    Adam step on the same optimizer state.
 4. **G update** — every ``N_CRITIC`` steps: non-saturating loss + sentence,
-   word-region and real-fake image InfoNCE against the twice-updated D.
-   Gradients reach ``G.proj_sent`` through D's conditioning.
+   word-region and real-fake image InfoNCE against the twice-updated D, and
+   with ``ENCODER_LOSS.VGG`` the image-image InfoNCE over frozen VGG-19
+   features (``models/vgg.py``; the step's 4th argument).  Gradients reach
+   ``G.proj_sent`` through D's conditioning.
 
 ``psent`` (G's sentence projection; the raw sentence with ``DISC.SEPERATE``,
 ``xmc_gan_tpu/train.py:253-256``) conditions D detached; the fake image is
@@ -151,18 +153,19 @@ def _adam_step(opt: torch.optim.Adam, loss: torch.Tensor, params: list) -> None:
 
 
 def make_train_step(cfg: Config, word_block_elems: int | None = None,
-                    spectral_iters: int = 1) -> Callable[[TrainState, dict, Any], dict]:
-    """The step ``train_step(state, batch, noise) -> metrics`` for ``cfg``.
+                    spectral_iters: int = 1) -> Callable[..., dict]:
+    """The step ``train_step(state, batch, noise, vgg=None) -> metrics`` for ``cfg``.
 
     ``batch`` holds ``imgs`` ``[B, H, W, 3]`` (uint8, normalized on the
     device, or float in [-1, 1]), ``sent_embs`` ``[B, E]`` and, with
     ``ENCODER_LOSS.WORD``, ``words_embs`` ``[B, T, E]`` and ``mask`` ``[B, T]``
     (True = padded word), as numpy arrays or tensors; ``noise`` is
-    ``[B, NOISE_DIM]``.  Everything runs on the state's device in the
-    models' activation dtype; the word-score products take bf16 operands when
-    that dtype is bf16.  ``word_block_elems`` overrides
-    ``losses.WORD_LOSS_BLOCK_ELEMS`` (0 sends every word-score call on the
-    card to the fused kernels).  The metrics are 0-d tensors on the device,
+    ``[B, NOISE_DIM]``; ``vgg`` is the frozen ``models.vgg.VGG19Features``
+    that ``ENCODER_LOSS.VGG`` needs (``ValueError`` without it).  Everything
+    runs on the state's device in the models' activation dtype; the
+    word-score products take bf16 operands when that dtype is bf16.
+    ``word_block_elems`` overrides ``losses.WORD_LOSS_BLOCK_ELEMS`` (0 sends
+    every word-score call on the card to the fused kernels).  The metrics are 0-d tensors on the device,
     with the JAX step's keys.
 
     Building the step turns TF32 off once, process-wide, so fp32 runs on the
@@ -175,10 +178,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             "ENCODER_LOSS.SENT requires DISC.SENT_MATCH or DISC.IMG_MATCH (the reference "
             "asserts this, train_gan.py:217): the sentence contrastive loss needs image "
             "and sentence features projected into a shared space")
-    if el.VGG:
-        raise NotImplementedError("ENCODER_LOSS.VGG is not ported yet; it comes with the "
-                                  "VGG perceptual-loss slice")
-    use_labels = el.SENT or el.WORD or el.DISC
+    use_labels = el.SENT or el.WORD or el.DISC or el.VGG
     block_elems = losses.WORD_LOSS_BLOCK_ELEMS if word_block_elems is None else word_block_elems
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -192,7 +192,11 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
     def project_sent(g: nn.Module, sent: torch.Tensor) -> torch.Tensor:
         return sent if cfg.DISC.SEPERATE else g.project_sent(sent)
 
-    def train_step(state: TrainState, batch: dict, noise: Any) -> dict:
+    def train_step(state: TrainState, batch: dict, noise: Any,
+                   vgg: nn.Module | None = None) -> dict:
+        if el.VGG and vgg is None:
+            raise ValueError("ENCODER_LOSS.VGG is on: pass the frozen VGG-19 as the step's "
+                             "4th argument (models.vgg.make_vgg)")
         g, d = state.g, state.d
         if el.WORD and getattr(d, "region_proj", None) is None:
             raise NotImplementedError(
@@ -255,7 +259,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
 
         # ------------------------------------------------------- G update
         do_g = (state.step + 1) % t.N_CRITIC == 0
-        errG, gs_loss, gs_word, disc_loss = zero, zero, zero, zero
+        errG, gs_loss, gs_word, disc_loss, vgg_loss = zero, zero, zero, zero, zero
         if do_g:
             fake_g = g(noise, sent, words, mask)
             psent_g = project_sent(g, sent)
@@ -279,6 +283,14 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
                                             avg_pool(feats, 4).reshape(bs, -1), labels,
                                             el.B_GLOBAL, t.SMOOTH.GLOBAL)
                 enc_loss = enc_loss + t.SMOOTH.DISC * disc_loss
+            if el.VGG:
+                # image-image InfoNCE over the frozen VGG features, added
+                # unweighted as in the JAX step
+                with torch.no_grad():
+                    vgg_real = vgg(imgs)
+                vgg_loss = losses.img_loss(vgg_real, vgg(fake_g), labels, el.B_GLOBAL,
+                                           t.SMOOTH.GLOBAL)
+                enc_loss = enc_loss + vgg_loss
             errG = losses.generator_loss(match) + enc_loss
             _adam_step(state.g_opt, errG, list(g.parameters()))
         state.step += 1
@@ -295,6 +307,8 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
         }
         if el.WORD:
             metrics["ds_word"], metrics["gs_word"] = ds_word, gs_word
+        if el.VGG:
+            metrics["vgg_loss"] = vgg_loss
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step

@@ -35,6 +35,11 @@ asked).  Where the port differs from the JAX ``Trainer``:
   (``{profile_dir}/trace.json``, a Chrome trace).
 * Data parallelism (``mesh``) raises ``NotImplementedError``: it comes with
   the data-parallel slice.
+* ``ENCODER_LOSS.VGG``'s frozen VGG-19 (``models/vgg.make_vgg``) reads
+  ``VGG_WEIGHTS_PATH`` (the JAX CLI's ``convert-vgg-weights`` ``.npz``, or a
+  torchvision ``vgg19`` ``.pth``) as the JAX trainer does; without it, a
+  seeded random init from a ``torch.Generator`` (not the JAX package's
+  draw), which the log reports.
 * SENT (SBERT) configs pool token embeddings from a seeded table with
   ``synthetic`` (a ``torch.Generator`` draw, not the JAX package's) and from
   the dataset's ``sbert_cache_{mode}.npz`` otherwise (``make_encode_fn``).
@@ -42,6 +47,7 @@ asked).  Where the port differs from the JAX ``Trainer``:
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import signal
@@ -60,6 +66,7 @@ from xmc_gan_tpu_torch.data.pipeline import (
 )
 from xmc_gan_tpu_torch.data.text_encode import SbertCache
 from xmc_gan_tpu_torch.device import resolve_device, to_device
+from xmc_gan_tpu_torch.models.vgg import make_vgg
 from xmc_gan_tpu_torch.registry import get_dataset, get_text_encoder
 from xmc_gan_tpu_torch.train import create_train_state, make_sample_fn, make_train_step
 from xmc_gan_tpu_torch.utils.checkpoint import CheckpointManager
@@ -272,7 +279,12 @@ class Trainer:
         self.logger.info(f"netD # of parameters: {count_params(self.state.d)}")
         # spectral_iters=1 is the JAX package's default cadence; 5 is the
         # reference's per-forward count
-        self.step_fn = make_train_step(cfg, spectral_iters=spectral_iters)
+        step_fn = make_train_step(cfg, spectral_iters=spectral_iters)
+        # the frozen VGG-19 of ENCODER_LOSS.VGG (VGG_WEIGHTS_PATH, .npz or
+        # .pth; a seeded random init without it), bound into every step
+        self.vgg = (make_vgg(dtype, self.device, log=self.logger.info)
+                    if cfg.TRAIN.ENCODER_LOSS.VGG else None)
+        self.step_fn = step_fn if self.vgg is None else functools.partial(step_fn, vgg=self.vgg)
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self._multi_step_calls = 0  # full windows of K > 1 steps run
 

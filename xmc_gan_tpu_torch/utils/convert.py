@@ -38,6 +38,7 @@ __all__ = [
     "concept_discriminator_state_dict",
     "train_state_from_jax",
     "inception_state_dict_from_jax",
+    "vgg_state_dict_from_jax",
 ]
 
 
@@ -315,4 +316,25 @@ def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, tor
 
     walk(variables["params"], (), False)
     walk(variables.get("batch_stats", {}), (), True)
+    return sd
+
+
+def vgg_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``VGG19Features`` variables (``{"params": {"conv{i}": {"kernel",
+    "bias"}}}``, numpy trees; also what the JAX CLI's ``convert-vgg-weights``
+    writes as ``.npz``) -> the port's ``models.vgg.VGG19Features`` names,
+    which are torchvision's: dense conv index ``i`` -> ``features.{j}`` at
+    the ``i``-th conv of the tower, kernel HWIO -> weight OIHW."""
+    from xmc_gan_tpu_torch.models.vgg import VGG19_CFG
+
+    slots, j = [], 0
+    for v in VGG19_CFG:  # a conv is followed by its ReLU, a pool stands alone
+        if v != "M":
+            slots.append(j)
+        j += 1 if v == "M" else 2
+    sd: dict[str, torch.Tensor] = {}
+    for name, node in variables["params"].items():
+        j = slots[int(name.removeprefix("conv"))]
+        sd[f"features.{j}.weight"] = _t(np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1))
+        sd[f"features.{j}.bias"] = _t(np.asarray(node["bias"], np.float32))
     return sd
