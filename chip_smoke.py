@@ -60,14 +60,19 @@ Phases (any failure raises, and the exit code is then non-zero):
    MAGP through ``CONCEPT_NETD`` launches) at D's four, fp32 and bf16, the
    vectors in x's dtype, and the double backward in fp32 against fp64
    autograd of the plain epilogue (``BWD2_FP64_SHAPE``); the
-   ``cross_attention`` backward (``attn_bwd``, the port's own) against
+   ``cross_attention`` backward (the port's own: ``attn_bwd_warp`` up to
+   32 words and D = 4, ``attn_bwd`` past them) against
    ``masked_cross_attention_bwd_ref``, fp32 and bf16, at every distinct In
    and Out shape of the 64² word-attention train step (batch 88, the In
-   queries as rows and as planes) and ``ATTN_BWD_EXTRA`` (a ragged T, T =
-   200, the widest plan, fully padded rows: zero gradients), through
-   autograd with dO as the upstream op hands it over (dense from the In
-   sampler's mean, a strided slice from the Out block's concatenation),
-   two runs bit-equal, each launch's kernel the one ``plan_bwd`` names.
+   queries as rows and as planes), ``ATTN_BWD_WARP_EDGES`` (T = 1, 20 and
+   32, N = 1, 33 and 77, D = 3, queries 30 times as long) and
+   ``ATTN_BWD_EXTRA`` (``attn_bwd``'s: T = 200, D = 12 at T = 33, the
+   widest plan), fully padded rows (zero gradients) and one-word rows
+   (exactly zero dq and dk),
+   through autograd with dO as the upstream op hands it over (dense from
+   the In sampler's mean, a strided slice from the Out block's
+   concatenation), two runs bit-equal, each launch's kernel the one
+   ``plan_bwd`` names.
 4. On the card against the CPU, fp32 with TF32 off, on the same seeded,
    perturbed weights and numpy inputs: (a) the serving slice (DAMSM encoder
    + NetG at 256², NCH=32, batch 4), (b) the train slice (NCH=8, 64², batch
@@ -263,7 +268,7 @@ KERNEL_PATTERN = {"fused_affine.forward": r"fused_affine_(vec|scalar)<",
                   "damsm_score.forward": r"damsm_fwd", "damsm_score.d_regions": r"damsm_bwd_dr",
                   "damsm_score.d_words": r"damsm_bwd_dw",
                   "cross_attention.forward": r"attn_(small|wide|grouped)<",
-                  "cross_attention.backward": r"attn_bwd<"}
+                  "cross_attention.backward": r"attn_bwd(_warp)?<"}
 # launches of one flagship_word train step
 STEP_LAUNCHES = {"fused_affine.forward": 28, "fused_affine.backward": 14,
                  "fused_affine.double_backward": 0,
@@ -340,18 +345,36 @@ ATTN_EXTRA = [(BATCH, 1, 16, 15, 4, False, False), (2, 1, 300, 260, 32, False, F
 # cross_attention backward vs plain (``ca.masked_cross_attention_bwd_ref``),
 # each gradient to rtol and to atol times its largest magnitude.  fp32: the
 # same math in another order (scores in log2 units through exp2, dk and dv
-# summed over up to 4,096 queries in tile order against PyTorch's einsum):
-# (1e-4, 1e-5).  bf16: both compute in fp32 and round once on store, so one
-# bf16 ulp where the two fp32 results straddle a rounding boundary.
+# summed over up to 4,096 queries in batch and warp order against PyTorch's
+# einsum): (1e-4, 1e-5).  bf16: both compute in fp32 and round once on
+# store, so one bf16 ulp where the two fp32 results straddle a rounding
+# boundary.
 ATTN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (BF16_ULP, 1e-5)}
-# (B, G, N, T, D, layout, fully padded row, upstream): the backward's shapes
-# past the 64² step's own (``attention_shapes``, whose In launches go as rows
-# and as planes): a ragged T with N no multiple of a tile, the planes at
-# N = 80, T = 200 with the sampler's keys, D = 12 at T = 33, the widest plan
-# (T = 256, D = 32: 209 KB of shared memory) and T = 200 at the Out shape.
-# upstream: how dO reaches the kernel, "mean" through the In sampler's mean
-# over the queries (dense), "cat" through the Out block's concatenation (a
-# strided slice)
+# (B, G, N, T, D, layout, fully padded row, upstream[, query norm]): the
+# backward's shapes past the 64² step's own (``attention_shapes``, whose In
+# launches go as rows and as planes).  upstream: how dO reaches the kernel,
+# "mean" through the In sampler's mean over the queries (dense), "cat"
+# through the Out block's concatenation (a strided slice).  Row 1 of every
+# shape has one real word.  attn_bwd_warp's edges: T = 1 (every row one
+# word or none), T = 20 and 32 (TMAX 32: its slots in steps of 4, more
+# than 32 dS and P rows at T = 32), N = 1, N = 33 (a second warp with one
+# query) and 77 (a ragged vector of four queries as planes), D = 3 (every
+# operand a value at a time), the Out shape at N = 33, and queries 30 times
+# as long at the In and Out shapes (scores up to ~30 in log2 units and more:
+# the exact maximum matters)
+ATTN_BWD_WARP_EDGES = [(3, 16, 77, 1, 4, "planes", True, "mean"),
+                       (3, 16, 300, 20, 4, True, True, "mean"),
+                       (2, 16, 130, 32, 4, "sampler", True, "mean"),
+                       (4, 16, 1, 15, 4, "planes", True, "mean"),
+                       (3, 16, 33, 15, 4, "planes", True, "mean"),
+                       (3, 2, 50, 15, 3, False, True, "cat"),
+                       (88, 1, 33, 15, 4, False, True, "cat"),
+                       (4, 16, 1024, 15, 4, "planes", True, "mean", 30.0),
+                       (88, 1, 16, 15, 4, False, True, "cat", 30.0)]
+# then a ragged T (7) with N no multiple of a tile and the planes at N = 80
+# (attn_bwd_warp's), and attn_bwd's own: T = 200 with the sampler's keys,
+# D = 12 at T = 33, the widest plan (T = 256, D = 32: 209 KB of shared
+# memory) and T = 200 at the Out shape
 ATTN_BWD_EXTRA = [(3, 16, 77, 7, 4, True, True, "mean"), (3, 16, 80, 15, 4, "planes", True, "mean"),
                   (2, 16, 300, 200, 4, "sampler", True, "mean"),
                   (3, 1, 50, 33, 12, False, True, "cat"), (2, 1, 100, 256, 32, False, True, "cat"),
@@ -1258,19 +1281,21 @@ def upstream_loss(out: torch.Tensor, upstream: str, gen) -> torch.Tensor:
 
 
 def check_attention_bwd(step_in, step_out) -> dict:
-    """Phase 3, the cross_attention backward (``attn_bwd``): at the distinct
-    In shapes of the 64² train step (queries as rows and as planes), its Out
-    shape and ``ATTN_BWD_EXTRA``, fp32 and bf16, keys passed as the values
-    as both samplers do.  Through autograd (``masked_cross_attention_kernel``
-    under grad: one backward launch, dO as the upstream op hands it over),
-    then the kernel alone on that dO twice (bit-equal) against the plain
-    version; autograd's q and k gradients are the kernel's dq and dk + dv;
-    a fully padded row gets zero gradients; dq has q's strides; the
-    profiler sees the kernel ``plan_bwd`` names at every launch."""
+    """Phase 3, the cross_attention backward (``attn_bwd_warp``,
+    ``attn_bwd``): at the distinct In shapes of the 64² train step (queries
+    as rows and as planes), its Out shape, ``ATTN_BWD_WARP_EDGES`` and
+    ``ATTN_BWD_EXTRA``, fp32 and bf16, keys passed as the values as both
+    samplers do.  Through autograd (``masked_cross_attention_kernel`` under
+    grad: one backward launch, dO as the upstream op hands it over), then the
+    kernel alone on that dO twice (bit-equal) against the plain version;
+    autograd's q and k gradients are the kernel's dq and dk + dv; a fully
+    padded row gets zero gradients, a one-word row (row 1) exactly zero dq
+    and dk; dq has q's strides; the profiler sees the kernel ``plan_bwd``
+    names at every launch."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     shapes = [(*s, layout, False, "mean") for s in sorted(set(step_in)) for layout in (True, "planes")]
     shapes += [(*s, False, False, "cat") for s in sorted(set(step_out))]
-    shapes += ATTN_BWD_EXTRA
+    shapes += ATTN_BWD_WARP_EDGES + ATTN_BWD_EXTRA
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         rtol, frac = ATTN_BWD_TOL[dtype]
@@ -1278,6 +1303,11 @@ def check_attention_bwd(step_in, step_out) -> dict:
         calls, planned, douts = [], [], []
         for shape in shapes:
             q, k, _, mask = attention_inputs(shape, dtype, gen, shape[6])
+            if len(shape) > 8:
+                q.mul_(shape[8])  # in place: q keeps its layout
+            if mask.shape[0] > 1:  # row 1: one real word
+                mask[1] = True
+                mask[1, 0] = False
             qg, kg = q.detach().requires_grad_(), k.detach().requires_grad_()
             seen = {}
             before = ca.BACKWARD.launches
@@ -1304,6 +1334,10 @@ def check_attention_bwd(step_in, step_out) -> dict:
                 if shape[6] and not (bool((a[0] == 0).all()) and bool((w[0] == 0).all())):
                     raise AssertionError(f"cross_attention backward {shape} {name}: a fully "
                                          "padded row got a gradient")
+                if name != "dv" and mask.shape[0] > 1 and not (
+                        bool((a[1] == 0).all()) and bool((w[1] == 0).all())):
+                    raise AssertionError(f"cross_attention backward {shape} {name}: a one-word "
+                                         "row's gradient is not exactly 0")
             if not (torch.equal(qg.grad, got[0]) and torch.equal(kg.grad, got[1] + got[2])):
                 raise AssertionError(f"cross_attention backward {shape}: autograd's gradients "
                                      "are not the kernel's")
@@ -1325,8 +1359,10 @@ def check_attention_bwd(step_in, step_out) -> dict:
                                  f"{seen_names}, planned {planned}")
         errs[dtype] = worst
         log(f"[3] cross_attention backward {DTYPE_NAME[dtype]}: max_abs_err {worst:.3g} over "
-            f"{len(shapes)} shapes (B, G, N, T, D, layout, padded row, upstream), two runs "
-            f"bit-equal, the kernels plan_bwd names {sorted(set(planned))} by the profiler; dO "
+            f"{len(shapes)} shapes (B, G, N, T, D, layout, padded row, upstream[, query norm]), "
+            f"two runs bit-equal, one-word rows' dq and dk exactly 0, the kernels plan_bwd names "
+            f"{sorted(set(planned))} by the profiler, each shape's "
+            f"{list(zip(shapes, planned))}; dO "
             f"as autograd hands it over (upstream, strides, contiguous): {sorted(set(douts))} "
             f"(tolerance rtol {rtol:g}, atol {frac:g} of each gradient's largest magnitude)")
         del calls
@@ -2600,8 +2636,9 @@ def attention_rows(in_shapes, out_shapes, errs, launches, own_ms) -> list[dict]:
 
 
 def attention_bwd_rows(errs, launches, own_ms) -> list[dict]:
-    """Phase 7, the cross_attention backward (``attn_bwd``): the 6 In and the
-    6 Out launches of one 64² word-attention step's G update (batch 88), per
+    """Phase 7, the cross_attention backward (``attn_bwd_warp``, the kernel
+    ``plan_bwd`` names at every shape of the step): the 6 In and the 6 Out
+    launches of one 64² word-attention step's G update (batch 88), per
     dtype: kernel vs plain vs SDPA's forward and backward (a yardstick on the
     same inputs, every row with a real word; used nowhere in the port) vs
     bound.  Bytes: q and dO read, dq written, k (passed as v) read once, dk

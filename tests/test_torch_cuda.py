@@ -816,10 +816,16 @@ def test_cross_attention_refuses_grad_on_card(cuda_device):
 ATTN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (BF16_ULP, 1e-5)}
 # the 64² step's In shapes (batch cut to 4) as rows and as planes, its Out
 # shape, and the plan's edges: a ragged T, D = 12 at T = 33, T = 200 and the
-# widest plan (T = 256, D = 32)
+# widest plan (T = 256, D = 32) on attn_bwd; on attn_bwd_warp T = 1, 20 and
+# 32 (TMAX 32: more than 32 P and dS rows), N = 1, N = 33 (a second warp
+# with one query) and N = 77 as planes (a ragged vector of four queries), and
+# D = 3 (every operand read a value at a time)
 ATTN_BWD_SHAPES = [(4, 16, n, 15, 4, lay) for n in (256, 1024, 4096) for lay in (True, "planes")] + [
     (88, 1, 16, 15, 4, False), (3, 16, 77, 7, 4, "sampler"), (3, 1, 50, 33, 12, False),
-    (2, 16, 300, 200, 4, "sampler"), (2, 1, 100, 256, 32, False)]
+    (2, 16, 300, 200, 4, "sampler"), (2, 1, 100, 256, 32, False),
+    (5, 16, 77, 1, 4, "planes"), (4, 16, 300, 20, 4, True), (4, 16, 130, 32, 4, "sampler"),
+    (4, 16, 1, 15, 4, False), (4, 16, 33, 15, 4, "planes"), (4, 16, 77, 15, 4, "planes"),
+    (4, 2, 50, 15, 3, False)]
 
 
 def _bwd_case(device, shape, dtype, seed):
@@ -835,22 +841,48 @@ def _bwd_case(device, shape, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", ATTN_BWD_SHAPES, ids=str)
 def test_cross_attention_backward_matches_plain_on_card(cuda_device, dtype, shape):
-    """attn_bwd against ``masked_cross_attention_bwd_ref``, k passed as v;
-    fully padded rows (0, 3, ...) get zero gradients; two launches give
+    """The planned backward kernel against ``masked_cross_attention_bwd_ref``,
+    k passed as v; fully padded rows (0, 3, ...) get zero gradients,
+    one-word rows (1, 4, ...) exactly zero dq and dk; two launches give
     equal bits; dq has q's strides."""
     q, k, mask, dout = _bwd_case(cuda_device, shape, dtype, 13)
+    _assert_bwd_matches_plain(q, k, mask, dout, dtype)
+
+
+def _assert_bwd_matches_plain(q, k, mask, dout, dtype):
+    before = ca.BACKWARD.launches
     got = ca._launch_bwd(q, k, k, mask, dout, 0.7)
     again = ca._launch_bwd(q, k, k, mask, dout, 0.7)
     want = ca.masked_cross_attention_bwd_ref(q, k, k, mask, dout, 0.7)
     torch.cuda.synchronize()
+    assert ca.BACKWARD.launches == before + 2
     rtol, frac = ATTN_BWD_TOL[dtype]
-    for a, b_, w in zip(got, again, want):
-        assert a.dtype == dtype and a.shape == w.shape and torch.equal(a, b_)
+    lens = (~mask).sum(dim=1)
+    for name, a, b_, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape and torch.equal(a, b_), name
         torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
                                    atol=frac * w.float().abs().max().item())
-        for i in range(0, shape[0], 3):
-            assert bool((a[i] == 0).all()) and bool((w[i] == 0).all())
+        for i in range(q.shape[0]):
+            if lens[i] == 0 or (lens[i] == 1 and name != "dv"):
+                assert bool((a[i] == 0).all()) and bool((w[i] == 0).all()), (name, i)
     assert got[0].stride() == q.stride()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(88, 1, 16, 15, 4, False), (4, 16, 1024, 15, 4, "planes"),
+                                   (4, 16, 300, 20, 4, True)], ids=str)
+def test_cross_attention_backward_large_norm_and_sliced_upstream(cuda_device, dtype, shape):
+    """Queries of norm ~30 (scores up to ~30 x 0.7 |k|: the exact maximum
+    matters) and dO a slice of a wider gradient, as the Out block's
+    concatenation hands it over (rows at an n-stride of 360, offset 356)."""
+    q, k, mask, _ = _bwd_case(cuda_device, shape, dtype, 17)
+    q = (q.float() * 15.0).to(dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    wide = torch.randn((*q.shape[:-1], 360), generator=gen, device=cuda_device).to(dtype)
+    dout = wide[..., 356:]
+    assert not dout.is_contiguous()
+    _assert_bwd_matches_plain(q, k, mask, dout, dtype)
 
 
 @pytest.mark.cuda
@@ -872,20 +904,72 @@ def test_cross_attention_trains_through_the_backward_kernel(cuda_device, dtype):
     assert torch.equal(qg.grad, dq) and torch.equal(kg.grad, dk + dv)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 16, 300, 15, 4, "planes"), (3, 16, 130, 32, 4, True),
+                                   (88, 1, 16, 15, 4, False), (3, 2, 50, 15, 3, False)], ids=str)
+def test_cross_attention_backward_with_values_apart_from_keys(cuda_device, dtype, shape):
+    """Values that are not the keys (the samplers pass the keys as the
+    values; ``attn_bwd_warp`` then reads a word once): the same checks as
+    above, dk and dv each against the plain version."""
+    q, k, mask, dout = _bwd_case(cuda_device, shape, dtype, 19)
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    v = torch.randn(k.shape, generator=gen, device=cuda_device).to(dtype)
+    got = ca._launch_bwd(q, k, v, mask, dout, 0.7)
+    again = ca._launch_bwd(q, k, v, mask, dout, 0.7)
+    want = ca.masked_cross_attention_bwd_ref(q, k, v, mask, dout, 0.7)
+    torch.cuda.synchronize()
+    rtol, frac = ATTN_BWD_TOL[dtype]
+    for a, b_, w in zip(got, again, want):
+        assert torch.equal(a, b_)
+        torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
+                                   atol=frac * w.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 16, 300, 15, 4, "planes"), (3, 16, 77, 32, 4, True),
+                                   (88, 1, 16, 15, 4, False), (3, 1, 50, 40, 4, False)], ids=str)
+def test_cross_attention_backward_with_scattered_padding(cuda_device, dtype, shape):
+    """Padded words anywhere in a caption, not only at its end: each row's
+    real words are compacted in order (row 0 all padded, row 1 one real word
+    in the middle, the rest every third word padded)."""
+    q, k, _, dout = _bwd_case(cuda_device, shape, dtype, 21)
+    b, t = shape[0], shape[3]
+    words, rows = torch.arange(t, device=cuda_device), torch.arange(b, device=cuda_device)
+    mask = (words[None, :] + rows[:, None]) % 3 == 0
+    mask[0] = True
+    mask[1] = True
+    mask[1, t // 2] = False
+    got = ca._launch_bwd(q, k, k, mask, dout, 0.7)
+    want = ca.masked_cross_attention_bwd_ref(q, k, k, mask, dout, 0.7)
+    torch.cuda.synchronize()
+    rtol, frac = ATTN_BWD_TOL[dtype]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
+                                   atol=frac * w.float().abs().max().item())
+        assert bool((a[0] == 0).all()), name
+        if name != "dv":
+            assert bool((a[1] == 0).all()), name
+
+
 def _traced_attention_backward_kernels() -> list:
-    """For each dtype and a shape of each D bound: the kernel ``plan_bwd``
-    names and the backward kernels of a whole trace of one launch."""
+    """For each dtype and a shape of each template: the kernel ``plan_bwd``
+    names and the backward kernels of a whole trace of one launch
+    (``attn_bwd_warp`` at TMAX 16 and 32, ``attn_bwd`` at T = 33 and at each
+    D bound past 4)."""
     device = torch.device("cuda")
     ca.KERNEL.load()
     out = []
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((2, 16, 1024, 15, 4, "planes"), (2, 1, 64, 20, 8, False),
+        for shape in ((2, 16, 1024, 15, 4, "planes"), (2, 1, 16, 20, 4, False),
+                      (2, 1, 64, 33, 4, False), (2, 1, 64, 20, 8, False),
                       (2, 1, 64, 20, 32, False)):
             q, k, mask, dout = _bwd_case(device, shape, dtype, 15)
             ca._launch_bwd(q, k, k, mask, dout, 1.0)
             torch.cuda.synchronize()
             seen = device_kernels(lambda: ca._launch_bwd(q, k, k, mask, dout, 1.0),
-                                  expect={r"attn_bwd<": 1})[0]
+                                  expect={r"attn_bwd(_warp)?<": 1})[0]
             q4 = q if q.dim() == 4 else q.unsqueeze(1)
             p = ca.plan_bwd(*q4.shape[:3], shape[3], shape[4], dtype)
             out.append((ca.bwd_kernel_name(p, dtype),
@@ -904,7 +988,9 @@ def test_cross_attention_backward_launches_the_planned_kernel(cuda_device):
     proc = subprocess.run([sys.executable, "-c", code, str(tests.parent), str(tests)],
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    for want, names in json.loads(proc.stdout.strip().splitlines()[-1]):
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [w.split("<")[0] for w, _ in got[:5]] == ["attn_bwd_warp"] * 2 + ["attn_bwd"] * 3
+    for want, names in got:
         assert names and all(want in nm for nm in names), (want, names)
 
 

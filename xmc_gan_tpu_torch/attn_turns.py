@@ -1,7 +1,7 @@
 """The cross_attention kernels at the In sampler's shapes on the card, one tree or several in turns.
 
     python -m xmc_gan_tpu_torch.attn_turns [--trees DIR ...] [--rounds R] [--suspects]
-                                           [--sass] [--out FILE]
+                                           [--bwd] [--words] [--sass] [--out FILE]
 
 Each tree is a checkout of this repository (default: this one).  For each, a
 child process whose working directory and first import path is the tree
@@ -25,6 +25,22 @@ queries as rows,
 and, as a yardstick of the bytes alone, a ``clone`` of the dense queries
 (the same bytes read and written once).
 
+``--bwd`` times the backward instead: the 6 In and the 6 Out backward
+launches of one 64² word-attention train step (``concept_in_df_gan.yml``,
+batch 88, T = 15; ``chip_smoke.attention_bwd_calls``' inputs: In, the
+queries as planes, the keys ``[B, G, D, T]`` in memory, dO dense; Out, dO a
+slice of the ``[B, 16, 360]`` condition's gradient) through each tree's
+``_launch_bwd``, each launch after an L2 flush (a 256 MB fill), from whole
+traces: the kernels' device time per launch (median over ``--iters``) and
+their sum per set, beside the 6 launches timed back to back with CUDA
+events.
+
+``--words`` times the backward's N = 4,096 In launch of that step alone
+(the same inputs) with every caption 0, 8 and 15 words long, with the
+step's mixed lengths (uniform in 1..15) and with those lengths sorted over
+the rows, and with values apart from the keys: how the time follows the
+real words, the rows' mix and the keys passed as the values.
+
 ``--sass`` builds the first two trees' ``csrc/cross_attention.cu`` and
 compares the SASS of every kernel the first tree's build has with the
 second's.
@@ -44,6 +60,9 @@ from xmc_gan_tpu_torch.turns import Record, in_turns, parser, sass
 # (models.concept_gan.attention_shapes; fixed here so every tree times the same)
 IN_SHAPES = [(128, 16, n, 15, 4) for n in (256, 1024, 1024, 4096, 4096, 16384, 16384,
                                             65536, 65536, 65536)]
+# the backward launches of one 64² word-attention train step at batch 88
+BWD_SHAPES = {"in": [(88, 16, n, 15, 4) for n in (256, 1024, 1024, 4096, 4096, 4096)],
+              "out": [(88, 1, 16, 15, 4)] * 6, "words": [(88, 16, 4096, 15, 4)]}
 
 CHILD = r"""
 import torch
@@ -99,16 +118,99 @@ print(json.dumps(out))
 """
 
 
+BWD_CHILD = r"""
+import statistics, sys
+import torch
+from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
+
+iters = args["iters"]
+ca.KERNEL.load()
+norm = torch.nn.functional.normalize
+flush = torch.empty(2**26, device="cuda")  # 256 MB: more than the L2 holds
+pattern = "attn_bwd"
+
+
+def calls(which, dtype, gen):
+    out = []
+    for b, g, n, t, d in args["shapes"][which]:
+        if which != "out":
+            q = norm(torch.randn(b, n, g, d, generator=gen, device="cuda"), dim=-1).to(dtype)
+            k = norm(torch.randn(b, t, g, d, generator=gen, device="cuda"), dim=-1).to(dtype)
+            q = q.permute(0, 2, 3, 1).contiguous().transpose(2, 3)  # planes, [B, G, D, N]
+            k = k.permute(0, 2, 3, 1).contiguous().transpose(2, 3)  # [B, G, D, T] in memory
+            dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        else:  # the Out block's [B, 16, D] states
+            q = torch.randn(b, n, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(b, t, d, generator=gen, device="cuda").to(dtype)
+            dout = torch.randn((b, n, 356 + d), generator=gen, device="cuda").to(dtype)[..., 356:]
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        mask = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+        out.append((q, k, mask, dout))
+    return out
+
+
+def timed(cs, values=None):
+    # the launches back to back (CUDA events), then each launch's device time
+    # after an L2 flush, iters times in launch order, from a whole trace
+    one = lambda c: ca._launch_bwd(c[0], c[1], c[1] if values is None else values, c[2], c[3],
+                                   1.0)
+    ms = profiling.cuda_ms(lambda: [one(c) for c in cs], iters)
+    seen = profiling.device_kernels(
+        lambda: [(flush.zero_(), one(c)) for _ in range(iters) for c in cs],
+        expect={pattern: iters * len(cs)})[0]
+    return ms, [x["ms"] for x in seen if pattern in x["name"]], seen
+
+
+out = {}
+if args["words"]:
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        (q, k, mask, dout), = calls("words", dtype, torch.Generator(device="cuda").manual_seed(16))
+        b, t = mask.shape
+        lens = (~mask).sum(1)
+        for label in ("0", "8", "15", "mixed", "mixed sorted", "mixed, values apart"):
+            if label[0].isdigit():
+                n_words = torch.full((b,), int(label), device="cuda")
+            else:
+                n_words = lens.sort(descending=True).values if "sorted" in label else lens
+            m = torch.arange(t, device="cuda")[None, :] >= n_words[:, None]
+            ms, times, _ = timed([(q, k, m, dout)], k.clone() if "apart" in label else None)
+            out[f"{name} {label}"] = {"kernel_ms": statistics.median(times), "events_ms": ms}
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    sys.exit(0)
+for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+    for which in ("in", "out"):
+        cs = calls(which, dtype, torch.Generator(device="cuda").manual_seed(16))
+        ms, times, seen = timed(cs)
+        per_launch = {f"{i}: N={s[2]}": statistics.median(times[i::len(cs)])
+                      for i, s in enumerate(args["shapes"][which])}
+        out[f"{name} {which}"] = {"kernel_ms": sum(per_launch.values()), "events_ms": ms,
+                                  "kernels": sorted({x["name"][x["name"].index(pattern):]
+                                                     .split("(")[0] for x in seen
+                                                     if pattern in x["name"]}),
+                                  "per_launch_ms": per_launch}
+        del cs
+        torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
 def main() -> int:
     ap = parser(__doc__, iters=5)
     ap.add_argument("--suspects", action="store_true")
+    ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--words", action="store_true")
     args = ap.parse_args()
     trees = [t.resolve() for t in args.trees]
     record = Record(trees, args.out)
     if args.sass:
         record.add("sass", sass(trees, "cross_attention.cu"))
-    in_turns(trees, args.rounds, CHILD,
-             {"shapes": IN_SHAPES, "suspects": args.suspects, "iters": args.iters}, record)
+    if args.bwd or args.words:
+        in_turns(trees, args.rounds, BWD_CHILD,
+                 {"shapes": BWD_SHAPES, "iters": args.iters, "words": args.words}, record)
+    else:
+        in_turns(trees, args.rounds, CHILD,
+                 {"shapes": IN_SHAPES, "suspects": args.suspects, "iters": args.iters}, record)
     return 0
 
 

@@ -13,10 +13,10 @@
 // are kept in log2 units (scale * log2(e) folded into q or k) and padded
 // words are skipped, so their values never enter.
 //
-// Three forward kernels and one backward (attn_bwd); the wrapper's plans
-// (ops/cuda/cross_attention.py, plan() and plan_bwd()) name the kernel and
-// its launch geometry before any launch, and the C entries refuse a launch
-// whose kernel or geometry is not one they take.
+// Three forward kernels and two backward ones (attn_bwd_warp, attn_bwd); the
+// wrapper's plans (ops/cuda/cross_attention.py, plan() and plan_bwd()) name
+// the kernel and its launch geometry before any launch, and the C entries
+// refuse a launch whose kernel or geometry is not one they take.
 //
 // attn_grouped: the In sampler's shapes.  The concept generators' In
 // sampler attends HW queries of each of G = 16 concept groups, D = 4, over
@@ -75,20 +75,63 @@
 //     ends with the same value: fp32 addition commutes).  16-word tiles.
 // Blocks are numbered with g fastest; out is written dense, [B, G, N, D].
 //
-// attn_bwd: the backward (no Pallas kernel has one: the JAX package
-// differentiates its XLA einsum chain; the port's word-attention generators
-// train through this kernel).  With s = scale q.k over the real words,
+// The backward (no Pallas kernel has one: the JAX package differentiates
+// its XLA einsum chain; the port's word-attention generators train through
+// attn_bwd_warp).  With s = scale q.k over the real words,
 //   P = softmax_t(s), dP = dO v^T, Delta = sum_t P dP, dS = P (dP - Delta),
 //   dq = scale dS k, dk = scale dS^T q, dv = P^T dO,
 // recomputed from q and k (the forward saves neither P nor its output:
 // Delta is taken from sum_t P dP, not dO . O).  Math is fp32; dq, dk and dv
 // are rounded once on store to the operands' type.  A fully padded row gets
-// zero dq, dk and dv.  Shapes: D <= 32 (templated on DMAX in {4, 8, 16,
-// 32}), T <= 256, any G and N; q, k, v and dO at any strides, dq at the
-// strides the wrapper gives it (q's), dk and dv dense [B, G, T, D].
-//   * One block per (b, g): dk and dv reduce over the N queries of that
-//     row, and one owner per output keeps the sum's order fixed, so two
-//     runs are bit-equal (no atomics, no second pass).
+// zero dq, dk and dv.  q, k, v and dO at any strides, dq at the strides the
+// wrapper gives it (q's), dk and dv dense [B, G, T, D].  In both kernels one
+// block owns a (b, g) row, so dk and dv, sums over the row's N queries, are
+// folded in a fixed order: two runs are bit-equal (no float atomics, no
+// second pass).
+//
+// attn_bwd_warp: the word-attention training path's shapes (D <= 4, T <= 32,
+// templated on TMAX in {16, 32}, the real words a lane holds).  At the 64^2
+// step's In launches (B = 88, G = 16, N = 256..4096, T = 15: 1,408 rows,
+// 2.05e7 query rows, ~1.6e8 (query, real word) pairs) the bytes are q and
+// dO read and dq written, 48 / 24 bytes a query (fp32 / bf16): 0.296 / 0.148
+// ms at 3.35 TB/s; the pairs' ~20 fp32 instructions and one exp2 each
+// issue in ~0.1 ms on 132 SMs.  What binds it on the H100 is shared
+// memory's delivery to registers, 128 bytes a cycle an SM: a word's key
+// broadcast to a warp costs 4 cycles, whoever shares it.  The design:
+//   * A warp takes 32 queries at a time, a lane a query: one pass over the
+//     real words keeps each score (rounded once, __fmul_rn, so the largest
+//     word's weight is exp2(0) = 1 exactly and a one-word row's dS is
+//     exactly 0) and dP in registers; then the exact maximum, one exp2 a
+//     pair, P, dS and dq.  No dot product is computed twice.  The body is
+//     unrolled for the row's real words in steps of four slots (those past
+//     the words masked), so no word costs a branch, and the few bodies
+//     that run side by side on an SM stay in its instruction cache; where
+//     the values are the keys (both samplers pass them so) a word is read
+//     once.
+//   * dk and dv on every thread, with no block barrier in the loop: the
+//     warp puts dS and P of its 32 queries into its own rows ([2 TMAX][36]
+//     floats, a word pair's rows TMAX / 2 apart: no bank conflicts) and q
+//     and dO as fp32 rows; each lane owns two rows of one kind (dS against
+//     q, P against dO), D = 4 features each, over a share of the batch's
+//     queries, so one load of a query's x feeds eight FMAs, and adds the
+//     batch into registers.  At the end the lanes' sums go through shared
+//     memory and are folded warps by index, shares in order.
+//   * No partial wave: 64 threads a block (32 for N <= 32) and ~18 KB of
+//     shared memory, so 11 blocks fit an SM (8 at TMAX = 32) and the 1,408
+//     rows run as one wave.
+//   * A warp stages its next two batches of q and dO with cp.async while it
+//     computes one (three 1 KB stages), so its loads wait on no compute.
+//   * q and dq as planes ([B, G, D, N], the In sampler's on the card): a
+//     lane loads and stores four consecutive queries of a plane (16 bytes
+//     fp32, 8 bf16) through the warp's stage; as rows, a query's four values
+//     are one vector; any other strides (D < 4, unaligned) a value at a
+//     time, unstaged.  dO sliced from the Out block's concatenation is rows.
+//   * It stays on the CUDA cores in fp32: at D = 4 a tensor-core product
+//     would be 75% padding, and rounding P and dS to bf16 for mma would
+//     leave the plain version's numbers.
+//
+// attn_bwd (every other shape: D <= 32, templated on DMAX in {4, 8, 16, 32},
+// T <= 256, any G and N):
 //   * The block stages its row's real words (compacted from the mask) as
 //     fp32, then walks the queries a tile of blockDim at a time, a thread a
 //     query: three passes over the words (the exact maximum; the softmax's
@@ -99,11 +142,6 @@
 //     adds the tile's queries in order into its accumulator in shared
 //     memory.  The tile shrinks with T (256 queries up to T = 32, 32 at
 //     T = 256) so that the tiles fit.
-// At the 64^2 train step's In shapes (D = 4, T = 15, 2.05e7 query rows a G
-// pass) the bytes are q and dO read and dq written (48 / 24 bytes a row,
-// fp32 / bf16: ~0.29 / 0.15 ms at 3.35 TB/s); the kernel is bound by its
-// instruction issue (three dot products a (query, word), the tile
-// reductions), which a redesign would cut.
 //
 // C interface (bound with ctypes, pointers and stream as void*):
 //   int xmc_cross_attention(q, k, v, mask, out, B, G, N, T, D,
@@ -127,6 +165,12 @@
 //   dmax, threads (the queries of a tile), blocks (B * G) and smem (bytes of
 //   dynamic shared memory) are the plan's (plan_bwd); the entry recomputes
 //   them and refuses a launch where they differ.  Returns as above.
+//   int xmc_cross_attention_bwd_warp(... the same operands, shapes and
+//                                    strides ..., scale, dtype, tmax,
+//                                    threads, blocks, smem, stream)
+//   attn_bwd_warp's: tmax (16 up to T = 16, else 32), threads (32 up to
+//   N = 32, else 64), blocks (B * G) and smem are the plan's, checked as
+//   above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -972,6 +1016,445 @@ int bwd(const void* q, const void* k, const void* v, const uint8_t* mask, const 
   }
 }
 
+
+// ------------------------------------------------------------- attn_bwd_warp
+
+constexpr int kWarpBwdMaxT = 32;       // real words a lane keeps in registers (TMAX <= 32)
+constexpr int kWarpBwdMaxD = 4;
+constexpr int kWarpBwdPitch = 36;      // floats a P or dS row of a warp's 32 queries (16-byte rows)
+constexpr int kWarpBwdStages = 3;      // batches staged a warp: one computing, two in flight
+enum { kLoadGeneric = 0, kLoadRows = 1, kLoadPlanes = 2 };
+
+// Dynamic shared memory: the head (the real words' keys and values as
+// float4, TMAX each), then per warp 4160 + 288 TMAX bytes: the x tiles of q
+// and dO ([32] float4 each, the second 576 bytes on, so that one LDS.128 of
+// both hits other banks), three stages of 1 KB (q, then dO: one batch's 32
+// queries as loaded; two in flight while the third is computed) and the dS
+// and P rows ([2 TMAX][36] floats).
+__host__ __device__ constexpr int warp_bwd_head(int tmax) { return 32 * tmax; }
+__host__ __device__ constexpr int warp_bwd_warp_bytes(int tmax) {
+  return 1088 + 1024 * kWarpBwdStages + 288 * tmax;
+}
+__host__ __device__ constexpr int warp_bwd_smem(int tmax, int warps) {
+  return warp_bwd_head(tmax) + warps * warp_bwd_warp_bytes(tmax);
+}
+
+struct WarpBwdArgs {
+  int G, N, T, D, kv, qmode, gmode, dqmode;  // kv: v is k (same address and strides)
+  int64_t qsb, qsg, qsn, qsd, ksb, ksg, kst, ksd, vsb, vsg, vst, vsd;
+  int64_t gsb, gsg, gsn, gsd, dqsb, dqsg, dqsn, dqsd;
+  float scale;
+};
+
+// Four consecutive values as one load or store: 16 bytes in fp32, 8 in bf16.
+template <typename E>
+struct Raw4;
+template <>
+struct Raw4<float> {
+  using type = float4;
+};
+template <>
+struct Raw4<__nv_bfloat16> {
+  using type = uint2;
+};
+
+template <typename E>
+__device__ __forceinline__ void unpack4(const typename Raw4<E>::type& raw, float (&r)[4]) {
+  const E* h = reinterpret_cast<const E*>(&raw);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) r[d] = to_f(h[d]);
+}
+
+template <typename E>
+__device__ __forceinline__ typename Raw4<E>::type pack4(const float (&r)[4]) {
+  typename Raw4<E>::type raw;
+  E* h = reinterpret_cast<E*>(&raw);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) h[d] = from_f<E>(r[d]);
+  return raw;
+}
+
+// Four values (16 or 8 bytes) from global into shared memory; `bytes` of
+// them read, the rest zero-filled.
+template <typename E>
+__device__ __forceinline__ void cp_async4(uint32_t dst, const E* src, int bytes) {
+  if constexpr (sizeof(E) == 4) {
+    cp_async16(dst, src, bytes);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes)
+                 : "memory");
+  }
+}
+
+// Starts loading the batch of queries n0 .. n0 + 31 of row p into the stage
+// st (zeros past N).  Rows: lane l loads query n0 + l, one vector; planes:
+// lane l four consecutive queries of plane l / 8 (st as [4][32]).  The
+// generic layout is read later, a value at a time (nothing staged).
+template <typename E>
+__device__ __forceinline__ void stage_batch(const E* __restrict__ p, int64_t sn, int64_t sd,
+                                            int mode, int n0, int N, E* st) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(st));
+  if (mode == kLoadRows) {
+    const int n = n0 + lane;
+    cp_async4<E>(base + lane * 4 * sizeof(E), n < N ? p + n * sn : p, n < N ? 4 * sizeof(E) : 0);
+  } else if (mode == kLoadPlanes) {
+    const int d = lane >> 3, m = (lane & 7) * 4, n = n0 + m;
+    const int have = min(max(N - n, 0), 4);
+    cp_async4<E>(base + (d * 32 + m) * sizeof(E), have ? p + d * sd + n : p,
+                 have * static_cast<int>(sizeof(E)));
+  }
+}
+
+// The D <= 4 values of query n0 + lane: from the stage (rows, planes) or
+// from p (generic; zeros past D and past N).
+template <typename E>
+__device__ __forceinline__ void batch_values(const E* __restrict__ p, int64_t sn, int64_t sd,
+                                             int D, int mode, int n0, int N, const E* st,
+                                             float (&r)[4]) {
+  const int lane = threadIdx.x & 31;
+  if (mode == kLoadRows) {
+    unpack4<E>(reinterpret_cast<const typename Raw4<E>::type*>(st)[lane], r);
+    return;
+  }
+  if (mode == kLoadPlanes) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) r[d] = to_f(st[d * 32 + lane]);
+    return;
+  }
+  const int n = n0 + lane;
+#pragma unroll
+  for (int d = 0; d < 4; ++d)  // unrolled: r stays in registers
+    r[d] = d < D && n < N ? to_f(p[n * sn + d * sd]) : 0.f;
+}
+
+// dq of query n0 + lane into row p, rounded once, in the layouts the stages
+// hold (planes: through st, the lane's values first, then four queries a
+// lane).
+template <typename E>
+__device__ __forceinline__ void warp_store(E* __restrict__ p, int64_t sn, int64_t sd, int D,
+                                           int mode, int n0, int N, E* st, const float (&r)[4]) {
+  using V = typename Raw4<E>::type;
+  const int lane = threadIdx.x & 31;
+  if (mode == kLoadPlanes) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) st[j * 32 + lane] = from_f<E>(r[j]);
+    __syncwarp();
+    const int d = lane >> 3, m = (lane & 7) * 4, n = n0 + m;
+    E* dst = p + d * sd + n;
+    if (n + 4 <= N) {
+      *reinterpret_cast<V*>(dst) = *reinterpret_cast<const V*>(st + d * 32 + m);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (n + i < N) dst[i] = st[d * 32 + m + i];
+    }
+    return;
+  }
+  const int n = n0 + lane;
+  if (n >= N) return;
+  E* dst = p + n * sn;
+  if (mode == kLoadRows) {
+    *reinterpret_cast<V*>(dst) = pack4<E>(r);
+  } else {
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      if (d < D) dst[d * sd] = from_f<E>(r[d]);
+  }
+}
+
+// The warp's row of slot j: a word pair's two rows (j = 2 jp, 2 jp + 1) lie
+// TMAX / 2 rows apart, consecutive pairs in consecutive rows (one LDS.128 of
+// eight pairs' first rows hits eight bank quads).
+__host__ __device__ constexpr int warp_bwd_row(int j, int tmax) {
+  return (j & 1) * (tmax / 2) + (j >> 1);
+}
+
+// The lane's query against NR word slots (a multiple of four, the slots
+// past nreal masked: their score -inf, so P = dS = 0, their keys and values
+// zeros), unrolled with no branch: the scores and dP in registers, the exact
+// maximum, one exp2 a pair, then P, dS (into the warp's rows: dS of slot j
+// at row warp_bwd_row(j), P TMAX rows on) and dq.  KV: the values are the
+// keys (both samplers pass them so), read once.  A score is rounded once,
+// as __fmul_rn (fmaf(x, c, 0) is the same rounding), so the largest word's
+// weight is exp2(0) = 1 exactly and a one-word row's dS is exactly 0.
+template <int NR, bool KV, int TMAX>
+__device__ __forceinline__ void pairs(const float (&qv)[4], const float (&gv)[4],
+                                      const float4* ks, const float4* vs, int nreal, float c2,
+                                      float* ws, float (&dq)[4]) {
+  float e[NR], dp[NR];
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const float4 kk = ks[j];
+    e[j] = fmaf(dot4(qv, kk), c2, j < nreal ? 0.f : -INFINITY);
+    dp[j] = dot4(gv, KV ? kk : vs[j]);
+    m = fmaxf(m, e[j]);
+  }
+  float l = 0.f, pdp = 0.f;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    e[j] = ex2(e[j] - m);
+    l += e[j];
+    pdp = fmaf(e[j], dp[j], pdp);
+  }
+  const float inv = 1.f / l;
+  const float delta = pdp * inv;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const float pj = e[j] * inv;
+    const float ds = pj * (dp[j] - delta);
+    const float4 kk = ks[j];
+    dq[0] = fmaf(ds, kk.x, dq[0]);
+    dq[1] = fmaf(ds, kk.y, dq[1]);
+    dq[2] = fmaf(ds, kk.z, dq[2]);
+    dq[3] = fmaf(ds, kk.w, dq[3]);
+    ws[warp_bwd_row(j, TMAX) * kWarpBwdPitch] = ds;
+    ws[(TMAX + warp_bwd_row(j, TMAX)) * kWarpBwdPitch] = pj;
+  }
+}
+
+// pairs over K steps of four slots (K <= TMAX / 4; larger K: never called).
+template <int K, bool KV, int TMAX>
+__device__ __forceinline__ void pairs_at(const float (&qv)[4], const float (&gv)[4],
+                                         const float4* ks, const float4* vs, int nreal, float c2,
+                                         float* ws, float (&dq)[4]) {
+  if constexpr (4 * K <= TMAX) pairs<4 * K, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq);
+}
+
+// The body for the row's real words, in steps of four slots (uniform over
+// the block).  Steps, not a body for each count: fewer bodies side by side
+// on an SM, which the instruction cache holds (measured faster at the 64²
+// step's mixed caption lengths, PERF.md).
+template <bool KV, int TMAX>
+__device__ __forceinline__ void pairs_for(int nreal, const float (&qv)[4], const float (&gv)[4],
+                                          const float4* ks, const float4* vs, float c2,
+                                          float* ws, float (&dq)[4]) {
+  switch ((nreal + 3) / 4) {
+    case 1: pairs_at<1, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq); break;
+    case 2: pairs_at<2, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq); break;
+    case 3: pairs_at<3, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq); break;
+    case 4: pairs_at<4, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq); break;
+    case 5: pairs_at<5, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq); break;
+    case 6: pairs_at<6, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq); break;
+    case 7: pairs_at<7, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq); break;
+    case 8: pairs_at<8, KV, TMAX>(qv, gv, ks, vs, nreal, c2, ws, dq); break;
+    default: break;  // no real word: dq = 0
+  }
+}
+
+// acc[r] += sum_{i0 <= i < i1} w_r[i] x[i], r = 0, 1, over a multiple of four
+// queries: two rows of one kind (dS against the queries, or P against dO),
+// four features each; one load of x[i] feeds both rows.
+__device__ __forceinline__ void reduce_rows(const float* w0, const float* w1, const float4* x,
+                                            int i0, int i1, float (&acc)[2][4]) {
+  for (int i = i0; i < i1; i += 4) {
+    const float4 a4 = *reinterpret_cast<const float4*>(w0 + i);
+    const float4 b4 = *reinterpret_cast<const float4*>(w1 + i);
+    const float wa[4] = {a4.x, a4.y, a4.z, a4.w}, wb[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 xi = x[i + u];
+      acc[0][0] = fmaf(wa[u], xi.x, acc[0][0]);
+      acc[0][1] = fmaf(wa[u], xi.y, acc[0][1]);
+      acc[0][2] = fmaf(wa[u], xi.z, acc[0][2]);
+      acc[0][3] = fmaf(wa[u], xi.w, acc[0][3]);
+      acc[1][0] = fmaf(wb[u], xi.x, acc[1][0]);
+      acc[1][1] = fmaf(wb[u], xi.y, acc[1][1]);
+      acc[1][2] = fmaf(wb[u], xi.z, acc[1][2]);
+      acc[1][3] = fmaf(wb[u], xi.w, acc[1][3]);
+    }
+  }
+}
+
+// One block per (b, g) row, D <= 4, T <= TMAX; each warp walks its 32-query
+// batches, two staged ahead of the one it computes (see the backward's part
+// of the header).  dk and dv are written dense, [B, G, T, D].
+template <typename E, int TMAX>
+__global__ void __launch_bounds__(64, TMAX <= 16 ? 11 : 8)
+attn_bwd_warp(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+              const uint8_t* __restrict__ mask, const E* __restrict__ dout, E* __restrict__ dq,
+              E* __restrict__ dk, E* __restrict__ dv, WarpBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int pos[kWarpBwdMaxT];
+  __shared__ int nreal_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const int b = blockIdx.x / a.G, g = blockIdx.x - b * a.G;
+  const int stride = warps * 32;  // a warp's batches: queries warp * 32 + stride i ...
+
+  unsigned char* wb = smem + warp_bwd_head(TMAX) + warp * warp_bwd_warp_bytes(TMAX);
+  float4* xq = reinterpret_cast<float4*>(wb);
+  float4* xg = reinterpret_cast<float4*>(wb + 576);
+  unsigned char* stages = wb + 1088;  // stage s at 1024 s bytes: q, then dO 512 bytes on
+  float* ws = reinterpret_cast<float*>(stages + 1024 * kWarpBwdStages);
+  const E* qb = q + b * a.qsb + g * a.qsg;
+  const E* gb = dout + b * a.gsb + g * a.gsg;
+  E* dqb = dq + b * a.dqsb + g * a.dqsg;
+  auto stage = [&](int n0, int s) {  // batch n0 into stage s, one commit group
+    if (n0 < a.N) {
+      stage_batch<E>(qb, a.qsn, a.qsd, a.qmode, n0, a.N, reinterpret_cast<E*>(stages + 1024 * s));
+      stage_batch<E>(gb, a.gsn, a.gsd, a.gmode, n0, a.N,
+                     reinterpret_cast<E*>(stages + 1024 * s + 512));
+    }
+    cp_async_commit();
+  };
+  // the warp's first batches, in flight while the block stages the words
+  for (int s = 0; s < kWarpBwdStages - 1; ++s) stage(warp * 32 + s * stride, s);
+
+  // The row's real words: lane t of warp 0 reads word t's mask byte, key and
+  // value at once (one round trip), the real ones compacted with a ballot
+  // into slots as fp32; the slots past them zeros.
+  float4* ks = reinterpret_cast<float4*>(smem);
+  float4* vs = ks + TMAX;
+  if (warp == 0) {
+    float kr[4] = {0.f, 0.f, 0.f, 0.f}, vr[4] = {0.f, 0.f, 0.f, 0.f};
+    bool real = false;
+    if (lane < a.T) {
+      real = mask[static_cast<int64_t>(b) * a.T + lane] == 0;
+      const E* kp = k + b * a.ksb + g * a.ksg + lane * a.kst;
+      const E* vp = v + b * a.vsb + g * a.vsg + lane * a.vst;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        if (d < a.D) {
+          kr[d] = to_f(kp[d * a.ksd]);
+          vr[d] = to_f(vp[d * a.vsd]);
+        }
+      }
+    }
+    const unsigned bits = __ballot_sync(0xffffffffu, real);
+    const int r = __popc(bits & ((1u << lane) - 1u)), nr = __popc(bits);
+    pos[lane] = real ? r : -1;
+    if (lane == 0) nreal_s = nr;
+    if (real) {
+      ks[r] = make_float4(kr[0], kr[1], kr[2], kr[3]);
+      vs[r] = make_float4(vr[0], vr[1], vr[2], vr[3]);
+    }
+    if (lane >= nr && lane < TMAX) {  // the slots past the real words
+      ks[lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+      vs[lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+  const int nreal = nreal_s;
+
+  // The lane's outputs: two rows of one kind, pair pr (words 2 jp and
+  // 2 jp + 1; dS rows for pr < h, P rows after) over queries [i0, i1) of
+  // each batch, `parts` lanes a pair, each a multiple of four queries.
+  const int h = (nreal + 1) / 2, pairs2 = 2 * h;
+  const int parts = pairs2 ? 32 / pairs2 : 0;
+  const int len = parts ? ((32 + parts - 1) / parts + 3) & ~3 : 0;
+  const int pr = pairs2 ? lane % pairs2 : 0, part = pairs2 ? lane / pairs2 : 0;
+  const bool own = part < parts;
+  const int kind = pr >= h, jp = pr - kind * h;
+  const int i0 = min(part * len, 32), i1 = min(i0 + len, 32);
+  const float* w0 = ws + (kind * TMAX + jp) * kWarpBwdPitch;
+  const float4* x = kind ? xg : xq;
+
+  const float c2 = a.scale * kLog2e;  // scores in log2 units
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  int s = 0;
+  for (int n0 = warp * 32; n0 < a.N; n0 += stride, s = s == kWarpBwdStages - 1 ? 0 : s + 1) {
+    // the batch two on into the stage freed last, while this one computes
+    stage(n0 + (kWarpBwdStages - 1) * stride, s == 0 ? kWarpBwdStages - 1 : s - 1);
+    cp_async_wait<kWarpBwdStages - 1>();
+    __syncwarp();
+    E* st = reinterpret_cast<E*>(stages + 1024 * s);
+    E* st_g = reinterpret_cast<E*>(stages + 1024 * s + 512);
+    float qv[4], gv[4];
+    batch_values<E>(qb, a.qsn, a.qsd, a.D, a.qmode, n0, a.N, st, qv);
+    batch_values<E>(gb, a.gsn, a.gsd, a.D, a.gmode, n0, a.N, st_g, gv);
+    xq[lane] = make_float4(qv[0], qv[1], qv[2], qv[3]);  // zeros past N: add nothing below
+    xg[lane] = make_float4(gv[0], gv[1], gv[2], gv[3]);
+    float dqv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (a.kv)
+      pairs_for<true, TMAX>(nreal, qv, gv, ks, vs, c2, ws + lane, dqv);
+    else
+      pairs_for<false, TMAX>(nreal, qv, gv, ks, vs, c2, ws + lane, dqv);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) dqv[d] *= a.scale;
+    warp_store<E>(dqb, a.dqsn, a.dqsd, a.D, a.dqmode, n0, a.N, st, dqv);
+    __syncwarp();
+    // dk (dS rows against q) and dv (P rows against dO) over the batch
+    if (own) reduce_rows(w0, w0 + (TMAX / 2) * kWarpBwdPitch, x, i0, i1, acc);
+    __syncwarp();  // the tiles and this stage are free for the batch after next
+  }
+  cp_async_wait<0>();
+
+  // Fold: each warp's lanes through its x tiles (a pair's first row in xq,
+  // its second in xg), warps by index, parts in order.
+  xq[lane] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+  xg[lane] = make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
+  __syncthreads();
+  const int64_t row = (static_cast<int64_t>(b) * a.G + g) * a.T;
+  for (int i = tid; i < 2 * a.T; i += blockDim.x) {  // (dk or dv, word t): its D values
+    const int which = i >= a.T, t = i - which * a.T, j = pos[t];
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+    if (j >= 0) {
+      const int o = which * h + j / 2;  // the pair, then its row
+      for (int w = 0; w < warps; ++w) {
+        const float4* f = reinterpret_cast<const float4*>(
+            smem + warp_bwd_head(TMAX) + w * warp_bwd_warp_bytes(TMAX) + (j & 1) * 576);
+        for (int p = 0; p < parts; ++p) {
+          const float4 x4 = f[p * pairs2 + o];
+          sum[0] += x4.x;
+          sum[1] += x4.y;
+          sum[2] += x4.z;
+          sum[3] += x4.w;
+        }
+      }
+    }
+    const float sc = which ? 1.f : a.scale;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) sum[d] *= sc;
+    E* out = (which ? dv : dk) + (row + t) * a.D;
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      if (d < a.D) out[d] = from_f<E>(sum[d]);
+  }
+}
+
+// How a warp reads (and writes) an operand's queries at strides (sb, sg, sn,
+// sd): as rows where each query's four values are one aligned vector, as
+// planes where four consecutive queries of a plane are, else one value at a
+// time.
+template <typename E>
+int warp_mode(const void* p, int D, int64_t sb, int64_t sg, int64_t sn, int64_t sd) {
+  const bool aligned =
+      D == 4 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(E)) == 0 && sb % 4 == 0 && sg % 4 == 0;
+  if (aligned && sd == 1 && sn % 4 == 0) return kLoadRows;
+  if (aligned && sn == 1 && sd % 4 == 0) return kLoadPlanes;
+  return kLoadGeneric;
+}
+
+template <typename E, int TMAX>
+int launch_bwd_warp(const void* q, const void* k, const void* v, const uint8_t* mask,
+                    const void* dout, void* dq, void* dk, void* dv, const WarpBwdArgs& a,
+                    int threads, int blocks, int smem, cudaStream_t stream) {
+  const auto kern = attn_bwd_warp<E, TMAX>;
+  // all shared memory, no L1: the one-wave launch needs 11 (8) blocks an SM
+  static const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<blocks, threads, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), mask,
+      static_cast<const E*>(dout), static_cast<E*>(dq), static_cast<E*>(dk),
+      static_cast<E*>(dv), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int bwd_warp(const void* q, const void* k, const void* v, const uint8_t* mask, const void* dout,
+             void* dq, void* dk, void* dv, WarpBwdArgs a, int tmax, int threads, int blocks,
+             int smem, cudaStream_t s) {
+  a.qmode = warp_mode<E>(q, a.D, a.qsb, a.qsg, a.qsn, a.qsd);
+  a.gmode = warp_mode<E>(dout, a.D, a.gsb, a.gsg, a.gsn, a.gsd);
+  a.dqmode = warp_mode<E>(dq, a.D, a.dqsb, a.dqsg, a.dqsn, a.dqsd);
+  return tmax == 16
+             ? launch_bwd_warp<E, 16>(q, k, v, mask, dout, dq, dk, dv, a, threads, blocks, smem, s)
+             : launch_bwd_warp<E, 32>(q, k, v, mask, dout, dq, dk, dv, a, threads, blocks, smem, s);
+}
+
 }  // namespace
 
 extern "C" int xmc_cross_attention(const void* q, const void* k, const void* v,
@@ -1027,4 +1510,33 @@ extern "C" int xmc_cross_attention_bwd(
   return dtype == 0
              ? bwd<float>(q, k, v, mask, dout, dq, dk, dv, a, dmax, blocks, smem, s)
              : bwd<__nv_bfloat16>(q, k, v, mask, dout, dq, dk, dv, a, dmax, blocks, smem, s);
+}
+
+extern "C" int xmc_cross_attention_bwd_warp(
+    const void* q, const void* k, const void* v, const uint8_t* mask, const void* dout, void* dq,
+    void* dk, void* dv, int B, int G, int N, int T, int D, int64_t qsb, int64_t qsg, int64_t qsn,
+    int64_t qsd, int64_t ksb, int64_t ksg, int64_t kst, int64_t ksd, int64_t vsb, int64_t vsg,
+    int64_t vst, int64_t vsd, int64_t gsb, int64_t gsg, int64_t gsn, int64_t gsd, int64_t dqsb,
+    int64_t dqsg, int64_t dqsn, int64_t dqsd, float scale, int dtype, int tmax, int threads,
+    int blocks, int smem, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || D > kWarpBwdMaxD || T < 0 || T > kWarpBwdMaxT || G < 1 || N < 0 || B < 0 ||
+      (dtype != 0 && dtype != 1))
+    return bad;
+  const int want_tmax = T <= 16 ? 16 : 32;
+  const int want_threads = N <= 32 ? 32 : 64;
+  if (tmax != want_tmax || threads != want_threads ||
+      static_cast<int64_t>(blocks) != static_cast<int64_t>(B) * G ||
+      smem != warp_bwd_smem(tmax, threads / 32))
+    return bad;
+  if (B == 0) return 0;
+  const int kv = k == v && ksb == vsb && ksg == vsg && kst == vst && ksd == vsd;
+  const WarpBwdArgs a{G,   N,   T,   D,   kv,  0,   0,    0,    qsb,  qsg,  qsn,
+                      qsd, ksb, ksg, kst, ksd, vsb, vsg,  vst,  vsd,  gsb,  gsg,
+                      gsn, gsd, dqsb, dqsg, dqsn, dqsd, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? bwd_warp<float>(q, k, v, mask, dout, dq, dk, dv, a, tmax, threads, blocks,
+                                      smem, s)
+                    : bwd_warp<__nv_bfloat16>(q, k, v, mask, dout, dq, dk, dv, a, tmax, threads,
+                                              blocks, smem, s);
 }

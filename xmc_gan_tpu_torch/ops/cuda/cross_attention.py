@@ -33,11 +33,19 @@ Contract of ``masked_cross_attention_kernel``:
   package differentiates its einsum chain): on CUDA, with autograd on and
   an operand that requires grad, the call goes through an autograd
   Function whose forward is the planned forward launch (it saves q, k, v
-  and the mask only) and whose backward launches ``attn_bwd``
-  (``plan_bwd``: D <= 32, T <= 256; any other shape raises ``ValueError``
-  before any launch).  dq has q's strides, dk and dv are dense; each is
-  rounded once to its operand's type; a fully padded row gets zero
-  gradients.  ``masked_cross_attention_bwd_ref`` is its plain version.
+  and the mask only) and whose backward launches the kernel that
+  ``plan_bwd`` names: ``attn_bwd_warp`` at the word-attention training
+  path's shapes (D <= 4, T <= 32: one pass over the real words a query,
+  the dk and dv sums on every lane of a warp, one wave of small blocks,
+  each warp's next batches of q and dO in flight while it computes one;
+  its bound at the 64² step's In launches is its bytes, 0.296 / 0.148 ms
+  fp32 / bf16 on an H100, and shared memory's delivery to registers holds
+  it to ~37% / ~19% of that, PERF.md),
+  ``attn_bwd`` at every other one up to D = 32, T = 256; any other shape
+  raises ``ValueError`` before any launch.  dq has q's strides, dk and dv
+  are dense; each is rounded once to its operand's type; a fully padded row
+  gets zero gradients.  ``masked_cross_attention_bwd_ref`` is their plain
+  version.
 * A CPU tensor goes to the plain version below; a CUDA tensor launches the
   planned kernel or raises.  There is no fallback from one to the other.
 """
@@ -54,7 +62,7 @@ from torch.autograd.function import once_differentiable
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary, LaunchCount
 
 __all__ = ["KERNEL", "FORWARD", "BACKWARD", "MAX_D", "MAX_BWD_D", "MAX_BWD_T", "GROUPED",
-           "SMALL", "WIDE", "BWD", "Plan", "BwdPlan", "plan", "plan_for", "plan_bwd",
+           "SMALL", "WIDE", "BWD", "BWD_WARP", "Plan", "BwdPlan", "plan", "plan_for", "plan_bwd",
            "kernel_name", "bwd_kernel_name", "masked_cross_attention_kernel",
            "masked_cross_attention_ref", "masked_cross_attention_bwd_ref"]
 
@@ -65,17 +73,23 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # int xmc_cross_attention_bwd(q, k, v, mask, dout, dq, dk, dv, B, G, N, T, D, qs*, ks*, vs*,
 #                             gs*, dqs* (4 each), scale, dtype, dmax, threads, blocks, smem,
 #                             stream)
+# int xmc_cross_attention_bwd_warp(the same up to dtype, then tmax, threads, blocks, smem, stream)
 KERNEL = CudaLibrary("cross_attention.cu", {
     "xmc_cross_attention": (_I, [_P] * 5 + [_I] * 5 + [_L] * 15
                             + [ctypes.c_float] + [_I] * 7 + [_P]),
     "xmc_cross_attention_bwd": (_I, [_P] * 8 + [_I] * 5 + [_L] * 20
                                 + [ctypes.c_float] + [_I] * 5 + [_P]),
+    "xmc_cross_attention_bwd_warp": (_I, [_P] * 8 + [_I] * 5 + [_L] * 20
+                                     + [ctypes.c_float] + [_I] * 5 + [_P]),
 })
 FORWARD = LaunchCount()
-BACKWARD = LaunchCount()
+BACKWARD = LaunchCount()  # either backward kernel
 MAX_D = 256  # csrc/cross_attention.cu kMaxD
 MAX_BWD_D, MAX_BWD_T = 32, 256  # kBwdMaxD, kBwdMaxT
-BWD = "attn_bwd"
+BWD, BWD_WARP = "attn_bwd", "attn_bwd_warp"
+# attn_bwd_warp (kWarpBwd*): the widest D and the longest caption it takes;
+# its shared memory is warp_bwd_smem's
+_WARP_BWD_MAX_D, _WARP_BWD_MAX_T = 4, 32
 
 SMALL, WIDE, GROUPED = "attn_small", "attn_wide", "attn_grouped"
 _KERNEL_CODE = {SMALL: 0, WIDE: 1, GROUPED: 2}
@@ -158,21 +172,29 @@ def plan(B: int, G: int, N: int, T: int, D: int, q_strides, dtype: torch.dtype,
 
 
 class BwdPlan(NamedTuple):
-    """What one backward launch takes: ``dmax`` (the template's D bound),
-    ``threads`` (the queries of a tile), ``blocks`` (one per (b, g)) and
-    ``smem`` (bytes of dynamic shared memory)."""
+    """What one backward launch takes: the kernel, ``dmax`` (its D bound:
+    ``attn_bwd``'s template, 4 for ``attn_bwd_warp``), ``tmax``
+    (``attn_bwd_warp``'s template: the real words a lane holds; 0 for
+    ``attn_bwd``), ``threads`` (``attn_bwd``: the queries of a tile;
+    ``attn_bwd_warp``: 32 a warp), ``blocks`` (one per (b, g)) and ``smem``
+    (bytes of dynamic shared memory)."""
     kernel: str
     dmax: int
+    tmax: int
     threads: int
     blocks: int
     smem: int
 
 
 def plan_bwd(B: int, G: int, N: int, T: int, D: int, dtype: torch.dtype) -> BwdPlan:
-    """The one rule for the backward (``attn_bwd``, ``csrc/cross_attention.cu``):
-    D <= 32 and T <= 256, one block per (b, g), a tile of 256 queries up to
-    T = 32 (halved as T doubles, 32 at T = 256) and no wider than N rounded up
-    to a warp.  Raises ``ValueError`` for a shape it does not take."""
+    """The one rule for the backward (``csrc/cross_attention.cu``), a pure
+    function of the shapes: one block per (b, g) in both kernels.
+    ``attn_bwd_warp`` where D <= 4 and T <= 32 (every word-attention training
+    shape): TMAX 16 up to T = 16, else 32; two warps a block (one where
+    N <= 32).  Else ``attn_bwd`` up to D = 32 and T = 256: a tile of 256
+    queries up to T = 32 (halved as T doubles, 32 at T = 256) and no wider
+    than N rounded up to a warp.  Raises ``ValueError`` for a shape neither
+    takes."""
     if not 1 <= D <= MAX_BWD_D:
         raise ValueError(f"masked_cross_attention's backward takes 1 <= D <= {MAX_BWD_D}, "
                          f"got {D}")
@@ -181,19 +203,26 @@ def plan_bwd(B: int, G: int, N: int, T: int, D: int, dtype: torch.dtype) -> BwdP
                          f"got {T}")
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"masked_cross_attention's backward takes float32 or bfloat16, got {dtype}")
+    if B * G > _MAX_GRID:
+        raise ValueError(f"masked_cross_attention's backward: {B * G} blocks exceed the grid "
+                         "limit")
+    if D <= _WARP_BWD_MAX_D and T <= _WARP_BWD_MAX_T:
+        tmax = 16 if T <= 16 else 32
+        warps = 1 if N <= 32 else 2
+        smem = 32 * tmax + warps * (4160 + 288 * tmax)
+        return BwdPlan(BWD_WARP, _WARP_BWD_MAX_D, tmax, 32 * warps, B * G, smem)
     dmax = next(m for m in (4, 8, 16, 32) if D <= m)
     tile = 256 if T <= 32 else 128 if T <= 64 else 64 if T <= 128 else 32
     threads = min(tile, max(32, math.ceil(N / 32) * 32))
     smem = 4 * (4 * T * dmax + 2 * (T + dmax) * (threads + 1)) + 8 * T
-    if B * G > _MAX_GRID:
-        raise ValueError(f"masked_cross_attention's backward: {B * G} blocks exceed the grid "
-                         "limit")
-    return BwdPlan(BWD, dmax, threads, B * G, smem)
+    return BwdPlan(BWD, dmax, 0, threads, B * G, smem)
 
 
 def bwd_kernel_name(p: BwdPlan, dtype: torch.dtype) -> str:
-    """The backward kernel as the profiler names its template instance."""
+    """The planned backward kernel as the profiler names its template instance."""
     t = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    if p.kernel == BWD_WARP:
+        return f"{BWD_WARP}<{t}, {p.tmax}>"
     return f"{BWD}<{t}, {p.dmax}>"
 
 
@@ -325,13 +354,17 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.T
     dk = torch.empty((b, g, t, d), device=q.device, dtype=k.dtype)
     dv = torch.empty((b, g, t, d), device=q.device, dtype=v.dtype)
     m = (mask if mask.dtype in (torch.bool, torch.uint8) else mask.to(torch.uint8)).contiguous()
-    fn = KERNEL.load().xmc_cross_attention_bwd
+    lib = KERNEL.load()
+    if p.kernel == BWD_WARP:
+        fn, geometry = lib.xmc_cross_attention_bwd_warp, (p.tmax,)
+    else:
+        fn, geometry = lib.xmc_cross_attention_bwd, (p.dmax,)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), g4.data_ptr(),
                 dq4.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, g, n, t, d, *q4.stride(),
                 *k4.stride(), *v4.stride(), *g4.stride(), *dq4.stride(), scale,
-                _DTYPE_CODE[q.dtype], p.dmax, p.threads, p.blocks, p.smem, stream)
+                _DTYPE_CODE[q.dtype], *geometry, p.threads, p.blocks, p.smem, stream)
     if rc != 0:
         raise RuntimeError(f"cross_attention backward launch failed ({p}): CUDA error {rc}")
     BACKWARD.launches += 1
@@ -339,7 +372,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.T
 
 
 class _MaskedCrossAttention(torch.autograd.Function):
-    """The forward launch, differentiable once through ``attn_bwd``."""
+    """The forward launch, differentiable once through the planned backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale):
@@ -357,8 +390,8 @@ class _MaskedCrossAttention(torch.autograd.Function):
 def masked_cross_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   mask: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """Masked cross-attention (see the module docstring): the planned CUDA
-    kernel on CUDA tensors (differentiable through ``attn_bwd`` when autograd
-    is on), the plain version on CPU tensors."""
+    kernel on CUDA tensors (differentiable through the planned backward
+    kernel when autograd is on), the plain version on CPU tensors."""
     _check(q, k, v, mask)
     if q.device.type == "cpu":
         return masked_cross_attention_ref(q, k, v, mask, scale)
