@@ -45,7 +45,13 @@ Phases (any failure raises, and the exit code is then non-zero):
    D = 256 also at their edges in both dtypes (``DAMSM_STREAMED``: D = 520,
    770 and 1024, through ``damsm_scores``; bf16 streamed, fp32 wide)
    against the plain version, the all-padded caption's score the plain
-   value, twice bit-equal, its cotangent moving nothing; the
+   value, twice bit-equal, its cotangent moving nothing; the forward and
+   d_regions on a data-parallel rank's row blocks (``DAMSM_ROW_BLOCKS``:
+   the first and the last B_local of B_global images against all B_global
+   captions, [128, 256] and [4, 8] at the flagship word shape), fp32 and
+   bf16, through ``damsm_scores`` against the plain version, each launch on
+   the kernel the route names, and against the same rows of one
+   [B_global, B_global] launch (logged bit-equal or not); the
    ``cross_attention`` kernels through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
@@ -179,6 +185,22 @@ Phases (any failure raises, and the exit code is then non-zero):
    random-init VGG-19, bf16, 2 warm-up and 3 timed steps: the launches of
    phase 6 asserted (``fused_affine`` 28 / 14, damsm 2 + 2); prints the
    step beside phase 6's and the VGG's share of the step's device time.
+6g. Data parallelism (``parallel``, ``make_train_step(mesh=...)``): (a) the
+   flagship_word bf16 step of phase 6 on a one-rank NCCL group in this
+   process (real NCCL init, all_gather and all_reduce; 2 warm-up, 5 timed,
+   launches and kernels asserted as in phase 6), its step beside phase 6's;
+   (b) two ranks on this one card over gloo (NCCL refuses two ranks on one
+   card; gloo stages CUDA tensors through the host), processes of this
+   script (``--dp-rank``): the parity step (fp32, TF32 off, NCH 8, 64², a
+   global batch of 8, each rank's [4, 8] word-score row block on the damsm
+   kernels, 2 steps) against one process on the card at batch 8 (metrics
+   and parameters within phase 4's bounds, the ranks' parameters
+   bit-equal, each rank's damsm launches asserted), then the full width
+   (bf16, 256², NCH 32, 2 x 128 rows, the [128, 256] row block on the
+   kernels; 1 warm-up, 1 counted, 3 timed steps): each rank's step, the
+   global images/s, peak memory a rank, the gradient mean's own time; (c)
+   where the machine has two cards or more, the full width on two NCCL
+   ranks, one card each.  Prints which of them ran.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs; for the
@@ -190,7 +212,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    LN-COCO bf16 step's 14 inputs (each shape alone); the damsm kernels at
    the flagship and at the word shape of each LN step (``LN_STEP_SHAPES``:
    fp32 at batch 128, bf16 at 256; 2 timed launches there; their launches
-   those of that step); the single form's backward at the 40 inputs of one
+   those of that step; the flagship rows also with a data-parallel rank
+   step's launches, phase 6g, and the row blocks' errors, phase 3); the single form's backward at the 40 inputs of one
    concept step and its double backward at the 4 (``concept_rows``); the
    ``cross_attention`` backward at the 6 In and the 6 Out launches of one
    64² word-attention step, with SDPA's forward and backward as a
@@ -232,6 +255,9 @@ from xmc_gan_tpu_torch.ops.cuda import fused_affine as fa
 from xmc_gan_tpu_torch.ops.cuda.build import load_all
 from xmc_gan_tpu_torch import eval as fid_eval
 from xmc_gan_tpu_torch.data import native
+from xmc_gan_tpu_torch.losses import WORD_LOSS_BLOCK_ELEMS, word_scores_backend
+from xmc_gan_tpu_torch.parallel import make_mesh, replicate, shard_batch, shutdown
+from xmc_gan_tpu_torch.parallel.collectives import all_reduce_mean_
 from xmc_gan_tpu_torch.profiling import cuda_ms, device_kernels, read_trace
 from xmc_gan_tpu_torch.train import (
     create_train_state,
@@ -1209,6 +1235,75 @@ def check_damsm_streamed() -> dict:
     return errs
 
 
+# (B_local, B_global, R, T, D): the word-score row blocks a data-parallel rank
+# launches: the flagship step's at 2 x 128 rows (phase 6g's full width, B !=
+# Bc) and phase 6g's parity step's (4 of 8)
+DAMSM_ROW_BLOCKS = [(BATCH, 2 * BATCH, REGIONS, 20, 256), (4, 8, REGIONS, 20, 256)]
+
+
+def check_damsm_row_blocks() -> dict:
+    """Phase 3, damsm_score on data-parallel row blocks: the forward and
+    d_regions (the words carry no gradient, as in the step) of the first and
+    the last ``B_local`` images against all ``B_global`` captions, through
+    ``damsm_scores``, against the plain version (``DAMSM_TOL``), each launch
+    on the kernel the route names; and against the same rows of one launch
+    on the whole ``[B_global, B_global]``, which logs whether they are
+    bit-equal (and holds them to ``DAMSM_TOL`` either way)."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    errs, same = {}, {}
+    for cd in (None, torch.bfloat16):
+        worst = {"forward": 0.0, "d_regions": 0.0}
+        for b, bc, R, T, D in DAMSM_ROW_BLOCKS:
+            r, w, mask, up = damsm_inputs((bc, bc, R, T, D), gen, False)
+            full = ds._launch_fwd(r, w, mask, 4.0, 5.0, cd)
+            full_dr = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, cd)
+            for rows in (slice(0, b), slice(bc - b, bc)):
+                ri, got = r[rows].clone().requires_grad_(), {}
+
+                def run():
+                    got["forward"] = ds.damsm_scores(ri, w, mask, 4.0, 5.0, cd)
+                    got["d_regions"], = torch.autograd.grad(got["forward"], ri, up[rows])
+
+                names = damsm_kernel_names(run)
+                for which in ("fwd", "dr"):
+                    kernel = ds.kernel_name(which, R, D, cd)
+                    if not any(kernel in n for n in names):
+                        raise AssertionError(f"damsm row block [{b}, {bc}] {CD_NAME[cd]}: no "
+                                             f"{kernel} among {names}")
+                if any("damsm_bwd_dw" in n for n in names):
+                    raise AssertionError(f"damsm row block [{b}, {bc}]: d_words launched")
+                want = {"forward": exact_scores(r[rows], w, mask, cd),
+                        "d_regions": ds._plain_vjp("dr", r[rows], w, mask, up[rows], 4.0, 5.0,
+                                                   cd)}
+                out = got["forward"].detach()
+                torch.testing.assert_close(out, want["forward"], rtol=1e-5,
+                                           atol=DAMSM_TOL[cd]["score"])
+                scale = DAMSM_TOL[cd]["grad_scale"] * want["d_regions"].abs().max().item()
+                torch.testing.assert_close(got["d_regions"], want["d_regions"], rtol=0,
+                                           atol=scale)
+                torch.testing.assert_close(out, full[rows], rtol=1e-5,
+                                           atol=DAMSM_TOL[cd]["score"])
+                torch.testing.assert_close(got["d_regions"], full_dr[rows], rtol=0, atol=scale)
+                for key, ref in (("forward", full[rows]), ("d_regions", full_dr[rows])):
+                    worst[key] = max(worst[key], (got[key] - want[key]).abs().max().item())
+                    diff = (got[key] - ref).abs().max().item()
+                    k = (cd, b, bc, key)
+                    same[k] = max(same.get(k, 0.0), diff)
+            del r, w, mask, up, full, full_dr
+            torch.cuda.empty_cache()
+        errs[cd] = worst
+        log(f"[3] damsm_score row blocks {CD_NAME[cd]} (B_local, B_global, R, T, D) "
+            f"{DAMSM_ROW_BLOCKS}: forward and d_regions on "
+            + ", ".join(ds.kernel_name(which, REGIONS, 256, cd) for which in ("fwd", "dr"))
+            + ", max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+            + f" (tolerance {DAMSM_TOL[cd]})")
+    for (cd, b, bc, key), diff in same.items():
+        verdict = "bit-equal" if diff == 0.0 else f"max abs diff {diff:.3g} ({DAMSM_TOL[cd]})"
+        log(f"[3] damsm_score {CD_NAME[cd]} {key}, row block [{b}, {bc}] against the same rows "
+            f"of one [{bc}, {bc}] launch: {verdict}")
+    return errs
+
+
 def attention_inputs(shape, dtype, gen, allpad: bool):
     """q, k, v, mask at ``(B, G, N, T, D, strided)``.  Strided: the In
     sampler's layout, q and k = v lying as [B, N, G, D] and [B, T, G, D] in
@@ -1406,6 +1501,25 @@ SLICE_CFG = {  # the train slice of phase 4b
     "DISC": {"SPEC_NORM": True, "IMG_MATCH": True}}
 
 
+def param_agreement(want_sds, got_sds, lr: float) -> tuple[float, float, float, int]:
+    """How far the state dicts ``got_sds`` lie from ``want_sds`` (pairs of G
+    and D): the share of parameter elements within ``TRAIN_TOL``'s fraction
+    of ``lr``, the worst parameter and power-iteration vector errors, and
+    the element count."""
+    n_all = n_close = 0
+    worst_uv = worst = 0.0
+    for want, got in zip(want_sds, got_sds):
+        for name, v in want.items():
+            err = (got[name].cpu() - v.cpu()).abs()
+            if name.endswith(("weight_u", "weight_v")):
+                worst_uv = max(worst_uv, err.max().item())
+                continue
+            worst = max(worst, err.max().item())
+            n_all += err.numel()
+            n_close += int((err <= TRAIN_TOL["param_lr_frac"] * lr).sum())
+    return n_close / n_all, worst, worst_uv, n_all
+
+
 def check_train_against_cpu(cfg, label: str, mask_fn, want: dict[str, int]) -> None:
     """Phase 4b, 4d-4g: two fp32 train steps at batch 4 on the card and on
     the CPU from the same perturbed weights (with ``ENCODER_LOSS.VGG``, the
@@ -1440,19 +1554,8 @@ def check_train_against_cpu(cfg, label: str, mask_fn, want: dict[str, int]) -> N
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"{label} on the card: launches {counts}, want {want}")
     lr = max(cfg.TRAIN.OPT.G_LR, cfg.TRAIN.OPT.D_LR)
-    n_all = n_close = 0
-    worst_uv = worst = 0.0
-    for net_cpu, net_card in ((cpu.g, card.g), (cpu.d, card.d)):
-        sd_card = net_card.state_dict()
-        for name, v in net_cpu.state_dict().items():
-            err = (sd_card[name].cpu() - v).abs()
-            if name.endswith(("weight_u", "weight_v")):
-                worst_uv = max(worst_uv, err.max().item())
-                continue
-            worst = max(worst, err.max().item())
-            n_all += err.numel()
-            n_close += int((err <= TRAIN_TOL["param_lr_frac"] * lr).sum())
-    share = n_close / n_all
+    share, worst, worst_uv, n_all = param_agreement(
+        (cpu.g.state_dict(), cpu.d.state_dict()), (card.g.state_dict(), card.d.state_dict()), lr)
     log(f"[4] {label} card vs CPU, 2 steps: metrics within {TRAIN_TOL['metric']:g}; "
         f"params: {share:.6f} of {n_all} within {TRAIN_TOL['param_lr_frac'] * lr:.2g}, worst "
         f"{worst:.3g} (bound {4 * lr:.2g}); u/v worst {worst_uv:.3g}; launches {counts}")
@@ -1571,13 +1674,14 @@ def serve(cfg, sd, dtype, name: str = "DF_GEN") -> dict:
     return res
 
 
-def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn) -> dict:
-    """Phase 6 (and 6f, with ``ENCODER_LOSS.VGG`` and a random-init VGG-19)
-    for one full-width config and dtype: ``warmup`` steps, one counted step
-    (peak memory from here), ``timed`` steps, one profiled."""
+def train(cfg, config_name: str, dtype, warmup: int, timed: int, mask_fn, mesh=None) -> dict:
+    """Phase 6 (and 6f, with ``ENCODER_LOSS.VGG`` and a random-init VGG-19;
+    6g(a), the data-parallel step of ``mesh``, a group of one) for one
+    full-width config and dtype: ``warmup`` steps, one counted step (peak
+    memory from here), ``timed`` steps, one profiled."""
     bs = cfg.TRAIN.BATCH_SIZE
     state = create_train_state(cfg, dtype, "cuda", seed=0)
-    step = make_train_step(cfg)  # turns TF32 off
+    step = make_train_step(cfg, mesh=mesh)  # turns TF32 off
     vgg = make_vgg(dtype, "cuda", path="") if cfg.TRAIN.ENCODER_LOSS.VGG else None
     if vgg is not None:
         step = functools.partial(step, vgg=vgg)
@@ -2243,6 +2347,281 @@ def serve_sent(card: str, dtypes) -> list[dict]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 6g: data parallelism.  Two ranks share the one card over gloo (NCCL
+# refuses two ranks on one card); the flagship_word config's parity step at
+# NCH 8, 64², a global batch of 8 (each rank's [4, 8] word-score row block
+# forced onto the damsm kernels, as phase 4's small steps force them), then
+# its full width at 2 x 128 rows
+DP_WORLD = 2
+DP_PARITY = {"TRAIN": {"NCH": 8, "BATCH_SIZE": 8}, "IMG": {"SIZE": 64}}
+DP_PARITY_STEPS = 2
+DP_TIMED = 3
+DP_TIMEOUT_S = 420
+DAMSM_COUNTS = ("damsm_score.forward", "damsm_score.d_regions", "damsm_score.d_words")
+
+
+def dp_parity_cfg():
+    return cfg_from_dict(DP_PARITY, base=cfg_from_dict(TRAIN_OVERRIDES))
+
+
+def dp_parity_batches(cfg) -> list[tuple[dict, np.ndarray]]:
+    """Phase 6g(b)'s global batches and noise, the same on every rank."""
+    rng = np.random.RandomState(9)
+    bs = cfg.TRAIN.BATCH_SIZE
+    return [(train_batch(rng, cfg, bs, prefix_mask),
+             rng.randn(bs, cfg.TRAIN.NOISE_DIM).astype(np.float32))
+            for _ in range(DP_PARITY_STEPS)]
+
+
+def dp_parity(mesh, out_dir: Path) -> dict:
+    """A rank of phase 6g(b)'s parity run: fp32 (TF32 off), the word scores
+    through the damsm kernels at any size; saves G and D after the steps."""
+    cfg = dp_parity_cfg()
+    state = create_train_state(cfg, torch.float32, mesh.device, seed=0)
+    replicate(mesh, state)
+    step = make_train_step(cfg, word_block_elems=0, mesh=mesh)
+    metrics = []
+    reset_counts()
+    for batch, noise in dp_parity_batches(cfg):
+        local = shard_batch(mesh, {**batch, "noise": noise})
+        m = step(state, local, local.pop("noise"))
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.save({"g": {k: v.cpu() for k, v in state.g.state_dict().items()},
+                "d": {k: v.cpu() for k, v in state.d.state_dict().items()}},
+               out_dir / f"parity_{mesh.rank}.pt")
+    return {"metrics": metrics, "launches": read_counts()}
+
+
+def dp_full(mesh) -> dict:
+    """A rank of phase 6g's full-width run: the flagship_word step in bf16,
+    this rank's 128 rows of a global batch of ``128 * world``: one warm-up,
+    one counted step, ``DP_TIMED`` timed (each synchronized)."""
+    cfg = cfg_from_dict(TRAIN_OVERRIDES)
+    bs, world = cfg.TRAIN.BATCH_SIZE, mesh.world
+    state = create_train_state(cfg, torch.bfloat16, mesh.device, seed=0)
+    replicate(mesh, state)
+    step = make_train_step(cfg, mesh=mesh)
+    rng = np.random.RandomState(7)
+    batch = train_batch(rng, cfg, bs * world, prefix_mask)
+    noises = [rng.randn(bs * world, cfg.TRAIN.NOISE_DIM).astype(np.float32)
+              for _ in range(DP_TIMED + 2)]
+    local = {k: torch.from_numpy(v).to(mesh.device) for k, v in shard_batch(mesh, batch).items()}
+    noises = [torch.from_numpy(n[mesh.rows(bs)]).to(mesh.device) for n in noises]
+    step(state, local, noises[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics = step(state, local, noises[1])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    times = []
+    for noise in noises[2:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, local, noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    # what the gradient mean costs alone: one all_reduce_mean_ of D's and of
+    # G's gradient sizes (a step runs D's twice, G's once)
+    reduce_ms = {}
+    for net, model in (("d", state.d), ("g", state.g)):
+        grads = [torch.zeros_like(p) for p in model.parameters()]
+        all_reduce_mean_(grads, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            all_reduce_mean_(grads, mesh)
+        torch.cuda.synchronize()
+        reduce_ms[net] = (time.perf_counter() - t0) * 1e3 / DP_TIMED
+        del grads
+    T, R = cfg.TEXT.MAX_LENGTH, REGIONS
+    return {"launches": launches, "step_ms": statistics.median(times), "step_ms_all": times,
+            "grad_all_reduce_ms": reduce_ms,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "row_block": [bs, bs * world, T, R],
+            "row_block_backend": word_scores_backend(bs, bs * world, T, R,
+                                                     WORD_LOSS_BLOCK_ELEMS, mesh.device)}
+
+
+def dp_rank_main(argv: list[str]) -> int:
+    """``chip_smoke.py --dp-rank R --dp-world W --dp-dir DIR --dp-backend B
+    --dp-device D [--dp-parity]``: one rank of phase 6g, started by
+    ``dp_ranks``; writes ``DIR/rank_R.json``."""
+    import argparse
+
+    p = argparse.ArgumentParser()
+    for name, kind in (("rank", int), ("world", int), ("dir", str), ("backend", str),
+                       ("device", str)):
+        p.add_argument(f"--dp-{name}", type=kind, required=True)
+    p.add_argument("--dp-parity", action="store_true")
+    a = p.parse_args(argv)
+    out_dir = Path(a.dp_dir)
+    mesh = make_mesh(a.dp_world, device=a.dp_device, backend=a.dp_backend,
+                     init_method=f"file://{out_dir / 'store'}", rank=a.dp_rank,
+                     world_size=a.dp_world)
+    try:
+        res = {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device)}
+        if a.dp_parity:
+            res["parity"] = dp_parity(mesh, out_dir)
+            torch.cuda.empty_cache()
+        res["full"] = dp_full(mesh)
+        (out_dir / f"rank_{mesh.rank}.json").write_text(json.dumps(res))
+    finally:
+        shutdown()
+    return 0
+
+
+def dp_ranks(backend: str, devices: list[str], parity: bool) -> list[dict]:
+    """Start phase 6g's ranks as processes of this script, wait for them
+    (killed after ``DP_TIMEOUT_S``), and return each rank's result."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    world = len(devices)
+    procs = []
+    for rank, dev in enumerate(devices):
+        args = [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(rank),
+                "--dp-world", str(world), "--dp-dir", str(root), "--dp-backend", backend,
+                "--dp-device", dev] + (["--dp-parity"] if parity else [])
+        log_file = open(root / f"log_{rank}.txt", "w")
+        procs.append((subprocess.Popen(args, cwd=REPO, stdout=log_file,
+                                       stderr=subprocess.STDOUT), log_file))
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log_file in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log_file.close()
+    failed = [r for r, (proc, _) in enumerate(procs) if proc.returncode != 0]
+    if failed:
+        tails = "\n".join(f"--- rank {r} ---\n{(root / f'log_{r}.txt').read_text()[-3000:]}"
+                          for r in range(world))
+        raise AssertionError(f"[6g] {backend} ranks {failed} failed or hung:\n{tails}")
+    res = [json.loads((root / f"rank_{r}.json").read_text()) for r in range(world)]
+    if parity:
+        for r in range(world):
+            res[r]["parity"]["state"] = torch.load(root / f"parity_{r}.pt", weights_only=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def dp_check_full(label: str, ranks: list[dict], card: str) -> dict:
+    """Phase 6g's full-width ranks: launches, finite losses, the row block on
+    the kernels; logs each rank's step, the global images/s and memory."""
+    want = STEP_LAUNCHES  # a rank step launches what one process's step does
+    for r in ranks:
+        full = r["full"]
+        if full["launches"] != want:
+            raise AssertionError(f"[6g] {label} rank {r['rank']}: launches {full['launches']}, "
+                                 f"want {want}")
+        if full["row_block_backend"] != "kernel":
+            raise AssertionError(f"[6g] {label}: the row block {full['row_block']} is not on "
+                                 "the damsm kernels")
+        bad = [k for k, v in full["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"[6g] {label} rank {r['rank']}: non-finite {bad}")
+    bs, b_global = ranks[0]["full"]["row_block"][:2]
+    step_ms = max(r["full"]["step_ms"] for r in ranks)
+    res = {"label": label, "backend": ranks[0]["backend"],
+           "devices": [r["device"] for r in ranks], "global_batch": b_global,
+           "rank_step_ms": [r["full"]["step_ms"] for r in ranks],
+           "rank_step_ms_all": [r["full"]["step_ms_all"] for r in ranks],
+           "img_per_s": b_global / (step_ms / 1e3),
+           "peak_mem_gib": [r["full"]["peak_mem_gib"] for r in ranks],
+           "grad_all_reduce_ms": ranks[0]["full"]["grad_all_reduce_ms"],
+           "launches_rank_step": ranks[0]["full"]["launches"],
+           "metrics": ranks[0]["full"]["metrics"]}
+    log(f"[6g] {label}: flagship_word bf16 at a global batch of {b_global} ({bs} rows a rank), "
+        f"rank step " + " / ".join(f"{ms:.1f}" for ms in res["rank_step_ms"])
+        + f" ms (median of {DP_TIMED}), {res['img_per_s']:.1f} img/s global, peak "
+        + " / ".join(f"{g:.2f}" for g in res["peak_mem_gib"]) + " GiB a rank; the gradient "
+        f"mean alone {res['grad_all_reduce_ms']['d']:.1f} ms for D's, "
+        f"{res['grad_all_reduce_ms']['g']:.1f} ms for G's (a step runs D's twice); a rank step "
+        f"launches {res['launches_rank_step']}, the damsm forward and d_regions on the "
+        f"[{bs}, {b_global}] row block (T = {ranks[0]['full']['row_block'][2]}, R = "
+        f"{ranks[0]['full']['row_block'][3]}) | {card}")
+    return res
+
+
+def dp_check_parity(ranks: list[dict], card: str) -> dict:
+    """Phase 6g(b)'s parity: the ranks against one process on the card at
+    the whole batch (metrics, parameters within phase 4's bounds), and the
+    ranks' parameters bit-equal."""
+    cfg = dp_parity_cfg()
+    state = create_train_state(cfg, torch.float32, "cuda", seed=0)
+    step = make_train_step(cfg, word_block_elems=0)
+    want = [{k: float(v) for k, v in step(state, batch, noise).items()}
+            for batch, noise in dp_parity_batches(cfg)]
+    a, b = (r["parity"] for r in ranks)
+    if a["metrics"] != b["metrics"]:
+        raise AssertionError("[6g] parity: the ranks' metrics differ")
+    for net in ("g", "d"):
+        for name, v in a["state"][net].items():
+            if not torch.equal(v, b["state"][net][name]):
+                raise AssertionError(f"[6g] parity: the ranks' {net}.{name} differ")
+    for k, (got, ref) in enumerate(zip(a["metrics"], want)):
+        for key, v in ref.items():
+            if not abs(got[key] - v) <= TRAIN_TOL["metric"] * max(1.0, abs(v)):
+                raise AssertionError(f"[6g] parity step {k} {key}: 2 ranks {got[key]} vs one "
+                                     f"process {v}")
+    lr = max(cfg.TRAIN.OPT.G_LR, cfg.TRAIN.OPT.D_LR)
+    share, worst, worst_uv, n_all = param_agreement(
+        (state.g.state_dict(), state.d.state_dict()), (a["state"]["g"], a["state"]["d"]), lr)
+    want_launches = {k: DP_PARITY_STEPS * STEP_LAUNCHES[k] for k in DAMSM_COUNTS}
+    for r in ranks:
+        got = {k: r["parity"]["launches"][k] for k in want_launches}
+        if got != want_launches:
+            raise AssertionError(f"[6g] parity rank {r['rank']}: damsm launches {got}, want "
+                                 f"{want_launches}")
+    log(f"[6g] parity, 2 gloo ranks on {ranks[0]['device']} vs one process, fp32 (TF32 off), "
+        f"NCH 8, 64², global batch 8, {DP_PARITY_STEPS} steps: metrics within "
+        f"{TRAIN_TOL['metric']:g}; params {share:.6f} of {n_all} within "
+        f"{TRAIN_TOL['param_lr_frac'] * lr:.2g}, worst {worst:.3g} (bound {4 * lr:.2g}); u/v "
+        f"worst {worst_uv:.3g}; the ranks' parameters bit-equal; damsm launches a rank "
+        f"{want_launches} on the [4, 8] row block")
+    if share < TRAIN_TOL["param_share"] or worst > 4 * lr or worst_uv > TRAIN_TOL["uv"]:
+        raise AssertionError("[6g] parity: 2 ranks and one process differ beyond the tolerance")
+    del state
+    torch.cuda.empty_cache()
+    return {"param_share": share, "param_worst": worst, "uv_worst": worst_uv,
+            "launches_rank_2_steps": a["launches"]}
+
+
+def dp_phase(card: str, bare_step_ms: float) -> dict:
+    """Phase 6g: (a) the data-parallel step at full width on a one-rank NCCL
+    group in this process, beside phase 6's step; (b) two ranks on this card
+    over gloo: parity, then full width at a global batch of 256; (c) where
+    the machine has two cards or more, two NCCL ranks, one card each."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl1_"))
+    mesh = make_mesh(1, device="cuda:0", backend="nccl", init_method=f"file://{root / 'store'}",
+                     rank=0, world_size=1)
+    try:
+        one = train(cfg_from_dict(TRAIN_OVERRIDES), "flagship_word DP (NCCL, world 1)",
+                    torch.bfloat16, 2, 5, prefix_mask, mesh=mesh)
+    finally:
+        shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[6g] (a) one-rank NCCL group: the data-parallel flagship_word bf16 step "
+        f"{one['step_ms']:.1f} ms beside phase 6's {bare_step_ms:.1f} ms | {card}")
+    torch.cuda.empty_cache()
+    res = {"nccl_world_1": one}
+    ranks = dp_ranks("gloo", ["cuda:0"] * DP_WORLD, parity=True)
+    res["parity"] = dp_check_parity(ranks, card)
+    res["gloo_one_card"] = dp_check_full("(b) 2 gloo ranks on one card", ranks, card)
+    if torch.cuda.device_count() >= DP_WORLD:
+        ranks = dp_ranks("nccl", [f"cuda:{i}" for i in range(DP_WORLD)], parity=False)
+        res["nccl_cards"] = dp_check_full(f"(c) 2 NCCL ranks on {DP_WORLD} cards", ranks, card)
+    ran = "(a), (b) and (c)" if "nccl_cards" in res else (
+        f"(a) and (b); (c) needs {DP_WORLD} cards, the machine has {torch.cuda.device_count()}")
+    log(f"[6g] ran {ran}")
+    return res
+
+
 def launch_patterns(launches: dict[str, int]) -> dict[str, int]:
     """A counted run's launches as ``device_kernels``' ``expect``: the
     kernels by name that a whole trace of the same run holds."""
@@ -2712,8 +3091,11 @@ def attention_bwd_rows(errs, launches, own_ms) -> list[dict]:
     return rows
 
 
-def damsm_rows(errs, launches) -> list[dict]:
-    """Phase 7, damsm_score: each kernel once at the flagship shape."""
+def damsm_rows(errs, launches, dp_launches, row_errs) -> list[dict]:
+    """Phase 7, damsm_score: each kernel once at the flagship shape; beside
+    it the launches of one data-parallel rank step (``dp_launches``, phase
+    6g: bf16 at full width, fp32 the parity step) and the row blocks' errors
+    (``row_errs``, phase 3)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     r, w, mask, up = damsm_inputs(DAMSM_FLAGSHIP, gen, False)
     b, bc, R, T, D = DAMSM_FLAGSHIP
@@ -2744,7 +3126,10 @@ def damsm_rows(errs, launches) -> list[dict]:
                 "source": "xmc_gan_tpu_torch/csrc/damsm_score.cu",
                 "replaces": f"xmc_gan_tpu/ops/pallas/damsm_score.py:{line}",
                 "launches": launches[cd][f"damsm_score.{name}"],
-                "max_abs_err": errs[cd][name], "ms": ms, "plain_ms": plain_ms,
+                "launches_dp_rank_step": dp_launches[cd][f"damsm_score.{name}"],
+                "max_abs_err": errs[cd][name],
+                "max_abs_err_row_block": row_errs[cd].get(name),
+                "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "library_ms": None, "roofline_share": bound / ms,
                 "shapes": f"B=Bc={b}, R={R}, T={T} ({words} real words), D={D}, compute "
@@ -2833,6 +3218,7 @@ def main() -> int:
     mod_errs = check_modulation(sorted(set(mod_shapes)))
     bwd2_errs = check_double_backward(concept_train_cfg())
     ds_errs = check_damsm()
+    row_errs = check_damsm_row_blocks()
     ln_errs = check_damsm_ln()
     check_damsm_streamed()
     ca_errs = check_attention(attn_in)
@@ -2907,6 +3293,9 @@ def main() -> int:
     log(f"[6f] flagship_word bf16 step with the VGG loss {vgg_train['step_ms']:.1f} ms beside "
         f"phase 6's {trains[torch.bfloat16]['step_ms']:.1f} ms without it; the VGG "
         f"{100 * vgg_train['vgg_share']:.1f}% of the step's device time | {card}")
+    t_dp = time.perf_counter()
+    dp = dp_phase(card, trains[torch.bfloat16]["step_ms"])
+    log(f"[6g] {time.perf_counter() - t_dp:.1f} s | {card}")
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
@@ -2918,8 +3307,12 @@ def main() -> int:
         {d: req["CONCEPT_IN_DF_GEN"][d]["fused_affine.forward"] for d in req["CONCEPT_IN_DF_GEN"]})
     kernels.append(epilogue_ln_row(epilogue_shapes(ln, ln.TRAIN.BATCH_SIZE), fa_errs,
                                    ln_train["launches"]["fused_affine.backward"]))
+    parity_step = {k: n // DP_PARITY_STEPS
+                   for k, n in dp["parity"]["launches_rank_2_steps"].items()}
     kernels += damsm_rows(ds_errs, {None: step_launches[torch.float32],
-                                    torch.bfloat16: step_launches[torch.bfloat16]})
+                                    torch.bfloat16: step_launches[torch.bfloat16]},
+                          {None: parity_step,
+                           torch.bfloat16: dp["gloo_one_card"]["launches_rank_step"]}, row_errs)
     kernels += damsm_ln_rows(ln_errs, {None: ln_train32["launches"],
                                        torch.bfloat16: ln_train["launches"]},
                              {None: "phase 6: one full-width LN-COCO fp32 step at batch "
@@ -2941,7 +3334,7 @@ def main() -> int:
                     "ln_training_loop": ln_fit,
                     "attention_training_loop": [r for rs in attn_loops.values()
                                                 for r in rs.values()],
-                    "vgg_training": vgg_train}))
+                    "vgg_training": vgg_train, "data_parallel": dp}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2951,4 +3344,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -690,6 +690,50 @@ def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
         assert all(cycles[k] == 0 for k in damsm_phases.PHASES if k not in phases), (kernel, cycles)
 
 
+# (B_local, B_global, R, T, D): the row blocks of a data-parallel rank, its
+# images against every caption (B != Bc): the flagship step at 2 x 128 rows
+# and a 4-of-8 block at the same word shape
+ROW_BLOCKS = [(128, 256, 256, 20, 256), (4, 8, 256, 20, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+@pytest.mark.parametrize("shape", ROW_BLOCKS, ids=str)
+def test_damsm_row_block_matches_plain_on_card(cuda_device, cd, shape):
+    """A data-parallel rank's word scores (``parallel.sharded_word_scores``):
+    the forward and d_regions of the last ``B_local`` of ``B_global`` images
+    against all ``B_global`` captions, the words without gradient as in the
+    step, against the plain version and its autograd; the kernels the route
+    names, no d_words; and bit-equal to the same rows of one launch on all
+    ``B_global`` images (seen on an H100 80GB HBM3, 700 W, in both compute
+    dtypes: a pair's score and its d_regions do not depend on the other
+    images)."""
+    b, bc, R, T, D = shape
+    r, w, mask, up = _damsm_inputs(cuda_device, (bc, bc, R, T, D), 8, False)
+    full = ds._launch_fwd(r, w, mask, 4.0, 5.0, cd)[bc - b:]
+    full_dr = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, cd)[bc - b:]
+    r, up = r[bc - b:].contiguous(), up[bc - b:].contiguous()
+    ri, got = r.clone().requires_grad_(), {}
+
+    def run():
+        got["s"] = ds.damsm_scores(ri, w, mask, 4.0, 5.0, cd)
+        got["dr"], = torch.autograd.grad(got["s"], ri, up)
+
+    names = _damsm_kernel_names(run)
+    for which in ("fwd", "dr"):
+        want = ds.kernel_name(which, R, D, cd)
+        assert any(want in n for n in names), (want, names)
+    assert not any("damsm_bwd_dw" in n for n in names), names
+    score_atol, grad_scale = DAMSM_TOL[cd]
+    assert got["s"].shape == (b, bc)
+    torch.testing.assert_close(got["s"], _exact_scores(r, w, mask, cd), rtol=1e-5,
+                               atol=score_atol)
+    want_dr = ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, cd)
+    torch.testing.assert_close(got["dr"], want_dr, rtol=0,
+                               atol=grad_scale * want_dr.abs().max().item())
+    assert torch.equal(got["s"], full) and torch.equal(got["dr"], full_dr)
+
+
 @pytest.mark.cuda
 def test_damsm_skips_d_words_when_words_carry_no_grad(cuda_device):
     """As in the train step: words are data, so only d_regions launches."""

@@ -14,8 +14,9 @@ logged metrics and the final parameters are held to the bounds of
 within 2 lr a step, 95% of them within lr / 20 after free-running steps;
 the power-iteration vectors 1e-5).  Both write the same files.
 
-Port-only checks here: ``fid_scalar_name``, ``step_noise``, what raises
-for the data-parallel slice, and the CLI's ``train``, ``train
+Port-only checks here: ``fid_scalar_name``, ``step_noise``, what still
+raises beside data parallelism (tensor parallelism, ``--dp`` without
+``--distributed``), and the CLI's ``train``, ``train
 --resume_auto``, ``eval`` and ``sample`` on the CPU.  Checkpoints, resume,
 preemption and ``--watch``: ``tests/test_torch_trainer_resume.py``.
 """
@@ -42,6 +43,7 @@ from xmc_gan_tpu.models.encoder import RNNEncoder as JaxRNNEncoder
 from xmc_gan_tpu.trainer import Trainer as JaxTrainer
 from xmc_gan_tpu.utils.convert import rnn_encoder_state_dict
 from xmc_gan_tpu_torch.cli import main
+from xmc_gan_tpu_torch.parallel import make_mesh
 from xmc_gan_tpu_torch.trainer import Trainer
 from xmc_gan_tpu_torch.utils.convert import (
     df_gan_discriminator_state_dict,
@@ -212,9 +214,12 @@ def test_step_noise_is_a_function_of_seed_and_step(runs):
     assert not torch.equal(a, _trainer(runs, "noise2", 8).step_noise(5))
 
 
-def test_mesh_raises_naming_the_data_parallel_slice(runs):
-    with pytest.raises(NotImplementedError, match="data-parallel slice"):
-        _trainer(runs, "mesh", 1, mesh=object())
+def test_mesh_raises_naming_the_data_parallel_slice():
+    """The data-parallel slice shards the batch only: a mesh with a model
+    axis (tp > 1) raises, naming tensor parallelism, before any group starts
+    (``tests/test_torch_dp_trainer.py`` trains with a dp mesh)."""
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        make_mesh(dp=1, tp=2, device="cpu")
 
 
 def test_cli_train_eval_and_sample_on_the_cpu(tmp_path, capsys):
@@ -279,6 +284,12 @@ def test_d_warm_start_from_a_reference_checkpoint(runs):
 
 
 def test_cli_data_parallel_flags_raise():
-    with pytest.raises(NotImplementedError, match="data-parallel slice"):
-        main(["train", "--cfg", "xmc_gan_tpu/cfg/df_gan_damsm.yml", "--synthetic", "--dp", "2",
-              "--device", "cpu"])
+    """``--tp 2`` raises (tensor parallelism is not ported), and so does
+    ``--dp 2`` without ``--distributed`` (one process drives one card; the
+    ranks come from torchrun)."""
+    common = ["train", "--cfg", "xmc_gan_tpu/cfg/df_gan_damsm.yml", "--synthetic", "--device",
+              "cpu"]
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        main([*common, "--tp", "2", "--distributed"])
+    with pytest.raises(ValueError, match="--nproc_per_node 2 and --distributed"):
+        main([*common, "--dp", "2"])

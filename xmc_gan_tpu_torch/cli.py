@@ -12,8 +12,17 @@ mean something on one card, and ``--device`` (default ``cuda``; ``cpu`` only
 when asked).  ``train`` writes the JAX package's layout under
 ``{output_root}/{DATASET_NAME}{SIZE}_{CONFIG_NAME}_{seed}/`` with the port's
 own checkpoints (``utils/checkpoint.py``); ``eval`` and ``sample`` read them.
-``--dp``, ``--tp`` and ``--distributed`` raise: data parallelism comes with
-its own slice.  SENT (SBERT) configs train and evaluate (their captions
+Data parallelism runs one process per card under torchrun, which sets the
+group's environment (``parallel.make_mesh``):
+
+    torchrun --nproc_per_node N -m xmc_gan_tpu_torch.cli train --cfg ... \
+        --distributed [--dp N]
+
+``TRAIN.BATCH_SIZE`` (``--bs``) is the global batch; NCCL on the cards, gloo
+with ``--device cpu``.  ``eval --distributed`` scores each rank's test shard
+and all-reduces the FID statistics.  ``--dp`` without ``--distributed``
+raises (one process drives one card), and so does ``--tp`` > 1: tensor
+parallelism is not ported.  SENT (SBERT) configs train and evaluate (their captions
 from the dataset's ``sbert_cache_{mode}.npz``, or a seeded table with
 ``--synthetic``); ``sample`` raises for them: a new caption needs the
 RoBERTa transformer and its ``stsb-roberta-base`` weights, which are not in
@@ -36,6 +45,8 @@ import torch
 from xmc_gan_tpu_torch.config import Config, cfg_from_file
 from xmc_gan_tpu_torch.data.vocab import load_w2i, tokenize
 from xmc_gan_tpu_torch.device import DTYPES
+from xmc_gan_tpu_torch.parallel import make_mesh, shutdown
+from xmc_gan_tpu_torch.parallel.mesh import TP_REFUSAL
 from xmc_gan_tpu_torch.train import make_generator, make_sample_fn
 from xmc_gan_tpu_torch.trainer import Trainer, make_encode_fn, run_dir
 from xmc_gan_tpu_torch.utils.checkpoint import CheckpointManager
@@ -85,9 +96,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "reference's per-forward count)")
     t.add_argument("--resume_auto", action="store_true",
                    help="resume from the newest auto checkpoint")
-    t.add_argument("--dp", type=int, default=None, help="data parallelism (not ported yet)")
-    t.add_argument("--tp", type=int, default=1, help="tensor parallelism (not ported yet)")
-    t.add_argument("--distributed", action="store_true", help="multi-process (not ported yet)")
+    t.add_argument("--dp", type=int, default=None,
+                   help="data-parallel ranks (default: the world size under --distributed)")
+    t.add_argument("--tp", type=int, default=1, help="tensor parallelism (not ported: 1 only)")
+    t.add_argument("--distributed", action="store_true",
+                   help="one rank of a torchrun group (env://), one process per card")
 
     e = sub.add_parser("eval", help="FID eval of a checkpoint (reference eval(), "
                                     "train_gan.py:338-396)")
@@ -110,6 +123,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     e.add_argument("--imsize", type=int, default=-1)
     e.add_argument("--dtype", default=None, choices=sorted(DTYPES))
     e.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    e.add_argument("--distributed", action="store_true",
+                   help="one rank of a torchrun group: each scores its test shard")
 
     s = sub.add_parser("sample", help="generate images from captions")
     s.add_argument("--cfg", required=True)
@@ -146,17 +161,28 @@ def _dtype(args: argparse.Namespace):
     return None if args.dtype is None else DTYPES[args.dtype]
 
 
+def _mesh(args: argparse.Namespace):
+    """The data-parallel rank of ``--distributed`` (None without it)."""
+    if getattr(args, "tp", 1) != 1:
+        raise NotImplementedError(f"--tp {args.tp}: {TP_REFUSAL}")
+    dp = getattr(args, "dp", None)
+    if not args.distributed:
+        if dp is not None:
+            raise ValueError(f"--dp {dp} runs one process per card: launch it with torchrun "
+                             f"--nproc_per_node {dp} and --distributed")
+        return None
+    return make_mesh(dp, device=args.device)
+
+
 def run_train(args: argparse.Namespace) -> dict:
-    if args.dp is not None or args.tp != 1 or args.distributed:
-        raise NotImplementedError("--dp, --tp and --distributed are not ported yet; they "
-                                  "come with the data-parallel slice")
+    mesh = _mesh(args)
     cfg = _cfg(args)
     random.seed(args.seed)
     np.random.seed(args.seed)
     trainer = Trainer(
         cfg, seed=args.seed, data_dir=args.data_dir, output_root=args.output_root,
         log_type=args.log_type, synthetic=args.synthetic, synthetic_len=args.synthetic_len,
-        save_after=args.save_after, eval_fid=not args.no_eval_fid,
+        mesh=mesh, save_after=args.save_after, eval_fid=not args.no_eval_fid,
         eval_num_samples=args.eval_num_samples, dtype=_dtype(args), device=args.device,
         profile_dir=args.profile_dir, save_every_steps=args.save_every_steps,
         steps_per_dispatch=args.steps_per_dispatch, watch=args.watch,
@@ -177,11 +203,12 @@ def run_eval(args: argparse.Namespace) -> tuple[str, float]:
     random-init extractor's proxy."""
     from xmc_gan_tpu_torch.eval import FidComputer, evaluate_fid, evaluate_fid_30k
 
+    mesh = _mesh(args)
     cfg = _cfg(args)
     num_samples = args.num_samples or (30000 if args.protocol == "fid30k" else 6000)
     trainer = Trainer(cfg, seed=args.seed, data_dir=args.data_dir,
                       output_root=args.output_root, log_type="none",
-                      synthetic=args.synthetic, synthetic_len=args.synthetic_len,
+                      synthetic=args.synthetic, synthetic_len=args.synthetic_len, mesh=mesh,
                       eval_num_samples=num_samples, dtype=_dtype(args), device=args.device)
     trainer.resume(args.resume_epoch or None)
     fid = FidComputer(device=trainer.device)
@@ -189,7 +216,7 @@ def run_eval(args: argparse.Namespace) -> tuple[str, float]:
     g, encode, loader = trainer.state.g, trainer.encode, trainer.test_loader
     if args.protocol == "fid30k":
         value = evaluate_fid_30k(cfg, g, encode, loader, num_samples=num_samples,
-                                 seed=args.seed, fid=fid)
+                                 seed=args.seed, fid=fid, mesh=mesh)
         trainer.logger.info(f"epoch : {trainer.state_epoch}, {name}-30K : {value:.3f}")
         return name, value
     save_dir = org_dir = None
@@ -197,7 +224,7 @@ def run_eval(args: argparse.Namespace) -> tuple[str, float]:
         save_dir = f"{trainer.img_dir}/eval_{trainer.state_epoch:03d}/fake"
         org_dir = f"{trainer.img_dir}/eval_{trainer.state_epoch:03d}/org"
     value = evaluate_fid(cfg, g, encode, loader, num_samples=num_samples, seed=args.seed,
-                         save_dir=save_dir, org_dir=org_dir, fid=fid)
+                         save_dir=save_dir, org_dir=org_dir, fid=fid, mesh=mesh)
     trainer.logger.info(f"epoch : {trainer.state_epoch}, {name} : {value:.3f}")
     return name, value
 
@@ -243,13 +270,19 @@ def run_sample(args: argparse.Namespace) -> str:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.cmd == "train":
-        print({k: round(v, 4) for k, v in run_train(args).items()})
-    elif args.cmd == "eval":
-        name, value = run_eval(args)
-        print({name: round(value, 4)})
-    else:
-        print(run_sample(args))
+    try:
+        if args.cmd == "train":
+            out = {k: round(v, 4) for k, v in run_train(args).items()}
+        elif args.cmd == "eval":
+            name, value = run_eval(args)
+            out = {name: round(value, 4)}
+        else:
+            out = run_sample(args)
+        if not getattr(args, "distributed", False) or torch.distributed.get_rank() == 0:
+            print(out)
+    finally:
+        if getattr(args, "distributed", False):
+            shutdown()
     return 0
 
 

@@ -23,6 +23,12 @@ batch ``i`` of ``n`` samples (default: ``seeded_noise(seed, NOISE_DIM)``, a
 ``torch.Generator``), so a caller (the trainer, a parity test) chooses the
 draw.
 
+Data parallelism (``mesh``, a ``parallel.Mesh``): every rank scores its
+shard of the test split, ``FeatureStats.finalize`` all-reduces the count,
+the sum and the outer-product sum (JAX ``eval.py:90-100``), and the loops
+count ``bs * world`` samples a batch (JAX ``:235``, ``:283``), so every rank
+stops at the same batch and returns the same FID.
+
 Protocols: ``evaluate_fid`` is the reference's 6,000-sample eval;
 ``evaluate_fid_30k`` the XMC-GAN paper's FID-30K: 30,000 generated samples
 (the test split cycled, fresh noise each pass) against the statistics of the
@@ -71,10 +77,13 @@ def fid_from_stats(mu1: np.ndarray, sigma1: np.ndarray, mu2: np.ndarray,
 
 class FeatureStats:
     """Streaming mean and covariance of feature batches: the sum, the
-    outer-product sum and the count, in fp64 on ``device`` (default ``cuda``)."""
+    outer-product sum and the count, in fp64 on ``device`` (default ``cuda``);
+    with ``mesh`` set (a ``parallel.Mesh``), ``finalize`` sums them over the
+    ranks (a collective)."""
 
     def __init__(self, dim: int, device: str | torch.device | None = None):
         dev = resolve_device(device)
+        self.mesh = None
         self.dim = dim
         self.n = 0
         self._sum = torch.zeros(dim, dtype=torch.float64, device=dev)
@@ -87,12 +96,22 @@ class FeatureStats:
         self._outer.addmm_(f.T, f)
 
     def finalize(self) -> tuple[np.ndarray, np.ndarray]:
-        """(mean, covariance with ddof 1) as fp64 numpy arrays."""
-        if self.n < 2:
-            raise ValueError(f"Need >= 2 samples for covariance, got {self.n}")
-        s, o = self._sum.cpu().numpy(), self._outer.cpu().numpy()
-        mu = s / self.n
-        return mu, (o - self.n * np.outer(mu, mu)) / (self.n - 1)
+        """(mean, covariance with ddof 1) as fp64 numpy arrays, of every
+        rank's features under ``mesh``."""
+        n, s, o = self.n, self._sum, self._outer
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            count = torch.full((1,), n, dtype=torch.float64, device=s.device)
+            s, o = s.clone(), o.clone()
+            for t in (count, s, o):
+                dist.all_reduce(t)
+            n = int(count.item())
+        if n < 2:
+            raise ValueError(f"Need >= 2 samples for covariance, got {n}")
+        s, o = s.cpu().numpy(), o.cpu().numpy()
+        mu = s / n
+        return mu, (o - n * np.outer(mu, mu)) / (n - 1)
 
 
 def load_fid_weights_npz(path: str) -> dict:
@@ -184,6 +203,14 @@ def seeded_noise(seed: int, noise_dim: int) -> Callable[[int, int], torch.Tensor
     return lambda i, n: torch.randn(n, noise_dim, generator=gen)
 
 
+def _stats_pair(fid, mesh) -> tuple[FeatureStats, FeatureStats]:
+    """Real and fake statistics, summed over ``mesh``'s ranks when finalized."""
+    real, fake = fid.stats(), fid.stats()
+    if mesh is not None:
+        real.mesh = fake.mesh = mesh
+    return real, fake
+
+
 def _sampler(cfg: Config, g, sample_fn: Callable | None) -> Callable:
     if sample_fn is not None:
         return sample_fn
@@ -196,18 +223,21 @@ def evaluate_fid(cfg: Config, g, encode_fn: Callable, test_loader: Iterable, *,
                  num_samples: int = 6000, seed: int = 0, save_dir: str | None = None,
                  org_dir: str | None = None, fid: FidComputer | None = None,
                  sample_fn: Callable | None = None,
-                 noise_fn: Callable[[int, int], torch.Tensor] | None = None) -> float:
+                 noise_fn: Callable[[int, int], torch.Tensor] | None = None,
+                 mesh=None) -> float:
     """The reference eval loop (``train_gan.py:338-396``) without the disk
     round trip: per test batch, noise -> G -> features; the real images
     stream through the same extractor.  ``g`` is the generator module (its
     own dtype and device); ``save_dir``/``org_dir`` keep the reference's
-    per-key PNGs."""
+    per-key PNGs; ``mesh``: one data-parallel rank's part (module
+    docstring)."""
     from xmc_gan_tpu_torch.utils.miscc import save_images
 
     fid = fid or FidComputer()
     sample = _sampler(cfg, g, sample_fn)
     noise_fn = noise_fn or seeded_noise(seed, cfg.TRAIN.NOISE_DIM)
-    real_stats, fake_stats = fid.stats(), fid.stats()
+    real_stats, fake_stats = _stats_pair(fid, mesh)
+    world = 1 if mesh is None else mesh.world
     done = 0
     for i, batch in enumerate(test_loader):
         words, sent, mask = encode_fn(batch)
@@ -219,7 +249,7 @@ def evaluate_fid(cfg: Config, g, encode_fn: Callable, test_loader: Iterable, *,
             save_images(fake.float().cpu().numpy(), batch["keys"], save_dir)
         if org_dir:
             save_images(np.asarray(batch["imgs"]), batch["keys"], org_dir)
-        done += bs
+        done += bs * world
         if done >= num_samples:  # reference stops at 6000 (train_gan.py:386-387)
             break
     return fid.fid(real_stats, fake_stats)
@@ -228,15 +258,18 @@ def evaluate_fid(cfg: Config, g, encode_fn: Callable, test_loader: Iterable, *,
 def evaluate_fid_30k(cfg: Config, g, encode_fn: Callable, test_loader: Iterable, *,
                      num_samples: int = 30000, seed: int = 0, fid: FidComputer | None = None,
                      sample_fn: Callable | None = None,
-                     noise_fn: Callable[[int, int], torch.Tensor] | None = None) -> float:
+                     noise_fn: Callable[[int, int], torch.Tensor] | None = None,
+                     mesh=None) -> float:
     """XMC-GAN paper protocol: FID over ``num_samples`` generated samples
     against the statistics of the *full* test split.  The split is cycled
     (captions repeat across passes, fresh noise for every batch); the real
-    statistics accumulate during the first pass only."""
+    statistics accumulate during the first pass only.  ``mesh`` as in
+    ``evaluate_fid``."""
     fid = fid or FidComputer()
     sample = _sampler(cfg, g, sample_fn)
     noise_fn = noise_fn or seeded_noise(seed, cfg.TRAIN.NOISE_DIM)
-    real_stats, fake_stats = fid.stats(), fid.stats()
+    real_stats, fake_stats = _stats_pair(fid, mesh)
+    world = 1 if mesh is None else mesh.world
     done = i = 0
     first_pass = True
     while done < num_samples:
@@ -249,7 +282,7 @@ def evaluate_fid_30k(cfg: Config, g, encode_fn: Callable, test_loader: Iterable,
             i += 1
             if first_pass:
                 fid.update(real_stats, batch["imgs"])
-            done += bs
+            done += bs * world
             if done >= num_samples:
                 break
         if not saw_batch:

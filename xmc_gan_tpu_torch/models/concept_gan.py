@@ -50,20 +50,32 @@ from xmc_gan_tpu_torch.ops.cross_attention import masked_cross_attention
 from xmc_gan_tpu_torch.ops.grouped import GroupedDense, GroupNorm
 from xmc_gan_tpu_torch.ops.modules import SNConv, SNDense, leaky_relu, upsample_nearest_2x
 
-__all__ = ["ResBlockUp", "WordCondConceptSampler", "InConceptBlock", "OutConceptBlock",
-           "InNetG", "OutNetG", "attention_shapes", "attention_step_launches"]
+__all__ = ["ResBlockUp", "set_mesh", "WordCondConceptSampler", "InConceptBlock",
+           "OutConceptBlock", "InNetG", "OutNetG", "attention_shapes", "attention_step_launches"]
 
 
 def _batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
+                eps: float = 1e-5, mesh=None) -> torch.Tensor:
     """Pure batch-statistics BatchNorm2d of an NCHW tensor (``:57-64``).
 
     Not ``nn.BatchNorm2d``: ``make_generator`` puts G in ``eval()``, where
     that module would read running averages.  The JAX module normalizes by
     the current batch's statistics always (the reference's train-mode
-    behaviour, without the running-average side channel)."""
+    behaviour, without the running-average side channel).
+
+    Under data parallelism (``mesh``, a ``parallel.Mesh``) the statistics
+    are the *global* batch's, as under the JAX package's mesh (module
+    docstring ``:28-30``): the sum, then the sum of squared deviations from
+    the global mean, each all-reduced with gradient over the ranks."""
     xf = x.float()
-    var, mean = torch.var_mean(xf, dim=(0, 2, 3), keepdim=True, correction=0)
+    if mesh is None:
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), keepdim=True, correction=0)
+    else:
+        from xmc_gan_tpu_torch.parallel.collectives import all_reduce_with_grad
+
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3] * mesh.world
+        mean = all_reduce_with_grad(xf.sum((0, 2, 3), keepdim=True), mesh) / n
+        var = all_reduce_with_grad((xf - mean).square().sum((0, 2, 3), keepdim=True), mesh) / n
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.float()[:, None, None] + bias.float()[:, None, None]).to(x.dtype)
 
@@ -81,6 +93,7 @@ class ResBlockUp(nn.Module):
                  gen: torch.Generator):
         super().__init__()
         self.upsample, self.normalize = upsample, normalize
+        self.mesh = None  # the data-parallel group of the BN statistics (set_mesh)
         self.fold = upsample and fuse_upsample
         kc, _ = inits(he_init, cond_dim)
         for idx, feat in ((1, in_dim), (2, out_dim)):
@@ -105,7 +118,8 @@ class ResBlockUp(nn.Module):
         gamma = getattr(self, f"linear_gamma{idx}")(cond)[:, :, None, None]
         beta = getattr(self, f"linear_beta{idx}")(cond)[:, :, None, None]
         if self.normalize:
-            h = _batch_norm(h, getattr(self, f"bn{idx}_scale"), getattr(self, f"bn{idx}_bias"))
+            h = _batch_norm(h, getattr(self, f"bn{idx}_scale"), getattr(self, f"bn{idx}_bias"),
+                            mesh=self.mesh)
         return torch.relu(gamma * h + beta)
 
     def forward(self, x: torch.Tensor, global_cond: torch.Tensor) -> torch.Tensor:
@@ -119,6 +133,16 @@ class ResBlockUp(nn.Module):
         if self.fold:
             sc = upsample_nearest_2x(sc)
         return out + sc
+
+
+def set_mesh(model: nn.Module, mesh) -> None:
+    """Normalize every ``ResBlockUp`` of ``model`` by the statistics of the
+    global batch of ``mesh``'s ranks (``None``: of the local batch).  Every
+    rank must then run each of the model's forwards, since each BatchNorm
+    is a collective."""
+    for m in model.modules():
+        if isinstance(m, ResBlockUp):
+            m.mesh = mesh
 
 
 class WordCondConceptSampler(nn.Module):

@@ -22,6 +22,20 @@ One call of the step reproduces the JAX package's ``train_step``
 generated once without gradient for D and again under autograd for G, from
 the same noise.  The noise is an input of the step, so the tests can feed
 the JAX package's draw.  Unlike the JAX step the state is updated in place.
+
+Data parallelism (``mesh``, a ``parallel.Mesh``; JAX ``train.py``'s GSPMD
+step): each rank holds its contiguous rows of the global batch and of G's
+noise, and every term that crosses rows crosses ranks
+(``parallel/collectives.py``): the labels come from the gathered sentences,
+the sentence, real-fake image and VGG InfoNCE run on gathered features, the
+word loss on the row-block scores (``sharded_word_scores``), and RMIS pairs
+image ``i`` with sentence ``i + 1`` over the global batch.  Each rank's loss
+is chosen so that the mean over ranks is the global loss (RMIS: this rank's
+hinge sum times ``world / (B - 1)``; the hinge terms, G's loss and MAGP:
+local means), and each Adam step takes the ranks' mean gradient, so every
+rank's state stays that of one process's step on the whole batch.  The
+metrics are the global ones, averaged on the device: the step makes no host
+read.
 """
 
 from __future__ import annotations
@@ -36,8 +50,17 @@ from torch import nn
 from xmc_gan_tpu_torch import losses
 from xmc_gan_tpu_torch.config import Config
 from xmc_gan_tpu_torch.device import resolve_device
+from xmc_gan_tpu_torch.models.concept_gan import set_mesh
 from xmc_gan_tpu_torch.ops.images import to_unit_range
 from xmc_gan_tpu_torch.ops.modules import avg_pool
+from xmc_gan_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_gather_with_grad,
+    all_reduce_mean_,
+    mismatch_pairs,
+    sharded_word_scores,
+)
+from xmc_gan_tpu_torch.parallel.mesh import Mesh
 from xmc_gan_tpu_torch.registry import get_discriminator, get_generator
 from xmc_gan_tpu_torch.utils.convert import load_state_dict
 
@@ -141,19 +164,23 @@ def _tensor(x: Any, dev: torch.device) -> torch.Tensor:
     return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))).to(dev)
 
 
-def _adam_step(opt: torch.optim.Adam, loss: torch.Tensor, params: list) -> None:
-    """One Adam step on ``loss``'s gradient in ``params``.  A parameter the
-    loss does not reach gets a zero gradient, not none: optax updates every
-    leaf (the moments decay), while torch's Adam would skip it."""
+def _adam_step(opt: torch.optim.Adam, loss: torch.Tensor, params: list,
+               mesh: Mesh | None = None) -> None:
+    """One Adam step on ``loss``'s gradient in ``params`` (under ``mesh``,
+    the mean of the ranks' gradients).  A parameter the loss does not reach
+    gets a zero gradient, not none: optax updates every leaf (the moments
+    decay), while torch's Adam would skip it."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    if mesh is not None:
+        all_reduce_mean_([p.grad for p in params], mesh)
     opt.step()
     opt.zero_grad(set_to_none=True)
 
 
 def make_train_step(cfg: Config, word_block_elems: int | None = None,
-                    spectral_iters: int = 1) -> Callable[..., dict]:
+                    spectral_iters: int = 1, mesh: Mesh | None = None) -> Callable[..., dict]:
     """The step ``train_step(state, batch, noise, vgg=None) -> metrics`` for ``cfg``.
 
     ``batch`` holds ``imgs`` ``[B, H, W, 3]`` (uint8, normalized on the
@@ -167,6 +194,11 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
     ``word_block_elems`` overrides ``losses.WORD_LOSS_BLOCK_ELEMS`` (0 sends
     every word-score call on the card to the fused kernels).  The metrics are 0-d tensors on the device,
     with the JAX step's keys.
+
+    ``mesh`` (a ``parallel.Mesh``): the step of one data-parallel rank,
+    whose ``batch`` and ``noise`` are its rows of the global batch (module
+    docstring); every rank must call it, in the same order.  The state must
+    start equal on every rank (``parallel.replicate``) and stays so.
 
     Building the step turns TF32 off once, process-wide, so fp32 runs on the
     card are full fp32 as in the JAX package.
@@ -184,10 +216,30 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def word_loss(regions, words, mask, labels, compute_dtype):
-        scores = losses.word_region_scores(regions, words, mask, t.SMOOTH.GAMMA1,
-                                           t.SMOOTH.GAMMA2, block_elems, compute_dtype)
+        if mesh is None:
+            scores = losses.word_region_scores(regions, words, mask, t.SMOOTH.GAMMA1,
+                                               t.SMOOTH.GAMMA2, block_elems, compute_dtype)
+        else:
+            scores = sharded_word_scores(regions, words, mask, mesh, t.SMOOTH.GAMMA1,
+                                         t.SMOOTH.GAMMA2, block_elems, compute_dtype)
         return losses.word_loss_from_scores(scores, labels, el.B_GLOBAL, t.SMOOTH.GLOBAL,
                                             t.SMOOTH.GAMMA3)
+
+    def gather(x: torch.Tensor) -> torch.Tensor:
+        """The global batch's rows of a contrastive operand, with gradient."""
+        return x if mesh is None else all_gather_with_grad(x.float(), mesh)
+
+    def mismatch(d: nn.Module, feats_real: torch.Tensor, psent: torch.Tensor,
+                 zero: torch.Tensor) -> torch.Tensor:
+        """RMIS: image i against sentence i + 1 over the global batch."""
+        bs = feats_real.shape[0]
+        if mesh is None:
+            return losses.hinge_fake(d.logits(feats_real[: bs - 1], psent[1:bs])[0])
+        feats, sents, pairs = mismatch_pairs(feats_real, psent, mesh)
+        if feats.shape[0] == 0:
+            return zero
+        hinge = torch.relu(1.0 + d.logits(feats, sents)[0].float()).sum()
+        return hinge * (mesh.world / pairs)
 
     def project_sent(g: nn.Module, sent: torch.Tensor) -> torch.Tensor:
         return sent if cfg.DISC.SEPERATE else g.project_sent(sent)
@@ -198,6 +250,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             raise ValueError("ENCODER_LOSS.VGG is on: pass the frozen VGG-19 as the step's "
                              "4th argument (models.vgg.make_vgg)")
         g, d = state.g, state.d
+        set_mesh(g, mesh)
         if el.WORD and getattr(d, "region_proj", None) is None:
             raise NotImplementedError(
                 f"ENCODER_LOSS.WORD needs a discriminator with a region head; "
@@ -219,7 +272,8 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
         refresh_spectral(d, spectral_iters)
         with torch.no_grad():
             psent = project_sent(g, sent)
-            labels = (losses.make_labels(sent, el.B_GLOBAL, t.SMOOTH.GLOBAL)
+            labels = (losses.make_labels(sent if mesh is None else all_gather(sent, mesh),
+                                         el.B_GLOBAL, t.SMOOTH.GLOBAL)
                       if use_labels else None)
             fake = g(noise, sent, words, mask)
 
@@ -234,19 +288,19 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
         errD_fake = losses.hinge_fake(match_fake)
         mis_loss, errD_mismatch = errD_fake, zero
         if t.RMIS_LOSS:
-            errD_mismatch = losses.hinge_fake(d.logits(feats_real[: bs - 1], psent[1:bs])[0])
+            errD_mismatch = mismatch(d, feats_real, psent, zero)
             mis_loss = mis_loss + errD_mismatch
         enc_loss, ds_loss, ds_word = zero, zero, zero
         if el.SENT:
-            ds_loss = losses.sent_loss(img_feat_real, sent_proj, labels, el.B_GLOBAL,
-                                       t.SMOOTH.GLOBAL)
+            ds_loss = losses.sent_loss(gather(img_feat_real), gather(sent_proj), labels,
+                                       el.B_GLOBAL, t.SMOOTH.GLOBAL)
             enc_loss = enc_loss + t.SMOOTH.SENT * ds_loss
         if el.WORD:
             ds_word = word_loss(regions_real, words, mask, labels, word_dtype)
             enc_loss = enc_loss + t.SMOOTH.WORD * ds_word
         errD = errD_real + mis_loss * t.SMOOTH.MISMATCH + enc_loss
         d_params = list(d.parameters())
-        _adam_step(state.d_opt, errD, d_params)
+        _adam_step(state.d_opt, errD, d_params, mesh)
 
         # ------------------------------------------------- D update 2: MAGP
         d_loss_gp = zero
@@ -255,7 +309,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
                 return d.logits(d(i), s)[0].float().sum()
 
             d_loss_gp = losses.magp_penalty(d_scalar, imgs, psent)
-            _adam_step(state.d_opt, d_loss_gp, d_params)
+            _adam_step(state.d_opt, d_loss_gp, d_params, mesh)
 
         # ------------------------------------------------------- G update
         do_g = (state.step + 1) % t.N_CRITIC == 0
@@ -270,8 +324,8 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             match, img_feat_fake, sent_proj = d.logits(feats, psent_g)
             enc_loss = zero
             if el.SENT:
-                gs_loss = losses.sent_loss(img_feat_fake, sent_proj, labels, el.B_GLOBAL,
-                                           t.SMOOTH.GLOBAL)
+                gs_loss = losses.sent_loss(gather(img_feat_fake), gather(sent_proj), labels,
+                                           el.B_GLOBAL, t.SMOOTH.GLOBAL)
                 enc_loss = enc_loss + t.SMOOTH.SENT * gs_loss
             if el.WORD:
                 gs_word = word_loss(regions_fake, words, mask, labels, word_dtype)
@@ -279,8 +333,8 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             if el.DISC:
                 with torch.no_grad():
                     feats_real_g = d(imgs)
-                disc_loss = losses.img_loss(avg_pool(feats_real_g, 4).reshape(bs, -1),
-                                            avg_pool(feats, 4).reshape(bs, -1), labels,
+                disc_loss = losses.img_loss(gather(avg_pool(feats_real_g, 4).reshape(bs, -1)),
+                                            gather(avg_pool(feats, 4).reshape(bs, -1)), labels,
                                             el.B_GLOBAL, t.SMOOTH.GLOBAL)
                 enc_loss = enc_loss + t.SMOOTH.DISC * disc_loss
             if el.VGG:
@@ -288,11 +342,11 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
                 # unweighted as in the JAX step
                 with torch.no_grad():
                     vgg_real = vgg(imgs)
-                vgg_loss = losses.img_loss(vgg_real, vgg(fake_g), labels, el.B_GLOBAL,
-                                           t.SMOOTH.GLOBAL)
+                vgg_loss = losses.img_loss(gather(vgg_real), gather(vgg(fake_g)), labels,
+                                           el.B_GLOBAL, t.SMOOTH.GLOBAL)
                 enc_loss = enc_loss + vgg_loss
             errG = losses.generator_loss(match) + enc_loss
-            _adam_step(state.g_opt, errG, list(g.parameters()))
+            _adam_step(state.g_opt, errG, list(g.parameters()), mesh)
         state.step += 1
 
         metrics = {
@@ -309,7 +363,14 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             metrics["ds_word"], metrics["gs_word"] = ds_word, gs_word
         if el.VGG:
             metrics["vgg_loss"] = vgg_loss
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            # the global metrics: the ranks' mean, one all_reduce on the device
+            keys = [k for k in metrics if k != "g_updated"]
+            row = torch.stack([metrics[k].float() for k in keys])
+            all_reduce_mean_([row], mesh)
+            metrics.update(zip(keys, row.unbind()))
+        return metrics
 
     return train_step
 

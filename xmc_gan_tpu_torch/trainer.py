@@ -18,7 +18,17 @@ JAX package:
   mid-epoch resume and SIGTERM preemption, as in the JAX package.
 
 One process on one card (``device`` default ``cuda``; the CPU only when
-asked).  Where the port differs from the JAX ``Trainer``:
+asked), or one of a data-parallel group (``mesh``, a ``parallel.Mesh``: one
+process per card, JAX ``trainer.py:143-185, 440-520, 700-715``): the loaders
+give each rank its shard of every global batch of ``TRAIN.BATCH_SIZE``
+rows, ``step_noise`` its rows of the global noise, the state is broadcast
+from rank 0 at the start and after a restore, and the step keeps the ranks
+equal (``train.make_train_step``).  Rank 0 alone makes the directories and
+writes checkpoints, grids and logs; the others wait at a barrier after each
+checkpoint.  Every rank runs every grid and FID eval (G's BatchNorm and the
+FID statistics are collectives), and the SIGTERM flag is OR-reduced over the
+ranks at each window boundary, so that all save and stop together.  Where
+the port differs from the JAX ``Trainer``:
 
 * G's noise is drawn on the host by ``Trainer.step_noise(global_step)``, a
   ``torch.Generator`` seeded from ``(seed, global_step)``, and moved to the
@@ -33,8 +43,9 @@ asked).  Where the port differs from the JAX ``Trainer``:
   step; batches cross from pinned memory (``device.to_device``).
 * ``profile_dir`` traces steps ``profile_steps`` with ``torch.profiler``
   (``{profile_dir}/trace.json``, a Chrome trace).
-* Data parallelism (``mesh``) raises ``NotImplementedError``: it comes with
-  the data-parallel slice.
+* Under ``mesh`` the host-side agreements (the SIGTERM poll, the
+  checkpoint barriers) run on a gloo group beside NCCL and never wait for
+  the card; every window is polled (JAX: every ``preempt_poll_windows``-th).
 * ``ENCODER_LOSS.VGG``'s frozen VGG-19 (``models/vgg.make_vgg``) reads
   ``VGG_WEIGHTS_PATH`` (the JAX CLI's ``convert-vgg-weights`` ``.npz``, or a
   torchvision ``vgg19`` ``.pth``) as the JAX trainer does; without it, a
@@ -66,7 +77,9 @@ from xmc_gan_tpu_torch.data.pipeline import (
 )
 from xmc_gan_tpu_torch.data.text_encode import SbertCache
 from xmc_gan_tpu_torch.device import resolve_device, to_device
+from xmc_gan_tpu_torch.models.concept_gan import set_mesh
 from xmc_gan_tpu_torch.models.vgg import make_vgg
+from xmc_gan_tpu_torch.parallel import any_rank, barrier, replicate
 from xmc_gan_tpu_torch.registry import get_dataset, get_text_encoder
 from xmc_gan_tpu_torch.train import create_train_state, make_sample_fn, make_train_step
 from xmc_gan_tpu_torch.utils.checkpoint import CheckpointManager
@@ -216,10 +229,10 @@ class Trainer:
         watch: bool = False,
         spectral_iters: int = 1,
     ):
-        if mesh is not None:
-            raise NotImplementedError("data parallelism (mesh) is not ported yet; it comes "
-                                      "with the data-parallel slice")
-        self.device = resolve_device(device)
+        # a data-parallel rank runs on its mesh's device
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
+        self.rank, self.world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
         self.cfg = cfg
         self.seed = seed
         self.save_after = save_after
@@ -234,10 +247,12 @@ class Trainer:
         self.img_dir = f"{out}/img"
         self.log_dir = f"{out}/log"
         self.model_dir = f"{out}/model"
-        for d in (out, self.img_dir, self.log_dir, self.model_dir):
-            os.makedirs(d, exist_ok=True)
-        self.logger = setup_logger(cfg.CONFIG_NAME or "xmc_gan_tpu_torch", self.log_dir)
-        self.writer = MetricWriter(self.log_dir, log_type)
+        if self.rank == 0:
+            for d in (out, self.img_dir, self.log_dir, self.model_dir):
+                os.makedirs(d, exist_ok=True)
+        self.logger = setup_logger(cfg.CONFIG_NAME or "xmc_gan_tpu_torch", self.log_dir,
+                                   self.rank)
+        self.writer = MetricWriter(self.log_dir, log_type, self.rank)
         # wandb.watch parity (reference train_gan.py:163-164): per-layer
         # parameter histograms and the applied updates since the previous
         # watch point, once an epoch (--watch)
@@ -257,10 +272,11 @@ class Trainer:
         bs = cfg.TRAIN.BATCH_SIZE
         if num_threads is None:  # reference DataLoader(num_workers=...), train_gan.py:456-457
             num_threads = cfg.TRAIN.NUM_WORKERS
+        shard = (self.rank, self.world)  # bs is the global batch; each rank loads its shard
         self.train_loader = DataLoader(self.train_set, bs, shuffle=True, drop_last=True,
-                                       seed=seed, num_threads=num_threads)
+                                       seed=seed, num_threads=num_threads, shard=shard)
         self.test_loader = DataLoader(self.test_set, bs, shuffle=False, drop_last=True,
-                                      seed=seed, num_threads=num_threads)
+                                      seed=seed, num_threads=num_threads, shard=shard)
         self.decode_route = decode_route(self.train_set)
         self.logger.info(f"Image decode: {self.decode_route}")
 
@@ -275,11 +291,12 @@ class Trainer:
         self.state = create_train_state(cfg, dtype, self.device, seed=seed)
         if cfg.DISC.ENCODER_DIR and os.path.isfile(cfg.DISC.ENCODER_DIR):
             self._warm_start_d(cfg.DISC.ENCODER_DIR)
+        self._replicate()
         self.logger.info(f"netG # of parameters: {count_params(self.state.g)}")
         self.logger.info(f"netD # of parameters: {count_params(self.state.d)}")
         # spectral_iters=1 is the JAX package's default cadence; 5 is the
         # reference's per-forward count
-        step_fn = make_train_step(cfg, spectral_iters=spectral_iters)
+        step_fn = make_train_step(cfg, spectral_iters=spectral_iters, mesh=mesh)
         # the frozen VGG-19 of ENCODER_LOSS.VGG (VGG_WEIGHTS_PATH, .npz or
         # .pth; a seeded random init without it), bound into every step
         self.vgg = (make_vgg(dtype, self.device, log=self.logger.info)
@@ -321,12 +338,30 @@ class Trainer:
         self.logger.info(f"Warm-started D from {path}"
                          + (f" (skipped {len(skipped)} tensors)" if skipped else ""))
 
+    def _replicate(self) -> None:
+        """Rank 0's state on every rank, and G's BatchNorm over the global batch."""
+        if self.mesh is not None:
+            replicate(self.mesh, self.state)
+            set_mesh(self.state.g, self.mesh)
+
+    def _save(self, manager: CheckpointManager, index: int) -> None:
+        """Rank 0 writes the checkpoint; every rank leaves once it is on disk."""
+        if self.rank == 0:
+            manager.save(index, self.state)
+        if self.mesh is not None:
+            barrier(self.mesh)
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global draw."""
+        return x if self.mesh is None else x[self.mesh.rows(x.shape[0] // self.world)]
+
     # ------------------------------------------------------------------ #
 
     def resume(self, epoch: int | None = None) -> int:
         """Restore state from a checkpoint (reference ``--resume_epoch``,
         ``train_gan.py:486-493``; the optimizer state is the epoch's own)."""
         self.state, self.state_epoch = self.ckpt.restore(self.state, epoch)
+        self._replicate()
         self.global_step = self.state.step
         self.logger.info(f"Load models, epoch : {self.state_epoch}")
         return self.state_epoch
@@ -345,6 +380,7 @@ class Trainer:
             self.logger.info("No auto checkpoint yet; starting fresh")
             return 0
         self.state, step = self.auto_ckpt.restore(self.state)
+        self._replicate()
         self.global_step = self.state.step
         spe = max(len(self.train_loader), 1)
         self.state_epoch = self.global_step // spe
@@ -357,10 +393,11 @@ class Trainer:
     def step_noise(self, global_step: int) -> torch.Tensor:
         """G's noise for the step that brings the counter to ``global_step``:
         ``[BATCH_SIZE, NOISE_DIM]`` from a CPU ``torch.Generator`` seeded from
-        ``(seed, global_step)``, on the state's device."""
+        ``(seed, global_step)``, on the state's device; under ``mesh`` this
+        rank's rows of that global draw."""
         noise = _seeded_normal(self.cfg.TRAIN.BATCH_SIZE, self.cfg.TRAIN.NOISE_DIM,
                                _mixed_seed(self.seed + 7, global_step))
-        return to_device(noise, self.device)
+        return to_device(self._rows(noise), self.device)
 
     def _prep_batch(self, batch: dict) -> dict:
         words, sent, mask = self.encode(batch)
@@ -374,11 +411,15 @@ class Trainer:
     def _setup_fixed_batch(self) -> None:
         """Fixed noise and text for the per-epoch sample grid (reference
         ``train_gan.py:146-160``), from the first batch (``first_batch``: no
-        read-ahead)."""
+        read-ahead; under ``mesh`` this rank's shard, whose grid rank 0
+        saves)."""
         batch = self.train_loader.first_batch()
         words, sent, mask = self.encode(batch)
-        noise = _seeded_normal(sent.shape[0], self.cfg.TRAIN.NOISE_DIM, self.seed + 1)
+        noise = self._rows(_seeded_normal(sent.shape[0] * self.world, self.cfg.TRAIN.NOISE_DIM,
+                                          self.seed + 1))
         self._fixed = (noise, sent, words, mask)
+        if self.rank != 0:
+            return
         if self.cfg.TEXT.TYPE == "WORD" and hasattr(self.train_set, "i2w"):
             sents = index_to_sent(self.train_set.i2w, batch["caps"])
         else:
@@ -390,22 +431,27 @@ class Trainer:
 
     def _save_step_grid(self, batch: dict, step: int) -> None:
         """The in-epoch grid from the current batch's text (reference
-        ``fake_samples_{step:03d}.png``, ``train_gan.py:297-298``)."""
-        noise = _seeded_normal(batch["sent_embs"].shape[0], self.cfg.TRAIN.NOISE_DIM,
-                               self.seed + step)
+        ``fake_samples_{step:03d}.png``, ``train_gan.py:297-298``).  Every
+        rank samples (G's BatchNorm may be a collective); rank 0 saves its
+        slice, as the JAX trainer does (``xmc_gan_tpu/trainer.py:490-520``)."""
+        noise = self._rows(_seeded_normal(batch["sent_embs"].shape[0] * self.world,
+                                          self.cfg.TRAIN.NOISE_DIM, self.seed + step))
         fake = self._sample(noise, batch["sent_embs"], batch["words_embs"], batch["mask"])
-        save_image_grid(fake, f"{self.img_dir}/fake_samples_{step:03d}.png")
+        if self.rank == 0:
+            save_image_grid(fake, f"{self.img_dir}/fake_samples_{step:03d}.png")
 
     def sample_fixed_grid(self, epoch: int) -> None:
         if self._fixed is None:
             self._setup_fixed_batch()
-        save_image_grid(self._sample(*self._fixed),
-                        f"{self.img_dir}/fake_samples_epoch_{epoch:03d}.png")
+        fake = self._sample(*self._fixed)  # on every rank, as _save_step_grid
+        if self.rank == 0:
+            save_image_grid(fake, f"{self.img_dir}/fake_samples_epoch_{epoch:03d}.png")
 
     def evaluate(self, epoch: int) -> float:
         """Post-checkpoint FID (reference ``train_gan.py:334,338-396``):
         ``eval_num_samples`` samples with fresh noise against the test
-        images, through Inception pool3."""
+        images, through Inception pool3; under ``mesh`` every rank scores
+        its test shard and the statistics are all-reduced."""
         from xmc_gan_tpu_torch.eval import FidComputer, evaluate_fid
 
         if self._fid is None:
@@ -416,7 +462,7 @@ class Trainer:
                     "random-init extractor; values track relative progress only.")
         fid_value = evaluate_fid(self.cfg, self.state.g, self.encode, self.test_loader,
                                  num_samples=self.eval_num_samples, seed=self.seed + epoch,
-                                 fid=self._fid)
+                                 fid=self._fid, mesh=self.mesh)
         self.logger.info(f"epoch : {epoch}, {self.fid_scalar_name} : {fid_value:.3f}")
         return fid_value
 
@@ -431,7 +477,10 @@ class Trainer:
     def _log_watch(self, epoch: int) -> None:
         """``wandb.watch`` telemetry: ``parameters/net{G,D}/...`` histograms
         plus ``updates/net{G,D}/...``, the applied optimizer deltas since the
-        previous watch point.  One device->host copy an epoch."""
+        previous watch point.  One device->host copy an epoch, on rank 0 (the
+        ranks hold the same parameters)."""
+        if self.rank != 0:
+            return
         params = {f"{prefix}/{name.replace('.', '/')}": np.array(p.detach().float().cpu())
                   for prefix, net in (("netG", self.state.g), ("netD", self.state.d))
                   for name, p in net.named_parameters()}
@@ -533,12 +582,15 @@ class Trainer:
                 return False
             if preempt_handled:
                 return True
-            if not self._preempted:
+            # under mesh a collective at a boundary every rank reaches: a
+            # SIGTERM on any rank stops all of them at the same step
+            flag = self._preempted
+            if not (flag if self.mesh is None else any_rank(self.mesh, flag)):
                 return False
             flush_pending()
             step_now = self.state.step
             if self.auto_ckpt.latest_epoch() != step_now:
-                self.auto_ckpt.save(step_now, self.state)
+                self._save(self.auto_ckpt, step_now)
                 self.logger.info(f"Preempted: auto checkpoint saved at step {step_now}; exiting")
             else:
                 self.logger.info(f"Preempted: step {step_now} already checkpointed; exiting")
@@ -563,7 +615,7 @@ class Trainer:
             if self.auto_ckpt and (gs_last // self.save_every_steps
                                    > (gs_first - 1) // self.save_every_steps):
                 # labelled with the window's last step (the exact step when K == 1)
-                self.auto_ckpt.save(gs_last, self.state)
+                self._save(self.auto_ckpt, gs_last)
 
         try:
             for epoch in range(self.state_epoch + 1, max_epochs + 1):
@@ -608,7 +660,7 @@ class Trainer:
                 self.sample_fixed_grid(epoch)
 
                 if epoch > self.save_after:
-                    self.ckpt.save(epoch, self.state)
+                    self._save(self.ckpt, epoch)
                     self.logger.info("Save models")
                     if eval_fn is not None:
                         eval_fn(self, epoch)
