@@ -112,7 +112,22 @@ Phases (any failure raises, and the exit code is then non-zero):
    captions' rows of a synthetic ``sbert_cache_test.npz`` (T = 200, D = 768,
    fp16) -> ``make_encode_fn`` -> ``make_sample_fn`` -> 128 images at 256²,
    fp32 and bf16, 14 ``fused_affine`` forwards asserted, the cache read, the
-   encode and the G forward timed apart.
+   encode and the G forward timed apart; (5d) the exported samplers
+   (``utils/export.py``, ``torch.export``): DF_GEN and the two
+   word-attention generators at 256², NCH 32, on phase 5's perturbed
+   weights, each exported in fp32 and bf16 with a symbolic batch and saved
+   (export seconds, the graph's operator nodes: 14 / 10 / 10), then loaded
+   in one fresh process that imports only ``utils.export`` (and the
+   profiler reader; any other module of the port fails the phase), which
+   serves a 128-row and a 3-row request of each: launches counted by the
+   wrappers (14 ``fused_affine``; 10 ``cross_attention``, nothing else)
+   and by the profiler's names (``fused_affine_vec``, ``attn_grouped`` for
+   In, ``attn_small`` for Out), the request's median of 5; the images held
+   to ``make_sample_fn``'s on the same weights and inputs (``EXPORT_TOL``:
+   fp32, TF32 off, 1e-5 or twice the spread of two ``make_sample_fn`` runs
+   where cuDNN's fp32 algorithms make that larger; bf16 one bf16 ulp), and
+   the program (before it was saved) and ``make_sample_fn`` timed in turns
+   in this process (median of 5 each).
 6. Full-width training: the ``flagship_word`` step (DF-GAN G + D at 256²,
    NCH=32, batch 128, RMIS, MAGP, sentence/image/word-region InfoNCE) from
    ``create_train_state`` + ``make_train_step``, bf16 activations (2 warm-up
@@ -421,6 +436,7 @@ SLICE_TOL = {"words": 1e-4, "sent": 1e-4, "images": 2e-3}
 # lr / 20.  The power-iteration vectors u/v to 1e-4.
 TRAIN_TOL = {"metric": 1e-4, "param_share": 0.999, "param_lr_frac": 0.05, "uv": 1e-4}
 DTYPE_NAME = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+DTYPES_BY_NAME = {v: k for k, v in DTYPE_NAME.items()}
 CD_NAME = {None: "fp32", torch.bfloat16: "bf16"}
 TRAIN_OVERRIDES = {  # the flagship_word step: bf16 activations, fp32 params
     "TRAIN": {"NCH": 32, "NEF": 256, "NOISE_DIM": 100, "HE_INIT": True, "RMIS_LOSS": True,
@@ -2347,6 +2363,217 @@ def serve_sent(card: str, dtypes) -> list[dict]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 5d: the exported samplers (utils/export.py), traced with a symbolic
+# batch, loaded and served in a fresh process that imports only the export
+# module (and the profiler reader), against make_sample_fn in this one.
+# The same operators on the same inputs: bit-equal but for cuDNN's fp32
+# algorithms, which need not be deterministic (two make_sample_fn runs on
+# the same inputs differed by up to 6.8e-6 at 256² on an H100; its bf16
+# runs were bit-equal).  Held to 1e-5 in fp32 (TF32 off on both
+# sides), or to twice that rerun spread where the run's is larger, and to
+# one bf16 ulp of the [-1, 1] output in bf16
+EXPORT_GENS = ("DF_GEN", "CONCEPT_OUTATTN_GEN", "CONCEPT_INATTN_GEN")
+EXPORT_BATCHES = (BATCH, 3)
+EXPORT_TOL = {torch.float32: 1e-5, torch.bfloat16: BF16_ULP}
+EXPORT_TIMEOUT_S = 300
+# the port's modules a process that serves an artifact may hold: the export
+# module, the operators it registers and their build, the profiler reader,
+# and the packages above them
+EXPORT_CHILD_MODULES = {"xmc_gan_tpu_torch", "xmc_gan_tpu_torch.ops", "xmc_gan_tpu_torch.utils",
+                        "xmc_gan_tpu_torch.utils.export", "xmc_gan_tpu_torch.profiling",
+                        "xmc_gan_tpu_torch.ops.cuda", "xmc_gan_tpu_torch.ops.cuda.build",
+                        "xmc_gan_tpu_torch.ops.cuda.fused_affine",
+                        "xmc_gan_tpu_torch.ops.cuda.cross_attention"}
+# the fresh process of phase 5d: argv[1] names a JSON list of jobs
+EXPORT_CHILD = r"""
+import json, re, statistics, sys, time
+import torch
+from xmc_gan_tpu_torch.utils.export import load_sampler
+from xmc_gan_tpu_torch.profiling import device_kernels
+
+counts = {f"{m}.{c.lower()}": getattr(sys.modules[f"xmc_gan_tpu_torch.ops.cuda.{m}"], c)
+          for m, cs in (("fused_affine", ("FORWARD", "BACKWARD", "DOUBLE_BACKWARD")),
+                        ("cross_attention", ("FORWARD", "BACKWARD"))) for c in cs}
+out = []
+for job in json.load(open(sys.argv[1])):
+    t0 = time.perf_counter()
+    serve = load_sampler(job["artifact"])
+    load_s = time.perf_counter() - t0
+    d = torch.load(job["inputs"])
+    params = {k: v.cuda() for k, v in d["params"].items()}
+    reqs = {b: [t.cuda() for t in args] for b, args in d["requests"].items()}
+    big = reqs[str(job["batch"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(params, *big)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    images, launches = {}, {}
+    for b, args in reqs.items():
+        torch.cuda.synchronize()
+        for c in counts.values():
+            c.launches = 0
+        images[b] = serve(params, *args)
+        torch.cuda.synchronize()
+        launches[b] = {k: c.launches for k, c in counts.items()}
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve(params, *big)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    kernels, busy_ms, wall_ms = device_kernels(lambda: serve(params, *big),
+                                               expect={job["pattern"]: job["launches"]})
+    torch.save(images, job["images"])
+    out.append({"label": job["label"], "load_s": load_s, "first_request_ms": first_ms,
+                "launches": launches, "request_ms": statistics.median(times),
+                "kernels": sorted({k["name"] for k in kernels
+                                   if re.search(job["pattern"], k["name"])}),
+                "request_kernel_ms": sum(k["ms"] for k in kernels), "busy_ms": busy_ms,
+                "profiled_request_ms": wall_ms})
+    del params, reqs, big, images
+    torch.cuda.empty_cache()
+print(json.dumps({"results": out, "modules": sorted(m for m in sys.modules
+                                                   if m.startswith(("xmc_gan_tpu", "jax")))}))
+"""
+
+
+def export_pattern(name: str) -> str:
+    """The kernel an exported request of ``name`` launches, by the profiler's name."""
+    return re.escape(REQUEST_ATTN_KERNEL[name]) if name in REQUEST_ATTN_KERNEL \
+        else KERNEL_PATTERN["fused_affine.forward"]
+
+
+def serve_exported(card: str, sds: dict) -> list[dict]:
+    """Phase 5d: each of ``EXPORT_GENS`` (256², NCH 32, phase 5's perturbed
+    weights ``sds``) exported with a symbolic batch in fp32 and bf16 and
+    saved; the graph's operator nodes counted; then one fresh process loads
+    every artifact and serves a 128-row and a 3-row request of each
+    (``EXPORT_CHILD``: launches counted, kernels by name, median of 5),
+    and this process holds its images to ``make_sample_fn``'s on the same
+    weights and inputs (``EXPORT_TOL``) and times the two in turns."""
+    from xmc_gan_tpu_torch.utils.export import (export_sampler, sampler_fn, sampler_ops,
+                                                save_sampler, uses_words)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        jobs, refs, res = [], {}, {}
+        for name in EXPORT_GENS:
+            cfg = df_cfg() if name == "DF_GEN" else concept_cfg(name)
+            rng = np.random.RandomState(21)
+            caps = random_captions(rng, BATCH, cfg.TEXT.MAX_LENGTH, cfg.TEXT.VOCA_SIZE)
+            noise = torch.from_numpy(rng.randn(BATCH, cfg.TRAIN.NOISE_DIM).astype(np.float32))
+            words, sent, mask = make_encode_fn(cfg, device="cuda")(caps)
+            args = [noise.cuda(), sent] + ([words, mask] if uses_words(cfg) else [])
+            want = REQUEST_LAUNCHES[name]
+            for dtype in (torch.float32, torch.bfloat16):
+                label = f"{name} {DTYPE_NAME[dtype]}"
+                t0 = time.perf_counter()
+                ep, template = export_sampler(cfg, dtype=dtype, device="cuda")
+                export_s = time.perf_counter() - t0
+                if list(template) != list(sds[name]):
+                    raise AssertionError(f"{label}: the template's keys are not G's state_dict's")
+                nodes = sum(n.target in sampler_ops() for n in ep.graph.nodes)
+                if nodes != sum(want.values()):
+                    raise AssertionError(f"{label}: {nodes} operator nodes, want {want}")
+                path = save_sampler(os.path.join(root, f"{name}_{DTYPE_NAME[dtype]}.pt2"), ep)
+                g = make_generator(cfg, dtype, "cuda")
+                g.load_state_dict(sds[name], strict=True)
+                sample = make_sample_fn(cfg, g)
+                refs[label] = {str(b): sample(*(a[:b] for a in args)) for b in EXPORT_BATCHES}
+                here = sampler_fn(ep)  # the program as saved, unsaved: no load here
+                params = {k: v.cuda() for k, v in sds[name].items()}
+                for _ in range(2):
+                    here(params, *args)
+                # two eager runs apart (cuDNN's algorithms need not be
+                # deterministic), and the artifact in this process
+                again = (sample(*args) - refs[label][str(BATCH)]).abs().max().item()
+                here_err = (here(params, *args) - refs[label][str(BATCH)]).abs().max().item()
+                log(f"[5d] {label}: exported in {export_s:.2f} s, {nodes} operator nodes; in this "
+                    f"process max abs diff from make_sample_fn: the artifact {here_err:.3g}, "
+                    f"make_sample_fn again {again:.3g}")
+                t_eager, t_export = [], []
+                for _ in range(5):  # in turns
+                    for fn, times in ((lambda: sample(*args), t_eager),
+                                      (lambda: here(params, *args), t_export)):
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t1) * 1e3)
+                res[label] = {"generator": name, "dtype": DTYPE_NAME[dtype], "export_s": export_s,
+                              "artifact_mib": os.path.getsize(path) / 2**20,
+                              "operator_nodes": nodes, "max_abs_diff_here": here_err,
+                              "sample_fn_rerun_diff": again,
+                              "sample_fn_ms": statistics.median(t_eager),
+                              "exported_ms_here": statistics.median(t_export)}
+                inputs = os.path.join(root, f"{name}_{DTYPE_NAME[dtype]}.in.pt")
+                torch.save({"params": sds[name],
+                            "requests": {str(b): [a[:b].cpu() for a in args]
+                                         for b in EXPORT_BATCHES}}, inputs)
+                jobs.append({"label": label, "artifact": path, "inputs": inputs,
+                             "images": os.path.join(root, f"{name}_{DTYPE_NAME[dtype]}.out.pt"),
+                             "batch": BATCH, "pattern": export_pattern(name),
+                             "launches": sum(want.values())})
+                del ep, g, sample, here, params
+                torch.cuda.empty_cache()
+        jobs_path = os.path.join(root, "jobs.json")
+        with open(jobs_path, "w") as f:
+            json.dump(jobs, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, jobs_path], cwd=REPO,
+                              capture_output=True, text=True, timeout=EXPORT_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"[5d] the serving process failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-8000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        strays = sorted(set(child["modules"]) - EXPORT_CHILD_MODULES)
+        if strays:
+            raise AssertionError(f"[5d] the serving process imported {strays}")
+        out = []
+        for job, r in zip(jobs, child["results"]):
+            label, dtype = job["label"], DTYPES_BY_NAME[job["label"].split()[-1]]
+            name = label.split()[0]
+            want = {k: REQUEST_LAUNCHES[name].get(k, 0) for k in r["launches"][str(BATCH)]}
+            if any(n != want for n in r["launches"].values()):
+                raise AssertionError(f"{label} exported: launches {r['launches']}, want {want}")
+            if not all(REQUEST_ATTN_KERNEL.get(name, "fused_affine_") in k for k in r["kernels"]):
+                raise AssertionError(f"{label} exported: kernels {r['kernels']}")
+            images = torch.load(job["images"], map_location="cuda")
+            errs = {}
+            for b, img in images.items():
+                if tuple(img.shape) != (int(b), 256, 256, 3) or img.dtype != torch.float32 \
+                        or not bool(torch.isfinite(img).all()) or img.abs().max().item() > 1.0:
+                    raise AssertionError(f"{label} exported, batch {b}: images "
+                                         f"{tuple(img.shape)} {img.dtype} not finite or outside "
+                                         "[-1, 1]")
+                errs[b] = (img - refs[label][b]).abs().max().item()
+                tol = max(EXPORT_TOL[dtype], 2 * res[label]["sample_fn_rerun_diff"])
+                if errs[b] > tol:
+                    raise AssertionError(f"{label} exported, batch {b}: max abs diff {errs[b]} "
+                                         f"from make_sample_fn > {tol}")
+            row = {**res[label], **{k: r[k] for k in ("load_s", "first_request_ms", "request_ms",
+                                                      "kernels", "request_kernel_ms", "busy_ms",
+                                                      "profiled_request_ms")},
+                   "launches": {k: v for k, v in r["launches"][str(BATCH)].items() if v},
+                   "max_abs_diff": errs}
+            out.append(row)
+            log(f"[5d] {label} exported bs{BATCH} 256²: export {row['export_s']:.2f} s, "
+                f"{row['artifact_mib']:.2f} MiB, {row['operator_nodes']} operator nodes; fresh "
+                f"process: load {row['load_s']:.2f} s, launches {row['launches']} "
+                f"({', '.join(row['kernels'])}), request {row['request_ms']:.2f} ms (median of 5; "
+                f"{row['request_kernel_ms']:.2f} ms of kernels); here in turns: exported "
+                f"{row['exported_ms_here']:.2f} ms, make_sample_fn {row['sample_fn_ms']:.2f} ms; "
+                f"max abs diff from make_sample_fn {errs} | {card}")
+        log(f"[5d] the serving process took {child_s:.1f} s, imported "
+            f"{[m for m in child['modules'] if m.startswith('xmc_gan_tpu_torch')]}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # phase 6g: data parallelism.  Two ranks share the one card over gloo (NCCL
 # refuses two ranks on one card); the flagship_word config's parity step at
 # NCH 8, 64², a global batch of 8 (each rank's [4, 8] word-score row block
@@ -3261,10 +3488,10 @@ def main() -> int:
         f"mean {diff.mean().item():.5f}")
     del diff
     torch.cuda.empty_cache()
-    concept_runs = {}
+    concept_runs, sds = {}, {"DF_GEN": sd}
     for i, name in enumerate(CONCEPT_GENS):
         ccfg = concept_cfg(name)
-        c_sd = perturbed_state_dict(make_generator(ccfg, device="cpu"), seed=30 + i)
+        c_sd = sds[name] = perturbed_state_dict(make_generator(ccfg, device="cpu"), seed=30 + i)
         concept_runs[name] = {dtype: serve(ccfg, c_sd, dtype, name)
                               for dtype in (torch.float32, torch.bfloat16)}
         diff = (concept_runs[name][torch.float32].pop("img")
@@ -3275,6 +3502,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     sent_runs = serve_sent(card, (torch.float32, torch.bfloat16))
+    t_export = time.perf_counter()
+    exported = serve_exported(card, sds)
+    log(f"[5d] {time.perf_counter() - t_export:.1f} s | {card}")
 
     flagship = cfg_from_dict(TRAIN_OVERRIDES)
     trains = {torch.bfloat16: train(flagship, "flagship_word", torch.bfloat16, 2, 10, prefix_mask),
@@ -3326,9 +3556,15 @@ def main() -> int:
         [s[:5] for s in attn_in], [s[:5] for s in attn_out], ca_errs,
         {name: {d: r["cross_attention.forward"] for d, r in req[name].items()}
          for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")}, own_ms)
+    # the exported requests' launches (phase 5d) beside the eager path's
+    for r in exported:
+        which = {"DF_GEN": "fused_affine.double_modulate_lrelu", "CONCEPT_INATTN_GEN":
+                 "cross_attention.in", "CONCEPT_OUTATTN_GEN": "cross_attention.out"}[r["generator"]]
+        row = next(k for k in kernels if k["name"] == f"{which}[{r['dtype']}]")
+        row["launches_exported"] = sum(r["launches"].values())
     log(json.dumps({"card": card, "serving": list(runs.values()),
                     "concept_serving": [r for rs in concept_runs.values() for r in rs.values()],
-                    "sent_serving": sent_runs,
+                    "sent_serving": sent_runs, "exported_serving": exported,
                     "training": [*trains.values(), ln_train, ln_train32],
                     "training_loop": loop, "concept_training_loop": list(concept_loops.values()),
                     "ln_training_loop": ln_fit,

@@ -1230,3 +1230,52 @@ def test_magp_through_concept_netd_runs_the_double_backward(cuda_device):
         if g_cpu is not None:
             torch.testing.assert_close(g_card, g_cpu, rtol=0,
                                        atol=1e-4 * g_cpu.abs().max().item() + 1e-12)
+
+
+EXPORT_KERNEL = {"DF_GEN": (r"fused_affine_(vec|scalar)<", 10),
+                 "CONCEPT_OUTATTN_GEN": (r"attn_small<", 6)}  # launches of one 64² request
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gen", sorted(EXPORT_KERNEL))
+def test_exported_sampler_launches_its_kernels(cuda_device, tmp_path, gen, dtype):
+    """An exported sampler (``utils/export.py``, symbolic batch) saved and
+    loaded serves on the card through the hand kernels, counted by the
+    wrapper and by the profiler's names, and gives ``make_sample_fn``'s
+    images on the same weights: fp32 with TF32 off to 1e-5, bf16 to one
+    bf16 ulp of the [-1, 1] output (the same operators: bit-equal is
+    expected)."""
+    from xmc_gan_tpu_torch.config import cfg_from_dict
+    from xmc_gan_tpu_torch.train import make_generator, make_sample_fn
+    from xmc_gan_tpu_torch.utils.export import export_sampler, load_sampler, save_sampler
+
+    cfg = cfg_from_dict({"TRAIN": {"NCH": 8, "NEF": 32, "NOISE_DIM": 16},
+                         "GEN": {"ENCODER_NAME": gen}, "IMG": {"SIZE": 64},
+                         "TEXT": {"EMBEDDING_DIM": 48, "MAX_LENGTH": 8, "ENCODER_DIR": ""}})
+    ep, _ = export_sampler(cfg, dtype=dtype, device="cuda")
+    serve = load_sampler(save_sampler(str(tmp_path / "s.pt2"), ep))
+    g = make_generator(cfg, dtype, "cuda")
+    rand = torch.Generator().manual_seed(3)  # non-zero gates: every branch counts
+    params = {k: (v.cpu() + 0.05 * torch.randn(v.shape, generator=rand)).cuda()
+              for k, v in g.state_dict().items()}
+    g.load_state_dict(params)
+    sample = make_sample_fn(cfg, g)
+    b = 5
+    args = [torch.randn(b, 16, generator=rand), torch.randn(b, 48, generator=rand)]
+    if gen != "DF_GEN":
+        args += [torch.randn(b, 8, 48, generator=rand), torch.arange(8)[None] >= torch.tensor(
+            [[1], [8], [3], [5], [2]])]
+    args = [a.cuda() for a in args]
+    want = sample(*args)
+    serve(params, *args)
+    pattern, n = EXPORT_KERNEL[gen]
+    count = fa.FORWARD if gen == "DF_GEN" else ca.FORWARD
+    before = count.launches
+    got = serve(params, *args)
+    torch.cuda.synchronize()
+    assert count.launches == before + n
+    device_kernels(lambda: serve(params, *args), expect={pattern: n})
+    assert got.shape == (b, 64, 64, 3) and got.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else BF16_ULP
+    assert (got - want).abs().max().item() <= tol

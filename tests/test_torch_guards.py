@@ -97,9 +97,11 @@ def _caption_batch():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "make_encode_fn", "make_generator",
-                                   "make_sample_fn", "create_train_state"])
+                                   "make_sample_fn", "create_train_state", "export_sampler"])
 def test_entry_points_run_on_cuda_unless_cpu_is_asked(entry, no_cuda):
     """No GPU and no explicit CPU request: raise, never fall back."""
+    from xmc_gan_tpu_torch.utils.export import export_sampler
+
     cfg = cfg_from_dict(TINY)
     call = {
         "resolve_device": lambda **kw: resolve_device(**kw),
@@ -107,6 +109,7 @@ def test_entry_points_run_on_cuda_unless_cpu_is_asked(entry, no_cuda):
         "make_generator": lambda **kw: make_generator(cfg, **kw),
         "make_sample_fn": lambda **kw: make_sample_fn(cfg, **kw),
         "create_train_state": lambda **kw: create_train_state(cfg, **kw),
+        "export_sampler": lambda **kw: export_sampler(cfg, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
@@ -144,7 +147,7 @@ def _tiny_yaml(tmp_path) -> str:
     return str(path)
 
 
-@pytest.mark.parametrize("entry", ["Trainer", "FidComputer", "cli train"])
+@pytest.mark.parametrize("entry", ["Trainer", "FidComputer", "cli train", "cli export-sampler"])
 def test_training_entry_points_run_on_cuda_unless_cpu_is_asked(entry, no_cuda, tmp_path):
     """The trainer, the FID extractor and the CLI's ``train``: no GPU and no
     explicit CPU request raises; with ``device="cpu"`` each runs whole (one
@@ -172,7 +175,12 @@ def test_training_entry_points_run_on_cuda_unless_cpu_is_asked(entry, no_cuda, t
                 "--output_root", out]
         assert cli.main(argv + [f"--device={kw['device']}"] if kw else argv) == 0
 
-    call = {"Trainer": trainer, "FidComputer": fid, "cli train": train_cli}[entry]
+    def export_cli(**kw):
+        argv = ["export-sampler", "--cfg", _tiny_yaml(tmp_path), "--out", out + ".pt2"]
+        assert cli.main(argv + [f"--device={kw['device']}"] if kw else argv) == 0
+
+    call = {"Trainer": trainer, "FidComputer": fid, "cli train": train_cli,
+            "cli export-sampler": export_cli}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -251,6 +259,69 @@ def test_cross_attention_wrapper_has_no_quiet_route():
     assert ca.FORWARD.launches == before
 
 
+OPERATORS = {  # case -> (module, its CUDA implementation, its plain version, eager wrapper)
+    "fused_affine-single": (fa, "_fused_affine_cuda", "_ref", "modulate_lrelu_kernel"),
+    "fused_affine-double": (fa, "_fused_affine_cuda", "_ref", "double_modulate_lrelu_kernel"),
+    "masked_cross_attention": (ca, "_masked_cross_attention_cuda", "masked_cross_attention_ref",
+                               "masked_cross_attention_kernel"),
+}
+
+
+def _operator_args(case: str):
+    """(the operator's arguments, the eager wrapper's) for one case."""
+    if case == "masked_cross_attention":
+        q, k = torch.randn(2, 3, 4), torch.randn(2, 5, 4)
+        mask = torch.tensor([[False] * 5, [False, True, True, True, True]])
+        args = (q, k, k.flip(1), mask, 0.5)
+        return args, args
+    x = torch.randn(2, 8, 3, 5).contiguous(memory_format=torch.channels_last)
+    vecs = [torch.randn(2, 8) for _ in range(2 if case.endswith("single") else 4)]
+    return (x, vecs, 0.2), (x, *vecs, 0.2)
+
+
+@pytest.mark.parametrize("case", sorted(OPERATORS))
+def test_registered_operators_launch_on_cuda_and_run_the_plain_version_on_cpu(case):
+    """Each registered operator (the node an exported program holds) has a
+    CUDA and a CPU implementation and no decomposition.  The CUDA one
+    reaches the launch and never the plain version; the CPU one is the
+    plain version and launches nothing; the fake gives the launch's shape,
+    dtype and strides."""
+    module, cuda_impl, plain, wrapper = OPERATORS[case]
+    name = case.split("-")[0]
+    qualname = f"xmc_gan_tpu_torch::{name}"
+    for key in ("CUDA", "CPU"):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(qualname, key)
+    assert not torch._C._dispatch_has_kernel_for_dispatch_key(qualname,
+                                                             "CompositeImplicitAutograd")
+
+    class Reached(Exception):
+        pass
+
+    def launch(*args):
+        raise Reached
+
+    args, eager_args = _operator_args(case)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(module, "_launch", launch)
+        mp.setattr(module, plain, lambda *a: pytest.fail("a CUDA call took the plain version"))
+        with pytest.raises(Reached):
+            getattr(module, cuda_impl)(*args)
+
+    op = getattr(torch.ops.xmc_gan_tpu_torch, name)
+    before = module.FORWARD.launches
+    got = op(*args)
+    assert module.FORWARD.launches == before
+    assert torch.equal(got, getattr(module, wrapper)(*eager_args))  # the eager CPU path: plain
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fake = op(*torch.utils._pytree.tree_map_only(torch.Tensor, mode.from_tensor, args))
+    assert (fake.shape, fake.dtype, fake.stride()) == (got.shape, got.dtype, got.stride())
+    if name == "fused_affine":  # what _launch allocates: empty_like(x)
+        assert got.stride() == args[0].stride()
+
+
 def test_modules_list_covers_the_slice():
     want = {"config", "device", "registry", "trainer", "train", "cli", "losses",
             "ops.initializers", "ops.modules", "ops.fused", "ops.images", "ops.cuda.build",
@@ -259,7 +330,7 @@ def test_modules_list_covers_the_slice():
             "models.df_concept_gan", "models.concept_gan", "models.encoder", "utils.convert",
             "utils.miscc", "data.vocab", "data.pipeline", "data.native", "data.toy",
             "utils.checkpoint", "utils.logger", "models.inception", "eval", "data.text_encode",
-            "models.vgg"}
+            "models.vgg", "utils.export", "data.coco_prep", "data.ln_prep"}
     assert {f"xmc_gan_tpu_torch.{m}" for m in want} <= set(MODULES)
     for name in MODULES:
         importlib.import_module(name)

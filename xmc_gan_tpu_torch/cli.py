@@ -1,15 +1,28 @@
-"""Command line of the port: ``train``, ``eval`` and ``sample``.
+"""Command line of the port.
 
     python -m xmc_gan_tpu_torch.cli train --cfg xmc_gan_tpu/cfg/df_gan_damsm.yml \\
         --data_dir data/coco [--synthetic] [--max_epochs N] [--resume_auto] ...
     python -m xmc_gan_tpu_torch.cli eval --cfg ... [--resume_epoch E] [--protocol fid30k]
     python -m xmc_gan_tpu_torch.cli sample --cfg ... --data_dir data/coco \\
         --caption "a red bird on a branch" [--resume_epoch E | --weights G.pth]
+    python -m xmc_gan_tpu_torch.cli export-sampler --cfg ... --out sampler.pt2 [--bs 0]
+    python -m xmc_gan_tpu_torch.cli prep-coco --data_dir data/coco \\
+        --train_json captions_train2014.json --test_json captions_val2014.json
+    python -m xmc_gan_tpu_torch.cli prep-ln --data_dir data/ln_coco \\
+        --train_jsonl coco_train_captions.jsonl --test_jsonl coco_val_captions.jsonl
+    python -m xmc_gan_tpu_torch.cli convert-fid-weights --src inception.pth --out fid.npz
+    python -m xmc_gan_tpu_torch.cli convert-vgg-weights --src vgg19.pth --out vgg.npz
 
-Port of the JAX CLI's ``train``, ``eval`` and ``sample``
-(``xmc_gan_tpu/cli.py:26-100,187-202,207-313,336-385``) with the flags that
-mean something on one card, and ``--device`` (default ``cuda``; ``cpu`` only
-when asked).  ``train`` writes the JAX package's layout under
+Port of the JAX CLI (``xmc_gan_tpu/cli.py:26-202,207-428``) with the flags
+that mean something on one card, and ``--device`` (default ``cuda``; ``cpu``
+only when asked) in place of ``--platform``/``--platforms``.
+``export-sampler`` writes a ``torch.export`` program (``utils/export.py``;
+``--bs 0``, the default, exports a symbolic batch); ``prep-coco`` and
+``prep-ln`` write the dataset layout (``data/coco_prep.py``,
+``data/ln_prep.py``); the two converters write the torch-free ``.npz`` that
+``FID_WEIGHTS_PATH`` and ``VGG_WEIGHTS_PATH`` name.  Each writes what the
+JAX CLI's subcommand of the same name writes, except the sampler's format.
+``train`` writes the JAX package's layout under
 ``{output_root}/{DATASET_NAME}{SIZE}_{CONFIG_NAME}_{seed}/`` with the port's
 own checkpoints (``utils/checkpoint.py``); ``eval`` and ``sample`` read them.
 Data parallelism runs one process per card under torchrun, which sets the
@@ -26,7 +39,7 @@ parallelism is not ported.  SENT (SBERT) configs train and evaluate (their capti
 from the dataset's ``sbert_cache_{mode}.npz``, or a seeded table with
 ``--synthetic``); ``sample`` raises for them: a new caption needs the
 RoBERTa transformer and its ``stsb-roberta-base`` weights, which are not in
-the repository.
+the repository, and so does ``prep-ln --build_cache`` for the same reason.
 The noise is drawn with ``torch.Generator``s, so the images differ from the
 JAX CLI's (``jax.random``) for the same seed.
 """
@@ -52,7 +65,12 @@ from xmc_gan_tpu_torch.trainer import Trainer, make_encode_fn, run_dir
 from xmc_gan_tpu_torch.utils.checkpoint import CheckpointManager
 from xmc_gan_tpu_torch.utils.miscc import save_image_grid
 
-__all__ = ["main", "parse_args", "run_train", "run_eval", "run_sample"]
+__all__ = ["main", "parse_args", "run_train", "run_eval", "run_sample", "run_export_sampler",
+           "run_prep_coco", "run_prep_ln", "run_convert_fid_weights", "run_convert_vgg_weights"]
+
+# what a new SENT caption needs, and neither the repository nor this package holds
+SBERT_REFUSAL = ("the RoBERTa transformer (sentence-transformers/stsb-roberta-base) and its "
+                 "weights, which are not in the repository")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -145,6 +163,75 @@ def parse_args(argv=None) -> argparse.Namespace:
     s.add_argument("--seed", type=int, default=100)
     s.add_argument("--n_per_caption", type=int, default=4)
     s.add_argument("--out", default="samples.png")
+
+    pl = sub.add_parser(
+        "prep-ln",
+        help="convert Localized Narratives JSONL annotations into the reference dataset "
+             "layout (filenames.pickle + bert_captions.pickle)")
+    pl.add_argument("--data_dir", required=True,
+                    help="dataset root; images at {data_dir}/images/{key}.jpg")
+    pl.add_argument("--train_jsonl", action="append", required=True,
+                    help="LN annotation JSONL for the train split (repeatable)")
+    pl.add_argument("--test_jsonl", action="append", required=True,
+                    help="LN annotation JSONL for the test split (repeatable)")
+    pl.add_argument("--caps_per_image", type=int, default=1,
+                    help="caption slots per image (must match cfg.TEXT.CAPTIONS_PER_IMAGE; "
+                         "LN default 1)")
+    pl.add_argument("--key_format", default="{}",
+                    help="image_id -> image key, e.g. 'COCO_train2014_{:012d}' (2014 naming), "
+                         "'{:012d}' (2017), '{}' (OpenImages)")
+    pl.add_argument("--build_cache", action="store_true",
+                    help="also build the SBERT cache: not ported (needs the RoBERTa weights)")
+    pl.add_argument("--cfg", default=None, help="YAML config for --build_cache")
+
+    pc = sub.add_parser(
+        "prep-coco",
+        help="build the reference dataset artifacts (filenames.pickle, captions.pickle, "
+             "bert_captions.pickle) from raw COCO captions_{train,val}2014.json annotations")
+    pc.add_argument("--data_dir", required=True,
+                    help="dataset root; images at {data_dir}/images/{key}.jpg")
+    pc.add_argument("--train_json", required=True,
+                    help="COCO caption annotations for the train split (captions_train2014.json)")
+    pc.add_argument("--test_json", required=True,
+                    help="COCO caption annotations for the test split (captions_val2014.json)")
+    pc.add_argument("--caps_per_image", type=int, default=5,
+                    help="caption slots per image (must match cfg.TEXT.CAPTIONS_PER_IMAGE; "
+                         "COCO default 5)")
+    pc.add_argument("--vocab_from", default=None,
+                    help="existing captions.pickle whose (i2w, w2i) to reuse verbatim; OOV "
+                         "tokens drop")
+
+    cw = sub.add_parser(
+        "convert-fid-weights",
+        help="convert a torchvision inception_v3 or pytorch_fid checkpoint (.pth) into a "
+             "torch-free .npz for FID_WEIGHTS_PATH")
+    cw.add_argument("--src", required=True,
+                    help=".pth checkpoint: torchvision inception_v3 or pytorch_fid "
+                         "pt_inception-2015-12-05 (same names)")
+    cw.add_argument("--out", required=True, help="output .npz path")
+
+    vw = sub.add_parser(
+        "convert-vgg-weights",
+        help="convert a torchvision vgg19 checkpoint (.pth) into a torch-free .npz for "
+             "VGG_WEIGHTS_PATH (ENCODER_LOSS.VGG)")
+    vw.add_argument("--src", required=True,
+                    help=".pth checkpoint: torchvision vgg19 state_dict (or any dict holding "
+                         "its 'features.*' tensors)")
+    vw.add_argument("--out", required=True, help="output .npz path")
+
+    ex = sub.add_parser(
+        "export-sampler",
+        help="serialize the sampler to a torch.export program (.pt2); params stay call-time "
+             "inputs so one artifact serves every checkpoint of the config")
+    ex.add_argument("--cfg", required=True)
+    ex.add_argument("--out", required=True, help="artifact output path")
+    ex.add_argument("--bs", type=int, default=0,
+                    help="pin the batch dim (default 0: symbolic, any size)")
+    ex.add_argument("--imsize", type=int, default=-1)
+    ex.add_argument("--dtype", choices=sorted(DTYPES), default="fp32",
+                    help="activation dtype of the traced generator")
+    ex.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the device the program is traced for and runs on")
     return p.parse_args(argv)
 
 
@@ -243,9 +330,8 @@ def run_sample(args: argparse.Namespace) -> str:
     cfg = cfg_from_file(args.cfg)
     if cfg.TEXT.TYPE != "WORD":
         raise NotImplementedError(
-            "sample for SENT (SBERT) configs encodes new captions with the RoBERTa transformer "
-            "(sentence-transformers/stsb-roberta-base) and its weights, which are not in the "
-            "repository; it waits until they are")
+            f"sample for SENT (SBERT) configs encodes new captions with {SBERT_REFUSAL}; it "
+            "waits until they are")
     caps, cap_lens = tokenize(list(args.caption), load_w2i(args.data_dir),
                               cfg.TEXT.MAX_LENGTH)
     encode = make_encode_fn(cfg, device=args.device, weights=args.text_encoder)
@@ -268,6 +354,60 @@ def run_sample(args: argparse.Namespace) -> str:
     return args.out
 
 
+def run_export_sampler(args: argparse.Namespace) -> str:
+    from xmc_gan_tpu_torch.utils.export import export_sampler, save_sampler
+
+    cfg = cfg_from_file(args.cfg)
+    if args.imsize != -1:
+        cfg = cfg.replace(IMG=dataclasses.replace(cfg.IMG, SIZE=args.imsize))
+    exported, _ = export_sampler(cfg, batch_size=args.bs or None, dtype=DTYPES[args.dtype],
+                                 device=args.device)
+    return save_sampler(args.out, exported)
+
+
+def run_prep_ln(args: argparse.Namespace) -> dict:
+    from xmc_gan_tpu_torch.data.ln_prep import prepare_localized_narratives
+
+    if args.build_cache:
+        raise NotImplementedError(
+            f"prep-ln --build_cache encodes every caption with {SBERT_REFUSAL}; the port reads "
+            "a cache that the JAX package's build_sbert_cache wrote")
+    return prepare_localized_narratives(
+        args.data_dir, args.train_jsonl, args.test_jsonl,
+        caps_per_image=args.caps_per_image, key_format=args.key_format)
+
+
+def run_prep_coco(args: argparse.Namespace) -> dict:
+    from xmc_gan_tpu_torch.data.coco_prep import prepare_coco
+
+    return prepare_coco(args.data_dir, args.train_json, args.test_json,
+                        caps_per_image=args.caps_per_image, vocab_from=args.vocab_from)
+
+
+def run_convert_fid_weights(args: argparse.Namespace) -> str:
+    from xmc_gan_tpu_torch.eval import save_fid_weights_npz
+    from xmc_gan_tpu_torch.models.inception import inception_params_from_torch
+    from xmc_gan_tpu_torch.utils.convert import load_state_dict
+
+    save_fid_weights_npz(inception_params_from_torch(load_state_dict(args.src)), args.out)
+    return args.out
+
+
+def run_convert_vgg_weights(args: argparse.Namespace) -> str:
+    from xmc_gan_tpu_torch.eval import save_fid_weights_npz
+    from xmc_gan_tpu_torch.models.vgg import vgg19_params_from_torch
+    from xmc_gan_tpu_torch.utils.convert import load_state_dict
+
+    save_fid_weights_npz(vgg19_params_from_torch(load_state_dict(args.src)), args.out)
+    return args.out
+
+
+_RUNNERS = {"sample": run_sample, "export-sampler": run_export_sampler,
+            "prep-ln": run_prep_ln, "prep-coco": run_prep_coco,
+            "convert-fid-weights": run_convert_fid_weights,
+            "convert-vgg-weights": run_convert_vgg_weights}
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
@@ -277,7 +417,7 @@ def main(argv=None) -> int:
             name, value = run_eval(args)
             out = {name: round(value, 4)}
         else:
-            out = run_sample(args)
+            out = _RUNNERS[args.cmd](args)
         if not getattr(args, "distributed", False) or torch.distributed.get_rank() == 0:
             print(out)
     finally:

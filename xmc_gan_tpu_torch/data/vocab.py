@@ -1,8 +1,8 @@
 """Caption vocabulary and tokenization for WORD configs.
 
 The vocabulary is ``w2i`` from the dataset's ``captions.pickle``
-(``(train_caps, test_caps, i2w, w2i)``, written by the JAX package's
-``prep-coco``; read as ``xmc_gan_tpu/data/pipeline.py:225-229`` does).
+(``(train_caps, test_caps, i2w, w2i)``, written by ``prep-coco``,
+``data/coco_prep.py``; read as ``xmc_gan_tpu/data/pipeline.py:225-229`` does).
 Tokenization follows the JAX CLI's ``sample`` (``cli.py:360-366``): lower-case,
 split on whitespace, drop out-of-vocabulary words, truncate to ``max_length``,
 pad with 0.

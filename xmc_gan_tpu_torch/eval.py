@@ -11,7 +11,8 @@ device (``FeatureStats``); one host-side ``sqrtm`` in fp64 gives the number
 
 Weights: ``FID_WEIGHTS_PATH`` or ``weights_path=`` names a torchvision
 ``inception_v3`` or pytorch_fid ``state_dict`` (``.pth``, the same tensor
-names) or the JAX CLI's ``convert-fid-weights`` ``.npz``.  Without weights,
+names) or the ``.npz`` of ``convert-fid-weights`` (either package's CLI;
+``save_fid_weights_npz``).  Without weights,
 ``FidComputer`` takes a fixed-seed random-init Inception, standardized
 against a fixed probe batch: its value tracks relative progress only and is
 reported as ``FID_randinit_proxy``, never as ``FID``.  The random weights are
@@ -55,6 +56,7 @@ __all__ = [
     "evaluate_fid",
     "evaluate_fid_30k",
     "load_fid_weights_npz",
+    "save_fid_weights_npz",
     "seeded_noise",
 ]
 
@@ -114,8 +116,28 @@ class FeatureStats:
         return mu, (o - n * np.outer(mu, mu)) / (n - 1)
 
 
+def save_fid_weights_npz(variables: dict, path: str) -> None:
+    """Converted variables (nested dicts of arrays: ``models.inception.
+    inception_params_from_torch``, ``models.vgg.vgg19_params_from_torch``) ->
+    a flat ``.npz`` of float32 arrays, '/'-joined paths in sorted key order,
+    as the JAX package's ``save_fid_weights_npz`` writes it (``cli
+    convert-fid-weights`` / ``convert-vgg-weights``)."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node: dict, prefix: str) -> None:
+        for key in sorted(node):
+            child = node[key]
+            if isinstance(child, dict):
+                walk(child, f"{prefix}{key}/")
+            else:
+                flat[f"{prefix}{key}"] = np.asarray(child, np.float32)
+
+    walk(variables, "")
+    np.savez(path, **flat)
+
+
 def load_fid_weights_npz(path: str) -> dict:
-    """The JAX CLI's ``convert-fid-weights`` ``.npz`` ('/'-joined paths) as
+    """A ``convert-fid-weights`` ``.npz`` ('/'-joined paths) as
     nested dicts of numpy arrays (``utils/convert.inception_state_dict_from_jax``
     takes them)."""
     tree: dict = {}

@@ -13,15 +13,23 @@ max instead of average.
 Inference only (BatchNorm from its running statistics, eps 1e-3).  NCHW in
 and out, as the port's other modules; the convolutions stay on cuDNN, as the
 JAX package left them to XLA.
+
+``inception_params_from_torch`` (``cli convert-fid-weights``) maps such a
+``state_dict`` onto the JAX package's variable tree, numpy only, for the
+torch-free ``.npz`` that ``eval.save_fid_weights_npz`` writes and both
+packages read.
 """
 
 from __future__ import annotations
 
+from typing import Mapping, Sequence
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["InceptionV3", "preprocess"]
+__all__ = ["InceptionV3", "preprocess", "inception_params_from_torch", "f32_array"]
 
 
 class BasicConv2d(nn.Module):
@@ -195,3 +203,52 @@ class InceptionV3(nn.Module):
         if self.fc is not None and return_logits:
             return self.fc(feats)
         return feats
+
+
+def f32_array(value) -> np.ndarray:
+    """A ``state_dict`` value (tensor or array) as a float32 numpy array."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().float().numpy()
+    return np.asarray(value, dtype=np.float32)
+
+
+def inception_params_from_torch(state_dict: Mapping) -> dict:
+    """torchvision/pytorch_fid ``inception_v3`` state_dict -> the JAX
+    package's variables ``{'params': ..., 'batch_stats': ...}`` as nested
+    dicts of float32 numpy arrays (``xmc_gan_tpu/models/inception.py:217``).
+    Tensor names map 1:1; conv weights transpose OIHW -> HWIO; ``AuxLogits``
+    and ``num_batches_tracked`` drop; any other name raises ``KeyError``."""
+    params: dict = {}
+    batch_stats: dict = {}
+
+    def put(tree: dict, path: Sequence[str], leaf: np.ndarray) -> None:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+
+    for name, value in state_dict.items():
+        arr = f32_array(value)
+        parts = name.split(".")
+        if parts[0].startswith("AuxLogits"):
+            continue
+        if parts[-2] == "conv" and parts[-1] == "weight":
+            put(params, parts[:-1] + ["kernel"], np.transpose(arr, (2, 3, 1, 0)))
+        elif parts[-2] == "bn":
+            if parts[-1] == "weight":
+                put(params, parts[:-1] + ["scale"], arr)
+            elif parts[-1] == "bias":
+                put(params, parts[:-1] + ["bias"], arr)
+            elif parts[-1] == "running_mean":
+                put(batch_stats, parts[:-1] + ["mean"], arr)
+            elif parts[-1] == "running_var":
+                put(batch_stats, parts[:-1] + ["var"], arr)
+            # num_batches_tracked: dropped
+        elif parts[0] == "fc":
+            put(params, ["fc", "kernel" if parts[-1] == "weight" else "bias"],
+                arr.T if parts[-1] == "weight" else arr)
+        elif parts[-1] == "num_batches_tracked":
+            continue
+        else:
+            raise KeyError(f"Unrecognized inception tensor {name}")
+    return {"params": params, "batch_stats": batch_stats}

@@ -13,7 +13,9 @@ tensors load as they are; ``utils/convert.vgg_state_dict_from_jax`` maps
 the JAX package's ``conv{i}`` trees.  The convolutions and pools stay on
 cuDNN (the JAX package leaves them to XLA; no Pallas kernel is involved).
 Activations are NCHW in ``channels_last`` memory in ``dtype``; parameters
-are fp32 and frozen.
+are fp32 and frozen.  ``vgg19_params_from_torch`` (``cli
+convert-vgg-weights``) maps a torchvision state_dict the other way, onto the
+JAX package's ``conv{i}`` tree, for the ``.npz`` that both packages read.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["VGG19_CFG", "TAPS", "VGG19Features", "preprocess", "make_vgg"]
+__all__ = ["VGG19_CFG", "TAPS", "VGG19Features", "preprocess", "make_vgg",
+           "vgg19_params_from_torch"]
 
 # torchvision vgg19 'E' configuration: conv channels per layer, 'M' = maxpool
 VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -109,12 +112,34 @@ def _random_init(model: VGG19Features) -> None:
                 m.bias.zero_()
 
 
+def vgg19_params_from_torch(state_dict: dict) -> dict:
+    """Map a torchvision ``vgg19`` (or ``vgg19.features``) state_dict onto the
+    JAX package's ``VGG19Features`` params (``xmc_gan_tpu/models/vgg.py:93``),
+    nested dicts of float32 numpy arrays: conv kernels OIHW -> HWIO, in
+    configuration order (torchvision indexes convs at features.{0,2,5,...};
+    they are indexed densely as conv0..conv15)."""
+    from xmc_gan_tpu_torch.models.inception import f32_array
+
+    feat_keys = sorted(
+        (k for k in state_dict if k.endswith(".weight")
+         and (".features." in k or k.startswith("features."))
+         and getattr(state_dict[k], "ndim", 0) == 4),
+        key=lambda k: int(k.split("features.")[-1].split(".")[0]),
+    )
+    params = {}
+    for i, wk in enumerate(feat_keys):
+        bk = wk[: -len("weight")] + "bias"
+        params[f"conv{i}"] = {"kernel": f32_array(state_dict[wk]).transpose(2, 3, 1, 0),
+                              "bias": f32_array(state_dict[bk])}
+    return {"params": params}
+
+
 def make_vgg(dtype: torch.dtype = torch.float32, device: str | torch.device = "cpu",
              path: str | None = None, *,
              log: Callable[[str], None] | None = None) -> VGG19Features:
     """The frozen VGG-19 of ``ENCODER_LOSS.VGG`` on ``device`` with ``dtype``
     activations.  Weights from ``path`` (default ``VGG_WEIGHTS_PATH``): a
-    ``.npz`` (the JAX CLI's ``convert-vgg-weights`` output: '/'-joined
+    ``.npz`` (``convert-vgg-weights``' output, either package's: '/'-joined
     ``params/conv{i}/{kernel,bias}``) or a torchvision ``vgg19`` state_dict
     (``.pth``; its ``features.*`` tensors).  Without a file, a seeded random
     init, which ``log`` reports (a relative objective only, as in the JAX

@@ -48,6 +48,13 @@ Contract of ``masked_cross_attention_kernel``:
   version.
 * A CPU tensor goes to the plain version below; a CUDA tensor launches the
   planned kernel or raises.  There is no fallback from one to the other.
+* The forward is also a registered operator,
+  ``torch.ops.xmc_gan_tpu_torch.masked_cross_attention``: ``_check``, ``plan``
+  and the launch for CUDA tensors, the plain version for CPU tensors, a fake
+  that gives the launch's contiguous output.  A traced program
+  (``torch.export``, ``utils/export.py``) holds each call as one such node,
+  so the plan is made at run time from the real strides and address; eager
+  calls are unchanged.  It has no autograd formula (inference only).
 """
 
 from __future__ import annotations
@@ -60,11 +67,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary, LaunchCount
+from xmc_gan_tpu_torch.ops.cuda.fused_affine import OP_NAMESPACE
 
 __all__ = ["KERNEL", "FORWARD", "BACKWARD", "MAX_D", "MAX_BWD_D", "MAX_BWD_T", "GROUPED",
            "SMALL", "WIDE", "BWD", "BWD_WARP", "Plan", "BwdPlan", "plan", "plan_for", "plan_bwd",
            "kernel_name", "bwd_kernel_name", "masked_cross_attention_kernel",
-           "masked_cross_attention_ref", "masked_cross_attention_bwd_ref"]
+           "masked_cross_attention_ref", "masked_cross_attention_bwd_ref",
+           "masked_cross_attention_op"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # int xmc_cross_attention(q, k, v, mask, out, B, G, N, T, D, qsb, qsg, qsn, qsd,
@@ -387,11 +396,34 @@ class _MaskedCrossAttention(torch.autograd.Function):
         return (*_launch_bwd(q, k, v, mask, dout, ctx.scale), None, None)
 
 
+def _masked_cross_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 mask: torch.Tensor, scale: float) -> torch.Tensor:
+    _check(q, k, v, mask)
+    return _launch(q, k, v, mask, scale)
+
+
+def _masked_cross_attention_cpu(q, k, v, mask, scale):
+    _check(q, k, v, mask)
+    return masked_cross_attention_ref(q, k, v, mask, scale).contiguous()
+
+
+# the forward as a registered operator: the planned kernel for CUDA tensors,
+# the plain version for CPU tensors, the launch's dense output for fake ones
+masked_cross_attention_op = torch.library.custom_op(
+    f"{OP_NAMESPACE}::masked_cross_attention", _masked_cross_attention_cuda, mutates_args=(),
+    device_types="cuda")
+masked_cross_attention_op.register_kernel("cpu", _masked_cross_attention_cpu)
+masked_cross_attention_op.register_fake(lambda q, k, v, mask, scale: q.new_empty(q.shape))
+
+
 def masked_cross_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   mask: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """Masked cross-attention (see the module docstring): the planned CUDA
     kernel on CUDA tensors (differentiable through the planned backward
-    kernel when autograd is on), the plain version on CPU tensors."""
+    kernel when autograd is on), the plain version on CPU tensors.  In a
+    traced program, the registered operator."""
+    if torch.compiler.is_compiling():
+        return masked_cross_attention_op(q, k, v, mask, float(scale))
     _check(q, k, v, mask)
     if q.device.type == "cpu":
         return masked_cross_attention_ref(q, k, v, mask, scale)

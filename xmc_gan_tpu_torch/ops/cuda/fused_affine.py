@@ -42,6 +42,15 @@ Contract of both wrappers:
 * A CPU tensor goes to the plain versions below (in fp64 too, for
   ``gradgradcheck``); a CUDA tensor launches the
   kernels or raises.  There is no fallback from one to the other.
+* Both forwards are also one registered operator,
+  ``torch.ops.xmc_gan_tpu_torch.fused_affine(x, mods, slope)`` (2 vectors:
+  the single form, 4: the double; ``torch.library.custom_op``): the kernel
+  launch for CUDA tensors, the plain version for CPU tensors, a fake that
+  gives the launch's channels_last output.  A traced program
+  (``torch.export``, ``utils/export.py``) holds each call as one such node,
+  since a ``ctypes`` launch cannot be traced; eager calls keep the autograd
+  Function.  The operator has no autograd formula: a traced program runs it
+  for inference only.
 """
 
 from __future__ import annotations
@@ -74,6 +83,8 @@ __all__ = [
     "double_modulate_lrelu_ref",
     "fused_affine_bwd_ref",
     "fused_affine_bwd2_ref",
+    "OP_NAMESPACE",
+    "fused_affine_op",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -98,6 +109,8 @@ DOUBLE_BACKWARD = LaunchCount()
 DY_COPIES = LaunchCount()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the namespace of the port's registered operators (torch.ops.xmc_gan_tpu_torch)
+OP_NAMESPACE = "xmc_gan_tpu_torch"
 
 BWD_VEC, BWD_SCALAR = "fused_affine_bwd_vec", "fused_affine_bwd_scalar"
 _BWD_KERNEL_CODE = {BWD_VEC: 0, BWD_SCALAR: 1}
@@ -423,7 +436,31 @@ class _FusedAffine(torch.autograd.Function):
         return (grads[0], None, *grads[1:])
 
 
+def _fused_affine_cuda(x: torch.Tensor, mods: list[torch.Tensor], slope: float) -> torch.Tensor:
+    _check(x, tuple(mods))
+    return _launch(x, tuple(mods), slope)
+
+
+def _fused_affine_cpu(x, mods, slope):
+    _check(x, tuple(mods))
+    return _ref(x, tuple(mods), slope).contiguous(memory_format=torch.channels_last)
+
+
+# both forms (2 or 4 vectors) as one registered operator: the kernel for CUDA
+# tensors, the plain version for CPU tensors, the launch's output (x's
+# shape and dtype in channels_last memory) for fake ones
+fused_affine_op = torch.library.custom_op(f"{OP_NAMESPACE}::fused_affine", _fused_affine_cuda,
+                                          mutates_args=(), device_types="cuda")
+fused_affine_op.register_kernel("cpu", _fused_affine_cpu)
+fused_affine_op.register_fake(
+    lambda x, mods, slope: torch.empty_like(x, memory_format=torch.channels_last))
+
+
 def _dispatch(x: torch.Tensor, mods: tuple[torch.Tensor, ...], slope: float) -> torch.Tensor:
+    if torch.compiler.is_compiling():
+        # a traced program (torch.export, torch.compile) holds the operator,
+        # whose implementations make every shape decision at run time
+        return fused_affine_op(x, list(mods), float(slope))
     _check(x, mods)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_affine runs on CUDA or CPU tensors, got {x.device}")

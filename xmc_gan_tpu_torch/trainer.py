@@ -47,7 +47,7 @@ the port differs from the JAX ``Trainer``:
   checkpoint barriers) run on a gloo group beside NCCL and never wait for
   the card; every window is polled (JAX: every ``preempt_poll_windows``-th).
 * ``ENCODER_LOSS.VGG``'s frozen VGG-19 (``models/vgg.make_vgg``) reads
-  ``VGG_WEIGHTS_PATH`` (the JAX CLI's ``convert-vgg-weights`` ``.npz``, or a
+  ``VGG_WEIGHTS_PATH`` (``convert-vgg-weights``' ``.npz``, or a
   torchvision ``vgg19`` ``.pth``) as the JAX trainer does; without it, a
   seeded random init from a ``torch.Generator`` (not the JAX package's
   draw), which the log reports.

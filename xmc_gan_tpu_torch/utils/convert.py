@@ -286,7 +286,7 @@ def train_state_from_jax(cfg, g_params: Mapping[str, Any], d_params: Mapping[str
 
 def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX ``InceptionV3`` variables (``{"params", "batch_stats"}``, numpy
-    trees; also what the JAX CLI's ``convert-fid-weights`` writes as ``.npz``)
+    trees; also what either CLI's ``convert-fid-weights`` writes as ``.npz``)
     -> the port's ``models.inception.InceptionV3`` names, which are
     torchvision's: ``conv.kernel`` HWIO -> ``conv.weight`` OIHW, ``bn.scale``
     / ``bias`` / ``mean`` / ``var`` -> ``bn.weight`` / ``bias`` /
@@ -321,7 +321,7 @@ def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, tor
 
 def vgg_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX ``VGG19Features`` variables (``{"params": {"conv{i}": {"kernel",
-    "bias"}}}``, numpy trees; also what the JAX CLI's ``convert-vgg-weights``
+    "bias"}}}``, numpy trees; also what either CLI's ``convert-vgg-weights``
     writes as ``.npz``) -> the port's ``models.vgg.VGG19Features`` names,
     which are torchvision's: dense conv index ``i`` -> ``features.{j}`` at
     the ``i``-th conv of the tower, kernel HWIO -> weight OIHW."""
