@@ -127,7 +127,20 @@ Phases (any failure raises, and the exit code is then non-zero):
    fp32, TF32 off, 1e-5 or twice the spread of two ``make_sample_fn`` runs
    where cuDNN's fp32 algorithms make that larger; bf16 one bf16 ulp), and
    the program (before it was saved) and ``make_sample_fn`` timed in turns
-   in this process (median of 5 each).
+   in this process (median of 5 each); (5e) SBERT encoding
+   (``data/text_encode.py``: the port's byte-level BPE tokenizer and RoBERTa
+   encoder) on a seeded checkpoint at the published ``stsb-roberta-base``
+   shape in a temporary HF hub cache (``HF_HUB_CACHE``):
+   ``build_sbert_cache`` over 2,048 train and 512 test LN-length captions
+   (some longer than T = 200 tokens), the caches read back; the tokenizer
+   (host) and the encoder (card, fp32, TF32 off) timed apart, the encoder's
+   busy share, bound and peak memory; the card's embeddings against the
+   port's CPU encode (``SBERT_TOL``); 128 new captions through
+   ``make_hf_sbert_encode`` -> ``SBERTEncoder`` -> the ``ln_coco_256.yml`` G
+   at 256², fp32 and bf16, 14 ``fused_affine`` forwards asserted; ``cli
+   sample`` and ``cli prep-ln --build_cache`` once (its caches within one
+   fp16 ulp of ``build_sbert_cache``'s rows); ``cli train --synthetic --max_steps 2
+   --gpu 0 --debug_nans`` as a process.
 6. Full-width training: the ``flagship_word`` step (DF-GAN G + D at 256²,
    NCH=32, batch 128, RMIS, MAGP, sentence/image/word-region InfoNCE) from
    ``create_train_state`` + ``make_train_step``, bf16 activations (2 warm-up
@@ -242,8 +255,10 @@ fixed seeds): no trained checkpoint is in the repository.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
+import io
 import json
 import math
 import shutil
@@ -2363,6 +2378,407 @@ def serve_sent(card: str, dtypes) -> list[dict]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 5e: SBERT encoding (data/text_encode.py: the port's byte-level
+# BPE tokenizer and RoBERTa encoder) on a seeded checkpoint at the published
+# stsb-roberta-base shape (models/roberta.RobertaConfig's defaults: vocab
+# 50,265, hidden 768, 12 layers, 12 heads, FFN 3,072, 514 positions; the
+# real weights are not in the repository), in a temporary HF hub cache
+SBERT_CAPTIONS = {"train": 2048, "test": 512}
+SBERT_LONG_EVERY = 16  # about one caption in 16 is longer than T = 200 tokens
+SBERT_CHECK_ROWS = 4  # captions encoded on the card and on the CPU (one long)
+SBERT_TOL = 1e-4  # card vs CPU, fp32 with TF32 off: LayerNorm outputs of O(1)
+SBERT_COMMIT = "5e" * 20  # the snapshot's name under refs/main
+SBERT_SEED = 21
+SBERT_PSEUDO_WORDS = 600
+SBERT_WORDS = (
+    "in this image we can see a an the of and on with there is are it its this that "
+    "picture front background top bottom left right side middle near behind person people "
+    "man woman boy girl child dog cat bird horse car bus train truck plate food table chair "
+    "kitchen stove window door wall floor grass tree trees sky cloud clouds water road "
+    "building buildings white black red blue green yellow brown small big standing sitting "
+    "walking holding wearing looking playing some few two three many other objects poles "
+    "light lights board text logo bottle cup glass bowl vase flowers plant plants field "
+    "snow rock rocks fence bench umbrella bag shirt hat jacket").split()
+SBERT_EXTRAS = ("it's", "we'll", "they're", "café", "crème", "2", "42", "1000", "🙂", "(", ")",
+                "-")
+# frequent byte pairs merged before any word's own merges, so that the
+# merge order matters
+SBERT_PAIRS = ("t h", "i n", "e r", "a n", "Ġ t", "o n", "r e", "Ġ a", "e n", "a t",
+               "Ġ s", "o r", "Ġ w", "e s", "Ġt h", "i s", "Ġ c", "a r")
+
+
+def sbert_vocabulary(rng) -> tuple[list[str], list[tuple[str, str]], dict[str, int]]:
+    """The captions' words (``SBERT_WORDS``, seeded pseudo-words, a few
+    extras), a few thousand deterministic BPE merges (``SBERT_PAIRS``, then
+    each word built left to right, with and without the leading space) and
+    the 50,265-entry vocabulary (4 specials, the 256 byte symbols, the
+    merges' results, unused fillers, ``<mask>`` last)."""
+    from xmc_gan_tpu_torch.data.bpe import bytes_to_unicode
+    from xmc_gan_tpu_torch.models.roberta import RobertaConfig
+
+    cons, vows = "bcdfghjklmnprstvwz", "aeiou"
+    pseudo = sorted({"".join(rng.choice(list(cons)) + rng.choice(list(vows))
+                             for _ in range(rng.randint(2, 5))) for _ in range(SBERT_PSEUDO_WORDS)})
+    words = [*SBERT_WORDS, *pseudo]
+    b2u = bytes_to_unicode()
+    merges = [tuple(p.split()) for p in SBERT_PAIRS]
+    seen = set(merges)
+    for w in words:
+        for lead in ("", " "):
+            chars = [b2u[b] for b in (lead + w).encode("utf-8")]
+            cur = chars[0]
+            for c in chars[1:]:
+                if (cur, c) not in seen:
+                    seen.add((cur, c))
+                    merges.append((cur, c))
+                cur += c
+    n_vocab = RobertaConfig().vocab_size
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])}
+    for tok in [*b2u.values(), *(a + b for a, b in merges)]:
+        vocab.setdefault(tok, len(vocab))
+    for i in range(n_vocab - 1 - len(vocab)):
+        vocab[f"<unused{i}>"] = len(vocab)
+    vocab["<mask>"] = n_vocab - 1
+    return [*words, *SBERT_EXTRAS], merges, vocab
+
+
+def ln_caption(rng, words: list[str]) -> str:
+    """A Localized-Narratives-like caption: 8-40 words after a fixed opening,
+    or 220-320 (about one in ``SBERT_LONG_EVERY``, longer than T = 200
+    tokens), commas, a period."""
+    n = rng.randint(220, 321) if rng.randint(SBERT_LONG_EVERY) == 0 else rng.randint(8, 41)
+    toks = [words[i] for i in rng.randint(0, len(words), n)]
+    for i in rng.choice(n, n // 12, replace=False):
+        toks[i] += ","
+    text = " ".join(toks)
+    return "In this image we can see " + text + "."
+
+
+def write_sbert_checkpoint(path: str, vocab: dict[str, int], merges, seed: int) -> int:
+    """A seeded RoBERTa at the published shape (HF's initializer range 0.02;
+    LayerNorm scales 1 ± 0.1), saved as ``save_roberta`` writes it; returns
+    the bytes of ``pytorch_model.bin``."""
+    from xmc_gan_tpu_torch.models.roberta import RobertaConfig, RobertaModel, save_roberta
+
+    gen = torch.Generator().manual_seed(seed)
+    model = RobertaModel(RobertaConfig())
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            draw = torch.randn(p.shape, generator=gen)
+            p.copy_(1 + 0.1 * draw if name.endswith("LayerNorm.weight") else 0.02 * draw)
+    save_roberta(path, model, vocab, merges)
+    return os.path.getsize(os.path.join(path, "pytorch_model.bin"))
+
+
+def roberta_ops(batch: int, T: int) -> float:
+    """The encoder's floating-point operations for ``batch`` captions of T
+    positions (every position is computed): the four H x H and two H x FFN
+    products a token a layer, and the T x T scores and their weighted sum."""
+    from xmc_gan_tpu_torch.models.roberta import RobertaConfig
+
+    c = RobertaConfig()
+    h, f = c.hidden_size, c.intermediate_size
+    per_layer = 2 * batch * T * (4 * h * h + 2 * h * f) + 4 * batch * T * T * h
+    return c.num_hidden_layers * per_layer
+
+
+def fp16_within_ulp(a: np.ndarray, b: np.ndarray) -> bool:
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float16))
+    return bool((np.abs(a.astype(np.float32) - b.astype(np.float32)) <= ulp).all())
+
+
+def sbert_encoding(card: str) -> dict:
+    """Phase 5e: SBERT encoding on the card.  (a) ``build_sbert_cache``
+    over a synthetic ``bert_captions.pickle`` (``SBERT_CAPTIONS``, LN-length,
+    some longer than T = 200 tokens) through the hub cache, its caches read
+    back; (b) the tokenizer (host, with and without its per-word cache) and
+    the encoder (card) timed apart, the encoder's busy share and bound at
+    the serving batch; (c) the card's fp32 embeddings against the port's CPU
+    encode on ``SBERT_CHECK_ROWS`` captions (``SBERT_TOL``); (d) 128 new
+    captions served through ``make_hf_sbert_encode`` -> ``SBERTEncoder`` ->
+    the ``ln_coco_256.yml`` G at 256², fp32 and bf16, 14 ``fused_affine``
+    forwards a request asserted; (e) ``cli sample`` and ``cli prep-ln
+    --build_cache`` in this process, as a user runs them; (f) ``cli train
+    --synthetic --max_steps 2 --gpu 0 --debug_nans`` as a process."""
+    import pickle
+
+    from PIL import Image
+
+    from xmc_gan_tpu_torch import cli
+    from xmc_gan_tpu_torch.data.text_encode import (SbertCache, build_sbert_cache,
+                                                    make_hf_sbert_encode)
+    from xmc_gan_tpu_torch.device import to_device
+    from xmc_gan_tpu_torch.registry import get_text_encoder
+
+    cfg = ln_cfg()
+    T, D = cfg.TEXT.MAX_LENGTH, cfg.TEXT.EMBEDDING_DIM
+    label = f"[5e] SBERT encoding (stsb-roberta-base shape, seeded) | {card}"
+    rng = np.random.RandomState(SBERT_SEED)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sbert_")
+    old_hub = os.environ.get("HF_HUB_CACHE")
+    res: dict = {"card": card, "captions": dict(SBERT_CAPTIONS), "T": T}
+    med = statistics.median
+    try:
+        t0 = time.perf_counter()
+        words, merges, vocab = sbert_vocabulary(rng)
+        repo = os.path.join(root, "hub", "models--sentence-transformers--stsb-roberta-base")
+        os.makedirs(os.path.join(repo, "refs"))
+        with open(os.path.join(repo, "refs", "main"), "w") as f:
+            f.write(SBERT_COMMIT)
+        res["checkpoint_bytes"] = write_sbert_checkpoint(
+            os.path.join(repo, "snapshots", SBERT_COMMIT), vocab, merges, SBERT_SEED)
+        res["merges"], res["write_s"] = len(merges), time.perf_counter() - t0
+        os.environ["HF_HUB_CACHE"] = os.path.join(root, "hub")
+        data = os.path.join(root, "ln")
+        os.makedirs(data)
+        sents = {m: [ln_caption(rng, words) for _ in range(n)] for m, n in SBERT_CAPTIONS.items()}
+        with open(os.path.join(data, "bert_captions.pickle"), "wb") as f:
+            pickle.dump((sents["train"], sents["test"]), f)
+
+        # (a) the caches, as a user builds them
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        build_sbert_cache(data, cfg, device="cuda")
+        res["build_s"] = time.perf_counter() - t0
+        res["build_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        caches = {m: SbertCache(data, m) for m in SBERT_CAPTIONS}
+        full_rows = {}
+        for m, n in SBERT_CAPTIONS.items():
+            tok, attn = caches[m].token_embs, caches[m].attn_mask
+            if tok.shape != (n, T, D) or tok.dtype != np.float16 or attn.dtype != np.uint8 \
+                    or not np.isfinite(tok).all():
+                raise AssertionError(f"{label}: {m} cache {tok.shape} {tok.dtype} {attn.dtype}")
+            lengths = attn.sum(1)
+            if not (attn[np.arange(n), np.maximum(lengths - 1, 0)] == 1).all() \
+                    or (attn[:, :2] != 1).any():
+                raise AssertionError(f"{label}: {m} masks are not <s> ... </s> then padding")
+            full_rows[m] = int((lengths == T).sum())
+        if not all(full_rows.values()):
+            raise AssertionError(f"{label}: no caption reached T = {T} ({full_rows})")
+        res["truncated_rows"] = full_rows
+        res["real_tokens_mean"] = float(np.mean([c.attn_mask.sum(1).mean()
+                                                 for c in caches.values()]))
+        log(f"{label}: checkpoint {res['checkpoint_bytes'] / 2**20:.1f} MiB with "
+            f"{len(merges)} merges written in {res['write_s']:.2f} s; build_sbert_cache of "
+            f"{sum(SBERT_CAPTIONS.values())} captions {res['build_s']:.2f} s (peak "
+            f"{res['build_peak_mem_gib']:.2f} GiB), {res['real_tokens_mean']:.1f} real tokens "
+            f"a caption on average, rows at T: {full_rows}")
+
+        # (b) the tokenizer (host) and the encoder (card) apart, on a fresh
+        # encode function: the tokenizer's per-word cache starts empty
+        t0 = time.perf_counter()
+        encode = make_hf_sbert_encode(cfg)
+        res["load_s"] = time.perf_counter() - t0
+        all_sents = sents["train"] + sents["test"]
+        batches = [all_sents[i:i + 256] for i in range(0, len(all_sents), 256)]
+        toks, cold, warm = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            toks.append(encode.tokenize(b))
+            cold.append(time.perf_counter() - t0)
+        for b in batches:
+            t0 = time.perf_counter()
+            encode.tokenize(b)
+            warm.append(time.perf_counter() - t0)
+        fwd = []
+        for ids, mask in toks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = encode.forward(ids, mask)
+            torch.cuda.synchronize()
+            fwd.append((time.perf_counter() - t0) * 1e3)
+        first = encode.forward(*toks[0]).half().cpu().numpy()
+        if not fp16_within_ulp(first, caches["train"].token_embs[:256]):
+            raise AssertionError(f"{label}: the encoder's first batch is not the cache's rows")
+        ids128, mask128 = toks[0][0][:BATCH], toks[0][1][:BATCH]
+        fwd128 = [cuda_ms(lambda: encode.forward(ids128, mask128), 1) for _ in range(5)]
+        kernels, busy_ms, wall_ms = device_kernels(lambda: encode.forward(ids128, mask128))
+        ops = roberta_ops(BATCH, T)
+        res.update({
+            "tokenize_ms_per_caption_cold": 1e3 * sum(cold) / len(all_sents),
+            "tokenize_ms_per_caption_warm": 1e3 * sum(warm) / len(all_sents),
+            "tokenize_ms_256": {"cold": [1e3 * t for t in cold], "warm": [1e3 * t for t in warm]},
+            "encoder_ms_256_wall": fwd, "encoder_ms_128": med(fwd128),
+            "encoder_bound_ms_128": ops / FP32_OPS_PER_S * 1e3,
+            "encoder_tflops_128": ops / med(fwd128) / 1e9,
+            "encoder_kernel_ms_128": sum(k["ms"] for k in kernels),
+            "encoder_busy_ms_128": busy_ms, "encoder_profiled_ms_128": wall_ms,
+            "encoder_busy_share_128": busy_ms / wall_ms,
+            "encoder_device_ms_by_category": by_category(kernels),
+        })
+        log(f"{label}: load {res['load_s']:.2f} s; tokenizer (host) "
+            f"{res['tokenize_ms_per_caption_cold']:.3f} ms a caption with an empty word cache, "
+            f"{res['tokenize_ms_per_caption_warm']:.3f} warm; encoder (card, fp32, TF32 off) "
+            f"{med(fwd):.2f} ms a batch of 256 (wall), {res['encoder_ms_128']:.2f} ms for "
+            f"{BATCH} captions (CUDA events, median of 5; bound {res['encoder_bound_ms_128']:.2f} "
+            f"ms at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s: {res['encoder_tflops_128']:.1f} "
+            f"TFLOP/s), busy {busy_ms:.2f} of {wall_ms:.2f} ms (share "
+            f"{res['encoder_busy_share_128']:.3f}); " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in res["encoder_device_ms_by_category"].items()))
+        del out, first, kernels
+        torch.cuda.empty_cache()
+
+        # (c) the card against the CPU
+        long_rows = [s for s in sents["test"] if len(s.split()) > 200][:1]
+        rows = long_rows + [s for s in sents["test"] if len(s.split()) <= 200][
+            :SBERT_CHECK_ROWS - len(long_rows)]
+        cpu = make_hf_sbert_encode(cfg, device="cpu")
+        e_cpu, m_cpu = cpu(rows)
+        e_card, m_card = encode(rows)
+        err = float(np.abs(e_card - e_cpu).max())
+        res.update({"card_vs_cpu_max_abs_err": err, "card_vs_cpu_tol": SBERT_TOL,
+                    "card_vs_cpu_rows": len(rows)})
+        if not (m_card == m_cpu).all() or not err <= SBERT_TOL:
+            raise AssertionError(f"{label}: card vs CPU max abs err {err:.3g} (tol {SBERT_TOL}), "
+                                 f"masks equal {(m_card == m_cpu).all()}")
+        log(f"{label}: card vs CPU on {len(rows)} captions ({len(long_rows)} longer than T): "
+            f"max abs err {err:.3g} (tol {SBERT_TOL}), masks equal")
+        del cpu
+
+        # (d) 128 new captions served
+        new = [ln_caption(rng, words) for _ in range(BATCH)]
+        enc = get_text_encoder("SBERT")(cfg)
+        dev = torch.device("cuda")
+        noise = torch.from_numpy(rng.randn(BATCH, cfg.TRAIN.NOISE_DIM).astype(np.float32))
+        sd = perturbed_state_dict(make_generator(cfg, device="cpu"), seed=40)
+        res["serving"] = []
+        for dtype in (torch.float32, torch.bfloat16):
+            g = make_generator(cfg, dtype, "cuda")
+            g.load_state_dict(sd, strict=True)
+            sample = make_sample_fn(cfg, g)
+
+            def request():
+                tok, attn = encode(new)
+                w, s, m = enc(to_device(tok, dev), to_device(attn, dev))
+                return sample(noise, s, w, m)
+
+            lbl = f"[5e] serve new LN-COCO captions {DTYPE_NAME[dtype]} bs{BATCH} 256² | {card}"
+            encode.tokenizer.cache.clear()
+            t0 = time.perf_counter()
+            request()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            request()
+            torch.cuda.synchronize()
+            reset_counts()  # the new captions' serving path's run
+            img = request()
+            torch.cuda.synchronize()
+            launches = check_counts(lbl, {k: REQUEST_LAUNCHES["DF_GEN"].get(k, 0)
+                                          for k in COUNTS})
+            if tuple(img.shape) != (BATCH, 256, 256, 3) or not bool(torch.isfinite(img).all()) \
+                    or img.abs().max().item() > 1.0:
+                raise AssertionError(f"{lbl}: images {tuple(img.shape)} not finite or outside "
+                                     "[-1, 1]")
+            tok, attn = encode(new)
+            w, s, m = enc(to_device(tok, dev), to_device(attn, dev))
+            torch.cuda.reset_peak_memory_stats()
+            t_tok, t_enc, t_g, t_req = [], [], [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                ids, mask = encode.tokenize(new)
+                t1 = time.perf_counter()
+                encode.forward(ids, mask).cpu()
+                t2 = time.perf_counter()
+                sample(noise, s, w, m)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                request()
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
+                t_tok.append((t1 - t0) * 1e3)
+                t_enc.append((t2 - t1) * 1e3)
+                t_g.append((t3 - t2) * 1e3)
+                t_req.append((t4 - t3) * 1e3)
+            kernels, busy_ms, wall_ms = device_kernels(request, expect=launch_patterns(launches))
+            r = {"config": "ln_coco_256 (SENT, new captions)", "dtype": DTYPE_NAME[dtype],
+                 "launches": {k: v for k, v in launches.items() if v},
+                 "first_request_ms": first_ms, "tokenize_ms": med(t_tok),
+                 "encoder_ms": med(t_enc), "g_ms": med(t_g), "request_ms": med(t_req),
+                 "img_per_s_request": BATCH / med(t_req) * 1e3,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "request_kernel_ms": sum(k["ms"] for k in kernels),
+                 "request_busy_ms": busy_ms, "profiled_request_ms": wall_ms,
+                 "device_busy_share": busy_ms / wall_ms,
+                 "device_ms_by_category": by_category(kernels)}
+            log(f"{lbl}: launches {r['launches']}; first request {first_ms:.1f} ms (a fresh G, an "
+                f"empty word cache); tokenize {r['tokenize_ms']:.2f} ms (host), encoder + copy to "
+                f"the host {r['encoder_ms']:.2f} ms, G forward {r['g_ms']:.2f} ms, request "
+                f"{r['request_ms']:.2f} ms ({r['img_per_s_request']:.1f} img/s), medians of 5; "
+                f"peak {r['peak_mem_gib']:.2f} GiB; busy {busy_ms:.2f} of {wall_ms:.2f} ms "
+                f"(share {r['device_busy_share']:.3f}); " + ", ".join(
+                    f"{k} {v:.2f} ms" for k, v in r["device_ms_by_category"].items()))
+            res["serving"].append(r)
+            del g, sample, img, w, s, m, kernels
+            torch.cuda.empty_cache()
+        del encode
+        torch.cuda.empty_cache()
+
+        # (e) the CLI's sample and prep-ln --build_cache, as a user runs them
+        png = os.path.join(root, "sample.png")
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["sample", "--cfg", str(LN_CFG), "--data_dir", data, "--caption",
+                           new[0], "--caption", new[1], "--n_per_caption", "2", "--out", png,
+                           "--output_root", os.path.join(root, "none")])
+        if rc != 0 or printed.getvalue().strip() != png:
+            raise AssertionError(f"{label}: cli sample exit {rc}, printed {printed.getvalue()!r}")
+        res["cli_sample_s"] = time.perf_counter() - t0
+        with Image.open(png) as im:
+            if min(im.size) < 2 * 256:
+                raise AssertionError(f"{label}: cli sample wrote a {im.size} grid")
+        n_prep = {"train": 256, "test": 64}
+        jsonl = {}
+        for m, n in n_prep.items():
+            jsonl[m] = os.path.join(root, f"{m}.jsonl")
+            with open(jsonl[m], "w") as f:
+                f.writelines(json.dumps({"image_id": f"{m}{i}", "caption": c}) + "\n"
+                             for i, c in enumerate(sents[m][:n]))
+        prep = os.path.join(root, "prep")
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["prep-ln", "--data_dir", prep, "--train_jsonl", jsonl["train"],
+                           "--test_jsonl", jsonl["test"], "--build_cache", "--cfg", str(LN_CFG)])
+        if rc != 0 or printed.getvalue().strip() != str(n_prep):
+            raise AssertionError(f"{label}: cli prep-ln --build_cache exit {rc}, printed "
+                                 f"{printed.getvalue()!r}")
+        res["cli_prep_ln_s"] = time.perf_counter() - t0
+        for m, n in n_prep.items():
+            got = SbertCache(prep, m)
+            if not (got.attn_mask == caches[m].attn_mask[:n]).all() \
+                    or not fp16_within_ulp(got.token_embs, caches[m].token_embs[:n]):
+                raise AssertionError(f"{label}: prep-ln's {m} cache differs from "
+                                     "build_sbert_cache's rows")
+        log(f"{label}: cli sample (2 captions x 2) {res['cli_sample_s']:.1f} s; cli prep-ln "
+            f"--build_cache ({n_prep}) {res['cli_prep_ln_s']:.1f} s, its caches within one fp16 "
+            "ulp of build_sbert_cache's rows")
+
+        # (f) cli train with the reference CLI's --gpu and --debug_nans
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "xmc_gan_tpu_torch.cli", "train", *LOOP_CLI,
+                               "--gpu", "0", "--debug_nans", "--output_root",
+                               os.path.join(root, "cli")], cwd=REPO, capture_output=True,
+                              text=True, timeout=600)
+        res["cli_train_debug_nans_s"] = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if "Loss_D:" in ln]
+        if proc.returncode != 0 or len(lines) != 2:
+            raise AssertionError(f"{label}: cli train --gpu 0 --debug_nans exit "
+                                 f"{proc.returncode}, console lines {lines}\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        res["cli_train_console"] = lines
+        log(f"{label}: cli train --synthetic --max_steps 2 --gpu 0 --debug_nans "
+            f"{res['cli_train_debug_nans_s']:.1f} s; {lines[-1].strip()}")
+        return res
+    finally:
+        if old_hub is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = old_hub
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # phase 5d: the exported samplers (utils/export.py), traced with a symbolic
 # batch, loaded and served in a fresh process that imports only the export
 # module (and the profiler reader), against make_sample_fn in this one.
@@ -3505,6 +3921,9 @@ def main() -> int:
     t_export = time.perf_counter()
     exported = serve_exported(card, sds)
     log(f"[5d] {time.perf_counter() - t_export:.1f} s | {card}")
+    t_sbert = time.perf_counter()
+    sbert = sbert_encoding(card)
+    log(f"[5e] {time.perf_counter() - t_sbert:.1f} s | {card}")
 
     flagship = cfg_from_dict(TRAIN_OVERRIDES)
     trains = {torch.bfloat16: train(flagship, "flagship_word", torch.bfloat16, 2, 10, prefix_mask),
@@ -3562,9 +3981,15 @@ def main() -> int:
                  "cross_attention.in", "CONCEPT_OUTATTN_GEN": "cross_attention.out"}[r["generator"]]
         row = next(k for k in kernels if k["name"] == f"{which}[{r['dtype']}]")
         row["launches_exported"] = sum(r["launches"].values())
+    # the new SENT captions' requests (phase 5e)
+    for r in sbert["serving"]:
+        row = next(k for k in kernels
+                   if k["name"] == f"fused_affine.double_modulate_lrelu[{r['dtype']}]")
+        row["launches_new_sent_captions"] = sum(r["launches"].values())
     log(json.dumps({"card": card, "serving": list(runs.values()),
                     "concept_serving": [r for rs in concept_runs.values() for r in rs.values()],
                     "sent_serving": sent_runs, "exported_serving": exported,
+                    "sbert_encoding": sbert,
                     "training": [*trains.values(), ln_train, ln_train32],
                     "training_loop": loop, "concept_training_loop": list(concept_loops.values()),
                     "ln_training_loop": ln_fit,

@@ -6,6 +6,7 @@ import ast
 import importlib
 import json
 import os
+import pickle
 import pkgutil
 import subprocess
 import sys
@@ -29,6 +30,9 @@ from xmc_gan_tpu_torch.train import (
     make_train_step,
 )
 from xmc_gan_tpu_torch.trainer import Trainer, make_encode_fn
+from xmc_gan_tpu_torch.data import text_encode as te
+from xmc_gan_tpu_torch.data.bpe import bytes_to_unicode
+from xmc_gan_tpu_torch.models.roberta import RobertaConfig, RobertaModel, save_roberta
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "xmc_gan_tpu_torch"
@@ -38,20 +42,30 @@ TINY = {"TRAIN": {"NCH": 4, "NEF": 16, "NOISE_DIM": 8}, "IMG": {"SIZE": 64},
         "TEXT": {"EMBEDDING_DIM": 16, "VOCA_SIZE": 30, "MAX_LENGTH": 5, "ENCODER_DIR": ""}}
 
 
+# packages the card's machine does not have (the SBERT encoding functions read the
+# checkpoint with torch and tokenize in plain Python)
+CARD_LACKS = ("transformers", "tokenizers", "regex", "safetensors")
+
+
 def _forbidden(name: str) -> bool:
-    """``jax`` and ``xmc_gan_tpu`` with their submodules; ``xmc_gan_tpu_torch``
-    only shares the JAX package's name as a prefix and is allowed."""
-    return any(name == top or name.startswith(top + ".") for top in ("jax", "xmc_gan_tpu"))
+    """``jax`` and ``xmc_gan_tpu`` with their submodules, and the packages
+    the card lacks; ``xmc_gan_tpu_torch`` only shares the JAX package's name
+    as a prefix and is allowed."""
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "xmc_gan_tpu", *CARD_LACKS))
 
 
 def test_forbidden_matches_modules_not_prefixes():
     assert _forbidden("jax") and _forbidden("jax.numpy") and _forbidden("xmc_gan_tpu.ops")
     assert not _forbidden("xmc_gan_tpu_torch") and not _forbidden("jaxtyping")
+    assert _forbidden("transformers.models") and _forbidden("regex") and _forbidden("tokenizers")
+    assert _forbidden("safetensors.torch") and not _forbidden("regex_extra")
 
 
 def test_every_port_module_imports_without_jax_or_the_jax_package():
     """A fresh interpreter imports every module of the port; afterwards
-    neither ``jax`` nor ``xmc_gan_tpu``/``xmc_gan_tpu.*`` is loaded."""
+    neither ``jax`` nor ``xmc_gan_tpu``/``xmc_gan_tpu.*`` is loaded, nor any
+    of ``CARD_LACKS``."""
     code = (
         "import importlib, json, sys\n"
         f"names = {MODULES!r}\n"
@@ -181,6 +195,77 @@ def test_training_entry_points_run_on_cuda_unless_cpu_is_asked(entry, no_cuda, t
 
     call = {"Trainer": trainer, "FidComputer": fid, "cli train": train_cli,
             "cli export-sampler": export_cli}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(device="cuda")
+    call(device="cpu")
+
+
+def _tiny_roberta(path) -> str:
+    """A 1-layer RoBERTa checkpoint (hidden 16) written by the port itself:
+    the byte symbols, one merge."""
+    b2u = bytes_to_unicode()
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])}
+    for tok in [*b2u.values(), "\u0120b", "<mask>"]:
+        vocab.setdefault(tok, len(vocab))
+    torch.manual_seed(0)
+    model = RobertaModel(RobertaConfig(vocab_size=len(vocab), hidden_size=16,
+                                       num_hidden_layers=1, num_attention_heads=2,
+                                       intermediate_size=32, max_position_embeddings=16))
+    return save_roberta(str(path), model, vocab, [("\u0120", "b")])
+
+
+@pytest.mark.parametrize("entry", ["make_hf_sbert_encode", "build_sbert_cache", "cli sample",
+                                   "cli prep-ln --build_cache"])
+def test_sbert_encoding_runs_on_cuda_unless_cpu_is_asked(entry, no_cuda, tmp_path, monkeypatch):
+    """The SBERT encode and cache functions and the CLI commands that call them: no GPU and no
+    explicit CPU request raises; with the CPU asked for, each runs whole
+    (``stsb-roberta-base`` from the hub cache where no path is given)."""
+    import yaml
+    from xmc_gan_tpu_torch import cli
+
+    ckpt = _tiny_roberta(tmp_path / "ckpt")
+    repo = tmp_path / "hub" / "models--sentence-transformers--stsb-roberta-base"
+    for d in ("refs", "snapshots"):
+        (repo / d).mkdir(parents=True)
+    (repo / "refs" / "main").write_text("c0ffee")
+    os.symlink(ckpt, repo / "snapshots" / "c0ffee")
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+    text = {"TYPE": "SENT", "ENCODER_NAME": "SBERT", "EMBEDDING_DIM": 16, "MAX_LENGTH": 6}
+    cfg = cfg_from_dict({**TINY, "TEXT": {**TINY["TEXT"], **text}})
+    cfg_path = tmp_path / "sent.yml"
+    cfg_path.write_text(yaml.safe_dump({**TINY, "TEXT": {**TINY["TEXT"], **text}}))
+    data = tmp_path / "data"
+    data.mkdir()
+    with open(data / "bert_captions.pickle", "wb") as f:
+        pickle.dump([["a bird", "a b"], ["b"]], f)
+    for split, cap in (("t", "a bird"), ("v", "a dog")):
+        (tmp_path / f"{split}.jsonl").write_text(json.dumps({"image_id": split, "caption": cap}))
+
+    def encode(**kw):
+        embs, mask = te.make_hf_sbert_encode(cfg, **kw)(["a bird", "b"])
+        assert embs.shape == (2, 6, 16) and np.isfinite(embs).all() and mask[0, :4].all()
+
+    def build(**kw):
+        te.build_sbert_cache(str(data), cfg, **kw)
+        assert te.SbertCache(str(data), "train").rows([0, 1])[0].shape == (2, 6, 16)
+
+    def sample(**kw):
+        argv = ["sample", "--cfg", str(cfg_path), "--data_dir", str(data), "--caption", "a bird",
+                "--n_per_caption", "1", "--out", str(tmp_path / "s.png"),
+                "--output_root", str(tmp_path / "none")]
+        assert cli.main(argv + [f"--device={kw['device']}"] if kw else argv) == 0
+
+    def prep(**kw):
+        argv = ["prep-ln", "--data_dir", str(tmp_path / "ln"), "--train_jsonl",
+                str(tmp_path / "t.jsonl"), "--test_jsonl", str(tmp_path / "v.jsonl"),
+                "--build_cache", "--cfg", str(cfg_path)]
+        assert cli.main(argv + [f"--device={kw['device']}"] if kw else argv) == 0
+        assert (tmp_path / "ln" / "sbert_cache_test.npz").is_file()
+
+    call = {"make_hf_sbert_encode": encode, "build_sbert_cache": build, "cli sample": sample,
+            "cli prep-ln --build_cache": prep}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -330,7 +415,8 @@ def test_modules_list_covers_the_slice():
             "models.df_concept_gan", "models.concept_gan", "models.encoder", "utils.convert",
             "utils.miscc", "data.vocab", "data.pipeline", "data.native", "data.toy",
             "utils.checkpoint", "utils.logger", "models.inception", "eval", "data.text_encode",
-            "models.vgg", "utils.export", "data.coco_prep", "data.ln_prep"}
+            "models.vgg", "utils.export", "data.coco_prep", "data.ln_prep", "data.bpe",
+            "models.roberta"}
     assert {f"xmc_gan_tpu_torch.{m}" for m in want} <= set(MODULES)
     for name in MODULES:
         importlib.import_module(name)

@@ -7,6 +7,7 @@ directory, and the CLI's ``prep-coco`` / ``prep-ln`` write the same files."""
 import json
 import os
 import pickle
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -166,7 +167,7 @@ def test_prepare_localized_narratives_matches_jax(tmp_path, key_format, caps_per
         _load(pdir / "bert_captions.pickle")[1][sent_ix::caps_per_image]
 
 
-def test_cli_prep_coco_and_prep_ln_write_the_jax_files(tmp_path, capsys):
+def test_cli_prep_coco_and_prep_ln_write_the_jax_files(tmp_path, capsys, monkeypatch):
     tj, vj = _coco_files(tmp_path)
     jcoco.prepare_coco(str(tmp_path / "jax_coco"), tj, vj)
     assert cli.main(["prep-coco", "--data_dir", str(tmp_path / "coco"), "--train_json", tj,
@@ -184,5 +185,10 @@ def test_cli_prep_coco_and_prep_ln_write_the_jax_files(tmp_path, capsys):
     assert cli.main(argv) == 0
     assert "{'train': 2, 'test': 1}" in capsys.readouterr().out
     _same_files(tmp_path / "jax_ln", tmp_path / "ln", LN_FILES)
-    with pytest.raises(NotImplementedError, match="stsb-roberta-base"):
+    # --build_cache needs --cfg, and the RoBERTa weights (none in this hub cache)
+    with pytest.raises(SystemExit, match="--build_cache requires --cfg"):
         cli.main(argv + ["--build_cache"])
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty_hub"))
+    cfg = str(Path(__file__).resolve().parents[1] / "xmc_gan_tpu" / "cfg" / "ln_coco_256.yml")
+    with pytest.raises(RuntimeError, match="stsb-roberta-base"):
+        cli.main(argv + ["--build_cache", "--cfg", cfg, "--device", "cpu"])

@@ -5,7 +5,8 @@
 ``Trainer.fit`` reads images, captions and token embeddings from disk;
 ``cli train --synthetic`` for ``concept_out_df_gan.yml``,
 ``df_gan_sbert_seperate.yml`` and ``ln_coco_256.yml``; and ``sample``
-refusing a SENT config with the reason.  Each YAML is the shipped file at
+refusing a SENT config, naming the RoBERTa weights, where the HF hub cache
+has none (``tests/test_torch_cli_sent.py`` samples with them).  Each YAML is the shipped file at
 tiny width (NCH=4, NEF=16, EMBEDDING_DIM=24, MAX_LENGTH=6, every switch
 kept)."""
 
@@ -102,7 +103,8 @@ def test_cli_train_synthetic_sent_configs(tmp_path, capsys, name):
     assert metrics and all(np.isfinite(v) for v in metrics.values())
 
 
-def test_cli_sample_refuses_sent_configs_naming_roberta(sent_dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="RoBERTa"):
+def test_cli_sample_refuses_sent_configs_naming_roberta(sent_dataset, tmp_path, monkeypatch):
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty_hub"))
+    with pytest.raises(RuntimeError, match="sentence-transformers/stsb-roberta-base' weights"):
         cli.main(["sample", "--cfg", _tiny_yaml(tmp_path, "df_gan_sbert.yml"), "--data_dir",
                   str(sent_dataset), "--caption", "a red bird", "--device", "cpu"])

@@ -9,7 +9,8 @@
     python -m xmc_gan_tpu_torch.cli prep-coco --data_dir data/coco \\
         --train_json captions_train2014.json --test_json captions_val2014.json
     python -m xmc_gan_tpu_torch.cli prep-ln --data_dir data/ln_coco \\
-        --train_jsonl coco_train_captions.jsonl --test_jsonl coco_val_captions.jsonl
+        --train_jsonl coco_train_captions.jsonl --test_jsonl coco_val_captions.jsonl \\
+        [--build_cache --cfg xmc_gan_tpu/cfg/ln_coco_256.yml]
     python -m xmc_gan_tpu_torch.cli convert-fid-weights --src inception.pth --out fid.npz
     python -m xmc_gan_tpu_torch.cli convert-vgg-weights --src vgg19.pth --out vgg.npz
 
@@ -35,11 +36,20 @@ group's environment (``parallel.make_mesh``):
 with ``--device cpu``.  ``eval --distributed`` scores each rank's test shard
 and all-reduces the FID statistics.  ``--dp`` without ``--distributed``
 raises (one process drives one card), and so does ``--tp`` > 1: tensor
-parallelism is not ported.  SENT (SBERT) configs train and evaluate (their captions
-from the dataset's ``sbert_cache_{mode}.npz``, or a seeded table with
-``--synthetic``); ``sample`` raises for them: a new caption needs the
-RoBERTa transformer and its ``stsb-roberta-base`` weights, which are not in
-the repository, and so does ``prep-ln --build_cache`` for the same reason.
+parallelism is not ported.  ``train --gpu N`` (``--gpu_id``) trains on
+``cuda:N``; ``--device cpu`` ignores it, and under ``--distributed`` the
+rank's card decides (N other than 0 raises).  ``train --debug_nans`` fails
+fast: autograd's anomaly mode is on for the run, and each step's metrics are
+read and checked as that step ends (not one step late); a non-finite metric,
+or a backward that anomaly mode finds returning NaN, raises
+``FloatingPointError`` naming the step and the metrics (or the backward).
+SENT (SBERT) configs train and evaluate from the dataset's
+``sbert_cache_{mode}.npz`` (or a seeded table with ``--synthetic``);
+``sample`` encodes their captions, and ``prep-ln --build_cache`` writes the
+caches, with the port's RoBERTa (``data/text_encode.py``) on the
+``sentence-transformers/stsb-roberta-base`` checkpoint of the local HF hub
+cache (``$HF_HUB_CACHE``, else ``$HF_HOME/hub``, else
+``~/.cache/huggingface/hub``), which is not in the repository.
 The noise is drawn with ``torch.Generator``s, so the images differ from the
 JAX CLI's (``jax.random``) for the same seed.
 """
@@ -56,10 +66,12 @@ import numpy as np
 import torch
 
 from xmc_gan_tpu_torch.config import Config, cfg_from_file
+from xmc_gan_tpu_torch.data.text_encode import build_sbert_cache, make_hf_sbert_encode
 from xmc_gan_tpu_torch.data.vocab import load_w2i, tokenize
-from xmc_gan_tpu_torch.device import DTYPES
+from xmc_gan_tpu_torch.device import DTYPES, resolve_device, to_device
 from xmc_gan_tpu_torch.parallel import make_mesh, shutdown
 from xmc_gan_tpu_torch.parallel.mesh import TP_REFUSAL
+from xmc_gan_tpu_torch.registry import get_text_encoder
 from xmc_gan_tpu_torch.train import make_generator, make_sample_fn
 from xmc_gan_tpu_torch.trainer import Trainer, make_encode_fn, run_dir
 from xmc_gan_tpu_torch.utils.checkpoint import CheckpointManager
@@ -68,10 +80,6 @@ from xmc_gan_tpu_torch.utils.miscc import save_image_grid
 __all__ = ["main", "parse_args", "run_train", "run_eval", "run_sample", "run_export_sampler",
            "run_prep_coco", "run_prep_ln", "run_convert_fid_weights", "run_convert_vgg_weights"]
 
-# what a new SENT caption needs, and neither the repository nor this package holds
-SBERT_REFUSAL = ("the RoBERTa transformer (sentence-transformers/stsb-roberta-base) and its "
-                 "weights, which are not in the repository")
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="xmc_gan_tpu_torch")
@@ -79,6 +87,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
     t = sub.add_parser("train", help="train a text-to-image GAN")
     t.add_argument("--cfg", required=True, help="YAML config (reference schema)")
+    t.add_argument("--gpu", "--gpu_id", dest="gpu_id", type=int, default=0,
+                   help="the card to train on with --device cuda (cuda:N; reference CLI's "
+                        "flag); ignored with --device cpu; 0 only under --distributed")
     t.add_argument("--seed", type=int, default=100)
     t.add_argument("--resume_epoch", type=int, default=0)
     # "wdb" is the reference's spelling for wandb (train_gan.py:162,300)
@@ -114,6 +125,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "reference's per-forward count)")
     t.add_argument("--resume_auto", action="store_true",
                    help="resume from the newest auto checkpoint")
+    t.add_argument("--debug_nans", action="store_true",
+                   help="fail fast on a NaN: autograd anomaly mode, and each step's metrics "
+                        "checked finite as the step ends (FloatingPointError)")
     t.add_argument("--dp", type=int, default=None,
                    help="data-parallel ranks (default: the world size under --distributed)")
     t.add_argument("--tp", type=int, default=1, help="tensor parallelism (not ported: 1 only)")
@@ -181,8 +195,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="image_id -> image key, e.g. 'COCO_train2014_{:012d}' (2014 naming), "
                          "'{:012d}' (2017), '{}' (OpenImages)")
     pl.add_argument("--build_cache", action="store_true",
-                    help="also build the SBERT cache: not ported (needs the RoBERTa weights)")
+                    help="also build the SBERT cache (sbert_cache_{train,test}.npz) with the "
+                         "stsb-roberta-base checkpoint of the local HF hub cache")
     pl.add_argument("--cfg", default=None, help="YAML config for --build_cache")
+    pl.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where --build_cache runs the encoder")
 
     pc = sub.add_parser(
         "prep-coco",
@@ -261,7 +278,26 @@ def _mesh(args: argparse.Namespace):
     return make_mesh(dp, device=args.device)
 
 
+def _train_device(args: argparse.Namespace) -> str:
+    """``--device`` with ``--gpu``: ``cuda:N`` (made the current card), the
+    CPU as asked; under ``--distributed`` the rank's card (``make_mesh``)."""
+    if args.device == "cpu":
+        return "cpu"
+    if args.distributed:
+        if args.gpu_id != 0:
+            raise ValueError(f"--gpu {args.gpu_id} with --distributed: each rank trains on its "
+                             "own card (LOCAL_RANK)")
+        return args.device
+    resolve_device(args.device)
+    if not 0 <= args.gpu_id < torch.cuda.device_count():
+        raise ValueError(f"--gpu {args.gpu_id}: this machine has {torch.cuda.device_count()} "
+                         "CUDA device(s)")
+    torch.cuda.set_device(args.gpu_id)
+    return f"cuda:{args.gpu_id}"
+
+
 def run_train(args: argparse.Namespace) -> dict:
+    device = _train_device(args)
     mesh = _mesh(args)
     cfg = _cfg(args)
     random.seed(args.seed)
@@ -270,10 +306,10 @@ def run_train(args: argparse.Namespace) -> dict:
         cfg, seed=args.seed, data_dir=args.data_dir, output_root=args.output_root,
         log_type=args.log_type, synthetic=args.synthetic, synthetic_len=args.synthetic_len,
         mesh=mesh, save_after=args.save_after, eval_fid=not args.no_eval_fid,
-        eval_num_samples=args.eval_num_samples, dtype=_dtype(args), device=args.device,
+        eval_num_samples=args.eval_num_samples, dtype=_dtype(args), device=device,
         profile_dir=args.profile_dir, save_every_steps=args.save_every_steps,
         steps_per_dispatch=args.steps_per_dispatch, watch=args.watch,
-        spectral_iters=args.spectral_iters,
+        spectral_iters=args.spectral_iters, debug_nans=args.debug_nans,
     )
     trainer.logger.info("Using config:")
     trainer.logger.info(str(cfg.to_dict()))
@@ -327,15 +363,20 @@ def _g_weights(cfg: Config, args: argparse.Namespace) -> dict | None:
 
 
 def run_sample(args: argparse.Namespace) -> str:
+    """WORD configs encode the captions with the DAMSM text encoder; SENT
+    configs tokenize and encode them with RoBERTa (``make_hf_sbert_encode``)
+    and pool with ``SBERTEncoder`` (``xmc_gan_tpu/cli.py:366-374``)."""
     cfg = cfg_from_file(args.cfg)
-    if cfg.TEXT.TYPE != "WORD":
-        raise NotImplementedError(
-            f"sample for SENT (SBERT) configs encodes new captions with {SBERT_REFUSAL}; it "
-            "waits until they are")
-    caps, cap_lens = tokenize(list(args.caption), load_w2i(args.data_dir),
-                              cfg.TEXT.MAX_LENGTH)
-    encode = make_encode_fn(cfg, device=args.device, weights=args.text_encoder)
-    words, sent, mask = encode({"caps": caps, "cap_lens": cap_lens})
+    if cfg.TEXT.TYPE == "WORD":
+        caps, cap_lens = tokenize(list(args.caption), load_w2i(args.data_dir),
+                                  cfg.TEXT.MAX_LENGTH)
+        encode = make_encode_fn(cfg, device=args.device, weights=args.text_encoder)
+        words, sent, mask = encode({"caps": caps, "cap_lens": cap_lens})
+    else:
+        dev = resolve_device(args.device)
+        tok_embs, attn = make_hf_sbert_encode(cfg, device=dev)(list(args.caption))
+        words, sent, mask = get_text_encoder("SBERT")(cfg)(to_device(tok_embs, dev),
+                                                          to_device(attn, dev))
     n = args.n_per_caption
     words, sent, mask = (t.repeat_interleave(n, dim=0) for t in (words, sent, mask))
     g = make_generator(cfg, DTYPES[args.dtype], args.device, weights=args.weights,
@@ -366,15 +407,18 @@ def run_export_sampler(args: argparse.Namespace) -> str:
 
 
 def run_prep_ln(args: argparse.Namespace) -> dict:
+    """The dataset layout, then with ``--build_cache`` the SBERT caches of its
+    captions (``xmc_gan_tpu/cli.py:405-419``)."""
     from xmc_gan_tpu_torch.data.ln_prep import prepare_localized_narratives
 
-    if args.build_cache:
-        raise NotImplementedError(
-            f"prep-ln --build_cache encodes every caption with {SBERT_REFUSAL}; the port reads "
-            "a cache that the JAX package's build_sbert_cache wrote")
-    return prepare_localized_narratives(
+    if args.build_cache and not args.cfg:
+        raise SystemExit("--build_cache requires --cfg")
+    counts = prepare_localized_narratives(
         args.data_dir, args.train_jsonl, args.test_jsonl,
         caps_per_image=args.caps_per_image, key_format=args.key_format)
+    if args.build_cache:
+        build_sbert_cache(args.data_dir, cfg_from_file(args.cfg), device=args.device)
+    return counts
 
 
 def run_prep_coco(args: argparse.Namespace) -> dict:

@@ -24,9 +24,9 @@ uses, ``{:012d}`` for 2017, ``{}`` identity for OpenImages hex ids).
 
 After prep, the SENT configs read an SBERT token-embedding cache beside these
 files (``data/text_encode.SbertCache``; the train loop never tokenizes).
-Building that cache needs the RoBERTa transformer and its
-``stsb-roberta-base`` weights, which are not in the repository; the JAX
-package's ``build_sbert_cache`` writes it where they are.
+``data/text_encode.build_sbert_cache`` writes it (``cli prep-ln
+--build_cache``) from a local ``stsb-roberta-base`` checkpoint, which is not
+in the repository.
 """
 
 from __future__ import annotations

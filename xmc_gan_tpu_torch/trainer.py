@@ -41,6 +41,10 @@ the port differs from the JAX ``Trainer``:
 * Each step's metrics stay 0-d tensors on the card and are read after the
   next step has been queued, so the host's next batch overlaps the card's
   step; batches cross from pinned memory (``device.to_device``).
+  ``debug_nans`` (JAX: ``jax_debug_nans``) fails fast instead: autograd's
+  anomaly mode is on for ``fit``, each step's metrics are read as it ends,
+  and a non-finite one (or a backward that anomaly mode finds returning
+  NaN) raises ``FloatingPointError`` naming the step.
 * ``profile_dir`` traces steps ``profile_steps`` with ``torch.profiler``
   (``{profile_dir}/trace.json``, a Chrome trace).
 * Under ``mesh`` the host-side agreements (the SIGTERM poll, the
@@ -58,6 +62,7 @@ the port differs from the JAX ``Trainer``:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import os
@@ -228,6 +233,7 @@ class Trainer:
         ckpt_on_preempt: bool = True,
         watch: bool = False,
         spectral_iters: int = 1,
+        debug_nans: bool = False,
     ):
         # a data-parallel rank runs on its mesh's device
         self.device = mesh.device if mesh is not None else resolve_device(device)
@@ -303,6 +309,7 @@ class Trainer:
                     if cfg.TRAIN.ENCODER_LOSS.VGG else None)
         self.step_fn = step_fn if self.vgg is None else functools.partial(step_fn, vgg=self.vgg)
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        self.debug_nans = bool(debug_nans)
         self._multi_step_calls = 0  # full windows of K > 1 steps run
 
         self.ckpt = CheckpointManager(self.model_dir)
@@ -518,6 +525,24 @@ class Trainer:
         self._profiler = None
         self.logger.info(f"Profiler trace written to {path}")
 
+    def _step(self, batch: dict, noise: torch.Tensor, global_step: int) -> dict:
+        """One train step; under ``debug_nans`` its metrics are read and
+        checked here, at the step that made them."""
+        if not self.debug_nans:
+            return self.step_fn(self.state, batch, noise)
+        try:
+            metrics = self.step_fn(self.state, batch, noise)
+        except RuntimeError as e:
+            if "returned nan values" not in str(e):  # autograd anomaly mode's message
+                raise
+            raise FloatingPointError(f"step {global_step}: {e}") from e
+        keys = list(metrics)
+        values = torch.stack([metrics[k].float() for k in keys]).cpu()
+        bad = [k for k, v in zip(keys, values.tolist()) if not np.isfinite(v)]
+        if bad:
+            raise FloatingPointError(f"step {global_step}: non-finite {', '.join(bad)}")
+        return metrics
+
     # ------------------------------------------------------------------ #
 
     def fit(self, max_epochs: int | None = None, max_steps: int | None = None,
@@ -575,6 +600,7 @@ class Trainer:
             except ValueError:  # not the main thread: no handler
                 prev_handler = no_handler
         preempt_handled = False
+        run_scope = contextlib.ExitStack()
 
         def preempt_save() -> bool:
             nonlocal preempt_handled
@@ -604,7 +630,7 @@ class Trainer:
             if not win:
                 return
             staged, win = win, []
-            ms = [self.step_fn(self.state, batch, noise) for batch, noise, _ in staged]
+            ms = [self._step(batch, noise, meta[3]) for batch, noise, meta in staged]
             metas = [meta for *_, meta in staged]
             if K > 1 and len(staged) == K:
                 self._multi_step_calls += 1
@@ -618,6 +644,8 @@ class Trainer:
                 self._save(self.auto_ckpt, gs_last)
 
         try:
+            if self.debug_nans:
+                run_scope.enter_context(torch.autograd.set_detect_anomaly(True))
             for epoch in range(self.state_epoch + 1, max_epochs + 1):
                 # mid-epoch resume: reposition the loader to the batch the
                 # restored step implies (first resumed epoch only)
@@ -670,6 +698,7 @@ class Trainer:
                 if max_steps and steps_done >= max_steps:
                     break
         finally:
+            run_scope.close()
             self._stop_profiler()
             if prev_handler is not no_handler:
                 # restored on every exit, exceptions included: a leaked
