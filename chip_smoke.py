@@ -51,7 +51,12 @@ Phases (any failure raises, and the exit code is then non-zero):
    captions, [128, 256] and [4, 8] at the flagship word shape), fp32 and
    bf16, through ``damsm_scores`` against the plain version, each launch on
    the kernel the route names, and against the same rows of one
-   [B_global, B_global] launch (logged bit-equal or not); the
+   [B_global, B_global] launch (logged bit-equal or not); the forward and
+   d_regions on a tensor-parallel rank's column blocks
+   (``DAMSM_COL_BLOCKS``: B_local images against the last B/tp captions,
+   [64, 32] at the LN word shape in bf16 on the tensor cores and [4, 4] of
+   [8, 8] at the flagship's in fp32) against the plain version and the
+   same block of one whole launch; the
    ``cross_attention`` kernels through the wrapper the concept
    models call, fp32 and bf16, at the distinct
    shapes of a 256² ``CONCEPT_INATTN_GEN`` request at batch 128 (2048 rows
@@ -229,6 +234,24 @@ Phases (any failure raises, and the exit code is then non-zero):
    global images/s, peak memory a rank, the gradient mean's own time; (c)
    where the machine has two cards or more, the full width on two NCCL
    ranks, one card each.  Prints which of them ran.
+6h. Tensor parallelism (``parallel.shard_state``, the JAX rule's split of
+   G's and D's large weights by output features over the model group):
+   (a) four gloo ranks on this card as dp 2 x tp 2 (``--dp-tp 2``): phase
+   6g's parity step (fp32, TF32 off, NCH 8, 64², a global batch of 8, the
+   weights split at the JAX tests' 2^12, each rank's [4, 4] word-score
+   column block on the damsm kernels, 2 steps) against one process on the
+   card (metrics, the gathered parameters and spectral vectors within
+   phase 4's bounds, the ranks' gathered states bit-equal, each rank's
+   damsm launches asserted); (b) two gloo ranks as dp 1 x tp 2 at the
+   LN-COCO model's full width (``ln_coco_256.yml``: NCH 96, 256², D = 768,
+   T = 200) in bf16 at a global batch of ``TP_BATCH`` = 64 (256 is the
+   config's; two ranks with whole activations must fit), the JAX rule's
+   2^16: one step (tens of seconds of gloo), timed, with its launches
+   asserted and each collective's own time; each rank's step (its first,
+   beside one process's first and next two), collectives, peak memory and
+   parameter / moment bytes beside one process's at the same batch, the
+   [64, 32] column block on the tensor cores; (c) where the machine has
+   two cards or more, the same on two NCCL ranks, one card each.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs; for the
@@ -241,7 +264,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    the flagship and at the word shape of each LN step (``LN_STEP_SHAPES``:
    fp32 at batch 128, bf16 at 256; 2 timed launches there; their launches
    those of that step; the flagship rows also with a data-parallel rank
-   step's launches, phase 6g, and the row blocks' errors, phase 3); the single form's backward at the 40 inputs of one
+   step's launches, phase 6g, and the row blocks' errors, phase 3; the LN
+   bf16 rows with a tensor-parallel rank step's, phase 6h(b), and the
+   column block's errors, phase 3); the single form's backward at the 40 inputs of one
    concept step and its double backward at the 4 (``concept_rows``); the
    ``cross_attention`` backward at the 6 In and the 6 Out launches of one
    64² word-attention step, with SDPA's forward and backward as a
@@ -286,7 +311,15 @@ from xmc_gan_tpu_torch.ops.cuda.build import load_all
 from xmc_gan_tpu_torch import eval as fid_eval
 from xmc_gan_tpu_torch.data import native
 from xmc_gan_tpu_torch.losses import WORD_LOSS_BLOCK_ELEMS, word_scores_backend
-from xmc_gan_tpu_torch.parallel import make_mesh, replicate, shard_batch, shutdown
+from xmc_gan_tpu_torch.parallel import (
+    gather_state,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_state,
+    shutdown,
+)
+from xmc_gan_tpu_torch.parallel.tensor import sharded_tensors
 from xmc_gan_tpu_torch.parallel.collectives import all_reduce_mean_
 from xmc_gan_tpu_torch.profiling import cuda_ms, device_kernels, read_trace
 from xmc_gan_tpu_torch.train import (
@@ -1332,6 +1365,67 @@ def check_damsm_row_blocks() -> dict:
         verdict = "bit-equal" if diff == 0.0 else f"max abs diff {diff:.3g} ({DAMSM_TOL[cd]})"
         log(f"[3] damsm_score {CD_NAME[cd]} {key}, row block [{b}, {bc}] against the same rows "
             f"of one [{bc}, {bc}] launch: {verdict}")
+    return errs
+
+
+# (B_local, B_global, cols, R, T, D, compute dtype): the word-score column
+# blocks a tensor-parallel rank launches (its B_local images against its
+# ``cols`` of the B_global captions): phase 6h(b)'s LN-COCO bf16 step at a
+# global batch of 64 over tp = 2 ([64, 32] on the tensor cores) and phase
+# 6h(a)'s fp32 parity step (4 images, 4 of 8 captions)
+DAMSM_COL_BLOCKS = [(64, 64, 32, REGIONS, 200, 768, torch.bfloat16),
+                    (4, 8, 4, REGIONS, 20, 256, None)]
+
+
+def check_damsm_col_blocks() -> dict:
+    """Phase 3, damsm_score on tensor-parallel column blocks: the forward
+    and d_regions of ``B_local`` images against the last ``cols`` captions
+    (model rank tp - 1's), through ``damsm_scores``, against the plain
+    version (``DAMSM_TOL``) and against the same block of one launch on the
+    whole ``[B_global, B_global]``; each launch on the kernel the route
+    names (the bf16 LN block on the tensor cores).  Returns the worst
+    errors by (B_local, cols, dtype)."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    errs = {}
+    for b, bc, cols, R, T, D, cd in DAMSM_COL_BLOCKS:
+        inputs = ln_damsm_inputs if T == 200 else functools.partial(damsm_inputs, allpad=False)
+        r, w, mask, up = inputs((bc, bc, R, T, D), gen)
+        full = ds.damsm_scores(r, w, mask, 4.0, 5.0, cd).detach()
+        rows, cs = slice(0, b), slice(bc - cols, bc)
+        ri, wc, mc, upc = r[rows].clone().requires_grad_(), w[cs], mask[cs], up[rows, cs]
+        got = {}
+
+        def run():
+            got["forward"] = ds.damsm_scores(ri, wc, mc, 4.0, 5.0, cd)
+            got["d_regions"], = torch.autograd.grad(got["forward"], ri, upc)
+
+        names = damsm_kernel_names(run)
+        for which in ("fwd", "dr"):
+            kernel = ds.kernel_name(which, R, D, cd)
+            if not any(kernel in n for n in names):
+                raise AssertionError(f"damsm column block [{b}, {cols}] {CD_NAME[cd]}: no "
+                                     f"{kernel} among {names}")
+        if any("damsm_bwd_dw" in n for n in names):
+            raise AssertionError(f"damsm column block [{b}, {cols}]: d_words launched")
+        want = {"forward": exact_scores(r[rows], wc, mc, cd),
+                "d_regions": ds._plain_vjp("dr", r[rows], wc, mc, upc.contiguous(), 4.0, 5.0,
+                                           cd)}
+        out = got["forward"].detach()
+        torch.testing.assert_close(out, want["forward"], rtol=1e-5, atol=DAMSM_TOL[cd]["score"])
+        torch.testing.assert_close(out, full[rows, cs], rtol=1e-5, atol=DAMSM_TOL[cd]["score"])
+        scale = DAMSM_TOL[cd]["grad_scale"] * want["d_regions"].abs().max().item()
+        torch.testing.assert_close(got["d_regions"], want["d_regions"], rtol=0, atol=scale)
+        errs[b, cols, CD_NAME[cd]] = {k: (got[k] - want[k]).abs().max().item()
+                                      for k in ("forward", "d_regions")}
+        log(f"[3] damsm_score column block [{b}, {cols}] of [{bc}, {bc}] (R={R}, T={T}, D={D}) "
+            f"{CD_NAME[cd]}: forward and d_regions on "
+            + ", ".join(ds.kernel_name(which, R, D, cd) for which in ("fwd", "dr"))
+            + f" ({route_label('fwd', R, D, cd)}), max_abs_err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs[b, cols, CD_NAME[cd]].items())
+            + f" (tolerance {DAMSM_TOL[cd]}); the block of one whole launch within the same "
+              f"tolerance, max abs diff {(out - full[rows, cs]).abs().max().item():.3g}")
+        del r, w, mask, up, full, ri, got
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -3089,7 +3183,8 @@ def dp_full(mesh) -> dict:
 
 def dp_rank_main(argv: list[str]) -> int:
     """``chip_smoke.py --dp-rank R --dp-world W --dp-dir DIR --dp-backend B
-    --dp-device D [--dp-parity]``: one rank of phase 6g, started by
+    --dp-device D [--dp-parity] [--dp-tp T]``: one rank of phase 6g (of 6h
+    with ``--dp-tp`` > 1: the parity run or the full width), started by
     ``dp_ranks``; writes ``DIR/rank_R.json``."""
     import argparse
 
@@ -3098,33 +3193,42 @@ def dp_rank_main(argv: list[str]) -> int:
                        ("device", str)):
         p.add_argument(f"--dp-{name}", type=kind, required=True)
     p.add_argument("--dp-parity", action="store_true")
+    p.add_argument("--dp-tp", type=int, default=1)
     a = p.parse_args(argv)
     out_dir = Path(a.dp_dir)
-    mesh = make_mesh(a.dp_world, device=a.dp_device, backend=a.dp_backend,
+    mesh = make_mesh(a.dp_world // a.dp_tp, a.dp_tp, device=a.dp_device, backend=a.dp_backend,
                      init_method=f"file://{out_dir / 'store'}", rank=a.dp_rank,
                      world_size=a.dp_world)
     try:
         res = {"rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device)}
-        if a.dp_parity:
-            res["parity"] = dp_parity(mesh, out_dir)
-            torch.cuda.empty_cache()
-        res["full"] = dp_full(mesh)
+        if a.dp_tp > 1:  # phase 6h: the parity ranks or the full-width ones
+            if a.dp_parity:
+                res["parity"] = tp_parity(mesh, out_dir)
+            else:
+                res["full"] = tp_full(mesh)
+        else:
+            if a.dp_parity:
+                res["parity"] = dp_parity(mesh, out_dir)
+                torch.cuda.empty_cache()
+            res["full"] = dp_full(mesh)
         (out_dir / f"rank_{mesh.rank}.json").write_text(json.dumps(res))
     finally:
         shutdown()
     return 0
 
 
-def dp_ranks(backend: str, devices: list[str], parity: bool) -> list[dict]:
-    """Start phase 6g's ranks as processes of this script, wait for them
-    (killed after ``DP_TIMEOUT_S``), and return each rank's result."""
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+def dp_ranks(backend: str, devices: list[str], parity: bool, tp: int = 1) -> list[dict]:
+    """Start phase 6g's ranks (6h's with ``tp`` > 1) as processes of this
+    script, wait for them (killed after ``DP_TIMEOUT_S``), and return each
+    rank's result."""
+    phase = "6h" if tp > 1 else "6g"
+    root = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_"))
     world = len(devices)
     procs = []
     for rank, dev in enumerate(devices):
         args = [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(rank),
                 "--dp-world", str(world), "--dp-dir", str(root), "--dp-backend", backend,
-                "--dp-device", dev] + (["--dp-parity"] if parity else [])
+                "--dp-device", dev, "--dp-tp", str(tp)] + (["--dp-parity"] if parity else [])
         log_file = open(root / f"log_{rank}.txt", "w")
         procs.append((subprocess.Popen(args, cwd=REPO, stdout=log_file,
                                        stderr=subprocess.STDOUT), log_file))
@@ -3144,7 +3248,7 @@ def dp_ranks(backend: str, devices: list[str], parity: bool) -> list[dict]:
     if failed:
         tails = "\n".join(f"--- rank {r} ---\n{(root / f'log_{r}.txt').read_text()[-3000:]}"
                           for r in range(world))
-        raise AssertionError(f"[6g] {backend} ranks {failed} failed or hung:\n{tails}")
+        raise AssertionError(f"[{phase}] {backend} ranks {failed} failed or hung:\n{tails}")
     res = [json.loads((root / f"rank_{r}.json").read_text()) for r in range(world)]
     if parity:
         for r in range(world):
@@ -3191,27 +3295,31 @@ def dp_check_full(label: str, ranks: list[dict], card: str) -> dict:
     return res
 
 
-def dp_check_parity(ranks: list[dict], card: str) -> dict:
-    """Phase 6g(b)'s parity: the ranks against one process on the card at
-    the whole batch (metrics, parameters within phase 4's bounds), and the
-    ranks' parameters bit-equal."""
+def dp_check_parity(ranks: list[dict], card: str, tp: int = 1) -> dict:
+    """Phase 6g(b)'s parity (6h(a)'s with ``tp`` > 1, the whole state each
+    rank gathered): the ranks against one process on the card at the whole
+    batch (metrics, parameters within phase 4's bounds), and the ranks'
+    parameters bit-equal."""
+    tag = "[6h]" if tp > 1 else "[6g]"
     cfg = dp_parity_cfg()
     state = create_train_state(cfg, torch.float32, "cuda", seed=0)
     step = make_train_step(cfg, word_block_elems=0)
     want = [{k: float(v) for k, v in step(state, batch, noise).items()}
             for batch, noise in dp_parity_batches(cfg)]
-    a, b = (r["parity"] for r in ranks)
-    if a["metrics"] != b["metrics"]:
-        raise AssertionError("[6g] parity: the ranks' metrics differ")
-    for net in ("g", "d"):
-        for name, v in a["state"][net].items():
-            if not torch.equal(v, b["state"][net][name]):
-                raise AssertionError(f"[6g] parity: the ranks' {net}.{name} differ")
+    a = ranks[0]["parity"]
+    for r in ranks[1:]:
+        b = r["parity"]
+        if a["metrics"] != b["metrics"]:
+            raise AssertionError(f"{tag} parity: the ranks' metrics differ")
+        for net in ("g", "d"):
+            for name, v in a["state"][net].items():
+                if not torch.equal(v, b["state"][net][name]):
+                    raise AssertionError(f"{tag} parity: the ranks' {net}.{name} differ")
     for k, (got, ref) in enumerate(zip(a["metrics"], want)):
         for key, v in ref.items():
             if not abs(got[key] - v) <= TRAIN_TOL["metric"] * max(1.0, abs(v)):
-                raise AssertionError(f"[6g] parity step {k} {key}: 2 ranks {got[key]} vs one "
-                                     f"process {v}")
+                raise AssertionError(f"{tag} parity step {k} {key}: {len(ranks)} ranks "
+                                     f"{got[key]} vs one process {v}")
     lr = max(cfg.TRAIN.OPT.G_LR, cfg.TRAIN.OPT.D_LR)
     share, worst, worst_uv, n_all = param_agreement(
         (state.g.state_dict(), state.d.state_dict()), (a["state"]["g"], a["state"]["d"]), lr)
@@ -3219,16 +3327,24 @@ def dp_check_parity(ranks: list[dict], card: str) -> dict:
     for r in ranks:
         got = {k: r["parity"]["launches"][k] for k in want_launches}
         if got != want_launches:
-            raise AssertionError(f"[6g] parity rank {r['rank']}: damsm launches {got}, want "
+            raise AssertionError(f"{tag} parity rank {r['rank']}: damsm launches {got}, want "
                                  f"{want_launches}")
-    log(f"[6g] parity, 2 gloo ranks on {ranks[0]['device']} vs one process, fp32 (TF32 off), "
-        f"NCH 8, 64², global batch 8, {DP_PARITY_STEPS} steps: metrics within "
-        f"{TRAIN_TOL['metric']:g}; params {share:.6f} of {n_all} within "
+    bs, dp = cfg.TRAIN.BATCH_SIZE, len(ranks) // tp
+    block = (f"[{bs // dp}, {bs // tp}] column block" if tp > 1
+             else f"[{bs // dp}, {bs}] row block")
+    mesh = f"dp {dp} x tp {tp}, {a.get('split', [0, 0])} of G's / D's weights split, " \
+        if tp > 1 else ""
+    log(f"{tag} parity, {len(ranks)} gloo ranks ({mesh}on {ranks[0]['device']}) vs one process, "
+        f"fp32 (TF32 off), NCH 8, 64², global batch {bs}, {DP_PARITY_STEPS} steps: metrics "
+        f"within {TRAIN_TOL['metric']:g}; params {share:.6f} of {n_all} within "
         f"{TRAIN_TOL['param_lr_frac'] * lr:.2g}, worst {worst:.3g} (bound {4 * lr:.2g}); u/v "
         f"worst {worst_uv:.3g}; the ranks' parameters bit-equal; damsm launches a rank "
-        f"{want_launches} on the [4, 8] row block")
+        f"{want_launches} on the {block} | {card}")
     if share < TRAIN_TOL["param_share"] or worst > 4 * lr or worst_uv > TRAIN_TOL["uv"]:
-        raise AssertionError("[6g] parity: 2 ranks and one process differ beyond the tolerance")
+        raise AssertionError(f"{tag} parity: {len(ranks)} ranks and one process differ beyond "
+                             "the tolerance")
+    if tp > 1 and not all(a["split"]):
+        raise AssertionError(f"{tag} parity: nothing split in G or D ({a['split']})")
     del state
     torch.cuda.empty_cache()
     return {"param_share": share, "param_worst": worst, "uv_worst": worst_uv,
@@ -3262,6 +3378,220 @@ def dp_phase(card: str, bare_step_ms: float) -> dict:
     ran = "(a), (b) and (c)" if "nccl_cards" in res else (
         f"(a) and (b); (c) needs {DP_WORLD} cards, the machine has {torch.cuda.device_count()}")
     log(f"[6g] ran {ran}")
+    return res
+
+
+# phase 6h: tensor parallelism.  (a) four gloo ranks share the card as dp 2 x
+# tp 2 for phase 6g's parity step with the weights split at the JAX tests'
+# threshold (2^12); (b) two gloo ranks as dp 1 x tp 2 run the LN-COCO model
+# (ln_coco_256.yml: DF_GEN/DF_DISC, NCH 96, 256², SBERT words D = 768, T =
+# 200) in bf16 at a global batch of TP_BATCH, reduced from 256 so that two
+# ranks with their whole activations fit in 80 GB, at the JAX rule's
+# threshold (2^16); (c) two NCCL ranks, one card each, where there are two
+TP = 2
+TP_PARITY_MIN = 1 << 12
+TP_BATCH = 64
+
+
+@contextlib.contextmanager
+def timed_collectives(out: dict):
+    """Host time of every ``all_gather`` / ``all_reduce`` / ``broadcast``
+    while the block runs, into ``out`` by name (ms, calls): each call
+    synchronizes the card first, so the time is the collective's alone
+    (gloo stages a CUDA tensor through the host)."""
+    import torch.distributed as dist
+
+    saved = {n: getattr(dist, n) for n in ("all_gather", "all_reduce", "broadcast")}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+            return res
+        return timed
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def state_bytes(state) -> dict[str, int]:
+    """This process's parameter and Adam-moment bytes (G and D)."""
+    params = sum(p.numel() * p.element_size() for net in (state.g, state.d)
+                 for p in net.parameters())
+    moments = sum(v.numel() * v.element_size() for opt in (state.g_opt, state.d_opt)
+                  for s in opt.state.values() for k, v in s.items()
+                  if k in ("exp_avg", "exp_avg_sq"))
+    return {"params": params, "moments": moments}
+
+
+def tp_parity(mesh, out_dir: Path) -> dict:
+    """A rank of phase 6h(a): phase 6g's parity step (fp32, TF32 off, the
+    word scores through the damsm kernels) with the state split over the
+    model group at ``TP_PARITY_MIN``; saves the whole state it gathers."""
+    cfg = dp_parity_cfg()
+    state = create_train_state(cfg, torch.float32, mesh.device, seed=0)
+    replicate(mesh, state)
+    shard_state(state, mesh, TP_PARITY_MIN)
+    step = make_train_step(cfg, word_block_elems=0, mesh=mesh)
+    metrics = []
+    reset_counts()
+    for batch, noise in dp_parity_batches(cfg):
+        local = shard_batch(mesh, {**batch, "noise": noise})
+        m = step(state, local, local.pop("noise"))
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = read_counts()
+    whole = gather_state(state)
+    torch.save({"g": whole["g"], "d": whole["d"]}, out_dir / f"parity_{mesh.rank}.pt")
+    return {"metrics": metrics, "launches": launches,
+            "split": [len(sharded_tensors(n)) for n in (state.g, state.d)]}
+
+
+def tp_full(mesh) -> dict:
+    """A rank of phase 6h(b): the LN-COCO bf16 step on this rank's rows of a
+    global batch of ``TP_BATCH`` (all of them at dp = 1), its large weights
+    split over the model group: one step (tens of seconds of gloo), timed,
+    counted (launches, peak memory) and with each collective's own time
+    (``timed_collectives``)."""
+    cfg = ln_cfg({"TRAIN": {"BATCH_SIZE": TP_BATCH}})
+    state = create_train_state(cfg, torch.bfloat16, mesh.device, seed=0)
+    replicate(mesh, state)
+    shard_state(state, mesh)
+    step = make_train_step(cfg, mesh=mesh)
+    rng = np.random.RandomState(7)
+    batch = train_batch(rng, cfg, TP_BATCH, ln_mask)
+    noise = rng.randn(TP_BATCH, cfg.TRAIN.NOISE_DIM).astype(np.float32)
+    local = {k: torch.from_numpy(v).to(mesh.device) for k, v in shard_batch(mesh, batch).items()}
+    bs = TP_BATCH // mesh.dp
+    noise = torch.from_numpy(noise[mesh.rows(bs)]).to(mesh.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    coll: dict = {}
+    t0 = time.perf_counter()
+    with timed_collectives(coll):
+        metrics = step(state, local, noise)
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    T, D = cfg.TEXT.MAX_LENGTH, cfg.TEXT.EMBEDDING_DIM
+    cols = TP_BATCH // mesh.tp
+    return {"launches": launches, "step_ms": step_ms, "collectives": coll,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "bytes": state_bytes(state),
+            "split": [len(sharded_tensors(n)) for n in (state.g, state.d)],
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "col_block": [bs, cols, T, REGIONS, D],
+            "col_block_backend": word_scores_backend(bs, cols, T, REGIONS,
+                                                     WORD_LOSS_BLOCK_ELEMS, mesh.device),
+            "col_block_route": ds.route("fwd", REGIONS, D, torch.bfloat16)}
+
+
+def tp_one_process(card: str) -> dict:
+    """Phase 6h(b)'s yardstick: the same LN-COCO bf16 step in one process at
+    the same global batch: its first step (as a rank's) and two more, each
+    timed; its peak memory and its parameter and moment bytes."""
+    cfg = ln_cfg({"TRAIN": {"BATCH_SIZE": TP_BATCH}})
+    state = create_train_state(cfg, torch.bfloat16, "cuda", seed=0)
+    step = make_train_step(cfg)
+    rng = np.random.RandomState(7)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(rng, cfg, TP_BATCH, ln_mask).items()}
+    noises = [torch.from_numpy(rng.randn(TP_BATCH, cfg.TRAIN.NOISE_DIM).astype(np.float32)).cuda()
+              for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for noise in noises:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = {"first_step_ms": times[0], "step_ms": statistics.median(times[1:]),
+           "step_ms_all": times,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "bytes": state_bytes(state)}
+    del state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_check_full(label: str, ranks: list[dict], one: dict, card: str) -> dict:
+    """Phase 6h(b)'s ranks: launches (a rank step's are one process's), the
+    column block on the damsm kernels (tensor cores), finite losses; logs
+    each rank's step, collectives, memory and bytes beside one process's."""
+    want = {**STEP_LAUNCHES}
+    for r in ranks:
+        full = r["full"]
+        if full["launches"] != want:
+            raise AssertionError(f"[6h] {label} rank {r['rank']}: launches {full['launches']}, "
+                                 f"want {want}")
+        if full["col_block_backend"] != "kernel" or full["col_block_route"] != ds.TENSOR_CORES:
+            raise AssertionError(f"[6h] {label}: the column block {full['col_block']} is on "
+                                 f"{full['col_block_backend']} / {full['col_block_route']}")
+        bad = [k for k, v in full["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"[6h] {label} rank {r['rank']}: non-finite {bad}")
+        if not all(full["split"]):
+            raise AssertionError(f"[6h] {label} rank {r['rank']}: split {full['split']}")
+    f0 = ranks[0]["full"]
+    coll_ms = [sum(ms for ms, _ in r["full"]["collectives"].values()) for r in ranks]
+    res = {"label": label, "backend": ranks[0]["backend"],
+           "devices": [r["device"] for r in ranks], "global_batch": TP_BATCH, "tp": TP,
+           "rank_step_ms": [r["full"]["step_ms"] for r in ranks],
+           "rank_collective_ms": coll_ms,
+           "collectives": [r["full"]["collectives"] for r in ranks],
+           "peak_mem_gib": [r["full"]["peak_mem_gib"] for r in ranks],
+           "bytes": [r["full"]["bytes"] for r in ranks], "split": f0["split"],
+           "launches_rank_step": f0["launches"], "col_block": f0["col_block"],
+           "metrics": f0["metrics"], "one_process": one}
+    b = f0["bytes"]
+    log(f"[6h] {label}: LN-COCO bf16, global batch {TP_BATCH}, tp {TP} ({f0['split'][0]} of "
+        f"G's and {f0['split'][1]} of D's weights split): a rank's first step "
+        + " / ".join(f"{ms:.1f}" for ms in res["rank_step_ms"])
+        + f" ms beside one process's {one['first_step_ms']:.1f} (its next two: median "
+        f"{one['step_ms']:.1f} ms), with " + " / ".join(f"{ms:.1f}" for ms in coll_ms)
+        + " ms of it in the "
+        f"collectives ({', '.join(f'{k} {ms:.1f} ms x{n}' for k, (ms, n) in f0['collectives'].items())}"
+        f" on rank 0); peak " + " / ".join(f"{g:.2f}" for g in res["peak_mem_gib"])
+        + f" GiB a rank beside one process's {one['peak_mem_gib']:.2f}; parameters "
+        f"{b['params'] / 2**20:.1f} MiB and Adam moments {b['moments'] / 2**20:.1f} MiB a rank "
+        f"beside {one['bytes']['params'] / 2**20:.1f} / {one['bytes']['moments'] / 2**20:.1f} "
+        f"MiB; a rank step launches {f0['launches']}, the damsm forward and d_regions on the "
+        f"[{f0['col_block'][0]}, {f0['col_block'][1]}] column block (T = {f0['col_block'][2]}, "
+        f"R = {f0['col_block'][3]}, D = {f0['col_block'][4]}) on the tensor cores | {card}")
+    log(f"[6h] {label} rank 0 metrics: " + ", ".join(f"{k} {v:.4g}"
+                                                     for k, v in f0["metrics"].items()))
+    return res
+
+
+def tp_phase(card: str) -> dict:
+    """Phase 6h: (a) dp 2 x tp 2 parity against one process; (b) dp 1 x tp 2
+    at the LN-COCO model's full width beside one process at the same batch;
+    (c) two NCCL ranks, one card each, where the machine has two cards."""
+    res = {}
+    ranks = dp_ranks("gloo", ["cuda:0"] * 4, parity=True, tp=TP)
+    res["parity"] = dp_check_parity(ranks, card, tp=TP)
+    ranks = dp_ranks("gloo", ["cuda:0"] * TP, parity=False, tp=TP)
+    torch.cuda.empty_cache()
+    one = tp_one_process(card)
+    res["gloo_one_card"] = tp_check_full(f"(b) {TP} gloo ranks on one card", ranks, one, card)
+    if torch.cuda.device_count() >= TP:
+        ranks = dp_ranks("nccl", [f"cuda:{i}" for i in range(TP)], parity=False, tp=TP)
+        res["nccl_cards"] = tp_check_full(f"(c) {TP} NCCL ranks on {TP} cards", ranks, one,
+                                          card)
+    ran = "(a), (b) and (c)" if "nccl_cards" in res else (
+        f"(a) and (b); (c) needs {TP} cards, the machine has {torch.cuda.device_count()}")
+    log(f"[6h] ran {ran}")
     return res
 
 
@@ -3862,6 +4192,7 @@ def main() -> int:
     bwd2_errs = check_double_backward(concept_train_cfg())
     ds_errs = check_damsm()
     row_errs = check_damsm_row_blocks()
+    col_errs = check_damsm_col_blocks()
     ln_errs = check_damsm_ln()
     check_damsm_streamed()
     ca_errs = check_attention(attn_in)
@@ -3945,6 +4276,9 @@ def main() -> int:
     t_dp = time.perf_counter()
     dp = dp_phase(card, trains[torch.bfloat16]["step_ms"])
     log(f"[6g] {time.perf_counter() - t_dp:.1f} s | {card}")
+    t_tp = time.perf_counter()
+    tp = tp_phase(card)
+    log(f"[6h] {time.perf_counter() - t_tp:.1f} s | {card}")
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
@@ -3967,6 +4301,14 @@ def main() -> int:
                              {None: "phase 6: one full-width LN-COCO fp32 step at batch "
                                     f"{LN_FP32_BATCH}",
                               torch.bfloat16: "phase 6: one full-width LN-COCO bf16 step"})
+    # the tensor-parallel rank step's launches (phase 6h(b), the [64, 32]
+    # column block) and the column blocks' errors (phase 3) beside the LN rows
+    for row in kernels:
+        if row["name"] in ("damsm_score.forward[bf16, LN]", "damsm_score.d_regions[bf16, LN]"):
+            which = row["name"].split("[")[0]
+            row["launches_tp_rank_step"] = tp["gloo_one_card"]["launches_rank_step"][which]
+            row["max_abs_err_col_block"] = col_errs[
+                (TP_BATCH, TP_BATCH // TP, "bf16")][which.split(".")[1]]
     kernels += attention_bwd_rows(
         ca_bwd_errs, {name: {d: r["launches_step"]["cross_attention.backward"]
                              for d, r in attn_loops[name].items()} for name in ATTN_GENS},
@@ -3995,7 +4337,8 @@ def main() -> int:
                     "ln_training_loop": ln_fit,
                     "attention_training_loop": [r for rs in attn_loops.values()
                                                 for r in rs.values()],
-                    "vgg_training": vgg_train, "data_parallel": dp}))
+                    "vgg_training": vgg_train, "data_parallel": dp,
+                    "tensor_parallel": tp}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

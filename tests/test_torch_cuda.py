@@ -734,6 +734,54 @@ def test_damsm_row_block_matches_plain_on_card(cuda_device, cd, shape):
     assert torch.equal(got["s"], full) and torch.equal(got["dr"], full_dr)
 
 
+# (B_local, B_global, cols, R, T, D): the column blocks of a tensor-parallel
+# rank, its B_local images against its ``cols`` of the B_global captions:
+# the LN-COCO step at a global batch of 64 over tp = 2 ([64, 32], T = 200,
+# D = 768) and 4 images against 4 of 8 captions at the flagship word shape
+COL_BLOCKS = [(64, 64, 32, 256, 200, 768), (4, 8, 4, 256, 20, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+@pytest.mark.parametrize("shape", COL_BLOCKS, ids=str)
+def test_damsm_col_block_matches_plain_on_card(cuda_device, cd, shape):
+    """A tensor-parallel rank's word scores (``parallel.sharded_word_scores``'
+    column blocks): the forward and d_regions of the first ``B_local``
+    images against the last ``cols`` captions, through ``damsm_scores``,
+    the words without gradient as in the step, against the plain version
+    and its autograd, on the kernels the route names (no d_words); and
+    within the same tolerance of that block of one launch on the whole
+    batch (``damsm_scores`` packs each batch's words to its own longest
+    caption, so the sub-captions may differ)."""
+    b, bc, cols, R, T, D = shape
+    if T == 200:
+        r, w, mask, up = _ln_inputs(cuda_device, (bc, bc, R, T, D), 23)
+    else:
+        r, w, mask, up = _damsm_inputs(cuda_device, (bc, bc, R, T, D), 8, False)
+    full = ds.damsm_scores(r, w, mask, 4.0, 5.0, cd)[:b, bc - cols:]
+    r, w, mask = r[:b].contiguous(), w[bc - cols:].contiguous(), mask[bc - cols:].contiguous()
+    up = up[:b, bc - cols:].contiguous()
+    ri, got = r.clone().requires_grad_(), {}
+
+    def run():
+        got["s"] = ds.damsm_scores(ri, w, mask, 4.0, 5.0, cd)
+        got["dr"], = torch.autograd.grad(got["s"], ri, up)
+
+    names = _damsm_kernel_names(run)
+    for which in ("fwd", "dr"):
+        want = ds.kernel_name(which, R, D, cd)
+        assert any(want in n for n in names), (want, names)
+    assert not any("damsm_bwd_dw" in n for n in names), names
+    score_atol, grad_scale = DAMSM_TOL[cd]
+    assert got["s"].shape == (b, cols)
+    torch.testing.assert_close(got["s"], _exact_scores(r, w, mask, cd), rtol=1e-5,
+                               atol=score_atol)
+    torch.testing.assert_close(got["s"], full, rtol=1e-5, atol=score_atol)
+    want_dr = ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, cd)
+    torch.testing.assert_close(got["dr"], want_dr, rtol=0,
+                               atol=grad_scale * want_dr.abs().max().item())
+
+
 @pytest.mark.cuda
 def test_damsm_skips_d_words_when_words_carry_no_grad(cuda_device):
     """As in the train step: words are data, so only d_regions launches."""

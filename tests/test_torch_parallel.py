@@ -17,6 +17,20 @@ rank's own divided by the world size (the data-parallel mean), as
   JAX module's ``_batch_norm`` on the whole batch.
 * ``mismatch_pairs``: RMIS pairs image i with sentence i + 1 across the
   rank boundary; the last rank drops its last image; ``B - 1`` pairs.
+
+Tensor parallelism (``job_tp_collectives``), ``dp = 2 x tp = 2`` (4 ranks)
+and ``dp = 2 x tp = 4`` (8 ranks):
+
+* ``sharded_word_scores``' column blocks ``[B_local, B/tp]`` against
+  ``make_sharded_word_scores`` on ``make_mesh(dp=2, tp=2)`` and the
+  single-device scores, values and gradients at ``tests/test_parallel.py``'s
+  tolerances; at B = 6, tp = 4 (``tests/test_parallel.py:131``: tp does not
+  divide B) every rank scores the full columns, held to the JAX (2, 4) mesh.
+* A column-parallel spectral-normalized ``SNConv`` (its 8 output rows split
+  4 + 4): output, input gradient, and a MAGP-style double backward's weight
+  (this rank's rows) and bias gradients, and the refreshed vectors, against
+  the same layer whole on the same rank, to 1e-6 relative (1e-5 for the
+  bias's gradient, a sum over every pixel).
 """
 
 import functools
@@ -25,9 +39,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from torch_dp_workers import launch
+from torch_dp_workers import Ranks, launch
 from xmc_gan_tpu import losses
 from xmc_gan_tpu.models.concept_gan import _batch_norm as jax_batch_norm
 from xmc_gan_tpu.parallel import make_mesh
@@ -181,3 +196,100 @@ def test_rmis_pairs_cross_the_rank_boundary(run):
         # image i against sentence i + 1 of the global batch
         np.testing.assert_array_equal(sents, spec["rmis_sent"][first + 1:first + 1 + count])
     assert sum(len(np.asarray(r["rmis"][0])) for r in ranks) == B - 1
+
+
+TP_MESHES = {"dp2_tp2": (2, 2, dict(b=16, r=8, t=6, d=8)), "dp2_tp4": (2, 4, dict(b=6, r=4, t=5, d=8))}
+
+
+def _tp_spec(b, r, t, d) -> dict:
+    rng = np.random.RandomState(3)
+    spec = {"regions": rng.randn(b, r, d), "words": rng.randn(b, t, d),
+            "mask": rng.rand(b, t) > 0.7, "word_cot": rng.randn(b, b),
+            "conv_x": rng.randn(3, 6, 5, 5), "conv_cot": rng.randn(3, 8, 5, 5)}
+    spec["mask"][:, 0] = False
+    return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in spec.items()}
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    started = {}
+    for name, (dp, tp, shape) in TP_MESHES.items():
+        spec = {**_tp_spec(**shape), "tp": tp, "sn_conv": name == "dp2_tp2"}
+        started[name] = (spec, Ranks("tp_collectives", tmp_path_factory.mktemp(name), dp * tp,
+                                     spec))
+    return {name: (spec, ranks.join()) for name, (spec, ranks) in started.items()}
+
+
+def _rows_cat(ranks, key, tp):
+    """The data ranks' rows, in order (model rank 0 of each)."""
+    return np.concatenate([np.asarray(r[key]) for r in ranks[::tp]])
+
+
+@pytest.mark.parametrize("name", TP_MESHES)
+def test_column_block_word_scores_match_jax(tp_runs, name, eight_devices):
+    dp, tp, _ = TP_MESHES[name]
+    spec, ranks = tp_runs[name]
+    regions, words = jnp.asarray(spec["regions"]), jnp.asarray(spec["words"])
+    mask, cot = jnp.asarray(spec["mask"]), jnp.asarray(spec["word_cot"])
+
+    def single(r, w):
+        s = losses.word_region_scores(r, w, mask, 4.0, 5.0, block_elems=32)
+        return jnp.sum(s * cot), s
+
+    (want_val, want_s), (want_dr, want_dw) = jax.value_and_grad(
+        single, argnums=(0, 1), has_aux=True)(regions, words)
+    mesh = make_mesh(dp=dp, tp=tp)
+    sharded = make_sharded_word_scores(mesh, 4.0, 5.0, block_elems=32)
+
+    def dist(r, w):
+        s = sharded(r, w, mask)
+        return jnp.sum(s * cot), s
+
+    spec3 = NamedSharding(mesh, P("data", None, None))
+    (mesh_val, mesh_s), (mesh_dr, mesh_dw) = jax.jit(jax.value_and_grad(
+        dist, argnums=(0, 1), has_aux=True))(jax.device_put(regions, spec3),
+                                             jax.device_put(words, spec3))
+    for r in ranks:
+        for want in (want_s, mesh_s):
+            np.testing.assert_allclose(np.asarray(r["scores"]), np.asarray(want),
+                                       rtol=1e-5, atol=1e-6)
+        for want in (want_val, mesh_val):
+            np.testing.assert_allclose(float(r["word_val"]), float(want), rtol=1e-5)
+    # the ranks of one model group hold the same rows and the same gradients
+    for r in ranks:
+        lead = ranks[r["data_rank"] * tp]
+        np.testing.assert_array_equal(np.asarray(r["d_regions"]), np.asarray(lead["d_regions"]))
+    for want in (want_dr, mesh_dr):
+        np.testing.assert_allclose(_rows_cat(ranks, "d_regions", tp), np.asarray(want),
+                                   rtol=1e-4, atol=1e-6)
+    for want in (want_dw, mesh_dw):
+        np.testing.assert_allclose(_rows_cat(ranks, "d_words", tp), np.asarray(want),
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_bf16_model_sum_rounds_once(tp_runs):
+    """A bf16 sum over the model group (``parallel.tensor._summed``, the
+    column-parallel layers' input gradient): the parts added in fp32 and
+    rounded once, the same bits on every rank of the group, in the input's
+    memory format."""
+    _, ranks = tp_runs["dp2_tp2"]
+    for lead in ranks[::2]:
+        group = [r for r in ranks if r["data_rank"] == lead["data_rank"]]
+        want = sum(r["bf16_sum"][0].float() for r in group).bfloat16()
+        for r in group:
+            got = r["bf16_sum"][1]
+            assert got.dtype == torch.bfloat16
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(got, want)
+
+
+def test_column_parallel_sn_conv_matches_the_whole_layer(tp_runs):
+    _, ranks = tp_runs["dp2_tp2"]
+    for r in ranks:
+        whole, split = r["sn_conv"]["whole"], r["sn_conv"]["split"]
+        for key in ("y", "gx", "gw", "gb", "u", "v"):
+            a, b = np.asarray(split[key]), np.asarray(whole[key])
+            rtol = 1e-5 if key == "gb" else 1e-6
+            assert np.abs(a - b).max() <= rtol * np.abs(b).max(), (key, np.abs(a - b).max())
+    # rows 0-3 on model rank 0, 4-7 on model rank 1: different parts of one gradient
+    assert not np.array_equal(ranks[0]["sn_conv"]["split"]["gw"], ranks[1]["sn_conv"]["split"]["gw"])

@@ -43,7 +43,7 @@ from xmc_gan_tpu.models.encoder import RNNEncoder as JaxRNNEncoder
 from xmc_gan_tpu.trainer import Trainer as JaxTrainer
 from xmc_gan_tpu.utils.convert import rnn_encoder_state_dict
 from xmc_gan_tpu_torch.cli import main
-from xmc_gan_tpu_torch.parallel import make_mesh
+from xmc_gan_tpu_torch.parallel import make_mesh, shutdown
 from xmc_gan_tpu_torch.trainer import Trainer
 from xmc_gan_tpu_torch.utils.convert import (
     df_gan_discriminator_state_dict,
@@ -214,12 +214,17 @@ def test_step_noise_is_a_function_of_seed_and_step(runs):
     assert not torch.equal(a, _trainer(runs, "noise2", 8).step_noise(5))
 
 
-def test_mesh_raises_naming_the_data_parallel_slice():
-    """The data-parallel slice shards the batch only: a mesh with a model
-    axis (tp > 1) raises, naming tensor parallelism, before any group starts
-    (``tests/test_torch_dp_trainer.py`` trains with a dp mesh)."""
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_mesh(dp=1, tp=2, device="cpu")
+def test_mesh_raises_naming_the_data_parallel_slice(tmp_path):
+    """A ``dp x tp`` grid that the group's size does not fill raises, naming
+    tp and the world size: one process cannot hold a model axis of 2
+    (``tests/test_torch_dp_trainer.py`` and ``tests/test_torch_tp_*.py``
+    train on dp and dp x tp meshes)."""
+    try:
+        with pytest.raises(ValueError, match="tp=2 must divide the world size 1"):
+            make_mesh(dp=1, tp=2, device="cpu", init_method=f"file://{tmp_path / 'store'}",
+                      rank=0, world_size=1)
+    finally:
+        shutdown()
 
 
 def test_cli_train_eval_and_sample_on_the_cpu(tmp_path, capsys):
@@ -284,12 +289,12 @@ def test_d_warm_start_from_a_reference_checkpoint(runs):
 
 
 def test_cli_data_parallel_flags_raise():
-    """``--tp 2`` raises (tensor parallelism is not ported), and so does
-    ``--dp 2`` without ``--distributed`` (one process drives one card; the
-    ranks come from torchrun)."""
+    """``--tp 2`` and ``--dp 2`` without ``--distributed`` raise (one process
+    drives one card; the ranks come from torchrun; ``--tp`` itself runs,
+    ``tests/test_torch_tp_trainer.py``)."""
     common = ["train", "--cfg", "xmc_gan_tpu/cfg/df_gan_damsm.yml", "--synthetic", "--device",
               "cpu"]
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        main([*common, "--tp", "2", "--distributed"])
+    with pytest.raises(ValueError, match="--nproc_per_node 2 and --distributed"):
+        main([*common, "--tp", "2"])
     with pytest.raises(ValueError, match="--nproc_per_node 2 and --distributed"):
         main([*common, "--dp", "2"])

@@ -28,6 +28,7 @@ global batch, ``cross_attention``) and ``concept_out_df_gan.yml``
 """
 
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -68,10 +69,15 @@ CONFIGS = {
     "word_attention": ("concept_in_df_gan.yml",
                        {"GEN": {"ENCODER_NAME": "CONCEPT_INATTN_GEN"}}, True),
     "concept_df": ("concept_out_df_gan.yml", {}, False),
+    "word_attention_out": ("concept_in_df_gan.yml",
+                           {"GEN": {"ENCODER_NAME": "CONCEPT_OUTATTN_GEN"}}, True),
+    "concept_in_df": ("concept_in_df_gan.yml", {}, True),
 }
 
 
-def run_dp_step(name: str, workdir) -> dict:
+def _prepare(name: str) -> dict:
+    """The JAX state (perturbed weights, refreshed vectors), the same state in
+    the port, the batch and the JAX noise draw of config ``name``."""
     yml, overrides, words = CONFIGS[name]
     jcfg, cfg = tiny_cfgs(yml, overrides)
     assert cfg.TRAIN.N_CRITIC == 1  # one step updates G
@@ -85,7 +91,6 @@ def run_dp_step(name: str, workdir) -> dict:
     state = state.replace(g_params=g, d_params=d, d_spectral=spec_v,
                           g_opt_state=g_tx.init(g), d_opt_state=d_tx.init(d))
     port = convert.train_state_from_jax(cfg, g, d, spec_v, device="cpu")
-    init = _snapshot_port(port)
     rng = np.random.RandomState(0)
     # the batch of torch_step_parity.run_step, so that the JAX step is the
     # program its tests compile (one compile where the cache holds it)
@@ -96,23 +101,70 @@ def run_dp_step(name: str, workdir) -> dict:
         batch["mask"] = np.arange(T)[None, :] >= np.array(WORD_LENS)[:, None]
     key = jax.random.PRNGKey(100)
     noise = np.asarray(jax.random.normal(key, (BS, NOISE), jnp.float32))  # the JAX draw
+    return {"cfg": cfg, "jcfg": jcfg, "jax_state": state, "port": port,
+            "init": _snapshot_port(port), "batch": batch, "noise": noise, "key": key,
+            "spec": {"cfg": str(CFG_DIR / yml), "overrides": _merge(TINY, overrides)}}
 
-    ranks = Ranks("step", workdir, WORLD, spec={  # they run while JAX compiles
-        "cfg": str(CFG_DIR / yml), "overrides": _merge(TINY, overrides), "g": init["g"],
-        "d": init["d"], "batches": [batch], "noises": [noise]})
-    single = train.make_train_step(cfg)(port, batch, noise)
-    state, jm = jax.jit(jax_train.make_train_step(jcfg))(
-        state, {n: jnp.asarray(v) for n, v in batch.items()}, key)
-    jax_side = {"metrics": {n: float(v) for n, v in jm.items()},
-                "params": _snapshot_jax(cfg, state)}
+
+def _spec(prep: dict) -> dict:
+    return {**prep["spec"], "g": prep["init"]["g"], "d": prep["init"]["d"],
+            "batches": [prep["batch"]], "noises": [prep["noise"]]}
+
+
+def _single_and_jax(prep: dict) -> tuple[dict, dict]:
+    """The port's one-process step and the JAX package's single-device step."""
+    batch, noise = prep["batch"], prep["noise"]
+    port = prep["port"]
+    single = train.make_train_step(prep["cfg"])(port, batch, noise)
+    state, jm = jax.jit(jax_train.make_train_step(prep["jcfg"]))(
+        prep["jax_state"], {n: jnp.asarray(v) for n, v in batch.items()}, prep["key"])
+    return ({"metrics": {n: float(v) for n, v in single.items()},
+             "params": _snapshot_port(port)},
+            {"metrics": {n: float(v) for n, v in jm.items()},
+             "params": _snapshot_jax(prep["cfg"], state)})
+
+
+def run_dp_step(name: str, workdir) -> dict:
+    prep = _prepare(name)
+    ranks = Ranks("step", workdir, WORLD, spec=_spec(prep))  # they run while JAX compiles
+    single, jax_side = _single_and_jax(prep)
     ranks = ranks.join()
-    return {"cfg": cfg, "ranks": ranks,
-            "single": {"metrics": {n: float(v) for n, v in single.items()},
-                       "params": _snapshot_port(port)},
+    cfg = prep["cfg"]
+    return {"cfg": cfg, "ranks": ranks, "single": single,
             "dp_vs_jax": {"cfg": cfg, "steps": [
                 {"jax": jax_side,
                  "port": {"metrics": ranks[0]["metrics"][0],
                           "params": {"g": ranks[0]["g"], "d": ranks[0]["d"]}}}]}}
+
+
+def run_tp_step(name: str, workdir, meshes: tuple[tuple[int, int], ...], tp_min_size: int,
+                with_jax: bool = True) -> dict:
+    """``run_dp_step`` on ``dp x tp`` meshes (``job_tp_step``), all started
+    at once: for each mesh its ranks, and the gathered state of rank 0 held
+    as ``run_dp_step``'s; the JAX step only ``with_jax``."""
+    prep = _prepare(name)
+    spec = _spec(prep)
+    started = {(dp, tp): Ranks("tp_step", Path(workdir) / f"dp{dp}_tp{tp}", dp * tp,
+                               spec={**spec, "tp": tp, "tp_min_size": tp_min_size})
+               for dp, tp in meshes}
+    if with_jax:
+        single, jax_side = _single_and_jax(prep)
+    else:
+        port = prep["port"]
+        m = train.make_train_step(prep["cfg"])(port, prep["batch"], prep["noise"])
+        single, jax_side = {"metrics": {n: float(v) for n, v in m.items()},
+                            "params": _snapshot_port(port)}, None
+    cfg = prep["cfg"]
+    out = {"cfg": cfg, "single": single, "meshes": {}}
+    for mesh, ranks in started.items():
+        ranks = ranks.join()
+        run = {"cfg": cfg, "ranks": ranks, "single": single}
+        if jax_side is not None:
+            run["dp_vs_jax"] = {"cfg": cfg, "steps": [
+                {"jax": jax_side, "port": {"metrics": ranks[0]["metrics"][0],
+                                           "params": {"g": ranks[0]["g"], "d": ranks[0]["d"]}}}]}
+        out["meshes"][mesh] = run
+    return out
 
 
 def check_dp_vs_jax_metrics(run: dict) -> None:
@@ -124,12 +176,13 @@ def check_dp_vs_jax_params(run: dict) -> None:
 
 
 def check_replicas_bit_equal(run: dict) -> None:
-    a, b = run["ranks"]
-    assert a["metrics"] == b["metrics"]
-    for net in ("g", "d"):
-        assert a[net].keys() == b[net].keys()
-        for name, v in a[net].items():
-            assert torch.equal(v, b[net][name]), (net, name)
+    a, *rest = run["ranks"]
+    for b in rest:
+        assert a["metrics"] == b["metrics"]
+        for net in ("g", "d"):
+            assert a[net].keys() == b[net].keys()
+            for name, v in a[net].items():
+                assert torch.equal(v, b[net][name]), (net, name)
 
 
 def check_dp_vs_one_process(run: dict) -> None:

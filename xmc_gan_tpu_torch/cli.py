@@ -30,13 +30,15 @@ Data parallelism runs one process per card under torchrun, which sets the
 group's environment (``parallel.make_mesh``):
 
     torchrun --nproc_per_node N -m xmc_gan_tpu_torch.cli train --cfg ... \
-        --distributed [--dp N]
+        --distributed [--dp D] [--tp T]
 
 ``TRAIN.BATCH_SIZE`` (``--bs``) is the global batch; NCCL on the cards, gloo
-with ``--device cpu``.  ``eval --distributed`` scores each rank's test shard
-and all-reduces the FID statistics.  ``--dp`` without ``--distributed``
-raises (one process drives one card), and so does ``--tp`` > 1: tensor
-parallelism is not ported.  ``train --gpu N`` (``--gpu_id``) trains on
+with ``--device cpu``.  ``--tp T`` splits the large weights of G and D over
+``T`` ranks (tensor parallelism, the JAX rule's layout;
+``parallel/tensor.py``), and ``N = D * T`` (``--dp`` defaults to ``N /
+T``).  ``eval --distributed`` scores each rank's test shard and all-reduces
+the FID statistics.  ``--dp`` or ``--tp`` without ``--distributed`` raises
+(one process drives one card).  ``train --gpu N`` (``--gpu_id``) trains on
 ``cuda:N``; ``--device cpu`` ignores it, and under ``--distributed`` the
 rank's card decides (N other than 0 raises).  ``train --debug_nans`` fails
 fast: autograd's anomaly mode is on for the run, and each step's metrics are
@@ -70,7 +72,6 @@ from xmc_gan_tpu_torch.data.text_encode import build_sbert_cache, make_hf_sbert_
 from xmc_gan_tpu_torch.data.vocab import load_w2i, tokenize
 from xmc_gan_tpu_torch.device import DTYPES, resolve_device, to_device
 from xmc_gan_tpu_torch.parallel import make_mesh, shutdown
-from xmc_gan_tpu_torch.parallel.mesh import TP_REFUSAL
 from xmc_gan_tpu_torch.registry import get_text_encoder
 from xmc_gan_tpu_torch.train import make_generator, make_sample_fn
 from xmc_gan_tpu_torch.trainer import Trainer, make_encode_fn, run_dir
@@ -129,8 +130,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="fail fast on a NaN: autograd anomaly mode, and each step's metrics "
                         "checked finite as the step ends (FloatingPointError)")
     t.add_argument("--dp", type=int, default=None,
-                   help="data-parallel ranks (default: the world size under --distributed)")
-    t.add_argument("--tp", type=int, default=1, help="tensor parallelism (not ported: 1 only)")
+                   help="data-parallel ranks (default: the world size / --tp, under --distributed)")
+    t.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: G's and D's large weights split by output "
+                        "features over them (the world size is dp * tp; with --distributed)")
     t.add_argument("--distributed", action="store_true",
                    help="one rank of a torchrun group (env://), one process per card")
 
@@ -266,16 +269,15 @@ def _dtype(args: argparse.Namespace):
 
 
 def _mesh(args: argparse.Namespace):
-    """The data-parallel rank of ``--distributed`` (None without it)."""
-    if getattr(args, "tp", 1) != 1:
-        raise NotImplementedError(f"--tp {args.tp}: {TP_REFUSAL}")
-    dp = getattr(args, "dp", None)
+    """The rank of ``--distributed``'s ``dp x tp`` grid (None without it)."""
+    dp, tp = getattr(args, "dp", None), getattr(args, "tp", 1)
     if not args.distributed:
-        if dp is not None:
-            raise ValueError(f"--dp {dp} runs one process per card: launch it with torchrun "
-                             f"--nproc_per_node {dp} and --distributed")
+        if dp is not None or tp != 1:
+            n = (dp or 1) * tp
+            raise ValueError(f"--dp {dp} --tp {tp} runs one process per card: launch it with "
+                             f"torchrun --nproc_per_node {n} and --distributed")
         return None
-    return make_mesh(dp, device=args.device)
+    return make_mesh(dp, tp, device=args.device)
 
 
 def _train_device(args: argparse.Namespace) -> str:

@@ -26,9 +26,10 @@ draw.
 
 Data parallelism (``mesh``, a ``parallel.Mesh``): every rank scores its
 shard of the test split, ``FeatureStats.finalize`` all-reduces the count,
-the sum and the outer-product sum (JAX ``eval.py:90-100``), and the loops
-count ``bs * world`` samples a batch (JAX ``:235``, ``:283``), so every rank
-stops at the same batch and returns the same FID.
+the sum and the outer-product sum over the data group (JAX
+``eval.py:90-100``; the ``tp`` ranks of a model group score the same rows),
+and the loops count ``bs * dp`` samples a batch (JAX ``:235``, ``:283``), so
+every rank stops at the same batch and returns the same FID.
 
 Protocols: ``evaluate_fid`` is the reference's 6,000-sample eval;
 ``evaluate_fid_30k`` the XMC-GAN paper's FID-30K: 30,000 generated samples
@@ -106,8 +107,8 @@ class FeatureStats:
 
             count = torch.full((1,), n, dtype=torch.float64, device=s.device)
             s, o = s.clone(), o.clone()
-            for t in (count, s, o):
-                dist.all_reduce(t)
+            for t in (count, s, o):  # the model group's ranks hold the same features
+                dist.all_reduce(t, group=self.mesh.data_group)
             n = int(count.item())
         if n < 2:
             raise ValueError(f"Need >= 2 samples for covariance, got {n}")
@@ -259,7 +260,7 @@ def evaluate_fid(cfg: Config, g, encode_fn: Callable, test_loader: Iterable, *,
     sample = _sampler(cfg, g, sample_fn)
     noise_fn = noise_fn or seeded_noise(seed, cfg.TRAIN.NOISE_DIM)
     real_stats, fake_stats = _stats_pair(fid, mesh)
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.dp
     done = 0
     for i, batch in enumerate(test_loader):
         words, sent, mask = encode_fn(batch)
@@ -291,7 +292,7 @@ def evaluate_fid_30k(cfg: Config, g, encode_fn: Callable, test_loader: Iterable,
     sample = _sampler(cfg, g, sample_fn)
     noise_fn = noise_fn or seeded_noise(seed, cfg.TRAIN.NOISE_DIM)
     real_stats, fake_stats = _stats_pair(fid, mesh)
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.dp
     done = i = 0
     first_pass = True
     while done < num_samples:

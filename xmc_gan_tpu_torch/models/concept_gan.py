@@ -66,14 +66,14 @@ def _batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     Under data parallelism (``mesh``, a ``parallel.Mesh``) the statistics
     are the *global* batch's, as under the JAX package's mesh (module
     docstring ``:28-30``): the sum, then the sum of squared deviations from
-    the global mean, each all-reduced with gradient over the ranks."""
+    the global mean, each all-reduced with gradient over the data group."""
     xf = x.float()
     if mesh is None:
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), keepdim=True, correction=0)
     else:
         from xmc_gan_tpu_torch.parallel.collectives import all_reduce_with_grad
 
-        n = xf.shape[0] * xf.shape[2] * xf.shape[3] * mesh.world
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3] * mesh.dp
         mean = all_reduce_with_grad(xf.sum((0, 2, 3), keepdim=True), mesh) / n
         var = all_reduce_with_grad((xf - mean).square().sum((0, 2, 3), keepdim=True), mesh) / n
     y = (xf - mean) * torch.rsqrt(var + eps)

@@ -43,19 +43,36 @@ class GroupedDense(_SNBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` ``[B, groups, d_in]`` -> ``[B, groups, d_out]``."""
+        if self.shard is not None:  # the output features as one axis, group-major
+            y = self.shard(self, x, self._einsum, -1)
+            return y.unflatten(-1, (self.groups, self.features))
         w, b = self._params(x.dtype)
-        y = torch.einsum("bgi,goi->bgo", x, w.to(x.dtype).view(self.groups, self.features, -1))
+        return self._einsum(x, w, b, self.groups).unflatten(-1, (self.groups, -1))
+
+    @staticmethod
+    def _einsum(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                groups: int) -> torch.Tensor:
+        """``[B, groups, d_in]`` -> ``[B, groups * d_out]`` (``w`` holds
+        ``d_out`` rows of each group)."""
+        y = torch.einsum("bgi,goi->bgo", x, w.to(x.dtype).view(groups, -1, w.shape[1]))
         if b is not None:
-            y = y + b.view(self.groups, self.features)
-        return y
+            y = y + b.view(groups, -1)
+        return y.flatten(-2)
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
         """The same projection at every pixel of an NCHW map ``[B,
         groups*d_in, H, W]`` -> ``[B, groups*d_out, H, W]`` (a channels_last
         map's memory is ``[B, HW, groups, d]``, the JAX package's grouped
         layout)."""
+        if self.shard is not None:
+            return self.shard(self, x, self._conv, 1)
         w, b = self._params(x.dtype)
-        return F.conv2d(x, w.to(x.dtype), b, groups=self.groups)
+        return self._conv(x, w, b, self.groups)
+
+    @staticmethod
+    def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+              groups: int) -> torch.Tensor:
+        return F.conv2d(x, w.to(x.dtype), b, groups=groups)
 
 
 class GroupNorm(nn.Module):

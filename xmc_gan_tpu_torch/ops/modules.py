@@ -14,6 +14,11 @@ train step refreshes the vectors explicitly, once per step
 
 Parameters are kept fp32 and cast to the activation dtype at each call, as the
 JAX modules do (``kernel.astype(x.dtype)``).
+
+Tensor parallelism: ``parallel.tensor.shard_model`` sets a layer's ``shard``
+(a ``ColumnShard``) where the JAX rule splits its weight; the layer then
+holds its output rows only and its forward runs through the shard, which
+calls the layer's own op on them (``_op``, ``_conv``) and gathers the output.
 """
 
 from __future__ import annotations
@@ -93,7 +98,10 @@ def _spectral_normalize(weight: torch.Tensor, u: torch.Tensor, v: torch.Tensor) 
 
 
 class _SNBase(nn.Module):
-    """Weight/bias parameters plus the optional spectral-norm buffers."""
+    """Weight/bias parameters plus the optional spectral-norm buffers;
+    ``shard``: this model rank's output rows under tensor parallelism."""
+
+    shard = None
 
     def __init__(self, wshape: tuple[int, ...], use_bias: bool, spec_norm: bool,
                  weight_init: Init, bias_init: Init | None, gen: torch.Generator):
@@ -150,12 +158,18 @@ class SNConv(_SNBase):
         self.pre_upsample = pre_upsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is not None:
+            return self.shard(self, x, self._op, 1)
         w, b = self._params(x.dtype)
+        return self._op(x, w, b, self.groups)
+
+    def _op(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+            groups: int) -> torch.Tensor:
         if self.pre_upsample:
-            return F.conv_transpose2d(x, fold_upsample_kernel(w, self.groups).to(x.dtype), b,
-                                      stride=2, padding=1, groups=self.groups)
+            return F.conv_transpose2d(x, fold_upsample_kernel(w, groups).to(x.dtype), b,
+                                      stride=2, padding=1, groups=groups)
         return F.conv2d(x, w.to(x.dtype), b, stride=self.stride, padding=self.padding,
-                        groups=self.groups)
+                        groups=groups)
 
 
 class SNDense(_SNBase):
@@ -169,5 +183,11 @@ class SNDense(_SNBase):
                          weight_init, bias_init, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is not None:
+            return self.shard(self, x, self._op, -1)
         w, b = self._params(x.dtype)
+        return self._op(x, w, b, 1)
+
+    @staticmethod
+    def _op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, groups: int) -> torch.Tensor:
         return F.linear(x, w.to(x.dtype), b)

@@ -31,11 +31,25 @@ the sentence, real-fake image and VGG InfoNCE run on gathered features, the
 word loss on the row-block scores (``sharded_word_scores``), and RMIS pairs
 image ``i`` with sentence ``i + 1`` over the global batch.  Each rank's loss
 is chosen so that the mean over ranks is the global loss (RMIS: this rank's
-hinge sum times ``world / (B - 1)``; the hinge terms, G's loss and MAGP:
+hinge sum times ``dp / (B - 1)``; the hinge terms, G's loss and MAGP:
 local means), and each Adam step takes the ranks' mean gradient, so every
 rank's state stays that of one process's step on the whole batch.  The
 metrics are the global ones, averaged on the device: the step makes no host
 read.
+
+Tensor parallelism (a mesh with ``tp`` > 1, the state split by
+``parallel.shard_state``): the ``tp`` ranks of a model group hold the same
+rows and each computes the rows of the split layers' outputs that its
+weight shard gives (``parallel/tensor.py``), so the gathers and RMIS's
+pairs run over the *data group*, and a split weight's gradient (its own
+rows') is averaged over the data group.  A replicated leaf's gradient is
+whole and alike on the ranks of a model group; it is averaged over every
+rank, which is the data group's mean and keeps the replicas bit-equal where
+the card's kernels are not deterministic; the metrics likewise.  The word
+scores split the captions over the model group as well
+(``sharded_word_scores``' column blocks), and the spectral refresh of a
+split layer sums and gathers over the model group
+(``refresh_sharded_spectral``).
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ from xmc_gan_tpu_torch.parallel.collectives import (
     sharded_word_scores,
 )
 from xmc_gan_tpu_torch.parallel.mesh import Mesh
+from xmc_gan_tpu_torch.parallel.tensor import refresh_sharded_spectral, sharded_tensors
 from xmc_gan_tpu_torch.registry import get_discriminator, get_generator
 from xmc_gan_tpu_torch.utils.convert import load_state_dict
 
@@ -145,9 +160,13 @@ def refresh_spectral(model: nn.Module, iters: int = 1) -> None:
     """``iters`` power-iteration steps for every spectral-normalized layer of
     ``model``, from its current weights, into its ``weight_u``/``weight_v``
     buffers (the JAX package's ``refresh_spectral``; 1 per step is the
-    default there, 5 the reference's per-forward count)."""
+    default there, 5 the reference's per-forward count).  A layer split by
+    tensor parallelism refreshes over its model group."""
     for m in model.modules():
         if not getattr(m, "spec_norm", False):
+            continue
+        if getattr(m, "shard", None) is not None:
+            refresh_sharded_spectral(m, iters)
             continue
         w = matricize_spectral_kernel(m.weight.float())
         u, v = m.weight_u, m.weight_v
@@ -165,16 +184,23 @@ def _tensor(x: Any, dev: torch.device) -> torch.Tensor:
 
 
 def _adam_step(opt: torch.optim.Adam, loss: torch.Tensor, params: list,
-               mesh: Mesh | None = None) -> None:
+               mesh: Mesh | None = None, split: frozenset = frozenset()) -> None:
     """One Adam step on ``loss``'s gradient in ``params`` (under ``mesh``,
-    the mean of the ranks' gradients).  A parameter the loss does not reach
-    gets a zero gradient, not none: optax updates every leaf (the moments
-    decay), while torch's Adam would skip it."""
+    the mean of the data group's gradients for the split weights, whose
+    ``id`` is in ``split``, and of every rank's for the rest).  A parameter
+    the loss does not reach gets a zero gradient, not none: optax updates
+    every leaf (the moments decay), while torch's Adam would skip it.
+
+    The ranks of a model group compute a replicated leaf's gradient alike,
+    so its mean over every rank is its data group's; taking it over every
+    rank keeps the replicas bit-equal where the card's kernels are not
+    deterministic (atomics, per-process algorithm choices)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
     if mesh is not None:
-        all_reduce_mean_([p.grad for p in params], mesh)
+        all_reduce_mean_([p.grad for p in params if id(p) in split], mesh)
+        all_reduce_mean_([p.grad for p in params if id(p) not in split], mesh, world=True)
     opt.step()
     opt.zero_grad(set_to_none=True)
 
@@ -198,7 +224,9 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
     ``mesh`` (a ``parallel.Mesh``): the step of one data-parallel rank,
     whose ``batch`` and ``noise`` are its rows of the global batch (module
     docstring); every rank must call it, in the same order.  The state must
-    start equal on every rank (``parallel.replicate``) and stays so.
+    start equal on every rank (``parallel.replicate``) and stays so; with
+    ``mesh.tp`` > 1 it must be split first (``parallel.shard_state``, which
+    the step checks), and each rank's split weights stay its own rows.
 
     Building the step turns TF32 off once, process-wide, so fp32 runs on the
     card are full fp32 as in the JAX package.
@@ -239,7 +267,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
         if feats.shape[0] == 0:
             return zero
         hinge = torch.relu(1.0 + d.logits(feats, sents)[0].float()).sum()
-        return hinge * (mesh.world / pairs)
+        return hinge * (mesh.dp / pairs)
 
     def project_sent(g: nn.Module, sent: torch.Tensor) -> torch.Tensor:
         return sent if cfg.DISC.SEPERATE else g.project_sent(sent)
@@ -250,7 +278,12 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             raise ValueError("ENCODER_LOSS.VGG is on: pass the frozen VGG-19 as the step's "
                              "4th argument (models.vgg.make_vgg)")
         g, d = state.g, state.d
+        if mesh is not None and mesh.tp > 1 and not (
+                getattr(g, "tp_mesh", None) is mesh and getattr(d, "tp_mesh", None) is mesh):
+            raise ValueError(f"a tp={mesh.tp} step needs the state split over its mesh first: "
+                             "parallel.shard_state(state, mesh)")
         set_mesh(g, mesh)
+        split = frozenset(sharded_tensors(g) | sharded_tensors(d))
         if el.WORD and getattr(d, "region_proj", None) is None:
             raise NotImplementedError(
                 f"ENCODER_LOSS.WORD needs a discriminator with a region head; "
@@ -300,7 +333,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             enc_loss = enc_loss + t.SMOOTH.WORD * ds_word
         errD = errD_real + mis_loss * t.SMOOTH.MISMATCH + enc_loss
         d_params = list(d.parameters())
-        _adam_step(state.d_opt, errD, d_params, mesh)
+        _adam_step(state.d_opt, errD, d_params, mesh, split)
 
         # ------------------------------------------------- D update 2: MAGP
         d_loss_gp = zero
@@ -309,7 +342,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
                 return d.logits(d(i), s)[0].float().sum()
 
             d_loss_gp = losses.magp_penalty(d_scalar, imgs, psent)
-            _adam_step(state.d_opt, d_loss_gp, d_params, mesh)
+            _adam_step(state.d_opt, d_loss_gp, d_params, mesh, split)
 
         # ------------------------------------------------------- G update
         do_g = (state.step + 1) % t.N_CRITIC == 0
@@ -346,7 +379,7 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
                                            el.B_GLOBAL, t.SMOOTH.GLOBAL)
                 enc_loss = enc_loss + vgg_loss
             errG = losses.generator_loss(match) + enc_loss
-            _adam_step(state.g_opt, errG, list(g.parameters()), mesh)
+            _adam_step(state.g_opt, errG, list(g.parameters()), mesh, split)
         state.step += 1
 
         metrics = {
@@ -365,10 +398,11 @@ def make_train_step(cfg: Config, word_block_elems: int | None = None,
             metrics["vgg_loss"] = vgg_loss
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None:
-            # the global metrics: the ranks' mean, one all_reduce on the device
+            # the global metrics: the mean over every rank (the model groups'
+            # ranks hold the same), one all_reduce on the device
             keys = [k for k in metrics if k != "g_updated"]
             row = torch.stack([metrics[k].float() for k in keys])
-            all_reduce_mean_([row], mesh)
+            all_reduce_mean_([row], mesh, world=True)
             metrics.update(zip(keys, row.unbind()))
         return metrics
 

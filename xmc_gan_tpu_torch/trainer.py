@@ -27,8 +27,15 @@ equal (``train.make_train_step``).  Rank 0 alone makes the directories and
 writes checkpoints, grids and logs; the others wait at a barrier after each
 checkpoint.  Every rank runs every grid and FID eval (G's BatchNorm and the
 FID statistics are collectives), and the SIGTERM flag is OR-reduced over the
-ranks at each window boundary, so that all save and stop together.  Where
-the port differs from the JAX ``Trainer``:
+ranks at each window boundary, so that all save and stop together.  With
+``mesh.tp`` > 1 (JAX ``trainer.py:275-300``) the ``tp`` ranks of a model
+group load the same rows, the state is split over them after the broadcast
+(``parallel.shard_state``: the JAX rule at its threshold, 2^16), the
+grids and FID run the split G on every rank (replicated compute, each
+rank its rows of each layer), and a checkpoint is the whole state, gathered
+by every rank and written by rank 0 in the one-process format, which a
+restore splits again (either way round).  Where the port differs from the
+JAX ``Trainer``:
 
 * G's noise is drawn on the host by ``Trainer.step_noise(global_step)``, a
   ``torch.Generator`` seeded from ``(seed, global_step)``, and moved to the
@@ -84,7 +91,15 @@ from xmc_gan_tpu_torch.data.text_encode import SbertCache
 from xmc_gan_tpu_torch.device import resolve_device, to_device
 from xmc_gan_tpu_torch.models.concept_gan import set_mesh
 from xmc_gan_tpu_torch.models.vgg import make_vgg
-from xmc_gan_tpu_torch.parallel import any_rank, barrier, replicate
+from xmc_gan_tpu_torch.parallel import (
+    any_rank,
+    barrier,
+    gather_state,
+    load_state,
+    replicate,
+    shard_state,
+)
+from xmc_gan_tpu_torch.parallel.tensor import sharded_tensors
 from xmc_gan_tpu_torch.registry import get_dataset, get_text_encoder
 from xmc_gan_tpu_torch.train import create_train_state, make_sample_fn, make_train_step
 from xmc_gan_tpu_torch.utils.checkpoint import CheckpointManager
@@ -235,10 +250,12 @@ class Trainer:
         spectral_iters: int = 1,
         debug_nans: bool = False,
     ):
-        # a data-parallel rank runs on its mesh's device
+        # a data-parallel rank runs on its mesh's device; ``world`` counts the
+        # data ranks (the tp ranks of a model group load the same rows)
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.mesh = mesh
-        self.rank, self.world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
+        self.rank, self.world = (mesh.rank, mesh.dp) if mesh is not None else (0, 1)
+        self.tp = 1 if mesh is None else mesh.tp
         self.cfg = cfg
         self.seed = seed
         self.save_after = save_after
@@ -278,7 +295,8 @@ class Trainer:
         bs = cfg.TRAIN.BATCH_SIZE
         if num_threads is None:  # reference DataLoader(num_workers=...), train_gan.py:456-457
             num_threads = cfg.TRAIN.NUM_WORKERS
-        shard = (self.rank, self.world)  # bs is the global batch; each rank loads its shard
+        # bs is the global batch; each data rank loads its shard
+        shard = (0, 1) if mesh is None else (mesh.data_rank, mesh.dp)
         self.train_loader = DataLoader(self.train_set, bs, shuffle=True, drop_last=True,
                                        seed=seed, num_threads=num_threads, shard=shard)
         self.test_loader = DataLoader(self.test_set, bs, shuffle=False, drop_last=True,
@@ -300,6 +318,11 @@ class Trainer:
         self._replicate()
         self.logger.info(f"netG # of parameters: {count_params(self.state.g)}")
         self.logger.info(f"netD # of parameters: {count_params(self.state.d)}")
+        if self.tp > 1:
+            split = [len(sharded_tensors(n)) for n in (self.state.g, self.state.d)]
+            self.logger.info(f"tp={self.tp}: {split[0]} of netG's and {split[1]} of netD's "
+                             "weights split by output features (the counts above are this "
+                             "rank's)")
         # spectral_iters=1 is the JAX package's default cadence; 5 is the
         # reference's per-forward count
         step_fn = make_train_step(cfg, spectral_iters=spectral_iters, mesh=mesh)
@@ -346,17 +369,32 @@ class Trainer:
                          + (f" (skipped {len(skipped)} tensors)" if skipped else ""))
 
     def _replicate(self) -> None:
-        """Rank 0's state on every rank, and G's BatchNorm over the global batch."""
+        """Rank 0's state on every rank, and G's BatchNorm over the global
+        batch; under tensor parallelism the state split over the model
+        group (once: a restored state is split already)."""
         if self.mesh is not None:
             replicate(self.mesh, self.state)
             set_mesh(self.state.g, self.mesh)
+            if self.tp > 1 and getattr(self.state.g, "tp_mesh", None) is None:
+                shard_state(self.state, self.mesh)
 
     def _save(self, manager: CheckpointManager, index: int) -> None:
-        """Rank 0 writes the checkpoint; every rank leaves once it is on disk."""
+        """Rank 0 writes the checkpoint (under tensor parallelism the whole
+        state, which every rank gathers); every rank leaves once it is on
+        disk."""
+        state = gather_state(self.state) if self.tp > 1 else self.state
         if self.rank == 0:
-            manager.save(index, self.state)
+            manager.save(index, state)
         if self.mesh is not None:
             barrier(self.mesh)
+
+    def _restore(self, manager: CheckpointManager, index: int | None) -> int:
+        """Load a checkpoint (written by one process or by any grid) into the
+        state, each rank taking its rows of the split weights."""
+        payload, index = manager.load(index)
+        load_state(self.state, payload)
+        self._replicate()
+        return index
 
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global draw."""
@@ -367,8 +405,7 @@ class Trainer:
     def resume(self, epoch: int | None = None) -> int:
         """Restore state from a checkpoint (reference ``--resume_epoch``,
         ``train_gan.py:486-493``; the optimizer state is the epoch's own)."""
-        self.state, self.state_epoch = self.ckpt.restore(self.state, epoch)
-        self._replicate()
+        self.state_epoch = self._restore(self.ckpt, epoch)
         self.global_step = self.state.step
         self.logger.info(f"Load models, epoch : {self.state_epoch}")
         return self.state_epoch
@@ -386,8 +423,7 @@ class Trainer:
         if self.auto_ckpt.latest_epoch() is None:
             self.logger.info("No auto checkpoint yet; starting fresh")
             return 0
-        self.state, step = self.auto_ckpt.restore(self.state)
-        self._replicate()
+        step = self._restore(self.auto_ckpt, None)
         self.global_step = self.state.step
         spe = max(len(self.train_loader), 1)
         self.state_epoch = self.global_step // spe
@@ -485,12 +521,18 @@ class Trainer:
         """``wandb.watch`` telemetry: ``parameters/net{G,D}/...`` histograms
         plus ``updates/net{G,D}/...``, the applied optimizer deltas since the
         previous watch point.  One device->host copy an epoch, on rank 0 (the
-        ranks hold the same parameters)."""
+        ranks hold the same parameters; under tensor parallelism every rank
+        gathers the split weights first)."""
+        nets = {"netG": self.state.g, "netD": self.state.d}
+        whole = {}
+        if self.tp > 1:
+            state = gather_state(self.state)
+            whole = {"netG": state["g"], "netD": state["d"]}
         if self.rank != 0:
             return
-        params = {f"{prefix}/{name.replace('.', '/')}": np.array(p.detach().float().cpu())
-                  for prefix, net in (("netG", self.state.g), ("netD", self.state.d))
-                  for name, p in net.named_parameters()}
+        params = {f"{prefix}/{name.replace('.', '/')}":
+                  np.array((whole[prefix][name] if whole else p).detach().float().cpu())
+                  for prefix, net in nets.items() for name, p in net.named_parameters()}
         hists = {f"parameters/{k}": v for k, v in params.items()}
         if self._watch_prev is not None:
             hists.update({f"updates/{k}": v - self._watch_prev[k] for k, v in params.items()})

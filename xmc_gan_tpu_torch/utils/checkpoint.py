@@ -11,6 +11,12 @@ is written to a temporary file in the same directory and renamed into place,
 so a crash never leaves a torn checkpoint; saves are synchronous, and
 ``wait`` is there for the JAX package's API.
 
+Under tensor parallelism every rank gathers the whole state
+(``parallel.gather_state``, the same payload) and rank 0 writes it, so the
+file is the one a single process writes; ``load`` reads it for
+``parallel.load_state`` to split again.  A checkpoint moves between a
+single process and any ``dp x tp`` grid either way.
+
 The port cannot read the JAX package's Orbax checkpoints (Orbax needs JAX).
 A JAX state crosses over as numpy trees through
 ``utils/convert.train_state_from_jax``, which starts fresh Adam moments.
@@ -42,12 +48,12 @@ class CheckpointManager:
         return os.path.join(self.directory, f"ckpt_{epoch}.pt")
 
     def save(self, epoch: int, state, *, force: bool = False) -> bool:
-        """Write ``state`` as ``epoch``; an existing epoch is kept unless
-        ``force``.  Returns whether a file was written."""
+        """Write ``state`` (a ``TrainState``, or the payload dict of
+        ``payload`` / ``parallel.gather_state``) as ``epoch``; an existing
+        epoch is kept unless ``force``.  Returns whether a file was written."""
         if not force and epoch in self.all_epochs():
             return False
-        payload = {"step": int(state.step), "g": state.g.state_dict(), "d": state.d.state_dict(),
-                   "g_opt": state.g_opt.state_dict(), "d_opt": state.d_opt.state_dict()}
+        payload = state if isinstance(state, dict) else self.payload(state)
         fd, tmp = tempfile.mkstemp(dir=self.directory, prefix=f".ckpt_{epoch}.", suffix=".tmp")
         try:
             with os.fdopen(fd, "wb") as f:
@@ -63,15 +69,25 @@ class CheckpointManager:
                 os.unlink(self.path(old))
         return True
 
-    def restore(self, template, epoch: int | None = None):
-        """Load ``epoch`` (or the latest) into ``template``, a ``TrainState``
-        of the same configuration (e.g. a fresh ``create_train_state``), in
-        place, on its device.  Returns ``(template, epoch)``."""
+    @staticmethod
+    def payload(state) -> dict:
+        """What a checkpoint file holds for a (whole) ``TrainState``."""
+        return {"step": int(state.step), "g": state.g.state_dict(), "d": state.d.state_dict(),
+                "g_opt": state.g_opt.state_dict(), "d_opt": state.d_opt.state_dict()}
+
+    def load(self, epoch: int | None = None) -> tuple[dict, int]:
+        """The payload of ``epoch`` (or the latest), on the CPU, and its epoch."""
         if epoch is None:
             epoch = self.latest_epoch()
             if epoch is None:
                 raise FileNotFoundError(f"No checkpoints under {self.directory}")
-        payload = torch.load(self.path(epoch), map_location="cpu", weights_only=True)
+        return torch.load(self.path(epoch), map_location="cpu", weights_only=True), epoch
+
+    def restore(self, template, epoch: int | None = None):
+        """Load ``epoch`` (or the latest) into ``template``, a ``TrainState``
+        of the same configuration (e.g. a fresh ``create_train_state``), in
+        place, on its device.  Returns ``(template, epoch)``."""
+        payload, epoch = self.load(epoch)
         template.g.load_state_dict(payload["g"], strict=True)
         template.d.load_state_dict(payload["d"], strict=True)
         template.g_opt.load_state_dict(payload["g_opt"])
