@@ -7,7 +7,9 @@ Phases (any failure raises, and the exit code is then non-zero):
 
 1. Card check: CUDA must be available; prints the card's name and power limit.
 2. Build: compiles the three CUDA sources (``xmc_gan_tpu_torch/csrc``), one
-   ``nvcc`` each, started together, and prints the build time.
+   ``nvcc`` each (``damsm_score.cu`` three, ``ds.LIBRARIES``: the
+   forward's, d_regions' and d_words' entry points), started together, and
+   prints the build time.
 3. Each kernel against its plain PyTorch version on the card: the
    ``fused_affine`` forward and backward (both forms, fp32 and bf16) at the
    14 epilogue shapes of the 256², NCH=32, batch-128 generator, at the
@@ -27,21 +29,24 @@ Phases (any failure raises, and the exit code is then non-zero):
    (``DAMSM_F32_EDGES``: D = 42; T = 64 as two 48-slot sub-captions, the
    packed d_regions' rows; T = 64 unsplit at R = 300; R = 300 at D = 768,
    the CUDA-core kernels' 256-column chunks); the bf16
-   forward and d_regions, which run on the tensor cores (``mma.sync``;
-   d_words runs on the CUDA cores), and the fp32 forward and d_regions
-   (CUDA cores, packed real words, regions streamed), also
+   forward, d_regions and d_words, which run on the tensor cores
+   (``mma.sync``; the d_words with the regions streamed at every D), and
+   the fp32 forward and d_regions (CUDA cores, packed real words, regions
+   streamed; the fp32 d_words on the CUDA cores), also
    twice bit-equal, the forwards' all-padded caption scoring exactly the
-   plain value and the d_regions unmoved by its cotangent; the three
+   plain value, the d_regions unmoved by its cotangent and its d_words
+   exactly 0; the three
    ``damsm_score`` kernels at the LN-COCO word shape (B = Bc = 256, R = 256,
-   T = 200, D = 768: each caption's real words packed into 16-slot
-   sub-captions, as many as the longest caption needs) in fp32 and
+   T = 200, D = 768: each caption's real words packed into sub-captions of
+   32 slots in bf16, 16 in fp32 (``LN_WIDTH``), as many as the longest
+   caption needs) in fp32 and
    bf16, and in fp32 at the fp32 step's B = Bc = 128 (``LN_CHECKS``), through ``damsm_scores`` against the plain version on the whole
    captions, with an all-padded caption (its score bit-equal to the plain
    value, no d_words), two runs bit-equal, and the profiler's kernel names
-   showing each kernel's route (at D = 768 the bf16 forward and d_regions
-   on the tensor cores with the regions streamed, the fp32 ones on the
-   wide packed kernels, the d_words on the CUDA cores), the all-padded
-   caption's cotangent moving no d_regions; the forward and d_regions above
+   showing each kernel's route (at D = 768 the bf16 kernels on the tensor
+   cores with the regions streamed, the fp32 forward and d_regions on the
+   wide packed kernels, the fp32 d_words on the CUDA cores), the all-padded
+   caption's cotangent moving no d_regions; the three kernels above
    D = 256 also at their edges in both dtypes (``DAMSM_STREAMED``: D = 520,
    770 and 1024, through ``damsm_scores``; bf16 streamed, fp32 wide)
    against the plain version, the all-padded caption's score the plain
@@ -144,12 +149,13 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``make_hf_sbert_encode`` -> ``SBERTEncoder`` -> the ``ln_coco_256.yml`` G
    at 256², fp32 and bf16, 14 ``fused_affine`` forwards asserted; ``cli
    sample`` and ``cli prep-ln --build_cache`` once (its caches within one
-   fp16 ulp of ``build_sbert_cache``'s rows); ``cli train --synthetic --max_steps 2
-   --gpu 0 --debug_nans`` as a process.
+   fp16 ulp of ``build_sbert_cache``'s rows); ``cli train --synthetic
+   --max_steps 2 --gpu 0 --debug_nans`` as a process of its own, run beside
+   phase 3 (which times nothing) and checked after it.
 6. Full-width training: the ``flagship_word`` step (DF-GAN G + D at 256²,
    NCH=32, batch 128, RMIS, MAGP, sentence/image/word-region InfoNCE) from
    ``create_train_state`` + ``make_train_step``, bf16 activations (2 warm-up
-   and 10 timed steps) and fp32 with TF32 off (1 warm-up, 3 timed); checks
+   and 5 timed steps) and fp32 with TF32 off (1 warm-up, 2 timed); checks
    each kernel's launches in one step (fused_affine 28 forward / 14
    backward, damsm 2 forward / 2 d_regions / 0 d_words), that the trace's
    forward and d_regions launches are the kernels the route rule names (the
@@ -168,29 +174,28 @@ Phases (any failure raises, and the exit code is then non-zero):
    warm-up step each (the launches asserted as above, the damsm forward and
    d_regions in bf16 on the tensor cores with the regions streamed, in fp32
    on the wide packed kernels, 2 launches each by the profiler's names), 2
-   timed, 1 profiled; prints the step ms, images/s, peak memory, the
+   timed in bf16 and 1 in fp32, 1 profiled; prints the step ms, images/s, peak memory, the
    device ms by category (``damsm_score`` among them) and the ten largest
    kernels.
 6b. Full-width training through ``Trainer.fit`` (the port's training
    program): the flagship_word config of phase 6 in bf16 on 512 synthetic
    examples (4 steps an epoch, one in-epoch grid an epoch), 2 epochs with
-   ``save_after=0``, auto-checkpoints every 3 steps and FID after each
-   epoch (the random-init Inception, the 128-example test split), steps 2
+   ``save_after=0``, auto-checkpoints every 3 steps and FID after the second
+   (the random-init Inception, the 128-example test split), steps 2
    and 3 traced by the trainer's own ``profile_dir``; then a fresh
    ``Trainer`` on the same run resumes from the newest auto-checkpoint
    (step 6, 2 batches of epoch 2 skipped) and trains on to the end of
-   epoch 3.  Checks every launch of both runs (28 / 14 ``fused_affine``,
-   2 / 2 / 0 damsm a step, 14 ``fused_affine`` forwards a grid or FID
-   batch), the traced steps' kernels by name, the files the run wrote
-   (``img/``, ``log/``, ``model/`` epochs 1 and 2, ``model/auto`` steps 3
-   and 6) and finite losses; prints the loop's step wall (median over the
+   epoch 3, its epochs without FID (``eval_fid=False``).  Checks every
+   launch of both runs (28 / 14 ``fused_affine``, 2 / 2 / 0 damsm a step,
+   14 ``fused_affine`` forwards a grid or FID batch), the traced steps'
+   kernels by name, the files the run wrote (``img/``, ``log/``,
+   ``model/`` epochs 1 and 2, ``model/auto`` steps 3 and 6) and finite
+   losses; prints the loop's step wall (median over the
    steps without a trace, save or epoch edge) beside phase 6's bare step,
    the loader's ms a batch and the decode route, the device busy share,
-   one checkpoint's save and restore ms and bytes, each FID eval's ms
-   (and the host ``sqrtm``'s part) and peak memory.  Then runs
-   ``python -m xmc_gan_tpu_torch.cli train`` once (``df_gan_damsm.yml``,
-   batch 88, 2 steps) and checks its exit code and console lines.  The
-   runs' directories are deleted.
+   one checkpoint's save and restore ms and bytes, the FID eval's ms (and
+   the host ``sqrtm``'s part) and peak memory.  (Phase 5e runs ``cli
+   train``.)  The runs' directories are deleted.
 6c. ``concept_out_df_gan.yml`` as published (CONCEPT_OUT_DF_GEN +
    CONCEPT_NETD, SBERT synthetic table, 64², NCH 32, batch 88, MAGP, RMIS,
    SENT + DISC) through ``Trainer.fit``, bf16 and fp32: one epoch of
@@ -230,7 +235,7 @@ Phases (any failure raises, and the exit code is then non-zero):
    and parameters within phase 4's bounds, the ranks' parameters
    bit-equal, each rank's damsm launches asserted), then the full width
    (bf16, 256², NCH 32, 2 x 128 rows, the [128, 256] row block on the
-   kernels; 1 warm-up, 1 counted, 3 timed steps): each rank's step, the
+   kernels; 1 warm-up, 1 counted, 2 timed steps): each rank's step, the
    global images/s, peak memory a rank, the gradient mean's own time; (c)
    where the machine has two cards or more, the full width on two NCCL
    ranks, one card each.  Prints which of them ran.
@@ -272,7 +277,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    64² word-attention step, with SDPA's forward and backward as a
    yardstick, and an empty kernel's device time beside the Out rows (the
    launch floor).
-8. Last line: ``{"ok": true, "device": {...}}``.
+8. Before the ``kernels`` line, the seconds of every phase (``[t]``; each
+   phase also prints its own as it ends).  Last line: ``{"ok": true,
+   "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  The weights are random (from
 fixed seeds): no trained checkpoint is in the repository.
@@ -525,15 +532,22 @@ DAMSM_F32_EDGES = [((132, 6, 40, 11, 42), True, None, False),
                    ((4, 5, 300, 20, 768), True, None, False)]
 REGIONS = 256  # DF_DISC's region head, always its 16x16 stage
 # the LN-COCO word shape (ln_coco_256.yml: batch 256, MAX_LENGTH 200,
-# EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256: the bf16 forward and
-# d_regions run on the tensor cores with the regions streamed, the fp32 ones
-# on the wide packed kernels (the context in 256-feature groups), the
-# d_words on the CUDA cores
+# EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256: the bf16 forward, d_regions
+# and d_words run on the tensor cores with the regions streamed, the fp32
+# forward and d_regions on the wide packed kernels (the context in
+# 256-feature groups), the fp32 d_words on the CUDA cores
 DAMSM_LN = (256, 256, REGIONS, 200, 768)
-# the forward and d_regions at 256 < D <= 1024 by compute dtype, as the
-# profiler names them: bf16 streamed on the tensor cores, fp32 wide packed
-LN_KERNELS = {None: ("damsm_fwd_f32w_kernel<", "damsm_bwd_dr_f32w_kernel<"),
-              torch.bfloat16: ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<")}
+# the forward, d_regions and d_words at 256 < D <= 1024 by compute dtype, as
+# the profiler names them: bf16 streamed on the tensor cores, fp32 wide
+# packed (the d_words on the CUDA cores)
+LN_KERNELS = {None: ("damsm_fwd_f32w_kernel<", "damsm_bwd_dr_f32w_kernel<",
+                     "damsm_bwd_dw_kernel<"),
+              torch.bfloat16: ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<",
+                               "damsm_bwd_dw_tcs_kernel<")}
+# the sub-captions' slots at the LN word shape by compute dtype
+# (``ds.sub_caption_width``): bf16 the tensor-core kernels' 32 rows a pass,
+# fp32 the CUDA-core d_words' 16
+LN_WIDTH = {None: 16, torch.bfloat16: 32}
 # the LN-COCO fp32 step's batch: ln_coco_256.yml's 256 needs ~130 GiB in
 # fp32; 128 takes 72.42 GiB of an H100's 80 GB
 LN_FP32_BATCH = 128
@@ -603,12 +617,13 @@ def card_check() -> str:
 
 
 def build_kernels() -> float:
-    """One nvcc per source, all started together."""
+    """One nvcc per library (``damsm_score.cu`` as three), all started together."""
     t0 = time.perf_counter()
-    libs = (fa.KERNEL, ds.KERNEL, ca.KERNEL)
+    libs = (fa.KERNEL, *ds.LIBRARIES, ca.KERNEL)
     load_all(libs)
     dt = time.perf_counter() - t0
-    log(f"[2] built {', '.join(lib.source for lib in libs)} in {dt:.2f} s")
+    log(f"[2] built {', '.join(' '.join((lib.source, *lib.flags)) for lib in libs)} in "
+        f"{dt:.2f} s")
     return dt
 
 
@@ -1087,6 +1102,22 @@ def check_damsm() -> dict:
                              "moved the gradient")
     log("[3] damsm_score bf16 d_regions (tensor cores): two launches bit-equal; the "
         "all-padded caption's cotangent changes nothing")
+    # the bf16 d_words (tensor cores): two launches bit-equal, the all-padded
+    # caption's d_words and every padded slot's exactly 0, the trace's kernel
+    dws = []
+    kernel = ds.kernel_name("dw", DAMSM_FLAGSHIP[2], DAMSM_FLAGSHIP[4], torch.bfloat16)
+    names = damsm_kernel_names(lambda: dws.append(
+        ds._launch_bwd("dw", r, w, mask, up, 4.0, 5.0, torch.bfloat16)))
+    torch.cuda.synchronize()
+    if not any(kernel in n for n in names):
+        raise AssertionError(f"bf16 d_words at {DAMSM_FLAGSHIP}: no {kernel} among {names}")
+    if not (torch.equal(dws[0], dws[1]) and dws[0][1].abs().max().item() == 0.0
+            and dws[0][mask].abs().max().item() == 0.0):
+        raise AssertionError("bf16 d_words: launches differ, or the all-padded caption or a "
+                             "padded slot got a d_words")
+    log(f"[3] damsm_score bf16 d_words ({kernel}): two launches bit-equal; the all-padded "
+        f"caption's d_words and every padded slot's exactly 0; the trace's kernels {names}")
+    del dws
     # the fp32 d_regions (packed words): the same, the launches its kernel
     runs = []
     kernel = ds.kernel_name("dr", DAMSM_FLAGSHIP[2], DAMSM_FLAGSHIP[4], None)
@@ -1174,9 +1205,10 @@ def check_damsm_ln() -> dict:
     version on the whole captions: scores, d_regions and d_words; the
     all-padded caption's score bit-equal to the plain value and its d_words
     0; a second forward + d_regions bit-equal; the launches' kernel names
-    each kernel's route (the bf16 forward and d_regions on the tensor cores
-    with the regions streamed, no bf16 CUDA-core forward; the fp32 ones on
-    the wide packed kernels; the d_words on the CUDA cores).  The errors by
+    each kernel's route (``LN_KERNELS``: the bf16 kernels on the tensor
+    cores with the regions streamed, no bf16 CUDA-core forward; the fp32
+    forward and d_regions on the wide packed kernels, the fp32 d_words on
+    the CUDA cores) at the dtype's width (``LN_WIDTH``).  The errors by
     (shape, compute dtype)."""
     errs = {}
     for shape, cd in LN_CHECKS:
@@ -1185,10 +1217,10 @@ def check_damsm_ln() -> dict:
         b, bc, R, T, D = shape
         tol = DAMSM_TOL[cd]
         width = ds.sub_caption_width(R, T, D, cd)
-        kernels = (ds.kernel_name("fwd", R, D, cd), ds.kernel_name("dr", R, D, cd))
-        if kernels != LN_KERNELS[cd] or width != 16:
+        kernels = tuple(ds.kernel_name(which, R, D, cd) for which in ("fwd", "dr", "dw"))
+        if kernels != LN_KERNELS[cd] or width != LN_WIDTH[cd]:
             raise AssertionError(f"LN {shape} {CD_NAME[cd]}: width {width}, kernels {kernels}; "
-                                 f"want 16 slots on {LN_KERNELS[cd]}")
+                                 f"want {LN_WIDTH[cd]} slots on {LN_KERNELS[cd]}")
         ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
         got = {}
 
@@ -1197,7 +1229,7 @@ def check_damsm_ln() -> dict:
             got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
 
         names = damsm_kernel_names(run)
-        for want in (*LN_KERNELS[cd], ds.kernel_name("dw", R, D, cd)):
+        for want in LN_KERNELS[cd]:
             if not any(want in n for n in names):
                 raise AssertionError(f"LN {shape} {CD_NAME[cd]}: no {want} among {names}")
         if any("_tc_kernel" in n or "damsm_fwd_bf16_kernel" in n for n in names):
@@ -1239,13 +1271,13 @@ def check_damsm_ln() -> dict:
 
 
 def check_damsm_streamed() -> dict:
-    """Phase 3, the forward and d_regions at their edges above D = 256
-    (``DAMSM_STREAMED``) in both compute dtypes (bf16: the streamed
-    tensor-core kernels; fp32: the wide packed ones), through
-    ``damsm_scores`` as the word loss calls it: scores, d_regions and
-    d_words against the plain version on the whole captions (the scores
-    summed in fp64) under ``DAMSM_TOL``; the forward and d_regions launches
-    are the route's kernels (``LN_KERNELS``), an all-padded caption scores
+    """Phase 3, the forward, d_regions and d_words at their edges above
+    D = 256 (``DAMSM_STREAMED``) in both compute dtypes (bf16: the streamed
+    tensor-core kernels; fp32: the wide packed ones and the CUDA-core
+    d_words), through ``damsm_scores`` as the word loss calls it: scores,
+    d_regions and d_words against the plain version on the whole captions
+    (the scores summed in fp64) under ``DAMSM_TOL``; the launches are the
+    route's kernels (``LN_KERNELS``), an all-padded caption scores
     the plain value bit for bit, and a second run's scores and d_regions,
     with the all-padded caption's cotangent at 100, are bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -1291,7 +1323,8 @@ def check_damsm_streamed() -> dict:
             del r, w, mask, up, ri, wi, got, want, want_g, ri2, s2, dr2, up2
         torch.cuda.empty_cache()
         errs[cd] = worst
-        log(f"[3] damsm_score {CD_NAME[cd]}, forward and d_regions on {LN_KERNELS[cd]} at the "
+        log(f"[3] damsm_score {CD_NAME[cd]}, forward, d_regions and d_words on {LN_KERNELS[cd]} "
+            f"at the "
             f"edges {DAMSM_STREAMED}: max_abs_err " + ", ".join(
                 f"{k} {v:.3g}" for k, v in worst.items()) + f" (tolerance {tol}); all-padded "
             "caption = plain; two runs of forward + d_regions bit-equal, the all-padded "
@@ -1936,6 +1969,34 @@ LOOP_CLI = ["--cfg", str(CFG), "--synthetic", "--synthetic_len", "176", "--imsiz
             "--max_steps", "2", "--log_type", "none", "--save_after", "0", "--no_eval_fid"]
 
 
+def start_cli_train(root: str) -> tuple[subprocess.Popen, float]:
+    """``python -m xmc_gan_tpu_torch.cli train`` as a user runs it
+    (``LOOP_CLI``: df_gan_damsm.yml, batch 88, 2 steps) with the reference
+    CLI's ``--gpu`` and ``--debug_nans``, started as a process of its own
+    (``main`` runs it beside phase 3's checks, which time nothing); its
+    start time.  ``finish_cli_train`` checks it."""
+    proc = subprocess.Popen([sys.executable, "-m", "xmc_gan_tpu_torch.cli", "train", *LOOP_CLI,
+                             "--gpu", "0", "--debug_nans", "--output_root",
+                             os.path.join(root, "cli")], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_cli_train(proc: subprocess.Popen, t0: float, card: str) -> dict:
+    """Waits for ``start_cli_train``'s process and checks its exit code, its
+    two console lines and its checkpoint save."""
+    out, err = proc.communicate(timeout=600)
+    res = {"cli_train_debug_nans_s": time.perf_counter() - t0}
+    lines = [ln for ln in out.splitlines() if "Loss_D:" in ln]
+    if proc.returncode != 0 or len(lines) != 2 or "Save models" not in out:
+        raise AssertionError(f"[5e] cli train --gpu 0 --debug_nans exit {proc.returncode}, "
+                             f"console lines {lines}\n{out[-3000:]}\n{err[-3000:]}")
+    res["cli_train_console"] = lines
+    log(f"[5e] cli train --synthetic --max_steps 2 --gpu 0 --debug_nans (beside phase 3) "
+        f"{res['cli_train_debug_nans_s']:.1f} s from its start; {lines[-1].strip()} | {card}")
+    return res
+
+
 def loop_cfg():
     over = copy.deepcopy(TRAIN_OVERRIDES)
     over["CONFIG_NAME"] = "flagship_word"
@@ -2030,10 +2091,11 @@ def _train_loop(card: str, cfg, root: str, bare_step_ms: float) -> dict:
     if tr.decode_route != "synthetic":
         raise AssertionError(f"{label}: decode route {tr.decode_route}, want synthetic")
     steps = 2 * LOOP_STEPS_PER_EPOCH
-    reset_counts()  # the loop's run: two epochs
-    metrics, calls, evals = timed_fit(tr, max_epochs=2)
-    # per epoch: the fixed grid, one in-epoch grid and one FID batch
-    launches = check_counts(f"{label} fit, 2 epochs", loop_launches(steps, 2 * 3))
+    reset_counts()  # the loop's run: two epochs, FID after the second
+    metrics, calls, evals = timed_fit(
+        tr, max_epochs=2, eval_fn=lambda t, epoch: t.evaluate(epoch) if epoch == 2 else None)
+    # per epoch the fixed grid and one in-epoch grid; one FID batch
+    launches = check_counts(f"{label} fit, 2 epochs", loop_launches(steps, 2 * 2 + 1))
     bad = [k for k, v in metrics.items() if not math.isfinite(v)]
     if bad or tr.state.step != steps:
         raise AssertionError(f"{label}: non-finite {bad} or step {tr.state.step} != {steps}")
@@ -2063,15 +2125,17 @@ def _train_loop(card: str, cfg, root: str, bare_step_ms: float) -> dict:
     del tr
     torch.cuda.empty_cache()
 
-    # resume: a fresh trainer on the same run, from the newest auto-checkpoint
-    tr = Trainer(cfg, **kw)
+    # resume: a fresh trainer on the same run, from the newest auto-checkpoint;
+    # its epochs end without an FID (run 1 times one, so the phase stays short)
+    tr = Trainer(cfg, eval_fid=False, **kw)
     if tr.resume_latest_auto() != 6 or tr._resume_skip != 2 or tr.state_epoch != 1:
         raise AssertionError(f"{label}: resumed at step {tr.state.step}, skip "
                              f"{tr._resume_skip}, epoch {tr.state_epoch}; want 6, 2, 1")
     reset_counts()  # the resumed run: the rest of epoch 2 and epoch 3
-    metrics2, calls2, evals2 = timed_fit(tr, max_epochs=3)
+    metrics2, calls2, _ = timed_fit(tr, max_epochs=3)
     resumed_steps = 3 * LOOP_STEPS_PER_EPOCH - 6
-    launches2 = check_counts(f"{label} resumed fit", loop_launches(resumed_steps, 2 * 3))
+    # per epoch: the fixed grid and one in-epoch grid
+    launches2 = check_counts(f"{label} resumed fit", loop_launches(resumed_steps, 2 * 2))
     bad = [k for k, v in metrics2.items() if not math.isfinite(v)]
     if bad or tr.state.step != 3 * LOOP_STEPS_PER_EPOCH or tr.ckpt.all_epochs() != [1, 2, 3]:
         raise AssertionError(f"{label}: resumed run non-finite {bad}, step {tr.state.step}, "
@@ -2098,18 +2162,6 @@ def _train_loop(card: str, cfg, root: str, bare_step_ms: float) -> dict:
     del tr
     torch.cuda.empty_cache()
 
-    # the CLI's train at its own config (df_gan_damsm.yml: batch 88, SENT +
-    # DISC, so fused_affine only), as a user runs it
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "xmc_gan_tpu_torch.cli", "train", *LOOP_CLI,
-                           "--output_root", os.path.join(root, "cli")], cwd=REPO,
-                          capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
-    lines = [ln for ln in proc.stdout.splitlines() if "Loss_D:" in ln]
-    if proc.returncode != 0 or len(lines) != 2 or "Save models" not in proc.stdout:
-        raise AssertionError(f"{label}: cli train exit {proc.returncode}, console lines {lines}"
-                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-
     res = {"card": card, "config": "flagship_word", "dtype": "bf16", "batch": BATCH,
            "launches_fit": launches, "launches_resumed": launches2,
            "loop_step_ms": statistics.median(walls), "loop_step_ms_all": walls,
@@ -2120,9 +2172,8 @@ def _train_loop(card: str, cfg, root: str, bare_step_ms: float) -> dict:
            "trace_launches": trace["launches"], "trace_lost": trace["lost"],
            "step_busy_share_unprofiled": step_busy_ms / statistics.median(walls),
            "ckpt_save_ms": save_ms, "ckpt_restore_ms": restore_ms,
-           "ckpt_bytes": ckpt_bytes, "fid_eval_ms": [e for e, _ in evals + evals2],
-           "fid_sqrtm_ms": [q for _, q in evals + evals2], "peak_mem_gib": peak,
-           "cli_train_s": cli_s, "cli_console": lines,
+           "ckpt_bytes": ckpt_bytes, "fid_eval_ms": [e for e, _ in evals],
+           "fid_sqrtm_ms": [q for _, q in evals], "peak_mem_gib": peak,
            "metrics": metrics, "metrics_resumed": metrics2}
     log(f"{label}: 2 epochs of {LOOP_STEPS_PER_EPOCH} steps, launches {launches}; resumed at "
         f"step 6 (2 batches of epoch 2 skipped), {resumed_steps} steps, launches {launches2}; "
@@ -2137,19 +2188,17 @@ def _train_loop(card: str, cfg, root: str, bare_step_ms: float) -> dict:
         f"loop step: share {res['step_busy_share_unprofiled']:.3f}; of {trace['launches']} "
         f"launches, those at {trace['lost']} have no kernel in the trace")
     log(f"{label}: checkpoint save {save_ms:.1f} ms, restore {restore_ms:.1f} ms, "
-        f"{ckpt_bytes} bytes; FID eval (random-init Inception, {LOOP_SYNTHETIC_LEN // 4} "
-        f"test samples) {', '.join(f'{e:.1f} ({q:.1f} of it fid_from_stats)' for e, q in evals + evals2)}"
-        f" ms (the first of each run builds the extractor); peak memory {peak:.2f} GiB")
-    log(f"{label}: cli train (df_gan_damsm.yml, batch 88, 2 steps) exit 0 in {cli_s:.1f} s: "
-        + " | ".join(ln.split(" INFO: ")[-1] for ln in lines))
+        f"{ckpt_bytes} bytes; FID eval (random-init Inception, {LOOP_SYNTHETIC_LEN // 4} test "
+        f"samples, building the extractor) {evals[0][0]:.1f} ms ({evals[0][1]:.1f} of it "
+        f"fid_from_stats); peak memory {peak:.2f} GiB")
     return res
 
 
 # phase 6c: concept_out_df_gan.yml through Trainer.fit, one epoch of this
 # many steps at its batch of 88, a checkpoint after it
-CONCEPT_LOOP_STEPS = 6
+CONCEPT_LOOP_STEPS = 4
 # phase 6d: ln_coco_256.yml through Trainer.fit in bf16, this many steps
-LN_LOOP_STEPS = 4
+LN_LOOP_STEPS = 3
 # phase 5c: rows of the synthetic sbert_cache_test.npz (T = 200, D = 768, fp16)
 SENT_CACHE_ROWS = 512
 
@@ -2592,8 +2641,8 @@ def sbert_encoding(card: str) -> dict:
     captions served through ``make_hf_sbert_encode`` -> ``SBERTEncoder`` ->
     the ``ln_coco_256.yml`` G at 256², fp32 and bf16, 14 ``fused_affine``
     forwards a request asserted; (e) ``cli sample`` and ``cli prep-ln
-    --build_cache`` in this process, as a user runs them; (f) ``cli train
-    --synthetic --max_steps 2 --gpu 0 --debug_nans`` as a process."""
+    --build_cache`` in this process, as a user runs them.  (``main`` runs
+    ``cli train`` beside phase 3: ``start_cli_train``.)"""
     import pickle
 
     from PIL import Image
@@ -2849,21 +2898,6 @@ def sbert_encoding(card: str) -> dict:
             f"--build_cache ({n_prep}) {res['cli_prep_ln_s']:.1f} s, its caches within one fp16 "
             "ulp of build_sbert_cache's rows")
 
-        # (f) cli train with the reference CLI's --gpu and --debug_nans
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "xmc_gan_tpu_torch.cli", "train", *LOOP_CLI,
-                               "--gpu", "0", "--debug_nans", "--output_root",
-                               os.path.join(root, "cli")], cwd=REPO, capture_output=True,
-                              text=True, timeout=600)
-        res["cli_train_debug_nans_s"] = time.perf_counter() - t0
-        lines = [ln for ln in proc.stdout.splitlines() if "Loss_D:" in ln]
-        if proc.returncode != 0 or len(lines) != 2:
-            raise AssertionError(f"{label}: cli train --gpu 0 --debug_nans exit "
-                                 f"{proc.returncode}, console lines {lines}\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        res["cli_train_console"] = lines
-        log(f"{label}: cli train --synthetic --max_steps 2 --gpu 0 --debug_nans "
-            f"{res['cli_train_debug_nans_s']:.1f} s; {lines[-1].strip()}")
         return res
     finally:
         if old_hub is None:
@@ -3004,7 +3038,7 @@ def serve_exported(card: str, sds: dict) -> list[dict]:
                     f"process max abs diff from make_sample_fn: the artifact {here_err:.3g}, "
                     f"make_sample_fn again {again:.3g}")
                 t_eager, t_export = [], []
-                for _ in range(5):  # in turns
+                for _ in range(3):  # in turns
                     for fn, times in ((lambda: sample(*args), t_eager),
                                       (lambda: here(params, *args), t_export)):
                         torch.cuda.synchronize()
@@ -3092,7 +3126,7 @@ def serve_exported(card: str, sds: dict) -> list[dict]:
 DP_WORLD = 2
 DP_PARITY = {"TRAIN": {"NCH": 8, "BATCH_SIZE": 8}, "IMG": {"SIZE": 64}}
 DP_PARITY_STEPS = 2
-DP_TIMED = 3
+DP_TIMED = 2
 DP_TIMEOUT_S = 420
 DAMSM_COUNTS = ("damsm_score.forward", "damsm_score.d_regions", "damsm_score.d_words")
 
@@ -4118,8 +4152,9 @@ def damsm_rows(errs, launches, dp_launches, row_errs) -> list[dict]:
 
 def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
     """Phase 7, damsm_score at the word shape of each dtype's LN-COCO step
-    (``LN_STEP_SHAPES``): each kernel's launch on the 16-slot sub-captions
-    of real words that ``damsm_scores`` hands it (``split_captions``), with
+    (``LN_STEP_SHAPES``): each kernel's launch on the sub-captions of real
+    words (``LN_WIDTH`` slots) that ``damsm_scores`` hands it
+    (``split_captions``), with
     the cotangent the combine hands the backward (2 timed launches), against
     the plain version on the whole captions (caption blocks of
     ``LN_PLAIN_BLOCK``).  Bytes and operations of the function on the whole
@@ -4175,110 +4210,152 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
     return rows
 
 
+# seconds by phase (``phase``), printed before the ``kernels`` line
+PHASE_SECONDS: dict[str, float] = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Adds the wall seconds of the block to ``PHASE_SECONDS[name]`` and
+    prints them."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + dt
+        log(f"[t] phase {name}: {dt:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
-    card = card_check()
-    build_kernels()
-    cfg = df_cfg()
-    shapes = epilogue_shapes(cfg, BATCH)
-    in_cfg = concept_cfg("CONCEPT_INATTN_GEN")
-    attn_in, attn_out = attention_shapes(in_cfg, BATCH, "in"), attention_shapes(in_cfg, BATCH,
-                                                                                "out")
-    mod_shapes = modulation_shapes(concept_cfg("CONCEPT_IN_DF_GEN"), BATCH)
-    ln = ln_cfg()
-    fa_errs = check_epilogue(shapes, epilogue_shapes(ln, ln.TRAIN.BATCH_SIZE),
-                             epilogue_shapes(ln, LN_FP32_BATCH))
-    mod_errs = check_modulation(sorted(set(mod_shapes)))
-    bwd2_errs = check_double_backward(concept_train_cfg())
-    ds_errs = check_damsm()
-    row_errs = check_damsm_row_blocks()
-    col_errs = check_damsm_col_blocks()
-    ln_errs = check_damsm_ln()
-    check_damsm_streamed()
-    ca_errs = check_attention(attn_in)
-    ca_bwd_errs = check_attention_bwd(attn_train_shapes("in"), attn_train_shapes("out"))
-    torch.cuda.empty_cache()
-    own_ms = own_kernel_times()
+    with phase("1 card"):
+        card = card_check()
+    with phase("2 build"):
+        build_kernels()
+    cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    cli_train = start_cli_train(cli_root)
+    try:
+        with phase("3 kernels vs plain"):
+            cfg = df_cfg()
+            shapes = epilogue_shapes(cfg, BATCH)
+            in_cfg = concept_cfg("CONCEPT_INATTN_GEN")
+            attn_in = attention_shapes(in_cfg, BATCH, "in")
+            attn_out = attention_shapes(in_cfg, BATCH, "out")
+            mod_shapes = modulation_shapes(concept_cfg("CONCEPT_IN_DF_GEN"), BATCH)
+            ln = ln_cfg()
+            fa_errs = check_epilogue(shapes, epilogue_shapes(ln, ln.TRAIN.BATCH_SIZE),
+                                     epilogue_shapes(ln, LN_FP32_BATCH))
+            mod_errs = check_modulation(sorted(set(mod_shapes)))
+            bwd2_errs = check_double_backward(concept_train_cfg())
+            ds_errs = check_damsm()
+            row_errs = check_damsm_row_blocks()
+            col_errs = check_damsm_col_blocks()
+            ln_errs = check_damsm_ln()
+            check_damsm_streamed()
+            ca_errs = check_attention(attn_in)
+            ca_bwd_errs = check_attention_bwd(attn_train_shapes("in"), attn_train_shapes("out"))
+            torch.cuda.empty_cache()
+        with phase("5e cli train, the rest of it after phase 3"):
+            cli_res = finish_cli_train(*cli_train, card)
+    finally:
+        if cli_train[0].poll() is None:  # phase 3 failed: stop the process
+            cli_train[0].kill()
+            cli_train[0].wait()
+        shutil.rmtree(cli_root, ignore_errors=True)
+    with phase("7 own kernel times"):
+        own_ms = own_kernel_times()
     log("[7] the kernels' own device ms (profiler, run after phase 3): "
         + ", ".join(f"{k} {v:.3f}" for k, v in own_ms.items()))
     torch.cuda.empty_cache()
 
-    g_cpu = make_generator(cfg, device="cpu")
-    sd = perturbed_state_dict(g_cpu, seed=0)
-    g_cpu.load_state_dict(sd, strict=True)
-    check_slice_against_cpu(cfg, g_cpu)
-    del g_cpu
-    damsm_two_steps = {"damsm_score.forward": 4, "damsm_score.d_regions": 4}
-    check_train_against_cpu(cfg_from_dict(SLICE_CFG), "train slice", prefix_mask,
-                            damsm_two_steps)
-    check_concepts_against_cpu()
-    check_train_against_cpu(ln_cfg({"IMG": {"SIZE": 64}, "TRAIN": {"NCH": 8, "BATCH_SIZE": 4}}),
-                            "LN-COCO step (fp32, NCH=8, 64², batch 4, T=200, D=768), 2 steps",
-                            ln_mask, damsm_two_steps)
-    small_concept = concept_train_cfg({"TRAIN": {"NCH": 8, "BATCH_SIZE": 4}})
-    check_train_against_cpu(small_concept, "concept_out_df_gan step (fp32, NCH=8, 64², batch 4), "
-                            "2 steps", prefix_mask,
-                            {k: 2 * n for k, n in concept_step_launches(small_concept).items()})
-    for name in ATTN_GENS:
-        wcfg = concept_cfg(name, 64, 8)
-        per = attn_step_launches(wcfg, name)
-        check_train_against_cpu(wcfg, f"{name} step (fp32, NCH=8, 64², batch 4), 2 steps",
-                                prefix_mask, {k: 2 * n for k, n in per.items()})
-    check_train_against_cpu(cfg_from_dict({"TRAIN": {"ENCODER_LOSS": {"VGG": True}}},
-                                          base=cfg_from_dict(SLICE_CFG)),
-                            "train slice with ENCODER_LOSS.VGG (random VGG-19)", prefix_mask,
-                            damsm_two_steps)
+    with phase("4 card vs CPU"):
+        g_cpu = make_generator(cfg, device="cpu")
+        sd = perturbed_state_dict(g_cpu, seed=0)
+        g_cpu.load_state_dict(sd, strict=True)
+        check_slice_against_cpu(cfg, g_cpu)
+        del g_cpu
+        damsm_two_steps = {"damsm_score.forward": 4, "damsm_score.d_regions": 4}
+        check_train_against_cpu(cfg_from_dict(SLICE_CFG), "train slice", prefix_mask,
+                                damsm_two_steps)
+        check_concepts_against_cpu()
+        check_train_against_cpu(
+            ln_cfg({"IMG": {"SIZE": 64}, "TRAIN": {"NCH": 8, "BATCH_SIZE": 4}}),
+            "LN-COCO step (fp32, NCH=8, 64², batch 4, T=200, D=768), 2 steps", ln_mask,
+            damsm_two_steps)
+        small_concept = concept_train_cfg({"TRAIN": {"NCH": 8, "BATCH_SIZE": 4}})
+        check_train_against_cpu(
+            small_concept, "concept_out_df_gan step (fp32, NCH=8, 64², batch 4), 2 steps",
+            prefix_mask, {k: 2 * n for k, n in concept_step_launches(small_concept).items()})
+        for name in ATTN_GENS:
+            wcfg = concept_cfg(name, 64, 8)
+            per = attn_step_launches(wcfg, name)
+            check_train_against_cpu(wcfg, f"{name} step (fp32, NCH=8, 64², batch 4), 2 steps",
+                                    prefix_mask, {k: 2 * n for k, n in per.items()})
+        check_train_against_cpu(cfg_from_dict({"TRAIN": {"ENCODER_LOSS": {"VGG": True}}},
+                                              base=cfg_from_dict(SLICE_CFG)),
+                                "train slice with ENCODER_LOSS.VGG (random VGG-19)", prefix_mask,
+                                damsm_two_steps)
 
-    runs = {dtype: serve(cfg, sd, dtype) for dtype in (torch.float32, torch.bfloat16)}
-    diff = (runs[torch.float32].pop("img") - runs[torch.bfloat16].pop("img")).abs()
-    log(f"[5] bf16 vs fp32 images: max abs diff {diff.max().item():.4f}, "
-        f"mean {diff.mean().item():.5f}")
-    del diff
-    torch.cuda.empty_cache()
-    concept_runs, sds = {}, {"DF_GEN": sd}
-    for i, name in enumerate(CONCEPT_GENS):
-        ccfg = concept_cfg(name)
-        c_sd = sds[name] = perturbed_state_dict(make_generator(ccfg, device="cpu"), seed=30 + i)
-        concept_runs[name] = {dtype: serve(ccfg, c_sd, dtype, name)
-                              for dtype in (torch.float32, torch.bfloat16)}
-        diff = (concept_runs[name][torch.float32].pop("img")
-                - concept_runs[name][torch.bfloat16].pop("img")).abs()
-        log(f"[5] {name} bf16 vs fp32 images: max abs diff {diff.max().item():.4f}, "
+    with phase("5 serving"):
+        runs = {dtype: serve(cfg, sd, dtype) for dtype in (torch.float32, torch.bfloat16)}
+        diff = (runs[torch.float32].pop("img") - runs[torch.bfloat16].pop("img")).abs()
+        log(f"[5] bf16 vs fp32 images: max abs diff {diff.max().item():.4f}, "
             f"mean {diff.mean().item():.5f}")
         del diff
         torch.cuda.empty_cache()
-
-    sent_runs = serve_sent(card, (torch.float32, torch.bfloat16))
-    t_export = time.perf_counter()
-    exported = serve_exported(card, sds)
-    log(f"[5d] {time.perf_counter() - t_export:.1f} s | {card}")
-    t_sbert = time.perf_counter()
-    sbert = sbert_encoding(card)
-    log(f"[5e] {time.perf_counter() - t_sbert:.1f} s | {card}")
+        concept_runs, sds = {}, {"DF_GEN": sd}
+        for i, name in enumerate(CONCEPT_GENS):
+            ccfg = concept_cfg(name)
+            c_sd = sds[name] = perturbed_state_dict(make_generator(ccfg, device="cpu"),
+                                                    seed=30 + i)
+            concept_runs[name] = {dtype: serve(ccfg, c_sd, dtype, name)
+                                  for dtype in (torch.float32, torch.bfloat16)}
+            diff = (concept_runs[name][torch.float32].pop("img")
+                    - concept_runs[name][torch.bfloat16].pop("img")).abs()
+            log(f"[5] {name} bf16 vs fp32 images: max abs diff {diff.max().item():.4f}, "
+                f"mean {diff.mean().item():.5f}")
+            del diff
+            torch.cuda.empty_cache()
+    with phase("5c SENT serving"):
+        sent_runs = serve_sent(card, (torch.float32, torch.bfloat16))
+    with phase("5d exported"):
+        exported = serve_exported(card, sds)
+    with phase("5e SBERT"):
+        sbert = {**sbert_encoding(card), **cli_res}
 
     flagship = cfg_from_dict(TRAIN_OVERRIDES)
-    trains = {torch.bfloat16: train(flagship, "flagship_word", torch.bfloat16, 2, 10, prefix_mask),
-              torch.float32: train(flagship, "flagship_word", torch.float32, 1, 3, prefix_mask)}
-    # the LN steps take seconds: their counted step is their warm-up
-    ln_train = train(ln_cfg(), "LN-COCO", torch.bfloat16, 0, 2, ln_mask)
-    ln_train32 = train(ln_cfg({"TRAIN": {"BATCH_SIZE": LN_FP32_BATCH}}), "LN-COCO",
-                       torch.float32, 0, 2, ln_mask)
-    loop = train_loop(card, trains[torch.bfloat16]["step_ms"])
-    concept_loops = {dtype: concept_loop(card, dtype) for dtype in (torch.bfloat16, torch.float32)}
-    ln_fit = ln_loop(card, ln_train["step_ms"])
-    attn_loops = {name: {dtype: attn_loop(card, name, dtype)
-                         for dtype in (torch.bfloat16, torch.float32)} for name in ATTN_GENS}
-    vgg_train = train(cfg_from_dict({"TRAIN": {"ENCODER_LOSS": {"VGG": True}}}, base=flagship),
-                      "flagship_word + VGG", torch.bfloat16, 2, 3, prefix_mask)
+    with phase("6 training steps"):
+        trains = {torch.bfloat16: train(flagship, "flagship_word", torch.bfloat16, 2, 5,
+                                        prefix_mask),
+                  torch.float32: train(flagship, "flagship_word", torch.float32, 1, 2,
+                                       prefix_mask)}
+        # the LN steps take seconds: their counted step is their warm-up
+        ln_train = train(ln_cfg(), "LN-COCO", torch.bfloat16, 0, 2, ln_mask)
+        ln_train32 = train(ln_cfg({"TRAIN": {"BATCH_SIZE": LN_FP32_BATCH}}), "LN-COCO",
+                           torch.float32, 0, 1, ln_mask)
+    with phase("6b flagship loop"):
+        loop = train_loop(card, trains[torch.bfloat16]["step_ms"])
+    with phase("6c concept loops"):
+        concept_loops = {dtype: concept_loop(card, dtype)
+                         for dtype in (torch.bfloat16, torch.float32)}
+    with phase("6d LN loop"):
+        ln_fit = ln_loop(card, ln_train["step_ms"])
+    with phase("6e attention loops"):
+        attn_loops = {name: {dtype: attn_loop(card, name, dtype)
+                             for dtype in (torch.bfloat16, torch.float32)} for name in ATTN_GENS}
+    with phase("6f VGG"):
+        vgg_train = train(cfg_from_dict({"TRAIN": {"ENCODER_LOSS": {"VGG": True}}},
+                                        base=flagship),
+                          "flagship_word + VGG", torch.bfloat16, 2, 3, prefix_mask)
     log(f"[6f] flagship_word bf16 step with the VGG loss {vgg_train['step_ms']:.1f} ms beside "
         f"phase 6's {trains[torch.bfloat16]['step_ms']:.1f} ms without it; the VGG "
         f"{100 * vgg_train['vgg_share']:.1f}% of the step's device time | {card}")
-    t_dp = time.perf_counter()
-    dp = dp_phase(card, trains[torch.bfloat16]["step_ms"])
-    log(f"[6g] {time.perf_counter() - t_dp:.1f} s | {card}")
-    t_tp = time.perf_counter()
-    tp = tp_phase(card)
-    log(f"[6h] {time.perf_counter() - t_tp:.1f} s | {card}")
+    with phase("6g data parallel"):
+        dp = dp_phase(card, trains[torch.bfloat16]["step_ms"])
+    with phase("6h tensor parallel"):
+        tp = tp_phase(card)
+    t7 = time.perf_counter()
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
            for name, rs in concept_runs.items()}
@@ -4339,6 +4416,9 @@ def main() -> int:
                                                 for r in rs.values()],
                     "vgg_training": vgg_train, "data_parallel": dp,
                     "tensor_parallel": tp}))
+    PHASE_SECONDS["7 kernel rows"] = time.perf_counter() - t7
+    log("[t] seconds by phase | " + card + " | " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -414,9 +414,10 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
     names = _damsm_kernel_names(run)  # runs it twice: one launch of each kernel a run
     assert (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches) == tuple(
         n + 2 for n in before)
-    for want in kernels + ("damsm_bwd_dw_kernel<",):
+    launched = kernels + (ds.kernel_name("dw", R, D, cd),)  # bf16: tensor cores, fp32: CUDA cores
+    for want in launched:
         assert any(want in n for n in names), (want, names)
-    assert not [n for n in names if "_tc" in n and not any(k in n for k in kernels)], names
+    assert not [n for n in names if "_tc" in n and not any(k in n for k in launched)], names
     if cd is not None:
         assert not [n for n in names if "damsm_fwd_bf16_kernel<" in n], names
     rr, wr = r.clone().requires_grad_(), w.clone().requires_grad_()
@@ -472,7 +473,7 @@ def test_damsm_bf16_d_regions_is_deterministic_and_ignores_padded_captions(cuda_
 @pytest.mark.cuda
 def test_damsm_streamed_d_regions_is_deterministic_and_ignores_padded_captions(cuda_device):
     """The same for the bf16 d_regions with streamed regions (D = 768, the
-    LN width, 16-slot captions as the LN sub-captions): two launches
+    LN width, 16-slot captions): two launches
     bit-equal, the all-padded caption's cotangent adds 0, and the result
     within one bf16 ulp of the largest gradient of the plain version."""
     r, w, mask, up = _damsm_inputs(cuda_device, (8, 24, 256, 16, 768), 14, allpad=True)
@@ -488,6 +489,62 @@ def test_damsm_streamed_d_regions_is_deterministic_and_ignores_padded_captions(c
     assert torch.equal(first, again) and torch.equal(first, moved)
     want = ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, torch.bfloat16)
     torch.testing.assert_close(first, want, rtol=0,
+                               atol=DAMSM_TOL[torch.bfloat16][1] * want.abs().max().item())
+
+
+# (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
+# bf16 d_words on the tensor cores (``plan_dw``: 64 word rows a pass at
+# D <= 256, 32 to D = 768, 16 above; the regions streamed at every D) at the
+# flagship word shape; at the LN word shape's 32-slot sub-captions (16
+# images, LN-drawn mask: ``ln``); at the streamed kernels' edges: D = 264
+# (5 of the 12 chunks the 32-row kernel holds, 3 of them in shared memory),
+# D = 520 with R = 50 (a partial last region chunk, d_w's first two chunks in
+# registers), D = 770 (rows not 16-byte aligned: plain loads), D = 1024 with
+# captions of at most 2 words (16-row passes of many captions); and R = 50,
+# D = 48 (one region chunk, 64-row passes)
+DW_TC_SHAPES = [((128, 128, 256, 20, 256), True, None, False),
+                ((16, 16, 256, 200, 768), True, None, True),
+                ((16, 12, 256, 20, 264), True, None, False),
+                ((132, 9, 50, 20, 520), True, None, False),
+                ((132, 7, 64, 7, 770), True, None, False),
+                ((132, 3, 256, 64, 1024), True, 2, False),
+                ((3, 5, 50, 7, 48), True, None, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,allpad,max_len,ln", DW_TC_SHAPES, ids=str)
+def test_damsm_tensor_core_d_words_matches_plain_on_card(cuda_device, shape, allpad, max_len,
+                                                         ln):
+    """The bf16 d_words kernel (``damsm_bwd_dw_tcs_kernel``) on the
+    sub-captions ``damsm_scores`` hands it, with each sub-caption's
+    caption cotangent, against the plain version's autograd on the same
+    inputs within one bf16 ulp of the largest gradient; the all-padded
+    caption's d_words and every padded slot's exactly 0; two launches
+    bit-equal; the profiler shows the kernel ``kernel_name`` names."""
+    b, bc, R, T, D = shape
+    assert ds.route("dw", R, D, torch.bfloat16) == ds.TENSOR_CORES
+    if ln:
+        r, w, mask, up = _ln_inputs(cuda_device, shape, 17)
+    else:
+        r, w, mask, up = _damsm_inputs(cuda_device, shape, 17, allpad, max_len)
+    w_sub, m_sub = ds.split_captions(w, mask, ds.sub_caption_width(R, T, D, torch.bfloat16))
+    k = w_sub.shape[0] // bc
+    g = up.repeat_interleave(k, dim=1)
+    out = {}
+    before = ds.D_WORDS.launches
+    names = _damsm_kernel_names(lambda: out.update(
+        first=ds._launch_bwd("dw", r, w_sub, m_sub, g, 4.0, 5.0, torch.bfloat16)))
+    again = ds._launch_bwd("dw", r, w_sub, m_sub, g, 4.0, 5.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ds.D_WORDS.launches == before + 3
+    assert any(ds.kernel_name("dw", R, D, torch.bfloat16) in n for n in names), names
+    assert "damsm_bwd_dw_tcs_kernel<" == ds.kernel_name("dw", R, D, torch.bfloat16)
+    got = out["first"]
+    assert torch.equal(got, again)
+    assert got.view(bc, k, *got.shape[1:])[1].abs().max().item() == 0.0
+    assert got[m_sub].abs().max().item() == 0.0
+    want = ds._plain_vjp("dw", r, w_sub, m_sub, g, 4.0, 5.0, torch.bfloat16)
+    torch.testing.assert_close(got, want, rtol=0,
                                atol=DAMSM_TOL[torch.bfloat16][1] * want.abs().max().item())
 
 

@@ -132,7 +132,8 @@ def _long_problem(b, bc, r, t, d, width, seed):
                                   (2, 3, 256, 130, 256), (2, 3, 256, 64, 256)], ids=str)
 def test_long_captions_match_jax(cd, dims):
     """Captions longer than a block's rows go through as sub-captions
-    (``sub_caption_width``: 16 at the LN word shape, T = 200, D = 768; a
+    (``sub_caption_width``: 16 at the LN word shape, T = 200, D = 768, in
+    fp32 and 32 in bf16, the tensor-core kernels' rows a pass; a
     ragged T = 77, D = 520; T = 130 at D = 256, on the tensor cores in
     bf16; T = 64 at R = D = 256, which fits the forward but not the
     backward kernels), and the scores and both VJPs match the JAX XLA path and the
@@ -231,20 +232,21 @@ def test_kernel_plan_mirrors_the_source():
 
 @pytest.mark.parametrize("which", ["fwd", "dr", "dw"])
 def test_route_rule(which):
-    """One rule per kernel (``route``): the bf16 forward and d_regions on
-    the tensor cores if and only if R <= 256 and D <= 1024 (regions
-    resident at D <= 256, streamed above); the fp32 forward and d_regions
+    """One rule per kernel (``route``): the bf16 forward, d_regions and
+    d_words on the tensor cores if and only if R <= 256 and D <= 1024 (the
+    forward's and d_regions' regions resident at D <= 256, streamed above;
+    the d_words' streamed at every D); the fp32 forward and d_regions
     packed under the same rule (the flagship's (256, 256), (50, 40) on the
     packed kernels, D > 256 such as (256, 264) on the wide ones; not
-    (300, 48) or (256, 1025)); the d_words and every other fp32 launch on
-    the CUDA cores."""
+    (300, 48) or (256, 1025)); the fp32 d_words and every other fp32 launch
+    on the CUDA cores."""
     flagship = [(256, 256), (50, 48), (50, 40), (1, 1)]
     wide = [(256, 768), (16, 264), (256, 264), (256, 1024), (64, 770), (50, 520)]
     never = [(257, 256), (300, 16), (300, 48), (257, 768), (256, 1025)]
     for R, D in flagship + wide + never:
         assert ds.route(which, R, D, None) != ds.TENSOR_CORES
         assert ds.route(which, R, D, torch.float32) != ds.TENSOR_CORES
-    tc = {"fwd": flagship + wide, "dr": flagship + wide, "dw": []}[which]
+    tc = flagship + wide
     packed = {"fwd": flagship + wide, "dr": flagship + wide, "dw": []}[which]
     for R, D in flagship + wide + never:
         assert (ds.route(which, R, D, torch.bfloat16) == ds.TENSOR_CORES) == ((R, D) in tc), (R, D)
@@ -256,7 +258,9 @@ def test_route_rule(which):
             # the tensor cores, the fp32 forward or d_regions with packed
             # words, else the CUDA-core kernels
             name = ds.kernel_name(which, R, D, cd)
-            if want == ds.TENSOR_CORES:
+            if want == ds.TENSOR_CORES and which == "dw":
+                assert name == "damsm_bwd_dw_tcs_kernel<", (R, D, name)
+            elif want == ds.TENSOR_CORES:
                 assert ("_tcs_" if D > ds.TC_MAX_RD else "_tc_") in name, (which, R, D, name)
             elif want == ds.PACKED_FP32:
                 f32 = "f32w" if (R, D) in wide else "f32"
@@ -268,6 +272,8 @@ def test_route_rule(which):
     assert ds.kernel_name("fwd", 300, 48, None) == "damsm_fwd_kernel<"
     assert ds.kernel_name("fwd", 256, 264, torch.float32) == "damsm_fwd_f32w_kernel<"
     assert ds.kernel_name("fwd", 256, 1025, torch.float32) == "damsm_fwd_kernel<"
+    assert ds.kernel_name("dw", 300, 256, torch.bfloat16) == "damsm_bwd_dw_kernel<"
+    assert ds.kernel_name("dw", 256, 256, None) == "damsm_bwd_dw_kernel<"
     with pytest.raises(ValueError, match="which"):
         ds.route("d_regions", 256, 256, torch.bfloat16)
 
@@ -276,31 +282,37 @@ def test_route_rule(which):
 def test_sub_caption_width_mirrors_the_plans(cd):
     """T where every kernel of the route holds a caption (no split: the
     flagship's T = 20 and the card tests' edge shapes but T = 64 in fp32),
-    else the largest width all of them hold: 16 at the LN word shape (the
-    CUDA-core backward), 32 at R = D = 256 in bf16 (the tensor-core
+    else the largest width all of them hold: at the LN word shape 16 in
+    fp32 (the CUDA-core d_words) and 32 in bf16 (the tensor-core kernels'
+    passes, the d_words' too); 32 at R = D = 256 in bf16 (the tensor-core
     d_regions), 48 in fp32 at R, D <= 256 (the CUDA-core backward there, and
     the fp32 d_regions' passes of packed words, which take T = 64 only as
     sub-captions; the fp32 forward's passes hold 64 rows), 32 at D = 520 in
     both dtypes (bf16: the streamed kernels' passes; fp32: the wide packed
-    kernels').  Each width is a plan the kernels take; D > 1024 and
-    regions too many for one row are refused, naming the limit; nothing
-    depends on the device."""
+    kernels'); at D = 1024 9 in fp32 (the CUDA-core backward) and 16 in
+    bf16 (the tensor-core d_regions and d_words).  Each width is a plan the
+    route's kernels take (the CUDA-core ones only where the route has one);
+    D > 1024 and regions too many for one row are refused, naming the
+    limit; nothing depends on the device."""
     bf16 = cd == torch.bfloat16
     for R, T, D in [(256, 20, 256), (50, 7, 48), (64, 7, 40), (50, 20, 40), (24, 33, 24),
                     (5, 3, 12)]:
         assert ds.sub_caption_width(R, T, D, cd) == T
     assert ds.sub_caption_width(50, 64, 40, cd) == (64 if bf16 else 48)
-    assert ds.sub_caption_width(256, 200, 768, cd) == 16
+    assert ds.sub_caption_width(256, 200, 768, cd) == (32 if bf16 else 16)
     assert ds.sub_caption_width(50, 77, 520, cd) == 32  # streamed or wide: 32 rows
     assert ds.sub_caption_width(256, 130, 256, cd) == (32 if bf16 else 48)
     assert ds.sub_caption_width(256, 64, 256, cd) == (32 if bf16 else 48)
-    assert ds.sub_caption_width(256, 200, 1024, cd) == 9
+    assert ds.sub_caption_width(256, 200, 1024, cd) == (16 if bf16 else 9)
     for R, T, D in [(256, 200, 768), (256, 130, 256), (50, 77, 520), (256, 77, 520),
                     (300, 40, 256), (7, 200, 768), (256, 200, 1024), (50, 64, 40)]:
         width = ds.sub_caption_width(R, T, D, cd)
         assert 1 <= width <= 64 and width <= T
-        for backward in (False, True):
-            assert ds.plan(R, width, D, backward, 4)[0] >= 1
+        if any(ds.route(which, R, D, cd) == ds.CUDA_CORES for which in ("fwd", "dr", "dw")):
+            for backward in (False, True):
+                assert ds.plan(R, width, D, backward, 4)[0] >= 1
+        if ds.route("dw", R, D, cd) == ds.TENSOR_CORES:
+            assert ds.plan_dw(R, width, D, 4, 4, 132).rows >= width
         if ds.route("fwd", R, D, cd) == ds.TENSOR_CORES:
             assert ds.plan_fwd(R, width, D, 4, 4, 132).rows >= width
         if ds.route("dr", R, D, cd) == ds.TENSOR_CORES:
@@ -309,10 +321,12 @@ def test_sub_caption_width_mirrors_the_plans(cd):
             assert ds.plan_fwd_f32(R, width, D, 4, 4, 132).rows >= width
         if ds.route("dr", R, D, cd) == ds.PACKED_FP32:
             assert ds.plan_dr_f32(R, width, D, 4, 4, 132).rows >= width
-    # the LN word shape keeps 16 slots: the bf16 forward and d_regions there
-    # (streamed regions) hold 32 rows a pass, the CUDA-core backward 16
+    # the LN word shape: the bf16 forward, d_regions and d_words there
+    # (streamed regions) hold 32 rows a pass, the fp32 route's CUDA-core
+    # d_words 16
     assert ds.plan_fwd(256, 16, 768, 256, 2048, 132).rows == 32
     assert ds.plan_dr(256, 16, 768, 256, 2048, 132).rows == 32
+    assert ds.plan_dw(256, 32, 768, 256, 1024, 132).rows == 32
     assert ds.cuda_core_rows(256, 768, backward=True) == 16
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.sub_caption_width(256, 20, 1025, cd)
@@ -427,6 +441,74 @@ def test_tensor_core_plan_mirrors_the_source(D):
             ds.plan_dr(256, 33, D, 2, 4, 132)
         with pytest.raises(ValueError, match="D <= 1024"):
             ds.plan_dr(16, 8, 1032, 2, 4, 132)
+
+
+@pytest.mark.parametrize("D", [256, 264, 520, 768, 770, 1024])
+def test_dw_plan_mirrors_the_source(D):
+    """The bf16 d_words kernel's plan (``plan_dw``) as ``csrc/damsm_score.cu``
+    computes its shared memory (``tcd_smem_bytes``), with the constants read
+    from the source: the pass's words ``[rows, Dp + 8]`` bf16, one bf16
+    tile ``[rows, max(Rp + 8, 72)]`` (a, a chunk of d_c, d_sim in turn),
+    the two region chunk buffers ``[2, Rp, 72]``, d_w past the region
+    chunks it holds in registers ``[rows, (nq - qreg) * 64 + 8]`` fp32 (qreg
+    2 from D = 256 to 768, else 0) and 15 words a row.  Rows by D: 64 at
+    D = 256, 32 at 520 and 768 (225,168 bytes at 768, where all of d_w in
+    shared memory would not fit), 16 above.  The splits of the images: the
+    passes counted as if every slot held a word fill the 132
+    multiprocessors once, at most one split an image (the LN-like shape:
+    one).  T above the rows, R > 256 and D > 1024 are refused."""
+    assert (_source_constant("TCD_ROWS_256"), _source_constant("TCD_ROWS_768"),
+            _source_constant("TCD_ROWS_1024")) == tuple(ds.TCD_ROWS.values()) == (64, 32, 16)
+    assert _source_constant("TCD_QREG") == ds.TCD_QREG == 2
+    dp = -(-D // 16) * 16
+    nq = -(-dp // 64)
+    rows = 64 if D <= 256 else 32 if D <= 768 else 16
+    qreg = 2 if 256 < dp <= 768 else 0
+
+    def smem(R, m, regs):
+        rp = -(-R // 16) * 16
+        return (2 * m * (dp + 8) + 2 * m * max(rp + 8, 72) + 2 * 2 * rp * 72
+                + 4 * m * ((nq - regs) * 64 + 8) + 4 * (15 * m + 4))
+
+    T = min(rows, 20)
+    p = ds.plan_dw(256, T, D, 128, 128, 132)
+    assert (p.rows, p.smem) == (rows, smem(256, rows, qreg)) and p.smem <= ds.SMEM_LIMIT
+    assert ds.plan_dw(50, 7, D, 3, 5, 132).smem == smem(50, rows, qreg)
+    if D == 768:
+        assert p.smem == 225_168 and smem(256, 32, 0) == 241_552 > ds.SMEM_LIMIT
+    passes = -(-128 * T // rows)
+    assert (p.nsplit, p.captions) == (min(128, -(-132 // passes)), -(-128 // p.nsplit))
+    assert ds.plan_dw(256, min(rows, 32), D, 256, 1024, 132)[1:3] == (1, 256)
+    assert ds.plan_dw(50, 7, D, 3, 5, 132)[1:3] == (3, 1)
+    with pytest.raises(ValueError, match=f"T <= {rows}"):
+        ds.plan_dw(256, rows + 1, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="R <= 256"):
+        ds.plan_dw(257, 8, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ds.plan_dw(256, 8, 1025, 2, 4, 132)
+
+
+def test_ln_bf16_d_words_at_the_tensor_core_width_match_jax():
+    """The bf16 d_words at the LN word shape's new width (T = 200, D = 768:
+    sub-captions of 32 slots in bf16, the tensor-core kernels' rows a pass;
+    16 in fp32): the plain version, which the card holds the kernel to, on
+    the 32-slot sub-captions through ``damsm_scores`` against JAX
+    ``damsm_scores``' word cotangent on the whole captions, the XLA path and
+    the Pallas kernel in interpret mode (the all-padded caption's cotangent
+    zeroed for Pallas, whose backward gives it one), under ``TOL``; the
+    all-padded caption gets exactly 0."""
+    b, bc, R, T, D = 2, 3, 256, 200, 768
+    width = ds.sub_caption_width(R, T, D, torch.bfloat16)
+    assert width == 32 and ds.sub_caption_width(R, T, D, None) == 16
+    regions, words, mask, g = _long_problem(b, bc, R, T, D, width, seed=5)
+    _, (_, dw) = _port(regions, words, mask, g, torch.bfloat16)
+    _, (_, xw) = _jax(regions, words, mask, g, torch.bfloat16, pallas=False)
+    g0 = g.copy()
+    g0[:, 1] = 0.0
+    _, (_, pw) = _jax(regions, words, mask, g0, torch.bfloat16, pallas=True)
+    assert np.abs(dw[1]).max() == 0.0
+    _close(dw, xw, TOL[torch.bfloat16], "d_words vs XLA")
+    _close(dw[[0, 2]], pw[[0, 2]], TOL[torch.bfloat16], "d_words vs Pallas, captions with words")
 
 
 @pytest.mark.parametrize("R,D", [(256, 256), (50, 40), (24, 24)])

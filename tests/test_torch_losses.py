@@ -188,7 +188,7 @@ def test_word_scores_backend_rule():
     are CUDA tensors; the plain path otherwise (the JAX rule, "TPU backend"
     read as "CUDA tensor").  The LN config's shape (B = Bc = 256, R = 256,
     T = 200, word width 768) routes to the kernels, which take it as 16-slot
-    sub-captions in fp32 and bf16: a small LN-like problem on the kernel
+    sub-captions in fp32 and 32-slot ones in bf16: a small LN-like problem on the kernel
     route computes and matches the plain path.  The one limit left, D <=
     1024, raises before any work, naming it."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -216,7 +216,7 @@ def test_word_scores_backend_rule():
                                   torch.zeros(2, 5, dtype=torch.bool), compute_dtype=cd,
                                   backend="kernel")
         # a small LN-like problem (T = 200, D = 768, R = 256) on the kernel route
-        assert ds.sub_caption_width(256, 200, 768, cd) == 16
+        assert ds.sub_caption_width(256, 200, 768, cd) == (32 if cd == torch.bfloat16 else 16)
         got = pl.word_region_scores(_t(regions), _t(words), mask, compute_dtype=cd,
                                     backend="kernel")
         want = pl.word_region_scores(_t(regions), _t(words), mask, compute_dtype=cd,

@@ -21,14 +21,15 @@
 // for d_words; 86 / 215 / 172 GFLOP at B = Bc = 128, T = 20, R = D = 256),
 // against 67 TFLOP/s fp32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
 // cores.  Route (the wrapper's rule per kernel, ops/cuda/damsm_score.py
-// route): the bf16 forward and d_regions run on the tensor cores where
-// R <= 256 and D <= 1024 (regions resident in shared memory at D <= 256,
-// streamed through it above: their own sections below); the fp32 forward
-// and d_regions at R <= 256, D <= 1024 on the CUDA cores in passes of packed
-// real words with the regions streamed ("The fp32 d_regions", "The fp32
-// forward" at D <= 256 and "The wide fp32 forward and d_regions" above it);
-// the d_words, and the fp32 and bf16 forward and d_regions at wider R, on
-// the CUDA-core kernels that take a caption sub-block per block (fp32 keeps
+// route): the bf16 forward, d_regions and d_words run on the tensor cores
+// where R <= 256 and D <= 1024 (the forward and d_regions with the regions
+// resident in shared memory at D <= 256, streamed through it above; the
+// d_words streams them at every D: their own sections below); the fp32
+// forward and d_regions at R <= 256, D <= 1024 on the CUDA cores in passes
+// of packed real words with the regions streamed ("The fp32 d_regions",
+// "The fp32 forward" at D <= 256 and "The wide fp32 forward and d_regions"
+// above it); the fp32 d_words, and every bf16 kernel at wider R, on the
+// CUDA-core kernels that take a caption sub-block per block (fp32 keeps
 // 1e-5 against its plain version, which TF32 would not).
 // Captions
 // longer than a block's rows reach the kernels as sub-captions: the wrapper
@@ -258,27 +259,69 @@
 //    76.1 and 190.2 ms at the LN word shape (B = Bc = 256, R = 256, D = 768,
 //    25,317 real words) over 67 TFLOP/s.
 //
+// The bf16 d_words (damsm_bwd_dw_tcs_kernel), R <= 256, D <= 1024, on the
+// tensor cores (replaces the CUDA-core damsm_bwd_dw_kernel there, which
+// recomputed the chain per caption sub-block and read-modify-wrote its d_w
+// slice in device memory for every image):
+//  * d_words sums over images, so the d_regions' structure turns around:
+//    block = (pass p, split of the images).  A pass packs the real words of
+//    whole captions (tc_pack_pass, Mp rows); damsm_dw_passes_kernel first
+//    cuts the Bc captions into passes where tc_pack_pass would (one block,
+//    the captions' word counts, then one thread's scan) and the grid has a
+//    block for every caption, the ones past the last pass returning at once.
+//  * The pass's words stay in shared memory for all of the split's images;
+//    each image's regions stream through the two chunk buffers four times
+//    (sim = W R^T and c = rnd(a) R in tcs_attend, d a = d_c R^T, d_sim R).
+//    d_c goes to the d a product a 64-column chunk at a time (each warp
+//    writes its n-tile of the chunk from registers, where it holds d_c as
+//    bf16 pairs), so no [Mp, D] d_c tile is needed.
+//  * d_w (fp32) stays on chip across the split's images, in the context's
+//    layout (a warp owns n-tile q * 8 + warp of chunk q): the first QREG
+//    chunks in registers, the rest in shared memory.  Each image adds
+//    d rel rnd(c_hat) and d_sim R into it; after the last image the block
+//    stores the pass's rows once, each element once, into its split's
+//    exclusive slice of partial [nsplit, Bc, T, D], and 0 into the padded
+//    slots of the pass's captions; sum_splits adds the splits in a fixed
+//    order.  No atomics: bit-equal run to run.
+//  * Rounding points: those of the d_regions (d c_hat, d a, and as the
+//    Pallas kernel d_c and d_sim rounded to bf16 before their products);
+//    d rel rnd(c_hat) in fp32, as the plain version.
+//  * Mp, and QREG by the region chunks a pass's context takes: 64 rows at
+//    D <= 256, 32 at D <= 768 (QREG = 2), 16 at D <= 1024; three kernels
+//    (NQ = 4, 12, 16), each instance adding to the build's nvcc time.
+//  * Shared memory: words Mp*(Dp+8)*2, a / d_c chunk / d_sim
+//    Mp*max(Rp+8, 72)*2, the region buffers 2*Rp*72*2, d_w past the QREG
+//    chunks Mp*((nq-QREG)*64+8)*4 and 15*Mp+4 fp32/int words: at R = 256,
+//    D = 768, Mp = 32: 49,664 + 16,896 + 73,728 + 82,944 + 1,936 = 225,168
+//    bytes (all of d_w in shared memory: 241,552, more than a block may
+//    have); at D = 256, Mp = 64: 212,752.
+//  * Bound: 4 products per real word and image (sim, c, d a, d_sim R), 0.086
+//    ms at the flagship and 10.3 ms at the LN word shape over 989 TFLOP/s.
+//    The split of the images: passes x splits about fill the card, from
+//    passes counted as if every slot held a word (the wrapper's plan_dw).
+//
 // C interface (ctypes; pointers and the stream as void*):
 //   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, g1, g2,
 //                     dtype, route, stream)
 //   int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, rows,
 //                        nsplit, g1, g2, dtype, route, stream)
-//   int xmc_damsm_bwd_dw(r, w, mask, g, partial, dw, B, Bc, R, T, D, vb, nsplit,
-//                        g1, g2, dtype, stream)
+//   int xmc_damsm_bwd_dw(r, w, mask, g, plan, partial, dw, B, Bc, R, T, D, vb,
+//                        rows, nsplit, g1, g2, dtype, route, stream)
 //   g is the upstream cotangent [B, Bc] fp32.  partial is [B, nsplit, R, D]
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
-//   nsplit == 1 it may be the output itself.  dtype 0 = fp32, 1 = bf16.
-//   route 0 = the CUDA-core kernel (either dtype), 1 = the tensor-core one
-//   (bf16 only; the streamed kernel for D > 256), 2 = the fp32 forward or
-//   d_regions with packed words (fp32 only, R <= 256, D <= 1024; the wide
-//   kernels for D > 256);
-//   d_words always runs on the CUDA cores.  vb is the captions
-//   per block of the CUDA-core kernels; rows is the word rows per pass, Mp,
-//   of the tensor-core forward and d_regions (route 1) and of the fp32
-//   forward and d_regions (route 2), whose blocks are (image, split) for
-//   nsplit splits.
+//   nsplit == 1 it may be the output itself.  plan is [Bc + 2] int32 scratch
+//   for the tensor-core d_words' passes (unused elsewhere).  dtype 0 = fp32,
+//   1 = bf16.  route 0 = the CUDA-core kernel (either dtype), 1 = the
+//   tensor-core one (bf16 only; the forward's and d_regions' streamed kernel
+//   for D > 256), 2 = the fp32 forward or d_regions with packed words (fp32
+//   only, R <= 256, D <= 1024; the wide kernels for D > 256).  vb is the
+//   captions per block of the CUDA-core kernels; rows is the word rows per
+//   pass, Mp, of the tensor-core kernels (route 1) and of the fp32 forward
+//   and d_regions (route 2), whose blocks are (image, split) for nsplit
+//   splits, the tensor-core d_words' (pass, split).
 //   Each is ignored where the other applies.
-//   Returns cudaGetLastError() after the launches (0 = success).
+//   Returns cudaGetLastError() after the launches (0 = success).  Built with
+//   -DXMC_DAMSM_PART=1, 2 or 3, only the first, second or third of them.
 //   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels and the fp32
 //   forward and d_regions also count their cycles per phase: int
 //   xmc_damsm_phases_read(host [22] uint64),
@@ -2082,6 +2125,327 @@ int launch_dr_tc(const void* r, const void* w, const uint8_t* mask, const float*
 }
 
 // ---------------------------------------------------------------------------
+// bf16 d_words on the tensor cores, R <= 256, D <= 1024, the regions streamed
+// (header: "The bf16 d_words").
+// ---------------------------------------------------------------------------
+
+constexpr int TCD_ROWS_256 = 64;   // word rows per pass at D <= 256
+constexpr int TCD_ROWS_768 = 32;   // at 256 < D <= 768
+constexpr int TCD_ROWS_1024 = 16;  // at 768 < D <= 1024
+constexpr int TCD_QREG = 2;        // at 256 < D <= 768: region chunks of d_w held in registers
+
+// The rows per pass the d_words takes at d.D (by the region chunks its
+// context takes: 4, 12 or 16).
+inline int tcd_rows(const TcDims& d) {
+  const int nq = (d.Dp + TCS_KC - 1) / TCS_KC;
+  return nq <= 4 ? TCD_ROWS_256 : nq <= 12 ? TCD_ROWS_768 : TCD_ROWS_1024;
+}
+
+bool tcd_dims_ok(const TcDims& d) {
+  return d.B > 0 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.D > 0 && d.R <= TC_MAX_RD &&
+         d.D <= TCS_MAX_D && d.Mp == tcd_rows(d) && d.T <= d.Mp;
+}
+
+// Row stride (fp32) of the shared part of d_w: the columns past the first
+// qreg region chunks, + 8 so that a warp's 8-byte accesses (8 rows x 4
+// column pairs) take the two wavefronts 256 bytes need.
+__host__ __device__ inline int tcd_swd(const TcDims& d, int qreg) {
+  const int nq = (d.Dp + TCS_KC - 1) / TCS_KC;
+  return nq > qreg ? (nq - qreg) * TCS_KC + 8 : 0;
+}
+
+// Words W [Mp][SD]; one bf16 tile of Mp rows and max(SR, TCS_SK) columns
+// that holds in turn a (P, stride SR), a chunk of d_c (DC, stride TCS_SK)
+// and d_sim (DS, stride SR); the two region chunk buffers Rs [2][Rp][TCS_SK];
+// the shared part of d_w [Mp][tcd_swd] (fp32); rel, drel, red and the row map
+// as tcs_carve's.
+size_t tcd_smem_bytes(const TcDims& d, int qreg) {
+  const size_t sp = d.SR > TCS_SK ? d.SR : TCS_SK;
+  return 2 * size_t(d.Mp) * (d.SD + sp) + 2 * 2 * size_t(d.Rp) * TCS_SK +
+         4 * size_t(d.Mp) * tcd_swd(d, qreg) + 4 * (size_t(15) * d.Mp + 4);
+}
+
+__device__ TcSmem tcd_carve(unsigned char* base, const TcDims& d, int qreg, float*& dw) {
+  TcSmem s;
+  s.W = reinterpret_cast<__nv_bfloat16*>(base);
+  s.P = s.DC = s.DS = s.W + d.Mp * d.SD;
+  s.Rs = s.P + d.Mp * max(d.SR, TCS_SK);
+  s.stage = nullptr;
+  dw = reinterpret_cast<float*>(s.Rs + 2 * d.Rp * TCS_SK);
+  s.rel = dw + d.Mp * tcd_swd(d, qreg);
+  s.drel = s.rel + d.Mp;
+  s.red = s.drel + d.Mp;
+  s.row_t = reinterpret_cast<int*>(s.red + kWarps * d.Mp);
+  s.row_c = s.row_t + d.Mp;
+  s.cap_j = s.row_c + d.Mp;
+  s.cap_base = s.cap_j + d.Mp;
+  s.cap_n = s.cap_base + d.Mp;
+  s.info = s.cap_n + d.Mp;
+  return s;
+}
+
+// The d_words' passes: each caption's real words counted (a thread a
+// caption), then thread 0 cuts the captions, in order, where tc_pack_pass
+// would: plan[0] = passes, plan[1 + p] = the first caption of pass p,
+// plan[1 + passes] = Bc.  Captions whose words all fit in one pass of Mp
+// rows; one pass of no row where no caption has a word.
+__global__ void __launch_bounds__(kThreads)
+damsm_dw_passes_kernel(const uint8_t* __restrict__ mask, int* __restrict__ plan, TcDims d) {
+  constexpr int kChunk = 4 * kThreads;
+  __shared__ int cnt[kChunk];
+  int rows = 0, passes = 1;  // thread 0's
+  for (int j0 = 0; j0 < d.Bc; j0 += kChunk) {
+    const int n = min(kChunk, d.Bc - j0);
+    __syncthreads();
+    for (int c = threadIdx.x; c < n; c += kThreads) {
+      const uint8_t* mj = mask + size_t(j0 + c) * d.T;
+      int k = 0;
+      for (int t = 0; t < d.T; ++t) k += mj[t] == 0;
+      cnt[c] = k;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int c = 0; c < n; ++c) {
+        if (rows + cnt[c] > d.Mp) {
+          plan[1 + passes++] = j0 + c;
+          rows = 0;
+        }
+        rows += cnt[c];
+      }
+  }
+  if (threadIdx.x == 0) {
+    plan[0] = passes;
+    plan[1] = 0;
+    plan[1 + passes] = d.Bc;
+  }
+}
+
+// d a += d_c R^T over the region chunks (the warp's n-tiles nt0 .. nt0+ntw-1
+// of Rp), d_c given as bf16 pairs in the context's layout (dc[mt][q][h]: rows
+// mt*16 + g + 8h, columns 2q', 2q'+1 of n-tile q * 8 + warp): at chunk q each
+// warp writes its n-tile into DC before the chunk's barrier, and all read
+// the chunk's 64 columns after it.  Ends after a barrier.
+template <int MT, int NQ>
+__device__ void tcd_rows_by_regions(float (&acc)[MT][4][4], const uint32_t (&dc)[MT][NQ][2],
+                                    const __nv_bfloat16* __restrict__ ri, int nt0, int ntw,
+                                    const TcDims& d, const TcSmem& s TC_PHASE_ARGS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
+  const int nq = (d.Dp + TCS_KC - 1) / TCS_KC, nD = d.Dp / 8;
+  tcs_load_chunk(s.Rs, ri, 0, d);
+  cp_async_commit();
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    if (q >= nq) break;
+    if (q * 8 + warp < nD)  // the previous chunk's barrier: nobody reads DC now
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(s.DC + (mt * 16 + (lane >> 2) + 8 * h) * TCS_SK +
+                                       warp * 8 + q2) = dc[mt][q][h];
+    const __nv_bfloat16* Rc = tcs_next_chunk<19>(ri, q, nq, d, s TC_PHASE_PASS);
+    const int kn = min(TCS_KC, d.Dp - q * TCS_KC);
+    for (int kk = 0; kk < kn; kk += 16) {
+      uint32_t a[MT][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(a[mt], s.DC + (mt * 16 + (lane & 15)) * TCS_SK + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < ntw)
+          ldsm_x2(b[j], Rc + ((nt0 + j) * 8 + (lane & 7)) * TCS_SK + kk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < ntw)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a[mt], b[j][0], b[j][1]);
+    }
+    __syncthreads();
+  }
+  TC_PHASE(19);
+}
+
+// d_words, bf16 operands: block (pass p of plan, split of the images).  The
+// pass's real words (tc_pack_pass) stay in W for all of the split's images;
+// per image the chain to rel with the regions streamed (tcs_attend), d rel,
+// d_c, d a = rnd(d_c R^T), d_sim, and d_w += d rel rnd(c_hat) + rnd(d_sim) R,
+// d_w fp32 on chip (QREG region chunks in registers, the rest in DW) until
+// one store of the pass's rows into partial[split] (its padded slots: 0).
+template <int MT, int NQ, int QREG>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_bwd_dw_tcs_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ w,
+                        const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                        const int* __restrict__ plan, float* __restrict__ partial, TcDims d,
+                        int nsplit) {
+  const int p = blockIdx.x, split = blockIdx.y;
+  if (p >= plan[0]) return;  // the grid has a block for every caption
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  float* DW;
+  const TcSmem s = tcd_carve(tc_smem_raw, d, QREG, DW);
+  TC_PHASE_INIT
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q2 = 2 * (lane & 3);
+  const int c0 = plan[1 + p], c1 = plan[2 + p];
+  const int per = (d.B + nsplit - 1) / nsplit;
+  const int i0 = min(d.B, split * per), i1 = min(d.B, i0 + per);
+  float* out = partial + size_t(split) * d.Bc * d.T * d.D;
+  // a warp's columns: adjacent n-tiles (8 wide) of Rp; n-tile q * 8 + warp of
+  // Dp in chunk q (valid while below nD), whose d_w it owns
+  const int nR = d.Rp / 8, nD = d.Dp / 8, nq = (d.Dp + TCS_KC - 1) / TCS_KC;
+  const int twR = (nR + kWarps - 1) / kWarps;
+  const int ntR0 = warp * twR, ntwR = max(0, min(twR, nR - ntR0));
+  const int swd = tcd_swd(d, QREG);
+  float dwr[MT][QREG > 0 ? QREG : 1][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int q = 0; q < (QREG > 0 ? QREG : 1); ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dwr[mt][q][e] = 0.f;
+  for (int e = threadIdx.x; e < d.Mp * swd; e += kThreads) DW[e] = 0.f;
+  // d_w[row][n-tile q * 8 + warp, columns q2 + e] += x[e]: registers or DW
+  auto add_dw = [&](int mt, int q, int h, float x0, float x1) {
+    if (q < QREG) {
+      dwr[mt][q < QREG ? q : 0][2 * h] += x0;
+      dwr[mt][q < QREG ? q : 0][2 * h + 1] += x1;
+    } else {
+      float2* o = reinterpret_cast<float2*>(DW + (mt * 16 + (lane >> 2) + 8 * h) * swd +
+                                            (q - QREG) * TCS_KC + warp * 8 + q2);
+      const float2 v = *o;
+      *o = make_float2(v.x + x0, v.y + x1);
+    }
+  };
+  int j = c0;
+  const int rows = tc_next_pass(w, mask, j, c1, d, s TC_PHASE_PASS);
+  const int ncap = s.info[1];
+  for (int i = rows > 0 ? i0 : i1; i < i1; ++i) {
+    const __nv_bfloat16* ri = r + size_t(i) * d.R * d.D;
+    float a[MT][4][4], c[MT][NQ][4], inrm[MT][2], v[MT][2];
+    tcs_attend<MT, NQ>(a, c, inrm, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
+
+    tc_drel(g, i, rows, ncap, d, s);
+    __syncthreads();
+    TC_PHASE(4);
+
+    // d c_hat = rnd(d rel w); <c_hat, d c_hat> per row
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        const float dr = s.drel[row];
+        v[mt][h] = 0.f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (q >= nq || q * 8 + warp >= nD) continue;
+          const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              s.W + row * d.SD + (q * 8 + warp) * 8 + q2));
+          v[mt][h] = fmaf(c[mt][q][2 * h], rnd<true>(dr * wv.x),
+                          fmaf(c[mt][q][2 * h + 1], rnd<true>(dr * wv.y), v[mt][h]));
+        }
+      }
+    tc_rows<MT, false>(v, s.red, d.Mp);
+    // d_w += d rel rnd(c_hat); d_c = (d c_hat - c_hat <c_hat, d c_hat>) / nrm, as bf16
+    // pairs in the context's layout
+    uint32_t dc[MT][NQ][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + (lane >> 2) + 8 * h;
+        const float dr = s.drel[row];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          dc[mt][q][h] = 0u;
+          if (q >= nq || q * 8 + warp >= nD) continue;
+          const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              s.W + row * d.SD + (q * 8 + warp) * 8 + q2));
+          const float x0 = c[mt][q][2 * h], x1 = c[mt][q][2 * h + 1];
+          add_dw(mt, q, h, dr * rnd<true>(x0), dr * rnd<true>(x1));
+          dc[mt][q][h] = pack_bf16((rnd<true>(dr * wv.x) - x0 * v[mt][h]) * inrm[mt][h],
+                                   (rnd<true>(dr * wv.y) - x1 * v[mt][h]) * inrm[mt][h]);
+        }
+      }
+    TC_PHASE(18);
+
+    // d a = rnd(d_c R^T); d_sim = g1 a (d a - sum_R a d a); DS = rnd(d_sim)
+    float da[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) da[mt][jj][e] = 0.f;
+    tcd_rows_by_regions<MT, NQ>(da, dc, ri, ntR0, ntwR, d, s TC_PHASE_PASS);
+    tc_dsim<MT>(a, da, v, ntR0, ntwR, d, s);
+    __syncthreads();
+    TC_PHASE(20);
+
+    // d_w += DS R (DS where the product reads P), a chunk of columns at a time
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][q][e] = 0.f;
+    tcs_attn_by_regions<MT, NQ>(c, ri, d, s TC_PHASE_PASS);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          if (q < nq && q * 8 + warp < nD) add_dw(mt, q, h, c[mt][q][2 * h], c[mt][q][2 * h + 1]);
+    TC_PHASE(11);
+    TC_PHASE_COUNT(TC_PASSES);
+  }
+  __syncthreads();  // DW whole
+
+  // the pass's rows of partial[split]: d_w, each element stored once
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + (lane >> 2) + 8 * h;
+      if (row >= rows) continue;
+      float* o = out + (size_t(s.cap_j[s.row_c[row]]) * d.T + s.row_t[row]) * d.D;
+#pragma unroll
+      for (int q = 0; q < QREG; ++q) {
+        const int col = (q * 8 + warp) * 8 + q2;
+        if (q * 8 + warp >= nD) continue;
+        if (col < d.D) o[col] = dwr[mt][q][2 * h];
+        if (col + 1 < d.D) o[col + 1] = dwr[mt][q][2 * h + 1];
+      }
+    }
+  const int ncol = d.D - QREG * TCS_KC;
+  for (int e = threadIdx.x; e < rows * ncol; e += kThreads) {
+    const int m = e / ncol, k = e % ncol;
+    out[(size_t(s.cap_j[s.row_c[m]]) * d.T + s.row_t[m]) * d.D + QREG * TCS_KC + k] =
+        DW[m * swd + k];
+  }
+  // the padded slots of the pass's captions: 0
+  for (int e = warp; e < (c1 - c0) * d.T; e += kWarps) {
+    const size_t slot = size_t(c0) * d.T + e;
+    if (mask[slot] == 0) continue;
+    for (int k = lane; k < d.D; k += 32) out[slot * d.D + k] = 0.f;
+  }
+  TC_PHASE_FLUSH
+}
+
+template <int MT, int NQ, int QREG>
+int launch_dw_tcs(const void* r, const void* w, const uint8_t* mask, const float* g, int* plan,
+                  float* partial, float* dw, const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_bwd_dw_tcs_kernel<MT, NQ, QREG>;
+  const size_t bytes = tcd_smem_bytes(d, QREG);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  damsm_dw_passes_kernel<<<1, kThreads, 0, st>>>(mask, plan, d);
+  k<<<dim3(d.Bc, nsplit), kThreads, bytes, st>>>(static_cast<const __nv_bfloat16*>(r),
+                                                 static_cast<const __nv_bfloat16*>(w), mask, g,
+                                                 plan, partial, d, nsplit);
+  if (partial != dw) launch_sum(partial, dw, 1, nsplit, int64_t(d.Bc) * d.T * d.D, st);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // fp32 d_regions and forward on the CUDA cores at R, D <= 256, the real words
 // packed and the regions streamed (header: "The fp32 d_regions", "The fp32
 // forward").
@@ -3046,6 +3410,11 @@ int launch_dr_f32w(const float* r, const float* w, const uint8_t* mask, const fl
 
 }  // namespace
 
+// XMC_DAMSM_PART splits the build into three nvcc jobs that run side by side
+// (ops/cuda/damsm_score.py: KERNEL, DR_KERNEL, DW_KERNEL): 1 compiles the
+// forward's entry point and the kernels it launches, 2 the d_regions', 3 the
+// d_words'.  Undefined: all three.
+#if !defined(XMC_DAMSM_PART) || XMC_DAMSM_PART == 1
 extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, void* out,
                              int B, int Bc, int R, int T, int D, int vb, int rows, int nsplit,
                              float g1, float g2, int dtype, int route, void* stream) {
@@ -3080,7 +3449,9 @@ extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, voi
   if (route != 0 || !dims_ok(d)) return int(cudaErrorInvalidValue);
   XMC_DAMSM_DISPATCH(launch_fwd, r, w, m, o, d, st);
 }
+#endif
 
+#if !defined(XMC_DAMSM_PART) || XMC_DAMSM_PART == 2
 extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, const void* g,
                                 void* partial, void* dr, int B, int Bc, int R, int T, int D,
                                 int vb, int rows, int nsplit, float g1, float g2, int dtype,
@@ -3121,20 +3492,35 @@ extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, 
   if (route != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
   XMC_DAMSM_DISPATCH(launch_dr, r, w, m, gg, p, o, d, nsplit, st);
 }
+#endif
 
+#if !defined(XMC_DAMSM_PART) || XMC_DAMSM_PART == 3
 extern "C" int xmc_damsm_bwd_dw(const void* r, const void* w, const void* mask, const void* g,
-                                void* partial, void* dw, int B, int Bc, int R, int T, int D,
-                                int vb, int nsplit, float g1, float g2, int dtype,
-                                void* stream) {
-  const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
-  if (!dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
+                                void* plan, void* partial, void* dw, int B, int Bc, int R, int T,
+                                int D, int vb, int rows, int nsplit, float g1, float g2,
+                                int dtype, int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* gg = static_cast<const float*>(g);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(dw);
+  if (route == 1) {  // the tensor-core kernel (bf16), in passes of `rows` word rows
+    const TcDims t = make_tc_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
+    if (dtype != 1 || nsplit < 1 || plan == nullptr || !tcd_dims_ok(t))
+      return int(cudaErrorInvalidValue);
+    int* pl = static_cast<int*>(plan);
+    const int nq = (t.Dp + TCS_KC - 1) / TCS_KC;
+    if (nq <= 4)
+      return launch_dw_tcs<TCD_ROWS_256 / 16, 4, 0>(r, w, m, gg, pl, p, o, t, nsplit, st);
+    if (nq <= 12)
+      return launch_dw_tcs<TCD_ROWS_768 / 16, 12, TCD_QREG>(r, w, m, gg, pl, p, o, t, nsplit, st);
+    return launch_dw_tcs<TCD_ROWS_1024 / 16, 16, 0>(r, w, m, gg, pl, p, o, t, nsplit, st);
+  }
+  const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
+  if (route != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
   XMC_DAMSM_DISPATCH(launch_dw, r, w, m, gg, p, o, d, nsplit, st);
 }
+#endif
 
 #ifdef XMC_DAMSM_PHASES
 extern "C" int xmc_damsm_phases_read(void* host) {

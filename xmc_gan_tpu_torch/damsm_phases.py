@@ -10,8 +10,9 @@ build through its wrapper, at the wrapper's own plan, at the flagship
 word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words, D = 256), and
 of the streamed bf16
 d_regions and forward and the wide fp32 d_regions and forward at the LN-COCO
-word shape (B = Bc = 256, R = 256, T = 200 as the 16-slot sub-captions of
-the packed real words that ``damsm_scores`` hands them, D = 768), and prints
+word shape (B = Bc = 256, R = 256, T = 200 as the sub-captions of the
+packed real words that ``damsm_scores`` hands them, 32 slots in bf16 and 16
+in fp32, D = 768), and prints
 the card, each
 launch's time (CUDA events) and its cycles per pass of each phase, summed
 over blocks.  Phases both bf16 flagship kernels have: pack
@@ -77,7 +78,7 @@ KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
 def phase_library() -> CudaLibrary:
     """``damsm_score.cu`` built with the phase counters, with their two C functions."""
     return CudaLibrary("damsm_score.cu", {
-        **ds.KERNEL.signatures,
+        **{k: v for lib in ds.LIBRARIES for k, v in lib.signatures.items()},
         "xmc_damsm_phases_read": (ctypes.c_int, [ctypes.c_void_p]),
         "xmc_damsm_phases_reset": (ctypes.c_int, []),
     }, flags=("-DXMC_DAMSM_PHASES",))
@@ -112,10 +113,13 @@ def main() -> int:
     ln_w = norm(torch.randn(ln_b, ln_t, ln_d, generator=gen, device="cuda"), dim=-1)
     ln_mask = torch.rand(ln_b, ln_t, generator=gen, device="cuda") > 0.5
     ln_up = torch.randn(ln_b, ln_b, generator=gen, device="cuda")
-    width = ds.sub_caption_width(R, ln_t, ln_d, torch.bfloat16)
-    assert width == ds.sub_caption_width(R, ln_t, ln_d, None)  # both dtypes split alike
-    w_sub, m_sub = ds.split_captions(ln_w, ln_mask, width)
-    g_sub = ln_up.repeat_interleave(w_sub.shape[0] // ln_b, dim=1)
+    # each dtype's own width (``sub_caption_width``: 32 slots in bf16, 16 in fp32)
+    subs = {}
+    for cd in (torch.bfloat16, None):
+        ws, ms = ds.split_captions(ln_w, ln_mask, ds.sub_caption_width(R, ln_t, ln_d, cd))
+        subs[cd] = ws, ms, ln_up.repeat_interleave(ws.shape[0] // ln_b, dim=1)
+    w_sub, m_sub, g_sub = subs[torch.bfloat16]
+    w32, m32, g32 = subs[None]
     launches = {
         "d_regions, fp32": (lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, None,
                                                    library=lib), b, mask, f"T={T}", D),
@@ -132,12 +136,12 @@ def main() -> int:
         "forward, streamed": (lambda: ds._launch_fwd(ln_r, w_sub, m_sub, 4.0, 5.0, torch.bfloat16,
                                                      library=lib), ln_b, ln_mask,
                               f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions", ln_d),
-        "d_regions, fp32 wide": (lambda: ds._launch_bwd("dr", ln_r, w_sub, m_sub, g_sub, 4.0, 5.0,
+        "d_regions, fp32 wide": (lambda: ds._launch_bwd("dr", ln_r, w32, m32, g32, 4.0, 5.0,
                                                         None, library=lib), ln_b, ln_mask,
-                                 f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions", ln_d),
-        "forward, fp32 wide": (lambda: ds._launch_fwd(ln_r, w_sub, m_sub, 4.0, 5.0, None,
+                                 f"T={ln_t} as {tuple(w32.shape[:2])} sub-captions", ln_d),
+        "forward, fp32 wide": (lambda: ds._launch_fwd(ln_r, w32, m32, 4.0, 5.0, None,
                                                       library=lib), ln_b, ln_mask,
-                               f"T={ln_t} as {tuple(w_sub.shape[:2])} sub-captions", ln_d),
+                               f"T={ln_t} as {tuple(w32.shape[:2])} sub-captions", ln_d),
     }
     print(card)
     for kernel, (launch, nb, words, t_desc, d) in launches.items():

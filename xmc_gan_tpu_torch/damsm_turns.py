@@ -1,4 +1,4 @@
-"""The damsm forward and d_regions on the card, one tree or several in turns.
+"""The damsm forward, d_regions and d_words on the card, one tree or several in turns.
 
     python -m xmc_gan_tpu_torch.damsm_turns [--trees DIR ...] [--rounds R] [--iters N]
                                             [--sets NAME ...] [--sass] [--out FILE]
@@ -7,16 +7,19 @@ Each tree is a checkout of this repository (default: this one).  All trees
 build their ``csrc/damsm_score.cu`` at once (one ``nvcc`` each); then, for
 each, a child process whose working directory and first import path is the
 tree times that tree's wrappers (``ops.cuda.damsm_score._launch_fwd`` and
-``_launch_bwd``, the calls ``damsm_scores`` makes), in fp32 and bf16
+``_launch_bwd``, the calls ``damsm_scores`` makes; the d_words, which no
+step launches, as a caller that differentiates the words reaches it), in
+fp32 and bf16
 (``--sets``: "LN fp32", "LN bf16", "flagship fp32", "flagship bf16";
 default all four), on inputs drawn anew for each set from one seed:
 
   * "LN": the LN-COCO word shape (B = Bc = 256, R = 256, T = 200, D = 768),
     drawn as ``chip_smoke.py`` draws it (about half the slots real, the
     padding scattered, caption 1 all padded, caption 2 with 4 words), each
-    caption's real words as the 16-slot sub-captions that ``damsm_scores``
-    hands the kernels, the d_regions with the cotangent its combine hands
-    them;
+    caption's real words as the sub-captions that ``damsm_scores`` hands
+    the kernels (each tree's own ``sub_caption_width``: 32 slots in bf16
+    where the d_words runs on the tensor cores, else 16), the backward
+    kernels with the cotangent its combine hands them;
   * "flagship": the flagship word loss (B = Bc = 128, R = 256, T = 20,
     D = 256, captions of 1 to 20 words), whose fp32 kernels the wide ones
     share device functions with.
@@ -25,8 +28,8 @@ For each it reports ``ms`` (CUDA events around ``--iters`` wrapper calls,
 as ``chip_smoke.py`` phase 7 times them), ``kernel_ms`` (the profiler's
 device time of the damsm kernels of one call, the median of ``--iters``
 calls, each after a 256 MB write that evicts the 50 MB L2), the kernels'
-names, ``bound_ms`` (2 or 5 products of 2 R D operations per real word and
-image over 67 TFLOP/s fp32, 989 bf16) and ``plain_ms`` (the plain version
+names, ``bound_ms`` (2, 5 or 4 products of 2 R D operations per real word
+and image over 67 TFLOP/s fp32, 989 bf16) and ``plain_ms`` (the plain version
 on the whole captions, as phase 7 runs it).  With several trees each round runs them in
 turns, the order reversed every other round (A B, B A, ...), so a drift of
 the card's clocks falls on all alike.
@@ -50,7 +53,8 @@ import re, statistics, torch
 from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 
 torch.backends.cuda.matmul.allow_tf32 = False
-ds.KERNEL.load()
+for lib in getattr(ds, "LIBRARIES", (ds.KERNEL,)):  # one library in older trees
+    lib.load()
 iters = args["iters"]
 flush = torch.empty(2**26, device="cuda")  # 256 MB: more than the L2 holds
 norm = torch.nn.functional.normalize
@@ -103,6 +107,8 @@ for label, (shape, ln, dtype) in args["sets"].items():
                     lambda: ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd, block)),
         "d_regions": (5, lambda: ds._launch_bwd("dr", r, w_sub, m_sub, g_sub, 4.0, 5.0, cd),
                       lambda: ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, cd, block)),
+        "d_words": (4, lambda: ds._launch_bwd("dw", r, w_sub, m_sub, g_sub, 4.0, 5.0, cd),
+                    lambda: ds._plain_vjp("dw", r, w, mask, up, 4.0, 5.0, cd, block)),
     }
     for name, (dots, kern, plain) in calls.items():
         k_ms, names = kernel_ms(kern)
@@ -131,7 +137,8 @@ def main() -> int:
     args = ap.parse_args()
     trees = [t.resolve() for t in args.trees]
     record = Record(trees, args.out)
-    prebuild(trees, "from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds; ds.KERNEL.load()")
+    prebuild(trees, "from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds, build; "
+                    "build.load_all(getattr(ds, 'LIBRARIES', (ds.KERNEL,)))")
     if args.sass:
         record.add("sass", sass(trees, "damsm_score.cu", keep=lambda name: "f32w" not in name))
     sets = {k: v for k, v in SETS.items() if not args.sets or k in args.sets}

@@ -19,19 +19,22 @@ the operands of the three products to bf16 (``r``, ``w``, ``a`` and
 plain version rounds (``d c_hat`` and ``d a``); everything else is fp32.
 
 Routes, one rule per kernel (``route(which, R, D, compute_dtype)``): the
-bf16 forward and d_regions run on the tensor cores (``TENSOR_CORES``; launch
-plans ``plan_fwd`` and ``plan_dr``) if and only if R <= 256 and D <= 1024,
-with the image's regions resident in shared memory at D <= 256 and streamed
-through it in column chunks above.  The tensor-core d_regions also rounds
-``d_c`` and ``d_sim`` to bf16 before their products, as the Pallas kernel
-does (within one bf16 ulp of the largest gradient of the plain version).
+bf16 forward, d_regions and d_words run on the tensor cores
+(``TENSOR_CORES``; launch plans ``plan_fwd``, ``plan_dr`` and ``plan_dw``)
+if and only if R <= 256 and D <= 1024, the forward and d_regions with the
+image's regions resident in shared memory at D <= 256 and streamed through
+it in column chunks above, the d_words streaming them at every D (blocks of
+one pass of packed real words and a split of the images, d_w kept on chip
+across the images).  The tensor-core backward kernels also round ``d_c``
+and ``d_sim`` to bf16 before their products, as the Pallas kernel does
+(within one bf16 ulp of the largest gradient of the plain version).
 The fp32 forward and d_regions at R <= 256, D <= 1024 run on the CUDA cores
 in passes of packed real words with the regions streamed (``PACKED_FP32``,
 plans ``plan_fwd_f32`` and ``plan_dr_f32``): at D <= 256 with the context's
 [rows, D] sums in registers, above it (the wide kernels) a group of 256
-features at a time, never stored.  Everything else (the d_words, the fp32
-and bf16 forward and d_regions at wider R) runs on the CUDA-core kernels
-that take a caption sub-block per block (``plan``), for D <= 1024.
+features at a time, never stored.  Everything else (the fp32 d_words, every
+bf16 kernel at wider R) runs on the CUDA-core kernels that take a caption
+sub-block per block (``plan``), for D <= 1024.
 
 Any T: a block holds at most 64 word rows, so where T does not fit
 ``damsm_scores`` moves each caption's real words to the front, drops the
@@ -53,7 +56,8 @@ Contract of ``damsm_scores`` (a ``torch.autograd.Function``):
   VJP) of each sub-caption; a CUDA tensor launches the kernels or raises.
   No fallback: the route is decided from the shape before any launch.
 * The backward computes only what ``ctx.needs_input_grad`` asks for: in the
-  train step the words carry no gradient, so the d_words kernel never runs.
+  train step the words carry no gradient, so the d_words kernel never runs
+  (its plan still bounds ``sub_caption_width`` on its route).
 * It is not twice differentiable (``once_differentiable``).
 """
 
@@ -75,6 +79,9 @@ __all__ = [
     "TENSOR_CORES",
     "PACKED_FP32",
     "KERNEL",
+    "DR_KERNEL",
+    "DW_KERNEL",
+    "LIBRARIES",
     "FORWARD",
     "D_REGIONS",
     "D_WORDS",
@@ -86,6 +93,7 @@ __all__ = [
     "plan",
     "plan_dr",
     "plan_dr_f32",
+    "plan_dw",
     "plan_fwd",
     "plan_fwd_f32",
     "route",
@@ -100,13 +108,22 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #                   route, stream)
 # int xmc_damsm_bwd_dr(r, w, mask, g, partial, dr, B, Bc, R, T, D, vb, rows, nsplit,
 #                      gamma1, gamma2, dtype, route, stream)
-# int xmc_damsm_bwd_dw(r, w, mask, g, partial, dw, B, Bc, R, T, D, vb, nsplit,
-#                      gamma1, gamma2, dtype, stream)
+# int xmc_damsm_bwd_dw(r, w, mask, g, plan, partial, dw, B, Bc, R, T, D, vb, rows,
+#                      nsplit, gamma1, gamma2, dtype, route, stream)
+# The source builds as three libraries, one nvcc each, side by side: the
+# forward's entry point (``KERNEL``), the d_regions' (``DR_KERNEL``) and the
+# d_words' (``DW_KERNEL``), each with the kernels it launches
+# (``XMC_DAMSM_PART`` in the source).
 KERNEL = CudaLibrary("damsm_score.cu", {
     "xmc_damsm_fwd": (_I, [_P] * 4 + [_I] * 8 + [_F, _F, _I, _I, _P]),
+}, flags=("-DXMC_DAMSM_PART=1",))
+DR_KERNEL = CudaLibrary("damsm_score.cu", {
     "xmc_damsm_bwd_dr": (_I, [_P] * 6 + [_I] * 8 + [_F, _F, _I, _I, _P]),
-    "xmc_damsm_bwd_dw": (_I, [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
-})
+}, flags=("-DXMC_DAMSM_PART=2",))
+DW_KERNEL = CudaLibrary("damsm_score.cu", {
+    "xmc_damsm_bwd_dw": (_I, [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P]),
+}, flags=("-DXMC_DAMSM_PART=3",))
+LIBRARIES = (KERNEL, DR_KERNEL, DW_KERNEL)
 FORWARD = LaunchCount()
 D_REGIONS = LaunchCount()
 D_WORDS = LaunchCount()
@@ -134,6 +151,12 @@ TCS_MAX_D = 1024
 TCS_ROWS = (32, 16)
 TCS_FWD_ROWS = (32,)
 TCS_KC = 64
+# the tensor-core (bf16) d_words (regions streamed at every D): word rows per
+# pass by the D they reach (64 to 256, 32 to 768, 16 to 1024), and the region
+# chunks of d_w it holds in registers from D = 256 to 768 (the rest in shared
+# memory)
+TCD_ROWS = {256: 64, 768: 32, 1024: 16}
+TCD_QREG = 2
 # the fp32 forward and d_regions with packed words and streamed regions: R
 # and D limit (their tiles are 256 wide), row strides of their [rows, 256]
 # tiles and of a column chunk, regions per chunk; word rows per pass of the
@@ -157,9 +180,10 @@ def _round_up(x: int, m: int) -> int:
 
 def route(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     """The route rule, per kernel (``which``: "fwd", "dr" or "dw"):
-    ``TENSOR_CORES`` for the bf16 forward and d_regions if and only if
-    R <= 256 and D <= 1024 (regions resident at D <= 256, streamed above);
-    ``PACKED_FP32`` for the fp32 forward and d_regions if and only if
+    ``TENSOR_CORES`` for the bf16 forward, d_regions and d_words if and
+    only if R <= 256 and D <= 1024 (the forward's and d_regions' regions
+    resident at D <= 256, streamed above; the d_words' streamed at every
+    D); ``PACKED_FP32`` for the fp32 forward and d_regions if and only if
     R <= 256 and D <= 1024 (passes of packed real words, the regions
     streamed; the wide kernels above D = 256); ``CUDA_CORES`` for every
     other launch.  T plays no part: the kernels see sub-captions of
@@ -167,8 +191,7 @@ def route(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     ``sub_caption_width`` all read it."""
     if which not in ("fwd", "dr", "dw"):
         raise ValueError(f"which must be 'fwd', 'dr' or 'dw', got {which!r}")
-    if (compute_dtype == torch.bfloat16 and which != "dw" and R <= TC_MAX_RD
-            and D <= TCS_MAX_D):
+    if compute_dtype == torch.bfloat16 and R <= TC_MAX_RD and D <= TCS_MAX_D:
         return TENSOR_CORES
     if (which != "dw" and compute_dtype != torch.bfloat16 and R <= F32_MAX_RD
             and D <= F32W_MAX_D):
@@ -211,11 +234,12 @@ def plan(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
 class TcPlan(NamedTuple):
     """Launch plan of a kernel whose blocks are (image, split): the bf16
     tensor-core forward or d_regions, or the packed fp32 forward or
-    d_regions."""
+    d_regions; or of the bf16 tensor-core d_words, whose blocks are (pass,
+    split) and whose splits are of the images (``plan_dw``)."""
 
     rows: int      # word rows per pass, at least T (bf16: a multiple of 16)
-    nsplit: int    # caption splits: blocks are (image, split)
-    captions: int  # captions per block (one split)
+    nsplit: int    # caption splits: blocks are (image, split); d_words: image splits
+    captions: int  # captions per block (one split); d_words: images per split
     smem: int      # dynamic shared memory bytes
 
 
@@ -285,6 +309,29 @@ def _f32w_smem(D: int, rows: int) -> int:
     return 4 * (rows * (sw + F32_S) + 2 * F32_MAX_RD * F32_SC + 11 * rows + 4)
 
 
+def _tcd_class(D: int) -> int:
+    """The D limit of the tensor-core d_words' row choice that takes D
+    (``TCD_ROWS``: by the region chunks its context takes, 4, 12 or 16);
+    above D = 1024 the last, whose plan then refuses D."""
+    return next((limit for limit in TCD_ROWS if _round_up(D, 16) <= limit), TCS_MAX_D)
+
+
+def _tcd_smem(R: int, D: int, rows: int) -> int:
+    """The bf16 d_words kernel's shared memory, as ``csrc/damsm_score.cu``
+    computes it (``tcd_smem_bytes``): the pass's words ``[rows, Dp + 8]``
+    bf16, one bf16 tile ``[rows, max(Rp + 8, TCS_KC + 8)]`` (a, a chunk of
+    d_c, d_sim in turn), the two region chunk buffers ``[2, Rp, TCS_KC + 8]``
+    bf16, d_w's columns past its ``TCD_QREG`` register chunks (from D =
+    256 to 768) ``[rows, SWD]`` fp32, SWD = those chunks' columns + 8, and
+    15 fp32/int words per row."""
+    rp, dp = _round_up(R, 16), _round_up(D, 16)
+    nq = -(-dp // TCS_KC)
+    qreg = TCD_QREG if _tcd_class(D) == 768 else 0
+    swd = (nq - qreg) * TCS_KC + 8
+    return (2 * rows * (dp + 8 + max(rp + 8, TCS_KC + 8)) + 2 * 2 * rp * (TCS_KC + 8)
+            + 4 * rows * swd + 4 * (15 * rows + 4))
+
+
 class PackedKernel(NamedTuple):
     """One kernel of the packed routes (``TENSOR_CORES``, ``PACKED_FP32``):
     its shared memory for a number of rows per pass, the rows per pass it
@@ -332,8 +379,12 @@ _TC_KERNELS = {
 
 
 def _tc_kernel(which: str, R: int, D: int) -> PackedKernel:
-    """The bf16 tensor-core kernel (``which``: "fwd" or "dr") that takes R,
-    D (``_TC_KERNELS``)."""
+    """The bf16 tensor-core kernel (``which``: "fwd", "dr" or "dw") that
+    takes R, D (``_TC_KERNELS``; the d_words: one kernel, its rows by D,
+    ``TCD_ROWS``)."""
+    if which == "dw":
+        return PackedKernel(lambda m: _tcd_smem(R, D, m), (TCD_ROWS[_tcd_class(D)],),
+                            TCS_MAX_D, "damsm_bwd_dw_tcs_kernel<")
     smem, rows, max_d, name = _TC_KERNELS[(which, D > TC_MAX_RD)]
     return PackedKernel(lambda m: smem(R, D, m), rows, max_d, name)
 
@@ -346,6 +397,20 @@ def plan_fwd(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
 def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     """The bf16 tensor-core d_regions kernel's plan (``_tc_kernel``)."""
     return _plan_tc("bf16 d_regions", R, T, D, b, bc, sms, _tc_kernel("dr", R, D))
+
+
+def plan_dw(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
+    """The bf16 tensor-core d_words kernel's plan (``_tc_kernel``): rows
+    per pass by D (64 to D = 256, 32 to 768, 16 to 1024).  Its blocks are
+    (pass, split of the b images); the passes depend on the mask, so the
+    splits fill the card's ``sms`` once from the passes as if every one of
+    the bc * T slots held a word: ``ceil(sms / ceil(bc * T / rows))``, at
+    most b.  ``captions`` is the images per split.  Raises for T above the
+    rows, R > 256 or D > 1024."""
+    rows, _, _, smem = _plan_tc("bf16 d_words", R, T, D, b, bc, sms, _tc_kernel("dw", R, D))
+    passes = -(-bc * T // rows)
+    nsplit = max(1, min(b, -(-sms // passes)))
+    return TcPlan(rows, nsplit, -(-b // nsplit), smem)
 
 
 def _f32_kernel(which: str, D: int) -> PackedKernel:
@@ -381,10 +446,10 @@ def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -
     """The start of the name under which a profiler trace shows the kernel
     that ``which`` ("fwd", "dr" or "dw") launches at R, D and compute dtype
     (``route``): on the tensor cores with the regions resident
-    (``_tc_kernel<``) or streamed (``_tcs_kernel<``), the fp32 forward and
-    d_regions with packed words (``_f32_kernel<``; ``_f32w_kernel<`` at
-    D > 256), else on the CUDA cores (templated on the operand type, except
-    the forward's kernels)."""
+    (``_tc_kernel<``) or streamed (``_tcs_kernel<``; the d_words at every
+    D), the fp32 forward and d_regions with packed words (``_f32_kernel<``;
+    ``_f32w_kernel<`` at D > 256), else on the CUDA cores (templated on the
+    operand type, except the forward's kernels)."""
     rt = route(which, R, D, compute_dtype)
     if rt == TENSOR_CORES:
         return _tc_kernel(which, R, D).name
@@ -399,21 +464,24 @@ def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -
 def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None) -> int:
     """Word slots per sub-caption: T where every kernel of the route holds
     one caption of T slots, else the largest width they all hold (at most
-    64).  The d_words, on the CUDA cores on every route, and the CUDA-core
-    backward hold fewer rows than the CUDA-core forward; the bf16 forward
-    and d_regions must hold it too where ``route`` puts them on the tensor
-    cores, and the fp32 forward and d_regions where they pack their words
-    (64 and 48 rows a pass at D <= 256, 32 or 24 above).  A pure function of
-    the shape: the CPU splits as the card does.  Raises for D > 1024 or where not one word row fits
-    in shared memory."""
+    64).  Where a kernel of the route runs on the CUDA cores (the fp32
+    d_words; every bf16 kernel at R > 256), the CUDA-core backward's rows
+    (``cuda_core_rows``), fewer than the CUDA-core forward's; the bf16
+    kernels' rows where ``route`` puts them on the tensor cores (all three
+    at R <= 256, D <= 1024), and the fp32 forward's and d_regions' where
+    they pack their words (64 and 48 rows a pass at D <= 256, 32 or 24
+    above).  A pure function of the shape: the CPU splits as the card does.
+    Raises for D > 1024 or where not one word row fits in shared memory."""
     if D > MAX_DP:
         raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
-    width = cuda_core_rows(R, D, backward=True)
-    if route("fwd", R, D, compute_dtype) == TENSOR_CORES:
-        width = min(width, _tc_rows(*_tc_kernel("fwd", R, D)[:2]))
-    if route("dr", R, D, compute_dtype) == TENSOR_CORES:
-        width = min(width, _tc_rows(*_tc_kernel("dr", R, D)[:2]))
-    if route("dr", R, D, compute_dtype) == PACKED_FP32:  # the forward packs under the same rule
+    routes = {which: route(which, R, D, compute_dtype) for which in ("fwd", "dr", "dw")}
+    width = MAX_ROWS
+    if CUDA_CORES in routes.values():
+        width = cuda_core_rows(R, D, backward=True)
+    for which, rt in routes.items():
+        if rt == TENSOR_CORES:
+            width = min(width, _tc_rows(*_tc_kernel(which, R, D)[:2]))
+    if routes["dr"] == PACKED_FP32:  # the forward packs under the same rule
         width = min(width, _tc_rows(*_f32_kernel("fwd", D)[:2]),
                     _tc_rows(*_f32_kernel("dr", D)[:2]))
     if width < 1:
@@ -571,37 +639,40 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
 def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
                 library: CudaLibrary | None = None) -> torch.Tensor:
     """One backward launch; ``library`` is the compiled source to launch
-    (``KERNEL`` unless given, as ``damsm_phases`` gives its own build)."""
+    (``DR_KERNEL`` for the d_regions, ``DW_KERNEL`` for the d_words, unless
+    given, as ``damsm_phases`` gives its own build)."""
     rr, ww, mm, code = _operands(r, w, mask, cd)
     b, R, D = r.shape
     bc, T, _ = w.shape
     g = g.float().contiguous()
     rt = route(which, R, D, cd)
-    if rt == TENSOR_CORES:  # d_regions in passes of `rows` word rows
-        vb, (rows, nsplit) = 0, plan_dr(R, T, D, b, bc, _sms(r.device))[:2]
+    if rt == TENSOR_CORES:  # passes of `rows` word rows
+        planner = plan_dr if which == "dr" else plan_dw
+        vb, (rows, nsplit) = 0, planner(R, T, D, b, bc, _sms(r.device))[:2]
     elif rt == PACKED_FP32:
         vb, (rows, nsplit) = 0, plan_dr_f32(R, T, D, b, bc, _sms(r.device))[:2]
     else:
         vb, rows = plan(R, T, D, True, bc)[0], 0
         nsub = -(-bc // vb)
         nsplit = _nsplit(r.device, b, nsub) if which == "dr" else _nsplit(r.device, nsub, b)
-    lib = (library or KERNEL).load()
+    lib = (library or (DR_KERNEL if which == "dr" else DW_KERNEL)).load()
     if which == "dr":  # blocks: (image, split); a split owns a run of captions
         out = torch.empty(b, R, D, device=r.device, dtype=torch.float32)
         partial = out if nsplit == 1 else torch.empty(
             b, nsplit, R, D, device=r.device, dtype=torch.float32)
-        fn, counter, plans = lib.xmc_damsm_bwd_dr, D_REGIONS, (vb, rows)
-        route_arg = (_ROUTE_CODE[rt],)
-    else:  # blocks: (caption block, split); a split owns a run of images
+        fn, counter, scratch = lib.xmc_damsm_bwd_dr, D_REGIONS, ()
+    else:  # blocks: (caption block or pass, split); a split owns a run of images
         out = torch.empty(bc, T, D, device=r.device, dtype=torch.float32)
         partial = out if nsplit == 1 else torch.empty(
             nsplit, bc, T, D, device=r.device, dtype=torch.float32)
-        fn, counter, plans = lib.xmc_damsm_bwd_dw, D_WORDS, (vb,)
-        route_arg = ()
+        plan_buf = torch.empty(bc + 2, device=r.device, dtype=torch.int32) \
+            if rt == TENSOR_CORES else None  # the passes, cut on the card
+        fn, counter = lib.xmc_damsm_bwd_dw, D_WORDS
+        scratch = (plan_buf.data_ptr() if plan_buf is not None else None,)
     with torch.cuda.device(r.device):
-        rc = fn(rr.data_ptr(), ww.data_ptr(), mm.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), b, bc, R, T, D, *plans, nsplit, gamma1, gamma2, code,
-                *route_arg, _stream(r))
+        rc = fn(rr.data_ptr(), ww.data_ptr(), mm.data_ptr(), g.data_ptr(), *scratch,
+                partial.data_ptr(), out.data_ptr(), b, bc, R, T, D, vb, rows, nsplit, gamma1,
+                gamma2, code, _ROUTE_CODE[rt], _stream(r))
     _raise_on(rc, "d_regions" if which == "dr" else "d_words")
     counter.launches += 1
     return out
