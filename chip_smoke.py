@@ -26,26 +26,27 @@ Phases (any failure raises, and the exit code is then non-zero):
    (``DAMSM_EDGES``), compute dtype fp32 and bf16, through ``damsm_scores``
    (captions longer than a kernel of the route takes as sub-captions), each
    launch's kernel the one the route rule names; fp32 also at its own edges
-   (``DAMSM_F32_EDGES``: D = 42; T = 64 as two 48-slot sub-captions, the
-   packed d_regions' rows; T = 64 unsplit at R = 300; R = 300 at D = 768,
-   the CUDA-core kernels' 256-column chunks); the bf16
+   (``DAMSM_F32_EDGES``: D = 42; T = 64 as four 16-slot sub-captions, half
+   the packed d_words' 32 rows; T = 64 unsplit at R = 300; R = 300 at
+   D = 768, the CUDA-core kernels' 256-column chunks); the bf16
    forward, d_regions and d_words, which run on the tensor cores
    (``mma.sync``; the d_words with the regions streamed at every D), and
-   the fp32 forward and d_regions (CUDA cores, packed real words, regions
-   streamed; the fp32 d_words on the CUDA cores), also
+   the fp32 forward, d_regions and d_words (CUDA cores, packed real words,
+   regions streamed), also
    twice bit-equal, the forwards' all-padded caption scoring exactly the
-   plain value, the d_regions unmoved by its cotangent and its d_words
-   exactly 0; the three
+   plain value, the d_regions unmoved by its cotangent and the d_words of
+   it and of every padded slot exactly 0; the three
    ``damsm_score`` kernels at the LN-COCO word shape (B = Bc = 256, R = 256,
    T = 200, D = 768: each caption's real words packed into sub-captions of
-   32 slots in bf16, 16 in fp32 (``LN_WIDTH``), as many as the longest
-   caption needs) in fp32 and
+   16 slots in bf16, 8 in fp32 (``LN_WIDTH``: half the least rows a pass
+   of the route's kernels), as many as the longest caption needs) in fp32
+   and
    bf16, and in fp32 at the fp32 step's B = Bc = 128 (``LN_CHECKS``), through ``damsm_scores`` against the plain version on the whole
    captions, with an all-padded caption (its score bit-equal to the plain
    value, no d_words), two runs bit-equal, and the profiler's kernel names
    showing each kernel's route (at D = 768 the bf16 kernels on the tensor
    cores with the regions streamed, the fp32 forward and d_regions on the
-   wide packed kernels, the fp32 d_words on the CUDA cores), the all-padded
+   wide packed kernels, the fp32 d_words on its packed kernel), the all-padded
    caption's cotangent moving no d_regions; the three kernels above
    D = 256 also at their edges in both dtypes (``DAMSM_STREAMED``: D = 520,
    770 and 1024, through ``damsm_scores``; bf16 streamed, fp32 wide)
@@ -268,7 +269,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    LN-COCO bf16 step's 14 inputs (each shape alone); the damsm kernels at
    the flagship and at the word shape of each LN step (``LN_STEP_SHAPES``:
    fp32 at batch 128, bf16 at 256; 2 timed launches there; their launches
-   those of that step; the flagship rows also with a data-parallel rank
+   those of that step; the fp32 d_words also at 256, ``LN_TIMED``; the
+   flagship rows also with a data-parallel rank
    step's launches, phase 6g, and the row blocks' errors, phase 3; the LN
    bf16 rows with a tensor-parallel rank step's, phase 6h(b), and the
    column block's errors, phase 3); the single form's backward at the 40 inputs of one
@@ -520,9 +522,10 @@ DAMSM_EDGES = [((132, 7, 64, 7, 40), True, None), ((132, 9, 50, 20, 40), False, 
                ((4, 5, 300, 20, 48), True, None)]
 # (B, Bc, R, T, D), an all-padded caption, longest caption (None: T), caption 0
 # all real words: the fp32 edges.  D = 42, no multiple of 4 (the packed
-# kernels' plain loads, not cp.async; the d_regions' scalar d_r stores); T = 64 with
-# caption 0 whole, so every caption goes as two 48-slot sub-captions
-# (the packed d_regions' rows) combined by logsumexp; T = 64 at R = 300 with
+# kernels' plain loads, not cp.async; the d_regions' and d_words' scalar
+# stores); T = 64 with caption 0 whole, so every caption goes as four
+# 16-slot sub-captions (half the packed d_words' 32 rows) combined by
+# logsumexp; T = 64 at R = 300 with
 # captions of at most 2 words, unsplit: every fp32 kernel on the CUDA cores
 # at 64 rows, whole 16-row tiles without a word; R = 300 at D = 768, where
 # the packed kernels stop and the CUDA-core ones take 256-column chunks
@@ -535,19 +538,19 @@ REGIONS = 256  # DF_DISC's region head, always its 16x16 stage
 # EMBEDDING_DIM 768): B, Bc, R, T, D.  D > 256: the bf16 forward, d_regions
 # and d_words run on the tensor cores with the regions streamed, the fp32
 # forward and d_regions on the wide packed kernels (the context in
-# 256-feature groups), the fp32 d_words on the CUDA cores
+# 256-feature groups), the fp32 d_words on its packed kernel
 DAMSM_LN = (256, 256, REGIONS, 200, 768)
 # the forward, d_regions and d_words at 256 < D <= 1024 by compute dtype, as
-# the profiler names them: bf16 streamed on the tensor cores, fp32 wide
-# packed (the d_words on the CUDA cores)
+# the profiler names them: bf16 streamed on the tensor cores, fp32 packed
+# (the forward and d_regions wide)
 LN_KERNELS = {None: ("damsm_fwd_f32w_kernel<", "damsm_bwd_dr_f32w_kernel<",
-                     "damsm_bwd_dw_kernel<"),
+                     "damsm_bwd_dw_f32_kernel<"),
               torch.bfloat16: ("damsm_fwd_tcs_kernel<", "damsm_bwd_dr_tcs_kernel<",
                                "damsm_bwd_dw_tcs_kernel<")}
 # the sub-captions' slots at the LN word shape by compute dtype
-# (``ds.sub_caption_width``): bf16 the tensor-core kernels' 32 rows a pass,
-# fp32 the CUDA-core d_words' 16
-LN_WIDTH = {None: 16, torch.bfloat16: 32}
+# (``ds.sub_caption_width``): half the least rows a pass of the route's
+# kernels, bf16 the tensor-core kernels' 32, fp32 the packed d_words' 16
+LN_WIDTH = {None: 8, torch.bfloat16: 16}
 # the LN-COCO fp32 step's batch: ln_coco_256.yml's 256 needs ~130 GiB in
 # fp32; 128 takes 72.42 GiB of an H100's 80 GB
 LN_FP32_BATCH = 128
@@ -558,11 +561,17 @@ LN_STEP_SHAPES = {None: (LN_FP32_BATCH, LN_FP32_BATCH, REGIONS, 200, 768),
 # phase 3's LN checks (shape, compute dtype): the LN word shape in both
 # dtypes, and the fp32 step's own
 LN_CHECKS = [(DAMSM_LN, None), (DAMSM_LN, torch.bfloat16), (LN_STEP_SHAPES[None], None)]
+# phase 7's LN rows (compute dtype, word shape, kernels timed): the three
+# kernels at each LN step's word shape, and the fp32 d_words also at 256
+LN_TIMED = [(None, LN_STEP_SHAPES[None], ("forward", "d_regions", "d_words")),
+            (torch.bfloat16, DAMSM_LN, ("forward", "d_regions", "d_words")),
+            (None, DAMSM_LN, ("d_words",))]
 # (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
 # edges at 256 < D <= 1024 of the streamed bf16 forward and d_regions
 # (64-column region chunks, 16 or 32 word rows a pass) and of the wide fp32
 # ones (32-column and 32-row chunks, 256-feature groups, 32 or 24 rows a
-# pass), through ``damsm_scores``: D = 520 (a partial last chunk and group,
+# pass; the fp32 d_words 16, d_w's groups before the last in shared
+# memory), through ``damsm_scores``: D = 520 (a partial last chunk and group,
 # no multiple of 16) with R = 50; D = 770 (rows not 16-byte aligned: plain
 # loads instead of cp.async) with an all-padded caption inside a pass;
 # D = 1024 (bf16 d_regions: 16-row passes; fp32: 24) with captions of at
@@ -1102,22 +1111,26 @@ def check_damsm() -> dict:
                              "moved the gradient")
     log("[3] damsm_score bf16 d_regions (tensor cores): two launches bit-equal; the "
         "all-padded caption's cotangent changes nothing")
-    # the bf16 d_words (tensor cores): two launches bit-equal, the all-padded
-    # caption's d_words and every padded slot's exactly 0, the trace's kernel
-    dws = []
-    kernel = ds.kernel_name("dw", DAMSM_FLAGSHIP[2], DAMSM_FLAGSHIP[4], torch.bfloat16)
-    names = damsm_kernel_names(lambda: dws.append(
-        ds._launch_bwd("dw", r, w, mask, up, 4.0, 5.0, torch.bfloat16)))
-    torch.cuda.synchronize()
-    if not any(kernel in n for n in names):
-        raise AssertionError(f"bf16 d_words at {DAMSM_FLAGSHIP}: no {kernel} among {names}")
-    if not (torch.equal(dws[0], dws[1]) and dws[0][1].abs().max().item() == 0.0
-            and dws[0][mask].abs().max().item() == 0.0):
-        raise AssertionError("bf16 d_words: launches differ, or the all-padded caption or a "
-                             "padded slot got a d_words")
-    log(f"[3] damsm_score bf16 d_words ({kernel}): two launches bit-equal; the all-padded "
-        f"caption's d_words and every padded slot's exactly 0; the trace's kernels {names}")
-    del dws
+    # the d_words (bf16 on the tensor cores, fp32 packed): two launches
+    # bit-equal, the all-padded caption's d_words and every padded slot's
+    # exactly 0, the trace's kernel and no CUDA-core d_words
+    for cd in (torch.bfloat16, None):
+        dws = []
+        kernel = ds.kernel_name("dw", DAMSM_FLAGSHIP[2], DAMSM_FLAGSHIP[4], cd)
+        names = damsm_kernel_names(lambda: dws.append(
+            ds._launch_bwd("dw", r, w, mask, up, 4.0, 5.0, cd)))
+        torch.cuda.synchronize()
+        if not any(kernel in n for n in names) or any("damsm_bwd_dw_kernel<" in n for n in names):
+            raise AssertionError(f"{CD_NAME[cd]} d_words at {DAMSM_FLAGSHIP}: want {kernel} and no "
+                                 f"CUDA-core d_words among {names}")
+        if not (torch.equal(dws[0], dws[1]) and dws[0][1].abs().max().item() == 0.0
+                and dws[0][mask].abs().max().item() == 0.0):
+            raise AssertionError(f"{CD_NAME[cd]} d_words: launches differ, or the all-padded "
+                                 "caption or a padded slot got a d_words")
+        log(f"[3] damsm_score {CD_NAME[cd]} d_words ({kernel}): two launches bit-equal; the "
+            f"all-padded caption's d_words and every padded slot's exactly 0; the trace's "
+            f"kernels {names}")
+        del dws
     # the fp32 d_regions (packed words): the same, the launches its kernel
     runs = []
     kernel = ds.kernel_name("dr", DAMSM_FLAGSHIP[2], DAMSM_FLAGSHIP[4], None)
@@ -1208,7 +1221,7 @@ def check_damsm_ln() -> dict:
     each kernel's route (``LN_KERNELS``: the bf16 kernels on the tensor
     cores with the regions streamed, no bf16 CUDA-core forward; the fp32
     forward and d_regions on the wide packed kernels, the fp32 d_words on
-    the CUDA cores) at the dtype's width (``LN_WIDTH``).  The errors by
+    its packed kernel) at the dtype's width (``LN_WIDTH``).  The errors by
     (shape, compute dtype)."""
     errs = {}
     for shape, cd in LN_CHECKS:
@@ -1273,7 +1286,7 @@ def check_damsm_ln() -> dict:
 def check_damsm_streamed() -> dict:
     """Phase 3, the forward, d_regions and d_words at their edges above
     D = 256 (``DAMSM_STREAMED``) in both compute dtypes (bf16: the streamed
-    tensor-core kernels; fp32: the wide packed ones and the CUDA-core
+    tensor-core kernels; fp32: the wide packed ones and the packed
     d_words), through ``damsm_scores`` as the word loss calls it: scores,
     d_regions and d_words against the plain version on the whole captions
     (the scores summed in fp64) under ``DAMSM_TOL``; the launches are the
@@ -4152,7 +4165,8 @@ def damsm_rows(errs, launches, dp_launches, row_errs) -> list[dict]:
 
 def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
     """Phase 7, damsm_score at the word shape of each dtype's LN-COCO step
-    (``LN_STEP_SHAPES``): each kernel's launch on the sub-captions of real
+    (``LN_STEP_SHAPES``), and the fp32 d_words also at B = Bc = 256
+    (``LN_TIMED``): each kernel's launch on the sub-captions of real
     words (``LN_WIDTH`` slots) that ``damsm_scores`` hands it
     (``split_captions``), with
     the cotangent the combine hands the backward (2 timed launches), against
@@ -4161,7 +4175,7 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
     captions, real words only.  ``launches`` per dtype come from the run
     that ``launches_in`` names, that step's."""
     rows = []
-    for cd, shape in LN_STEP_SHAPES.items():
+    for cd, shape, timed in LN_TIMED:
         gen = torch.Generator(device="cuda").manual_seed(14)
         r, w, mask, up = ln_damsm_inputs(shape, gen)
         b, bc, R, T, D = shape
@@ -4184,14 +4198,17 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
              lambda: ds._launch_bwd("dw", r, w_sub, m_sub, g_sub, 4.0, 5.0, cd),
              lambda: ds._plain_vjp("dw", r, w, mask, up, 4.0, 5.0, cd, LN_PLAIN_BLOCK), "362"),
         )
+        label = "LN" if shape == LN_STEP_SHAPES[cd] else f"LN, B={b}"
         for name, dots, nbytes, kern, ref, line in specs:
+            if name not in timed:
+                continue
             which = {"forward": "fwd", "d_regions": "dr", "d_words": "dw"}[name]
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
             op_ms = 2 * R * D * dots * b * words / rate * 1e3
             ms, plain_ms = cuda_ms(kern, 2), cuda_ms(ref, 2)
             bound = max(byte_ms, op_ms)
             rows.append({
-                "name": f"damsm_score.{name}[{CD_NAME[cd]}, LN]", "route": "cuda",
+                "name": f"damsm_score.{name}[{CD_NAME[cd]}, {label}]", "route": "cuda",
                 "source": "xmc_gan_tpu_torch/csrc/damsm_score.cu",
                 "replaces": f"xmc_gan_tpu/ops/pallas/damsm_score.py:{line}",
                 "launches": launches[cd][f"damsm_score.{name}"], "launches_in": launches_in[cd],

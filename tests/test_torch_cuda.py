@@ -414,7 +414,7 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
     names = _damsm_kernel_names(run)  # runs it twice: one launch of each kernel a run
     assert (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches) == tuple(
         n + 2 for n in before)
-    launched = kernels + (ds.kernel_name("dw", R, D, cd),)  # bf16: tensor cores, fp32: CUDA cores
+    launched = kernels + (ds.kernel_name("dw", R, D, cd),)  # the d_words packed, as its route
     for want in launched:
         assert any(want in n for n in names), (want, names)
     assert not [n for n in names if "_tc" in n and not any(k in n for k in launched)], names
@@ -546,6 +546,61 @@ def test_damsm_tensor_core_d_words_matches_plain_on_card(cuda_device, shape, all
     want = ds._plain_vjp("dw", r, w_sub, m_sub, g, 4.0, 5.0, torch.bfloat16)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=DAMSM_TOL[torch.bfloat16][1] * want.abs().max().item())
+
+
+# (B, Bc, R, T, D), an all-padded caption, longest caption (None: T), LN-drawn
+# mask: the fp32 d_words with packed words (``plan_dw_f32``: 32 word rows a
+# pass at D <= 256, 16 above; the regions streamed; d_w on chip across the
+# images) at the flagship word shape (two image splits); at the LN word
+# shape's 8-slot sub-captions at the fp32 step's batch of 128; at the
+# edges of the wide kernels (``DAMSM_STREAMED``): D = 520 with R = 50 (a
+# partial last chunk and group, d_w's first two groups in shared memory),
+# D = 770 (rows not 16-byte aligned: plain loads, scalar stores), D = 1024
+# with captions of at most 2 words; and D = 42 (one group, plain loads)
+DW_F32_SHAPES = [((128, 128, 256, 20, 256), True, None, False),
+                 ((128, 128, 256, 200, 768), True, None, True),
+                 ((132, 9, 50, 20, 520), True, None, False),
+                 ((132, 7, 64, 7, 770), True, None, False),
+                 ((132, 3, 256, 64, 1024), True, 2, False),
+                 ((132, 6, 40, 11, 42), True, None, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,allpad,max_len,ln", DW_F32_SHAPES, ids=str)
+def test_damsm_fp32_d_words_matches_plain_on_card(cuda_device, shape, allpad, max_len, ln):
+    """The fp32 d_words kernel (``damsm_bwd_dw_f32_kernel``) on the
+    sub-captions ``damsm_scores`` hands it, with each sub-caption's caption
+    cotangent, against the plain version's autograd on the same inputs
+    within ``DAMSM_TOL`` (1e-5 of the largest gradient); the all-padded
+    caption's d_words and every padded slot's exactly 0; two launches
+    bit-equal; the profiler shows the kernel ``kernel_name`` names and no
+    CUDA-core d_words."""
+    b, bc, R, T, D = shape
+    assert ds.route("dw", R, D, None) == ds.PACKED_FP32
+    if ln:
+        r, w, mask, up = _ln_inputs(cuda_device, shape, 21)
+    else:
+        r, w, mask, up = _damsm_inputs(cuda_device, shape, 21, allpad, max_len)
+    w_sub, m_sub = ds.split_captions(w, mask, ds.sub_caption_width(R, T, D, None))
+    k = w_sub.shape[0] // bc
+    g = up.repeat_interleave(k, dim=1)
+    out = {}
+    before = ds.D_WORDS.launches
+    names = _damsm_kernel_names(lambda: out.update(
+        first=ds._launch_bwd("dw", r, w_sub, m_sub, g, 4.0, 5.0, None)))
+    again = ds._launch_bwd("dw", r, w_sub, m_sub, g, 4.0, 5.0, None)
+    torch.cuda.synchronize()
+    assert ds.D_WORDS.launches == before + 3
+    assert "damsm_bwd_dw_f32_kernel<" == ds.kernel_name("dw", R, D, None)
+    assert any("damsm_bwd_dw_f32_kernel<" in n for n in names), names
+    assert not any("damsm_bwd_dw_kernel<" in n for n in names), names
+    got = out["first"]
+    assert torch.equal(got, again)
+    assert got.view(bc, k, *got.shape[1:])[1].abs().max().item() == 0.0
+    assert got[m_sub].abs().max().item() == 0.0
+    want = ds._plain_vjp("dw", r, w_sub, m_sub, g, 4.0, 5.0, None)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=DAMSM_TOL[None][1] * want.abs().max().item())
 
 
 # the fp32 d_regions with packed words: D = 42 (no multiple of 4: plain
@@ -710,10 +765,11 @@ def test_damsm_streamed_forward_is_deterministic_and_scores_padded_captions(cuda
 def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
     """The build with the phase counters (``xmc_gan_tpu_torch/damsm_phases.py``)
     counts every phase of the bf16 tensor-core d_regions and forward
-    (regions resident, and streamed at D = 768) and of the fp32 d_regions
+    (regions resident, and streamed at D = 768), of the fp32 d_regions
     and forward with packed words (at D = 256, and the wide ones at
-    D = 768), and the passes, and nothing outside each kernel's phases, and
-    gives the same d_regions and scores bit for bit."""
+    D = 768) and of the fp32 d_words (at D = 256 and D = 768), and the
+    passes, and nothing outside each kernel's phases, and gives the same
+    d_regions, scores and d_words bit for bit."""
     from xmc_gan_tpu_torch import damsm_phases
 
     r, w, mask, up = _damsm_inputs(cuda_device, (4, 24, 256, 20, 256), 10, allpad=True)
@@ -734,7 +790,11 @@ def test_damsm_phase_counters_count_and_change_nothing(cuda_device):
             ("d_regions, fp32 wide", lambda **kw: ds._launch_bwd("dr", rs, ws, ms, us, 4.0, 5.0,
                                                                  None, **kw)),
             ("forward, fp32 wide", lambda **kw: ds._launch_fwd(rs, ws, ms, 4.0, 5.0, None,
-                                                               **kw))):
+                                                               **kw)),
+            ("d_words, fp32", lambda **kw: ds._launch_bwd("dw", r, w, mask, up, 4.0, 5.0, None,
+                                                          **kw)),
+            ("d_words, fp32 wide", lambda **kw: ds._launch_bwd("dw", rs, ws, ms, us, 4.0, 5.0,
+                                                               None, **kw))):
         want = launch()
         assert lib.load().xmc_damsm_phases_reset() == 0
         got = launch(library=lib)

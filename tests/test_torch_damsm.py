@@ -129,14 +129,17 @@ def _long_problem(b, bc, r, t, d, width, seed):
 
 @pytest.mark.parametrize("cd", [None, torch.bfloat16])
 @pytest.mark.parametrize("dims", [(2, 3, 256, 200, 768), (2, 3, 50, 77, 520),
-                                  (2, 3, 256, 130, 256), (2, 3, 256, 64, 256)], ids=str)
+                                  (2, 3, 256, 130, 256), (2, 3, 256, 64, 256),
+                                  (2, 3, 256, 40, 1024)], ids=str)
 def test_long_captions_match_jax(cd, dims):
-    """Captions longer than a block's rows go through as sub-captions
-    (``sub_caption_width``: 16 at the LN word shape, T = 200, D = 768, in
-    fp32 and 32 in bf16, the tensor-core kernels' rows a pass; a
-    ragged T = 77, D = 520; T = 130 at D = 256, on the tensor cores in
-    bf16; T = 64 at R = D = 256, which fits the forward but not the
-    backward kernels), and the scores and both VJPs match the JAX XLA path and the
+    """Captions longer than a pass of the route's kernels go through as
+    sub-captions of half those rows (``sub_caption_width``: 8 at the LN
+    word shape, T = 200, D = 768, in fp32, the fp32 d_words' 16 rows a pass
+    halved, and 16 in bf16, the tensor-core kernels' 32 halved; a ragged
+    T = 77, D = 520; T = 130 at D = 256; T = 64 at R = D = 256, which fits
+    the forward but not the d_regions or the fp32 d_words; T = 40 at
+    D = 1024, 8 slots in both dtypes), and the scores and both VJPs match
+    the JAX XLA path and the
     Pallas kernel in interpret mode on the whole captions, under ``TOL``.
     The fully padded caption scores exactly the plain version's
     (-1e30 + log T) / gamma2 and gets no gradient; the Pallas backward
@@ -238,8 +241,8 @@ def test_route_rule(which):
     the d_words' streamed at every D); the fp32 forward and d_regions
     packed under the same rule (the flagship's (256, 256), (50, 40) on the
     packed kernels, D > 256 such as (256, 264) on the wide ones; not
-    (300, 48) or (256, 1025)); the fp32 d_words and every other fp32 launch
-    on the CUDA cores."""
+    (300, 48) or (256, 1025)), the fp32 d_words too (one kernel at every
+    D); every launch at R > 256 on the CUDA cores."""
     flagship = [(256, 256), (50, 48), (50, 40), (1, 1)]
     wide = [(256, 768), (16, 264), (256, 264), (256, 1024), (64, 770), (50, 520)]
     never = [(257, 256), (300, 16), (300, 48), (257, 768), (256, 1025)]
@@ -247,7 +250,7 @@ def test_route_rule(which):
         assert ds.route(which, R, D, None) != ds.TENSOR_CORES
         assert ds.route(which, R, D, torch.float32) != ds.TENSOR_CORES
     tc = flagship + wide
-    packed = {"fwd": flagship + wide, "dr": flagship + wide, "dw": []}[which]
+    packed = flagship + wide
     for R, D in flagship + wide + never:
         assert (ds.route(which, R, D, torch.bfloat16) == ds.TENSOR_CORES) == ((R, D) in tc), (R, D)
         for cd in (None, torch.float32, torch.bfloat16):
@@ -265,7 +268,8 @@ def test_route_rule(which):
             elif want == ds.PACKED_FP32:
                 f32 = "f32w" if (R, D) in wide else "f32"
                 assert name == {"fwd": f"damsm_fwd_{f32}_kernel<",
-                                "dr": f"damsm_bwd_dr_{f32}_kernel<"}[which], (R, D, cd, name)
+                                "dr": f"damsm_bwd_dr_{f32}_kernel<",
+                                "dw": "damsm_bwd_dw_f32_kernel<"}[which], (R, D, cd, name)
             else:
                 assert "_tc" not in name and "_f32_" not in name, (which, R, D, cd, name)
     assert ds.kernel_name("dr", 300, 48, None) == "damsm_bwd_dr_kernel<float"
@@ -273,60 +277,65 @@ def test_route_rule(which):
     assert ds.kernel_name("fwd", 256, 264, torch.float32) == "damsm_fwd_f32w_kernel<"
     assert ds.kernel_name("fwd", 256, 1025, torch.float32) == "damsm_fwd_kernel<"
     assert ds.kernel_name("dw", 300, 256, torch.bfloat16) == "damsm_bwd_dw_kernel<"
-    assert ds.kernel_name("dw", 256, 256, None) == "damsm_bwd_dw_kernel<"
+    assert ds.kernel_name("dw", 256, 256, None) == "damsm_bwd_dw_f32_kernel<"
+    assert ds.kernel_name("dw", 300, 256, None) == "damsm_bwd_dw_kernel<"
     with pytest.raises(ValueError, match="which"):
         ds.route("d_regions", 256, 256, torch.bfloat16)
 
 
 @pytest.mark.parametrize("cd", [None, torch.float32, torch.bfloat16])
 def test_sub_caption_width_mirrors_the_plans(cd):
-    """T where every kernel of the route holds a caption (no split: the
-    flagship's T = 20 and the card tests' edge shapes but T = 64 in fp32),
-    else the largest width all of them hold: at the LN word shape 16 in
-    fp32 (the CUDA-core d_words) and 32 in bf16 (the tensor-core kernels'
-    passes, the d_words' too); 32 at R = D = 256 in bf16 (the tensor-core
-    d_regions), 48 in fp32 at R, D <= 256 (the CUDA-core backward there, and
-    the fp32 d_regions' passes of packed words, which take T = 64 only as
-    sub-captions; the fp32 forward's passes hold 64 rows), 32 at D = 520 in
-    both dtypes (bf16: the streamed kernels' passes; fp32: the wide packed
-    kernels'); at D = 1024 9 in fp32 (the CUDA-core backward) and 16 in
-    bf16 (the tensor-core d_regions and d_words).  Each width is a plan the
-    route's kernels take (the CUDA-core ones only where the route has one);
-    D > 1024 and regions too many for one row are refused, naming the
-    limit; nothing depends on the device."""
+    """On the packed routes (R <= 256, D <= 1024) T where T fits the least
+    rows a pass of the route's three kernels (``packed_rows``; no split: the
+    flagship's T = 20 and the card tests' edge shapes, T = 33 at D = 24 in
+    bf16 only), else half of those rows, so that two or more sub-captions
+    share a pass: at the LN word shape 8 in fp32 (the fp32 d_words' 16
+    rows) and 16 in bf16 (the tensor-core kernels' 32, the d_words' too);
+    16 at R = D = 256 in both (bf16: the tensor-core d_regions' 32 rows;
+    fp32: the d_words' 32), T = 64 whole at R = 50, D = 40 in bf16 (64
+    rows), 16 slots in fp32; at D = 520 16 in bf16 (the streamed kernels'
+    32 rows), 8 in fp32; at D = 1024 8 in both (16 rows: the bf16
+    d_regions and d_words, the fp32 d_words).  On the CUDA cores (R > 256)
+    the CUDA-core backward's rows.  Each width is a plan the route's
+    kernels take; D > 1024 and regions too many for one row are refused,
+    naming the limit; nothing depends on the device."""
     bf16 = cd == torch.bfloat16
-    for R, T, D in [(256, 20, 256), (50, 7, 48), (64, 7, 40), (50, 20, 40), (24, 33, 24),
-                    (5, 3, 12)]:
+    for R, T, D in [(256, 20, 256), (50, 7, 48), (64, 7, 40), (50, 20, 40), (5, 3, 12)]:
         assert ds.sub_caption_width(R, T, D, cd) == T
-    assert ds.sub_caption_width(50, 64, 40, cd) == (64 if bf16 else 48)
-    assert ds.sub_caption_width(256, 200, 768, cd) == (32 if bf16 else 16)
-    assert ds.sub_caption_width(50, 77, 520, cd) == 32  # streamed or wide: 32 rows
-    assert ds.sub_caption_width(256, 130, 256, cd) == (32 if bf16 else 48)
-    assert ds.sub_caption_width(256, 64, 256, cd) == (32 if bf16 else 48)
-    assert ds.sub_caption_width(256, 200, 1024, cd) == (16 if bf16 else 9)
+    assert ds.sub_caption_width(24, 33, 24, cd) == (33 if bf16 else 16)
+    assert ds.sub_caption_width(50, 64, 40, cd) == (64 if bf16 else 16)
+    assert ds.sub_caption_width(256, 200, 768, cd) == (16 if bf16 else 8)
+    assert ds.sub_caption_width(50, 77, 520, cd) == (16 if bf16 else 8)
+    assert ds.sub_caption_width(256, 130, 256, cd) == 16
+    assert ds.sub_caption_width(256, 64, 256, cd) == 16
+    assert ds.sub_caption_width(256, 200, 1024, cd) == 8
+    assert ds.sub_caption_width(300, 200, 768, cd) == ds.cuda_core_rows(300, 768, True) == 15
     for R, T, D in [(256, 200, 768), (256, 130, 256), (50, 77, 520), (256, 77, 520),
                     (300, 40, 256), (7, 200, 768), (256, 200, 1024), (50, 64, 40)]:
         width = ds.sub_caption_width(R, T, D, cd)
         assert 1 <= width <= 64 and width <= T
-        if any(ds.route(which, R, D, cd) == ds.CUDA_CORES for which in ("fwd", "dr", "dw")):
+        routes = {ds.route(which, R, D, cd) for which in ("fwd", "dr", "dw")}
+        assert len(routes) == 1  # the three kernels of a call share one route
+        if routes == {ds.CUDA_CORES}:
             for backward in (False, True):
                 assert ds.plan(R, width, D, backward, 4)[0] >= 1
-        if ds.route("dw", R, D, cd) == ds.TENSOR_CORES:
-            assert ds.plan_dw(R, width, D, 4, 4, 132).rows >= width
-        if ds.route("fwd", R, D, cd) == ds.TENSOR_CORES:
-            assert ds.plan_fwd(R, width, D, 4, 4, 132).rows >= width
-        if ds.route("dr", R, D, cd) == ds.TENSOR_CORES:
-            assert ds.plan_dr(R, width, D, 4, 4, 132).rows >= width
-        if ds.route("fwd", R, D, cd) == ds.PACKED_FP32:
-            assert ds.plan_fwd_f32(R, width, D, 4, 4, 132).rows >= width
-        if ds.route("dr", R, D, cd) == ds.PACKED_FP32:
-            assert ds.plan_dr_f32(R, width, D, 4, 4, 132).rows >= width
+            continue
+        rows = ds.packed_rows(R, D, cd)
+        assert width == (T if T <= rows else rows // 2) and rows % 8 == 0
+        plans = (ds.plan_fwd, ds.plan_dr, ds.plan_dw) if routes == {ds.TENSOR_CORES} else (
+            ds.plan_fwd_f32, ds.plan_dr_f32, ds.plan_dw_f32)
+        assert rows == min(plan(R, 1, D, 4, 4, 132).rows for plan in plans)
+        for plan in plans:
+            p = plan(R, width, D, 4, 4, 132)
+            assert p.rows >= width and (width == T or p.rows % width == 0)
     # the LN word shape: the bf16 forward, d_regions and d_words there
-    # (streamed regions) hold 32 rows a pass, the fp32 route's CUDA-core
-    # d_words 16
+    # (streamed regions) hold 32 rows a pass, the fp32 d_words 16 (the wide
+    # fp32 forward and d_regions 32)
     assert ds.plan_fwd(256, 16, 768, 256, 2048, 132).rows == 32
     assert ds.plan_dr(256, 16, 768, 256, 2048, 132).rows == 32
-    assert ds.plan_dw(256, 32, 768, 256, 1024, 132).rows == 32
+    assert ds.plan_dw(256, 16, 768, 256, 1024, 132).rows == 32
+    assert ds.plan_dw_f32(256, 8, 768, 256, 1024, 132).rows == 16
+    assert ds.plan_fwd_f32(256, 8, 768, 256, 1024, 132).rows == 32
     assert ds.cuda_core_rows(256, 768, backward=True) == 16
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.sub_caption_width(256, 20, 1025, cd)
@@ -335,17 +344,21 @@ def test_sub_caption_width_mirrors_the_plans(cd):
 
 
 def test_fp32_forward_and_d_regions_pack_under_one_rule():
-    """``sub_caption_width`` asks ``route`` once for the two packed fp32
-    kernels: at every R, D the forward packs iff the d_regions does, and the
-    forward's 64 rows a pass hold more than the d_regions' 48, so the
-    d_regions sets the fp32 width there."""
+    """``sub_caption_width`` reads one route for the three packed fp32
+    kernels: at every R, D the forward and the d_words pack iff the
+    d_regions does; at D <= 256 the forward's 64 rows a pass and the
+    d_regions' 48 hold more than the d_words' 32, so the d_words sets the
+    fp32 width there, half its rows."""
     for R in (1, 24, 50, 256, 257, 300):
         for D in (12, 42, 256, 264, 768):
-            assert ds.route("fwd", R, D, None) == ds.route("dr", R, D, None)
+            assert ds.route("fwd", R, D, None) == ds.route("dr", R, D, None) == \
+                ds.route("dw", R, D, None)
     fwd = ds._tc_rows(lambda m: ds._f32_smem(m, False), ds.F32_FWD_ROWS)
     dr = ds._tc_rows(lambda m: ds._f32_smem(m, True), ds.F32_ROWS)
-    assert (fwd, dr) == (64, 48)
-    assert ds.sub_caption_width(256, 130, 256, None) == dr
+    dw = ds._tc_rows(lambda m: ds._f32d_smem(256, m), (ds.F32D_ROWS[256],))
+    assert (fwd, dr, dw) == (64, 48, 32) == (*ds.F32_FWD_ROWS, *ds.F32_ROWS, ds.F32D_ROWS[256])
+    assert ds.packed_rows(256, 256, None) == dw
+    assert ds.sub_caption_width(256, 130, 256, None) == dw // 2
 
 
 def test_split_captions_and_combine():
@@ -488,18 +501,108 @@ def test_dw_plan_mirrors_the_source(D):
         ds.plan_dw(256, 8, 1025, 2, 4, 132)
 
 
+@pytest.mark.parametrize("D", [40, 256, 520, 768, 770, 1024])
+def test_fp32_dw_plan_mirrors_the_source(D):
+    """The fp32 d_words kernel's plan (``plan_dw_f32``) as
+    ``csrc/damsm_score.cu`` computes its shared memory (``f32d_smem_bytes``),
+    with the rows a pass read from the source: the pass's words ``[rows,
+    SW]`` (SW as the wide kernels'), a and a group of d_c ``[rows, 260]``,
+    d_w's feature groups before the last ``[rows, (ng - 1) * 256 + 4]``
+    (the last in registers; none at D <= 256), the two chunk buffers
+    ``[256, 36]`` and 11 words a row.  Rows by D: 32 to D = 256 (174,992
+    bytes), 16 above (190,160 at D = 520 and 768, where 24 rows would need
+    248,368; 222,928 at D = 770 and 1024).  The splits of the images as
+    the bf16 d_words': the passes counted as if every slot held a word fill
+    the 132 multiprocessors once, at most one split an image.  T above the
+    rows, R > 256 and D > 1024 are refused."""
+    assert (_source_constant("F32D_ROWS_256"), _source_constant("F32D_ROWS_1024")) == tuple(
+        ds.F32D_ROWS.values()) == (32, 16)
+    rows = 32 if D <= 256 else 16
+    ng = -(-D // 256)
+    sw, swd = ng * 256 + 4, (ng - 1) * 256 + 4 if ng > 1 else 0
+
+    def smem(m):
+        return 4 * (m * (sw + 2 * 260 + swd) + 2 * 256 * 36 + 11 * m + 4)
+
+    T = min(rows, 20)
+    p = ds.plan_dw_f32(256, T, D, 128, 128, 132)
+    assert (p.rows, p.smem) == (rows, smem(rows)) and p.smem <= ds.SMEM_LIMIT
+    assert p.smem == ds._f32d_smem(D, rows) == ds.plan_dw_f32(50, 7, D, 3, 5, 132).smem
+    assert p.smem == {40: 174_992, 256: 174_992, 520: 190_160, 768: 190_160, 770: 222_928,
+                      1024: 222_928}[D]
+    if D > 256:
+        assert smem(24) > ds.SMEM_LIMIT
+    passes = -(-128 * T // rows)
+    assert (p.nsplit, p.captions) == (min(128, -(-132 // passes)), -(-128 // p.nsplit))
+    assert ds.plan_dw_f32(256, min(rows, 8), D, 256, 256 * 25, 132)[1:3] == (1, 256)
+    assert ds.plan_dw_f32(50, 7, D, 3, 5, 132)[1:3] == (3, 1)
+    with pytest.raises(ValueError, match=f"T <= {rows}"):
+        ds.plan_dw_f32(256, rows + 1, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="R <= 256"):
+        ds.plan_dw_f32(257, 8, D, 2, 4, 132)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ds.plan_dw_f32(256, 8, 1025, 2, 4, 132)
+
+
+def _passes(mask: torch.Tensor, width: int, rows: int) -> int:
+    """The passes of ``rows`` word rows that the packed kernels cut the
+    sub-captions of ``split_captions(.., width)`` into, as ``tc_pack_pass``
+    and ``damsm_dw_passes_kernel`` cut them: whole sub-captions in order
+    while their real words fit; an all-padded one takes no row."""
+    _, m_sub = ds.split_captions(torch.zeros(*mask.shape, 1), mask, width)
+    passes, used = 1, 0
+    for n in (~m_sub).sum(1).tolist():
+        if used + n > rows:
+            passes, used = passes + 1, 0
+        used += n
+    return passes
+
+
+@pytest.mark.parametrize("batch", [128, 256])
+def test_half_width_packs_no_more_passes(batch):
+    """At the LN word shape (T = 200, D = 768), with the LN mask as
+    ``damsm_turns`` draws it (about half the slots real, caption 1 all
+    padded, caption 2 with 4 words), the width of half the least rows
+    (bf16 16, fp32 8) packs each packed kernel's passes into no more passes
+    than the width the rule gave before (bf16 32, the tensor-core kernels'
+    rows; fp32 16, the CUDA-core d_words'), within 8% of the real words
+    over the rows (half the rows ~7%, a quarter ~4%): a caption's last,
+    partial sub-caption shares a pass with the next caption's (at 32 slots
+    and 32 rows none can: ~10% more)."""
+    gen = torch.Generator().manual_seed(12)
+    mask = torch.rand(batch, 200, generator=gen) > 0.5
+    mask[1] = True
+    mask[2] = True
+    mask[2, 1:5] = False
+    words = int((~mask).sum())
+    R, T, D = 256, 200, 768
+    before = {torch.bfloat16: 32, None: 16}
+    plans = {torch.bfloat16: (ds.plan_fwd, ds.plan_dr, ds.plan_dw),
+             None: (ds.plan_fwd_f32, ds.plan_dr_f32, ds.plan_dw_f32)}
+    for cd, old in before.items():
+        width = ds.sub_caption_width(R, T, D, cd)
+        assert width == old // 2
+        for plan in plans[cd]:
+            rows = plan(R, width, D, batch, batch, 132).rows
+            new = _passes(mask, width, rows)
+            assert new <= _passes(mask, old, rows), (cd, plan.__name__)
+            assert new <= 1.08 * -(-words // rows), (cd, plan.__name__, new, words)
+        if cd == torch.bfloat16:
+            assert _passes(mask, old, 32) > 1.08 * -(-words // 32)
+
+
 def test_ln_bf16_d_words_at_the_tensor_core_width_match_jax():
-    """The bf16 d_words at the LN word shape's new width (T = 200, D = 768:
-    sub-captions of 32 slots in bf16, the tensor-core kernels' rows a pass;
-    16 in fp32): the plain version, which the card holds the kernel to, on
-    the 32-slot sub-captions through ``damsm_scores`` against JAX
+    """The bf16 d_words at the LN word shape's width (T = 200, D = 768:
+    sub-captions of 16 slots in bf16, half the tensor-core kernels' 32 rows
+    a pass; 8 in fp32): the plain version, which the card holds the kernel
+    to, on the 16-slot sub-captions through ``damsm_scores`` against JAX
     ``damsm_scores``' word cotangent on the whole captions, the XLA path and
     the Pallas kernel in interpret mode (the all-padded caption's cotangent
     zeroed for Pallas, whose backward gives it one), under ``TOL``; the
     all-padded caption gets exactly 0."""
     b, bc, R, T, D = 2, 3, 256, 200, 768
     width = ds.sub_caption_width(R, T, D, torch.bfloat16)
-    assert width == 32 and ds.sub_caption_width(R, T, D, None) == 16
+    assert width == 16 and ds.sub_caption_width(R, T, D, None) == 8
     regions, words, mask, g = _long_problem(b, bc, R, T, D, width, seed=5)
     _, (_, dw) = _port(regions, words, mask, g, torch.bfloat16)
     _, (_, xw) = _jax(regions, words, mask, g, torch.bfloat16, pallas=False)
@@ -593,9 +696,10 @@ def test_fp32_forward_plan_mirrors_the_source(R, D):
 def test_wide_fp32_route_rule(D, R):
     """Above D = 256 ``route`` alone puts the fp32 forward and d_regions on
     the wide packed kernels at R <= 256 (``damsm_fwd_f32w_kernel``,
-    ``damsm_bwd_dr_f32w_kernel``) and on the CUDA-core kernels at R > 256;
-    the d_words stays on the CUDA cores; bf16 keeps its tensor-core
-    kernels with the regions streamed."""
+    ``damsm_bwd_dr_f32w_kernel``) and the d_words on the packed fp32 one
+    (``damsm_bwd_dw_f32_kernel``), all three on the CUDA-core kernels at
+    R > 256; bf16 keeps its tensor-core kernels with the regions
+    streamed."""
     for cd in (None, torch.float32):
         for which in ("fwd", "dr"):
             want = ds.PACKED_FP32 if R <= 256 else ds.CUDA_CORES
@@ -606,8 +710,9 @@ def test_wide_fp32_route_rule(D, R):
                                 "dr": "damsm_bwd_dr_f32w_kernel<"}[which]
             else:
                 assert name in ("damsm_fwd_kernel<", "damsm_bwd_dr_kernel<float")
-        assert ds.route("dw", R, D, cd) == ds.CUDA_CORES
-        assert ds.kernel_name("dw", R, D, cd) == "damsm_bwd_dw_kernel<"
+        assert ds.route("dw", R, D, cd) == want
+        assert ds.kernel_name("dw", R, D, cd) == ("damsm_bwd_dw_f32_kernel<" if R <= 256
+                                                  else "damsm_bwd_dw_kernel<")
     bf16 = ds.kernel_name("fwd", R, D, torch.bfloat16)
     assert bf16 == ("damsm_fwd_tcs_kernel<" if R <= 256 else "damsm_fwd_bf16_kernel<")
 
@@ -658,21 +763,19 @@ def test_wide_fp32_plan_mirrors_the_source(D):
 @pytest.mark.parametrize("R,T,D", [(256, 200, 768), (256, 200, 1024), (50, 77, 520),
                                    (7, 200, 770), (256, 20, 264)])
 def test_wide_fp32_sub_caption_width(R, T, D):
-    """In fp32 above D = 256 the sub-caption width is the least of T, the
-    CUDA-core backward's rows (the d_words) and the wide kernels' rows a
-    pass, and both wide plans hold it: 16 at the LN word shape, as before
-    (the d_words' rows set it), 9 at D = 1024."""
+    """In fp32 above D = 256 the fp32 d_words' 16 rows a pass are the least
+    of the three packed kernels' (the wide forward and d_regions take 32 or
+    24), so the sub-caption width is T where T <= 16, else 8, and all three
+    plans hold it, two or more sub-captions a pass: 8 at the LN word shape
+    (16 before, the CUDA-core d_words' rows), at D = 1024 (9 before) and at
+    T = 20, D = 264 (20, unsplit, before)."""
     width = ds.sub_caption_width(R, T, D, None)
     rows = ds.plan_fwd_f32(R, 1, D, 4, 4, 132).rows
-    assert rows == ds.plan_dr_f32(R, 1, D, 4, 4, 132).rows
-    assert width == min(T, ds.cuda_core_rows(R, D, backward=True), rows)
-    assert ds.plan_fwd_f32(R, width, D, 4, 4, 132).rows >= width
-    assert ds.plan_dr_f32(R, width, D, 4, 4, 132).rows >= width
-    assert ds.plan(R, width, D, True, 4)[0] >= 1
-    if (R, T, D) == (256, 200, 768):
-        assert width == 16 == ds.cuda_core_rows(256, 768, backward=True)
-    if D == 1024:
-        assert width == 9
+    assert rows == ds.plan_dr_f32(R, 1, D, 4, 4, 132).rows >= 24
+    assert ds.plan_dw_f32(R, 1, D, 4, 4, 132).rows == ds.packed_rows(R, D, None) == 16
+    assert width == (T if T <= 16 else 8) == 8
+    for plan in (ds.plan_fwd_f32, ds.plan_dr_f32, ds.plan_dw_f32):
+        assert plan(R, width, D, 4, 4, 132).rows % width == 0
 
 
 @pytest.mark.parametrize("D", [256, 264, 520, 768, 1024])

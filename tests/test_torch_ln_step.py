@@ -113,10 +113,11 @@ def test_ln_config_keeps_the_word_shape(run):
 
 def test_ln_word_scores_take_the_kernel_route_as_sub_captions(run):
     """Both word losses of the step (real and fake regions) went through
-    ``damsm_scores`` as sub-captions of 16 slots, ceil(n / 16) per caption
-    for the batch's longest caption of n real words."""
-    k = -(-int((~np.asarray(run["mask"])).sum(1).max()) // 16)
-    assert run["splits"] == [((BS, 200, 768), 16, (BS * k, 16, 768))] * 2
+    ``damsm_scores`` as sub-captions of 8 slots (fp32: half the packed
+    d_words' 16 rows a pass), ceil(n / 8) per caption for the batch's
+    longest caption of n real words."""
+    k = -(-int((~np.asarray(run["mask"])).sum(1).max()) // 8)
+    assert run["splits"] == [((BS, 200, 768), 8, (BS * k, 8, 768))] * 2
 
 
 def test_ln_step_metrics_match_jax(run):

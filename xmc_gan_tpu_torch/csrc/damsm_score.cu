@@ -25,12 +25,12 @@
 // where R <= 256 and D <= 1024 (the forward and d_regions with the regions
 // resident in shared memory at D <= 256, streamed through it above; the
 // d_words streams them at every D: their own sections below); the fp32
-// forward and d_regions at R <= 256, D <= 1024 on the CUDA cores in passes
-// of packed real words with the regions streamed ("The fp32 d_regions",
-// "The fp32 forward" at D <= 256 and "The wide fp32 forward and d_regions"
-// above it); the fp32 d_words, and every bf16 kernel at wider R, on the
-// CUDA-core kernels that take a caption sub-block per block (fp32 keeps
-// 1e-5 against its plain version, which TF32 would not).
+// forward, d_regions and d_words at R <= 256, D <= 1024 on the CUDA cores in
+// passes of packed real words with the regions streamed ("The fp32
+// d_regions", "The fp32 forward" at D <= 256, "The wide fp32 forward and
+// d_regions" above it, "The fp32 d_words" at every D); every kernel at
+// wider R on the CUDA-core kernels that take a caption sub-block per block
+// (fp32 keeps 1e-5 against its plain version, which TF32 would not).
 // Captions
 // longer than a block's rows reach the kernels as sub-captions: the wrapper
 // splits each caption's T slots into pieces of at most 64 and combines
@@ -300,6 +300,38 @@
 //    The split of the images: passes x splits about fill the card, from
 //    passes counted as if every slot held a word (the wrapper's plan_dw).
 //
+// The fp32 d_words (damsm_bwd_dw_f32_kernel), R <= 256, D <= 1024, on the CUDA
+// cores (replaces damsm_bwd_dw_kernel<float> there, for the same reason as
+// the bf16 one):
+//  * The bf16 d_words' blocks (pass p, split of the images), its passes
+//    (damsm_dw_passes_kernel, tc_pack_pass) and its one store of d_w per
+//    block into the split's slice of partial (padded slots 0, sum_splits in
+//    a fixed order, no atomics), on the fp32 packed kernels' parts: the
+//    pass's fp32 words stay in shared memory, each image's regions stream
+//    through the two chunk buffers (f32_sweep), the products are
+//    f32_by_cols / f32_by_rows.
+//  * Per image: the wide kernels' chain to rel (f32w_chain, one group of 256
+//    features at D <= 256), keeping the last group's context in registers;
+//    d rel; d_c a group at a time into a [Mp][260] tile as the wide
+//    d_regions takes it (f32w_dc), the last group's from the kept context,
+//    every other group's after its row chunks again, each group's column
+//    chunks then adding d_c R^T into d a (one sweep); d_sim over a; and
+//    d_w += d rel c_hat (beside each d_c) + d_sim R (the row chunks of each
+//    group).  The products: sim, c, d a and d_sim R, and the context again
+//    for every group but the last: 4 at D <= 256, 4.67 at D = 768.
+//  * d_w (fp32) stays on chip across the split's images in the products'
+//    register layout (a thread owns rows rg + 8 i, features 4 cg + 128 h
+//    + e of each group): the last group in registers, the others in
+//    shared memory [Mp][(ng - 1) * 256 + 4], each element read and written
+//    only by its thread.
+//  * Shared memory: words [Mp][SW] (SW as the wide kernels'), a (d_sim in
+//    its place) and a d_c group [Mp][260] each, d_w's shared groups, the
+//    chunk buffers 2*256*36*4 and 11*Mp+4 fp32/int words: Mp = 32 at
+//    D <= 256 (174,992 bytes), 16 above (D = 768: 190,160; D = 1024:
+//    222,928; 24 rows at D = 768 would need 248,368).
+//  * Bound: 4 products per real word and image, 1.264 ms at the flagship
+//    and 152.1 ms at the LN word shape (B = Bc = 256) over 67 TFLOP/s.
+//
 // C interface (ctypes; pointers and the stream as void*):
 //   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, g1, g2,
 //                     dtype, route, stream)
@@ -310,21 +342,21 @@
 //   g is the upstream cotangent [B, Bc] fp32.  partial is [B, nsplit, R, D]
 //   (d_regions) or [nsplit, Bc, T, D] (d_words) fp32 scratch; with
 //   nsplit == 1 it may be the output itself.  plan is [Bc + 2] int32 scratch
-//   for the tensor-core d_words' passes (unused elsewhere).  dtype 0 = fp32,
-//   1 = bf16.  route 0 = the CUDA-core kernel (either dtype), 1 = the
-//   tensor-core one (bf16 only; the forward's and d_regions' streamed kernel
-//   for D > 256), 2 = the fp32 forward or d_regions with packed words (fp32
-//   only, R <= 256, D <= 1024; the wide kernels for D > 256).  vb is the
-//   captions per block of the CUDA-core kernels; rows is the word rows per
-//   pass, Mp, of the tensor-core kernels (route 1) and of the fp32 forward
-//   and d_regions (route 2), whose blocks are (image, split) for nsplit
-//   splits, the tensor-core d_words' (pass, split).
+//   for the packed d_words' passes (routes 1 and 2; unused elsewhere).
+//   dtype 0 = fp32, 1 = bf16.  route 0 = the CUDA-core kernel (either
+//   dtype), 1 = the tensor-core one (bf16 only; the forward's and d_regions'
+//   streamed kernel for D > 256), 2 = the fp32 kernel with packed words
+//   (fp32 only, R <= 256, D <= 1024; the wide forward and d_regions for
+//   D > 256).  vb is the captions per block of the CUDA-core kernels; rows
+//   is the word rows per pass, Mp, of the tensor-core kernels (route 1) and
+//   of the fp32 ones (route 2), whose forward and d_regions blocks are
+//   (image, split) for nsplit splits, the d_words' (pass, split).
 //   Each is ignored where the other applies.
 //   Returns cudaGetLastError() after the launches (0 = success).  Built with
 //   -DXMC_DAMSM_PART=1, 2 or 3, only the first, second or third of them.
 //   Built with -DXMC_DAMSM_PHASES, the tensor-core kernels and the fp32
-//   forward and d_regions also count their cycles per phase: int
-//   xmc_damsm_phases_read(host [22] uint64),
+//   forward, d_regions and d_words also count their cycles per phase: int
+//   xmc_damsm_phases_read(host [24] uint64),
 //   int xmc_damsm_phases_reset() (xmc_gan_tpu_torch/damsm_phases.py).
 
 #include <cuda_bf16.h>
@@ -902,9 +934,12 @@ constexpr int TC_STAGE = 36;     // row stride (fp32) of a warp's [16][32] d_r s
 // forward (damsm_fwd_f32_kernel) the streamed forward's, and so has the wide
 // fp32 forward; the wide fp32 d_regions has them too but 18 (its d_c falls
 // in 19, the sweep that also takes c again and d a) and adds 21, its loads
-// of the words again for the d_r products.
+// of the words again for the d_r products.  The fp32 d_words
+// (damsm_bwd_dw_f32_kernel) has the wide fp32 forward's, 4, 18 (the last
+// group's d_c), 19 (its d a sweep), 20, and its own 22 (the d_sim R
+// products into d_w) and 23 (the store of d_w and the padded slots' 0).
 // Without the flag the macros are empty.
-constexpr int TC_NPHASE = 22, TC_PASSES = 10;
+constexpr int TC_NPHASE = 24, TC_PASSES = 10;
 #ifdef XMC_DAMSM_PHASES
 __device__ unsigned long long g_phase_cycles[TC_NPHASE];
 #define TC_PHASE_ARGS , long long (&phase_acc)[TC_NPHASE], long long& phase_t
@@ -3158,10 +3193,11 @@ bool f32w_dims_ok(const TcDims& d) {
 
 // |c|^2 and c . w from the thread's context sums c over a group of 256
 // features (its features 4 cg + 128 h + e, the words tile's from Wc) into cc
-// and cw; c is reset to 0 for the next group.
+// and cw; c is reset to 0 for the next group unless kept (the fp32 d_words
+// keeps the last group's).
 template <int MT>
 __device__ __forceinline__ void f32w_fold(float (&c)[MT][8], float (&cc)[MT], float (&cw)[MT],
-                                          const float* Wc, int sw) {
+                                          const float* Wc, int sw, bool keep) {
   const int rg = f32_rg(), cg = f32_cg();
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -3174,7 +3210,7 @@ __device__ __forceinline__ void f32w_fold(float (&c)[MT][8], float (&cc)[MT], fl
         const float x = c[i][4 * h + e];
         cc[i] = fmaf(x, x, cc[i]);
         cw[i] = fmaf(x, f4_at(wv, e), cw[i]);
-        c[i][4 * h + e] = 0.f;
+        if (!keep) c[i][4 * h + e] = 0.f;
       }
     }
 }
@@ -3209,10 +3245,12 @@ __device__ __forceinline__ void f32w_dc(float (&c)[MT][8], const float (&sc)[MT]
 // R / 32 row chunks in turn within one sweep, each group folded into |c|^2
 // and c . w as it completes (f32w_fold), so that c is never stored; inrm =
 // 1 / max(|c|, 1e-12) (the one reciprocal a row) and rel = (c . w) inrm into
-// rel.  Ends after a barrier.
-template <int MT>
-__device__ __forceinline__ void f32w_attend(float (&inrm)[MT], const float* __restrict__ ri,
-                                            const TcDims& d, const F32Smem& s TC_PHASE_ARGS) {
+// rel.  KEEP: c holds the last group's context sums on return (the fp32
+// d_words takes its d_c from them); else c is scratch.  Ends after a barrier.
+template <int MT, bool KEEP>
+__device__ __forceinline__ void f32w_chain(float (&inrm)[MT], float (&c)[MT][8],
+                                           const float* __restrict__ ri, const TcDims& d,
+                                           const F32Smem& s TC_PHASE_ARGS) {
   const int rg = f32_rg();
   const int nr = (d.R + F32_KC - 1) / F32_KC, ng = (d.D + F32W_DG - 1) / F32W_DG;
   float a[MT][8];
@@ -3228,7 +3266,7 @@ __device__ __forceinline__ void f32w_attend(float (&inrm)[MT], const float* __re
   f32_softmax<MT>(a, d, s);
   TC_PHASE(15);
 
-  float c[MT][8], cc[MT], cw[MT];
+  float cc[MT], cw[MT];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     cc[i] = cw[i] = 0.f;
@@ -3240,7 +3278,8 @@ __device__ __forceinline__ void f32w_attend(float (&inrm)[MT], const float* __re
       [&](float* buf, int q) { f32_load_chunk<true>(buf, ri, q % nr, d, (q / nr) * F32W_DG); },
       [&](const float* Rr, int q) {
         f32_by_rows<MT>(c, s.A, Rr, (q % nr) * F32_KC);
-        if (q % nr == nr - 1) f32w_fold<MT>(c, cc, cw, s.W + (q / nr) * F32W_DG, s.sw);
+        if (q % nr == nr - 1)
+          f32w_fold<MT>(c, cc, cw, s.W + (q / nr) * F32W_DG, s.sw, KEEP && q / nr == ng - 1);
       } TC_PHASE_PASS);
   f32_rows<MT, false>(cc, s.tc.red);
   f32_rows<MT, false>(cw, s.tc.red);
@@ -3251,6 +3290,15 @@ __device__ __forceinline__ void f32w_attend(float (&inrm)[MT], const float* __re
     for (int i = 0; i < MT; ++i) s.tc.rel[rg + 8 * i] = cw[i] * inrm[i];
   __syncthreads();
   TC_PHASE(17);
+}
+
+// The chain to rel of the wide forward and d_regions (f32w_chain, the
+// context not kept).
+template <int MT>
+__device__ __forceinline__ void f32w_attend(float (&inrm)[MT], const float* __restrict__ ri,
+                                            const TcDims& d, const F32Smem& s TC_PHASE_ARGS) {
+  float c[MT][8];
+  f32w_chain<MT, false>(inrm, c, ri, d, s TC_PHASE_PASS);
 }
 
 // d_regions, fp32 operands, 256 < D <= 1024, R <= 256: block (image i,
@@ -3385,6 +3433,272 @@ int launch_dr_f32w(const float* r, const float* w, const uint8_t* mask, const fl
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// fp32 d_words on the CUDA cores, R <= 256, D <= 1024, the real words packed
+// and the regions streamed (header: "The fp32 d_words").
+// ---------------------------------------------------------------------------
+
+constexpr int F32D_ROWS_256 = 32;   // word rows per pass at D <= 256
+constexpr int F32D_ROWS_1024 = 16;  // at 256 < D <= 1024
+
+// The rows per pass the fp32 d_words takes at D.
+inline int f32d_rows(int D) {
+  return D <= F32W_DG ? F32D_ROWS_256 : F32D_ROWS_1024;
+}
+
+// Row stride (fp32) of the shared part of d_w: the feature groups before the
+// last (that one stays in registers), + 4 so that rows lie 4 banks apart;
+// none at D <= 256.
+__host__ __device__ inline int f32d_swd(int D) {
+  const int ng = (D + F32W_DG - 1) / F32W_DG;
+  return ng > 1 ? (ng - 1) * F32W_DG + 4 : 0;
+}
+
+// Words W [Mp][f32w_stride(D)], a A [Mp][F32_S] (d_sim DS takes its place),
+// one group of d_c DC [Mp][F32_S], the shared part of d_w [Mp][f32d_swd(D)],
+// the two chunk buffers Rb [2][F32_CHUNK] and 11 fp32/int words a row, as
+// f32_carve lays them out.
+size_t f32d_smem_bytes(int Mp, int D) {
+  return 4 * (size_t(Mp) * (f32w_stride(D) + 2 * F32_S + f32d_swd(D)) + 2 * size_t(F32_CHUNK) +
+              size_t(11) * Mp + 4);
+}
+
+__device__ F32Smem f32d_carve(float* base, int Mp, int D, float*& dw) {
+  F32Smem s;
+  s.sw = f32w_stride(D);
+  s.W = base;
+  s.A = s.W + Mp * s.sw;
+  s.DS = s.A;
+  s.DC = s.A + Mp * F32_S;
+  dw = s.DC + Mp * F32_S;
+  s.Rb = dw + Mp * f32d_swd(D);
+  s.Wd = s.W;
+  s.tc = TcSmem{};
+  s.tc.rel = s.Rb + 2 * F32_CHUNK;
+  s.tc.drel = s.tc.rel + Mp;
+  s.tc.red = s.tc.drel + Mp;
+  s.tc.row_t = reinterpret_cast<int*>(s.tc.red + 4 * Mp);
+  s.tc.row_c = s.tc.row_t + Mp;
+  s.tc.cap_j = s.tc.row_c + Mp;
+  s.tc.cap_base = s.tc.cap_j + Mp;
+  s.tc.cap_n = s.tc.cap_base + Mp;
+  s.tc.info = s.tc.cap_n + Mp;
+  return s;
+}
+
+bool f32d_dims_ok(const TcDims& d) {
+  return d.B > 0 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.D > 0 && d.R <= F32_MAX_RD &&
+         d.D <= F32W_MAX_D && d.Mp == f32d_rows(d.D) && d.T <= d.Mp &&
+         f32d_smem_bytes(d.Mp, d.D) <= size_t(SMEM_LIMIT);
+}
+
+// d_c = sc (w - sr c) of a group of 256 features (the words from Wc, as
+// f32w_dc) into DC [Mp][F32_S] from column 0, and c = sc c, the group's
+// d rel c_hat (sc = d rel inrm, sr = rel inrm a row).
+template <int MT>
+__device__ __forceinline__ void f32d_dc(float (&c)[MT][8], const float (&sc)[MT],
+                                        const float (&sr)[MT], const float* Wc, int sw,
+                                        float* DC) {
+  const int rg = f32_rg(), cg = f32_cg();
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 wv =
+          *reinterpret_cast<const float4*>(Wc + (rg + 8 * i) * sw + 4 * cg + 128 * h);
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = sc[i] * (f4_at(wv, e) - sr[i] * c[i][4 * h + e]);
+        c[i][4 * h + e] *= sc[i];
+      }
+      *reinterpret_cast<float4*>(DC + (rg + 8 * i) * F32_S + 4 * cg + 128 * h) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
+}
+
+// x, the thread's sums over group gq of d_w (rows rg + 8 i, features
+// gq * 256 + 4 cg + 128 h + e), added into d_w: the registers dwr for the
+// last group, else the shared part DW (each element its one thread's);
+// x is reset to 0.
+template <int MT>
+__device__ __forceinline__ void f32d_add(float (&x)[MT][8], float (&dwr)[MT][8], float* DW,
+                                         int swd, int gq, int ng) {
+  const int rg = f32_rg(), cg = f32_cg();
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (gq == ng - 1) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dwr[i][4 * h + e] += x[i][4 * h + e];
+      } else {
+        float4* o = reinterpret_cast<float4*>(DW + (rg + 8 * i) * swd + gq * F32W_DG + 4 * cg +
+                                              128 * h);
+        const float4 v = *o;
+        *o = make_float4(v.x + x[i][4 * h], v.y + x[i][4 * h + 1], v.z + x[i][4 * h + 2],
+                         v.w + x[i][4 * h + 3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][4 * h + e] = 0.f;
+    }
+}
+
+// d_words, fp32 operands, R <= 256, D <= 1024: block (pass p of plan, split
+// of the images).  The pass's real words (tc_pack_pass) stay in W for all
+// of the split's images; per image the chain to rel (f32w_chain, the last
+// feature group's context kept), d rel, then one sweep: the last group's
+// d_c (from the kept context) and its column chunks for d a += d_c R^T,
+// then for each other group its row chunks (the context again), its d_c
+// and its column chunks; d_sim into DS; and d_w += d_sim R over the row
+// chunks of each group.  d_rel c_hat and d_sim R add into d_w, fp32 on chip
+// (the last group in registers, the others in DW), until one store of the
+// pass's rows into partial[split] (its padded slots: 0).
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+damsm_bwd_dw_f32_kernel(const float* __restrict__ r, const float* __restrict__ w,
+                        const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                        const int* __restrict__ plan, float* __restrict__ partial, TcDims d,
+                        int nsplit) {
+  const int p = blockIdx.x, split = blockIdx.y;
+  if (p >= plan[0]) return;  // the grid has a block for every caption
+  extern __shared__ __align__(16) unsigned char tc_smem_raw[];
+  float* DW;
+  const F32Smem s = f32d_carve(reinterpret_cast<float*>(tc_smem_raw), 8 * MT, d.D, DW);
+  TC_PHASE_INIT
+  const int rg = f32_rg(), cg = f32_cg();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = plan[1 + p], c1 = plan[2 + p];
+  const int per = (d.B + nsplit - 1) / nsplit;
+  const int i0 = min(d.B, split * per), i1 = min(d.B, i0 + per);
+  float* out = partial + size_t(split) * d.Bc * d.T * d.D;
+  // the d a sweep's chunks: the last group's kl column chunks (up to D), then
+  // each other group's nr row chunks and kg column chunks
+  const int nr = (d.R + F32_KC - 1) / F32_KC, nk = (d.D + F32_KC - 1) / F32_KC;
+  const int ng = (d.D + F32W_DG - 1) / F32W_DG, kg = F32W_DG / F32_KC, per_g = nr + kg;
+  const int kl = nk - (ng - 1) * kg, swd = f32d_swd(d.D);
+  float dwr[MT][8];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j2 = 0; j2 < 8; ++j2) dwr[i][j2] = 0.f;
+  for (int e = threadIdx.x; e < 8 * MT * swd; e += kThreads) DW[e] = 0.f;
+  int j = c0;
+  const int rows = f32_next_pass(w, mask, j, c1, d, s, round_up(d.D, F32W_DG) TC_PHASE_PASS);
+  const int ncap = s.tc.info[1];
+  for (int i = rows > 0 ? i0 : i1; i < i1; ++i) {
+    const float* ri = r + size_t(i) * d.R * d.D;
+    float inrm[MT], c[MT][8];
+    f32w_chain<MT, true>(inrm, c, ri, d, s TC_PHASE_PASS);
+    tc_drel(g, i, rows, ncap, d, s.tc);
+    __syncthreads();
+    TC_PHASE(4);
+
+    // the last group's d_c into DC and its d rel c_hat into d_w
+    float sc[MT], sr[MT], da[MT][8];
+#pragma unroll
+    for (int q = 0; q < MT; ++q) {
+      sc[q] = s.tc.drel[rg + 8 * q] * inrm[q];
+      sr[q] = s.tc.rel[rg + 8 * q] * inrm[q];
+#pragma unroll
+      for (int j2 = 0; j2 < 8; ++j2) da[q][j2] = 0.f;
+    }
+    f32d_dc<MT>(c, sc, sr, s.W + (ng - 1) * F32W_DG, s.sw, s.DC);
+    f32d_add<MT>(c, dwr, DW, swd, ng - 1, ng);
+    TC_PHASE(18);
+
+    // d a += d_c R^T a group at a time (the first sweep's barrier makes DC whole)
+    f32_sweep<19>(
+        kl + (ng - 1) * per_g, s.Rb,
+        [&](float* buf, int q) {
+          if (q < kl) {
+            f32_load_chunk<false>(buf, ri, (ng - 1) * kg + q, d);
+          } else {
+            const int gq = (q - kl) / per_g, k = (q - kl) % per_g;
+            if (k < nr) f32_load_chunk<true>(buf, ri, k, d, gq * F32W_DG);
+            else f32_load_chunk<false>(buf, ri, gq * kg + k - nr, d);
+          }
+        },
+        [&](const float* C, int q) {
+          const int gq = q < kl ? ng - 1 : (q - kl) / per_g;
+          const int k = q < kl ? nr + q : (q - kl) % per_g;
+          if (k < nr) {
+            f32_by_rows<MT>(c, s.A, C, k * F32_KC);
+            if (k == nr - 1) {
+              f32d_dc<MT>(c, sc, sr, s.W + gq * F32W_DG, s.sw, s.DC);
+              f32d_add<MT>(c, dwr, DW, swd, gq, ng);
+            }
+          } else {
+            f32_by_cols<MT>(da, s.DC, F32_S, C, (k - nr) * F32_KC);
+          }
+        } TC_PHASE_PASS);
+    f32_dsim<MT>(da, d, s);  // into DS, over a
+    TC_PHASE(20);
+
+    // d_w += d_sim R, a group at a time (its row chunks)
+    f32_sweep<22>(
+        nr * ng, s.Rb,
+        [&](float* buf, int q) { f32_load_chunk<true>(buf, ri, q % nr, d, (q / nr) * F32W_DG); },
+        [&](const float* Rr, int q) {
+          f32_by_rows<MT>(c, s.DS, Rr, (q % nr) * F32_KC);
+          if (q % nr == nr - 1) f32d_add<MT>(c, dwr, DW, swd, q / nr, ng);
+        } TC_PHASE_PASS);
+    TC_PHASE_COUNT(TC_PASSES);
+  }
+
+  // the pass's rows of partial[split]: d_w, each element stored once by the
+  // thread that holds it
+  const bool vec4 = (d.D & 3) == 0;
+#pragma unroll
+  for (int q = 0; q < MT; ++q) {
+    const int row = rg + 8 * q;
+    if (row >= rows) continue;
+    float* o = out + (size_t(s.tc.cap_j[s.tc.row_c[row]]) * d.T + s.tc.row_t[row]) * d.D;
+    for (int gq = 0; gq < ng; ++gq)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = gq * F32W_DG + 4 * cg + 128 * h;
+        if (col >= d.D) continue;
+        float x[4];
+        if (gq == ng - 1) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[e] = dwr[q][4 * h + e];
+        } else {
+          const float4 v = *reinterpret_cast<const float4*>(DW + row * swd + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[e] = f4_at(v, e);
+        }
+        if (vec4) {
+          *reinterpret_cast<float4*>(o + col) = make_float4(x[0], x[1], x[2], x[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < d.D) o[col + e] = x[e];
+        }
+      }
+  }
+  // the padded slots of the pass's captions: 0
+  for (int e = warp; e < (c1 - c0) * d.T; e += kWarps) {
+    const size_t slot = size_t(c0) * d.T + e;
+    if (mask[slot] == 0) continue;
+    for (int k = lane; k < d.D; k += 32) out[slot * d.D + k] = 0.f;
+  }
+  TC_PHASE(23);
+  TC_PHASE_FLUSH
+}
+
+template <int MT>
+int launch_dw_f32(const float* r, const float* w, const uint8_t* mask, const float* g, int* plan,
+                  float* partial, float* dw, const TcDims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_bwd_dw_f32_kernel<MT>;
+  const size_t bytes = f32d_smem_bytes(8 * MT, d.D);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  damsm_dw_passes_kernel<<<1, kThreads, 0, st>>>(mask, plan, d);
+  k<<<dim3(d.Bc, nsplit), kThreads, bytes, st>>>(r, w, mask, g, plan, partial, d, nsplit);
+  if (partial != dw) launch_sum(partial, dw, 1, nsplit, int64_t(d.Bc) * d.T * d.D, st);
+  return int(cudaGetLastError());
+}
+
 // Dispatch on the operand type and on MB = rows per warp (4 for <= 32 word
 // rows per block, else 8).
 #define XMC_DAMSM_DISPATCH(LAUNCH, ...)                                            \
@@ -3515,6 +3829,16 @@ extern "C" int xmc_damsm_bwd_dw(const void* r, const void* w, const void* mask, 
     if (nq <= 12)
       return launch_dw_tcs<TCD_ROWS_768 / 16, 12, TCD_QREG>(r, w, m, gg, pl, p, o, t, nsplit, st);
     return launch_dw_tcs<TCD_ROWS_1024 / 16, 16, 0>(r, w, m, gg, pl, p, o, t, nsplit, st);
+  }
+  if (route == 2) {  // the fp32 kernel with packed words, in passes of `rows` word rows
+    const TcDims t = make_f32_dims(B, Bc, R, T, D, rows, g1, g2, r, w);
+    if (dtype != 0 || nsplit < 1 || plan == nullptr || !f32d_dims_ok(t))
+      return int(cudaErrorInvalidValue);
+    int* pl = static_cast<int*>(plan);
+    const float *rf = static_cast<const float*>(r), *wf = static_cast<const float*>(w);
+    return t.Mp == F32D_ROWS_256
+               ? launch_dw_f32<F32D_ROWS_256 / 8>(rf, wf, m, gg, pl, p, o, t, nsplit, st)
+               : launch_dw_f32<F32D_ROWS_1024 / 8>(rf, wf, m, gg, pl, p, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
   if (route != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);

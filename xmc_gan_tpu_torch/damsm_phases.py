@@ -1,21 +1,20 @@
-"""Where the damsm d_regions and forward kernels spend their cycles, phase by phase, on the card.
+"""Where the damsm kernels spend their cycles, phase by phase, on the card.
 
     python -m xmc_gan_tpu_torch.damsm_phases
 
 Builds ``csrc/damsm_score.cu`` with ``-DXMC_DAMSM_PHASES`` (the bf16
-tensor-core d_regions and forward kernels and the fp32 d_regions and forward
-with packed words then add each block's ``clock64()`` cycles between its
-barriers into per-phase counters), runs one launch of each kernel of that
-build through its wrapper, at the wrapper's own plan, at the flagship
-word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words, D = 256), and
-of the streamed bf16
-d_regions and forward and the wide fp32 d_regions and forward at the LN-COCO
-word shape (B = Bc = 256, R = 256, T = 200 as the sub-captions of the
-packed real words that ``damsm_scores`` hands them, 32 slots in bf16 and 16
-in fp32, D = 768), and prints
-the card, each
-launch's time (CUDA events) and its cycles per pass of each phase, summed
-over blocks.  Phases both bf16 flagship kernels have: pack
+tensor-core d_regions and forward kernels and the fp32 d_regions, forward
+and d_words with packed words then add each block's ``clock64()`` cycles
+between its barriers into per-phase counters), runs one launch of each
+kernel of that build through its wrapper, at the wrapper's own plan, at the
+flagship word-loss shape (B = Bc = 128, R = 256 regions, T = 20 words,
+D = 256), and of the streamed bf16 d_regions and forward, the wide fp32
+d_regions and forward and the fp32 d_words at the LN-COCO word shape
+(B = Bc = 256, R = 256, T = 200 as the sub-captions of the packed real
+words that ``damsm_scores`` hands them, 16 slots in bf16 and 8 in fp32,
+D = 768), and prints the card, each launch's time (CUDA events) and its
+cycles per pass of each phase, summed over blocks.  Phases both bf16
+flagship kernels have: pack
 (warp 0 packs the pass's real words), words (their load), sim + softmax
 (products W R^T, softmax, a to shared memory), c + rel (a R, norms, rel),
 regions (the block's one load, per pass; the forward's also writes the
@@ -42,7 +41,13 @@ wide fp32 d_regions has the fp32 d_regions' but d_c (norm): its d a
 products are one sweep that takes the context again a group at a time,
 its d_c over the group and its d a (column chunks), and it adds words
 again, the loads of a group's words before that group's d_r products.
-The counters cost time of their own (an
+The fp32 d_words (packed words, at the flagship shape and the LN word shape
+as the fp32 sub-captions) has the wide fp32 forward's phases, d rel, d_c
+(norm) (the last feature group's d_c, from the context the chain kept), d a
+products (one sweep: each other group's context again and d_c, each
+group's d_c R^T), d_sim, d_w products (d_sim R, a group's row chunks at a
+time, into d_w on chip) and d_w store (the pass's one store of d_w and the
+padded slots' 0).  The counters cost time of their own (an
 extra barrier a pass), so a launch is slower than the plain build's.  Needs
 a GPU and ``nvcc``; imports nothing of JAX.
 """
@@ -58,12 +63,13 @@ from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary
 
 # csrc/damsm_score.cu: the TC_PHASE slots (TC_NPHASE of them; [PASSES] counts passes)
-NPHASE, PASSES = 22, 10
+NPHASE, PASSES = 24, 10
 PHASES = {0: "pack", 1: "words", 2: "sim + softmax", 3: "c + rel", 4: "d rel", 5: "d_c",
           6: "d a + d_sim", 7: "d_r products", 8: "d_r read-modify-write", 9: "regions",
           11: "d_r barrier", 12: "scores", 13: "region waits", 14: "sim products",
           15: "softmax", 16: "c products", 17: "norm + rel", 18: "d_c (norm)",
-          19: "d a products", 20: "d_sim", 21: "words again"}
+          19: "d a products", 20: "d_sim", 21: "words again", 22: "d_w products",
+          23: "d_w store"}
 # each kernel's phases, in the order a pass runs them
 KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
                  "d_regions, streamed": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 13, 7, 8, 11),
@@ -72,7 +78,9 @@ KERNEL_PHASES = {"d_regions": (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 9),
                  "forward, streamed": (0, 1, 14, 15, 16, 17, 12, 13),
                  "forward, fp32": (0, 1, 14, 15, 16, 17, 12, 13),
                  "d_regions, fp32 wide": (0, 1, 14, 15, 16, 17, 4, 19, 20, 21, 13, 7, 8, 11),
-                 "forward, fp32 wide": (0, 1, 14, 15, 16, 17, 12, 13)}
+                 "forward, fp32 wide": (0, 1, 14, 15, 16, 17, 12, 13),
+                 "d_words, fp32": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 22, 23, 13),
+                 "d_words, fp32 wide": (0, 1, 14, 15, 16, 17, 4, 18, 19, 20, 22, 23, 13)}
 
 
 def phase_library() -> CudaLibrary:
@@ -113,7 +121,7 @@ def main() -> int:
     ln_w = norm(torch.randn(ln_b, ln_t, ln_d, generator=gen, device="cuda"), dim=-1)
     ln_mask = torch.rand(ln_b, ln_t, generator=gen, device="cuda") > 0.5
     ln_up = torch.randn(ln_b, ln_b, generator=gen, device="cuda")
-    # each dtype's own width (``sub_caption_width``: 32 slots in bf16, 16 in fp32)
+    # each dtype's own width (``sub_caption_width``: 16 slots in bf16, 8 in fp32)
     subs = {}
     for cd in (torch.bfloat16, None):
         ws, ms = ds.split_captions(ln_w, ln_mask, ds.sub_caption_width(R, ln_t, ln_d, cd))
@@ -141,6 +149,11 @@ def main() -> int:
                                  f"T={ln_t} as {tuple(w32.shape[:2])} sub-captions", ln_d),
         "forward, fp32 wide": (lambda: ds._launch_fwd(ln_r, w32, m32, 4.0, 5.0, None,
                                                       library=lib), ln_b, ln_mask,
+                               f"T={ln_t} as {tuple(w32.shape[:2])} sub-captions", ln_d),
+        "d_words, fp32": (lambda: ds._launch_bwd("dw", r, w, mask, up, 4.0, 5.0, None,
+                                                 library=lib), b, mask, f"T={T}", D),
+        "d_words, fp32 wide": (lambda: ds._launch_bwd("dw", ln_r, w32, m32, g32, 4.0, 5.0,
+                                                      None, library=lib), ln_b, ln_mask,
                                f"T={ln_t} as {tuple(w32.shape[:2])} sub-captions", ln_d),
     }
     print(card)

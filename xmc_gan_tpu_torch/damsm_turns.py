@@ -17,9 +17,10 @@ default all four), on inputs drawn anew for each set from one seed:
     drawn as ``chip_smoke.py`` draws it (about half the slots real, the
     padding scattered, caption 1 all padded, caption 2 with 4 words), each
     caption's real words as the sub-captions that ``damsm_scores`` hands
-    the kernels (each tree's own ``sub_caption_width``: 32 slots in bf16
-    where the d_words runs on the tensor cores, else 16), the backward
-    kernels with the cotangent its combine hands them;
+    the kernels (each tree's own ``sub_caption_width``: here 16 slots in
+    bf16 and 8 in fp32, half the least rows a pass of the route's
+    kernels), the backward kernels with the cotangent its combine hands
+    them;
   * "flagship": the flagship word loss (B = Bc = 128, R = 256, T = 20,
     D = 256, captions of 1 to 20 words), whose fp32 kernels the wide ones
     share device functions with.
@@ -35,7 +36,7 @@ turns, the order reversed every other round (A B, B A, ...), so a drift of
 the card's clocks falls on all alike.
 
 ``--sass`` compares the SASS of every kernel of the first two trees' builds
-whose name lacks ``f32w`` (the wide kernels are new).
+(a kernel of one build only is listed as missing or new).
 
 Prints the card's name and power limit, one JSON line per tree and turn, and
 each measurement's median over the rounds; ``--out`` also writes them as
@@ -140,7 +141,7 @@ def main() -> int:
     prebuild(trees, "from xmc_gan_tpu_torch.ops.cuda import damsm_score as ds, build; "
                     "build.load_all(getattr(ds, 'LIBRARIES', (ds.KERNEL,)))")
     if args.sass:
-        record.add("sass", sass(trees, "damsm_score.cu", keep=lambda name: "f32w" not in name))
+        record.add("sass", sass(trees, "damsm_score.cu"))
     sets = {k: v for k, v in SETS.items() if not args.sets or k in args.sets}
     in_turns(trees, args.rounds, CHILD, {"iters": args.iters, "sets": sets}, record)
     return 0

@@ -28,18 +28,20 @@ one pass of packed real words and a split of the images, d_w kept on chip
 across the images).  The tensor-core backward kernels also round ``d_c``
 and ``d_sim`` to bf16 before their products, as the Pallas kernel does
 (within one bf16 ulp of the largest gradient of the plain version).
-The fp32 forward and d_regions at R <= 256, D <= 1024 run on the CUDA cores
-in passes of packed real words with the regions streamed (``PACKED_FP32``,
-plans ``plan_fwd_f32`` and ``plan_dr_f32``): at D <= 256 with the context's
+The fp32 forward, d_regions and d_words at R <= 256, D <= 1024 run on the
+CUDA cores in passes of packed real words with the regions streamed
+(``PACKED_FP32``, plans ``plan_fwd_f32``, ``plan_dr_f32`` and
+``plan_dw_f32``): the forward and d_regions at D <= 256 with the context's
 [rows, D] sums in registers, above it (the wide kernels) a group of 256
-features at a time, never stored.  Everything else (the fp32 d_words, every
-bf16 kernel at wider R) runs on the CUDA-core kernels that take a caption
+features at a time, never stored; the d_words as the bf16 one's blocks
+(pass, split of the images) with d_w on chip across the images.  Every
+kernel at R > 256 runs on the CUDA-core kernels that take a caption
 sub-block per block (``plan``), for D <= 1024.
 
 Any T: a block holds at most 64 word rows, so where T does not fit
 ``damsm_scores`` moves each caption's real words to the front, drops the
 slots past the batch's longest caption and cuts the rest into k
-sub-captions of at most ``sub_caption_width`` slots (``split_captions``:
+sub-captions of ``sub_caption_width`` slots (``split_captions``:
 the last zero-padded, its padding masked), runs the kernels on the
 ``[Bc * k]`` sub-captions and combines their scores by
 ``combine_sub_scores``: ``score = logsumexp_k(gamma2 * s_sub) / gamma2``,
@@ -90,10 +92,12 @@ __all__ = [
     "combine_sub_scores",
     "cuda_core_rows",
     "kernel_name",
+    "packed_rows",
     "plan",
     "plan_dr",
     "plan_dr_f32",
     "plan_dw",
+    "plan_dw_f32",
     "plan_fwd",
     "plan_fwd_f32",
     "route",
@@ -172,6 +176,9 @@ F32_FWD_ROWS = (64,)
 F32W_MAX_D = 1024
 F32W_ROWS = (32, 24)
 F32W_DG = 256
+# the fp32 d_words (packed words, regions streamed at every D): word rows per
+# pass by the D they reach (32 to 256, 16 to 1024)
+F32D_ROWS = {256: 32, 1024: 16}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -183,19 +190,16 @@ def route(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     ``TENSOR_CORES`` for the bf16 forward, d_regions and d_words if and
     only if R <= 256 and D <= 1024 (the forward's and d_regions' regions
     resident at D <= 256, streamed above; the d_words' streamed at every
-    D); ``PACKED_FP32`` for the fp32 forward and d_regions if and only if
-    R <= 256 and D <= 1024 (passes of packed real words, the regions
-    streamed; the wide kernels above D = 256); ``CUDA_CORES`` for every
-    other launch.  T plays no part: the kernels see sub-captions of
-    at most 64 slots.  The launches, the plans, ``kernel_name`` and
-    ``sub_caption_width`` all read it."""
+    D); ``PACKED_FP32`` for every other compute dtype under the same rule
+    (passes of packed real words, the regions streamed; the wide forward
+    and d_regions above D = 256); ``CUDA_CORES`` for every launch at
+    R > 256.  So the three kernels of a call share one route.  T plays no
+    part: the kernels see sub-captions of at most 64 slots.  The launches,
+    the plans, ``kernel_name`` and ``sub_caption_width`` all read it."""
     if which not in ("fwd", "dr", "dw"):
         raise ValueError(f"which must be 'fwd', 'dr' or 'dw', got {which!r}")
-    if compute_dtype == torch.bfloat16 and R <= TC_MAX_RD and D <= TCS_MAX_D:
-        return TENSOR_CORES
-    if (which != "dw" and compute_dtype != torch.bfloat16 and R <= F32_MAX_RD
-            and D <= F32W_MAX_D):
-        return PACKED_FP32
+    if R <= TC_MAX_RD and D <= TCS_MAX_D:
+        return TENSOR_CORES if compute_dtype == torch.bfloat16 else PACKED_FP32
     return CUDA_CORES
 
 
@@ -309,6 +313,20 @@ def _f32w_smem(D: int, rows: int) -> int:
     return 4 * (rows * (sw + F32_S) + 2 * F32_MAX_RD * F32_SC + 11 * rows + 4)
 
 
+def _f32d_smem(D: int, rows: int) -> int:
+    """The fp32 d_words kernel's shared memory, as ``csrc/damsm_score.cu``
+    computes it (``f32d_smem_bytes``): the pass's words ``[rows, SW]`` as
+    the wide kernels' (``_f32w_smem``), a (d_sim in its place) and one
+    group of d_c ``[rows, F32_S]`` each, d_w's feature groups before the
+    last (that one in registers) ``[rows, (ng - 1) * 256 + 4]`` (none at
+    D <= 256), the two chunk buffers ``[256, F32_SC]`` and 11 fp32/int
+    words a row."""
+    ng = -(-D // F32W_DG)
+    swd = (ng - 1) * F32W_DG + 4 if ng > 1 else 0
+    sw = _round_up(D, F32W_DG) + 4
+    return 4 * (rows * (sw + 2 * F32_S + swd) + 2 * F32_MAX_RD * F32_SC + 11 * rows + 4)
+
+
 def _tcd_class(D: int) -> int:
     """The D limit of the tensor-core d_words' row choice that takes D
     (``TCD_ROWS``: by the region chunks its context takes, 4, 12 or 16);
@@ -399,24 +417,36 @@ def plan_dr(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     return _plan_tc("bf16 d_regions", R, T, D, b, bc, sms, _tc_kernel("dr", R, D))
 
 
-def plan_dw(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
-    """The bf16 tensor-core d_words kernel's plan (``_tc_kernel``): rows
-    per pass by D (64 to D = 256, 32 to 768, 16 to 1024).  Its blocks are
-    (pass, split of the b images); the passes depend on the mask, so the
-    splits fill the card's ``sms`` once from the passes as if every one of
-    the bc * T slots held a word: ``ceil(sms / ceil(bc * T / rows))``, at
-    most b.  ``captions`` is the images per split.  Raises for T above the
-    rows, R > 256 or D > 1024."""
-    rows, _, _, smem = _plan_tc("bf16 d_words", R, T, D, b, bc, sms, _tc_kernel("dw", R, D))
+def _plan_dw(what: str, R: int, T: int, D: int, b: int, bc: int, sms: int,
+             kernel: PackedKernel) -> TcPlan:
+    """A packed d_words kernel's plan: its rows per pass (``_plan_tc``).
+    Its blocks are (pass, split of the b images); the passes depend on the
+    mask, so the splits fill the card's ``sms`` once from the passes as if
+    every one of the bc * T slots held a word: ``ceil(sms / ceil(bc * T /
+    rows))``, at most b.  ``captions`` is the images per split."""
+    rows, _, _, smem = _plan_tc(what, R, T, D, b, bc, sms, kernel)
     passes = -(-bc * T // rows)
     nsplit = max(1, min(b, -(-sms // passes)))
     return TcPlan(rows, nsplit, -(-b // nsplit), smem)
 
 
+def plan_dw(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
+    """The bf16 tensor-core d_words kernel's plan (``_tc_kernel``,
+    ``_plan_dw``): rows per pass by D (64 to D = 256, 32 to 768, 16 to
+    1024).  Raises for T above the rows, R > 256 or D > 1024."""
+    return _plan_dw("bf16 d_words", R, T, D, b, bc, sms, _tc_kernel("dw", R, D))
+
+
 def _f32_kernel(which: str, D: int) -> PackedKernel:
-    """The packed fp32 kernel (``which``: "fwd" or "dr") that takes D: at
-    D <= 256 ``F32_FWD_ROWS`` or ``F32_ROWS`` rows (``_f32_smem``), above it
-    the wide kernels' ``F32W_ROWS`` (``_f32w_smem``)."""
+    """The packed fp32 kernel (``which``: "fwd", "dr" or "dw") that takes
+    D: the forward and d_regions at D <= 256 ``F32_FWD_ROWS`` or
+    ``F32_ROWS`` rows (``_f32_smem``), above it the wide kernels'
+    ``F32W_ROWS`` (``_f32w_smem``); the d_words one kernel, its rows by D
+    (``F32D_ROWS``, ``_f32d_smem``)."""
+    if which == "dw":
+        rows = F32D_ROWS[F32_MAX_RD if D <= F32_MAX_RD else F32W_MAX_D]
+        return PackedKernel(lambda m: _f32d_smem(D, m), (rows,), F32W_MAX_D,
+                            "damsm_bwd_dw_f32_kernel<")
     prefix = {"fwd": "damsm_fwd", "dr": "damsm_bwd_dr"}[which]
     if D > F32_MAX_RD:
         return PackedKernel(lambda m: _f32w_smem(D, m), F32W_ROWS, F32W_MAX_D,
@@ -442,14 +472,22 @@ def plan_fwd_f32(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
     return _plan_tc("fp32 forward", R, T, D, b, bc, sms, _f32_kernel("fwd", D))
 
 
+def plan_dw_f32(R: int, T: int, D: int, b: int, bc: int, sms: int) -> TcPlan:
+    """The fp32 d_words kernel's plan (``PACKED_FP32``, ``_f32_kernel``,
+    ``_plan_dw``): blocks (pass, split of the images) as the bf16 d_words',
+    32 rows a pass at D <= 256, 16 above.  Raises for R > 256, D > 1024, or
+    T above the rows."""
+    return _plan_dw("fp32 d_words", R, T, D, b, bc, sms, _f32_kernel("dw", D))
+
+
 def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     """The start of the name under which a profiler trace shows the kernel
     that ``which`` ("fwd", "dr" or "dw") launches at R, D and compute dtype
     (``route``): on the tensor cores with the regions resident
     (``_tc_kernel<``) or streamed (``_tcs_kernel<``; the d_words at every
-    D), the fp32 forward and d_regions with packed words (``_f32_kernel<``;
-    ``_f32w_kernel<`` at D > 256), else on the CUDA cores (templated on the
-    operand type, except the forward's kernels)."""
+    D), the fp32 kernels with packed words (``_f32_kernel<``; the forward's
+    and d_regions' ``_f32w_kernel<`` at D > 256), else on the CUDA cores
+    (templated on the operand type, except the forward's kernels)."""
     rt = route(which, R, D, compute_dtype)
     if rt == TENSOR_CORES:
         return _tc_kernel(which, R, D).name
@@ -461,29 +499,34 @@ def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -
             "dw": "damsm_bwd_dw_kernel<"}[which]
 
 
+def packed_rows(R: int, D: int, compute_dtype: torch.dtype | None) -> int:
+    """The least word rows a pass of the three packed kernels of the route
+    (``TENSOR_CORES`` or ``PACKED_FP32``) take at R, D: each the largest of
+    its rows whose shared memory fits."""
+    if route("fwd", R, D, compute_dtype) == TENSOR_CORES:
+        kernels = [_tc_kernel(which, R, D) for which in ("fwd", "dr", "dw")]
+    else:
+        kernels = [_f32_kernel(which, D) for which in ("fwd", "dr", "dw")]
+    return min(_tc_rows(k.smem, k.rows) for k in kernels)
+
+
 def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None) -> int:
-    """Word slots per sub-caption: T where every kernel of the route holds
-    one caption of T slots, else the largest width they all hold (at most
-    64).  Where a kernel of the route runs on the CUDA cores (the fp32
-    d_words; every bf16 kernel at R > 256), the CUDA-core backward's rows
-    (``cuda_core_rows``), fewer than the CUDA-core forward's; the bf16
-    kernels' rows where ``route`` puts them on the tensor cores (all three
-    at R <= 256, D <= 1024), and the fp32 forward's and d_regions' where
-    they pack their words (64 and 48 rows a pass at D <= 256, 32 or 24
-    above).  A pure function of the shape: the CPU splits as the card does.
-    Raises for D > 1024 or where not one word row fits in shared memory."""
+    """Word slots per sub-caption.  On the packed routes (R <= 256,
+    D <= 1024): T where T fits the least rows a pass of the route's three
+    kernels (``packed_rows``: no split, as the flagship's T = 20), else half
+    of those rows (rows are multiples of 8: 32, 24, 16, 12 or 8 slots), so
+    that a caption's last, partial sub-caption shares a pass with the next
+    caption's.  On the CUDA cores (R > 256): the least of T and the
+    CUDA-core backward's rows (``cuda_core_rows``), fewer than the
+    forward's.  A pure function of the shape: the CPU splits as the card
+    does.  Raises for D > 1024 or where not one word row fits in shared
+    memory."""
     if D > MAX_DP:
         raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
-    routes = {which: route(which, R, D, compute_dtype) for which in ("fwd", "dr", "dw")}
-    width = MAX_ROWS
-    if CUDA_CORES in routes.values():
-        width = cuda_core_rows(R, D, backward=True)
-    for which, rt in routes.items():
-        if rt == TENSOR_CORES:
-            width = min(width, _tc_rows(*_tc_kernel(which, R, D)[:2]))
-    if routes["dr"] == PACKED_FP32:  # the forward packs under the same rule
-        width = min(width, _tc_rows(*_f32_kernel("fwd", D)[:2]),
-                    _tc_rows(*_f32_kernel("dr", D)[:2]))
+    if route("fwd", R, D, compute_dtype) != CUDA_CORES:
+        rows = packed_rows(R, D, compute_dtype)
+        return T if T <= rows else rows // 2
+    width = cuda_core_rows(R, D, backward=True)
     if width < 1:
         per_row, fixed = _cuda_core_smem(R, D, backward=True)
         raise ValueError(f"damsm_score: R={R}, D={D} does not fit in shared memory (a word "
@@ -646,11 +689,10 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
     bc, T, _ = w.shape
     g = g.float().contiguous()
     rt = route(which, R, D, cd)
-    if rt == TENSOR_CORES:  # passes of `rows` word rows
-        planner = plan_dr if which == "dr" else plan_dw
+    if rt != CUDA_CORES:  # passes of `rows` word rows
+        planner = {(TENSOR_CORES, "dr"): plan_dr, (TENSOR_CORES, "dw"): plan_dw,
+                   (PACKED_FP32, "dr"): plan_dr_f32, (PACKED_FP32, "dw"): plan_dw_f32}[rt, which]
         vb, (rows, nsplit) = 0, planner(R, T, D, b, bc, _sms(r.device))[:2]
-    elif rt == PACKED_FP32:
-        vb, (rows, nsplit) = 0, plan_dr_f32(R, T, D, b, bc, _sms(r.device))[:2]
     else:
         vb, rows = plan(R, T, D, True, bc)[0], 0
         nsub = -(-bc // vb)
@@ -666,7 +708,7 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
         partial = out if nsplit == 1 else torch.empty(
             nsplit, bc, T, D, device=r.device, dtype=torch.float32)
         plan_buf = torch.empty(bc + 2, device=r.device, dtype=torch.int32) \
-            if rt == TENSOR_CORES else None  # the passes, cut on the card
+            if rt != CUDA_CORES else None  # the passes, cut on the card
         fn, counter = lib.xmc_damsm_bwd_dw, D_WORDS
         scratch = (plan_buf.data_ptr() if plan_buf is not None else None,)
     with torch.cuda.device(r.device):
