@@ -69,8 +69,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    of T = 15, D = 4, N from 256 to 65,536, the grouped queries read
    strided: ``attn_grouped``), the ``CONCEPT_OUTATTN_GEN`` shape, the JAX
    package's kernel shape (N = 300, T = 260, D = 32), a D = 256 one, a
-   ragged one and ``attn_grouped``'s edges (``ATTN_EXTRA``), with a
-   fully padded row (0 in both), each shape's planned kernel logged; the
+   ragged one, ``attn_grouped``'s edges and ``attn_short``'s
+   (``ATTN_EXTRA``: the Out block's operands at the request's and the 64²
+   step's shapes and around the plan's limits), with a fully padded row
+   (0 in both), each shape's planned kernel logged, the ``attn_short``
+   launches twice bit-equal and by the profiler's names; the
    ``fused_affine`` single form's backward at every shape of the published
    ``concept_out_df_gan.yml`` step (batch 88, 128 channels, D's 32² to 4²,
    G's 4² to 64²) and its double backward (``fused_affine_bwd2_vec``, what
@@ -104,7 +107,9 @@ Phases (any failure raises, and the exit code is then non-zero):
    forward / backward / double-backward launches a step asserted), (f) a
    step of each word-attention generator (``concept_in_df_gan.yml`` with
    ``GEN.ENCODER_NAME`` set, NCH=8, 64², batch 4, two steps: the card's
-   12 / 6 ``cross_attention`` forward / backward launches a step asserted),
+   12 / 6 ``cross_attention`` forward / backward launches a step asserted,
+   and on a third card step by the profiler's names, ``attn_short`` for
+   every Out forward),
    (g) the train slice of (b) with ``ENCODER_LOSS.VGG`` on (the same random
    VGG-19 on both).
 5. Full-width serving: random caption ids (batch 128, mixed lengths) ->
@@ -113,7 +118,7 @@ Phases (any failure raises, and the exit code is then non-zero):
    (``concept_in_df_gan.yml``, T = 15, NCH=32, 256²); checks each request's
    kernel launches (DF_GEN: fused_affine 14; CONCEPT_IN/OUT_DF_GEN:
    fused_affine 28; CONCEPT_INATTN/OUTATTN_GEN: cross_attention 10, by the
-   profiler's names ``attn_grouped`` for In and ``attn_small`` for Out;
+   profiler's names ``attn_grouped`` for In and ``attn_short`` for Out;
    nothing else), that the images are finite, in [-1, 1] and of the right
    shape, and prints images/s (median of 5), peak memory, and where one request's
    device time goes (``torch.profiler``, by kernel category; every trace
@@ -133,7 +138,7 @@ Phases (any failure raises, and the exit code is then non-zero):
    serves a 128-row and a 3-row request of each: launches counted by the
    wrappers (14 ``fused_affine``; 10 ``cross_attention``, nothing else)
    and by the profiler's names (``fused_affine_vec``, ``attn_grouped`` for
-   In, ``attn_small`` for Out), the request's median of 5; the images held
+   In, ``attn_short`` for Out), the request's median of 5; the images held
    to ``make_sample_fn``'s on the same weights and inputs (``EXPORT_TOL``:
    fp32, TF32 off, 1e-5 or twice the spread of two ``make_sample_fn`` runs
    where cuDNN's fp32 algorithms make that larger; bf16 one bf16 ulp), and
@@ -278,7 +283,8 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``cross_attention`` backward at the 6 In and the 6 Out launches of one
    64² word-attention step, with SDPA's forward and backward as a
    yardstick, and an empty kernel's device time beside the Out rows (the
-   launch floor).
+   launch floor); the Out forward row also with the wrapper's host µs a
+   call and the 64² OUTATTN step's 12 forward launches.
 8. Before the ``kernels`` line, the seconds of every phase (``[t]``; each
    phase also prints its own as it ends).  Last line: ``{"ok": true,
    "device": {...}}``.
@@ -365,7 +371,7 @@ KERNEL_PATTERN = {"fused_affine.forward": r"fused_affine_(vec|scalar)<",
                   "fused_affine.double_backward": r"fused_affine_bwd2_vec<",
                   "damsm_score.forward": r"damsm_fwd", "damsm_score.d_regions": r"damsm_bwd_dr",
                   "damsm_score.d_words": r"damsm_bwd_dw",
-                  "cross_attention.forward": r"attn_(small|wide|grouped)<",
+                  "cross_attention.forward": r"attn_(small|wide|grouped|short)<",
                   "cross_attention.backward": r"attn_bwd(_warp)?<"}
 # launches of one flagship_word train step
 STEP_LAUNCHES = {"fused_affine.forward": 28, "fused_affine.backward": 14,
@@ -431,15 +437,26 @@ ATTN_SCALE = 0.7  # any scale; the generators use 1
 # G, D, T] in memory) and with them its queries as they come on the card
 # ("planes": [B, G, D, N], as a CUDA GroupNorm leaves them), and the shapes
 # next to it that attn_small takes (T = 33, G = 12, dense queries, planes
-# off 16 bytes); the In shapes come from attention_shapes, as rows and as
-# planes
+# off 16 bytes); then attn_short's: the Out block's operands ("out": [B, N,
+# D] and [B, T, D], l2-normalized, the keys passed as the values) at the
+# request and the 64² step (T = 15, 20), N = 17 and 32 (a lane a query), T
+# = 1 and 32, D = 1 and 3, G = 3, 8,192 rows (four warps a block), values
+# apart from the keys, and next to it N = 33 and T = 33 (attn_small); the
+# In shapes come from attention_shapes, as rows and as planes
 ATTN_EXTRA = [(BATCH, 1, 16, 15, 4, False, False), (2, 1, 300, 260, 32, False, False),
               (4, 1, 1024, 200, 256, False, False), (3, 2, 77, 33, 48, True, True),
               (3, 16, 77, 15, 4, True, True), (3, 16, 80, 15, 4, "planes", True),
               (2, 16, 300, 32, 4, "sampler", True), (3, 8, 96, 20, 4, "planes", True),
               (2, 32, 130, 15, 4, True, True), (2, 16, 300, 33, 4, True, True),
               (2, 12, 50, 15, 4, True, True), (2, 16, 300, 15, 4, False, True),
-              (2, 16, 77, 15, 4, "planes", True)]
+              (2, 16, 77, 15, 4, "planes", True),
+              (BATCH, 1, 16, 15, 4, "out", True), (88, 1, 16, 15, 4, "out", True),
+              (88, 1, 16, 20, 4, "out", True), (88, 1, 17, 15, 4, "out", True),
+              (88, 1, 32, 32, 4, "out", True), (88, 1, 16, 1, 4, "out", True),
+              (5, 1, 16, 15, 1, "out", True), (5, 1, 32, 20, 3, "out", True),
+              (4, 3, 16, 15, 4, "out", True), (2048, 4, 16, 15, 4, "out", True),
+              (88, 1, 16, 15, 4, False, True), (88, 1, 33, 15, 4, "out", True),
+              (88, 1, 16, 33, 4, "out", True)]
 # cross_attention backward vs plain (``ca.masked_cross_attention_bwd_ref``),
 # each gradient to rtol and to atol times its largest magnitude.  fp32: the
 # same math in another order (scores in log2 units through exp2, dk and dv
@@ -482,7 +499,7 @@ ATTN_GENS = {"CONCEPT_INATTN_GEN": "in", "CONCEPT_OUTATTN_GEN": "out"}
 # phase 6e: steps of Trainer.fit for each word-attention generator and dtype
 ATTN_LOOP_STEPS = 4
 # the kernel each word-attention request launches, as the profiler names it
-REQUEST_ATTN_KERNEL = {"CONCEPT_INATTN_GEN": "attn_grouped<", "CONCEPT_OUTATTN_GEN": "attn_small<"}
+REQUEST_ATTN_KERNEL = {"CONCEPT_INATTN_GEN": "attn_grouped<", "CONCEPT_OUTATTN_GEN": "attn_short<"}
 # card vs CPU, fp32 with TF32 off: summation order of cuDNN vs CPU kernels
 SLICE_TOL = {"words": 1e-4, "sent": 1e-4, "images": 2e-3}
 # train slice, card vs CPU after two steps (fp32, TF32 off).  Metrics to 1e-4
@@ -709,7 +726,7 @@ def ln_cfg(overrides: dict | None = None):
 
 def kernel_category(name: str) -> str:
     n = name.lower()
-    if "attn_small" in n or "attn_wide" in n or "attn_grouped" in n:
+    if any(k in n for k in ("attn_small", "attn_wide", "attn_grouped", "attn_short")):
         return "cross_attention"
     if "attn_bwd" in n:
         return "cross_attention backward"
@@ -1481,10 +1498,16 @@ def attention_inputs(shape, dtype, gen, allpad: bool):
     memory, viewed as [B, G, N, D]; l2-normalized like its operands.
     "sampler": k lies as the sampler's keys with GEN.NORMALIZE, [B, G, D, T];
     "planes": q too, [B, G, D, N], as a CUDA GroupNorm leaves the query map
-    (the In sampler's operands on the card)."""
+    (the In sampler's operands on the card).  "out": the Out block's, q
+    [B, (G,) N, D] and k [B, (G,) T, D] dense and l2-normalized, the keys
+    passed as the values."""
     b, g, n, t, d, strided = shape[:6]
     norm = torch.nn.functional.normalize
-    if strided:
+    if strided == "out":
+        q, k = (norm(torch.randn(b, g, m, d, generator=gen, device="cuda"), dim=-1).squeeze(1)
+                .to(dtype) for m in (n, t))
+        v = k
+    elif strided:
         q = norm(torch.randn(b, n, g, d, generator=gen, device="cuda"), dim=-1).to(dtype)
         k = norm(torch.randn(b, t, g, d, generator=gen, device="cuda"), dim=-1).to(dtype)
         q, k = q.transpose(1, 2), k.transpose(1, 2)
@@ -1506,7 +1529,9 @@ def attention_inputs(shape, dtype, gen, allpad: bool):
 def check_attention(in_shapes) -> dict:
     """Phase 3, cross_attention: the wrapper the concept models call vs the
     plain version at the distinct In shapes of a 256² request (batch 128)
-    and ``ATTN_EXTRA``, fp32 and bf16."""
+    and ``ATTN_EXTRA``, fp32 and bf16; where ``plan`` names ``attn_short``,
+    also two launches bit-equal and, from one whole trace of them all, the
+    profiler's name of each the planned one."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     shapes = [(*s, layout, False) for s in sorted(set(in_shapes)) for layout in (True, "planes")]
     shapes += ATTN_EXTRA
@@ -1514,10 +1539,11 @@ def check_attention(in_shapes) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = ATTN_TOL[dtype]
         worst = 0.0
-        planned = []
+        planned, short = [], []
         for shape in shapes:
             q, k, v, mask = attention_inputs(shape, dtype, gen, shape[6])
-            planned.append(ca.kernel_name(ca.plan_for(q, k), dtype, shape[4]))
+            p = ca.plan_for(q, k)
+            planned.append(ca.kernel_name(p, dtype, shape[4]))
             got = ca.masked_cross_attention_kernel(q, k, v, mask, ATTN_SCALE)
             want = ca.masked_cross_attention_ref(q, k, v, mask, ATTN_SCALE)
             torch.cuda.synchronize()
@@ -1525,12 +1551,32 @@ def check_attention(in_shapes) -> dict:
             if shape[6] and not (bool((got[0] == 0).all()) and bool((want[0] == 0).all())):
                 raise AssertionError("cross_attention: a fully padded row did not give 0")
             worst = max(worst, (got.float() - want.float()).abs().max().item())
-            del q, k, v, mask, got, want
-            torch.cuda.empty_cache()
+            if p.kernel == ca.SHORT:
+                if not torch.equal(got, ca.masked_cross_attention_kernel(q, k, v, mask,
+                                                                         ATTN_SCALE)):
+                    raise AssertionError(f"cross_attention {shape}: two attn_short runs differ")
+                short.append((planned[-1], (q, k, v, mask)))
+            del got, want
+            if p.kernel != ca.SHORT:
+                del q, k, v, mask
+                torch.cuda.empty_cache()
+        seen = [x["name"] for x in device_kernels(
+            lambda: [ca._launch(*c, ATTN_SCALE) for _, c in short],
+            expect={KERNEL_PATTERN["cross_attention.forward"]: len(short)})[0]
+            if re.search(KERNEL_PATTERN["cross_attention.forward"], x["name"])]
+        want_names = [w for w, _ in short]
+        if sorted(next((w for w in set(want_names) if w in n), n) for n in seen) != sorted(
+                want_names):
+            raise AssertionError(f"cross_attention {DTYPE_NAME[dtype]}: kernels {seen}, "
+                                 f"planned {want_names}")
         errs[dtype] = worst
         log(f"[3] cross_attention {DTYPE_NAME[dtype]}: max_abs_err {worst:.3g} over "
             f"{len(shapes)} shapes (B, G, N, T, D, strided, padded row) and the kernels the "
-            f"plan names: {list(zip(shapes, planned))} (tolerance rtol {rtol:g} atol {atol:g})")
+            f"plan names: {list(zip(shapes, planned))} (tolerance rtol {rtol:g} atol {atol:g}); "
+            f"the {len(short)} attn_short launches two runs bit-equal, by the profiler's names "
+            f"{sorted(set(want_names))}")
+        del short
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1636,6 +1682,16 @@ def check_attention_bwd(step_in, step_out) -> dict:
     return errs
 
 
+def attention_names(name: str, per_step: dict[str, int]) -> dict[str, int]:
+    """One step's attention launches of word-attention generator ``name``
+    by the profiler's names: every forward the request's kernel
+    (``REQUEST_ATTN_KERNEL``), no other forward, the backward's count."""
+    fwd = per_step["cross_attention.forward"]
+    return {re.escape(REQUEST_ATTN_KERNEL[name]): fwd,
+            KERNEL_PATTERN["cross_attention.forward"]: fwd,
+            KERNEL_PATTERN["cross_attention.backward"]: per_step["cross_attention.backward"]}
+
+
 def check_slice_against_cpu(cfg, g_cpu) -> None:
     """Phase 4a: encoder + NetG at 256², NCH=32, batch 4, fp32, TF32 off."""
     torch.backends.cudnn.allow_tf32 = False
@@ -1691,13 +1747,16 @@ def param_agreement(want_sds, got_sds, lr: float) -> tuple[float, float, float, 
     return n_close / n_all, worst, worst_uv, n_all
 
 
-def check_train_against_cpu(cfg, label: str, mask_fn, want: dict[str, int]) -> None:
+def check_train_against_cpu(cfg, label: str, mask_fn, want: dict[str, int],
+                            names: dict[str, int] | None = None) -> None:
     """Phase 4b, 4d-4g: two fp32 train steps at batch 4 on the card and on
     the CPU from the same perturbed weights (with ``ENCODER_LOSS.VGG``, the
     same random VGG-19), the word masks from ``mask_fn``; the card's run
     launches ``want`` of the kernels it names (4b, 4d, 4g: the word scores
     through the damsm kernels; 4e, 4f: every count of the step, the 0 of
-    the others)."""
+    the others).  ``names`` (4f): a third card step, traced after the
+    comparison, launches that many kernels by the profiler's names
+    (``device_kernels``' ``expect``)."""
     cpu = create_train_state(cfg, device="cpu", seed=3)
     g_sd, d_sd = perturbed_state_dict(cpu.g, 4), perturbed_state_dict(cpu.d, 5)
     cpu = create_train_state(cfg, device="cpu", g_state_dict=g_sd, d_state_dict=d_sd)
@@ -1732,6 +1791,9 @@ def check_train_against_cpu(cfg, label: str, mask_fn, want: dict[str, int]) -> N
         f"{worst:.3g} (bound {4 * lr:.2g}); u/v worst {worst_uv:.3g}; launches {counts}")
     if share < TRAIN_TOL["param_share"] or worst > 4 * lr or worst_uv > TRAIN_TOL["uv"]:
         raise AssertionError(f"{label}: card and CPU parameters differ beyond the tolerance")
+    if names:
+        device_kernels(lambda: step_card(card, batch, noise, vgg_card), expect=names)
+        log(f"[4] {label}: a third card step's kernels by the profiler's names {names}")
 
 
 def concept_cfg(name: str, size: int = 256, nch: int = 32):
@@ -2399,8 +2461,9 @@ def _attn_loop(card: str, name: str, dtype, root: str) -> dict:
         tr.step_fn(tr.state, batch, noise)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    kernels, busy_ms, wall_ms = device_kernels(lambda: tr.step_fn(tr.state, batch, noise),
-                                               expect=launch_patterns(step_launches))
+    kernels, busy_ms, wall_ms = device_kernels(
+        lambda: tr.step_fn(tr.state, batch, noise),
+        expect={**launch_patterns(step_launches), **attention_names(name, step_launches)})
     fwd = sorted({k["name"] for k in kernels if kernel_category(k["name"]) == "cross_attention"})
     bwd = sorted({k["name"] for k in kernels
                   if kernel_category(k["name"]) == "cross_attention backward"})
@@ -3693,7 +3756,7 @@ def own_kernel_times() -> dict[str, float]:
             KERNEL_PATTERN["fused_affine.double_backward"], len(bwd2))
         del bwd, bwd2
         torch.cuda.empty_cache()
-        for which, strided in (("in", "planes"), ("out", False)):
+        for which, strided in (("in", "planes"), ("out", "out")):
             calls = [attention_inputs((*sh, strided), dtype, gen, False) for sh in attn[which]]
             out[f"cross_attention.{which}[{DTYPE_NAME[dtype]}]"] = own(
                 lambda: [ca._launch(q, k, v, mask, 1.0) for q, k, v, mask in calls],
@@ -3965,19 +4028,38 @@ def modulation_rows(shapes, errs, launches) -> list[dict]:
     return rows
 
 
-def attention_rows(in_shapes, out_shapes, errs, launches, own_ms) -> list[dict]:
+def host_us_per_call(fn, calls: int, reps: int = 200) -> float:
+    """The host's µs a call of ``fn``'s ``calls`` wrapper calls, ``reps``
+    times on the host clock: what it takes to plan and enqueue, where the
+    device keeps up (synchronized before and after, outside the time)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / (reps * calls) * 1e6
+
+
+def attention_rows(in_shapes, out_shapes, errs, launches, own_ms, train_launches) -> list[dict]:
     """Phase 7, cross_attention: the 10 launches of one 256² INATTN request
     and of one OUTATTN request (batch 128), per dtype, the In queries as
-    planes as the sampler hands them over on the card: kernel vs plain vs
-    ``scaled_dot_product_attention`` (a yardstick on the same inputs: it
-    computes the same function except on fully padded rows, and is used
-    nowhere in the port) vs bound."""
+    planes as the sampler hands them over on the card, the Out operands as
+    its block hands them over (l2-normalized, the keys passed as the
+    values): kernel vs plain vs ``scaled_dot_product_attention`` (a
+    yardstick on the same inputs: it computes the same function except on
+    fully padded rows, and is used nowhere in the port) vs bound; the Out
+    rows also with 10 empty kernels' device time (the launch floor), the
+    wrapper's host µs a call (``masked_cross_attention_kernel``) and the
+    64² OUTATTN train step's forward launches (``train_launches``, phase
+    6e)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        es = torch.empty((), dtype=dtype).element_size()
+        es = dtype.itemsize
         for which, shapes in (("in", in_shapes), ("out", out_shapes)):
-            strided = "planes" if which == "in" else False
+            strided = "planes" if which == "in" else "out"
             ins = {s: attention_inputs((*s, strided), dtype, gen, False)
                    for s in sorted(set(shapes))}
             calls = [ins[s] for s in shapes]
@@ -4023,12 +4105,24 @@ def attention_rows(in_shapes, out_shapes, errs, launches, own_ms) -> list[dict]:
                 "shapes": f"the {len(shapes)} launches of one 256² NCH=32 {gen_name} request at "
                           f"batch {BATCH}: (B, G, N, T, D) {sorted(set(shapes))}"
                           + (", the queries as planes [B, G, D, N] and the keys [B, G, D, T], "
-                             "as the sampler hands them over on the card" if strided else ""),
+                             "as the sampler hands them over on the card" if which == "in" else
+                             ", l2-normalized, the keys passed as the values"),
             })
+            extra = ""
+            if which == "out":
+                row = rows[-1]
+                row["empty_kernel_ms"] = own_ms["empty_kernel"] * len(shapes)
+                row["launches_train_step"] = train_launches[dtype]
+                row["host_us_per_call"] = host_us_per_call(
+                    lambda: [ca.masked_cross_attention_kernel(q, k, v, mask)
+                             for q, k, v, mask in calls], len(calls))
+                extra = (f"; {len(shapes)} empty kernels {row['empty_kernel_ms']:.4f} ms; the "
+                         f"wrapper {row['host_us_per_call']:.1f} µs of host a call; "
+                         f"{row['launches_train_step']} launches a 64² train step")
             log(f"[7] {rows[-1]['name']} ({rows[-1]['kernel']}): {len(shapes)} launches "
-                f"{ms:.3f} ms, of it {kernel_ms:.3f} ms in the kernels (bound {bound:.4g} ms by "
+                f"{ms:.3f} ms, of it {kernel_ms:.4f} ms in the kernels (bound {bound:.4g} ms by "
                 f"{rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain "
-                f"{plain_ms:.3f} ms, scaled_dot_product_attention {library_ms:.3f} ms")
+                f"{plain_ms:.3f} ms, scaled_dot_product_attention {library_ms:.3f} ms" + extra)
             del ins, calls
             torch.cuda.empty_cache()
     return rows
@@ -4308,7 +4402,8 @@ def main() -> int:
             wcfg = concept_cfg(name, 64, 8)
             per = attn_step_launches(wcfg, name)
             check_train_against_cpu(wcfg, f"{name} step (fp32, NCH=8, 64², batch 4), 2 steps",
-                                    prefix_mask, {k: 2 * n for k, n in per.items()})
+                                    prefix_mask, {k: 2 * n for k, n in per.items()},
+                                    attention_names(name, per))
         check_train_against_cpu(cfg_from_dict({"TRAIN": {"ENCODER_LOSS": {"VGG": True}}},
                                               base=cfg_from_dict(SLICE_CFG)),
                                 "train slice with ENCODER_LOSS.VGG (random VGG-19)", prefix_mask,
@@ -4410,7 +4505,9 @@ def main() -> int:
     kernels += attention_rows(
         [s[:5] for s in attn_in], [s[:5] for s in attn_out], ca_errs,
         {name: {d: r["cross_attention.forward"] for d, r in req[name].items()}
-         for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")}, own_ms)
+         for name in ("CONCEPT_INATTN_GEN", "CONCEPT_OUTATTN_GEN")}, own_ms,
+        {d: r["launches_step"]["cross_attention.forward"]
+         for d, r in attn_loops["CONCEPT_OUTATTN_GEN"].items()})
     # the exported requests' launches (phase 5d) beside the eager path's
     for r in exported:
         which = {"DF_GEN": "fused_affine.double_modulate_lrelu", "CONCEPT_INATTN_GEN":

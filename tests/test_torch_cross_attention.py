@@ -160,6 +160,12 @@ def _planes(b, g, n, d):
     return (g * d * n, d * n, 1, n)
 
 
+def _dense(g, n, d):
+    """q's strides as a dense [B, G, N, D] (the Out sampler's [B, N, D]
+    seen with G = 1)."""
+    return (g * n * d, n * d, d, 1)
+
+
 # (B, G, N, T, D, q's strides, q's address mod 16, the kernel, planes)
 PLAN_CASES = [(128, 16, n, 15, 4, _rows(128, 16, n, 4), 0, ca.GROUPED, False) for n in IN_NS] + [
     (128, 16, n, 15, 4, _planes(128, 16, n, 4), 0, ca.GROUPED, True) for n in IN_NS] + [
@@ -177,7 +183,19 @@ PLAN_CASES = [(128, 16, n, 15, 4, _rows(128, 16, n, 4), 0, ca.GROUPED, False) fo
     (2, 16, 77, 15, 4, _planes(2, 16, 77, 4), 0, ca.SMALL, False),       # planes off 16 bytes
     (2, 16, 64, 15, 4, (16 * 64 * 4, 1, 32, 16), 0, ca.SMALL, False),    # no layout it reads
     (2, 16, 64, 15, 4, _rows(2, 16, 64, 4), 8, ca.SMALL, False),         # q off 16 bytes
-    (128, 1, 16, 15, 4, (64, 64, 4, 1), 0, ca.SMALL, False),             # the Out sampler's
+    (128, 1, 16, 15, 4, _dense(1, 16, 4), 0, ca.SHORT, False),            # the Out sampler's
+    (88, 1, 16, 15, 4, _dense(1, 16, 4), 0, ca.SHORT, False),             # the 64² step's
+    (88, 1, 16, 20, 4, _dense(1, 16, 4), 0, ca.SHORT, False),             # T = 20
+    (88, 1, 32, 15, 4, _dense(1, 32, 4), 0, ca.SHORT, False),             # N at attn_short's cap
+    (88, 1, 33, 15, 4, _dense(1, 33, 4), 0, ca.SMALL, False),             # past it
+    (88, 1, 16, 32, 4, _dense(1, 16, 4), 0, ca.SHORT, False),             # T at its cap
+    (88, 1, 16, 33, 4, _dense(1, 16, 4), 0, ca.SMALL, False),             # past it
+    (88, 1, 16, 0, 4, _dense(1, 16, 4), 0, ca.SMALL, False),              # no words
+    (88, 1, 16, 15, 5, _dense(1, 16, 5), 0, ca.SMALL, False),             # D past 4
+    (88, 1, 1, 1, 1, _dense(1, 1, 1), 4, ca.SHORT, False),                # the least of all
+    (2, 3, 16, 15, 4, _dense(3, 16, 4), 0, ca.SHORT, False),              # G = 3
+    (2, 16, 16, 15, 4, _rows(2, 16, 16, 4), 0, ca.GROUPED, False),        # attn_grouped first
+    (2048, 4, 17, 20, 3, _dense(4, 17, 3), 0, ca.SHORT, False),           # 8,192 rows
     (2, 1, 300, 260, 32, (300 * 32, 300 * 32, 32, 1), 0, ca.SMALL, False),  # the JAX tests'
     (2, 16, 64, 15, 8, _rows(2, 16, 64, 8), 0, ca.SMALL, False),         # rows of D = 8
     (3, 2, 77, 33, 48, _rows(3, 2, 77, 48), 0, ca.WIDE, False),
@@ -202,6 +220,11 @@ def test_plan_names_the_kernel_its_precondition_says(b, g, n, t, d, strides, add
         splits = p.blocks // b
         assert p.blocks == b * splits and 1 <= p.tiles_per_block <= 16
         assert (splits - 1) * p.tiles_per_block < ntiles <= splits * p.tiles_per_block
+    elif kernel == ca.SHORT:  # a warp a (b, g) row; its word slots and lanes a query
+        assert p.threads == 32 * p.tile and p.tile == (1 if b * g <= 4096 else 4)
+        assert p.blocks == -(-b * g // p.tile) and p.tiles_per_block == 1
+        assert (p.tmax, p.split) == (16 if t <= 16 else 32, 2 if n <= 16 else 1)
+        assert p.tmax >= t and n * p.split <= 32
     else:
         assert p.tiles_per_block == 1 and p.blocks == b * g * -(-n // p.tile)
 
@@ -313,3 +336,77 @@ def test_launch_hands_the_entry_the_plan(monkeypatch):
     args = calls[-1]
     assert args[27] == ca._KERNEL_CODE[ca.SMALL] and args[14:18] == (3 * t * d, t * d, d, 1)
     assert args[1] != k1.data_ptr() and args[2] != k1.data_ptr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_plan_names_attn_short_at_the_out_shapes(dtype):
+    """The Out sampler's launch at a 256² request and the 64² train step's
+    (T = 15 and 20): ``attn_short``, a warp a row, one wave of one-warp
+    blocks, by the name the profiler gives its template instance."""
+    name = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    for b, t, tmax in ((128, 15, 16), (88, 15, 16), (88, 20, 32)):
+        p = ca.plan(b, 1, 16, t, 4, _dense(1, 16, 4), dtype)
+        assert p == ca.Plan(ca.SHORT, False, 32, b, 1, 1, tmax, 2)
+        assert ca.kernel_name(p, dtype, 4) == f"attn_short<{name}, {tmax}, 2>"
+    p = ca.plan(88, 1, 17, 15, 4, _dense(1, 17, 4), dtype)
+    assert ca.kernel_name(p, dtype, 4) == f"attn_short<{name}, 16, 1>"
+
+
+def test_plan_allocates_nothing_and_is_memoized(monkeypatch):
+    """``plan`` reads the element size from the type, not from a tensor it
+    allocates, and gives the one plan for one set of arguments, where q's
+    address counts only by its 16-byte alignment."""
+    def no_alloc(*args, **kwargs):
+        raise AssertionError("plan allocated a tensor")
+
+    monkeypatch.setattr(torch, "empty", no_alloc)
+    strides = _rows(3, 16, 40, 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = ca.plan(3, 16, 40, 15, 4, strides, dtype, 4096)
+        assert ca.plan(3, 16, 40, 15, 4, list(strides), dtype, 4096 + 64) is a
+        assert a.kernel == ca.GROUPED
+        assert ca.plan(3, 16, 40, 15, 4, strides, dtype, 4096 + 8).kernel == ca.SMALL
+
+
+def test_launch_hands_attn_short_its_code_and_geometry(monkeypatch):
+    """What ``_launch`` passes the C entry at the Out sampler's operands
+    (q ``[B, 16, 4]``, the keys passed as the values), with the library and
+    the stream faked: kernel code 3, the plan's geometry, the keys' address
+    for both k and v; keys whose last stride is not 1 are copied once and
+    still passed as the values; G = 3 takes it too."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def xmc_cross_attention(*args):
+            calls.append(args)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(ca.KERNEL, "load", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
+    b, n, t, d = 88, 16, 15, 4
+    q, k = torch.randn(b, n, d), torch.randn(b, t, d)
+    mask = torch.zeros(b, t, dtype=torch.bool)
+    before = ca.FORWARD.launches
+    out = ca._launch(q, k, k, mask, 1.0)
+    assert out.shape == q.shape and ca.FORWARD.launches == before + 1
+    args = calls[-1]
+    p = ca.plan_for(q, k)
+    assert args[5:10] == (b, 1, n, t, d)
+    assert args[0] == q.data_ptr() and args[1] == args[2] == k.data_ptr()
+    assert args[27:34] == (ca._KERNEL_CODE[ca.SHORT], 0, 32, b, 1, 1, 0) == (
+        3, 0, p.threads, p.blocks, p.tile, p.tiles_per_block, 0)
+    kt = torch.randn(b, d, t).transpose(1, 2)  # a d-stride of T: copied once
+    ca._launch(q, kt, kt, mask, 1.0)
+    args = calls[-1]
+    assert args[1] == args[2] != kt.data_ptr() and args[14:18] == args[18:22] == (
+        t * d, t * d, d, 1)
+    v = torch.randn(b, t, d)  # values apart from the keys
+    ca._launch(q, k, v, mask, 1.0)
+    assert calls[-1][1:3] == (k.data_ptr(), v.data_ptr())
+    q3, k3 = torch.randn(2, 3, n, d), torch.randn(2, 3, t, d)
+    ca._launch(q3, k3, k3, mask[:2], 1.0)
+    assert calls[-1][5:10] == (2, 3, n, t, d) and calls[-1][27:34] == (3, 0, 32, 6, 1, 1, 0)

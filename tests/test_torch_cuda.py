@@ -1241,13 +1241,14 @@ def _traced_attention_kernels(dtype_name: str) -> list:
     ca.KERNEL.load()
     out = []
     for shape in ((2, 16, 1024, 15, 4, "planes"), (2, 16, 1024, 15, 4, "sampler"),
-                  (128, 1, 16, 15, 4, False)):
+                  (128, 1, 16, 15, 4, False), (88, 1, 16, 20, 4, False),
+                  (88, 1, 17, 15, 4, False), (2, 1, 33, 15, 4, False)):
         q, k, v, mask = (x.to(dtype) if x.is_floating_point() else x
                          for x in _attn_inputs(device, shape, 10, allpad=False))
         ca.masked_cross_attention_kernel(q, k, v, mask)
         torch.cuda.synchronize()
         seen = device_kernels(lambda: ca.masked_cross_attention_kernel(q, k, v, mask),
-                              expect={r"attn_(small|wide|grouped)<": 1})[0]
+                              expect={r"attn_(small|wide|grouped|short)<": 1})[0]
         out.append((ca.kernel_name(ca.plan_for(q, k), dtype, shape[4]),
                     sorted({k["name"] for k in seen if "attn_" in k["name"]})))
     return out
@@ -1258,7 +1259,8 @@ def _traced_attention_kernels(dtype_name: str) -> list:
 def test_cross_attention_launches_the_planned_kernel(cuda_device, dtype):
     """The profiler sees the kernel that ``plan`` names, and no other
     attention kernel: attn_grouped at an In shape, its queries as planes and
-    as rows, attn_small at the Out shape.  Traced in a fresh process: in
+    as rows, attn_short at the Out shapes (T = 15 and 20; N = 17, a lane a
+    query), attn_small at N = 33.  Traced in a fresh process: in
     this one, a library that first loads after earlier tests' traces and
     library loads can go unrecorded."""
     tests = Path(__file__).resolve().parent
@@ -1268,8 +1270,88 @@ def test_cross_attention_launches_the_planned_kernel(cuda_device, dtype):
     proc = subprocess.run([sys.executable, "-c", code, str(tests.parent), str(tests), dtype],
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    for want, names in json.loads(proc.stdout.strip().splitlines()[-1]):
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [w.split("<")[0] for w, _ in got] == ["attn_grouped"] * 2 + ["attn_short"] * 3 + [
+        "attn_small"]
+    for want, names in got:
         assert names and all(want in nm for nm in names), (want, names)
+
+
+def _short_case(device, b, n, t, d, aliased, seed):
+    """The Out block's operands at ``(B, N, T, D)``: q ``[B, N, D]`` and k
+    ``[B, T, D]`` l2-normalized and scaled up (scores to ~10 in log2 units),
+    the keys passed as the values or values of their own; row 0 fully
+    padded, row 1 one word, the others 1..T words."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    norm = torch.nn.functional.normalize
+    q = 3 * norm(torch.randn(b, n, d, generator=gen, device=device), dim=-1)
+    k = 3 * norm(torch.randn(b, t, d, generator=gen, device=device), dim=-1)
+    v = k if aliased else torch.randn(b, t, d, generator=gen, device=device)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=device)
+    lens[0], lens[1] = 0, 1
+    return q, k, v, torch.arange(t, device=device)[None, :] >= lens[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 32])
+@pytest.mark.parametrize("t", [1, 15, 20, 32])
+def test_attn_short_matches_plain_on_card(cuda_device, dtype, n, t):
+    """attn_short (a warp a row) against the plain version at D = 1, 3 and
+    4, the keys passed as the values and apart from them: within
+    ``ATTN_TOL``, a fully padded row exactly 0, two launches bit-equal."""
+    for d in (1, 3, 4):
+        for aliased in (True, False):
+            q, k, v, mask = (x.to(dtype) if x.is_floating_point() else x
+                             for x in _short_case(cuda_device, 6, n, t, d, aliased, 13))
+            if aliased:
+                v = k
+            assert ca.plan_for(q, k).kernel == ca.SHORT
+            got = ca.masked_cross_attention_kernel(q, k, v, mask, 0.7)
+            again = ca.masked_cross_attention_kernel(q, k, v, mask, 0.7)
+            torch.cuda.synchronize()
+            want = ca.masked_cross_attention_ref(q, k, v, mask, 0.7)
+            assert got.shape == q.shape and got.dtype == dtype
+            assert bool((got[0] == 0).all()) and bool((want[0] == 0).all())
+            rtol, atol = ATTN_TOL[dtype]
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                       msg=lambda m: f"D={d} aliased={aliased}: {m}")
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_short_reads_what_the_wrapper_hands_it(cuda_device, dtype):
+    """attn_short at G = 3 (rows g fastest), at 8,192 rows (four warps a
+    block), with keys whose last stride is not 1 (copied once, still the
+    values), a padded word whose bits are inf or NaN (never read into a
+    sum), and a one-word row (its word's value exactly, up to rounding)."""
+    rtol, atol = ATTN_TOL[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    for b, g, n, t in ((4, 3, 16, 15), (2048, 4, 17, 20)):
+        q = torch.randn(b, g, n, 4, generator=gen, device=cuda_device).to(dtype)
+        k = torch.randn(b, g, 4, t, generator=gen, device=cuda_device).to(dtype).transpose(2, 3)
+        lens = torch.randint(0, t + 1, (b,), generator=gen, device=cuda_device)
+        mask = torch.arange(t, device=cuda_device)[None, :] >= lens[:, None]
+        p = ca.plan_for(q, k)
+        assert p.kernel == ca.SHORT and p.tile == (1 if b * g <= 4096 else 4)
+        got = ca.masked_cross_attention_kernel(q, k, k, mask, 1.0)
+        want = ca.masked_cross_attention_ref(q, k, k, mask, 1.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    q, k, v, mask = (x.to(dtype) if x.is_floating_point() else x
+                     for x in _short_case(cuda_device, 4, 16, 15, 4, False, 15))
+    mask[2, 5:] = True
+    k[2, 7], v[2, 7], v[2, 9] = float("inf"), float("nan"), float("inf")
+    got = ca.masked_cross_attention_kernel(q, k, v, mask, 1.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    k[2, 5:], v[2, 5:] = 0, 0
+    torch.testing.assert_close(got.float(), ca.masked_cross_attention_ref(q, k, v, mask).float(),
+                               rtol=rtol, atol=atol)
+    one = v[1, 0].float().expand(16, 4)
+    torch.testing.assert_close(got[1].float(), one, rtol=BF16_ULP if dtype == torch.bfloat16
+                               else 1e-6, atol=0)
 
 
 @pytest.mark.cuda
@@ -1398,7 +1480,7 @@ def test_magp_through_concept_netd_runs_the_double_backward(cuda_device):
 
 
 EXPORT_KERNEL = {"DF_GEN": (r"fused_affine_(vec|scalar)<", 10),
-                 "CONCEPT_OUTATTN_GEN": (r"attn_small<", 6)}  # launches of one 64² request
+                 "CONCEPT_OUTATTN_GEN": (r"attn_short<", 6)}  # launches of one 64² request
 
 
 @pytest.mark.cuda

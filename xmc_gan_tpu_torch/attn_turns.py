@@ -1,7 +1,8 @@
 """The cross_attention kernels at the In sampler's shapes on the card, one tree or several in turns.
 
     python -m xmc_gan_tpu_torch.attn_turns [--trees DIR ...] [--rounds R] [--suspects]
-                                           [--bwd] [--words] [--sass] [--out FILE]
+                                           [--bwd] [--words] [--outattn] [--sass]
+                                           [--out FILE]
 
 Each tree is a checkout of this repository (default: this one).  For each, a
 child process whose working directory and first import path is the tree
@@ -41,6 +42,21 @@ step's mixed lengths (uniform in 1..15) and with those lengths sorted over
 the rows, and with values apart from the keys: how the time follows the
 real words, the rows' mix and the keys passed as the values.
 
+``--outattn`` times the forward at the Out sampler's shape instead: the 10
+launches of one 256², batch-128 ``CONCEPT_OUTATTN_GEN`` request (B = 128,
+N = 16, T = 15, D = 4; inputs as ``chip_smoke.py`` phase 7 draws them:
+l2-normalized, the keys passed as the values, caption lengths uniform in
+1..15) through each tree's ``masked_cross_attention_kernel``, fp32 and
+bf16: each launch after an L2 flush, from whole traces (the kernels'
+device time per launch, median over ``--iters``, and their sum), beside
+the 10 timed back to back with CUDA events; and the wrapper's host µs a
+call (the enqueue, the device keeping up), whole and by the parts a
+wrapper may take: the checks, the plan, the operands' 4-D views, the
+output's allocation, entering ``torch.cuda.device``, reading the current
+stream, and the ``ctypes`` call that launches (a tree's wrapper that makes
+no view, or enters the device only for another card, skips those parts;
+each is timed all the same).
+
 ``--sass`` builds the first two trees' ``csrc/cross_attention.cu`` and
 compares the SASS of every kernel the first tree's build has with the
 second's.
@@ -63,6 +79,8 @@ IN_SHAPES = [(128, 16, n, 15, 4) for n in (256, 1024, 1024, 4096, 4096, 16384, 1
 # the backward launches of one 64² word-attention train step at batch 88
 BWD_SHAPES = {"in": [(88, 16, n, 15, 4) for n in (256, 1024, 1024, 4096, 4096, 4096)],
               "out": [(88, 1, 16, 15, 4)] * 6, "words": [(88, 16, 4096, 15, 4)]}
+# the ten Out launches of one 256², NCH=32 request at batch 128
+OUT_SHAPES = [(128, 1, 16, 15, 4)] * 10
 
 CHILD = r"""
 import torch
@@ -195,17 +213,98 @@ print(json.dumps(out))
 """
 
 
+OUT_CHILD = r"""
+import re, statistics, time
+import torch
+from xmc_gan_tpu_torch.ops.cuda import cross_attention as ca
+
+iters = args["iters"]
+ca.KERNEL.load()
+norm = torch.nn.functional.normalize
+flush = torch.empty(2**26, device="cuda")  # 256 MB: more than the L2 holds
+pattern = r"attn_(small|wide|grouped|short)<"
+
+
+def calls(dtype, gen):
+    out = []
+    for b, g, n, t, d in args["shapes"]:  # the Out block's [B, N, D] and [B, T, D]
+        q = norm(torch.randn(b, n, d, generator=gen, device="cuda"), dim=-1).to(dtype)
+        k = norm(torch.randn(b, t, d, generator=gen, device="cuda"), dim=-1).to(dtype)
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        out.append((q, k, k, torch.arange(t, device="cuda")[None, :] >= lens[:, None]))
+    return out
+
+
+def host_us(fn, reps=500):
+    # the host's µs a call of fn, the device keeping up (synchronized outside the time)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+out = {}
+for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+    cs = calls(dtype, torch.Generator(device="cuda").manual_seed(6))
+    run = lambda: [ca.masked_cross_attention_kernel(*c, 1.0) for c in cs]
+    ms = profiling.cuda_ms(run, iters)
+    seen = profiling.device_kernels(
+        lambda: [(flush.zero_(), ca.masked_cross_attention_kernel(*c, 1.0))
+                 for _ in range(iters) for c in cs], expect={pattern: iters * len(cs)})[0]
+    times = [x["ms"] for x in seen if re.search(pattern, x["name"])]
+    per_launch = {f"{i}": statistics.median(times[i::len(cs)]) for i in range(len(cs))}
+    q, k, v, mask = cs[0]
+    p = ca.plan_for(q, k)
+    q4, k4, v4 = ca._view4(q), ca._view4(k), ca._view4(v)
+    o = torch.empty(q4.shape, device="cuda", dtype=dtype)
+    fn = ca.KERNEL.load().xmc_cross_attention
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), mask.data_ptr(), o.data_ptr(),
+              *q4.shape, k4.shape[2], *q4.stride(), *k4.stride(), *v4.stride(),
+              *o.stride()[:3], 1.0, ca._DTYPE_CODE[dtype], ca._KERNEL_CODE[p.kernel],
+              int(p.planes), p.threads, p.blocks, p.tile, p.tiles_per_block, stream)
+
+    def device_ctx():
+        with torch.cuda.device(q.device):
+            pass
+
+    host = {"call": host_us(lambda: ca.masked_cross_attention_kernel(q, k, v, mask, 1.0)),
+            "check": host_us(lambda: ca._check(q, k, v, mask)),
+            "plan": host_us(lambda: ca.plan_for(q, k)),
+            "views": host_us(lambda: (ca._view4(q), ca._view4(k), ca._view4(v))),
+            "alloc": host_us(lambda: torch.empty(q4.shape, device="cuda", dtype=dtype)),
+            "device_ctx": host_us(device_ctx),
+            "stream": host_us(lambda: torch.cuda.current_stream(q.device).cuda_stream),
+            "ctypes": host_us(lambda: fn(*launch))}
+    out[name] = {"kernel_ms": sum(per_launch.values()), "events_ms": ms,
+                 "kernels": sorted({re.search(r"attn_\w+<[^>]*>", x["name"]).group(0)
+                                    for x in seen if re.search(pattern, x["name"])}),
+                 "plan": [str(p)], "host_us": host, "per_launch_ms": per_launch}
+    del cs
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
 def main() -> int:
     ap = parser(__doc__, iters=5)
     ap.add_argument("--suspects", action="store_true")
     ap.add_argument("--bwd", action="store_true")
     ap.add_argument("--words", action="store_true")
+    ap.add_argument("--outattn", action="store_true")
     args = ap.parse_args()
     trees = [t.resolve() for t in args.trees]
     record = Record(trees, args.out)
     if args.sass:
         record.add("sass", sass(trees, "cross_attention.cu"))
-    if args.bwd or args.words:
+    if args.outattn:
+        in_turns(trees, args.rounds, OUT_CHILD, {"shapes": OUT_SHAPES, "iters": args.iters},
+                 record)
+    elif args.bwd or args.words:
         in_turns(trees, args.rounds, BWD_CHILD,
                  {"shapes": BWD_SHAPES, "iters": args.iters, "words": args.words}, record)
     else:

@@ -13,7 +13,7 @@
 // are kept in log2 units (scale * log2(e) folded into q or k) and padded
 // words are skipped, so their values never enter.
 //
-// Three forward kernels and two backward ones (attn_bwd_warp, attn_bwd); the
+// Four forward kernels and two backward ones (attn_bwd_warp, attn_bwd); the
 // wrapper's plans (ops/cuda/cross_attention.py, plan() and plan_bwd()) name
 // the kernel and its launch geometry before any launch, and the C entries
 // refuse a launch whose kernel or geometry is not one they take.
@@ -60,9 +60,50 @@
 // 2..32, q's strides (., D, G*D, 1) (rows) or (., qsg, 1, qsd) (planes),
 // q's address and its b, g and d strides multiples of 16 bytes.
 
+// attn_short: the Out sampler's shapes, each (b, g) row short in both
+// queries and words.  OutConceptBlock attends the 16 concept states of a
+// row (D = 4) over its T = 15 (or 20) words: B = 128 rows at a 256^2
+// request, 88 at the 64^2 train step, ~0.1 MB of operands a launch in
+// fp32.  Neither bytes (0.03 us) nor arithmetic bound it; its time is latency:
+// the dependent chain from the first load to the store, beside the launch
+// itself (~1 us for an empty kernel on an H100).  attn_small took ~5 us a
+// launch there (PERF.md): a block of one warp carried 4 query slots a lane
+// with 16 queries, so 7 of 8 chains computed on zeros, and each block went
+// load q, barrier, stage k and v, barrier, a max pass, a rescaled pass,
+// store.  The design:
+//   * A warp owns one (b, g) row.  At N <= 16 (SPLIT 2) two lanes take a
+//     query, lane l query l % 16 over the words l / 16 + 2 i; at
+//     16 < N <= 32 (SPLIT 1) a lane a query over every word.  No lane
+//     holds a dead query slot past the row's 32 / SPLIT.
+//   * One memory round trip: every lane issues its q load, its mask byte
+//     (lane t: word t; compacted with a ballot into a bit mask of the real
+//     words) and its words' k and v loads before the first use: 16-byte
+//     (fp32) or 8-byte (bf16) vectors where D = 4 and the rows of q, k and
+//     v are aligned, else a value at a time.  The loads are unconditional
+//     (indices clamped, the bit mask and the stores leave out what lies
+//     past N or T) and converted to fp32 in the same straight line, so no
+//     branch makes the warp wait for one load before it issues the next
+//     (a bf16 conversion inside a guarded branch did: 4.0 against 2.6 us
+//     fp32, PERF.md).  No shared memory, no barrier.  Where v is k (the
+//     same address and strides: the Out block passes the keys as the
+//     values) a word is read once.
+//   * Exact maximum, no rescale: the lane's TMAX / SPLIT scores stay in
+//     registers in log2 units (TMAX 16 up to T = 16, else 32), the body
+//     unrolled to them and masked by the bit mask (padded words -inf, their
+//     values never read into a sum), so no word costs a branch; then the
+//     max (one __shfl_xor with the other lane), one exp2 a pair, the
+//     weighted sum, and one __shfl_xor each for the sum and the 4
+//     accumulators.  Both lanes hold the same merged fp32 sums; the first
+//     divides and rounds them once and stores, the stores of a warp's
+//     queries contiguous.
+//   * Grid: one warp a block up to 4,096 rows (one wave on 132 SMs at 32
+//     blocks each; 128 blocks at the request, 88 at the step), 4 past it.
+// Precondition (the plan's rule): D <= 4, 1 <= T <= 32, 1 <= N <= 32, any
+// G, q, k, v with a dense last dimension.
+
 // attn_small (D <= 32) and attn_wide (32 < D <= 256) take every other
-// shape, any grouping (the Out sampler's [B, 16, D] rows, the JAX package's
-// kernel shapes); q, k, v are strided views with a dense last dimension:
+// shape, any grouping (the JAX package's kernel shapes, N > 32 at D <= 4);
+// q, k, v are strided views with a dense last dimension:
 //   * D <= 32: one thread per query, its q and its D accumulators in
 //     registers (templated on DMAX in {4, 8, 16, 32}), R = 4 queries per
 //     thread for D <= 4 (2 for D <= 8); a block of 128 threads of one
@@ -152,8 +193,9 @@
 //   Element (b, g, l, d) of an operand lies at p + b*sb + g*sg + l*sl + d*sd.
 //   dtype 0 = fp32, 1 = bf16 (q, k, v and out alike); mask is uint8 [B, T].
 //   kernel 0 = attn_small, 1 = attn_wide, 2 = attn_grouped (layout 0 =
-//   rows, 1 = planes; 0 for the others); threads, blocks, tile (queries a
-//   block, or a tile) and tiles_per_block are the plan's geometry.  Returns
+//   rows, 1 = planes; 0 for the others), 3 = attn_short; threads, blocks,
+//   tile (queries a block, or a tile; attn_short: rows a block) and
+//   tiles_per_block are the plan's geometry.  Returns
 //   cudaGetLastError() after the launch (0 = success), or
 //   cudaErrorInvalidValue for a launch the named kernel does not take.
 //   int xmc_cross_attention_bwd(q, k, v, mask, dout, dq, dk, dv, B, G, N, T,
@@ -785,6 +827,192 @@ int grouped(const void* q, const void* k, const void* v, const uint8_t* mask, vo
   return planes ? launch_grouped<T, 1>(q, k, v, mask, out, a, blocks, stream)
                 : launch_grouped<T, 0>(q, k, v, mask, out, a, blocks, stream);
 }
+
+// ------------------------------------------------------------------ attn_short
+
+constexpr int kShortMaxT = 32;         // one warp's ballot of the mask row
+constexpr int kShortMaxN = 32;         // a query a lane at least
+constexpr int kShortMaxD = 4;
+constexpr int kShortWideWarps = 4;     // rows a block past kShortOneWarpRows rows
+constexpr int kShortOneWarpRows = 4096;  // one warp a block up to here: 132 SMs x 32 blocks
+
+struct ShortArgs {
+  int rows, G, N, T, D;
+  int vec, kv;  // vec: q's, k's and v's rows are aligned 4-vectors; kv: v is k
+  int64_t qsb, qsg, qsn, ksb, ksg, kst, vsb, vsg, vst, osb, osg, osn;
+  float scale;
+};
+
+// The first D (<= 4) values of a row, zeros past D: VEC, one 16-byte (fp32)
+// or 8-byte (bf16) load (D = 4, the row aligned); else a value at a time,
+// feature min(d, D - 1) read and the ones past D set to 0 after.  No
+// branch: a load and its conversion sit in one straight line with every
+// other load of the row, so all are in flight before the first is used (a
+// conversion inside a branch would make the warp wait for its load there).
+template <typename T, bool VEC>
+__device__ __forceinline__ void load4(const T* __restrict__ p, int D, float (&r)[4]) {
+  if constexpr (VEC && sizeof(T) == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    r[0] = x.x; r[1] = x.y; r[2] = x.z; r[3] = x.w;
+  } else if constexpr (VEC) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    r[0] = __uint_as_float(raw.x << 16);  // bf16 -> fp32: the high half of a word
+    r[1] = __uint_as_float(raw.x & 0xffff0000u);
+    r[2] = __uint_as_float(raw.y << 16);
+    r[3] = __uint_as_float(raw.y & 0xffff0000u);
+  } else {
+    T x[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) x[d] = p[min(d, D - 1)];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) r[d] = d < D ? to_f(x[d]) : 0.f;
+  }
+}
+
+// The warp's row (b, g): lane `lane` takes query lane % (32 / SPLIT) over
+// the words t = lane / (32 / SPLIT) + SPLIT i, i < TMAX / SPLIT (see the
+// header).  KV: the values are the keys, read once.  VEC: q, k and v are
+// read as vectors.
+template <typename T, int TMAX, int SPLIT, bool KV, bool VEC>
+__device__ __forceinline__ void short_row(const T* __restrict__ q, const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          const uint8_t* __restrict__ mask, T* __restrict__ out,
+                                          const ShortArgs& a, int b, int g, int lane) {
+  constexpr int S = TMAX / SPLIT;         // word slots a lane holds
+  constexpr int QL = 32 / SPLIT;          // queries a warp holds
+  const int n = lane & (QL - 1), half = lane / QL;
+  // One round trip, every load unconditional: the query (lanes past N read
+  // query N - 1 and store nothing), the row's mask bytes (a lane each) and
+  // the lane's words (slots past T read word T - 1, which the bit mask
+  // leaves out), all issued before the first use.
+  float qv[4];
+  load4<T, VEC>(q + b * a.qsb + g * a.qsg + min(n, a.N - 1) * a.qsn, a.D, qv);
+  const uint8_t pad = mask[static_cast<int64_t>(b) * a.T + min(lane, a.T - 1)];
+  const T* kb = k + b * a.ksb + g * a.ksg;
+  const T* vb = v + b * a.vsb + g * a.vsg;
+  float kr[S][4], vr[S][4];  // vr unused where KV
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int t = min(half + SPLIT * i, a.T - 1);
+    load4<T, VEC>(kb + t * a.kst, a.D, kr[i]);
+    if constexpr (!KV) load4<T, VEC>(vb + t * a.vst, a.D, vr[i]);
+  }
+  const unsigned real = __ballot_sync(0xffffffffu, lane < a.T && pad == 0);  // bit t: word t
+
+  // The scores in log2 units, padded words -inf; the exact maximum over the
+  // query's lanes; one exp2 a (query, word) pair, no rescale.
+  const float c2 = a.scale * kLog2e;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) qv[d] *= c2;
+  float s[S];
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int t = half + SPLIT * i;
+    float x = qv[0] * kr[i][0];
+    x = fmaf(qv[1], kr[i][1], x);
+    x = fmaf(qv[2], kr[i][2], x);
+    x = fmaf(qv[3], kr[i][3], x);
+    s[i] = (real >> t) & 1u ? x : -INFINITY;
+    m = fmaxf(m, s[i]);
+  }
+  if constexpr (SPLIT == 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+  const float shift = m == -INFINITY ? 0.f : m;  // a fully padded row: every weight 0
+  float l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int t = half + SPLIT * i;
+    const bool in = (real >> t) & 1u;
+    const float e = ex2(s[i] - shift);  // exactly 0 for a padded word
+    l += e;
+#pragma unroll
+    for (int d = 0; d < 4; ++d)  // a padded word's value never enters, whatever its bits
+      acc[d] = fmaf(e, in ? (KV ? kr : vr)[i][d] : 0.f, acc[d]);
+  }
+  if constexpr (SPLIT == 2) {  // the query's two lanes: the same sums on both
+    l += __shfl_xor_sync(0xffffffffu, l, 16);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], 16);
+  }
+  if (half == 0 && n < a.N) {  // rounded once, from the merged sums
+    const float denom = fmaxf(l, 1e-30f);
+    float o[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) o[d] = acc[d] / denom;
+    store_row<T, 4>(out + b * a.osb + g * a.osg + n * a.osn, a.D, o);
+  }
+}
+
+// A warp a (b, g) row, D <= 4, 1 <= T <= TMAX <= 32, N <= 32 / SPLIT
+// queries (see the header).
+template <typename T, int TMAX, int SPLIT>
+__global__ void __launch_bounds__(kShortWideWarps * 32)
+attn_short(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           const uint8_t* __restrict__ mask, T* __restrict__ out, ShortArgs a) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= a.rows) return;  // whole warps
+  const int b = row / a.G, g = row - b * a.G, lane = threadIdx.x & 31;
+  if (a.kv && a.vec)
+    short_row<T, TMAX, SPLIT, true, true>(q, k, v, mask, out, a, b, g, lane);
+  else if (a.kv)
+    short_row<T, TMAX, SPLIT, true, false>(q, k, v, mask, out, a, b, g, lane);
+  else if (a.vec)
+    short_row<T, TMAX, SPLIT, false, true>(q, k, v, mask, out, a, b, g, lane);
+  else
+    short_row<T, TMAX, SPLIT, false, false>(q, k, v, mask, out, a, b, g, lane);
+}
+
+// Whether an operand's rows of D = 4 values are aligned vectors of its type.
+template <typename T>
+int rows_aligned(const void* p, int D, int64_t sb, int64_t sg, int64_t sn) {
+  return D == 4 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0 && sb % 4 == 0 &&
+         sg % 4 == 0 && sn % 4 == 0;
+}
+
+// The plan's attn_short launch, if attn_short takes it (D <= 4, 1 <= T <=
+// 32, 1 <= N <= 32, dense last dimensions) with the geometry the plan's rule
+// gives: TMAX 16 up to T = 16, else 32; SPLIT 2 up to N = 16, else 1; one
+// warp a block up to kShortOneWarpRows rows, else kShortWideWarps (`tile`,
+// the rows a block).
+template <typename T>
+int short_launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out,
+                 int B, int G, int N, int T_, int D, int64_t qsb, int64_t qsg, int64_t qsn,
+                 int64_t ksb, int64_t ksg, int64_t kst, int64_t vsb, int64_t vsg, int64_t vst,
+                 int64_t osb, int64_t osg, int64_t osn, float scale, int threads, int blocks,
+                 int tile, cudaStream_t stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (D > kShortMaxD || T_ < 1 || T_ > kShortMaxT || N > kShortMaxN) return bad;
+  const int64_t rows = static_cast<int64_t>(B) * G;
+  if (rows > 0x7fffff00LL) return bad;
+  const int warps = rows <= kShortOneWarpRows ? 1 : kShortWideWarps;
+  const int64_t want_blocks = (rows + warps - 1) / warps;
+  if (tile != warps || threads != 32 * warps || want_blocks > 0x7fffffffLL ||
+      blocks != want_blocks)
+    return bad;
+  const int kv = k == v && ksb == vsb && ksg == vsg && kst == vst;
+  const ShortArgs a{static_cast<int>(rows),
+                    G, N, T_, D,
+                    rows_aligned<T>(q, D, qsb, qsg, qsn) && rows_aligned<T>(k, D, ksb, ksg, kst)
+                        && rows_aligned<T>(v, D, vsb, vsg, vst),
+                    kv, qsb, qsg, qsn, ksb, ksg, kst, vsb, vsg, vst, osb, osg, osn, scale};
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(out);
+  if (T_ <= 16) {
+    if (N <= 16)
+      attn_short<T, 16, 2><<<blocks, threads, 0, stream>>>(qp, kp, vp, mask, op, a);
+    else
+      attn_short<T, 16, 1><<<blocks, threads, 0, stream>>>(qp, kp, vp, mask, op, a);
+  } else {
+    if (N <= 16)
+      attn_short<T, 32, 2><<<blocks, threads, 0, stream>>>(qp, kp, vp, mask, op, a);
+    else
+      attn_short<T, 32, 1><<<blocks, threads, 0, stream>>>(qp, kp, vp, mask, op, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 
 // attn_small or attn_wide, with the geometry each is built for; the plan's
 // must be the same.
@@ -1480,6 +1708,13 @@ extern "C" int xmc_cross_attention(const void* q, const void* k, const void* v,
   }
   if (qsd != 1 || ksd != 1 || vsd != 1 || layout != 0 || tiles_per_block != 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kernel == 3 && dtype == 0)
+    return short_launch<float>(q, k, v, mask, out, B, G, N, T, D, qsb, qsg, qsn, ksb, ksg, kst,
+                               vsb, vsg, vst, osb, osg, osn, scale, threads, blocks, tile, s);
+  if (kernel == 3)
+    return short_launch<__nv_bfloat16>(q, k, v, mask, out, B, G, N, T, D, qsb, qsg, qsn, ksb,
+                                       ksg, kst, vsb, vsg, vst, osb, osg, osn, scale, threads,
+                                       blocks, tile, s);
   Args a{G, N, T, D, 0, qsb, qsg, qsn, ksb, ksg, kst, vsb, vsg, vst, osb, osg, osn, scale};
   if (dtype == 0) return launch<float>(q, k, v, mask, out, B, a, kernel, threads, blocks, tile, s);
   return launch<__nv_bfloat16>(q, k, v, mask, out, B, a, kernel, threads, blocks, tile, s);

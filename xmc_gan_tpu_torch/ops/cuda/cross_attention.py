@@ -24,11 +24,15 @@ Contract of ``masked_cross_attention_kernel``:
   ``G * D``), or, after the GroupNorm of GEN.NORMALIZE on CUDA (which
   returns NCHW), of its ``[B, G, D, HW]`` planes (an n-stride of 1); its
   keys as a ``[B, G, D, T]`` view.  ``attn_grouped`` reads all of them
-  where they are.  For ``attn_small`` and ``attn_wide`` an operand whose
-  last stride is not 1 is copied first.
+  where they are.  For ``attn_short``, ``attn_small`` and ``attn_wide`` an
+  operand whose last stride is not 1 is copied first (the keys once where
+  they are also the values).
 * One rule, ``plan``, names the kernel a CUDA call launches and its launch
-  geometry from the shapes, q's strides and address, and the type, before
-  any launch; the C entry refuses a launch that its kernel does not take.
+  geometry from the shapes, q's strides and 16-byte alignment, and the
+  type, before any launch (memoized: a pure function of them); the C entry
+  refuses a launch that its kernel does not take.  The Out sampler's
+  shapes (D = 4, N = 16, T = 15: a warp a row, ``attn_short``) and the In
+  sampler's (``attn_grouped``) each have a kernel of their own.
 * A backward of the port's own (the Pallas kernel has none; the JAX
   package differentiates its einsum chain): on CUDA, with autograd on and
   an operand that requires grad, the call goes through an autograd
@@ -59,7 +63,9 @@ Contract of ``masked_cross_attention_kernel``:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -70,8 +76,8 @@ from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary, LaunchCount
 from xmc_gan_tpu_torch.ops.cuda.fused_affine import OP_NAMESPACE
 
 __all__ = ["KERNEL", "FORWARD", "BACKWARD", "MAX_D", "MAX_BWD_D", "MAX_BWD_T", "GROUPED",
-           "SMALL", "WIDE", "BWD", "BWD_WARP", "Plan", "BwdPlan", "plan", "plan_for", "plan_bwd",
-           "kernel_name", "bwd_kernel_name", "masked_cross_attention_kernel",
+           "SHORT", "SMALL", "WIDE", "BWD", "BWD_WARP", "Plan", "BwdPlan", "plan", "plan_for",
+           "plan_bwd", "kernel_name", "bwd_kernel_name", "masked_cross_attention_kernel",
            "masked_cross_attention_ref", "masked_cross_attention_bwd_ref",
            "masked_cross_attention_op"]
 
@@ -100,8 +106,13 @@ BWD, BWD_WARP = "attn_bwd", "attn_bwd_warp"
 # its shared memory is warp_bwd_smem's
 _WARP_BWD_MAX_D, _WARP_BWD_MAX_T = 4, 32
 
-SMALL, WIDE, GROUPED = "attn_small", "attn_wide", "attn_grouped"
-_KERNEL_CODE = {SMALL: 0, WIDE: 1, GROUPED: 2}
+SMALL, WIDE, GROUPED, SHORT = "attn_small", "attn_wide", "attn_grouped", "attn_short"
+_KERNEL_CODE = {SMALL: 0, WIDE: 1, GROUPED: 2, SHORT: 3}
+# attn_short (kShort*): the widest D, the longest caption and the most
+# queries of a row it takes; one warp a block up to this many rows, else
+# _SHORT_WIDE_WARPS
+_SHORT_MAX_D, _SHORT_MAX_T, _SHORT_MAX_N = 4, 32, 32
+_SHORT_ONE_WARP_ROWS, _SHORT_WIDE_WARPS = 4096, 4
 # csrc/cross_attention.cu: attn_small's and attn_wide's block shapes
 _SMALL_THREADS, _WIDE_WARPS = 128, 8
 # attn_grouped (kGrouped*, Chunk<T>::kQueries): its block, the bytes of q a
@@ -120,17 +131,22 @@ class Plan(NamedTuple):
     ``attn_grouped`` (``planes``: n contiguous for each (g, d); else each
     query's G rows contiguous; False for the others) and the geometry
     (``tile``: the queries of a block, or of a tile that a block of
-    ``attn_grouped`` walks ``tiles_per_block`` of)."""
+    ``attn_grouped`` walks ``tiles_per_block`` of; for ``attn_short`` the
+    (b, g) rows of a block, a warp each), and ``attn_short``'s templates
+    (``tmax``: the word slots of a query, ``split``: the lanes a query; 0
+    for the others)."""
     kernel: str
     planes: bool
     threads: int
     blocks: int
     tile: int
     tiles_per_block: int
+    tmax: int = 0
+    split: int = 0
 
 
 def _grouped_layout(B: int, G: int, N: int, T: int, D: int, q_strides, es: int,
-                    q_ptr: int) -> str | None:
+                    q_aligned: bool) -> str | None:
     """``attn_grouped``'s precondition (``csrc/cross_attention.cu`` header):
     D = 4, 1 <= T <= 32, G a power of two in 2..32, q's address 16-byte
     aligned, and q laid out as rows (strides ``(., D, G*D, 1)``) or as planes
@@ -138,7 +154,7 @@ def _grouped_layout(B: int, G: int, N: int, T: int, D: int, q_strides, es: int,
     Returns "rows", "planes" or None."""
     sb, sg, sn, sd = q_strides
     if not (D == 4 and 1 <= T <= _GROUPED_MAX_T and 2 <= G <= _GROUPED_MAX_G
-            and G & (G - 1) == 0 and q_ptr % 16 == 0 and (sb * es) % 16 == 0
+            and G & (G - 1) == 0 and q_aligned and (sb * es) % 16 == 0
             and B >= 1 and N >= 1):
         return None
     if (sg, sn, sd) == (D, G * D, 1):
@@ -151,14 +167,24 @@ def _grouped_layout(B: int, G: int, N: int, T: int, D: int, q_strides, es: int,
 def plan(B: int, G: int, N: int, T: int, D: int, q_strides, dtype: torch.dtype,
          q_ptr: int = 0) -> Plan:
     """The one rule: which kernel a CUDA call at ``q [B, G, N, D]`` (strides
-    ``q_strides``, address ``q_ptr``) over ``T`` words of type ``dtype``
-    launches, and with which geometry.  ``attn_grouped`` where its
-    precondition holds; else ``attn_small`` for D <= 32 and ``attn_wide``
-    up to 256.  Raises for a shape that no kernel takes."""
+    ``q_strides``, address ``q_ptr``: only its 16-byte alignment counts)
+    over ``T`` words of type ``dtype`` launches, and with which geometry.
+    ``attn_grouped`` where its precondition holds; else ``attn_short``
+    where D <= 4, 1 <= T <= 32 and 1 <= N <= 32 (a warp a (b, g) row:
+    TMAX 16 up to T = 16, else 32; two lanes a query up to N = 16, else
+    one; one warp a block up to 4,096 rows, else four); else ``attn_small``
+    for D <= 32 and ``attn_wide`` up to 256.  Raises for a shape that no
+    kernel takes.  Memoized on its arguments."""
+    return _plan(B, G, N, T, D, tuple(q_strides), dtype, q_ptr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(B: int, G: int, N: int, T: int, D: int, q_strides: tuple, dtype: torch.dtype,
+          q_aligned: bool) -> Plan:
     if not 1 <= D <= MAX_D:
         raise ValueError(f"masked_cross_attention takes 1 <= D <= {MAX_D}, got {D}")
-    es = torch.empty((), dtype=dtype).element_size()
-    layout = _grouped_layout(B, G, N, T, D, q_strides, es, q_ptr)
+    es = dtype.itemsize
+    layout = _grouped_layout(B, G, N, T, D, q_strides, es, q_aligned)
     if layout:
         cpr = G * D * es // 16  # 16-byte chunks a query
         tile = max(_GROUPED_TILE_BYTES // (16 * cpr), 32 * _GROUPED_QUERIES[es])
@@ -166,6 +192,10 @@ def plan(B: int, G: int, N: int, T: int, D: int, q_strides, dtype: torch.dtype,
         per = min(_GROUPED_MAX_TILES, max(1, B * ntiles // _GROUPED_MIN_BLOCKS))
         p = Plan(GROUPED, layout == "planes", _GROUPED_THREADS, B * math.ceil(ntiles / per),
                  tile, per)
+    elif D <= _SHORT_MAX_D and 1 <= T <= _SHORT_MAX_T and 1 <= N <= _SHORT_MAX_N:
+        warps = 1 if B * G <= _SHORT_ONE_WARP_ROWS else _SHORT_WIDE_WARPS
+        p = Plan(SHORT, False, 32 * warps, math.ceil(B * G / warps), warps, 1,
+                 16 if T <= 16 else 32, 2 if N <= 16 else 1)
     elif D <= 32:
         per_thread = 4 if D <= 4 else 2 if D <= 8 else 1  # queries a thread
         need = math.ceil(N / per_thread)
@@ -239,12 +269,21 @@ def _view4(t: torch.Tensor) -> torch.Tensor:
     return t if t.dim() == 4 else t.unsqueeze(1)
 
 
+def _dims4(t: torch.Tensor) -> tuple[tuple, tuple]:
+    """``t``'s shape and strides as ``[B, G, L, D]``: a 3-D tensor's as
+    ``_view4`` gives them (``unsqueeze(1)``), without making the view."""
+    if t.dim() == 4:
+        return tuple(t.shape), t.stride()
+    b, l, d = t.shape
+    sb, sl, sd = t.stride()
+    return (b, 1, l, d), (sb, sl * l, sl, sd)
+
+
 def plan_for(q: torch.Tensor, k: torch.Tensor) -> Plan:
     """``plan`` for the operands of one call (q ``[B, (G,) N, D]``, k
     ``[B, (G,) T, D]``), as the wrapper applies it."""
-    q4 = _view4(q)
-    b, g, n, d = q4.shape
-    return plan(b, g, n, k.shape[-2], d, q4.stride(), q.dtype, q4.data_ptr())
+    (b, g, n, d), strides = _dims4(q)
+    return plan(b, g, n, k.shape[-2], d, strides, q.dtype, q.data_ptr())
 
 
 def kernel_name(p: Plan, dtype: torch.dtype, D: int) -> str:
@@ -252,6 +291,8 @@ def kernel_name(p: Plan, dtype: torch.dtype, D: int) -> str:
     t = "float" if dtype == torch.float32 else "__nv_bfloat16"
     if p.kernel == GROUPED:
         return f"{GROUPED}<{t}, {int(p.planes)}>"
+    if p.kernel == SHORT:
+        return f"{SHORT}<{t}, {p.tmax}, {p.split}>"
     if p.kernel == SMALL:
         dmax = next(m for m in (4, 8, 16, 32) if D <= m)
         return f"{SMALL}<{t}, {dmax}, {4 if D <= 4 else 2 if D <= 8 else 1}>"
@@ -324,28 +365,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
         raise ValueError(f"masked_cross_attention runs on CUDA or CPU tensors, got {q.device}")
 
 
+def _on(dev: torch.device):
+    """``torch.cuda.device(dev)`` where ``dev`` is not the current device (a
+    launch goes to the current one); else nothing to enter."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
             scale: float) -> torch.Tensor:
     p = plan_for(q, k)
-    q4, k4, v4 = _view4(q), _view4(k), _view4(v)
-    if p.kernel != GROUPED:  # attn_small and attn_wide read a dense last dimension
-        q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous() for t in (q4, k4, v4))
-    b, g, n, d = q4.shape
-    t = k4.shape[2]
-    out = torch.empty((b, g, n, d), device=q.device, dtype=q.dtype)
+    if p.kernel != GROUPED:  # the other kernels read a dense last dimension
+        same = v is k
+        q, k = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k))
+        v = k if same else v if v.stride(-1) == 1 else v.contiguous()
+    (b, g, n, d), qs = _dims4(q)
+    ks, vs = _dims4(k)[1], _dims4(v)[1]
+    t = k.shape[-2]
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)  # dense [B, G, N, D]
     # a bool tensor's bytes are the kernel's uint8 mask (1 = padded): no conversion launch
     m = (mask if mask.dtype in (torch.bool, torch.uint8) else mask.to(torch.uint8)).contiguous()
     fn = KERNEL.load().xmc_cross_attention
-    with torch.cuda.device(q.device):
+    with _on(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), out.data_ptr(),
-                b, g, n, t, d, *q4.stride(), *k4.stride(), *v4.stride(), *out.stride()[:3],
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
+                b, g, n, t, d, *qs, *ks, *vs, g * n * d, n * d, d,
                 scale, _DTYPE_CODE[q.dtype], _KERNEL_CODE[p.kernel], int(p.planes), p.threads,
                 p.blocks, p.tile, p.tiles_per_block, stream)
     if rc != 0:
         raise RuntimeError(f"cross_attention launch failed ({p}): CUDA error {rc}")
     FORWARD.launches += 1
-    return out.view(q.shape)
+    return out
 
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
@@ -368,7 +419,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.T
         fn, geometry = lib.xmc_cross_attention_bwd_warp, (p.tmax,)
     else:
         fn, geometry = lib.xmc_cross_attention_bwd, (p.dmax,)
-    with torch.cuda.device(q.device):
+    with _on(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), g4.data_ptr(),
                 dq4.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, g, n, t, d, *q4.stride(),
