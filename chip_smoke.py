@@ -81,13 +81,17 @@ Phases (any failure raises, and the exit code is then non-zero):
    vectors in x's dtype, and the double backward in fp32 against fp64
    autograd of the plain epilogue (``BWD2_FP64_SHAPE``); the
    ``cross_attention`` backward (the port's own: ``attn_bwd_warp`` up to
-   32 words and D = 4, ``attn_bwd`` past them) against
+   32 words and D = 4, ``attn_bwd`` past them up to 256 words,
+   ``attn_bwd_long`` past 256) against
    ``masked_cross_attention_bwd_ref``, fp32 and bf16, at every distinct In
    and Out shape of the 64² word-attention train step (batch 88, the In
    queries as rows and as planes), ``ATTN_BWD_WARP_EDGES`` (T = 1, 20 and
    32, N = 1, 33 and 77, D = 3, queries 30 times as long) and
    ``ATTN_BWD_EXTRA`` (``attn_bwd``'s: T = 200, D = 12 at T = 33, the
-   widest plan), fully padded rows (zero gradients) and one-word rows
+   widest plan; ``attn_bwd_long``'s: T = 257, 300 and 512 in the In
+   layout, D = 32 at T = 300 and 512, the Out shape at T = 300, T = 4,096
+   at D = 4, 12 and 32, its sums in shared memory and in the scratch),
+   fully padded rows (zero gradients) and one-word rows
    (exactly zero dq and dk),
    through autograd with dO as the upstream op hands it over (dense from
    the In sampler's mean, a strided slice from the Out block's
@@ -263,6 +267,17 @@ Phases (any failure raises, and the exit code is then non-zero):
    parameter / moment bytes beside one process's at the same batch, the
    [64, 32] column block on the tensor cores; (c) where the machine has
    two cards or more, the same on two NCCL ranks, one card each.
+6i. Captions past 256 words: phase 6e's ``concept_in_df_gan.yml`` step
+   with CONCEPT_INATTN_GEN as published (64², NCH 32, batch 88) but
+   ``TEXT.MAX_LENGTH`` = 300, on synthetic captions of 1 to 300 words (one
+   of 300), bf16 and fp32 (``make_train_step``): a warm-up, one counted
+   step (12 / 6 ``cross_attention`` launches, no other of the port's
+   kernels), 3 timed, one profiled: the 6 backward launches on
+   ``attn_bwd_long`` and the 12 forwards on ``attn_small`` by the
+   profiler's names, finite metrics; prints the step, the operands the
+   forward's wrapper copied (the In sampler's planes and keys past
+   T = 32), and the long kernel's device ms in the step beside its bound
+   on the batch's words.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs; for the
@@ -283,8 +298,11 @@ Phases (any failure raises, and the exit code is then non-zero):
    ``cross_attention`` backward at the 6 In and the 6 Out launches of one
    64² word-attention step, with SDPA's forward and backward as a
    yardstick, and an empty kernel's device time beside the Out rows (the
-   launch floor); the Out forward row also with the wrapper's host µs a
-   call and the 64² OUTATTN step's 12 forward launches.
+   launch floor); ``attn_bwd_long`` at phase 6i's 6 launches on its
+   captions, held to the plain version there (8 rows at a time), beside
+   SDPA's forward and backward; the Out forward row also with the
+   wrapper's host µs a call and the 64² OUTATTN step's 12 forward
+   launches.
 8. Before the ``kernels`` line, the seconds of every phase (``[t]``; each
    phase also prints its own as it ends).  Last line: ``{"ok": true,
    "device": {...}}``.
@@ -372,7 +390,7 @@ KERNEL_PATTERN = {"fused_affine.forward": r"fused_affine_(vec|scalar)<",
                   "damsm_score.forward": r"damsm_fwd", "damsm_score.d_regions": r"damsm_bwd_dr",
                   "damsm_score.d_words": r"damsm_bwd_dw",
                   "cross_attention.forward": r"attn_(small|wide|grouped|short)<",
-                  "cross_attention.backward": r"attn_bwd(_warp)?<"}
+                  "cross_attention.backward": r"attn_bwd(_warp|_long)?<"}
 # launches of one flagship_word train step
 STEP_LAUNCHES = {"fused_affine.forward": 28, "fused_affine.backward": 14,
                  "fused_affine.double_backward": 0,
@@ -489,11 +507,21 @@ ATTN_BWD_WARP_EDGES = [(3, 16, 77, 1, 4, "planes", True, "mean"),
 # then a ragged T (7) with N no multiple of a tile and the planes at N = 80
 # (attn_bwd_warp's), and attn_bwd's own: T = 200 with the sampler's keys,
 # D = 12 at T = 33, the widest plan (T = 256, D = 32: 209 KB of shared
-# memory) and T = 200 at the Out shape
+# memory) and T = 200 at the Out shape; then attn_bwd_long's, past 256
+# words: the In layout (queries as planes, the sampler's keys) at T = 257,
+# 300 and 512, D = 32 at T = 300 (its sums in shared memory) and 512 (in
+# the scratch), the Out shape at T = 300, and T = 4,096 at D = 4 (shared
+# memory), 12 and 32 (the scratch)
 ATTN_BWD_EXTRA = [(3, 16, 77, 7, 4, True, True, "mean"), (3, 16, 80, 15, 4, "planes", True, "mean"),
                   (2, 16, 300, 200, 4, "sampler", True, "mean"),
                   (3, 1, 50, 33, 12, False, True, "cat"), (2, 1, 100, 256, 32, False, True, "cat"),
-                  (2, 1, 16, 200, 4, False, True, "cat")]
+                  (2, 1, 16, 200, 4, False, True, "cat"),
+                  (2, 16, 300, 257, 4, "planes", True, "mean"),
+                  (2, 16, 300, 300, 4, "planes", True, "mean"),
+                  (2, 16, 300, 512, 4, "planes", True, "mean"),
+                  (2, 2, 300, 300, 32, False, True, "mean"), (2, 2, 300, 512, 32, False, True, "mean"),
+                  (88, 1, 16, 300, 4, False, True, "cat"), (2, 2, 50, 4096, 4, False, True, "cat"),
+                  (2, 2, 50, 4096, 12, False, True, "cat"), (2, 2, 50, 4096, 32, False, True, "cat")]
 # the word-attention generators (phases 4f, 6e) and the sampler each drives
 ATTN_GENS = {"CONCEPT_INATTN_GEN": "in", "CONCEPT_OUTATTN_GEN": "out"}
 # phase 6e: steps of Trainer.fit for each word-attention generator and dtype
@@ -1594,8 +1622,8 @@ def upstream_loss(out: torch.Tensor, upstream: str, gen) -> torch.Tensor:
 
 def check_attention_bwd(step_in, step_out) -> dict:
     """Phase 3, the cross_attention backward (``attn_bwd_warp``,
-    ``attn_bwd``): at the distinct In shapes of the 64² train step (queries
-    as rows and as planes), its Out shape, ``ATTN_BWD_WARP_EDGES`` and
+    ``attn_bwd``, ``attn_bwd_long``): at the distinct In shapes of the 64²
+    train step (queries as rows and as planes), its Out shape, ``ATTN_BWD_WARP_EDGES`` and
     ``ATTN_BWD_EXTRA``, fp32 and bf16, keys passed as the values as both
     samplers do.  Through autograd (``masked_cross_attention_kernel`` under
     grad: one backward launch, dO as the upstream op hands it over), then the
@@ -2494,6 +2522,131 @@ def _attn_loop(card: str, name: str, dtype, root: str) -> dict:
             f"{g['op']} {g['dims']}")
     log(f"{label} last metrics: " + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
     del tr, batch
+    return res
+
+
+# phase 6i: phase 6e's INATTN step with captions past attn_bwd's 256 words
+# (``TEXT.MAX_LENGTH`` = ATTN_LONG_T, the only change to the published
+# config), so that its 6 backward launches go through attn_bwd_long
+ATTN_LONG_T = 300
+ATTN_LONG_TIMED = 3
+ATTN_LONG_SEED = 9
+# phase 7 runs the plain backward at the step's shapes this many rows at a
+# time ([rows, 16, 4096, 300] fp32 weights: 0.6 GB a tensor)
+ATTN_LONG_PLAIN_ROWS = 8
+
+
+def long_caption_cfg():
+    """``concept_in_df_gan.yml`` as published (64², NCH 32, batch 88) with
+    CONCEPT_INATTN_GEN and ``TEXT.MAX_LENGTH`` = ``ATTN_LONG_T``."""
+    return cfg_from_dict({"TEXT": {"ENCODER_DIR": "", "MAX_LENGTH": ATTN_LONG_T},
+                          "GEN": {"ENCODER_NAME": "CONCEPT_INATTN_GEN"}},
+                         base=cfg_from_file(str(CONCEPT_CFG)))
+
+
+def long_caption_mask(rng, batch: int, T: int) -> np.ndarray:
+    """Word mask (True = padded) of captions of 1 to T words, each its first
+    slots; caption 0 all T words, caption 1 one."""
+    lens = rng.randint(1, T + 1, batch)
+    lens[:2] = (T, 1)
+    return np.arange(T)[None, :] >= lens[:, None]
+
+
+def attn_bwd_work(shape, mask: torch.Tensor, es: int) -> tuple[int, int]:
+    """Bytes and operations of one attention backward launch at ``(B, G, N,
+    T, D)`` on ``mask``'s real words (element size ``es``): q and dO read,
+    dq written, k (passed as v) read once, dk and dv written, the mask;
+    per (query, real word) the score (2D), dP (2D), dS (3), dq, dk and dv
+    (2D each), the exponential and P."""
+    b, g, n, t, d = shape
+    words = int((~mask).sum()) * g
+    return 3 * b * g * n * d * es + 3 * b * g * t * d * es + b * t, words * n * (10 * d + 5)
+
+
+def long_caption_step(card: str, dtype) -> dict:
+    """Phase 6i for one dtype: ``long_caption_cfg`` on a synthetic batch
+    whose captions spread from 1 to 300 words (``long_caption_mask``): a
+    warm-up step, one counted (12 / 6 ``cross_attention`` launches and no
+    other of the port's kernels; the operands the forward's wrapper copied),
+    ``ATTN_LONG_TIMED`` timed, one profiled (the forwards on ``attn_small``,
+    the 6 backward launches on the ``attn_bwd_long`` instance ``plan_bwd``
+    names, by the profiler's names); finite metrics; the long kernel's
+    device ms in the step beside its bound on this batch's words."""
+    name = "CONCEPT_INATTN_GEN"
+    cfg = long_caption_cfg()
+    bs = cfg.TRAIN.BATCH_SIZE
+    label = f"[6i] {name} step {DTYPE_NAME[dtype]} bs{bs} {cfg.IMG.SIZE}² T={ATTN_LONG_T} | {card}"
+    per_step = attn_step_launches(cfg, name)
+    state = create_train_state(cfg, dtype, "cuda", seed=0)
+    step = make_train_step(cfg)
+    rng = np.random.RandomState(ATTN_LONG_SEED)
+    host = train_batch(rng, cfg, bs, long_caption_mask)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    noises = [torch.from_numpy(rng.randn(bs, cfg.TRAIN.NOISE_DIM).astype(np.float32)).cuda()
+              for _ in range(ATTN_LONG_TIMED + 3)]
+    step(state, batch, noises[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the long-caption training path's run: one step
+    ca.OPERAND_COPIES.launches = 0
+    metrics = step(state, batch, noises[1])
+    torch.cuda.synchronize()
+    launches = check_counts(f"{label} one step", per_step)
+    copies = ca.OPERAND_COPIES.launches
+    times = []
+    for i in range(ATTN_LONG_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, noises[2 + i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v.float()).all())]
+    if bad:
+        raise AssertionError(f"{label}: non-finite {bad}")
+    shapes = [sh[:5] for sh in attention_shapes(cfg, bs, "in")]
+    want_bwd = ca.bwd_kernel_name(ca.plan_bwd(*shapes[0], dtype), dtype)
+    if any(ca.bwd_kernel_name(ca.plan_bwd(*sh, dtype), dtype) != want_bwd for sh in shapes):
+        raise AssertionError(f"{label}: the step's backward launches plan more than one kernel")
+    fwd, bwd = launches["cross_attention.forward"], launches["cross_attention.backward"]
+    kernels, busy_ms, wall_ms = device_kernels(
+        lambda: step(state, batch, noises[-1]),
+        expect={**launch_patterns(launches), "attn_small<": fwd, re.escape(want_bwd): bwd})
+    long_ms = sum(k["ms"] for k in kernels if want_bwd in k["name"])
+    mask = batch["mask"]
+    es = torch.empty((), dtype=dtype).element_size()
+    work = [attn_bwd_work(sh, mask, es) for sh in shapes]
+    byte_ms = sum(w[0] for w in work) / HBM_BYTES_PER_S * 1e3
+    op_ms = sum(w[1] for w in work) / FP32_OPS_PER_S * 1e3
+    step_ms = statistics.median(times)
+    res = {"card": card, "config": f"concept_in_df_gan + {name}, TEXT.MAX_LENGTH {ATTN_LONG_T}",
+           "dtype": DTYPE_NAME[dtype], "batch": bs, "launches_step": launches,
+           "operand_copies_step": copies, "step_ms": step_ms, "step_ms_all": times,
+           "img_per_s": bs / step_ms * 1e3, "step_kernel_ms": sum(k["ms"] for k in kernels),
+           "step_busy_ms": busy_ms, "profiled_step_ms": wall_ms,
+           "device_busy_share": busy_ms / wall_ms, "device_ms_by_category": by_category(kernels),
+           "top_kernels": top_kernels(kernels, 8), "backward_kernel": want_bwd,
+           "backward_kernel_ms": long_ms, "backward_bound_ms": max(byte_ms, op_ms),
+           "backward_bound_by": "bytes" if byte_ms >= op_ms else "operations",
+           "real_words": int((~mask).sum()), "mask": host["mask"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "metrics": {k: float(v) for k, v in metrics.items()}}
+    log(f"{label}: launches of one step {launches} (forwards on attn_small, backwards on "
+        f"{want_bwd} by the profiler's names), {copies} operands copied by the forward's "
+        f"wrapper; step {step_ms:.1f} ms ({res['img_per_s']:.1f} img/s, median of "
+        f"{', '.join(f'{t:.1f}' for t in times)}), peak {res['peak_mem_gib']:.2f} GiB; "
+        f"{res['real_words']} real words of {bs * ATTN_LONG_T}")
+    log(f"{label}: the {bwd} {want_bwd} launches {long_ms:.3f} ms of device time in the step, "
+        f"bound {res['backward_bound_ms']:.4g} ms by {res['backward_bound_by']} "
+        f"({100 * res['backward_bound_ms'] / long_ms:.2f}%)")
+    log(f"{label} one step on the device: {res['step_kernel_ms']:.1f} ms of kernels, busy "
+        f"{busy_ms:.1f} of {wall_ms:.1f} ms (share {res['device_busy_share']:.3f}); " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in res["device_ms_by_category"].items()))
+    for g in res["top_kernels"]:
+        log(f"{label} top: {g['ms']:.1f} ms, {g['launches']} launches: {g['kernel']} <- "
+            f"{g['op']} {g['dims']}")
+    log(f"{label} last metrics: " + ", ".join(f"{k} {v:.4g}" for k, v in res["metrics"].items()))
+    del state, batch, step
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4134,9 +4287,7 @@ def attention_bwd_rows(errs, launches, own_ms) -> list[dict]:
     launches of one 64² word-attention step's G update (batch 88), per
     dtype: kernel vs plain vs SDPA's forward and backward (a yardstick on the
     same inputs, every row with a real word; used nowhere in the port) vs
-    bound.  Bytes: q and dO read, dq written, k (passed as v) read once, dk
-    and dv written, the mask; operations: per (query, real word) the score
-    (2D), dP (2D), dS (3), dq, dk and dv (2D each), the exponential and P."""
+    bound (``attn_bwd_work``)."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -4144,13 +4295,9 @@ def attention_bwd_rows(errs, launches, own_ms) -> list[dict]:
         for which in ("in", "out"):
             shapes = attn_train_shapes(which)
             calls = attention_bwd_calls(which, dtype, gen)
-            nbytes = ops = 0
-            for (b, g, n, t, d), (_, _, mask, _) in zip(shapes, calls):
-                words = int((~mask).sum()) * g
-                nbytes += 3 * b * g * n * d * es + 3 * b * g * t * d * es + b * t
-                ops += words * n * (10 * d + 5)
-            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            op_ms = ops / FP32_OPS_PER_S * 1e3
+            work = [attn_bwd_work(sh, mask, es) for sh, (_, _, mask, _) in zip(shapes, calls)]
+            byte_ms = sum(w[0] for w in work) / HBM_BYTES_PER_S * 1e3
+            op_ms = sum(w[1] for w in work) / FP32_OPS_PER_S * 1e3
             planned = sorted({ca.bwd_kernel_name(ca.plan_bwd(*sh, dtype), dtype)
                               for sh in shapes})
 
@@ -4202,6 +4349,103 @@ def attention_bwd_rows(errs, launches, own_ms) -> list[dict]:
                    if which == "out" else ""))
             del calls, leaves
             torch.cuda.empty_cache()
+    return rows
+
+
+def plain_bwd_by_rows(q, k, mask, dout) -> tuple[torch.Tensor, ...]:
+    """``masked_cross_attention_bwd_ref`` ``ATTN_LONG_PLAIN_ROWS`` rows of
+    the batch at a time (its weights are [rows, G, N, T]), the rows'
+    gradients concatenated."""
+    parts = [ca.masked_cross_attention_bwd_ref(*(x[i:i + ATTN_LONG_PLAIN_ROWS]
+                                                 for x in (q, k, k, mask, dout)), 1.0)
+             for i in range(0, q.shape[0], ATTN_LONG_PLAIN_ROWS)]
+    return tuple(torch.cat(xs) for xs in zip(*parts))
+
+
+def attention_long_rows(long_runs: dict) -> list[dict]:
+    """Phase 7, ``attn_bwd_long``: the 6 backward launches of phase 6i's
+    step (B = 88, G = 16, N = 256 ... 4096, T = 300, D = 4) on that step's
+    caption mask, as the step hands them over (the queries as planes, the
+    keys [B, G, D, T], dO dense), per dtype: held to the plain version
+    there (``ATTN_BWD_TOL``; the plain version ``ATTN_LONG_PLAIN_ROWS`` rows
+    at a time), two runs bit-equal; kernel vs plain vs SDPA's forward and
+    backward (a yardstick on the same inputs; used nowhere in the port) vs
+    bound (``attn_bwd_work``)."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    cfg = long_caption_cfg()
+    shapes = [sh[:5] for sh in attention_shapes(cfg, cfg.TRAIN.BATCH_SIZE, "in")]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        run = long_runs[dtype]
+        mask = torch.from_numpy(run["mask"]).cuda()
+        es = torch.empty((), dtype=dtype).element_size()
+        calls = []
+        for sh in shapes:
+            q, k, _, _ = attention_inputs((*sh, "planes"), dtype, gen, False)
+            calls.append((q, k, mask, torch.randn(q.shape, generator=gen, device="cuda").to(dtype)))
+        rtol, frac = ATTN_BWD_TOL[dtype]
+        worst = 0.0
+        for sh, (q, k, m, g) in zip(shapes, calls):
+            got = ca._launch_bwd(q, k, k, m, g, 1.0)
+            again = ca._launch_bwd(q, k, k, m, g, 1.0)
+            want = plain_bwd_by_rows(q, k, m, g)
+            torch.cuda.synchronize()
+            for name, a, b_, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(a, b_):
+                    raise AssertionError(f"attn_bwd_long {sh} {name}: two runs differ")
+                torch.testing.assert_close(
+                    a.float(), w.float(), rtol=rtol, atol=frac * w.float().abs().max().item(),
+                    msg=lambda msg: f"attn_bwd_long {sh} {name}: {msg}")
+                worst = max(worst, (a.float() - w.float()).abs().max().item())
+            del got, again, want
+        work = [attn_bwd_work(sh, mask, es) for sh in shapes]
+        byte_ms = sum(w[0] for w in work) / HBM_BYTES_PER_S * 1e3
+        op_ms = sum(w[1] for w in work) / FP32_OPS_PER_S * 1e3
+
+        def kern():
+            for q, k, m, g in calls:
+                ca._launch_bwd(q, k, k, m, g, 1.0)
+
+        def ref():
+            for q, k, m, g in calls:
+                plain_bwd_by_rows(q, k, m, g)
+
+        leaves = [(q.detach().requires_grad_(), k.detach().requires_grad_(), m, g)
+                  for q, k, m, g in calls]
+
+        def sdpa():
+            for q, k, m, g in leaves:
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, k, attn_mask=~m[:, None, None, :], scale=1.0).backward(g)
+
+        ms, plain_ms = cuda_ms(kern, 3), cuda_ms(ref, 1)
+        torch.cuda.empty_cache()
+        library_ms = cuda_ms(sdpa, 1)
+        bound = max(byte_ms, op_ms)
+        name = f"cross_attention.backward.long[{DTYPE_NAME[dtype]}]"
+        rows.append({
+            "name": name, "route": "cuda", "kernel": run["backward_kernel"],
+            "source": "xmc_gan_tpu_torch/csrc/cross_attention.cu",
+            "replaces": "xmc_gan_tpu/ops/pallas/cross_attention.py:95 (pallas_call :131; "
+                        "the Pallas kernel has no backward: JAX differentiates its einsum "
+                        "chain :110-116, any T)",
+            "launches": run["launches_step"]["cross_attention.backward"], "max_abs_err": worst,
+            "ms": ms, "kernel_ms": run["backward_kernel_ms"], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": library_ms, "roofline_share": bound / ms,
+            "shapes": f"the {len(shapes)} backward launches of one 64² NCH=32 CONCEPT_INATTN_GEN "
+                      f"train step at batch 88, TEXT.MAX_LENGTH {ATTN_LONG_T} (phase 6i's "
+                      f"captions, {run['real_words']} real words): (B, G, N, T, D) "
+                      f"{sorted(set(shapes))}, the queries as planes, dO dense",
+            "library": "scaled_dot_product_attention forward + backward",
+        })
+        log(f"[7] {name} ({run['backward_kernel']}): {len(shapes)} launches {ms:.3f} ms "
+            f"(in phase 6i's step {run['backward_kernel_ms']:.3f} ms of kernels), bound "
+            f"{bound:.4g} ms by {rows[-1]['bound_by']} ({100 * bound / ms:.2f}%), plain "
+            f"{plain_ms:.3f} ms, SDPA forward + backward {library_ms:.3f} ms; max_abs_err "
+            f"{worst:.3g} against the plain version at these shapes, two runs bit-equal")
+        del calls, leaves
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4467,6 +4711,9 @@ def main() -> int:
         dp = dp_phase(card, trains[torch.bfloat16]["step_ms"])
     with phase("6h tensor parallel"):
         tp = tp_phase(card)
+    with phase("6i long captions"):
+        long_runs = {dtype: long_caption_step(card, dtype)
+                     for dtype in (torch.bfloat16, torch.float32)}
     t7 = time.perf_counter()
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
@@ -4502,6 +4749,7 @@ def main() -> int:
         ca_bwd_errs, {name: {d: r["launches_step"]["cross_attention.backward"]
                              for d, r in attn_loops[name].items()} for name in ATTN_GENS},
         own_ms)
+    kernels += attention_long_rows(long_runs)
     kernels += attention_rows(
         [s[:5] for s in attn_in], [s[:5] for s in attn_out], ca_errs,
         {name: {d: r["cross_attention.forward"] for d, r in req[name].items()}
@@ -4529,7 +4777,9 @@ def main() -> int:
                     "attention_training_loop": [r for rs in attn_loops.values()
                                                 for r in rs.values()],
                     "vgg_training": vgg_train, "data_parallel": dp,
-                    "tensor_parallel": tp}))
+                    "tensor_parallel": tp,
+                    "long_caption_training": [{k: v for k, v in r.items() if k != "mask"}
+                                              for r in long_runs.values()]}))
     PHASE_SECONDS["7 kernel rows"] = time.perf_counter() - t7
     log("[t] seconds by phase | " + card + " | " + json.dumps(
         {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))

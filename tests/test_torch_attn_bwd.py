@@ -45,11 +45,15 @@ def _lens_mask(lens, t):
 
 # (B, G, N, T, D, q's layout, caption lengths): the In sampler's shapes (G =
 # 16 concept groups, D = 4, T = 15) with q as rows and as planes, the Out
-# block's (G = 1: [B, 16, 4] states), a ragged D = 12 one and T = 200; every
-# caption has a real word (the JAX chain gives NaN for one that has none)
+# block's (G = 1: [B, 16, 4] states), a ragged D = 12 one and T = 200; then
+# captions past 256 words (``attn_bwd_long``'s on the card): the In shape as
+# planes at T = 300, the Out shape with a one-word caption, and T = 600 at a
+# ragged D = 12; every caption has a real word (the JAX chain gives NaN for
+# one that has none)
 VJP_CASES = [(2, 16, 64, 15, 4, "rows", [15, 3]), (2, 16, 64, 15, 4, "planes", [1, 9]),
              (4, 1, 16, 15, 4, "dense", [15, 1, 7, 4]), (3, 2, 37, 33, 12, "dense", [33, 5, 20]),
-             (2, 1, 16, 200, 4, "dense", [200, 31])]
+             (2, 1, 16, 200, 4, "dense", [200, 31]), (2, 16, 64, 300, 4, "planes", [300, 120]),
+             (2, 1, 16, 300, 4, "dense", [300, 1]), (2, 2, 37, 600, 12, "dense", [600, 33])]
 
 
 @pytest.mark.parametrize("b,g,n,t,d,layout,lens", VJP_CASES, ids=str)
@@ -204,7 +208,8 @@ def test_plan_bwd_warp_geometry_over_n(n, threads):
 
 
 @pytest.mark.parametrize("shape", [(88, 16, 4096, 15, 4), (88, 1, 16, 15, 4), (3, 2, 77, 33, 12),
-                                   (2, 1, 100, 256, 32), (7, 3, 1, 20, 2)])
+                                   (2, 1, 100, 256, 32), (7, 3, 1, 20, 2), (88, 16, 4096, 300, 4),
+                                   (2, 3, 50, 4096, 32)])
 def test_plan_bwd_is_a_pure_function_of_the_shapes(shape):
     """The same shapes give the same plan, in both dtypes, in any order of
     calls; nothing of an earlier call's shapes or of the operands' layout
@@ -217,12 +222,167 @@ def test_plan_bwd_is_a_pure_function_of_the_shapes(shape):
 
 @pytest.mark.parametrize("t,d,err,match", [(15, 33, ValueError, "D <= 32"),
                                            (15, 0, ValueError, "D <= 32"),
-                                           (257, 4, ValueError, "T <= 256"),
+                                           (300, 33, ValueError, "D <= 32"),
                                            (15, 4, TypeError, "float32 or bfloat16")])
 def test_plan_bwd_refuses_what_the_kernel_does_not_take(t, d, err, match):
     dtype = torch.float16 if err is TypeError else torch.float32
     with pytest.raises(err, match=match):
         ca.plan_bwd(2, 1, 8, t, d, dtype)
+
+
+@pytest.mark.parametrize("t,d", [(15, 4), (300, 4), (4096, 32)])
+def test_plan_bwd_refuses_a_grid_past_its_limit(t, d):
+    """One block per (b, g) row: B * G past 2^31 - 1 raises before any
+    launch, at every caption length (also where the long kernel's scratch
+    would be planned)."""
+    with pytest.raises(ValueError, match="grid limit"):
+        ca.plan_bwd(2**16, 2**15, 8, t, d, torch.float32)
+    assert ca.plan_bwd(2**16, 2**15 - 1, 8, t, d, torch.float32).blocks == 2**31 - 2**16
+
+
+# ------------------------------------------------------- past 256 words
+
+
+def _long_tiles(dmax, threads):
+    """``attn_bwd_long``'s shared memory but its sums (csrc
+    ``long_smem_tiles``): the 64-word tile's keys and values, the
+    [64][threads + 1] P and dS, the [DMAX][threads + 1] q and dO, 64 pad
+    flags."""
+    return 4 * (2 * 64 * dmax + 2 * (64 + dmax) * (threads + 1) + 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d,dmax", [(4, 4), (12, 16), (32, 32)])
+@pytest.mark.parametrize("t", [257, 300, 512, 4096])
+def test_plan_bwd_names_the_long_kernel_past_256_words(t, d, dmax, dtype):
+    """``attn_bwd_long`` past 256 words at every D <= 32, in both types: one
+    block per (b, g), 128-query tiles at N = 4,096, its template's DMAX;
+    dk's and dv's fp32 sums (8 T DMAX bytes a block) in shared memory where
+    they fit beside the tiles within 227 KB, else a scratch of B G times
+    that, and then only the tiles in shared memory."""
+    p = ca.plan_bwd(88, 16, 4096, t, d, dtype)
+    assert (p.kernel, p.dmax, p.tmax, p.threads, p.blocks) == (ca.BWD_LONG, dmax, 0, 128,
+                                                               88 * 16)
+    sums = 8 * t * dmax
+    if _long_tiles(dmax, 128) + sums <= 232448:
+        assert (p.smem, p.scratch) == (_long_tiles(dmax, 128) + sums, 0)
+    else:
+        assert (p.smem, p.scratch) == (_long_tiles(dmax, 128), 88 * 16 * sums)
+    assert p.smem <= 232448
+    t_name = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    assert ca.bwd_kernel_name(p, dtype) == f"attn_bwd_long<{t_name}, {dmax}>"
+
+
+@pytest.mark.parametrize("t,d,shared", [(300, 4, True), (4999, 4, True), (5000, 4, False),
+                                        (300, 32, True), (456, 32, True), (457, 32, False),
+                                        (512, 16, True), (4096, 12, False)])
+def test_plan_bwd_long_keeps_its_sums_on_chip_where_they_fit(t, d, shared):
+    """Where the sums go: shared memory up to 227 KB a block (with 128-query
+    tiles: T <= 4,999 at D <= 4, 456 at D = 32), the scratch past it."""
+    p = ca.plan_bwd(88, 16, 4096, t, d, torch.float32)
+    assert (p.scratch == 0) == shared
+    assert (p.smem == 232448) == (t in (4999, 456))
+
+
+@pytest.mark.parametrize("n,threads", [(1, 32), (32, 32), (33, 64), (96, 96), (97, 128),
+                                       (128, 128), (4097, 128), (0, 32)])
+def test_plan_bwd_long_tile_over_n(n, threads):
+    """The long kernel's query tile: N rounded up to a warp, at most 128;
+    its shared memory follows the tile."""
+    p = ca.plan_bwd(3, 16, n, 300, 4, torch.bfloat16)
+    assert (p.kernel, p.threads, p.blocks) == (ca.BWD_LONG, threads, 48)
+    assert p.smem == _long_tiles(4, threads) + 8 * 300 * 4 and p.scratch == 0
+
+
+@pytest.mark.parametrize("t,d", [(256, 4), (256, 32), (200, 4), (32, 4), (33, 4)])
+def test_plan_bwd_up_to_256_words_is_unchanged(t, d):
+    """Up to 256 words the plans are those of ``attn_bwd_warp`` and
+    ``attn_bwd`` as before the long kernel (the formulas written out)."""
+    p = ca.plan_bwd(88, 16, 4096, t, d, torch.float32)
+    if t <= 32 and d <= 4:
+        assert p == ca.BwdPlan(ca.BWD_WARP, 4, 32, 64, 1408, _warp_smem(32, 2))
+        return
+    dmax = 4 if d <= 4 else 32
+    tile = 256 if t <= 32 else 128 if t <= 64 else 64 if t <= 128 else 32
+    assert p == ca.BwdPlan(ca.BWD, dmax, 0, tile, 1408,
+                           4 * (4 * t * dmax + 2 * (t + dmax) * (tile + 1)) + 8 * t, 0)
+
+
+def test_long_backward_launch_hands_the_entry_the_plan(monkeypatch):
+    """Past 256 words ``_launch_bwd`` calls the long kernel's entry (the
+    library faked): the operands as they are (q as planes, the keys'
+    d-stride T), then a scratch pointer, NULL where the plan keeps the sums
+    in shared memory, else a float32 buffer of the plan's bytes on q's
+    device; the plan's geometry; one count a launch."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def xmc_cross_attention_bwd_long(*args):
+            calls.append(args)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    allocs = []
+    empty = torch.empty
+
+    def spy_empty(*shape, **kw):
+        out = empty(*shape, **kw)
+        allocs.append((out.data_ptr(), out.numel(), out.dtype))
+        return out
+
+    monkeypatch.setattr(ca.KERNEL, "load", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream)
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    before = ca.BACKWARD.launches
+    for b, g, n, t, d in ((2, 16, 200, 300, 4), (2, 2, 40, 1000, 32)):
+        q = torch.randn(b, g, d, n).transpose(2, 3)  # planes
+        k = torch.randn(b, g, d, t).transpose(2, 3)  # [B, G, D, T] in memory
+        dout = torch.randn(b, g, n, d)
+        mask = torch.zeros(b, t, dtype=torch.bool)
+        dq, dk, dv = ca._launch_bwd(q, k, k, mask, dout, 0.5)
+        p = ca.plan_bwd(b, g, n, t, d, torch.float32)
+        args = calls[-1]
+        assert p.kernel == ca.BWD_LONG
+        assert args[0] == q.data_ptr() and args[1] == args[2] == k.data_ptr()
+        assert args[5:8] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        if p.scratch:
+            assert allocs[-1] == (args[8], p.scratch // 4, torch.float32)
+        else:
+            assert args[8] is None
+        assert args[9:14] == (b, g, n, t, d)
+        assert args[14:18] == q.stride() and args[18:22] == k.stride() == args[22:26]
+        assert args[26:30] == dout.stride() and args[30:34] == dq.stride() == q.stride()
+        assert args[34] == 0.5 and args[35:] == (0, p.dmax, p.threads, p.blocks, p.smem, 0)
+        assert dk.shape == dv.shape == k.shape and dk.is_contiguous() and dv.is_contiguous()
+    assert [bool(ca.plan_bwd(2, 16, 200, 300, 4, torch.float32).scratch),
+            bool(ca.plan_bwd(2, 2, 40, 1000, 32, torch.float32).scratch)] == [False, True]
+    assert ca.BACKWARD.launches == before + 2
+
+
+@pytest.mark.parametrize("t", [257, 300, 600])
+def test_wrapper_plans_the_long_backward_before_any_launch(monkeypatch, t):
+    """Under grad on CUDA the wrapper asks ``plan_bwd`` before the forward
+    launch: past 256 words it now plans the long kernel (no raise), and at
+    D > 32 it still raises before any launch (the device and library faked:
+    nothing launches)."""
+    planned = []
+    real = ca.plan_bwd
+    monkeypatch.setattr(ca, "plan_bwd", lambda *a: planned.append(real(*a)) or planned[-1])
+    monkeypatch.setattr(ca._MaskedCrossAttention, "apply", lambda *a: "launched")
+    q = torch.randn(2, 16, 64, 4, requires_grad=True)
+    k = torch.randn(2, 16, t, 4)
+    mask = torch.zeros(2, t, dtype=torch.bool)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda", 0)))
+    assert ca.masked_cross_attention_kernel(q, k, k, mask) == "launched"
+    assert planned[-1].kernel == ca.BWD_LONG
+    wide = torch.randn(2, 16, 64, 40, requires_grad=True)
+    with pytest.raises(ValueError, match="D <= 32"):
+        ca.masked_cross_attention_kernel(wide, torch.randn(2, 16, t, 40),
+                                         torch.randn(2, 16, t, 40), mask)
 
 
 def test_backward_launch_hands_the_entry_the_plan(monkeypatch):

@@ -324,7 +324,6 @@ def test_damsm_kernels_match_plain_on_card(cuda_device, cd, shape, allpad, max_l
     tensor-core kernels' tile edges and the bf16 CUDA-core kernels at
     R > 256; the profiler's kernel names show the route the rule picks."""
     r, w, mask, up = _damsm_inputs(cuda_device, shape, 4, allpad, max_len)
-    before = (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches)
     ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
     got = {}
 
@@ -332,10 +331,9 @@ def test_damsm_kernels_match_plain_on_card(cuda_device, cd, shape, allpad, max_l
         got["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
         got["g"] = torch.autograd.grad(got["s"], (ri, wi), up)
 
-    names = _damsm_kernel_names(run)  # runs it twice: one launch of each kernel a run
+    names, launched = _damsm_launches_and_names(run)
     out, (dr, dw) = got["s"], got["g"]
-    assert (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches) == tuple(
-        n + 2 for n in before)
+    assert launched == (1, 1, 1)  # one launch of each kernel in the untraced run
     for which in ("fwd", "dr", "dw"):
         want = ds.kernel_name(which, shape[2], shape[4], cd)
         assert any(want in n for n in names), (want, names)
@@ -365,13 +363,27 @@ def _ln_inputs(device, shape, seed):
     return r, w, mask, up
 
 
-def _damsm_kernel_names(fn) -> set[str]:
+def _damsm_counts() -> tuple[int, int, int]:
+    return ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches
+
+
+def _damsm_launches_and_names(fn) -> tuple[set[str], tuple[int, int, int]]:
     """The names of the damsm kernels that ``fn`` launches, from a whole
-    trace of its second call (``device_kernels``): the first, before the
-    trace, builds, loads and sets up every kernel it launches."""
+    trace of a later call (``device_kernels``, which runs ``fn`` again as
+    often as it retakes a trace that is not whole), and the forward,
+    d_regions and d_words launches that the counts saw in the first call
+    alone, untraced, which also builds, loads and sets up every kernel."""
+    before = _damsm_counts()
     fn()
     torch.cuda.synchronize()
-    return {k["name"] for k in device_kernels(fn)[0] if "damsm" in k["name"]}
+    launched = tuple(a - b for a, b in zip(_damsm_counts(), before))
+    return {k["name"] for k in device_kernels(fn)[0] if "damsm" in k["name"]}, launched
+
+
+def _damsm_kernel_names(fn) -> set[str]:
+    """The names of the damsm kernels that ``fn`` launches
+    (``_damsm_launches_and_names``)."""
+    return _damsm_launches_and_names(fn)[0]
 
 
 # (shape, compute dtype, the forward's and d_regions' kernels): the LN
@@ -404,16 +416,14 @@ def test_damsm_long_captions_match_plain_on_card(cuda_device, shape, cd, kernels
     assert (ds.route("dr", R, D, cd) == ds.TENSOR_CORES) == ("_tc" in kernels[1])
     r, w, mask, up = _ln_inputs(cuda_device, shape, 12)
     ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
-    before = (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches)
     out = {}
 
     def run():
         out["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
         out["g"] = torch.autograd.grad(out["s"], (ri, wi), up)
 
-    names = _damsm_kernel_names(run)  # runs it twice: one launch of each kernel a run
-    assert (ds.FORWARD.launches, ds.D_REGIONS.launches, ds.D_WORDS.launches) == tuple(
-        n + 2 for n in before)
+    names, launched = _damsm_launches_and_names(run)
+    assert launched == (1, 1, 1)  # one launch of each kernel in the untraced run
     launched = kernels + (ds.kernel_name("dw", R, D, cd),)  # the d_words packed, as its route
     for want in launched:
         assert any(want in n for n in names), (want, names)
@@ -531,12 +541,13 @@ def test_damsm_tensor_core_d_words_matches_plain_on_card(cuda_device, shape, all
     k = w_sub.shape[0] // bc
     g = up.repeat_interleave(k, dim=1)
     out = {}
-    before = ds.D_WORDS.launches
-    names = _damsm_kernel_names(lambda: out.update(
+    names, launched = _damsm_launches_and_names(lambda: out.update(
         first=ds._launch_bwd("dw", r, w_sub, m_sub, g, 4.0, 5.0, torch.bfloat16)))
+    assert launched == (0, 0, 1)  # the untraced call: one d_words launch
+    before = ds.D_WORDS.launches
     again = ds._launch_bwd("dw", r, w_sub, m_sub, g, 4.0, 5.0, torch.bfloat16)
     torch.cuda.synchronize()
-    assert ds.D_WORDS.launches == before + 3
+    assert ds.D_WORDS.launches == before + 1
     assert any(ds.kernel_name("dw", R, D, torch.bfloat16) in n for n in names), names
     assert "damsm_bwd_dw_tcs_kernel<" == ds.kernel_name("dw", R, D, torch.bfloat16)
     got = out["first"]
@@ -585,12 +596,13 @@ def test_damsm_fp32_d_words_matches_plain_on_card(cuda_device, shape, allpad, ma
     k = w_sub.shape[0] // bc
     g = up.repeat_interleave(k, dim=1)
     out = {}
-    before = ds.D_WORDS.launches
-    names = _damsm_kernel_names(lambda: out.update(
+    names, launched = _damsm_launches_and_names(lambda: out.update(
         first=ds._launch_bwd("dw", r, w_sub, m_sub, g, 4.0, 5.0, None)))
+    assert launched == (0, 0, 1)  # the untraced call: one d_words launch
+    before = ds.D_WORDS.launches
     again = ds._launch_bwd("dw", r, w_sub, m_sub, g, 4.0, 5.0, None)
     torch.cuda.synchronize()
-    assert ds.D_WORDS.launches == before + 3
+    assert ds.D_WORDS.launches == before + 1
     assert "damsm_bwd_dw_f32_kernel<" == ds.kernel_name("dw", R, D, None)
     assert any("damsm_bwd_dw_f32_kernel<" in n for n in names), names
     assert not any("damsm_bwd_dw_kernel<" in n for n in names), names
@@ -1005,9 +1017,11 @@ def test_cross_attention_kernel_matches_plain_on_card(cuda_device, dtype, shape)
 
 @pytest.mark.cuda
 def test_cross_attention_refuses_grad_on_card(cuda_device):
-    """Under grad, a shape the backward's plan does not take (D > 32, T >
-    256) raises ValueError before any launch; under no_grad it runs."""
-    for shape in ((2, 1, 8, 5, 48, False), (2, 1, 8, 257, 4, False)):
+    """Under grad, a shape the backward's plan does not take (D > 32, with
+    a short and with a long caption) raises ValueError before any launch;
+    under no_grad it runs.  A caption past 256 words at D <= 32 trains
+    (``attn_bwd_long``): one forward and one backward launch."""
+    for shape in ((2, 1, 8, 5, 48, False), (2, 1, 8, 300, 48, False)):
         q, k, v, mask = _attn_inputs(cuda_device, shape, 8, allpad=False)
         before = (ca.FORWARD.launches, ca.BACKWARD.launches)
         with pytest.raises(ValueError, match="backward takes"):
@@ -1016,6 +1030,12 @@ def test_cross_attention_refuses_grad_on_card(cuda_device):
         with torch.no_grad():
             ca.masked_cross_attention_kernel(q, k, v, mask)
         assert ca.FORWARD.launches == before[0] + 1
+    q, k, v, mask = _attn_inputs(cuda_device, (2, 1, 8, 257, 4, False), 8, allpad=False)
+    before = (ca.FORWARD.launches, ca.BACKWARD.launches)
+    ca.masked_cross_attention_kernel(q.requires_grad_(), k, v, mask).sum().backward()
+    torch.cuda.synchronize()
+    assert (ca.FORWARD.launches, ca.BACKWARD.launches) == (before[0] + 1, before[1] + 1)
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
 
 
 # kernel's backward vs its plain version: each gradient to rtol and to atol
@@ -1077,6 +1097,38 @@ def _assert_bwd_matches_plain(q, k, mask, dout, dtype):
     assert got[0].stride() == q.stride()
 
 
+# past attn_bwd's 256 words (``attn_bwd_long``): T = 257, 300 and 512 at
+# D = 4 (the 64² In step's layout: queries as planes, keys [B, G, D, T]) and
+# D = 32; the Out shape at T = 300; T = 4,096 at D = 4 (the sums in shared
+# memory), 12 and 32 (in the scratch), and T = 512 at D = 32 (the scratch)
+ATTN_BWD_LONG_SHAPES = [(3, 16, 300, t, 4, "planes") for t in (257, 300, 512)] + [
+    (3, 2, 300, t, 32, False) for t in (257, 300, 512)] + [
+    (88, 1, 16, 300, 4, False), (3, 2, 40, 4096, 4, False), (3, 2, 40, 4096, 12, False),
+    (3, 2, 40, 4096, 32, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_BWD_LONG_SHAPES, ids=str)
+def test_cross_attention_long_backward_matches_plain_on_card(cuda_device, dtype, shape):
+    """``attn_bwd_long`` against ``masked_cross_attention_bwd_ref`` within
+    ``ATTN_BWD_TOL``, k passed as v: row 0 fully padded (zero gradients),
+    row 1 one word (dq and dk exactly 0), row 2 half its words; every padded
+    word's dk and dv exactly 0; two launches bit-equal; dq has q's strides;
+    the plan names the long kernel, with the sums in the scratch where they
+    do not fit in shared memory."""
+    q, k, mask, dout = _bwd_case(cuda_device, shape, dtype, 23)
+    b, g, n, t, d, _ = shape
+    p = ca.plan_bwd(b, g, n, t, d, dtype)
+    assert p.kernel == ca.BWD_LONG and bool(p.scratch) == (d > 4 and t >= 512)
+    _assert_bwd_matches_plain(q, k, mask, dout, dtype)
+    _, dk, dv = ca._launch_bwd(q, k, k, mask, dout, 0.7)
+    torch.cuda.synchronize()
+    for x in (dk, dv):
+        words = x if x.dim() == 3 else x.transpose(1, 2)  # [B, T, (G,) D]
+        assert bool((words[mask] == 0).all()) and bool((words[~mask] != 0).any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(88, 1, 16, 15, 4, False), (4, 16, 1024, 15, 4, "planes"),
@@ -1116,7 +1168,8 @@ def test_cross_attention_trains_through_the_backward_kernel(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 16, 300, 15, 4, "planes"), (3, 16, 130, 32, 4, True),
-                                   (88, 1, 16, 15, 4, False), (3, 2, 50, 15, 3, False)], ids=str)
+                                   (88, 1, 16, 15, 4, False), (3, 2, 50, 15, 3, False),
+                                   (3, 2, 50, 300, 12, False)], ids=str)
 def test_cross_attention_backward_with_values_apart_from_keys(cuda_device, dtype, shape):
     """Values that are not the keys (the samplers pass the keys as the
     values; ``attn_bwd_warp`` then reads a word once): the same checks as
@@ -1138,7 +1191,8 @@ def test_cross_attention_backward_with_values_apart_from_keys(cuda_device, dtype
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 16, 300, 15, 4, "planes"), (3, 16, 77, 32, 4, True),
-                                   (88, 1, 16, 15, 4, False), (3, 1, 50, 40, 4, False)], ids=str)
+                                   (88, 1, 16, 15, 4, False), (3, 1, 50, 40, 4, False),
+                                   (3, 16, 77, 300, 4, "planes")], ids=str)
 def test_cross_attention_backward_with_scattered_padding(cuda_device, dtype, shape):
     """Padded words anywhere in a caption, not only at its end: each row's
     real words are compacted in order (row 0 all padded, row 1 one real word
@@ -1166,19 +1220,21 @@ def _traced_attention_backward_kernels() -> list:
     """For each dtype and a shape of each template: the kernel ``plan_bwd``
     names and the backward kernels of a whole trace of one launch
     (``attn_bwd_warp`` at TMAX 16 and 32, ``attn_bwd`` at T = 33 and at each
-    D bound past 4)."""
+    D bound past 4, ``attn_bwd_long`` at T = 300 with its sums in shared
+    memory and at T = 1,000 in the scratch)."""
     device = torch.device("cuda")
     ca.KERNEL.load()
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((2, 16, 1024, 15, 4, "planes"), (2, 1, 16, 20, 4, False),
                       (2, 1, 64, 33, 4, False), (2, 1, 64, 20, 8, False),
-                      (2, 1, 64, 20, 32, False)):
+                      (2, 1, 64, 20, 32, False), (2, 16, 1024, 300, 4, "planes"),
+                      (2, 1, 64, 1000, 32, False)):
             q, k, mask, dout = _bwd_case(device, shape, dtype, 15)
             ca._launch_bwd(q, k, k, mask, dout, 1.0)
             torch.cuda.synchronize()
             seen = device_kernels(lambda: ca._launch_bwd(q, k, k, mask, dout, 1.0),
-                                  expect={r"attn_bwd(_warp)?<": 1})[0]
+                                  expect={r"attn_bwd(_warp|_long)?<": 1})[0]
             q4 = q if q.dim() == 4 else q.unsqueeze(1)
             p = ca.plan_bwd(*q4.shape[:3], shape[3], shape[4], dtype)
             out.append((ca.bwd_kernel_name(p, dtype),
@@ -1198,7 +1254,8 @@ def test_cross_attention_backward_launches_the_planned_kernel(cuda_device):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert [w.split("<")[0] for w, _ in got[:5]] == ["attn_bwd_warp"] * 2 + ["attn_bwd"] * 3
+    assert [w.split("<")[0] for w, _ in got[:7]] == (["attn_bwd_warp"] * 2 + ["attn_bwd"] * 3
+                                                      + ["attn_bwd_long"] * 2)
     for want, names in got:
         assert names and all(want in nm for nm in names), (want, names)
 

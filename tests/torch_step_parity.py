@@ -64,18 +64,19 @@ def _jax_replace(node, over: dict):
         for key, val in over.items()})
 
 
-def tiny_cfgs(name: str, overrides: dict | None = None):
-    """``xmc_gan_tpu/cfg/<name>`` at the ``_tiny`` sizes with ``overrides``,
-    as a JAX-package and a port config (every other switch of the file
-    kept)."""
+def tiny_cfgs(name: str, overrides: dict | None = None, max_length: int = T):
+    """``xmc_gan_tpu/cfg/<name>`` at the ``_tiny`` sizes (``TEXT.MAX_LENGTH``
+    ``max_length``) with ``overrides``, as a JAX-package and a port config
+    (every other switch of the file kept)."""
     jcfg = jax_cfg_from_file(str(CFG_DIR / name))
     jcfg = jcfg.replace(
         TRAIN=dataclasses.replace(jcfg.TRAIN, **TINY["TRAIN"]),
         IMG=jcfg.IMG.__class__(SIZE=SIZE),
-        TEXT=dataclasses.replace(jcfg.TEXT, EMBEDDING_DIM=EMB, MAX_LENGTH=T))
+        TEXT=dataclasses.replace(jcfg.TEXT, EMBEDDING_DIM=EMB, MAX_LENGTH=max_length))
     if overrides:
         jcfg = _jax_replace(jcfg, overrides)
-    return jcfg, cfg_from_dict(_merge(TINY, overrides or {}),
+    tiny = _merge(TINY, {"TEXT": {"MAX_LENGTH": max_length}})
+    return jcfg, cfg_from_dict(_merge(tiny, overrides or {}),
                                base=cfg_from_file(str(CFG_DIR / name)))
 
 
@@ -119,17 +120,23 @@ def _port_from_jax(cfg, state, step: int):
     return port
 
 
-# caption lengths of the batch's words (every caption with a real word)
-WORD_LENS = [T, 1, 3, 5]
+def word_lens(t: int) -> list[int]:
+    """Caption lengths of the batch's words at ``TEXT.MAX_LENGTH`` t (every
+    caption with a real word): all t slots, one word, half, five."""
+    return [t, 1, t // 2, 5]
 
 
-def run_step(name: str, overrides: dict | None = None, words: bool = False) -> dict:
+WORD_LENS = word_lens(T)
+
+
+def run_step(name: str, overrides: dict | None = None, words: bool = False,
+             max_length: int = T) -> dict:
     """The first step free-running from the perturbed state and, with
     ``N_CRITIC`` = 2, the second step alone from the JAX state after the
     first; ``words``: the batch carries ``words_embs`` and ``mask``
-    (``WORD_LENS``).  Returns the config and, per step, both packages'
-    metrics and parameters."""
-    jcfg, cfg = tiny_cfgs(name, overrides)
+    (``word_lens(max_length)``).  Returns the config and, per step, both
+    packages' metrics and parameters."""
+    jcfg, cfg = tiny_cfgs(name, overrides, max_length)
     state = jax.jit(functools.partial(jax_train.create_train_state, jcfg))(jax.random.PRNGKey(0))
     g = _perturb(_np(state.g_params), cfg.GEN.ENCODER_NAME, 1)
     d = _perturb(_np(state.d_params), cfg.DISC.ENCODER_NAME, 2)
@@ -153,8 +160,9 @@ def run_step(name: str, overrides: dict | None = None, words: bool = False) -> d
         batch = {"imgs": rng.randint(0, 256, (BS, SIZE, SIZE, 3)).astype(np.uint8),
                  "sent_embs": rng.randn(BS, EMB).astype(np.float32)}
         if words:
-            batch["words_embs"] = rng.randn(BS, T, EMB).astype(np.float32)
-            batch["mask"] = np.arange(T)[None, :] >= np.array(WORD_LENS)[:, None]
+            batch["words_embs"] = rng.randn(BS, max_length, EMB).astype(np.float32)
+            batch["mask"] = (np.arange(max_length)[None, :]
+                             >= np.array(word_lens(max_length))[:, None])
         key = jax.random.PRNGKey(100 + k)
         noise = np.asarray(jax.random.normal(key, (BS, NOISE), jnp.float32))  # the JAX draw
         if k > 0:

@@ -13,7 +13,8 @@
 // are kept in log2 units (scale * log2(e) folded into q or k) and padded
 // words are skipped, so their values never enter.
 //
-// Four forward kernels and two backward ones (attn_bwd_warp, attn_bwd); the
+// Four forward kernels and three backward ones (attn_bwd_warp, attn_bwd,
+// attn_bwd_long); the
 // wrapper's plans (ops/cuda/cross_attention.py, plan() and plan_bwd()) name
 // the kernel and its launch geometry before any launch, and the C entries
 // refuse a launch whose kernel or geometry is not one they take.
@@ -184,6 +185,36 @@
 //     memory.  The tile shrinks with T (256 queries up to T = 32, 32 at
 //     T = 256) so that the tiles fit.
 //
+// attn_bwd_long (captions past attn_bwd's 256 words: D <= 32, templated on
+// DMAX, any T > 256 whose grid fits).  attn_bwd keeps every word's keys,
+// values and sums in shared memory beside [T][tile] weight tiles: 209 KB at
+// T = 256, D = 32, so it cannot take a longer caption.  Here the words
+// stream through shared memory in tiles of 64 (keys and values as fp32,
+// the mask as flags), and a block of one (b, g) row walks its queries a
+// tile of up to 128 at a time, a thread a query:
+//   * Pass 1 over the word tiles: each tile's maximum first, then the
+//     running maximum, sum and sum_t P dP rescaled once a tile (exact at the
+//     end; each score rounded once, __fmul_rn, the same in both passes, so
+//     the largest word's weight is exp2(0) = 1 and a one-word row's dS is
+//     exactly 0).  Delta = sum_t P dP / sum_t P.
+//   * Pass 2 over the word tiles: P, dS and dq (in registers) a word at a
+//     time, the tile's P and dS into shared memory as [word][query], the
+//     queries and dO as [feature][query] (rows padded by one float); then
+//     each (dk or dv, word) of the tile has one owner thread, which adds the
+//     tile's queries in order, all D features at once, into its fp32
+//     accumulators.
+//   * The accumulators ([2][T][DMAX]) stay in shared memory where they fit
+//     beside the tiles (up to 227 KB a block: with 128-query tiles T <=
+//     4,999 at D <= 4, 456 at D = 32), else in the block's own part of an fp32 scratch in device
+//     memory ([B * G][2][T][DMAX], from the wrapper), which no other block
+//     touches.  A last sweep rounds dk and dv once and stores them; a
+//     padded word gets 0.
+//   * Bound at the 64^2 In step at T = 300 (2.05e7 query rows, ~150 real
+//     words a caption): ~45 fp32 operations a (query, real word) pair,
+//     ~2 ms of FMA issue on 132 SMs against ~0.3 ms of bytes.  This first
+//     version is simple, not fast: it recomputes each score three times and
+//     runs 4-8 warps an SM.
+//
 // C interface (bound with ctypes, pointers and stream as void*):
 //   int xmc_cross_attention(q, k, v, mask, out, B, G, N, T, D,
 //                           qsb, qsg, qsn, qsd, ksb, ksg, kst, ksd,
@@ -207,6 +238,12 @@
 //   dmax, threads (the queries of a tile), blocks (B * G) and smem (bytes of
 //   dynamic shared memory) are the plan's (plan_bwd); the entry recomputes
 //   them and refuses a launch where they differ.  Returns as above.
+//   int xmc_cross_attention_bwd_long(q, k, v, mask, dout, dq, dk, dv, scratch,
+//                                    ... as xmc_cross_attention_bwd ...)
+//   attn_bwd_long's: T > 256; dmax, threads (N rounded up to a warp, at
+//   most 128), blocks (B * G), smem (long_smem) and scratch (NULL where the
+//   accumulators fit in shared memory, else 8 * T * dmax bytes a block, in
+//   block order) are the plan's, checked as above.
 //   int xmc_cross_attention_bwd_warp(... the same operands, shapes and
 //                                    strides ..., scale, dtype, tmax,
 //                                    threads, blocks, smem, stream)
@@ -1245,6 +1282,211 @@ int bwd(const void* q, const void* k, const void* v, const uint8_t* mask, const 
 }
 
 
+// ------------------------------------------------------------- attn_bwd_long
+
+constexpr int kLongTileT = 64;          // words a staged tile
+constexpr int kLongMaxThreads = 128;    // queries a tile, a thread each
+constexpr size_t kMaxBlockSmem = 232448;  // an H100 block's shared memory (227 KB)
+
+// The queries a tile: N rounded up to a warp, at most kLongMaxThreads.
+__host__ __device__ constexpr int long_threads(int N) {
+  return N > kLongMaxThreads ? kLongMaxThreads : N > 32 ? (N + 31) / 32 * 32 : 32;
+}
+
+// Shared memory but the accumulators: the word tile's keys and values, the
+// [word][query] P and dS, the [feature][query] q and dO, the pad flags.
+__host__ __device__ constexpr size_t long_smem_tiles(int dmax, int threads) {
+  return sizeof(float) * (2 * static_cast<size_t>(kLongTileT) * dmax +
+                          2 * static_cast<size_t>(kLongTileT + dmax) * (threads + 1) +
+                          kLongTileT);
+}
+
+__host__ __device__ constexpr size_t long_acc_bytes(int T, int dmax) {
+  return 2 * sizeof(float) * static_cast<size_t>(T) * dmax;
+}
+
+// dk's and dv's accumulators in shared memory where they fit beside the tiles.
+__host__ __device__ constexpr bool long_acc_shared(int T, int dmax, int threads) {
+  return long_smem_tiles(dmax, threads) + long_acc_bytes(T, dmax) <= kMaxBlockSmem;
+}
+
+__host__ __device__ constexpr size_t long_smem(int T, int dmax, int threads) {
+  return long_smem_tiles(dmax, threads) +
+         (long_acc_shared(T, dmax, threads) ? long_acc_bytes(T, dmax) : 0);
+}
+
+// One block per (b, g), its queries a tile of blockDim at a time, the words
+// streamed a tile of kLongTileT at a time (see the header).  dk and dv are
+// written dense, [B, G, T, D]; scratch is NULL where the accumulators are in
+// shared memory, else [B * G][2][T][DMAX] fp32, the block's own part.
+template <typename E, int DMAX>
+__global__ void __launch_bounds__(kLongMaxThreads)
+attn_bwd_long(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+              const uint8_t* __restrict__ mask, const E* __restrict__ dout,
+              E* __restrict__ dq, E* __restrict__ dk, E* __restrict__ dv,
+              float* __restrict__ scratch, BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int tile = a.tile, ld = tile + 1, tid = threadIdx.x;
+  const int b = blockIdx.x / a.G, g = blockIdx.x - b * a.G;
+  float* ks = sm;                           // [kLongTileT][DMAX]: the tile's keys, fp32
+  float* vs = ks + kLongTileT * DMAX;       // [kLongTileT][DMAX]: its values
+  float* ps = vs + kLongTileT * DMAX;       // [kLongTileT][ld]: the query tile's P
+  float* dss = ps + kLongTileT * ld;        // [kLongTileT][ld]: its dS
+  float* qt = dss + kLongTileT * ld;        // [DMAX][ld]: its queries
+  float* gt = qt + DMAX * ld;               // [DMAX][ld]: its dO
+  int* pad = reinterpret_cast<int*>(gt + DMAX * ld);  // [kLongTileT]: 1 = padded
+  float* acc = scratch ? scratch + static_cast<int64_t>(blockIdx.x) * 2 * a.T * DMAX
+                       : reinterpret_cast<float*>(pad + kLongTileT);  // [2][T][DMAX]
+  const int64_t nacc = 2 * static_cast<int64_t>(a.T) * DMAX;
+  for (int64_t i = tid; i < nacc; i += blockDim.x) acc[i] = 0.f;
+  const uint8_t* mrow = mask + static_cast<int64_t>(b) * a.T;
+  const E* kb = k + b * a.ksb + g * a.ksg;
+  const E* vb = v + b * a.vsb + g * a.vsg;
+  const float c2 = a.scale * kLog2e;  // scores in log2 units
+
+  // words [t0, t0 + tt) into ks and vs (zero past D) and pad; all threads
+  auto stage = [&](int t0, int tt) {
+    for (int i = tid; i < tt * DMAX; i += blockDim.x) {
+      const int j = i / DMAX, d = i - j * DMAX;
+      const int64_t t = t0 + j;
+      const bool in = d < a.D;
+      ks[i] = in ? to_f(kb[t * a.kst + d * a.ksd]) : 0.f;
+      vs[i] = in ? to_f(vb[t * a.vst + d * a.vsd]) : 0.f;
+    }
+    for (int j = tid; j < tt; j += blockDim.x) pad[j] = mrow[t0 + j] != 0;
+  };
+
+  for (int n0 = 0; n0 < a.N; n0 += tile) {
+    const int n = n0 + tid;
+    const bool active = n < a.N;
+    float qv[DMAX], gv[DMAX], dqv[DMAX];
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) qv[d] = gv[d] = dqv[d] = 0.f;
+    if (active) {
+      load_strided<E, DMAX>(q + b * a.qsb + g * a.qsg + n * a.qsn, a.D, a.qsd, qv);
+      load_strided<E, DMAX>(dout + b * a.gsb + g * a.gsg + n * a.gsn, a.D, a.gsd, gv);
+    }
+    // pass 1: the running maximum, sum and sum_t P dP, rescaled once a tile
+    float m = -INFINITY, l = 0.f, pdp = 0.f;
+    for (int t0 = 0; t0 < a.T; t0 += kLongTileT) {
+      const int tt = min(kLongTileT, a.T - t0);
+      __syncthreads();  // every thread is done with the previous tile
+      stage(t0, tt);
+      __syncthreads();
+      float mt = -INFINITY;
+      for (int j = 0; j < tt; ++j)
+        if (!pad[j]) mt = fmaxf(mt, __fmul_rn(dot<DMAX>(qv, ks + j * DMAX), c2));
+      if (mt > m) {  // a larger maximum: the sums so far scaled to it (0 from -inf)
+        const float f = exp2f(m - mt);
+        l *= f;
+        pdp *= f;
+        m = mt;
+      }
+      for (int j = 0; j < tt; ++j) {
+        if (pad[j]) continue;
+        const float e = exp2f(__fmul_rn(dot<DMAX>(qv, ks + j * DMAX), c2) - m);
+        l += e;
+        pdp = fmaf(e, dot<DMAX>(gv, vs + j * DMAX), pdp);
+      }
+    }
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // a fully padded row: P = 0
+    const float delta = pdp * inv;
+    // (pass 1's barriers: the previous query tile's sums are done with qt, gt)
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) {
+      qt[d * ld + tid] = qv[d];
+      gt[d * ld + tid] = gv[d];
+    }
+    // pass 2: P, dS and dq a word at a time; dk and dv of each word tile
+    const int cnt = min(tile, a.N - n0);
+    for (int t0 = 0; t0 < a.T; t0 += kLongTileT) {
+      const int tt = min(kLongTileT, a.T - t0);
+      __syncthreads();  // the previous tile's P and dS are summed
+      stage(t0, tt);
+      __syncthreads();
+      for (int j = 0; j < tt; ++j) {
+        if (pad[j]) continue;
+        const float* kj = ks + j * DMAX;
+        const float p = exp2f(__fmul_rn(dot<DMAX>(qv, kj), c2) - m) * inv;
+        const float ds = p * (dot<DMAX>(gv, vs + j * DMAX) - delta);
+#pragma unroll
+        for (int d = 0; d < DMAX; ++d) dqv[d] = fmaf(ds, kj[d], dqv[d]);
+        ps[j * ld + tid] = p;
+        dss[j * ld + tid] = ds;
+      }
+      __syncthreads();
+      // (dk or dv, word j) has one owner, which adds the tile's queries in
+      // order, all features at once
+      for (int o = tid; o < 2 * tt; o += blockDim.x) {
+        const int which = o >= tt, j = o - which * tt;
+        if (pad[j]) continue;
+        const float* w = (which ? ps : dss) + j * ld;
+        const float* x = which ? gt : qt;
+        float s[DMAX];
+#pragma unroll
+        for (int d = 0; d < DMAX; ++d) s[d] = 0.f;
+        for (int i = 0; i < cnt; ++i) {
+          const float wi = w[i];
+#pragma unroll
+          for (int d = 0; d < DMAX; ++d) s[d] = fmaf(wi, x[d * ld + i], s[d]);
+        }
+        float* out = acc + (static_cast<int64_t>(which) * a.T + t0 + j) * DMAX;
+#pragma unroll
+        for (int d = 0; d < DMAX; ++d) out[d] += s[d];
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int d = 0; d < DMAX; ++d) dqv[d] *= a.scale;
+      store_strided<E, DMAX>(dq + b * a.dqsb + g * a.dqsg + n * a.dqsn, a.D, a.dqsd, dqv);
+    }
+  }
+  __syncthreads();
+  const int64_t row = (static_cast<int64_t>(b) * a.G + g) * a.T;
+  const int64_t td = static_cast<int64_t>(a.T) * a.D;
+  for (int64_t i = tid; i < 2 * td; i += blockDim.x) {
+    const int which = i >= td;
+    const int64_t r = i - which * td, t = r / a.D;
+    const int d = static_cast<int>(r - t * a.D);
+    const float x = mrow[t] ? 0.f : acc[(which * a.T + t) * DMAX + d];
+    (which ? dv : dk)[(row + t) * a.D + d] = from_f<E>(which ? x : x * a.scale);
+  }
+}
+
+template <typename E, int DMAX>
+int launch_bwd_long(const void* q, const void* k, const void* v, const uint8_t* mask,
+                    const void* dout, void* dq, void* dk, void* dv, float* scratch,
+                    const BwdArgs& a, int blocks, size_t smem, cudaStream_t stream) {
+  const auto kern = attn_bwd_long<E, DMAX>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<blocks, a.tile, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), mask,
+      static_cast<const E*>(dout), static_cast<E*>(dq), static_cast<E*>(dk),
+      static_cast<E*>(dv), scratch, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int bwd_long(const void* q, const void* k, const void* v, const uint8_t* mask,
+             const void* dout, void* dq, void* dk, void* dv, float* scratch, const BwdArgs& a,
+             int dmax, int blocks, size_t smem, cudaStream_t s) {
+  switch (dmax) {
+    case 4:
+      return launch_bwd_long<E, 4>(q, k, v, mask, dout, dq, dk, dv, scratch, a, blocks, smem, s);
+    case 8:
+      return launch_bwd_long<E, 8>(q, k, v, mask, dout, dq, dk, dv, scratch, a, blocks, smem, s);
+    case 16:
+      return launch_bwd_long<E, 16>(q, k, v, mask, dout, dq, dk, dv, scratch, a, blocks, smem,
+                                    s);
+    default:
+      return launch_bwd_long<E, 32>(q, k, v, mask, dout, dq, dk, dv, scratch, a, blocks, smem,
+                                    s);
+  }
+}
+
+
 // ------------------------------------------------------------- attn_bwd_warp
 
 constexpr int kWarpBwdMaxT = 32;       // real words a lane keeps in registers (TMAX <= 32)
@@ -1745,6 +1987,34 @@ extern "C" int xmc_cross_attention_bwd(
   return dtype == 0
              ? bwd<float>(q, k, v, mask, dout, dq, dk, dv, a, dmax, blocks, smem, s)
              : bwd<__nv_bfloat16>(q, k, v, mask, dout, dq, dk, dv, a, dmax, blocks, smem, s);
+}
+
+extern "C" int xmc_cross_attention_bwd_long(
+    const void* q, const void* k, const void* v, const uint8_t* mask, const void* dout, void* dq,
+    void* dk, void* dv, void* scratch, int B, int G, int N, int T, int D, int64_t qsb,
+    int64_t qsg, int64_t qsn, int64_t qsd, int64_t ksb, int64_t ksg, int64_t kst, int64_t ksd,
+    int64_t vsb, int64_t vsg, int64_t vst, int64_t vsd, int64_t gsb, int64_t gsg, int64_t gsn,
+    int64_t gsd, int64_t dqsb, int64_t dqsg, int64_t dqsn, int64_t dqsd, float scale, int dtype,
+    int dmax, int threads, int blocks, int smem, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || D > kBwdMaxD || T <= kBwdMaxT || G < 1 || N < 0 || B < 0 ||
+      (dtype != 0 && dtype != 1))
+    return bad;
+  const int want_dmax = D <= 4 ? 4 : D <= 8 ? 8 : D <= 16 ? 16 : 32;
+  if (dmax != want_dmax || threads != long_threads(N) ||
+      static_cast<int64_t>(blocks) != static_cast<int64_t>(B) * G ||
+      static_cast<size_t>(smem) != long_smem(T, dmax, threads) ||
+      (scratch == nullptr) != long_acc_shared(T, dmax, threads))
+    return bad;
+  if (B == 0) return 0;
+  const BwdArgs a{G,   N,   T,   D,   threads, qsb, qsg,  qsn,  qsd,  ksb,  ksg,  kst, ksd,
+                  vsb, vsg, vst, vsd, gsb,     gsg, gsn,  gsd,  dqsb, dqsg, dqsn, dqsd, scale};
+  float* acc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? bwd_long<float>(q, k, v, mask, dout, dq, dk, dv, acc, a, dmax, blocks,
+                                      smem, s)
+                    : bwd_long<__nv_bfloat16>(q, k, v, mask, dout, dq, dk, dv, acc, a, dmax,
+                                              blocks, smem, s);
 }
 
 extern "C" int xmc_cross_attention_bwd_warp(

@@ -15,12 +15,14 @@ padded gets a zero context here (the Pallas kernel's result), NaN there.
 
 It is the seam that ``ops/fused.py`` is for the epilogue kernel: the
 models call this one name, and on CUDA tensors under autograd the wrapper
-differentiates it through the port's own hand-written backward kernel
-(``attn_bwd``, ``csrc/cross_attention.cu``), which the word-attention
-generators train through.  The backward is the port's: the Pallas kernel
-has none, and the JAX package differentiates its einsum chain instead.  Its
-shapes: D <= 32 and T <= 256 (every word-attention shape: D = 4, T = 15,
-20 or 200); a wider one raises ``ValueError`` under grad before any launch.
+differentiates it through the port's own hand-written backward kernels
+(``attn_bwd_warp``, ``attn_bwd``, ``attn_bwd_long``,
+``csrc/cross_attention.cu``), which the word-attention generators train
+through.  The backward is the port's: the Pallas kernel has none, and the
+JAX package differentiates its einsum chain instead.  Its shapes: D <= 32
+at every caption length T (every word-attention model has D = 4; past 256
+words the words stream through ``attn_bwd_long``); D > 32 raises
+``ValueError`` under grad before any launch.
 """
 
 from __future__ import annotations

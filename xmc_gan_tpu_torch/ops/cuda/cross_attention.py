@@ -26,7 +26,8 @@ Contract of ``masked_cross_attention_kernel``:
   keys as a ``[B, G, D, T]`` view.  ``attn_grouped`` reads all of them
   where they are.  For ``attn_short``, ``attn_small`` and ``attn_wide`` an
   operand whose last stride is not 1 is copied first (the keys once where
-  they are also the values).
+  they are also the values; ``OPERAND_COPIES`` counts the copies): so the
+  In sampler's planes and keys past T = 32, where ``attn_small`` takes them.
 * One rule, ``plan``, names the kernel a CUDA call launches and its launch
   geometry from the shapes, q's strides and 16-byte alignment, and the
   type, before any launch (memoized: a pure function of them); the C entry
@@ -45,8 +46,11 @@ Contract of ``masked_cross_attention_kernel``:
   its bound at the 64² step's In launches is its bytes, 0.296 / 0.148 ms
   fp32 / bf16 on an H100, and shared memory's delivery to registers holds
   it to ~37% / ~19% of that, PERF.md),
-  ``attn_bwd`` at every other one up to D = 32, T = 256; any other shape
-  raises ``ValueError`` before any launch.  dq has q's strides, dk and dv
+  ``attn_bwd`` at every other one up to D = 32, T = 256, and
+  ``attn_bwd_long`` past 256 words at D <= 32 (the words streamed through
+  shared memory a tile at a time, dk's and dv's fp32 sums in shared memory
+  where they fit, else in a scratch of the block's own); D > 32 raises
+  ``ValueError`` before any launch.  dq has q's strides, dk and dv
   are dense; each is rounded once to its operand's type; a fully padded row
   gets zero gradients.  ``masked_cross_attention_bwd_ref`` is their plain
   version.
@@ -75,8 +79,9 @@ from torch.autograd.function import once_differentiable
 from xmc_gan_tpu_torch.ops.cuda.build import CudaLibrary, LaunchCount
 from xmc_gan_tpu_torch.ops.cuda.fused_affine import OP_NAMESPACE
 
-__all__ = ["KERNEL", "FORWARD", "BACKWARD", "MAX_D", "MAX_BWD_D", "MAX_BWD_T", "GROUPED",
-           "SHORT", "SMALL", "WIDE", "BWD", "BWD_WARP", "Plan", "BwdPlan", "plan", "plan_for",
+__all__ = ["KERNEL", "FORWARD", "BACKWARD", "OPERAND_COPIES", "MAX_D", "MAX_BWD_D", "MAX_BWD_T",
+           "GROUPED", "SHORT", "SMALL", "WIDE", "BWD", "BWD_WARP", "BWD_LONG", "Plan", "BwdPlan",
+           "plan", "plan_for",
            "plan_bwd", "kernel_name", "bwd_kernel_name", "masked_cross_attention_kernel",
            "masked_cross_attention_ref", "masked_cross_attention_bwd_ref",
            "masked_cross_attention_op"]
@@ -89,6 +94,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #                             gs*, dqs* (4 each), scale, dtype, dmax, threads, blocks, smem,
 #                             stream)
 # int xmc_cross_attention_bwd_warp(the same up to dtype, then tmax, threads, blocks, smem, stream)
+# int xmc_cross_attention_bwd_long(q, k, v, mask, dout, dq, dk, dv, scratch, then as
+#                                  xmc_cross_attention_bwd)
 KERNEL = CudaLibrary("cross_attention.cu", {
     "xmc_cross_attention": (_I, [_P] * 5 + [_I] * 5 + [_L] * 15
                             + [ctypes.c_float] + [_I] * 7 + [_P]),
@@ -96,15 +103,24 @@ KERNEL = CudaLibrary("cross_attention.cu", {
                                 + [ctypes.c_float] + [_I] * 5 + [_P]),
     "xmc_cross_attention_bwd_warp": (_I, [_P] * 8 + [_I] * 5 + [_L] * 20
                                      + [ctypes.c_float] + [_I] * 5 + [_P]),
+    "xmc_cross_attention_bwd_long": (_I, [_P] * 9 + [_I] * 5 + [_L] * 20
+                                     + [ctypes.c_float] + [_I] * 5 + [_P]),
 })
 FORWARD = LaunchCount()
-BACKWARD = LaunchCount()  # either backward kernel
+BACKWARD = LaunchCount()  # any backward kernel
+# operands the forward's wrapper copied for a kernel that reads a dense last
+# dimension (not a launch: a layout that the planned kernel does not read)
+OPERAND_COPIES = LaunchCount()
 MAX_D = 256  # csrc/cross_attention.cu kMaxD
-MAX_BWD_D, MAX_BWD_T = 32, 256  # kBwdMaxD, kBwdMaxT
-BWD, BWD_WARP = "attn_bwd", "attn_bwd_warp"
+# kBwdMaxD; kBwdMaxT: the longest caption attn_bwd takes (attn_bwd_long past it)
+MAX_BWD_D, MAX_BWD_T = 32, 256
+BWD, BWD_WARP, BWD_LONG = "attn_bwd", "attn_bwd_warp", "attn_bwd_long"
 # attn_bwd_warp (kWarpBwd*): the widest D and the longest caption it takes;
 # its shared memory is warp_bwd_smem's
 _WARP_BWD_MAX_D, _WARP_BWD_MAX_T = 4, 32
+# attn_bwd_long (kLong*): the words a staged tile, the most queries a tile,
+# and the shared memory a block may take (an H100's 227 KB)
+_LONG_TILE_T, _LONG_MAX_THREADS, _MAX_BLOCK_SMEM = 64, 128, 232448
 
 SMALL, WIDE, GROUPED, SHORT = "attn_small", "attn_wide", "attn_grouped", "attn_short"
 _KERNEL_CODE = {SMALL: 0, WIDE: 1, GROUPED: 2, SHORT: 3}
@@ -212,34 +228,39 @@ def _plan(B: int, G: int, N: int, T: int, D: int, q_strides: tuple, dtype: torch
 
 class BwdPlan(NamedTuple):
     """What one backward launch takes: the kernel, ``dmax`` (its D bound:
-    ``attn_bwd``'s template, 4 for ``attn_bwd_warp``), ``tmax``
-    (``attn_bwd_warp``'s template: the real words a lane holds; 0 for
-    ``attn_bwd``), ``threads`` (``attn_bwd``: the queries of a tile;
-    ``attn_bwd_warp``: 32 a warp), ``blocks`` (one per (b, g)) and ``smem``
-    (bytes of dynamic shared memory)."""
+    ``attn_bwd``'s and ``attn_bwd_long``'s template, 4 for
+    ``attn_bwd_warp``), ``tmax`` (``attn_bwd_warp``'s template: the real
+    words a lane holds; 0 for the others), ``threads`` (``attn_bwd`` and
+    ``attn_bwd_long``: the queries of a tile; ``attn_bwd_warp``: 32 a
+    warp), ``blocks`` (one per (b, g)), ``smem`` (bytes of dynamic shared
+    memory) and ``scratch`` (``attn_bwd_long``: bytes of the fp32 dk and dv
+    sums in device memory where they do not fit in shared memory, else 0)."""
     kernel: str
     dmax: int
     tmax: int
     threads: int
     blocks: int
     smem: int
+    scratch: int = 0
 
 
 def plan_bwd(B: int, G: int, N: int, T: int, D: int, dtype: torch.dtype) -> BwdPlan:
     """The one rule for the backward (``csrc/cross_attention.cu``), a pure
-    function of the shapes: one block per (b, g) in both kernels.
+    function of the shapes: one block per (b, g) in every kernel.
     ``attn_bwd_warp`` where D <= 4 and T <= 32 (every word-attention training
-    shape): TMAX 16 up to T = 16, else 32; two warps a block (one where
-    N <= 32).  Else ``attn_bwd`` up to D = 32 and T = 256: a tile of 256
-    queries up to T = 32 (halved as T doubles, 32 at T = 256) and no wider
-    than N rounded up to a warp.  Raises ``ValueError`` for a shape neither
-    takes."""
+    shape of the shipped configs): TMAX 16 up to T = 16, else 32; two warps
+    a block (one where N <= 32).  Else ``attn_bwd`` up to D = 32 and
+    T = 256: a tile of 256 queries up to T = 32 (halved as T doubles, 32 at
+    T = 256) and no wider than N rounded up to a warp.  Past 256 words
+    ``attn_bwd_long``: a tile of N rounded up to a warp, at most 128
+    queries; the words in tiles of 64; dk's and dv's fp32 sums (8 T DMAX
+    bytes a block) in shared memory where they fit beside the tiles within
+    227 KB, else in a scratch of ``scratch`` bytes.  Raises ``ValueError``
+    for D outside 1..32 or a grid past its limit, ``TypeError`` for a type
+    other than fp32 or bf16."""
     if not 1 <= D <= MAX_BWD_D:
         raise ValueError(f"masked_cross_attention's backward takes 1 <= D <= {MAX_BWD_D}, "
                          f"got {D}")
-    if not 0 <= T <= MAX_BWD_T:
-        raise ValueError(f"masked_cross_attention's backward takes T <= {MAX_BWD_T} words, "
-                         f"got {T}")
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"masked_cross_attention's backward takes float32 or bfloat16, got {dtype}")
     if B * G > _MAX_GRID:
@@ -251,6 +272,14 @@ def plan_bwd(B: int, G: int, N: int, T: int, D: int, dtype: torch.dtype) -> BwdP
         smem = 32 * tmax + warps * (4160 + 288 * tmax)
         return BwdPlan(BWD_WARP, _WARP_BWD_MAX_D, tmax, 32 * warps, B * G, smem)
     dmax = next(m for m in (4, 8, 16, 32) if D <= m)
+    if T > MAX_BWD_T:  # csrc long_threads, long_smem_tiles, long_acc_bytes
+        threads = min(_LONG_MAX_THREADS, max(32, math.ceil(N / 32) * 32))
+        tiles = 4 * (2 * _LONG_TILE_T * dmax + 2 * (_LONG_TILE_T + dmax) * (threads + 1)
+                     + _LONG_TILE_T)
+        acc = 8 * T * dmax
+        if tiles + acc <= _MAX_BLOCK_SMEM:
+            return BwdPlan(BWD_LONG, dmax, 0, threads, B * G, tiles + acc)
+        return BwdPlan(BWD_LONG, dmax, 0, threads, B * G, tiles, B * G * acc)
     tile = 256 if T <= 32 else 128 if T <= 64 else 64 if T <= 128 else 32
     threads = min(tile, max(32, math.ceil(N / 32) * 32))
     smem = 4 * (4 * T * dmax + 2 * (T + dmax) * (threads + 1)) + 8 * T
@@ -262,7 +291,7 @@ def bwd_kernel_name(p: BwdPlan, dtype: torch.dtype) -> str:
     t = "float" if dtype == torch.float32 else "__nv_bfloat16"
     if p.kernel == BWD_WARP:
         return f"{BWD_WARP}<{t}, {p.tmax}>"
-    return f"{BWD}<{t}, {p.dmax}>"
+    return f"{p.kernel}<{t}, {p.dmax}>"
 
 
 def _view4(t: torch.Tensor) -> torch.Tensor:
@@ -378,6 +407,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tenso
     p = plan_for(q, k)
     if p.kernel != GROUPED:  # the other kernels read a dense last dimension
         same = v is k
+        OPERAND_COPIES.launches += sum(t.stride(-1) != 1 for t in ((q, k) if same else (q, k, v)))
         q, k = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k))
         v = k if same else v if v.stride(-1) == 1 else v.contiguous()
     (b, g, n, d), qs = _dims4(q)
@@ -414,17 +444,23 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.T
     dk = torch.empty((b, g, t, d), device=q.device, dtype=k.dtype)
     dv = torch.empty((b, g, t, d), device=q.device, dtype=v.dtype)
     m = (mask if mask.dtype in (torch.bool, torch.uint8) else mask.to(torch.uint8)).contiguous()
+    ptrs = [q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), g4.data_ptr(),
+            dq4.data_ptr(), dk.data_ptr(), dv.data_ptr()]
     lib = KERNEL.load()
     if p.kernel == BWD_WARP:
         fn, geometry = lib.xmc_cross_attention_bwd_warp, (p.tmax,)
-    else:
+    elif p.kernel == BWD:
         fn, geometry = lib.xmc_cross_attention_bwd, (p.dmax,)
+    else:  # dk's and dv's fp32 sums in shared memory (NULL) or in this scratch
+        fn, geometry = lib.xmc_cross_attention_bwd_long, (p.dmax,)
+        scratch = (torch.empty(p.scratch // 4, device=q.device, dtype=torch.float32)
+                   if p.scratch else None)
+        ptrs.append(None if scratch is None else scratch.data_ptr())
     with _on(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), g4.data_ptr(),
-                dq4.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, g, n, t, d, *q4.stride(),
-                *k4.stride(), *v4.stride(), *g4.stride(), *dq4.stride(), scale,
-                _DTYPE_CODE[q.dtype], *geometry, p.threads, p.blocks, p.smem, stream)
+        rc = fn(*ptrs, b, g, n, t, d, *q4.stride(), *k4.stride(), *v4.stride(), *g4.stride(),
+                *dq4.stride(), scale, _DTYPE_CODE[q.dtype], *geometry, p.threads, p.blocks,
+                p.smem, stream)
     if rc != 0:
         raise RuntimeError(f"cross_attention backward launch failed ({p}): CUDA error {rc}")
     BACKWARD.launches += 1
