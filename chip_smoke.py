@@ -51,7 +51,10 @@ Phases (any failure raises, and the exit code is then non-zero):
    D = 256 also at their edges in both dtypes (``DAMSM_STREAMED``: D = 520,
    770 and 1024, through ``damsm_scores``; bf16 streamed, fp32 wide)
    against the plain version, the all-padded caption's score the plain
-   value, twice bit-equal, its cotangent moving nothing; the forward and
+   value, twice bit-equal, its cotangent moving nothing; the same for the
+   feature-streamed kernels past D = 1024 (``DAMSM_FS_EDGES``: D = 1030,
+   1290, 2048, 4096 and 1025 at R = 7, 64, 256 and 300, T = 33 and 100,
+   in both dtypes); the forward and
    d_regions on a data-parallel rank's row blocks (``DAMSM_ROW_BLOCKS``:
    the first and the last B_local of B_global images against all B_global
    captions, [128, 256] and [4, 8] at the flagship word shape), fp32 and
@@ -278,6 +281,16 @@ Phases (any failure raises, and the exit code is then non-zero):
    forward's wrapper copied (the In sampler's planes and keys past
    T = 32), and the long kernel's device ms in the step beside its bound
    on the batch's words.
+6j. Word features past 1,024: the flagship_word step of phase 6 at
+   ``TEXT.EMBEDDING_DIM`` = 2048 (``WIDE_D``; NEF 256, so G projects the
+   sentence and D's region head has 2048 channels): first phase 4b's train
+   slice at that width, card vs CPU (fp32, two steps, the card's word
+   scores on the feature-streamed kernels, 2 + 2 a step and by the
+   profiler's names on a third), then the full-width step in bf16 (1
+   warm-up, 1 counted, 2 timed, 1 profiled) and fp32 (1 counted, 1 timed,
+   1 profiled) with phase 6's checks: the damsm forward and d_regions 2
+   launches each on ``damsm_fwd_fs_kernel`` and ``damsm_bwd_dr_fs_kernel``
+   by name, no d_words; prints the step beside phase 6's.
 7. Kernel times against their bounds (CUDA events over repeated launches),
    beside the plain version's and, for cross_attention, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs; for the
@@ -300,7 +313,10 @@ Phases (any failure raises, and the exit code is then non-zero):
    yardstick, and an empty kernel's device time beside the Out rows (the
    launch floor); ``attn_bwd_long`` at phase 6i's 6 launches on its
    captions, held to the plain version there (8 rows at a time), beside
-   SDPA's forward and backward; the Out forward row also with the
+   SDPA's forward and backward; the feature-streamed forward, d_regions
+   and d_words at phase 6j's word shape (``DAMSM_WIDE``, D = 2048, both
+   dtypes) beside the plain version, with their errors there and the
+   launches of a 6j step; the Out forward row also with the
    wrapper's host µs a call and the 64² OUTATTN step's 12 forward
    launches.
 8. Before the ``kernels`` line, the seconds of every phase (``[t]``; each
@@ -623,6 +639,23 @@ LN_TIMED = [(None, LN_STEP_SHAPES[None], ("forward", "d_regions", "d_words")),
 # most 2 words
 DAMSM_STREAMED = [((132, 9, 50, 20, 520), False, None), ((132, 7, 64, 7, 770), True, None),
                   ((132, 3, 256, 64, 1024), False, 2)]
+# phase 6j's word feature width: the flagship_word step with
+# TEXT.EMBEDDING_DIM = 2048 (the per-token width of a T5-XL text encoder),
+# past every other route's 1,024 features: the forward, d_regions and
+# d_words on the feature-streamed kernels (``ds.STREAMED_FEATURES``) in both
+# dtypes; that step's word shape (B, Bc, R, T, D), at which phase 7 times them
+WIDE_D = 2048
+DAMSM_WIDE = (BATCH, BATCH, REGIONS, 20, WIDE_D)
+# (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
+# feature-streamed kernels' edges (128-feature chunks, 32-region tiles, a
+# caption sub-block a block): R = 300 with D = 1030 (a last chunk of 6
+# columns, no multiple of 4 or 8); R = 7 with T = 33 (one caption a block);
+# R = 256 with D = 1290 (3 captions, 60 rows a block); D = 4096; T = 100 at
+# D = 1025 (a last chunk of one column), past the route's 64 rows:
+# sub-captions
+DAMSM_FS_EDGES = [((4, 5, 300, 20, 1030), True, None), ((3, 7, 7, 33, 2048), True, None),
+                  ((5, 4, 256, 20, 1290), False, None), ((2, 3, 64, 9, 4096), True, None),
+                  ((3, 3, 256, 100, 1025), True, None)]
 # the plain version at the LN shape streams caption blocks of this many fp32
 # elements of the [B, Bc, T, R] similarity (the whole one is 13 GB)
 LN_PLAIN_BLOCK = 2**28
@@ -634,7 +667,9 @@ ROUTE_LABELS = {"_tc_kernel<": "tensor cores (mma.sync)",
                 "_tcs_kernel<": "tensor cores (mma.sync), regions streamed",
                 "_f32_kernel<": "CUDA cores, packed real words, regions streamed",
                 "_f32w_kernel<": "CUDA cores, packed real words, regions streamed, context in "
-                                 "256-feature groups"}
+                                 "256-feature groups",
+                "_fs_kernel<": "CUDA cores, features streamed in 128-feature chunks, a caption "
+                               "sub-block a block"}
 
 
 def route_label(which: str, R: int, D: int, cd) -> str:
@@ -1328,22 +1363,25 @@ def check_damsm_ln() -> dict:
     return errs
 
 
-def check_damsm_streamed() -> dict:
+def check_damsm_streamed(edges=DAMSM_STREAMED, seed: int = 15) -> dict:
     """Phase 3, the forward, d_regions and d_words at their edges above
-    D = 256 (``DAMSM_STREAMED``) in both compute dtypes (bf16: the streamed
-    tensor-core kernels; fp32: the wide packed ones and the packed
-    d_words), through ``damsm_scores`` as the word loss calls it: scores,
-    d_regions and d_words against the plain version on the whole captions
-    (the scores summed in fp64) under ``DAMSM_TOL``; the launches are the
-    route's kernels (``LN_KERNELS``), an all-padded caption scores
-    the plain value bit for bit, and a second run's scores and d_regions,
-    with the all-padded caption's cotangent at 100, are bit-equal."""
-    gen = torch.Generator(device="cuda").manual_seed(15)
+    D = 256 (``DAMSM_STREAMED``: bf16 the streamed tensor-core kernels,
+    fp32 the wide packed ones and the packed d_words) or above D = 1024
+    (``DAMSM_FS_EDGES``: the feature-streamed kernels in both dtypes) in
+    both compute dtypes, through ``damsm_scores`` as the word loss calls it:
+    scores, d_regions and d_words against the plain version on the whole
+    captions (the scores summed in fp64) under ``DAMSM_TOL``; the launches
+    are the route's kernels (``ds.kernel_name``), an all-padded caption
+    scores the plain value bit for bit and gets no d_words, and a second
+    run's scores and d_regions, with the all-padded caption's cotangent at
+    100, are bit-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     errs = {}
     for cd in (None, torch.bfloat16):
         tol = DAMSM_TOL[cd]
         worst = {"forward": 0.0, "d_regions": 0.0, "d_words": 0.0}
-        for shape, allpad, max_len in DAMSM_STREAMED:
+        kernels = set()
+        for shape, allpad, max_len in edges:
             r, w, mask, up = damsm_inputs(shape, gen, allpad, max_len)
             ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
             got = {}
@@ -1353,15 +1391,18 @@ def check_damsm_streamed() -> dict:
                 got["dr"], got["dw"] = torch.autograd.grad(got["s"], (ri, wi), up)
 
             names = damsm_kernel_names(run)
-            for kernel in LN_KERNELS[cd]:
+            for which in ("fwd", "dr", "dw"):
+                kernel = ds.kernel_name(which, shape[2], shape[4], cd)
+                kernels.add(kernel)
                 if not any(kernel in n for n in names):
                     raise AssertionError(f"{CD_NAME[cd]} edge {shape}: no {kernel} among {names}")
             want = exact_scores(r, w, mask, cd)
             torch.testing.assert_close(got["s"].detach(), want, rtol=1e-5, atol=tol["score"])
             plain_pad = ds.damsm_scores_ref(r, w[1:2], mask[1:2], 4.0, 5.0, cd)
-            if allpad and not torch.equal(got["s"][:, 1:2].detach(), plain_pad):
+            if allpad and not (torch.equal(got["s"][:, 1:2].detach(), plain_pad)
+                               and got["dw"][1].abs().max().item() == 0.0):
                 raise AssertionError(f"{CD_NAME[cd]} edge {shape}: the all-padded caption's "
-                                     "score is not the plain value")
+                                     "score is not the plain value, or it got a d_words")
             worst["forward"] = max(worst["forward"],
                                    (got["s"].detach() - want).abs().max().item())
             for which, key in (("dr", "d_regions"), ("dw", "d_words")):
@@ -1381,12 +1422,11 @@ def check_damsm_streamed() -> dict:
             del r, w, mask, up, ri, wi, got, want, want_g, ri2, s2, dr2, up2
         torch.cuda.empty_cache()
         errs[cd] = worst
-        log(f"[3] damsm_score {CD_NAME[cd]}, forward, d_regions and d_words on {LN_KERNELS[cd]} "
-            f"at the "
-            f"edges {DAMSM_STREAMED}: max_abs_err " + ", ".join(
+        log(f"[3] damsm_score {CD_NAME[cd]}, forward, d_regions and d_words on "
+            f"{sorted(kernels)} at the edges {edges}: max_abs_err " + ", ".join(
                 f"{k} {v:.3g}" for k, v in worst.items()) + f" (tolerance {tol}); all-padded "
-            "caption = plain; two runs of forward + d_regions bit-equal, the all-padded "
-            "caption's cotangent moving nothing")
+            "caption = plain, no d_words; two runs of forward + d_regions bit-equal, the "
+            "all-padded caption's cotangent moving nothing")
     return errs
 
 
@@ -2648,6 +2688,46 @@ def long_caption_step(card: str, dtype) -> dict:
     del state, batch, step
     torch.cuda.empty_cache()
     return res
+
+
+def wide_words(card: str, bare_ms: dict) -> dict:
+    """Phase 6j: the flagship_word step with word features past 1,024
+    (``TEXT.EMBEDDING_DIM`` = ``WIDE_D``; NEF stays 256, so G projects the
+    sentence and D's region head is a ``WIDE_D``-channel SNConv).  First
+    the train slice of phase 4b at that width (fp32, NCH 8, 64², batch 4),
+    two steps card vs CPU, the card's word scores on the feature-streamed
+    kernels (2 forward, 2 d_regions, no d_words a step, and by the
+    profiler's names on a third step); then the full-width step
+    (``train``: batch 128, 256², NCH 32) in bf16 and fp32 with its launches
+    asserted (the damsm forward and d_regions 2 each on the feature-streamed
+    kernels by name, the d_words 0), beside phase 6's step at D = 256
+    (``bare_ms`` by dtype).  Returns the full-width runs by dtype."""
+    wide = {"TEXT": {"EMBEDDING_DIM": WIDE_D}}
+    kernels = {which: ds.kernel_name(which, REGIONS, WIDE_D, None) for which in ("fwd", "dr")}
+    if any(ds.route(which, REGIONS, WIDE_D, cd) != ds.STREAMED_FEATURES
+           for which in ("fwd", "dr", "dw") for cd in (None, torch.bfloat16)):
+        raise AssertionError(f"D = {WIDE_D}: not every damsm kernel on the feature-streamed route")
+    check_train_against_cpu(
+        cfg_from_dict(wide, base=cfg_from_dict(SLICE_CFG)),
+        f"train slice at TEXT.EMBEDDING_DIM {WIDE_D} (fp32, NCH=8, 64², batch 4), 2 steps",
+        prefix_mask, {"damsm_score.forward": 4, "damsm_score.d_regions": 4,
+                      "damsm_score.d_words": 0},
+        {re.escape(name): 2 for name in kernels.values()})
+    cfg = cfg_from_dict(wide, base=cfg_from_dict(TRAIN_OVERRIDES))
+    runs = {torch.bfloat16: train(cfg, f"flagship_word D={WIDE_D}", torch.bfloat16, 1, 2,
+                                  prefix_mask),
+            torch.float32: train(cfg, f"flagship_word D={WIDE_D}", torch.float32, 0, 1,
+                                 prefix_mask)}
+    for dtype, res in runs.items():
+        damsm_ms = res["device_ms_by_category"].get("damsm_score", 0.0)
+        log(f"[6j] flagship_word at TEXT.EMBEDDING_DIM {WIDE_D} {DTYPE_NAME[dtype]} bs{BATCH} "
+            f"256²: step {res['step_ms']:.1f} ms ({res['img_per_s']:.1f} img/s) beside phase "
+            f"6's {bare_ms[dtype]:.1f} at D = 256; damsm launches a step "
+            f"{ {k: v for k, v in res['launches'].items() if k.startswith('damsm')} } on "
+            f"{sorted(kernels.values())}, {damsm_ms:.1f} ms of the profiled step's "
+            f"{res['step_kernel_ms']:.1f} ms of kernels; peak {res['peak_mem_gib']:.2f} GiB | "
+            f"{card}")
+    return runs
 
 
 def serve_sent(card: str, dtypes) -> list[dict]:
@@ -4565,6 +4645,76 @@ def damsm_ln_rows(errs, launches, launches_in) -> list[dict]:
     return rows
 
 
+def damsm_wide_rows(launches) -> list[dict]:
+    """Phase 7, the feature-streamed kernels at phase 6j's word shape
+    (``DAMSM_WIDE``: B = Bc = 128, R = 256, T = 20, D = 2048, an all-padded
+    caption): each kernel's launch (1 warm-up, 2 timed) beside its bound
+    (real words only), the plain version's time on the same inputs, and
+    its largest error there (the forward against the fp64-summed plain
+    version, the gradients against the plain version's autograd), held to
+    ``DAMSM_TOL``; ``launches`` by compute dtype those of one 6j step."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    r, w, mask, up = damsm_inputs(DAMSM_WIDE, gen, True)
+    b, bc, R, T, D = DAMSM_WIDE
+    words = int((~mask).sum())
+    rows = []
+    for cd in (None, torch.bfloat16):
+        tol = DAMSM_TOL[cd]
+        es = 2 if cd == torch.bfloat16 else 4
+        rate = BF16_OPS_PER_S if cd == torch.bfloat16 else FP32_OPS_PER_S
+        ins_bytes = (b * R * D + bc * T * D) * es + bc * T + b * bc * 4
+        specs = (
+            ("forward", 2, ins_bytes, lambda: ds._launch_fwd(r, w, mask, 4.0, 5.0, cd),
+             lambda: ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd), "314"),
+            ("d_regions", 5, ins_bytes + b * R * D * 4,
+             lambda: ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, cd),
+             lambda: ds._plain_vjp("dr", r, w, mask, up, 4.0, 5.0, cd), "343"),
+            ("d_words", 4, ins_bytes + bc * T * D * 4,
+             lambda: ds._launch_bwd("dw", r, w, mask, up, 4.0, 5.0, cd),
+             lambda: ds._plain_vjp("dw", r, w, mask, up, 4.0, 5.0, cd), "362"),
+        )
+        for name, dots, nbytes, kern, ref, line in specs:
+            which = {"forward": "fwd", "d_regions": "dr", "d_words": "dw"}[name]
+            got = kern()
+            if name == "forward":
+                want = exact_scores(r, w, mask, cd)
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=tol["score"])
+                if not torch.equal(got[:, 1], ds.damsm_scores_ref(r, w, mask, 4.0, 5.0, cd)[:, 1]):
+                    raise AssertionError(f"{CD_NAME[cd]} forward at {DAMSM_WIDE}: the all-padded "
+                                         "caption's score is not the plain value")
+            else:
+                want = ref()
+                torch.testing.assert_close(got, want, rtol=0,
+                                           atol=tol["grad_scale"] * want.abs().max().item())
+            err = (got - want).abs().max().item()
+            del got, want
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            op_ms = 2 * R * D * dots * b * words / rate * 1e3
+            ms, plain_ms = cuda_ms(kern, 2), cuda_ms(ref, 1)
+            bound = max(byte_ms, op_ms)
+            rows.append({
+                "name": f"damsm_score.{name}[{CD_NAME[cd]}, D={D}]", "route": "cuda",
+                "source": "xmc_gan_tpu_torch/csrc/damsm_score.cu",
+                "replaces": f"xmc_gan_tpu/ops/pallas/damsm_score.py:{line}",
+                "launches": launches[cd][f"damsm_score.{name}"],
+                "launches_in": f"phase 6j: one flagship_word {CD_NAME[cd]} step at "
+                               f"TEXT.EMBEDDING_DIM {D}",
+                "kernel": ds.kernel_name(which, R, D, cd), "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "library_ms": None, "roofline_share": bound / ms,
+                "shapes": f"B=Bc={b}, R={R}, T={T} ({words} real words), D={D}, compute "
+                          f"{CD_NAME[cd]}, {route_label(which, R, D, cd)}",
+            })
+            log(f"[7] {rows[-1]['name']} ({rows[-1]['kernel']}): {ms:.3f} ms (bound {bound:.3f} "
+                f"ms by {rows[-1]['bound_by']}, {100 * bound / ms:.2f}%), plain {plain_ms:.3f} "
+                f"ms, max_abs_err {err:.3g} (tolerance {tol}); {rows[-1]['shapes']}")
+            torch.cuda.empty_cache()
+    del r, w, mask, up
+    torch.cuda.empty_cache()
+    return rows
+
+
 # seconds by phase (``phase``), printed before the ``kernels`` line
 PHASE_SECONDS: dict[str, float] = {}
 
@@ -4608,6 +4758,7 @@ def main() -> int:
             col_errs = check_damsm_col_blocks()
             ln_errs = check_damsm_ln()
             check_damsm_streamed()
+            check_damsm_streamed(DAMSM_FS_EDGES, seed=26)
             ca_errs = check_attention(attn_in)
             ca_bwd_errs = check_attention_bwd(attn_train_shapes("in"), attn_train_shapes("out"))
             torch.cuda.empty_cache()
@@ -4714,6 +4865,8 @@ def main() -> int:
     with phase("6i long captions"):
         long_runs = {dtype: long_caption_step(card, dtype)
                      for dtype in (torch.bfloat16, torch.float32)}
+    with phase("6j wide words"):
+        wide_runs = wide_words(card, {d: r["step_ms"] for d, r in trains.items()})
     t7 = time.perf_counter()
     step_launches = {dtype: r["launches"] for dtype, r in trains.items()}
     req = {name: {dtype: r["launches"] for dtype, r in rs.items()}
@@ -4737,6 +4890,8 @@ def main() -> int:
                              {None: "phase 6: one full-width LN-COCO fp32 step at batch "
                                     f"{LN_FP32_BATCH}",
                               torch.bfloat16: "phase 6: one full-width LN-COCO bf16 step"})
+    kernels += damsm_wide_rows({None: wide_runs[torch.float32]["launches"],
+                                torch.bfloat16: wide_runs[torch.bfloat16]["launches"]})
     # the tensor-parallel rank step's launches (phase 6h(b), the [64, 32]
     # column block) and the column blocks' errors (phase 3) beside the LN rows
     for row in kernels:
@@ -4779,7 +4934,8 @@ def main() -> int:
                     "vgg_training": vgg_train, "data_parallel": dp,
                     "tensor_parallel": tp,
                     "long_caption_training": [{k: v for k, v in r.items() if k != "mask"}
-                                              for r in long_runs.values()]}))
+                                              for r in long_runs.values()],
+                    "wide_word_training": list(wide_runs.values())}))
     PHASE_SECONDS["7 kernel rows"] = time.perf_counter() - t7
     log("[t] seconds by phase | " + card + " | " + json.dumps(
         {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))

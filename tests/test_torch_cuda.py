@@ -911,6 +911,85 @@ def test_damsm_col_block_matches_plain_on_card(cuda_device, cd, shape):
                                atol=grad_scale * want_dr.abs().max().item())
 
 
+# (B, Bc, R, T, D), an all-padded caption, longest caption (None: T): the
+# edges of the feature-streamed kernels (every launch at D > 1024, either
+# dtype; 128-feature chunks, 32-region tiles, a caption sub-block a block):
+# R = 300 (padded region columns) with D = 1030 (no multiple of 4 or 8: a
+# last chunk of 6 columns); R = 7 (one region tile, mostly padding) with
+# T = 33 (one caption a block, 33 of 64 rows); R = 256 with D = 1290 (3
+# captions, 60 rows a block); D = 4096; T = 100 at D = 1025 (a last chunk
+# of one column), past the route's 64 rows: sub-captions
+DAMSM_FS_SHAPES = [((4, 5, 300, 20, 1030), True, None), ((3, 7, 7, 33, 2048), True, None),
+                   ((5, 4, 256, 20, 1290), False, None), ((2, 3, 64, 9, 4096), True, None),
+                   ((3, 3, 256, 100, 1025), True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+@pytest.mark.parametrize("shape,allpad,max_len", DAMSM_FS_SHAPES, ids=str)
+def test_damsm_streamed_features_match_plain_on_card(cuda_device, cd, shape, allpad, max_len):
+    """The feature-streamed forward, d_regions and d_words (one launch each,
+    by the profiler's names the ones ``kernel_name`` gives the route)
+    against the plain version and its autograd on the whole captions, under
+    ``DAMSM_TOL``; a second run bit-equal; the all-padded caption's score
+    the plain value bit for bit, its d_words exactly 0."""
+    b, bc, R, T, D = shape
+    assert {ds.route(which, R, D, cd) for which in ("fwd", "dr", "dw")} == {
+        ds.STREAMED_FEATURES}
+    r, w, mask, up = _damsm_inputs(cuda_device, shape, 27, allpad, max_len)
+    ri, wi = r.clone().requires_grad_(), w.clone().requires_grad_()
+    got = {}
+
+    def run():
+        got["s"] = ds.damsm_scores(ri, wi, mask, 4.0, 5.0, cd)
+        got["g"] = torch.autograd.grad(got["s"], (ri, wi), up)
+
+    names, launched = _damsm_launches_and_names(run)
+    assert launched == (1, 1, 1)  # one launch of each kernel in the untraced run
+    for which in ("fwd", "dr", "dw"):
+        want = ds.kernel_name(which, R, D, cd)
+        assert any(want in n for n in names), (want, names)
+    out, (dr, dw) = got["s"], got["g"]
+    run()
+    assert torch.equal(out, got["s"]) and torch.equal(dr, got["g"][0])
+    assert torch.equal(dw, got["g"][1])
+    rr, wr = r.clone().requires_grad_(), w.clone().requires_grad_()
+    want = ds.damsm_scores_ref(rr, wr, mask, 4.0, 5.0, cd)
+    dr_w, dw_w = torch.autograd.grad(want, (rr, wr), up)
+    score_atol, grad_scale = DAMSM_TOL[cd]
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, _exact_scores(r, w, mask, cd), rtol=1e-5, atol=score_atol)
+    torch.testing.assert_close(dr, dr_w, rtol=0, atol=grad_scale * dr_w.abs().max().item())
+    torch.testing.assert_close(dw, dw_w, rtol=0, atol=grad_scale * dw_w.abs().max().item())
+    if allpad:
+        assert torch.equal(out[:, 1], want[:, 1].detach())
+        assert dw[1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+def test_damsm_streamed_features_blocks_are_bit_equal(cuda_device, cd):
+    """A data-parallel row block (the last 3 of 8 images against all 8
+    captions) and a tensor-parallel column block (all images against the
+    last 3 captions) on the feature-streamed kernels at D = 2048: the row
+    block's scores and d_regions, and the column block's scores, bit-equal
+    to those entries of one launch on the whole batch; an all-padded
+    caption's cotangent moves no d_regions."""
+    r, w, mask, up = _damsm_inputs(cuda_device, (8, 8, 256, 20, 2048), 28, True)
+    full = ds._launch_fwd(r, w, mask, 4.0, 5.0, cd)
+    full_dr = ds._launch_bwd("dr", r, w, mask, up, 4.0, 5.0, cd)
+    rows = slice(5, 8)
+    s = ds._launch_fwd(r[rows].contiguous(), w, mask, 4.0, 5.0, cd)
+    dr = ds._launch_bwd("dr", r[rows].contiguous(), w, mask, up[rows].contiguous(), 4.0, 5.0, cd)
+    assert torch.equal(s, full[rows]) and torch.equal(dr, full_dr[rows])
+    cols = slice(5, 8)
+    s = ds._launch_fwd(r, w[cols].contiguous(), mask[cols].contiguous(), 4.0, 5.0, cd)
+    assert torch.equal(s, full[:, cols])
+    up2 = up.clone()
+    up2[:, 1] = 100.0
+    assert torch.equal(ds._launch_bwd("dr", r, w, mask, up2, 4.0, 5.0, cd), full_dr)
+
+
 @pytest.mark.cuda
 def test_damsm_skips_d_words_when_words_carry_no_grad(cuda_device):
     """As in the train step: words are data, so only d_regions launches."""

@@ -130,7 +130,8 @@ def _long_problem(b, bc, r, t, d, width, seed):
 @pytest.mark.parametrize("cd", [None, torch.bfloat16])
 @pytest.mark.parametrize("dims", [(2, 3, 256, 200, 768), (2, 3, 50, 77, 520),
                                   (2, 3, 256, 130, 256), (2, 3, 256, 64, 256),
-                                  (2, 3, 256, 40, 1024)], ids=str)
+                                  (2, 3, 256, 40, 1024), (2, 3, 300, 130, 1025),
+                                  (2, 3, 7, 150, 2048)], ids=str)
 def test_long_captions_match_jax(cd, dims):
     """Captions longer than a pass of the route's kernels go through as
     sub-captions of half those rows (``sub_caption_width``: 8 at the LN
@@ -138,7 +139,9 @@ def test_long_captions_match_jax(cd, dims):
     halved, and 16 in bf16, the tensor-core kernels' 32 halved; a ragged
     T = 77, D = 520; T = 130 at D = 256; T = 64 at R = D = 256, which fits
     the forward but not the d_regions or the fp32 d_words; T = 40 at
-    D = 1024, 8 slots in both dtypes), and the scores and both VJPs match
+    D = 1024, 8 slots in both dtypes; past D = 1024 the feature-streamed
+    kernels' rows at R: 59 slots at R = 300, D = 1025 and 64 at R = 7,
+    D = 2048), and the scores and both VJPs match
     the JAX XLA path and the
     Pallas kernel in interpret mode on the whole captions, under ``TOL``.
     The fully padded caption scores exactly the plain version's
@@ -212,7 +215,8 @@ def test_kernel_plan_mirrors_the_source():
     (60 word rows) forward and 2 (40 rows) in the backward, within the 227 KB
     a block may use; at the LN word shape (R = 256, D = 768) 18 rows forward
     and 16 backward, so one 16-slot sub-caption a block (T = 200 is at most 13 of
-    them); T > 64 and D > 1024 are refused."""
+    them); T > 64 is refused, and D > 1024, which the route hands the
+    feature-streamed kernels: their plan takes it."""
     vb, smem = ds.plan(256, 20, 256, False, 128)
     assert vb == 3 and smem <= ds.SMEM_LIMIT
     vb, smem = ds.plan(256, 20, 256, True, 128)
@@ -229,6 +233,10 @@ def test_kernel_plan_mirrors_the_source():
         ds.plan(16, 65, 8, False, 4)
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.plan(16, 8, 1032, False, 4)
+    assert {ds.route(which, 16, 1032, None) for which in ("fwd", "dr", "dw")} == {
+        ds.STREAMED_FEATURES}
+    # 4 captions of 8 words: S [32, 32] and a words chunk [32, 132] beside a region tile
+    assert ds.plan_fs(16, 8, 1032, False, 4) == (4, 4 * 32 * 132 + 4 * 32 * (32 + 132 + 4))
     with pytest.raises(ValueError, match="shared memory"):
         ds.plan(256, 17, 768, True, 4)
 
@@ -242,20 +250,25 @@ def test_route_rule(which):
     packed under the same rule (the flagship's (256, 256), (50, 40) on the
     packed kernels, D > 256 such as (256, 264) on the wide ones; not
     (300, 48) or (256, 1025)), the fp32 d_words too (one kernel at every
-    D); every launch at R > 256 on the CUDA cores."""
+    D); every other launch at D <= 1024 (R > 256) on the CUDA cores; every
+    launch at D > 1024, any R, either dtype, on the feature-streamed
+    kernels."""
     flagship = [(256, 256), (50, 48), (50, 40), (1, 1)]
     wide = [(256, 768), (16, 264), (256, 264), (256, 1024), (64, 770), (50, 520)]
     never = [(257, 256), (300, 16), (300, 48), (257, 768), (256, 1025)]
-    for R, D in flagship + wide + never:
+    streamed = [(256, 1025), (7, 2048), (300, 1030)]
+    for R, D in flagship + wide + never + streamed:
         assert ds.route(which, R, D, None) != ds.TENSOR_CORES
         assert ds.route(which, R, D, torch.float32) != ds.TENSOR_CORES
     tc = flagship + wide
     packed = flagship + wide
-    for R, D in flagship + wide + never:
+    for R, D in flagship + wide + never + streamed:
         assert (ds.route(which, R, D, torch.bfloat16) == ds.TENSOR_CORES) == ((R, D) in tc), (R, D)
         for cd in (None, torch.float32, torch.bfloat16):
             want = (ds.TENSOR_CORES if (R, D) in tc else ds.CUDA_CORES) if cd == torch.bfloat16 \
                 else (ds.PACKED_FP32 if (R, D) in packed else ds.CUDA_CORES)
+            if (R, D) in streamed:
+                want = ds.STREAMED_FEATURES
             assert ds.route(which, R, D, cd) == want, (which, R, D, cd)
             # the name of the kernel launched: regions resident or streamed on
             # the tensor cores, the fp32 forward or d_regions with packed
@@ -270,12 +283,15 @@ def test_route_rule(which):
                 assert name == {"fwd": f"damsm_fwd_{f32}_kernel<",
                                 "dr": f"damsm_bwd_dr_{f32}_kernel<",
                                 "dw": "damsm_bwd_dw_f32_kernel<"}[which], (R, D, cd, name)
+            elif want == ds.STREAMED_FEATURES:
+                assert name == {"fwd": "damsm_fwd_fs_kernel<", "dr": "damsm_bwd_dr_fs_kernel<",
+                                "dw": "damsm_bwd_dw_fs_kernel<"}[which], (R, D, cd, name)
             else:
                 assert "_tc" not in name and "_f32_" not in name, (which, R, D, cd, name)
     assert ds.kernel_name("dr", 300, 48, None) == "damsm_bwd_dr_kernel<float"
     assert ds.kernel_name("fwd", 300, 48, None) == "damsm_fwd_kernel<"
     assert ds.kernel_name("fwd", 256, 264, torch.float32) == "damsm_fwd_f32w_kernel<"
-    assert ds.kernel_name("fwd", 256, 1025, torch.float32) == "damsm_fwd_kernel<"
+    assert ds.kernel_name("fwd", 256, 1025, torch.float32) == "damsm_fwd_fs_kernel<"
     assert ds.kernel_name("dw", 300, 256, torch.bfloat16) == "damsm_bwd_dw_kernel<"
     assert ds.kernel_name("dw", 256, 256, None) == "damsm_bwd_dw_f32_kernel<"
     assert ds.kernel_name("dw", 300, 256, None) == "damsm_bwd_dw_kernel<"
@@ -296,9 +312,11 @@ def test_sub_caption_width_mirrors_the_plans(cd):
     rows), 16 slots in fp32; at D = 520 16 in bf16 (the streamed kernels'
     32 rows), 8 in fp32; at D = 1024 8 in both (16 rows: the bf16
     d_regions and d_words, the fp32 d_words).  On the CUDA cores (R > 256)
-    the CUDA-core backward's rows.  Each width is a plan the route's
-    kernels take; D > 1024 and regions too many for one row are refused,
-    naming the limit; nothing depends on the device."""
+    the CUDA-core backward's rows.  At D > 1024 (the feature-streamed
+    kernels) the least of T and their backward's rows at R: 64 at R = 256,
+    59 at R = 300.  Each width is a plan the route's kernels take; regions
+    too many for one row are refused, naming the limit; nothing depends on
+    the device."""
     bf16 = cd == torch.bfloat16
     for R, T, D in [(256, 20, 256), (50, 7, 48), (64, 7, 40), (50, 20, 40), (5, 3, 12)]:
         assert ds.sub_caption_width(R, T, D, cd) == T
@@ -337,8 +355,10 @@ def test_sub_caption_width_mirrors_the_plans(cd):
     assert ds.plan_dw_f32(256, 8, 768, 256, 1024, 132).rows == 16
     assert ds.plan_fwd_f32(256, 8, 768, 256, 1024, 132).rows == 32
     assert ds.cuda_core_rows(256, 768, backward=True) == 16
-    with pytest.raises(ValueError, match="D <= 1024"):
-        ds.sub_caption_width(256, 20, 1025, cd)
+    assert ds.route("fwd", 256, 1025, cd) == ds.STREAMED_FEATURES
+    assert ds.sub_caption_width(256, 20, 1025, cd) == 20
+    assert ds.sub_caption_width(256, 200, 1025, cd) == ds.fs_rows(256, True) == 64
+    assert ds.sub_caption_width(300, 200, 2048, cd) == ds.fs_rows(300, True) == 59
     with pytest.raises(ValueError, match="shared memory"):
         ds.sub_caption_width(16384, 20, 768, cd)
 
@@ -359,6 +379,73 @@ def test_fp32_forward_and_d_regions_pack_under_one_rule():
     assert (fwd, dr, dw) == (64, 48, 32) == (*ds.F32_FWD_ROWS, *ds.F32_ROWS, ds.F32D_ROWS[256])
     assert ds.packed_rows(256, 256, None) == dw
     assert ds.sub_caption_width(256, 130, 256, None) == dw // 2
+
+
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+@pytest.mark.parametrize("R", [7, 256, 300])
+@pytest.mark.parametrize("D", [1025, 1030, 1290, 2048, 4096])
+def test_streamed_features_route_rule(D, R, cd):
+    """Past D = 1024 ``route`` puts the forward, d_regions and d_words on
+    the feature-streamed kernels at every R and in both compute dtypes
+    (``kernel_name``: ``damsm_*_fs_kernel<``, one template for both); the
+    sub-caption width is the least of T and their backward's rows at R
+    (``fs_rows``: 64 at R <= 256, 59 at R = 300, whatever D), which their
+    plans take; no D raises."""
+    names = {"fwd": "damsm_fwd_fs_kernel<", "dr": "damsm_bwd_dr_fs_kernel<",
+             "dw": "damsm_bwd_dw_fs_kernel<"}
+    for which, name in names.items():
+        assert ds.route(which, R, D, cd) == ds.STREAMED_FEATURES
+        assert ds.kernel_name(which, R, D, cd) == name
+    rows = ds.fs_rows(R, backward=True)
+    assert rows == (59 if R == 300 else 64) <= ds.fs_rows(R, backward=False)
+    assert ds.sub_caption_width(R, 20, D, cd) == 20
+    assert ds.sub_caption_width(R, 200, D, cd) == rows
+    for T in (1, 20, rows):
+        for backward in (False, True):
+            vb, smem = ds.plan_fs(R, T, D, backward, 128)
+            assert vb == min(ds.MAX_ROWS // T, ds.fs_rows(R, backward) // T) and vb * T <= 64
+            assert smem <= ds.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("R", [7, 256, 289, 300, 4096])
+def test_streamed_features_plan_mirrors_the_source(R):
+    """The feature-streamed kernels' shared memory as ``csrc/damsm_score.cu``
+    computes it (``fs_smem_bytes``), with the constants read from the
+    source: the ``[rows, SR]`` sim / attention (and in the backward its
+    cotangent; SR = R rounded up to 32-region tiles), a 128-feature chunk
+    of the words ``[rows, 132]`` (and of d_c in the backward), 4 words a
+    row, and a tile of 32 region rows ``[32, 132]``; no term depends on D;
+    the splits of their backward's accumulation axis (``fs_nsplit``).
+    At the flagship word shape with D = 2048 (R = 256, T = 20) 3 captions a
+    block: 110,976 bytes forward, 204,096 backward; 64 rows a block fit in
+    the backward to R = 256, 59 at R = 300; one row up to R = 26,784, none
+    above it, which ``sub_caption_width`` refuses, naming the bytes."""
+    assert (_source_constant("FS_KF"), _source_constant("RT"), _source_constant("MAX_ROWS"),
+            _source_constant("SMEM_LIMIT")) == (ds.FS_KF, ds.RT, ds.MAX_ROWS, ds.SMEM_LIMIT)
+    src = (Path(ds.__file__).resolve().parents[2] / "csrc" / "damsm_score.cu").read_text()
+    assert "constexpr int FS_SW = FS_KF + 4;" in src and ds.FS_SW == ds.FS_KF + 4 == 132
+    sr = -(-R // 32) * 32
+    for backward, k in ((False, 1), (True, 2)):
+        per_row = 4 * (k * sr + k * 132 + 4)
+        assert ds._fs_smem(R, backward) == (per_row, 4 * 32 * 132)
+        rows = min(64, (ds.SMEM_LIMIT - 4 * 32 * 132) // per_row)
+        assert ds.fs_rows(R, backward) == rows
+        for D in (1025, 2048, 4096):
+            assert ds.plan_fs(R, 1, D, backward, 256) == (rows, 4 * 32 * 132 + rows * per_row)
+    assert ds.plan_fs(256, 20, 2048, False, 128) == (3, 110_976)
+    assert ds.plan_fs(256, 20, 2048, True, 128) == (3, 204_096)
+    assert (ds.fs_rows(256, True), ds.fs_rows(300, True)) == (64, 59)
+    assert ds.fs_rows(26_784, True) == 1 and ds.fs_rows(26_785, True) == 0
+    # splits: the d_regions none (one block an image, its captions in order);
+    # the d_words' 43 sub-blocks of 3 captions at the flagship fill the 132
+    # multiprocessors in one wave, 3 splits, 64 MB of scratch; a 256 MiB cap
+    assert ds.fs_nsplit("dr", 128, 128, 20, 2048, 43, 132) == 1
+    assert ds.fs_nsplit("dw", 128, 128, 20, 2048, 43, 132) == 3
+    assert ds.fs_nsplit("dw", 256, 2048, 64, 4096, 2048, 132) == 1
+    assert ds.fs_nsplit("dw", 4, 64, 20, 2048, 22, 132) == 4
+    assert ds.fs_nsplit("dw", 128, 16, 64, 8192, 4, 132) == 8 == 2**28 // (4 * 16 * 64 * 8192)
+    with pytest.raises(ValueError, match="a word row of the backward needs 215600 bytes"):
+        ds.sub_caption_width(26_785, 20, 2048, None)
 
 
 def test_split_captions_and_combine():
@@ -454,6 +541,9 @@ def test_tensor_core_plan_mirrors_the_source(D):
             ds.plan_dr(256, 33, D, 2, 4, 132)
         with pytest.raises(ValueError, match="D <= 1024"):
             ds.plan_dr(16, 8, 1032, 2, 4, 132)
+        # which the route never hands it: D > 1024 goes to the feature-streamed kernel
+        assert ds.route("dr", 16, 1032, torch.bfloat16) == ds.STREAMED_FEATURES
+        assert ds.plan_fs(16, 8, 1032, True, 4)[0] == 4
 
 
 @pytest.mark.parametrize("D", [256, 264, 520, 768, 770, 1024])
@@ -499,6 +589,9 @@ def test_dw_plan_mirrors_the_source(D):
         ds.plan_dw(257, 8, D, 2, 4, 132)
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.plan_dw(256, 8, 1025, 2, 4, 132)
+    # which the route never hands it: D > 1024 goes to the feature-streamed kernel
+    assert ds.route("dw", 256, 1025, torch.bfloat16) == ds.STREAMED_FEATURES
+    assert ds.plan_fs(256, 8, 1025, True, 4)[0] == 4
 
 
 @pytest.mark.parametrize("D", [40, 256, 520, 768, 770, 1024])
@@ -542,6 +635,9 @@ def test_fp32_dw_plan_mirrors_the_source(D):
         ds.plan_dw_f32(257, 8, D, 2, 4, 132)
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.plan_dw_f32(256, 8, 1025, 2, 4, 132)
+    # which the route never hands it: D > 1024 goes to the feature-streamed kernel
+    assert ds.route("dw", 256, 1025, None) == ds.STREAMED_FEATURES
+    assert ds.plan_fs(256, 8, 1025, True, 4)[0] == 4
 
 
 def _passes(mask: torch.Tensor, width: int, rows: int) -> int:
@@ -651,6 +747,9 @@ def test_fp32_d_regions_plan_mirrors_the_source(R, D):
         ds.plan_dr_f32(257, 8, D, 2, 4, 132)
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.plan_dr_f32(R, 8, 1025, 2, 4, 132)
+    # which the route never hands it: D > 1024 goes to the feature-streamed kernel
+    assert ds.route("dr", R, 1025, None) == ds.STREAMED_FEATURES
+    assert ds.plan_fs(R, 8, 1025, True, 4)[0] == 4
     assert ds.plan_dr_f32(R, 8, 264, 2, 4, 132).smem == ds._f32w_smem(264, 32)
 
 
@@ -688,6 +787,9 @@ def test_fp32_forward_plan_mirrors_the_source(R, D):
         ds.plan_fwd_f32(257, 8, D, 2, 4, 132)
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.plan_fwd_f32(R, 8, 1025, 2, 4, 132)
+    # which the route never hands it: D > 1024 goes to the feature-streamed kernel
+    assert ds.route("fwd", R, 1025, None) == ds.STREAMED_FEATURES
+    assert ds.plan_fs(R, 8, 1025, False, 4)[0] == 4
     assert ds.plan_fwd_f32(R, 8, 264, 2, 4, 132).smem == ds._f32w_smem(264, 32)
 
 
@@ -758,6 +860,9 @@ def test_wide_fp32_plan_mirrors_the_source(D):
             plan(257, 8, D, 2, 4, 132)
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.plan_fwd_f32(256, 8, 1025, 2, 4, 132)
+    # which the route never hands it: D > 1024 goes to the feature-streamed kernels
+    assert {ds.route(which, 256, 1025, None) for which in ("fwd", "dr", "dw")} == {
+        ds.STREAMED_FEATURES}
 
 
 @pytest.mark.parametrize("R,T,D", [(256, 200, 768), (256, 200, 1024), (50, 77, 520),
@@ -799,6 +904,9 @@ def test_forward_plan_mirrors_the_source(D):
         ds.plan_fwd(300, 8, D, 2, 4, 132)
     with pytest.raises(ValueError, match="D <= 1024"):
         ds.plan_fwd(16, 8, 1032, 2, 4, 132)
+    # which the route never hands it: D > 1024 goes to the feature-streamed kernel
+    assert ds.route("fwd", 16, 1032, torch.bfloat16) == ds.STREAMED_FEATURES
+    assert ds.plan_fs(16, 8, 1032, False, 4)[0] == 4
     if D == 256:
         p = ds.plan_fwd(256, 20, 256, 128, 128, 132)
         assert p == (64, 1, 128, 206_352)

@@ -189,8 +189,9 @@ def test_word_scores_backend_rule():
     read as "CUDA tensor").  The LN config's shape (B = Bc = 256, R = 256,
     T = 200, word width 768) routes to the kernels, which take it as 16-slot
     sub-captions in fp32 and 32-slot ones in bf16: a small LN-like problem on the kernel
-    route computes and matches the plain path.  The one limit left, D <=
-    1024, raises before any work, naming it."""
+    route computes and matches the plain path.  Past D = 1024 the kernel
+    route computes too (the feature-streamed kernels' width, their rows at
+    R) and matches the plain path."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     block = pl.WORD_LOSS_BLOCK_ELEMS
     assert pl.word_scores_backend(128, 128, 20, 256, block, cuda) == "kernel"
@@ -209,12 +210,14 @@ def test_word_scores_backend_rule():
         for r_regions, t, d in [(256, 20, 256), (256, 200, 768), (256, 200, 256),
                                 (256, 20, 768), (300, 20, 256), (256, 200, 1024)]:
             assert 1 <= ds.sub_caption_width(r_regions, t, d, cd) <= t
-        with pytest.raises(ValueError, match="D <= 1024"):
-            ds.sub_caption_width(256, 200, 1032, cd)
-        with pytest.raises(ValueError, match="D <= 1024"):
-            pl.word_region_scores(_t(rng.randn(2, 4, 1032)), _t(rng.randn(2, 5, 1032)),
-                                  torch.zeros(2, 5, dtype=torch.bool), compute_dtype=cd,
-                                  backend="kernel")
+        assert ds.route("fwd", 256, 1032, cd) == ds.STREAMED_FEATURES
+        assert ds.sub_caption_width(256, 200, 1032, cd) == ds.fs_rows(256, True) == 64
+        wide = (_t(rng.randn(2, 4, 1032)), _t(rng.randn(2, 5, 1032)),
+                torch.zeros(2, 5, dtype=torch.bool))
+        got = pl.word_region_scores(*wide, compute_dtype=cd, backend="kernel")
+        want = pl.word_region_scores(*wide, compute_dtype=cd, backend="plain")
+        assert got.shape == (2, 2) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
         # a small LN-like problem (T = 200, D = 768, R = 256) on the kernel route
         assert ds.sub_caption_width(256, 200, 768, cd) == (16 if cd == torch.bfloat16 else 8)
         got = pl.word_region_scores(_t(regions), _t(words), mask, compute_dtype=cd,

@@ -156,11 +156,12 @@ def run_step(name: str, overrides: dict | None = None, words: bool = False,
         pvgg.load_state_dict(convert.vgg_state_dict_from_jax(jvgg), strict=True)
     rng = np.random.RandomState(0)
     steps = []
+    emb = cfg.TEXT.EMBEDDING_DIM  # EMB unless the overrides widen the text features
     for k in range(cfg.TRAIN.N_CRITIC):
         batch = {"imgs": rng.randint(0, 256, (BS, SIZE, SIZE, 3)).astype(np.uint8),
-                 "sent_embs": rng.randn(BS, EMB).astype(np.float32)}
+                 "sent_embs": rng.randn(BS, emb).astype(np.float32)}
         if words:
-            batch["words_embs"] = rng.randn(BS, max_length, EMB).astype(np.float32)
+            batch["words_embs"] = rng.randn(BS, max_length, emb).astype(np.float32)
             batch["mask"] = (np.arange(max_length)[None, :]
                              >= np.array(word_lens(max_length))[:, None])
         key = jax.random.PRNGKey(100 + k)

@@ -21,8 +21,10 @@
 // for d_words; 86 / 215 / 172 GFLOP at B = Bc = 128, T = 20, R = D = 256),
 // against 67 TFLOP/s fp32 on the CUDA cores, 989 TFLOP/s bf16 on the tensor
 // cores.  Route (the wrapper's rule per kernel, ops/cuda/damsm_score.py
-// route): the bf16 forward, d_regions and d_words run on the tensor cores
-// where R <= 256 and D <= 1024 (the forward and d_regions with the regions
+// route): every kernel at D > 1024 runs on the feature-streamed CUDA-core
+// kernels ("The feature-streamed kernels", either dtype); below that the
+// bf16 forward, d_regions and d_words run on the tensor cores
+// where R <= 256 (the forward and d_regions with the regions
 // resident in shared memory at D <= 256, streamed through it above; the
 // d_words streams them at every D: their own sections below); the fp32
 // forward, d_regions and d_words at R <= 256, D <= 1024 on the CUDA cores in
@@ -332,6 +334,57 @@
 //  * Bound: 4 products per real word and image, 1.264 ms at the flagship
 //    and 152.1 ms at the LN word shape (B = Bc = 256) over 67 TFLOP/s.
 //
+// The feature-streamed kernels (damsm_fwd_fs_kernel, damsm_bwd_dr_fs_kernel,
+// damsm_bwd_dw_fs_kernel), route 3: every launch at D > 1024, any R, either
+// dtype, on the CUDA cores.  A first, simple and correct version: the other
+// kernels keep [rows, D] tiles (words, context, d_c) in shared memory or
+// registers, which no width past 1,024 features fits beside the rest.
+//  * Blocks as the CUDA-core kernels': the forward and d_regions (image i,
+//    caption sub-block of vb captions, M = vb*T <= 64 word rows; the
+//    d_regions' block takes all sub-blocks of the image, in order, no
+//    split), the d_words (caption sub-block, split of the images).  vb is
+//    the largest that fits (plan_fs): no term of the shared memory depends
+//    on D, so R alone limits the rows.  512 threads (16 warps, 4 rows a
+//    warp): the backward's shared memory holds one block a multiprocessor.
+//  * Shared memory: the [M, SR] sim / attention (and in the backward its
+//    cotangent) stays; every product streams the features a chunk of
+//    FS_KF = 128 at a time: the chunk's words Wc [M][132] (and d_c DC) and a
+//    tile of 32 region rows of the chunk's columns Rt [32][132], zero past
+//    R and D, each tile's loads issued into registers under the previous
+//    tile's products (fs_region_tiles).  At R = 256: 110,976 bytes forward
+//    at 3 captions of 20 words (M = 60), 204,096 backward; 64 rows fit up
+//    to R = 256 backward, 59 at R = 300, one up to R = 26,784.
+//  * The chain, one sweep over the regions per product, each a chunk at a
+//    time: sim = W R^T accumulated into S; the softmax (columns past R
+//    ignored, 0); then c = rnd(a) R chunk by chunk, folded as it completes
+//    into |c|^2 and c . w per row (a lane's columns in order, then a warp
+//    sum), so rel = c . w / max(|c|, 1e-12) and the context is never stored
+//    whole.  The bf16 forward sweeps once more for rel = sum rnd(c_hat) w,
+//    as the plain version rounds c_hat (the scores' tolerance is 2^-12);
+//    the backward keeps the fp32 c_hat's rel, as the Pallas kernel computes
+//    it, and <c_hat, d c_hat> = d rel * rel, both dtypes (the bf16
+//    gradients within a bf16 ulp of the largest).  Then c once more,
+//    d_c = (d c_hat - c_hat <c_hat, d c_hat>) / |c| a chunk at a time into
+//    DC, each chunk's d a = d_c R^T added into DA; d sim from rnd(d a).
+//    Rounding points of the bf16 CUDA-core kernels (the plain version's
+//    autograd) otherwise: w, r, a operands, c_hat for d_w, d c_hat = rnd(d
+//    rel w), d a; d_c and d sim stay fp32.
+//  * d_regions: after each chunk's d_c, rnd(a)^T d_c into the chunk's
+//    columns of the image's d_r, then d sim^T W a chunk at a time: a warp
+//    takes 8 consecutive regions x 4 columns a lane, read-modify-write of
+//    the block's own [R, D] (the output: no split, no scratch, no
+//    atomics), first sub-block stores, the rest add in caption order, so a
+//    row block of images is bit-equal to those rows of the whole launch.
+//  * d_words: d rel rnd(c_hat) as d_c forms, then d sim R a chunk at a time,
+//    added into the split's exclusive slice of partial [nsplit, Bc, T, D]
+//    (zeroed first; padded slots stay 0), images in order; sum_splits adds
+//    the splits in a fixed order.  The splits fill the card with the
+//    sub-blocks in one wave, the scratch within 256 MiB (fs_nsplit).
+//  * Products: forward 2 (bf16 3), d_regions 6, d_words 5 per word row and
+//    image against the bound's 2, 5 and 4; all rows of a sub-block, padded
+//    words too.  Every size_t-indexed: a [B, R, D] input at B = 128,
+//    R = 256, D = 4096 has 1.3e8 elements.
+//
 // C interface (ctypes; pointers and the stream as void*):
 //   int xmc_damsm_fwd(r, w, mask, out, B, Bc, R, T, D, vb, rows, nsplit, g1, g2,
 //                     dtype, route, stream)
@@ -347,7 +400,9 @@
 //   dtype), 1 = the tensor-core one (bf16 only; the forward's and d_regions'
 //   streamed kernel for D > 256), 2 = the fp32 kernel with packed words
 //   (fp32 only, R <= 256, D <= 1024; the wide forward and d_regions for
-//   D > 256).  vb is the captions per block of the CUDA-core kernels; rows
+//   D > 256), 3 = the feature-streamed kernel (either dtype, any R and D;
+//   the wrapper's route for D > 1024).  vb is the captions per block of the
+//   CUDA-core and feature-streamed kernels; rows
 //   is the word rows per pass, Mp, of the tensor-core kernels (route 1) and
 //   of the fp32 ones (route 2), whose forward and d_regions blocks are
 //   (image, split) for nsplit splits, the d_words' (pass, split).
@@ -3699,6 +3754,532 @@ int launch_dw_f32(const float* r, const float* w, const uint8_t* mask, const flo
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The feature-streamed forward, d_regions and d_words (route 3, D > 1024) on
+// the CUDA cores (header: "The feature-streamed kernels").
+// ---------------------------------------------------------------------------
+
+constexpr int FS_THREADS = 512;               // 16 warps: the backward holds one block an SM
+constexpr int FS_WARPS = FS_THREADS / 32;
+constexpr int FS_MB = MAX_ROWS / FS_WARPS;    // word rows a warp: m = warp + 16 a, a < 4
+constexpr int FS_KF = 128;                    // features of a streamed chunk: 4 columns a lane
+constexpr int FS_SW = FS_KF + 4;              // row stride (fp32) of a chunk tile: rows 4 banks apart
+constexpr int FS_QG = 8 * FS_WARPS;           // regions of a d_r tile: 8 consecutive ones a warp
+constexpr int FS_TILE = RT * FS_KF / FS_THREADS;  // region tile elements a thread loads
+static_assert(FS_KF == 4 * 32, "a lane owns columns lane + 32 jj, jj < 4, of a chunk");
+static_assert(FS_TILE * FS_THREADS == RT * FS_KF, "a region tile is whole elements a thread");
+
+// Shared memory of one block, carved from the dynamic allocation.
+struct FsSmem {
+  float* S;      // [M][SR] sim -> a (fp32)
+  float* DA;     // [M][SR] d a -> d sim (backward only)
+  float* Wc;     // [M][FS_SW] a chunk of the words (rounded to the operand type)
+  float* DC;     // [M][FS_SW] the chunk's d_c (backward only)
+  float* Rt;     // [RT][FS_SW] a tile of region rows, the chunk's columns
+  float* nrm;    // [M] max(|c|, 1e-12)
+  float* rel;    // [M]
+  float* drel;   // [M]
+  float* inner;  // [M] <c_hat, d c_hat>
+};
+
+// [M] rows of S (and DA), Wc (and DC) and 4 row scalars beside the region
+// tile, as fs_carve lays them out; no term depends on D.
+size_t fs_smem_bytes(const Dims& d, bool backward) {
+  const size_t k = backward ? 2 : 1;
+  return sizeof(float) * (size_t(d.M) * (k * d.SR + k * FS_SW + 4) + size_t(RT) * FS_SW);
+}
+
+__device__ FsSmem fs_carve(float* base, const Dims& d, bool backward) {
+  const int k = backward ? 1 : 0;
+  FsSmem s;
+  s.S = base;
+  s.DA = s.S + d.M * d.SR;
+  s.Wc = s.DA + k * d.M * d.SR;
+  s.DC = s.Wc + d.M * FS_SW;
+  s.Rt = s.DC + k * d.M * FS_SW;
+  s.nrm = s.Rt + RT * FS_SW;
+  s.rel = s.nrm + d.M;
+  s.drel = s.rel + d.M;
+  s.inner = s.drel + d.M;
+  return s;
+}
+
+bool fs_dims_ok(const Dims& d, bool backward) {
+  return d.B > 0 && d.Bc > 0 && d.R > 0 && d.T > 0 && d.D > 0 && d.vb > 0 &&
+         d.M <= MAX_ROWS && fs_smem_bytes(d, backward) <= size_t(SMEM_LIMIT);
+}
+
+// Columns c0 .. c0+FS_KF-1 of the word rows of captions j0 .. j0+vb-1 into
+// Wc (rows past Bc and columns past D are 0).
+template <typename T>
+__device__ void fs_load_words(const T* __restrict__ w, int j0, int c0, const Dims& d,
+                              float* Wc) {
+  for (int e = threadIdx.x; e < d.M * FS_KF; e += FS_THREADS) {
+    const int m = e / FS_KF, k = e % FS_KF;
+    const int j = j0 + m / d.T, t = m % d.T, col = c0 + k;
+    Wc[m * FS_SW + k] =
+        (j < d.Bc && col < d.D) ? to_f(w[(size_t(j) * d.T + t) * d.D + col]) : 0.f;
+  }
+}
+
+// This thread's elements of region rows r0 .. r0+RT-1 of image i, columns
+// c0 .. c0+FS_KF-1, into v (rows past R and columns past D are 0): element
+// threadIdx.x + FS_THREADS q of the tile, row-major.
+template <typename T>
+__device__ __forceinline__ void fs_fetch_regions(const T* __restrict__ r, int i, int r0, int c0,
+                                                 const Dims& d, float (&v)[FS_TILE]) {
+#pragma unroll
+  for (int q = 0; q < FS_TILE; ++q) {
+    const int e = threadIdx.x + FS_THREADS * q;
+    const int rr = r0 + e / FS_KF, col = c0 + e % FS_KF;
+    v[q] = (rr < d.R && col < d.D) ? to_f(r[(size_t(i) * d.R + rr) * d.D + col]) : 0.f;
+  }
+}
+
+// The region tiles of image i in chunk c0's columns, RT rows at a time:
+// f(r0) with Rt [RT][FS_SW] holding rows r0 .. r0+RT-1.  Each tile's loads
+// are issued into registers before the previous tile's f, so they fly under it.
+template <typename T, class F>
+__device__ void fs_region_tiles(const T* __restrict__ r, int i, int c0, const Dims& d, float* Rt,
+                                F&& f) {
+  float next[FS_TILE];
+  fs_fetch_regions(r, i, 0, c0, d, next);
+  for (int r0 = 0; r0 < d.SR; r0 += RT) {
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < FS_TILE; ++q) {
+      const int e = threadIdx.x + FS_THREADS * q;
+      Rt[(e / FS_KF) * FS_SW + e % FS_KF] = next[q];
+    }
+    __syncthreads();
+    if (r0 + RT < d.SR) fs_fetch_regions(r, i, r0 + RT, c0, d, next);
+    f(r0);
+  }
+}
+
+// out[m][r0 + lane] = (first ? 0 : out) + sum_{k < FS_KF} A[m][k] Rt[lane][k]
+// (rows m of this warp): one chunk's part of a product over the features.
+template <int MB>
+__device__ void fs_by_features(const float* A, const float* Rt, float* out, int r0,
+                               const Dims& d, bool first) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[MB];
+#pragma unroll
+  for (int i = 0; i < MB; ++i) acc[i] = 0.f;
+  for (int k = 0; k < FS_KF; k += 4) {
+    const float4 b = *reinterpret_cast<const float4*>(Rt + lane * FS_SW + k);
+#pragma unroll
+    for (int i = 0; i < MB; ++i) {
+      const int m = warp + FS_WARPS * i;
+      if (m < d.M) {
+        const float4 a = *reinterpret_cast<const float4*>(A + m * FS_SW + k);
+        acc[i] = fmaf(a.x, b.x, acc[i]);
+        acc[i] = fmaf(a.y, b.y, acc[i]);
+        acc[i] = fmaf(a.z, b.z, acc[i]);
+        acc[i] = fmaf(a.w, b.w, acc[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MB; ++i) {
+    const int m = warp + FS_WARPS * i;
+    if (m < d.M) {
+      float* o = out + m * d.SR + r0 + lane;
+      *o = first ? acc[i] : *o + acc[i];
+    }
+  }
+}
+
+// acc[i][jj] = sum_r rnd?(P[m][r]) R_i[r][c0 + lane + 32 jj] (m = warp + 16 i)
+// over all region tiles: one chunk's columns of a product over the regions
+// (P = a or d sim, [M][SR], 0 past R).
+template <typename T, int MB, bool BF16, bool ROUND_P>
+__device__ void fs_by_regions(float (&acc)[MB][4], const float* P, const T* __restrict__ r,
+                              int i, int c0, const Dims& d, float* Rt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int a = 0; a < MB; ++a)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[a][jj] = 0.f;
+  fs_region_tiles(r, i, c0, d, Rt, [&](int r0) {
+    for (int n = 0; n < RT; n += 4) {
+      float b[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) b[q][jj] = Rt[(n + q) * FS_SW + lane + 32 * jj];
+#pragma unroll
+      for (int a = 0; a < MB; ++a) {
+        const int m = warp + FS_WARPS * a;
+        if (m < d.M) {
+          float4 p = *reinterpret_cast<const float4*>(P + m * d.SR + r0 + n);
+          if (ROUND_P) {
+            p.x = rnd<BF16>(p.x); p.y = rnd<BF16>(p.y);
+            p.z = rnd<BF16>(p.z); p.w = rnd<BF16>(p.w);
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            acc[a][jj] = fmaf(p.x, b[0][jj], acc[a][jj]);
+            acc[a][jj] = fmaf(p.y, b[1][jj], acc[a][jj]);
+            acc[a][jj] = fmaf(p.z, b[2][jj], acc[a][jj]);
+            acc[a][jj] = fmaf(p.w, b[3][jj], acc[a][jj]);
+          }
+        }
+      }
+    }
+  });
+}
+
+// The context c = rnd(a) R_i a chunk at a time, the chunk's words in Wc:
+// f(c0, c) for every chunk, c[a][jj] the feature c0 + lane + 32 jj of row
+// warp + 16 a.  The context is never stored whole.
+template <typename T, int MB, bool BF16, class F>
+__device__ void fs_context(const T* __restrict__ r, const T* __restrict__ w, int i, int j0,
+                           const Dims& d, const FsSmem& s, F&& f) {
+  for (int c0 = 0; c0 < d.D; c0 += FS_KF) {
+    __syncthreads();
+    fs_load_words(w, j0, c0, d, s.Wc);
+    float c[MB][4];
+    fs_by_regions<T, MB, BF16, true>(c, s.S, r, i, c0, d, s.Rt);
+    f(c0, c);
+  }
+}
+
+// v[a] summed over the warp into dst[m] (m = warp + 16 a), in a fixed order.
+template <int MB>
+__device__ __forceinline__ void fs_row_sums(const float (&v)[MB], float* dst, const Dims& d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int a = 0; a < MB; ++a) {
+    const int m = warp + FS_WARPS * a;
+    if (m >= d.M) continue;  // the warp's rows: uniform across its lanes
+    const float sum = warp_sum(v[a]);
+    if (lane == 0) dst[m] = sum;
+  }
+}
+
+// The forward of image i against the sub-block's captions j0.. up to rel:
+// S holds a (fp32), nrm and rel are filled.  Sweeps over the regions, each a
+// chunk of features at a time: sim = W R^T; the softmax; then c = rnd(a) R,
+// folded into |c|^2 and c . w per row, rel = c . w / |c|.  ROUND_REL (the
+// bf16 forward's scores) sweeps once more for rel = sum rnd(c_hat) w, as the
+// plain version rounds c_hat; the backward keeps the fp32 c_hat's rel, as
+// the Pallas kernel computes it.
+template <typename T, int MB, bool BF16, bool ROUND_REL>
+__device__ void fs_forward_chain(const T* __restrict__ r, const T* __restrict__ w, int i, int j0,
+                                 const Dims& d, const FsSmem& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < d.D; c0 += FS_KF) {  // sim = W R^T
+    __syncthreads();
+    fs_load_words(w, j0, c0, d, s.Wc);
+    fs_region_tiles(r, i, c0, d, s.Rt,
+                    [&](int r0) { fs_by_features<MB>(s.Wc, s.Rt, s.S, r0, d, c0 == 0); });
+  }
+  __syncthreads();
+  for (int m = warp; m < d.M; m += FS_WARPS) {  // a = softmax_R(g1 * sim); columns past R 0
+    float* row = s.S + m * d.SR;
+    float mx = -INFINITY;
+    for (int q = lane; q < d.R; q += 32) mx = fmaxf(mx, d.g1 * row[q]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int q = lane; q < d.R; q += 32) {
+      const float e = expf(d.g1 * row[q] - mx);
+      row[q] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int q = lane; q < d.SR; q += 32) row[q] = q < d.R ? row[q] / sum : 0.f;
+  }
+  float cc[MB], cw[MB];
+#pragma unroll
+  for (int a = 0; a < MB; ++a) cc[a] = cw[a] = 0.f;
+  fs_context<T, MB, BF16>(r, w, i, j0, d, s, [&](int, float (&c)[MB][4]) {
+#pragma unroll
+    for (int a = 0; a < MB; ++a) {
+      const int m = warp + FS_WARPS * a;
+      if (m >= d.M) continue;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        cc[a] = fmaf(c[a][jj], c[a][jj], cc[a]);
+        cw[a] = fmaf(c[a][jj], s.Wc[m * FS_SW + lane + 32 * jj], cw[a]);
+      }
+    }
+  });
+  fs_row_sums<MB>(cc, s.nrm, d);
+  fs_row_sums<MB>(cw, s.rel, d);
+  __syncwarp();
+  // a warp's rows are its own: nrm and rel from the sums it just wrote
+#pragma unroll
+  for (int a = 0; a < MB; ++a) {
+    const int m = warp + FS_WARPS * a;
+    if (m < d.M && lane == 0) {
+      const float nrm = fmaxf(sqrtf(s.nrm[m]), 1e-12f);
+      s.nrm[m] = nrm;
+      s.rel[m] = s.rel[m] / nrm;
+    }
+  }
+  if constexpr (ROUND_REL) {
+    float rel[MB];
+#pragma unroll
+    for (int a = 0; a < MB; ++a) rel[a] = 0.f;
+    fs_context<T, MB, BF16>(r, w, i, j0, d, s, [&](int, float (&c)[MB][4]) {
+#pragma unroll
+      for (int a = 0; a < MB; ++a) {
+        const int m = warp + FS_WARPS * a;
+        if (m >= d.M) continue;
+        const float nrm = s.nrm[m];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          rel[a] = fmaf(rnd<true>(c[a][jj] / nrm), s.Wc[m * FS_SW + lane + 32 * jj], rel[a]);
+      }
+    });
+    fs_row_sums<MB>(rel, s.rel, d);
+  }
+  __syncthreads();
+}
+
+// v[t] = the logsumexp term of word t of caption c of the block:
+// padded ? NEG : g2 * rel; returns (max, sum of exp(v - max)) over T.
+__device__ __forceinline__ float2 fs_caption_lse(const uint8_t* __restrict__ mask, const float* rel,
+                                                 int c, int j, const Dims& d) {
+  const int lane = threadIdx.x & 31;
+  float mx = -INFINITY;
+  for (int t = lane; t < d.T; t += 32)
+    mx = fmaxf(mx, padded(mask, j, t, d) ? NEG : d.g2 * rel[c * d.T + t]);
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int t = lane; t < d.T; t += 32)
+    sum += expf((padded(mask, j, t, d) ? NEG : d.g2 * rel[c * d.T + t]) - mx);
+  return make_float2(mx, warp_sum(sum));
+}
+
+// The forward: block (image i, caption sub-block); scores out[i][j].
+template <typename T, int MB, bool BF16>
+__global__ void __launch_bounds__(FS_THREADS)
+damsm_fwd_fs_kernel(const T* __restrict__ r, const T* __restrict__ w,
+                    const uint8_t* __restrict__ mask, float* __restrict__ out, Dims d) {
+  extern __shared__ float4 smem_raw[];
+  const FsSmem s = fs_carve(reinterpret_cast<float*>(smem_raw), d, false);
+  const int i = blockIdx.x, j0 = blockIdx.y * d.vb;
+  fs_forward_chain<T, MB, BF16, BF16>(r, w, i, j0, d, s);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = warp; c < d.vb; c += FS_WARPS) {  // logsumexp over the words of caption j
+    const int j = j0 + c;
+    if (j >= d.Bc) continue;
+    const float2 ms = fs_caption_lse(mask, s.rel, c, j, d);
+    if (lane == 0) out[size_t(i) * d.Bc + j] = (ms.x + logf(ms.y)) / d.g2;
+  }
+}
+
+// The backward of image i against the sub-block's captions j0..: the forward
+// chain, d rel (0 where padded), <c_hat, d c_hat> = d rel * rel, then d_c a
+// chunk at a time into DC, each chunk's d a = d_c R^T added into DA and
+// on_dc(c0) called with the chunk's d_c in DC; last d sim into DA.
+// DW_TERM: also add d rel * rnd(c_hat) into the d_words slice dw_acc
+// [dw_rows][D] (the rows of real captions).
+template <typename T, int MB, bool BF16, bool DW_TERM, class F>
+__device__ void fs_backward_chain(const T* __restrict__ r, const T* __restrict__ w,
+                                  const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                                  int i, int j0, const Dims& d, const FsSmem& s, float* dw_acc,
+                                  int dw_rows, F&& on_dc) {
+  fs_forward_chain<T, MB, BF16, false>(r, w, i, j0, d, s);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = warp; c < d.vb; c += FS_WARPS) {  // d rel = g_ij * softmax_T, 0 where padded
+    const int j = j0 + c;
+    const float2 ms = fs_caption_lse(mask, s.rel, c, j, d);
+    const float gij = j < d.Bc ? g[size_t(i) * d.Bc + j] : 0.f;
+    for (int t = lane; t < d.T; t += 32) {
+      const int m = c * d.T + t;
+      const float dr = padded(mask, j, t, d) ? 0.f : gij * (expf(d.g2 * s.rel[m] - ms.x) / ms.y);
+      s.drel[m] = dr;
+      s.inner[m] = dr * s.rel[m];
+    }
+  }
+  // d_c = (d c_hat - c_hat <c_hat, d c_hat>) / nrm, d a += d_c R^T
+  fs_context<T, MB, BF16>(r, w, i, j0, d, s, [&](int c0, float (&c)[MB][4]) {
+#pragma unroll
+    for (int a = 0; a < MB; ++a) {
+      const int m = warp + FS_WARPS * a;
+      if (m >= d.M) continue;
+      const float nrm = s.nrm[m], inner = s.inner[m], dr = s.drel[m];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = lane + 32 * jj, k = c0 + col;
+        const float ch = c[a][jj] / nrm;
+        if (DW_TERM && k < d.D && m < dw_rows) dw_acc[size_t(m) * d.D + k] += dr * rnd<BF16>(ch);
+        s.DC[m * FS_SW + col] = (rnd<BF16>(dr * s.Wc[m * FS_SW + col]) - ch * inner) / nrm;
+      }
+    }
+    fs_region_tiles(r, i, c0, d, s.Rt,
+                    [&](int r0) { fs_by_features<MB>(s.DC, s.Rt, s.DA, r0, d, c0 == 0); });
+    on_dc(c0);  // DC is the chunk's d_c, visible to every thread (the barriers above)
+  });
+  __syncthreads();
+  for (int m = warp; m < d.M; m += FS_WARPS) {  // d sim = g1 * a * (rnd(d a) - sum_R a rnd(d a))
+    const float* a = s.S + m * d.SR;
+    float* da = s.DA + m * d.SR;
+    float rs = 0.f;
+    for (int q = lane; q < d.R; q += 32) rs = fmaf(a[q], rnd<BF16>(da[q]), rs);
+    rs = warp_sum(rs);
+    for (int q = lane; q < d.SR; q += 32)
+      da[q] = q < d.R ? d.g1 * (a[q] * (rnd<BF16>(da[q]) - rs)) : 0.f;
+  }
+  __syncthreads();
+}
+
+// out[q][c0 + lane + 32 jj] (= if first, else +=) sum_m rnd?(P[m][q]) X[m][lane + 32 jj]
+// for q < R and features < D: one chunk of a d_regions product (P = a with
+// X = d_c, or P = d sim with X = the words), a warp 8 consecutive regions.
+template <bool BF16, bool ROUND_P>
+__device__ void fs_accumulate_dr(float* __restrict__ out, const float* P, const float* X, int c0,
+                                 const Dims& d, bool first) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int q0 = 0; q0 < d.R; q0 += FS_QG) {
+    const int qw = q0 + 8 * warp;
+    if (qw >= d.R) continue;  // the warp's regions: uniform across its lanes
+    float acc[8][4];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) acc[a][jj] = 0.f;
+    for (int m = 0; m < d.M; ++m) {  // qw + 7 < SR: P's padded columns are 0
+      const float4 p0 = *reinterpret_cast<const float4*>(P + m * d.SR + qw);
+      const float4 p1 = *reinterpret_cast<const float4*>(P + m * d.SR + qw + 4);
+      float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float xv[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) xv[jj] = X[m * FS_SW + lane + 32 * jj];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const float p = ROUND_P ? rnd<BF16>(pv[a]) : pv[a];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[a][jj] = fmaf(p, xv[jj], acc[a][jj]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int q = qw + a;
+      if (q >= d.R) continue;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int k = c0 + lane + 32 * jj;
+        if (k >= d.D) continue;
+        float* o = out + size_t(q) * d.D + k;
+        *o = first ? acc[a][jj] : *o + acc[a][jj];
+      }
+    }
+  }
+}
+
+// d_regions: block image i.  Its caption sub-blocks add rnd(a)^T d_c (a
+// chunk at a time, as the chain forms d_c) and d sim^T W into dr[i] ([R][D]),
+// in order: one owner per element, no split, no scratch, no atomics.
+template <typename T, int MB, bool BF16>
+__global__ void __launch_bounds__(FS_THREADS)
+damsm_bwd_dr_fs_kernel(const T* __restrict__ r, const T* __restrict__ w,
+                       const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                       float* __restrict__ dr, Dims d) {
+  extern __shared__ float4 smem_raw[];
+  const FsSmem s = fs_carve(reinterpret_cast<float*>(smem_raw), d, true);
+  const int i = blockIdx.x;
+  const int nsub = (d.Bc + d.vb - 1) / d.vb;
+  float* acc_out = dr + size_t(i) * d.R * d.D;
+  for (int sb = 0; sb < nsub; ++sb) {
+    const int j0 = sb * d.vb;
+    const bool first = sb == 0;
+    fs_backward_chain<T, MB, BF16, false>(r, w, mask, g, i, j0, d, s, nullptr, 0, [&](int c0) {
+      fs_accumulate_dr<BF16, true>(acc_out, s.S, s.DC, c0, d, first);
+    });
+    for (int c0 = 0; c0 < d.D; c0 += FS_KF) {  // d sim^T W
+      __syncthreads();
+      fs_load_words(w, j0, c0, d, s.Wc);
+      __syncthreads();
+      fs_accumulate_dr<BF16, false>(acc_out, s.DA, s.Wc, c0, d, false);
+    }
+    __syncthreads();
+  }
+}
+
+// d_words: block (caption sub-block, split).  The split's images add
+// d rel * rnd(c_hat) + d sim R into partial[split][captions of the block].
+template <typename T, int MB, bool BF16>
+__global__ void __launch_bounds__(FS_THREADS)
+damsm_bwd_dw_fs_kernel(const T* __restrict__ r, const T* __restrict__ w,
+                       const uint8_t* __restrict__ mask, const float* __restrict__ g,
+                       float* __restrict__ partial, Dims d, int nsplit) {
+  extern __shared__ float4 smem_raw[];
+  const FsSmem s = fs_carve(reinterpret_cast<float*>(smem_raw), d, true);
+  const int j0 = blockIdx.x * d.vb, split = blockIdx.y;
+  const int per = (d.B + nsplit - 1) / nsplit;
+  const int i0 = split * per, i1 = min(d.B, i0 + per);
+  const int rows = min(d.vb, d.Bc - j0) * d.T;  // rows of real captions
+  float* acc_out = partial + (size_t(split) * d.Bc * d.T + size_t(j0) * d.T) * d.D;
+  for (size_t e = threadIdx.x; e < size_t(rows) * d.D; e += FS_THREADS) acc_out[e] = 0.f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = i0; i < i1; ++i) {
+    fs_backward_chain<T, MB, BF16, true>(r, w, mask, g, i, j0, d, s, acc_out, rows,
+                                         [](int) {});
+    for (int c0 = 0; c0 < d.D; c0 += FS_KF) {  // d sim R, a chunk at a time
+      float acc[MB][4];
+      fs_by_regions<T, MB, BF16, false>(acc, s.DA, r, i, c0, d, s.Rt);
+#pragma unroll
+      for (int a = 0; a < MB; ++a) {
+        const int m = warp + FS_WARPS * a;
+        if (m >= rows) continue;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int k = c0 + lane + 32 * jj;
+          if (k < d.D) acc_out[size_t(m) * d.D + k] += acc[a][jj];
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int MB, bool BF16>
+int launch_fwd_fs(const void* r, const void* w, const uint8_t* mask, float* out, const Dims& d,
+                  cudaStream_t st) {
+  auto k = damsm_fwd_fs_kernel<T, MB, BF16>;
+  const size_t bytes = fs_smem_bytes(d, false);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  dim3 grid(d.B, (d.Bc + d.vb - 1) / d.vb);
+  k<<<grid, FS_THREADS, bytes, st>>>(static_cast<const T*>(r), static_cast<const T*>(w), mask,
+                                     out, d);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int MB, bool BF16>
+int launch_dr_fs(const void* r, const void* w, const uint8_t* mask, const float* g, float* dr,
+                 const Dims& d, cudaStream_t st) {
+  auto k = damsm_bwd_dr_fs_kernel<T, MB, BF16>;
+  const size_t bytes = fs_smem_bytes(d, true);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  k<<<d.B, FS_THREADS, bytes, st>>>(static_cast<const T*>(r), static_cast<const T*>(w), mask, g,
+                                    dr, d);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int MB, bool BF16>
+int launch_dw_fs(const void* r, const void* w, const uint8_t* mask, const float* g,
+                 float* partial, float* dw, const Dims& d, int nsplit, cudaStream_t st) {
+  auto k = damsm_bwd_dw_fs_kernel<T, MB, BF16>;
+  const size_t bytes = fs_smem_bytes(d, true);
+  if (!prepare(k, bytes)) return int(cudaErrorInvalidValue);
+  k<<<dim3((d.Bc + d.vb - 1) / d.vb, nsplit), FS_THREADS, bytes, st>>>(
+      static_cast<const T*>(r), static_cast<const T*>(w), mask, g, partial, d, nsplit);
+  if (partial != dw) launch_sum(partial, dw, 1, nsplit, int64_t(d.Bc) * d.T * d.D, st);
+  return int(cudaGetLastError());
+}
+
+// Dispatch the feature-streamed kernels on the operand type; a warp takes
+// MB = FS_MB of a block's rows (those past M skipped).
+#define XMC_FS_DISPATCH(LAUNCH, ...)                                               \
+  do {                                                                             \
+    if (dtype == 0) return LAUNCH<float, FS_MB, false>(__VA_ARGS__);               \
+    if (dtype == 1) return LAUNCH<__nv_bfloat16, FS_MB, true>(__VA_ARGS__);        \
+    return int(cudaErrorInvalidValue);                                             \
+  } while (0)
+
 // Dispatch on the operand type and on MB = rows per warp (4 for <= 32 word
 // rows per block, else 8).
 #define XMC_DAMSM_DISPATCH(LAUNCH, ...)                                            \
@@ -3760,6 +4341,10 @@ extern "C" int xmc_damsm_fwd(const void* r, const void* w, const void* mask, voi
     return launch_fwd_f32<F32_FWD_ROWS / 8>(rf, wf, m, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
+  if (route == 3) {  // the feature-streamed kernel (either dtype), a caption sub-block a block
+    if (!fs_dims_ok(d, false)) return int(cudaErrorInvalidValue);
+    XMC_FS_DISPATCH(launch_fwd_fs, r, w, m, o, d, st);
+  }
   if (route != 0 || !dims_ok(d)) return int(cudaErrorInvalidValue);
   XMC_DAMSM_DISPATCH(launch_fwd, r, w, m, o, d, st);
 }
@@ -3803,6 +4388,10 @@ extern "C" int xmc_damsm_bwd_dr(const void* r, const void* w, const void* mask, 
     return launch_dr_f32<F32_ROWS / 8>(rf, wf, m, gg, p, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
+  if (route == 3) {  // the feature-streamed kernel (either dtype), one block an image, no split
+    if (!fs_dims_ok(d, true) || nsplit != 1) return int(cudaErrorInvalidValue);
+    XMC_FS_DISPATCH(launch_dr_fs, r, w, m, gg, o, d, st);
+  }
   if (route != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
   XMC_DAMSM_DISPATCH(launch_dr, r, w, m, gg, p, o, d, nsplit, st);
 }
@@ -3841,6 +4430,10 @@ extern "C" int xmc_damsm_bwd_dw(const void* r, const void* w, const void* mask, 
                : launch_dw_f32<F32D_ROWS_1024 / 8>(rf, wf, m, gg, pl, p, o, t, nsplit, st);
   }
   const Dims d = make_dims(B, Bc, R, T, D, vb, g1, g2);
+  if (route == 3) {  // the feature-streamed kernel (either dtype), a caption sub-block a block
+    if (!fs_dims_ok(d, true) || nsplit < 1) return int(cudaErrorInvalidValue);
+    XMC_FS_DISPATCH(launch_dw_fs, r, w, m, gg, p, o, d, nsplit, st);
+  }
   if (route != 0 || !dims_ok(d) || nsplit < 1) return int(cudaErrorInvalidValue);
   XMC_DAMSM_DISPATCH(launch_dw, r, w, m, gg, p, o, d, nsplit, st);
 }

@@ -152,9 +152,10 @@ def word_region_scores(region_feats: torch.Tensor, words_embs: torch.Tensor,
     (default: ``word_scores_backend``) picks the plain path
     (``damsm_score.damsm_scores_ref``: one einsum chain, or checkpointed
     caption blocks above ``block_elems``) or the fused kernels
-    (``damsm_score.damsm_scores``: any T, as sub-captions; D <= 1024), whose
-    limits on the shape (``damsm_score.sub_caption_width``) raise here,
-    before any work.  An explicit ``backend`` is obeyed; there is no
+    (``damsm_score.damsm_scores``: any T, as sub-captions, and any D, past
+    1,024 features on the feature-streamed route), whose one limit on the
+    shape (``damsm_score.sub_caption_width``: a word row in shared memory at
+    R) raises here, before any work.  An explicit ``backend`` is obeyed; there is no
     fallback between the two.
     ``compute_dtype`` (None, fp32 or bf16) is the operand type of the three
     pairwise products; accumulation and the reductions stay fp32.

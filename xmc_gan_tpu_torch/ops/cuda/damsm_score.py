@@ -18,10 +18,16 @@ the operands of the three products to bf16 (``r``, ``w``, ``a`` and
 ``c_hat``), and in the backward the two cotangents that autograd of the
 plain version rounds (``d c_hat`` and ``d a``); everything else is fp32.
 
-Routes, one rule per kernel (``route(which, R, D, compute_dtype)``): the
+Routes, one rule per kernel (``route(which, R, D, compute_dtype)``): every
+launch at D > 1024 runs on the feature-streamed CUDA-core kernels
+(``STREAMED_FEATURES``, plan ``plan_fs``, either dtype: a caption
+sub-block a block, the features streamed a chunk at a time through every
+product, so no width limits them; their backward takes rel from the fp32
+``c_hat``, as the Pallas kernel does, within the bf16 gradients'
+tolerance).  Below that the
 bf16 forward, d_regions and d_words run on the tensor cores
 (``TENSOR_CORES``; launch plans ``plan_fwd``, ``plan_dr`` and ``plan_dw``)
-if and only if R <= 256 and D <= 1024, the forward and d_regions with the
+if and only if R <= 256, the forward and d_regions with the
 image's regions resident in shared memory at D <= 256 and streamed through
 it in column chunks above, the d_words streaming them at every D (blocks of
 one pass of packed real words and a split of the images, d_w kept on chip
@@ -35,8 +41,8 @@ CUDA cores in passes of packed real words with the regions streamed
 [rows, D] sums in registers, above it (the wide kernels) a group of 256
 features at a time, never stored; the d_words as the bf16 one's blocks
 (pass, split of the images) with d_w on chip across the images.  Every
-kernel at R > 256 runs on the CUDA-core kernels that take a caption
-sub-block per block (``plan``), for D <= 1024.
+kernel at R > 256, D <= 1024 runs on the CUDA-core kernels that take a
+caption sub-block per block (``plan``).
 
 Any T: a block holds at most 64 word rows, so where T does not fit
 ``damsm_scores`` moves each caption's real words to the front, drops the
@@ -48,9 +54,9 @@ the last zero-padded, its padding masked), runs the kernels on the
 exact up to summation order (words are independent until the logsumexp
 over T).  The split is a function of the shape and the mask, never of the
 device, so the CPU runs the split the card runs; where T fits there is no
-split.  ``sub_caption_width`` also states the one limit left (D <= 1024,
-and a word row in shared memory); ``losses.word_region_scores`` asks it
-before routing a call here.
+split.  ``sub_caption_width`` also states the one limit left (a word row
+of the route's backward in shared memory at R, which no D reaches);
+``losses.word_region_scores`` asks it before routing a call here.
 
 Contract of ``damsm_scores`` (a ``torch.autograd.Function``):
 
@@ -80,6 +86,7 @@ __all__ = [
     "CUDA_CORES",
     "TENSOR_CORES",
     "PACKED_FP32",
+    "STREAMED_FEATURES",
     "KERNEL",
     "DR_KERNEL",
     "DW_KERNEL",
@@ -91,6 +98,7 @@ __all__ = [
     "damsm_scores_ref",
     "combine_sub_scores",
     "cuda_core_rows",
+    "fs_rows",
     "kernel_name",
     "packed_rows",
     "plan",
@@ -99,6 +107,7 @@ __all__ = [
     "plan_dw",
     "plan_dw_f32",
     "plan_fwd",
+    "plan_fs",
     "plan_fwd_f32",
     "route",
     "split_captions",
@@ -135,7 +144,8 @@ D_WORDS = LaunchCount()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the routes (``route``) and their codes in the C entry points
 CUDA_CORES, TENSOR_CORES, PACKED_FP32 = "cuda_cores", "tensor_cores", "packed_fp32"
-_ROUTE_CODE = {CUDA_CORES: 0, TENSOR_CORES: 1, PACKED_FP32: 2}
+STREAMED_FEATURES = "streamed_features"
+_ROUTE_CODE = {CUDA_CORES: 0, TENSOR_CORES: 1, PACKED_FP32: 2, STREAMED_FEATURES: 3}
 
 # Kernel limits, mirrored from csrc/damsm_score.cu: word rows per block (a
 # sub-block of vb captions has vb*T rows), padded feature width, region rows
@@ -179,6 +189,13 @@ F32W_DG = 256
 # the fp32 d_words (packed words, regions streamed at every D): word rows per
 # pass by the D they reach (32 to 256, 16 to 1024)
 F32D_ROWS = {256: 32, 1024: 16}
+# the feature-streamed kernels (``STREAMED_FEATURES``, every launch at
+# D > MAX_DP): features of a streamed chunk, the row stride of a chunk tile;
+# the bytes of d_regions' or d_words' scratch above which they take no more
+# splits
+FS_KF = 128
+FS_SW = FS_KF + 4
+FS_SCRATCH_BYTES = 2**28
 
 
 def _round_up(x: int, m: int) -> int:
@@ -187,18 +204,23 @@ def _round_up(x: int, m: int) -> int:
 
 def route(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -> str:
     """The route rule, per kernel (``which``: "fwd", "dr" or "dw"):
-    ``TENSOR_CORES`` for the bf16 forward, d_regions and d_words if and
-    only if R <= 256 and D <= 1024 (the forward's and d_regions' regions
-    resident at D <= 256, streamed above; the d_words' streamed at every
-    D); ``PACKED_FP32`` for every other compute dtype under the same rule
-    (passes of packed real words, the regions streamed; the wide forward
-    and d_regions above D = 256); ``CUDA_CORES`` for every launch at
-    R > 256.  So the three kernels of a call share one route.  T plays no
-    part: the kernels see sub-captions of at most 64 slots.  The launches,
-    the plans, ``kernel_name`` and ``sub_caption_width`` all read it."""
+    ``STREAMED_FEATURES`` for every launch at D > 1024, at any R and in
+    both compute dtypes (the features streamed a chunk at a time, so no
+    width limits it); below that ``TENSOR_CORES`` for the bf16 forward,
+    d_regions and d_words if and only if R <= 256 (the forward's and
+    d_regions' regions resident at D <= 256, streamed above; the d_words'
+    streamed at every D); ``PACKED_FP32`` for every other compute dtype
+    under the same rule (passes of packed real words, the regions
+    streamed; the wide forward and d_regions above D = 256); ``CUDA_CORES``
+    for every launch at R > 256.  So the three kernels of a call share one
+    route.  T plays no part: the kernels see sub-captions of at most 64
+    slots.  The launches, the plans, ``kernel_name`` and
+    ``sub_caption_width`` all read it."""
     if which not in ("fwd", "dr", "dw"):
         raise ValueError(f"which must be 'fwd', 'dr' or 'dw', got {which!r}")
-    if R <= TC_MAX_RD and D <= TCS_MAX_D:
+    if D > MAX_DP:
+        return STREAMED_FEATURES
+    if R <= TC_MAX_RD:
         return TENSOR_CORES if compute_dtype == torch.bfloat16 else PACKED_FP32
     return CUDA_CORES
 
@@ -219,6 +241,40 @@ def cuda_core_rows(R: int, D: int, backward: bool) -> int:
     return max(0, min(MAX_ROWS, (SMEM_LIMIT - fixed) // per_row))
 
 
+def _fs_smem(R: int, backward: bool) -> tuple[int, int]:
+    """(bytes per word row, fixed bytes) of a feature-streamed block's shared
+    memory, as ``csrc/damsm_score.cu`` computes it (``fs_smem_bytes``): the
+    ``[rows, SR]`` sim / attention (and its cotangent in the backward), a
+    chunk of the words ``[rows, FS_SW]`` (and of d_c in the backward) and 4
+    row scalars, beside a tile of region rows ``[32, FS_SW]`` (fp32).  No
+    term depends on D."""
+    k, sr = (2 if backward else 1), _round_up(R, RT)
+    return 4 * (k * sr + k * FS_SW + 4), 4 * RT * FS_SW
+
+
+def fs_rows(R: int, backward: bool) -> int:
+    """Word rows a feature-streamed block holds at R: at most 64, as many as
+    shared memory takes (0 where not one fits)."""
+    per_row, fixed = _fs_smem(R, backward)
+    return max(0, min(MAX_ROWS, (SMEM_LIMIT - fixed) // per_row))
+
+
+def plan_fs(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
+    """(captions per block ``vb``, dynamic shared memory bytes) for one
+    feature-streamed kernel (``STREAMED_FEATURES``): as many captions as
+    shared memory holds (``fs_rows``), at most ``bc``, at any D.  Raises
+    where even one caption does not fit (T > 64 or more rows than
+    ``fs_rows``), naming the bytes a word row needs."""
+    if T > MAX_ROWS:
+        raise ValueError(f"damsm_score kernels take T <= {MAX_ROWS}; got T={T}, D={D}")
+    per_row, fixed = _fs_smem(R, backward)
+    vb = min(MAX_ROWS // T, fs_rows(R, backward) // T, bc)
+    if vb < 1:
+        raise ValueError(f"damsm_score: R={R}, T={T}, D={D} does not fit in shared memory (a "
+                         f"word row needs {per_row} bytes beside {fixed}, of {SMEM_LIMIT})")
+    return vb, fixed + per_row * vb * T
+
+
 def plan(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
     """(captions per block ``vb``, dynamic shared memory bytes) for one
     CUDA-core kernel: as many captions as shared memory holds, at most
@@ -226,8 +282,8 @@ def plan(R: int, T: int, D: int, backward: bool, bc: int) -> tuple[int, int]:
     or more rows than ``cuda_core_rows``)."""
     dp = _round_up(D, 8)
     if T > MAX_ROWS or dp > MAX_DP:
-        raise ValueError(f"damsm_score kernels take T <= {MAX_ROWS} and D <= {MAX_DP}; "
-                         f"got T={T}, D={D}")
+        raise ValueError(f"the CUDA-core damsm_score kernels take T <= {MAX_ROWS} and "
+                         f"D <= {MAX_DP}; got T={T}, D={D}")
     per_row, fixed = _cuda_core_smem(R, D, backward)
     vb = min(MAX_ROWS // T, (SMEM_LIMIT - fixed) // (per_row * T), bc)
     if vb < 1:
@@ -486,13 +542,17 @@ def kernel_name(which: str, R: int, D: int, compute_dtype: torch.dtype | None) -
     (``route``): on the tensor cores with the regions resident
     (``_tc_kernel<``) or streamed (``_tcs_kernel<``; the d_words at every
     D), the fp32 kernels with packed words (``_f32_kernel<``; the forward's
-    and d_regions' ``_f32w_kernel<`` at D > 256), else on the CUDA cores
+    and d_regions' ``_f32w_kernel<`` at D > 256), the feature-streamed ones
+    at D > 1024 (``_fs_kernel<``, either dtype), else on the CUDA cores
     (templated on the operand type, except the forward's kernels)."""
     rt = route(which, R, D, compute_dtype)
     if rt == TENSOR_CORES:
         return _tc_kernel(which, R, D).name
     if rt == PACKED_FP32:
         return _f32_kernel(which, D).name
+    if rt == STREAMED_FEATURES:
+        return {"fwd": "damsm_fwd_fs_kernel<", "dr": "damsm_bwd_dr_fs_kernel<",
+                "dw": "damsm_bwd_dw_fs_kernel<"}[which]
     bf16 = compute_dtype == torch.bfloat16
     return {"fwd": "damsm_fwd_bf16_kernel<" if bf16 else "damsm_fwd_kernel<",
             "dr": "damsm_bwd_dr_kernel<" + ("__nv_bfloat16" if bf16 else "float"),
@@ -516,19 +576,22 @@ def sub_caption_width(R: int, T: int, D: int, compute_dtype: torch.dtype | None)
     kernels (``packed_rows``: no split, as the flagship's T = 20), else half
     of those rows (rows are multiples of 8: 32, 24, 16, 12 or 8 slots), so
     that a caption's last, partial sub-caption shares a pass with the next
-    caption's.  On the CUDA cores (R > 256): the least of T and the
-    CUDA-core backward's rows (``cuda_core_rows``), fewer than the
+    caption's.  On the CUDA cores (R > 256, D <= 1024) and the
+    feature-streamed route (D > 1024): the least of T and the route's
+    backward rows at R (``cuda_core_rows``, ``fs_rows``), fewer than the
     forward's.  A pure function of the shape: the CPU splits as the card
-    does.  Raises for D > 1024 or where not one word row fits in shared
-    memory."""
-    if D > MAX_DP:
-        raise ValueError(f"damsm_score kernels take D <= {MAX_DP}; got R={R}, T={T}, D={D}")
-    if route("fwd", R, D, compute_dtype) != CUDA_CORES:
+    does.  Raises only where not one word row fits in shared memory, naming
+    the bytes it needs."""
+    rt = route("fwd", R, D, compute_dtype)
+    if rt in (TENSOR_CORES, PACKED_FP32):
         rows = packed_rows(R, D, compute_dtype)
         return T if T <= rows else rows // 2
-    width = cuda_core_rows(R, D, backward=True)
+    if rt == STREAMED_FEATURES:
+        width, (per_row, fixed) = fs_rows(R, backward=True), _fs_smem(R, backward=True)
+    else:
+        width, (per_row, fixed) = (cuda_core_rows(R, D, backward=True),
+                                   _cuda_core_smem(R, D, backward=True))
     if width < 1:
-        per_row, fixed = _cuda_core_smem(R, D, backward=True)
         raise ValueError(f"damsm_score: R={R}, D={D} does not fit in shared memory (a word "
                          f"row of the backward needs {per_row} bytes beside {fixed}, of "
                          f"{SMEM_LIMIT})")
@@ -655,6 +718,21 @@ def _nsplit(device: torch.device, blocks: int, work_units: int) -> int:
     return max(1, min(work_units, math.ceil(4 * _sms(device) / blocks)))
 
 
+def fs_nsplit(which: str, b: int, bc: int, T: int, D: int, nsub: int, sms: int) -> int:
+    """Splits of the feature-streamed backward's accumulation axis.  The
+    d_regions takes none: one block an image sums its captions in order, so
+    a data-parallel row block is bit-equal to those rows of the whole launch
+    and no ``[B, nsplit, R, D]`` scratch is needed.  The d_words' image
+    splits fill the card's ``sms`` with its ``nsub`` caption sub-blocks
+    without a second wave (a block takes a multiprocessor's shared memory),
+    at most one an image, and at most as many as keep its ``[nsplit, Bc, T,
+    D]`` fp32 scratch within ``FS_SCRATCH_BYTES``."""
+    if which == "dr":
+        return 1
+    cap = FS_SCRATCH_BYTES // (4 * bc * T * D)
+    return max(1, min(b, sms // nsub, cap))
+
+
 def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
                 library: CudaLibrary | None = None) -> torch.Tensor:
     """One forward launch; ``library`` is the compiled source to launch
@@ -667,8 +745,9 @@ def _launch_fwd(r, w, mask, gamma1, gamma2, cd,
         vb, (rows, nsplit) = 0, plan_fwd(R, T, D, b, bc, _sms(r.device))[:2]
     elif rt == PACKED_FP32:
         vb, (rows, nsplit) = 0, plan_fwd_f32(R, T, D, b, bc, _sms(r.device))[:2]
-    else:
-        vb, rows, nsplit = plan(R, T, D, False, bc)[0], 0, 1
+    else:  # a caption sub-block a block
+        vb, rows, nsplit = (plan_fs if rt == STREAMED_FEATURES else plan)(
+            R, T, D, False, bc)[0], 0, 1
     out = torch.empty(b, bc, device=r.device, dtype=torch.float32)
     fn = (library or KERNEL).load().xmc_damsm_fwd
     with torch.cuda.device(r.device):
@@ -689,10 +768,13 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
     bc, T, _ = w.shape
     g = g.float().contiguous()
     rt = route(which, R, D, cd)
-    if rt != CUDA_CORES:  # passes of `rows` word rows
+    if rt in (TENSOR_CORES, PACKED_FP32):  # passes of `rows` word rows
         planner = {(TENSOR_CORES, "dr"): plan_dr, (TENSOR_CORES, "dw"): plan_dw,
                    (PACKED_FP32, "dr"): plan_dr_f32, (PACKED_FP32, "dw"): plan_dw_f32}[rt, which]
         vb, (rows, nsplit) = 0, planner(R, T, D, b, bc, _sms(r.device))[:2]
+    elif rt == STREAMED_FEATURES:  # a caption sub-block a block
+        vb, rows = plan_fs(R, T, D, True, bc)[0], 0
+        nsplit = fs_nsplit(which, b, bc, T, D, -(-bc // vb), _sms(r.device))
     else:
         vb, rows = plan(R, T, D, True, bc)[0], 0
         nsub = -(-bc // vb)
@@ -708,7 +790,7 @@ def _launch_bwd(which: str, r, w, mask, g, gamma1, gamma2, cd,
         partial = out if nsplit == 1 else torch.empty(
             nsplit, bc, T, D, device=r.device, dtype=torch.float32)
         plan_buf = torch.empty(bc + 2, device=r.device, dtype=torch.int32) \
-            if rt != CUDA_CORES else None  # the passes, cut on the card
+            if rt in (TENSOR_CORES, PACKED_FP32) else None  # the passes, cut on the card
         fn, counter = lib.xmc_damsm_bwd_dw, D_WORDS
         scratch = (plan_buf.data_ptr() if plan_buf is not None else None,)
     with torch.cuda.device(r.device):
